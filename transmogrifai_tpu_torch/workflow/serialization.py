@@ -1,0 +1,172 @@
+"""Model loading: the JAX package's saved models, served by the port.
+
+A model directory holds `op-model.json` (the manifest: features, stages,
+per-stage params), `arrays.npz` (params of >= 64 elements, referenced from
+the manifest as ``{"__npz__": key}``) and `integrity.json` (sha256 and
+size of each file, written last at save time). `load_model` verifies the
+integrity manifest before it reads anything else, then rebuilds each stage
+through `from_jax_params`, which maps a JAX package class name and its
+params onto the port's class. A class the port has not ported raises and
+names itself.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from transmogrifai_tpu_torch import types as T
+from transmogrifai_tpu_torch.device import DeviceLike, resolve_device
+from transmogrifai_tpu_torch.features.feature import Feature
+from transmogrifai_tpu_torch.stages.base import (
+    FeatureGeneratorStage, Stage, StageRegistry, Transformer)
+
+MANIFEST = "op-model.json"
+ARRAYS = "arrays.npz"
+INTEGRITY = "integrity.json"
+VERSION = 1
+
+
+class ModelIntegrityError(RuntimeError):
+    """A model directory failed integrity verification (missing,
+    truncated or altered file, or a save that never finished)."""
+
+    def __init__(self, path: str, reason: str):
+        self.path = path
+        self.reason = reason
+        super().__init__(
+            f"model artifact {path!r} failed integrity check: {reason}")
+
+
+def _sha256_file(path: str, chunk: int = 1 << 20) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for block in iter(lambda: fh.read(chunk), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def verify_model_dir(path: str) -> Dict[str, Any]:
+    """Check every file `integrity.json` lists against its recorded size
+    and sha256; returns the parsed integrity manifest. Raises
+    `ModelIntegrityError` on any mismatch or missing file."""
+    if not os.path.isdir(path):
+        raise ModelIntegrityError(path, "not a directory")
+    if not os.path.exists(os.path.join(path, MANIFEST)):
+        raise ModelIntegrityError(path, f"missing {MANIFEST}")
+    ipath = os.path.join(path, INTEGRITY)
+    if not os.path.exists(ipath):
+        raise ModelIntegrityError(
+            path, f"missing {INTEGRITY} — the save died before the "
+                  "integrity manifest landed, or this is a pre-integrity "
+                  "save (load with verify=False)")
+    try:
+        with open(ipath) as fh:
+            integrity = json.load(fh)
+    except ValueError as e:
+        raise ModelIntegrityError(path, f"unreadable {INTEGRITY}: {e}")
+    files = integrity.get("files")
+    if not isinstance(files, dict) or MANIFEST not in files:
+        raise ModelIntegrityError(path, f"malformed {INTEGRITY}")
+    for name, rec in files.items():
+        fpath = os.path.join(path, name)
+        if not os.path.exists(fpath):
+            raise ModelIntegrityError(path, f"{name} is missing")
+        size = os.path.getsize(fpath)
+        if size != rec.get("bytes"):
+            raise ModelIntegrityError(
+                path, f"{name} truncated or resized: {size} bytes on "
+                      f"disk, {rec.get('bytes')} recorded")
+        if _sha256_file(fpath) != rec.get("sha256"):
+            raise ModelIntegrityError(
+                path, f"{name} checksum mismatch (torn write or bit "
+                      "corruption)")
+    return integrity
+
+
+def _restore_arrays(value: Any, npz) -> Any:
+    if isinstance(value, dict):
+        if set(value.keys()) == {"__npz__"}:
+            if npz is None:
+                raise ValueError(
+                    "manifest references arrays.npz but the file is missing")
+            return npz[value["__npz__"]]
+        return {k: _restore_arrays(v, npz) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_restore_arrays(v, npz) for v in value]
+    return value
+
+
+def _ensure_stage_library() -> None:
+    """Import every ported stage module so the registry knows them."""
+    import transmogrifai_tpu_torch.automl.sanity_checker  # noqa: F401
+    import transmogrifai_tpu_torch.models.logistic  # noqa: F401
+    import transmogrifai_tpu_torch.models.trees  # noqa: F401
+    import transmogrifai_tpu_torch.ops.combiner  # noqa: F401
+    import transmogrifai_tpu_torch.ops.numeric  # noqa: F401
+    import transmogrifai_tpu_torch.ops.text  # noqa: F401
+
+
+def from_jax_params(class_name: str, params: Dict[str, Any],
+                    uid: Optional[str] = None) -> Stage:
+    """The port's stage for a JAX package stage class name and its params
+    (numpy arrays and JSON values, as `get_params()` returns them there).
+    Raises KeyError naming the class when the port has not ported it."""
+    _ensure_stage_library()
+    cls = StageRegistry.get(class_name)
+    params = dict(params)
+    if cls is FeatureGeneratorStage:
+        params["ftype"] = T.feature_type_by_name(params.pop("ftype"))
+    return cls(uid=uid, **params)
+
+
+def load_model(path: str, device: DeviceLike = "cuda", verify: bool = True):
+    """Load a model directory saved by the JAX package's `model.save` for
+    scoring on `device` (default CUDA; raises without it unless
+    ``device="cpu"``). `verify=True` checks the integrity manifest first."""
+    from transmogrifai_tpu_torch.workflow.workflow import WorkflowModel
+
+    dev = resolve_device(device)
+    if verify:
+        verify_model_dir(path)
+    with open(os.path.join(path, MANIFEST)) as fh:
+        manifest = json.load(fh)
+    if manifest["version"] != VERSION:
+        raise ValueError(f"Unsupported model version {manifest['version']}")
+
+    npz_path = os.path.join(path, ARRAYS)
+    npz = np.load(npz_path) if os.path.exists(npz_path) else None
+    try:
+        stages: Dict[str, Stage] = {
+            spec["uid"]: from_jax_params(
+                spec["class"], _restore_arrays(spec["params"], npz),
+                uid=spec["uid"])
+            for spec in manifest["stages"]}
+    finally:
+        if npz is not None:
+            npz.close()
+
+    features: Dict[str, Feature] = {}
+    for fe in manifest["features"]:
+        stage = stages.get(fe["origin_stage"])
+        parents = tuple(features[p] for p in fe["parents"])
+        if stage is not None and parents:
+            stage.input_features = parents
+        f = Feature(
+            name=fe["name"], ftype=T.feature_type_by_name(fe["ftype"]),
+            origin_stage=stage, parents=parents,
+            is_response=fe["is_response"], uid=fe["uid"])
+        if stage is not None:
+            stage._output = f
+        features[fe["uid"]] = f
+
+    fitted = {uid: s for uid, s in stages.items()
+              if isinstance(s, Transformer)}
+    result = [features[uid] for uid in manifest["result_features"]]
+    model = WorkflowModel(result_features=result, fitted=fitted, device=dev)
+    model.loaded_from = path
+    return model
