@@ -7,8 +7,8 @@ nor the JAX package. Phases, one JSON line each; any failure exits
 non-zero:
 
 1. the card's name and power limit (from nvidia-smi), then the build of
-   every CUDA kernel of the served path from `transmogrifai_tpu_torch/csrc`
-   with nvcc, all sources in parallel;
+   every CUDA kernel of the port from `transmogrifai_tpu_torch/csrc` with
+   nvcc, all sources in parallel;
 2. K4 `bin_features` against its plain PyTorch version at n in
    {1, 64, 891, 65536} x 496 features with the Titanic model's 31 edges
    per feature, with NaN cells and values exactly on edges: bin ids equal;
@@ -30,7 +30,31 @@ non-zero:
    milliseconds per batch for ladder buckets 1, 8 and 64; and, for
    buckets 1 and 64, the split of a batch's wall time into host phase and
    device segment, with the device's busy share from `torch.profiler`;
-7. the `kernels` line; then the card's line and the result line.
+7. the training kernels against their plain versions at the training
+   path's shapes (P = 6 pairs, n = 802 rows, d = 496 features, 32 bins,
+   levels 0, 5 and 9) and at n = 65536: K1 histograms within the f32
+   summation bound of the plain version (per cell 2·(m − 1)·2^-24·Σ|v|,
+   m the node's rows: both sum the same values in different orders) and
+   bit-equal run to run; K2 split features and bins equal
+   from the same histograms; K3 node ids equal, leaf values bit-equal to
+   the CPU's row-order sums and within atol 1e-6 of the card's
+   `index_add_`; K8 binned AuPR equal at 512 and 4096 buckets;
+8. the training path: the README quickstart's XGBoost family trained by
+   `Workflow.train(device="cuda")` at full width (891 rows, 1048 → 496
+   columns, min_child_weight {1, 10} x 3 folds, 200 rounds at depth 10,
+   early stopping 20), held to the JAX package's f32-mode results
+   committed in `testdata/titanic_quickstart_train_f32` (kept columns and
+   winner equal, fold and holdout AuPR within 1e-2), then
+   saved, reloaded with `load_model(device="cuda")` and scored on all 891
+   rows: equal to the in-memory model's scores. The launch counters are
+   set to 0 before the train and read after the reload's scores: K1, K2,
+   K3, K8 and K4 must all have launched;
+9. training timings: each training kernel at the path's shapes and at
+   n = 65536 beside its bound, its plain version and its one-call
+   yardstick (`index_add_` for K1, `bincount` for K8); the training wall
+   split into feature fit, sanity checker, sweep and refit; the device's
+   busy share of the sweep from `torch.profiler`;
+10. the `kernels` line; then the card's line and the result line.
 """
 
 import json
@@ -45,8 +69,13 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "transmogrifai_tpu_torch", "testdata",
                        "titanic_quickstart_gbt")
+TRAIN_FIXTURE = os.path.join(HERE, "transmogrifai_tpu_torch", "testdata",
+                             "titanic_quickstart_train_f32")
 TITANIC = os.path.join(HERE, "examples", "data", "titanic.csv")
 SIZES = (1, 64, 891, 65536)
+SERVING_KERNELS = ("bin_features", "tree_walk")
+TRAINING_KERNELS = ("histograms", "split_search", "route_level",
+                    "leaf_values", "binned_aupr", "bin_features")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; f32 outside the
 # tensor cores, the rate for the compares, index updates and adds here
 PEAK_BYTES_S = 3.35e12
@@ -63,6 +92,11 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -142,6 +176,370 @@ def prediction_of(scores):
     return {k: v.cpu().numpy() for k, v in scores[name].items()}
 
 
+# --------------------------------------------------------------------------- #
+# training kernels                                                            #
+# --------------------------------------------------------------------------- #
+
+FIT_P, FIT_N, FIT_D, FIT_BINS = 6, 802, 496, 32
+FIT_LEVELS = (0, 5, 9)
+
+
+def fit_inputs(rng, n: int, level: int, dev):
+    """Binned rows (n, 496) int8 with a duplicate column, node ids (6, n)
+    over the level's 2^level nodes, G and H (6, n)."""
+    Xb = rng.integers(0, FIT_BINS, (n, FIT_D)).astype(np.int8)
+    Xb[:, 7] = Xb[:, 3]
+    node = rng.integers(0, 2 ** level, (FIT_P, n)).astype(np.int32)
+    G = rng.normal(size=(FIT_P, n)).astype(np.float32)
+    H = rng.uniform(0.05, 1.0, (FIT_P, n)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (Xb, node, G, H)]
+
+
+SPLIT_KW = dict(reg_lambda=1.0, min_child_weight=[1.0, 10.0] * 3,
+                min_gain=0.8, min_gain_norm=0.0, feature_mask=None,
+                active_depth=[10] * FIT_P)
+
+
+def check_training_kernels(pt, pdm, rng, dev):
+    """Each training kernel against its plain version; returns the phase's
+    record and the inputs for the timings."""
+    worst = {"histograms": 0.0, "split_search": 0, "route_level": 0,
+             "leaf_values": 0.0, "binned_aupr": 0.0}
+    cases = {}
+    for n in (FIT_N, 65536):
+        for level in FIT_LEVELS:
+            Xb, node, G, H = fit_inputs(rng, n, level, dev)
+            n_nodes = 2 ** level
+            hg, hh = pt.histograms(Xb, node, G, H, n_nodes, FIT_BINS)
+            hg2, hh2 = pt.histograms(Xb, node, G, H, n_nodes, FIT_BINS)
+            wg, wh = pt.histograms_plain(Xb, node, G, H, n_nodes, FIT_BINS)
+            torch.cuda.synchronize()
+            if not (torch.equal(hg, hg2) and torch.equal(hh, hh2)):
+                raise AssertionError(f"K1 differs run to run (n={n}, "
+                                     f"level {level})")
+            err = max(float((hg - wg).abs().max()),
+                      float((hh - wh).abs().max()))
+            worst["histograms"] = max(worst["histograms"], err)
+            # two f32 summation orders of m values each stay within
+            # (m - 1) * 2^-24 * sum|v| of the exact sum (m: rows of the node)
+            m = int(torch.bincount(node.reshape(-1).long()).max())
+            for got, want, v in ((hg, wg, G), (hh, wh, H)):
+                mag, _ = pt.histograms_plain(Xb, node, v.abs(), v.abs(),
+                                             n_nodes, FIT_BINS)
+                tol = 2 * max(m - 1, 1) * 2.0 ** -24 * mag
+                if bool(((got - want).abs() > tol).any()):
+                    raise AssertionError(f"K1 disagrees beyond the f32 "
+                                         f"summation bound (n={n}, level "
+                                         f"{level})")
+            del wg, wh, hg2, hh2, mag, tol
+            f, b = pt.split_search(hg, hh, FIT_BINS, level=level, **SPLIT_KW)
+            wf, wb = pt.split_search_plain(hg, hh, FIT_BINS, level=level,
+                                           **SPLIT_KW)
+            diff = int((f != wf).sum() + (b != wb).sum())
+            worst["split_search"] = max(worst["split_search"], diff)
+            if diff:
+                raise AssertionError(f"K2 disagrees (n={n}, level {level})")
+            out = pt.route_level(Xb, node, f, b)
+            diff = int((out != pt.route_level_plain(Xb, node, f, b)).sum())
+            worst["route_level"] = max(worst["route_level"], diff)
+            if diff:
+                raise AssertionError(f"K3 route disagrees (n={n}, level "
+                                     f"{level})")
+            leaf = pt.leaf_values(out, G, H, 2 * n_nodes, 1.0, 0.0)
+            cpu = pt.leaf_values_plain(out.cpu(), G.cpu(), H.cpu(),
+                                       2 * n_nodes, 1.0, 0.0)
+            card = pt.leaf_values_plain(out, G, H, 2 * n_nodes, 1.0, 0.0)
+            if not torch.equal(leaf.cpu(), cpu):
+                raise AssertionError(f"K3 leaves differ from row-order sums "
+                                     f"(n={n}, level {level})")
+            err = float((leaf - card).abs().max())
+            worst["leaf_values"] = max(worst["leaf_values"], err)
+            torch.testing.assert_close(leaf, card, rtol=0, atol=1e-6)
+            cases[(n, level)] = (Xb, node, G, H, hg, hh, f, b, out)
+    for n in (FIT_N, 65536):
+        m = torch.from_numpy((rng.normal(size=(FIT_P, n)) * 2)
+                             .astype(np.float32)).to(dev)
+        y = torch.from_numpy((rng.random(n) < 0.38)
+                             .astype(np.float32)).to(dev)
+        w = torch.from_numpy((rng.random((FIT_P, n)) < 0.33)
+                             .astype(np.float32)).to(dev)
+        for n_bins, from_margin in ((512, True), (4096, False)):
+            s = m if from_margin else torch.sigmoid(m)
+            got = pdm.binned_aupr(s, y, w, n_bins, from_margin)
+            want = pdm.binned_aupr_plain(s, y, w, n_bins, from_margin)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst["binned_aupr"] = max(worst["binned_aupr"], err)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K8 disagrees (n={n}, {n_bins} "
+                                     "buckets)")
+        cases[("aupr", n)] = (m, y, w)
+    record = {"phase": "training_kernel_check", "pairs": FIT_P,
+              "rows": [FIT_N, 65536], "d": FIT_D, "bins": FIT_BINS,
+              "levels": list(FIT_LEVELS), "max_abs_err": worst,
+              "tolerance": {"histograms": "per cell 2(m-1) 2^-24 sum|v| "
+                            "(m: the node's rows); bit-equal run to run",
+                            "split_search": "equal", "route_level": "equal",
+                            "leaf_values": "bit-equal to row-order sums; "
+                            "atol 1e-6 to index_add_",
+                            "binned_aupr": "equal"}}
+    return record, cases
+
+
+def time_training_kernels(pt, pdm, cases):
+    """CUDA-event times of each training kernel at the training path's
+    shapes and at n = 65536, beside its bound, plain version and one-call
+    yardstick."""
+    out = {}
+    for (key, val) in cases.items():
+        if key[0] == "aupr":
+            continue
+        n, level = key
+        Xb, node, G, H, hg, hh, f, b, routed = val
+        P, d, B = FIT_P, FIT_D, FIT_BINS
+        n_nodes = 2 ** level
+        k1_bytes = n * d + 2 * P * n * 4 + P * n * 4 \
+            + 2 * P * n_nodes * d * B * 4
+        k1_bound, k1_by = bound(k1_bytes, 2 * P * n * d)
+        cell = (((node.long() + torch.arange(P, device=node.device)[:, None]
+                  * n_nodes)[:, :, None] * d
+                 + torch.arange(d, device=node.device)) * B
+                + Xb.long()[None]).reshape(-1)
+        srcg = G[:, :, None].expand(P, n, d).reshape(-1)
+        srch = H[:, :, None].expand(P, n, d).reshape(-1)
+        size = P * n_nodes * d * B
+
+        def library():
+            torch.zeros(size, device=G.device).index_add_(0, cell, srcg)
+            torch.zeros(size, device=G.device).index_add_(0, cell, srch)
+        k1 = {"ms": cuda_ms(lambda: pt.histograms(Xb, node, G, H, n_nodes,
+                                                  B), 20),
+              "segments_ms": cuda_ms(lambda: pt.node_segments(node, n_nodes),
+                                     20),
+              "plain_ms": cuda_ms(lambda: pt.histograms_plain(
+                  Xb, node, G, H, n_nodes, B), 3),
+              "library_ms": cuda_ms(library, 5),
+              "bound_ms": k1_bound, "bound_by": k1_by, "bytes": k1_bytes}
+        del cell, srcg, srch
+        k2_bytes = 2 * P * n_nodes * d * B * 4 + 2 * P * n_nodes * 4
+        k2_bound, k2_by = bound(k2_bytes, 14 * P * n_nodes * d * B)
+        k2 = {"ms": cuda_ms(lambda: pt.split_search(
+                  hg, hh, B, level=level, **SPLIT_KW), 20),
+              "plain_ms": cuda_ms(lambda: pt.split_search_plain(
+                  hg, hh, B, level=level, **SPLIT_KW), 3),
+              "library_ms": None, "bound_ms": k2_bound, "bound_by": k2_by,
+              "bytes": k2_bytes}
+        cells = int(torch.unique(
+            torch.arange(n, device=Xb.device)[None] * d
+            + torch.gather(f.long(), 1, node.long())).numel())
+        k3r_bytes = 2 * P * n * 4 + cells + 2 * P * n_nodes * 4
+        k3r_bound, k3r_by = bound(k3r_bytes, 3 * P * n)
+        k3r = {"ms": cuda_ms(lambda: pt.route_level(Xb, node, f, b), 50),
+               "plain_ms": cuda_ms(lambda: pt.route_level_plain(
+                   Xb, node, f, b), 10),
+               "library_ms": None, "bound_ms": k3r_bound,
+               "bound_by": k3r_by, "bytes": k3r_bytes}
+        L = 2 * n_nodes
+        k3l_bytes = 3 * P * n * 4 + P * (L + 1) * 4 + P * L * 4
+        k3l_bound, k3l_by = bound(k3l_bytes, 2 * P * n + 5 * P * L)
+        k3l = {"ms": cuda_ms(lambda: pt.leaf_values(routed, G, H, L, 1.0,
+                                                    0.0), 50),
+               "plain_ms": cuda_ms(lambda: pt.leaf_values_plain(
+                   routed, G, H, L, 1.0, 0.0), 10),
+               "library_ms": None, "bound_ms": k3l_bound,
+               "bound_by": k3l_by, "bytes": k3l_bytes}
+        out[f"n{n}_level{level}"] = {
+            "histograms": k1, "split_search": k2, "route_level": k3r,
+            "leaf_values": k3l}
+        emit({"phase": "training_timing", "n": n, "level": level,
+              **out[f"n{n}_level{level}"]})
+    for n in (FIT_N, 65536):
+        m, y, w = cases[("aupr", n)]
+        nb = 512
+        k8_bytes = 2 * FIT_P * n * 4 + n * 4 + FIT_P * 4
+        k8_bound, k8_by = bound(k8_bytes, 10 * FIT_P * n + 8 * FIT_P * nb)
+        bucket = (pdm.score_bins(m, nb, True).long()
+                  + torch.arange(FIT_P, device=m.device)[:, None] * nb
+                  ).reshape(-1)
+        wy = (w * y).reshape(-1)
+        wf = w.reshape(-1)
+
+        def library():
+            torch.bincount(bucket, weights=wy, minlength=FIT_P * nb)
+            torch.bincount(bucket, weights=wf, minlength=FIT_P * nb)
+        k8 = {"ms": cuda_ms(lambda: pdm.binned_aupr(m, y, w, nb, True), 50),
+              "plain_ms": cuda_ms(lambda: pdm.binned_aupr_plain(
+                  m, y, w, nb, True), 10),
+              "library_ms": cuda_ms(library, 50), "bound_ms": k8_bound,
+              "bound_by": k8_by, "bytes": k8_bytes}
+        out[f"n{n}_aupr512"] = {"binned_aupr": k8}
+        emit({"phase": "training_timing", "n": n, "buckets": nb,
+              "binned_aupr": k8})
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# the training path                                                           #
+# --------------------------------------------------------------------------- #
+
+XGB = dict(n_estimators=200, eta=0.02, max_depth=10, gamma=0.8,
+           early_stopping_rounds=20)
+GRID = [{"min_child_weight": 1.0}, {"min_child_weight": 10.0}]
+# near-tie splits (f32 histogram sums in another order than XLA's) change
+# single trees and so the round where a fold's early stopping lands
+# (tests/test_torch_train.py docstring)
+FOLD_AUPR_ATOL = 1e-2
+HOLDOUT_AUPR_ATOL = 1e-2
+
+
+def quickstart_selector(port, ds):
+    preds, label = port.FeatureBuilder.from_dataset(ds, response="survived")
+    checked = label.sanity_check(port.transmogrify(preds),
+                                 remove_bad_features=True)
+    pred = port.BinaryClassificationModelSelector.with_cross_validation(
+        models=[(port.OpXGBoostClassifier(**XGB), GRID)]
+    ).set_input(label, checked).get_output()
+    return pred, label
+
+
+def fitted_of(model, name):
+    return next(s for s in model.fitted.values()
+                if type(s).__name__ == name)
+
+
+def train_path(port, pt, device="cuda"):
+    """Train, hold to the JAX fixture, save, reload, score; the launch
+    counters cover exactly this run."""
+    import tempfile
+
+    ds = port.Dataset.from_csv(TITANIC)
+    with open(os.path.join(TRAIN_FIXTURE, "results.json")) as fh:
+        want = json.load(fh)
+    with np.load(os.path.join(TRAIN_FIXTURE, "scores.npz")) as z:
+        want_arr = {k: z[k] for k in z.files}
+    pt.reset_launches()
+    t0 = time.perf_counter()
+    pred, label = quickstart_selector(port, ds)
+    model = port.Workflow().set_result_features(pred, label) \
+        .set_input_dataset(ds).train(device=device)
+    sync(device)
+    train_s = time.perf_counter() - t0
+    scores = prediction_of(model.score_compiled(ds))
+    path = tempfile.mkdtemp(prefix="port_model_")
+    model.save(path)
+    again = prediction_of(port.load_model(path, device=device)
+                          .score_compiled(ds))
+    sync(device)
+    launches = {k: pt.LAUNCHES[k] for k in TRAINING_KERNELS + ("tree_walk",)}
+
+    gbt = fitted_of(model, "GBTClassificationModel")
+    checker = fitted_of(model, "SanityCheckerModel")
+    summ = gbt.summary
+    folds = np.array([r.fold_metrics for r in summ.validation_results])
+    fold_err = float(np.abs(folds - np.array(want["fold_metrics"])).max())
+    hold_err = abs(summ.holdout_metrics["AuPR"]
+                   - want["holdout_metrics"]["AuPR"])
+    train_err = abs(summ.train_metrics["AuPR"]
+                    - want["train_metrics"]["AuPR"])
+    kept_equal = checker.indices == want_arr["kept_indices"].tolist()
+    reload_equal = all(np.array_equal(scores[k], again[k])
+                       for k in ("prediction", "rawPrediction",
+                                 "probability"))
+    score_err = {k: float(np.abs(scores[k] - want_arr[k]).max())
+                 for k in ("rawPrediction", "probability")}
+    stage = dict(model.stage_seconds)
+    feature_fit = sum(v for k, v in model.stage_seconds
+                      if k not in ("SanityChecker", "ModelSelector"))
+    ok = (kept_equal and len(checker.indices) == 496
+          and summ.best_grid == want["best_grid"]
+          and fold_err <= FOLD_AUPR_ATOL and hold_err <= HOLDOUT_AUPR_ATOL
+          and reload_equal and np.isfinite(scores["probability"]).all()
+          and scores["probability"].shape == (891, 2)
+          and all(launches[k] >= 1 for k in TRAINING_KERNELS))
+    record = {
+        "phase": "train", "rows": 891,
+        "columns": {"combined": 1048, "kept": len(checker.indices)},
+        "kept_equal": kept_equal, "best_grid": summ.best_grid,
+        "best_grid_equal": summ.best_grid == want["best_grid"],
+        "fold_aupr": folds.tolist(), "fold_aupr_max_abs_err": fold_err,
+        "holdout_aupr": summ.holdout_metrics["AuPR"],
+        "holdout_aupr_abs_err": hold_err, "train_aupr_abs_err": train_err,
+        "refit_rounds": gbt.refit_rounds,
+        "refit_rounds_jax": want["refit_rounds"],
+        "scores_max_abs_err_vs_jax": score_err,
+        "reload_scores_equal": reload_equal,
+        "tolerance": {"fold_aupr": FOLD_AUPR_ATOL,
+                      "holdout_aupr": HOLDOUT_AUPR_ATOL},
+        "launches_main_path": launches,
+        "wall_s": {"train": train_s, "feature_fit": feature_fit,
+                   "sanity_checker": stage.get("SanityChecker"),
+                   "selector": stage.get("ModelSelector"),
+                   "sweep": summ.timings["sweep_s"],
+                   "refit": summ.timings["refit_s"]},
+        "ok": bool(ok)}
+    emit(record)
+    if not ok:
+        raise AssertionError("the training path disagrees with the JAX "
+                             "package's f32 fixture")
+    return model, ds, record
+
+
+def sweep_busy_share(port, model, ds, device="cuda"):
+    """The sweep of the trained selector run again under torch.profiler:
+    the device's busy and idle share of its wall time."""
+    from transmogrifai_tpu_torch.parallel.sweep import run_sweep
+    from transmogrifai_tpu_torch.selector.splitters import DataBalancer
+    from transmogrifai_tpu_torch.selector.validators import OpCrossValidation
+    from transmogrifai_tpu_torch.stages.base import FitContext
+    from transmogrifai_tpu_torch.evaluators.evaluators import (
+        BinaryClassificationEvaluator)
+
+    cols = model.score(ds, keep_intermediate=True)
+    checker = fitted_of(model, "SanityCheckerModel")
+    X_all = torch.as_tensor(cols[checker.get_output().uid].data,
+                            device=device)
+    y = np.asarray(ds.column("survived"), dtype=np.float64)
+    bal = DataBalancer(seed=42)
+    tr, _, _ = bal.split(y)
+    tr, _ = bal.prepare(y, tr)
+    X = X_all[torch.as_tensor(tr, device=device)]
+    yd = torch.as_tensor(y[tr].astype(np.float32), device=device)
+    folds = OpCrossValidation(n_folds=3, seed=42).splits(y[tr])
+    est = port.OpXGBoostClassifier(**XGB)
+    ctx = FitContext(n_rows=891, seed=42 * 1000003 + 4, device=device)
+    ev = BinaryClassificationEvaluator()
+    run_sweep(est, GRID, X, yd, folds, ev, ctx)  # warm
+    sync(device)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    ctx = FitContext(n_rows=891, seed=42 * 1000003 + 4, device=device)
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        run_sweep(est, GRID, X, yd, folds, ev, ctx)
+        sync(device)
+        wall = (time.perf_counter() - t) * 1e3
+    items = sorted(((e.key, e.self_device_time_total / 1e3)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    busy = sum(v for _, v in items)
+    t = time.perf_counter()
+    run_sweep(est, GRID, X, yd, folds, ev,
+              FitContext(n_rows=891, seed=42 * 1000003 + 4, device=device))
+    sync(device)
+    plain_wall = (time.perf_counter() - t) * 1e3
+    record = {"phase": "sweep_breakdown", "wall_ms": plain_wall,
+              "wall_ms_profiled": wall,
+              "device_busy_ms": busy if items else "not measured",
+              "device_busy_share": busy / plain_wall if items
+              else "not measured",
+              "device_idle_share": 1 - busy / plain_wall if items
+              else "not measured",
+              "top_device_items_ms": items[:8]}
+    emit(record)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -160,7 +558,7 @@ def main() -> int:
 
     # 1. build ------------------------------------------------------------- #
     t0 = time.perf_counter()
-    secs = cuda_build.build(["bin_features", "tree_walk"])
+    secs = cuda_build.build(cuda_build.SOURCES)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_source_s": {k: round(v, 3) for k, v in secs.items()},
           "ptxas": cuda_build.PTXAS_INFO})
@@ -218,7 +616,7 @@ def main() -> int:
     main_model = load_model(FIXTURE, device="cuda")
     got = prediction_of(main_model.score_compiled(ds))
     torch.cuda.synchronize()
-    per_batch = dict(pt.LAUNCHES)
+    per_batch = {k: pt.LAUNCHES[k] for k in SERVING_KERNELS}
     raw_err = float(np.abs(got["rawPrediction"] - want["rawPrediction"]).max())
     prob_err = float(np.abs(got["probability"] - want["probability"]).max())
     decided = np.abs(want["rawPrediction"][:, 1]) > 1e-4
@@ -257,11 +655,21 @@ def main() -> int:
         health = svc.health()
     finally:
         svc.stop()
-    launches = dict(pt.LAUNCHES)
+    launches = {k: pt.LAUNCHES[k] for k in SERVING_KERNELS}
     if not all(v >= 1 for v in launches.values()):
         raise AssertionError(f"a kernel never launched: {launches}")
     emit({"phase": "service", "requests": answered, "equal": True,
           "health": health, "launches_main_path": launches})
+
+    # 7. training kernels against their plain versions --------------------- #
+    from transmogrifai_tpu_torch.evaluators import device_metrics as pdm
+    import transmogrifai_tpu_torch as port
+    check, fit_cases = check_training_kernels(pt, pdm, rng, dev)
+    emit(check)
+
+    # 8. the training path ---------------------------------------------------- #
+    trained, train_ds, train_rec = train_path(port, pt)
+    train_launches = train_rec["launches_main_path"]
 
     # 6. timings ------------------------------------------------------------ #
     timing = {}
@@ -355,8 +763,24 @@ def main() -> int:
               else "not measured",
               "top_device_items_ms": dev_items[:6]})
 
-    # 7. the kernels line, the card, the result ----------------------------- #
+    # 9. training timings ------------------------------------------------- #
+    fit_timing = time_training_kernels(pt, pdm, fit_cases)
+    del fit_cases
+    sweep_busy_share(port, trained, train_ds)
+
+    # 10. the kernels line, the card, the result --------------------------- #
     main_n = timing[891]
+    deep = fit_timing[f"n{FIT_N}_level9"]
+    aupr = fit_timing[f"n{FIT_N}_aupr512"]["binned_aupr"]
+    errs = check["max_abs_err"]
+
+    def train_entry(name, source, replaces, t):
+        return {"name": name, "route": "cuda",
+                "source": f"transmogrifai_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": train_launches[name],
+                "max_abs_err": errs[name],
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
     emit({"kernels": [
         {"name": "bin_features", "route": "cuda",
          "source": "transmogrifai_tpu_torch/csrc/bin_features.cu",
@@ -370,6 +794,20 @@ def main() -> int:
          "launches": launches["tree_walk"], "max_abs_err": k5_err,
          **{k: main_n["tree_walk"][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        train_entry("histograms", "histograms.cu",
+                    "transmogrifai_tpu/models/trees.py:127",
+                    deep["histograms"]),
+        train_entry("split_search", "split_search.cu",
+                    "transmogrifai_tpu/models/trees.py:170",
+                    deep["split_search"]),
+        train_entry("route_level", "route_leaves.cu",
+                    "transmogrifai_tpu/models/trees.py:271",
+                    deep["route_level"]),
+        train_entry("leaf_values", "route_leaves.cu",
+                    "transmogrifai_tpu/models/trees.py:289",
+                    deep["leaf_values"]),
+        train_entry("binned_aupr", "binned_aupr.cu",
+                    "transmogrifai_tpu/models/trees.py:564", aupr),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

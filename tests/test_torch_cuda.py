@@ -9,7 +9,14 @@ with the conftest switched off:
         tests/test_torch_cuda.py -q
 
 Tolerances: bin ids equal; tree sums equal, because kernel and plain
-version add the same f32 leaf values in the same tree order.
+version add the same f32 leaf values in the same tree order. Training
+kernels: K1 histograms within rtol 1e-5 / atol 1e-5 of the plain version
+(`index_add_` adds in another order on the card) and bit-equal from run
+to run; K2 split features and bins equal when fed the same histograms
+(the same f32 operations in the same order, no fused multiply-adds); K3
+node ids equal and leaf values within atol 1e-6 of the plain version and
+bit-equal to a row-order f32 sum; K8 binned AuPR equal at 512 and 4096
+buckets.
 """
 
 import os
@@ -18,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from transmogrifai_tpu_torch.evaluators import device_metrics as pdm
 from transmogrifai_tpu_torch.models import trees as pt
 
 pytestmark = pytest.mark.cuda
@@ -112,10 +120,11 @@ def test_titanic_model_scores_on_the_card(cuda):
     csv = os.path.join(REPO, "examples", "data", "titanic.csv")
     model = load_model(FIXTURE, device="cuda")
     ds = Dataset.from_csv(csv)
-    before = dict(pt.LAUNCHES)
+    serving = ("bin_features", "tree_walk")
+    before = {k: pt.LAUNCHES[k] for k in serving}
     scores = model.score_compiled(ds)
     torch.cuda.synchronize()
-    assert all(pt.LAUNCHES[k] > before[k] for k in before)
+    assert all(pt.LAUNCHES[k] > before[k] for k in serving)
     name = next(k for k, v in scores.items()
                 if isinstance(v, dict) and "probability" in v)
     got = {k: v.cpu().numpy() for k, v in scores[name].items()}
@@ -128,3 +137,128 @@ def test_titanic_model_scores_on_the_card(cuda):
     decided = np.abs(want["rawPrediction"][:, 1]) > 1e-4
     np.testing.assert_array_equal(got["prediction"][decided],
                                   want["prediction"][decided])
+
+
+# --------------------------------------------------------------------------- #
+# training kernels (K1, K2, K3, K8)                                           #
+# --------------------------------------------------------------------------- #
+
+def _fit_inputs(rng, P, n, d, n_bins, n_nodes):
+    Xb = torch.from_numpy(rng.integers(0, n_bins, (n, d)).astype(np.int8))
+    Xb[:, min(3, d - 1)] = Xb[:, 0]  # a duplicate column: exact ties
+    node = torch.from_numpy(
+        rng.integers(0, n_nodes, (P, n)).astype(np.int32))
+    G = torch.from_numpy(rng.normal(size=(P, n)).astype(np.float32))
+    H = torch.from_numpy(rng.uniform(0.05, 1, (P, n)).astype(np.float32))
+    return Xb, node, G, H
+
+
+FIT_SHAPES = [(1, 1, 1, 2, 1), (3, 257, 7, 8, 4), (6, 802, 496, 32, 32),
+              (6, 802, 496, 32, 512), (2, 5000, 40, 32, 16)]
+
+
+@pytest.mark.parametrize("P,n,d,n_bins,n_nodes", FIT_SHAPES)
+def test_histograms_kernel_matches_plain(cuda, P, n, d, n_bins, n_nodes):
+    rng = np.random.default_rng(n + n_nodes)
+    args = [t.to(cuda) for t in _fit_inputs(rng, P, n, d, n_bins, n_nodes)]
+    before = pt.LAUNCHES["histograms"]
+    hg, hh = pt.histograms(*args, n_nodes, n_bins)
+    hg2, hh2 = pt.histograms(*args, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["histograms"] == before + 2
+    assert torch.equal(hg, hg2) and torch.equal(hh, hh2)
+    wg, wh = pt.histograms_plain(*args, n_nodes, n_bins)
+    torch.testing.assert_close(hg, wg, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hh, wh, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("P,n,d,n_bins,n_nodes", FIT_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_split_search_kernel_equals_plain(cuda, P, n, d, n_bins, n_nodes,
+                                          masked):
+    rng = np.random.default_rng(n * 3 + n_nodes)
+    args = [t.to(cuda) for t in _fit_inputs(rng, P, n, d, n_bins, n_nodes)]
+    hg, hh = pt.histograms(*args, n_nodes, n_bins)
+    fm = None
+    if masked:
+        fm = torch.from_numpy(rng.random((P, d)) < 0.7).to(cuda)
+    mcw = [1.0 + 2 * p for p in range(P)]
+    kw = dict(reg_lambda=1.0, min_child_weight=mcw, min_gain=0.1,
+              min_gain_norm=0.001, feature_mask=fm, level=3,
+              active_depth=[4] * P)
+    before = pt.LAUNCHES["split_search"]
+    f, b = pt.split_search(hg, hh, n_bins, **kw)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["split_search"] == before + 1
+    wf, wb = pt.split_search_plain(hg, hh, n_bins, **kw)
+    assert torch.equal(f, wf) and torch.equal(b, wb)
+
+
+@pytest.mark.parametrize("P,n,d,n_bins,n_nodes", FIT_SHAPES)
+def test_route_and_leaf_kernels_match_plain(cuda, P, n, d, n_bins, n_nodes):
+    rng = np.random.default_rng(n * 5 + n_nodes)
+    Xb, node, G, H = (t.to(cuda) for t in
+                      _fit_inputs(rng, P, n, d, n_bins, n_nodes))
+    feat = torch.from_numpy(rng.integers(0, d, (P, n_nodes))
+                            .astype(np.int32)).to(cuda)
+    bins = torch.from_numpy(rng.integers(0, n_bins + 1, (P, n_nodes))
+                            .astype(np.int32)).to(cuda)
+    before = dict(pt.LAUNCHES)
+    out = pt.route_level(Xb, node, feat, bins)
+    leaf = pt.leaf_values(out, G, H, 2 * n_nodes, [1.0] * P,
+                          [0.0, 0.2] * (P // 2) + [0.0] * (P % 2))
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["route_level"] == before["route_level"] + 1
+    assert pt.LAUNCHES["leaf_values"] == before["leaf_values"] + 1
+    assert torch.equal(out, pt.route_level_plain(Xb, node, feat, bins))
+    want = pt.leaf_values_plain(out.cpu(), G.cpu(), H.cpu(), 2 * n_nodes,
+                                [1.0] * P,
+                                [0.0, 0.2] * (P // 2) + [0.0] * (P % 2))
+    # the CPU's index_add_ adds in row order, as the kernel does
+    assert torch.equal(leaf.cpu(), want)
+
+
+@pytest.mark.parametrize("n_bins", [512, 4096])
+@pytest.mark.parametrize("from_margin", [True, False])
+def test_binned_aupr_kernel_equals_plain(cuda, n_bins, from_margin):
+    rng = np.random.default_rng(n_bins)
+    P, n = 6, 65536
+    m = rng.normal(size=(P, n)).astype(np.float32) * 3
+    if not from_margin:
+        m = 1 / (1 + np.exp(-m))
+    y = (rng.random(n) < 0.4).astype(np.float32)
+    w = (rng.random((P, n)) < 0.33).astype(np.float32)
+    M, Y, W = (torch.from_numpy(a).to(cuda) for a in (m, y, w))
+    before = pt.LAUNCHES["binned_aupr"]
+    got = pdm.binned_aupr(M, Y, W, n_bins, from_margin)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["binned_aupr"] == before + 1
+    want = pdm.binned_aupr_plain(M, Y, W, n_bins, from_margin)
+    assert torch.equal(got, want)
+
+
+def test_boosting_on_the_card_matches_the_cpu(cuda):
+    """Three early-stopped pairs boosted on the card and on the CPU: the
+    same split tables, margins within atol 1e-5."""
+    rng = np.random.default_rng(3)
+    n, d, P = 600, 30, 3
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = ((X[:, 0] + X[:, 3] + rng.normal(size=n)) > 0).astype(np.float32)
+    edges = torch.from_numpy(pt.quantile_bin_edges(X, 32))
+    fold = rng.integers(0, P, n)
+    W = torch.from_numpy(np.stack([fold != k for k in range(P)])
+                         .astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        Xb = pt.bin_features(torch.from_numpy(X).to(dev), edges.to(dev))
+        trees, margin, _ = pt.fit_gbt_pairs(
+            Xb, torch.from_numpy(y).to(dev), W.to(dev), 25, 6, 32, 0.1, 1.0,
+            [1.0, 5.0, 10.0], gamma=0.5,
+            val_w=(1 - W).to(dev), early_stopping_rounds=5,
+            eval_metric="aupr", keep_trees=True)
+        out[dev] = ({k: v.cpu() for k, v in trees.items()}, margin.cpu())
+    (tc, mc), (tg, mg) = out["cpu"], out["cuda"]
+    assert torch.equal(tc["bin"], tg["bin"])
+    split = tc["bin"] < 32
+    assert torch.equal(tc["feat"][split], tg["feat"][split])
+    torch.testing.assert_close(mg, mc, rtol=0, atol=1e-5)

@@ -1,23 +1,43 @@
 """transmogrifai_tpu_torch — the PyTorch/CUDA port of transmogrifai_tpu.
 
-This package serves models that the JAX package (`transmogrifai_tpu`)
-trained and saved: it loads the saved directory, plans the fitted feature
-DAG into host and device segments, and scores batches on an NVIDIA GPU
-(Hopper), with the tree-ensemble binning and walk as kernels written by
-hand in CUDA C++ (`csrc/`). It imports torch and numpy and nothing of the
-JAX package.
+This package trains the XGBoost family of the README quickstart and
+serves the models that it or the JAX package (`transmogrifai_tpu`)
+trained, on an NVIDIA GPU (Hopper). The tree learner's histograms, split
+search, routing and leaf sums, the binned AuPR, the binning and the
+ensemble walk are kernels written by hand in CUDA C++ (`csrc/`). It
+imports torch and numpy and nothing of the JAX package.
 
-    from transmogrifai_tpu_torch import Dataset, load_model
-    model = load_model("model_dir")              # device="cuda" by default
-    scores = model.score_compiled(Dataset.from_csv("rows.csv"))
+    from transmogrifai_tpu_torch import (
+        BinaryClassificationModelSelector, Dataset, FeatureBuilder,
+        OpXGBoostClassifier, Workflow, load_model, transmogrify)
+    ds = Dataset.from_csv("titanic.csv")
+    preds, label = FeatureBuilder.from_dataset(ds, response="survived")
+    checked = label.sanity_check(transmogrify(preds))
+    pred = BinaryClassificationModelSelector.with_cross_validation(
+        models=[(OpXGBoostClassifier(n_estimators=200, eta=0.02),
+                 [{"min_child_weight": 1.0}])],
+    ).set_input(label, checked).get_output()
+    model = Workflow().set_result_features(pred, label) \
+        .set_input_dataset(ds).train()          # device="cuda" by default
+    model.save("model_dir")                     # the JAX package's format
+    scores = load_model("model_dir").score_compiled(ds)
 
 Entry points default to ``device="cuda"`` and raise without CUDA unless
 the caller passes ``device="cpu"``.
 """
 
+from transmogrifai_tpu_torch import dsl  # noqa: F401  (attaches the DSL)
+from transmogrifai_tpu_torch.automl.transmogrify import transmogrify
 from transmogrifai_tpu_torch.data.dataset import Dataset
+from transmogrifai_tpu_torch.features.feature import FeatureBuilder
+from transmogrifai_tpu_torch.models.trees import (
+    OpGBTClassifier, OpXGBoostClassifier)
+from transmogrifai_tpu_torch.selector.model_selector import (
+    BinaryClassificationModelSelector)
 from transmogrifai_tpu_torch.workflow.serialization import (
     from_jax_params, load_model)
-from transmogrifai_tpu_torch.workflow.workflow import WorkflowModel
+from transmogrifai_tpu_torch.workflow.workflow import Workflow, WorkflowModel
 
-__all__ = ["Dataset", "WorkflowModel", "from_jax_params", "load_model"]
+__all__ = ["BinaryClassificationModelSelector", "Dataset", "FeatureBuilder",
+           "OpGBTClassifier", "OpXGBoostClassifier", "Workflow",
+           "WorkflowModel", "from_jax_params", "load_model", "transmogrify"]

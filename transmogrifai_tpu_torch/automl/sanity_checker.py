@@ -1,17 +1,207 @@
-"""SanityCheckerModel (scoring side): a static column gather of the kept
-indices — the port's counterpart of the fitted model in the JAX package's
-`automl/sanity_checker.py`."""
+"""SanityChecker: automated feature validation before model selection.
+
+The port's counterpart of the JAX package's `automl/sanity_checker.py`.
+The fit computes column moments and the full correlation matrix of
+[X | y] on the fit's device (K9: column reductions and one Gram matmul,
+plain torch), the categorical contingency statistics on the host, and
+drops columns by the reference's rules: variance below `min_variance`;
+|corr(feature, label)| above `max_correlation` or below
+`min_correlation`; |corr| with an earlier kept column above
+`max_feature_corr` (the later column drops); a categorical group's
+Cramér's V above `max_cramers_v`; rule confidence above
+`max_rule_confidence` at support above `min_required_rule_support`. The
+fitted model is a static column gather of the kept indices.
+
+Not ported yet (ROADMAP.md): Spearman correlation and the blocked Gram
+pass for more than 8192 columns.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from transmogrifai_tpu_torch import types as T
+from transmogrifai_tpu_torch.data.columns import Column
 from transmogrifai_tpu_torch.data.metadata import VectorMetadata
-from transmogrifai_tpu_torch.stages.base import Transformer
+from transmogrifai_tpu_torch.stages.base import (
+    Estimator, FitContext, Transformer)
 
+# reference defaults (SanityChecker.scala:561-578)
+CHECK_SAMPLE = 1.0
+SAMPLE_LOWER_LIMIT = 1_000
+SAMPLE_UPPER_LIMIT = 1_000_000
+MAX_CORRELATION = 0.95
+MAX_FEATURE_CORR = 0.99
+MIN_CORRELATION = 0.0
+MIN_VARIANCE = 1e-5
+MAX_CRAMERS_V = 0.95
+MAX_RULE_CONFIDENCE = 1.0
+MIN_REQUIRED_RULE_SUPPORT = 1.0
+_WIDE_D = 8192
+
+
+@dataclass
+class ColumnStats:
+    name: str
+    mean: float
+    variance: float
+    min: float
+    max: float
+    corr_label: float
+    cramers_v: Optional[float]
+    mutual_info: Optional[float] = None
+    max_rule_confidence: Optional[float] = None
+    support: Optional[float] = None
+    dropped: List[str] = field(default_factory=list)
+
+    def to_json(self) -> Dict:
+        return {
+            "name": self.name, "mean": self.mean, "variance": self.variance,
+            "min": self.min, "max": self.max, "corrLabel": self.corr_label,
+            "cramersV": self.cramers_v, "mutualInfo": self.mutual_info,
+            "maxRuleConfidence": self.max_rule_confidence,
+            "support": self.support, "dropped": self.dropped,
+        }
+
+
+@dataclass
+class CategoricalGroupStats:
+    group: str
+    cramers_v: float
+    mutual_info: float
+    pointwise_mutual_info: Dict[str, List[float]]
+    max_rule_confidences: List[float]
+    supports: List[float]
+
+    def to_json(self) -> Dict:
+        return {
+            "group": self.group, "cramersV": self.cramers_v,
+            "mutualInfo": self.mutual_info,
+            "pointwiseMutualInfo": self.pointwise_mutual_info,
+            "maxRuleConfidences": self.max_rule_confidences,
+            "supports": self.supports,
+        }
+
+
+@dataclass
+class SanityCheckerSummary:
+    n_rows: int
+    stats: List[ColumnStats]
+    kept_indices: List[int]
+    dropped_indices: List[int]
+    correlation_type: str = "pearson"
+    sample_fraction: float = 1.0
+    categorical_stats: List[CategoricalGroupStats] = field(
+        default_factory=list)
+
+    def to_json(self) -> Dict:
+        return {
+            "n_rows": self.n_rows,
+            "stats": [s.to_json() for s in self.stats],
+            "kept": self.kept_indices, "dropped": self.dropped_indices,
+            "correlationType": self.correlation_type,
+            "sampleFraction": self.sample_fraction,
+            "categoricalStats": [c.to_json() for c in self.categorical_stats],
+        }
+
+
+# --------------------------------------------------------------------------- #
+# K9: column reductions and the Gram correlation (plain torch)                #
+# --------------------------------------------------------------------------- #
+
+def _column_reductions(X: torch.Tensor) -> Dict[str, np.ndarray]:
+    """Per-column f32 sums, sums of squares, min and max."""
+    n = X.shape[0]
+    out = {"sx": X.sum(0), "sxx": (X * X).sum(0)}
+    if n:
+        out["min"], out["max"] = X.min(0).values, X.max(0).values
+    else:
+        out["min"] = out["max"] = torch.zeros(X.shape[1], device=X.device)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _corr_matrix(Z: torch.Tensor) -> np.ndarray:
+    """Full correlation matrix of (n, k) via one Gram matmul (f32, as in
+    the JAX package). Columns with zero variance correlate as 0."""
+    n = Z.shape[0]
+    Zc = Z - Z.mean(0)
+    cov = (Zc.T @ Zc).cpu().numpy() / max(n - 1, 1)
+    sd = np.sqrt(np.maximum(np.diag(cov), 0.0))
+    denom = np.outer(sd, sd)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        corr = np.where(denom > 0, cov / denom, 0.0)
+    return corr
+
+
+# --------------------------------------------------------------------------- #
+# host statistics                                                             #
+# --------------------------------------------------------------------------- #
+
+def _label_onehot(y: np.ndarray, max_card: int,
+                  force: Optional[bool] = None) -> Optional[np.ndarray]:
+    """One-hot label for contingency tests, or None if not categorical."""
+    if force is False:
+        return None
+    yi = np.round(y).astype(np.int64)
+    if force is not True and not np.allclose(y, yi, atol=1e-6):
+        return None
+    levels = np.unique(yi)
+    if len(levels) < 2 or (force is not True and len(levels) > max_card):
+        return None
+    lut = {v: i for i, v in enumerate(levels.tolist())}
+    idx = np.array([lut[v] for v in yi.tolist()])
+    oh = np.zeros((len(y), len(levels)), dtype=np.float32)
+    oh[np.arange(len(y)), idx] = 1.0
+    return oh
+
+
+def cramers_v(contingency: np.ndarray) -> float:
+    """Cramér's V from a levels × labels count table, empty rows/cols
+    filtered first."""
+    cont = contingency[contingency.sum(1) > 0][:, contingency.sum(0) > 0]
+    if cont.shape[0] < 2 or cont.shape[1] < 2:
+        return 0.0
+    n = cont.sum()
+    if n == 0:
+        return 0.0
+    row = cont.sum(axis=1, keepdims=True)
+    col = cont.sum(axis=0, keepdims=True)
+    expected = row @ col / n
+    with np.errstate(divide="ignore", invalid="ignore"):
+        chi2 = np.where(expected > 0,
+                        (cont - expected) ** 2 / expected, 0.0).sum()
+    denom = n * (min(cont.shape) - 1)
+    return float(np.sqrt(chi2 / denom)) if denom > 0 else 0.0
+
+
+def contingency_stats(cont: np.ndarray) -> Dict:
+    """PMI / mutual info / association-rule confidences from a levels ×
+    labels table."""
+    total = cont.sum()
+    row = cont.sum(axis=1)
+    col = cont.sum(axis=0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        pmi = np.where(
+            (cont > 0) & (row[:, None] > 0) & (col[None, :] > 0),
+            np.log2(np.maximum(cont, 1e-99) * total
+                    / np.maximum(row[:, None] * col[None, :], 1e-99)),
+            0.0)
+        mi = float((pmi * cont / max(total, 1)).sum())
+        conf = np.where(row > 0, cont.max(axis=1) / np.maximum(row, 1), 0.0)
+    supports = (row / max(total, 1)).tolist()
+    pmi_map = {str(j): pmi[:, j].tolist() for j in range(cont.shape[1])}
+    return {"cramers_v": cramers_v(cont), "mutual_info": mi,
+            "pmi": pmi_map, "max_confidences": conf.tolist(),
+            "supports": supports}
+
+
+# --------------------------------------------------------------------------- #
+# stages                                                                      #
+# --------------------------------------------------------------------------- #
 
 class SanityCheckerModel(Transformer):
     """Fitted checker: keeps the columns `indices` of the (label, vector)
@@ -36,3 +226,212 @@ class SanityCheckerModel(Transformer):
         if self._meta_json is None:
             return None
         return VectorMetadata.from_json(self._meta_json)
+
+    def get_params(self):
+        return {"indices": self.indices, "meta": self._meta_json,
+                "summary": self.summary}
+
+
+class SanityChecker(Estimator):
+    """(RealNN label, OPVector) → the cleaned OPVector (drop rules in the
+    module docstring)."""
+
+    in_types = (T.RealNN, T.OPVector)
+    out_type = T.OPVector
+
+    def __init__(self, max_correlation: float = MAX_CORRELATION,
+                 min_correlation: float = MIN_CORRELATION,
+                 max_feature_corr: float = MAX_FEATURE_CORR,
+                 min_variance: float = MIN_VARIANCE,
+                 max_cramers_v: float = MAX_CRAMERS_V,
+                 max_rule_confidence: float = MAX_RULE_CONFIDENCE,
+                 min_required_rule_support: float = MIN_REQUIRED_RULE_SUPPORT,
+                 correlation_type: str = "pearson",
+                 check_sample: float = CHECK_SAMPLE,
+                 sample_lower_limit: int = SAMPLE_LOWER_LIMIT,
+                 sample_upper_limit: int = SAMPLE_UPPER_LIMIT,
+                 sample_seed: int = 42,
+                 remove_bad_features: bool = True,
+                 categorical_label: Optional[bool] = None,
+                 categorical_label_max_card: int = 30,
+                 uid: Optional[str] = None):
+        if correlation_type not in ("pearson", "spearman"):
+            raise ValueError("correlation_type must be pearson or spearman")
+        super().__init__(
+            uid=uid, max_correlation=max_correlation,
+            min_correlation=min_correlation,
+            max_feature_corr=max_feature_corr, min_variance=min_variance,
+            max_cramers_v=max_cramers_v,
+            max_rule_confidence=max_rule_confidence,
+            min_required_rule_support=min_required_rule_support,
+            correlation_type=correlation_type, check_sample=check_sample,
+            sample_lower_limit=sample_lower_limit,
+            sample_upper_limit=sample_upper_limit, sample_seed=sample_seed,
+            remove_bad_features=remove_bad_features,
+            categorical_label=categorical_label,
+            categorical_label_max_card=categorical_label_max_card)
+        self.max_correlation = max_correlation
+        self.min_correlation = min_correlation
+        self.max_feature_corr = max_feature_corr
+        self.min_variance = min_variance
+        self.max_cramers_v = max_cramers_v
+        self.max_rule_confidence = max_rule_confidence
+        self.min_required_rule_support = min_required_rule_support
+        self.correlation_type = correlation_type
+        self.check_sample = check_sample
+        self.sample_lower_limit = sample_lower_limit
+        self.sample_upper_limit = sample_upper_limit
+        self.sample_seed = sample_seed
+        self.remove_bad_features = remove_bad_features
+        self.categorical_label = categorical_label
+        self.categorical_label_max_card = categorical_label_max_card
+
+    def _sample_rows(self, n: int) -> Optional[np.ndarray]:
+        """Row subsample for the statistics pass; None = every row."""
+        target = n
+        if self.check_sample < 1.0:
+            target = int(n * self.check_sample)
+        target = min(target, self.sample_upper_limit)
+        target = max(target, min(n, self.sample_lower_limit))
+        if target >= n:
+            return None
+        rng = np.random.default_rng(self.sample_seed)
+        return np.sort(rng.choice(n, size=target, replace=False))
+
+    def fit_model(self, cols: Sequence[Column],
+                  ctx: FitContext) -> Transformer:
+        if self.correlation_type == "spearman":
+            raise NotImplementedError(
+                "SanityChecker: Spearman correlation is not ported yet "
+                "(ROADMAP.md, training slice, queued)")
+        label_col, vec_col = cols
+        y_np = np.asarray(label_col.data["value"], dtype=np.float64)
+        X_np = np.array(vec_col.data, dtype=np.float32)
+        n_total = X_np.shape[0]
+        sample_idx = self._sample_rows(n_total)
+        if sample_idx is not None:
+            X_np = X_np[sample_idx]
+            y_np = y_np[sample_idx]
+        n, d = X_np.shape
+        need_ff = self.max_feature_corr < 1.0
+        if need_ff and d > _WIDE_D:
+            raise NotImplementedError(
+                f"SanityChecker: {d} columns need the blocked Gram pass "
+                f"(> {_WIDE_D}), which is not ported yet (ROADMAP.md, "
+                "training slice, queued)")
+        X = torch.as_tensor(X_np, device=ctx.device)
+        cy = torch.as_tensor(y_np.astype(np.float32), device=ctx.device)
+        red = _column_reductions(X)
+        mean = red["sx"] / max(n, 1)
+        var = (red["sxx"] - n * mean ** 2) / max(n - 1, 1)
+        var = np.maximum(var, 0.0)
+        if need_ff:
+            corr_all = _corr_matrix(torch.cat([X, cy[:, None]], 1))
+            corr = corr_all[:d, d]
+            feat_corr = corr_all[:d, :d]
+        else:
+            # duplicates check off: the label terms of one reduction pass
+            sxy = (X.T @ cy).cpu().numpy()
+            sy = float(cy.sum())
+            syy = float((cy * cy).sum())
+            y_mean = sy / max(n, 1)
+            y_var = max((syy - n * y_mean ** 2) / max(n - 1, 1), 0.0)
+            cov = (sxy - n * mean * y_mean) / max(n - 1, 1)
+            denom = np.sqrt(var * y_var)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                corr = np.where(denom > 0, cov / denom, 0.0)
+            feat_corr = None
+
+        meta = vec_col.meta
+        names = (meta.column_names() if meta is not None
+                 else [f"col_{i}" for i in range(d)])
+
+        group_stats: Dict[int, Tuple[str, Dict]] = {}
+        cat_groups: List[CategoricalGroupStats] = []
+        if meta is not None:
+            oh = _label_onehot(y_np, self.categorical_label_max_card,
+                               force=self.categorical_label)
+            if oh is not None:
+                groups: Dict[str, List[int]] = {}
+                for i, c in enumerate(meta.columns):
+                    if c.indicator_value is not None:
+                        groups.setdefault(c.grouping_key(), []).append(i)
+                for key, idxs in groups.items():
+                    cont = X_np[:, idxs].T.astype(np.float64) @ oh
+                    cs = contingency_stats(cont)
+                    cat_groups.append(CategoricalGroupStats(
+                        group=key, cramers_v=cs["cramers_v"],
+                        mutual_info=cs["mutual_info"],
+                        pointwise_mutual_info=cs["pmi"],
+                        max_rule_confidences=cs["max_confidences"],
+                        supports=cs["supports"]))
+                    for li, i in enumerate(idxs):
+                        group_stats[i] = (key, {
+                            "cramers_v": cs["cramers_v"],
+                            "mutual_info": cs["mutual_info"],
+                            "conf": cs["max_confidences"][li],
+                            "support": cs["supports"][li]})
+
+        hit_pairs: Dict[int, List[Tuple[int, float]]] = {}
+        if feat_corr is not None and d > 1:
+            hit = np.abs(np.tril(feat_corr, k=-1)) > self.max_feature_corr
+            for i in np.flatnonzero(hit.any(axis=1)):
+                hit_pairs[int(i)] = [(int(j), float(feat_corr[i, j]))
+                                     for j in np.flatnonzero(hit[i])]
+
+        stats: List[ColumnStats] = []
+        kept: List[int] = []
+        dropped_so_far: set = set()
+        for i in range(d):
+            reasons: List[str] = []
+            if var[i] < self.min_variance:
+                reasons.append(f"variance {var[i]:.2e} < {self.min_variance}")
+            ac = abs(float(corr[i]))
+            if ac > self.max_correlation:
+                reasons.append(f"label corr {ac:.3f} > {self.max_correlation}")
+            elif self.min_correlation > 0 and ac < self.min_correlation:
+                reasons.append(f"label corr {ac:.3f} < {self.min_correlation}")
+            for j, cij in hit_pairs.get(i, ()):
+                if j not in dropped_so_far:
+                    reasons.append(
+                        f"corr {cij:.3f} with column "
+                        f"{names[j]!r} > {self.max_feature_corr}")
+                    break
+            gs = group_stats.get(i)
+            gv = mi = conf = sup = None
+            if gs is not None:
+                _, s = gs
+                gv, mi = s["cramers_v"], s["mutual_info"]
+                conf, sup = s["conf"], s["support"]
+                if gv > self.max_cramers_v:
+                    reasons.append(f"cramersV {gv:.3f} > {self.max_cramers_v}")
+                if (conf > self.max_rule_confidence
+                        and sup > self.min_required_rule_support):
+                    reasons.append(
+                        f"rule confidence {conf:.3f} > "
+                        f"{self.max_rule_confidence} at support {sup:.3f}")
+            stats.append(ColumnStats(
+                name=names[i], mean=float(mean[i]), variance=float(var[i]),
+                min=float(red["min"][i]), max=float(red["max"][i]),
+                corr_label=float(corr[i]), cramers_v=gv, mutual_info=mi,
+                max_rule_confidence=conf, support=sup, dropped=reasons))
+            if not reasons or not self.remove_bad_features:
+                kept.append(i)
+            elif reasons:
+                dropped_so_far.add(i)
+
+        if not kept:  # never drop everything
+            kept = list(range(d))
+            for s in stats:
+                s.dropped.append("retained: all columns flagged")
+
+        kept_set = set(kept)
+        summary = SanityCheckerSummary(
+            n_rows=n, stats=stats, kept_indices=kept,
+            dropped_indices=[i for i in range(d) if i not in kept_set],
+            correlation_type=self.correlation_type,
+            sample_fraction=n / max(n_total, 1),
+            categorical_stats=cat_groups)
+        sel_meta = meta.select(kept) if meta is not None else None
+        return SanityCheckerModel(kept, meta=sel_meta,
+                                  summary=summary.to_json())

@@ -27,9 +27,20 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of single sources: the split search must not contract a*b+c into
+# fused multiply-adds, so that it rounds as its plain version does
+EXTRA_FLAGS: Dict[str, tuple] = {"split_search": ("--fmad=false",)}
+# every kernel the port builds, in the order `chip_smoke.py` lists them
+SOURCES = ("bin_features", "tree_walk", "histograms", "split_search",
+           "route_leaves", "binned_aupr")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# launches per kernel, counted by each wrapper where it launches its kernel
+LAUNCHES: Dict[str, int] = {
+    "bin_features": 0, "tree_walk": 0, "histograms": 0, "split_search": 0,
+    "route_level": 0, "leaf_values": 0, "binned_aupr": 0}
+_launch_lock = threading.Lock()
 # ptxas resource lines (registers, shared memory, spills) per built source
 PTXAS_INFO: Dict[str, str] = {}
 
@@ -50,10 +61,26 @@ def nvcc_path() -> str:
         "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
+def count(name: str) -> None:
+    """One more launch of kernel `name` (called by its wrapper only)."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = SRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -72,7 +99,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".tmp-{os.getpid()}.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc_path(), *flags(name), "-o", str(tmp),
                str(SRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -28,6 +28,19 @@ class VectorColumnMetadata:
     descriptor_value: Optional[str] = None  # e.g. "x_HourOfDay", "lat"
     index: int = 0                        # slot index within the combined vector
 
+    def column_name(self) -> str:
+        parts = [self.parent_name]
+        for p in (self.grouping, self.indicator_value, self.descriptor_value):
+            if p is not None:
+                parts.append(p)
+        return "_".join(parts) + f"_{self.index}"
+
+    def grouping_key(self) -> str:
+        """Group slots that belong to one logical feature."""
+        if self.grouping is not None:
+            return f"{self.parent_name}_{self.grouping}"
+        return self.parent_name
+
     def to_json(self) -> Dict:
         return {
             "parent_name": self.parent_name, "parent_type": self.parent_type,
@@ -54,6 +67,14 @@ class VectorMetadata:
     def with_indices(self) -> "VectorMetadata":
         cols = tuple(replace(c, index=i) for i, c in enumerate(self.columns))
         return VectorMetadata(self.name, cols)
+
+    def select(self, indices: Sequence[int]) -> "VectorMetadata":
+        cols = tuple(replace(self.columns[i], index=j)
+                     for j, i in enumerate(indices))
+        return VectorMetadata(self.name, cols)
+
+    def column_names(self) -> List[str]:
+        return [c.column_name() for c in self.columns]
 
     @staticmethod
     def union(name: str, metas: Sequence["VectorMetadata"]) -> "VectorMetadata":

@@ -1,5 +1,6 @@
-from transmogrifai_tpu_torch.features.feature import Feature
+from transmogrifai_tpu_torch.features.feature import Feature, FeatureBuilder
 from transmogrifai_tpu_torch.features.dag import (
-    FeatureCycleError, topological_layers)
+    FeatureCycleError, clone_graph, topological_layers)
 
-__all__ = ["Feature", "FeatureCycleError", "topological_layers"]
+__all__ = ["Feature", "FeatureBuilder", "FeatureCycleError", "clone_graph",
+           "topological_layers"]

@@ -1,12 +1,15 @@
-"""DAG scheduling: topological layering with cycle detection.
+"""DAG scheduling: topological layering with cycle detection, and the
+private copy of a DAG that a workflow fits.
 
-The port's copy of `topological_layers` from the JAX package's
-`features/dag.py`: `layer(stage) = 1 + max(layer(parent stages))`, raw
-FeatureGeneratorStages at layer 0, stages sorted by uid within a layer.
+The port's copy of `topological_layers` and `clone_graph` from the JAX
+package's `features/dag.py`: `layer(stage) = 1 + max(layer(parent
+stages))`, raw FeatureGeneratorStages at layer 0, stages sorted by uid
+within a layer.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Sequence
 
 from transmogrifai_tpu_torch.stages.base import FeatureGeneratorStage, Stage
@@ -74,3 +77,42 @@ def topological_layers(result_features: Sequence) -> List[List[Stage]]:
     for layer in layers:
         layer.sort(key=lambda s: s.uid)
     return layers
+
+
+def _clone_stage(stage: Stage) -> Stage:
+    """Shallow stage copy that does not share mutable param containers."""
+    cs = copy.copy(stage)
+    cs.params = {k: (v.copy() if isinstance(v, (dict, list, set)) else v)
+                 for k, v in getattr(stage, "params", {}).items()}
+    return cs
+
+
+def clone_graph(result_features: Sequence) -> List:
+    """Private copy of the feature DAG, preserving uids. A workflow fits
+    the copy, so the estimator→model swap never touches the caller's
+    graph; fitted models in the source graph unwind to their estimators,
+    so a re-train refits."""
+    from transmogrifai_tpu_torch.features.feature import Feature
+
+    fmap: Dict[str, object] = {}
+    smap: Dict[str, Stage] = {}
+
+    def clone_feature(f) -> object:
+        if f.uid in fmap:
+            return fmap[f.uid]
+        parents = tuple(clone_feature(p) for p in f.parents)
+        stage = getattr(f.origin_stage, "_estimator", None) or f.origin_stage
+        cs = smap.get(stage.uid)
+        if cs is None:
+            cs = _clone_stage(stage)
+            cs._output = None
+            smap[stage.uid] = cs
+        if parents:
+            cs.input_features = parents
+        nf = Feature(name=f.name, ftype=f.ftype, origin_stage=cs,
+                     parents=parents, is_response=f.is_response, uid=f.uid)
+        cs._output = nf
+        fmap[f.uid] = nf
+        return nf
+
+    return [clone_feature(f) for f in result_features]

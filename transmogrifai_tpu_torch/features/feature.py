@@ -1,14 +1,15 @@
-"""Feature DAG nodes (scoring side).
+"""Feature DAG nodes and the raw-feature builders.
 
 The port's counterpart of the JAX package's `features/feature.py`: a
-Feature is a typed handle on a column that exists once a model
-materializes its DAG. Loading a saved model rebuilds these nodes; the
-training-side builders and DSL are not part of this slice.
+Feature is a typed handle on a column that exists once a workflow
+materializes its DAG. `FeatureBuilder.from_dataset` builds the raw
+features of a dataset's schema; DSL methods such as `sanity_check` are
+attached by `transmogrifai_tpu_torch.dsl`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from transmogrifai_tpu_torch import types as T
 from transmogrifai_tpu_torch.utils.uid import UID
@@ -50,6 +51,22 @@ class Feature:
         visit(self)
         return list(seen.values())
 
+    def traverse(self) -> List["Feature"]:
+        """All features in this subtree (self included), parents first."""
+        out: List[Feature] = []
+        seen = set()
+
+        def visit(f: "Feature") -> None:
+            if f.uid in seen:
+                return
+            seen.add(f.uid)
+            for p in f.parents:
+                visit(p)
+            out.append(f)
+
+        visit(self)
+        return out
+
     def __repr__(self) -> str:
         kind = "response" if self.is_response else "predictor"
         return f"Feature<{self.ftype.__name__}>({self.name!r}, {kind})"
@@ -57,3 +74,34 @@ class Feature:
     # Equality is identity (each node is unique in the DAG); hash by uid.
     def __hash__(self) -> int:
         return hash(self.uid)
+
+
+class FeatureBuilder:
+    """Raw feature factories from a dataset's schema
+    (`FeatureBuilder.from_dataset`, FeatureBuilder.scala `fromDataFrame`)."""
+
+    @staticmethod
+    def from_dataset(dataset, response: str,
+                     response_type: type = T.RealNN,
+                     ignore: Sequence[str] = ()
+                     ) -> Tuple[List[Feature], Feature]:
+        """Typed raw features of every schema column but `response` (and
+        `ignore`); the response column becomes a `response_type` feature
+        (default RealNN, with missing values filled by 0)."""
+        from transmogrifai_tpu_torch.stages.base import FeatureGeneratorStage
+        if response not in dataset.schema:
+            raise KeyError(f"Response column {response!r} not in dataset")
+        preds: List[Feature] = []
+        for name, ftype in dataset.schema.items():
+            if name == response or name in ignore:
+                continue
+            stage = FeatureGeneratorStage(name=name, ftype=ftype,
+                                          column=name)
+            preds.append(stage.get_output())
+        resp_src = dataset.schema[response]
+        null_fill = 0.0 if (issubclass(response_type, T.RealNN)
+                            and not issubclass(resp_src, T.RealNN)) else None
+        stage = FeatureGeneratorStage(
+            name=response, ftype=response_type, column=response,
+            is_response=True, null_fill=null_fill)
+        return preds, stage.get_output()

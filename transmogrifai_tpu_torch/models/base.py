@@ -1,15 +1,19 @@
-"""Predictor base class (scoring side): a fitted model maps the (label,
-features) inputs to the Prediction pytree
-`{"prediction", "rawPrediction", "probability"}` of tensors."""
+"""Predictor base classes: a model maps the (label, features) inputs to the
+Prediction pytree `{"prediction", "rawPrediction", "probability"}` of
+tensors; an estimator fits one from a feature matrix, labels and row
+weights (`fit_arrays`)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from transmogrifai_tpu_torch import types as T
-from transmogrifai_tpu_torch.stages.base import Transformer
+from transmogrifai_tpu_torch.data.columns import Column
+from transmogrifai_tpu_torch.stages.base import (
+    Estimator, FitContext, Transformer)
 
 
 class PredictionModel(Transformer):
@@ -23,6 +27,38 @@ class PredictionModel(Transformer):
                 X: torch.Tensor) -> Dict[str, torch.Tensor]:
         raise NotImplementedError(type(self).__name__)
 
+    def predict_arrays(self, X: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The Prediction dict of a feature matrix, on X's device."""
+        return self.predict(self.device_constants(X.device), X)
+
     def device_apply_with(self, consts, enc, dev):
         # inputs are (label, features); the label is unused at scoring
         return self.predict(consts, dev[-1])
+
+
+class PredictorEstimator(Estimator):
+    """Base for model estimators. Subclasses implement `fit_arrays(X, y,
+    w, ctx)` over tensors on the fit's device; `w` is a per-row weight
+    vector. Warm starts (`init_params`) are not ported yet."""
+
+    in_types = (T.RealNN, T.OPVector)
+    out_type = T.Prediction
+    init_params: Optional[Dict[str, Any]] = None
+
+    def fit_arrays(self, X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                   ctx: FitContext) -> PredictionModel:
+        raise NotImplementedError(type(self).__name__)
+
+    def fit_model(self, cols: Sequence[Column],
+                  ctx: FitContext) -> Transformer:
+        label, vec = cols
+        y = torch.as_tensor(np.asarray(label.data["value"], np.float32),
+                            device=ctx.device)
+        X = vec.device_value(ctx.device)
+        return self.fit_arrays(X, y, torch.ones_like(y), ctx)
+
+
+def infer_n_classes(y: np.ndarray) -> int:
+    """Label cardinality for classification (labels must be 0..k-1)."""
+    k = int(np.asarray(y).max(initial=0)) + 1
+    return max(k, 2)

@@ -1,11 +1,21 @@
 """Categorical pivot helpers (the port's copy of the host-side helpers in
-the JAX package's `ops/categorical.py` that `SmartTextModel` uses)."""
+the JAX package's `ops/categorical.py` that `SmartTextModel` and
+`SmartTextVectorizer` use)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from collections import Counter
+from typing import Dict, List
 
 import numpy as np
+
+
+def top_k_levels(counter: Counter, top_k: int, min_support: int) -> List[str]:
+    """Most frequent levels, count-desc then lexicographic for
+    determinism."""
+    eligible = [(c, lvl) for lvl, c in counter.items() if c >= min_support]
+    eligible.sort(key=lambda t: (-t[0], t[1]))
+    return [lvl for _, lvl in eligible[:top_k]]
 
 
 def pivot_encode_ids(values, lut: Dict[str, int], k: int) -> np.ndarray:

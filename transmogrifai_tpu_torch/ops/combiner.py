@@ -13,6 +13,7 @@ from transmogrifai_tpu_torch.stages.base import Transformer
 
 
 class VectorsCombiner(Transformer):
+    in_types = (T.OPVector, Ellipsis)
     out_type = T.OPVector
 
     def device_apply(self, enc, dev):

@@ -1,4 +1,4 @@
-"""Text ops (scoring side): tokenizer, murmur3 hashing, SmartTextModel.
+"""Text ops: tokenizer, murmur3 hashing, SmartTextVectorizer and its model.
 
 The port's counterpart of the JAX package's `ops/text.py`. All string work
 is host-side numpy prep producing dense (n, d) count arrays; the device
@@ -10,6 +10,7 @@ ids and counts are bit-identical to the JAX package's.
 from __future__ import annotations
 
 import re
+from collections import Counter
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -20,8 +21,9 @@ from transmogrifai_tpu_torch.data.columns import Column
 from transmogrifai_tpu_torch.data.metadata import (
     NULL_INDICATOR, VectorColumnMetadata, VectorMetadata)
 from transmogrifai_tpu_torch.ops.categorical import (
-    one_hot_np, pivot_encode_ids)
-from transmogrifai_tpu_torch.stages.base import Transformer
+    one_hot_np, pivot_encode_ids, top_k_levels)
+from transmogrifai_tpu_torch.stages.base import (
+    Estimator, FitContext, Transformer)
 
 # ---------------------------------------------------------------------------
 # murmur3-32 (pure python, memoized) — HashAlgorithm.MurMur3 parity
@@ -253,3 +255,61 @@ class SmartTextModel(Transformer):
                     parent_name=f.name, parent_type=f.ftype.__name__,
                     indicator_value=NULL_INDICATOR))
         return VectorMetadata(self.output_name(), tuple(cols)).with_indices()
+
+    def get_params(self):
+        return {"strategies": self.strategies, "vocabs": self.vocabs,
+                "num_features": self.num_features,
+                "track_nulls": self.track_nulls, "seed": self.seed}
+
+
+class SmartTextVectorizer(Estimator):
+    """Per-field cardinality stats choose the encoding:
+
+    - distinct <= max_cardinality          → top-K categorical pivot
+    - ID-like (distinct / count >= ratio)  → ignore (null indicator only)
+    - otherwise                            → hashed token counts
+    """
+
+    in_types = (T.Text, Ellipsis)
+    out_type = T.OPVector
+
+    def __init__(self, max_cardinality: int = 100, top_k: int = 20,
+                 min_support: int = 10, num_features: int = 512,
+                 id_detect_ratio: float = 0.99, track_nulls: bool = True,
+                 seed: int = 42, uid: Optional[str] = None):
+        super().__init__(
+            uid=uid, max_cardinality=max_cardinality, top_k=top_k,
+            min_support=min_support, num_features=num_features,
+            id_detect_ratio=id_detect_ratio, track_nulls=track_nulls,
+            seed=seed)
+        self.max_cardinality = max_cardinality
+        self.top_k = top_k
+        self.min_support = min_support
+        self.num_features = num_features
+        self.id_detect_ratio = id_detect_ratio
+        self.track_nulls = track_nulls
+        self.seed = seed
+
+    def fit_model(self, cols: Sequence[Column],
+                  ctx: FitContext) -> Transformer:
+        strategies, vocabs = [], []
+        for c in cols:
+            counter = Counter(s for s in c.data if s is not None)
+            n_values = sum(counter.values())
+            n_distinct = len(counter)
+            if n_distinct == 0:
+                strategies.append(IGNORE)
+                vocabs.append([])
+            elif n_distinct <= self.max_cardinality:
+                strategies.append(PIVOT)
+                vocabs.append(top_k_levels(counter, self.top_k,
+                                           self.min_support))
+            elif n_values > 0 and n_distinct / n_values >= \
+                    self.id_detect_ratio:
+                strategies.append(IGNORE)
+                vocabs.append([])
+            else:
+                strategies.append(HASH)
+                vocabs.append([])
+        return SmartTextModel(strategies, vocabs, self.num_features,
+                              self.track_nulls, self.seed)

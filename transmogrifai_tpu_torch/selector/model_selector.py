@@ -1,0 +1,247 @@
+"""ModelSelector: cross-validated model and hyperparameter selection.
+
+The port's counterpart of the JAX package's `selector/model_selector.py`,
+on one device: prepare the data (holdout reserve + label balancing), run
+each family's sweep (`parallel/sweep.py`) over the folds, refit the
+winner on the whole prepared training set, evaluate it on the training
+and holdout rows, and return the fitted model with a
+`ModelSelectorSummary`. Families run one after another; a family that
+fails is dropped, as in the reference.
+
+Not ported yet (ROADMAP.md): a device mesh, sweep checkpoints and
+journals, the distributed scheduler and workflow-level CV.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from transmogrifai_tpu_torch import types as T
+from transmogrifai_tpu_torch.data.columns import Column
+from transmogrifai_tpu_torch.evaluators.evaluators import (
+    BinaryClassificationEvaluator)
+from transmogrifai_tpu_torch.parallel.sweep import run_sweep
+from transmogrifai_tpu_torch.selector.splitters import DataBalancer
+from transmogrifai_tpu_torch.selector.validators import (
+    OpCrossValidation, OpTrainValidationSplit)
+from transmogrifai_tpu_torch.stages.base import (
+    Estimator, FitContext, Transformer)
+
+log = logging.getLogger(__name__)
+
+
+@dataclass
+class ValidationResult:
+    model: str
+    grid: Dict[str, Any]
+    fold_metrics: List[float]
+    model_index: int = 0
+
+    @property
+    def mean_metric(self) -> float:
+        return (float(np.mean(self.fold_metrics)) if self.fold_metrics
+                else float("nan"))
+
+    def to_json(self) -> Dict:
+        return {"model": self.model, "model_index": self.model_index,
+                "grid": self.grid, "fold_metrics": self.fold_metrics,
+                "mean": self.mean_metric}
+
+
+@dataclass
+class ModelSelectorSummary:
+    """ModelSelectorSummary.scala analogue, kept on the fitted model."""
+
+    problem_type: str
+    metric_name: str
+    validation_results: List[ValidationResult] = field(default_factory=list)
+    best_model: str = ""
+    best_grid: Dict[str, Any] = field(default_factory=dict)
+    train_metrics: Dict[str, Any] = field(default_factory=dict)
+    holdout_metrics: Dict[str, Any] = field(default_factory=dict)
+    splitter_summary: Dict[str, Any] = field(default_factory=dict)
+    larger_is_better: bool = True
+    timings: Dict[str, float] = field(default_factory=dict)
+
+    def to_json(self) -> Dict:
+        return {
+            "problem_type": self.problem_type, "metric": self.metric_name,
+            "validation_results": [r.to_json()
+                                   for r in self.validation_results],
+            "best_model": self.best_model, "best_grid": self.best_grid,
+            "train_metrics": self.train_metrics,
+            "holdout_metrics": self.holdout_metrics,
+            "splitter": self.splitter_summary,
+        }
+
+    def pretty(self) -> str:
+        sign = -1.0 if self.larger_is_better else 1.0
+        lines = [f"Evaluated {len(self.validation_results)} model configs "
+                 f"({self.metric_name}):"]
+        for r in sorted(self.validation_results,
+                        key=lambda r: sign * r.mean_metric):
+            lines.append(f"  {r.model} {r.grid} -> {r.mean_metric:.4f}")
+        lines.append(f"Best: {self.best_model} {self.best_grid}")
+        return "\n".join(lines)
+
+
+class ModelSelector(Estimator):
+    """(RealNN label, OPVector) → Prediction: sweep, refit the winner on
+    the prepared training rows, evaluate train + holdout."""
+
+    in_types = (T.RealNN, T.OPVector)
+    out_type = T.Prediction
+
+    def __init__(self, models: Sequence[Tuple[Estimator, List[Dict]]],
+                 validator=None, splitter=None, evaluator=None,
+                 problem_type: str = "binary", uid: Optional[str] = None,
+                 checkpoint_dir: Optional[str] = None):
+        super().__init__(uid=uid)
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "ModelSelector: sweep checkpoints and journals are not "
+                "ported yet (ROADMAP.md, training slice, queued)")
+        self.models = list(models)
+        self.validator = validator or OpCrossValidation()
+        self.splitter = splitter
+        self.evaluator = evaluator or BinaryClassificationEvaluator()
+        self.problem_type = problem_type
+        self.checkpoint_dir = None
+
+    def fit_model(self, cols: Sequence[Column],
+                  ctx: FitContext) -> Transformer:
+        label_col, vec_col = cols
+        y_np = np.asarray(label_col.data["value"], dtype=np.float64)
+        X_full = vec_col.device_value(ctx.device)
+
+        split_summary: Dict[str, Any] = {}
+        if self.splitter is not None:
+            train_idx, test_idx, ssum = self.splitter.split(y_np)
+            train_idx, prep_details = self.splitter.prepare(y_np, train_idx)
+            split_summary = ssum.to_json()
+            split_summary["details"].update(prep_details)
+        else:
+            train_idx = np.arange(len(y_np))
+            test_idx = np.array([], dtype=np.int64)
+
+        X = X_full[torch.as_tensor(train_idx, device=X_full.device)]
+        y_train = y_np[train_idx]
+        y_dev = torch.as_tensor(y_train.astype(np.float32), device=X.device)
+        folds = self.validator.splits(y_train)
+
+        t0 = time.perf_counter()
+        results: List[ValidationResult] = []
+        failures = 0
+        for mi, (est, grids) in enumerate(self.models):
+            try:
+                grid_fold = run_sweep(est, grids, X, y_dev, folds,
+                                      self.evaluator, ctx)
+            except NotImplementedError:
+                raise
+            except Exception:
+                failures += 1
+                log.error("Model family %s failed; dropping from sweep",
+                          type(est).__name__, exc_info=True)
+                continue
+            for grid, fm in zip(grids, grid_fold):
+                results.append(ValidationResult(
+                    model=type(est).__name__, grid=grid,
+                    fold_metrics=[float(m) for m in fm], model_index=mi))
+        if X.is_cuda:
+            torch.cuda.synchronize(X.device)
+        sweep_s = time.perf_counter() - t0
+        if not results:
+            raise RuntimeError(
+                f"All {failures} model families failed during validation")
+        sign = 1.0 if self.evaluator.is_larger_better else -1.0
+        finite = [r for r in results if np.isfinite(r.mean_metric)]
+        return self._finish(ctx, results, finite, sign, X, X_full, y_np,
+                            y_dev, train_idx, test_idx, split_summary,
+                            sweep_s)
+
+    def _finish(self, ctx, results, finite, sign, X, X_full, y_np, y_dev,
+                train_idx, test_idx, split_summary, sweep_s):
+        if not finite:
+            raise RuntimeError(
+                "Every validated config produced a non-finite metric")
+        best = max(finite, key=lambda r: sign * r.mean_metric)
+
+        t0 = time.perf_counter()
+        proto = self.models[best.model_index][0]
+        kwargs = {k: v for k, v in proto.params.items() if k != "uid"}
+        kwargs.update(best.grid)
+        best_est = type(proto)(**kwargs)
+        model = best_est.fit_arrays(X, y_dev, torch.ones_like(y_dev), ctx)
+        if X.is_cuda:
+            torch.cuda.synchronize(X.device)
+        refit_s = time.perf_counter() - t0
+
+        def _eval(idx: np.ndarray) -> Dict[str, Any]:
+            if len(idx) == 0:
+                return {}
+            pred = model.predict_arrays(
+                X_full[torch.as_tensor(idx, device=X_full.device)])
+            pcol = Column(T.Prediction, {k: v.cpu().numpy()
+                                         for k, v in pred.items()})
+            lcol = Column(T.RealNN, {
+                "value": y_np[idx], "mask": np.ones(len(idx), dtype=bool)})
+            m = self.evaluator.evaluate(lcol, pcol).to_json()
+            return {k: v for k, v in m.items() if not isinstance(v, list)}
+
+        model.summary = ModelSelectorSummary(
+            problem_type=self.problem_type,
+            metric_name=self.evaluator.default_metric,
+            validation_results=results, best_model=best.model,
+            best_grid=best.grid, train_metrics=_eval(train_idx),
+            holdout_metrics=_eval(test_idx), splitter_summary=split_summary,
+            larger_is_better=self.evaluator.is_larger_better,
+            timings={"sweep_s": sweep_s, "refit_s": refit_s})
+        return model
+
+
+def _default_binary_models() -> List[Tuple[Estimator, List[Dict]]]:
+    """The reference's binary default is LR + RF + XGB; the port has the
+    XGB family only, so the default raises until LR and RF are ported."""
+    raise NotImplementedError(
+        "the default binary sweep (LR + RF + XGB) needs the LR and RF "
+        "families, which are not ported yet (ROADMAP.md, training slice, "
+        "queued); pass models=[(OpXGBoostClassifier(...), grids)]")
+
+
+class BinaryClassificationModelSelector:
+    """`BinaryClassificationModelSelector.with_cross_validation()` factory."""
+
+    @staticmethod
+    def with_cross_validation(
+            models: Optional[Sequence[Tuple[Estimator, List[Dict]]]] = None,
+            n_folds: int = 3, validation_metric: str = "AuPR",
+            splitter=None, seed: int = 42,
+            checkpoint_dir: Optional[str] = None) -> ModelSelector:
+        return ModelSelector(
+            models=models or _default_binary_models(),
+            validator=OpCrossValidation(n_folds=n_folds, seed=seed),
+            splitter=(splitter if splitter is not None
+                      else DataBalancer(seed=seed)),
+            evaluator=BinaryClassificationEvaluator(metric=validation_metric),
+            problem_type="binary", checkpoint_dir=checkpoint_dir)
+
+    @staticmethod
+    def with_train_validation_split(
+            models: Optional[Sequence[Tuple[Estimator, List[Dict]]]] = None,
+            train_ratio: float = 0.75, validation_metric: str = "AuPR",
+            splitter=None, seed: int = 42,
+            checkpoint_dir: Optional[str] = None) -> ModelSelector:
+        return ModelSelector(
+            models=models or _default_binary_models(),
+            validator=OpTrainValidationSplit(train_ratio=train_ratio,
+                                             seed=seed),
+            splitter=(splitter if splitter is not None
+                      else DataBalancer(seed=seed)),
+            evaluator=BinaryClassificationEvaluator(metric=validation_metric),
+            problem_type="binary", checkpoint_dir=checkpoint_dir)

@@ -1,0 +1,87 @@
+"""Data splitters: holdout reservation and label-balancing preparation.
+
+The port's copy of the JAX package's `selector/splitters.py`
+(`DataSplitter`, `DataBalancer`): host numpy with the same seeds, so the
+train and holdout indices are the same rows.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Tuple
+
+import numpy as np
+
+
+@dataclass
+class SplitterSummary:
+    splitter: str
+    n_rows: int
+    n_train: int
+    n_test: int
+    details: Dict = field(default_factory=dict)
+
+    def to_json(self) -> Dict:
+        return {"splitter": self.splitter, "n_rows": self.n_rows,
+                "n_train": self.n_train, "n_test": self.n_test,
+                "details": self.details}
+
+
+class DataSplitter:
+    """Random holdout reservation (DataSplitter.scala)."""
+
+    def __init__(self, reserve_test_fraction: float = 0.1, seed: int = 42):
+        self.reserve_test_fraction = reserve_test_fraction
+        self.seed = seed
+
+    def split(self, y: np.ndarray) -> Tuple[np.ndarray, np.ndarray, SplitterSummary]:
+        n = len(y)
+        rng = np.random.default_rng(self.seed)
+        perm = rng.permutation(n)
+        n_test = int(round(n * self.reserve_test_fraction))
+        test, train = perm[:n_test], perm[n_test:]
+        return np.sort(train), np.sort(test), SplitterSummary(
+            splitter=type(self).__name__, n_rows=n,
+            n_train=len(train), n_test=len(test))
+
+    def prepare(self, y: np.ndarray, train_idx: np.ndarray
+                ) -> Tuple[np.ndarray, Dict]:
+        """Post-split training-set preparation (identity here)."""
+        return train_idx, {}
+
+
+class DataBalancer(DataSplitter):
+    """Binary-label balancing: down-sample the majority class until the
+    minority fraction reaches `sample_fraction` (DataBalancer.scala)."""
+
+    def __init__(self, sample_fraction: float = 0.1,
+                 max_training_sample: int = 1_000_000,
+                 reserve_test_fraction: float = 0.1, seed: int = 42):
+        super().__init__(reserve_test_fraction, seed)
+        self.sample_fraction = sample_fraction
+        self.max_training_sample = max_training_sample
+
+    def prepare(self, y: np.ndarray, train_idx: np.ndarray
+                ) -> Tuple[np.ndarray, Dict]:
+        rng = np.random.default_rng(self.seed + 1)
+        yt = y[train_idx]
+        pos = train_idx[yt > 0.5]
+        neg = train_idx[yt <= 0.5]
+        n_pos, n_neg = len(pos), len(neg)
+        details: Dict = {"n_pos": n_pos, "n_neg": n_neg, "balanced": False}
+        if n_pos == 0 or n_neg == 0:
+            return train_idx, details
+        small, big = (pos, neg) if n_pos <= n_neg else (neg, pos)
+        frac = len(small) / (len(small) + len(big))
+        if frac < self.sample_fraction:
+            # shrink the majority so the minority hits sample_fraction
+            target_big = int(len(small) * (1 - self.sample_fraction)
+                             / self.sample_fraction)
+            big = rng.choice(big, size=min(target_big, len(big)), replace=False)
+            details["balanced"] = True
+        out = np.sort(np.concatenate([small, big]))
+        if len(out) > self.max_training_sample:
+            out = np.sort(rng.choice(out, self.max_training_sample, replace=False))
+            details["downsampled_to_max"] = True
+        details["n_after"] = int(len(out))
+        return out, details

@@ -1,6 +1,8 @@
-"""Stage abstraction: typed, lazily-wired transformers (scoring side).
+"""Stage abstraction: typed, lazily-wired estimators and transformers.
 
-The port's counterpart of the JAX package's `stages/base.py`. A fitted
+The port's counterpart of the JAX package's `stages/base.py`. An
+`Estimator` learns its params in `fit(cols, ctx)` and returns the fitted
+`Transformer`, which takes over the estimator's output feature. A fitted
 `Transformer` splits into `host_prepare(columns) -> enc` (string/object
 work, numpy) and `device_apply(enc, device_inputs) -> tensors` (torch ops
 on the inputs' device). The compiled scorer moves each `enc` to the
@@ -19,6 +21,7 @@ resolve one package's saved stages to the other's classes.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,6 +32,22 @@ from transmogrifai_tpu_torch.data.columns import (
     PREDICTION, SCALAR, VECTOR, Column, kind_of, to_host)
 from transmogrifai_tpu_torch.data.metadata import VectorMetadata
 from transmogrifai_tpu_torch.utils.uid import UID
+
+
+@dataclass
+class FitContext:
+    """Per-fit environment: row count, rng seed and the device the fit's
+    tensors live on. `child(salt)` derives a stage's context with the JAX
+    package's seed rule, so seeded host draws (the GBT refit's holdout)
+    are the same rows in both packages."""
+
+    n_rows: int
+    seed: int = 42
+    device: Any = "cpu"
+
+    def child(self, salt: int) -> "FitContext":
+        return FitContext(self.n_rows, self.seed * 1000003 + salt,
+                          self.device)
 
 
 class StageRegistry:
@@ -51,12 +70,18 @@ class StageRegistry:
 
 
 class Stage:
-    """Base: wired inputs, one output feature, a uid."""
+    """Base: typed inputs, one output feature, serializable params.
 
+    `in_types` is a tuple of FeatureType classes for fixed arity, or
+    (elem_type, Ellipsis) for variadic same-type inputs; None disables
+    checking."""
+
+    in_types: Optional[Tuple] = None
     out_type: type = T.OPVector
 
-    def __init__(self, uid: Optional[str] = None):
+    def __init__(self, uid: Optional[str] = None, **params):
         self.uid = uid or UID(type(self))
+        self.params: Dict[str, Any] = params
         self.input_features: Tuple = ()
         self._output = None
 
@@ -68,12 +93,45 @@ class Stage:
     def operation_name(self) -> str:
         return type(self).__name__
 
+    def set_input(self, *features) -> "Stage":
+        self._check_inputs(features)
+        self.input_features = tuple(features)
+        self._output = None
+        return self
+
+    def _check_inputs(self, features: Sequence) -> None:
+        spec = self.in_types
+        if spec is None:
+            return
+        if len(spec) == 2 and spec[1] is Ellipsis:
+            elem = spec[0]
+            for f in features:
+                if elem is not None and not issubclass(f.ftype, elem):
+                    raise TypeError(
+                        f"{self.operation_name} requires inputs of type "
+                        f"{elem.__name__}; got {f.ftype.__name__} "
+                        f"({f.name})")
+            return
+        if len(features) != len(spec):
+            raise TypeError(f"{self.operation_name} requires {len(spec)} "
+                            f"inputs, got {len(features)}")
+        for f, t in zip(features, spec):
+            if t is not None and not issubclass(f.ftype, t):
+                raise TypeError(
+                    f"{self.operation_name} input {f.name!r}: expected "
+                    f"{t.__name__}, got {f.ftype.__name__}")
+
     def output_ftype(self) -> type:
         return self.out_type
 
     def output_name(self) -> str:
         base = "-".join(f.name for f in self.input_features) or "raw"
         return f"{base}_{self.operation_name}_{self.uid}"
+
+    def get_params(self) -> Dict[str, Any]:
+        """JSON-serializable constructor params, as the JAX package saves
+        them (override to extend)."""
+        return dict(self.params)
 
     def get_output(self):
         from transmogrifai_tpu_torch.features.feature import Feature
@@ -176,6 +234,26 @@ def is_host_stage(stage) -> bool:
         isinstance(stage, HostTransformer) or not stage.jittable)
 
 
+class Estimator(Stage):
+    """Unfitted stage: `fit` learns params and returns the fitted
+    Transformer, which keeps this estimator's uid and takes over its
+    output feature (the estimator→model swap)."""
+
+    def fit(self, cols: Sequence[Column], ctx: FitContext) -> Transformer:
+        model = self.fit_model(cols, ctx)
+        model.uid = self.uid
+        model.input_features = self.input_features
+        out = self.get_output()
+        out.origin_stage = model
+        model._output = out
+        model._estimator = self
+        return model
+
+    def fit_model(self, cols: Sequence[Column],
+                  ctx: FitContext) -> Transformer:
+        raise NotImplementedError(type(self).__name__)
+
+
 class FeatureGeneratorStage(Stage):
     """Arity-0 origin of every raw feature: extracts one typed column from
     a Dataset, either a named column or a per-record extract function."""
@@ -193,6 +271,12 @@ class FeatureGeneratorStage(Stage):
             name if extract is None else None)
         self.is_response = is_response
         self.null_fill = null_fill
+
+    def get_params(self) -> Dict[str, Any]:
+        from transmogrifai_tpu_torch.utils.fnser import encode_fn
+        return {"name": self.feature_name, "ftype": self.ftype.__name__,
+                "extract": encode_fn(self.extract), "column": self.column,
+                "is_response": self.is_response, "null_fill": self.null_fill}
 
     def output_ftype(self) -> type:
         return self.ftype

@@ -1,6 +1,6 @@
-"""Load-side decoding of serialized extract functions.
+"""Serialized extract functions.
 
-The port's copy of the JAX package's `utils/fnser.py` decode half. Three
+The port's copy of the JAX package's `utils/fnser.py`. Three
 persisted forms exist, most-stable first:
 
 1. ``{"__pyregistry__": name}`` — resolved through `extract_fn`'s
@@ -44,6 +44,31 @@ def registered_fn(name: str) -> Callable:
             f"that defines it (with its @extract_fn decorator) before "
             f"loading this model")
     return _EXTRACT_REGISTRY[name]
+
+
+def encode_fn(fn: Optional[Callable]) -> Any:
+    """The saved form of an extract function: its registry name, or a
+    module:qualname reference for an importable module-level function.
+    The port writes no pickled payloads (the card's machine has no
+    cloudpickle), so any other callable raises."""
+    if fn is None:
+        return None
+    name = getattr(fn, "__extract_name__", None)
+    if name is not None and _EXTRACT_REGISTRY.get(name) is fn:
+        return {_REG_KEY: name}
+    mod = getattr(fn, "__module__", None)
+    qual = getattr(fn, "__qualname__", "")
+    if mod and mod != "__main__" and qual and "<" not in qual \
+            and "." not in qual:
+        try:
+            resolved = getattr(importlib.import_module(mod), qual, None)
+        except Exception:
+            resolved = None
+        if resolved is fn:
+            return {_REF_KEY: f"{mod}:{qual}"}
+    raise ValueError(
+        f"cannot save extract function {qual or fn!r}: register it with "
+        "@extract_fn(name) or define it at module level")
 
 
 def decode_fn(obj: Any) -> Optional[Callable]:

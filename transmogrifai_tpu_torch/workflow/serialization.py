@@ -1,4 +1,4 @@
-"""Model loading: the JAX package's saved models, served by the port.
+"""Model saving and loading, in the JAX package's on-disk format.
 
 A model directory holds `op-model.json` (the manifest: features, stages,
 per-stage params), `arrays.npz` (params of >= 64 elements, referenced from
@@ -7,7 +7,9 @@ size of each file, written last at save time). `load_model` verifies the
 integrity manifest before it reads anything else, then rebuilds each stage
 through `from_jax_params`, which maps a JAX package class name and its
 params onto the port's class. A class the port has not ported raises and
-names itself.
+names itself. `save_model` writes the same three files from the port's
+fitted stages (each stage's `get_params()`), so the JAX package's
+`load_model` reads what the port trained.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-from typing import Any, Dict, Optional
+import shutil
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -29,6 +32,8 @@ MANIFEST = "op-model.json"
 ARRAYS = "arrays.npz"
 INTEGRITY = "integrity.json"
 VERSION = 1
+INTEGRITY_VERSION = 1
+NPZ_MIN_SIZE = 64  # numeric payloads at/above this many elements offload
 
 
 class ModelIntegrityError(RuntimeError):
@@ -88,6 +93,122 @@ def verify_model_dir(path: str) -> Dict[str, Any]:
     return integrity
 
 
+def _offload_arrays(value: Any, store: Dict[str, np.ndarray],
+                    prefix: str) -> Any:
+    """Large numeric arrays/lists inside stage params become
+    `{"__npz__": key}` references into arrays.npz (the JAX package's
+    rule and key names)."""
+    if isinstance(value, dict):
+        return {k: _offload_arrays(v, store, f"{prefix}.{k}")
+                for k, v in value.items()}
+    if isinstance(value, (np.ndarray, list)):
+        try:
+            arr = np.asarray(value)
+        except Exception:
+            arr = None
+        if arr is not None and arr.dtype != object \
+                and arr.dtype.kind in "biuf" and arr.size >= NPZ_MIN_SIZE:
+            key = f"{prefix}#{len(store)}"
+            store[key] = arr
+            return {"__npz__": key}
+        if isinstance(value, np.ndarray):
+            return value.tolist()
+        return [_offload_arrays(v, store, f"{prefix}[{i}]")
+                for i, v in enumerate(value)]
+    if isinstance(value, np.integer):
+        return int(value)
+    if isinstance(value, np.floating):
+        return float(value)
+    return value
+
+
+def _feature_entry(f: Feature) -> Dict[str, Any]:
+    return {"uid": f.uid, "name": f.name, "ftype": f.ftype.__name__,
+            "is_response": f.is_response,
+            "origin_stage": f.origin_stage.uid if f.origin_stage else None,
+            "parents": [p.uid for p in f.parents]}
+
+
+def _fsync_file(path: str) -> None:
+    with open(path, "rb") as fh:
+        os.fsync(fh.fileno())
+
+
+def save_model(model, path: str, overwrite: bool = True) -> None:
+    """Write `model` (a `WorkflowModel`) to `path`: every file goes into a
+    temporary sibling directory and is fsynced, the integrity manifest
+    last, and the directory is then renamed into place (an existing model
+    is renamed aside first and removed once the new one is live)."""
+    path = os.path.normpath(path)
+    if os.path.exists(os.path.join(path, MANIFEST)) and not overwrite:
+        raise FileExistsError(os.path.join(path, MANIFEST))
+    features: Dict[str, Feature] = {}
+    order: List[str] = []
+    for rf in model.result_features:
+        for f in rf.traverse():
+            if f.uid not in features:
+                features[f.uid] = f
+                order.append(f.uid)
+    stage_entries = []
+    seen = set()
+    arrays: Dict[str, np.ndarray] = {}
+    for f in features.values():
+        stage = f.origin_stage
+        if stage is None or stage.uid in seen:
+            continue
+        seen.add(stage.uid)
+        fitted = model.fitted.get(stage.uid, stage)
+        stage_entries.append({
+            "uid": stage.uid,
+            "class": type(fitted).__name__,
+            "estimator_class": type(
+                getattr(stage, "_estimator", stage)).__name__,
+            "params": _offload_arrays(fitted.get_params(), arrays,
+                                      stage.uid),
+            "inputs": [p.uid for p in stage.input_features]})
+    manifest = {
+        "version": VERSION,
+        "result_features": [f.uid for f in model.result_features],
+        "features": [_feature_entry(features[uid]) for uid in order],
+        "stages": stage_entries}
+
+    tmp = f"{path}.tmp-{os.getpid()}"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    try:
+        names = []
+        if arrays:
+            np.savez_compressed(os.path.join(tmp, ARRAYS), **arrays)
+            _fsync_file(os.path.join(tmp, ARRAYS))
+            names.append(ARRAYS)
+        with open(os.path.join(tmp, MANIFEST), "w") as fh:
+            json.dump(manifest, fh)
+            fh.flush()
+            os.fsync(fh.fileno())
+        names.append(MANIFEST)
+        integrity = {
+            "integrity_version": INTEGRITY_VERSION,
+            "files": {name: {
+                "sha256": _sha256_file(os.path.join(tmp, name)),
+                "bytes": os.path.getsize(os.path.join(tmp, name)),
+            } for name in names}}
+        with open(os.path.join(tmp, INTEGRITY), "w") as fh:
+            json.dump(integrity, fh)
+            fh.flush()
+            os.fsync(fh.fileno())
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    aside = None
+    if os.path.exists(path):
+        aside = f"{path}.old-{os.getpid()}"
+        os.rename(path, aside)
+    os.rename(tmp, path)
+    if aside is not None:
+        shutil.rmtree(aside, ignore_errors=True)
+
+
 def _restore_arrays(value: Any, npz) -> Any:
     if isinstance(value, dict):
         if set(value.keys()) == {"__npz__"}:
@@ -109,6 +230,7 @@ def _ensure_stage_library() -> None:
     import transmogrifai_tpu_torch.ops.combiner  # noqa: F401
     import transmogrifai_tpu_torch.ops.numeric  # noqa: F401
     import transmogrifai_tpu_torch.ops.text  # noqa: F401
+    import transmogrifai_tpu_torch.selector.model_selector  # noqa: F401
 
 
 def from_jax_params(class_name: str, params: Dict[str, Any],
