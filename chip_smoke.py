@@ -7,8 +7,8 @@ nor the JAX package. Phases, one JSON line each; any failure exits
 non-zero:
 
 1. the card's name and power limit (from nvidia-smi), then the build of
-   every CUDA kernel of the port from `transmogrifai_tpu_torch/csrc` with
-   nvcc, all sources in parallel;
+   every CUDA kernel of the port (seven sources) from
+   `transmogrifai_tpu_torch/csrc` with nvcc, all sources in parallel;
 2. K4 `bin_features` against its plain PyTorch version at n in
    {1, 64, 891, 65536} x 496 features with the Titanic model's 31 edges
    per feature, with NaN cells and values exactly on edges: bin ids equal;
@@ -53,11 +53,37 @@ non-zero:
    n = 65536 beside its bound, its plain version and its one-call
    yardstick (`index_add_` for K1, `bincount` for K8); the training wall
    split into feature fit, sanity checker, sweep and refit; the device's
-   busy share of the sweep from `torch.profiler`;
-10. the `kernels` line; then the card's line and the result line.
+   busy share of the XGBoost sweep and of the default sweep from
+   `torch.profiler`;
+10. the `kernels` line (forest kernels timed at level 11 of the depth-12
+   bucket, launches counted over phase 12); then the card's line and the
+   result line;
+11. the forest kernels at level 11 of the depth-12 bucket, on one chunk of
+   trees as `fit_forest` sizes it (its byte budget from the card's free
+   memory): K1 with m = 2 class channels over the rows routed right,
+   grouped by their 1024 parents, K1-sub (sibling subtraction, level 10 ->
+   11), K2 with m = 2 over 2048 nodes, K3 routing and K3 leaves with m = 2
+   over 4096 leaves, each against its plain version on the chunk's first
+   pairs: equal (integer sums); then each timed on the whole chunk beside
+   its bound, its plain version and `index_add_` (K1) / `torch.sub`
+   (K1-sub) as yardsticks;
+12. the README quickstart verbatim — `with_cross_validation()` with no
+   `models=`, so LR (8 configs) + RF (18 configs of 50 trees, depth
+   buckets 4, 6 and 12) + XGB (2 configs), 3 folds — trained by
+   `Workflow.train(device="cuda")` with the JAX package's forest draws
+   injected from `testdata/titanic_quickstart_default_f32` and held to
+   the JAX package's f32-mode default sweep there: winner equal, LR fold
+   AuPR within 1e-4, RF and XGB fold AuPR and holdout AuPR within 1e-2;
+   then saved, reloaded and scored (equal to the in-memory model). TF32
+   must be off. The launch counters are set to 0 before the train and read
+   after the reload's scores: every kernel must have launched. The sweep
+   is timed per family and per static group (the RF depth buckets), the
+   refit apart.
 """
 
+import contextlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -190,7 +216,7 @@ def fit_inputs(rng, n: int, level: int, dev):
     Xb = rng.integers(0, FIT_BINS, (n, FIT_D)).astype(np.int8)
     Xb[:, 7] = Xb[:, 3]
     node = rng.integers(0, 2 ** level, (FIT_P, n)).astype(np.int32)
-    G = rng.normal(size=(FIT_P, n)).astype(np.float32)
+    G = rng.normal(size=(FIT_P, 1, n)).astype(np.float32)  # m = 1
     H = rng.uniform(0.05, 1.0, (FIT_P, n)).astype(np.float32)
     return [torch.from_numpy(a).to(dev) for a in (Xb, node, G, H)]
 
@@ -223,15 +249,15 @@ def check_training_kernels(pt, pdm, rng, dev):
             # two f32 summation orders of m values each stay within
             # (m - 1) * 2^-24 * sum|v| of the exact sum (m: rows of the node)
             m = int(torch.bincount(node.reshape(-1).long()).max())
-            for got, want, v in ((hg, wg, G), (hh, wh, H)):
-                mag, _ = pt.histograms_plain(Xb, node, v.abs(), v.abs(),
-                                             n_nodes, FIT_BINS)
+            mags = pt.histograms_plain(Xb, node, G.abs(), H.abs(), n_nodes,
+                                       FIT_BINS)
+            for got, want, mag in zip((hg, hh), (wg, wh), mags):
                 tol = 2 * max(m - 1, 1) * 2.0 ** -24 * mag
                 if bool(((got - want).abs() > tol).any()):
                     raise AssertionError(f"K1 disagrees beyond the f32 "
                                          f"summation bound (n={n}, level "
                                          f"{level})")
-            del wg, wh, hg2, hh2, mag, tol
+            del wg, wh, hg2, hh2, mags, tol
             f, b = pt.split_search(hg, hh, FIT_BINS, level=level, **SPLIT_KW)
             wf, wb = pt.split_search_plain(hg, hh, FIT_BINS, level=level,
                                            **SPLIT_KW)
@@ -305,7 +331,7 @@ def time_training_kernels(pt, pdm, cases):
                   * n_nodes)[:, :, None] * d
                  + torch.arange(d, device=node.device)) * B
                 + Xb.long()[None]).reshape(-1)
-        srcg = G[:, :, None].expand(P, n, d).reshape(-1)
+        srcg = G[:, 0, :, None].expand(P, n, d).reshape(-1)
         srch = H[:, :, None].expand(P, n, d).reshape(-1)
         size = P * n_nodes * d * B
 
@@ -375,6 +401,206 @@ def time_training_kernels(pt, pdm, cases):
         out[f"n{n}_aupr512"] = {"binned_aupr": k8}
         emit({"phase": "training_timing", "n": n, "buckets": nb,
               "binned_aupr": k8})
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# forest kernels at level 11 of the depth-12 bucket                           #
+# --------------------------------------------------------------------------- #
+
+RF_DEPTH, RF_TREES_BUCKET, RF_M = 12, 900, 2
+RF_PLAIN_PAIRS = 4  # pairs held to the plain versions one by one
+
+
+def forest_level11_inputs(pt, rng, dev):
+    """A chunk of the depth-12 bucket's trees as `fit_forest` sizes
+    it (900 trees: 6 configs x 3 folds x 50), grown by the port to depth
+    11 on a seeded 802 x 496 binned matrix with Titanic-like labels, fold
+    weights and Poisson bootstraps: the level-11 node ids of real trees
+    (most of the 2048 nodes empty), and the values of 2 class channels."""
+    n, d = FIT_N, FIT_D
+    Pc, budget, per_tree = pt.forest_chunk(RF_TREES_BUCKET, RF_DEPTH, RF_M,
+                                           n, d, FIT_BINS, dev)
+    Xb = torch.from_numpy(rng.integers(0, FIT_BINS, (n, d))
+                          .astype(np.int8)).to(dev)
+    y = ((Xb[:, 0].float() + Xb[:, 1].float()
+          + torch.from_numpy(rng.normal(size=n) * 8).float().to(dev))
+         > 38).long()
+    Y = torch.nn.functional.one_hot(y, 2).float()
+    fold = torch.from_numpy(rng.integers(0, 3, n)).to(dev)
+    w = (fold[None, :] != torch.arange(Pc, device=dev)[:, None] % 3).float()
+    boot, fmask = pt.forest_draws(Pc, n, d, seed=11, device=dev)
+    H = (boot * w).contiguous()
+    G = (Y.T[None] * H[:, None, :]).contiguous()
+    mcw = torch.tensor([10.0, 100.0] * (Pc // 2) + [10.0] * (Pc % 2),
+                       device=dev)
+    _, node11 = pt.grow_trees(Xb, G, H, 11, FIT_BINS, reg_lambda=1e-6,
+                              min_child_weight=mcw, feature_mask=fmask,
+                              min_gain_norm=0.001)
+    torch.cuda.synchronize()
+    plan = {"pairs": Pc, "budget_bytes": budget, "bytes_per_tree": per_tree,
+            "live_nodes_level11": float(
+                (torch.nn.functional.one_hot(node11.long(), 2048).sum(1) > 0)
+                .sum(1).float().mean())}
+    return Xb, G, H, fmask, mcw, node11, plan
+
+
+def check_forest_kernels(pt, rng, dev):
+    """K1 (m = 2, the rows routed right grouped by their level-10 parent),
+    K1-sub (level 10 -> 11), K2 (m = 2) at level 11, K3 routing and K3
+    leaves (m = 2, 4096 leaves) on one chunk of the depth-12 bucket; the
+    kernels run on the whole chunk, the plain versions on its first pairs
+    one by one (the plain K1-sub and K2 of the whole chunk would not fit
+    beside it). Forest values are small integers, so every histogram sum
+    is exact and kernel and plain version agree bit for bit."""
+    Xb, G, H, fmask, mcw, node11, plan = forest_level11_inputs(pt, rng, dev)
+    Pc = plan["pairs"]
+    parent = torch.where((node11 & 1).bool(), node11 >> 1,
+                         torch.full_like(node11, 1024))
+    hg_r, hh_r = pt.histograms(Xb, parent, G, H, 1024, FIT_BINS)
+    hg10, hh10 = pt.histograms(Xb, node11 >> 1, G, H, 1024, FIT_BINS)
+    cg, ch = pt.sibling_subtract(hg10, hh10, hg_r, hh_r)
+    kw = dict(reg_lambda=1e-6, min_child_weight=mcw, min_gain=0.0,
+              min_gain_norm=0.001, feature_mask=fmask, level=11,
+              active_depth=RF_DEPTH)
+    f, b = pt.split_search(cg, ch, FIT_BINS, **kw)
+    # the grid's child weights (10, 100) split few level-11 nodes; a
+    # second search with weight 1 holds the kernel to many more splits
+    kw1 = dict(kw, min_child_weight=1.0, min_gain_norm=0.0)
+    f1, b1 = pt.split_search(cg, ch, FIT_BINS, **kw1)
+    node12 = pt.route_level(Xb, node11, f, b)
+    leaf = pt.leaf_values(node12, G, H, 4096, 1e-6, 0.0)
+    torch.cuda.synchronize()
+    worst = {k: 0.0 for k in ("histograms", "sibling_subtract",
+                              "split_search", "route_level", "leaf_values")}
+    checked = sorted(set(range(min(RF_PLAIN_PAIRS - 1, Pc))) | {Pc - 1})
+    for p in checked:
+        sl = slice(p, p + 1)
+        wg, wh = pt.histograms_plain(Xb, parent[sl], G[sl], H[sl], 1024,
+                                     FIT_BINS)
+        err = max(float((hg_r[sl] - wg).abs().max()),
+                  float((hh_r[sl] - wh).abs().max()))
+        worst["histograms"] = max(worst["histograms"], err)
+        if not (torch.equal(hg_r[sl], wg) and torch.equal(hh_r[sl], wh)):
+            raise AssertionError(f"forest K1 disagrees (pair {p})")
+        del wg, wh
+        wg, wh = pt.sibling_subtract_plain(hg10[sl], hh10[sl], hg_r[sl],
+                                           hh_r[sl])
+        if not (torch.equal(cg[sl], wg) and torch.equal(ch[sl], wh)):
+            raise AssertionError(f"K1-sub disagrees (pair {p})")
+        del wg, wh
+        pkw = dict(kw, min_child_weight=mcw[sl], feature_mask=fmask[sl])
+        wf, wb = pt.split_search_plain(cg[sl], ch[sl], FIT_BINS, **pkw)
+        wf1, wb1 = pt.split_search_plain(cg[sl], ch[sl], FIT_BINS,
+                                         **dict(kw1, feature_mask=fmask[sl]))
+        diff = int((f[sl] != wf).sum() + (b[sl] != wb).sum()
+                   + (f1[sl] != wf1).sum() + (b1[sl] != wb1).sum())
+        worst["split_search"] = max(worst["split_search"], diff)
+        if diff:
+            raise AssertionError(f"forest K2 disagrees (pair {p})")
+        wn = pt.route_level_plain(Xb, node11[sl], f[sl], b[sl])
+        if not torch.equal(wn, node12[sl]):
+            raise AssertionError(f"forest K3 route disagrees (pair {p})")
+        wl = pt.leaf_values_plain(node12[sl].cpu(), G[sl].cpu(),
+                                  H[sl].cpu(), 4096, 1e-6, 0.0)
+        err = float((leaf[sl].cpu() - wl).abs().max())
+        worst["leaf_values"] = max(worst["leaf_values"], err)
+        if not torch.equal(leaf[sl].cpu(), wl):
+            raise AssertionError(f"forest K3 leaves differ from row-order "
+                                 f"sums (pair {p})")
+    record = {"phase": "forest_kernel_check", "shape": {
+        "pairs": Pc, "rows": FIT_N, "d": FIT_D, "bins": FIT_BINS,
+        "channels": RF_M, "parents_level10": 1024, "nodes_level11": 2048,
+        "leaves": 4096}, "chunk": plan,
+        "checked_pairs": checked, "max_abs_err": worst,
+        "splits_level11": int((b < FIT_BINS).sum()),
+        "splits_level11_weight1": int((b1 < FIT_BINS).sum()),
+        "tolerance": "equal (integer histogram sums; leaves bit-equal to "
+                     "the CPU's row-order sums)"}
+    cases = dict(Xb=Xb, G=G, H=H, parent=parent, node11=node11,
+                 node12=node12, hg_r=hg_r, hh_r=hh_r, hg10=hg10, hh10=hh10,
+                 cg=cg, ch=ch, f=f, b=b, kw=kw, Pc=Pc)
+    return record, cases
+
+
+def time_forest_kernels(pt, c):
+    """CUDA-event times at level 11 of the depth-12 bucket, kernel and
+    plain version on the same whole chunk, beside the bound and (K1, K1-sub)
+    one-call yardsticks. The level-11 histograms are dropped before the
+    histogram kernels are timed, so the plain versions' outputs fit."""
+    Pc, n, d, B, m = c["Pc"], FIT_N, FIT_D, FIT_BINS, RF_M
+    out = {}
+    cells11 = Pc * (m + 1) * 2048 * d * B
+    k2_bytes = cells11 * 4 + 2 * Pc * 2048 * 4 + Pc * d
+    k2_bound, k2_by = bound(k2_bytes, 12 * cells11)
+    out["split_search"] = {
+        "ms": cuda_ms(lambda: pt.split_search(c["cg"], c["ch"], B,
+                                              **c["kw"]), 10),
+        "plain_ms": cuda_ms(lambda: pt.split_search_plain(
+            c["cg"], c["ch"], B, **c["kw"]), 2, warmup=1),
+        "library_ms": None, "bound_ms": k2_bound, "bound_by": k2_by,
+        "bytes": k2_bytes}
+    Xb, node11, f, b = c["Xb"], c["node11"], c["f"], c["b"]
+    k3r_bytes = 2 * Pc * n * 4 + n * d + 2 * Pc * 2048 * 4
+    k3r_bound, k3r_by = bound(k3r_bytes, 3 * Pc * n)
+    out["route_level"] = {
+        "ms": cuda_ms(lambda: pt.route_level(Xb, node11, f, b), 50),
+        "plain_ms": cuda_ms(lambda: pt.route_level_plain(Xb, node11, f, b),
+                            10),
+        "library_ms": None, "bound_ms": k3r_bound, "bound_by": k3r_by,
+        "bytes": k3r_bytes}
+    G, H, node12 = c["G"], c["H"], c["node12"]
+    k3l_bytes = (m + 2) * Pc * n * 4 + Pc * 4097 * 4 + Pc * 4096 * m * 4
+    k3l_bound, k3l_by = bound(k3l_bytes, (m + 1) * Pc * n + 5 * Pc * 4096 * m)
+    out["leaf_values"] = {
+        "ms": cuda_ms(lambda: pt.leaf_values(node12, G, H, 4096, 1e-6, 0.0),
+                      20),
+        "plain_ms": cuda_ms(lambda: pt.leaf_values_plain(
+            node12, G, H, 4096, 1e-6, 0.0), 10),
+        "library_ms": None, "bound_ms": k3l_bound, "bound_by": k3l_by,
+        "bytes": k3l_bytes}
+    for k in ("cg", "ch", "f", "b"):
+        del c[k]
+    torch.cuda.empty_cache()
+    hg10, hh10, hg_r, hh_r = c["hg10"], c["hh10"], c["hg_r"], c["hh_r"]
+    cells10 = Pc * (m + 1) * 1024 * d * B
+    sub_bytes = 2 * cells10 * 4 + 2 * cells10 * 4
+    sub_bound, sub_by = bound(sub_bytes, cells10)
+    out["sibling_subtract"] = {
+        "ms": cuda_ms(lambda: pt.sibling_subtract(hg10, hh10, hg_r, hh_r),
+                      10),
+        "plain_ms": cuda_ms(lambda: pt.sibling_subtract_plain(
+            hg10, hh10, hg_r, hh_r), 3, warmup=1),
+        "library_ms": cuda_ms(lambda: (torch.sub(hg10, hg_r),
+                                       torch.sub(hh10, hh_r)), 10),
+        "bound_ms": sub_bound, "bound_by": sub_by, "bytes": sub_bytes}
+    del hg10, hh10
+    for k in ("hg10", "hh10"):
+        del c[k]
+    torch.cuda.empty_cache()
+    parent = c["parent"]
+    n_right = int((parent < 1024).sum())
+    k1_bytes = n * d + Pc * (m + 1) * n * 4 + 2 * Pc * n * 4 + cells10 * 4
+    k1_bound, k1_by = bound(k1_bytes, (m + 1) * n_right * d)
+    cell = (((parent.long() + torch.arange(Pc, device=G.device)[:, None]
+              * 1025)[:, :, None] * d + torch.arange(d, device=G.device))
+            * B + Xb.long()[None]).reshape(-1)
+    srcs = [v[:, :, None].expand(Pc, n, d).reshape(-1)
+            for v in (G[:, 0], G[:, 1], H)]
+
+    def library():  # index_add_ per channel, the left-out rows' slot too
+        for src in srcs:
+            torch.zeros(Pc * 1025 * d * B, device=src.device).index_add_(
+                0, cell, src)
+    out["histograms"] = {
+        "ms": cuda_ms(lambda: pt.histograms(Xb, parent, G, H, 1024, B), 10),
+        "segments_ms": cuda_ms(lambda: pt.node_segments(parent, 1024), 10),
+        "plain_ms": cuda_ms(lambda: pt.histograms_plain(
+            Xb, parent, G, H, 1024, B), 2, warmup=1),
+        "library_ms": cuda_ms(library, 3, warmup=1), "bound_ms": k1_bound,
+        "bound_by": k1_by, "bytes": k1_bytes, "rows_right": n_right}
+    del cell, srcs
+    emit({"phase": "forest_timing", "pairs": Pc, "level": 11, **out})
     return out
 
 
@@ -484,9 +710,12 @@ def train_path(port, pt, device="cuda"):
     return model, ds, record
 
 
-def sweep_busy_share(port, model, ds, device="cuda"):
-    """The sweep of the trained selector run again under torch.profiler:
-    the device's busy and idle share of its wall time."""
+def sweep_busy_share(port, model, ds, models, label, device="cuda",
+                     draws=None):
+    """The sweep of the trained selector over `models` ((estimator,
+    grids) pairs) run again under torch.profiler: the device's busy and
+    idle share of its wall time."""
+    from transmogrifai_tpu_torch.models import trees as pt
     from transmogrifai_tpu_torch.parallel.sweep import run_sweep
     from transmogrifai_tpu_torch.selector.splitters import DataBalancer
     from transmogrifai_tpu_torch.selector.validators import OpCrossValidation
@@ -505,18 +734,22 @@ def sweep_busy_share(port, model, ds, device="cuda"):
     X = X_all[torch.as_tensor(tr, device=device)]
     yd = torch.as_tensor(y[tr].astype(np.float32), device=device)
     folds = OpCrossValidation(n_folds=3, seed=42).splits(y[tr])
-    est = port.OpXGBoostClassifier(**XGB)
-    ctx = FitContext(n_rows=891, seed=42 * 1000003 + 4, device=device)
     ev = BinaryClassificationEvaluator()
-    run_sweep(est, GRID, X, yd, folds, ev, ctx)  # warm
-    sync(device)
+
+    def sweep():
+        ctx = FitContext(n_rows=891, seed=42 * 1000003 + 4, device=device)
+        with (pt.injected_forest_draws(draws) if draws is not None
+              else contextlib.nullcontext()):
+            for est, grids in models:
+                run_sweep(est, grids, X, yd, folds, ev, ctx)
+        sync(device)
+
+    sweep()  # warm
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    ctx = FitContext(n_rows=891, seed=42 * 1000003 + 4, device=device)
     with torch.profiler.profile(activities=acts) as prof:
         t = time.perf_counter()
-        run_sweep(est, GRID, X, yd, folds, ev, ctx)
-        sync(device)
+        sweep()
         wall = (time.perf_counter() - t) * 1e3
     items = sorted(((e.key, e.self_device_time_total / 1e3)
                     for e in prof.key_averages()
@@ -524,11 +757,10 @@ def sweep_busy_share(port, model, ds, device="cuda"):
                     and e.self_device_time_total > 0), key=lambda kv: -kv[1])
     busy = sum(v for _, v in items)
     t = time.perf_counter()
-    run_sweep(est, GRID, X, yd, folds, ev,
-              FitContext(n_rows=891, seed=42 * 1000003 + 4, device=device))
-    sync(device)
+    sweep()
     plain_wall = (time.perf_counter() - t) * 1e3
-    record = {"phase": "sweep_breakdown", "wall_ms": plain_wall,
+    record = {"phase": "sweep_breakdown", "sweep": label,
+              "wall_ms": plain_wall,
               "wall_ms_profiled": wall,
               "device_busy_ms": busy if items else "not measured",
               "device_busy_share": busy / plain_wall if items
@@ -538,6 +770,152 @@ def sweep_busy_share(port, model, ds, device="cuda"):
               "top_device_items_ms": items[:8]}
     emit(record)
     return record
+
+
+class ForestPlans(logging.Handler):
+    """Within a `with` block, `fit_forest`'s log lines: the chunks it
+    cut each bucket's trees into and the byte budget it used."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+        self._logger = logging.getLogger(
+            "transmogrifai_tpu_torch.models.trees")
+
+    def emit(self, record):
+        if record.getMessage().startswith("fit_forest:"):
+            self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self._level = self._logger.level
+        self._logger.setLevel(logging.INFO)
+        self._logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+        self._logger.setLevel(self._level)
+
+
+# --------------------------------------------------------------------------- #
+# the README quickstart: the default LR + RF + XGB sweep                      #
+# --------------------------------------------------------------------------- #
+
+DEFAULT_FIXTURE = os.path.join(HERE, "transmogrifai_tpu_torch", "testdata",
+                               "titanic_quickstart_default_f32")
+DEFAULT_KERNELS = TRAINING_KERNELS + ("sibling_subtract", "tree_walk")
+# LR: the same FISTA steps, products summed in another order (the CPU
+# tests hold the weights within 1e-4 of max|W|); RF: equal trees from the
+# JAX draws, probabilities summed in another order; XGB: near-tie splits
+# at depth 10 (see XGB's tolerance above)
+DEFAULT_FOLD_ATOL = {"OpLogisticRegression": 1e-4,
+                     "OpRandomForestClassifier": 1e-2,
+                     "OpXGBoostClassifier": 1e-2}
+DEFAULT_HOLDOUT_ATOL = 1e-2
+
+
+def readme_quickstart(port, ds):
+    """The README quickstart verbatim: no `models=`, so LR + RF + XGB."""
+    predictors, label = port.FeatureBuilder.from_dataset(
+        ds, response="survived")
+    checked = label.sanity_check(port.transmogrify(predictors),
+                                 remove_bad_features=True)
+    pred = port.BinaryClassificationModelSelector.with_cross_validation() \
+        .set_input(label, checked).get_output()
+    return pred, label
+
+
+def default_train_path(port, pt, device="cuda"):
+    """Train the README quickstart with the JAX package's forest draws
+    injected, hold it to the JAX package's f32-mode default sweep, save,
+    reload, score; the launch counters cover exactly this run."""
+    import tempfile
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the f32 reference is "
+                             "exact f32")
+    ds = port.Dataset.from_csv(TITANIC)
+    with open(os.path.join(DEFAULT_FIXTURE, "results.json")) as fh:
+        want = json.load(fh)
+    with np.load(os.path.join(DEFAULT_FIXTURE, "scores.npz")) as z:
+        want_arr = {k: z[k] for k in z.files}
+    draws = (want_arr["forest_boot"], want_arr["forest_mask"])
+    plans = ForestPlans()
+    pt.reset_launches()
+    t0 = time.perf_counter()
+    pred, label = readme_quickstart(port, ds)
+    with pt.injected_forest_draws(draws), plans:
+        model = port.Workflow().set_result_features(pred, label) \
+            .set_input_dataset(ds).train(device=device)
+    sync(device)
+    train_s = time.perf_counter() - t0
+    scores = prediction_of(model.score_compiled(ds))
+    path = tempfile.mkdtemp(prefix="port_default_model_")
+    model.save(path)
+    again = prediction_of(port.load_model(path, device=device)
+                          .score_compiled(ds))
+    sync(device)
+    launches = {k: pt.LAUNCHES[k] for k in DEFAULT_KERNELS}
+
+    best = next(s for s in model.fitted.values() if hasattr(
+        getattr(s, "summary", None), "validation_results"))
+    summ = best.summary
+    results = [{"model": r.model, "grid": r.grid}
+               for r in summ.validation_results]
+    if results != want["results"]:
+        raise AssertionError("the default sweep ran other configs than the "
+                             "fixture's")
+    folds = np.array([r.fold_metrics for r in summ.validation_results])
+    err = np.abs(folds - np.array(want["fold_metrics"])).max(axis=1)
+    fold_err = {fam: float(max(e for e, r in zip(err, results)
+                               if r["model"] == fam))
+                for fam in DEFAULT_FOLD_ATOL}
+    hold_err = abs(summ.holdout_metrics["AuPR"]
+                   - want["holdout_metrics"]["AuPR"])
+    reload_equal = all(np.array_equal(scores[k], again[k])
+                       for k in ("prediction", "rawPrediction",
+                                 "probability"))
+    winner_equal = (summ.best_model == want["best_model"]
+                    and summ.best_grid == want["best_grid"])
+    feature_fit = sum(v for k, v in model.stage_seconds
+                      if k not in ("SanityChecker", "ModelSelector"))
+    stage = dict(model.stage_seconds)
+    ok = (winner_equal
+          and all(fold_err[f] <= DEFAULT_FOLD_ATOL[f] for f in fold_err)
+          and hold_err <= DEFAULT_HOLDOUT_ATOL and reload_equal
+          and np.isfinite(scores["probability"]).all()
+          and scores["probability"].shape == (891, 2)
+          and all(launches[k] >= 1 for k in DEFAULT_KERNELS))
+    record = {
+        "phase": "default_train", "rows": 891, "configs": len(results),
+        "best_model": summ.best_model, "best_grid": summ.best_grid,
+        "winner_equal": winner_equal,
+        "fold_aupr_max_abs_err": fold_err, "tolerance": {
+            "fold_aupr": DEFAULT_FOLD_ATOL,
+            "holdout_aupr": DEFAULT_HOLDOUT_ATOL},
+        "holdout_aupr": summ.holdout_metrics["AuPR"],
+        "holdout_aupr_jax": want["holdout_metrics"]["AuPR"],
+        "holdout_aupr_abs_err": hold_err,
+        "train_aupr_abs_err": abs(summ.train_metrics["AuPR"]
+                                  - want["train_metrics"]["AuPR"]),
+        "scores_max_abs_err_vs_jax": {
+            k: float(np.abs(scores[k] - want_arr[k]).max())
+            for k in ("rawPrediction", "probability")},
+        "reload_scores_equal": reload_equal,
+        "launches_main_path": launches, "forest_chunks": plans.messages,
+        "wall_s": {"train": train_s, "feature_fit": feature_fit,
+                   "sanity_checker": stage.get("SanityChecker"),
+                   "selector": stage.get("ModelSelector"),
+                   "sweep": summ.timings["sweep_s"],
+                   "sweep_by_family": summ.timings["families"],
+                   "sweep_by_group": summ.timings["groups"],
+                   "refit": summ.timings["refit_s"]},
+        "ok": bool(ok)}
+    emit(record)
+    if not ok:
+        raise AssertionError("the default sweep disagrees with the JAX "
+                             "package's f32 fixture")
+    return model, ds, record, draws
 
 
 def main() -> int:
@@ -669,7 +1047,18 @@ def main() -> int:
 
     # 8. the training path ---------------------------------------------------- #
     trained, train_ds, train_rec = train_path(port, pt)
-    train_launches = train_rec["launches_main_path"]
+
+    # 11. forest kernels at level 11 of the depth-12 bucket ----------------- #
+    forest_check, forest_cases = check_forest_kernels(pt, rng, dev)
+    emit(forest_check)
+    forest_timing = time_forest_kernels(pt, forest_cases)
+    del forest_cases
+    torch.cuda.empty_cache()
+
+    # 12. the README quickstart: the default sweep -------------------------- #
+    default_model, default_ds, default_rec, default_draws = \
+        default_train_path(port, pt)
+    train_launches = default_rec["launches_main_path"]
 
     # 6. timings ------------------------------------------------------------ #
     timing = {}
@@ -766,13 +1155,21 @@ def main() -> int:
     # 9. training timings ------------------------------------------------- #
     fit_timing = time_training_kernels(pt, pdm, fit_cases)
     del fit_cases
-    sweep_busy_share(port, trained, train_ds)
+    sweep_busy_share(port, trained, train_ds,
+                     [(port.OpXGBoostClassifier(**XGB), GRID)], "xgboost")
+    from transmogrifai_tpu_torch.selector.model_selector import (
+        _default_binary_models)
+    sweep_busy_share(port, default_model, default_ds,
+                     _default_binary_models(), "default",
+                     draws=default_draws)
 
     # 10. the kernels line, the card, the result --------------------------- #
     main_n = timing[891]
-    deep = fit_timing[f"n{FIT_N}_level9"]
     aupr = fit_timing[f"n{FIT_N}_aupr512"]["binned_aupr"]
-    errs = check["max_abs_err"]
+    errs = {k: max(check["max_abs_err"].get(k, 0.0),
+                   forest_check["max_abs_err"].get(k, 0.0))
+            for k in set(check["max_abs_err"])
+            | set(forest_check["max_abs_err"])}
 
     def train_entry(name, source, replaces, t):
         return {"name": name, "route": "cuda",
@@ -785,27 +1182,30 @@ def main() -> int:
         {"name": "bin_features", "route": "cuda",
          "source": "transmogrifai_tpu_torch/csrc/bin_features.cu",
          "replaces": "transmogrifai_tpu/models/trees.py:63",
-         "launches": launches["bin_features"], "max_abs_err": k4_err,
+         "launches": train_launches["bin_features"], "max_abs_err": k4_err,
          **{k: main_n["bin_features"][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
         {"name": "tree_walk", "route": "cuda",
          "source": "transmogrifai_tpu_torch/csrc/tree_walk.cu",
          "replaces": "transmogrifai_tpu/models/trees.py:334",
-         "launches": launches["tree_walk"], "max_abs_err": k5_err,
+         "launches": train_launches["tree_walk"], "max_abs_err": k5_err,
          **{k: main_n["tree_walk"][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
         train_entry("histograms", "histograms.cu",
                     "transmogrifai_tpu/models/trees.py:127",
-                    deep["histograms"]),
+                    forest_timing["histograms"]),
+        train_entry("sibling_subtract", "sibling_subtract.cu",
+                    "transmogrifai_tpu/models/trees.py:278",
+                    forest_timing["sibling_subtract"]),
         train_entry("split_search", "split_search.cu",
                     "transmogrifai_tpu/models/trees.py:170",
-                    deep["split_search"]),
+                    forest_timing["split_search"]),
         train_entry("route_level", "route_leaves.cu",
                     "transmogrifai_tpu/models/trees.py:271",
-                    deep["route_level"]),
+                    forest_timing["route_level"]),
         train_entry("leaf_values", "route_leaves.cu",
                     "transmogrifai_tpu/models/trees.py:289",
-                    deep["leaf_values"]),
+                    forest_timing["leaf_values"]),
         train_entry("binned_aupr", "binned_aupr.cu",
                     "transmogrifai_tpu/models/trees.py:564", aupr),
     ]})

@@ -16,7 +16,9 @@ to run; K2 split features and bins equal when fed the same histograms
 (the same f32 operations in the same order, no fused multiply-adds); K3
 node ids equal and leaf values within atol 1e-6 of the plain version and
 bit-equal to a row-order f32 sum; K8 binned AuPR equal at 512 and 4096
-buckets.
+buckets. Forest kernels (m = 2 class channels, integer values): K1 and
+K1-sub equal (integer sums are exact in any order), K2 and K3 leaves as
+above; a depth-12 forest grown on the card equals the CPU's.
 """
 
 import os
@@ -148,7 +150,7 @@ def _fit_inputs(rng, P, n, d, n_bins, n_nodes):
     Xb[:, min(3, d - 1)] = Xb[:, 0]  # a duplicate column: exact ties
     node = torch.from_numpy(
         rng.integers(0, n_nodes, (P, n)).astype(np.int32))
-    G = torch.from_numpy(rng.normal(size=(P, n)).astype(np.float32))
+    G = torch.from_numpy(rng.normal(size=(P, 1, n)).astype(np.float32))
     H = torch.from_numpy(rng.uniform(0.05, 1, (P, n)).astype(np.float32))
     return Xb, node, G, H
 
@@ -262,3 +264,114 @@ def test_boosting_on_the_card_matches_the_cpu(cuda):
     split = tc["bin"] < 32
     assert torch.equal(tc["feat"][split], tg["feat"][split])
     torch.testing.assert_close(mg, mc, rtol=0, atol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+# forest kernels: m = 2 class channels, sibling subtraction (K1-sub)          #
+# --------------------------------------------------------------------------- #
+
+def _forest_inputs(rng, P, n, d, n_bins, n_nodes):
+    Xb = torch.from_numpy(rng.integers(0, n_bins, (n, d)).astype(np.int8))
+    node = torch.from_numpy(
+        rng.integers(0, n_nodes + 1, (P, n)).astype(np.int32))  # + left out
+    y = torch.from_numpy(rng.integers(0, 2, n))
+    H = torch.from_numpy(rng.poisson(1.0, (P, n)).astype(np.float32))
+    G = (torch.nn.functional.one_hot(y, 2).float().T[None]
+         * H[:, None, :]).contiguous()
+    return Xb, node, G, H
+
+
+FOREST_SHAPES = [(1, 1, 1, 2, 1), (3, 257, 7, 8, 4), (4, 802, 496, 32, 1024),
+                 (2, 5000, 40, 32, 16)]
+
+
+@pytest.mark.parametrize("P,n,d,n_bins,n_nodes", FOREST_SHAPES)
+def test_histograms_kernel_with_class_channels_equals_plain(
+        cuda, P, n, d, n_bins, n_nodes):
+    rng = np.random.default_rng(n + n_nodes + 1)
+    args = [t.to(cuda) for t in _forest_inputs(rng, P, n, d, n_bins,
+                                               n_nodes)]
+    before = pt.LAUNCHES["histograms"]
+    hg, hh = pt.histograms(*args, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["histograms"] == before + 1
+    assert hg.shape == (P, 2, n_nodes, d, n_bins)
+    wg, wh = pt.histograms_plain(*args, n_nodes, n_bins)
+    assert torch.equal(hg, wg) and torch.equal(hh, wh)
+
+
+@pytest.mark.parametrize("P,n,d,n_bins,n_nodes", FOREST_SHAPES)
+def test_sibling_subtract_kernel_equals_plain(cuda, P, n, d, n_bins,
+                                              n_nodes):
+    rng = np.random.default_rng(n * 7 + n_nodes)
+    Xb, node, G, H = (t.to(cuda) for t in
+                      _forest_inputs(rng, P, n, d, n_bins, n_nodes))
+    parent = torch.clamp(node, max=n_nodes - 1)
+    right = torch.where(node % 2 == 1, parent,
+                        torch.full_like(parent, n_nodes))
+    hists = (*pt.histograms(Xb, parent, G, H, n_nodes, n_bins),
+             *pt.histograms(Xb, right, G, H, n_nodes, n_bins))
+    before = pt.LAUNCHES["sibling_subtract"]
+    cg, ch = pt.sibling_subtract(*hists)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["sibling_subtract"] == before + 1
+    wg, wh = pt.sibling_subtract_plain(*hists)
+    assert torch.equal(cg, wg) and torch.equal(ch, wh)
+    # an odd cell count takes the scalar path
+    odd = [t[..., :n_bins - 1].contiguous() for t in hists]
+    cg, ch = pt.sibling_subtract(*odd)
+    wg, wh = pt.sibling_subtract_plain(*odd)
+    assert torch.equal(cg, wg) and torch.equal(ch, wh)
+
+
+@pytest.mark.parametrize("P,n,d,n_bins,n_nodes", FOREST_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_split_search_kernel_with_class_channels_equals_plain(
+        cuda, P, n, d, n_bins, n_nodes, masked):
+    rng = np.random.default_rng(n * 11 + n_nodes)
+    Xb, node, G, H = (t.to(cuda) for t in
+                      _forest_inputs(rng, P, n, d, n_bins, n_nodes))
+    hg, hh = pt.histograms(Xb, node, G, H, n_nodes, n_bins)
+    fm = (torch.from_numpy(rng.random((P, d)) < 0.5).to(cuda)
+          if masked else None)
+    for mcw, mgn in ((1.0, 0.0), (10.0, 0.001)):
+        kw = dict(reg_lambda=1e-6, min_child_weight=mcw, min_gain=0.0,
+                  min_gain_norm=mgn, feature_mask=fm, level=5,
+                  active_depth=[12] * P)
+        f, b = pt.split_search(hg, hh, n_bins, **kw)
+        wf, wb = pt.split_search_plain(hg, hh, n_bins, **kw)
+        assert torch.equal(f, wf) and torch.equal(b, wb)
+
+
+@pytest.mark.parametrize("P,n,d,n_bins,n_nodes", FOREST_SHAPES)
+def test_leaf_kernel_with_class_channels_matches_plain(cuda, P, n, d,
+                                                       n_bins, n_nodes):
+    rng = np.random.default_rng(n * 13 + n_nodes)
+    _, node, G, H = _forest_inputs(rng, P, n, d, n_bins, n_nodes)
+    node = torch.clamp(node, max=n_nodes - 1)
+    leaf = pt.leaf_values(node.to(cuda), G.to(cuda), H.to(cuda), n_nodes,
+                          1e-6, 0.0)
+    assert leaf.shape == (P, n_nodes, 2)
+    want = pt.leaf_values_plain(node, G, H, n_nodes, 1e-6, 0.0)
+    assert torch.equal(leaf.cpu(), want)
+
+
+def test_depth12_forest_on_the_card_matches_the_cpu(cuda):
+    """Two (config, fold) pairs of 4 depth-12 trees (the subtraction path)
+    grown with the same draws on the card and on the CPU: equal tables,
+    leaves equal (integer sums, the same divisions)."""
+    rng = np.random.default_rng(5)
+    n, d = 700, 30
+    Xb = torch.from_numpy(rng.integers(0, 32, (n, d)).astype(np.int8))
+    y = torch.from_numpy((rng.random(n) < 0.4).astype(np.int64))
+    Y = torch.nn.functional.one_hot(y, 2).float()
+    w = torch.from_numpy((rng.random((2, n)) < 0.67).astype(np.float32))
+    draws = pt.forest_draws(4, n, d, seed=3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        trees = pt.fit_forest(Xb.to(dev), Y.to(dev), w.to(dev), 4, 12, 32, 3,
+                              min_child_weight=[1.0, 10.0],
+                              min_gain=[0.0, 0.001], draws=draws)
+        out[dev] = {k: v.cpu() for k, v in trees.items()}
+    for k in ("feat", "bin", "leaf"):
+        assert torch.equal(out["cpu"][k], out["cuda"][k]), k

@@ -52,7 +52,7 @@ def _inputs(seed, n_bins, dup=True):
     Xb = rng.integers(0, n_bins, (N, D)).astype(np.int8)
     if dup:
         Xb[:, 3] = Xb[:, 1]  # a duplicate column: exact gain ties
-    G = rng.normal(size=(P, N)).astype(np.float32)
+    G = rng.normal(size=(P, 1, N)).astype(np.float32)  # m = 1 channel
     H = rng.uniform(0.05, 1.0, size=(P, N)).astype(np.float32)
     H[:, rng.integers(0, N, 20)] = 0.0  # zero-weight rows
     return Xb, G, H
@@ -73,13 +73,13 @@ def test_histograms_plain_matches_jax(n_bins, n_nodes):
                                  torch.from_numpy(node),
                                  torch.from_numpy(G), torch.from_numpy(H),
                                  n_nodes, n_bins)
-    assert got_g.shape == (P, n_nodes, D, n_bins)
+    assert got_g.shape == (P, 1, n_nodes, D, n_bins)
     B = jt.bins_onehot(jnp.asarray(Xb), n_bins)
     for p in range(P):
         hg, hh = jt._histograms(B, jnp.asarray(node[p]),
-                                jnp.asarray(G[p])[:, None],
+                                jnp.asarray(G[p].T),
                                 jnp.asarray(H[p]), n_nodes)
-        np.testing.assert_allclose(got_g[p].numpy(), np.asarray(hg[0]),
+        np.testing.assert_allclose(got_g[p].numpy(), np.asarray(hg),
                                    rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(got_h[p].numpy(), np.asarray(hh),
                                    rtol=1e-5, atol=1e-5)
@@ -126,13 +126,13 @@ def test_split_search_plain_matches_jax(case, n_bins):
     hgs, hhs, want_f, want_b = [], [], [], []
     for p in range(P):
         hg, hh = jt._histograms(B, jnp.asarray(node[p]),
-                                jnp.asarray(G[p])[:, None],
+                                jnp.asarray(G[p].T),
                                 jnp.asarray(H[p]), n_nodes)
         bf, bb = jt.split_from_histograms(
             hg, hh, n_bins, 1.0, mcw, min_gain, mgn,
             jnp.asarray(fmask[p]) if masked else None, level,
             None if active is None else jnp.int32(active))
-        hgs.append(np.asarray(hg[0]))
+        hgs.append(np.asarray(hg))
         hhs.append(np.asarray(hh))
         want_f.append(np.asarray(bf))
         want_b.append(np.asarray(bb))
@@ -154,12 +154,12 @@ def test_split_search_ties_go_to_the_first_index():
     node = np.zeros((P, N), np.int32)
     hg, hh = pt.histograms(torch.from_numpy(Xb), torch.from_numpy(node),
                            torch.from_numpy(G), torch.from_numpy(H), 1, 8)
-    hg[:, :, 1:4] = 0.0  # only columns 0, 4, 6 (equal) and 5 can win
+    hg[:, :, :, 1:4] = 0.0  # only columns 0, 4, 6 (equal) and 5 can win
     hh[:, :, 1:4] = 0.0
     feat, _ = pt.split_search(hg, hh, 8, 1.0, 1.0, 0.0, 0.0, None, 0, None)
     for p in range(P):
         jf, _ = jt.split_from_histograms(
-            jnp.asarray(hg[p].numpy())[None], jnp.asarray(hh[p].numpy()), 8,
+            jnp.asarray(hg[p].numpy()), jnp.asarray(hh[p].numpy()), 8,
             1.0, 1.0, 0.0, 0.0, None, 0, None)
         assert int(feat[p, 0]) == int(jf[0])
         assert int(feat[p, 0]) not in (4, 6)
@@ -182,7 +182,7 @@ def test_grow_trees_plain_matches_jax(n_bins, alpha):
     assert tree["feat"].shape == (P, DEPTH, 2 ** DEPTH)
     assert tree["leaf"].shape == (P, 2 ** DEPTH, 1)
     for p in range(P):
-        want = jt.grow_tree(jnp.asarray(Xb), jnp.asarray(G[p])[:, None],
+        want = jt.grow_tree(jnp.asarray(Xb), jnp.asarray(G[p].T),
                             jnp.asarray(H[p]), DEPTH, n_bins,
                             reg_lambda=1.0, min_child_weight=mcws[p],
                             min_gain=gammas[p],
@@ -221,10 +221,10 @@ def test_route_level_and_leaf_values_plain():
             g = np.float32(0)
             h = np.float32(0)
             for r in np.flatnonzero(sel):  # row order, as both sum
-                g = np.float32(g + G[p, r])
+                g = np.float32(g + G[p, 0, r])
                 h = np.float32(h + H[p, r])
             g = np.float32(np.sign(g) * max(abs(g) - np.float32(a), 0))
-            assert leaf[p, k].item() == np.float32(g / np.float32(h + lam))
+            assert leaf[p, k, 0].item() == np.float32(g / np.float32(h + lam))
 
 
 def _margins(seed, n=N):

@@ -1,22 +1,22 @@
 """transmogrifai_tpu_torch — the PyTorch/CUDA port of transmogrifai_tpu.
 
-This package trains the XGBoost family of the README quickstart and
-serves the models that it or the JAX package (`transmogrifai_tpu`)
-trained, on an NVIDIA GPU (Hopper). The tree learner's histograms, split
+This package trains the README quickstart — transmogrify, the sanity
+checker and the default LR + RF + XGB binary sweep — and serves the models
+that it or the JAX package (`transmogrifai_tpu`) trained, on an NVIDIA GPU
+(Hopper). The tree learner's histograms, sibling subtraction, split
 search, routing and leaf sums, the binned AuPR, the binning and the
 ensemble walk are kernels written by hand in CUDA C++ (`csrc/`). It
 imports torch and numpy and nothing of the JAX package.
 
     from transmogrifai_tpu_torch import (
         BinaryClassificationModelSelector, Dataset, FeatureBuilder,
-        OpXGBoostClassifier, Workflow, load_model, transmogrify)
+        Workflow, load_model, transmogrify)
     ds = Dataset.from_csv("titanic.csv")
     preds, label = FeatureBuilder.from_dataset(ds, response="survived")
-    checked = label.sanity_check(transmogrify(preds))
-    pred = BinaryClassificationModelSelector.with_cross_validation(
-        models=[(OpXGBoostClassifier(n_estimators=200, eta=0.02),
-                 [{"min_child_weight": 1.0}])],
-    ).set_input(label, checked).get_output()
+    checked = label.sanity_check(transmogrify(preds),
+                                 remove_bad_features=True)
+    pred = BinaryClassificationModelSelector.with_cross_validation() \
+        .set_input(label, checked).get_output()
     model = Workflow().set_result_features(pred, label) \
         .set_input_dataset(ds).train()          # device="cuda" by default
     model.save("model_dir")                     # the JAX package's format
@@ -30,8 +30,9 @@ from transmogrifai_tpu_torch import dsl  # noqa: F401  (attaches the DSL)
 from transmogrifai_tpu_torch.automl.transmogrify import transmogrify
 from transmogrifai_tpu_torch.data.dataset import Dataset
 from transmogrifai_tpu_torch.features.feature import FeatureBuilder
+from transmogrifai_tpu_torch.models.logistic import OpLogisticRegression
 from transmogrifai_tpu_torch.models.trees import (
-    OpGBTClassifier, OpXGBoostClassifier)
+    OpGBTClassifier, OpRandomForestClassifier, OpXGBoostClassifier)
 from transmogrifai_tpu_torch.selector.model_selector import (
     BinaryClassificationModelSelector)
 from transmogrifai_tpu_torch.workflow.serialization import (
@@ -39,5 +40,6 @@ from transmogrifai_tpu_torch.workflow.serialization import (
 from transmogrifai_tpu_torch.workflow.workflow import Workflow, WorkflowModel
 
 __all__ = ["BinaryClassificationModelSelector", "Dataset", "FeatureBuilder",
-           "OpGBTClassifier", "OpXGBoostClassifier", "Workflow",
+           "OpGBTClassifier", "OpLogisticRegression",
+           "OpRandomForestClassifier", "OpXGBoostClassifier", "Workflow",
            "WorkflowModel", "from_jax_params", "load_model", "transmogrify"]

@@ -15,10 +15,12 @@
 //
 // leaf_values: one thread per (pair, leaf). The caller passes the rows
 // grouped by final node in stable row order (`order`, `seg`, as for K1);
-// the thread sums its leaf's G and H in row order (no atomics: the same
-// bits on every run, and the same f32 sequence as the JAX package's
-// row-order scatter-add), then applies the XGBoost leaf formula
-//   g <- sign(g) * max(|g| - alpha, 0);   leaf = g / (h + lambda).
+// the thread sums its leaf's H and each of its m value channels G_c in row
+// order (no atomics: the same bits on every run, and the same f32 sequence
+// as the JAX package's row-order scatter-add), then applies the XGBoost
+// leaf formula per channel
+//   g_c <- sign(g_c) * max(|g_c| - alpha, 0);   leaf_c = g_c / (h + lambda)
+// (a forest's channels are its classes, with alpha = 0 and lambda = 1e-6).
 //
 // Bound on this card: bytes (routing reads one Xb cell and two table
 // entries per row; the leaf pass reads G, H and the order once).
@@ -58,7 +60,7 @@ __global__ void leaf_values_kernel(const float* __restrict__ G,
                                    const float* __restrict__ lam,
                                    const float* __restrict__ alpha,
                                    float* __restrict__ leaf, int P, int n,
-                                   int n_leaves) {
+                                   int n_leaves, int m) {
   const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (i >= (int64_t)P * n_leaves) return;
   const int p = (int)(i / n_leaves);
@@ -67,17 +69,17 @@ __global__ void leaf_values_kernel(const float* __restrict__ G,
   const int s0 = seg[sbase + k];
   const int s1 = seg[sbase + k + 1];
   const int32_t* ord = order + (int64_t)p * n;
-  const float* Gp = G + (int64_t)p * n;
   const float* Hp = H + (int64_t)p * n;
-  float g = 0.f, h = 0.f;
-  for (int j = s0; j < s1; ++j) {
-    const int r = ord[j];
-    g = g + Gp[r];
-    h = h + Hp[r];
+  float h = 0.f;
+  for (int j = s0; j < s1; ++j) h = h + Hp[ord[j]];
+  for (int c = 0; c < m; ++c) {
+    const float* Gc = G + ((int64_t)p * m + c) * n;
+    float g = 0.f;
+    for (int j = s0; j < s1; ++j) g = g + Gc[ord[j]];
+    const float sgn = g > 0.f ? 1.f : (g < 0.f ? -1.f : 0.f);
+    g = sgn * fmaxf(fabsf(g) - alpha[p], 0.f);
+    leaf[i * m + c] = g / (h + lam[p]);
   }
-  const float sgn = g > 0.f ? 1.f : (g < 0.f ? -1.f : 0.f);
-  g = sgn * fmaxf(fabsf(g) - alpha[p], 0.f);
-  leaf[i] = g / (h + lam[p]);
 }
 
 template <typename BinT>
@@ -109,7 +111,7 @@ extern "C" int route_level_i32(const void* Xb, const void* feat,
 
 extern "C" int leaf_values(const void* G, const void* H, const void* order,
                            const void* seg, const void* lam, const void* alpha,
-                           void* leaf, int P, int n, int n_leaves,
+                           void* leaf, int P, int n, int n_leaves, int m,
                            void* stream) {
   const int64_t total = (int64_t)P * n_leaves;
   const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
@@ -117,6 +119,6 @@ extern "C" int leaf_values(const void* G, const void* H, const void* order,
       static_cast<const float*>(G), static_cast<const float*>(H),
       static_cast<const int32_t*>(order), static_cast<const int32_t*>(seg),
       static_cast<const float*>(lam), static_cast<const float*>(alpha),
-      static_cast<float*>(leaf), P, n, n_leaves);
+      static_cast<float*>(leaf), P, n, n_leaves, m);
   return (int)cudaGetLastError();
 }

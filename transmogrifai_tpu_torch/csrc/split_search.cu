@@ -1,18 +1,21 @@
-// K2: the best split of every node of P trees, from K1's histograms.
+// K2: the best split of every node of P trees, from K1's histograms of m
+// value channels and one weight channel.
 //
 // Replaces `split_from_histograms` in transmogrifai_tpu/models/trees.py:170.
 // For each (pair p, node k), over every feature f and split bin b:
-//   left sums  cg = sum_{b' <= b} hist_G,  ch likewise (a running sum)
-//   totals     tg, th = the running sums at the last bin
-//   gain       (cg^2/(ch+lambda) + (tg-cg)^2/((th-ch)+lambda))
-//              - tg^2/(th+lambda)
+//   left sums  cg_c = sum_{b' <= b} hist_G[c], ch likewise (running sums)
+//   totals     tg_c, th = the running sums at the last bin
+//   score      S(g, h) = (g_0^2 + g_1^2 + ... + g_{m-1}^2) / (h + lambda),
+//              the class terms added in channel order
+//   gain       (S(cg, ch) + S(tg - cg, th - ch)) - S(tg, th)
 //   valid      ch >= min_child_weight and th - ch >= min_child_weight and
 //              the feature is in the pair's mask; invalid cells are -inf
 // then the argmax over the flat (f * bins + b) axis with the FIRST index
 // winning ties (jnp.argmax), and the threshold: the node splits only if
 // the best gain > max(min_gain, min_gain_norm * th of feature 0) and
 // level < active_depth; otherwise its bin is n_bins ("no split": every row
-// goes left).
+// goes left). Boosting has m = 1 (XGBoost's G^2 / (H + lambda)); a forest
+// has one channel per class, which makes the score the Gini gain.
 //
 // Rounding: every operation is a separate IEEE f32 add, multiply or
 // divide, in the order written above and in the plain PyTorch version
@@ -24,8 +27,9 @@
 // Design: one block per (pair, node); each thread scans whole features (a
 // feature's bins are contiguous), keeps its best (gain, index) with the
 // first-index rule, and a shared-memory tree reduction orders candidates
-// by (gain, -index). Bound on this card: bytes, each histogram cell is read
-// once.
+// by (gain, -index). The channel count is a template parameter (1 to 4),
+// so the per-channel sums live in registers. Bound on this card: bytes,
+// each histogram cell is read once.
 //
 // C interface for ctypes: the entry point launches on `stream` and returns
 // cudaGetLastError().
@@ -37,11 +41,13 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int MAX_M = 4;
 
 __device__ __forceinline__ bool better(float g, int i, float bg, int bi) {
   return g > bg || (g == bg && i < bi);
 }
 
+template <int M>
 __global__ void split_search_kernel(
     const float* __restrict__ hg, const float* __restrict__ hh,
     const float* __restrict__ lam, const float* __restrict__ mcw,
@@ -54,33 +60,48 @@ __global__ void split_search_kernel(
   const int node = blockIdx.x;
   const int p = blockIdx.y;
   const float L = lam[p];
-  const float M = mcw[p];
-  const int64_t base = ((int64_t)p * n_nodes + node) * d * n_bins;
-  const float* g = hg + base;
-  const float* h = hh + base;
+  const float Wmin = mcw[p];
+  const int64_t cells = (int64_t)d * n_bins;
+  const float* g[M];
+  for (int c = 0; c < M; ++c)
+    g[c] = hg + (((int64_t)p * M + c) * n_nodes + node) * cells;
+  const float* h = hh + ((int64_t)p * n_nodes + node) * cells;
 
   float best = -CUDART_INF_F;
   int best_i = 0x7fffffff;
   for (int f = threadIdx.x; f < d; f += THREADS) {
-    const float* gf = g + (int64_t)f * n_bins;
-    const float* hf = h + (int64_t)f * n_bins;
-    float tg = 0.f, th = 0.f;
+    const int64_t fo = (int64_t)f * n_bins;
+    const float* hf = h + fo;
+    float tg[M];
+    float th = 0.f;
+    for (int c = 0; c < M; ++c) tg[c] = 0.f;
     for (int b = 0; b < n_bins; ++b) {
-      tg = tg + gf[b];
+      for (int c = 0; c < M; ++c) tg[c] = tg[c] + g[c][fo + b];
       th = th + hf[b];
     }
     const bool fok = fmask == nullptr || fmask[(int64_t)p * d + f] != 0;
-    const float sp = (tg * tg) / (th + L);
-    float cg = 0.f, ch = 0.f;
+    float np_ = tg[0] * tg[0];
+    for (int c = 1; c < M; ++c) np_ = np_ + tg[c] * tg[c];
+    const float sp = np_ / (th + L);
+    float cg[M];
+    float ch = 0.f;
+    for (int c = 0; c < M; ++c) cg[c] = 0.f;
     for (int b = 0; b < n_bins; ++b) {
-      cg = cg + gf[b];
+      for (int c = 0; c < M; ++c) cg[c] = cg[c] + g[c][fo + b];
       ch = ch + hf[b];
-      const float rg = tg - cg;
       const float rh = th - ch;
       float gain = -CUDART_INF_F;
-      if (fok && ch >= M && rh >= M) {
-        const float sl = (cg * cg) / (ch + L);
-        const float sr = (rg * rg) / (rh + L);
+      if (fok && ch >= Wmin && rh >= Wmin) {
+        float nl = cg[0] * cg[0];
+        const float r0 = tg[0] - cg[0];
+        float nr = r0 * r0;
+        for (int c = 1; c < M; ++c) {
+          nl = nl + cg[c] * cg[c];
+          const float rc = tg[c] - cg[c];
+          nr = nr + rc * rc;
+        }
+        const float sl = nl / (ch + L);
+        const float sr = nr / (rh + L);
         gain = (sl + sr) - sp;
       }
       const int idx = f * n_bins + b;
@@ -116,16 +137,13 @@ __global__ void split_search_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int split_search(const void* hg, const void* hh, const void* lam,
-                            const void* mcw, const void* min_gain,
-                            const void* min_gain_norm, const void* fmask,
-                            const void* active_depth, int P, int level,
-                            int n_nodes, int d, int n_bins, void* out_feat,
-                            void* out_bin, void* stream) {
+template <int M>
+int launch(const void* hg, const void* hh, const void* lam, const void* mcw,
+           const void* min_gain, const void* min_gain_norm, const void* fmask,
+           const void* active_depth, int P, int level, int n_nodes, int d,
+           int n_bins, void* out_feat, void* out_bin, void* stream) {
   dim3 grid(n_nodes, P);
-  split_search_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  split_search_kernel<M><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       static_cast<const float*>(hg), static_cast<const float*>(hh),
       static_cast<const float*>(lam), static_cast<const float*>(mcw),
       static_cast<const float*>(min_gain),
@@ -134,4 +152,30 @@ extern "C" int split_search(const void* hg, const void* hh, const void* lam,
       static_cast<const int32_t*>(active_depth), level, n_nodes, d, n_bins,
       static_cast<int32_t*>(out_feat), static_cast<int32_t*>(out_bin));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int split_search_max_m() { return MAX_M; }
+
+extern "C" int split_search(const void* hg, const void* hh, const void* lam,
+                            const void* mcw, const void* min_gain,
+                            const void* min_gain_norm, const void* fmask,
+                            const void* active_depth, int P, int level,
+                            int n_nodes, int d, int n_bins, int m,
+                            void* out_feat, void* out_bin, void* stream) {
+#define SPLIT_SEARCH_CASE(M_)                                               \
+  case M_:                                                                  \
+    return launch<M_>(hg, hh, lam, mcw, min_gain, min_gain_norm, fmask,     \
+                      active_depth, P, level, n_nodes, d, n_bins, out_feat, \
+                      out_bin, stream);
+  switch (m) {
+    SPLIT_SEARCH_CASE(1)
+    SPLIT_SEARCH_CASE(2)
+    SPLIT_SEARCH_CASE(3)
+    SPLIT_SEARCH_CASE(4)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SPLIT_SEARCH_CASE
 }

@@ -5,7 +5,7 @@ weights (`fit_arrays`)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -62,3 +62,18 @@ def infer_n_classes(y: np.ndarray) -> int:
     """Label cardinality for classification (labels must be 0..k-1)."""
     k = int(np.asarray(y).max(initial=0)) + 1
     return max(k, 2)
+
+
+Param = Union[float, int, Sequence[float], torch.Tensor]
+
+
+def per_pair(v: Param, P: int, device, dtype=torch.float32) -> torch.Tensor:
+    """A hyperparameter of P fits at once as a (P,) tensor: one value for
+    every pair, or one per pair."""
+    t = torch.as_tensor(v, dtype=dtype, device=device)
+    if t.dim() == 0:
+        t = t.expand(P)
+    if t.shape != (P,):
+        raise ValueError(f"per-pair parameter of shape {tuple(t.shape)}, "
+                         f"expected ({P},)")
+    return t.contiguous()

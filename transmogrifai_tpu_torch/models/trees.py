@@ -1,14 +1,16 @@
 """Tree ensembles: binning (K4), the ensemble walk (K5), and the fit side
-of gradient boosting: histograms (K1), split search (K2), routing and leaf
-values (K3), the boosting rounds and the GBT/XGBoost estimators.
+of gradient boosting and random forests: histograms (K1), sibling
+subtraction (K1-sub), split search (K2), routing and leaf values (K3), the
+boosting rounds, the forest fit and the GBT/XGBoost/RF estimators.
 
 The port's counterpart of the JAX package's `models/trees.py`. A fitted
 ensemble is dense tables: per-feature bin edges (d, n_edges) f32, split
 features and split bins (n_trees, depth, width) int32, and leaf values
 (n_trees, n_leaves, m) f32. Scoring bins the feature matrix once, then
 walks every tree level by level. Fitting grows trees level-wise: per
-level, gradient/hessian histograms of every node, the best split of every
-node, then every row moves one level down.
+level, histograms of every node (m value channels — the gradient for
+boosting, the classes for a forest — and one weight channel), the best
+split of every node, then every row moves one level down.
 
 The JAX package vmaps a fit over (grid config, fold) pairs; here every fit
 tensor carries a leading pair axis P instead, and one launch of each
@@ -29,9 +31,10 @@ from one to the other.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import logging
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +43,7 @@ from transmogrifai_tpu_torch import cuda_build
 from transmogrifai_tpu_torch.evaluators.device_metrics import (
     binned_aupr, sigmoid)
 from transmogrifai_tpu_torch.models.base import (
-    PredictionModel, PredictorEstimator, infer_n_classes)
+    Param, PredictionModel, PredictorEstimator, infer_n_classes, per_pair)
 
 log = logging.getLogger(__name__)
 
@@ -242,14 +245,16 @@ def quantile_bin_edges(X: np.ndarray,
 
 def node_segments(node_idx: torch.Tensor, n_nodes: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`(order, seg)` for (P, n) node ids in [0, n_nodes): order[p] lists
+    """`(order, seg)` for (P, n) node ids in [0, n_nodes]: order[p] lists
     the rows grouped by node in stable row order, and node k's rows are
-    order[p, seg[p, k]:seg[p, k + 1]]. int32 both."""
+    order[p, seg[p, k]:seg[p, k + 1]]. Rows with id n_nodes come after the
+    last segment, where no kernel reads them. int32 both."""
     P, n = node_idx.shape
     order = torch.argsort(node_idx, dim=1, stable=True).to(torch.int32)
     flat = (node_idx.long() + torch.arange(
-        P, device=node_idx.device)[:, None] * n_nodes).reshape(-1)
-    counts = torch.bincount(flat, minlength=P * n_nodes).reshape(P, n_nodes)
+        P, device=node_idx.device)[:, None] * (n_nodes + 1)).reshape(-1)
+    counts = torch.bincount(flat, minlength=P * (n_nodes + 1)).reshape(
+        P, n_nodes + 1)[:, :n_nodes]
     seg = torch.zeros((P, n_nodes + 1), dtype=torch.int64,
                       device=node_idx.device)
     seg[:, 1:] = torch.cumsum(counts, dim=1)
@@ -260,10 +265,12 @@ def _fit_shapes(name, Xb, node_idx, G, H):
     _require(Xb.dim() == 2, f"{name}: Xb must be (n, d), got "
                             f"{tuple(Xb.shape)}")
     _require(node_idx.dim() == 2 and node_idx.shape[1] == Xb.shape[0]
-             and G.shape == node_idx.shape and H.shape == node_idx.shape,
+             and H.shape == node_idx.shape and G.dim() == 3
+             and G.shape[0] == node_idx.shape[0]
+             and G.shape[2] == node_idx.shape[1] and G.shape[1] >= 1,
              f"{name}: node_idx {tuple(node_idx.shape)}, G "
-             f"{tuple(G.shape)}, H {tuple(H.shape)} must all be (P, n) "
-             f"with n = {Xb.shape[0]}")
+             f"{tuple(G.shape)}, H {tuple(H.shape)} must be (P, n), (P, m, "
+             f"n) and (P, n) with n = {Xb.shape[0]}, m >= 1")
 
 
 def _on_device(name, ref, **tensors):
@@ -280,39 +287,46 @@ def _on_device(name, ref, **tensors):
 def histograms_plain(Xb: torch.Tensor, node_idx: torch.Tensor,
                      G: torch.Tensor, H: torch.Tensor, n_nodes: int,
                      n_bins: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(P, n_nodes, d, n_bins) f32 gradient and hessian histograms:
-    hist[p, k, f, b] = Σ_r [node[p, r] = k]·[Xb[r, f] = b]·G[p, r], one
-    `index_add_` per histogram."""
+    """(P, m, n_nodes, d, n_bins) value and (P, n_nodes, d, n_bins) weight
+    histograms: hist_G[p, c, k, f, b] = Σ_r [node[p, r] = k]·[Xb[r, f] =
+    b]·G[p, c, r] (hist_H likewise), one `index_add_` per channel; rows
+    with node id n_nodes are left out."""
     _fit_shapes("histograms", Xb, node_idx, G, H)
-    P, n = node_idx.shape
+    P, m, n = G.shape
     d = Xb.shape[1]
     dev = Xb.device
+    slots = n_nodes + 1  # the last slot takes the rows left out
     cell = ((node_idx.long()
-             + torch.arange(P, device=dev)[:, None] * n_nodes)[:, :, None]
+             + torch.arange(P, device=dev)[:, None] * slots)[:, :, None]
             * d + torch.arange(d, device=dev)[None, None, :]) * n_bins \
         + Xb.long()[None, :, :]
     cell = cell.reshape(-1)
-    size = P * n_nodes * d * n_bins
-    out = []
-    for v in (G, H):
+    size = P * slots * d * n_bins
+
+    def hist(v):
         src = v.to(torch.float32)[:, :, None].expand(P, n, d).reshape(-1)
-        out.append(torch.zeros(size, dtype=torch.float32, device=dev)
-                   .index_add_(0, cell, src)
-                   .reshape(P, n_nodes, d, n_bins))
-    return out[0], out[1]
+        return (torch.zeros(size, dtype=torch.float32, device=dev)
+                .index_add_(0, cell, src)
+                .reshape(P, slots, d, n_bins)[:, :n_nodes])
+
+    hg = torch.stack([hist(G[:, c]) for c in range(m)], dim=1)
+    return hg, hist(H).contiguous()
 
 
-_HIST_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
-_SMEM_BYTES = 48 * 1024
+_HIST_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+# shared memory one K1 block may take (the kernel opts in above 48 KB)
+_SMEM_BYTES = 100 * 1024
+# launch grids: pairs on blockIdx.z, nodes on blockIdx.y
+_MAX_GRID_YZ = 65535
 
 
-def _hist_lanes(n_bins: int) -> int:
-    """Row-lanes per K1 block: as many as fit their private histograms in
-    48 KB of shared memory, at most 4."""
-    per_lane = 2 * n_bins * 33 * 4
+def _hist_lanes(n_bins: int, m: int) -> int:
+    """Row-lanes per K1 block: as many as fit their private histograms of
+    m + 1 channels in the shared-memory budget, at most 4."""
+    per_lane = (m + 1) * n_bins * 33 * 4
     lanes = min(4, _SMEM_BYTES // per_lane)
-    _require(lanes >= 1, f"histograms: {n_bins} bins exceed the kernel's "
-                         f"shared memory ({_SMEM_BYTES // (2 * 33 * 4)} bins)")
+    _require(lanes >= 1, f"histograms: {m} channels of {n_bins} bins exceed "
+                         f"the kernel's shared memory ({_SMEM_BYTES} B)")
     return lanes
 
 
@@ -323,23 +337,30 @@ def _histograms_cuda(Xb, node_idx, G, H, n_nodes, n_bins):
              f"histograms: Xb must be int8 or int32, got {Xb.dtype}")
     _require(G.dtype == torch.float32 and H.dtype == torch.float32,
              f"histograms: G/H must be f32, got {G.dtype}/{H.dtype}")
-    P, n = node_idx.shape
+    P, m, n = G.shape
     d = Xb.shape[1]
-    lanes = _hist_lanes(n_bins)
-    hg = torch.empty((P, n_nodes, d, n_bins), dtype=torch.float32,
+    _require(P <= _MAX_GRID_YZ and n_nodes <= _MAX_GRID_YZ,
+             f"histograms: {P} pairs or {n_nodes} nodes exceed the launch "
+             f"grid's {_MAX_GRID_YZ}")
+    lanes = _hist_lanes(n_bins, m)
+    lib = cuda_build.load("histograms")
+    max_m = cuda_build.declare(lib, "histograms_max_m", ())()
+    _require(m <= max_m, f"histograms: {m} channels exceed the kernel's "
+                         f"{max_m}")
+    hg = torch.empty((P, m, n_nodes, d, n_bins), dtype=torch.float32,
                      device=Xb.device)
-    hh = torch.empty_like(hg)
-    if hg.numel() == 0:
+    hh = torch.empty((P, n_nodes, d, n_bins), dtype=torch.float32,
+                     device=Xb.device)
+    if hh.numel() == 0:
         return hg, hh
     order, seg = node_segments(node_idx, n_nodes)
     Xb, G, H = Xb.contiguous(), G.contiguous(), H.contiguous()
-    lib = cuda_build.load("histograms")
     fname = "histograms_i8" if Xb.dtype == torch.int8 else "histograms_i32"
     fn = cuda_build.declare(lib, fname, _HIST_ARGS)
     with torch.cuda.device(Xb.device):
         err = fn(Xb.data_ptr(), G.data_ptr(), H.data_ptr(), order.data_ptr(),
                  seg.data_ptr(), hg.data_ptr(), hh.data_ptr(), P, n, d,
-                 n_nodes, n_bins, lanes, _stream_ptr(Xb))
+                 n_nodes, n_bins, m, lanes, _stream_ptr(Xb))
     cuda_build.check(fname, err)
     _count("histograms")
     return hg, hh
@@ -348,12 +369,14 @@ def _histograms_cuda(Xb, node_idx, G, H, n_nodes, n_bins):
 def histograms(Xb: torch.Tensor, node_idx: torch.Tensor, G: torch.Tensor,
                H: torch.Tensor, n_nodes: int, n_bins: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(P, n_nodes, d, n_bins) f32 histograms of G and H per (pair, node,
-    feature, bin) for binned Xb (n, d) with bin ids in [0, n_bins), node
-    ids (P, n) in [0, n_nodes) and values G, H (P, n) (the kernel drops a
-    bin id outside that range; the plain version raises). A CUDA tensor
-    launches the K1 kernel (or raises); a CPU tensor takes the plain
-    version."""
+    """Histograms per (pair, node, feature, bin) for binned Xb (n, d) with
+    bin ids in [0, n_bins), node ids (P, n) in [0, n_nodes], m value
+    channels G (P, m, n) and weights H (P, n): (P, m, n_nodes, d, n_bins)
+    and (P, n_nodes, d, n_bins) f32. A row whose node id is n_nodes is
+    left out (the sibling-subtraction path's rows routed left); the kernel
+    drops a bin id outside [0, n_bins), the plain version raises. A CUDA
+    tensor launches the K1 kernel (or raises); a CPU tensor takes the
+    plain version."""
     _check_device(Xb, "histograms")
     if Xb.is_cuda:
         return _histograms_cuda(Xb, node_idx, G, H, n_nodes, n_bins)
@@ -361,22 +384,70 @@ def histograms(Xb: torch.Tensor, node_idx: torch.Tensor, G: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
-# K2: split search                                                            #
+# K1-sub: sibling subtraction                                                 #
 # --------------------------------------------------------------------------- #
 
-Param = Union[float, int, Sequence[float], torch.Tensor]
+def sibling_subtract_plain(hg: torch.Tensor, hh: torch.Tensor,
+                           hg_r: torch.Tensor, hh_r: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Children's histograms from the parents' (P, m, K, d, B) / (P, K, d,
+    B) and the right children's of the same shapes: node k → (left 2k =
+    parent − right, right 2k + 1), as (P, m, 2K, d, B) / (P, 2K, d, B)."""
+    def interleave(parent, right):
+        *lead, K, d, B = parent.shape
+        return torch.stack([parent - right, right], dim=-3).reshape(
+            *lead, 2 * K, d, B)
+    return interleave(hg, hg_r), interleave(hh, hh_r)
 
 
-def per_pair(v: Param, P: int, device, dtype=torch.float32) -> torch.Tensor:
-    """A hyperparameter as a (P,) tensor: one value for every pair, or one
-    per pair."""
-    t = torch.as_tensor(v, dtype=dtype, device=device)
-    if t.dim() == 0:
-        t = t.expand(P)
-    _require(t.shape == (P,), f"per-pair parameter of shape "
-                              f"{tuple(t.shape)}, expected ({P},)")
-    return t.contiguous()
+_SUB_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int64,) + (
+    ctypes.c_void_p,) * 3 + (ctypes.c_int64,) * 3 + (ctypes.c_void_p,)
 
+
+def _sibling_subtract_cuda(hg, hh, hg_r, hh_r):
+    _on_device("sibling_subtract", hg, hh=hh, hg_r=hg_r, hh_r=hh_r)
+    _require(all(t.dtype == torch.float32 for t in (hg, hh, hg_r, hh_r)),
+             "sibling_subtract: histograms must be f32")
+    _require(hg.dim() == 5 and hg_r.shape == hg.shape
+             and hh_r.shape == hh.shape
+             and hh.shape == hg.shape[:1] + hg.shape[2:],
+             f"sibling_subtract: shapes {tuple(hg.shape)}, "
+             f"{tuple(hh.shape)}, {tuple(hg_r.shape)}, {tuple(hh_r.shape)} "
+             "must be (P, m, K, d, B) twice and (P, K, d, B) twice")
+    P, m, K, d, B = hg.shape
+    cg = torch.empty((P, m, 2 * K, d, B), dtype=torch.float32,
+                     device=hg.device)
+    ch = torch.empty((P, 2 * K, d, B), dtype=torch.float32, device=hg.device)
+    if ch.numel() == 0:
+        return cg, ch
+    hg, hh, hg_r, hh_r = (t.contiguous() for t in (hg, hh, hg_r, hh_r))
+    lib = cuda_build.load("sibling_subtract")
+    fn = cuda_build.declare(lib, "sibling_subtract", _SUB_ARGS)
+    with torch.cuda.device(hg.device):
+        err = fn(hg.data_ptr(), hg_r.data_ptr(), cg.data_ptr(), P * m,
+                 hh.data_ptr(), hh_r.data_ptr(), ch.data_ptr(), P, K, d * B,
+                 _stream_ptr(hg))
+    cuda_build.check("sibling_subtract", err)
+    _count("sibling_subtract")
+    return cg, ch
+
+
+def sibling_subtract(hg: torch.Tensor, hh: torch.Tensor, hg_r: torch.Tensor,
+                     hh_r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The next level's histograms from this level's (value (P, m, K, d,
+    B), weight (P, K, d, B)) and those of the rows routed right, grouped
+    by parent: children interleaved as (left 2k = parent − right, right
+    2k + 1). A CUDA tensor launches the K1-sub kernel (or raises); a CPU
+    tensor takes the plain version."""
+    _check_device(hg, "sibling_subtract")
+    if hg.is_cuda:
+        return _sibling_subtract_cuda(hg, hh, hg_r, hh_r)
+    return sibling_subtract_plain(hg, hh, hg_r, hh_r)
+
+
+# --------------------------------------------------------------------------- #
+# K2: split search                                                            #
+# --------------------------------------------------------------------------- #
 
 def _running_sum(h: torch.Tensor) -> torch.Tensor:
     """Sequential f32 running sum over the last axis (bin by bin, as the
@@ -389,6 +460,41 @@ def _running_sum(h: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _score(g: torch.Tensor, h: torch.Tensor, lam: torch.Tensor
+           ) -> torch.Tensor:
+    """(Σ_c g_c²) / (h + λ) with the class terms added in channel order
+    (axis 1 of g), as the K2 kernel adds them."""
+    num = g[:, 0] * g[:, 0]
+    for c in range(1, g.shape[1]):
+        num = num + g[:, c] * g[:, c]
+    return num / (h + lam)
+
+
+def _search_nodes(hg, hh, n_bins, lam, mcw, fmask):
+    """(best feature, best bin, best gain) per node of item histograms
+    (N, m, nodes, d, B) / (N, nodes, d, B), with per-item λ and
+    min_child_weight (N,) and feature mask (N, d) or None."""
+    N, m, n_nodes, d, _ = hg.shape
+    lam = lam[:, None, None, None]
+    mcw = mcw[:, None, None, None]
+    cg = _running_sum(hg)
+    ch = _running_sum(hh)
+    tg = cg[..., -1:]
+    th = ch[..., -1:]
+    rh = th - ch
+    gain = (_score(cg, ch, lam) + _score(tg - cg, rh, lam)) \
+        - _score(tg, th, lam)
+    valid = (ch >= mcw) & (rh >= mcw)
+    if fmask is not None:
+        valid = valid & fmask[:, None, :, None]
+    gain = torch.where(valid, gain, torch.full_like(gain, -float("inf")))
+    flat = gain.reshape(N, n_nodes, d * n_bins)
+    best = torch.argmax(flat, dim=2)
+    best_gain = torch.gather(flat, 2, best[..., None])[..., 0]
+    return ((best // n_bins).to(torch.int32),
+            (best % n_bins).to(torch.int32), best_gain, th[:, :, 0, 0])
+
+
 def split_search_plain(hg, hh, n_bins: int, reg_lambda: Param,
                        min_child_weight: Param, min_gain: Param,
                        min_gain_norm: Param,
@@ -396,32 +502,36 @@ def split_search_plain(hg, hh, n_bins: int, reg_lambda: Param,
                        active_depth: Optional[Param]
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(P, n_nodes) int32 split feature and split bin per node (bin =
-    n_bins where the node does not split) from (P, n_nodes, d, n_bins)
-    histograms; the arithmetic of the K2 kernel, step for step."""
+    n_bins where the node does not split) from (P, m, n_nodes, d, n_bins)
+    value and (P, n_nodes, d, n_bins) weight histograms; the arithmetic of
+    the K2 kernel, step for step. Nodes whose histograms are all zero (no
+    rows) share one search of a zero histogram per pair, which is what the
+    full search of each of them computes."""
     P, n_nodes, d, _ = hh.shape
     dev = hh.device
-    lam = per_pair(reg_lambda, P, dev)[:, None, None, None]
-    mcw = per_pair(min_child_weight, P, dev)[:, None, None, None]
-    cg = _running_sum(hg)
-    ch = _running_sum(hh)
-    tg = cg[..., -1:]
-    th = ch[..., -1:]
-    rg = tg - cg
-    rh = th - ch
-    gain = ((cg * cg) / (ch + lam) + (rg * rg) / (rh + lam)) \
-        - (tg * tg) / (th + lam)
-    valid = (ch >= mcw) & (rh >= mcw)
-    if feature_mask is not None:
-        valid = valid & feature_mask.to(torch.bool)[:, None, :, None]
-    gain = torch.where(valid, gain, torch.full_like(gain, -float("inf")))
-    flat = gain.reshape(P, n_nodes, d * n_bins)
-    best = torch.argmax(flat, dim=2)
-    best_gain = torch.gather(flat, 2, best[..., None])[..., 0]
-    bf = (best // n_bins).to(torch.int32)
-    bb = (best % n_bins).to(torch.int32)
+    lam = per_pair(reg_lambda, P, dev)
+    mcw = per_pair(min_child_weight, P, dev)
+    fm = None if feature_mask is None else feature_mask.to(torch.bool)
+    live = (hh != 0).flatten(2).any(2) | (hg != 0).transpose(1, 2) \
+        .flatten(2).any(2)
+    if bool(live.all()):
+        bf, bb, best_gain, th0 = _search_nodes(hg, hh, n_bins, lam, mcw, fm)
+    else:
+        zg = hg.new_zeros((P,) + hg.shape[1:2] + (1,) + hg.shape[3:])
+        zf, zb, zgain, zth = _search_nodes(zg, hh.new_zeros(
+            (P, 1) + hh.shape[2:]), n_bins, lam, mcw, fm)
+        bf, bb = zf.expand(P, n_nodes).clone(), zb.expand(P, n_nodes).clone()
+        best_gain = zgain.expand(P, n_nodes).clone()
+        th0 = zth.expand(P, n_nodes).clone()
+        pi, ki = torch.nonzero(live, as_tuple=True)
+        if pi.numel():
+            lf, lb, lgain, lth = _search_nodes(
+                hg[pi, :, ki][:, :, None], hh[pi, ki][:, None], n_bins,
+                lam[pi], mcw[pi], None if fm is None else fm[pi])
+            bf[pi, ki], bb[pi, ki] = lf[:, 0], lb[:, 0]
+            best_gain[pi, ki], th0[pi, ki] = lgain[:, 0], lth[:, 0]
     thr = torch.maximum(per_pair(min_gain, P, dev)[:, None],
-                        per_pair(min_gain_norm, P, dev)[:, None]
-                        * th[:, :, 0, 0])
+                        per_pair(min_gain_norm, P, dev)[:, None] * th0)
     splits = best_gain > thr
     if active_depth is not None:
         splits = splits & (level < per_pair(active_depth, P, dev,
@@ -430,21 +540,27 @@ def split_search_plain(hg, hh, n_bins: int, reg_lambda: Param,
     return bf, bb
 
 
-_SPLIT_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (
+_SPLIT_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6 + (
     ctypes.c_void_p,) * 3
+
+
+def _split_shapes(hg, hh, n_bins):
+    _require(hg.dim() == 5 and hh.dim() == 4
+             and hh.shape == hg.shape[:1] + hg.shape[2:]
+             and hg.shape[-1] == n_bins,
+             f"split_search: hist shapes {tuple(hg.shape)} / "
+             f"{tuple(hh.shape)} must be (P, m, nodes, d, {n_bins}) / (P, "
+             f"nodes, d, {n_bins})")
 
 
 def _split_search_cuda(hg, hh, n_bins, reg_lambda, min_child_weight,
                        min_gain, min_gain_norm, feature_mask, level,
                        active_depth):
-    _require(hg.dim() == 4 and hg.shape == hh.shape
-             and hg.shape[-1] == n_bins,
-             f"split_search: hist shapes {tuple(hg.shape)} / "
-             f"{tuple(hh.shape)} must be equal (P, nodes, d, {n_bins})")
+    _split_shapes(hg, hh, n_bins)
     _require(hg.dtype == torch.float32 and hh.dtype == torch.float32,
              "split_search: histograms must be f32")
     _on_device("split_search", hg, hh=hh, feature_mask=feature_mask)
-    P, n_nodes, d, _ = hh.shape
+    P, m, n_nodes, d, _ = hg.shape
     dev = hh.device
     lam = per_pair(reg_lambda, P, dev)
     mcw = per_pair(min_child_weight, P, dev)
@@ -462,15 +578,20 @@ def _split_search_cuda(hg, hh, n_bins, reg_lambda, min_child_weight,
     bins = torch.empty_like(feat)
     if feat.numel() == 0:
         return feat, bins
-    hg, hh = hg.contiguous(), hh.contiguous()
     lib = cuda_build.load("split_search")
+    max_m = cuda_build.declare(lib, "split_search_max_m", ())()
+    _require(1 <= m <= max_m, f"split_search: {m} channels outside the "
+                              f"kernel's [1, {max_m}]")
+    _require(P <= _MAX_GRID_YZ, f"split_search: {P} pairs exceed the "
+                                f"launch grid's {_MAX_GRID_YZ}")
+    hg, hh = hg.contiguous(), hh.contiguous()
     fn = cuda_build.declare(lib, "split_search", _SPLIT_ARGS)
     with torch.cuda.device(dev):
         err = fn(hg.data_ptr(), hh.data_ptr(), lam.data_ptr(),
                  mcw.data_ptr(), mg.data_ptr(), mgn.data_ptr(),
                  fm.data_ptr() if fm is not None else None,
                  ad.data_ptr() if ad is not None else None,
-                 P, level, n_nodes, d, n_bins, feat.data_ptr(),
+                 P, level, n_nodes, d, n_bins, m, feat.data_ptr(),
                  bins.data_ptr(), _stream_ptr(hg))
     cuda_build.check("split_search", err)
     _count("split_search")
@@ -483,18 +604,22 @@ def split_search(hg: torch.Tensor, hh: torch.Tensor, n_bins: int,
                  feature_mask: Optional[torch.Tensor], level: int,
                  active_depth: Optional[Param]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Best (feature, bin) per node of each pair: XGBoost gain over the
-    left running sums, `min_child_weight` validity and the feature mask
-    (P, d) as -inf, the first index winning ties over the flat d·bins
-    axis, and bin = n_bins where the best gain is not above max(min_gain,
-    min_gain_norm · the node's weight) or level >= active_depth. Each
-    hyperparameter is one value or one per pair. A CUDA tensor launches
-    the K2 kernel (or raises); a CPU tensor takes the plain version."""
+    """Best (feature, bin) per node of each pair from value histograms
+    (P, m, nodes, d, bins) and weight histograms (P, nodes, d, bins): the
+    gain Σ_c g_c² / (h + λ) over the left running sums (XGBoost's at m =
+    1, Gini's for a forest's class channels), `min_child_weight` validity
+    and the feature mask (P, d) as -inf, the first index winning ties over
+    the flat d·bins axis, and bin = n_bins where the best gain is not above
+    max(min_gain, min_gain_norm · the node's weight) or level >=
+    active_depth. Each hyperparameter is one value or one per pair. A CUDA
+    tensor launches the K2 kernel (or raises); a CPU tensor takes the
+    plain version."""
     _check_device(hg, "split_search")
     if hg.is_cuda:
         return _split_search_cuda(hg, hh, n_bins, reg_lambda,
                                   min_child_weight, min_gain, min_gain_norm,
                                   feature_mask, level, active_depth)
+    _split_shapes(hg, hh, n_bins)
     return split_search_plain(hg, hh, n_bins, reg_lambda, min_child_weight,
                               min_gain, min_gain_norm, feature_mask, level,
                               active_depth)
@@ -562,31 +687,34 @@ def route_level(Xb: torch.Tensor, node_idx: torch.Tensor, feat: torch.Tensor,
 
 
 def _leaf_formula(g, h, reg_lambda, alpha):
+    """g (P, L, m), h (P, L): sign(g)·max(|g| − α, 0) / (h + λ)."""
     P = g.shape[0]
     lam = per_pair(reg_lambda, P, g.device)[:, None]
-    a = per_pair(alpha, P, g.device)[:, None]
+    a = per_pair(alpha, P, g.device)[:, None, None]
     g = torch.sign(g) * torch.clamp(torch.abs(g) - a, min=0.0)
-    return g / (h + lam)
+    return g / (h + lam)[:, :, None]
 
 
 def leaf_values_plain(node_idx: torch.Tensor, G: torch.Tensor,
                       H: torch.Tensor, n_leaves: int, reg_lambda: Param,
                       alpha: Param) -> torch.Tensor:
-    """(P, n_leaves) f32 leaf values: per-leaf Σ G and Σ H (`index_add_`),
-    the L1 soft threshold and G / (H + λ)."""
-    P, n = node_idx.shape
+    """(P, n_leaves, m) f32 leaf values: per-leaf Σ G_c and Σ H
+    (`index_add_`), the L1 soft threshold and G_c / (H + λ)."""
+    P, m, n = G.shape
     flat = (node_idx.long() + torch.arange(
         P, device=G.device)[:, None] * n_leaves).reshape(-1)
-    sums = []
-    for v in (G, H):
-        sums.append(torch.zeros(P * n_leaves, dtype=torch.float32,
-                                device=G.device)
-                    .index_add_(0, flat, v.to(torch.float32).reshape(-1))
-                    .reshape(P, n_leaves))
-    return _leaf_formula(sums[0], sums[1], reg_lambda, alpha)
+
+    def sums(v):
+        return (torch.zeros(P * n_leaves, dtype=torch.float32,
+                            device=G.device)
+                .index_add_(0, flat, v.to(torch.float32).reshape(-1))
+                .reshape(P, n_leaves))
+
+    g = torch.stack([sums(G[:, c]) for c in range(m)], dim=-1)
+    return _leaf_formula(g, sums(H), reg_lambda, alpha)
 
 
-_LEAF_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3 + (
+_LEAF_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4 + (
     ctypes.c_void_p,)
 
 
@@ -594,14 +722,17 @@ def _leaf_values_cuda(node_idx, G, H, n_leaves, reg_lambda, alpha):
     _on_device("leaf_values", node_idx, G=G, H=H)
     _require(G.dtype == torch.float32 and H.dtype == torch.float32,
              "leaf_values: G/H must be f32")
-    _require(G.shape == node_idx.shape and H.shape == node_idx.shape,
+    _require(H.shape == node_idx.shape and G.dim() == 3
+             and G.shape[0] == node_idx.shape[0]
+             and G.shape[2] == node_idx.shape[1],
              f"leaf_values: node_idx {tuple(node_idx.shape)}, G "
-             f"{tuple(G.shape)}, H {tuple(H.shape)} must be equal (P, n)")
-    P, n = node_idx.shape
+             f"{tuple(G.shape)}, H {tuple(H.shape)} must be (P, n), (P, m, "
+             "n) and (P, n)")
+    P, m, n = G.shape
     dev = G.device
     lam = per_pair(reg_lambda, P, dev)
     a = per_pair(alpha, P, dev)
-    leaf = torch.empty((P, n_leaves), dtype=torch.float32, device=dev)
+    leaf = torch.empty((P, n_leaves, m), dtype=torch.float32, device=dev)
     if leaf.numel() == 0:
         return leaf
     order, seg = node_segments(node_idx, n_leaves)
@@ -611,7 +742,7 @@ def _leaf_values_cuda(node_idx, G, H, n_leaves, reg_lambda, alpha):
     with torch.cuda.device(dev):
         err = fn(G.data_ptr(), H.data_ptr(), order.data_ptr(),
                  seg.data_ptr(), lam.data_ptr(), a.data_ptr(),
-                 leaf.data_ptr(), P, n, n_leaves, _stream_ptr(G))
+                 leaf.data_ptr(), P, n, n_leaves, m, _stream_ptr(G))
     cuda_build.check("leaf_values", err)
     _count("leaf_values")
     return leaf
@@ -620,10 +751,11 @@ def _leaf_values_cuda(node_idx, G, H, n_leaves, reg_lambda, alpha):
 def leaf_values(node_idx: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
                 n_leaves: int, reg_lambda: Param, alpha: Param
                 ) -> torch.Tensor:
-    """(P, n_leaves) f32 XGBoost leaf values from final node ids (P, n):
-    g = Σ G, h = Σ H per leaf, g ← sign(g)·max(|g| − α, 0), leaf = g /
-    (h + λ). A CUDA tensor launches the K3 leaf kernel (or raises); a CPU
-    tensor takes the plain version."""
+    """(P, n_leaves, m) f32 leaf values from final node ids (P, n), values
+    G (P, m, n) and weights H (P, n): g_c = Σ G_c, h = Σ H per leaf, g_c ←
+    sign(g_c)·max(|g_c| − α, 0), leaf_c = g_c / (h + λ). A CUDA tensor
+    launches the K3 leaf kernel (or raises); a CPU tensor takes the plain
+    version."""
     _check_device(G, "leaf_values")
     if G.is_cuda:
         return _leaf_values_cuda(node_idx, G, H, n_leaves, reg_lambda, alpha)
@@ -634,6 +766,8 @@ def leaf_values(node_idx: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
 # the level-wise learner                                                      #
 # --------------------------------------------------------------------------- #
 
+# depth from which a tree is grown with sibling subtraction (the JAX
+# package's gate in its exact-f32 mode, the only mode the port has)
 _SUBTRACT_MIN_DEPTH = 12
 
 
@@ -644,17 +778,19 @@ def grow_trees(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
                active_depth: Optional[Param] = None, alpha: Param = 0.0,
                min_gain_norm: Param = 0.0
                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """Grow one fixed-depth tree per pair from values G and weights H
-    (P, n) (the JAX package's `grow_tree` with m = 1 and direct
-    histograms at every level). Returns ({"feat": (P, depth, 2^depth)
-    int32, "bin": (P, depth, 2^depth) int32 (n_bins = no split), "leaf":
-    (P, 2^depth, 1) f32}, final node ids (P, n) int32)."""
-    if max_depth >= _SUBTRACT_MIN_DEPTH:
-        raise NotImplementedError(
-            f"max_depth {max_depth}: histogram subtraction at depth >= "
-            f"{_SUBTRACT_MIN_DEPTH} is not ported yet (ROADMAP.md, "
-            "training slice, queued)")
-    P, n = G.shape
+    """Grow one fixed-depth tree per pair from m value channels G (P, m, n)
+    and weights H (P, n) (the JAX package's `grow_tree`, vmapped). Returns
+    ({"feat": (P, depth, 2^depth) int32, "bin": (P, depth, 2^depth) int32
+    (n_bins = no split), "leaf": (P, 2^depth, m) f32}, final node ids (P,
+    n) int32).
+
+    Below depth 12 every level builds its histograms directly (K1). From
+    depth 12 on, as in the JAX package's f32 mode, the root's histograms
+    are built once and each level below builds only those of the rows
+    routed right, grouped by parent (K1 with the left rows left out), and
+    derives the children by sibling subtraction (K1-sub): left = parent −
+    right."""
+    P, n = H.shape
     dev = Xb.device
     max_nodes = 2 ** max_depth
     node = torch.zeros((P, n), dtype=torch.int32, device=dev)
@@ -662,18 +798,169 @@ def grow_trees(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
                         device=dev)
     bins = torch.full((P, max_depth, max_nodes), n_bins, dtype=torch.int32,
                       device=dev)
+    subtract = max_depth >= _SUBTRACT_MIN_DEPTH
+    if subtract:
+        hg, hh = histograms(Xb, node, G, H, 1, n_bins)
     for level in range(max_depth):
         n_nodes = 2 ** level
-        hg, hh = histograms(Xb, node, G, H, n_nodes, n_bins)
+        if not subtract:
+            hg, hh = histograms(Xb, node, G, H, n_nodes, n_bins)
         bf, bb = split_search(hg, hh, n_bins, reg_lambda, min_child_weight,
                               min_gain, min_gain_norm, feature_mask, level,
                               active_depth)
-        del hg, hh
         feats[:, level, :n_nodes] = bf
         bins[:, level, :n_nodes] = bb
         node = route_level(Xb, node, bf, bb)
+        if subtract and level + 1 < max_depth:
+            # the rows routed right, by parent; the left rows are left out
+            parent = torch.where((node & 1).bool(), node >> 1,
+                                 torch.full_like(node, n_nodes))
+            hg_r, hh_r = histograms(Xb, parent, G, H, n_nodes, n_bins)
+            hg, hh = sibling_subtract(hg, hh, hg_r, hh_r)
+            del hg_r, hh_r
+        else:
+            del hg, hh
     leaf = leaf_values(node, G, H, max_nodes, reg_lambda, alpha)
-    return {"feat": feats, "bin": bins, "leaf": leaf[:, :, None]}, node
+    return {"feat": feats, "bin": bins, "leaf": leaf}, node
+
+
+# --------------------------------------------------------------------------- #
+# Random forest: trees of every (config, fold) pair along P                   #
+# --------------------------------------------------------------------------- #
+
+# share of the card's free memory one chunk of trees may take
+_FOREST_MEM_SHARE = 0.5
+# the chunk budget on the CPU (the plain versions' histograms)
+_FOREST_CPU_BUDGET = 2 << 30
+
+_INJECTED_DRAWS: List[Any] = []
+
+
+@contextlib.contextmanager
+def injected_forest_draws(draws):
+    """Test hook: inside the block every `fit_forest` call that is given no
+    `draws` takes these instead of its own — a pair (bootstrap counts
+    (n_trees, n), feature masks (n_trees, d)), or a function of (seed,
+    n_trees, n, d) returning one — e.g. the JAX package's threefry draws,
+    so that a whole workflow's forests can be held to the JAX package's."""
+    _INJECTED_DRAWS.append(draws)
+    try:
+        yield
+    finally:
+        _INJECTED_DRAWS.pop()
+
+
+def forest_draws(n_trees: int, n: int, d: int, seed: int,
+                 subsample_features: bool = True, bootstrap: bool = True,
+                 device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per tree: Poisson(1) bootstrap counts (n_trees, n) f32 and a mask
+    of ⌊√d⌋ features (n_trees, d) bool (the uniform scores at or below
+    their (⌊√d⌋)-th smallest), drawn from a `torch.Generator` seeded with
+    `seed`. The JAX package draws the same distributions from threefry
+    keys, so forests match it at the metric level, or exactly when its
+    draws are injected (`draws=` / `injected_forest_draws`)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    ones = torch.ones((n_trees, n), dtype=torch.float32, device=device)
+    boot = torch.poisson(ones, generator=gen) if bootstrap else ones
+    if subsample_features:
+        n_sub = max(int(np.sqrt(d)), 1)
+        scores = torch.rand((n_trees, d), generator=gen, device=device)
+        thresh = torch.sort(scores, dim=1).values[:, n_sub - 1:n_sub]
+        mask = scores <= thresh
+    else:
+        mask = torch.ones((n_trees, d), dtype=torch.bool, device=device)
+    return boot, mask
+
+
+def forest_chunk(n_trees_total: int, max_depth: int, m: int, n_rows: int,
+                 d: int, n_bins: int, device) -> Tuple[int, int, int]:
+    """(trees per launch, the byte budget, bytes per tree): the histograms
+    alive at a tree's deepest level are (m + 1)·d·n_bins f32 per node,
+    2^depth nodes' worth with subtraction (children, parents and right
+    children together). The budget is a share of the card's free memory
+    (that of the caching allocator included), or a fixed one on the CPU."""
+    dev = torch.device(device)
+    per_tree = (m + 1) * d * n_bins * 4 * 2 ** max_depth
+    if dev.type != "cuda":  # the plain K1's (P, n, d) cell ids and values
+        per_tree += n_rows * d * 16
+    if dev.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(dev)
+        cached = (torch.cuda.memory_reserved(dev)
+                  - torch.cuda.memory_allocated(dev))
+        budget = int(_FOREST_MEM_SHARE * (free + cached))
+    else:
+        budget = _FOREST_CPU_BUDGET
+    chunk = max(1, min(n_trees_total, _MAX_GRID_YZ, budget // per_tree))
+    return chunk, budget, per_tree
+
+
+def fit_forest(Xb: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
+               n_trees: int, max_depth: int, n_bins: int, seed: int,
+               subsample_features: bool = True,
+               min_child_weight: Param = 1.0,
+               active_depth: Optional[Param] = None, bootstrap: bool = True,
+               min_gain: Param = 0.0, draws=None
+               ) -> Dict[str, torch.Tensor]:
+    """Random forests of Q (config, fold) pairs over one binned matrix Xb
+    (n, d): labels as Y (n, m) (one-hot classes), row weights w (Q, n)
+    (or (n,)), and per-pair min_child_weight, min_gain (the normalized
+    gain threshold) and active_depth. Returns {"feat", "bin": (Q, n_trees,
+    depth, 2^depth) int32, "leaf": (Q, n_trees, 2^depth, m) f32}.
+
+    The JAX package's `fit_forest`, vmapped over pairs: tree t of pair q
+    grows on values G = Y·boot_t·w_q and weights H = boot_t·w_q with
+    λ = 1e-6, the feature mask of tree t, and the pair's thresholds. Every
+    pair sees the same n_trees draws (the JAX package keys them by the
+    seed alone); `draws=(boot (n_trees, n), mask (n_trees, d))` replaces
+    them — a test hook that feeds in the JAX package's draws. The trees of
+    all pairs lie along the kernels' pair axis, in chunks that fit
+    `forest_chunk`'s byte budget, which the call logs."""
+    dev = Xb.device
+    n, d = Xb.shape
+    m = Y.shape[1]
+    w = w[None, :] if w.dim() == 1 else w
+    Q = w.shape[0]
+    if draws is None and _INJECTED_DRAWS:
+        draws = _INJECTED_DRAWS[-1]
+        if callable(draws):
+            draws = draws(int(seed), n_trees, n, d)
+    if draws is None:
+        boot, mask = forest_draws(n_trees, n, d, seed, subsample_features,
+                                  bootstrap, dev)
+    else:
+        boot, mask = (torch.as_tensor(np.array(a) if not isinstance(
+            a, torch.Tensor) else a).to(dev) for a in draws)
+        _require(boot.shape == (n_trees, n) and mask.shape == (n_trees, d),
+                 f"fit_forest: draws {tuple(boot.shape)} / "
+                 f"{tuple(mask.shape)} must be ({n_trees}, {n}) / "
+                 f"({n_trees}, {d})")
+        boot, mask = boot.to(torch.float32), mask.to(torch.bool)
+    mcw = per_pair(min_child_weight, Q, dev)
+    mgn = per_pair(min_gain, Q, dev)
+    ad = (per_pair(active_depth, Q, dev, torch.int32)
+          if active_depth is not None else None)
+    Yt = Y.to(torch.float32).T.contiguous()  # (m, n)
+    total = Q * n_trees
+    chunk, budget, per_tree = forest_chunk(total, max_depth, m, n, d,
+                                           n_bins, dev)
+    log.info("fit_forest: %d trees at depth %d in %d chunks of %d (budget "
+             "%d bytes, %d per tree)", total, max_depth, -(-total // chunk),
+             chunk, budget, per_tree)
+    parts: List[Dict[str, torch.Tensor]] = []
+    for s in range(0, total, chunk):
+        idx = torch.arange(s, min(s + chunk, total), device=dev)
+        q, t = idx // n_trees, idx % n_trees
+        H = (boot[t] * w[q]).contiguous()
+        G = (Yt[None, :, :] * H[:, None, :]).contiguous()
+        tree, _ = grow_trees(
+            Xb, G, H, max_depth, n_bins, reg_lambda=1e-6,
+            min_child_weight=mcw[q], min_gain=0.0, feature_mask=mask[t],
+            active_depth=None if ad is None else ad[q],
+            min_gain_norm=mgn[q])
+        parts.append(tree)
+    return {k: torch.cat([p[k] for p in parts]).reshape(
+        (Q, n_trees) + parts[0][k].shape[1:]) for k in ("feat", "bin", "leaf")}
 
 
 # --------------------------------------------------------------------------- #
@@ -752,7 +1039,7 @@ def fit_gbt_pairs(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
             fmask = torch.rand((P, d), generator=gen, device=dev) \
                 < col[:, None]
         tree, node = grow_trees(
-            Xb, G, H, max_depth, n_bins, reg_lambda=reg_lambda,
+            Xb, G[:, None, :], H, max_depth, n_bins, reg_lambda=reg_lambda,
             min_child_weight=min_child_weight, min_gain=gamma,
             feature_mask=fmask, active_depth=active_depth, alpha=alpha,
             min_gain_norm=min_gain_norm)
@@ -924,6 +1211,57 @@ class _TreeEstimatorBase(PredictorEstimator):
         edges = quantile_bin_edges(X.cpu().numpy(), self.max_bins)
         Xb = bin_features(X, torch.as_tensor(edges, device=X.device))
         return edges, Xb
+
+
+class OpRandomForestClassifier(_TreeEstimatorBase):
+    """Spark RandomForestClassifier parameter surface (the JAX package's
+    `OpRandomForestClassifier`): `min_info_gain` is the normalized gain
+    threshold and `min_instances_per_node` the child-weight bound, grid
+    axes of the default sweep. Binary labels; multiclass forests and warm
+    starts are not ported yet."""
+
+    def __init__(self, n_trees: int = 20, max_depth: int = 5,
+                 max_bins: int = DEFAULT_MAX_BINS,
+                 min_child_weight: float = 1.0,
+                 subsample_features: bool = True, min_info_gain: float = 0.0,
+                 min_instances_per_node: float = 1.0,
+                 n_classes: Optional[int] = None, uid: Optional[str] = None):
+        super().__init__(uid=uid, n_trees=n_trees, max_depth=max_depth,
+                         max_bins=max_bins, min_child_weight=min_child_weight,
+                         subsample_features=subsample_features,
+                         min_info_gain=min_info_gain,
+                         min_instances_per_node=min_instances_per_node,
+                         n_classes=n_classes)
+        self.n_trees = n_trees
+        self.max_depth = max_depth
+        self.max_bins = max_bins
+        self.min_child_weight = min_child_weight
+        self.subsample_features = subsample_features
+        self.min_info_gain = min_info_gain
+        self.min_instances_per_node = min_instances_per_node
+        self.n_classes = n_classes
+
+    def _effective_mcw(self) -> float:
+        return max(float(self.min_child_weight),
+                   float(self.min_instances_per_node))
+
+    def fit_arrays(self, X, y, w, ctx):
+        k = self.n_classes or infer_n_classes(y.cpu().numpy())
+        if k > 2:
+            raise NotImplementedError(
+                "multiclass forests are not ported yet (ROADMAP.md, queue "
+                "1, item 9)")
+        if self.init_params is not None:
+            raise NotImplementedError(
+                "forest warm starts are not ported yet (ROADMAP.md, queue 1)")
+        edges, Xb = self._edges_binned(X, ctx)
+        Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
+        trees = fit_forest(Xb, Y, w, self.n_trees, self.max_depth,
+                           self.max_bins, ctx.seed if ctx is not None else 0,
+                           self.subsample_features, self._effective_mcw(),
+                           min_gain=self.min_info_gain)
+        return ForestClassificationModel(
+            edges, {k2: v[0].cpu().numpy() for k2, v in trees.items()})
 
 
 class OpGBTClassifier(_TreeEstimatorBase):

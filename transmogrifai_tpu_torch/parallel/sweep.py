@@ -2,21 +2,26 @@
 fold) pair of one model family.
 
 The port's counterpart of the JAX package's `parallel/sweep.py`
-(`run_sweep` → `_run_sweep` and `_sweep_gbt`'s single-device binary
-path). A fold is a pair of 0/1 row masks over the one training matrix;
-the pairs of one static group (same round count, bins, early stopping and
-depth bucket) boost together along the leading pair axis of
-`fit_gbt_pairs`, so each kernel launch of a level serves every pair. The
-training matrix is binned once per `max_bins` (K4).
+(`run_sweep` → `_run_sweep`, the single-device `_sweep_blocks` scaffold
+and the logistic, forest and GBT handlers). A fold is a pair of 0/1 row
+masks over the one training matrix. Configs group by their static
+parameters (`static_of`: the shapes a fit compiles to in the JAX
+package); the (config, fold) pairs of a group fit together along the
+leading pair axis of the family's batched fit, so each kernel launch
+serves every pair. Tree families bin the training matrix once per
+`max_bins` (K4), shared across families through the fit context, and pad
+each config's depth to its bucket (`_depth_bucket`), stopping its own
+trees at its own depth.
 
-Only the GBT/XGBoost classifier family is ported; the journal, the
-calibration, the mesh and the retrace instrumentation of the JAX package
-are not (ROADMAP.md).
+Not ported (ROADMAP.md): the journal and checkpoints, the calibration of
+dispatch widths, the mesh, the host-metric fallback and the other
+families' handlers.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+import time
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,12 +29,18 @@ import torch
 from transmogrifai_tpu_torch.evaluators.device_metrics import (
     make_device_metric)
 from transmogrifai_tpu_torch.models.base import infer_n_classes
+from transmogrifai_tpu_torch.models.logistic import (
+    OpLogisticRegression, enet_iters, fit_logreg_enet,
+    logreg_pred_from_logits)
 from transmogrifai_tpu_torch.models.trees import (
-    OpGBTClassifier, bin_features, fit_gbt_pairs, gbt_pred_from_margin,
+    OpGBTClassifier, OpRandomForestClassifier, bin_features, fit_forest,
+    fit_gbt_pairs, forest_classification_pred, gbt_pred_from_margin,
     quantile_bin_edges)
 
+Pred = Dict[str, torch.Tensor]
+
 _DEPTH_BUCKETS = (4, 6, 8, 10, 12, 14)
-# histogram bytes one launch may hold across its pairs (G + H, deepest
+# GBT histogram bytes one launch may hold across its pairs (G + H, deepest
 # level); more pairs than fit run in several launches
 _PAIR_HIST_BYTES = 2 << 30
 
@@ -52,11 +63,45 @@ def _pad_depth_of(est, grids, idxs) -> int:
         max(int(_grid_param(est, grids[i], "max_depth")) for i in idxs))
 
 
-def _static_gbt(est, g) -> Tuple:
-    return (int(_grid_param(est, g, "n_estimators")),
-            int(_grid_param(est, g, "max_bins")),
-            int(_grid_param(est, g, "early_stopping_rounds") or 0),
-            _depth_bucket(int(_grid_param(est, g, "max_depth"))))
+def _sweep_blocks(grids: List[Dict], y: torch.Tensor, W: torch.Tensor,
+                  V: torch.Tensor, metric_fn, ctx, family: str,
+                  static_of: Callable[[Dict], Tuple],
+                  dyn_of: Callable[[Dict], Dict[str, Any]],
+                  fit_predict: Callable[..., Sequence[Pred]],
+                  pair_width: Callable[[Tuple, List[int]], int] = None
+                  ) -> List[List[float]]:
+    """Group the configs by `static_of`; per group, run its (config,
+    fold) pairs `pair_width` at a time (all at once by default) through
+    `fit_predict(static, idxs, dyn, W_pairs, V_pairs)`, where `dyn` holds
+    one list per dynamic parameter (one entry per pair) and the result is
+    one prediction dict per pair, and score each pair's prediction on its
+    fold's validation rows. Groups run in the order their first config
+    appears; each group's seconds land in `ctx._sweep_seconds`."""
+    n_folds = W.shape[0]
+    groups: Dict[Tuple, List[int]] = {}
+    for i, g in enumerate(grids):
+        groups.setdefault(static_of(g), []).append(i)
+    metrics: List[List[float]] = [[0.0] * n_folds for _ in grids]
+    seconds = getattr(ctx, "_sweep_seconds", None) if ctx is not None \
+        else None
+    for static, idxs in groups.items():
+        t0 = time.perf_counter()
+        pairs = [(i, f) for i in idxs for f in range(n_folds)]
+        width = pair_width(static, idxs) if pair_width else len(pairs)
+        for s in range(0, len(pairs), max(1, width)):
+            chunk = pairs[s:s + width]
+            dyn = [dyn_of(grids[i]) for i, _ in chunk]
+            cols = {k: [dd[k] for dd in dyn] for k in dyn[0]}
+            fs = torch.as_tensor([f for _, f in chunk], device=W.device)
+            Vsel = V[fs]
+            preds = fit_predict(static, idxs, cols, W[fs], Vsel)
+            for t, (i, f) in enumerate(chunk):
+                metrics[i][f] = float(metric_fn(y, preds[t], Vsel[t]))
+        if y.is_cuda:
+            torch.cuda.synchronize(y.device)
+        if seconds is not None:
+            seconds[f"{family}:{static}"] = time.perf_counter() - t0
+    return metrics
 
 
 def _binned_cache(est, grids, X: torch.Tensor, ctx) -> Dict[int, torch.Tensor]:
@@ -78,11 +123,90 @@ def _binned_cache(est, grids, X: torch.Tensor, ctx) -> Dict[int, torch.Tensor]:
     return out
 
 
-def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx) -> List[List[float]]:
+# --------------------------------------------------------------------------- #
+# family handlers                                                             #
+# --------------------------------------------------------------------------- #
+
+def _enet_of(est, g) -> float:
+    return float(_grid_param(est, g, "elastic_net_param") or 0.0)
+
+
+def _l1_l2_of(est, g) -> Dict[str, float]:
+    """Spark's penalty split: reg·α → L1, reg·(1 − α) → L2."""
+    reg = float(_grid_param(est, g, "reg_param"))
+    alpha = _enet_of(est, g)
+    return {"l1": reg * alpha, "l2": reg * (1.0 - alpha)}
+
+
+def _static_logistic(est, g) -> Tuple:
+    return (int(_grid_param(est, g, "max_iter")), _enet_of(est, g) > 0.0)
+
+
+def _static_forest(est, g) -> Tuple:
+    return (int(_grid_param(est, g, "n_trees")),
+            int(_grid_param(est, g, "max_bins")),
+            bool(_grid_param(est, g, "subsample_features")),
+            _depth_bucket(int(_grid_param(est, g, "max_depth"))))
+
+
+def _static_gbt(est, g) -> Tuple:
+    return (int(_grid_param(est, g, "n_estimators")),
+            int(_grid_param(est, g, "max_bins")),
+            int(_grid_param(est, g, "early_stopping_rounds") or 0),
+            _depth_bucket(int(_grid_param(est, g, "max_depth"))))
+
+
+def _sweep_logistic(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+    def fit_predict(static, idxs, dyn, Wp, Vp):
+        max_iter, enet = static
+        if not enet:
+            raise NotImplementedError(
+                "OpLogisticRegression with elastic_net_param = 0 fits by "
+                "L-BFGS, which is not ported yet (ROADMAP.md, F5)")
+        params = fit_logreg_enet(X, y, Wp, dyn["l1"], dyn["l2"], n_classes,
+                                 enet_iters(max_iter))
+        logits = torch.matmul(X, params["W"]) + params["b"][:, None, :]
+        return [logreg_pred_from_logits(lg) for lg in logits]
+
+    return _sweep_blocks(grids, y, W, V, metric_fn, ctx, "logistic",
+                         static_of=lambda g: _static_logistic(est, g),
+                         dyn_of=lambda g: _l1_l2_of(est, g),
+                         fit_predict=fit_predict)
+
+
+def _sweep_forest(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+    xb_by_bins = _binned_cache(est, grids, X, ctx)
+    Y = torch.nn.functional.one_hot(y.long(), n_classes).to(torch.float32)
+    seed = ctx.seed if ctx is not None else 0
+
+    def dyn_of(g) -> Dict[str, Any]:
+        mcw = max(float(_grid_param(est, g, "min_child_weight") or 1.0),
+                  float(_grid_param(est, g, "min_instances_per_node") or 1.0))
+        return {"depth": int(_grid_param(est, g, "max_depth")), "mcw": mcw,
+                "min_gain": float(_grid_param(est, g, "min_info_gain") or 0.0)}
+
+    def fit_predict(static, idxs, dyn, Wp, Vp):
+        n_trees, max_bins, subsample = static[:3]
+        Xb = xb_by_bins[max_bins]
+        # one padded depth per bucket; each pair stops at its own depth
+        trees = fit_forest(Xb, Y, Wp, n_trees, _pad_depth_of(est, grids, idxs),
+                           max_bins, seed, subsample, dyn["mcw"],
+                           active_depth=dyn["depth"],
+                           min_gain=dyn["min_gain"])
+        return [forest_classification_pred({k: v[q] for k, v in
+                                            trees.items()}, Xb)
+                for q in range(Wp.shape[0])]
+
+    return _sweep_blocks(grids, y, W, V, metric_fn, ctx, "forest",
+                         static_of=lambda g: _static_forest(est, g),
+                         dyn_of=dyn_of, fit_predict=fit_predict)
+
+
+def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
     xb_by_bins = _binned_cache(est, grids, X, ctx)
     seed = ctx.seed if ctx is not None else 0
-    n_folds = W.shape[0]
     eval_metric = str(getattr(est, "eval_metric", "logloss") or "logloss")
+    d = X.shape[1]
 
     def lr_of(g) -> float:
         v = g.get("eta", g.get("learning_rate"))
@@ -106,53 +230,56 @@ def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx) -> List[List[float]]:
             "min_gain_norm": float(
                 _grid_param(est, g, "min_info_gain") or 0.0)}
 
-    groups: Dict[Tuple, List[int]] = {}
-    for i, g in enumerate(grids):
-        groups.setdefault(_static_gbt(est, g), []).append(i)
-    metrics: List[List[float]] = [[0.0] * n_folds for _ in grids]
-    d = X.shape[1]
-    for static, idxs in groups.items():
+    def pair_width(static, idxs) -> int:
+        per_pair_hist = 2 ** max(_pad_depth_of(est, grids, idxs) - 1, 0) \
+            * d * static[1] * 8
+        return max(1, int(_PAIR_HIST_BYTES // per_pair_hist))
+
+    def fit_predict(static, idxs, dyn, Wp, Vp):
         n_est, max_bins, esr = static[:3]
-        Xb = xb_by_bins[max_bins]
-        pad_depth = _pad_depth_of(est, grids, idxs)
-        per_pair_hist = 2 ** max(pad_depth - 1, 0) * d * max_bins * 8
-        width = max(1, int(_PAIR_HIST_BYTES // per_pair_hist))
-        pairs = [(i, f) for i in idxs for f in range(n_folds)]
-        for s in range(0, len(pairs), width):
-            chunk = pairs[s:s + width]
-            dyn = [dyn_of(grids[i]) for i, _ in chunk]
-            col = {k: [dd[k] for dd in dyn] for k in dyn[0]}
-            fs = torch.as_tensor([f for _, f in chunk], device=X.device)
-            Vsel = V[fs]
-            _, margin, _ = fit_gbt_pairs(
-                Xb, y, W[fs], n_est, pad_depth, max_bins, col["lr"],
-                col["lam"], col["mcw"],
-                active_depth=torch.as_tensor(col["depth"], dtype=torch.int32),
-                gamma=col["gamma"], alpha=col["alpha"],
-                subsample=col["subsample"], colsample=col["colsample"],
-                seed=seed, val_w=Vsel, early_stopping_rounds=esr,
-                min_gain_norm=col["min_gain_norm"], eval_metric=eval_metric)
-            for t, (i, f) in enumerate(chunk):
-                pred = gbt_pred_from_margin(margin[t], "logistic")
-                metrics[i][f] = float(metric_fn(y, pred, Vsel[t]))
-    return metrics
+        _, margin, _ = fit_gbt_pairs(
+            xb_by_bins[max_bins], y, Wp, n_est,
+            _pad_depth_of(est, grids, idxs), max_bins, dyn["lr"],
+            dyn["lam"], dyn["mcw"],
+            active_depth=torch.as_tensor(dyn["depth"], dtype=torch.int32),
+            gamma=dyn["gamma"], alpha=dyn["alpha"],
+            subsample=dyn["subsample"], colsample=dyn["colsample"],
+            seed=seed, val_w=Vp, early_stopping_rounds=esr,
+            min_gain_norm=dyn["min_gain_norm"], eval_metric=eval_metric)
+        return [gbt_pred_from_margin(mg, "logistic") for mg in margin]
+
+    return _sweep_blocks(grids, y, W, V, metric_fn, ctx, "gbt",
+                         static_of=lambda g: _static_gbt(est, g),
+                         dyn_of=dyn_of, fit_predict=fit_predict,
+                         pair_width=pair_width)
+
+
+def _dispatch(est) -> Callable:
+    # order matters: subclasses before parents
+    if isinstance(est, OpGBTClassifier):
+        return _sweep_gbt
+    if isinstance(est, OpRandomForestClassifier):
+        return _sweep_forest
+    if isinstance(est, OpLogisticRegression):
+        return _sweep_logistic
+    raise NotImplementedError(
+        f"{type(est).__name__}: only the logistic regression, random forest "
+        "and GBT/XGBoost classifier families are ported to the sweep "
+        "(ROADMAP.md, queue 1)")
 
 
 def run_sweep(est, grids: List[Dict], X: torch.Tensor, y: torch.Tensor,
               folds: Sequence[Tuple[np.ndarray, np.ndarray]], evaluator,
               ctx) -> List[List[float]]:
     """Metric matrix [grid][fold] for one model family, on X's device."""
-    if not isinstance(est, OpGBTClassifier):
-        raise NotImplementedError(
-            f"{type(est).__name__}: only the GBT/XGBoost classifier family "
-            "is ported to the sweep (ROADMAP.md, queue 1, item 7)")
+    handler = _dispatch(est)
     n_classes = getattr(est, "n_classes", None) or infer_n_classes(
         y.cpu().numpy())
     if n_classes > 2:
         raise NotImplementedError(
-            "multiclass GBT sweeps are not ported yet (ROADMAP.md, queue 1, "
-            "item 9)")
+            f"{type(est).__name__}: multiclass sweeps are not ported yet "
+            "(ROADMAP.md, queue 1, item 9)")
     metric_fn = make_device_metric(evaluator, n_classes=n_classes)
     W = torch.as_tensor(np.stack([tr for tr, _ in folds]), device=X.device)
     V = torch.as_tensor(np.stack([va for _, va in folds]), device=X.device)
-    return _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx)
+    return handler(est, grids, X, y, W, V, metric_fn, ctx, n_classes)

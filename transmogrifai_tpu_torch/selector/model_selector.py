@@ -26,6 +26,9 @@ from transmogrifai_tpu_torch import types as T
 from transmogrifai_tpu_torch.data.columns import Column
 from transmogrifai_tpu_torch.evaluators.evaluators import (
     BinaryClassificationEvaluator)
+from transmogrifai_tpu_torch.models.logistic import OpLogisticRegression
+from transmogrifai_tpu_torch.models.trees import (
+    OpRandomForestClassifier, OpXGBoostClassifier)
 from transmogrifai_tpu_torch.parallel.sweep import run_sweep
 from transmogrifai_tpu_torch.selector.splitters import DataBalancer
 from transmogrifai_tpu_torch.selector.validators import (
@@ -138,7 +141,10 @@ class ModelSelector(Estimator):
         t0 = time.perf_counter()
         results: List[ValidationResult] = []
         failures = 0
+        ctx._sweep_seconds = {}
+        family_s: Dict[str, float] = {}
         for mi, (est, grids) in enumerate(self.models):
+            tf = time.perf_counter()
             try:
                 grid_fold = run_sweep(est, grids, X, y_dev, folds,
                                       self.evaluator, ctx)
@@ -153,9 +159,11 @@ class ModelSelector(Estimator):
                 results.append(ValidationResult(
                     model=type(est).__name__, grid=grid,
                     fold_metrics=[float(m) for m in fm], model_index=mi))
-        if X.is_cuda:
-            torch.cuda.synchronize(X.device)
-        sweep_s = time.perf_counter() - t0
+            if X.is_cuda:
+                torch.cuda.synchronize(X.device)
+            family_s[type(est).__name__] = time.perf_counter() - tf
+        timings = {"sweep_s": time.perf_counter() - t0,
+                   "families": family_s, "groups": ctx._sweep_seconds}
         if not results:
             raise RuntimeError(
                 f"All {failures} model families failed during validation")
@@ -163,10 +171,10 @@ class ModelSelector(Estimator):
         finite = [r for r in results if np.isfinite(r.mean_metric)]
         return self._finish(ctx, results, finite, sign, X, X_full, y_np,
                             y_dev, train_idx, test_idx, split_summary,
-                            sweep_s)
+                            timings)
 
     def _finish(self, ctx, results, finite, sign, X, X_full, y_np, y_dev,
-                train_idx, test_idx, split_summary, sweep_s):
+                train_idx, test_idx, split_summary, timings):
         if not finite:
             raise RuntimeError(
                 "Every validated config produced a non-finite metric")
@@ -201,17 +209,42 @@ class ModelSelector(Estimator):
             best_grid=best.grid, train_metrics=_eval(train_idx),
             holdout_metrics=_eval(test_idx), splitter_summary=split_summary,
             larger_is_better=self.evaluator.is_larger_better,
-            timings={"sweep_s": sweep_s, "refit_s": refit_s})
+            timings={**timings, "refit_s": refit_s})
         return model
 
 
+# the reference's shared grid axes (DefaultSelectorParams.scala:35-76)
+_REGULARIZATION = (0.001, 0.01, 0.1, 0.2)
+_ELASTIC_NET = (0.1, 0.5)
+_MAX_DEPTH = (3, 6, 12)
+_MIN_INFO_GAIN = (0.001, 0.01, 0.1)
+_MIN_INSTANCES = (10.0, 100.0)
+
+
+def _lr_grid() -> List[Dict]:
+    """LR: ElasticNet {0.1, 0.5} × Regularization {0.001..0.2} = 8."""
+    return [{"reg_param": r, "elastic_net_param": a}
+            for a in _ELASTIC_NET for r in _REGULARIZATION]
+
+
+def _rf_grid() -> List[Dict]:
+    """RF: MaxDepth × MinInfoGain × MinInstancesPerNode = 18."""
+    return [{"max_depth": d, "min_info_gain": g, "min_instances_per_node": m}
+            for d in _MAX_DEPTH for g in _MIN_INFO_GAIN
+            for m in _MIN_INSTANCES]
+
+
 def _default_binary_models() -> List[Tuple[Estimator, List[Dict]]]:
-    """The reference's binary default is LR + RF + XGB; the port has the
-    XGB family only, so the default raises until LR and RF are ported."""
-    raise NotImplementedError(
-        "the default binary sweep (LR + RF + XGB) needs the LR and RF "
-        "families, which are not ported yet (ROADMAP.md, training slice, "
-        "queued); pass models=[(OpXGBoostClassifier(...), grids)]")
+    """The reference's binary default, LR + RF + XGB, in its order: LR 8
+    elastic-net configs at max_iter 50, RF 18 tree-shape configs at 50
+    trees, XGB 200 rounds / eta 0.02 / depth 10 / gamma 0.8 / early
+    stopping 20 × min_child_weight {1, 10} — 28 configs."""
+    xgb_grid = [{"min_child_weight": m} for m in (1.0, 10.0)]
+    return [(OpLogisticRegression(max_iter=50), _lr_grid()),
+            (OpRandomForestClassifier(n_trees=50), _rf_grid()),
+            (OpXGBoostClassifier(n_estimators=200, eta=0.02, max_depth=10,
+                                 gamma=0.8, early_stopping_rounds=20),
+             xgb_grid)]
 
 
 class BinaryClassificationModelSelector:
