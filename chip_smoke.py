@@ -7,7 +7,7 @@ nor the JAX package. Phases, one JSON line each; any failure exits
 non-zero:
 
 1. the card's name and power limit (from nvidia-smi), then the build of
-   every CUDA kernel of the port (seven sources) from
+   every CUDA kernel of the port (eight sources) from
    `transmogrifai_tpu_torch/csrc` with nvcc, all sources in parallel;
 2. K4 `bin_features` against its plain PyTorch version at n in
    {1, 64, 891, 65536} x 496 features with the Titanic model's 31 edges
@@ -78,7 +78,28 @@ non-zero:
    must be off. The launch counters are set to 0 before the train and read
    after the reload's scores: every kernel must have launched. The sweep
    is timed per family and per static group (the RF depth buckets), the
-   refit apart.
+   refit apart;
+13. the evaluation kernels (csrc/eval_metrics.cu): K8-mc
+   `confusion_counts` and K8-reg `regression_moments` against their plain
+   versions at the Iris and Boston sweeps' shapes (8 pairs of 135 / 300
+   rows) and at n = 65536, P = 18 (counts equal, sums within 1e-6
+   relative), timed beside the byte bound, the plain version and (K8-mc)
+   one `torch.bincount`; and K1, K1-sub, K2, K3 routing and K3 leaves with
+   m = 3 class channels at level 11 of the Iris depth-12 bucket, each
+   equal to its plain version;
+14. the Iris example verbatim (`examples/op_iris_simple.py` with the
+   port's entry points: `.indexed()` label,
+   `MultiClassificationModelSelector.with_train_validation_split()`, LR 8
+   + RF 18 configs) trained on the card with the JAX package's forest
+   draws injected, held to `testdata/iris_default_f32`: kept columns,
+   label order and winner equal, validation F1 within 1e-6, holdout F1 >=
+   0.80; saved, reloaded and scored (equal);
+15. the Boston example verbatim (`RegressionModelSelector`, linear 8 + RF
+   18 + GBT 18 configs) held to `testdata/boston_default_f32`: kept
+   columns and winner equal, validation RMSE within 1e-4 (linear) / 1e-2
+   (RF, GBT) relative, holdout RMSE <= 6.0 and R2 >= 0.6 and within 1e-2
+   relative; saved, reloaded and scored (equal). Each example's launch
+   counters cover exactly its run; its kernels must all have launched.
 """
 
 import contextlib
@@ -918,6 +939,314 @@ def default_train_path(port, pt, device="cuda"):
     return model, ds, record, draws
 
 
+# --------------------------------------------------------------------------- #
+# the Iris and Boston examples: evaluation kernels, m = 3, training           #
+# --------------------------------------------------------------------------- #
+
+EXAMPLES = os.path.join(HERE, "examples", "data")
+EXAMPLE_FIXTURE = {ex: os.path.join(HERE, "transmogrifai_tpu_torch",
+                                    "testdata", f"{ex}_default_f32")
+                   for ex in ("iris", "boston")}
+# the kernels each example's train must launch
+EXAMPLE_KERNELS = {
+    "iris": ("bin_features", "histograms", "sibling_subtract",
+             "split_search", "route_level", "leaf_values", "tree_walk",
+             "confusion_counts"),
+    "boston": ("bin_features", "histograms", "sibling_subtract",
+               "split_search", "route_level", "leaf_values", "tree_walk",
+               "regression_moments")}
+# validation-metric tolerance per family: Iris's F1 comes from equal class
+# predictions (f32 rounding of the weighted average); Boston's linear fit
+# runs the same FISTA steps, its forests and GBT sum float labels in
+# another order, so near-tie splits may go either way (relative)
+IRIS_F1_ATOL = 1e-6
+BOSTON_RMSE_RTOL = {"OpLinearRegression": 1e-4,
+                    "OpRandomForestRegressor": 1e-2, "OpGBTRegressor": 1e-2}
+BOSTON_HOLDOUT_RTOL = 1e-2
+# the evaluation kernels' shapes: each example's largest metric call (its
+# LR / linear group: 8 configs x 1 fold, on the validation split of the
+# training rows) and a synthetic one
+EVAL_SHAPES = {"iris": (8, 135, 3), "boston": (8, 300, None),
+               "synthetic": (18, 65536, 3)}
+
+
+def eval_inputs(rng, P, n, k, dev):
+    y = rng.integers(0, k or 3, n)
+    pred = np.where(rng.random((P, n)) < 0.8, y,
+                    rng.integers(0, k or 3, (P, n)))
+    mask = (rng.random((P, n)) < 0.25).astype(np.float32)
+    if k is None:  # regression: Boston-like labels
+        y = rng.normal(size=n) * 9 + 22
+        pred = y + rng.normal(size=(P, n)) * 3
+    dt = np.int32 if k else np.float32
+    return [torch.from_numpy(np.ascontiguousarray(a).astype(dt)).to(dev)
+            for a in (y, pred)] + [torch.from_numpy(mask).to(dev)]
+
+
+def eval_kernels(pdm, rng, dev):
+    """K8-mc and K8-reg against their plain versions at each example's
+    shape and at n = 65536, P = 18 (0/1 masks: counts equal; regression
+    sums within 1e-6 relative), then timed beside the byte bound and, for
+    the confusion counts, the one `torch.bincount` call that computes
+    them (index precomputed)."""
+    out = {}
+    for label, (P, n, k) in EVAL_SHAPES.items():
+        for kind in (("confusion_counts", "regression_moments")
+                     if label == "synthetic" else
+                     (("confusion_counts",) if k else
+                      ("regression_moments",))):
+            kk = k or 3
+            if kind == "confusion_counts":
+                y, pred, mask = eval_inputs(rng, P, n, kk, dev)
+                got = pdm.confusion_counts(y, pred, mask, kk)
+                want = pdm.confusion_counts_plain(y, pred, mask, kk)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K8-mc disagrees at {label}")
+                idx = (torch.arange(P, device=dev)[:, None] * kk * kk
+                       + y.long()[None] * kk + pred.long()).reshape(-1)
+                flat = mask.reshape(-1)
+                nbytes = n * 4 + 2 * P * n * 4 + P * kk * kk * 4
+                b, by = bound(nbytes, 2 * P * n)
+                rec = {"ms": cuda_ms(lambda: pdm.confusion_counts(
+                           y, pred, mask, kk), 50),
+                       "plain_ms": cuda_ms(lambda: pdm.confusion_counts_plain(
+                           y, pred, mask, kk), 20),
+                       "library_ms": cuda_ms(lambda: torch.bincount(
+                           idx, weights=flat, minlength=P * kk * kk), 50),
+                       "bound_ms": b, "bound_by": by, "bytes": nbytes,
+                       "max_abs_err": err, "tolerance": "equal"}
+            else:
+                y, pred, mask = eval_inputs(rng, P, n, None, dev)
+                got = pdm.regression_moments(pred, y, mask)
+                want = pdm.regression_moments_plain(pred, y, mask)
+                torch.cuda.synchronize()
+                err = float(((got - want).abs()
+                             / want.abs().clamp(min=1e-30)).max())
+                if err > 1e-6:
+                    raise AssertionError(f"K8-reg disagrees at {label}: "
+                                         f"{err}")
+                nbytes = n * 4 + 2 * P * n * 4 + P * 5 * 4
+                b, by = bound(nbytes, 14 * P * n)
+                rec = {"ms": cuda_ms(lambda: pdm.regression_moments(
+                           pred, y, mask), 50),
+                       "plain_ms": cuda_ms(
+                           lambda: pdm.regression_moments_plain(
+                               pred, y, mask), 20),
+                       "library_ms": None, "bound_ms": b, "bound_by": by,
+                       "bytes": nbytes, "max_abs_err": err,
+                       "tolerance": "1e-6 relative"}
+            out[f"{label}:{kind}"] = dict(rec, pairs=P, rows=n)
+    return out
+
+
+def three_class_level(pt, rng, dev):
+    """K1 (m = 3, the rows routed right grouped by their 1024 level-10
+    parents), K1-sub, K2 (m = 3) over 2048 nodes and K3 routing and leaves
+    (m = 3, 4096 leaves) at level 11 of the Iris depth-12 bucket: one
+    chunk of its 300 trees (6 configs x 50 trees) as `fit_forest` sizes
+    it, grown by the port to depth 11 on a seeded 135 x 3 binned matrix
+    with three classes; each kernel against its plain version on the whole
+    chunk (class counts: equal)."""
+    n, d, B = 135, 3, FIT_BINS
+    Pc, budget, per_tree = pt.forest_chunk(300, 12, 3, n, d, B, dev)
+    Xb = torch.from_numpy(rng.integers(0, B, (n, d)).astype(np.int8)).to(dev)
+    y = torch.clamp((Xb[:, 0].long() + torch.from_numpy(
+        rng.integers(0, B, n)).to(dev)) * 3 // (2 * B), max=2)
+    Y = torch.nn.functional.one_hot(y, 3).float()
+    boot, fmask = pt.forest_draws(Pc, n, d, seed=12, device=dev)
+    H = boot.contiguous()
+    G = (Y.T[None] * H[:, None, :]).contiguous()
+    _, node11 = pt.grow_trees(Xb, G, H, 11, B, reg_lambda=1e-6,
+                              min_child_weight=1.0, feature_mask=fmask)
+    parent = torch.where((node11 & 1).bool(), node11 >> 1,
+                         torch.full_like(node11, 1024))
+    hg_r, hh_r = pt.histograms(Xb, parent, G, H, 1024, B)
+    hg10, hh10 = pt.histograms(Xb, node11 >> 1, G, H, 1024, B)
+    want_hist = (*pt.histograms_plain(Xb, parent, G, H, 1024, B),
+                 *pt.histograms_plain(Xb, node11 >> 1, G, H, 1024, B))
+    cg, ch = pt.sibling_subtract(hg10, hh10, hg_r, hh_r)
+    kw = dict(reg_lambda=1e-6, min_child_weight=1.0, min_gain=0.0,
+              min_gain_norm=0.0, feature_mask=fmask, level=11,
+              active_depth=12)
+    f, b = pt.split_search(cg, ch, B, **kw)
+    node12 = pt.route_level(Xb, node11, f, b)
+    leaf = pt.leaf_values(node12, G, H, 4096, 1e-6, 0.0)
+    torch.cuda.synchronize()
+    checks = {
+        "histograms": all(torch.equal(a, c) for a, c in zip(
+            (hg_r, hh_r, hg10, hh10), want_hist)),
+        "sibling_subtract": all(torch.equal(a, c) for a, c in zip(
+            (cg, ch), pt.sibling_subtract_plain(hg10, hh10, hg_r, hh_r))),
+        "split_search": all(torch.equal(a, c) for a, c in zip(
+            (f, b), pt.split_search_plain(cg, ch, B, **kw))),
+        "route_level": torch.equal(node12, pt.route_level_plain(
+            Xb, node11, f, b)),
+        "leaf_values": torch.equal(leaf.cpu(), pt.leaf_values_plain(
+            node12.cpu(), G.cpu(), H.cpu(), 4096, 1e-6, 0.0))}
+    record = {"shape": {"pairs": Pc, "rows": n, "d": d, "bins": B,
+                        "channels": 3, "parents_level10": 1024,
+                        "nodes_level11": 2048, "leaves": 4096},
+              "chunk": {"budget_bytes": budget, "bytes_per_tree": per_tree,
+                        "lanes_k1": pt._hist_lanes(B, 3)},
+              "splits_level11": int((b < B).sum()), "equal": checks,
+              "tolerance": "equal (class counts; leaves bit-equal to the "
+                           "CPU's row-order sums)"}
+    if not all(checks.values()):
+        raise AssertionError(f"a kernel at m = 3 disagrees: {checks}")
+    return record
+
+
+def example_pipeline(port, example: str):
+    """The example's program (examples/op_iris_simple.py,
+    examples/op_boston_simple.py) with the port's entry points and the
+    selector's default models: (dataset, label, prediction)."""
+    import transmogrifai_tpu_torch.types as t
+    FB = port.FeatureBuilder
+    if example == "iris":
+        schema = {"id": t.Integral, "sepalLength": t.Real,
+                  "sepalWidth": t.Real, "petalLength": t.Real,
+                  "petalWidth": t.Real, "irisClass": t.Text}
+        preds = [FB.Real(c).from_column(c).as_predictor() for c in (
+            "sepalLength", "sepalWidth", "petalLength", "petalWidth")]
+        label = FB.Text("irisClass").from_column("irisClass") \
+            .as_response().indexed()
+        selector = port.MultiClassificationModelSelector
+    else:
+        schema = {c: t.RealNN for c in (
+            "crim", "zn", "indus", "nox", "rm", "age", "dis", "tax",
+            "ptratio", "b", "lstat", "medv")}
+        schema.update(rowId=t.Integral, chas=t.PickList, rad=t.Integral)
+        kinds = {"chas": "PickList", "rad": "Integral"}
+        preds = [getattr(FB, kinds.get(c, "RealNN"))(c).from_column(c)
+                 .as_predictor() for c in (
+                     "crim", "zn", "indus", "chas", "nox", "rm", "age",
+                     "dis", "rad", "tax", "ptratio", "b", "lstat")]
+        label = FB.RealNN("medv").from_column("medv").as_response()
+        selector = port.RegressionModelSelector
+    ds = port.Dataset.from_csv(os.path.join(EXAMPLES, f"{example}.csv"),
+                               schema=schema)
+    checked = label.sanity_check(port.transmogrify(preds),
+                                 remove_bad_features=True)
+    pred = selector.with_train_validation_split() \
+        .set_input(label, checked).get_output()
+    return ds, label, pred
+
+
+def example_train(port, pt, example: str, device="cuda"):
+    """Train the example verbatim (the default selector) on the card with
+    the JAX package's forest draws injected, hold it to the JAX package's
+    f32-mode default sweep, save, reload, score; the launch counters cover
+    exactly this run."""
+    import tempfile
+
+    fixture = EXAMPLE_FIXTURE[example]
+    with open(os.path.join(fixture, "results.json")) as fh:
+        want = json.load(fh)
+    with np.load(os.path.join(fixture, "scores.npz")) as z:
+        want_arr = {k: z[k] for k in z.files}
+    plans = ForestPlans()
+    pt.reset_launches()
+    t0 = time.perf_counter()
+    ds, label, pred = example_pipeline(port, example)
+    with pt.injected_forest_draws((want_arr["forest_boot"],
+                                   want_arr["forest_mask"])), plans:
+        model = port.Workflow().set_result_features(pred, label) \
+            .set_input_dataset(ds).train(device=device)
+    sync(device)
+    train_s = time.perf_counter() - t0
+    scores = prediction_of(model.score_compiled(ds))
+    path = tempfile.mkdtemp(prefix=f"port_{example}_model_")
+    model.save(path)
+    again = prediction_of(port.load_model(path, device=device)
+                          .score_compiled(ds))
+    sync(device)
+    launches = {k: pt.LAUNCHES[k] for k in pt.LAUNCHES}
+
+    best = next(s for s in model.fitted.values() if hasattr(
+        getattr(s, "summary", None), "validation_results"))
+    summ = best.summary
+    checker = fitted_of(model, "SanityCheckerModel")
+    results = [{"model": r.model, "grid": r.grid}
+               for r in summ.validation_results]
+    if results != want["results"]:
+        raise AssertionError(f"the {example} sweep ran other configs than "
+                             "the fixture's")
+    got_m = np.array([r.fold_metrics[0] for r in summ.validation_results])
+    want_m = np.array([f[0] for f in want["fold_metrics"]])
+    fam = [r["model"] for r in results]
+    hold, hold_w = summ.holdout_metrics, want["holdout_metrics"]
+    if example == "iris":
+        err = np.abs(got_m - want_m)
+        metric_ok = bool((err <= IRIS_F1_ATOL).all())
+        band_ok = hold["F1"] >= 0.80
+        extra = {"labels_equal": fitted_of(model, "StringIndexerModel")
+                 .labels == want["labels"],
+                 "probability_max_abs_err_vs_jax": float(np.abs(
+                     scores["probability"] - want_arr["probability"]).max()),
+                 "prediction_mismatches_vs_jax": int(
+                     (scores["prediction"] != want_arr["prediction"]).sum())}
+        band_ok = band_ok and extra["labels_equal"]
+        shape_ok = scores["probability"].shape == (150, 3)
+        tol = {"validation_f1_atol": IRIS_F1_ATOL, "holdout_f1_min": 0.80}
+    else:
+        err = np.abs(got_m - want_m) / np.abs(want_m)
+        metric_ok = all(e <= BOSTON_RMSE_RTOL[f] for e, f in zip(err, fam))
+        hold_err = abs(hold["RMSE"] - hold_w["RMSE"]) / hold_w["RMSE"]
+        band_ok = (hold["RMSE"] <= 6.0 and hold["R2"] >= 0.6
+                   and hold_err <= BOSTON_HOLDOUT_RTOL)
+        extra = {"holdout_rmse_rel_err": hold_err,
+                 "prediction_max_rel_err_vs_jax": float(np.abs(
+                     scores["prediction"] - want_arr["prediction"]).max()
+                     / np.abs(want_arr["prediction"]).max())}
+        shape_ok = (scores["prediction"].shape == (333,)
+                    and scores["probability"].shape == (333, 0))
+        tol = {"validation_rmse_rtol": BOSTON_RMSE_RTOL,
+               "holdout_rmse_rtol": BOSTON_HOLDOUT_RTOL,
+               "holdout_rmse_max": 6.0, "holdout_r2_min": 0.6}
+    err_by_family = {f: float(max(e for e, g in zip(err, fam) if g == f))
+                     for f in dict.fromkeys(fam)}
+    winner_equal = (summ.best_model == want["best_model"]
+                    and summ.best_grid == want["best_grid"])
+    reload_equal = all(np.array_equal(scores[k], again[k])
+                       for k in ("prediction", "rawPrediction",
+                                 "probability"))
+    kept_equal = checker.indices == want_arr["kept_indices"].tolist()
+    stage = dict(model.stage_seconds)
+    feature_fit = sum(v for k, v in model.stage_seconds
+                      if k not in ("SanityChecker", "ModelSelector"))
+    missing = [k for k in EXAMPLE_KERNELS[example] if launches[k] < 1]
+    ok = (winner_equal and metric_ok and band_ok and reload_equal
+          and kept_equal and shape_ok and not missing
+          and all(np.isfinite(scores[k]).all() for k in scores)
+          and summ.problem_type == want["problem_type"])
+    record = {
+        "phase": f"{example}_train", "rows": len(ds),
+        "configs": len(results), "kept_columns": len(checker.indices),
+        "kept_equal": kept_equal, "best_model": summ.best_model,
+        "best_grid": summ.best_grid, "winner_equal": winner_equal,
+        "validation_metric": summ.metric_name,
+        "validation_err_by_family": err_by_family,
+        "holdout_metrics": hold, "holdout_metrics_jax": hold_w,
+        **extra, "tolerance": tol, "reload_scores_equal": reload_equal,
+        "launches_main_path": launches, "missing_kernels": missing,
+        "forest_chunks": plans.messages,
+        "wall_s": {"train": train_s, "feature_fit": feature_fit,
+                   "sanity_checker": stage.get("SanityChecker"),
+                   "selector": stage.get("ModelSelector"),
+                   "sweep": summ.timings["sweep_s"],
+                   "sweep_by_family": summ.timings["families"],
+                   "sweep_by_group": summ.timings["groups"],
+                   "refit": summ.timings["refit_s"]},
+        "ok": bool(ok)}
+    emit(record)
+    if not ok:
+        raise AssertionError(f"the {example} example disagrees with the JAX "
+                             "package's f32 fixture")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1060,6 +1389,17 @@ def main() -> int:
         default_train_path(port, pt)
     train_launches = default_rec["launches_main_path"]
 
+    # 13. the evaluation kernels, and K1/K1-sub/K2/K3 at m = 3 ------------ #
+    eval_cases = eval_kernels(pdm, rng, dev)
+    m3 = three_class_level(pt, rng, dev)
+    emit({"phase": "eval_kernels", "cases": eval_cases,
+          "three_class_level11": m3})
+    torch.cuda.empty_cache()
+
+    # 14, 15. the Iris and Boston examples, verbatim ----------------------- #
+    iris_rec = example_train(port, pt, "iris")
+    boston_rec = example_train(port, pt, "boston")
+
     # 6. timings ------------------------------------------------------------ #
     timing = {}
     for n in (891, 65536):
@@ -1178,6 +1518,15 @@ def main() -> int:
                 "max_abs_err": errs[name],
                 **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}}
+    def eval_entry(name, replaces, path_rec, t):
+        return {"name": name, "route": "cuda",
+                "source": "transmogrifai_tpu_torch/csrc/eval_metrics.cu",
+                "replaces": replaces,
+                "launches": path_rec["launches_main_path"][name],
+                "max_abs_err": max(v["max_abs_err"] for k, v in
+                                   eval_cases.items() if k.endswith(name)),
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
     emit({"kernels": [
         {"name": "bin_features", "route": "cuda",
          "source": "transmogrifai_tpu_torch/csrc/bin_features.cu",
@@ -1208,6 +1557,12 @@ def main() -> int:
                     forest_timing["leaf_values"]),
         train_entry("binned_aupr", "binned_aupr.cu",
                     "transmogrifai_tpu/models/trees.py:564", aupr),
+        eval_entry("confusion_counts",
+                   "transmogrifai_tpu/evaluators/device_metrics.py:145",
+                   iris_rec, eval_cases["iris:confusion_counts"]),
+        eval_entry("regression_moments",
+                   "transmogrifai_tpu/evaluators/device_metrics.py:159",
+                   boston_rec, eval_cases["boston:regression_moments"]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

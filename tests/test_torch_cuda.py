@@ -18,7 +18,13 @@ node ids equal and leaf values within atol 1e-6 of the plain version and
 bit-equal to a row-order f32 sum; K8 binned AuPR equal at 512 and 4096
 buckets. Forest kernels (m = 2 class channels, integer values): K1 and
 K1-sub equal (integer sums are exact in any order), K2 and K3 leaves as
-above; a depth-12 forest grown on the card equals the CPU's.
+above; a depth-12 forest grown on the card equals the CPU's. The same at
+m = 3 class channels (a depth-12 three-class forest) and m = 1 with the
+regression label as the channel (labels on a 1/4 grid, exact sums: equal
+forests). Evaluation kernels: K8-mc
+confusion counts equal for 0/1 masks and within 1e-6 relative for
+fractional weights (both sum in f64, in another order, and round once);
+K8-reg sums within 1e-6 relative.
 """
 
 import os
@@ -375,3 +381,105 @@ def test_depth12_forest_on_the_card_matches_the_cpu(cuda):
         out[dev] = {k: v.cpu() for k, v in trees.items()}
     for k in ("feat", "bin", "leaf"):
         assert torch.equal(out["cpu"][k], out["cuda"][k]), k
+
+
+# --------------------------------------------------------------------------- #
+# forests with m = 3 class channels and the regression y channel (m = 1)      #
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("m", [3, 1])
+def test_depth12_multiclass_and_regression_forests_on_the_card(cuda, m):
+    """Two pairs of 4 depth-12 trees grown with the same draws on the card
+    and on the CPU: 3 one-hot class channels, or the regression label on a
+    1/4 grid. Both give sums that are exact in any order, so the tables
+    and leaves are equal. On general float labels a near-tie split may go
+    either way (the example's fixture check holds that at the metric
+    level)."""
+    rng = np.random.default_rng(6 + m)
+    n, d = 700, 12
+    Xb = torch.from_numpy(rng.integers(0, 32, (n, d)).astype(np.int8))
+    if m == 3:
+        Y = torch.nn.functional.one_hot(
+            torch.from_numpy(rng.integers(0, 3, n)), 3).float()
+    else:
+        Y = torch.from_numpy(np.round(
+            (Xb[:, 0].numpy() * 0.5 + rng.normal(size=n) + 20) * 4)
+            .astype(np.float32) / 4)[:, None]
+    w = torch.from_numpy((rng.random((2, n)) < 0.67).astype(np.float32))
+    draws = pt.forest_draws(4, n, d, seed=3)
+    before = pt.LAUNCHES["histograms"]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        trees = pt.fit_forest(Xb.to(dev), Y.to(dev), w.to(dev), 4, 12, 32, 3,
+                              min_child_weight=[1.0, 10.0],
+                              min_gain=[0.0, 0.001], draws=draws)
+        out[dev] = {k: v.cpu() for k, v in trees.items()}
+    assert pt.LAUNCHES["histograms"] > before
+    assert out["cuda"]["leaf"].shape[-1] == m
+    for k in ("feat", "bin", "leaf"):
+        assert torch.equal(out["cpu"][k], out["cuda"][k]), k
+
+
+# --------------------------------------------------------------------------- #
+# K8-mc and K8-reg                                                            #
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("P,n,k", [(1, 1, 2), (26, 34, 3), (18, 65536, 3),
+                                   (4, 3000, 32), (2, 0, 3)])
+@pytest.mark.parametrize("weights", ["01", "frac"])
+def test_confusion_counts_kernel_equals_plain(cuda, P, n, k, weights):
+    rng = np.random.default_rng(P + n + k)
+    y = torch.from_numpy(rng.integers(-1, k + 1, n).astype(np.int32))
+    pred = torch.from_numpy(rng.integers(-1, k + 1, (P, n)).astype(np.int32))
+    mask = torch.from_numpy(
+        (rng.random((P, n)) < 0.4).astype(np.float32) if weights == "01"
+        else rng.uniform(0, 2, (P, n)).astype(np.float32))
+    args = [t.to(cuda) for t in (y, pred, mask)]
+    before = pt.LAUNCHES["confusion_counts"]
+    got = pdm.confusion_counts(*args, k)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["confusion_counts"] == before + 1
+    assert got.shape == (P, k, k)
+    want = pdm.confusion_counts_plain(y, pred, mask, k)
+    if weights == "01":
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+    assert torch.equal(got, pdm.confusion_counts(*args, k))  # same bits
+
+
+@pytest.mark.parametrize("P,n", [(1, 1), (8, 75), (18, 65536), (3, 1500)])
+@pytest.mark.parametrize("weights", ["01", "frac"])
+def test_regression_moments_kernel_equals_plain(cuda, P, n, weights):
+    rng = np.random.default_rng(P * n)
+    y = torch.from_numpy((rng.normal(size=n) * 9 + 22).astype(np.float32))
+    pred = torch.from_numpy((y.numpy() + rng.normal(size=(P, n)) * 3)
+                            .astype(np.float32))
+    mask = torch.from_numpy(
+        (rng.random((P, n)) < 0.3).astype(np.float32) if weights == "01"
+        else rng.uniform(0, 2, (P, n)).astype(np.float32))
+    args = [t.to(cuda) for t in (pred, y, mask)]
+    before = pt.LAUNCHES["regression_moments"]
+    got = pdm.regression_moments(*args)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["regression_moments"] == before + 1
+    want = pdm.regression_moments_plain(pred, y, mask)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+    assert torch.equal(got, pdm.regression_moments(*args))  # same bits
+    rmse = pdm.regression_dev(args[1], args[0], args[2])["RMSE"]
+    torch.testing.assert_close(
+        rmse.cpu(), pdm.regression_dev(y, pred, mask)["RMSE"], rtol=1e-6,
+        atol=0)
+
+
+def test_evaluation_kernels_refuse_bad_inputs(cuda):
+    y = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        pdm.confusion_counts(y, torch.zeros((1, 4), device=cuda),
+                             torch.ones((1, 4), device=cuda), 3)
+    with pytest.raises(ValueError, match="outside"):
+        pdm.confusion_counts(y, y[None], torch.ones((1, 4), device=cuda), 33)
+    with pytest.raises(ValueError, match=r"\(P, n\)"):
+        pdm.regression_moments(torch.zeros(4, device=cuda),
+                               torch.zeros(4, device=cuda),
+                               torch.ones(4, device=cuda))

@@ -356,9 +356,12 @@ def test_random_forest_estimator_matches_jax_with_its_draws():
 
 def test_random_forest_refuses_what_is_not_ported():
     X = torch.zeros((6, 2))
-    with pytest.raises(NotImplementedError, match="multiclass"):
-        pt.OpRandomForestClassifier(n_trees=2).fit_arrays(
-            X, torch.tensor([0., 1., 2., 0., 1., 2.]), torch.ones(6), None)
+    for est in (pt.OpRandomForestClassifier(n_trees=2),
+                pt.OpRandomForestRegressor(n_trees=2)):
+        est.init_params = {"trees": {}}
+        with pytest.raises(NotImplementedError, match="warm starts"):
+            est.fit_arrays(X, torch.tensor([0., 1., 2., 0., 1., 2.]),
+                           torch.ones(6), None)
 
 
 @pytest.mark.parametrize("n_values", [2, 4, 11])

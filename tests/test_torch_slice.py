@@ -286,8 +286,9 @@ def test_from_jax_params_carries_fitted_models_across():
 
 def test_unported_stage_class_raises_and_names_itself():
     from transmogrifai_tpu_torch import from_jax_params
-    with pytest.raises(KeyError, match="OneHotModel"):
-        from_jax_params("OneHotModel", {"vocabs": [["a"]]})
+    with pytest.raises(KeyError, match="GBTMulticlassModel"):
+        from_jax_params("GBTMulticlassModel",
+                        {"edges": [[0.0]], "trees": {}})
 
 
 # --------------------------------------------------------------------------- #

@@ -929,33 +929,62 @@ def test_train_raises_without_cuda(monkeypatch):
             ds).train()
 
 
-def test_unported_paths_raise_and_name_themselves():
-    from transmogrifai_tpu_torch import (
-        BinaryClassificationModelSelector, Dataset, FeatureBuilder,
-        transmogrify)
+def _unported_case(case):
+    """Call one path the port has not ported yet (it raises)."""
+    import torch
+    from transmogrifai_tpu_torch import transmogrify
     from transmogrifai_tpu_torch import types as PT
+    from transmogrifai_tpu_torch.models import linear as pl
+    from transmogrifai_tpu_torch.models import logistic as plog
     from transmogrifai_tpu_torch.models import trees as pt
+    from transmogrifai_tpu_torch.parallel.sweep import run_sweep
+    from transmogrifai_tpu_torch.selector import (
+        BinaryClassificationModelSelector, MultiClassificationModelSelector)
     from transmogrifai_tpu_torch.stages.base import FeatureGeneratorStage
 
-    date = FeatureGeneratorStage(name="when", ftype=PT.Date).get_output()
-    with pytest.raises(NotImplementedError, match="'date' group"):
-        transmogrify([date])
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    X, y3 = torch.zeros((3, 2)), torch.tensor([0., 1., 2.])
+    if case == "date_group":
+        transmogrify([FeatureGeneratorStage(name="when",
+                                            ftype=PT.Date).get_output()])
+    elif case == "checkpoint":
         BinaryClassificationModelSelector.with_cross_validation(
             models=[(pt.OpXGBoostClassifier(), GRID)], checkpoint_dir="x")
-    import torch
-    from transmogrifai_tpu_torch.parallel.sweep import run_sweep
-    with pytest.raises(NotImplementedError, match="object"):
+    elif case == "sweep_family":
         run_sweep(object(), [{}], torch.zeros((4, 2)), torch.zeros(4), [],
                   None, None)
-    with pytest.raises(NotImplementedError, match="multiclass"):
-        pt.OpGBTClassifier().fit_arrays(
-            torch.zeros((3, 2)), torch.tensor([0., 1., 2.]), torch.ones(3),
-            None)
-    ds = Dataset.from_csv(TITANIC)
-    _, label = FeatureBuilder.from_dataset(ds, response="survived")
-    assert label.is_response
+    elif case == "multiclass_gbt":
+        pt.OpGBTClassifier().fit_arrays(X, y3, torch.ones(3), None)
+    elif case == "multiclass_gbt_sweep":
+        from transmogrifai_tpu_torch.evaluators import (
+            MultiClassificationEvaluator)
+        folds = [(np.ones(3, np.float32), np.ones(3, np.float32))]
+        run_sweep(pt.OpXGBoostClassifier(), [{}], X, y3, folds,
+                  MultiClassificationEvaluator(), None)
+    elif case == "lbfgs":
+        plog.OpLogisticRegression(reg_param=0.1).fit_arrays(
+            X, y3, torch.ones(3), None)
+    elif case == "warm_start":
+        est = pl.OpLinearRegression(reg_param=0.1)
+        est.init_params = {"beta": [0.0, 0.0]}
+        est.fit_arrays(X, y3, torch.ones(3), None)
+    elif case == "multiclass_checkpoint":
+        MultiClassificationModelSelector.with_train_validation_split(
+            checkpoint_dir="x")
 
+
+@pytest.mark.parametrize("case,match", [
+    ("date_group", "'date' group"), ("checkpoint", "checkpoint"),
+    ("sweep_family", "object"), ("multiclass_gbt", "multiclass"),
+    ("multiclass_gbt_sweep", "multiclass boosting"), ("lbfgs", "F5"),
+    ("warm_start", "warm starts"), ("multiclass_checkpoint", "checkpoint")])
+def test_unported_paths_raise_and_name_themselves(case, match):
+    with pytest.raises(NotImplementedError, match=match):
+        _unported_case(case)
+    if case == "date_group":
+        from transmogrifai_tpu_torch import Dataset, FeatureBuilder
+        _, label = FeatureBuilder.from_dataset(Dataset.from_csv(TITANIC),
+                                               response="survived")
+        assert label.is_response
 
 if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")

@@ -19,8 +19,12 @@ Tolerances:
   splits, leaf values atol 1e-6, final node ids equal;
 - K8 binned AuPR: atol 1e-6 (JAX sums the curve in f32, the port in f64
   rounded once); bucket ids equal for scores at least 1e-3 of a bucket's
-  width from an edge (within an ulp of an edge the two libraries' exp
-  may land on either side);
+  width from an edge, which is at least 32 f32 ulps of the score at every
+  score (`_margins` makes every row so, and the test checks it). Within an
+  ulp or two of an edge, XLA's f32 exp may land on either side, and not
+  the same side in every process; the port's buckets come from the f64
+  sigmoid rounded to f32 once, so they equal numpy's f64 reference there
+  and lie at most one bucket from JAX's;
 - sorted AuPR / AuROC and confusion metrics: atol 1e-6; host metrics:
   equal (the same numpy code).
 """
@@ -227,23 +231,61 @@ def test_route_level_and_leaf_values_plain():
             assert leaf[p, k, 0].item() == np.float32(g / np.float32(h + lam))
 
 
+# the least distance of a score from a 512-bucket edge in `_margins`, as a
+# share of a bucket's width
+EDGE_GAP = 1e-3
+
+
+def _sigmoid64(m):
+    return 1.0 / (1.0 + np.exp(-np.asarray(m, dtype=np.float64)))
+
+
 def _margins(seed, n=N):
+    """(P, n) f32 margins whose scores lie in random 512-buckets, every one
+    at least EDGE_GAP of a bucket's width from the bucket's edges; a
+    quarter of the rows at just that distance, either side of an edge."""
     rng = np.random.default_rng(seed)
-    m = (rng.normal(size=(P, n)) * 2).astype(np.float32)
-    # rows 1e-3 of a bucket's width either side of 512-bucket edges
-    k = rng.integers(1, 512, n // 4)
-    side = np.where(rng.random(n // 4) < 0.5, -1e-3, 1e-3)
-    s = (k + side) / 512.0
-    m[:, : n // 4] = np.log(s / (1 - s)).astype(np.float32)
-    return m
+    k = rng.integers(0, 512, (P, n))
+    frac = rng.uniform(EDGE_GAP, 1.0 - EDGE_GAP, (P, n))
+    q = n // 4
+    frac[:, :q] = np.where(rng.random((P, q)) < 0.5, EDGE_GAP,
+                           1.0 - EDGE_GAP)
+    s = (k + frac) / 512.0
+    return np.log(s / (1.0 - s)).astype(np.float32)
+
+
+def _jax_buckets(m):
+    return np.asarray(jnp.minimum((jax.nn.sigmoid(jnp.asarray(m)) * 512)
+                                  .astype(jnp.int32), 511))
 
 
 def test_score_buckets_match_jax_off_the_edges():
     m = _margins(3, 4096)
+    s = _sigmoid64(m)
+    gap = np.abs(s * 512 - np.round(s * 512)) / 512
+    ulps = gap / np.spacing(s.astype(np.float32)).astype(np.float64)
+    assert gap.min() >= 0.99 * EDGE_GAP / 512 and ulps.min() >= 32, \
+        (gap.min(), ulps.min())
     got = pdm.score_bins(torch.from_numpy(m), 512, from_margin=True)
-    want = jnp.minimum((jax.nn.sigmoid(jnp.asarray(m)) * 512)
-                       .astype(jnp.int32), 511)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), _jax_buckets(m))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_score_buckets_near_the_edges_within_one_bucket(seed):
+    """Scores within two f32 ulps of an edge: the port's buckets equal the
+    f64 reference rounded to f32 once, and lie at most one bucket from
+    XLA's f32 formula."""
+    rng = np.random.default_rng(seed)
+    edge = (rng.integers(1, 512, (P, N)) / 512.0).astype(np.float32)
+    steps = rng.integers(-2, 3, (P, N)).astype(np.float32)
+    s = (edge.astype(np.float64)
+         + steps * np.spacing(edge).astype(np.float64))
+    m = np.log(s / (1.0 - s)).astype(np.float32)
+    got = pdm.score_bins(torch.from_numpy(m), 512, from_margin=True).numpy()
+    ref = np.minimum((_sigmoid64(m).astype(np.float32)
+                      * np.float32(512)).astype(np.int32), 511)
+    np.testing.assert_array_equal(got, ref)
+    assert np.abs(got - _jax_buckets(m)).max() <= 1
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

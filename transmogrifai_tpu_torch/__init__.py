@@ -1,12 +1,14 @@
 """transmogrifai_tpu_torch — the PyTorch/CUDA port of transmogrifai_tpu.
 
 This package trains the README quickstart — transmogrify, the sanity
-checker and the default LR + RF + XGB binary sweep — and serves the models
-that it or the JAX package (`transmogrifai_tpu`) trained, on an NVIDIA GPU
-(Hopper). The tree learner's histograms, sibling subtraction, split
-search, routing and leaf sums, the binned AuPR, the binning and the
-ensemble walk are kernels written by hand in CUDA C++ (`csrc/`). It
-imports torch and numpy and nothing of the JAX package.
+checker and the default LR + RF + XGB binary sweep — and the Iris
+(multiclass: LR + RF) and Boston (regression: linear + RF + GBT) examples
+with their default selectors, and serves the models that it or the JAX
+package (`transmogrifai_tpu`) trained, on an NVIDIA GPU (Hopper). The tree
+learner's histograms, sibling subtraction, split search, routing and leaf
+sums, the binned AuPR, the sweep's confusion counts and regression sums,
+the binning and the ensemble walk are kernels written by hand in CUDA C++
+(`csrc/`). It imports torch and numpy and nothing of the JAX package.
 
     from transmogrifai_tpu_torch import (
         BinaryClassificationModelSelector, Dataset, FeatureBuilder,
@@ -30,16 +32,22 @@ from transmogrifai_tpu_torch import dsl  # noqa: F401  (attaches the DSL)
 from transmogrifai_tpu_torch.automl.transmogrify import transmogrify
 from transmogrifai_tpu_torch.data.dataset import Dataset
 from transmogrifai_tpu_torch.features.feature import FeatureBuilder
+from transmogrifai_tpu_torch.models.linear import OpLinearRegression
 from transmogrifai_tpu_torch.models.logistic import OpLogisticRegression
 from transmogrifai_tpu_torch.models.trees import (
-    OpGBTClassifier, OpRandomForestClassifier, OpXGBoostClassifier)
+    OpGBTClassifier, OpGBTRegressor, OpRandomForestClassifier,
+    OpRandomForestRegressor, OpXGBoostClassifier, OpXGBoostRegressor)
 from transmogrifai_tpu_torch.selector.model_selector import (
-    BinaryClassificationModelSelector)
+    BinaryClassificationModelSelector, MultiClassificationModelSelector,
+    RegressionModelSelector)
 from transmogrifai_tpu_torch.workflow.serialization import (
     from_jax_params, load_model)
 from transmogrifai_tpu_torch.workflow.workflow import Workflow, WorkflowModel
 
 __all__ = ["BinaryClassificationModelSelector", "Dataset", "FeatureBuilder",
-           "OpGBTClassifier", "OpLogisticRegression",
-           "OpRandomForestClassifier", "OpXGBoostClassifier", "Workflow",
-           "WorkflowModel", "from_jax_params", "load_model", "transmogrify"]
+           "MultiClassificationModelSelector", "OpGBTClassifier",
+           "OpGBTRegressor", "OpLinearRegression", "OpLogisticRegression",
+           "OpRandomForestClassifier", "OpRandomForestRegressor",
+           "OpXGBoostClassifier", "OpXGBoostRegressor",
+           "RegressionModelSelector", "Workflow", "WorkflowModel",
+           "from_jax_params", "load_model", "transmogrify"]

@@ -3,8 +3,9 @@
 The port's counterpart of the JAX package's `automl/transmogrify.py`:
 group the input features by type, apply each type's default encoder, and
 combine the results into one OPVector with `VectorsCombiner`. The
-encoders of the Real, Integral, Binary and Text groups are ported; a
-feature of any other group raises and names the group.
+encoders of the Real, RealNN, Integral, Binary, pivot (PickList and its
+kin) and Text groups are ported; a feature of any other group raises and
+names the group.
 """
 
 from __future__ import annotations
@@ -13,9 +14,10 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from transmogrifai_tpu_torch import types as T
+from transmogrifai_tpu_torch.ops.categorical import OneHotVectorizer
 from transmogrifai_tpu_torch.ops.combiner import VectorsCombiner
 from transmogrifai_tpu_torch.ops.numeric import (
-    BinaryVectorizer, IntegralVectorizer, RealVectorizer)
+    BinaryVectorizer, IntegralVectorizer, RealNNVectorizer, RealVectorizer)
 from transmogrifai_tpu_torch.ops.text import SmartTextVectorizer
 
 
@@ -36,7 +38,8 @@ class TransmogrifierDefaults:
 _PIVOT_TYPES = (T.PickList, T.ComboBox, T.Country, T.State, T.City,
                 T.PostalCode, T.Street, T.ID)
 _SMART_TEXT_TYPES = (T.TextArea, T.Text)
-_PORTED_GROUPS = ("real", "integral", "binary", "smart_text")
+_PORTED_GROUPS = ("realnn", "real", "integral", "binary", "pivot",
+                  "smart_text")
 
 
 def _group_features(features: Sequence) -> Dict[str, List]:
@@ -96,6 +99,9 @@ def transmogrify(features: Sequence,
                 f"({', '.join(f.name for f in members)}) has no ported "
                 "encoder yet (ROADMAP.md, queue 1, items 3 and 10)")
     vectors = []
+    if "realnn" in groups:
+        vectors.append(RealNNVectorizer().set_input(
+            *groups["realnn"]).get_output())
     if "real" in groups:
         vectors.append(RealVectorizer(
             fill_value=d.fill_numeric, track_nulls=d.track_nulls
@@ -108,6 +114,11 @@ def transmogrify(features: Sequence,
         vectors.append(BinaryVectorizer(
             track_nulls=d.track_nulls).set_input(
                 *groups["binary"]).get_output())
+    if "pivot" in groups:
+        vectors.append(OneHotVectorizer(
+            top_k=d.top_k, min_support=d.min_support,
+            track_nulls=d.track_nulls).set_input(
+                *groups["pivot"]).get_output())
     if "smart_text" in groups:
         vectors.append(SmartTextVectorizer(
             max_cardinality=d.max_cardinality, top_k=d.top_k,

@@ -8,8 +8,11 @@
 // buckets). On the TPU the two weight histograms are one-hot matmuls; here
 // they are shared-memory adds.
 //
-//   s    = sigmoid(m) = 1 / (1 + exp(-m))   (from_margin; the f32 formula
-//          XLA uses) or m (scores), clipped to [0, 1] (NaN -> 0)
+//   s    = sigmoid(m) = 1 / (1 + exp(-m))   (from_margin; computed in f64
+//          and rounded to f32 once, as the plain version's
+//          `bucket_sigmoid`, so that a score near a bucket edge takes the
+//          same bucket on every path) or m (scores), clipped to [0, 1]
+//          (NaN -> 0)
 //   b    = min(int(s * n_bins), n_bins - 1)
 //   hp[b] += w * y,  ha[b] += w              (w: the pair's row weights)
 //   reversed running sums tp, n_at from the top bucket down; with
@@ -51,7 +54,8 @@ __global__ void binned_aupr_kernel(const float* __restrict__ m,
   for (int r = threadIdx.x; r < n; r += THREADS) {
     const float wr = wp[r];
     if (wr == 0.f) continue;
-    float s = from_margin ? 1.f / (1.f + expf(-mp[r])) : mp[r];
+    float s = from_margin ? (float)(1.0 / (1.0 + exp(-(double)mp[r])))
+                          : mp[r];
     s = fminf(fmaxf(s, 0.f), 1.f);  // also NaN -> 0
     const int b = min((int)(s * (float)n_bins), n_bins - 1);
     atomicAdd(&hp[b], wr * y[r]);

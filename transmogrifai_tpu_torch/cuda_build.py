@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXTRA_FLAGS: Dict[str, tuple] = {"split_search": ("--fmad=false",)}
 # every kernel the port builds, in the order `chip_smoke.py` lists them
 SOURCES = ("bin_features", "tree_walk", "histograms", "split_search",
-           "route_leaves", "binned_aupr", "sibling_subtract")
+           "route_leaves", "binned_aupr", "sibling_subtract", "eval_metrics")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -40,7 +40,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 LAUNCHES: Dict[str, int] = {
     "bin_features": 0, "tree_walk": 0, "histograms": 0, "split_search": 0,
     "route_level": 0, "leaf_values": 0, "binned_aupr": 0,
-    "sibling_subtract": 0}
+    "sibling_subtract": 0, "confusion_counts": 0, "regression_moments": 0}
 _launch_lock = threading.Lock()
 # ptxas resource lines (registers, shared memory, spills) per built source
 PTXAS_INFO: Dict[str, str] = {}

@@ -21,4 +21,12 @@ def sanity_check(self: Feature, feature_vector: Feature, **kw) -> Feature:
     return _stage(SanityChecker, self, feature_vector, **kw)
 
 
+def indexed(self: Feature, handle_invalid: str = "error") -> Feature:
+    """text.indexed(): the label's index by descending count
+    (OpStringIndexer)."""
+    from transmogrifai_tpu_torch.ops.indexers import OpStringIndexer
+    return _stage(OpStringIndexer, self, handle_invalid=handle_invalid)
+
+
 Feature.sanity_check = sanity_check
+Feature.indexed = indexed

@@ -7,12 +7,23 @@ values equal the host metrics (`evaluators/metrics.py`) on the unmasked
 rows.
 
 `aupr_dev`, `auroc_dev` and `binary_confusion_dev` are plain torch (sort,
-searchsorted, cumsum). The binned AuPR (`binned_aupr`, used by
-`aupr_binned_dev` and by the boosting rounds' early-stopping metric) has
-two forms: a kernel written by hand in CUDA C++ (`csrc/binned_aupr.cu`,
-K8) and a plain PyTorch version (`binned_aupr_plain`). The wrapper picks by
-the tensor's device: a CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises.
+searchsorted, cumsum). Three device programs have two forms each: a
+kernel written by hand in CUDA C++ and a plain PyTorch version (`*_plain`):
+
+- the binned AuPR (`binned_aupr`, K8; `csrc/binned_aupr.cu`), used by
+  `aupr_binned_dev` and by the boosting rounds' early-stopping metric;
+- the masked confusion counts of P (config, fold) pairs
+  (`confusion_counts`, K8-mc; `csrc/eval_metrics.cu`), under
+  `multiclass_dev`;
+- the masked regression sums of P pairs (`regression_moments`, K8-reg;
+  `csrc/eval_metrics.cu`), under `regression_dev`.
+
+The wrappers pick by the tensor's device: a CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.
+
+`make_device_metric` gives the sweep one metric call per group of pairs:
+metric_fn(y, preds, masks) → (P,) values, one launch of K8-mc or K8-reg
+for all P pairs of a multiclass or regression group.
 """
 
 from __future__ import annotations
@@ -107,11 +118,23 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + torch.exp(-x))
 
 
+def bucket_sigmoid(m: torch.Tensor) -> torch.Tensor:
+    """The f32 score of a margin for bucketing: 1 / (1 + exp(−m)) in f64,
+    rounded to f32 once. An f32 exp differs by an ulp or two between
+    libraries and between the vector and scalar paths of one library, so
+    a score within an ulp of a bucket edge could land on either side from
+    one process to the next; the f64 formula rounds to the nearest f32
+    score everywhere but within 2^-29 of an f32 rounding boundary. The
+    K8 kernel computes the same."""
+    return (1.0 / (1.0 + torch.exp(-m.to(torch.float64)))).to(torch.float32)
+
+
 def score_bins(m: torch.Tensor, n_bins: int,
                from_margin: bool) -> torch.Tensor:
     """The bucket of each score: min(int(s · n_bins), n_bins − 1) with s =
-    sigmoid(m) (margins) or m (scores), clipped to [0, 1] (NaN → 0)."""
-    s = sigmoid(m) if from_margin else m
+    `bucket_sigmoid(m)` (margins) or m (scores), clipped to [0, 1]
+    (NaN → 0)."""
+    s = bucket_sigmoid(m) if from_margin else m
     s = torch.clamp(torch.nan_to_num(s, nan=0.0), 0.0, 1.0)
     return torch.clamp((s * n_bins).to(torch.int32), max=n_bins - 1)
 
@@ -206,6 +229,199 @@ def aupr_binned_dev(y: torch.Tensor, scores: torch.Tensor,
                        from_margin=False)[0]
 
 
+# --------------------------------------------------------------------------- #
+# K8-mc: masked confusion counts, K8-reg: masked regression sums             #
+# --------------------------------------------------------------------------- #
+
+_EVAL_MAX_K = 32  # k·k counters of a pair within one block's threads
+
+
+def _eval_shapes(name, y, pred, mask):
+    if pred.dim() != 2 or mask.shape != pred.shape \
+            or y.shape != pred.shape[1:]:
+        raise ValueError(
+            f"{name}: predictions {tuple(pred.shape)} and masks "
+            f"{tuple(mask.shape)} must be (P, n), labels {tuple(y.shape)} "
+            "(n,)")
+
+
+def confusion_counts_plain(y: torch.Tensor, pred: torch.Tensor,
+                           mask: torch.Tensor, k: int) -> torch.Tensor:
+    """(P, k, k) f32: conf[p, y, pred[p]] summed over the rows' mask[p]
+    weights, labels and predictions clipped to [0, k − 1]; one `bincount`
+    over pair-offset cells, summed in f64 and rounded once."""
+    _eval_shapes("confusion_counts", y, pred, mask)
+    P, n = pred.shape
+    yi = torch.clamp(y.long(), 0, k - 1)
+    pi = torch.clamp(pred.long(), 0, k - 1)
+    cell = (torch.arange(P, device=pred.device)[:, None] * (k * k)
+            + yi[None, :] * k + pi)
+    conf = torch.bincount(cell.reshape(-1),
+                          weights=mask.reshape(-1).to(torch.float64),
+                          minlength=P * k * k)
+    return conf.to(torch.float32).reshape(P, k, k)
+
+
+def _confusion_counts_cuda(y, pred, mask, k):
+    _eval_shapes("confusion_counts", y, pred, mask)
+    for name, t in (("labels", y), ("masks", mask)):
+        if t.device != pred.device:
+            raise ValueError(f"confusion_counts: predictions on "
+                             f"{pred.device}, {name} on {t.device}")
+    if y.dtype != torch.int32 or pred.dtype != torch.int32 \
+            or mask.dtype != torch.float32:
+        raise ValueError("confusion_counts: labels and predictions must be "
+                         "int32, masks f32")
+    if not 1 <= k <= _EVAL_MAX_K:
+        raise ValueError(f"confusion_counts: {k} classes outside [1, "
+                         f"{_EVAL_MAX_K}]")
+    P, n = pred.shape
+    out = torch.zeros((P, k, k), dtype=torch.float32, device=pred.device)
+    if P == 0:
+        return out
+    y, pred, mask = y.contiguous(), pred.contiguous(), mask.contiguous()
+    lib = cuda_build.load("eval_metrics")
+    fn = cuda_build.declare(lib, "confusion_counts",
+                            (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
+                            + (ctypes.c_void_p,) * 2)
+    with torch.cuda.device(pred.device):
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(pred.device).cuda_stream)
+        err = fn(y.data_ptr(), pred.data_ptr(), mask.data_ptr(), P, n, k,
+                 out.data_ptr(), stream)
+    cuda_build.check("confusion_counts", err)
+    cuda_build.count("confusion_counts")
+    return out
+
+
+def confusion_counts(y: torch.Tensor, pred: torch.Tensor,
+                     mask: torch.Tensor, k: int) -> torch.Tensor:
+    """(P, k, k) f32 masked confusion counts of P prediction rows pred
+    (P, n) int32 against labels y (n,) int32, with row weights mask (P, n)
+    f32, labels and predictions clipped to [0, k − 1] (k ≤ 32). A CUDA
+    tensor launches the K8-mc kernel (or raises); a CPU tensor takes the
+    plain version."""
+    if pred.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"confusion_counts: unsupported device "
+                         f"{pred.device}")
+    if pred.is_cuda:
+        return _confusion_counts_cuda(y, pred, mask, k)
+    return confusion_counts_plain(y, pred, mask, k)
+
+
+def regression_moments_plain(pred: torch.Tensor, y: torch.Tensor,
+                             mask: torch.Tensor) -> torch.Tensor:
+    """(P, 5) f32 per pair: [Σw, Σe², Σ|e|, Σy·w, Σt²·w] with e = (pred −
+    y)·w and t = y − ȳ, ȳ = f32(Σy·w) / max(f32(Σw), 1): the elementwise
+    terms in f32 as the JAX formula rounds them, each sum in f64 rounded
+    once."""
+    _eval_shapes("regression_moments", y, pred, mask)
+    e = (pred - y) * mask
+
+    def total(v):
+        return v.to(torch.float64).sum(1).to(torch.float32)
+
+    sw, syw = total(mask), total(y * mask)
+    ybar = syw / torch.clamp(sw, min=1.0)
+    t = y[None, :] - ybar[:, None]
+    return torch.stack([sw, total(e * e), total(torch.abs(e)), syw,
+                        total((t * t) * mask)], dim=1)
+
+
+def _regression_moments_cuda(pred, y, mask):
+    _eval_shapes("regression_moments", y, pred, mask)
+    for name, t in (("labels", y), ("masks", mask)):
+        if t.device != pred.device:
+            raise ValueError(f"regression_moments: predictions on "
+                             f"{pred.device}, {name} on {t.device}")
+    if not all(t.dtype == torch.float32 for t in (pred, y, mask)):
+        raise ValueError("regression_moments: predictions, labels and "
+                         "masks must be f32")
+    P, n = pred.shape
+    out = torch.zeros((P, 5), dtype=torch.float32, device=pred.device)
+    if P == 0:
+        return out
+    pred, y, mask = pred.contiguous(), y.contiguous(), mask.contiguous()
+    lib = cuda_build.load("eval_metrics")
+    fn = cuda_build.declare(lib, "regression_moments",
+                            (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
+                            + (ctypes.c_void_p,) * 2)
+    with torch.cuda.device(pred.device):
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(pred.device).cuda_stream)
+        err = fn(pred.data_ptr(), y.data_ptr(), mask.data_ptr(), P, n,
+                 out.data_ptr(), stream)
+    cuda_build.check("regression_moments", err)
+    cuda_build.count("regression_moments")
+    return out
+
+
+def regression_moments(pred: torch.Tensor, y: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """(P, 5) f32 masked sums of P prediction rows pred (P, n) against
+    labels y (n,) with row weights mask (P, n), all f32 (see
+    `regression_moments_plain`). A CUDA tensor launches the K8-reg kernel
+    (or raises); a CPU tensor takes the plain version."""
+    if pred.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"regression_moments: unsupported device "
+                         f"{pred.device}")
+    if pred.is_cuda:
+        return _regression_moments_cuda(pred, y, mask)
+    return regression_moments_plain(pred, y, mask)
+
+
+def _as_pairs(v: torch.Tensor) -> torch.Tensor:
+    return v[None, :] if v.dim() == 1 else v
+
+
+def multiclass_dev(y: torch.Tensor, pred: torch.Tensor, mask: torch.Tensor,
+                   n_classes: int) -> Dict[str, torch.Tensor]:
+    """Weighted-average Precision/Recall/F1 and Error of P pairs' class
+    predictions pred (P, n) (or (n,)) over the masked confusion counts
+    (K8-mc): (P,) values each ((), for one row of predictions).
+    `n_classes` is an upper bound: an empty class has no support weight."""
+    one = pred.dim() == 1
+    pred, mask = _as_pairs(pred), _as_pairs(mask)
+    conf = confusion_counts(y.to(torch.int32), pred.to(torch.int32),
+                            mask.to(torch.float32), n_classes)
+    tp = torch.diagonal(conf, dim1=1, dim2=2)
+    support = conf.sum(2)
+    pred_count = conf.sum(1)
+    zero = torch.zeros_like(tp)
+    prec_c = torch.where(pred_count > 0,
+                         tp / torch.clamp(pred_count, min=1e-30), zero)
+    rec_c = torch.where(support > 0, tp / torch.clamp(support, min=1e-30),
+                        zero)
+    f1_c = torch.where(prec_c + rec_c > 0,
+                       2 * prec_c * rec_c
+                       / torch.clamp(prec_c + rec_c, min=1e-30), zero)
+    w = support / torch.clamp(support.sum(1, keepdim=True), min=1.0)
+    err = 1.0 - tp.sum(1) / torch.clamp(mask.sum(1), min=1.0)
+    out = {"Precision": (prec_c * w).sum(1), "Recall": (rec_c * w).sum(1),
+           "F1": (f1_c * w).sum(1), "Error": err}
+    return {k: v[0] for k, v in out.items()} if one else out
+
+
+def regression_dev(y: torch.Tensor, pred: torch.Tensor,
+                   mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Weighted RMSE/MSE/MAE/R2 of P pairs' predictions pred (P, n) (or
+    (n,)) from the masked sums (K8-reg): (P,) values each ((), for one row
+    of predictions)."""
+    one = pred.dim() == 1
+    pred, mask = _as_pairs(pred), _as_pairs(mask)
+    mom = regression_moments(pred.to(torch.float32), y.to(torch.float32),
+                             mask.to(torch.float32))
+    n = torch.clamp(mom[:, 0], min=1.0)
+    mse = mom[:, 1] / n
+    ss_tot = mom[:, 4]
+    r2 = torch.where(ss_tot > 0,
+                     1.0 - mom[:, 1] / torch.clamp(ss_tot, min=1e-30),
+                     torch.zeros_like(ss_tot))
+    out = {"RMSE": torch.sqrt(mse), "MSE": mse, "MAE": mom[:, 2] / n,
+           "R2": r2}
+    return {k: v[0] for k, v in out.items()} if one else out
+
+
 def _binary_scores(pred: Dict[str, torch.Tensor]) -> torch.Tensor:
     prob = pred.get("probability")
     if prob is not None and prob.dim() == 2 and prob.shape[1] >= 2:
@@ -214,23 +430,43 @@ def _binary_scores(pred: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def make_device_metric(evaluator, n_classes=None):
-    """metric_fn(y, pred_dict, val_mask) -> scalar for the sweep, for a
-    binary evaluator; other evaluators are not ported yet."""
+    """metric_fn(y, preds, masks) -> (P,) values for the sweep: `preds` is
+    one prediction dict per pair and `masks` (P, n) the pairs' validation
+    rows. A multiclass or regression group takes one launch of K8-mc or
+    K8-reg for all its pairs; the binary metrics sort per pair."""
     from transmogrifai_tpu_torch.evaluators.evaluators import (
-        BinaryClassificationEvaluator)
+        BinaryClassificationEvaluator, MultiClassificationEvaluator,
+        RegressionEvaluator)
 
-    if not isinstance(evaluator, BinaryClassificationEvaluator):
-        raise NotImplementedError(
-            f"{type(evaluator).__name__}: only the binary evaluator is "
-            "ported (ROADMAP.md, queue 1, item 6)")
     metric = evaluator.default_metric
-    threshold = evaluator.threshold
+    if isinstance(evaluator, BinaryClassificationEvaluator):
+        threshold = evaluator.threshold
 
-    def fn(y, pred, mask):
-        s = _binary_scores(pred)
-        if metric == "AuPR":
-            return aupr_dev(y, s, mask)
-        if metric == "AuROC":
-            return auroc_dev(y, s, mask)
-        return binary_confusion_dev(y, s, mask, threshold)[metric]
-    return fn
+        def one(y, pred, mask):
+            s = _binary_scores(pred)
+            if metric == "AuPR":
+                return aupr_dev(y, s, mask)
+            if metric == "AuROC":
+                return auroc_dev(y, s, mask)
+            return binary_confusion_dev(y, s, mask, threshold)[metric]
+
+        def fn(y, preds, masks):
+            return torch.stack([one(y, p, m) for p, m in zip(preds, masks)])
+        return fn
+    if isinstance(evaluator, MultiClassificationEvaluator):
+        if n_classes is None:
+            raise ValueError("make_device_metric: the multiclass metric "
+                             "needs n_classes")
+
+        def fn(y, preds, masks):
+            pred = torch.stack([p["prediction"] for p in preds])
+            return multiclass_dev(y, pred, masks, n_classes)[metric]
+        return fn
+    if isinstance(evaluator, RegressionEvaluator):
+        def fn(y, preds, masks):
+            pred = torch.stack([p["prediction"] for p in preds])
+            return regression_dev(y, pred, masks)[metric]
+        return fn
+    raise NotImplementedError(
+        f"{type(evaluator).__name__}: only the binary, multiclass and "
+        "regression evaluators are ported")

@@ -2,14 +2,16 @@
 
 The port's counterpart of the JAX package's `features/feature.py`: a
 Feature is a typed handle on a column that exists once a workflow
-materializes its DAG. `FeatureBuilder.from_dataset` builds the raw
-features of a dataset's schema; DSL methods such as `sanity_check` are
+materializes its DAG. `FeatureBuilder.Real("x").from_column("x")
+.as_predictor()` (and likewise for every feature type) builds one raw
+feature, `FeatureBuilder.from_dataset` those of a dataset's schema; DSL
+methods such as `sanity_check` are
 attached by `transmogrifai_tpu_torch.dsl`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from transmogrifai_tpu_torch import types as T
 from transmogrifai_tpu_torch.utils.uid import UID
@@ -76,8 +78,55 @@ class Feature:
         return hash(self.uid)
 
 
-class FeatureBuilder:
-    """Raw feature factories from a dataset's schema
+class _TypedBuilder:
+    """`FeatureBuilder.Real("age")`-style factory (FeatureBuilder.scala):
+    a named dataset column or a per-record extract function, as a
+    predictor or the response."""
+
+    def __init__(self, name: str, ftype: type):
+        self.name = name
+        self.ftype = ftype
+        self._extract: Optional[Callable[[Dict[str, Any]], Any]] = None
+        self._column: Optional[str] = None
+
+    def extract(self, fn: Callable[[Dict[str, Any]], Any]
+                ) -> "_TypedBuilder":
+        self._extract = fn
+        return self
+
+    def from_column(self, column: str) -> "_TypedBuilder":
+        self._column = column
+        return self
+
+    def _build(self, is_response: bool) -> Feature:
+        from transmogrifai_tpu_torch.stages.base import FeatureGeneratorStage
+        return FeatureGeneratorStage(
+            name=self.name, ftype=self.ftype, extract=self._extract,
+            column=self._column, is_response=is_response).get_output()
+
+    def as_predictor(self) -> Feature:
+        return self._build(is_response=False)
+
+    def as_response(self) -> Feature:
+        return self._build(is_response=True)
+
+
+class _FeatureBuilderMeta(type):
+    def __getattr__(cls, type_name: str):
+        try:
+            ftype = T.feature_type_by_name(type_name)
+        except T.FeatureTypeError:
+            raise AttributeError(type_name) from None
+
+        def make(name: str) -> _TypedBuilder:
+            return _TypedBuilder(name, ftype)
+
+        return make
+
+
+class FeatureBuilder(metaclass=_FeatureBuilderMeta):
+    """Raw feature factories: `FeatureBuilder.Real("age").from_column(
+    "age").as_predictor()`, or from a dataset's schema
     (`FeatureBuilder.from_dataset`, FeatureBuilder.scala `fromDataFrame`)."""
 
     @staticmethod

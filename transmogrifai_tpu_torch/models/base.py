@@ -58,6 +58,13 @@ class PredictorEstimator(Estimator):
         return self.fit_arrays(X, y, torch.ones_like(y), ctx)
 
 
+def regression_pred(pred: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The Prediction dict of regression values (n,): the values as the
+    prediction and the one-column rawPrediction, no probability column."""
+    return {"prediction": pred, "rawPrediction": pred[:, None],
+            "probability": pred.new_zeros((pred.shape[0], 0))}
+
+
 def infer_n_classes(y: np.ndarray) -> int:
     """Label cardinality for classification (labels must be 0..k-1)."""
     k = int(np.asarray(y).max(initial=0)) + 1

@@ -43,7 +43,8 @@ from transmogrifai_tpu_torch import cuda_build
 from transmogrifai_tpu_torch.evaluators.device_metrics import (
     binned_aupr, sigmoid)
 from transmogrifai_tpu_torch.models.base import (
-    Param, PredictionModel, PredictorEstimator, infer_n_classes, per_pair)
+    Param, PredictionModel, PredictorEstimator, infer_n_classes, per_pair,
+    regression_pred)
 
 log = logging.getLogger(__name__)
 
@@ -968,13 +969,17 @@ def fit_forest(Xb: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 def gbt_val_loss(margin: torch.Tensor, y: torch.Tensor, val_w: torch.Tensor,
-                 eval_metric: str = "logloss") -> torch.Tensor:
-    """(P,) per-round early-stopping metric of binary margins on the
-    held-out rows, MINIMIZED: the negated binned AuPR over 512 sigmoid
-    buckets (K8) for "aupr", else the weighted logloss."""
+                 eval_metric: str = "logloss",
+                 objective: str = "logistic") -> torch.Tensor:
+    """(P,) per-round early-stopping metric of margins on the held-out
+    rows, MINIMIZED: for binary margins the negated binned AuPR over 512
+    sigmoid buckets (K8) with "aupr", else the weighted logloss; for the
+    squared objective the weighted MSE."""
+    vs = torch.clamp(val_w.sum(1), min=1.0)
+    if objective != "logistic":
+        return (((margin - y) ** 2) * val_w).sum(1) / vs
     if eval_metric == "aupr":
         return -binned_aupr(margin, y, val_w, 512, from_margin=True)
-    vs = torch.clamp(val_w.sum(1), min=1.0)
     ll = torch.nn.functional.softplus(margin) - y * margin
     return (ll * val_w).sum(1) / vs
 
@@ -988,17 +993,20 @@ def fit_gbt_pairs(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                   colsample: Param = 1.0, seed: int = 0,
                   val_w: Optional[torch.Tensor] = None,
                   early_stopping_rounds: int = 0, min_gain_norm: Param = 0.0,
-                  eval_metric: str = "logloss", keep_trees: bool = False):
-    """Boost P binary GBT fits at once over one binned matrix Xb
-    (n, d): labels y (n,), row weights w (P, n) and, for early stopping,
-    held-out weights val_w (P, n). Every hyperparameter is one value or
-    one per pair. Returns (trees, margin (P, n), since (P,)); `trees` is
-    {"feat", "bin": (P, rounds, depth, 2^depth) int32, "leaf": (P, rounds,
-    2^depth, 1) f32} with `keep_trees`, else None.
+                  eval_metric: str = "logloss", keep_trees: bool = False,
+                  objective: str = "logistic"):
+    """Boost P binary or regression GBT fits at once over one binned
+    matrix Xb (n, d): labels y (n,), row weights w (P, n) and, for early
+    stopping, held-out weights val_w (P, n). Every hyperparameter is one
+    value or one per pair. Returns (trees, margin (P, n), since (P,));
+    `trees` is {"feat", "bin": (P, rounds, depth, 2^depth) int32, "leaf":
+    (P, rounds, 2^depth, 1) f32} with `keep_trees`, else None.
 
-    The JAX package's `_gbt_scan`: per round, gradients g = (p − y)·w and
-    hessians max(p(1 − p), 1e-6)·w of the sigmoid margin, one tree per
-    pair on (−g, h), margin += lr · leaf[node]. With early stopping, a
+    The JAX package's `_gbt_scan` from a zero margin: per round, for the
+    "logistic" objective gradients g = (p − y)·w and hessians
+    max(p(1 − p), 1e-6)·w of the sigmoid margin, for "squared" g =
+    (margin − y)·w and h = w; one tree per pair on (−g, h), margin += lr ·
+    leaf[node]. With early stopping, a
     round that starts with since >= early_stopping_rounds grows a zeroed
     tree (the margin freezes), and the loop ends once every pair has
     stopped: the rounds left would add only zeroed trees.
@@ -1027,10 +1035,16 @@ def fit_gbt_pairs(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     best = torch.full((P,), float("inf"), dtype=torch.float32, device=dev)
     since = torch.zeros((P,), dtype=torch.int32, device=dev)
     kept: List[Dict[str, torch.Tensor]] = []
+    if objective not in ("logistic", "squared"):
+        raise ValueError(f"fit_gbt_pairs: unknown objective {objective!r}")
     for _ in range(n_rounds):
-        p = sigmoid(margin)
-        G = -((p - y) * w)
-        H = torch.clamp(p * (1 - p), min=1e-6) * w
+        if objective == "logistic":
+            p = sigmoid(margin)
+            G = -((p - y) * w)
+            H = torch.clamp(p * (1 - p), min=1e-6) * w
+        else:
+            G = -((margin - y) * w)
+            H = w
         fmask = None
         if gen is not None:
             rows = (torch.rand((P, n), generator=gen, device=dev)
@@ -1051,7 +1065,7 @@ def fit_gbt_pairs(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         if keep_trees:
             kept.append(tree)
         if esr > 0:
-            m = gbt_val_loss(margin, y, val_w, eval_metric)
+            m = gbt_val_loss(margin, y, val_w, eval_metric, objective)
             improved = m < best - 1e-7
             since = torch.where(since >= esr, since,
                                 torch.where(improved,
@@ -1115,8 +1129,7 @@ def gbt_pred_from_margin(margin: torch.Tensor,
         return {"prediction": (margin > 0).to(torch.float32),
                 "rawPrediction": torch.stack([-margin, margin], 1),
                 "probability": torch.stack([1 - p1, p1], dim=1)}
-    return {"prediction": margin, "rawPrediction": margin[:, None],
-            "probability": margin.new_zeros((margin.shape[0], 0))}
+    return regression_pred(margin)
 
 
 def forest_classification_pred(trees: Dict[str, torch.Tensor],
@@ -1125,6 +1138,11 @@ def forest_classification_pred(trees: Dict[str, torch.Tensor],
     probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
     return {"prediction": torch.argmax(probs, -1).to(torch.float32),
             "rawPrediction": probs, "probability": probs}
+
+
+def forest_regression_pred(trees: Dict[str, torch.Tensor],
+                           Xb: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return regression_pred(predict_forest(trees, Xb)[:, 0])
 
 
 # --------------------------------------------------------------------------- #
@@ -1185,6 +1203,11 @@ class ForestClassificationModel(_TreeModelBase):
         return forest_classification_pred(trees, Xb)
 
 
+class ForestRegressionModel(_TreeModelBase):
+    def _apply_tables(self, trees, Xb):
+        return forest_regression_pred(trees, Xb)
+
+
 class GBTClassificationModel(_TreeModelBase):
     def __init__(self, edges=None, trees=None, learning_rate: float = 0.1,
                  uid: Optional[str] = None):
@@ -1196,9 +1219,15 @@ class GBTClassificationModel(_TreeModelBase):
         params["learning_rate"] = self.learning_rate
         return params
 
+    _objective = "logistic"
+
     def _apply_tables(self, trees, Xb):
         margin = predict_gbt_margin(trees, Xb, self.learning_rate)
-        return gbt_pred_from_margin(margin, "logistic")
+        return gbt_pred_from_margin(margin, self._objective)
+
+
+class GBTRegressionModel(GBTClassificationModel):
+    _objective = "squared"
 
 
 # --------------------------------------------------------------------------- #
@@ -1217,8 +1246,8 @@ class OpRandomForestClassifier(_TreeEstimatorBase):
     """Spark RandomForestClassifier parameter surface (the JAX package's
     `OpRandomForestClassifier`): `min_info_gain` is the normalized gain
     threshold and `min_instances_per_node` the child-weight bound, grid
-    axes of the default sweep. Binary labels; multiclass forests and warm
-    starts are not ported yet."""
+    axes of the default sweep. k classes grow trees on k class channels;
+    warm starts are not ported yet."""
 
     def __init__(self, n_trees: int = 20, max_depth: int = 5,
                  max_bins: int = DEFAULT_MAX_BINS,
@@ -1247,21 +1276,29 @@ class OpRandomForestClassifier(_TreeEstimatorBase):
 
     def fit_arrays(self, X, y, w, ctx):
         k = self.n_classes or infer_n_classes(y.cpu().numpy())
-        if k > 2:
-            raise NotImplementedError(
-                "multiclass forests are not ported yet (ROADMAP.md, queue "
-                "1, item 9)")
+        Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
+        return ForestClassificationModel(*self._fit_forest(X, Y, w, ctx))
+
+    def _fit_forest(self, X, Y, w, ctx):
         if self.init_params is not None:
             raise NotImplementedError(
                 "forest warm starts are not ported yet (ROADMAP.md, queue 1)")
         edges, Xb = self._edges_binned(X, ctx)
-        Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
         trees = fit_forest(Xb, Y, w, self.n_trees, self.max_depth,
                            self.max_bins, ctx.seed if ctx is not None else 0,
                            self.subsample_features, self._effective_mcw(),
                            min_gain=self.min_info_gain)
-        return ForestClassificationModel(
-            edges, {k2: v[0].cpu().numpy() for k2, v in trees.items()})
+        return edges, {k2: v[0].cpu().numpy() for k2, v in trees.items()}
+
+
+class OpRandomForestRegressor(OpRandomForestClassifier):
+    """Random forest regression (the JAX package's
+    `OpRandomForestRegressor`): the label as the one value channel, so each
+    leaf is the bootstrap-weighted mean label of its rows."""
+
+    def fit_arrays(self, X, y, w, ctx):
+        return ForestRegressionModel(*self._fit_forest(X, y[:, None], w,
+                                                       ctx))
 
 
 class OpGBTClassifier(_TreeEstimatorBase):
@@ -1271,6 +1308,8 @@ class OpGBTClassifier(_TreeEstimatorBase):
 
     # the refit's early-stopping holdout: a seeded 20% of the rows
     _ES_EVAL_FRACTION = 0.2
+    _objective = "logistic"
+    _model_cls = GBTClassificationModel
 
     def __init__(self, n_estimators: int = 20, max_depth: int = 3,
                  learning_rate: float = 0.1, reg_lambda: float = 1.0,
@@ -1321,11 +1360,13 @@ class OpGBTClassifier(_TreeEstimatorBase):
             colsample=self.colsample_bytree, seed=seed,
             val_w=None if val_w is None else val_w[None, :],
             early_stopping_rounds=esr, min_gain_norm=self.min_info_gain,
-            eval_metric=eval_metric, keep_trees=True)
+            eval_metric=eval_metric, keep_trees=True,
+            objective=self._objective)
         return {k: v[0] for k, v in trees.items()}
 
     def fit_arrays(self, X, y, w, ctx):
-        k = self.n_classes or infer_n_classes(y.cpu().numpy())
+        k = (self.n_classes or infer_n_classes(y.cpu().numpy())
+             if self._objective == "logistic" else 2)
         if k > 2:
             raise NotImplementedError(
                 "multiclass GBT boosting is not ported yet (ROADMAP.md, "
@@ -1362,7 +1403,7 @@ class OpGBTClassifier(_TreeEstimatorBase):
         # pass 2 (or the only pass): the shipped model, all rows
         trees = self._fit(Xb, y, w, n_rounds, seed)
         rounds["shipped"] = n_rounds
-        model = GBTClassificationModel(
+        model = self._model_cls(
             edges, {k2: v.cpu().numpy() for k2, v in trees.items()},
             self.learning_rate)
         model.refit_rounds = rounds
@@ -1396,3 +1437,19 @@ class OpXGBoostClassifier(OpGBTClassifier):
                          uid=uid)
         self.params["eta"] = eta
         self.params.pop("learning_rate", None)
+
+
+class OpGBTRegressor(OpGBTClassifier):
+    """Spark-style GBT regression: the squared objective from a zero
+    margin (the JAX package's `OpGBTRegressor`)."""
+
+    _objective = "squared"
+    _model_cls = GBTRegressionModel
+
+
+class OpXGBoostRegressor(OpXGBoostClassifier):
+    """The XGBoost parameter surface with the squared objective (the JAX
+    package's `OpXGBoostRegressor`)."""
+
+    _objective = "squared"
+    _model_cls = GBTRegressionModel

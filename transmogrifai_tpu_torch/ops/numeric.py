@@ -2,10 +2,11 @@
 
 The port's counterpart of the JAX package's `ops/numeric.py`: Real
 (mean fill), Integral (mode fill) and Binary (constant fill) vectorizer
-estimators and their fitted models. Each input contributes `[filled value, null
-indicator]` columns, computed as `v·m + fill·(1 − m)` and `1 − m` in f32
-from the scalar column's value/mask pair — the same arithmetic on the
-same f32 values, so the outputs agree with the JAX package exactly.
+estimators and their fitted models, and the stateless RealNN stack. Each
+input of a vectorizer contributes `[filled value, null indicator]`
+columns, computed as `v·m + fill·(1 − m)` and `1 − m` in f32 from the
+scalar column's value/mask pair — the same arithmetic on the same f32
+values, so the outputs agree with the JAX package exactly.
 """
 
 from __future__ import annotations
@@ -159,3 +160,21 @@ class BinaryVectorizer(Estimator):
                   ctx: FitContext) -> Transformer:
         fills = np.full(len(cols), 1.0 if self.fill_value else 0.0)
         return BinaryVectorizerModel(fills, self.track_nulls)
+
+
+class RealNNVectorizer(Transformer):
+    """N RealNN features → their values stacked (RealNNVectorizer.scala):
+    stateless, no nulls possible."""
+
+    in_types = (T.RealNN, Ellipsis)
+    out_type = T.OPVector
+
+    def device_apply(self, enc, dev):
+        return torch.stack([d["value"] for d in dev], dim=1)
+
+    def output_meta(self) -> VectorMetadata:
+        cols = tuple(
+            VectorColumnMetadata(parent_name=f.name,
+                                 parent_type=f.ftype.__name__)
+            for f in self.input_features)
+        return VectorMetadata(self.output_name(), cols).with_indices()

@@ -3,19 +3,22 @@ fold) pair of one model family.
 
 The port's counterpart of the JAX package's `parallel/sweep.py`
 (`run_sweep` → `_run_sweep`, the single-device `_sweep_blocks` scaffold
-and the logistic, forest and GBT handlers). A fold is a pair of 0/1 row
-masks over the one training matrix. Configs group by their static
+and the logistic, linear-regression, forest and GBT handlers, for binary,
+multiclass and regression labels). A fold is a pair of 0/1 row masks over
+the one training matrix. Configs group by their static
 parameters (`static_of`: the shapes a fit compiles to in the JAX
 package); the (config, fold) pairs of a group fit together along the
 leading pair axis of the family's batched fit, so each kernel launch
 serves every pair. Tree families bin the training matrix once per
 `max_bins` (K4), shared across families through the fit context, and pad
 each config's depth to its bucket (`_depth_bucket`), stopping its own
-trees at its own depth.
+trees at its own depth. Each run of pairs is scored by one call of the
+device metric over all its pairs (one launch of K8-mc or K8-reg for a
+multiclass or regression group).
 
 Not ported (ROADMAP.md): the journal and checkpoints, the calibration of
-dispatch widths, the mesh, the host-metric fallback and the other
-families' handlers.
+dispatch widths, the mesh, the host-metric fallback, multiclass boosting
+and the other families' handlers.
 """
 
 from __future__ import annotations
@@ -28,14 +31,17 @@ import torch
 
 from transmogrifai_tpu_torch.evaluators.device_metrics import (
     make_device_metric)
-from transmogrifai_tpu_torch.models.base import infer_n_classes
+from transmogrifai_tpu_torch.models.base import (
+    infer_n_classes, regression_pred)
+from transmogrifai_tpu_torch.models.linear import (
+    OpLinearRegression, fit_linreg, fit_linreg_enet)
 from transmogrifai_tpu_torch.models.logistic import (
     OpLogisticRegression, enet_iters, fit_logreg_enet,
     logreg_pred_from_logits)
 from transmogrifai_tpu_torch.models.trees import (
-    OpGBTClassifier, OpRandomForestClassifier, bin_features, fit_forest,
-    fit_gbt_pairs, forest_classification_pred, gbt_pred_from_margin,
-    quantile_bin_edges)
+    OpGBTClassifier, OpRandomForestClassifier, OpRandomForestRegressor,
+    bin_features, fit_forest, fit_gbt_pairs, forest_classification_pred,
+    forest_regression_pred, gbt_pred_from_margin, quantile_bin_edges)
 
 Pred = Dict[str, torch.Tensor]
 
@@ -75,7 +81,8 @@ def _sweep_blocks(grids: List[Dict], y: torch.Tensor, W: torch.Tensor,
     `fit_predict(static, idxs, dyn, W_pairs, V_pairs)`, where `dyn` holds
     one list per dynamic parameter (one entry per pair) and the result is
     one prediction dict per pair, and score each pair's prediction on its
-    fold's validation rows. Groups run in the order their first config
+    fold's validation rows, all pairs of the run in one `metric_fn(y,
+    preds, masks)` call. Groups run in the order their first config
     appears; each group's seconds land in `ctx._sweep_seconds`."""
     n_folds = W.shape[0]
     groups: Dict[Tuple, List[int]] = {}
@@ -95,8 +102,9 @@ def _sweep_blocks(grids: List[Dict], y: torch.Tensor, W: torch.Tensor,
             fs = torch.as_tensor([f for _, f in chunk], device=W.device)
             Vsel = V[fs]
             preds = fit_predict(static, idxs, cols, W[fs], Vsel)
+            vals = metric_fn(y, preds, Vsel).tolist()
             for t, (i, f) in enumerate(chunk):
-                metrics[i][f] = float(metric_fn(y, preds[t], Vsel[t]))
+                metrics[i][f] = float(vals[t])
         if y.is_cuda:
             torch.cuda.synchronize(y.device)
         if seconds is not None:
@@ -142,6 +150,10 @@ def _static_logistic(est, g) -> Tuple:
     return (int(_grid_param(est, g, "max_iter")), _enet_of(est, g) > 0.0)
 
 
+def _static_linreg(est, g) -> Tuple:
+    return (_enet_of(est, g) > 0.0,)
+
+
 def _static_forest(est, g) -> Tuple:
     return (int(_grid_param(est, g, "n_trees")),
             int(_grid_param(est, g, "max_bins")),
@@ -174,9 +186,32 @@ def _sweep_logistic(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
                          fit_predict=fit_predict)
 
 
-def _sweep_forest(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+def _sweep_linreg(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+    def fit_predict(static, idxs, dyn, Wp, Vp):
+        if static[0]:  # any L1 in the group: the FISTA elastic net
+            params = fit_linreg_enet(X, y, Wp, dyn["l1"], dyn["l2"])
+        else:
+            params = fit_linreg(X, y, Wp, dyn["l2"])
+        pred = torch.matmul(params["beta"], X.T) \
+            + params["intercept"][:, None]
+        return [regression_pred(p) for p in pred]
+
+    return _sweep_blocks(grids, y, W, V, metric_fn, ctx, "linreg",
+                         static_of=lambda g: _static_linreg(est, g),
+                         dyn_of=lambda g: _l1_l2_of(est, g),
+                         fit_predict=fit_predict)
+
+
+def _sweep_forest(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
+                  regression: bool = False):
     xb_by_bins = _binned_cache(est, grids, X, ctx)
-    Y = torch.nn.functional.one_hot(y.long(), n_classes).to(torch.float32)
+    if regression:
+        Y = y[:, None]
+        pred_fn = forest_regression_pred
+    else:
+        Y = torch.nn.functional.one_hot(y.long(), n_classes).to(
+            torch.float32)
+        pred_fn = forest_classification_pred
     seed = ctx.seed if ctx is not None else 0
 
     def dyn_of(g) -> Dict[str, Any]:
@@ -193,8 +228,7 @@ def _sweep_forest(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
                            max_bins, seed, subsample, dyn["mcw"],
                            active_depth=dyn["depth"],
                            min_gain=dyn["min_gain"])
-        return [forest_classification_pred({k: v[q] for k, v in
-                                            trees.items()}, Xb)
+        return [pred_fn({k: v[q] for k, v in trees.items()}, Xb)
                 for q in range(Wp.shape[0])]
 
     return _sweep_blocks(grids, y, W, V, metric_fn, ctx, "forest",
@@ -203,6 +237,11 @@ def _sweep_forest(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
 
 
 def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+    objective = est._objective
+    if objective == "logistic" and n_classes > 2:
+        raise NotImplementedError(
+            f"{type(est).__name__}: multiclass boosting is not ported yet "
+            "(ROADMAP.md, queue 1)")
     xb_by_bins = _binned_cache(est, grids, X, ctx)
     seed = ctx.seed if ctx is not None else 0
     eval_metric = str(getattr(est, "eval_metric", "logloss") or "logloss")
@@ -245,8 +284,9 @@ def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
             gamma=dyn["gamma"], alpha=dyn["alpha"],
             subsample=dyn["subsample"], colsample=dyn["colsample"],
             seed=seed, val_w=Vp, early_stopping_rounds=esr,
-            min_gain_norm=dyn["min_gain_norm"], eval_metric=eval_metric)
-        return [gbt_pred_from_margin(mg, "logistic") for mg in margin]
+            min_gain_norm=dyn["min_gain_norm"], eval_metric=eval_metric,
+            objective=objective)
+        return [gbt_pred_from_margin(mg, objective) for mg in margin]
 
     return _sweep_blocks(grids, y, W, V, metric_fn, ctx, "gbt",
                          static_of=lambda g: _static_gbt(est, g),
@@ -256,15 +296,19 @@ def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
 
 def _dispatch(est) -> Callable:
     # order matters: subclasses before parents
-    if isinstance(est, OpGBTClassifier):
+    if isinstance(est, OpGBTClassifier):  # and the GBT/XGB regressors
         return _sweep_gbt
+    if isinstance(est, OpRandomForestRegressor):
+        return lambda *a: _sweep_forest(*a, regression=True)
     if isinstance(est, OpRandomForestClassifier):
         return _sweep_forest
     if isinstance(est, OpLogisticRegression):
         return _sweep_logistic
+    if isinstance(est, OpLinearRegression):
+        return _sweep_linreg
     raise NotImplementedError(
-        f"{type(est).__name__}: only the logistic regression, random forest "
-        "and GBT/XGBoost classifier families are ported to the sweep "
+        f"{type(est).__name__}: only the logistic and linear regression, "
+        "random forest and GBT/XGBoost families are ported to the sweep "
         "(ROADMAP.md, queue 1)")
 
 
@@ -275,10 +319,6 @@ def run_sweep(est, grids: List[Dict], X: torch.Tensor, y: torch.Tensor,
     handler = _dispatch(est)
     n_classes = getattr(est, "n_classes", None) or infer_n_classes(
         y.cpu().numpy())
-    if n_classes > 2:
-        raise NotImplementedError(
-            f"{type(est).__name__}: multiclass sweeps are not ported yet "
-            "(ROADMAP.md, queue 1, item 9)")
     metric_fn = make_device_metric(evaluator, n_classes=n_classes)
     W = torch.as_tensor(np.stack([tr for tr, _ in folds]), device=X.device)
     V = torch.as_tensor(np.stack([va for _, va in folds]), device=X.device)

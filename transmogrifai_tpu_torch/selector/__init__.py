@@ -1,11 +1,14 @@
 from transmogrifai_tpu_torch.selector.model_selector import (
     BinaryClassificationModelSelector, ModelSelector, ModelSelectorSummary,
+    MultiClassificationModelSelector, RegressionModelSelector,
     ValidationResult)
 from transmogrifai_tpu_torch.selector.splitters import (
-    DataBalancer, DataSplitter)
+    DataBalancer, DataCutter, DataSplitter)
 from transmogrifai_tpu_torch.selector.validators import (
     OpCrossValidation, OpTrainValidationSplit)
 
 __all__ = ["BinaryClassificationModelSelector", "DataBalancer",
-           "DataSplitter", "ModelSelector", "ModelSelectorSummary",
-           "OpCrossValidation", "OpTrainValidationSplit", "ValidationResult"]
+           "DataCutter", "DataSplitter", "ModelSelector",
+           "ModelSelectorSummary", "MultiClassificationModelSelector",
+           "OpCrossValidation", "OpTrainValidationSplit",
+           "RegressionModelSelector", "ValidationResult"]

@@ -1,7 +1,8 @@
 """ModelSelector: cross-validated model and hyperparameter selection.
 
 The port's counterpart of the JAX package's `selector/model_selector.py`,
-on one device: prepare the data (holdout reserve + label balancing), run
+on one device, for binary, multiclass and regression labels: prepare the
+data (holdout reserve, then label balancing or label pruning), run
 each family's sweep (`parallel/sweep.py`) over the folds, refit the
 winner on the whole prepared training set, evaluate it on the training
 and holdout rows, and return the fitted model with a
@@ -25,12 +26,16 @@ import torch
 from transmogrifai_tpu_torch import types as T
 from transmogrifai_tpu_torch.data.columns import Column
 from transmogrifai_tpu_torch.evaluators.evaluators import (
-    BinaryClassificationEvaluator)
+    BinaryClassificationEvaluator, MultiClassificationEvaluator,
+    RegressionEvaluator)
+from transmogrifai_tpu_torch.models.linear import OpLinearRegression
 from transmogrifai_tpu_torch.models.logistic import OpLogisticRegression
 from transmogrifai_tpu_torch.models.trees import (
-    OpRandomForestClassifier, OpXGBoostClassifier)
+    OpGBTRegressor, OpRandomForestClassifier, OpRandomForestRegressor,
+    OpXGBoostClassifier)
 from transmogrifai_tpu_torch.parallel.sweep import run_sweep
-from transmogrifai_tpu_torch.selector.splitters import DataBalancer
+from transmogrifai_tpu_torch.selector.splitters import (
+    DataBalancer, DataCutter, DataSplitter)
 from transmogrifai_tpu_torch.selector.validators import (
     OpCrossValidation, OpTrainValidationSplit)
 from transmogrifai_tpu_torch.stages.base import (
@@ -247,6 +252,31 @@ def _default_binary_models() -> List[Tuple[Estimator, List[Dict]]]:
              xgb_grid)]
 
 
+def _default_multiclass_models() -> List[Tuple[Estimator, List[Dict]]]:
+    """The reference's multiclass default, LR + RF: LR 8 elastic-net
+    configs at max_iter 50, RF 18 tree-shape configs at 50 trees — 26
+    configs."""
+    return [(OpLogisticRegression(max_iter=50), _lr_grid()),
+            (OpRandomForestClassifier(n_trees=50), _rf_grid())]
+
+
+def _default_regression_models() -> List[Tuple[Estimator, List[Dict]]]:
+    """The reference's regression default, linear + RF + GBT: linear 8
+    elastic-net configs, RF 18 at 50 trees, Spark-style GBT 18 at 20
+    rounds and learning rate 0.1 over the RF grid — 44 configs."""
+    return [(OpLinearRegression(), _lr_grid()),
+            (OpRandomForestRegressor(n_trees=50), _rf_grid()),
+            (OpGBTRegressor(n_estimators=20, learning_rate=0.1), _rf_grid())]
+
+
+def _selector(models, default_models, validator, splitter, evaluator,
+              problem_type, checkpoint_dir) -> ModelSelector:
+    return ModelSelector(models=models or default_models(),
+                         validator=validator, splitter=splitter,
+                         evaluator=evaluator, problem_type=problem_type,
+                         checkpoint_dir=checkpoint_dir)
+
+
 class BinaryClassificationModelSelector:
     """`BinaryClassificationModelSelector.with_cross_validation()` factory."""
 
@@ -256,13 +286,12 @@ class BinaryClassificationModelSelector:
             n_folds: int = 3, validation_metric: str = "AuPR",
             splitter=None, seed: int = 42,
             checkpoint_dir: Optional[str] = None) -> ModelSelector:
-        return ModelSelector(
-            models=models or _default_binary_models(),
-            validator=OpCrossValidation(n_folds=n_folds, seed=seed),
-            splitter=(splitter if splitter is not None
-                      else DataBalancer(seed=seed)),
-            evaluator=BinaryClassificationEvaluator(metric=validation_metric),
-            problem_type="binary", checkpoint_dir=checkpoint_dir)
+        return _selector(
+            models, _default_binary_models,
+            OpCrossValidation(n_folds=n_folds, seed=seed),
+            splitter if splitter is not None else DataBalancer(seed=seed),
+            BinaryClassificationEvaluator(metric=validation_metric),
+            "binary", checkpoint_dir)
 
     @staticmethod
     def with_train_validation_split(
@@ -270,11 +299,71 @@ class BinaryClassificationModelSelector:
             train_ratio: float = 0.75, validation_metric: str = "AuPR",
             splitter=None, seed: int = 42,
             checkpoint_dir: Optional[str] = None) -> ModelSelector:
-        return ModelSelector(
-            models=models or _default_binary_models(),
-            validator=OpTrainValidationSplit(train_ratio=train_ratio,
-                                             seed=seed),
-            splitter=(splitter if splitter is not None
-                      else DataBalancer(seed=seed)),
-            evaluator=BinaryClassificationEvaluator(metric=validation_metric),
-            problem_type="binary", checkpoint_dir=checkpoint_dir)
+        return _selector(
+            models, _default_binary_models,
+            OpTrainValidationSplit(train_ratio=train_ratio, seed=seed),
+            splitter if splitter is not None else DataBalancer(seed=seed),
+            BinaryClassificationEvaluator(metric=validation_metric),
+            "binary", checkpoint_dir)
+
+
+class MultiClassificationModelSelector:
+    """`MultiClassificationModelSelector` factories: F1 by default, the
+    DataCutter splitter."""
+
+    @staticmethod
+    def with_cross_validation(
+            models: Optional[Sequence[Tuple[Estimator, List[Dict]]]] = None,
+            n_folds: int = 3, validation_metric: str = "F1",
+            splitter=None, seed: int = 42,
+            checkpoint_dir: Optional[str] = None) -> ModelSelector:
+        return _selector(
+            models, _default_multiclass_models,
+            OpCrossValidation(n_folds=n_folds, seed=seed),
+            splitter if splitter is not None else DataCutter(seed=seed),
+            MultiClassificationEvaluator(metric=validation_metric),
+            "multiclass", checkpoint_dir)
+
+    @staticmethod
+    def with_train_validation_split(
+            models: Optional[Sequence[Tuple[Estimator, List[Dict]]]] = None,
+            train_ratio: float = 0.75, validation_metric: str = "F1",
+            splitter=None, seed: int = 42,
+            checkpoint_dir: Optional[str] = None) -> ModelSelector:
+        return _selector(
+            models, _default_multiclass_models,
+            OpTrainValidationSplit(train_ratio=train_ratio, seed=seed),
+            splitter if splitter is not None else DataCutter(seed=seed),
+            MultiClassificationEvaluator(metric=validation_metric),
+            "multiclass", checkpoint_dir)
+
+
+class RegressionModelSelector:
+    """`RegressionModelSelector` factories: RMSE by default, the
+    DataSplitter holdout."""
+
+    @staticmethod
+    def with_cross_validation(
+            models: Optional[Sequence[Tuple[Estimator, List[Dict]]]] = None,
+            n_folds: int = 3, validation_metric: str = "RMSE",
+            splitter=None, seed: int = 42,
+            checkpoint_dir: Optional[str] = None) -> ModelSelector:
+        return _selector(
+            models, _default_regression_models,
+            OpCrossValidation(n_folds=n_folds, seed=seed),
+            splitter if splitter is not None else DataSplitter(seed=seed),
+            RegressionEvaluator(metric=validation_metric),
+            "regression", checkpoint_dir)
+
+    @staticmethod
+    def with_train_validation_split(
+            models: Optional[Sequence[Tuple[Estimator, List[Dict]]]] = None,
+            train_ratio: float = 0.75, validation_metric: str = "RMSE",
+            splitter=None, seed: int = 42,
+            checkpoint_dir: Optional[str] = None) -> ModelSelector:
+        return _selector(
+            models, _default_regression_models,
+            OpTrainValidationSplit(train_ratio=train_ratio, seed=seed),
+            splitter if splitter is not None else DataSplitter(seed=seed),
+            RegressionEvaluator(metric=validation_metric),
+            "regression", checkpoint_dir)

@@ -1,8 +1,8 @@
 """Data splitters: holdout reservation and label-balancing preparation.
 
 The port's copy of the JAX package's `selector/splitters.py`
-(`DataSplitter`, `DataBalancer`): host numpy with the same seeds, so the
-train and holdout indices are the same rows.
+(`DataSplitter`, `DataBalancer`, `DataCutter`): host numpy with the same
+seeds, so the train and holdout indices are the same rows.
 """
 
 from __future__ import annotations
@@ -85,3 +85,30 @@ class DataBalancer(DataSplitter):
             details["downsampled_to_max"] = True
         details["n_after"] = int(len(out))
         return out, details
+
+
+class DataCutter(DataSplitter):
+    """Multiclass label pruning: keep the most frequent labels
+    (DataCutter.scala: maxLabelCategories / minLabelFraction)."""
+
+    def __init__(self, max_label_categories: int = 100,
+                 min_label_fraction: float = 0.0,
+                 reserve_test_fraction: float = 0.1, seed: int = 42):
+        super().__init__(reserve_test_fraction, seed)
+        self.max_label_categories = max_label_categories
+        self.min_label_fraction = min_label_fraction
+
+    def prepare(self, y: np.ndarray, train_idx: np.ndarray
+                ) -> Tuple[np.ndarray, Dict]:
+        yt = y[train_idx]
+        labels, counts = np.unique(yt, return_counts=True)
+        order = np.argsort(-counts)
+        keep = []
+        for i in order[: self.max_label_categories]:
+            if counts[i] / len(yt) >= self.min_label_fraction:
+                keep.append(labels[i])
+        keep_set = np.isin(yt, np.asarray(keep))
+        details = {"labels_kept": [float(v) for v in keep],
+                   "labels_dropped": [float(v) for v in labels
+                                      if v not in set(keep)]}
+        return train_idx[keep_set], details
