@@ -99,7 +99,34 @@ non-zero:
    columns and winner equal, validation RMSE within 1e-4 (linear) / 1e-2
    (RF, GBT) relative, holdout RMSE <= 6.0 and R2 >= 0.6 and within 1e-2
    relative; saved, reloaded and scored (equal). Each example's launch
-   counters cover exactly its run; its kernels must all have launched.
+   counters cover exactly its run; its kernels must all have launched;
+16. K5-mc (`tree_walk_classes`, the class-tree walk of softmax boosting)
+   against its plain version on the JAX package's Iris model (200 rounds x
+   3 classes at depth 10) at n = 150 and 65536 with int8 and int32 bins
+   and on a 12-class ensemble (equal), and its margins against the JAX
+   package's on the fixture's rows (2e-5); then timed beside its bound
+   and its plain version;
+17. the three selector runs over the other families (L-BFGS logistic
+   regression, linear SVC, naive Bayes, decision trees, MLP, multiclass
+   XGBoost, GLM) on the Titanic, Iris and Boston pipelines, every config,
+   the JAX package's MLP initial weights injected, held to
+   `testdata/families_{binary,iris,boston}_f32`: configs equal, each
+   validation metric within its family's tolerance (naive Bayes and trees
+   on classes 1e-5, trees on Boston and multiclass XGBoost 1e-2, the
+   optimizer-path families max(5e-3, twice that family's own largest
+   move in the JAX package under one ulp of input noise, over the
+   fixture's 16 noise runs)); the winner the fixture's, or its second
+   where the top two lie within tolerance; the holdout metrics in the
+   tests/test_examples.py bands. A winner or band rule that the JAX
+   package itself breaks in one of its noise runs is reported, not
+   enforced (`winner_check`, `band_check`). Saved, reloaded and scored
+   (equal); sweep seconds per family and static group and every kernel's
+   launches printed;
+18. each new model class fitted at its family's first grid point (a
+   one-config selector), saved, reloaded and scored through
+   `score_compiled` on the card: reload equal, holdout metric within the
+   family's tolerance of the JAX package's, scores as close as the family
+   allows; K5-mc must launch (the multiclass XGBoost model's scores).
 """
 
 import contextlib
@@ -835,14 +862,14 @@ DEFAULT_FOLD_ATOL = {"OpLogisticRegression": 1e-4,
 DEFAULT_HOLDOUT_ATOL = 1e-2
 
 
-def readme_quickstart(port, ds):
-    """The README quickstart verbatim: no `models=`, so LR + RF + XGB."""
+def readme_quickstart(port, ds, models=None):
+    """The README quickstart verbatim: with no `models=`, LR + RF + XGB."""
     predictors, label = port.FeatureBuilder.from_dataset(
         ds, response="survived")
     checked = label.sanity_check(port.transmogrify(predictors),
                                  remove_bad_features=True)
-    pred = port.BinaryClassificationModelSelector.with_cross_validation() \
-        .set_input(label, checked).get_output()
+    pred = port.BinaryClassificationModelSelector.with_cross_validation(
+        models=models).set_input(label, checked).get_output()
     return pred, label
 
 
@@ -1098,10 +1125,11 @@ def three_class_level(pt, rng, dev):
     return record
 
 
-def example_pipeline(port, example: str):
+def example_pipeline(port, example: str, models=None):
     """The example's program (examples/op_iris_simple.py,
     examples/op_boston_simple.py) with the port's entry points and the
-    selector's default models: (dataset, label, prediction)."""
+    selector over `models` (its default with None): (dataset, label,
+    prediction)."""
     import transmogrifai_tpu_torch.types as t
     FB = port.FeatureBuilder
     if example == "iris":
@@ -1129,7 +1157,7 @@ def example_pipeline(port, example: str):
                                schema=schema)
     checked = label.sanity_check(port.transmogrify(preds),
                                  remove_bad_features=True)
-    pred = selector.with_train_validation_split() \
+    pred = selector.with_train_validation_split(models=models) \
         .set_input(label, checked).get_output()
     return ds, label, pred
 
@@ -1244,6 +1272,472 @@ def example_train(port, pt, example: str, device="cuda"):
     if not ok:
         raise AssertionError(f"the {example} example disagrees with the JAX "
                              "package's f32 fixture")
+    return record
+
+
+
+# --------------------------------------------------------------------------- #
+# the selectors' other families: K5-mc, three selector runs, serving          #
+# --------------------------------------------------------------------------- #
+
+RUNS = ("binary", "iris", "boston")
+FAMILIES_FIXTURE = {run: os.path.join(HERE, "transmogrifai_tpu_torch",
+                                      "testdata", f"families_{run}_f32")
+                    for run in RUNS}
+# families fitted along an f32 optimizer path (L-BFGS, Adam): their fits
+# have not converged at 50-200 steps on these runs, and one ulp of input
+# noise moves their metrics in the JAX package itself (the fixture's noise
+# runs, one per seed); each family is held to the larger of 5e-3 and twice
+# its own largest move
+OPTIMIZER_PATH = ("OpLogisticRegression", "OpLinearSVC",
+                  "OpGeneralizedLinearRegression",
+                  "OpMultilayerPerceptronClassifier")
+OPTIMIZER_FLOOR = 5e-3
+# the other families: equal predictions (naive Bayes, trees on classes),
+# or float label sums / softmax gradients in another order (relative for
+# RMSE)
+EXACT_TOL = {"OpNaiveBayes": 1e-5, "OpDecisionTreeClassifier": 1e-5,
+             "OpDecisionTreeRegressor": 1e-2, "OpXGBoostClassifier": 1e-2}
+# tests/test_examples.py's holdout bands: (metric, bound, larger is better)
+FAMILY_BANDS = {"binary": (("AuPR", 0.70, True), ("AuROC", 0.75, True)),
+                "iris": (("F1", 0.80, True),),
+                "boston": (("RMSE", 6.0, False), ("R2", 0.6, True))}
+TREE_KERNELS = ("bin_features", "histograms", "sibling_subtract",
+                "split_search", "route_level", "leaf_values", "tree_walk")
+FAMILY_KERNELS = {"binary": TREE_KERNELS,
+                  "iris": TREE_KERNELS + ("confusion_counts",),
+                  "boston": TREE_KERNELS + ("regression_moments",)}
+K5MC_SHAPES = ((150, "int8"), (150, "int32"), (65536, "int8"),
+               (65536, "int32"))
+
+
+def family_models(models, ms, run):
+    """The run's (estimator, grids) list, the selector's `models=`, from
+    either package: `models` holds its estimator classes and `ms` is its
+    `selector.model_selector` module (the grids `_REGULARIZATION` and
+    `_rf_grid()` are its own)."""
+    reg = ms._REGULARIZATION
+    l2 = [{"reg_param": r, "elastic_net_param": 0.0} for r in reg]
+    mlp_lr = [{"learning_rate": lr} for lr in (0.01, 0.05)]
+    if run == "binary":
+        return [(models.OpLogisticRegression(max_iter=50), l2),
+                (models.OpLinearSVC(max_iter=50),
+                 [{"reg_param": r} for r in reg]),
+                (models.OpNaiveBayes(), [{"smoothing": 1.0}]),
+                (models.OpDecisionTreeClassifier(), ms._rf_grid()),
+                (models.OpMultilayerPerceptronClassifier(
+                    hidden_layers=(10,), max_iter=100), mlp_lr)]
+    if run == "iris":
+        return [(models.OpLogisticRegression(max_iter=50), l2),
+                (models.OpNaiveBayes(), [{"smoothing": 1.0}]),
+                (models.OpDecisionTreeClassifier(), ms._rf_grid()),
+                (models.OpMultilayerPerceptronClassifier(
+                    hidden_layers=(10,), max_iter=200), mlp_lr),
+                (models.OpXGBoostClassifier(**XGB),
+                 [{"min_child_weight": c} for c in (1.0, 10.0)])]
+    glm = [{"family": f, "link": ln, "reg_param": r}
+           for f, ln in (("gaussian", "identity"), ("poisson", "log"),
+                         ("gamma", "log"), ("tweedie", "power"))
+           for r in reg]
+    return [(models.OpGeneralizedLinearRegression(max_iter=100), glm),
+            (models.OpDecisionTreeRegressor(), ms._rf_grid())]
+
+
+def families_pipeline(port, run, models):
+    """(dataset, label, prediction) of the run over `models`."""
+    if run == "binary":
+        ds = port.Dataset.from_csv(TITANIC)
+        pred, label = readme_quickstart(port, ds, models)
+        return ds, label, pred
+    return example_pipeline(port, run, models)
+
+
+def load_fixture(run):
+    with open(os.path.join(FAMILIES_FIXTURE[run], "results.json")) as fh:
+        res = json.load(fh)
+    with np.load(os.path.join(FAMILIES_FIXTURE[run], "scores.npz")) as z:
+        arr = {k: z[k] for k in z.files}
+    return res, arr
+
+
+def fixture_mlp_init(arr, seed_of_run):
+    """An `injected_mlp_init` function serving the JAX package's initial
+    MLP weights that a fixture holds (`mlp_init_W<i>`) for its run's seed
+    and layer shapes, raising on any other."""
+    Ws = [arr[f"mlp_init_W{i}"] for i in range(
+        sum(k.startswith("mlp_init_W") for k in arr))]
+
+    def init(seed, layers):
+        if int(seed) != int(seed_of_run) or [tuple(W.shape) for W in Ws] \
+                != list(zip(layers[:-1], layers[1:])):
+            raise AssertionError(f"no fixture MLP weights for seed {seed}, "
+                                 f"layers {tuple(layers)}")
+        return [W.copy() for W in Ws]
+    return init
+
+
+def metric_move(a, b, relative):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b) / np.abs(b) if relative else np.abs(a - b)
+
+
+def family_tolerances(res):
+    """Per config of a fixture: its tolerance (relative for RMSE); and per
+    optimizer-path family, its own largest move under one ulp of input
+    noise in the JAX package (over the fixture's noise runs of that
+    family)."""
+    relative = res["metric"] == "RMSE"
+    noise = {}
+    for fam, rec in res["noise"].items():
+        ours = [f for r, f in zip(res["results"], res["fold_metrics"])
+                if r["model"] == fam]
+        noise[fam] = max(float(metric_move(fm, ours, relative).max())
+                         for fm in rec["fold_metrics"])
+    tol = [max(OPTIMIZER_FLOOR, 2.0 * noise[r["model"]])
+           if r["model"] in OPTIMIZER_PATH else EXACT_TOL[r["model"]]
+           for r in res["results"]]
+    return tol, relative, noise
+
+
+def _selector_winner(res, fold_metrics):
+    """The selector's rule over one fold-metric list per fixture config:
+    the first best mean (largest AuPR / F1, smallest RMSE)."""
+    sign = -1.0 if res["metric"] == "RMSE" else 1.0
+    means = [sign * float(np.mean(f)) for f in fold_metrics]
+    return max(range(len(means)), key=lambda i: means[i])
+
+
+def winner_check(res, tol, winner):
+    """The port's winner ({"model", "grid"}) against the fixture: it is
+    the fixture's winner, or, when the fixture's top two validation
+    metrics lie within tolerance of each other, the second of them.
+
+    The JAX package's own winner is put to the same rule in each of its
+    noise runs of the winning family (that family's fold metrics moved by
+    one ulp of input noise, the other families' kept). The rule is
+    enforced where the reference meets it in every noise run; where the
+    reference itself breaks it, the rule cannot tell a right port from a
+    wrong one and its result is reported, not enforced."""
+    results, folds = res["results"], res["fold_metrics"]
+    sign = -1.0 if res["metric"] == "RMSE" else 1.0
+    order = sorted(range(len(folds)),
+                   key=lambda i: -sign * float(np.mean(folds[i])))
+    first, second = order[0], order[1]
+    close = float(metric_move(np.mean(folds[first]), np.mean(folds[second]),
+                              res["metric"] == "RMSE")) \
+        <= max(tol[first], tol[second])
+    allowed = [results[first]] + ([results[second]] if close else [])
+    fam = results[first]["model"]
+    reference = []
+    for fm in res["noise"].get(fam, {}).get("fold_metrics", []):
+        moved = iter(fm)
+        runs = [next(moved) if r["model"] == fam else f
+                for r, f in zip(results, folds)]
+        reference.append(results[_selector_winner(res, runs)])
+    enforced = all(w in allowed for w in reference)
+    rule_ok = winner in allowed
+    return {"winner_equal": winner == results[first], "allowed": allowed,
+            "top_two_within_tolerance": bool(close), "rule_ok": rule_ok,
+            "reference_winners_under_noise": reference,
+            "enforced": enforced, "ok": rule_ok or not enforced}
+
+
+def band_check(res, run, winner_model, holdout):
+    """Each holdout band of the run for the port's winner: enforced when
+    the winner's family is deterministic (no noise runs) or when the JAX
+    package's refits of that family meet the band in each of its noise
+    runs; where the reference itself breaks the band, its result is
+    reported, not enforced."""
+    rec = res["noise"].get(winner_model)
+    seen_runs = rec["holdout_metrics"] if rec else []
+    out = {}
+    for key, edge, larger in FAMILY_BANDS[run]:
+        seen = [h[key] for h in seen_runs]
+        meets = [v >= edge if larger else v <= edge
+                 for v in [holdout[key]] + seen]
+        out[key] = {"value": holdout[key], "bound": edge,
+                    "larger_is_better": larger, "ok": meets[0],
+                    "reference_worst_under_noise": (
+                        (min(seen) if larger else max(seen))
+                        if seen else None),
+                    "enforced": all(meets[1:])}
+    return out
+
+
+def judge_families_run(res, run, configs, fold_metrics, winner, holdout):
+    """A selector run over the families against its fixture: each
+    config's validation metric within its tolerance, the winner by
+    `winner_check`, the holdout bands by `band_check`. Returns the checks
+    and `ok`."""
+    if list(configs) != res["results"]:
+        raise AssertionError(f"the families_{run} sweep ran other configs "
+                             "than the fixture's")
+    tol, relative, noise = family_tolerances(res)
+    moves = [float(metric_move(f, g, relative).max())
+             for f, g in zip(fold_metrics, res["fold_metrics"])]
+    outside = [{"config": c, "move": m, "tolerance": t}
+               for c, m, t in zip(configs, moves, tol) if m > t]
+    fam = [c["model"] for c in configs]
+    by_family = {f: {"max_move": max(m for m, g in zip(moves, fam)
+                                     if g == f),
+                     "tolerance": max(t for t, g in zip(tol, fam) if g == f),
+                     "jax_noise_move": noise.get(f)}
+                 for f in dict.fromkeys(fam)}
+    win = winner_check(res, tol, winner)
+    bands = band_check(res, run, winner["model"], holdout)
+    ok = (not outside and win["ok"]
+          and all(b["ok"] or not b["enforced"] for b in bands.values()))
+    return {"moves": moves, "tolerances": tol, "outside_tolerance": outside,
+            "by_family": by_family,
+            "noise_runs": {f: len(r["fold_metrics"])
+                           for f, r in res["noise"].items()},
+            "winner": win, "bands": bands, "ok": bool(ok)}
+
+
+def k5mc_check(pt, rng, dev):
+    """K5-mc against its plain version (both add rounds in index order in
+    f32: equal) on the JAX package's Iris model (200 rounds x 3 classes at
+    depth 10) at n = 150 and 65536 with int8 and int32 bins, and on a
+    12-class ensemble; and its margins against the JAX package's on the
+    fixture's rows (2e-5)."""
+    _, arr = load_fixture("iris")
+    trees = {k: torch.from_numpy(arr[f"xgb_{k}"].astype(
+        np.float32 if k == "leaf" else np.int32)).to(dev)
+        for k in ("feat", "bin", "leaf")}
+    lr = float(arr["xgb_learning_rate"])
+    Xb150 = torch.from_numpy(arr["xgb_Xb"]).to(dev)
+    n_bins = int(arr["xgb_edges"].shape[1]) + 1
+    Xb_big = torch.from_numpy(rng.integers(
+        0, n_bins, (65536, Xb150.shape[1])).astype(np.int8)).to(dev)
+    cases, err = {}, 0.0
+    for n, dtype in K5MC_SHAPES:
+        Xb = (Xb150 if n == 150 else Xb_big).to(getattr(torch, dtype))
+        args = (Xb, trees["feat"], trees["bin"], trees["leaf"])
+        got = pt.tree_walk_classes(*args)
+        want = pt.tree_walk_classes_plain(*args)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max().item())
+        err = max(err, e)
+        cases[f"n{n}_{dtype}"] = {"max_abs_err": e,
+                                  "equal": bool(torch.equal(got, want))}
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5-mc disagrees at n={n} {dtype}: {e}")
+    wide = {k: v.to(dev) for k, v in synthetic_forest(
+        rng, 5, n_trees=12 * 40, depth=6, m=1).items()}
+    wide = {k: v.reshape((40, 12) + v.shape[1:]) for k, v in wide.items()}
+    Xw = torch.from_numpy(rng.integers(0, 33, (4096, 5)).astype(
+        np.int8)).to(dev)
+    args = (Xw, wide["feat"], wide["bin"], wide["leaf"])
+    got, want = pt.tree_walk_classes(*args), pt.tree_walk_classes_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K5-mc disagrees at K = 12 classes")
+    cases["k12_n4096"] = {"max_abs_err": float((got - want).abs().max()),
+                          "equal": True}
+    margin = pt.predict_gbt_multiclass_margin(trees, Xb150, lr)
+    jax_err = float(np.abs(margin.cpu().numpy() - arr["xgb_margin"]).max())
+    ok = jax_err <= 2e-5
+    record = {"phase": "k5mc_check", "tables": list(trees["feat"].shape),
+              "cases": cases, "max_abs_err": err,
+              "margin_max_abs_err_vs_jax": jax_err,
+              "tolerance": {"plain": "equal", "jax_margin": 2e-5},
+              "ok": bool(ok)}
+    emit(record)
+    if not ok:
+        raise AssertionError("K5-mc's margins disagree with the JAX "
+                             "package's")
+    return record, trees, {150: Xb150, 65536: Xb_big}
+
+
+def class_walk_bytes(Xb, feat, bins, leaf) -> int:
+    """Bytes K5-mc must move: `walk_bytes` over the (round, class) trees
+    as one ensemble, plus the (n, K) output beyond its one column."""
+    T, K = feat.shape[:2]
+    flat = [t.reshape((T * K,) + t.shape[2:]) for t in (feat, bins, leaf)]
+    return walk_bytes(Xb, *flat) + Xb.shape[0] * (K - 1) * 4
+
+
+def time_k5mc(pt, trees, Xbs):
+    out = {}
+    for n, Xb in Xbs.items():
+        args = (Xb, trees["feat"], trees["bin"], trees["leaf"])
+        T, K, depth, _ = trees["feat"].shape
+        nbytes = class_walk_bytes(*args)
+        b, by = bound(nbytes, n * T * K * (2 * depth + 1))
+        rec = {"ms": cuda_ms(lambda: pt.tree_walk_classes(*args), 20),
+               "plain_ms": cuda_ms(lambda: pt.tree_walk_classes_plain(*args),
+                                   3),
+               "library_ms": None, "bound_ms": b, "bound_by": by,
+               "bytes": nbytes}
+        out[n] = rec
+        emit({"phase": "timing", "kernel": "tree_walk_classes", "n": n,
+              "tables": list(trees["feat"].shape), **rec})
+    return out
+
+
+def families_train(port, pt, run, device="cuda"):
+    """The run on the card (every family, every config, the JAX package's
+    MLP initial weights injected), held to its fixture; saved, reloaded
+    and scored. The launch counters cover exactly this run."""
+    import tempfile
+    from transmogrifai_tpu_torch.models import mlp as pm
+    from transmogrifai_tpu_torch.selector import model_selector as ms
+
+    res, arr = load_fixture(run)
+    pt.reset_launches()
+    t0 = time.perf_counter()
+    ds, label, pred = families_pipeline(port, run,
+                                        family_models(port, ms, run))
+    with pm.injected_mlp_init(fixture_mlp_init(arr, res["seed"])):
+        model = port.Workflow().set_result_features(pred, label) \
+            .set_input_dataset(ds).train(device=device)
+    sync(device)
+    train_s = time.perf_counter() - t0
+    scores = prediction_of(model.score_compiled(ds))
+    path = tempfile.mkdtemp(prefix=f"port_families_{run}_")
+    model.save(path)
+    again = prediction_of(port.load_model(path, device=device)
+                          .score_compiled(ds))
+    sync(device)
+    launches = {k: pt.LAUNCHES[k] for k in pt.LAUNCHES}
+
+    best = next(s for s in model.fitted.values() if hasattr(
+        getattr(s, "summary", None), "validation_results"))
+    summ = best.summary
+    checker = fitted_of(model, "SanityCheckerModel")
+    results = [{"model": r.model, "grid": r.grid}
+               for r in summ.validation_results]
+    hold = summ.holdout_metrics
+    judged = judge_families_run(
+        res, run, results, [r.fold_metrics for r in summ.validation_results],
+        {"model": summ.best_model, "grid": summ.best_grid}, hold)
+    reload_equal = all(np.array_equal(scores[k], again[k])
+                       for k in ("prediction", "rawPrediction",
+                                 "probability"))
+    kept_equal = checker.indices == arr["kept_indices"].tolist()
+    n_rows = {"binary": 891, "iris": 150, "boston": 333}[run]
+    shape_ok = scores["prediction"].shape == (n_rows,) and all(
+        np.isfinite(v).all() for v in scores.values())
+    missing = [k for k in FAMILY_KERNELS[run] if launches[k] < 1]
+    stage = dict(model.stage_seconds)
+    ok = (judged["ok"] and reload_equal and kept_equal and shape_ok
+          and not missing)
+    record = {
+        "phase": f"families_{run}_train", "rows": len(ds),
+        "configs": len(results), "kept_columns": len(checker.indices),
+        "kept_equal": kept_equal, "best_model": summ.best_model,
+        "best_grid": summ.best_grid,
+        "winner_equal": judged["winner"]["winner_equal"],
+        "winner_rule": judged["winner"],
+        "best_model_jax": res["best_model"], "best_grid_jax": res["best_grid"],
+        "validation_metric": summ.metric_name,
+        "validation_means": [round(float(np.mean(r.fold_metrics)), 6)
+                             for r in summ.validation_results],
+        "validation_means_jax": [round(float(np.mean(f)), 6)
+                                 for f in res["fold_metrics"]],
+        "validation_move_by_family": judged["by_family"],
+        "jax_noise_runs": judged["noise_runs"],
+        "outside_tolerance": judged["outside_tolerance"],
+        "holdout_metrics": {k: v for k, v in hold.items()
+                            if isinstance(v, float)},
+        "holdout_metrics_jax": {k: v for k, v in
+                                res["holdout_metrics"].items()
+                                if isinstance(v, float)},
+        "holdout_bands": judged["bands"], "reload_scores_equal": reload_equal,
+        "launches_main_path": launches, "missing_kernels": missing,
+        "wall_s": {"train": train_s,
+                   "sanity_checker": stage.get("SanityChecker"),
+                   "selector": stage.get("ModelSelector"),
+                   "sweep": summ.timings["sweep_s"],
+                   "sweep_by_family": summ.timings["families"],
+                   "sweep_by_group": summ.timings["groups"],
+                   "refit": summ.timings["refit_s"]},
+        "ok": bool(ok)}
+    emit(record)
+    if not ok:
+        raise AssertionError(f"the families_{run} run disagrees with the JAX "
+                             "package's f32 fixture")
+    return record
+
+
+def families_serve(port, pt, device="cuda"):
+    """Each new model class, fitted on the card at its family's first grid
+    point (a one-config selector over the run's pipeline), saved,
+    reloaded with `load_model` and scored through `score_compiled`: the
+    reload equals the model; the one-config run's holdout metric is within
+    the family's tolerance of the JAX package's, and its scores as close
+    as the family allows (equal classes for naive Bayes and trees,
+    multiclass XGBoost probabilities within 1e-2). The launch counters
+    cover every fit, reload and score of the phase."""
+    import tempfile
+    from transmogrifai_tpu_torch.models import mlp as pm
+    from transmogrifai_tpu_torch.selector import model_selector as ms
+
+    pt.reset_launches()
+    out, ok_all = [], True
+    for run in RUNS:
+        res, arr = load_fixture(run)
+        tol, relative, _ = family_tolerances(res)
+        metric = res["metric"]
+        for i, (est, grids) in enumerate(family_models(port, ms, run)):
+            name = type(est).__name__
+            t0 = time.perf_counter()
+            ds, label, pred = families_pipeline(port, run,
+                                                [(est, grids[:1])])
+            with pm.injected_mlp_init(fixture_mlp_init(arr, res["seed"])):
+                model = port.Workflow().set_result_features(pred, label) \
+                    .set_input_dataset(ds).train(device=device)
+            scores = prediction_of(model.score_compiled(ds))
+            path = tempfile.mkdtemp(prefix=f"port_{run}_{name}_")
+            model.save(path)
+            loaded = port.load_model(path, device=device)
+            again = prediction_of(loaded.score_compiled(ds))
+            sync(device)
+            wall = time.perf_counter() - t0
+            best = next(s for s in model.fitted.values() if hasattr(
+                getattr(s, "summary", None), "validation_results"))
+            want = res["one_config"][i]
+            hold = best.summary.holdout_metrics[metric]
+            hold_move = float(metric_move(
+                hold, want["holdout_metrics"][metric], relative))
+            t = tol[res["results"].index({"model": name,
+                                          "grid": grids[0]})]
+            score_err = {k: float(np.abs(scores[k] - arr[f"one{i}_{k}"])
+                                  .max()) if scores[k].size else 0.0
+                         for k in ("rawPrediction", "probability")}
+            pred_diff = int((scores["prediction"]
+                             != arr[f"one{i}_prediction"]).sum())
+            reload_equal = all(np.array_equal(scores[k], again[k])
+                               for k in scores)
+            ok = (reload_equal and hold_move <= t
+                  and type(best).__name__ == want["best_class"]
+                  and all(np.isfinite(v).all() for v in scores.values()))
+            if name in ("OpNaiveBayes", "OpDecisionTreeClassifier"):
+                ok = ok and pred_diff == 0 and score_err["probability"] <= 1e-5
+            elif name == "OpDecisionTreeRegressor":
+                ok = ok and float(metric_move(
+                    scores["prediction"], arr[f"one{i}_prediction"],
+                    True).max()) <= 1e-2
+            elif name == "OpXGBoostClassifier":
+                ok = ok and score_err["probability"] <= 1e-2
+            ok_all = ok_all and ok
+            out.append({"run": run, "class": type(best).__name__,
+                        "grid": grids[0], "reload_scores_equal":
+                        reload_equal, f"holdout_{metric}": hold,
+                        "holdout_move_vs_jax": hold_move, "tolerance": t,
+                        "scores_max_abs_err_vs_jax": score_err,
+                        "prediction_mismatches_vs_jax": pred_diff,
+                        "wall_s": wall, "ok": bool(ok)})
+    launches = {k: pt.LAUNCHES[k] for k in pt.LAUNCHES}
+    missing = [k for k in ("bin_features", "tree_walk", "tree_walk_classes")
+               if launches[k] < 1]
+    record = {"phase": "families_serve", "models": out,
+              "launches_main_path": launches, "missing_kernels": missing,
+              "ok": bool(ok_all and not missing)}
+    emit(record)
+    if not record["ok"]:
+        raise AssertionError("a new model class does not serve like the "
+                             "JAX package's")
     return record
 
 
@@ -1399,6 +1893,14 @@ def main() -> int:
     # 14, 15. the Iris and Boston examples, verbatim ----------------------- #
     iris_rec = example_train(port, pt, "iris")
     boston_rec = example_train(port, pt, "boston")
+
+    # 16-18. K5-mc; the selectors' other families; each new class served -- #
+    k5mc_rec, k5mc_trees, k5mc_rows = k5mc_check(pt, rng, dev)
+    for run in RUNS:
+        families_train(port, pt, run)
+    serve_rec = families_serve(port, pt)
+    k5mc_timing = time_k5mc(pt, k5mc_trees, k5mc_rows)
+    del k5mc_trees, k5mc_rows
 
     # 6. timings ------------------------------------------------------------ #
     timing = {}
@@ -1563,6 +2065,13 @@ def main() -> int:
         eval_entry("regression_moments",
                    "transmogrifai_tpu/evaluators/device_metrics.py:159",
                    boston_rec, eval_cases["boston:regression_moments"]),
+        {"name": "tree_walk_classes", "route": "cuda",
+         "source": "transmogrifai_tpu_torch/csrc/tree_walk.cu",
+         "replaces": "transmogrifai_tpu/models/trees.py:797",
+         "launches": serve_rec["launches_main_path"]["tree_walk_classes"],
+         "max_abs_err": k5mc_rec["max_abs_err"],
+         **{k: k5mc_timing[150][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

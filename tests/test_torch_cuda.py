@@ -483,3 +483,170 @@ def test_evaluation_kernels_refuse_bad_inputs(cuda):
         pdm.regression_moments(torch.zeros(4, device=cuda),
                                torch.zeros(4, device=cuda),
                                torch.ones(4, device=cuda))
+
+
+# --------------------------------------------------------------------------- #
+# K5-mc, and the other families' fits on the card                             #
+# --------------------------------------------------------------------------- #
+
+IRIS_FIXTURE = os.path.join(REPO, "transmogrifai_tpu_torch", "testdata",
+                            "families_iris_f32")
+
+
+def _class_tables(rng, T, K, depth, d, n_bins=32):
+    width = 2 ** depth
+    return [torch.from_numpy(a) for a in (
+        rng.integers(0, d, (T, K, depth, width)).astype(np.int32),
+        rng.integers(0, n_bins + 1, (T, K, depth, width)).astype(np.int32),
+        rng.normal(size=(T, K, width, 1)).astype(np.float32))]
+
+
+@pytest.mark.parametrize("n,bin_dtype", [(150, torch.int8),
+                                         (150, torch.int32),
+                                         (65536, torch.int8),
+                                         (65536, torch.int32)])
+def test_class_tree_walk_kernel_equals_plain_on_the_iris_model(cuda, n,
+                                                               bin_dtype):
+    """K5-mc on the JAX package's Iris model (200 rounds x 3 classes at
+    depth 10): equal to its plain version (rounds added in index order in
+    f32 by both); one launch per call."""
+    with np.load(os.path.join(IRIS_FIXTURE, "scores.npz")) as z:
+        arr = {k: z[k] for k in z.files}
+    feat, bins = (torch.from_numpy(arr[f"xgb_{k}"].astype(np.int32)).to(cuda)
+                  for k in ("feat", "bin"))
+    leaf = torch.from_numpy(arr["xgb_leaf"]).to(cuda)
+    Xb = torch.from_numpy(arr["xgb_Xb"]) if n == 150 else torch.from_numpy(
+        np.random.default_rng(n).integers(0, 32, (n, 3)).astype(np.int8))
+    Xb = Xb.to(bin_dtype).to(cuda)
+    before = pt.LAUNCHES["tree_walk_classes"]
+    got = pt.tree_walk_classes(Xb, feat, bins, leaf)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["tree_walk_classes"] == before + 1
+    assert torch.equal(got, pt.tree_walk_classes_plain(Xb, feat, bins, leaf))
+    if n == 150:
+        margin = pt.predict_gbt_multiclass_margin(
+            {"feat": feat, "bin": bins, "leaf": leaf}, Xb,
+            float(arr["xgb_learning_rate"]))
+        np.testing.assert_allclose(margin.cpu().numpy(), arr["xgb_margin"],
+                                   rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("T,K,depth,n", [(1, 1, 1, 1), (7, 12, 5, 300),
+                                         (3, 40, 4, 2000)])
+def test_class_tree_walk_kernel_with_many_classes(cuda, T, K, depth, n):
+    rng = np.random.default_rng(T * K)
+    tables = [t.to(cuda) for t in _class_tables(rng, T, K, depth, 6)]
+    Xb = torch.from_numpy(rng.integers(0, 33, (n, 6)).astype(np.int8)).to(
+        cuda)
+    got = pt.tree_walk_classes(Xb, *tables)
+    torch.cuda.synchronize()
+    assert got.shape == (n, K)
+    assert torch.equal(got, pt.tree_walk_classes_plain(Xb, *tables))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def _fit_both(fit, *arrays, **kw):
+    """fit(...) on the CPU and on the card from the same numpy inputs."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        got = fit(*(torch.from_numpy(a).to(dev) for a in arrays), **kw)
+        out[dev] = ({k: v.cpu() for k, v in got.items()}
+                    if isinstance(got, dict) else
+                    [{k: v.cpu() for k, v in layer.items()} for layer in got])
+    return out["cpu"], out["cuda"]
+
+
+def _well_conditioned(seed, n=300, d=8, k=None):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    if k:
+        y = np.argmax(X[:, :k] + rng.gumbel(size=(n, k)), 1)
+    else:
+        y = (X[:, :3].sum(1) + rng.logistic(size=n) > 0)
+    w = (rng.random((2, n)) < 0.8).astype(np.float32)
+    return X, y.astype(np.float32), w
+
+
+def test_lbfgs_fits_on_the_card_match_the_cpu(cuda):
+    """Logistic (binary and multinomial), SVC and two GLMs, 100 L-BFGS
+    steps on well-conditioned data, two pairs each: coefficients within
+    1e-4 relative of the CPU's."""
+    from transmogrifai_tpu_torch.models import glm, linear_svc, logistic
+
+    for k in (2, 3):
+        X, y, w = _well_conditioned(k, k=k)
+        c, g = _fit_both(logistic.fit_logreg, X, y, w, l2=[0.01, 0.1],
+                         n_classes=k, max_iter=100)
+        assert _rel(g["W"], c["W"]) <= 1e-4 and _rel(g["b"], c["b"]) <= 1e-4
+    X, y, w = _well_conditioned(5)
+    c, g = _fit_both(linear_svc.fit_linear_svc, X, y, w, l2=0.01,
+                     max_iter=100)
+    assert _rel(g["beta"], c["beta"]) <= 1e-4
+    rng = np.random.default_rng(6)
+    y_count = rng.poisson(np.exp(0.3 * X[:, :2].sum(1))).astype(np.float32)
+    for family, link in (("poisson", "log"), ("gaussian", "identity")):
+        c, g = _fit_both(glm.fit_glm, X, y_count, w, l2=0.01, family=family,
+                         max_iter=100, link=link)
+        assert _rel(g["beta"], c["beta"]) <= 1e-4, (family, link)
+
+
+def test_naive_bayes_and_mlp_on_the_card_match_the_cpu(cuda):
+    """Naive Bayes parameters within 1e-5; the MLP from the same initial
+    weights within 1e-4 after 50 Adam steps, two learning rates."""
+    from transmogrifai_tpu_torch.models import mlp, naive_bayes
+
+    X, y, w = _well_conditioned(7, k=3)
+    counts = np.abs(np.round(X * 3)).astype(np.float32)
+    c, g = _fit_both(naive_bayes.fit_naive_bayes, counts, y, w,
+                     smoothing=[1.0, 0.5], n_classes=3)
+    for key in c:
+        torch.testing.assert_close(g[key], c[key], rtol=0, atol=1e-5)
+    init = [W.numpy() for W in mlp.init_weights((8, 6, 3), 3)]
+    c, g = _fit_both(mlp.fit_mlp, X, y, w, layers=(8, 6, 3), max_iter=50,
+                     learning_rate=[0.05, 0.01], init=init)
+    for lc, lg in zip(c, g):
+        for key in lc:
+            torch.testing.assert_close(lg[key], lc[key], rtol=0, atol=1e-4)
+
+
+def test_decision_trees_and_softmax_boosting_on_the_card_match_the_cpu(cuda):
+    """A decision tree on classes and on a 1/4-grid label (exact sums:
+    equal trees), and softmax boosting (5 rounds, 4 classes, depth 4):
+    equal split tables, leaves and margins within 1e-5."""
+    from transmogrifai_tpu_torch.stages.base import FitContext
+
+    X, y, _ = _well_conditioned(8, n=500, k=4)
+    y_reg = (np.round(X[:, 0] * 8) / 4).astype(np.float32)
+    for est, labels in ((pt.OpDecisionTreeClassifier(max_depth=12), y),
+                        (pt.OpDecisionTreeRegressor(max_depth=6), y_reg)):
+        got = {}
+        for dev in ("cpu", "cuda"):
+            m = est.fit_arrays(torch.from_numpy(X).to(dev),
+                               torch.from_numpy(labels).to(dev),
+                               torch.ones(500, device=dev),
+                               FitContext(n_rows=500, seed=1, device=dev))
+            got[dev] = m.trees
+        for k in ("feat", "bin"):
+            np.testing.assert_array_equal(got["cuda"][k], got["cpu"][k])
+        np.testing.assert_allclose(got["cuda"]["leaf"], got["cpu"]["leaf"],
+                                   rtol=0, atol=1e-6)
+    edges = torch.from_numpy(pt.quantile_bin_edges(X, 32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        Xb = pt.bin_features(torch.from_numpy(X).to(dev), edges.to(dev))
+        W = torch.ones((2, 500), device=dev)
+        W[1, ::3] = 0.0
+        trees, margin = pt.fit_gbt_multiclass_pairs(
+            Xb, torch.from_numpy(y).to(dev), W, 5, 4, 32, 4, 0.3, 1.0,
+            [1.0, 3.0], gamma=0.1, keep_trees=True)
+        out[dev] = ({k: v.cpu() for k, v in trees.items()}, margin.cpu())
+    (tc, mc), (tg, mg) = out["cpu"], out["cuda"]
+    assert torch.equal(tc["bin"], tg["bin"])
+    split = tc["bin"] < 32
+    assert torch.equal(tc["feat"][split], tg["feat"][split])
+    torch.testing.assert_close(tg["leaf"], tc["leaf"], rtol=0, atol=1e-5)
+    torch.testing.assert_close(mg, mc, rtol=0, atol=1e-5)

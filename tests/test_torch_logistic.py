@@ -101,10 +101,12 @@ def test_estimator_matches_jax_and_serializes_alike():
 
 
 def test_l2_only_logistic_raises_and_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="F5"):
-        pl.OpLogisticRegression(reg_param=0.1).fit_arrays(
-            torch.zeros((4, 2)), torch.tensor([0., 1., 0., 1.]),
-            torch.ones(4), None)
+    """The L-BFGS fit of α = 0 is ported; its warm start is not."""
+    est = pl.OpLogisticRegression(reg_param=0.1)
+    est.init_params = {"W": [[0.0, 0.0]] * 2, "b": [0.0, 0.0]}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        est.fit_arrays(torch.zeros((4, 2)), torch.tensor([0., 1., 0., 1.]),
+                       torch.ones(4), None)
 
 
 def test_logistic_sweep_matches_jax():

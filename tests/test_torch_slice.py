@@ -286,9 +286,9 @@ def test_from_jax_params_carries_fitted_models_across():
 
 def test_unported_stage_class_raises_and_names_itself():
     from transmogrifai_tpu_torch import from_jax_params
-    with pytest.raises(KeyError, match="GBTMulticlassModel"):
-        from_jax_params("GBTMulticlassModel",
-                        {"edges": [[0.0]], "trees": {}})
+    with pytest.raises(KeyError, match="IsotonicCalibratorModel"):
+        from_jax_params("IsotonicCalibratorModel",
+                        {"boundaries": [0.0], "values": [0.0]})
 
 
 # --------------------------------------------------------------------------- #

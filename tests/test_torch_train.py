@@ -952,17 +952,18 @@ def _unported_case(case):
     elif case == "sweep_family":
         run_sweep(object(), [{}], torch.zeros((4, 2)), torch.zeros(4), [],
                   None, None)
-    elif case == "multiclass_gbt":
-        pt.OpGBTClassifier().fit_arrays(X, y3, torch.ones(3), None)
-    elif case == "multiclass_gbt_sweep":
-        from transmogrifai_tpu_torch.evaluators import (
-            MultiClassificationEvaluator)
-        folds = [(np.ones(3, np.float32), np.ones(3, np.float32))]
-        run_sweep(pt.OpXGBoostClassifier(), [{}], X, y3, folds,
-                  MultiClassificationEvaluator(), None)
-    elif case == "lbfgs":
-        plog.OpLogisticRegression(reg_param=0.1).fit_arrays(
-            X, y3, torch.ones(3), None)
+    elif case == "gbt_warm_start":
+        est = pt.OpGBTClassifier()
+        est.init_params = {"trees": {}}
+        est.fit_arrays(X, y3, torch.ones(3), None)
+    elif case == "forest_warm_start":
+        est = pt.OpRandomForestClassifier()
+        est.init_params = {"trees": {}}
+        est.fit_arrays(X, y3, torch.ones(3), None)
+    elif case == "logistic_warm_start":
+        est = plog.OpLogisticRegression(reg_param=0.1)
+        est.init_params = {"W": [[0.0] * 3] * 2, "b": [0.0] * 3}
+        est.fit_arrays(X, y3, torch.ones(3), None)
     elif case == "warm_start":
         est = pl.OpLinearRegression(reg_param=0.1)
         est.init_params = {"beta": [0.0, 0.0]}
@@ -974,8 +975,9 @@ def _unported_case(case):
 
 @pytest.mark.parametrize("case,match", [
     ("date_group", "'date' group"), ("checkpoint", "checkpoint"),
-    ("sweep_family", "object"), ("multiclass_gbt", "multiclass"),
-    ("multiclass_gbt_sweep", "multiclass boosting"), ("lbfgs", "F5"),
+    ("sweep_family", "object"), ("gbt_warm_start", "warm starts"),
+    ("forest_warm_start", "warm starts"),
+    ("logistic_warm_start", "warm starts"),
     ("warm_start", "warm starts"), ("multiclass_checkpoint", "checkpoint")])
 def test_unported_paths_raise_and_name_themselves(case, match):
     with pytest.raises(NotImplementedError, match=match):

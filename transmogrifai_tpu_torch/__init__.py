@@ -3,12 +3,15 @@
 This package trains the README quickstart — transmogrify, the sanity
 checker and the default LR + RF + XGB binary sweep — and the Iris
 (multiclass: LR + RF) and Boston (regression: linear + RF + GBT) examples
-with their default selectors, and serves the models that it or the JAX
-package (`transmogrifai_tpu`) trained, on an NVIDIA GPU (Hopper). The tree
+with their default selectors, and the selectors' other families (L-BFGS
+logistic regression, linear SVC, GLM, naive Bayes, MLP, decision trees,
+multiclass XGBoost), and serves the models that it or the JAX package
+(`transmogrifai_tpu`) trained, on an NVIDIA GPU (Hopper). The tree
 learner's histograms, sibling subtraction, split search, routing and leaf
 sums, the binned AuPR, the sweep's confusion counts and regression sums,
-the binning and the ensemble walk are kernels written by hand in CUDA C++
-(`csrc/`). It imports torch and numpy and nothing of the JAX package.
+the binning, the ensemble walk and the class-tree walk of softmax boosting
+are kernels written by hand in CUDA C++ (`csrc/`). It imports torch and
+numpy and nothing of the JAX package.
 
     from transmogrifai_tpu_torch import (
         BinaryClassificationModelSelector, Dataset, FeatureBuilder,
@@ -32,11 +35,12 @@ from transmogrifai_tpu_torch import dsl  # noqa: F401  (attaches the DSL)
 from transmogrifai_tpu_torch.automl.transmogrify import transmogrify
 from transmogrifai_tpu_torch.data.dataset import Dataset
 from transmogrifai_tpu_torch.features.feature import FeatureBuilder
-from transmogrifai_tpu_torch.models.linear import OpLinearRegression
-from transmogrifai_tpu_torch.models.logistic import OpLogisticRegression
-from transmogrifai_tpu_torch.models.trees import (
-    OpGBTClassifier, OpGBTRegressor, OpRandomForestClassifier,
-    OpRandomForestRegressor, OpXGBoostClassifier, OpXGBoostRegressor)
+from transmogrifai_tpu_torch.models import (
+    OpDecisionTreeClassifier, OpDecisionTreeRegressor, OpGBTClassifier,
+    OpGBTRegressor, OpGeneralizedLinearRegression, OpLinearRegression,
+    OpLinearSVC, OpLogisticRegression, OpMultilayerPerceptronClassifier,
+    OpNaiveBayes, OpRandomForestClassifier, OpRandomForestRegressor,
+    OpXGBoostClassifier, OpXGBoostRegressor)
 from transmogrifai_tpu_torch.selector.model_selector import (
     BinaryClassificationModelSelector, MultiClassificationModelSelector,
     RegressionModelSelector)
@@ -45,8 +49,11 @@ from transmogrifai_tpu_torch.workflow.serialization import (
 from transmogrifai_tpu_torch.workflow.workflow import Workflow, WorkflowModel
 
 __all__ = ["BinaryClassificationModelSelector", "Dataset", "FeatureBuilder",
-           "MultiClassificationModelSelector", "OpGBTClassifier",
-           "OpGBTRegressor", "OpLinearRegression", "OpLogisticRegression",
+           "MultiClassificationModelSelector", "OpDecisionTreeClassifier",
+           "OpDecisionTreeRegressor", "OpGBTClassifier", "OpGBTRegressor",
+           "OpGeneralizedLinearRegression", "OpLinearRegression",
+           "OpLinearSVC", "OpLogisticRegression",
+           "OpMultilayerPerceptronClassifier", "OpNaiveBayes",
            "OpRandomForestClassifier", "OpRandomForestRegressor",
            "OpXGBoostClassifier", "OpXGBoostRegressor",
            "RegressionModelSelector", "Workflow", "WorkflowModel",

@@ -31,6 +31,17 @@
 // n_trees*depth dependent loads. A grid split over trees as well, with a
 // second pass that sums the per-tree-chunk partials, would fill the card.
 //
+// K5-mc, the class-tree walk: out[r, k] = sum_t leaf[t, k, walk_{t,k}(r)]
+// over tables laid out (T rounds, K classes, depth, width) and leaves
+// (T, K, n_leaves, 1) -- a softmax-boosted ensemble, one tree per (round,
+// class). Replaces `predict_gbt_multiclass_margin` (models/trees.py:797),
+// which vmaps the one-hot walk over rounds and classes and sums the rounds
+// in an order XLA picks. Design: one thread per (row, class), a grid of
+// (row blocks, K), so any class count works (one class per grid row); each
+// thread walks its class's T trees in round order with direct gathers,
+// adds the leaves in f32 and writes its output once, with no atomics. The
+// learning rate is applied by the caller, as for K5.
+//
 // C interface for ctypes: each entry point launches on `stream` and
 // returns cudaGetLastError().
 
@@ -92,7 +103,69 @@ int launch(const void* Xb, const void* feat, const void* bins,
   return (int)cudaGetLastError();
 }
 
+template <typename BinT>
+__global__ void tree_walk_classes_kernel(const BinT* __restrict__ Xb,
+                                         const int32_t* __restrict__ feat,
+                                         const int32_t* __restrict__ bins,
+                                         const float* __restrict__ leaf,
+                                         float* __restrict__ out, int64_t n,
+                                         int d, int n_rounds, int n_classes,
+                                         int depth, int width,
+                                         int n_leaves) {
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int k = blockIdx.y;
+  if (r >= n) return;
+  const BinT* x = Xb + r * d;
+  float acc = 0.0f;
+  for (int t = 0; t < n_rounds; ++t) {
+    const int64_t tree = (int64_t)t * n_classes + k;
+    const int64_t table = tree * depth * width;
+    int node = 0;
+    for (int l = 0; l < depth; ++l) {
+      const int64_t at = table + (int64_t)l * width + node;
+      const int f = __ldg(feat + at);
+      const int b = __ldg(bins + at);
+      const int xb = static_cast<int>(x[f]);
+      node = 2 * node + (xb > b ? 1 : 0);
+    }
+    acc += __ldg(leaf + tree * n_leaves + node);
+  }
+  out[r * n_classes + k] = acc;
+}
+
+template <typename BinT>
+int launch_classes(const void* Xb, const void* feat, const void* bins,
+                   const void* leaf, void* out, int64_t n, int d,
+                   int n_rounds, int n_classes, int depth, int width,
+                   int n_leaves, void* stream) {
+  const dim3 grid((unsigned)((n + BLOCK - 1) / BLOCK), (unsigned)n_classes);
+  tree_walk_classes_kernel<BinT><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      static_cast<const BinT*>(Xb), static_cast<const int32_t*>(feat),
+      static_cast<const int32_t*>(bins), static_cast<const float*>(leaf),
+      static_cast<float*>(out), n, d, n_rounds, n_classes, depth, width,
+      n_leaves);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int tree_walk_classes_i8(const void* Xb, const void* feat,
+                                    const void* bins, const void* leaf,
+                                    void* out, int64_t n, int d,
+                                    int n_rounds, int n_classes, int depth,
+                                    int width, int n_leaves, void* stream) {
+  return launch_classes<int8_t>(Xb, feat, bins, leaf, out, n, d, n_rounds,
+                                n_classes, depth, width, n_leaves, stream);
+}
+
+extern "C" int tree_walk_classes_i32(const void* Xb, const void* feat,
+                                     const void* bins, const void* leaf,
+                                     void* out, int64_t n, int d,
+                                     int n_rounds, int n_classes, int depth,
+                                     int width, int n_leaves, void* stream) {
+  return launch_classes<int32_t>(Xb, feat, bins, leaf, out, n, d, n_rounds,
+                                 n_classes, depth, width, n_leaves, stream);
+}
 
 extern "C" int tree_walk_max_m() { return MAX_M; }
 

@@ -38,7 +38,8 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # launches per kernel, counted by each wrapper where it launches its kernel
 LAUNCHES: Dict[str, int] = {
-    "bin_features": 0, "tree_walk": 0, "histograms": 0, "split_search": 0,
+    "bin_features": 0, "tree_walk": 0, "tree_walk_classes": 0,
+    "histograms": 0, "split_search": 0,
     "route_level": 0, "leaf_values": 0, "binned_aupr": 0,
     "sibling_subtract": 0, "confusion_counts": 0, "regression_moments": 0}
 _launch_lock = threading.Lock()

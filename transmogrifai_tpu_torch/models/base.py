@@ -65,6 +65,15 @@ def regression_pred(pred: torch.Tensor) -> Dict[str, torch.Tensor]:
             "probability": pred.new_zeros((pred.shape[0], 0))}
 
 
+def binary_margin_pred(margin: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The Prediction dict of binary margins (n,): class 1 where the
+    margin is positive, rawPrediction (−m, m), sigmoid probabilities."""
+    p1 = torch.sigmoid(margin)
+    return {"prediction": (margin > 0).to(torch.float32),
+            "rawPrediction": torch.stack([-margin, margin], dim=-1),
+            "probability": torch.stack([1 - p1, p1], dim=-1)}
+
+
 def infer_n_classes(y: np.ndarray) -> int:
     """Label cardinality for classification (labels must be 0..k-1)."""
     k = int(np.asarray(y).max(initial=0)) + 1

@@ -1,15 +1,15 @@
-"""Multinomial logistic regression: the elastic-net fit (FISTA) and the
-scoring side (`X @ W + b`, softmax, argmax) — the port's counterpart of the
-JAX package's `models/logistic.py`.
+"""Multinomial logistic regression: the pure-L2 fit (L-BFGS), the
+elastic-net fit (FISTA) and the scoring side (`X @ W + b`, softmax,
+argmax) — the port's counterpart of the JAX package's
+`models/logistic.py`.
 
-Plain torch: the fit's cost is two dense products per step (`X @ W` and
-`Xᵀ @ R`, batched over a leading pair axis P of (config, fold) pairs),
-which the JAX package also computes as plain dots, and an elementwise tail
-over (n, k) and (d, k) values per pair. The products run in exact f32:
-the port never enables TF32.
+Plain torch: the fits' cost is two dense products per step or line-search
+trial (`X @ W` and `Xᵀ @ R`, batched over a leading pair axis P of
+(config, fold) pairs), which the JAX package also computes as plain dots,
+and an elementwise tail over (n, k) and (d, k) values per pair. The
+products run in exact f32: the port never enables TF32.
 
-Not ported yet: the pure-L2 L-BFGS fit (`fit_logreg`, optax L-BFGS;
-ROADMAP.md, F5) and warm starts.
+Not ported yet: warm starts.
 """
 
 from __future__ import annotations
@@ -19,8 +19,57 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from transmogrifai_tpu_torch.models import lbfgs
 from transmogrifai_tpu_torch.models.base import (
     Param, PredictionModel, PredictorEstimator, infer_n_classes, per_pair)
+
+
+def logreg_loss(params: Dict[str, torch.Tensor], X: torch.Tensor,
+                y_onehot: torch.Tensor, w: torch.Tensor,
+                l2: torch.Tensor) -> torch.Tensor:
+    """(P,) weighted softmax cross-entropy / max(Σw, 1) + l2/2·‖W‖² of
+    params {"W": (P, d, k), "b": (P, k)} with row weights w (P, n) (the
+    JAX package's `logreg_loss`, per pair)."""
+    logits = torch.matmul(X, params["W"]) + params["b"][:, None, :]
+    ll = -(y_onehot * torch.log_softmax(logits, dim=-1)).sum(-1)
+    wsum = torch.clamp(w.sum(1), min=1.0)
+    return (ll * w).sum(1) / wsum \
+        + 0.5 * l2 * (params["W"] ** 2).sum((1, 2))
+
+
+def fit_logreg(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: Param,
+               n_classes: int, max_iter: int = 100
+               ) -> Dict[str, torch.Tensor]:
+    """Pure-L2 multinomial logistic regression by L-BFGS for P fits at once
+    over one matrix X (n, d): labels y (n,), row weights w (P, n) (or
+    (n,)), l2 one value or one per pair. Returns {"W": (P, d, k), "b": (P,
+    k)}.
+
+    The JAX package's `fit_logreg`: `logreg_loss` minimized from zero by
+    `max_iter` steps of optax's L-BFGS (`models/lbfgs.py`), with the
+    gradient written out: (softmax − Y)·w/Σw gives Xᵀ(·) + l2·W and the
+    column sums for b."""
+    w = w[None, :] if w.dim() == 1 else w
+    P, (n, d) = w.shape[0], X.shape
+    k = n_classes
+    Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
+    l2 = per_pair(l2, P, X.device)
+    wn = (w / torch.clamp(w.sum(1), min=1.0)[:, None])[:, :, None]
+    Xt = X.T
+
+    def value_and_grad(x):
+        W = x[:, :d * k].reshape(P, d, k)
+        b = x[:, d * k:]
+        logits = torch.matmul(X, W) + b[:, None, :]
+        ll = -(Y * torch.log_softmax(logits, dim=-1)).sum(-1)
+        value = (ll * wn[:, :, 0]).sum(1) + 0.5 * l2 * (W ** 2).sum((1, 2))
+        R = (torch.softmax(logits, dim=-1) - Y) * wn
+        gW = torch.matmul(Xt, R) + l2[:, None, None] * W
+        return value, torch.cat([gW.reshape(P, d * k), R.sum(1)], 1)
+
+    x = lbfgs.minimize(value_and_grad, torch.zeros(
+        (P, d * k + k), dtype=torch.float32, device=X.device), max_iter)
+    return {"W": x[:, :d * k].reshape(P, d, k), "b": x[:, d * k:]}
 
 
 def _power_lipschitz(X: torch.Tensor, w: torch.Tensor, wsum: torch.Tensor,
@@ -148,8 +197,8 @@ class OpLogisticRegression(PredictorEstimator):
     """Grid-sweepable hyperparameters reg_param, elastic_net_param and
     max_iter (the JAX package's `OpLogisticRegression`): the penalty is
     reg_param·(α·L1 + (1 − α)/2·L2). α > 0 fits by FISTA
-    (`fit_logreg_enet`, `enet_iters(max_iter)` steps); the pure-L2 L-BFGS
-    fit of α = 0 is not ported yet."""
+    (`fit_logreg_enet`, `enet_iters(max_iter)` steps), α = 0 by L-BFGS
+    (`fit_logreg`, `max_iter` steps)."""
 
     def __init__(self, reg_param: float = 0.0, max_iter: int = 100,
                  elastic_net_param: float = 0.0,
@@ -165,16 +214,16 @@ class OpLogisticRegression(PredictorEstimator):
     def fit_arrays(self, X, y, w, ctx) -> LogisticRegressionModel:
         k = self.n_classes or infer_n_classes(y.cpu().numpy())
         alpha = float(self.elastic_net_param)
-        if alpha <= 0.0:
-            raise NotImplementedError(
-                "OpLogisticRegression with elastic_net_param = 0 fits by "
-                "L-BFGS, which is not ported yet (ROADMAP.md, F5)")
         if self.init_params is not None:
             raise NotImplementedError(
                 "logistic warm starts are not ported yet (ROADMAP.md, "
                 "queue 1)")
         reg = float(self.reg_param)
-        params = fit_logreg_enet(X, y, w, reg * alpha, reg * (1.0 - alpha), k,
-                                 enet_iters(self.max_iter))
+        if alpha > 0.0:
+            params = fit_logreg_enet(X, y, w, reg * alpha,
+                                     reg * (1.0 - alpha), k,
+                                     enet_iters(self.max_iter))
+        else:
+            params = fit_logreg(X, y, w, reg, k, self.max_iter)
         return LogisticRegressionModel(params["W"][0].cpu().numpy(),
                                        params["b"][0].cpu().numpy())

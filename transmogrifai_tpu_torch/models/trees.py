@@ -1,7 +1,9 @@
-"""Tree ensembles: binning (K4), the ensemble walk (K5), and the fit side
-of gradient boosting and random forests: histograms (K1), sibling
-subtraction (K1-sub), split search (K2), routing and leaf values (K3), the
-boosting rounds, the forest fit and the GBT/XGBoost/RF estimators.
+"""Tree ensembles: binning (K4), the ensemble walk (K5) and the class-tree
+walk of softmax boosting (K5-mc), and the fit side of gradient boosting,
+random forests and decision trees: histograms (K1), sibling subtraction
+(K1-sub), split search (K2), routing and leaf values (K3), the boosting
+rounds (binary, regression and softmax), the forest fit and the
+GBT/XGBoost/RF/decision-tree estimators.
 
 The port's counterpart of the JAX package's `models/trees.py`. A fitted
 ensemble is dense tables: per-feature bin edges (d, n_edges) f32, split
@@ -43,8 +45,8 @@ from transmogrifai_tpu_torch import cuda_build
 from transmogrifai_tpu_torch.evaluators.device_metrics import (
     binned_aupr, sigmoid)
 from transmogrifai_tpu_torch.models.base import (
-    Param, PredictionModel, PredictorEstimator, infer_n_classes, per_pair,
-    regression_pred)
+    Param, PredictionModel, PredictorEstimator, binary_margin_pred,
+    infer_n_classes, per_pair, regression_pred)
 
 log = logging.getLogger(__name__)
 
@@ -157,19 +159,30 @@ def _walk_shapes(Xb, feat, bins, leaf):
     return n_trees, depth, width
 
 
-def tree_walk_plain(Xb: torch.Tensor, feat: torch.Tensor, bins: torch.Tensor,
-                    leaf: torch.Tensor) -> torch.Tensor:
-    """(n, m) f32 sum over trees of each row's leaf values. All trees walk
-    together, one level at a time, with `torch.gather`; the leaf values
-    are then summed in tree order."""
-    n_trees, depth, _ = _walk_shapes(Xb, feat, bins, leaf)
-    n, m = Xb.shape[0], leaf.shape[-1]
+def _walk_nodes(Xb: torch.Tensor, feat: torch.Tensor,
+                bins: torch.Tensor) -> torch.Tensor:
+    """(n_trees, n) leaf index of every row in every tree of tables (n_trees,
+    depth, width): all trees walk together, one level at a time, with
+    `torch.gather`."""
+    n_trees, depth, _ = feat.shape
+    n = Xb.shape[0]
     node = torch.zeros((n_trees, n), dtype=torch.long, device=Xb.device)
     rows = torch.arange(n, device=Xb.device)[None, :]
     for level in range(depth):
         f = torch.gather(feat[:, level, :].long(), 1, node)
         b = torch.gather(bins[:, level, :].long(), 1, node)
         node = node * 2 + (Xb[rows, f].long() > b).long()
+    return node
+
+
+def tree_walk_plain(Xb: torch.Tensor, feat: torch.Tensor, bins: torch.Tensor,
+                    leaf: torch.Tensor) -> torch.Tensor:
+    """(n, m) f32 sum over trees of each row's leaf values. All trees walk
+    together, one level at a time, with `torch.gather`; the leaf values
+    are then summed in tree order."""
+    n_trees, _, _ = _walk_shapes(Xb, feat, bins, leaf)
+    n, m = Xb.shape[0], leaf.shape[-1]
+    node = _walk_nodes(Xb, feat, bins)
     vals = torch.gather(leaf, 1, node[:, :, None].expand(n_trees, n, m))
     acc = torch.zeros((n, m), dtype=torch.float32, device=Xb.device)
     for t in range(n_trees):
@@ -181,17 +194,22 @@ _WALK_ARGS = (ctypes.c_void_p,) * 5 + (
     ctypes.c_int64,) + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 
 
-def _tree_walk_cuda(Xb, feat, bins, leaf) -> torch.Tensor:
+def _check_walk_inputs(fname, Xb, feat, bins, leaf) -> None:
+    """The devices and dtypes the walk kernels take."""
     for name, t in (("feat", feat), ("bin", bins), ("leaf", leaf)):
         _require(t.device == Xb.device,
-                 f"tree_walk: Xb on {Xb.device}, {name} on {t.device}")
+                 f"{fname}: Xb on {Xb.device}, {name} on {t.device}")
     _require(Xb.dtype in (torch.int8, torch.int32),
-             f"tree_walk: Xb must be int8 or int32, got {Xb.dtype}")
+             f"{fname}: Xb must be int8 or int32, got {Xb.dtype}")
     _require(feat.dtype == torch.int32 and bins.dtype == torch.int32,
-             f"tree_walk: feat/bin must be int32, got {feat.dtype}/"
+             f"{fname}: feat/bin must be int32, got {feat.dtype}/"
              f"{bins.dtype}")
     _require(leaf.dtype == torch.float32,
-             f"tree_walk: leaf must be f32, got {leaf.dtype}")
+             f"{fname}: leaf must be f32, got {leaf.dtype}")
+
+
+def _tree_walk_cuda(Xb, feat, bins, leaf) -> torch.Tensor:
+    _check_walk_inputs("tree_walk", Xb, feat, bins, leaf)
     n_trees, depth, width = _walk_shapes(Xb, feat, bins, leaf)
     n, d = Xb.shape
     n_leaves, m = leaf.shape[1], leaf.shape[2]
@@ -225,6 +243,82 @@ def tree_walk(Xb: torch.Tensor, feat: torch.Tensor, bins: torch.Tensor,
     if Xb.is_cuda:
         return _tree_walk_cuda(Xb, feat, bins, leaf)
     return tree_walk_plain(Xb, feat, bins, leaf)
+
+
+# --------------------------------------------------------------------------- #
+# K5-mc: the class-tree walk of softmax boosting                              #
+# --------------------------------------------------------------------------- #
+
+def _walk_classes_shapes(Xb, feat, bins, leaf):
+    _require(Xb.dim() == 2, f"tree_walk_classes: Xb must be (n, d), got "
+                            f"{tuple(Xb.shape)}")
+    _require(feat.dim() == 4 and feat.shape == bins.shape,
+             f"tree_walk_classes: feat {tuple(feat.shape)} / bin "
+             f"{tuple(bins.shape)} must be equal (rounds, classes, depth, "
+             f"width)")
+    _require(leaf.dim() == 4 and leaf.shape[:2] == feat.shape[:2]
+             and leaf.shape[3] == 1,
+             f"tree_walk_classes: leaf {tuple(leaf.shape)} must be (rounds, "
+             f"classes, n_leaves, 1)")
+    _walk_shapes(Xb, feat.flatten(0, 1), bins.flatten(0, 1),
+                 leaf.flatten(0, 1))
+    return feat.shape
+
+
+def tree_walk_classes_plain(Xb: torch.Tensor, feat: torch.Tensor,
+                            bins: torch.Tensor,
+                            leaf: torch.Tensor) -> torch.Tensor:
+    """(n, K) f32: for each row and class k, the sum over rounds (in index
+    order) of the leaf it reaches in tree (t, k)."""
+    T, K, _, _ = _walk_classes_shapes(Xb, feat, bins, leaf)
+    n = Xb.shape[0]
+    node = _walk_nodes(Xb, feat.flatten(0, 1), bins.flatten(0, 1))
+    vals = torch.gather(leaf.flatten(0, 1)[:, :, 0], 1, node).reshape(
+        T, K, n)
+    acc = torch.zeros((K, n), dtype=torch.float32, device=Xb.device)
+    for t in range(T):
+        acc = acc + vals[t]
+    return acc.T.contiguous()
+
+
+_WALK_CLASSES_ARGS = (ctypes.c_void_p,) * 5 + (
+    ctypes.c_int64,) + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+
+
+def _tree_walk_classes_cuda(Xb, feat, bins, leaf) -> torch.Tensor:
+    _check_walk_inputs("tree_walk_classes", Xb, feat, bins, leaf)
+    T, K, depth, width = _walk_classes_shapes(Xb, feat, bins, leaf)
+    _require(K <= _MAX_GRID_YZ,
+             f"tree_walk_classes: {K} classes exceed {_MAX_GRID_YZ}")
+    n, d = Xb.shape
+    Xb, feat, bins, leaf = (t.contiguous() for t in (Xb, feat, bins, leaf))
+    if n == 0 or K == 0 or T == 0:
+        return torch.zeros((n, K), dtype=torch.float32, device=Xb.device)
+    out = torch.empty((n, K), dtype=torch.float32, device=Xb.device)
+    lib = cuda_build.load("tree_walk")
+    fname = ("tree_walk_classes_i8" if Xb.dtype == torch.int8
+             else "tree_walk_classes_i32")
+    fn = cuda_build.declare(lib, fname, _WALK_CLASSES_ARGS)
+    with torch.cuda.device(Xb.device):
+        err = fn(Xb.data_ptr(), feat.data_ptr(), bins.data_ptr(),
+                 leaf.data_ptr(), out.data_ptr(), n, d, T, K, depth, width,
+                 leaf.shape[2], _stream_ptr(Xb))
+    cuda_build.check(fname, err)
+    _count("tree_walk_classes")
+    return out
+
+
+def tree_walk_classes(Xb: torch.Tensor, feat: torch.Tensor,
+                      bins: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """(n, K) f32 per-class sums of a softmax-boosted ensemble: tables
+    (rounds, K, depth, width) int32 and leaves (rounds, K, n_leaves, 1)
+    f32; out[r, k] = Σ_t leaf[t, k, walk_{t,k}(r)], rounds added in index
+    order. A CUDA tensor launches the K5-mc kernel (or raises); a CPU
+    tensor takes the plain version."""
+    _check_device(Xb, "tree_walk_classes")
+    if Xb.is_cuda:
+        return _tree_walk_classes_cuda(Xb, feat, bins, leaf)
+    return tree_walk_classes_plain(Xb, feat, bins, leaf)
 
 
 # --------------------------------------------------------------------------- #
@@ -922,7 +1016,9 @@ def fit_forest(Xb: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     m = Y.shape[1]
     w = w[None, :] if w.dim() == 1 else w
     Q = w.shape[0]
-    if draws is None and _INJECTED_DRAWS:
+    # a tree without bootstrap or feature sampling draws nothing
+    if draws is None and _INJECTED_DRAWS and (bootstrap
+                                              or subsample_features):
         draws = _INJECTED_DRAWS[-1]
         if callable(draws):
             draws = draws(int(seed), n_trees, n, d)
@@ -1081,6 +1177,83 @@ def fit_gbt_pairs(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return trees, margin, since
 
 
+def fit_gbt_multiclass_pairs(Xb: torch.Tensor, y: torch.Tensor,
+                             w: torch.Tensor, n_rounds: int, max_depth: int,
+                             n_bins: int, n_classes: int,
+                             learning_rate: Param, reg_lambda: Param,
+                             min_child_weight: Param = 1.0,
+                             active_depth: Optional[Param] = None,
+                             gamma: Param = 0.0, alpha: Param = 0.0,
+                             subsample: Param = 1.0, colsample: Param = 1.0,
+                             seed: int = 0, min_gain_norm: Param = 0.0,
+                             keep_trees: bool = False):
+    """Softmax boosting of P fits at once over one binned matrix Xb (n, d):
+    labels y (n,) in 0..K-1, row weights w (P, n), every hyperparameter one
+    value or one per pair. Returns (trees, margin (P, n, K)); `trees` is
+    {"feat", "bin": (P, rounds, K, depth, 2^depth) int32, "leaf": (P,
+    rounds, K, 2^depth, 1) f32} with `keep_trees`, else None.
+
+    The JAX package's `fit_gbt_multiclass` (XGBoost's multi:softprob):
+    per round, from the softmax p of the margin, gradients (p − Y)·w and
+    hessians max(p(1 − p), 1e-6)·w; one tree per class on (−g, h), all P·K
+    trees of the round grown together along `grow_trees`' pair axis; margin
+    += lr · leaf at each row's final node. Every round runs: no early
+    stopping. A round's row and feature draws (rates below 1, from a
+    `torch.Generator` seeded with `seed`, so such fits match the JAX
+    package at the metric level only) are shared by its K classes."""
+    P, n = w.shape
+    K = int(n_classes)
+    dev = Xb.device
+    d = Xb.shape[1]
+
+    def classes(v, dtype=torch.float32):
+        return per_pair(v, P, dev, dtype).repeat_interleave(K)
+
+    lr = per_pair(learning_rate, P, dev)[:, None, None]
+    sub = per_pair(subsample, P, dev)
+    col = per_pair(colsample, P, dev)
+    reg_lambda, min_child_weight, gamma, alpha, min_gain_norm = (
+        classes(v) for v in (reg_lambda, min_child_weight, gamma, alpha,
+                             min_gain_norm))
+    if active_depth is not None:
+        active_depth = classes(active_depth, torch.int32)
+    gen = None
+    if bool((sub < 1.0).any()) or bool((col < 1.0).any()):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+    Y = torch.nn.functional.one_hot(y.long(), K).to(torch.float32)
+    margin = torch.zeros((P, n, K), dtype=torch.float32, device=dev)
+    kept: List[Dict[str, torch.Tensor]] = []
+    for _ in range(n_rounds):
+        p = torch.softmax(margin, dim=2)
+        G = -((p - Y) * w[:, :, None])
+        H = torch.clamp(p * (1.0 - p), min=1e-6) * w[:, :, None]
+        fmask = None
+        if gen is not None:
+            rows = (torch.rand((P, n), generator=gen, device=dev)
+                    < sub[:, None]).to(torch.float32)
+            G, H = G * rows[:, :, None], H * rows[:, :, None]
+            fmask = (torch.rand((P, d), generator=gen, device=dev)
+                     < col[:, None]).repeat_interleave(K, 0)
+        tree, node = grow_trees(
+            Xb, G.permute(0, 2, 1).reshape(P * K, 1, n),
+            H.permute(0, 2, 1).reshape(P * K, n).contiguous(), max_depth,
+            n_bins, reg_lambda=reg_lambda,
+            min_child_weight=min_child_weight, min_gain=gamma,
+            feature_mask=fmask, active_depth=active_depth, alpha=alpha,
+            min_gain_norm=min_gain_norm)
+        upd = torch.gather(tree["leaf"][:, :, 0], 1, node.long())
+        margin = margin + lr * upd.reshape(P, K, n).permute(0, 2, 1)
+        if keep_trees:
+            kept.append({k: v.reshape((P, K) + v.shape[1:])
+                         for k, v in tree.items()})
+    trees = None
+    if keep_trees:
+        trees = {k: torch.stack([t[k] for t in kept], 1)
+                 for k in ("feat", "bin", "leaf")}
+    return trees, margin
+
+
 def _pick_rounds_per_dispatch(n_estimators: int, ideal: int) -> int:
     """Largest divisor of `n_estimators` <= `ideal` (the JAX package's
     chunking rule, kept because it fixes the shipped model's round
@@ -1115,6 +1288,22 @@ def predict_gbt_margin(trees: Dict[str, torch.Tensor], Xb: torch.Tensor,
     return _f32(learning_rate, s) * s
 
 
+def predict_gbt_multiclass_margin(trees: Dict[str, torch.Tensor],
+                                  Xb: torch.Tensor,
+                                  learning_rate: float) -> torch.Tensor:
+    """(n, K) softmax-boosting margin of trees (rounds, K, ...):
+    learning_rate · Σ_t leaf (K5-mc)."""
+    s = tree_walk_classes(Xb, trees["feat"], trees["bin"], trees["leaf"])
+    return _f32(learning_rate, s) * s
+
+
+def gbt_multiclass_pred_from_margin(margin: torch.Tensor
+                                    ) -> Dict[str, torch.Tensor]:
+    probs = torch.softmax(margin, dim=-1)
+    return {"prediction": torch.argmax(probs, -1).to(torch.float32),
+            "rawPrediction": margin, "probability": probs}
+
+
 def predict_forest(trees: Dict[str, torch.Tensor],
                    Xb: torch.Tensor) -> torch.Tensor:
     """(n, m) mean per-tree prediction."""
@@ -1125,10 +1314,7 @@ def predict_forest(trees: Dict[str, torch.Tensor],
 def gbt_pred_from_margin(margin: torch.Tensor,
                          objective: str) -> Dict[str, torch.Tensor]:
     if objective == "logistic":
-        p1 = torch.sigmoid(margin)
-        return {"prediction": (margin > 0).to(torch.float32),
-                "rawPrediction": torch.stack([-margin, margin], 1),
-                "probability": torch.stack([1 - p1, p1], dim=1)}
+        return binary_margin_pred(margin)
     return regression_pred(margin)
 
 
@@ -1157,8 +1343,9 @@ class TreeEnsemble(torch.nn.Module):
         super().__init__()
         feat = np.asarray(trees["feat"], dtype=np.int32)
         d = np.asarray(edges).shape[0]
-        for level in range(feat.shape[1]):
-            used = feat[:, level, :2 ** level]
+        flat = feat.reshape((-1,) + feat.shape[-2:])
+        for level in range(flat.shape[1]):
+            used = flat[:, level, :2 ** level]
             if used.size and (used.min() < 0 or used.max() >= d):
                 raise ValueError(
                     f"tree tables name features outside [0, {d}) at "
@@ -1230,6 +1417,15 @@ class GBTRegressionModel(GBTClassificationModel):
     _objective = "squared"
 
 
+class GBTMulticlassModel(GBTClassificationModel):
+    """Softmax boosting: trees stacked (rounds, classes, ...), scored by
+    K5-mc."""
+
+    def _apply_tables(self, trees, Xb):
+        return gbt_multiclass_pred_from_margin(
+            predict_gbt_multiclass_margin(trees, Xb, self.learning_rate))
+
+
 # --------------------------------------------------------------------------- #
 # estimators                                                                  #
 # --------------------------------------------------------------------------- #
@@ -1248,6 +1444,8 @@ class OpRandomForestClassifier(_TreeEstimatorBase):
     threshold and `min_instances_per_node` the child-weight bound, grid
     axes of the default sweep. k classes grow trees on k class channels;
     warm starts are not ported yet."""
+
+    _bootstrap = True  # Poisson(1) row counts per tree; decision trees: no
 
     def __init__(self, n_trees: int = 20, max_depth: int = 5,
                  max_bins: int = DEFAULT_MAX_BINS,
@@ -1287,6 +1485,7 @@ class OpRandomForestClassifier(_TreeEstimatorBase):
         trees = fit_forest(Xb, Y, w, self.n_trees, self.max_depth,
                            self.max_bins, ctx.seed if ctx is not None else 0,
                            self.subsample_features, self._effective_mcw(),
+                           bootstrap=self._bootstrap,
                            min_gain=self.min_info_gain)
         return edges, {k2: v[0].cpu().numpy() for k2, v in trees.items()}
 
@@ -1301,10 +1500,55 @@ class OpRandomForestRegressor(OpRandomForestClassifier):
                                                        ctx))
 
 
+class OpDecisionTreeClassifier(OpRandomForestClassifier):
+    """One deterministic tree: no bootstrap, all features, λ = 1e-6 (the
+    JAX package's `OpDecisionTreeClassifier`)."""
+
+    _bootstrap = False
+
+    def __init__(self, max_depth: int = 5, max_bins: int = DEFAULT_MAX_BINS,
+                 min_child_weight: float = 1.0, min_info_gain: float = 0.0,
+                 min_instances_per_node: float = 1.0,
+                 n_classes: Optional[int] = None, uid: Optional[str] = None):
+        super().__init__(n_trees=1, max_depth=max_depth, max_bins=max_bins,
+                         min_child_weight=min_child_weight,
+                         min_info_gain=min_info_gain,
+                         min_instances_per_node=min_instances_per_node,
+                         subsample_features=False, n_classes=n_classes,
+                         uid=uid)
+        self.params = {"max_depth": max_depth, "max_bins": max_bins,
+                       "min_child_weight": min_child_weight,
+                       "min_info_gain": min_info_gain,
+                       "min_instances_per_node": min_instances_per_node,
+                       "n_classes": n_classes}
+
+
+class OpDecisionTreeRegressor(OpRandomForestRegressor):
+    """One deterministic regression tree (the JAX package's
+    `OpDecisionTreeRegressor`)."""
+
+    _bootstrap = False
+
+    def __init__(self, max_depth: int = 5, max_bins: int = DEFAULT_MAX_BINS,
+                 min_child_weight: float = 1.0, min_info_gain: float = 0.0,
+                 min_instances_per_node: float = 1.0,
+                 uid: Optional[str] = None):
+        super().__init__(n_trees=1, max_depth=max_depth, max_bins=max_bins,
+                         min_child_weight=min_child_weight,
+                         min_info_gain=min_info_gain,
+                         min_instances_per_node=min_instances_per_node,
+                         subsample_features=False, uid=uid)
+        self.params = {"max_depth": max_depth, "max_bins": max_bins,
+                       "min_child_weight": min_child_weight,
+                       "min_info_gain": min_info_gain,
+                       "min_instances_per_node": min_instances_per_node}
+
+
 class OpGBTClassifier(_TreeEstimatorBase):
-    """Gradient-boosted binary classifier, XGBoost-style second order
-    (the JAX package's `OpGBTClassifier`; multiclass boosting and warm
-    starts are not ported yet)."""
+    """Gradient-boosted classifier, XGBoost-style second order (the JAX
+    package's `OpGBTClassifier`): binary by the sigmoid margin, k > 2
+    classes by softmax boosting (K trees per round, every round, no early
+    stopping). Warm starts are not ported yet."""
 
     # the refit's early-stopping holdout: a seeded 20% of the rows
     _ES_EVAL_FRACTION = 0.2
@@ -1367,15 +1611,22 @@ class OpGBTClassifier(_TreeEstimatorBase):
     def fit_arrays(self, X, y, w, ctx):
         k = (self.n_classes or infer_n_classes(y.cpu().numpy())
              if self._objective == "logistic" else 2)
-        if k > 2:
-            raise NotImplementedError(
-                "multiclass GBT boosting is not ported yet (ROADMAP.md, "
-                "queue 1, item 9)")
         if self.init_params is not None:
             raise NotImplementedError(
                 "GBT warm starts are not ported yet (ROADMAP.md, queue 1)")
         edges, Xb = self._edges_binned(X, ctx)
         seed = ctx.seed if ctx is not None else 0
+        if k > 2:  # softmax boosting: every round, no early stopping
+            trees, _ = fit_gbt_multiclass_pairs(
+                Xb, y, w[None, :], self.n_estimators, self.max_depth,
+                self.max_bins, k, self.learning_rate, self.reg_lambda,
+                self._effective_mcw(), gamma=self.gamma, alpha=self.alpha,
+                subsample=self.subsample, colsample=self.colsample_bytree,
+                seed=seed, min_gain_norm=self.min_info_gain,
+                keep_trees=True)
+            return GBTMulticlassModel(
+                edges, {k2: v[0].cpu().numpy() for k2, v in trees.items()},
+                self.learning_rate)
         esr = int(self.early_stopping_rounds or 0)
         n_rounds = self.n_estimators
         rounds: Dict[str, int] = {}

@@ -3,9 +3,11 @@ fold) pair of one model family.
 
 The port's counterpart of the JAX package's `parallel/sweep.py`
 (`run_sweep` → `_run_sweep`, the single-device `_sweep_blocks` scaffold
-and the logistic, linear-regression, forest and GBT handlers, for binary,
-multiclass and regression labels). A fold is a pair of 0/1 row masks over
-the one training matrix. Configs group by their static
+and the handlers of every family its `_dispatch` knows: logistic (FISTA
+and L-BFGS), linear regression, linear SVC, GLM, naive Bayes, MLP,
+forests and decision trees, GBT and XGBoost (binary, softmax and
+squared), for binary, multiclass and regression labels). A fold is a pair
+of 0/1 row masks over the one training matrix. Configs group by their static
 parameters (`static_of`: the shapes a fit compiles to in the JAX
 package); the (config, fold) pairs of a group fit together along the
 leading pair axis of the family's batched fit, so each kernel launch
@@ -17,8 +19,7 @@ device metric over all its pairs (one launch of K8-mc or K8-reg for a
 multiclass or regression group).
 
 Not ported (ROADMAP.md): the journal and checkpoints, the calibration of
-dispatch widths, the mesh, the host-metric fallback, multiclass boosting
-and the other families' handlers.
+dispatch widths, the mesh and the generic host-metric fallback.
 """
 
 from __future__ import annotations
@@ -32,16 +33,26 @@ import torch
 from transmogrifai_tpu_torch.evaluators.device_metrics import (
     make_device_metric)
 from transmogrifai_tpu_torch.models.base import (
-    infer_n_classes, regression_pred)
+    binary_margin_pred, infer_n_classes, regression_pred)
+from transmogrifai_tpu_torch.models.glm import (
+    OpGeneralizedLinearRegression, fit_glm, glm_pred_from_eta)
 from transmogrifai_tpu_torch.models.linear import (
     OpLinearRegression, fit_linreg, fit_linreg_enet)
+from transmogrifai_tpu_torch.models.linear_svc import (
+    OpLinearSVC, fit_linear_svc)
 from transmogrifai_tpu_torch.models.logistic import (
-    OpLogisticRegression, enet_iters, fit_logreg_enet,
+    OpLogisticRegression, enet_iters, fit_logreg, fit_logreg_enet,
     logreg_pred_from_logits)
+from transmogrifai_tpu_torch.models.mlp import (
+    OpMultilayerPerceptronClassifier, _forward, fit_mlp)
+from transmogrifai_tpu_torch.models.naive_bayes import (
+    NEGATIVE_FEATURES, OpNaiveBayes, fit_naive_bayes, has_negative)
 from transmogrifai_tpu_torch.models.trees import (
     OpGBTClassifier, OpRandomForestClassifier, OpRandomForestRegressor,
-    bin_features, fit_forest, fit_gbt_pairs, forest_classification_pred,
-    forest_regression_pred, gbt_pred_from_margin, quantile_bin_edges)
+    bin_features, fit_forest, fit_gbt_multiclass_pairs, fit_gbt_pairs,
+    forest_classification_pred, forest_regression_pred,
+    gbt_multiclass_pred_from_margin, gbt_pred_from_margin,
+    quantile_bin_edges)
 
 Pred = Dict[str, torch.Tensor]
 
@@ -154,6 +165,27 @@ def _static_linreg(est, g) -> Tuple:
     return (_enet_of(est, g) > 0.0,)
 
 
+def _static_svc(est, g) -> Tuple:
+    return (int(_grid_param(est, g, "max_iter")),)
+
+
+def _static_glm(est, g) -> Tuple:
+    ln = _grid_param(est, g, "link")
+    return (str(_grid_param(est, g, "family")),
+            int(_grid_param(est, g, "max_iter")),
+            float(_grid_param(est, g, "var_power")),
+            str(ln) if ln is not None else None)
+
+
+def _static_nb(est, g) -> Tuple:
+    return ()
+
+
+def _static_mlp(est, g) -> Tuple:
+    return (tuple(_grid_param(est, g, "hidden_layers")),
+            int(_grid_param(est, g, "max_iter")))
+
+
 def _static_forest(est, g) -> Tuple:
     return (int(_grid_param(est, g, "n_trees")),
             int(_grid_param(est, g, "max_bins")),
@@ -171,12 +203,11 @@ def _static_gbt(est, g) -> Tuple:
 def _sweep_logistic(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
     def fit_predict(static, idxs, dyn, Wp, Vp):
         max_iter, enet = static
-        if not enet:
-            raise NotImplementedError(
-                "OpLogisticRegression with elastic_net_param = 0 fits by "
-                "L-BFGS, which is not ported yet (ROADMAP.md, F5)")
-        params = fit_logreg_enet(X, y, Wp, dyn["l1"], dyn["l2"], n_classes,
-                                 enet_iters(max_iter))
+        if enet:  # FISTA: one fit covers the group's (l1, l2) pairs
+            params = fit_logreg_enet(X, y, Wp, dyn["l1"], dyn["l2"],
+                                     n_classes, enet_iters(max_iter))
+        else:  # pure L2: L-BFGS
+            params = fit_logreg(X, y, Wp, dyn["l2"], n_classes, max_iter)
         logits = torch.matmul(X, params["W"]) + params["b"][:, None, :]
         return [logreg_pred_from_logits(lg) for lg in logits]
 
@@ -200,6 +231,77 @@ def _sweep_linreg(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
                          static_of=lambda g: _static_linreg(est, g),
                          dyn_of=lambda g: _l1_l2_of(est, g),
                          fit_predict=fit_predict)
+
+
+def _sweep_svc(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+    def fit_predict(static, idxs, dyn, Wp, Vp):
+        params = fit_linear_svc(X, y, Wp, dyn["reg"], static[0])
+        margin = torch.matmul(params["beta"], X.T) + params["b"][:, None]
+        return [binary_margin_pred(m) for m in margin]
+
+    return _sweep_blocks(
+        grids, y, W, V, metric_fn, ctx, "svc",
+        static_of=lambda g: _static_svc(est, g),
+        dyn_of=lambda g: {"reg": float(_grid_param(est, g, "reg_param"))},
+        fit_predict=fit_predict)
+
+
+def _sweep_glm(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+    def fit_predict(static, idxs, dyn, Wp, Vp):
+        family, max_iter, var_power, link = static
+        params = fit_glm(X, y, Wp, dyn["reg"], family, max_iter, var_power,
+                         link)
+        eta = torch.matmul(params["beta"], X.T) + params["b"][:, None]
+        return [glm_pred_from_eta(e, family, link, var_power) for e in eta]
+
+    return _sweep_blocks(
+        grids, y, W, V, metric_fn, ctx, "glm",
+        static_of=lambda g: _static_glm(est, g),
+        dyn_of=lambda g: {"reg": float(_grid_param(est, g, "reg_param"))},
+        fit_predict=fit_predict)
+
+
+def _sweep_nb(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+    # Spark parity: negative features fail the family (the selector drops
+    # it); the verdict is read once per training matrix
+    cache = getattr(ctx, "_nb_nonneg_cache", None) if ctx is not None \
+        else None
+    if cache is None or cache[0] is not X:
+        cache = (X, has_negative(X))
+        if ctx is not None:
+            ctx._nb_nonneg_cache = cache
+    if cache[1]:
+        raise ValueError(NEGATIVE_FEATURES)
+
+    def fit_predict(static, idxs, dyn, Wp, Vp):
+        params = fit_naive_bayes(X, y, Wp, dyn["smoothing"], n_classes)
+        logits = torch.matmul(X, params["log_theta"].transpose(1, 2)) \
+            + params["log_prior"][:, None, :]
+        return [logreg_pred_from_logits(lg) for lg in logits]
+
+    return _sweep_blocks(
+        grids, y, W, V, metric_fn, ctx, "naive_bayes",
+        static_of=lambda g: _static_nb(est, g),
+        dyn_of=lambda g: {
+            "smoothing": float(_grid_param(est, g, "smoothing"))},
+        fit_predict=fit_predict)
+
+
+def _sweep_mlp(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+    seed = ctx.seed if ctx is not None else 0
+
+    def fit_predict(static, idxs, dyn, Wp, Vp):
+        hidden, max_iter = static
+        layers = (int(X.shape[1]),) + tuple(hidden) + (n_classes,)
+        params = fit_mlp(X, y, Wp, layers, max_iter, dyn["lr"], seed)
+        return [logreg_pred_from_logits(lg) for lg in _forward(params, X)]
+
+    return _sweep_blocks(
+        grids, y, W, V, metric_fn, ctx, "mlp",
+        static_of=lambda g: _static_mlp(est, g),
+        dyn_of=lambda g: {
+            "lr": float(_grid_param(est, g, "learning_rate"))},
+        fit_predict=fit_predict)
 
 
 def _sweep_forest(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
@@ -227,6 +329,7 @@ def _sweep_forest(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
         trees = fit_forest(Xb, Y, Wp, n_trees, _pad_depth_of(est, grids, idxs),
                            max_bins, seed, subsample, dyn["mcw"],
                            active_depth=dyn["depth"],
+                           bootstrap=est._bootstrap,
                            min_gain=dyn["min_gain"])
         return [pred_fn({k: v[q] for k, v in trees.items()}, Xb)
                 for q in range(Wp.shape[0])]
@@ -238,10 +341,7 @@ def _sweep_forest(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
 
 def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
     objective = est._objective
-    if objective == "logistic" and n_classes > 2:
-        raise NotImplementedError(
-            f"{type(est).__name__}: multiclass boosting is not ported yet "
-            "(ROADMAP.md, queue 1)")
+    multiclass = objective == "logistic" and n_classes > 2
     xb_by_bins = _binned_cache(est, grids, X, ctx)
     seed = ctx.seed if ctx is not None else 0
     eval_metric = str(getattr(est, "eval_metric", "logloss") or "logloss")
@@ -271,11 +371,24 @@ def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
 
     def pair_width(static, idxs) -> int:
         per_pair_hist = 2 ** max(_pad_depth_of(est, grids, idxs) - 1, 0) \
-            * d * static[1] * 8
+            * d * static[1] * 8 * (n_classes if multiclass else 1)
         return max(1, int(_PAIR_HIST_BYTES // per_pair_hist))
 
     def fit_predict(static, idxs, dyn, Wp, Vp):
         n_est, max_bins, esr = static[:3]
+        if multiclass:
+            # softmax boosting runs every round (no early stopping); the
+            # fit's final margin is the prediction
+            _, margin = fit_gbt_multiclass_pairs(
+                xb_by_bins[max_bins], y, Wp, n_est,
+                _pad_depth_of(est, grids, idxs), max_bins, n_classes,
+                dyn["lr"], dyn["lam"], dyn["mcw"],
+                active_depth=torch.as_tensor(dyn["depth"],
+                                             dtype=torch.int32),
+                gamma=dyn["gamma"], alpha=dyn["alpha"],
+                subsample=dyn["subsample"], colsample=dyn["colsample"],
+                seed=seed, min_gain_norm=dyn["min_gain_norm"])
+            return [gbt_multiclass_pred_from_margin(mg) for mg in margin]
         _, margin, _ = fit_gbt_pairs(
             xb_by_bins[max_bins], y, Wp, n_est,
             _pad_depth_of(est, grids, idxs), max_bins, dyn["lr"],
@@ -298,17 +411,25 @@ def _dispatch(est) -> Callable:
     # order matters: subclasses before parents
     if isinstance(est, OpGBTClassifier):  # and the GBT/XGB regressors
         return _sweep_gbt
-    if isinstance(est, OpRandomForestRegressor):
+    if isinstance(est, OpRandomForestRegressor):  # and the DT regressor
         return lambda *a: _sweep_forest(*a, regression=True)
-    if isinstance(est, OpRandomForestClassifier):
+    if isinstance(est, OpRandomForestClassifier):  # and the DT classifier
         return _sweep_forest
     if isinstance(est, OpLogisticRegression):
         return _sweep_logistic
     if isinstance(est, OpLinearRegression):
         return _sweep_linreg
+    if isinstance(est, OpLinearSVC):
+        return _sweep_svc
+    if isinstance(est, OpGeneralizedLinearRegression):
+        return _sweep_glm
+    if isinstance(est, OpNaiveBayes):
+        return _sweep_nb
+    if isinstance(est, OpMultilayerPerceptronClassifier):
+        return _sweep_mlp
     raise NotImplementedError(
-        f"{type(est).__name__}: only the logistic and linear regression, "
-        "random forest and GBT/XGBoost families are ported to the sweep "
+        f"{type(est).__name__}: the sweep knows no handler for this class, "
+        "and the generic host-metric fallback is not ported yet "
         "(ROADMAP.md, queue 1)")
 
 

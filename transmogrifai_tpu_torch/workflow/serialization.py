@@ -225,8 +225,12 @@ def _restore_arrays(value: Any, npz) -> Any:
 def _ensure_stage_library() -> None:
     """Import every ported stage module so the registry knows them."""
     import transmogrifai_tpu_torch.automl.sanity_checker  # noqa: F401
+    import transmogrifai_tpu_torch.models.glm  # noqa: F401
     import transmogrifai_tpu_torch.models.linear  # noqa: F401
+    import transmogrifai_tpu_torch.models.linear_svc  # noqa: F401
     import transmogrifai_tpu_torch.models.logistic  # noqa: F401
+    import transmogrifai_tpu_torch.models.mlp  # noqa: F401
+    import transmogrifai_tpu_torch.models.naive_bayes  # noqa: F401
     import transmogrifai_tpu_torch.models.trees  # noqa: F401
     import transmogrifai_tpu_torch.ops.categorical  # noqa: F401
     import transmogrifai_tpu_torch.ops.combiner  # noqa: F401
