@@ -7,7 +7,7 @@ nor the JAX package. Phases, one JSON line each; any failure exits
 non-zero:
 
 1. the card's name and power limit (from nvidia-smi), then the build of
-   every CUDA kernel of the port (eight sources) from
+   every CUDA kernel of the port (nine sources) from
    `transmogrifai_tpu_torch/csrc` with nvcc, all sources in parallel;
 2. K4 `bin_features` against its plain PyTorch version at n in
    {1, 64, 891, 65536} x 496 features with the Titanic model's 31 edges
@@ -26,10 +26,13 @@ non-zero:
    after phase 5: both kernels must have launched;
 6. timings with CUDA events after warmup (kernels, plain versions, the
    bound from bytes and operations, `torch.searchsorted` as K4's one-call
-   yardstick) at n = 891 and 65536; end-to-end `score_padded`
-   milliseconds per batch for ladder buckets 1, 8 and 64; and, for
-   buckets 1 and 64, the split of a batch's wall time into host phase and
-   device segment, with the device's busy share from `torch.profiler`;
+   yardstick) at n = 891 and 65536; then served batches (phase
+   `serving_timing`, after phase 20): `score_padded` at buckets 1, 8 and
+   64 with one CUDA graph per bucket and, as a measurement only, eagerly,
+   in f32 and int8, for the quickstart GBT and the script's models (the JAX
+   package's from phase 20, the port's from phase 19): wall ms per batch,
+   the part of it inside device segments and the rest on the host, and
+   the device's busy share from `torch.profiler`;
 7. the training kernels against their plain versions at the training
    path's shapes (P = 6 pairs, n = 802 rows, d = 496 features, 32 bins,
    levels 0, 5 and 9) and at n = 65536: K1 histograms within the f32
@@ -126,7 +129,30 @@ non-zero:
    one-config selector), saved, reloaded and scored through
    `score_compiled` on the card: reload equal, holdout metric within the
    family's tolerance of the JAX package's, scores as close as the family
-   allows; K5-mc must launch (the multiclass XGBoost model's scores).
+   allows; K5-mc must launch (the multiclass XGBoost model's scores);
+19. examples/op_titanic_simple.py verbatim (its derived features through
+   the math, scaler and row ops, its lambda `age_group`, the default
+   LR + RF + XGB selector over a train/validation split) trained on the
+   card with the JAX package's forest draws injected, held to
+   `testdata/titanic_simple_f32`: configs, kept columns and winner equal,
+   validation AuPR within 1e-4 (LR) / 1e-2 (RF, XGB), holdout AuPR >= 0.78
+   and within 1e-2, AuROC >= 0.80, Error <= 0.25, the three default
+   families swept, a sex, fare or family feature in the top six insights;
+   its save refused (the lambda); the train wall split into feature fit,
+   sanity checker, sweep and refit; its kernels must all have launched;
+20. quantized serving: K10 `wire_dequant` (csrc/wire_dequant.cu), K4's
+   f16-edge variant and K5 over narrowed tables (int16 features, uint8
+   bins) against their plain versions at n in {1, 64, 891, 65536} (equal);
+   then the script's JAX-trained model and the quickstart GBT, each loaded
+   on the card and served in int8, int4 and int8-calibrated modes through
+   `score_padded` with CUDA graphs, the 891 rows in batches of 64: each
+   batch's wire equal to the JAX package's (sha256), rawPrediction within
+   2e-5 and probability 1e-5 of the JAX package's quantized scores, graph
+   replay equal to eager scoring; the launch counters are set to 0 before
+   and read after, and the three kernels must have launched (counted per
+   replay); then each timed beside its bound and plain version at n = 64,
+   891 and 65536. The `kernels` line lists them with the launches of this
+   run.
 """
 
 import contextlib
@@ -185,6 +211,24 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """CUDA-event ms per replay of a CUDA graph that holds `fn`'s launches
+    (the way a served batch runs them: no wrapper on the host); the
+    launch counters are left as they were."""
+    from transmogrifai_tpu_torch import cuda_build
+    before = cuda_build.launches_snapshot()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    cuda_build.set_launches(before)
+    return cuda_ms(g.replay, iters)
 
 
 def bound(nbytes: float, ops: float):
@@ -600,13 +644,22 @@ def time_forest_kernels(pt, c):
     G, H, node12 = c["G"], c["H"], c["node12"]
     k3l_bytes = (m + 2) * Pc * n * 4 + Pc * 4097 * 4 + Pc * 4096 * m * 4
     k3l_bound, k3l_by = bound(k3l_bytes, (m + 1) * Pc * n + 5 * Pc * 4096 * m)
+    slot = (node12.long() + torch.arange(Pc, device=G.device)[:, None]
+            * 4097).reshape(-1)
+    leaf_srcs = [G[:, j].reshape(-1) for j in range(m)] + [H.reshape(-1)]
+
+    def leaf_library():  # index_add_ per channel: the leaves' sums
+        for src in leaf_srcs:
+            torch.zeros(Pc * 4097, device=src.device).index_add_(
+                0, slot, src)
     out["leaf_values"] = {
         "ms": cuda_ms(lambda: pt.leaf_values(node12, G, H, 4096, 1e-6, 0.0),
                       20),
         "plain_ms": cuda_ms(lambda: pt.leaf_values_plain(
             node12, G, H, 4096, 1e-6, 0.0), 10),
-        "library_ms": None, "bound_ms": k3l_bound, "bound_by": k3l_by,
-        "bytes": k3l_bytes}
+        "library_ms": cuda_ms(leaf_library, 10), "bound_ms": k3l_bound,
+        "bound_by": k3l_by, "bytes": k3l_bytes}
+    del slot, leaf_srcs
     for k in ("cg", "ch", "f", "b"):
         del c[k]
     torch.cuda.empty_cache()
@@ -1160,6 +1213,566 @@ def example_pipeline(port, example: str, models=None):
     pred = selector.with_train_validation_split(models=models) \
         .set_input(label, checked).get_output()
     return ds, label, pred
+
+
+def titanic_age_group(v):
+    """`age_group`'s function in examples/op_titanic_simple.py, at module
+    level so that a model using it can be saved: registered as
+    "titanic_age_group" with each package's `extract_fn`."""
+    return None if v is None else ("adult" if v > 18 else "child")
+
+
+def titanic_simple_schema(t):
+    """examples/op_titanic_simple.py's SCHEMA over the types module `t`."""
+    return {
+        "id": t.Integral, "survived": t.Integral, "pClass": t.PickList,
+        "name": t.Text, "sex": t.PickList, "age": t.Real,
+        "sibSp": t.Integral, "parCh": t.Integral, "ticket": t.PickList,
+        "fare": t.Real, "cabin": t.PickList, "embarked": t.PickList}
+
+
+def wire_digest(trees) -> str:
+    """sha256 over the host leaves of quantized wire trees (the values
+    `quantize_wire` returned, in call order): each numpy leaf's key path,
+    dtype, shape and bytes, keys in sorted order. Leaves already on the
+    device pass through the wire and are not part of it."""
+    import hashlib
+    h = hashlib.sha256()
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}/{k}")
+        elif isinstance(node, np.ndarray):
+            h.update(f"{path}:{node.dtype}:{node.shape}".encode())
+            h.update(np.ascontiguousarray(node).tobytes())
+    for tree in trees:
+        walk(tree, "")
+    return h.hexdigest()
+
+
+def titanic_simple_pipeline(ns, models=None, age_group=None):
+    """examples/op_titanic_simple.py's `build_pipeline` and schema over the
+    package namespace `ns` (t, FeatureBuilder, transmogrify, Dataset, ms):
+    the same raw features, derived features and selector, with `models`
+    in place of the default grids when given and `age_group` in place of
+    the example's lambda when given. Returns (dataset, survived,
+    prediction)."""
+    t = ns.t
+    ds = ns.Dataset.from_csv(TITANIC, schema=titanic_simple_schema(t))
+    FB = ns.FeatureBuilder
+    survived = FB.RealNN("survived").from_column("survived").as_response()
+    pclass = FB.PickList("pClass").from_column("pClass").as_predictor()
+    name = FB.Text("name").from_column("name").as_predictor()
+    sex = FB.PickList("sex").from_column("sex").as_predictor()
+    age = FB.Real("age").from_column("age").as_predictor()
+    sibsp = FB.Integral("sibSp").from_column("sibSp").as_predictor()
+    parch = FB.Integral("parCh").from_column("parCh").as_predictor()
+    ticket = FB.PickList("ticket").from_column("ticket").as_predictor()
+    fare = FB.Real("fare").from_column("fare").as_predictor()
+    cabin = FB.PickList("cabin").from_column("cabin").as_predictor()
+    embarked = FB.PickList("embarked").from_column("embarked") \
+        .as_predictor()
+    family_size = (sibsp + parch + 1).alias("familySize")
+    estimated_cost = (family_size * fare).alias("estimatedCostOfTickets")
+    pivoted_sex = sex.pivot()
+    normed_age = age.fill_missing_with_mean().z_normalize()
+    age_group = age.map_values(
+        age_group if age_group is not None else
+        (lambda v: None if v is None else ("adult" if v > 18 else "child")),
+        t.PickList)
+    features = ns.transmogrify([
+        pclass, name, age, sibsp, parch, ticket, cabin, embarked,
+        family_size, estimated_cost, pivoted_sex, age_group, normed_age])
+    checked = survived.sanity_check(features, remove_bad_features=True)
+    prediction = ns.ms.BinaryClassificationModelSelector \
+        .with_train_validation_split(models=models) \
+        .set_input(survived, checked).get_output()
+    return ds, survived, prediction
+
+
+SIMPLE_FIXTURE = os.path.join(HERE, "transmogrifai_tpu_torch", "testdata",
+                              "titanic_simple_f32")
+# the families the script's default selector must sweep, and the raw
+# features of which one must rank in the model's top six insights
+SIMPLE_FAMILIES = ("OpLogisticRegression", "OpRandomForestClassifier",
+                   "OpXGBoostClassifier")
+SIMPLE_INSIGHTS = ("sex", "estimatedCostOfTickets", "familySize")
+# tests/test_examples.py's bands for the script's holdout
+SIMPLE_BANDS = (("AuPR", 0.78, True), ("AuROC", 0.80, True),
+                ("Error", 0.25, False))
+SIMPLE_KERNELS = DEFAULT_KERNELS
+
+
+def port_namespace(port):
+    """The package namespace `titanic_simple_pipeline` reads, of the
+    port."""
+    from types import SimpleNamespace
+
+    import transmogrifai_tpu_torch.types as t
+    from transmogrifai_tpu_torch.selector import model_selector as ms
+    return SimpleNamespace(t=t, FeatureBuilder=port.FeatureBuilder,
+                           transmogrify=port.transmogrify,
+                           Dataset=port.Dataset, ms=ms)
+
+
+def judge_titanic_simple(model, want, want_arr):
+    """The script's run held to the JAX package's fixture: (record, ok).
+    The same configs; kept columns and winner equal; validation AuPR
+    within DEFAULT_FOLD_ATOL of its family; the holdout in SIMPLE_BANDS
+    and its AuPR within DEFAULT_HOLDOUT_ATOL;
+    the three default families swept; a sex, fare or family feature in
+    the top six insights."""
+    best = next(s for s in model.fitted.values() if hasattr(
+        getattr(s, "summary", None), "validation_results"))
+    summ = best.summary
+    checker = fitted_of(model, "SanityCheckerModel")
+    results = [{"model": r.model, "grid": r.grid}
+               for r in summ.validation_results]
+    fam = [r["model"] for r in results]
+    got_m = np.array([r.fold_metrics[0] for r in summ.validation_results])
+    want_m = np.array([f[0] for f in want["fold_metrics"]])
+    err = (np.abs(got_m - want_m) if results == want["results"]
+           else np.full(len(fam), np.inf))
+    err_by_family = {f: float(max(e for e, g in zip(err, fam) if g == f))
+                     for f in dict.fromkeys(fam)}
+    hold = summ.holdout_metrics
+    bands = {m: {"value": hold[m], "bound": b, "ok": bool(
+        hold[m] >= b if up else hold[m] <= b)} for m, b, up in SIMPLE_BANDS}
+    ranked = sorted(model.model_insights().features,
+                    key=lambda f: -f.importance)
+    top6 = [f.name for f in ranked[:6]]
+    checks = {
+        "configs_equal": results == want["results"],
+        "kept_equal": checker.indices == want_arr["kept_indices"].tolist(),
+        "winner_equal": (summ.best_model == want["best_model"]
+                         and summ.best_grid == want["best_grid"]),
+        "fold_metrics_within_tolerance": all(
+            e <= DEFAULT_FOLD_ATOL[f] for e, f in zip(err, fam)),
+        "holdout_aupr_within_tolerance": abs(
+            hold["AuPR"] - want["holdout_metrics"]["AuPR"])
+        <= DEFAULT_HOLDOUT_ATOL,
+        "holdout_bands": all(b["ok"] for b in bands.values()),
+        "default_families_swept": set(fam) == set(SIMPLE_FAMILIES),
+        "insight_in_top6": any(n in top6 for n in SIMPLE_INSIGHTS)}
+    record = {
+        "configs": len(results), "kept_columns": len(checker.indices),
+        "best_model": summ.best_model, "best_grid": summ.best_grid,
+        "validation_aupr_err_by_family": err_by_family,
+        "tolerance": {"fold_aupr_atol": DEFAULT_FOLD_ATOL,
+                      "holdout_aupr_atol": DEFAULT_HOLDOUT_ATOL,
+                      "bands": {m: b for m, b, _ in SIMPLE_BANDS}},
+        "holdout_metrics": hold, "holdout_metrics_jax":
+        want["holdout_metrics"], "bands": bands, "insights_top6": top6,
+        "insights_top6_jax": [n for n, _ in want["insights_top"][:6]],
+        **checks}
+    return record, all(checks.values())
+
+
+def titanic_simple_train(port, pt, device="cuda"):
+    """Phase 19: examples/op_titanic_simple.py through the port's entry
+    points (its lambda `age_group` included) with the JAX package's forest
+    draws injected, held to `testdata/titanic_simple_f32`
+    (`judge_titanic_simple`); then scored, and its save refused (the
+    lambda, F8). The launch counters cover exactly this run."""
+    import tempfile
+
+    with open(os.path.join(SIMPLE_FIXTURE, "results.json")) as fh:
+        want = json.load(fh)
+    with np.load(os.path.join(SIMPLE_FIXTURE, "scores.npz")) as z:
+        want_arr = {k: z[k] for k in z.files}
+    plans = ForestPlans()
+    pt.reset_launches()
+    t0 = time.perf_counter()
+    ds, label, pred = titanic_simple_pipeline(port_namespace(port))
+    with pt.injected_forest_draws((want_arr["forest_boot"],
+                                   want_arr["forest_mask"])), plans:
+        model = port.Workflow().set_result_features(pred, label) \
+            .set_input_dataset(ds).train(device=device)
+    sync(device)
+    train_s = time.perf_counter() - t0
+    scores = prediction_of(model.score_compiled(ds))
+    sync(device)
+    launches = {k: pt.LAUNCHES[k] for k in pt.LAUNCHES}
+    try:
+        model.save(os.path.join(tempfile.mkdtemp(prefix="port_simple_"),
+                                "model"))
+        save_refused = False
+    except ValueError:
+        save_refused = True
+    record, ok = judge_titanic_simple(model, want, want_arr)
+    summ = next(s for s in model.fitted.values() if hasattr(
+        getattr(s, "summary", None), "validation_results")).summary
+    stage = dict(model.stage_seconds)
+    missing = [k for k in SIMPLE_KERNELS if launches[k] < 1]
+    shape_ok = (scores["probability"].shape == (len(ds), 2)
+                and all(np.isfinite(scores[k]).all() for k in scores))
+    ok = ok and save_refused and shape_ok and not missing
+    record = {
+        "phase": "titanic_simple_train", "rows": len(ds), **record,
+        "save_refused_lambda": save_refused,
+        "launches_main_path": launches, "missing_kernels": missing,
+        "forest_chunks": plans.messages,
+        "wall_s": {"train": train_s,
+                   "feature_fit": sum(
+                       v for k, v in model.stage_seconds
+                       if k not in ("SanityChecker", "ModelSelector")),
+                   "sanity_checker": stage.get("SanityChecker"),
+                   "selector": stage.get("ModelSelector"),
+                   "sweep": summ.timings["sweep_s"],
+                   "sweep_by_family": summ.timings["families"],
+                   "refit": summ.timings["refit_s"]},
+        "ok": bool(ok)}
+    emit(record)
+    if not ok:
+        raise AssertionError("examples/op_titanic_simple.py disagrees with "
+                             "the JAX package's f32 fixture")
+    return model, ds, record
+
+
+# --------------------------------------------------------------------------- #
+# quantized serving and CUDA graphs (K10, K4-f16, K5-narrow)                  #
+# --------------------------------------------------------------------------- #
+
+QUANT_MODES = ("int8", "int4", "int8-calibrated")
+QUANT_BATCH = 64
+QUANT_KERNELS = ("wire_dequant", "bin_features_f16", "tree_walk_narrow")
+# the JAX package's quantized scores of the same saved model: both
+# dequantize to the same values (K10 rounds as XLA's program does) and
+# narrow the tables alike, so each mode is held to the serving tolerances
+QUANT_TOL = {mode: {"rawPrediction": 2e-5, "probability": 1e-5}
+             for mode in QUANT_MODES}
+SERVE_BUCKETS = (1, 8, 64)
+
+
+def register_age_group():
+    """`titanic_age_group` in the port's `extract_fn` registry, so the
+    script's saved model loads."""
+    from transmogrifai_tpu_torch.utils import fnser
+    if "titanic_age_group" not in fnser._EXTRACT_REGISTRY:
+        fnser.extract_fn("titanic_age_group")(titanic_age_group)
+
+
+def quant_fixture(port, which):
+    """(saved model dir, quant_scores.npz, scoring dataset) of the
+    script's JAX-trained model ("simple") or the quickstart GBT ("gbt")."""
+    if which == "simple":
+        ns = port_namespace(port)
+        return (os.path.join(SIMPLE_FIXTURE, "model"),
+                os.path.join(SIMPLE_FIXTURE, "quant_scores.npz"),
+                port.Dataset.from_csv(TITANIC,
+                                      schema=titanic_simple_schema(ns.t)))
+    return (FIXTURE, os.path.join(FIXTURE, "quant_scores.npz"),
+            port.Dataset.from_csv(TITANIC))
+
+
+def raw_host_tree(model, ds, n):
+    """The host values of the model's raw numeric columns, rows tiled to
+    n: the leaves the quantized wire carries."""
+    scorer = model._ensure_compiled()
+    tree = {}
+    for gen in scorer.generators:
+        c = gen.materialize(ds, allow_missing_response=True)
+        hv = c.host_value() if c.kind not in ("text", "list", "map") \
+            else None
+        if hv is not None:
+            idx = np.arange(n) % len(ds)
+            tree[gen.get_output().uid] = {k: v[idx] for k, v in hv.items()}
+    return tree
+
+
+def tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(tree_equal(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+def wire_bytes(tree) -> int:
+    """Bytes K10 must move for a wire tree: each wire byte, scale and lo
+    read once, each f32 output written once."""
+    if isinstance(tree, dict):
+        if "scale" in tree:
+            q = tree["q1"] if "q1" in tree else tree["q"]
+            n, d = q.shape[0], tree["scale"].numel()
+            return q.numel() + 8 * d + 4 * n * d
+        return sum(wire_bytes(v) for v in tree.values())
+    return tree.numel() * 5 if isinstance(tree, torch.Tensor) else 0
+
+
+def wire_elements(tree) -> int:
+    if isinstance(tree, dict):
+        if "scale" in tree:
+            q = tree["q1"] if "q1" in tree else tree["q"]
+            return q.shape[0] * tree["scale"].numel()
+        return sum(wire_elements(v) for v in tree.values())
+    return tree.numel() if isinstance(tree, torch.Tensor) else 0
+
+
+def quant_kernel_check(port, pt, pc, rng, dev):
+    """K10 on the script's raw columns (int8 and int4), K4-f16 on the
+    Titanic GBT's edges and K5-narrow on its narrowed tables and on a
+    narrowed depth-12 forest, each against its plain version on the card
+    at n in SIZES: equal. Returns (record, cases for the timing)."""
+    register_age_group()
+    model_dir, _, ds = quant_fixture(port, "simple")
+    simple = port.load_model(model_dir, device="cpu")
+    gbt = next(s for s in port.load_model(FIXTURE, device="cpu")
+               .fitted.values()
+               if type(s).__name__ == "GBTClassificationModel")
+    e16 = torch.from_numpy(gbt.edges).to(dev).half()
+    tables = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+              for k, v in gbt.trees.items()}
+    narrow = {"feat": tables["feat"].to(torch.int16),
+              "bin": tables["bin"].to(torch.uint8), "leaf": tables["leaf"]}
+    forest = {k: v.to(dev) for k, v in
+              synthetic_forest(rng, gbt.edges.shape[0]).items()}
+    forest_n = {"feat": forest["feat"].to(torch.int16),
+                "bin": forest["bin"].to(torch.uint8), "leaf": forest["leaf"]}
+    cases, checks = {}, {}
+    for n in SIZES:
+        for bits in (8, 4):
+            wire = pc.to_device(pc.quantize_wire(
+                raw_host_tree(simple, ds, n), bits), dev)
+            got = pc.dequantize_wire(wire, bits)
+            want = pc.dequantize_wire_plain(wire, bits)
+            sync(dev)
+            checks[f"wire_dequant:n{n}:int{bits}"] = tree_equal(got, want)
+            cases[("wire_dequant", n, bits)] = wire
+        X = torch.from_numpy(binning_input(rng, n, gbt.edges)).to(dev)
+        Xb = pt.bin_features(X, e16)
+        checks[f"bin_features_f16:n{n}"] = torch.equal(
+            Xb, pt.bin_features_plain(X, e16))
+        for label, t, tn in (("gbt_m1", tables, narrow),
+                             ("forest_m2_depth12", forest, forest_n)):
+            args = (Xb, tn["feat"], tn["bin"], tn["leaf"])
+            got = pt.tree_walk(*args)
+            checks[f"tree_walk_narrow:{label}:n{n}"] = torch.equal(
+                got, pt.tree_walk_plain(*args)) and torch.equal(
+                got, pt.tree_walk(Xb, t["feat"], t["bin"], t["leaf"]))
+        sync(dev)
+        cases[("bin_features_f16", n)] = (X, e16, Xb)
+    cases["narrow"] = narrow
+    bad = [k for k, v in checks.items() if not v]
+    record = {"phase": "quant_kernels_check", "sizes": list(SIZES),
+              "leaves": len(pc._flatten(cases[("wire_dequant", 1, 8)])),
+              "tolerance": "equal", "failed": bad, "ok": not bad,
+              "max_abs_err": 0.0 if not bad else None}
+    emit(record)
+    if bad:
+        raise AssertionError(f"quantized-path kernels disagree: {bad}")
+    return record, cases
+
+
+def time_quant_kernels(pt, pc, cases):
+    """CUDA-event times of K10, K4-f16 and K5-narrow beside their bound,
+    plain version and one-call yardstick, at n = 64 (a served bucket), 891
+    and 65536. K10 and its plain version are timed as replays of a CUDA
+    graph, as a served batch runs them (the eager wrapper's host work,
+    `wrapper_ms`, dwarfs the launch)."""
+    out = {}
+    narrow = cases["narrow"]
+    for n in (64, 891, 65536):
+        wire = cases[("wire_dequant", n, 8)]
+        nb = wire_bytes(wire)
+        k10_bound, k10_by = bound(nb, 2 * wire_elements(wire))
+        k10 = {"ms": graph_ms(lambda: pc.dequantize_wire(wire, 8), 50),
+               "plain_ms": graph_ms(
+                   lambda: pc.dequantize_wire_plain(wire, 8), 20),
+               "wrapper_ms": cuda_ms(lambda: pc.dequantize_wire(wire, 8), 50),
+               "library_ms": None, "bound_ms": k10_bound,
+               "bound_by": k10_by, "bytes": nb}
+        X, e16, Xb = cases[("bin_features_f16", n)]
+        d, n_edges = e16.shape
+        k4_bytes = X.numel() * 4 + e16.numel() * 2 + Xb.numel()
+        k4_bound, k4_by = bound(k4_bytes, n * d * n_edges)
+        et, Xt = e16.float().contiguous(), X.T.contiguous()
+        k4 = {"ms": cuda_ms(lambda: pt.bin_features(X, e16), 50),
+              "plain_ms": cuda_ms(lambda: pt.bin_features_plain(X, e16), 10),
+              "library_ms": cuda_ms(
+                  lambda: torch.searchsorted(et, Xt, right=True), 50),
+              "bound_ms": k4_bound, "bound_by": k4_by, "bytes": k4_bytes}
+        T_, depth, _ = narrow["feat"].shape
+        args = (Xb, narrow["feat"], narrow["bin"], narrow["leaf"])
+        k5_bytes = walk_bytes(*args)
+        k5_bound, k5_by = bound(k5_bytes, n * T_ * (2 * depth + 1))
+        k5 = {"ms": cuda_ms(lambda: pt.tree_walk(*args), 20),
+              "plain_ms": cuda_ms(lambda: pt.tree_walk_plain(*args), 3),
+              "library_ms": None, "bound_ms": k5_bound, "bound_by": k5_by,
+              "bytes": k5_bytes}
+        out[n] = {"wire_dequant": k10, "bin_features_f16": k4,
+                  "tree_walk_narrow": k5}
+        emit({"phase": "quant_timing", "n": n, **out[n]})
+    return out
+
+
+def quant_serving(port, pt, pc, device="cuda"):
+    """Phase 20's main path: each fixture (the script's JAX-trained model,
+    the quickstart GBT) loaded on the card and served in each quantized mode
+    through `score_padded` with CUDA graphs, the 891 rows in batches of
+    64: each batch's wire equal to the JAX package's (sha256), scores
+    within QUANT_TOL, graph replay equal to eager scoring. The launch
+    counters are set to 0 before and read after; K10, K4-f16 and
+    K5-narrow must have launched (counted per replay)."""
+    register_age_group()
+    runs, eager = {}, {}
+    loaded = {}
+    for which in ("simple", "gbt"):
+        model_dir, qpath, ds = quant_fixture(port, which)
+        loaded[which] = (port.load_model(model_dir, device=device), ds,
+                         qpath)
+    seen, inner = [], pc.quantize_wire
+
+    def recording(tree, bits, ranges=None):
+        out = inner(tree, bits, ranges=ranges)
+        seen.append(out)
+        return out
+
+    pt.reset_launches()
+    pc.quantize_wire = recording
+    try:
+        for which, (model, ds, qpath) in loaded.items():
+            with np.load(qpath) as z:
+                want = {k: z[k] for k in z.files}
+            for mode in QUANT_MODES:
+                scorer = pc.CompiledScorer(model, quant=mode)
+                parts, digests = [], []
+                for s in range(0, len(ds), QUANT_BATCH):
+                    seen.clear()
+                    parts.append(prediction_of(scorer.score_padded(
+                        ds.take(np.arange(s, min(s + QUANT_BATCH, len(ds)))),
+                        QUANT_BATCH)))
+                    digests.append(wire_digest(seen))
+                got = {k: np.concatenate([p[k] for p in parts])
+                       for k in parts[0]}
+                tol = QUANT_TOL[mode]
+                raw_err = float(np.abs(got["rawPrediction"] - want[
+                    f"{mode}:rawPrediction"]).max())
+                prob_err = float(np.abs(got["probability"] - want[
+                    f"{mode}:probability"]).max())
+                decided = np.abs(want[f"{mode}:rawPrediction"][:, -1]) > 1e-4
+                runs[f"{which}:{mode}"] = {
+                    "wire_equal": digests == list(want[f"{mode}:wire_sha256"]),
+                    "raw_max_abs_err": raw_err, "prob_max_abs_err": prob_err,
+                    "prediction_mismatches": int((got["prediction"][decided]
+                                                  != want[f"{mode}:prediction"]
+                                                  [decided]).sum()),
+                    "graphs": len(scorer._graph_cache),
+                    "segments": sum(k == "device"
+                                    for k, _ in scorer.segments),
+                    "scores": got, "scorer": scorer}
+                runs[f"{which}:{mode}"]["ok"] = bool(
+                    runs[f"{which}:{mode}"]["wire_equal"]
+                    and raw_err <= tol["rawPrediction"]
+                    and prob_err <= tol["probability"]
+                    and runs[f"{which}:{mode}"]["prediction_mismatches"] == 0
+                    and np.isfinite(got["probability"]).all())
+    finally:
+        pc.quantize_wire = inner
+    sync(device)
+    launches = {k: pt.LAUNCHES[k] for k in pt.LAUNCHES}
+    # graph replay against eager scoring of the same batches (outside the
+    # main path's counts)
+    for key, r in runs.items():
+        which, mode = key.split(":")
+        model, ds, _ = loaded[which]
+        e = pc.CompiledScorer(model, quant=mode, graphs=False)
+        parts = [prediction_of(e.score_padded(
+            ds.take(np.arange(s, min(s + QUANT_BATCH, len(ds)))),
+            QUANT_BATCH)) for s in range(0, len(ds), QUANT_BATCH)]
+        eager[key] = all(np.array_equal(
+            np.concatenate([p[k] for p in parts]), r["scores"][k])
+            for k in r["scores"])
+        r["graph_equals_eager"] = eager[key]
+        r["ok"] = r["ok"] and eager[key]
+    missing = [k for k in QUANT_KERNELS if launches[k] < 1]
+    ok = all(r["ok"] for r in runs.values()) and not missing
+    emit({"phase": "quant_serving", "batch": QUANT_BATCH,
+          "tolerance": QUANT_TOL,
+          "runs": {k: {kk: v for kk, v in r.items()
+                       if kk not in ("scores", "scorer")}
+                   for k, r in runs.items()},
+          "launches_main_path": launches, "missing_kernels": missing,
+          "ok": bool(ok)})
+    if not ok:
+        raise AssertionError("quantized serving disagrees with the JAX "
+                             "package's quantized scores")
+    return launches, loaded
+
+
+def serving_timing(port, pc, served):
+    """`score_padded` at buckets 1, 8 and 64, with CUDA graphs and eagerly
+    (a measurement only), f32 and int8, for each served model: wall ms per
+    batch, the share of it inside device segments (`_dispatch`: the
+    host→device copy, the replay or the eager launches, the output copies)
+    and the device's busy share from `torch.profiler` over 10 batches."""
+    out = {}
+    for name, (model, ds) in served.items():
+        for quant in (None, "int8"):
+            for graphs in (True, False):
+                scorer = pc.CompiledScorer(model, quant=quant, graphs=graphs)
+                spent = []
+                inner = scorer._dispatch
+
+                def timed(*a, _inner=inner, **kw):
+                    t = time.perf_counter()
+                    r = _inner(*a, **kw)
+                    torch.cuda.synchronize()
+                    spent.append(time.perf_counter() - t)
+                    return r
+                for bucket in SERVE_BUCKETS:
+                    sample = ds.take(np.arange(bucket))
+                    for _ in range(3):
+                        scorer.score_padded(sample, bucket)
+                    torch.cuda.synchronize()
+                    walls = []
+                    for _ in range(50):
+                        t = time.perf_counter()
+                        scorer.score_padded(sample, bucket)
+                        torch.cuda.synchronize()
+                        walls.append((time.perf_counter() - t) * 1e3)
+                    scorer._dispatch = timed
+                    spent.clear()
+                    split = []
+                    for _ in range(20):
+                        t = time.perf_counter()
+                        scorer.score_padded(sample, bucket)
+                        torch.cuda.synchronize()
+                        split.append(((time.perf_counter() - t) * 1e3,
+                                      sum(spent) * 1e3))
+                        spent.clear()
+                    scorer._dispatch = inner
+                    acts = [torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]
+                    with torch.profiler.profile(activities=acts) as prof:
+                        for _ in range(10):
+                            scorer.score_padded(sample, bucket)
+                        torch.cuda.synchronize()
+                    dev_items = sorted(
+                        ((e.key, e.self_device_time_total / 1e3 / 10)
+                         for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and e.self_device_time_total > 0),
+                        key=lambda kv: -kv[1])
+                    busy = sum(v for _, v in dev_items)
+                    med = float(np.median(walls))
+                    dev_ms = float(np.median([d for _, d in split]))
+                    key = f"{name}:{quant or 'f32'}:" \
+                          f"{'graph' if graphs else 'eager'}:{bucket}"
+                    out[key] = {
+                        "median_ms": med,
+                        "p90_ms": float(np.percentile(walls, 90)),
+                        "min_ms": float(np.min(walls)),
+                        "device_segments_ms": dev_ms,
+                        "host_ms": float(np.median([w - d
+                                                    for w, d in split])),
+                        "device_busy_ms": busy if dev_items
+                        else "not measured",
+                        "device_idle_share": (1 - busy / med) if dev_items
+                        else "not measured",
+                        "top_device_items_ms": dev_items[:5]}
+                    emit({"phase": "serving_timing", "run": key,
+                          **out[key]})
+    return out
 
 
 def example_train(port, pt, example: str, device="cuda"):
@@ -1749,7 +2362,6 @@ def main() -> int:
     from transmogrifai_tpu_torch import Dataset, cuda_build, load_model
     from transmogrifai_tpu_torch.models import trees as pt
     from transmogrifai_tpu_torch.serving import ScoringService, ServingConfig
-    from transmogrifai_tpu_torch.workflow.compiled import pad_dataset
 
     dev = torch.device("cuda")
     card = card_line()
@@ -1902,6 +2514,16 @@ def main() -> int:
     k5mc_timing = time_k5mc(pt, k5mc_trees, k5mc_rows)
     del k5mc_trees, k5mc_rows
 
+    # 19. examples/op_titanic_simple.py, verbatim ------------------------- #
+    from transmogrifai_tpu_torch.workflow import compiled as pc
+    simple_model, simple_ds, simple_rec = titanic_simple_train(port, pt)
+
+    # 20. quantized serving and CUDA graphs ------------------------------ #
+    _, quant_cases = quant_kernel_check(port, pt, pc, rng, dev)
+    quant_launches, quant_loaded = quant_serving(port, pt, pc)
+    quant_timing = time_quant_kernels(pt, pc, quant_cases)
+    del quant_cases
+
     # 6. timings ------------------------------------------------------------ #
     timing = {}
     for n in (891, 65536):
@@ -1930,69 +2552,13 @@ def main() -> int:
         timing[n] = {"bin_features": k4, "tree_walk": k5}
         emit({"phase": "timing", "n": n, "bin_features": k4,
               "tree_walk": k5})
-    scorer = main_model.compiled()
-    e2e = {}
-    for bucket in (1, 8, 64):
-        sample = ds.take(np.arange(bucket))
-        for _ in range(3):
-            scorer.score_padded(sample, bucket)
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(50):
-            t = time.perf_counter()
-            scorer.score_padded(sample, bucket)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t) * 1e3)
-        e2e[str(bucket)] = {"median_ms": float(np.median(walls)),
-                            "p90_ms": float(np.percentile(walls, 90)),
-                            "min_ms": float(np.min(walls))}
-    emit({"phase": "e2e_score_padded", "buckets": e2e})
-
-    # where a served batch's time goes: host phase vs device segment, and
-    # the device's busy share from the profiler's kernel and copy times
-    fi = scorer._fused_index()
-    for bucket in (1, 64):
-        sample = ds.take(np.arange(bucket))
-        host, seg = [], []
-        for _ in range(10):
-            t = time.perf_counter()
-            encs, raw_dev, _ = scorer.host_phase(
-                pad_dataset(sample, bucket))
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            scorer._run_segment(fi, encs, raw_dev)
-            torch.cuda.synchronize()
-            host.append((t1 - t) * 1e3)
-            seg.append((time.perf_counter() - t1) * 1e3)
-        reps = 10
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t = time.perf_counter()
-            for _ in range(reps):
-                scorer.score_padded(sample, bucket)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3 / reps
-        # device-side entries only (kernels, copies): the op-level CPU
-        # entries carry the same device time again
-        dev_items = sorted(
-            ((e.key, e.self_device_time_total / 1e3 / reps)
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and e.self_device_time_total > 0),
-            key=lambda kv: -kv[1])
-        busy = sum(v for _, v in dev_items)
-        # the idle share is taken against the unprofiled median wall of
-        # the same bucket: the profiler's own cost stretches `wall`
-        plain_wall = e2e[str(bucket)]["median_ms"]
-        emit({"phase": "breakdown", "bucket": bucket,
-              "wall_ms_profiled": wall, "wall_ms": plain_wall,
-              "host_phase_ms": float(np.median(host)),
-              "device_segment_ms": float(np.median(seg)),
-              "device_busy_ms": busy if dev_items else "not measured",
-              "device_idle_share": (1 - busy / plain_wall) if dev_items
-              else "not measured",
-              "top_device_items_ms": dev_items[:6]})
+    # served batches: CUDA graphs against eager dispatch, f32 and int8, the
+    # quickstart GBT and the script's models (the JAX package's, and the port's
+    # own from phase 19)
+    serving_timing(port, pc, {
+        "gbt": (main_model, ds),
+        "simple_jax": (quant_loaded["simple"][0], quant_loaded["simple"][1]),
+        "simple_port": (simple_model, simple_ds)})
 
     # 9. training timings ------------------------------------------------- #
     fit_timing = time_training_kernels(pt, pdm, fit_cases)
@@ -2072,6 +2638,19 @@ def main() -> int:
          "max_abs_err": k5mc_rec["max_abs_err"],
          **{k: k5mc_timing[150][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        *[{"name": name, "route": "cuda",
+           "source": f"transmogrifai_tpu_torch/csrc/{source}",
+           "replaces": replaces, "launches": quant_launches[name],
+           "max_abs_err": 0.0,
+           **{k: quant_timing[QUANT_BATCH][name][k] for k in (
+               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+          for name, source, replaces in (
+              ("wire_dequant", "wire_dequant.cu",
+               "transmogrifai_tpu/workflow/compiled.py:170"),
+              ("bin_features_f16", "bin_features.cu",
+               "transmogrifai_tpu/models/trees.py:1016"),
+              ("tree_walk_narrow", "tree_walk.cu",
+               "transmogrifai_tpu/models/trees.py:334"))],
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

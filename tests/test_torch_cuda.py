@@ -24,7 +24,13 @@ regression label as the channel (labels on a 1/4 grid, exact sums: equal
 forests). Evaluation kernels: K8-mc
 confusion counts equal for 0/1 masks and within 1e-6 relative for
 fractional weights (both sum in f64, in another order, and round once);
-K8-reg sums within 1e-6 relative.
+K8-reg sums within 1e-6 relative. Quantized serving: K10's dequantized
+wire equal to its plain version (both round q·scale + lo once), on the
+card and on the CPU; K4's f16-edge variant and K5 over narrowed tables
+equal to their plain versions (and to the f32 / int32 versions); a
+`score_padded` graph replay equal to eager scoring, its launches counted
+per replay; a device stage that cannot be captured raises and names
+itself.
 """
 
 import os
@@ -650,3 +656,130 @@ def test_decision_trees_and_softmax_boosting_on_the_card_match_the_cpu(cuda):
     assert torch.equal(tc["feat"][split], tg["feat"][split])
     torch.testing.assert_close(tg["leaf"], tc["leaf"], rtol=0, atol=1e-5)
     torch.testing.assert_close(mg, mc, rtol=0, atol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+# quantized serving (K10, K4-f16, K5-narrow) and CUDA graphs                  #
+# --------------------------------------------------------------------------- #
+
+def _wire_tree(rng, n, n_cols, d_vec=0):
+    """A host device-input tree like a model's raw columns: scalar
+    value/mask pairs, one 1-D leaf and optionally an (n, d_vec) vector."""
+    tree = {}
+    for j in range(n_cols):
+        m = (rng.random(n) > 0.2).astype(np.float32)
+        v = (rng.normal(size=n) * rng.uniform(0.1, 500)).astype(np.float32)
+        tree[f"F{j:03d}"] = {"value": np.where(m > 0, v, 0.0).astype(
+            np.float32), "mask": m}
+    if d_vec:
+        tree["V"] = (rng.normal(size=(n, d_vec)) * 30).astype(np.float32)
+    return tree
+
+
+@pytest.mark.parametrize("n,n_cols,d_vec", [
+    (1, 3, 0), (64, 12, 5), (891, 12, 0), (4097, 7, 33), (64, 30, 3)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_wire_dequant_kernel_equals_plain(cuda, n, n_cols, d_vec, bits):
+    """K10: every leaf of the tree in one launch per 48 leaves (masks
+    included), equal to the plain version on the card and on the CPU."""
+    from transmogrifai_tpu_torch.workflow import compiled as pc
+    rng = np.random.default_rng(n + n_cols + bits)
+    wire = pc.quantize_wire(_wire_tree(rng, n, n_cols, d_vec), bits)
+    on_card = pc.to_device(wire, cuda)
+    before = pt.LAUNCHES["wire_dequant"]
+    got = pc.dequantize_wire(on_card, bits)
+    torch.cuda.synchronize()
+    leaves = 2 * n_cols + (1 if d_vec else 0)
+    assert pt.LAUNCHES["wire_dequant"] == before + -(-leaves // 48)
+    plain = pc.dequantize_wire_plain(on_card, bits)
+    cpu = pc.dequantize_wire(pc.to_device(wire, "cpu"), bits)
+    for key, node in got.items():
+        for sub, t in (node.items() if isinstance(node, dict)
+                       else [(None, node)]):
+            want = plain[key] if sub is None else plain[key][sub]
+            host = cpu[key] if sub is None else cpu[key][sub]
+            assert t.dtype == torch.float32
+            assert torch.equal(t, want), (key, sub)
+            assert torch.equal(t.cpu(), host), (key, sub)
+
+
+@pytest.mark.parametrize("n", [1, 64, 891, 5000])
+def test_bin_features_f16_kernel_equals_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    X, edges = _binning_inputs(rng, n, 40, 31)
+    e16 = torch.from_numpy(edges).to(cuda).half()
+    Xc = torch.from_numpy(X).to(cuda)
+    Xc[::5, 3] = e16[3, 7].float()  # values on an f16 edge
+    before = pt.LAUNCHES["bin_features_f16"]
+    got = pt.bin_features(Xc, e16)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["bin_features_f16"] == before + 1
+    assert torch.equal(got, pt.bin_features_plain(Xc, e16))
+    assert torch.equal(got, pt.bin_features(Xc, e16.float()))
+
+
+@pytest.mark.parametrize("n,n_trees,depth,m", [
+    (1, 3, 2, 1), (64, 200, 10, 1), (891, 50, 12, 2), (3000, 20, 6, 3)])
+def test_tree_walk_narrow_kernel_equals_plain(cuda, n, n_trees, depth, m):
+    """K5 over int16 split features and uint8 split bins: equal to its
+    plain version and to the int32 walk."""
+    rng = np.random.default_rng(n + depth)
+    Xb, feat, bins, leaf = (t.to(cuda) for t in _walk_inputs(
+        rng, n, 37, n_trees, depth, m, torch.int8))
+    f16, b8 = feat.to(torch.int16), bins.to(torch.uint8)
+    before = pt.LAUNCHES["tree_walk_narrow"]
+    got = pt.tree_walk(Xb, f16, b8, leaf)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["tree_walk_narrow"] == before + 1
+    assert torch.equal(got, pt.tree_walk_plain(Xb, f16, b8, leaf))
+    assert torch.equal(got, pt.tree_walk(Xb, feat, bins, leaf))
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+def test_graph_replay_equals_eager_and_counts_launches(cuda, quant):
+    """`score_padded` on the card replays one CUDA graph per bucket: its
+    scores equal eager scoring of the same batches, and every replay
+    counts the launches its capture recorded."""
+    from transmogrifai_tpu_torch import Dataset, load_model
+    from transmogrifai_tpu_torch.workflow import compiled as pc
+    model = load_model(FIXTURE, device="cuda")
+    ds = Dataset.from_csv(os.path.join(REPO, "examples", "data",
+                                       "titanic.csv"))
+    graphs = pc.CompiledScorer(model, quant=quant)
+    eager = pc.CompiledScorer(model, quant=quant, graphs=False)
+    assert graphs.graphs and not eager.graphs
+    kernels = (("bin_features", "tree_walk") if quant is None else
+               ("wire_dequant", "bin_features_f16", "tree_walk_narrow"))
+    for rows, bucket in ((np.arange(5), 8), (np.arange(100, 108), 8),
+                         (np.arange(30, 64), 64)):
+        batch = ds.take(rows)
+        before = {k: pt.LAUNCHES[k] for k in kernels}
+        got = graphs.score_padded(batch, bucket)
+        torch.cuda.synchronize()
+        counted = {k: pt.LAUNCHES[k] - before[k] for k in kernels}
+        want = eager.score_padded(batch, bucket)
+        name = next(k for k, v in got.items()
+                    if isinstance(v, dict) and "probability" in v)
+        for k in ("prediction", "rawPrediction", "probability"):
+            assert torch.equal(got[name][k], want[name][k]), k
+        assert all(v >= 1 for v in counted.values()), counted
+    assert len(graphs._graph_cache) == 2  # one per bucket
+
+
+def test_graph_capture_failure_raises_and_names_the_stage(cuda):
+    """A device stage that syncs with the host (`.item()`) cannot be
+    captured: scoring raises and names it, with no eager fallback."""
+    from transmogrifai_tpu_torch import Dataset, load_model
+    model = load_model(FIXTURE, device="cuda")
+    gbt = next(s for s in model.fitted.values()
+               if type(s).__name__ == "GBTClassificationModel")
+    inner = gbt.predict
+
+    def syncing(consts, X):
+        float(X.sum().item())
+        return inner(consts, X)
+    gbt.predict = syncing
+    ds = Dataset.from_csv(os.path.join(REPO, "examples", "data",
+                                       "titanic.csv"))
+    with pytest.raises(RuntimeError, match="GBTClassificationModel"):
+        model.compiled().score_padded(ds.take(np.arange(3)), 4)

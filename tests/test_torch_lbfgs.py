@@ -20,6 +20,7 @@ those step gaps for every fit of the Titanic and Boston runs, where the
 two packages' paths part, and how far the fold metrics of each lie from
 the JAX package's sweep over 24 seeds of input noise."""
 
+import contextlib
 import os
 import sys
 import zlib
@@ -479,6 +480,91 @@ def _parting_step(a, b, rtol=1e-4):
     return int(over[0]) + 1 if over.size else None
 
 
+@contextlib.contextmanager
+def port_variant(kind):
+    """The port with one F5 candidate changed, for the readings:
+    "port_one_ulp_zoom_f32" interpolates the zoom phase in f32, as optax
+    does (the port runs it in f64); "port_one_ulp_loss_sum_then_divide"
+    rounds the logistic loss as Σ(ll·w)/Σw, the JAX package's order (the
+    port rounds Σ(ll·(w/Σw)))."""
+    from transmogrifai_tpu_torch.models import lbfgs
+    from transmogrifai_tpu_torch.parallel import sweep
+    zoom, fit = lbfgs._zoom_middle, sweep.fit_logreg
+    if kind == "port_one_ulp_zoom_f32":
+        lbfgs._zoom_middle = lambda *a: zoom(*(t.float() for t in a))
+    elif kind == "port_one_ulp_loss_sum_then_divide":
+        sweep.fit_logreg = _fit_logreg_sum_then_divide
+    try:
+        yield
+    finally:
+        lbfgs._zoom_middle, sweep.fit_logreg = zoom, fit
+
+
+def _fit_logreg_sum_then_divide(X, y, w, l2, n_classes, max_iter=100):
+    """`models.logistic.fit_logreg` with its loss rounded as
+    Σ(ll·w)/Σw."""
+    from transmogrifai_tpu_torch.models import lbfgs
+    from transmogrifai_tpu_torch.models.base import per_pair
+    w = w[None, :] if w.dim() == 1 else w
+    P, (n, d) = w.shape[0], X.shape
+    k = n_classes
+    Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
+    l2 = per_pair(l2, P, X.device)
+    wsum = torch.clamp(w.sum(1), min=1.0)
+    wn = (w / wsum[:, None])[:, :, None]
+
+    def value_and_grad(x):
+        W = x[:, :d * k].reshape(P, d, k)
+        b = x[:, d * k:]
+        logits = torch.matmul(X, W) + b[:, None, :]
+        ll = -(Y * torch.log_softmax(logits, dim=-1)).sum(-1)
+        value = (ll * w).sum(1) / wsum + 0.5 * l2 * (W ** 2).sum((1, 2))
+        R = (torch.softmax(logits, dim=-1) - Y) * wn
+        gW = torch.matmul(X.T, R) + l2[:, None, None] * W
+        return value, torch.cat([gW.reshape(P, d * k), R.sum(1)], 1)
+
+    x = lbfgs.minimize(value_and_grad, torch.zeros(
+        (P, d * k + k), dtype=torch.float32, device=X.device), max_iter)
+    return {"W": x[:, :d * k].reshape(P, d, k), "b": x[:, d * k:]}
+
+
+def loss_bits(steps, pairs, X, Y, WP, loss):
+    """At every iterate x_k of the port's Titanic path (each pair): the
+    port's loss as `fit_logreg` rounds it, Σ(ll·(w/Σw)), and in the JAX
+    package's order, Σ(ll·w)/Σw, each against the JAX package's
+    `logreg_loss` at the same x: the share of bit-equal losses and the
+    ulps between them."""
+    import jax
+    import jax.numpy as jnp
+
+    d, k = X.shape[1], Y.shape[1]
+    jl = jax.jit(loss)
+    Xt, Yt = torch.from_numpy(X), torch.from_numpy(Y)
+    ulps = {"sum_then_divide": [], "weights_divided_first": []}
+    for st in steps:
+        for p, (r, _) in enumerate(pairs):
+            x = st[0][p]
+            W, b = x[:d * k].reshape(d, k), x[d * k:]
+            ll = -(Yt * torch.log_softmax(Xt @ W + b, -1)).sum(-1)
+            w = torch.from_numpy(WP[p])
+            wsum = torch.clamp(w.sum(), min=1.0)
+            reg = 0.5 * torch.tensor(r, dtype=torch.float32) * (W ** 2).sum()
+            want = np.float32(jl(jnp.asarray(x.numpy()), X=X, Y=Y, w=WP[p],
+                                 l2=np.float32(r)))
+            for kind, got in (("sum_then_divide", (ll * w).sum() / wsum),
+                              ("weights_divided_first",
+                               (ll * (w / wsum)).sum())):
+                g = np.float32((got + reg).item())
+                ulps[kind].append(abs(int(g.view(np.int32))
+                                      - int(want.view(np.int32))))
+    out = {"losses": len(ulps["sum_then_divide"])}
+    for kind, u in ulps.items():
+        u = np.asarray(u)
+        out[kind] = {"bit_equal_share": float((u == 0).mean()),
+                     "mean_ulps": float(u.mean()), "max_ulps": int(u.max())}
+    return out
+
+
 def readings(seeds: int = 24) -> None:
     """Print, as JSON lines: (1) optax's step from the port's state at
     every step of the Titanic logistic-regression fits (4 reg_params × 3
@@ -490,7 +576,10 @@ def readings(seeds: int = 24) -> None:
     package's sweep over `seeds` runs each of: the JAX package with the
     matrix moved by one ulp, the JAX package with the matrix's columns
     permuted (the same problem, sums in other orders), and the port with
-    the matrix moved by one ulp."""
+    the matrix moved by one ulp: as it runs, with its zoom interpolation in
+    f32 (as optax runs it) and with its loss summed in the JAX package's
+    order; and (4) how often the port's Titanic loss rounds to the JAX
+    package's (`loss_bits`)."""
     import json
 
     import jax.numpy as jnp
@@ -512,6 +601,9 @@ def readings(seeds: int = 24) -> None:
     loss = _jax_logreg_loss(X.shape[1], 2)
     Y = np.eye(2, dtype=np.float32)[y.astype(int)]
     Xn = one_ulp_noise(X, 1)
+    print(json.dumps({"reading": "titanic_logreg_loss_bits",
+                      **loss_bits(steps, pairs, X, Y, WP, loss)}),
+          flush=True)
     for p, (r, f) in enumerate(pairs):
         errs = optax_step_errors(steps, p, loss, X=X, Y=Y, w=WP[p],
                                  l2=np.float32(r))
@@ -556,10 +648,15 @@ def readings(seeds: int = 24) -> None:
             np.ascontiguousarray(Xj[:, np.random.default_rng(s).permutation(
                 Xj.shape[1])]))),
         "port_one_ulp": lambda s: sweep(port_cap, torch.from_numpy(
-            one_ulp_noise(X, s)))}
+            one_ulp_noise(X, s))),
+        "port_one_ulp_zoom_f32": lambda s: sweep(port_cap, torch.from_numpy(
+            one_ulp_noise(X, s))),
+        "port_one_ulp_loss_sum_then_divide": lambda s: sweep(
+            port_cap, torch.from_numpy(one_ulp_noise(X, s)))}
     for kind, run in kinds.items():
-        moves = sorted(float(np.abs(run(s) - base).max())
-                       for s in range(1, seeds + 1))
+        with port_variant(kind):
+            moves = sorted(float(np.abs(run(s) - base).max())
+                           for s in range(1, seeds + 1))
         print(json.dumps({
             "reading": "titanic_logreg_fold_aupr_move_from_jax", "runs": kind,
             "seeds": seeds, "median": float(np.median(moves)),

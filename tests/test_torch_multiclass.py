@@ -40,8 +40,10 @@ Tolerances, port on the CPU against the JAX package:
   both packages (probabilities within 1e-5).
 """
 
+import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 from types import SimpleNamespace
@@ -159,12 +161,39 @@ EXAMPLE_PARTS = {
     "boston": {"linreg": (0, None), "rf3": (1, 3), "rf6": (1, 6),
                "rf12": (1, 12), "gbt3": (2, 3), "gbt6": (2, 6),
                "gbt12": (2, 12)},
+    "titanic_simple": {"lr": (0, None), "rf3": (1, 3), "rf6": (1, 6),
+                       "rf12": (1, 12), "xgb": (2, None)},
 }
 
 
 def default_models(ns, example: str):
+    if example == "titanic_simple":
+        return ns.ms._default_binary_models()
     return (ns.ms._default_multiclass_models() if example == "iris"
             else ns.ms._default_regression_models())
+
+
+def registered_age_group(ns):
+    """`chip_smoke.titanic_age_group`, registered with package `ns`'s
+    `extract_fn` so that a model using it saves and loads."""
+    import chip_smoke
+    fnser = importlib.import_module(ns.t.__name__.rsplit(".", 1)[0]
+                                    + ".utils.fnser")
+    if "titanic_age_group" not in fnser._EXTRACT_REGISTRY:
+        fnser.extract_fn("titanic_age_group")(chip_smoke.titanic_age_group)
+    return chip_smoke.titanic_age_group
+
+
+def example_inputs(ns, example: str, models=None):
+    """(dataset, label, prediction) of the example over `models`; the
+    Titanic program (examples/op_titanic_simple.py) takes its `age_group`
+    from the registered module-level function."""
+    if example == "titanic_simple":
+        import chip_smoke
+        return chip_smoke.titanic_simple_pipeline(
+            ns, models, age_group=registered_age_group(ns))
+    label, pred = example_pipeline(ns, example, models)
+    return example_dataset(ns, example), label, pred
 
 
 def jax_example_run(example: str, models, out_dir: str,
@@ -187,8 +216,7 @@ def jax_example_run(example: str, models, out_dir: str,
         return sweep(self, est, grids, X, y_dev, folds, ctx, *a, **kw)
 
     ns.ms.ModelSelector._run_sweep_with_retry = recording_sweep
-    ds = example_dataset(ns, example)
-    label, pred = example_pipeline(ns, example, models)
+    ds, label, pred = example_inputs(ns, example, models)
     model = ns.Workflow().set_result_features(pred, label) \
         .set_input_dataset(ds).train()
     best = selected(model)
@@ -197,6 +225,11 @@ def jax_example_run(example: str, models, out_dir: str,
     extra = {}
     if example == "iris":
         extra["labels"] = fitted_named(model, "StringIndexerModel").labels
+    if example == "titanic_simple":
+        ranked = sorted(model.model_insights().features,
+                        key=lambda f: -f.importance)
+        extra["insights_top"] = [[f.name, f.importance]
+                                 for f in ranked[:10]]
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "results.json"), "w") as fh:
         json.dump({
@@ -232,7 +265,9 @@ def jax_example_part(example: str, part: str, out_dir: str) -> None:
     if depth is not None:
         grids = [g for g in grids if g["max_depth"] == depth]
     trees = getattr(est, "n_trees", 0) if part.startswith("rf") else 0
-    jax_example_run(example, [(est, grids)], out_dir, forest_trees=trees)
+    jax_example_run(example, [(est, grids)], out_dir, forest_trees=trees,
+                    save_model_to=(os.path.join(out_dir, "model")
+                                   if example == "titanic_simple" else None))
 
 
 def merge_example_parts(example: str, parts_dir: str, out_dir: str) -> None:
@@ -272,6 +307,11 @@ def merge_example_parts(example: str, parts_dir: str, out_dir: str) -> None:
     assert res[part]["best_grid"] == results[win]["grid"], part
     assert res[part]["best_model"] == results[win]["model"], part
     extra = {k: first[k] for k in ("labels",) if k in first}
+    if "insights_top" in res[part]:
+        extra["insights_top"] = res[part]["insights_top"]
+        shutil.rmtree(os.path.join(out_dir, "model"), ignore_errors=True)
+        shutil.copytree(os.path.join(parts_dir, part, "model"),
+                        os.path.join(out_dir, "model"))
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "results.json"), "w") as fh:
         json.dump({
@@ -294,6 +334,8 @@ def merge_example_parts(example: str, parts_dir: str, out_dir: str) -> None:
 
 
 def example_fixture_dir(example: str) -> str:
+    if example == "titanic_simple":
+        return os.path.join(TESTDATA, "titanic_simple_f32")
     return os.path.join(TESTDATA, f"{example}_default_f32")
 
 

@@ -203,6 +203,15 @@ def contingency_stats(cont: np.ndarray) -> Dict:
 # stages                                                                      #
 # --------------------------------------------------------------------------- #
 
+class _KeptIndices(torch.nn.Module):
+    """The kept column indices as a long buffer on the scoring device."""
+
+    def __init__(self, indices: Sequence[int]):
+        super().__init__()
+        self.register_buffer("idx", torch.as_tensor(
+            np.asarray(indices, dtype=np.int64)))
+
+
 class SanityCheckerModel(Transformer):
     """Fitted checker: keeps the columns `indices` of the (label, vector)
     input's vector, in that order."""
@@ -217,10 +226,11 @@ class SanityCheckerModel(Transformer):
                            else meta)
         self.summary = summary
 
-    def device_apply(self, enc, dev):
-        X = dev[-1]
-        idx = torch.as_tensor(self.indices, dtype=torch.long, device=X.device)
-        return X.index_select(1, idx)
+    def device_constants(self, device):
+        return _KeptIndices(self.indices).to(device)
+
+    def device_apply_with(self, consts, enc, dev):
+        return dev[-1].index_select(1, consts.idx)
 
     def output_meta(self) -> Optional[VectorMetadata]:
         if self._meta_json is None:
@@ -303,7 +313,7 @@ class SanityChecker(Estimator):
         if self.correlation_type == "spearman":
             raise NotImplementedError(
                 "SanityChecker: Spearman correlation is not ported yet "
-                "(ROADMAP.md, training slice, queued)")
+                "(ROADMAP.md, queue 1: feature validation at full scope)")
         label_col, vec_col = cols
         y_np = np.asarray(label_col.data["value"], dtype=np.float64)
         X_np = np.array(vec_col.data, dtype=np.float32)
@@ -318,7 +328,7 @@ class SanityChecker(Estimator):
             raise NotImplementedError(
                 f"SanityChecker: {d} columns need the blocked Gram pass "
                 f"(> {_WIDE_D}), which is not ported yet (ROADMAP.md, "
-                "training slice, queued)")
+                "queue 2: K9)")
         X = torch.as_tensor(X_np, device=ctx.device)
         cy = torch.as_tensor(y_np.astype(np.float32), device=ctx.device)
         red = _column_reductions(X)

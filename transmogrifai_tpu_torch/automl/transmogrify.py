@@ -4,8 +4,8 @@ The port's counterpart of the JAX package's `automl/transmogrify.py`:
 group the input features by type, apply each type's default encoder, and
 combine the results into one OPVector with `VectorsCombiner`. The
 encoders of the Real, RealNN, Integral, Binary, pivot (PickList and its
-kin) and Text groups are ported; a feature of any other group raises and
-names the group.
+kin) and Text groups are ported, and OPVector features join the combiner
+as they are; a feature of any other group raises and names the group.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ _PIVOT_TYPES = (T.PickList, T.ComboBox, T.Country, T.State, T.City,
                 T.PostalCode, T.Street, T.ID)
 _SMART_TEXT_TYPES = (T.TextArea, T.Text)
 _PORTED_GROUPS = ("realnn", "real", "integral", "binary", "pivot",
-                  "smart_text")
+                  "smart_text", "vector")
 
 
 def _group_features(features: Sequence) -> Dict[str, List]:
@@ -97,7 +97,8 @@ def transmogrify(features: Sequence,
             raise NotImplementedError(
                 f"transmogrify: the {key!r} group "
                 f"({', '.join(f.name for f in members)}) has no ported "
-                "encoder yet (ROADMAP.md, queue 1, items 3 and 10)")
+                "encoder yet (ROADMAP.md, queue 1: the rest of the op "
+                "library and transmogrify's other groups)")
     vectors = []
     if "realnn" in groups:
         vectors.append(RealNNVectorizer().set_input(
@@ -125,6 +126,8 @@ def transmogrify(features: Sequence,
             min_support=d.min_support, num_features=d.num_hash_features,
             track_nulls=d.track_nulls).set_input(
                 *groups["smart_text"]).get_output())
+    if "vector" in groups:  # already vectors: combined as they are
+        vectors.extend(groups["vector"])
     if not vectors:
         raise ValueError("transmogrify: no input features")
     return VectorsCombiner().set_input(*vectors).get_output()

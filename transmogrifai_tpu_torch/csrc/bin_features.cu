@@ -17,9 +17,16 @@
 // The count is a linear scan over all edges: it needs no sorted edges and
 // is exactly the TPU program's comparison set.
 //
+// The f16-edge variant serves the quantized scoring mode, whose narrowed
+// tables keep the edges in f16 (`narrow_device_constants`,
+// models/trees.py:999): each edge is widened to f32 exactly as it is staged
+// in shared memory, and the compare runs in f32, as the JAX program
+// promotes f16 edges against f32 values. It reads half the edge bytes.
+//
 // C interface for ctypes: each entry point launches on `stream` and
 // returns cudaGetLastError().
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,17 +36,20 @@ constexpr int FEAT_TILE = 32;
 constexpr int ROW_TILE = 8;
 constexpr int MAX_GRID_Y = 2048;
 
-template <typename OutT>
+__device__ __forceinline__ float widen(float e) { return e; }
+__device__ __forceinline__ float widen(__half e) { return __half2float(e); }
+
+template <typename EdgeT, typename OutT>
 __global__ void bin_features_kernel(const float* __restrict__ X,
-                                    const float* __restrict__ edges,
+                                    const EdgeT* __restrict__ edges,
                                     OutT* __restrict__ out,
                                     int64_t n, int d, int n_edges) {
-  extern __shared__ float s_edges[];  // [nf][n_edges]
+  extern __shared__ float s_edges[];  // [nf][n_edges], widened to f32
   const int f0 = blockIdx.x * FEAT_TILE;
   const int nf = min(FEAT_TILE, d - f0);
   const int tid = threadIdx.y * FEAT_TILE + threadIdx.x;
   for (int i = tid; i < nf * n_edges; i += FEAT_TILE * ROW_TILE) {
-    s_edges[i] = edges[(int64_t)f0 * n_edges + i];
+    s_edges[i] = widen(edges[(int64_t)f0 * n_edges + i]);
   }
   __syncthreads();
   if (threadIdx.x >= nf) return;
@@ -55,7 +65,7 @@ __global__ void bin_features_kernel(const float* __restrict__ X,
   }
 }
 
-template <typename OutT>
+template <typename EdgeT, typename OutT>
 int launch(const void* X, const void* edges, void* out, int64_t n, int d,
            int n_edges, void* stream) {
   const int64_t row_groups = (n + ROW_TILE - 1) / ROW_TILE;
@@ -63,9 +73,10 @@ int launch(const void* X, const void* edges, void* out, int64_t n, int d,
             (unsigned)(row_groups < MAX_GRID_Y ? row_groups : MAX_GRID_Y));
   dim3 block(FEAT_TILE, ROW_TILE);
   size_t smem = (size_t)FEAT_TILE * n_edges * sizeof(float);
-  bin_features_kernel<OutT><<<grid, block, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(X), static_cast<const float*>(edges),
-      static_cast<OutT*>(out), n, d, n_edges);
+  bin_features_kernel<EdgeT, OutT>
+      <<<grid, block, smem, (cudaStream_t)stream>>>(
+          static_cast<const float*>(X), static_cast<const EdgeT*>(edges),
+          static_cast<OutT*>(out), n, d, n_edges);
   return (int)cudaGetLastError();
 }
 
@@ -73,10 +84,22 @@ int launch(const void* X, const void* edges, void* out, int64_t n, int d,
 
 extern "C" int bin_features_i8(const void* X, const void* edges, void* out,
                                int64_t n, int d, int n_edges, void* stream) {
-  return launch<int8_t>(X, edges, out, n, d, n_edges, stream);
+  return launch<float, int8_t>(X, edges, out, n, d, n_edges, stream);
 }
 
 extern "C" int bin_features_i32(const void* X, const void* edges, void* out,
                                 int64_t n, int d, int n_edges, void* stream) {
-  return launch<int32_t>(X, edges, out, n, d, n_edges, stream);
+  return launch<float, int32_t>(X, edges, out, n, d, n_edges, stream);
+}
+
+extern "C" int bin_features_f16_i8(const void* X, const void* edges,
+                                   void* out, int64_t n, int d, int n_edges,
+                                   void* stream) {
+  return launch<__half, int8_t>(X, edges, out, n, d, n_edges, stream);
+}
+
+extern "C" int bin_features_f16_i32(const void* X, const void* edges,
+                                    void* out, int64_t n, int d, int n_edges,
+                                    void* stream) {
+  return launch<__half, int32_t>(X, edges, out, n, d, n_edges, stream);
 }

@@ -42,6 +42,13 @@
 // adds the leaves in f32 and writes its output once, with no atomics. The
 // learning rate is applied by the caller, as for K5.
 //
+// Narrowed tables (the quantized scoring mode, `narrow_device_constants`
+// in models/trees.py:999): split features as int16 when d < 2^15 and split
+// bins as uint8 when there are at most 255 edges, both lossless. Both walks
+// are templates over the table types; `tree_walk_typed` and
+// `tree_walk_classes_typed` pick the instance from the element sizes. The
+// narrowed walk reads 2 + 1 bytes per slot instead of 8.
+//
 // C interface for ctypes: each entry point launches on `stream` and
 // returns cudaGetLastError().
 
@@ -53,10 +60,10 @@ namespace {
 constexpr int MAX_M = 8;
 constexpr int BLOCK = 128;
 
-template <typename BinT>
+template <typename BinT, typename FeatT, typename SplitT>
 __global__ void tree_walk_kernel(const BinT* __restrict__ Xb,
-                                 const int32_t* __restrict__ feat,
-                                 const int32_t* __restrict__ bins,
+                                 const FeatT* __restrict__ feat,
+                                 const SplitT* __restrict__ bins,
                                  const float* __restrict__ leaf,
                                  float* __restrict__ out, int64_t n, int d,
                                  int n_trees, int depth, int width,
@@ -72,8 +79,8 @@ __global__ void tree_walk_kernel(const BinT* __restrict__ Xb,
     int node = 0;
     for (int l = 0; l < depth; ++l) {
       const int64_t at = table + (int64_t)l * width + node;
-      const int f = __ldg(feat + at);
-      const int b = __ldg(bins + at);
+      const int f = static_cast<int>(__ldg(feat + at));
+      const int b = static_cast<int>(__ldg(bins + at));
       const int xb = static_cast<int>(x[f]);
       node = 2 * node + (xb > b ? 1 : 0);
     }
@@ -89,24 +96,25 @@ __global__ void tree_walk_kernel(const BinT* __restrict__ Xb,
   }
 }
 
-template <typename BinT>
+template <typename BinT, typename FeatT = int32_t, typename SplitT = int32_t>
 int launch(const void* Xb, const void* feat, const void* bins,
            const void* leaf, void* out, int64_t n, int d, int n_trees,
            int depth, int width, int n_leaves, int m, int c0, int mc,
            void* stream) {
   const unsigned grid = (unsigned)((n + BLOCK - 1) / BLOCK);
-  tree_walk_kernel<BinT><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      static_cast<const BinT*>(Xb), static_cast<const int32_t*>(feat),
-      static_cast<const int32_t*>(bins), static_cast<const float*>(leaf),
+  tree_walk_kernel<BinT, FeatT, SplitT>
+      <<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      static_cast<const BinT*>(Xb), static_cast<const FeatT*>(feat),
+      static_cast<const SplitT*>(bins), static_cast<const float*>(leaf),
       static_cast<float*>(out), n, d, n_trees, depth, width, n_leaves, m, c0,
       mc);
   return (int)cudaGetLastError();
 }
 
-template <typename BinT>
+template <typename BinT, typename FeatT, typename SplitT>
 __global__ void tree_walk_classes_kernel(const BinT* __restrict__ Xb,
-                                         const int32_t* __restrict__ feat,
-                                         const int32_t* __restrict__ bins,
+                                         const FeatT* __restrict__ feat,
+                                         const SplitT* __restrict__ bins,
                                          const float* __restrict__ leaf,
                                          float* __restrict__ out, int64_t n,
                                          int d, int n_rounds, int n_classes,
@@ -123,8 +131,8 @@ __global__ void tree_walk_classes_kernel(const BinT* __restrict__ Xb,
     int node = 0;
     for (int l = 0; l < depth; ++l) {
       const int64_t at = table + (int64_t)l * width + node;
-      const int f = __ldg(feat + at);
-      const int b = __ldg(bins + at);
+      const int f = static_cast<int>(__ldg(feat + at));
+      const int b = static_cast<int>(__ldg(bins + at));
       const int xb = static_cast<int>(x[f]);
       node = 2 * node + (xb > b ? 1 : 0);
     }
@@ -133,56 +141,86 @@ __global__ void tree_walk_classes_kernel(const BinT* __restrict__ Xb,
   out[r * n_classes + k] = acc;
 }
 
-template <typename BinT>
+template <typename BinT, typename FeatT = int32_t, typename SplitT = int32_t>
 int launch_classes(const void* Xb, const void* feat, const void* bins,
                    const void* leaf, void* out, int64_t n, int d,
                    int n_rounds, int n_classes, int depth, int width,
                    int n_leaves, void* stream) {
   const dim3 grid((unsigned)((n + BLOCK - 1) / BLOCK), (unsigned)n_classes);
-  tree_walk_classes_kernel<BinT><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      static_cast<const BinT*>(Xb), static_cast<const int32_t*>(feat),
-      static_cast<const int32_t*>(bins), static_cast<const float*>(leaf),
+  tree_walk_classes_kernel<BinT, FeatT, SplitT>
+      <<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      static_cast<const BinT*>(Xb), static_cast<const FeatT*>(feat),
+      static_cast<const SplitT*>(bins), static_cast<const float*>(leaf),
       static_cast<float*>(out), n, d, n_rounds, n_classes, depth, width,
       n_leaves);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int tree_walk_classes_i8(const void* Xb, const void* feat,
-                                    const void* bins, const void* leaf,
-                                    void* out, int64_t n, int d,
-                                    int n_rounds, int n_classes, int depth,
-                                    int width, int n_leaves, void* stream) {
-  return launch_classes<int8_t>(Xb, feat, bins, leaf, out, n, d, n_rounds,
-                                n_classes, depth, width, n_leaves, stream);
+// the instance for element sizes (Xb 1 or 4 bytes, feat 2 or 4, bins 1 or 4)
+template <template <typename, typename, typename> class Fn, typename... A>
+int dispatch(int xb_bytes, int feat_bytes, int bin_bytes, A... args) {
+#define TW_CASE(XB, FT, ST)                                                \
+  if (xb_bytes == sizeof(XB) && feat_bytes == sizeof(FT) &&              \
+      bin_bytes == sizeof(ST))                                             \
+    return Fn<XB, FT, ST>::run(args...);
+  TW_CASE(int8_t, int32_t, int32_t)
+  TW_CASE(int8_t, int16_t, int32_t)
+  TW_CASE(int8_t, int32_t, uint8_t)
+  TW_CASE(int8_t, int16_t, uint8_t)
+  TW_CASE(int32_t, int32_t, int32_t)
+  TW_CASE(int32_t, int16_t, int32_t)
+  TW_CASE(int32_t, int32_t, uint8_t)
+  TW_CASE(int32_t, int16_t, uint8_t)
+#undef TW_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int tree_walk_classes_i32(const void* Xb, const void* feat,
-                                     const void* bins, const void* leaf,
-                                     void* out, int64_t n, int d,
-                                     int n_rounds, int n_classes, int depth,
-                                     int width, int n_leaves, void* stream) {
-  return launch_classes<int32_t>(Xb, feat, bins, leaf, out, n, d, n_rounds,
-                                 n_classes, depth, width, n_leaves, stream);
+template <typename XB, typename FT, typename ST>
+struct Walk {
+  static int run(const void* Xb, const void* feat, const void* bins,
+                 const void* leaf, void* out, int64_t n, int d, int n_trees,
+                 int depth, int width, int n_leaves, int m, int c0, int mc,
+                 void* stream) {
+    return launch<XB, FT, ST>(Xb, feat, bins, leaf, out, n, d, n_trees,
+                              depth, width, n_leaves, m, c0, mc, stream);
+  }
+};
+
+template <typename XB, typename FT, typename ST>
+struct WalkClasses {
+  static int run(const void* Xb, const void* feat, const void* bins,
+                 const void* leaf, void* out, int64_t n, int d, int n_rounds,
+                 int n_classes, int depth, int width, int n_leaves,
+                 void* stream) {
+    return launch_classes<XB, FT, ST>(Xb, feat, bins, leaf, out, n, d,
+                                      n_rounds, n_classes, depth, width,
+                                      n_leaves, stream);
+  }
+};
+
+}  // namespace
+
+extern "C" int tree_walk_typed(const void* Xb, const void* feat,
+                               const void* bins, const void* leaf, void* out,
+                               int64_t n, int d, int n_trees, int depth,
+                               int width, int n_leaves, int m, int c0, int mc,
+                               int xb_bytes, int feat_bytes, int bin_bytes,
+                               void* stream) {
+  return dispatch<Walk>(xb_bytes, feat_bytes, bin_bytes, Xb, feat, bins,
+                        leaf, out, n, d, n_trees, depth, width, n_leaves, m,
+                        c0, mc, stream);
+}
+
+extern "C" int tree_walk_classes_typed(const void* Xb, const void* feat,
+                                       const void* bins, const void* leaf,
+                                       void* out, int64_t n, int d,
+                                       int n_rounds, int n_classes, int depth,
+                                       int width, int n_leaves, int xb_bytes,
+                                       int feat_bytes, int bin_bytes,
+                                       void* stream) {
+  return dispatch<WalkClasses>(xb_bytes, feat_bytes, bin_bytes, Xb, feat,
+                               bins, leaf, out, n, d, n_rounds, n_classes,
+                               depth, width, n_leaves, stream);
 }
 
 extern "C" int tree_walk_max_m() { return MAX_M; }
-
-extern "C" int tree_walk_i8(const void* Xb, const void* feat,
-                            const void* bins, const void* leaf, void* out,
-                            int64_t n, int d, int n_trees, int depth,
-                            int width, int n_leaves, int m, int c0, int mc,
-                            void* stream) {
-  return launch<int8_t>(Xb, feat, bins, leaf, out, n, d, n_trees, depth,
-                        width, n_leaves, m, c0, mc, stream);
-}
-
-extern "C" int tree_walk_i32(const void* Xb, const void* feat,
-                             const void* bins, const void* leaf, void* out,
-                             int64_t n, int d, int n_trees, int depth,
-                             int width, int n_leaves, int m, int c0, int mc,
-                             void* stream) {
-  return launch<int32_t>(Xb, feat, bins, leaf, out, n, d, n_trees, depth,
-                         width, n_leaves, m, c0, mc, stream);
-}

@@ -32,16 +32,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXTRA_FLAGS: Dict[str, tuple] = {"split_search": ("--fmad=false",)}
 # every kernel the port builds, in the order `chip_smoke.py` lists them
 SOURCES = ("bin_features", "tree_walk", "histograms", "split_search",
-           "route_leaves", "binned_aupr", "sibling_subtract", "eval_metrics")
+           "route_leaves", "binned_aupr", "sibling_subtract", "eval_metrics",
+           "wire_dequant")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # launches per kernel, counted by each wrapper where it launches its kernel
+# (a CUDA graph's replay adds the launches its capture recorded)
 LAUNCHES: Dict[str, int] = {
-    "bin_features": 0, "tree_walk": 0, "tree_walk_classes": 0,
+    "bin_features": 0, "bin_features_f16": 0, "tree_walk": 0,
+    "tree_walk_narrow": 0, "tree_walk_classes": 0,
     "histograms": 0, "split_search": 0,
     "route_level": 0, "leaf_values": 0, "binned_aupr": 0,
-    "sibling_subtract": 0, "confusion_counts": 0, "regression_moments": 0}
+    "sibling_subtract": 0, "confusion_counts": 0, "regression_moments": 0,
+    "wire_dequant": 0}
 _launch_lock = threading.Lock()
 # ptxas resource lines (registers, shared memory, spills) per built source
 PTXAS_INFO: Dict[str, str] = {}
@@ -73,6 +77,24 @@ def reset_launches() -> None:
     with _launch_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+
+
+def launches_snapshot() -> Dict[str, int]:
+    with _launch_lock:
+        return dict(LAUNCHES)
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Add `delta` to the counts: a graph replay launches the kernels its
+    capture recorded, without calling their wrappers."""
+    with _launch_lock:
+        for k, v in delta.items():
+            LAUNCHES[k] += v
+
+
+def set_launches(counts: Dict[str, int]) -> None:
+    with _launch_lock:
+        LAUNCHES.update(counts)
 
 
 def flags(name: str) -> tuple:

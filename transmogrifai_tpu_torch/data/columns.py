@@ -159,25 +159,37 @@ class Column:
     # access                                                             #
     # ------------------------------------------------------------------ #
 
-    def device_value(self, device):
-        """Tensor pytree on `device` for device stages; None for host-only
+    def host_value(self):
+        """The numpy pytree a device stage consumes, before it moves to the
+        device (the JAX package's `device_value`); None for host-only
         kinds. Scalars become f32 value/mask pairs (value 0 where
-        missing), vectors an f32 (n, d) tensor, predictions a dict of
-        tensors."""
+        missing), vectors an (n, d) array, predictions a dict of
+        arrays."""
         k = self.kind
         if k == SCALAR:
             v = np.asarray(self.data["value"], dtype=np.float64)
             m = np.asarray(self.data["mask"])
-            return {
-                "value": torch.as_tensor(
-                    np.where(m, v, 0.0).astype(np.float32), device=device),
-                "mask": torch.as_tensor(m.astype(np.float32), device=device),
-            }
+            return {"value": np.where(m, v, 0.0).astype(np.float32),
+                    "mask": m.astype(np.float32)}
+        if k == VECTOR:
+            return to_host(self.data)
+        if k == PREDICTION:
+            return {key: to_host(a) for key, a in self.data.items()}
+        return None
+
+    def device_value(self, device):
+        """`host_value()` as tensors on `device` (vector and prediction
+        data already on a device move from there); None for host-only
+        kinds."""
+        k = self.kind
         if k == VECTOR:
             return _to_tensor(self.data, device)
         if k == PREDICTION:
             return {key: _to_tensor(a, device) for key, a in self.data.items()}
-        return None
+        hv = self.host_value()
+        if hv is None:
+            return None
+        return {key: _to_tensor(a, device) for key, a in hv.items()}
 
 def _to_tensor(a, device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):

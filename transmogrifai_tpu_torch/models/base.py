@@ -82,6 +82,9 @@ def infer_n_classes(y: np.ndarray) -> int:
 
 Param = Union[float, int, Sequence[float], torch.Tensor]
 
+# where ROADMAP.md queues the warm starts the estimators raise on
+WARM_STARTS = "queue 1: selector and workflow completeness"
+
 
 def per_pair(v: Param, P: int, device, dtype=torch.float32) -> torch.Tensor:
     """A hyperparameter of P fits at once as a (P,) tensor: one value for

@@ -18,8 +18,10 @@ import torch
 
 from transmogrifai_tpu_torch.models import lbfgs
 from transmogrifai_tpu_torch.models.base import (
-    Param, PredictionModel, PredictorEstimator, per_pair, regression_pred)
-from transmogrifai_tpu_torch.models.linear import RegressionHead
+    WARM_STARTS, Param, PredictionModel, PredictorEstimator, per_pair,
+    regression_pred)
+from transmogrifai_tpu_torch.models.linear import (
+    RegressionHead, narrow_head)
 
 FAMILIES = ("gaussian", "binomial", "poisson", "gamma", "tweedie")
 # Spark GLR's family → valid links (the first is the canonical default);
@@ -191,6 +193,9 @@ class GLMModel(PredictionModel):
     def device_constants(self, device):
         return RegressionHead(self.beta, self.b).to(device)
 
+    def narrow_device_constants(self, consts):
+        return narrow_head(consts)
+
     def predict(self, consts, X):
         return predict_glm(consts, X, self.family, self.link, self.var_power)
 
@@ -220,7 +225,8 @@ class OpGeneralizedLinearRegression(PredictorEstimator):
     def fit_arrays(self, X, y, w, ctx) -> GLMModel:
         if self.init_params is not None:
             raise NotImplementedError(
-                "GLM warm starts are not ported yet (ROADMAP.md, queue 1)")
+                "GLM warm starts are not ported yet (ROADMAP.md, "
+                f"{WARM_STARTS})")
         link = self.link or canonical_link(self.family)
         p = fit_glm(X, y, w, float(self.reg_param), self.family,
                     self.max_iter, self.var_power, link)

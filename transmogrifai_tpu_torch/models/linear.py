@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from transmogrifai_tpu_torch.models.base import (
-    Param, PredictionModel, PredictorEstimator, per_pair, regression_pred)
+    WARM_STARTS, Param, PredictionModel, PredictorEstimator, per_pair,
+    regression_pred)
 from transmogrifai_tpu_torch.models.logistic import _fista_momenta
 
 
@@ -120,7 +121,15 @@ class RegressionHead(torch.nn.Module):
             intercept, dtype=torch.float32))
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
-        return X @ self.beta + self.intercept
+        # bf16 coefficients (the quantized mode) widen to f32 exactly
+        return X @ self.beta.float() + self.intercept
+
+
+def narrow_head(consts: RegressionHead) -> RegressionHead:
+    """The quantized mode's view of a head: β in bf16 (the JAX package's
+    `narrow_device_constants` of the linear, SVC and GLM models)."""
+    consts.beta = consts.beta.to(torch.bfloat16)
+    return consts
 
 
 class LinearRegressionModel(PredictionModel):
@@ -135,6 +144,9 @@ class LinearRegressionModel(PredictionModel):
 
     def device_constants(self, device):
         return RegressionHead(self.beta, self.intercept).to(device)
+
+    def narrow_device_constants(self, consts):
+        return narrow_head(consts)
 
     def predict(self, consts, X):
         return regression_pred(consts(X))
@@ -158,7 +170,7 @@ class OpLinearRegression(PredictorEstimator):
         if self.init_params is not None:
             raise NotImplementedError(
                 "linear regression warm starts are not ported yet "
-                "(ROADMAP.md, queue 1)")
+                f"(ROADMAP.md, {WARM_STARTS})")
         alpha = float(self.elastic_net_param)
         reg = float(self.reg_param)
         if alpha > 0.0:

@@ -18,7 +18,8 @@ from transmogrifai_tpu_torch.models import lbfgs
 from transmogrifai_tpu_torch.models.base import (
     Param, PredictionModel, PredictorEstimator, binary_margin_pred,
     per_pair)
-from transmogrifai_tpu_torch.models.linear import RegressionHead
+from transmogrifai_tpu_torch.models.linear import (
+    RegressionHead, narrow_head)
 
 
 def fit_linear_svc(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -66,6 +67,9 @@ class LinearSVCModel(PredictionModel):
 
     def device_constants(self, device):
         return RegressionHead(self.beta, self.b).to(device)
+
+    def narrow_device_constants(self, consts):
+        return narrow_head(consts)
 
     def predict(self, consts, X):
         return predict_linear_svc(consts, X)

@@ -21,7 +21,8 @@ import torch
 
 from transmogrifai_tpu_torch.models import lbfgs
 from transmogrifai_tpu_torch.models.base import (
-    Param, PredictionModel, PredictorEstimator, infer_n_classes, per_pair)
+    WARM_STARTS, Param, PredictionModel, PredictorEstimator,
+    infer_n_classes, per_pair)
 
 
 def logreg_loss(params: Dict[str, torch.Tensor], X: torch.Tensor,
@@ -160,7 +161,8 @@ class LinearHead(torch.nn.Module):
         self.register_buffer("b", torch.as_tensor(b, dtype=torch.float32))
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
-        return X @ self.W + self.b
+        # bf16 weights (the quantized mode) widen to f32 exactly
+        return X @ self.W.float() + self.b
 
 
 def logreg_pred_from_logits(logits: torch.Tensor
@@ -188,6 +190,10 @@ class LogisticRegressionModel(PredictionModel):
 
     def device_constants(self, device):
         return LinearHead(self.W, self.b).to(device)
+
+    def narrow_device_constants(self, consts: LinearHead) -> LinearHead:
+        consts.W = consts.W.to(torch.bfloat16)
+        return consts
 
     def predict(self, consts, X):
         return predict_logreg(consts, X)
@@ -217,7 +223,7 @@ class OpLogisticRegression(PredictorEstimator):
         if self.init_params is not None:
             raise NotImplementedError(
                 "logistic warm starts are not ported yet (ROADMAP.md, "
-                "queue 1)")
+                f"{WARM_STARTS})")
         reg = float(self.reg_param)
         if alpha > 0.0:
             params = fit_logreg_enet(X, y, w, reg * alpha,

@@ -60,10 +60,11 @@ def _forward(params: List[Dict[str, torch.Tensor]],
     (or unbatched (a, b) / (b,) for one model)."""
     h = X
     for layer in params[:-1]:
-        h = torch.sigmoid(torch.matmul(h, layer["W"])
+        # bf16 weights (the quantized mode) widen to f32 exactly
+        h = torch.sigmoid(torch.matmul(h, layer["W"].float())
                           + layer["b"].unsqueeze(-2))
     last = params[-1]
-    return torch.matmul(h, last["W"]) + last["b"].unsqueeze(-2)
+    return torch.matmul(h, last["W"].float()) + last["b"].unsqueeze(-2)
 
 
 def fit_mlp(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -163,6 +164,12 @@ class MLPModel(PredictionModel):
 
     def device_constants(self, device):
         return MLPHead(self.weights).to(device)
+
+    def narrow_device_constants(self, consts: MLPHead) -> MLPHead:
+        for i in range(consts.n_layers):
+            setattr(consts, f"W{i}",
+                    getattr(consts, f"W{i}").to(torch.bfloat16))
+        return consts
 
     def predict(self, consts, X):
         return predict_mlp(consts, X)

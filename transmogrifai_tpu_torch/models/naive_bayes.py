@@ -51,7 +51,8 @@ class NaiveBayesHead(torch.nn.Module):
             log_theta, dtype=torch.float32))
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
-        return X @ self.log_theta.T + self.log_prior
+        # bf16 likelihoods (the quantized mode) widen to f32 exactly
+        return X @ self.log_theta.float().T + self.log_prior
 
 
 def predict_naive_bayes(head: NaiveBayesHead, X: torch.Tensor
@@ -79,6 +80,11 @@ class NaiveBayesModel(PredictionModel):
 
     def device_constants(self, device):
         return NaiveBayesHead(self.log_prior, self.log_theta).to(device)
+
+    def narrow_device_constants(self, consts: NaiveBayesHead
+                                ) -> NaiveBayesHead:
+        consts.log_theta = consts.log_theta.to(torch.bfloat16)
+        return consts
 
     def predict(self, consts, X):
         return predict_naive_bayes(consts, X)

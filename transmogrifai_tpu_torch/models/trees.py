@@ -45,8 +45,9 @@ from transmogrifai_tpu_torch import cuda_build
 from transmogrifai_tpu_torch.evaluators.device_metrics import (
     binned_aupr, sigmoid)
 from transmogrifai_tpu_torch.models.base import (
-    Param, PredictionModel, PredictorEstimator, binary_margin_pred,
-    infer_n_classes, per_pair, regression_pred)
+    WARM_STARTS, Param, PredictionModel, PredictorEstimator,
+    binary_margin_pred, infer_n_classes, per_pair, regression_pred)
+from transmogrifai_tpu_torch.stages.base import div_const
 
 log = logging.getLogger(__name__)
 
@@ -87,8 +88,11 @@ def bin_dtype(n_edges: int) -> torch.dtype:
 
 def bin_features_plain(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     """(n, d) bin ids: the count of edges each value is >= (a broadcast
-    compare; NaN compares false, so NaN → bin 0)."""
-    b = (X[:, :, None] >= edges[None, :, :]).sum(-1, dtype=torch.int32)
+    compare; NaN compares false, so NaN → bin 0). f16 edges (the
+    quantized mode's narrowed tables) are widened to f32 first, as the
+    JAX package promotes them."""
+    b = (X[:, :, None] >= edges.float()[None, :, :]).sum(-1,
+                                                         dtype=torch.int32)
     return b.to(bin_dtype(edges.shape[-1]))
 
 
@@ -100,8 +104,10 @@ _BIN_MAX_EDGES = 384  # FEAT_TILE * n_edges * 4 B within 48 KB of shared memory
 def _bin_features_cuda(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     _require(edges.device == X.device,
              f"bin_features: X on {X.device}, edges on {edges.device}")
-    _require(X.dtype == torch.float32 and edges.dtype == torch.float32,
-             f"bin_features: needs f32 inputs, got {X.dtype}/{edges.dtype}")
+    _require(X.dtype == torch.float32
+             and edges.dtype in (torch.float32, torch.float16),
+             f"bin_features: needs f32 values and f32 or f16 edges, got "
+             f"{X.dtype}/{edges.dtype}")
     _require(X.dim() == 2 and edges.dim() == 2
              and edges.shape[0] == X.shape[1],
              f"bin_features: shapes {tuple(X.shape)} / {tuple(edges.shape)}")
@@ -117,21 +123,23 @@ def _bin_features_cuda(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     if n == 0 or d == 0:
         return out
     lib = cuda_build.load("bin_features")
-    fname = "bin_features_i8" if dtype == torch.int8 else "bin_features_i32"
+    half = edges.dtype == torch.float16
+    fname = "bin_features_" + ("f16_" if half else "") + (
+        "i8" if dtype == torch.int8 else "i32")
     fn = cuda_build.declare(lib, fname, _BIN_ARGS)
     with torch.cuda.device(X.device):
         err = fn(X.data_ptr(), edges.data_ptr(), out.data_ptr(), n, d,
                  n_edges, _stream_ptr(X))
     cuda_build.check(fname, err)
-    _count("bin_features")
+    _count("bin_features_f16" if half else "bin_features")
     return out
 
 
 def bin_features(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     """(n, d) int8 bin ids in [0, n_edges] (int32 above 126 edges):
-    `Xb[r, f] = #{e : X[r, f] >= edges[f, e]}`, NaN → 0. A CUDA tensor
-    launches the K4 kernel (or raises); a CPU tensor takes the plain
-    version."""
+    `Xb[r, f] = #{e : X[r, f] >= edges[f, e]}`, NaN → 0; f32 or f16
+    edges. A CUDA tensor launches the K4 kernel (its f16-edge variant for
+    f16 edges) or raises; a CPU tensor takes the plain version."""
     _check_device(X, "bin_features")
     if X.is_cuda:
         return _bin_features_cuda(X, edges)
@@ -191,21 +199,32 @@ def tree_walk_plain(Xb: torch.Tensor, feat: torch.Tensor, bins: torch.Tensor,
 
 
 _WALK_ARGS = (ctypes.c_void_p,) * 5 + (
-    ctypes.c_int64,) + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+    ctypes.c_int64,) + (ctypes.c_int,) * 11 + (ctypes.c_void_p,)
 
 
 def _check_walk_inputs(fname, Xb, feat, bins, leaf) -> None:
-    """The devices and dtypes the walk kernels take."""
+    """The devices and dtypes the walk kernels take: int8/int32 bins, and
+    int32 tables or the quantized mode's narrowed ones (int16 features,
+    uint8 split bins)."""
     for name, t in (("feat", feat), ("bin", bins), ("leaf", leaf)):
         _require(t.device == Xb.device,
                  f"{fname}: Xb on {Xb.device}, {name} on {t.device}")
     _require(Xb.dtype in (torch.int8, torch.int32),
              f"{fname}: Xb must be int8 or int32, got {Xb.dtype}")
-    _require(feat.dtype == torch.int32 and bins.dtype == torch.int32,
-             f"{fname}: feat/bin must be int32, got {feat.dtype}/"
-             f"{bins.dtype}")
+    _require(feat.dtype in (torch.int32, torch.int16)
+             and bins.dtype in (torch.int32, torch.uint8),
+             f"{fname}: feat must be int32 or int16 and bin int32 or "
+             f"uint8, got {feat.dtype}/{bins.dtype}")
     _require(leaf.dtype == torch.float32,
              f"{fname}: leaf must be f32, got {leaf.dtype}")
+
+
+def _narrowed(feat: torch.Tensor, bins: torch.Tensor) -> bool:
+    return feat.dtype != torch.int32 or bins.dtype != torch.int32
+
+
+def _type_bytes(Xb, feat, bins) -> Tuple[int, int, int]:
+    return Xb.element_size(), feat.element_size(), bins.element_size()
 
 
 def _tree_walk_cuda(Xb, feat, bins, leaf) -> torch.Tensor:
@@ -219,16 +238,17 @@ def _tree_walk_cuda(Xb, feat, bins, leaf) -> torch.Tensor:
     out = torch.empty((n, m), dtype=torch.float32, device=Xb.device)
     lib = cuda_build.load("tree_walk")
     max_m = cuda_build.declare(lib, "tree_walk_max_m", ())()
-    fname = "tree_walk_i8" if Xb.dtype == torch.int8 else "tree_walk_i32"
-    fn = cuda_build.declare(lib, fname, _WALK_ARGS)
+    fn = cuda_build.declare(lib, "tree_walk_typed", _WALK_ARGS)
+    counter = "tree_walk_narrow" if _narrowed(feat, bins) else "tree_walk"
     with torch.cuda.device(Xb.device):
         stream = _stream_ptr(Xb)
         for c0 in range(0, m, max_m):
             err = fn(Xb.data_ptr(), feat.data_ptr(), bins.data_ptr(),
                      leaf.data_ptr(), out.data_ptr(), n, d, n_trees, depth,
-                     width, n_leaves, m, c0, min(max_m, m - c0), stream)
-            cuda_build.check(fname, err)
-            _count("tree_walk")
+                     width, n_leaves, m, c0, min(max_m, m - c0),
+                     *_type_bytes(Xb, feat, bins), stream)
+            cuda_build.check("tree_walk_typed", err)
+            _count(counter)
     return out
 
 
@@ -282,7 +302,7 @@ def tree_walk_classes_plain(Xb: torch.Tensor, feat: torch.Tensor,
 
 
 _WALK_CLASSES_ARGS = (ctypes.c_void_p,) * 5 + (
-    ctypes.c_int64,) + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+    ctypes.c_int64,) + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
 
 
 def _tree_walk_classes_cuda(Xb, feat, bins, leaf) -> torch.Tensor:
@@ -296,14 +316,13 @@ def _tree_walk_classes_cuda(Xb, feat, bins, leaf) -> torch.Tensor:
         return torch.zeros((n, K), dtype=torch.float32, device=Xb.device)
     out = torch.empty((n, K), dtype=torch.float32, device=Xb.device)
     lib = cuda_build.load("tree_walk")
-    fname = ("tree_walk_classes_i8" if Xb.dtype == torch.int8
-             else "tree_walk_classes_i32")
-    fn = cuda_build.declare(lib, fname, _WALK_CLASSES_ARGS)
+    fn = cuda_build.declare(lib, "tree_walk_classes_typed",
+                            _WALK_CLASSES_ARGS)
     with torch.cuda.device(Xb.device):
         err = fn(Xb.data_ptr(), feat.data_ptr(), bins.data_ptr(),
                  leaf.data_ptr(), out.data_ptr(), n, d, T, K, depth, width,
-                 leaf.shape[2], _stream_ptr(Xb))
-    cuda_build.check(fname, err)
+                 leaf.shape[2], *_type_bytes(Xb, feat, bins), _stream_ptr(Xb))
+    cuda_build.check("tree_walk_classes_typed", err)
     _count("tree_walk_classes")
     return out
 
@@ -1277,15 +1296,18 @@ def _default_rounds_per_dispatch(n: int, d: int, n_estimators: int,
 # prediction assembly (as in the JAX package)                                 #
 # --------------------------------------------------------------------------- #
 
-def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+def _f32(x: float) -> float:
+    """`x` rounded to f32, as a Python scalar: a tensor op with it rounds
+    it to the tensor's f32 once, and no tensor is made on the device (a
+    CUDA graph captures no host-to-device copy)."""
+    return float(np.float32(x))
 
 
 def predict_gbt_margin(trees: Dict[str, torch.Tensor], Xb: torch.Tensor,
                        learning_rate: float) -> torch.Tensor:
     """(n,) boosting margin: learning_rate · Σ_t leaf."""
     s = tree_walk(Xb, trees["feat"], trees["bin"], trees["leaf"])[:, 0]
-    return _f32(learning_rate, s) * s
+    return _f32(learning_rate) * s
 
 
 def predict_gbt_multiclass_margin(trees: Dict[str, torch.Tensor],
@@ -1294,7 +1316,7 @@ def predict_gbt_multiclass_margin(trees: Dict[str, torch.Tensor],
     """(n, K) softmax-boosting margin of trees (rounds, K, ...):
     learning_rate · Σ_t leaf (K5-mc)."""
     s = tree_walk_classes(Xb, trees["feat"], trees["bin"], trees["leaf"])
-    return _f32(learning_rate, s) * s
+    return _f32(learning_rate) * s
 
 
 def gbt_multiclass_pred_from_margin(margin: torch.Tensor
@@ -1308,7 +1330,7 @@ def predict_forest(trees: Dict[str, torch.Tensor],
                    Xb: torch.Tensor) -> torch.Tensor:
     """(n, m) mean per-tree prediction."""
     s = tree_walk(Xb, trees["feat"], trees["bin"], trees["leaf"])
-    return s / _f32(float(trees["feat"].shape[0]), s)
+    return div_const(s, trees["feat"].shape[0])
 
 
 def gbt_pred_from_margin(margin: torch.Tensor,
@@ -1377,6 +1399,20 @@ class _TreeModelBase(PredictionModel):
 
     def device_constants(self, device):
         return TreeEnsemble(self.edges, self.trees).to(device)
+
+    def narrow_device_constants(self, consts: TreeEnsemble) -> TreeEnsemble:
+        """The quantized mode's tables (models/trees.py:999 of the JAX
+        package): split features int16 when d < 2^15 and split bins uint8
+        when there are at most 255 edges (both lossless), edges f16
+        (lossy at f16's precision, inside the mode's stated tolerance);
+        leaves stay f32. K4 and K5 read them in their narrowed variants."""
+        d, n_edges = consts.edges.shape
+        if d < (1 << 15):
+            consts.feat = consts.feat.to(torch.int16)
+        if n_edges <= 255:
+            consts.bin = consts.bin.to(torch.uint8)
+        consts.edges = consts.edges.to(torch.float16)
+        return consts
 
     def predict(self, consts: TreeEnsemble, X):
         return self._apply_tables(consts.tables, consts(X))
@@ -1480,7 +1516,8 @@ class OpRandomForestClassifier(_TreeEstimatorBase):
     def _fit_forest(self, X, Y, w, ctx):
         if self.init_params is not None:
             raise NotImplementedError(
-                "forest warm starts are not ported yet (ROADMAP.md, queue 1)")
+                "forest warm starts are not ported yet (ROADMAP.md, "
+                f"{WARM_STARTS})")
         edges, Xb = self._edges_binned(X, ctx)
         trees = fit_forest(Xb, Y, w, self.n_trees, self.max_depth,
                            self.max_bins, ctx.seed if ctx is not None else 0,
@@ -1613,7 +1650,8 @@ class OpGBTClassifier(_TreeEstimatorBase):
              if self._objective == "logistic" else 2)
         if self.init_params is not None:
             raise NotImplementedError(
-                "GBT warm starts are not ported yet (ROADMAP.md, queue 1)")
+                "GBT warm starts are not ported yet (ROADMAP.md, "
+                f"{WARM_STARTS})")
         edges, Xb = self._edges_binned(X, ctx)
         seed = ctx.seed if ctx is not None else 0
         if k > 2:  # softmax boosting: every round, no early stopping

@@ -40,8 +40,7 @@ class _NumericModelBase(Transformer):
         cols = []
         for i, d in enumerate(dev):
             v, m = d["value"], d["mask"]
-            fill = torch.tensor(self.fill_values[i], dtype=torch.float32,
-                                device=v.device)
+            fill = float(self.fill_values[i])  # an f32 value, exact
             cols.append(v * m + fill * (1.0 - m))
             if self.track_nulls:
                 cols.append(1.0 - m)

@@ -4,9 +4,11 @@ The port's counterpart of the core of the JAX package's
 `serving/service.py`. Callers submit rows (`score`) or columns
 (`score_columns`); one scoring thread coalesces queued requests into one
 batch, pads it to a bucket of the ladder and scores it with the model's
-`CompiledScorer.score_padded`, then hands each request its rows as numpy
-arrays. Every bucket is scored once at `start()`, so the first request
-of each size meets warm kernels and resident tables.
+`CompiledScorer.score_padded` (one CUDA graph per bucket on a CUDA
+device), then hands each request its rows as numpy arrays. Every bucket
+is scored once at `start()`, so each bucket's graph is captured and the
+first request of each size meets warm kernels and resident tables.
+`ServingConfig.quantize` serves on the quantized wire.
 
 Usage::
 
@@ -42,6 +44,13 @@ class ServingConfig:
     max_batch: int = 64            # top bucket = largest device batch
     max_queue: int = 256           # bounded admission queue
     batch_wait_ms: float = 2.0     # linger to coalesce concurrent requests
+    # quantized inference ("int8", "int4" or their "-calibrated" variants,
+    # workflow.compiled.ScoringQuant): the request's numeric columns ride
+    # an affine uint8 wire (stated per-feature tolerance scale/2 =
+    # (hi − lo)/(2·(2^bits − 1))) and the fitted tables compute in
+    # narrowed dtypes; calibrated modes quantize against the model's
+    # fit-time ranges, so a row scores alike in any batch. None = f32
+    quantize: Optional[str] = None
 
     def ladder(self) -> Tuple[int, ...]:
         return bucket_ladder(self.max_batch)
@@ -94,7 +103,7 @@ class ScoringService:
         self.model = model
         self.config = config or ServingConfig()
         self.ladder = self.config.ladder()
-        self.scorer = model.compiled()
+        self.scorer = model._ensure_compiled(quant=self.config.quantize)
         self._schema = raw_schema(model)
         self._batcher = MicroBatcher(
             self.config.max_queue, self.ladder[-1],
@@ -158,9 +167,13 @@ class ScoringService:
         with self._lock:
             counts = {"batches": self._batches, "rows": self._rows,
                       "errors": self._errors}
+        q = self.scorer.quant
         return {
             "status": "ok" if self._running else "down",
             "device": str(self.model.device),
+            "quantize": None if q is None else (
+                q.mode + ("-calibrated" if q.calibrated else "")),
+            "cuda_graphs": self.scorer.graphs,
             "uptime_s": round(time.monotonic() - self._started_mono, 3),
             "queue_depth": self._batcher.depth(),
             "buckets": list(self.ladder),

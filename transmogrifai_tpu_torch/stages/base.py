@@ -21,8 +21,10 @@ resolve one package's saved stages to the other's classes.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -150,6 +152,62 @@ class Stage:
         return f"{type(self).__name__}(uid={self.uid!r})"
 
 
+_scoring = threading.local()
+
+
+@contextlib.contextmanager
+def compiled_scoring() -> Iterator[None]:
+    """Marks device code run by the compiled scorer (`div_const`)."""
+    prev = getattr(_scoring, "on", False)
+    _scoring.on = True
+    try:
+        yield
+    finally:
+        _scoring.on = prev
+
+
+def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c for a fitted constant c, rounded as the JAX package rounds
+    it: inside the compiled scorer as x · (1/c), the f32 reciprocal of
+    the f32 constant, since XLA rewrites a division by a constant in the
+    JAX package's jitted scoring program into that product; elsewhere
+    (stage transforms at fit time, run op by op there) as a true f32
+    division."""
+    c32 = np.float32(c)
+    if getattr(_scoring, "on", False):
+        return x * float(np.float32(1.0) / c32)
+    return x / float(c32)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """a·b + c for f32 tensors, rounded once to f32 (a fused multiply-add):
+    the product is exact in f64, the sum is rounded to f64 with the
+    rounding error kept (two-sum), and an inexact f64 sum is made odd in
+    its last bit (rounding to odd) so that the final rounding to f32 is
+    the correct one."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def mul_add_const(x: torch.Tensor, a: float, b: float) -> torch.Tensor:
+    """a·x + b for fitted constants a and b, rounded as the JAX package
+    rounds it: inside the compiled scorer once, as a fused multiply-add
+    (XLA's CPU program contracts a·x + b into one), elsewhere as the
+    product rounded and then the sum."""
+    a32, b32 = float(np.float32(a)), float(np.float32(b))
+    if getattr(_scoring, "on", False):
+        return fma_f32(x, torch.full_like(x, a32), torch.full_like(x, b32))
+    return a32 * x + b32
+
+
 def to_device(enc: Any, device) -> Any:
     """Move a host pytree (numpy arrays in dicts/lists) onto `device` as
     tensors; non-array leaves pass through."""
@@ -185,6 +243,13 @@ class Transformer(Stage):
     def device_apply_with(self, consts: Any, enc: Any,
                           dev: Sequence[Any]) -> Any:
         return self.device_apply(enc, dev)
+
+    def narrow_device_constants(self, consts: Any) -> Any:
+        """The quantized scoring mode's view of `device_constants`: the
+        same module with its heavy tables in narrower dtypes, chosen from
+        shapes only (never values), widened back to f32 where they are
+        used. Default: unchanged (nothing to narrow)."""
+        return consts
 
     def output_meta(self) -> Optional[VectorMetadata]:
         return None

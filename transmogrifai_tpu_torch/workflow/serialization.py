@@ -171,6 +171,10 @@ def save_model(model, path: str, overwrite: bool = True) -> None:
         "result_features": [f.uid for f in model.result_features],
         "features": [_feature_entry(features[uid]) for uid in order],
         "stages": stage_entries}
+    # the fit-time quantization ranges, under the JAX package's key
+    cal = getattr(model, "quant_calibration", None)
+    if cal:
+        manifest["quant_calibration"] = cal
 
     tmp = f"{path}.tmp-{os.getpid()}"
     if os.path.exists(tmp):
@@ -235,7 +239,10 @@ def _ensure_stage_library() -> None:
     import transmogrifai_tpu_torch.ops.categorical  # noqa: F401
     import transmogrifai_tpu_torch.ops.combiner  # noqa: F401
     import transmogrifai_tpu_torch.ops.indexers  # noqa: F401
+    import transmogrifai_tpu_torch.ops.mathops  # noqa: F401
     import transmogrifai_tpu_torch.ops.numeric  # noqa: F401
+    import transmogrifai_tpu_torch.ops.rowops  # noqa: F401
+    import transmogrifai_tpu_torch.ops.scalers  # noqa: F401
     import transmogrifai_tpu_torch.ops.text  # noqa: F401
     import transmogrifai_tpu_torch.selector.model_selector  # noqa: F401
 
@@ -298,4 +305,5 @@ def load_model(path: str, device: DeviceLike = "cuda", verify: bool = True):
     result = [features[uid] for uid in manifest["result_features"]]
     model = WorkflowModel(result_features=result, fitted=fitted, device=dev)
     model.loaded_from = path
+    model.quant_calibration = manifest.get("quant_calibration")
     return model

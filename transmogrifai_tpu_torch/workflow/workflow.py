@@ -11,18 +11,25 @@ and whose `save` writes the JAX package's on-disk format.
 
 from __future__ import annotations
 
+import logging
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from transmogrifai_tpu_torch.data.columns import Column
+from transmogrifai_tpu_torch.data.columns import SCALAR, VECTOR, Column
 from transmogrifai_tpu_torch.data.dataset import Dataset
 from transmogrifai_tpu_torch.device import DeviceLike, resolve_device
 from transmogrifai_tpu_torch.features.dag import (
     clone_graph, topological_layers)
+from transmogrifai_tpu_torch.models.base import WARM_STARTS
 from transmogrifai_tpu_torch.stages.base import (
-    Estimator, FeatureGeneratorStage, FitContext, Transformer)
+    Estimator, FeatureGeneratorStage, FitContext, Transformer,
+    is_host_stage)
+
+log = logging.getLogger(__name__)
 
 
 class Workflow:
@@ -49,18 +56,18 @@ class Workflow:
 
     def with_workflow_cv(self) -> "Workflow":
         raise NotImplementedError(
-            "workflow-level CV is not ported yet (ROADMAP.md, training "
-            "slice, queued)")
+            "workflow-level CV is not ported yet (ROADMAP.md, queue 1: "
+            "feature validation at full scope)")
 
     def with_raw_feature_filter(self, *args, **kwargs) -> "Workflow":
         raise NotImplementedError(
-            "RawFeatureFilter is not ported yet (ROADMAP.md, queue 1, "
-            "item 10)")
+            "RawFeatureFilter is not ported yet (ROADMAP.md, queue 1: "
+            "feature validation at full scope)")
 
     def with_model_stages(self, *args, **kwargs) -> "Workflow":
         raise NotImplementedError(
             "warm starts (with_model_stages) are not ported yet "
-            "(ROADMAP.md, queue 1)")
+            f"(ROADMAP.md, {WARM_STARTS})")
 
     def train(self, dataset: Optional[Dataset] = None, seed: int = 42,
               device: DeviceLike = "cuda") -> "WorkflowModel":
@@ -76,7 +83,8 @@ class Workflow:
             raise NotImplementedError(
                 f"workflow parameters {sorted(self.parameters)} are not "
                 "ported yet (stage_params, sweep checkpoints and the rest: "
-                "ROADMAP.md, training slice, queued)")
+                "ROADMAP.md, queue 1: selector and workflow completeness "
+                "and the sweep journal)")
         ds = dataset if dataset is not None else self._dataset
         if ds is None:
             raise RuntimeError(
@@ -117,7 +125,69 @@ class Workflow:
         model = WorkflowModel(result_features=result_features, fitted=fitted,
                               device=dev)
         model.stage_seconds = stage_seconds
+        model.train_columns = columns
+        model.quant_calibration = capture_quant_calibration(
+            result_features, fitted, columns)
         return model
+
+
+def capture_quant_calibration(result_features, fitted, columns
+                              ) -> Optional[Dict[str, Any]]:
+    """Fit-time per-column [lo, hi] ranges for the quantized serving wire
+    (the JAX package's `Workflow._capture_quant_calibration`): one entry
+    per host-origin device-input column (raw generator outputs and host
+    stage outputs, the leaves `quantize_wire` quantizes at serving time).
+    A scalar range is extended to include 0.0, since masked slots ride the
+    wire as exact 0.0 fills; rows are strided past 262,144 (a vector's
+    past 65,536). Returns None when no column has a finite range or the
+    capture fails: quantized serving then falls back to batch-relative
+    ranges."""
+    try:
+        host_uids = {f.uid for rf in result_features
+                     for f in rf.raw_features()}
+        for s in fitted.values():
+            if is_host_stage(s):
+                host_uids.add(s.get_output().uid)
+        cal = {}
+        for uid in host_uids:
+            col = columns.get(uid)
+            if col is None:
+                continue
+            if col.kind == SCALAR:
+                v = np.asarray(col.data["value"], np.float64)
+                v = v[np.asarray(col.data["mask"]).astype(bool)]
+                if v.size > 262_144:
+                    v = v[::v.size // 262_144]
+                if v.size == 0:
+                    continue
+                with np.errstate(invalid="ignore"):
+                    fin = v[np.isfinite(v)]
+                if fin.size == 0:
+                    continue
+                cal[uid] = {"lo": [min(float(fin.min()), 0.0)],
+                            "hi": [max(float(fin.max()), 0.0)]}
+            elif col.kind == VECTOR:
+                a = np.asarray(col.data)
+                if a.ndim != 2 or a.size == 0:
+                    continue
+                if a.shape[0] > 65_536:
+                    a = a[::a.shape[0] // 65_536]
+                with np.errstate(invalid="ignore"), \
+                        warnings.catch_warnings():
+                    warnings.simplefilter("ignore", RuntimeWarning)
+                    fin = np.where(np.isfinite(a), a, np.nan)
+                    lo = np.nanmin(fin, axis=0)
+                    hi = np.nanmax(fin, axis=0)
+                lo = np.where(np.isfinite(lo), lo, 0.0)
+                hi = np.where(np.isfinite(hi), hi, lo)
+                cal[uid] = {"lo": [float(x) for x in lo],
+                            "hi": [float(x) for x in hi]}
+        return cal or None
+    except Exception as e:
+        log.warning("quant calibration capture failed (%s: %s); quantized "
+                    "serving will use batch-relative ranges",
+                    type(e).__name__, e, exc_info=True)
+        return None
 
 
 class WorkflowModel:
@@ -133,6 +203,11 @@ class WorkflowModel:
         self.device = resolve_device(device)
         self.loaded_from: Optional[str] = None
         self.stage_seconds: List[Tuple[str, float]] = []
+        # the training columns by feature uid (set by `Workflow.train`;
+        # empty on a loaded model), which `model_insights` reads
+        self.train_columns: Dict[str, Column] = {}
+        # fit-time quantization ranges, uid -> {"lo": [...], "hi": [...]}
+        self.quant_calibration: Optional[Dict[str, Any]] = None
         self._compiled = None
 
     def save(self, path: str, overwrite: bool = True) -> None:
@@ -170,14 +245,27 @@ class WorkflowModel:
             return columns
         return {f.name: columns[f.uid] for f in self.result_features}
 
-    def compiled(self):
-        """The model's `CompiledScorer` (built once)."""
-        from transmogrifai_tpu_torch.workflow.compiled import CompiledScorer
-        if self._compiled is None:
-            self._compiled = CompiledScorer(self)
+    def _ensure_compiled(self, quant: Any = None):
+        """The model's `CompiledScorer` for quantized mode `quant` (None,
+        "int8", "int4", their "-calibrated" variants or a ScoringQuant),
+        rebuilt when the mode changes."""
+        from transmogrifai_tpu_torch.workflow.compiled import (
+            CompiledScorer, ScoringQuant)
+        q = ScoringQuant.resolve(quant)
+        if self._compiled is None or self._compiled.quant != q:
+            self._compiled = CompiledScorer(self, quant=q)
         return self._compiled
+
+    def compiled(self):
+        """The model's exact-f32 `CompiledScorer` (built once)."""
+        return self._ensure_compiled()
 
     def score_compiled(self, dataset: Dataset) -> Dict[str, Any]:
         """Planned scoring: {feature_name: tensor pytree on the model's
         device} for the result features."""
         return self.compiled()(dataset)
+
+    def model_insights(self):
+        """The merged explanation artifact (ModelInsights.scala:74)."""
+        from transmogrifai_tpu_torch.insights import ModelInsights
+        return ModelInsights.extract(self)
