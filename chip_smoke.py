@@ -7,7 +7,7 @@ nor the JAX package. Phases, one JSON line each; any failure exits
 non-zero:
 
 1. the card's name and power limit (from nvidia-smi), then the build of
-   every CUDA kernel of the port (nine sources) from
+   every CUDA kernel of the port (ten sources) from
    `transmogrifai_tpu_torch/csrc` with nvcc, all sources in parallel;
 2. K4 `bin_features` against its plain PyTorch version at n in
    {1, 64, 891, 65536} x 496 features with the Titanic model's 31 edges
@@ -152,10 +152,34 @@ non-zero:
    and read after, and the three kernels must have launched (counted per
    replay); then each timed beside its bound and plain version at n = 64,
    891 and 65536. The `kernels` line lists them with the launches of this
-   run.
+   run;
+21. the out-of-core path (`big_path`, BASELINE target 4's machinery at
+   4,456,448 × 500: 17 upload chunks of 262,144 rows, n·d past 2^31): first
+   the 16384 × 500 fixture `testdata/big_synth_16384x500` (the JAX
+   package's, chunk 4096) rebuilt on the card: store and binned-matrix
+   sha256 equal, the LR grid within twice the JAX package's own
+   row-permutation move, the lockstep GBT's and the injected-draw forest's
+   trees equal, GBT leaves within 1e-5 and margins 2e-6, forest leaves
+   equal; then a synthetic store (seed 11) generated in a temporary
+   directory, `dual_device_matrices` through K12 (`csrc/write_rows.cu`)
+   with its upload seconds, GB/s and overlap, K12 held bit for bit to its
+   plain version on the first and the last chunk; the LR grid (8 (l1, l2)
+   pairs × 3 folds × 200 FISTA steps, bf16 × bf16 → f32 products) with
+   seconds per fold and holdout AuPR per grid through K8-binned; the RF
+   (16 trees at depth 6 in one lockstep batch, and one depth-12 tree),
+   the lockstep GBT (6 pairs × 2 rounds at depth 6, one round at depth
+   10) with the K1/K2/K3 times of every level; `predict_forest_big` over
+   all rows (K5); the device's busy share over one RF batch and one LR
+   fold (`torch.profiler`). The launch counters are set to 0 before the
+   upload and read after the prediction: K12, K1, K2, K3, K5 and K8 must
+   have launched. Then each kernel at these shapes beside its bound, its
+   plain version and a library call; the `kernels` line adds them
+   (`write_rows`, `*_big`). `big_path(rows=10_000_000)` is the same phase
+   at BASELINE target 4's shape (39 chunks).
 """
 
 import contextlib
+import hashlib
 import json
 import logging
 import os
@@ -2354,6 +2378,580 @@ def families_serve(port, pt, device="cuda"):
     return record
 
 
+# --------------------------------------------------------------------------- #
+# the out-of-core path (phase 21)                                             #
+# --------------------------------------------------------------------------- #
+
+BIG_ROWS = 4_456_448          # 17 upload chunks of 262,144; n·d > 2^31
+BIG_D = 500
+BIG_BINS = 32
+BIG_SEED = 11                 # bench.py's store seed
+BIG_FIXTURE = os.path.join(HERE, "transmogrifai_tpu_torch", "testdata",
+                           "big_synth_16384x500")
+BIG_FIXTURE_ROWS = 16384
+BIG_FIXTURE_CHUNK = 4096
+BIG_LR_STEPS = 200
+BIG_RF = dict(n_trees=16, max_depth=6, seed=3)
+BIG_RF_DEEP = dict(n_trees=1, max_depth=12, seed=5)
+BIG_GBT = dict(n_estimators=2, max_depth=6, learning_rate=0.1,
+               reg_lambda=1.0)
+BIG_GBT_DEEP = dict(n_estimators=1, max_depth=10, learning_rate=0.1,
+                    reg_lambda=1.0)
+# GBT leaves: the same bf16-rounded gradients summed in f32 in another
+# order (K1/K3 against the JAX package's matmuls); margins add lr · leaf
+BIG_GBT_LEAF_ATOL = 1e-5
+BIG_GBT_MARGIN_ATOL = 2e-6
+# the LR grid: FISTA re-rounds W and the residuals to bf16 before every
+# product, so a sum-order difference that moves an f32 value across a bf16
+# rounding boundary moves that operand by 2^-8 relative and the path by
+# ~1e-3; the port is held within twice the JAX package's own move when its
+# rows are permuted (the same problem, the sums in another order)
+BIG_LR_SELF_FACTOR = 2.0
+
+
+def big_grid():
+    """bench.py's 8 elastic-net (l1, l2) pairs (`run_big`, :861-866)."""
+    l1v, l2v = [], []
+    for a in (0.1, 0.5):
+        for r in (0.001, 0.01, 0.1, 0.2):
+            l1v.append(r * a)
+            l2v.append(r * (1 - a))
+    return np.asarray(l1v, np.float32), np.asarray(l2v, np.float32)
+
+
+def big_folds(n: int, n_pad: int):
+    """bench.py's 3 folds over the real rows (row r in fold r % 3; pad rows
+    in none): training weights W (3, n_pad) and holdout masks V (3, n_pad),
+    f32."""
+    fold_of = np.arange(n_pad) % 3
+    fold_of[n:] = -1
+    W = np.stack([(fold_of != f) & (fold_of >= 0) for f in range(3)])
+    V = np.stack([fold_of == f for f in range(3)])
+    return W.astype(np.float32), V.astype(np.float32)
+
+
+def big_gbt_weights(W, V):
+    """The lockstep GBT's 6 pairs: each fold's training rows, then each
+    fold's holdout rows."""
+    return np.concatenate([W, V]).astype(np.float32)
+
+
+def big_labels(store, n_pad: int) -> np.ndarray:
+    y = np.zeros(n_pad, np.float32)
+    y[:store.n_rows] = np.asarray(store.y, np.float32)
+    return y
+
+
+def big_lr_tolerance(want) -> dict:
+    return {"W": BIG_LR_SELF_FACTOR * float(want["lr_self_move_W"]),
+            "b": BIG_LR_SELF_FACTOR * float(want["lr_self_move_b"])}
+
+
+def judge_big_fixture(got, want) -> dict:
+    """The port's results at the fixture's shape (`got`: numpy arrays
+    under the fixture's names) against the JAX package's (`want`): digests
+    equal; LR W and b within twice the JAX package's own row-permutation
+    move; GBT and forest split features and bins equal, GBT leaves within
+    BIG_GBT_LEAF_ATOL and margins within BIG_GBT_MARGIN_ATOL, forest
+    leaves equal (integer sums)."""
+    rec = {}
+    for k in ("store_sha256", "binned_sha256"):
+        rec[k] = str(got[k]) == str(want[k])
+    tol = big_lr_tolerance(want)
+    rec["lr_W_err"] = float(np.abs(got["lr_W"] - want["lr_W"]).max())
+    rec["lr_b_err"] = float(np.abs(got["lr_b"] - want["lr_b"]).max())
+    rec["lr_tolerance"] = tol
+    for fam in ("gbt", "rf"):
+        rec[f"{fam}_trees_equal"] = bool(
+            np.array_equal(got[f"{fam}_feat"], want[f"{fam}_feat"])
+            and np.array_equal(got[f"{fam}_bin"], want[f"{fam}_bin"]))
+        rec[f"{fam}_leaf_err"] = float(np.abs(
+            got[f"{fam}_leaf"] - want[f"{fam}_leaf"]).max())
+    rec["gbt_margin_err"] = float(np.abs(
+        got["gbt_margin"] - want["gbt_margin"]).max())
+    rec["ok"] = bool(
+        rec["store_sha256"] and rec["binned_sha256"]
+        and rec["lr_W_err"] <= tol["W"] and rec["lr_b_err"] <= tol["b"]
+        and rec["gbt_trees_equal"] and rec["rf_trees_equal"]
+        and rec["gbt_leaf_err"] <= BIG_GBT_LEAF_ATOL
+        and rec["gbt_margin_err"] <= BIG_GBT_MARGIN_ATOL
+        and rec["rf_leaf_err"] == 0.0)
+    return rec
+
+
+def store_digest(store) -> str:
+    """sha256 over the store's column files, from the per-file checksums
+    its manifest records (both packages write the same manifest)."""
+    sums = store.meta["checksums"]
+    text = "\n".join(f"{k}:{sums[k]['sha256']}" for k in sorted(sums))
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def tensor_digest(t) -> str:
+    return hashlib.sha256(
+        t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def load_big_fixture() -> dict:
+    with np.load(os.path.join(BIG_FIXTURE, "fixture.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def big_fixture_run(pbd, pcs, root, device="cuda"):
+    """The port's results at the fixture's shape (16384 × 500, chunk
+    4096) on `device`, with the fixture's forest draws injected: numpy
+    arrays under the fixture's names."""
+    want = load_big_fixture()
+    chunk = BIG_FIXTURE_CHUNK
+    st = pcs.synth_binary_store(os.path.join(root, "fixture_store"),
+                                BIG_FIXTURE_ROWS, BIG_D, seed=BIG_SEED)
+    edges = st.quantile_edges(BIG_BINS)
+    X16, Xb = pbd.dual_device_matrices(st, edges, chunk_rows=chunk,
+                                       device=device)
+    n_pad = X16.shape[0]
+    W, V = big_folds(st.n_rows, n_pad)
+    y = big_labels(st, n_pad)
+    dev = X16.device
+    yd = torch.from_numpy(y).to(dev)
+    l1v, l2v = big_grid()
+    lr = pbd.fit_logreg_enet_grids_big(X16, yd, torch.from_numpy(W[0]).to(
+        dev), l1v, l2v, 2, BIG_LR_STEPS)
+    g = BIG_GBT
+    gbt, margin = pbd.fit_gbt_big_lockstep(
+        Xb, yd, torch.from_numpy(big_gbt_weights(W, V)).to(dev),
+        g["n_estimators"], g["max_depth"], BIG_BINS, g["learning_rate"],
+        g["reg_lambda"], "logistic", chunk=chunk)
+    r = BIG_RF
+    Y1 = torch.nn.functional.one_hot(yd.long(), 2).float()
+    rf = pbd.fit_forest_big(Xb, Y1, torch.from_numpy(W[0]).to(dev),
+                            r["n_trees"], r["max_depth"], BIG_BINS, 2,
+                            seed=r["seed"], chunk=chunk,
+                            draws=(want["rf_boot"].astype(np.float32),
+                                   want["rf_mask"]))
+    got = {"store_sha256": store_digest(st), "binned_sha256":
+           tensor_digest(Xb), "lr_W": lr["W"], "lr_b": lr["b"],
+           "gbt_margin": margin,
+           **{f"gbt_{k}": v for k, v in gbt.items()},
+           **{f"rf_{k}": v for k, v in rf.items()}}
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else v) for k, v in got.items()}, want
+
+
+def profiled(fn):
+    """fn() under torch.profiler: (profiled wall ms, the device's busy ms
+    (its kernels' and copies' self time), the busiest items)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    items = sorted(((e.key, e.self_device_time_total / 1e3)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    busy = sum(v for _, v in items)
+    return {"wall_ms_profiled": wall,
+            "device_busy_ms": busy if items else "not measured",
+            "device_busy_share": busy / wall if items else "not measured",
+            "top_device_items_ms": items[:6]}
+
+
+def timed_s(device, fn):
+    """(fn()'s result, its wall seconds ending in a device sync)."""
+    sync(device)
+    t = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t
+
+
+def once(fn):
+    """(fn()'s result, the CUDA-event ms of that one call), for calls too
+    long to repeat."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def once_ms(fn) -> float:
+    return once(fn)[1]
+
+
+def route_to_level(pt, Xb, trees, level):
+    """Each tree's node ids (K, n) at `level`, routed through its fitted
+    tables."""
+    node = torch.zeros((trees["feat"].shape[0], Xb.shape[0]),
+                       dtype=torch.int32, device=Xb.device)
+    for lv in range(level):
+        node = pt.route_level(Xb, node, trees["feat"][:, lv, :2 ** lv]
+                              .contiguous(),
+                              trees["bin"][:, lv, :2 ** lv].contiguous())
+    return node
+
+
+def k1_bytes(n, d, K, m, nodes, bins) -> int:
+    """K1's least traffic: Xb once, the values, node ids, order and
+    segments once, the histograms written once."""
+    return n * d + K * n * 4 * (m + 1) + 2 * K * n * 4 + \
+        K * (m + 1) * nodes * d * bins * 4
+
+
+def max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max().item()) \
+        if a.numel() else 0.0
+
+
+def big_kernel_timings(pbd, pt, pdm, X16, Xb, chunk_f16, edges, y, Vf, rf,
+                       rf_inputs, probs):
+    """Each kernel of the big path at its shape in this run, held to its
+    plain version on the same inputs (K1 and K3 leaves: integer sums,
+    equal; K2, K3 routing, K5 and K8: equal; K12 bit for bit) and timed
+    beside its bound, its plain version and (where one exists) a library
+    call."""
+    n, d = Xb.shape
+    dev = Xb.device
+    out = {}
+    c = chunk_f16.shape[0]
+    n_edges = edges.shape[1]
+    e = edges.contiguous()
+    k12_bytes = c * d * (2 + 2 + 1) + edges.numel() * 4
+    b_ms, b_by = bound(k12_bytes, c * d * n_edges)
+    pinned = chunk_f16.cpu().pin_memory()
+    cols = chunk_f16.T.float().contiguous()  # searchsorted's (d, c) rows
+    w16 = torch.empty((c, d), dtype=torch.bfloat16, device=dev)
+    wb = torch.empty((c, d), dtype=torch.int8, device=dev)
+    pbd.dual_write_rows_plain(w16, wb, chunk_f16, e, 0)
+    k12_err = max(max_err(X16[:c].view(torch.int16), w16.view(torch.int16)),
+                  max_err(Xb[:c], wb))
+    out["write_rows"] = {
+        "ms": cuda_ms(lambda: pbd.dual_write_rows(X16, Xb, chunk_f16, e, 0),
+                      10),
+        "plain_ms": cuda_ms(lambda: pbd.dual_write_rows_plain(
+            w16, wb, chunk_f16, e, 0), 3, warmup=1),
+        "library_ms": cuda_ms(lambda: (chunk_f16.to(torch.bfloat16),
+                                       torch.searchsorted(e, cols,
+                                                          right=True)),
+                              5, warmup=1),
+        "h2d_copy_ms": cuda_ms(lambda: pinned.to(dev, non_blocking=True),
+                               10),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": k12_bytes,
+        "rows": c, "max_abs_err": k12_err,
+        "library": "Tensor.to(bfloat16) + torch.searchsorted "
+        "(torch.bucketize takes 1-D boundaries only)"}
+    del pinned, cols, w16, wb
+    G, H, fmask = rf_inputs
+    K, m = G.shape[0], G.shape[1]
+    # K1 at level 0 of the RF batch over all rows; plain and library over
+    # row chunks of HIST_CHUNK_ROWS (one pass: their cell ids would not
+    # fit for all rows at once)
+    node0 = torch.zeros((K, n), dtype=torch.int32, device=dev)
+    kb = k1_bytes(n, d, K, m, 1, BIG_BINS)
+    b_ms, b_by = bound(kb, (m + 1) * K * n * d)
+    step = pbd.HIST_CHUNK_ROWS
+
+    def plain_k1():
+        acc = None
+        for r0 in range(0, n, step):
+            sl = slice(r0, r0 + step)
+            hg, hh = pt.histograms_plain(Xb[sl], node0[:, sl], G[:, :, sl],
+                                         H[:, sl], 1, BIG_BINS)
+            acc = (hg, hh) if acc is None else (acc[0] + hg, acc[1] + hh)
+        return acc
+
+    def library_k1():
+        tot = 0.0
+        for r0 in range(0, n, step):
+            sl = slice(r0, r0 + step)
+            cell = ((torch.arange(K, device=dev)[:, None, None] * d
+                     + torch.arange(d, device=dev)[None, None, :])
+                    * BIG_BINS + Xb[sl].long()[None]).reshape(-1)
+            srcs = [v[:, :, None].expand(K, cell.numel() // (K * d), d)
+                    .reshape(-1) for v in [G[:, j, sl] for j in range(m)]
+                    + [H[:, sl]]]
+            tot += once_ms(lambda: [torch.zeros(
+                K * d * BIG_BINS, device=dev).index_add_(0, cell, s)
+                for s in srcs])
+            del cell, srcs
+        return tot
+    hg, hh = pt.histograms(Xb, node0, G, H, 1, BIG_BINS)
+    (pg, ph), plain_ms = once(plain_k1)
+    k1_err = max(max_err(hg, pg), max_err(hh, ph))
+    del hg, hh, pg, ph
+    out["histograms"] = {
+        "ms": cuda_ms(lambda: pt.histograms(Xb, node0, G, H, 1, BIG_BINS),
+                      2, warmup=1),
+        "segments_ms": cuda_ms(lambda: pt.node_segments(node0, 1), 3,
+                               warmup=1),
+        "plain_ms": plain_ms, "library_ms": library_k1(),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": kb, "level": 0,
+        "K": K, "max_abs_err": k1_err}
+    torch.cuda.empty_cache()
+    L = rf["feat"].shape[1] - 1
+    node = route_to_level(pt, Xb, rf, L)
+    nodes = 2 ** L
+    hg, hh = pt.histograms(Xb, node, G, H, nodes, BIG_BINS)
+    kw = dict(reg_lambda=1e-6, min_child_weight=1.0, min_gain=0.0,
+              min_gain_norm=0.0, feature_mask=fmask, level=L,
+              active_depth=None)
+    cells = K * (m + 1) * nodes * d * BIG_BINS
+    kb = cells * 4 + 2 * K * nodes * 4 + K * d
+    b_ms, b_by = bound(kb, 12 * cells)
+    bf, bb = pt.split_search(hg, hh, BIG_BINS, **kw)
+    pf, pb = pt.split_search_plain(hg, hh, BIG_BINS, **kw)
+    out["split_search"] = {
+        "ms": cuda_ms(lambda: pt.split_search(hg, hh, BIG_BINS, **kw), 10),
+        "plain_ms": cuda_ms(lambda: pt.split_search_plain(
+            hg, hh, BIG_BINS, **kw), 2, warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": kb, "level": L,
+        "max_abs_err": max(max_err(bf, pf), max_err(bb, pb))}
+    del hg, hh, pf, pb
+    kb = 2 * K * n * 4 + n * d + 2 * K * nodes * 4
+    b_ms, b_by = bound(kb, 3 * K * n)
+    final = pt.route_level(Xb, node, bf, bb)
+    out["route_level"] = {
+        "ms": cuda_ms(lambda: pt.route_level(Xb, node, bf, bb), 5),
+        "plain_ms": cuda_ms(lambda: pt.route_level_plain(Xb, node, bf, bb),
+                            2, warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": kb, "level": L,
+        "max_abs_err": max_err(final, pt.route_level_plain(Xb, node, bf,
+                                                           bb))}
+    leaves = 2 * nodes
+    kb = (m + 2) * K * n * 4 + K * (leaves + 1) * 4 + K * leaves * m * 4
+    b_ms, b_by = bound(kb, (m + 1) * K * n)
+    slot = (final.long() + torch.arange(K, device=dev)[:, None]
+            * leaves).reshape(-1)
+    srcs = [G[:, j].reshape(-1) for j in range(m)] + [H.reshape(-1)]
+    out["leaf_values"] = {
+        "ms": cuda_ms(lambda: pt.leaf_values(final, G, H, leaves, 1e-6,
+                                             0.0), 2, warmup=1),
+        "plain_ms": cuda_ms(lambda: pt.leaf_values_plain(
+            final, G, H, leaves, 1e-6, 0.0), 2, warmup=1),
+        "library_ms": cuda_ms(lambda: [torch.zeros(
+            K * leaves, device=dev).index_add_(0, slot, s) for s in srcs],
+            2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": kb, "leaves": leaves,
+        "max_abs_err": max_err(
+            pt.leaf_values(final, G, H, leaves, 1e-6, 0.0),
+            pt.leaf_values_plain(final, G, H, leaves, 1e-6, 0.0))}
+    del slot, srcs, node, final
+    torch.cuda.empty_cache()
+    args = (Xb, rf["feat"], rf["bin"], rf["leaf"])
+    T_, depth, _ = rf["feat"].shape
+    kb = walk_bytes(*args)
+    b_ms, b_by = bound(kb, n * T_ * (2 * depth + m))
+    out["tree_walk"] = {
+        "ms": cuda_ms(lambda: pt.tree_walk(*args), 3, warmup=1),
+        "plain_ms": cuda_ms(lambda: pt.tree_walk_plain(*args), 2, warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": kb, "max_abs_err": max_err(pt.tree_walk(*args),
+                                            pt.tree_walk_plain(*args))}
+    P = probs.shape[0]
+    s = probs[:, :, 1].contiguous()
+    Vb = Vf[None].expand(P, n).contiguous()
+    kb = s.numel() * 4 + y.numel() * 4 + Vb.numel() * 4 + P * 4
+    b_ms, b_by = bound(kb, 4 * s.numel())
+    bins_ = pdm.score_bins(s, 4096, False).long() + torch.arange(
+        P, device=dev)[:, None] * 4096
+    wy = (Vb * y).reshape(-1)
+    out["binned_aupr"] = {
+        "ms": cuda_ms(lambda: pdm.binned_aupr(s, y, Vb, 4096, False), 5),
+        "plain_ms": cuda_ms(lambda: pdm.binned_aupr_plain(
+            s, y, Vb, 4096, False), 3, warmup=1),
+        "library_ms": cuda_ms(lambda: (
+            torch.bincount(bins_.reshape(-1), weights=wy,
+                           minlength=P * 4096),
+            torch.bincount(bins_.reshape(-1), weights=Vb.reshape(-1),
+                           minlength=P * 4096)), 3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": kb, "grids": P,
+        "max_abs_err": max_err(pdm.binned_aupr(s, y, Vb, 4096, False),
+                               pdm.binned_aupr_plain(s, y, Vb, 4096,
+                                                     False))}
+    bad = {k: v["max_abs_err"] for k, v in out.items()
+           if v["max_abs_err"] != 0.0}
+    if bad:
+        raise AssertionError(f"big-path kernels disagree with their plain "
+                             f"versions: {bad}")
+    return out
+
+
+BIG_KERNELS = ("write_rows", "histograms", "split_search", "route_level",
+               "leaf_values", "tree_walk", "binned_aupr")
+
+
+def big_path(rows: int = BIG_ROWS, fixture: bool = True,
+             kernel_timings: bool = True, device="cuda",
+             chunk_rows: int = None) -> dict:
+    """Phase 21: the out-of-core path at `rows` × 500 through the port's
+    entry points on the card (module docstring, phase 21). `chunk_rows`
+    (default `UPLOAD_CHUNK_ROWS`) and a CPU `device` serve a rehearsal at
+    a small size."""
+    import tempfile
+
+    from transmogrifai_tpu_torch import cuda_build
+    from transmogrifai_tpu_torch.data import columnar_store as pcs
+    from transmogrifai_tpu_torch.evaluators import device_metrics as pdm
+    from transmogrifai_tpu_torch.models import trees as pt
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
+
+    dev = torch.device(device)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on; the port's products are exact f32")
+    rec = {"phase": "big_path", "rows": rows, "d": BIG_D, "bins": BIG_BINS}
+    c = chunk_rows or pbd.UPLOAD_CHUNK_ROWS
+    hc = min(c, pbd.HIST_CHUNK_ROWS)
+    with tempfile.TemporaryDirectory(prefix="big_path-") as root:
+        if fixture:
+            got, want = big_fixture_run(pbd, pcs, root, dev)
+            judged = judge_big_fixture(got, want)
+            emit({"phase": "big_fixture", "rows": BIG_FIXTURE_ROWS,
+                  **judged})
+            if not judged["ok"]:
+                raise AssertionError(f"big path disagrees with the JAX "
+                                     f"package's fixture: {judged}")
+        store, rec["store_gen_s"] = timed_s(
+            dev, lambda: pcs.synth_binary_store(
+                os.path.join(root, "store"), rows, BIG_D, seed=BIG_SEED))
+        edges_np, rec["edges_s"] = timed_s(
+            dev, lambda: store.quantile_edges(BIG_BINS))
+        cuda_build.reset_launches()
+        # 2. the pipelined dual upload through K12
+        (X16, Xb, st), rec["upload_s"] = timed_s(
+            dev, lambda: pbd.dual_device_matrices(store, edges_np, chunk_rows=c,
+                                             return_stats=True,
+                                             device=dev))
+        rec["upload"] = st.to_extra()
+        n_pad = X16.shape[0]
+        if n_pad * BIG_D <= 2 ** 31 and rows == BIG_ROWS:
+            raise AssertionError("the phase must pass 2^31 elements")
+        edges = torch.from_numpy(edges_np).to(dev)
+        k12 = {}
+        for r0 in (0, n_pad - c):
+            raw = np.zeros((c, BIG_D), np.float16)
+            part = np.asarray(store.chunk(r0, r0 + c))
+            raw[:len(part)] = part
+            ch = torch.from_numpy(raw).to(dev)
+            want16 = ch.to(torch.bfloat16)
+            wantb = pt.bin_features_plain(ch.float(), edges).to(torch.int8)
+            eq = (torch.equal(X16[r0:r0 + c].view(torch.int16),
+                              want16.view(torch.int16))
+                  and torch.equal(Xb[r0:r0 + c], wantb))
+            k12[f"rows_{r0}"] = bool(eq)
+            if not eq:
+                raise AssertionError(f"K12 disagrees at rows {r0}..")
+            del want16, wantb
+        first_chunk = torch.from_numpy(
+            np.array(store.chunk(0, c), copy=True)).to(dev)
+        rec["k12_check"] = {**k12, "tolerance": "bit-equal"}
+        emit({"phase": "big_upload", "rows": rows, "n_pad": n_pad,
+              "store_gen_s": rec["store_gen_s"], "edges_s": rec["edges_s"],
+              "upload_s": rec["upload_s"], **rec["upload"],
+              "k12_check": rec["k12_check"]})
+        y = torch.from_numpy(big_labels(store, n_pad)).to(dev)
+        W, V = (torch.from_numpy(a).to(dev)
+                for a in big_folds(store.n_rows, n_pad))
+        # 3. the LR grid: 8 (l1, l2) × 3 folds × 200 FISTA steps
+        l1v, l2v = big_grid()
+        fold_s, aupr = [], []
+        for f in range(3):
+            p, s = timed_s(dev, lambda: pbd.fit_logreg_enet_grids_big(
+                X16, y, W[f], l1v, l2v, 2, BIG_LR_STEPS))
+            fold_s.append(s)
+            probs = pbd.predict_logreg_grids_big(p["W"], p["b"], X16)
+            aupr.append(pdm.binned_aupr(
+                probs[:, :, 1].contiguous(), y,
+                V[f][None].expand(8, n_pad).contiguous(), 4096,
+                False).tolist())
+        Wd = torch.zeros((BIG_D, 16), dtype=torch.bfloat16, device=dev)
+        Rd = torch.zeros((n_pad, 16), dtype=torch.bfloat16, device=dev)
+        rec["lr"] = {
+            "fold_s": fold_s, "holdout_aupr": aupr,
+            "step_ms": [s / BIG_LR_STEPS * 1e3 for s in fold_s],
+            "step_products_ms": cuda_ms(lambda: (pbd.mm_f32(X16, Wd),
+                                                 pbd.mm_f32(X16.T, Rd)), 5),
+            "step_bound_ms": bound(2 * X16.numel() * 2, 0)[0],
+            "busy": profiled(lambda: pbd.fit_logreg_enet_grids_big(
+                X16, y, W[0], l1v, l2v, 2, BIG_LR_STEPS))}
+        del Wd, Rd
+        emit({"phase": "big_lr", **rec["lr"]})
+        Vf0 = V[0]
+        # 4. RF: 16 trees at depth 6 in one lockstep batch; one depth-12
+        r = BIG_RF
+        Y1 = torch.nn.functional.one_hot(y.long(), 2).float()
+        with pbd.level_times() as lv6:
+            rf, s6 = timed_s(dev, lambda: pbd.fit_forest_big(
+                Xb, Y1, W[0], r["n_trees"], r["max_depth"], BIG_BINS, 2,
+                seed=r["seed"], trees_per_dispatch=16, chunk=hc))
+        rd = BIG_RF_DEEP
+        with pbd.level_times() as lv12:
+            _, s12 = timed_s(dev, lambda: pbd.fit_forest_big(
+                Xb, Y1, W[0], rd["n_trees"], rd["max_depth"], BIG_BINS, 2,
+                seed=rd["seed"], chunk=hc))
+        rec["rf"] = {"tree_d6_s": s6 / r["n_trees"], "batch_d6_s": s6,
+                     "lockstep_k": r["n_trees"], "tree_d12_s": s12,
+                     "levels_d6": lv6, "levels_d12": lv12,
+                     "busy": profiled(lambda: pbd.fit_forest_big(
+                         Xb, Y1, W[0], r["n_trees"], r["max_depth"],
+                         BIG_BINS, 2, seed=r["seed"], chunk=hc))}
+        emit({"phase": "big_rf", **rec["rf"]})
+        # 5. GBT: 6 pairs × 2 rounds at depth 6; one round at depth 10
+        w6 = torch.cat([W, V])
+        g, gd = BIG_GBT, BIG_GBT_DEEP
+        with pbd.level_times() as lg6:
+            (_, m6), s6 = timed_s(dev, lambda: pbd.fit_gbt_big_lockstep(
+                Xb, y, w6, g["n_estimators"], g["max_depth"], BIG_BINS,
+                g["learning_rate"], g["reg_lambda"], chunk=hc))
+        with pbd.level_times() as lg10:
+            (_, m10), s10 = timed_s(dev, lambda: pbd.fit_gbt_big_lockstep(
+                Xb, y, w6, gd["n_estimators"], gd["max_depth"], BIG_BINS,
+                gd["learning_rate"], gd["reg_lambda"], chunk=hc))
+        if not (torch.isfinite(m6).all() and torch.isfinite(m10).all()):
+            raise AssertionError("GBT margins are not finite")
+        rec["gbt"] = {"round6p_d6_s": s6 / g["n_estimators"],
+                      "round6p_d10_s": s10, "levels_d6": lg6,
+                      "levels_d10": lg10}
+        emit({"phase": "big_gbt", **rec["gbt"]})
+        del m6, m10
+        # 6. predict the forest over all rows
+        pred, sp = timed_s(dev, lambda: pbd.predict_forest_big(rf, Xb))
+        if pred.shape != (n_pad, 2) or not torch.isfinite(pred).all():
+            raise AssertionError("forest predictions malformed")
+        rec["predict"] = {"s": sp, "rows_per_s": store.n_rows / sp}
+        launches = cuda_build.launches_snapshot()
+        rec["launches_main_path"] = {k: launches[k] for k in BIG_KERNELS}
+        if dev.type == "cuda" and not all(
+                v >= 1 for v in rec["launches_main_path"].values()):
+            raise AssertionError(f"a kernel of the big path never "
+                                 f"launched: {rec['launches_main_path']}")
+        emit({"phase": "big_predict", **rec["predict"],
+              "launches_main_path": rec["launches_main_path"]})
+        if kernel_timings:
+            boot, mask = pbd.forest_big_draws(
+                r["seed"], range(r["n_trees"]), n_pad, BIG_D,
+                max(int(np.sqrt(BIG_D)), 1), True, dev)
+            bw = boot * W[0][None]
+            G = (Y1.T[None] * bw[:, None, :]).to(torch.bfloat16).float()
+            H = bw.to(torch.bfloat16).float()
+            del boot, bw
+            rec["kernels"] = big_kernel_timings(
+                pbd, pt, pdm, X16, Xb, first_chunk, edges, y, Vf0, rf,
+                (G.contiguous(), H.contiguous(), mask), probs)
+            emit({"phase": "big_kernel_timing", **rec["kernels"]})
+            del G, H
+        del X16, Xb, rf, pred, probs, first_chunk
+        torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2571,6 +3169,21 @@ def main() -> int:
                      _default_binary_models(), "default",
                      draws=default_draws)
 
+    # 21. the out-of-core path at 4,456,448 × 500 ------------------------ #
+    big = big_path()
+    bk = big["kernels"]
+    big_launches = big["launches_main_path"]
+
+    def big_entry(name, source, replaces, key=None):
+        t = bk[key or name]
+        return {"name": f"{name}_big" if name != "write_rows" else name,
+                "route": "cuda",
+                "source": f"transmogrifai_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": big_launches[name],
+                **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by",
+                                     "library_ms")}}
+
     # 10. the kernels line, the card, the result --------------------------- #
     main_n = timing[891]
     aupr = fit_timing[f"n{FIT_N}_aupr512"]["binned_aupr"]
@@ -2651,6 +3264,20 @@ def main() -> int:
                "transmogrifai_tpu/models/trees.py:1016"),
               ("tree_walk_narrow", "tree_walk.cu",
                "transmogrifai_tpu/models/trees.py:334"))],
+        big_entry("write_rows", "write_rows.cu",
+                  "transmogrifai_tpu/parallel/bigdata.py:85"),
+        big_entry("histograms", "histograms.cu",
+                  "transmogrifai_tpu/parallel/bigdata.py:1014"),
+        big_entry("split_search", "split_search.cu",
+                  "transmogrifai_tpu/parallel/bigdata.py:1131"),
+        big_entry("route_level", "route_leaves.cu",
+                  "transmogrifai_tpu/parallel/bigdata.py:1080"),
+        big_entry("leaf_values", "route_leaves.cu",
+                  "transmogrifai_tpu/parallel/bigdata.py:1061"),
+        big_entry("tree_walk", "tree_walk.cu",
+                  "transmogrifai_tpu/parallel/bigdata.py:1413"),
+        big_entry("binned_aupr", "binned_aupr.cu",
+                  "transmogrifai_tpu/models/trees.py:564"),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

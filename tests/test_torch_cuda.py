@@ -30,7 +30,12 @@ card and on the CPU; K4's f16-edge variant and K5 over narrowed tables
 equal to their plain versions (and to the f32 / int32 versions); a
 `score_padded` graph replay equal to eager scoring, its launches counted
 per replay; a device stage that cannot be captured raises and names
-itself.
+itself. The out-of-core path: K12 equal to its plain version bit for bit
+(rows past 2^31 elements); K1 over 16 lockstep learners equal to
+`histograms_plain` (integer sums); `mm_f32` within 2·K·2^-24·Σ|a||b| of
+the widened f32 product (the same exact products summed in another
+order); the big path on the card against the CPU: matrices and trees
+equal, GBT margins within 2e-6, the LR grid within 1e-2.
 """
 
 import os
@@ -783,3 +788,145 @@ def test_graph_capture_failure_raises_and_names_the_stage(cuda):
                                        "titanic.csv"))
     with pytest.raises(RuntimeError, match="GBTClassificationModel"):
         model.compiled().score_padded(ds.take(np.arange(3)), 4)
+
+
+# --------------------------------------------------------------------------- #
+# the out-of-core path: K12, K1 over 16 lockstep learners, bf16 products      #
+# --------------------------------------------------------------------------- #
+
+def test_write_rows_kernel_equals_plain_past_2_31_elements(cuda):
+    """K12's three entries against their plain versions, bit for bit, at
+    rows whose flat offsets (r0 + r)·d pass 2^31 in a 4,456,448 × 500
+    buffer, on a chunk with values on the edges, NaN, ±inf and bf16
+    ties; rows outside the chunk stay untouched."""
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
+    n, d, c = 4_456_448, 500, 4096
+    rng = np.random.default_rng(12)
+    edges = np.sort(rng.normal(size=(d, 31)), axis=1).astype(np.float32)
+    ch = rng.normal(size=(c, d)).astype(np.float16)
+    ch[0] = edges[:, 7].astype(np.float16)
+    ch[1, :3] = [np.nan, np.inf, -np.inf]
+    ch[2, :2] = [np.float16(1.00390625), np.float16(1.01171875)]
+    chunk, e = torch.from_numpy(ch).to(cuda), torch.from_numpy(edges).to(cuda)
+    X16 = torch.zeros((n, d), dtype=torch.bfloat16, device=cuda)
+    Xb = torch.zeros((n, d), dtype=torch.int8, device=cuda)
+    r0 = n - c
+    assert r0 * d > 2 ** 31
+    before = pt.LAUNCHES["write_rows"]
+    pbd.dual_write_rows(X16, Xb, chunk, e, r0)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["write_rows"] == before + 1
+    w16 = torch.zeros((c, d), dtype=torch.bfloat16, device=cuda)
+    wb = torch.zeros((c, d), dtype=torch.int8, device=cuda)
+    pbd.dual_write_rows_plain(w16, wb, chunk, e, 0)
+    assert torch.equal(X16[r0:].view(torch.int16), w16.view(torch.int16))
+    assert torch.equal(Xb[r0:], wb)
+    assert not X16[:r0].view(torch.int16).any() and not Xb[:r0].any()
+    X16.zero_()
+    Xb.zero_()
+    pbd.write_cast_rows(X16, chunk, r0 - 1)
+    pbd.bin_write_rows(Xb, chunk, e, r0 - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(X16[r0 - 1:n - 1].view(torch.int16),
+                       w16.view(torch.int16))
+    assert torch.equal(Xb[r0 - 1:n - 1], wb)
+    del X16, Xb
+    X32 = torch.zeros((c + 5, d), dtype=torch.float32, device=cuda)
+    pbd.write_cast_rows(X32, chunk, 5)
+    assert torch.equal(X32[5:].view(torch.int32),
+                       chunk.float().view(torch.int32))  # NaN bits too
+    with pytest.raises(ValueError, match="f16 chunk"):
+        pbd.write_cast_rows(X32, chunk.float(), 0)
+
+
+def test_lockstep_histograms_of_16_learners_on_int8_equal_plain(cuda):
+    """K1 over 16 lockstep learners on an int8 matrix (2 class channels of
+    bf16-rounded bootstrap counts: integer sums, exact in any order) equals
+    `histograms_plain`, at level 0 and at 8 nodes."""
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
+    rng = np.random.default_rng(16)
+    K, n, d = 16, 65536, 500
+    Xb = torch.from_numpy(rng.integers(0, 32, (n, d)).astype(np.int8)) \
+        .to(cuda)
+    y = rng.integers(0, 2, n)
+    boot = rng.poisson(1.0, (K, n)).astype(np.float32)
+    V = np.concatenate([np.eye(2, dtype=np.float32)[y][None]
+                        * boot[:, :, None], boot[:, :, None]], -1)
+    G, H = pbd._value_channels(torch.from_numpy(V).to(cuda))
+    for n_nodes in (1, 8):
+        node = torch.from_numpy(rng.integers(0, n_nodes, (K, n)).astype(
+            np.int32)).to(cuda)
+        before = pt.LAUNCHES["histograms"]
+        hg, hh = pt.histograms(Xb, node, G, H, n_nodes, 32)
+        torch.cuda.synchronize()
+        assert pt.LAUNCHES["histograms"] == before + 1
+        wg, wh = pt.histograms_plain(Xb, node, G, H, n_nodes, 32)
+        assert torch.equal(hg, wg) and torch.equal(hh, wh)
+
+
+def test_bf16_products_with_f32_output_match_the_widened_product(cuda):
+    """`mm_f32` (torch.mm(..., out_dtype=torch.float32) on the card) on one
+    HIST_CHUNK_ROWS chunk, both product shapes of the FISTA step, against
+    the f32 product of the widened operands (TF32 off): the same exact
+    products summed in another order, within 2·K·2^-24·Σ|a||b| per
+    entry."""
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(14)
+    n, d, gk = pbd.HIST_CHUNK_ROWS, 500, 16
+    X = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(
+        cuda).to(torch.bfloat16)
+    Wt = torch.from_numpy(rng.normal(size=(d, gk)).astype(np.float32)).to(
+        cuda).to(torch.bfloat16)
+    R = torch.from_numpy(rng.normal(size=(n, gk)).astype(np.float32)).to(
+        cuda).to(torch.bfloat16)
+    for a, b in ((X, Wt), (X.T, R)):
+        got = pbd.mm_f32(a, b)
+        assert got.dtype == torch.float32
+        want = torch.mm(a.float(), b.float())
+        scale = torch.mm(a.float().abs(), b.float().abs())
+        assert ((got - want).abs()
+                <= 2 * a.shape[1] * 2.0 ** -24 * scale).all()
+
+
+def test_big_path_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A small store through the builders, the LR grid, the lockstep GBT
+    and an 8-tree forest (the same draws injected) on the card and on the
+    CPU: matrices bit-equal, trees equal, GBT margins within 2e-6, forest
+    leaves equal (integer sums), LR within 1e-2 (the bf16 re-rounding of
+    W; see tests/test_torch_bigdata.py)."""
+    from transmogrifai_tpu_torch.data import columnar_store as pcs
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
+    st = pcs.synth_binary_store(str(tmp_path / "s"), 20000, 40, seed=2,
+                                chunk_rows=4096)
+    edges = st.quantile_edges(32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        X16, Xb = pbd.dual_device_matrices(st, edges, chunk_rows=4096,
+                                           workers=2, depth=2, device=dev)
+        n_pad = X16.shape[0]
+        y = np.zeros(n_pad, np.float32)
+        y[:st.n_rows] = st.y
+        w = (np.arange(n_pad) < st.n_rows).astype(np.float32)
+        yd, wd = torch.from_numpy(y).to(dev), torch.from_numpy(w).to(dev)
+        lr = pbd.fit_logreg_enet_grids_big(X16, yd, wd, [0.001, 0.01],
+                                           [0.01, 0.1], 2, 50)
+        gbt, margin = pbd.fit_gbt_big_lockstep(
+            Xb, yd, torch.stack([wd, wd * (yd + 1)]), 2, 5, 32, 0.1, 1.0,
+            chunk=4096)
+        Y1 = torch.nn.functional.one_hot(yd.long(), 2).float()
+        # a torch.Generator draws other numbers on the card: inject the
+        # CPU's draws on both devices
+        draws = pbd.forest_big_draws(4, range(8), n_pad, 40, 6, True, "cpu")
+        rf = pbd.fit_forest_big(Xb, Y1, wd, 8, 5, 32, 2, seed=4,
+                                chunk=4096, draws=draws)
+        out[dev] = [t.cpu() for t in (X16.view(torch.int16), Xb,
+                                      lr["W"], margin, gbt["feat"],
+                                      gbt["bin"], rf["feat"], rf["bin"],
+                                      rf["leaf"])]
+    c, g = out["cpu"], out["cuda"]
+    assert torch.equal(c[0], g[0]) and torch.equal(c[1], g[1])
+    assert (c[2] - g[2]).abs().max() <= 1e-2
+    torch.testing.assert_close(g[3], c[3], rtol=0, atol=2e-6)
+    for a, b in zip(c[4:], g[4:]):
+        assert torch.equal(a, b)

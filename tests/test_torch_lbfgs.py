@@ -486,7 +486,9 @@ def port_variant(kind):
     "port_one_ulp_zoom_f32" interpolates the zoom phase in f32, as optax
     does (the port runs it in f64); "port_one_ulp_loss_sum_then_divide"
     rounds the logistic loss as Σ(ll·w)/Σw, the JAX package's order (the
-    port rounds Σ(ll·(w/Σw)))."""
+    port rounds Σ(ll·(w/Σw))); "port_one_ulp_grad_vjp" rounds the
+    gradient as autodiff's VJP of the JAX package's loss does (the port
+    writes out (softmax − Y)·w/Σw)."""
     from transmogrifai_tpu_torch.models import lbfgs
     from transmogrifai_tpu_torch.parallel import sweep
     zoom, fit = lbfgs._zoom_middle, sweep.fit_logreg
@@ -494,6 +496,8 @@ def port_variant(kind):
         lbfgs._zoom_middle = lambda *a: zoom(*(t.float() for t in a))
     elif kind == "port_one_ulp_loss_sum_then_divide":
         sweep.fit_logreg = _fit_logreg_sum_then_divide
+    elif kind == "port_one_ulp_grad_vjp":
+        sweep.fit_logreg = _fit_logreg_vjp_grad
     try:
         yield
     finally:
@@ -520,6 +524,39 @@ def _fit_logreg_sum_then_divide(X, y, w, l2, n_classes, max_iter=100):
         ll = -(Y * torch.log_softmax(logits, dim=-1)).sum(-1)
         value = (ll * w).sum(1) / wsum + 0.5 * l2 * (W ** 2).sum((1, 2))
         R = (torch.softmax(logits, dim=-1) - Y) * wn
+        gW = torch.matmul(X.T, R) + l2[:, None, None] * W
+        return value, torch.cat([gW.reshape(P, d * k), R.sum(1)], 1)
+
+    x = lbfgs.minimize(value_and_grad, torch.zeros(
+        (P, d * k + k), dtype=torch.float32, device=X.device), max_iter)
+    return {"W": x[:, :d * k].reshape(P, d, k), "b": x[:, d * k:]}
+
+
+def _fit_logreg_vjp_grad(X, y, w, l2, n_classes, max_iter=100):
+    """`models.logistic.fit_logreg` with the logits' gradient rounded as
+    JAX's reverse mode rounds the VJP of `optax.softmax_cross_entropy`
+    weighted by w/Σw: c = w·(1/Σw), then −Y·c + exp(z − max)·(c / Σ exp(z
+    − max)) (log_softmax's VJP through its exp and log), where the port
+    writes (softmax − Y)·(w/Σw)."""
+    from transmogrifai_tpu_torch.models import lbfgs
+    from transmogrifai_tpu_torch.models.base import per_pair
+    w = w[None, :] if w.dim() == 1 else w
+    P, (n, d) = w.shape[0], X.shape
+    k = n_classes
+    Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
+    l2 = per_pair(l2, P, X.device)
+    wsum = torch.clamp(w.sum(1), min=1.0)
+    wn = (w / wsum[:, None])[:, :, None]
+    c = (w * (1.0 / wsum)[:, None])[:, :, None]
+
+    def value_and_grad(x):
+        W = x[:, :d * k].reshape(P, d, k)
+        b = x[:, d * k:]
+        logits = torch.matmul(X, W) + b[:, None, :]
+        ll = -(Y * torch.log_softmax(logits, dim=-1)).sum(-1)
+        value = (ll * wn[:, :, 0]).sum(1) + 0.5 * l2 * (W ** 2).sum((1, 2))
+        e = torch.exp(logits - logits.amax(-1, keepdim=True))
+        R = -(Y * c) + e * (c / e.sum(-1, keepdim=True))
         gW = torch.matmul(X.T, R) + l2[:, None, None] * W
         return value, torch.cat([gW.reshape(P, d * k), R.sum(1)], 1)
 
@@ -577,8 +614,9 @@ def readings(seeds: int = 24) -> None:
     matrix moved by one ulp, the JAX package with the matrix's columns
     permuted (the same problem, sums in other orders), and the port with
     the matrix moved by one ulp: as it runs, with its zoom interpolation in
-    f32 (as optax runs it) and with its loss summed in the JAX package's
-    order; and (4) how often the port's Titanic loss rounds to the JAX
+    f32 (as optax runs it), with its loss summed in the JAX package's
+    order and with its gradient rounded as the JAX package's autodiff
+    rounds it; and (4) how often the port's Titanic loss rounds to the JAX
     package's (`loss_bits`)."""
     import json
 
@@ -652,6 +690,8 @@ def readings(seeds: int = 24) -> None:
         "port_one_ulp_zoom_f32": lambda s: sweep(port_cap, torch.from_numpy(
             one_ulp_noise(X, s))),
         "port_one_ulp_loss_sum_then_divide": lambda s: sweep(
+            port_cap, torch.from_numpy(one_ulp_noise(X, s))),
+        "port_one_ulp_grad_vjp": lambda s: sweep(
             port_cap, torch.from_numpy(one_ulp_noise(X, s)))}
     for kind, run in kinds.items():
         with port_variant(kind):

@@ -33,7 +33,7 @@ EXTRA_FLAGS: Dict[str, tuple] = {"split_search": ("--fmad=false",)}
 # every kernel the port builds, in the order `chip_smoke.py` lists them
 SOURCES = ("bin_features", "tree_walk", "histograms", "split_search",
            "route_leaves", "binned_aupr", "sibling_subtract", "eval_metrics",
-           "wire_dequant")
+           "wire_dequant", "write_rows")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -45,7 +45,7 @@ LAUNCHES: Dict[str, int] = {
     "histograms": 0, "split_search": 0,
     "route_level": 0, "leaf_values": 0, "binned_aupr": 0,
     "sibling_subtract": 0, "confusion_counts": 0, "regression_moments": 0,
-    "wire_dequant": 0}
+    "wire_dequant": 0, "write_rows": 0}
 _launch_lock = threading.Lock()
 # ptxas resource lines (registers, shared memory, spills) per built source
 PTXAS_INFO: Dict[str, str] = {}
