@@ -175,7 +175,34 @@ non-zero:
    have launched. Then each kernel at these shapes beside its bound, its
    plain version and a library call; the `kernels` line adds them
    (`write_rows`, `*_big`). `big_path(rows=10_000_000)` is the same phase
-   at BASELINE target 4's shape (39 chunks).
+   at BASELINE target 4's shape (39 chunks);
+22. the feature cache and the quantized wire (`big_cache`), on phase 21's
+   store in the same temporary root, each build `dual_device_matrices`
+   with `cache=FeatureCacheParams(dir=<root>/cache, policy="readwrite",
+   wire=..., verify="size")` as bench.py passes it: for the int8, int4 and
+   f16 wires a cold miss that writes the artifact (the int8 and int4 quant
+   plans from 200,000 sampled rows, seed 0), K12-dequant's dual entry held
+   bit for bit to its plain version on the first and the last (padded)
+   chunk and the tape to the host quantization of the store's rows; then a
+   warm hit bit-equal to the cold build with zero store reads and
+   `cache_bytes` the artifact's size; the f16 replay bit-equal to phase
+   21's uncached build. On the int8 wire also: `resident=True` (a second
+   build returns the same tensors, no IO; `resident_release` frees them);
+   one byte of the tape flipped with `verify=True` (rejected, counted in
+   `feature_cache_corrupt_total`, rebuilt cold and bit-equal); and one LR
+   fold and one 16-tree depth-6 RF batch on the warm matrices, their
+   holdout AuPR beside phase 21's (a reading, not a gate). Each wire's
+   artifacts are deleted after its checks (the phase raises if the disk
+   lacks room for the largest twice). Then the 16384 × 500 fixture store
+   through int8 and int4, all three builders, held to the JAX package's
+   digests (`testdata/big_synth_16384x500/quant_digests.json`: quant plan,
+   wire tape, both matrices). The launch counters are set to 0 before the
+   phase and read after the fixture: every K12-dequant entry at both
+   widths, K12 and the downstream kernels must have launched. Each build's
+   wall, wire GB/s, overlap and stage seconds are printed; then each
+   K12-dequant entry at 8 and 4 bits on a 262,144-row chunk beside its
+   bound, its plain version and the library composition; the `kernels`
+   line adds them (`dequant_*_int8`, `dequant_*_int4`).
 """
 
 import contextlib
@@ -2537,6 +2564,73 @@ def big_fixture_run(pbd, pcs, root, device="cuda"):
                 else v) for k, v in got.items()}, want
 
 
+BIG_QUANT_DIGESTS = os.path.join(BIG_FIXTURE, "quant_digests.json")
+QUANT_WIRES = ("int8", "int4")
+
+
+def sha256_hex(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def quant_digests(scale, lo, pad_row, wire_sha256: str, x16_bits, xb) -> dict:
+    """The digests that hold a quantized build to the JAX package's: the
+    quant plan (scale, lo, pad row), the wire tape (the artifact's
+    `wire.bin` sha256 from its manifest) and the two matrices (the bf16
+    matrix as its 16-bit patterns)."""
+    return {"scale_sha256": sha256_hex(np.asarray(scale, np.float32)),
+            "lo_sha256": sha256_hex(np.asarray(lo, np.float32)),
+            "pad_row_sha256": sha256_hex(np.asarray(pad_row, np.uint8)),
+            "wire_sha256": str(wire_sha256),
+            "X16_sha256": sha256_hex(np.asarray(x16_bits).view(np.uint16)),
+            "Xb_sha256": sha256_hex(np.asarray(xb, np.int8))}
+
+
+def port_quant_fixture(pbd, pfc, store, edges, cache_dir, device="cuda"):
+    """The fixture store (16384 × 500, chunk 4096) built by the port on
+    `device` through the feature cache (readwrite) on each quantized
+    wire: the dual build's `quant_digests` and cache key, and whether
+    `device_matrix` and `device_binned` under the same wire equal the
+    dual build's halves. Runs every K12-dequant entry at both widths."""
+    out = {}
+    for wire in QUANT_WIRES:
+        params = pfc.FeatureCacheParams(dir=cache_dir, policy="readwrite",
+                                        wire=wire)
+        kw = dict(chunk_rows=BIG_FIXTURE_CHUNK, cache=params, device=device)
+        X16, Xb, st = pbd.dual_device_matrices(store, edges,
+                                               return_stats=True, **kw)
+        art = pfc.FeatureCache(params).load(st.cache_key)
+        rec = quant_digests(art.quant.scale, art.quant.lo, art.quant.pad_row,
+                            art.meta["files"]["wire.bin"]["sha256"],
+                            X16.view(torch.int16).cpu().numpy(),
+                            Xb.cpu().numpy())
+        rec["cache_key"] = st.cache_key
+        x = pbd.device_matrix(store, **kw)
+        b = pbd.device_binned(store, edges, **kw)
+        rec["matrix_equals_dual"] = bool(torch.equal(
+            x.view(torch.int16), X16.view(torch.int16)))
+        rec["binned_equals_dual"] = bool(torch.equal(b, Xb))
+        out[wire] = rec
+    return out
+
+
+def judge_quant_fixture(got: dict) -> dict:
+    """`port_quant_fixture`'s record against the JAX package's committed
+    digests (`quant_digests.json`): every digest and key equal."""
+    with open(BIG_QUANT_DIGESTS) as fh:
+        want = json.load(fh)
+    rec = {}
+    for wire in QUANT_WIRES:
+        diff = sorted(k for k, v in want[wire].items()
+                      if got[wire].get(k) != v)
+        rec[wire] = {"differs": diff,
+                     "matrix_equals_dual": got[wire]["matrix_equals_dual"],
+                     "binned_equals_dual": got[wire]["binned_equals_dual"]}
+    rec["ok"] = all(not r["differs"] and r["matrix_equals_dual"]
+                    and r["binned_equals_dual"]
+                    for r in (rec[w] for w in QUANT_WIRES))
+    return rec
+
+
 def profiled(fn):
     """fn() under torch.profiler: (profiled wall ms, the device's busy ms
     (its kernels' and copies' self time), the busiest items)."""
@@ -2788,17 +2882,330 @@ BIG_KERNELS = ("write_rows", "histograms", "split_search", "route_level",
                "leaf_values", "tree_walk", "binned_aupr")
 
 
+# --------------------------------------------------------------------------- #
+# the feature cache and the quantized wire (phase 22)                         #
+# --------------------------------------------------------------------------- #
+
+CACHE_WIRES = ("int8", "int4", "f16")
+DEQUANT_ENTRIES = (("dequant_write_rows", "transmogrifai_tpu/parallel/"
+                    "bigdata.py:124"),
+                   ("dequant_bin_write_rows", "transmogrifai_tpu/parallel/"
+                    "bigdata.py:130"),
+                   ("dequant_dual_write_rows", "transmogrifai_tpu/parallel/"
+                    "bigdata.py:138"))
+DEQUANT_KERNELS = tuple(f"{e}_int{b}" for e, _ in DEQUANT_ENTRIES
+                        for b in (8, 4))
+CACHE_KERNELS = DEQUANT_KERNELS + ("write_rows", "histograms",
+                                   "split_search", "route_level",
+                                   "leaf_values", "tree_walk", "binned_aupr")
+# disk the phase needs beside the store: the largest artifact (f16) twice
+# (a rebuild displaces the old artifact before deleting it) and a margin
+CACHE_DISK_SLACK = 1 << 30
+
+
+def build_record(st, wall_s: float, artifact_bytes: int) -> dict:
+    """One cached build's numbers: wall (ending in a device sync; the
+    quant plan and the artifact's seal included), the upload pipeline's
+    own wall, wire GB/s over the build's wall, the pipeline's overlap and
+    stage seconds (`cache_write_s`: the tee and the seal), and the
+    artifact's bytes."""
+    return {"cache": st.cache, "wall_s": wall_s,
+            "pipeline_wall_s": st.wall_s,
+            "wire_gbps": st.bytes_wire / wall_s / 1e9 if wall_s else 0.0,
+            "overlap": st.overlap_frac, "read_s": st.read_s,
+            "cast_s": st.cast_s, "cache_read_s": st.cache_read_s,
+            "cache_write_s": st.cache_write_s,
+            "dispatch_s": st.dispatch_s, "upload_wait_s": st.upload_wait_s,
+            "bytes_wire": st.bytes_wire, "bytes_read": st.bytes_read,
+            "cache_bytes": st.cache_bytes,
+            "bytes_saved_wire": st.bytes_saved_wire,
+            "artifact_bytes": artifact_bytes}
+
+
+def padded_quantized_chunk(store, plan, r0: int, c: int) -> np.ndarray:
+    """The wire bytes a cold build ships for rows r0 .. r0 + c: the store's
+    rows quantized on the host, the tail padded with the plan's pad row."""
+    q = plan.quantize(np.asarray(store.chunk(r0, r0 + c)))
+    if len(q) < c:
+        q = np.concatenate([q, np.tile(plan.pad_row, (c - len(q), 1))])
+    return q
+
+
+def bits_equal(a, b) -> bool:
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return bool(torch.equal(a, b))
+
+
+def dequant_timings(pbd, chunks, edges, dev) -> dict:
+    """Each K12-dequant entry at 8 and 4 bits on the first 262,144-row
+    chunk of the phase's wire: the kernel against its plain version (bit
+    for bit) and timed beside its bound, its plain version and the library
+    composition (unpack by shifts, `torch.addcmul`, which rounds twice, so
+    a time only, `.to(bfloat16)`, `torch.searchsorted`)."""
+    out = {}
+    e = edges.contiguous()
+    n_edges = e.shape[1]
+    for wire, (q, scale, lo) in chunks.items():
+        bits = 8 if wire == "int8" else 4
+        c = q.shape[0]
+        d = scale.shape[0]
+        qb = q.numel()
+
+        def lib_x():
+            u = q if bits == 8 else torch.stack(
+                [q & 0x0F, q >> 4], dim=-1).reshape(c, -1)[:, :d]
+            return torch.addcmul(lo, u.float(), scale)
+
+        def lib_dual():
+            x = lib_x()
+            return x.to(torch.bfloat16), torch.searchsorted(
+                e, x.T.contiguous(), right=True)
+
+        bufs = {k: (torch.empty((c, d), dtype=torch.bfloat16, device=dev),
+                    torch.empty((c, d), dtype=torch.int8, device=dev))
+                for k in ("kernel", "plain")}
+        cases = {
+            "dequant_write_rows": (
+                lambda b: pbd.dequant_write_rows(b[0], q, scale, lo, 0, bits),
+                lambda b: pbd.dequant_write_rows_plain(b[0], q, scale, lo, 0,
+                                                       bits),
+                lambda: lib_x().to(torch.bfloat16),
+                qb + c * d * 2 + 2 * d * 4, c * d * 2, (0,)),
+            "dequant_bin_write_rows": (
+                lambda b: pbd.dequant_bin_write_rows(b[1], q, scale, lo, e, 0,
+                                                     bits),
+                lambda b: pbd.dequant_bin_write_rows_plain(b[1], q, scale, lo,
+                                                           e, 0, bits),
+                lambda: torch.searchsorted(e, lib_x().T.contiguous(),
+                                           right=True),
+                qb + c * d + e.numel() * 4 + 2 * d * 4,
+                c * d * (2 + n_edges), (1,)),
+            "dequant_dual_write_rows": (
+                lambda b: pbd.dequant_dual_write_rows(b[0], b[1], q, scale,
+                                                      lo, e, 0, bits),
+                lambda b: pbd.dequant_dual_write_rows_plain(
+                    b[0], b[1], q, scale, lo, e, 0, bits),
+                lib_dual, qb + c * d * 3 + e.numel() * 4 + 2 * d * 4,
+                c * d * (2 + n_edges), (0, 1))}
+        for name, (kern, plain, lib, nbytes, ops, outs) in cases.items():
+            kern(bufs["kernel"])
+            plain(bufs["plain"])
+            torch.cuda.synchronize()
+            err = max(max_err(bufs["kernel"][i].float(),
+                              bufs["plain"][i].float())
+                      if not bits_equal(bufs["kernel"][i], bufs["plain"][i])
+                      else 0.0 for i in outs)
+            b_ms, b_by = bound(nbytes, ops)
+            out[f"{name}_int{bits}"] = {
+                "ms": cuda_ms(lambda: kern(bufs["kernel"]), 10),
+                "plain_ms": cuda_ms(lambda: plain(bufs["plain"]), 2,
+                                    warmup=1),
+                "library_ms": cuda_ms(lib, 5, warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "rows": c, "max_abs_err": err,
+                "library": "unpack by shifts + torch.addcmul (two "
+                           "roundings) + Tensor.to(bfloat16) / "
+                           "torch.searchsorted"}
+        del bufs
+    bad = {k: v["max_abs_err"] for k, v in out.items()
+           if v["max_abs_err"] != 0.0}
+    if bad:
+        raise AssertionError(f"K12-dequant disagrees with its plain "
+                             f"version: {bad}")
+    return out
+
+
+def big_cache(pbd, pfc, pcs, pdm, store, edges_np, root, ref, dev, c, hc,
+              kernel_timings: bool = True) -> dict:
+    """Phase 22: phase 21's store through the feature cache (module
+    docstring, phase 22). `ref` holds phase 21's uncached X16 and Xb, its
+    labels, folds and holdout readings."""
+    import dataclasses
+    import shutil
+
+    from transmogrifai_tpu_torch import cuda_build
+    from transmogrifai_tpu_torch.obs.metrics import get_registry
+
+    n_pad = ref["X16"].shape[0]
+    d = store.n_features
+    need = 2 * n_pad * d * 2 + CACHE_DISK_SLACK
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise AssertionError(f"phase 22 needs {need} free bytes beside the "
+                             f"store under {root}, has {free}")
+    cache_dir = os.path.join(root, "cache")
+    edges = torch.from_numpy(edges_np).to(dev)
+    reg = get_registry()
+    rec = {"phase": "big_cache", "rows": store.n_rows, "d": d,
+           "chunk_rows": c}
+    first_chunks = {}
+    cuda_build.reset_launches()
+
+    def dual(params):
+        return timed_s(dev, lambda: pbd.dual_device_matrices(
+            store, edges_np, chunk_rows=c, cache=params, return_stats=True,
+            device=dev))
+
+    for wire in CACHE_WIRES:
+        params = pfc.FeatureCacheParams(dir=cache_dir, policy="readwrite",
+                                        wire=wire, verify="size")
+        # 1. the cold miss: the artifact is written off the upload
+        (X1, B1, s1), w1 = dual(params)
+        key = s1.cache_key
+        wire_path = os.path.join(cache_dir, key, pfc.WIRE)
+        art_bytes = os.path.getsize(wire_path)
+        wr = {"key": key, "cold": build_record(s1, w1, art_bytes)}
+        ok = s1.cache == "miss" and art_bytes == s1.bytes_wire
+        if wire != "f16":
+            bits = 8 if wire == "int8" else 4
+            art = pfc.FeatureCache(params).load(key)
+            plan = art.quant
+            scale = torch.from_numpy(plan.scale).to(dev)
+            lo = torch.from_numpy(plan.lo).to(dev)
+            checks = {}
+            for r0 in (0, n_pad - c):
+                tape = np.array(art.wire[r0:r0 + c])
+                qc = torch.from_numpy(tape).to(dev)
+                w16 = torch.empty((c, d), dtype=torch.bfloat16, device=dev)
+                wb = torch.empty((c, d), dtype=torch.int8, device=dev)
+                pbd.dequant_dual_write_rows_plain(w16, wb, qc, scale, lo,
+                                                  edges, 0, bits)
+                checks[f"rows_{r0}"] = {
+                    "kernel_equals_plain": bits_equal(X1[r0:r0 + c], w16)
+                    and bits_equal(B1[r0:r0 + c], wb),
+                    "tape_equals_host_quantize": bool(np.array_equal(
+                        tape, padded_quantized_chunk(store, plan, r0, c)))}
+                if r0 == 0:
+                    first_chunks[wire] = (qc, scale, lo)
+                del w16, wb
+            wr["k12_dequant_check"] = {**checks, "tolerance": "bit-equal"}
+            wr["quant_sample_rows"] = params.quant_sample
+            ok = ok and all(all(v.values()) for v in checks.values())
+        # 2. the warm hit: zero store reads, bit-equal
+        (X2, B2, s2), w2 = dual(params)
+        wr["warm"] = build_record(s2, w2, art_bytes)
+        wr["warm_equals_cold"] = bits_equal(X2, X1) and bits_equal(B2, B1)
+        ok = (ok and s2.cache == "hit" and s2.read_s == 0.0
+              and s2.bytes_read == 0 and s2.cache_bytes == art_bytes
+              and wr["warm_equals_cold"])
+        if wire == "f16":
+            wr["equals_phase21_uncached"] = (bits_equal(X2, ref["X16"])
+                                             and bits_equal(B2, ref["Xb"]))
+            ok = ok and wr["equals_phase21_uncached"]
+        del X1, B1
+        if wire == "int8":
+            # 5. resident reuse: the same tensors, no store or artifact IO
+            rp = dataclasses.replace(params, resident=True)
+            (Xr1, Br1, sr1), _ = dual(rp)
+            (Xr2, Br2, sr2), wr2 = dual(rp)
+            wr["resident"] = {
+                "first": sr1.cache, "second": sr2.cache, "wall_s": wr2,
+                "same_tensors": Xr2.data_ptr() == Xr1.data_ptr()
+                and Br2.data_ptr() == Br1.data_ptr(),
+                "read_s": sr2.read_s, "cache_bytes": sr2.cache_bytes,
+                "released": pfc.resident_release(key)}
+            ok = (ok and sr2.cache == "resident"
+                  and wr["resident"]["same_tensors"] and sr2.read_s == 0.0
+                  and sr2.cache_bytes == 0 and wr["resident"]["released"]
+                  == 1)
+            del Xr1, Br1, Xr2, Br2
+            # 6. one byte of the tape flipped, verify=True: rejected,
+            # counted, rebuilt cold, bit-equal
+            with open(wire_path, "r+b") as fh:
+                fh.seek(art_bytes // 2)
+                byte = fh.read(1)
+                fh.seek(art_bytes // 2)
+                fh.write(bytes([byte[0] ^ 0xFF]))
+            before = reg.sum_family("feature_cache_corrupt_total")
+            (X3, B3, s3), w3 = dual(dataclasses.replace(params, verify=True))
+            wr["corrupt"] = {
+                "rebuild": build_record(s3, w3, art_bytes),
+                "corrupt_counted": reg.sum_family(
+                    "feature_cache_corrupt_total") - before,
+                "rebuild_equals_cold": bits_equal(X3, X2)
+                and bits_equal(B3, B2)}
+            ok = (ok and s3.cache == "miss"
+                  and wr["corrupt"]["corrupt_counted"] == 1
+                  and wr["corrupt"]["rebuild_equals_cold"])
+            del X3, B3
+            # 8. downstream of the warm build: one LR fold, one RF batch
+            l1v, l2v = big_grid()
+            y, W, V = ref["y"], ref["W"], ref["V"]
+            p, lr_s = timed_s(dev, lambda: pbd.fit_logreg_enet_grids_big(
+                X2, y, W[0], l1v, l2v, 2, BIG_LR_STEPS))
+            probs = pbd.predict_logreg_grids_big(p["W"], p["b"], X2)
+            lr_aupr = pdm.binned_aupr(
+                probs[:, :, 1].contiguous(), y,
+                V[0][None].expand(8, n_pad).contiguous(), 4096,
+                False).tolist()
+            r = BIG_RF
+            Y1 = torch.nn.functional.one_hot(y.long(), 2).float()
+            rf, rf_s = timed_s(dev, lambda: pbd.fit_forest_big(
+                B2, Y1, W[0], r["n_trees"], r["max_depth"], BIG_BINS, 2,
+                seed=r["seed"], trees_per_dispatch=16, chunk=hc))
+            pred = pbd.predict_forest_big(rf, B2)
+            rf_aupr = pdm.binned_aupr(pred[:, 1][None].contiguous(), y,
+                                      V[0][None].contiguous(), 4096,
+                                      False).tolist()[0]
+            wr["downstream"] = {
+                "lr_fold0_s": lr_s, "lr_holdout_aupr": lr_aupr,
+                "lr_holdout_aupr_phase21": ref["lr_aupr_fold0"],
+                "rf_batch_d6_s": rf_s, "rf_holdout_aupr": rf_aupr,
+                "rf_holdout_aupr_phase21": ref["rf_aupr_fold0"],
+                "reading_not_gate": True}
+            ok = ok and all(np.isfinite(lr_aupr)) and np.isfinite(rf_aupr)
+            del p, probs, rf, pred, Y1
+        del X2, B2
+        shutil.rmtree(cache_dir)
+        torch.cuda.empty_cache()
+        wr["ok"] = bool(ok)
+        rec[wire] = wr
+        emit({"phase": f"big_cache_{wire}", **wr})
+        if not ok:
+            raise AssertionError(f"phase 22 failed on the {wire} wire: {wr}")
+    # 7. the fixture store through int8 and int4 (every entry), held to the
+    # JAX package's digests
+    fixture_store = pcs.ColumnarStore(os.path.join(root, "fixture_store"))
+    got = port_quant_fixture(pbd, pfc, fixture_store,
+                             load_big_fixture()["edges"],
+                             os.path.join(root, "fixture_cache"), dev)
+    rec["fixture"] = judge_quant_fixture(got)
+    emit({"phase": "big_cache_fixture", **rec["fixture"]})
+    if not rec["fixture"]["ok"]:
+        raise AssertionError(f"the fixture's quantized builds differ from "
+                             f"the JAX package's: {rec['fixture']}")
+    shutil.rmtree(os.path.join(root, "fixture_cache"))
+    launches = cuda_build.launches_snapshot()
+    rec["launches_main_path"] = {k: launches[k] for k in CACHE_KERNELS}
+    if dev.type == "cuda" and not all(
+            v >= 1 for v in rec["launches_main_path"].values()):
+        raise AssertionError(f"a kernel of the cache phase never launched: "
+                             f"{rec['launches_main_path']}")
+    emit({"phase": "big_cache_launches",
+          "launches_main_path": rec["launches_main_path"]})
+    if kernel_timings:
+        rec["kernels"] = dequant_timings(pbd, first_chunks, edges, dev)
+        emit({"phase": "big_cache_kernel_timing", **rec["kernels"]})
+    del first_chunks
+    torch.cuda.empty_cache()
+    return rec
+
+
 def big_path(rows: int = BIG_ROWS, fixture: bool = True,
              kernel_timings: bool = True, device="cuda",
-             chunk_rows: int = None) -> dict:
-    """Phase 21: the out-of-core path at `rows` × 500 through the port's
-    entry points on the card (module docstring, phase 21). `chunk_rows`
-    (default `UPLOAD_CHUNK_ROWS`) and a CPU `device` serve a rehearsal at
-    a small size."""
+             chunk_rows: int = None, cache_phase: bool = True) -> dict:
+    """Phases 21 and 22: the out-of-core path at `rows` × 500 through the
+    port's entry points on the card, then the same store through the
+    feature cache (`big_cache`; module docstring, phases 21 and 22). The
+    store is generated once for both. `chunk_rows` (default
+    `UPLOAD_CHUNK_ROWS`) and a CPU `device` serve a rehearsal at a small
+    size; phase 22 needs the fixture run of phase 21."""
     import tempfile
 
     from transmogrifai_tpu_torch import cuda_build
     from transmogrifai_tpu_torch.data import columnar_store as pcs
+    from transmogrifai_tpu_torch.data import feature_cache as pfc
     from transmogrifai_tpu_torch.evaluators import device_metrics as pdm
     from transmogrifai_tpu_torch.models import trees as pt
     from transmogrifai_tpu_torch.parallel import bigdata as pbd
@@ -2925,7 +3332,11 @@ def big_path(rows: int = BIG_ROWS, fixture: bool = True,
         pred, sp = timed_s(dev, lambda: pbd.predict_forest_big(rf, Xb))
         if pred.shape != (n_pad, 2) or not torch.isfinite(pred).all():
             raise AssertionError("forest predictions malformed")
-        rec["predict"] = {"s": sp, "rows_per_s": store.n_rows / sp}
+        rec["predict"] = {"s": sp, "rows_per_s": store.n_rows / sp,
+                          "holdout_aupr_fold0": pdm.binned_aupr(
+                              pred[:, 1][None].contiguous(), y,
+                              Vf0[None].contiguous(), 4096,
+                              False).tolist()[0]}
         launches = cuda_build.launches_snapshot()
         rec["launches_main_path"] = {k: launches[k] for k in BIG_KERNELS}
         if dev.type == "cuda" and not all(
@@ -2947,7 +3358,17 @@ def big_path(rows: int = BIG_ROWS, fixture: bool = True,
                 (G.contiguous(), H.contiguous(), mask), probs)
             emit({"phase": "big_kernel_timing", **rec["kernels"]})
             del G, H
-        del X16, Xb, rf, pred, probs, first_chunk
+        del rf, pred, probs, first_chunk
+        torch.cuda.empty_cache()
+        if cache_phase:
+            # 22. the same store through the feature cache
+            rec["cache"] = big_cache(
+                pbd, pfc, pcs, pdm, store, edges_np, root,
+                {"X16": X16, "Xb": Xb, "y": y, "W": W, "V": V,
+                 "lr_aupr_fold0": aupr[0],
+                 "rf_aupr_fold0": rec["predict"]["holdout_aupr_fold0"]},
+                dev, c, hc, kernel_timings=kernel_timings)
+        del X16, Xb
         torch.cuda.empty_cache()
     return rec
 
@@ -3169,10 +3590,13 @@ def main() -> int:
                      _default_binary_models(), "default",
                      draws=default_draws)
 
-    # 21. the out-of-core path at 4,456,448 × 500 ------------------------ #
+    # 21, 22. the out-of-core path at 4,456,448 × 500, then the same store
+    # through the feature cache ------------------------------------------ #
     big = big_path()
     bk = big["kernels"]
     big_launches = big["launches_main_path"]
+    ck = big["cache"]["kernels"]
+    cache_launches = big["cache"]["launches_main_path"]
 
     def big_entry(name, source, replaces, key=None):
         t = bk[key or name]
@@ -3278,6 +3702,14 @@ def main() -> int:
                   "transmogrifai_tpu/parallel/bigdata.py:1413"),
         big_entry("binned_aupr", "binned_aupr.cu",
                   "transmogrifai_tpu/models/trees.py:564"),
+        *[{"name": f"{entry}_int{bits}", "route": "cuda",
+           "source": "transmogrifai_tpu_torch/csrc/write_rows.cu",
+           "replaces": replaces,
+           "launches": cache_launches[f"{entry}_int{bits}"],
+           **{k: ck[f"{entry}_int{bits}"][k] for k in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")}}
+          for entry, replaces in DEQUANT_ENTRIES for bits in (8, 4)],
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

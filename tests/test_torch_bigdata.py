@@ -305,14 +305,27 @@ def test_a_failed_upload_wakes_the_workers_waiting_on_the_ring():
 @pytest.mark.parametrize("arg", [dict(cache="readwrite"), dict(sharding=1),
                                  dict(retry=object())])
 @pytest.mark.parametrize("builder", ["matrix", "binned", "dual"])
-def test_builders_refuse_what_is_not_ported(stores, built, arg, builder):
+def test_builders_refuse_what_is_not_ported(stores, built, arg, builder,
+                                            tmp_path, monkeypatch):
+    """`sharding=` and `retry=` raise naming their ROADMAP items; `cache=`
+    is ported (tests/test_torch_feature_cache.py): a readwrite build
+    misses, writes its artifact and the next build hits it."""
     _, ps = stores
     fn = {"matrix": lambda **kw: pbd.device_matrix(ps, **kw),
           "binned": lambda **kw: pbd.device_binned(ps, built["edges"], **kw),
           "dual": lambda **kw: pbd.dual_device_matrices(
               ps, built["edges"], **kw)}[builder]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        fn(device="cpu", **arg)
+    if "cache" in arg:
+        monkeypatch.setenv("TRANSMOGRIFAI_FEATURE_CACHE_DIR",
+                           str(tmp_path / "cache"))
+        got = [fn(device="cpu", chunk_rows=CHUNK, return_stats=True, **arg)
+               for _ in range(2)]
+        assert [g[-1].cache for g in got] == ["miss", "hit"]
+        for a, b in zip(got[0][:-1], got[1][:-1]):
+            assert torch.equal(a, b)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            fn(device="cpu", **arg)
     fn(device="cpu", chunk_rows=CHUNK, cache="off")  # "off" is no cache
 
 

@@ -31,11 +31,15 @@ equal to their plain versions (and to the f32 / int32 versions); a
 `score_padded` graph replay equal to eager scoring, its launches counted
 per replay; a device stage that cannot be captured raises and names
 itself. The out-of-core path: K12 equal to its plain version bit for bit
-(rows past 2^31 elements); K1 over 16 lockstep learners equal to
-`histograms_plain` (integer sums); `mm_f32` within 2·K·2^-24·Σ|a||b| of
-the widened f32 product (the same exact products summed in another
-order); the big path on the card against the CPU: matrices and trees
-equal, GBT margins within 2e-6, the LR grid within 1e-2.
+(rows past 2^31 elements); K12-dequant's entries equal to their plain
+versions bit for bit at 8 and 4 bits (odd d, subnormals, values on and
+beside edges, rows past 2^31 elements), and a warm feature-cache replay on
+the card equal to its cold build and to the CPU's; K1 over 16 lockstep
+learners equal to `histograms_plain` (integer sums); `mm_f32` within
+2·K·2^-24·Σ|a||b| of the widened f32 product (the same exact products
+summed in another order); the big path on the card against the CPU:
+matrices and trees equal, GBT margins within 2e-6, the LR grid within
+1e-2.
 """
 
 import os
@@ -837,6 +841,132 @@ def test_write_rows_kernel_equals_plain_past_2_31_elements(cuda):
                        chunk.float().view(torch.int32))  # NaN bits too
     with pytest.raises(ValueError, match="f16 chunk"):
         pbd.write_cast_rows(X32, chunk.float(), 0)
+
+
+def _dequant_inputs(rng, c, d, bits, n_edges=31):
+    """A uint8 wire chunk with codes over the whole range, scale and lo
+    with a subnormal result (feature 0) and a subnormal scale and lo
+    (feature 1), edges on dequantized values and one ulp beside them, a
+    subnormal edge, and (int4, odd d) the pad nibble set."""
+    qmax = (1 << bits) - 1
+    q = rng.integers(0, qmax + 1, size=(c, d)).astype(np.uint8)
+    scale = rng.uniform(0.01, 2.0, d).astype(np.float32)
+    lo = (rng.normal(size=d) * 4.0).astype(np.float32)
+    scale[0], lo[0] = 2.0 ** -110, -(2.0 ** -110) - 2.0 ** -130
+    q[:3, 0] = [1, 0, 2]
+    scale[1], lo[1] = np.float32(3e-39), np.float32(-1e-39)
+    x = (q.astype(np.float64) * scale + lo).astype(np.float32)
+    edges = np.sort(rng.normal(size=(d, n_edges)) * 4.0, axis=1).astype(
+        np.float32)
+    edges[2:, 5] = x[3, 2:]
+    edges[2:, 6] = np.nextafter(x[4, 2:], np.float32(np.inf))
+    edges[2:, 7] = np.nextafter(x[5, 2:], np.float32(-np.inf))
+    edges[0, 0] = np.float32(1e-40)
+    edges = np.sort(edges, axis=1)
+    if bits == 4:
+        packed = np.concatenate([q, np.zeros((c, d % 2), np.uint8)], 1)
+        q = (packed[:, 0::2] | (packed[:, 1::2] << 4)).astype(np.uint8)
+        if d % 2:
+            q[:, -1] |= np.uint8(0xA0)
+    return q, scale, lo, edges
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("d", [500, 501, 7])
+def test_dequant_write_rows_kernels_equal_plain(cuda, bits, d):
+    """K12-dequant's three entries (bf16 and f32 targets, int8 bins, dual)
+    against their plain versions bit for bit at 8 and 4 bits, odd d
+    included: one FMA rounded once, subnormals flushed to signed zero,
+    the bins of values on and beside edges; rows outside the chunk stay
+    untouched; each entry counts its launch."""
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
+    rng = np.random.default_rng(bits * 1000 + d)
+    c, n, r0 = 3000, 3100, 41
+    q, scale, lo, edges = (torch.from_numpy(a).to(cuda) for a in
+                           _dequant_inputs(rng, c, d, bits))
+    key = f"_int{bits}"
+    want16 = torch.zeros((n, d), dtype=torch.bfloat16, device=cuda)
+    want32 = torch.zeros((n, d), dtype=torch.float32, device=cuda)
+    wantb = torch.zeros((n, d), dtype=torch.int8, device=cuda)
+    pbd.dequant_write_rows_plain(want16, q, scale, lo, r0, bits)
+    pbd.dequant_write_rows_plain(want32, q, scale, lo, r0, bits)
+    pbd.dequant_bin_write_rows_plain(wantb, q, scale, lo, edges, r0, bits)
+    assert want32[r0, 0].item() == 0.0 and \
+        want32[r0:r0 + 1, 0].view(torch.int32).item() == -2 ** 31
+    for name, bufs, call in (
+            ("dequant_write_rows", ("16",), lambda b: pbd.dequant_write_rows(
+                b["16"], q, scale, lo, r0, bits)),
+            ("dequant_write_rows", ("32",), lambda b: pbd.dequant_write_rows(
+                b["32"], q, scale, lo, r0, bits)),
+            ("dequant_bin_write_rows", ("b",),
+             lambda b: pbd.dequant_bin_write_rows(b["b"], q, scale, lo, edges,
+                                                  r0, bits)),
+            ("dequant_dual_write_rows", ("16", "b"),
+             lambda b: pbd.dequant_dual_write_rows(
+                 b["16"], b["b"], q, scale, lo, edges, r0, bits))):
+        got = {"16": torch.zeros_like(want16), "32": torch.zeros_like(want32),
+               "b": torch.zeros_like(wantb)}
+        before = pt.LAUNCHES[name + key]
+        call(got)
+        torch.cuda.synchronize()
+        assert pt.LAUNCHES[name + key] == before + 1
+        want = {"16": want16, "32": want32, "b": wantb}
+        for k in bufs:
+            a, w = got[k], want[k]
+            if a.dtype != torch.int8:
+                a, w = a.view(torch.int16 if k == "16" else torch.int32), \
+                    w.view(torch.int16 if k == "16" else torch.int32)
+            assert torch.equal(a, w), (name, k)
+
+
+def test_dequant_write_rows_kernel_past_2_31_elements(cuda):
+    """The dual entry at rows whose flat offsets pass 2^31 in a 4,456,448
+    × 500 buffer (int8 and int4), equal to its plain version; the rows
+    before stay untouched."""
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
+    n, d, c = 4_456_448, 500, 4096
+    r0 = n - c
+    assert r0 * d > 2 ** 31
+    X16 = torch.zeros((n, d), dtype=torch.bfloat16, device=cuda)
+    Xb = torch.zeros((n, d), dtype=torch.int8, device=cuda)
+    for bits in (8, 4):
+        rng = np.random.default_rng(bits)
+        q, scale, lo, edges = (torch.from_numpy(a).to(cuda) for a in
+                               _dequant_inputs(rng, c, d, bits))
+        pbd.dequant_dual_write_rows(X16, Xb, q, scale, lo, edges, r0, bits)
+        w16 = torch.zeros((c, d), dtype=torch.bfloat16, device=cuda)
+        wb = torch.zeros((c, d), dtype=torch.int8, device=cuda)
+        pbd.dequant_dual_write_rows_plain(w16, wb, q, scale, lo, edges, 0,
+                                          bits)
+        assert torch.equal(X16[r0:].view(torch.int16), w16.view(torch.int16))
+        assert torch.equal(Xb[r0:], wb)
+        assert not X16[:r0].view(torch.int16).any() and not Xb[:r0].any()
+
+
+@pytest.mark.parametrize("wire", ["auto", "int8", "int4"])
+def test_warm_replay_on_the_card_equals_its_cold_build(cuda, tmp_path, wire):
+    """A store through the feature cache on the card: the cold readwrite
+    build writes the artifact, the warm build replays it with zero store
+    reads, both bit-equal, and equal to the CPU's build from the same
+    artifact (the plain versions)."""
+    from transmogrifai_tpu_torch.data import columnar_store as pcs
+    from transmogrifai_tpu_torch.data import feature_cache as pfc
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
+    st = pcs.synth_binary_store(str(tmp_path / "s"), 20000, 41, seed=2,
+                                chunk_rows=4096)
+    edges = st.quantile_edges(32)
+    params = pfc.FeatureCacheParams(dir=str(tmp_path / "c"),
+                                    policy="readwrite", wire=wire)
+    out = []
+    for dev in ("cuda", "cuda", "cpu"):
+        x, b, s = pbd.dual_device_matrices(st, edges, chunk_rows=4096,
+                                           cache=params, return_stats=True,
+                                           device=dev)
+        out.append((s, x.view(torch.int16).cpu(), b.cpu()))
+    assert [o[0].cache for o in out] == ["miss", "hit", "hit"]
+    assert out[1][0].read_s == 0.0 and out[1][0].bytes_read == 0
+    for _, x, b in out[1:]:
+        assert torch.equal(x, out[0][1]) and torch.equal(b, out[0][2])
 
 
 def test_lockstep_histograms_of_16_learners_on_int8_equal_plain(cuda):

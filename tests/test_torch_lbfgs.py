@@ -18,7 +18,9 @@ step length of the port's next iterate (median 1e-5).
 `JAX_PLATFORMS=cpu python tests/test_torch_lbfgs.py readings` prints
 those step gaps for every fit of the Titanic and Boston runs, where the
 two packages' paths part, and how far the fold metrics of each lie from
-the JAX package's sweep over 24 seeds of input noise."""
+the JAX package's sweep over 24 seeds of input noise; `... readings KIND
+...` prints only the fold-metric moves of the named runs (`jax_one_ulp`,
+`jax_columns_permuted`, `port_one_ulp` and `port_variant`'s kinds)."""
 
 import contextlib
 import os
@@ -488,7 +490,9 @@ def port_variant(kind):
     rounds the logistic loss as Σ(ll·w)/Σw, the JAX package's order (the
     port rounds Σ(ll·(w/Σw))); "port_one_ulp_grad_vjp" rounds the
     gradient as autodiff's VJP of the JAX package's loss does (the port
-    writes out (softmax − Y)·w/Σw)."""
+    writes out (softmax − Y)·w/Σw); "port_one_ulp_products_xla" computes
+    the fit's two products (X·W and Xᵀ·R) with XLA's own dot on the CPU,
+    so their sums run in the JAX package's order."""
     from transmogrifai_tpu_torch.models import lbfgs
     from transmogrifai_tpu_torch.parallel import sweep
     zoom, fit = lbfgs._zoom_middle, sweep.fit_logreg
@@ -498,6 +502,8 @@ def port_variant(kind):
         sweep.fit_logreg = _fit_logreg_sum_then_divide
     elif kind == "port_one_ulp_grad_vjp":
         sweep.fit_logreg = _fit_logreg_vjp_grad
+    elif kind == "port_one_ulp_products_xla":
+        sweep.fit_logreg = _fit_logreg_xla_products
     try:
         yield
     finally:
@@ -565,6 +571,43 @@ def _fit_logreg_vjp_grad(X, y, w, l2, n_classes, max_iter=100):
     return {"W": x[:, :d * k].reshape(P, d, k), "b": x[:, d * k:]}
 
 
+def _fit_logreg_xla_products(X, y, w, l2, n_classes, max_iter=100):
+    """`models.logistic.fit_logreg` with its two products, X·W (batched
+    over the pairs) and Xᵀ·R, computed by XLA's jitted `jnp.matmul` on the
+    CPU (the JAX package's dot and its sum order); the rest of the fit is
+    the port's."""
+    import jax
+    import jax.numpy as jnp
+    from transmogrifai_tpu_torch.models import lbfgs
+    from transmogrifai_tpu_torch.models.base import per_pair
+    mm = jax.jit(jnp.matmul)
+
+    def xla(a, b):
+        return torch.from_numpy(np.array(mm(a.numpy(), b.numpy())))
+
+    w = w[None, :] if w.dim() == 1 else w
+    P, (n, d) = w.shape[0], X.shape
+    k = n_classes
+    Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
+    l2 = per_pair(l2, P, X.device)
+    wn = (w / torch.clamp(w.sum(1), min=1.0)[:, None])[:, :, None]
+    Xt = X.T.contiguous()
+
+    def value_and_grad(x):
+        W = x[:, :d * k].reshape(P, d, k)
+        b = x[:, d * k:]
+        logits = xla(X, W.contiguous()) + b[:, None, :]
+        ll = -(Y * torch.log_softmax(logits, dim=-1)).sum(-1)
+        value = (ll * wn[:, :, 0]).sum(1) + 0.5 * l2 * (W ** 2).sum((1, 2))
+        R = (torch.softmax(logits, dim=-1) - Y) * wn
+        gW = xla(Xt, R.contiguous()) + l2[:, None, None] * W
+        return value, torch.cat([gW.reshape(P, d * k), R.sum(1)], 1)
+
+    x = lbfgs.minimize(value_and_grad, torch.zeros(
+        (P, d * k + k), dtype=torch.float32, device=X.device), max_iter)
+    return {"W": x[:, :d * k].reshape(P, d, k), "b": x[:, d * k:]}
+
+
 def loss_bits(steps, pairs, X, Y, WP, loss):
     """At every iterate x_k of the port's Titanic path (each pair): the
     port's loss as `fit_logreg` rounds it, Σ(ll·(w/Σw)), and in the JAX
@@ -602,7 +645,7 @@ def loss_bits(steps, pairs, X, Y, WP, loss):
     return out
 
 
-def readings(seeds: int = 24) -> None:
+def readings(seeds: int = 24, only=None) -> None:
     """Print, as JSON lines: (1) optax's step from the port's state at
     every step of the Titanic logistic-regression fits (4 reg_params × 3
     folds, 50 steps) and of the Boston GLM fits (4 family/link pairs ×
@@ -615,9 +658,10 @@ def readings(seeds: int = 24) -> None:
     permuted (the same problem, sums in other orders), and the port with
     the matrix moved by one ulp: as it runs, with its zoom interpolation in
     f32 (as optax runs it), with its loss summed in the JAX package's
-    order and with its gradient rounded as the JAX package's autodiff
-    rounds it; and (4) how often the port's Titanic loss rounds to the JAX
-    package's (`loss_bits`)."""
+    order, with its gradient rounded as the JAX package's autodiff
+    rounds it and with its products computed by XLA's dot; and (4) how
+    often the port's Titanic loss rounds to the JAX package's
+    (`loss_bits`). `only`: print (3) for those runs alone."""
     import json
 
     import jax.numpy as jnp
@@ -630,47 +674,49 @@ def readings(seeds: int = 24) -> None:
                              "OpLogisticRegression", device="cpu")
     jax_cap = capture_sweep(package("jax"), "binary", "OpLogisticRegression")
     X, y = port_cap["X"].numpy(), port_cap["y"].numpy()
-    W = _fold_weights(port_cap["folds"])
-    pairs = [(r, f) for r in regs for f in range(W.shape[0])]
-    WP = np.stack([W[f] for _, f in pairs])
-    steps = record_port_path(pl.fit_logreg, torch.from_numpy(X),
-                             torch.from_numpy(y), torch.from_numpy(WP),
-                             [r for r, _ in pairs], 2, 50)
-    loss = _jax_logreg_loss(X.shape[1], 2)
-    Y = np.eye(2, dtype=np.float32)[y.astype(int)]
-    Xn = one_ulp_noise(X, 1)
-    print(json.dumps({"reading": "titanic_logreg_loss_bits",
-                      **loss_bits(steps, pairs, X, Y, WP, loss)}),
-          flush=True)
-    for p, (r, f) in enumerate(pairs):
-        errs = optax_step_errors(steps, p, loss, X=X, Y=Y, w=WP[p],
-                                 l2=np.float32(r))
-        port_path = np.stack([s[3][p].numpy() for s in steps])
-        jax_path = _jax_logreg_path(X, y, W[f], r, 2, 50)
-        jax_noisy = _jax_logreg_path(Xn, y, W[f], r, 2, 50)
-        print(json.dumps({
-            "reading": "titanic_logreg_steps", "reg_param": r, "fold": f,
-            "optax_step_gap_max": float(errs.max()),
-            "optax_step_gap_median": float(np.median(errs)),
-            "steps_gap_over_1e-3": int((errs > 1e-3).sum()),
-            "port_parts_from_jax_at": _parting_step(port_path, jax_path),
-            "jax_parts_from_itself_one_ulp_at": _parting_step(jax_noisy,
-                                                              jax_path)}),
-            flush=True)
-    for family, link in (("gaussian", "identity"), ("poisson", "log"),
-                         ("gamma", "log"), ("tweedie", "power")):
-        for r in (0.001, 0.2):
-            Xb, yb, Wb, st = boston_glm_path(family, link, r)
-            errs = optax_step_errors(st, 0, _jax_glm_loss(family, link, 1.5),
-                                     X=Xb, y=yb, w=Wb[0], l2=np.float32(r))
+    if only is None:
+        W = _fold_weights(port_cap["folds"])
+        pairs = [(r, f) for r in regs for f in range(W.shape[0])]
+        WP = np.stack([W[f] for _, f in pairs])
+        steps = record_port_path(pl.fit_logreg, torch.from_numpy(X),
+                                 torch.from_numpy(y), torch.from_numpy(WP),
+                                 [r for r, _ in pairs], 2, 50)
+        loss = _jax_logreg_loss(X.shape[1], 2)
+        Y = np.eye(2, dtype=np.float32)[y.astype(int)]
+        Xn = one_ulp_noise(X, 1)
+        print(json.dumps({"reading": "titanic_logreg_loss_bits",
+                          **loss_bits(steps, pairs, X, Y, WP, loss)}),
+              flush=True)
+        for p, (r, f) in enumerate(pairs):
+            errs = optax_step_errors(steps, p, loss, X=X, Y=Y, w=WP[p],
+                                     l2=np.float32(r))
+            port_path = np.stack([s[3][p].numpy() for s in steps])
+            jax_path = _jax_logreg_path(X, y, W[f], r, 2, 50)
+            jax_noisy = _jax_logreg_path(Xn, y, W[f], r, 2, 50)
             print(json.dumps({
-                "reading": "boston_glm_steps", "family": family,
-                "link": link, "reg_param": r,
+                "reading": "titanic_logreg_steps", "reg_param": r, "fold": f,
                 "optax_step_gap_max": float(errs.max()),
-                "optax_step_gap_at": int(errs.argmax()) + 1,
                 "optax_step_gap_median": float(np.median(errs)),
-                "steps_gap_over_1e-3": int((errs > 1e-3).sum())}),
+                "steps_gap_over_1e-3": int((errs > 1e-3).sum()),
+                "port_parts_from_jax_at": _parting_step(port_path, jax_path),
+                "jax_parts_from_itself_one_ulp_at": _parting_step(jax_noisy,
+                                                                  jax_path)}),
                 flush=True)
+        for family, link in (("gaussian", "identity"), ("poisson", "log"),
+                             ("gamma", "log"), ("tweedie", "power")):
+            for r in (0.001, 0.2):
+                Xb, yb, Wb, st = boston_glm_path(family, link, r)
+                errs = optax_step_errors(
+                    st, 0, _jax_glm_loss(family, link, 1.5), X=Xb, y=yb,
+                    w=Wb[0], l2=np.float32(r))
+                print(json.dumps({
+                    "reading": "boston_glm_steps", "family": family,
+                    "link": link, "reg_param": r,
+                    "optax_step_gap_max": float(errs.max()),
+                    "optax_step_gap_at": int(errs.argmax()) + 1,
+                    "optax_step_gap_median": float(np.median(errs)),
+                    "steps_gap_over_1e-3": int((errs > 1e-3).sum())}),
+                    flush=True)
 
     def sweep(cap, X_):
         return np.asarray(cap["sweep"](cap["est"], cap["grids"], X_, cap["y"],
@@ -692,8 +738,12 @@ def readings(seeds: int = 24) -> None:
         "port_one_ulp_loss_sum_then_divide": lambda s: sweep(
             port_cap, torch.from_numpy(one_ulp_noise(X, s))),
         "port_one_ulp_grad_vjp": lambda s: sweep(
+            port_cap, torch.from_numpy(one_ulp_noise(X, s))),
+        "port_one_ulp_products_xla": lambda s: sweep(
             port_cap, torch.from_numpy(one_ulp_noise(X, s)))}
     for kind, run in kinds.items():
+        if only is not None and kind not in only:
+            continue
         with port_variant(kind):
             moves = sorted(float(np.abs(run(s) - base).max())
                            for s in range(1, seeds + 1))
@@ -705,6 +755,7 @@ def readings(seeds: int = 24) -> None:
 
 if __name__ == "__main__":
     # JAX_PLATFORMS=cpu python tests/test_torch_lbfgs.py readings
-    if sys.argv[1:] != ["readings"]:
-        raise SystemExit("usage: python tests/test_torch_lbfgs.py readings")
-    readings()
+    if sys.argv[1:2] != ["readings"]:
+        raise SystemExit(
+            "usage: python tests/test_torch_lbfgs.py readings [KIND ...]")
+    readings(only=sys.argv[2:] or None)

@@ -45,7 +45,9 @@ LAUNCHES: Dict[str, int] = {
     "histograms": 0, "split_search": 0,
     "route_level": 0, "leaf_values": 0, "binned_aupr": 0,
     "sibling_subtract": 0, "confusion_counts": 0, "regression_moments": 0,
-    "wire_dequant": 0, "write_rows": 0}
+    "wire_dequant": 0, "write_rows": 0,
+    **{f"dequant_{entry}write_rows_int{bits}": 0
+       for entry in ("", "bin_", "dual_") for bits in (8, 4)}}
 _launch_lock = threading.Lock()
 # ptxas resource lines (registers, shared memory, spills) per built source
 PTXAS_INFO: Dict[str, str] = {}

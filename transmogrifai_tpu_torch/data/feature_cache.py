@@ -1,0 +1,769 @@
+"""Persistent, content-addressed cache for the out-of-core path's device
+matrices, and its quantized wire.
+
+The port's own copy of the JAX package's `data/feature_cache.py`, byte
+for byte in what it writes: the same content address (`cache_key`), the
+same quant plan (`compute_quant_plan`, `QuantPlan.quantize`, `_pack4`),
+the same wire tape and the same artifact directory (`artifact.json`,
+`wire.bin`, `quant.npz`) under the same directory and environment
+variables. An artifact written by either package is a hit for the other,
+and the matrices it replays are bit-equal.
+
+Re-streaming a 10M × 500 `ColumnarStore` from host memmaps to the card
+costs every repeat sweep, resumed run and serving warmup the whole upload
+again. The unit cached is the **wire tape**: the exact padded byte stream
+a build ships across the host→device link (f16/bf16 chunks on the classic
+wire, quantized uint8 on the compressed wire), plus the per-feature
+quantization vectors. `parallel/bigdata.py`'s builders (`device_matrix` /
+`device_binned` / `dual_device_matrices`) tee the wire stream into a
+staged artifact on a cold `readwrite` miss and, on a hit, replay the
+artifact straight through the same chunk writes (K12 and its dequant
+entries, `csrc/write_rows.cu`) — skipping the store memmap sweep, the host
+cast and the quantize (the stats show ZERO store read time on a hit).
+Because hit and miss ship byte-identical wire chunks through the same
+device writes, a warm build is **bit-identical** to the cold build that
+wrote the artifact.
+
+Key = content address::
+
+    sha256({kind, store fingerprint (the manifest's per-file sha256),
+            target dtype, wire mode + quant config, chunk layout,
+            bin-edge digest, sharding spec})
+
+so mutating a store column, changing the dtype/bin plan or changing
+`chunk_rows` each produce a clean miss. Dtypes are spelled as the JAX
+package spells them (``"bfloat16"``, ``"int8"``, ``"float16"``), never as
+torch does.
+
+Artifacts are crash-consistent: staged into a temp sibling directory,
+fsynced, the integrity manifest (per-file sha256 + size) written LAST,
+then renamed into place (`store/artifact.py`). A bit-flipped, truncated or
+mid-write-killed artifact raises a structured `FeatureCacheError` on load;
+the builders catch it, count it (`feature_cache_corrupt_total`) and fall
+back to a cold rebuild — never a crash, never stale data.
+
+Wire compression (the cold-miss path): ``wire="int8"`` / ``"int4"`` ships
+per-feature affine-quantized uint8 (int4 packs two features per byte),
+dequantized on the card as each chunk is written — 2–4× fewer bytes than
+the f16 wire, and the artifact stores the already-quantized tape. Max abs
+dequant error is scale/2 = (hi−lo)/(2·(2^bits−1)) per feature (plus
+target-dtype rounding).
+
+A process-local **resident registry** sits above the disk layer:
+`FeatureCacheParams(resident=True)` keeps the built device tensors keyed
+by the same content address, so a rebuild in the same process returns
+the same tensors with zero IO (release explicitly via
+`resident_release`).
+
+Wire dtypes without a numpy dtype: numpy has no bfloat16, and the JAX
+package resolves that name through `ml_dtypes`, which the card's machine
+lacks. The port maps every wire dtype name an artifact can carry to a
+numpy storage dtype of the same width and to its torch dtype
+(`WIRE_DTYPES`); a bfloat16 tape is read as raw uint16 bits and viewed as
+`torch.bfloat16`.
+
+Not ported (ROADMAP queue 1): the JAX package's cache events for its
+trace (`record_event`, items 7 and 10) and its `make cache-smoke` entry
+(`chip_smoke.py` phase 22 drives the cache on the card instead). Threading
+the policy through `OpParams`, `Workflow.train` and `ServingConfig`
+(items 4 and 10) is not ported either: pass ``cache=`` to the builders,
+install a process default (`set_default_cache_params`, `cache_scope`), or
+set the environment variables.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+import shutil
+import threading
+import uuid
+from dataclasses import dataclass, field, replace
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from transmogrifai_tpu_torch.obs.metrics import get_registry
+from transmogrifai_tpu_torch.store.artifact import (
+    ArtifactStore, LocalDirBackend, StoreCorruptError)
+from transmogrifai_tpu_torch.store.config import resolve_dir as _resolve_dir
+
+__all__ = [
+    "FeatureCacheParams", "FeatureCacheError", "FeatureCache",
+    "CacheArtifact", "ArtifactWriter", "QuantPlan", "compute_quant_plan",
+    "store_fingerprint", "cache_key", "set_default_cache_params",
+    "get_default_cache_params", "resolve_cache_params", "cache_scope",
+    "resident_get", "resident_put", "resident_release", "default_cache_dir",
+    "WIRE_DTYPES", "dtype_name",
+]
+
+log = logging.getLogger(__name__)
+
+FORMAT_VERSION = 1
+ARTIFACT = "artifact.json"   # integrity manifest — written LAST
+WIRE = "wire.bin"            # (n_pad, wire_cols) wire-dtype tape
+QUANT = "quant.npz"          # scale/lo vectors (quantized modes only)
+
+POLICIES = ("off", "read", "readwrite")
+WIRE_MODES = ("auto", "f16", "int8", "int4")
+
+ENV_POLICY = "TRANSMOGRIFAI_FEATURE_CACHE"
+ENV_DIR = "TRANSMOGRIFAI_FEATURE_CACHE_DIR"
+ENV_WIRE = "TRANSMOGRIFAI_FEATURE_CACHE_WIRE"
+
+
+class FeatureCacheError(StoreCorruptError):
+    """A cache artifact failed verification (missing/unreadable manifest,
+    truncated or bit-flipped file, meta mismatch). Structured: carries
+    the artifact path, the cache key, and what disagreed. Builders treat
+    it as a miss and rebuild — it must never surface as stale data.
+
+    Subclasses the store's `StoreCorruptError` so fleet-level code that
+    handles artifact corruption generically catches cache rejects too.
+    """
+
+    def __init__(self, path: str, reason: str, key: Optional[str] = None):
+        self.path = path
+        self.reason = reason
+        self.key = key
+        RuntimeError.__init__(
+            self,
+            f"feature-cache artifact {path!r}"
+            f"{f' (key {key})' if key else ''} rejected: {reason}")
+
+
+def default_cache_dir() -> str:
+    # one resolution point with the artifact store: explicit env wins,
+    # else a subdir of the shared store root when one is configured,
+    # else the per-user cache root
+    return _resolve_dir("feature_cache", env=ENV_DIR)
+
+
+@dataclass
+class FeatureCacheParams:
+    """JSON-loadable feature-cache policy: the `parallel/bigdata.py`
+    builders' ``cache=`` argument, or the process default.
+
+    policy: ``off`` (never touch the cache), ``read`` (hit → load; miss
+    → build without writing), ``readwrite`` (miss also writes the
+    artifact as a free tee off the upload stream).
+    wire: ``auto`` (classic narrowest-dtype wire), ``f16``, or the
+    compressed ``int8``/``int4`` quantized wire.
+    verify: artifact verification on hit — True (sizes + sha256),
+    ``"size"`` (sizes only; skips re-hashing multi-GB artifacts),
+    False (trust the manifest).
+    resident: also keep/reuse the built device tensors in the in-process
+    resident registry (device memory stays allocated until
+    `resident_release`).
+    """
+
+    dir: Optional[str] = None
+    policy: str = "off"
+    wire: str = "auto"
+    verify: Any = True
+    resident: bool = False
+    quant_sample: int = 200_000   # rows sampled for the quant plan
+    quant_seed: int = 0
+
+    _FIELDS = ("dir", "policy", "wire", "verify", "resident",
+               "quant_sample", "quant_seed")
+
+    def __post_init__(self) -> None:
+        if self.policy not in POLICIES:
+            raise ValueError(
+                f"feature-cache policy must be one of {POLICIES}, "
+                f"got {self.policy!r}")
+        if self.wire not in WIRE_MODES:
+            raise ValueError(
+                f"feature-cache wire must be one of {WIRE_MODES}, "
+                f"got {self.wire!r}")
+
+    @property
+    def enabled(self) -> bool:
+        return self.policy in ("read", "readwrite")
+
+    @property
+    def writable(self) -> bool:
+        return self.policy == "readwrite"
+
+    def resolved_dir(self) -> str:
+        return self.dir or default_cache_dir()
+
+    @staticmethod
+    def from_json(d: Dict[str, Any]) -> "FeatureCacheParams":
+        if d.get("dir") and "policy" not in d:
+            # a dir-only block enables the cache, as in the JAX
+            # package; an explicit policy, including "off", is honored
+            d = {**d, "policy": "readwrite"}
+        return FeatureCacheParams(
+            **{k: d[k] for k in FeatureCacheParams._FIELDS if k in d})
+
+    def to_json(self) -> Dict[str, Any]:
+        return {k: getattr(self, k) for k in self._FIELDS}
+
+
+# -- process-default policy (installed by cache_scope /
+#    set_default_cache_params / the TRANSMOGRIFAI_FEATURE_CACHE env) ------- #
+
+_DEFAULT_LOCK = threading.Lock()
+_DEFAULT: Optional[FeatureCacheParams] = None
+
+
+def set_default_cache_params(
+        params: Optional[FeatureCacheParams]
+) -> Optional[FeatureCacheParams]:
+    """Install `params` as the process default consulted by builders
+    called with ``cache=None``; returns the previous default so callers
+    can restore it (see `cache_scope`)."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        prev = _DEFAULT
+        _DEFAULT = params
+        return prev
+
+
+def _params_from_env() -> Optional[FeatureCacheParams]:
+    policy = os.environ.get(ENV_POLICY, "").strip().lower()
+    if policy in ("", "0", "off", "none"):
+        return None
+    if policy not in POLICIES:
+        log.warning("%s=%r is not one of %s; feature cache stays off",
+                    ENV_POLICY, policy, POLICIES)
+        return None
+    wire = os.environ.get(ENV_WIRE, "auto").strip().lower() or "auto"
+    if wire not in WIRE_MODES:
+        # an env typo must degrade (uncompressed wire), not crash every
+        # matrix build of a multi-hundred-second run with a ValueError
+        log.warning("%s=%r is not one of %s; using the uncompressed "
+                    "auto wire", ENV_WIRE, wire, WIRE_MODES)
+        wire = "auto"
+    return FeatureCacheParams(
+        dir=os.environ.get(ENV_DIR), policy=policy, wire=wire)
+
+
+def get_default_cache_params() -> Optional[FeatureCacheParams]:
+    with _DEFAULT_LOCK:
+        if _DEFAULT is not None:
+            return _DEFAULT
+    return _params_from_env()
+
+
+def resolve_cache_params(cache: Any) -> Optional[FeatureCacheParams]:
+    """Normalize a builder ``cache=`` argument: None → process default
+    (or env), a policy string → default params at that policy, params →
+    themselves. Returns None when caching is fully off."""
+    if cache is None:
+        params = get_default_cache_params()
+    elif isinstance(cache, FeatureCacheParams):
+        params = cache
+    elif isinstance(cache, str):
+        if cache not in POLICIES:
+            raise ValueError(
+                f"cache= must be one of {POLICIES} or FeatureCacheParams, "
+                f"got {cache!r}")
+        if cache == "off":
+            return None
+        base = get_default_cache_params() or FeatureCacheParams()
+        params = replace(base, policy=cache)
+    else:
+        raise TypeError(
+            f"cache= must be None, a policy string, or "
+            f"FeatureCacheParams, got {type(cache).__name__}")
+    if params is None or not params.enabled:
+        return None
+    return params
+
+
+class cache_scope:
+    """Context manager installing `params` (or a ``feature_cache`` JSON
+    dict) as the process default for its extent, so every matrix built
+    inside it sees one cache policy.
+
+    The default is process-GLOBAL (deliberately — worker threads do not
+    inherit contextvars, and they are builders the policy must reach), so
+    concurrent callers with CONFLICTING cache configs race
+    last-install-wins; such callers should pass ``cache=`` explicitly at
+    the build sites instead. Exit restores the previous default only when
+    this scope's install is still the active one, so an overlapping
+    scope's live policy is never wiped by an earlier scope unwinding."""
+
+    def __init__(self, params: Any):
+        if isinstance(params, dict):
+            # from_json normalizes dir-only blocks to readwrite
+            params = (FeatureCacheParams.from_json(params)
+                      if (params.get("policy") or params.get("dir"))
+                      else None)
+        self._params = params
+        self._installed = False
+        self._prev: Optional[FeatureCacheParams] = None
+
+    def __enter__(self) -> "cache_scope":
+        if self._params is not None:
+            self._prev = set_default_cache_params(self._params)
+            self._installed = True
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._installed:
+            global _DEFAULT
+            with _DEFAULT_LOCK:
+                if _DEFAULT is self._params:
+                    _DEFAULT = self._prev
+
+
+# -- content addressing ------------------------------------------------------ #
+
+# every wire dtype name an artifact can carry (the JAX package's
+# `np.dtype(...).name` of its wire) → (numpy storage dtype of the same
+# width, torch dtype). bfloat16 has no numpy dtype without ml_dtypes: its
+# tape is stored and read as raw uint16 bits.
+WIRE_DTYPES: Dict[str, Tuple[np.dtype, torch.dtype]] = {
+    "float16": (np.dtype(np.float16), torch.float16),
+    "bfloat16": (np.dtype(np.uint16), torch.bfloat16),
+    "float32": (np.dtype(np.float32), torch.float32),
+    "float64": (np.dtype(np.float64), torch.float64),
+    "uint8": (np.dtype(np.uint8), torch.uint8),
+}
+
+# torch dtypes by the names the JAX package gives them (`np.dtype(...).name`
+# of its jnp dtypes): the spelling of `cache_key`'s target dtype and of an
+# artifact's wire dtype
+_TORCH_NAMES = {torch.float16: "float16", torch.bfloat16: "bfloat16",
+                torch.float32: "float32", torch.float64: "float64",
+                torch.int8: "int8", torch.uint8: "uint8"}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The JAX package's name of a dtype: ``"bfloat16"``, never
+    ``"torch.bfloat16"``."""
+    try:
+        return _TORCH_NAMES[dtype]
+    except KeyError:
+        raise ValueError(f"no feature-cache name for dtype {dtype}")
+
+
+def _np_dtype(name: str) -> np.dtype:
+    """The numpy storage dtype of a wire dtype name (`WIRE_DTYPES`):
+    numpy's own dtype where numpy has one, raw uint16 bits for
+    bfloat16. Raises ValueError on any other name."""
+    try:
+        return WIRE_DTYPES[name][0]
+    except (KeyError, TypeError):
+        raise ValueError(f"unknown wire dtype {name!r}")
+
+
+def store_fingerprint(store) -> str:
+    """Content fingerprint of a ColumnarStore from the per-column-file
+    sha256 checksums its writer records in the manifest. Writers
+    always stamp them, so the normal path is fully content-addressed;
+    for a checksum-less manifest (hand-built store) the fallback basis
+    is file sizes + mtimes — weaker, documented, and still invalidated
+    by any rewrite."""
+    checksums = store.meta.get("checksums") or {}
+    basis: Dict[str, Any] = {
+        "n_rows": int(store.n_rows),
+        "n_features": int(store.n_features),
+        "dtype": str(np.dtype(store.dtype).name),
+        "checksums": {name: (rec or {}).get("sha256")
+                      for name, rec in sorted(checksums.items())},
+    }
+    if not checksums:
+        weak: Dict[str, Any] = {}
+        for name in ("X.bin", "y.bin"):
+            fpath = os.path.join(store.path, name)
+            if os.path.exists(fpath):
+                st = os.stat(fpath)
+                weak[name] = [st.st_size, st.st_mtime_ns]
+        basis["weak_stat"] = weak
+    blob = json.dumps(basis, sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def _edges_digest(edges) -> Optional[str]:
+    if edges is None:
+        return None
+    arr = np.ascontiguousarray(np.asarray(edges, np.float32))
+    h = hashlib.sha256(arr.tobytes())
+    h.update(str(arr.shape).encode())
+    return h.hexdigest()[:16]
+
+
+def cache_key(kind: str, store, *, target_dtype: str, wire: str,
+              chunk_rows: int, edges=None, sharding=None,
+              quant_sample: int = 0, quant_seed: int = 0) -> str:
+    """Content address of one built device representation: the store's
+    data identity plus the FULL build plan — target dtype, wire mode +
+    quant config, chunk layout, bin edges, sharding spec. Any change to
+    any component is a clean miss. `target_dtype` is the JAX package's
+    name of the dtype (a torch dtype is spelled so, `dtype_name`)."""
+    if isinstance(target_dtype, torch.dtype):
+        target_dtype = dtype_name(target_dtype)
+    basis = {
+        "v": FORMAT_VERSION,
+        "kind": kind,
+        "store": store_fingerprint(store),
+        "target_dtype": target_dtype,
+        "wire": wire,
+        "chunk_rows": int(chunk_rows),
+        "edges": _edges_digest(edges),
+        "sharding": None if sharding is None else str(sharding),
+        "quant": ([int(quant_sample), int(quant_seed)]
+                  if wire in ("int8", "int4") else None),
+    }
+    blob = json.dumps(basis, sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()[:24]
+
+
+# -- quantized wire ---------------------------------------------------------- #
+
+@dataclass
+class QuantPlan:
+    """Per-feature affine quantization for the compressed wire path:
+    x ≈ q·scale + lo with q ∈ [0, 2^bits − 1] stored as uint8 (int4
+    packs two adjacent features per byte). Host side quantizes/packs in
+    the pipeline workers; the device side dequantizes fused into the
+    donated write (`parallel/bigdata.py`). Max abs error per feature is
+    scale/2; values outside the sampled [lo, hi] range clip."""
+
+    bits: int
+    scale: np.ndarray            # (d,) float32
+    lo: np.ndarray               # (d,) float32
+    pad_row: np.ndarray = field(default=None, repr=False)  # type: ignore
+
+    def __post_init__(self) -> None:
+        self.scale = np.asarray(self.scale, np.float32)
+        self.lo = np.asarray(self.lo, np.float32)
+        if self.pad_row is None:
+            # pad rows quantize 0.0 so tail padding dequantizes to ~0
+            # (clipped to the feature range like any other value)
+            self.pad_row = self.quantize(
+                np.zeros((1, self.scale.shape[0]), np.float32))
+
+    @property
+    def qmax(self) -> int:
+        return (1 << self.bits) - 1
+
+    @property
+    def wire_cols(self) -> int:
+        d = int(self.scale.shape[0])
+        return (d + 1) // 2 if self.bits == 4 else d
+
+    def quantize(self, x: np.ndarray) -> np.ndarray:
+        """rint((x − lo) / scale) in f32, NaN → 0, clipped to [0, qmax],
+        as uint8 (int4: packed two per byte) — the JAX package's
+        arithmetic, op for op, computed in place in one f32 buffer."""
+        q = np.subtract(np.asarray(x), self.lo, dtype=np.float32)
+        np.divide(q, self.scale, out=q)
+        np.rint(q, out=q)
+        # non-finite values cannot ride an affine integer wire: ±inf
+        # clips to the range bounds below; NaN maps to lo (q=0) —
+        # NaN.astype(uint8) is platform-undefined and would silently
+        # corrupt the whole feature otherwise. The f16 wire preserves
+        # non-finite values faithfully; use it when they carry meaning.
+        q[np.isnan(q)] = 0.0
+        np.clip(q, 0, self.qmax, out=q)
+        q = q.astype(np.uint8)
+        return _pack4(q) if self.bits == 4 else q
+
+    def dequantize_host(self, q: np.ndarray, d: int) -> np.ndarray:
+        """Host-side reference of the fused device dequant (tests)."""
+        if self.bits == 4:
+            q = _unpack4_host(q, d)
+        return q.astype(np.float32) * self.scale + self.lo
+
+
+def _pack4(q: np.ndarray) -> np.ndarray:
+    """(c, d) uint8 in [0,15] → (c, ceil(d/2)) uint8: feature 2j in the
+    low nibble, 2j+1 in the high nibble (odd d pads a zero column)."""
+    c, d = q.shape
+    if d % 2:
+        q = np.concatenate([q, np.zeros((c, 1), np.uint8)], axis=1)
+    return (q[:, 0::2] | (q[:, 1::2] << 4)).astype(np.uint8)
+
+
+def _unpack4_host(q: np.ndarray, d: int) -> np.ndarray:
+    lo = q & np.uint8(0x0F)
+    hi = (q >> 4).astype(np.uint8)
+    full = np.stack([lo, hi], axis=-1).reshape(q.shape[0], -1)
+    return full[:, :d]
+
+
+def compute_quant_plan(store, bits: int, sample: int = 200_000,
+                       seed: int = 0) -> QuantPlan:
+    """Deterministic per-feature [lo, hi] range from a row sample (the
+    same bounded-sample pattern as `ColumnarStore.quantile_edges`);
+    degenerate (constant) features get scale 1 so they round-trip
+    exactly. The plan is stored beside the artifact, so warm loads use
+    the COLD build's plan, never a re-derived one."""
+    if store.n_rows == 0:
+        d = store.n_features
+        return QuantPlan(bits=bits, scale=np.ones(d, np.float32),
+                         lo=np.zeros(d, np.float32))
+    rows = store.sample_rows(sample, seed=seed)
+    # NaN-blind range: a single NaN in the sample must not poison the
+    # whole feature's scale (min/max propagate NaN); an all-NaN column
+    # degrades to the identity plan (lo 0, scale 1)
+    with np.errstate(invalid="ignore"):
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            lo = np.nanmin(rows, axis=0).astype(np.float32)
+            hi = np.nanmax(rows, axis=0).astype(np.float32)
+    lo = np.where(np.isfinite(lo), lo, 0.0).astype(np.float32)
+    hi = np.where(np.isfinite(hi), hi, lo).astype(np.float32)
+    qmax = float((1 << bits) - 1)
+    span = hi - lo
+    scale = np.where(span > 0, span / qmax, 1.0).astype(np.float32)
+    return QuantPlan(bits=bits, scale=scale, lo=lo)
+
+
+# -- artifacts --------------------------------------------------------------- #
+
+@dataclass
+class CacheArtifact:
+    """A verified on-disk artifact opened for warm replay: the memmapped
+    wire tape (in its numpy storage dtype, `WIRE_DTYPES`) plus the quant
+    plan (when quantized) and the cold-build stats recorded at write time
+    (feed `feature_cache_seconds_saved_total`)."""
+
+    path: str
+    key: str
+    meta: Dict[str, Any]
+    wire: np.ndarray             # (n_pad, wire_cols) memmap, read-only
+    quant: Optional[QuantPlan]
+
+    @property
+    def cold_wall_s(self) -> float:
+        return float((self.meta.get("cold") or {}).get("wall_s", 0.0))
+
+
+class ArtifactWriter:
+    """Staged artifact write: wire chunks append (in upload order — the
+    pipeline's main thread calls in item order) into a temp sibling
+    directory; `finalize` hands the staged dir to the artifact store,
+    which fsyncs everything, writes the integrity manifest LAST, and
+    renames into place — the same crash-consistency contract as
+    `workflow/serialization.save_model`, so a kill at any instruction
+    leaves either no artifact or a fully verified one."""
+
+    def __init__(self, final_path: str, key: str, meta: Dict[str, Any],
+                 store: Optional[ArtifactStore] = None):
+        self.final_path = final_path
+        self.key = key
+        self.meta = dict(meta)
+        if store is None:
+            store = ArtifactStore(
+                LocalDirBackend(os.path.dirname(final_path) or "."))
+        self.store = store
+        # pid alone is not unique within a process: two threads staging
+        # the same key must not rmtree each other's in-progress dir (the
+        # second finalize simply displaces the first's artifact). The
+        # dot prefix keeps the stage invisible to store.keys()/gc().
+        self.tmp = os.path.join(
+            os.path.dirname(final_path) or ".",
+            f".stage-{key}-{os.getpid()}-{uuid.uuid4().hex[:8]}")
+        if os.path.exists(self.tmp):
+            shutil.rmtree(self.tmp)
+        os.makedirs(self.tmp)
+        self._fh = open(os.path.join(self.tmp, WIRE), "wb")
+        self._closed = False
+
+    def append(self, chunk: np.ndarray) -> None:
+        np.ascontiguousarray(chunk).tofile(self._fh)
+
+    def abort(self) -> None:
+        if not self._closed:
+            self._fh.close()
+            self._closed = True
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def finalize(self, quant: Optional[QuantPlan] = None,
+                 cold: Optional[Dict[str, Any]] = None) -> str:
+        try:
+            self._fh.flush()
+            os.fsync(self._fh.fileno())
+            self._fh.close()
+            self._closed = True
+            if quant is not None:
+                qpath = os.path.join(self.tmp, QUANT)
+                np.savez(qpath, scale=quant.scale, lo=quant.lo,
+                         bits=np.int64(quant.bits))
+        except BaseException:
+            self.abort()
+            raise
+        # seal + swap through the artifact store (the only manifest
+        # writer): it hashes and fsyncs the staged
+        # files, writes the sha256 manifest LAST, and commits via the
+        # staged-dir rename protocol. A displaced older artifact is
+        # renamed aside, never deleted before the replacement is live; a
+        # FAILED commit (e.g. losing the rename race to a concurrent
+        # writer of the same key) must not orphan the fully staged
+        # multi-GB tape on disk.
+        manifest = dict(self.meta)
+        manifest.update({
+            "cache_version": FORMAT_VERSION,
+            "cold": dict(cold or {}),
+        })
+        try:
+            self.store.seal_and_commit(self.key, self.tmp, manifest)
+        except BaseException:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+            raise
+        return self.final_path
+
+
+class FeatureCache:
+    """Directory of content-addressed artifacts (one subdir per key),
+    served through an `ArtifactStore` so every replica sharing the dir
+    sees the same verified tapes (and the store's metrics/GC apply)."""
+
+    def __init__(self, params: FeatureCacheParams):
+        self.params = params
+        self.dir = params.resolved_dir()
+        self.store = ArtifactStore(LocalDirBackend(self.dir))
+
+    def path_of(self, key: str) -> str:
+        return os.path.join(self.dir, key)
+
+    def probe(self, key: str) -> bool:
+        """A *finalized* artifact exists (manifest present)."""
+        return os.path.exists(os.path.join(self.path_of(key), ARTIFACT))
+
+    def prefetch(self, key: str) -> None:
+        """Stream the wire tape through the page cache (and sha256) on
+        a background thread ahead of the first `load`."""
+        self.store.prefetch(key)
+
+    def gc(self, ttl_s: Optional[float] = None,
+           max_bytes: Optional[int] = None) -> Dict[str, Any]:
+        return self.store.gc(ttl_s=ttl_s, max_bytes=max_bytes)
+
+    def load(self, key: str) -> Optional[CacheArtifact]:
+        """Open + verify the artifact for `key`. Returns None on a clean
+        miss (no directory); raises `FeatureCacheError` on anything
+        torn, truncated, bit-flipped, or mismatched — the builders turn
+        that into a counted rebuild, never a crash."""
+        path = self.path_of(key)
+        if not os.path.isdir(path):
+            return None
+        # file-level verification (manifest structure, sizes, sha256)
+        # is the store's job; meta-level checks stay cache-specific
+        try:
+            got = self.store.get(key, verify=self.params.verify is True)
+        except FeatureCacheError:
+            raise
+        except StoreCorruptError as e:
+            raise FeatureCacheError(path, e.reason, key)
+        if got is None:
+            raise FeatureCacheError(
+                path, f"missing {ARTIFACT} — the write died before the "
+                      "integrity manifest landed (torn artifact)", key)
+        try:
+            meta = self.store.manifest(key)
+        except StoreCorruptError as e:
+            raise FeatureCacheError(path, e.reason, key)
+        if meta.get("cache_version") != FORMAT_VERSION:
+            raise FeatureCacheError(
+                path, f"format version {meta.get('cache_version')!r} != "
+                      f"{FORMAT_VERSION}", key)
+        files = meta.get("files")
+        if not isinstance(files, dict) or WIRE not in files:
+            raise FeatureCacheError(path, "malformed integrity manifest",
+                                    key)
+        try:
+            n_pad = int(meta["n_pad"])
+            wire_cols = int(meta["wire_cols"])
+            wire_dtype = _np_dtype(meta["wire_dtype"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise FeatureCacheError(path, f"malformed meta: {e}", key)
+        expect = n_pad * wire_cols * wire_dtype.itemsize
+        actual = os.path.getsize(os.path.join(path, WIRE))
+        if actual != expect:
+            raise FeatureCacheError(
+                path, f"{WIRE} holds {actual} bytes, meta shape "
+                      f"({n_pad}, {wire_cols}) {wire_dtype} needs {expect}",
+                key)
+        if expect == 0:  # mmap cannot map zero bytes (zero-row store)
+            wire = np.zeros((n_pad, wire_cols), wire_dtype)
+        else:
+            wire = np.memmap(os.path.join(path, WIRE), dtype=wire_dtype,
+                             mode="r", shape=(n_pad, wire_cols))
+        quant = None
+        qpath = os.path.join(path, QUANT)
+        if os.path.exists(qpath):
+            try:
+                npz = np.load(qpath)
+                quant = QuantPlan(bits=int(npz["bits"]),
+                                  scale=npz["scale"], lo=npz["lo"])
+            except Exception as e:
+                raise FeatureCacheError(path, f"unreadable {QUANT}: {e}",
+                                        key)
+        return CacheArtifact(path=path, key=key, meta=meta, wire=wire,
+                             quant=quant)
+
+    def writer(self, key: str, meta: Dict[str, Any]) -> ArtifactWriter:
+        os.makedirs(self.dir, exist_ok=True)
+        return ArtifactWriter(self.path_of(key), key, meta,
+                              store=self.store)
+
+
+# -- resident registry ------------------------------------------------------- #
+
+_RESIDENT_LOCK = threading.Lock()
+_RESIDENT: Dict[str, Dict[str, Any]] = {}
+
+
+def resident_get(key: str) -> Optional[Dict[str, Any]]:
+    """The resident entry for `key`: {"arrays": tuple, "extra": dict} —
+    device buffers built earlier in this process (sweep resume and
+    serving warmup reuse them instead of re-uploading)."""
+    with _RESIDENT_LOCK:
+        return _RESIDENT.get(key)
+
+
+def resident_put(key: str, arrays: Tuple, **extra: Any) -> None:
+    with _RESIDENT_LOCK:
+        _RESIDENT[key] = {"arrays": tuple(arrays), "extra": dict(extra)}
+
+
+def resident_release(key: Optional[str] = None) -> int:
+    """Drop one resident entry (or all with key=None) so device memory
+    can free;
+    returns the number of entries released."""
+    with _RESIDENT_LOCK:
+        if key is None:
+            n = len(_RESIDENT)
+            _RESIDENT.clear()
+            return n
+        return 1 if _RESIDENT.pop(key, None) is not None else 0
+
+
+# -- metrics ----------------------------------------------------------------- #
+
+def count_hit(bytes_saved: int, saved_s: float) -> None:
+    reg = get_registry()
+    reg.counter("feature_cache_hits_total",
+                "device-matrix builds served from the feature cache").inc()
+    if bytes_saved > 0:
+        reg.counter("feature_cache_bytes_saved_total",
+                    "store bytes NOT re-read thanks to cache hits"
+                    ).inc(bytes_saved)
+    if saved_s > 0:
+        reg.counter("feature_cache_seconds_saved_total",
+                    "estimated upload seconds saved by cache hits "
+                    "(cold wall minus warm wall)").inc(saved_s)
+
+
+def count_miss() -> None:
+    get_registry().counter(
+        "feature_cache_misses_total",
+        "device-matrix builds that missed the feature cache").inc()
+
+
+def count_corrupt() -> None:
+    get_registry().counter(
+        "feature_cache_corrupt_total",
+        "cache artifacts rejected by integrity verification").inc()

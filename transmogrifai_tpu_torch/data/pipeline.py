@@ -26,7 +26,9 @@ chunk's copy has fired.
 Per-stage timers land in `IngestStats` (read/cast seconds summed over
 workers, main-thread dispatch and device-wait seconds, wall clock, bytes,
 max in-flight depth) with the derived `overlap_frac` (the share of host
-prep hidden behind transfers) and `gbps` (wire bytes / wall).
+prep hidden behind transfers) and `gbps` (wire bytes / wall); a build
+under the feature cache adds its outcome and key, the artifact's read
+seconds and bytes on a hit and its tee seconds on a miss.
 
 Absent here, and listed in ROADMAP.md: the JAX package's trace span and
 metrics counters (`obs/`), its fault points and retry policy
@@ -73,7 +75,17 @@ class IngestStats:
     upload_wait_s: float = 0.0
     wall_s: float = 0.0
     max_in_flight: int = 0
-    wire: str = ""             # wire dtype name (float16, ...)
+    # feature-cache accounting (data/feature_cache.py): `read_s` /
+    # `bytes_read` always mean STORE memmap reads, so a warm cache hit
+    # shows 0 there and its artifact IO lands in `cache_read_s` /
+    # `cache_bytes` instead
+    wire: str = ""             # wire mode (float16, int8, int4, ...)
+    cache: str = ""            # "", "miss", "hit", "resident"
+    cache_key: str = ""        # content address of this build
+    cache_read_s: float = 0.0  # artifact (warm) read seconds
+    cache_bytes: int = 0       # artifact bytes read on a hit
+    cache_write_s: float = 0.0  # artifact tee seconds on a readwrite miss
+    bytes_saved_wire: int = 0  # f16-equivalent bytes NOT shipped (quant)
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
 
@@ -88,9 +100,21 @@ class IngestStats:
             self.bytes_wire += wire_nbytes
             self.chunks += 1
 
+    def note_cache_read(self, seconds: float, nbytes: int) -> None:
+        with self._lock:
+            self.cache_read_s += seconds
+            self.cache_bytes += nbytes
+
+    @property
+    def cache_hit(self) -> bool:
+        """This build replayed a cached artifact (disk or resident)
+        instead of sweeping the store."""
+        return self.cache in ("hit", "resident")
+
     @property
     def host_s(self) -> float:
-        return self.read_s + self.cast_s
+        # a warm replay reads its artifact on the same worker threads
+        return self.read_s + self.cast_s + self.cache_read_s
 
     @property
     def overlap_frac(self) -> float:
@@ -119,7 +143,13 @@ class IngestStats:
             "upload_wait_s": self.upload_wait_s, "wall_s": self.wall_s,
             "overlap_frac": self.overlap_frac, "gbps": self.gbps,
             "workers": self.workers, "depth": self.depth,
-            "max_in_flight": self.max_in_flight, "wire": self.wire}
+            "max_in_flight": self.max_in_flight, "wire": self.wire,
+            **({"cache": self.cache, "cache_key": self.cache_key,
+                "cache_read_s": self.cache_read_s,
+                "cache_bytes": self.cache_bytes,
+                "cache_write_s": self.cache_write_s,
+                "bytes_saved_wire": self.bytes_saved_wire}
+               if self.cache else {})}
 
 
 class ChunkRing:

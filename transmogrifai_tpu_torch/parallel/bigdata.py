@@ -1,5 +1,5 @@
 """Out-of-core model fitting: device-resident bf16 and int8 matrices fed by
-row-chunk streaming from a `ColumnarStore`.
+row-chunk streaming from a `ColumnarStore`, through the feature cache.
 
 The port's counterpart of the JAX package's `parallel/bigdata.py`
 (BASELINE target 4: 10M rows × 500 features, `bench.py::run_big`):
@@ -7,12 +7,24 @@ The port's counterpart of the JAX package's `parallel/bigdata.py`
 - **builders** (`device_matrix`, `device_binned`, `dual_device_matrices`)
   stream the memmapped store through the pipelined upload
   (`data/pipeline.py`): worker threads read row chunks and cast them to the
-  f16 wire in a ring of pinned host buffers; each chunk is copied to the
-  card on a side stream and written into the preallocated resident buffers
-  by the hand kernel K12 (`csrc/write_rows.cu`): widened to bf16, binned to
+  wire in a ring of pinned host buffers; each chunk is copied to the card
+  on a side stream and written into the preallocated resident buffers by
+  the hand kernel K12 (`csrc/write_rows.cu`): widened to bf16, binned to
   int8, or both from one read. The JAX package donates its buffers to
   `dynamic_update_slice`; here they are allocated once and written in
   place;
+- **the feature cache** (`data/feature_cache.py`, ``cache=`` on the
+  builders, the JAX package's policy and artifacts byte for byte): a
+  `readwrite` miss tees each chunk's host bytes into a staged artifact in
+  item order; a hit replays the artifact's wire tape through the same
+  writes with zero store reads, bit-equal to the cold build. A quantized
+  wire (``wire="int8"``/``"int4"``) quantizes on the host workers and
+  ships 1 or 0.5 bytes per element; K12's dequant entries unpack it,
+  compute x = fma(q, scale, lo) in f32 and write bf16 and/or int8 bins
+  from that one value. A corrupt artifact is counted and rebuilt cold, a
+  failing cache disk degrades to an uncached build (the JAX package's
+  behaviour): the matrices are built on the card by the kernels either
+  way;
 - **linear family** (K14: `fit_logreg_enet_grids_big` and siblings):
   FISTA / L-BFGS over the bf16 matrix, every product bf16 × bf16 with an
   f32 result (`torch.mm(..., out_dtype=torch.float32)` on the card: no f32
@@ -32,17 +44,19 @@ The port's counterpart of the JAX package's `parallel/bigdata.py`
 
 F2: the JAX package's chunked helpers drop tail rows when the row count is
 not a multiple of `chunk` (`n // chunk` chunks). The builders pad to a
-chunk multiple (pad rows carry zero weight downstream), and every function
-here that takes `chunk` raises when n % chunk != 0. K1 and K3 take all rows
-in one launch, so `chunk` only bounds the plain versions' working set on
-the CPU.
+chunk multiple (pad rows carry zero weight downstream; on a quantized wire
+they are the quantized zero row, `QuantPlan.pad_row`, as in the JAX
+package), and every function here that takes `chunk` raises when n % chunk
+!= 0. K1 and K3 take all rows in one launch, so `chunk` only bounds the
+plain versions' working set on the CPU.
 
-Not ported, and refused by name (ROADMAP.md, queue 1): the feature cache
-(`cache=` other than None or "off"), sharded buffers (`sharding=`), the
-retry policy (`retry=`), and the learned upload plan (`workers`/`depth`
-default to `UPLOAD_WORKERS`/`UPLOAD_DEPTH`). The JAX package's dispatch-
-time bound in `lockstep_width` guards a TPU's execution limit and is left
-out (ROADMAP.md says so).
+Not ported, and refused by name (ROADMAP.md, queue 1): sharded buffers
+(`sharding=`), the retry policy (`retry=`), and the learned upload plan
+(`workers`/`depth` default to `UPLOAD_WORKERS`/`UPLOAD_DEPTH`). The JAX
+package's cache events for its trace (`record_event`) are absent with its
+trace (queue 1, item 10). The JAX package's dispatch-time bound in
+`lockstep_width` guards a TPU's execution limit and is left out
+(ROADMAP.md says so).
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ import numpy as np
 import torch
 
 from transmogrifai_tpu_torch import cuda_build
+from transmogrifai_tpu_torch.data import feature_cache as fc
 from transmogrifai_tpu_torch.data.columnar_store import ColumnarStore
 from transmogrifai_tpu_torch.data.pipeline import (
     RETRY_REFUSED, IngestStats, ChunkRing, run_chunk_pipeline)
@@ -66,6 +81,7 @@ from transmogrifai_tpu_torch.models import lbfgs
 from transmogrifai_tpu_torch.models.trees import (
     _f32, _require, _stream_ptr, bin_dtype, bin_features_plain, histograms,
     leaf_values, predict_forest, route_level, split_search, tree_walk)
+from transmogrifai_tpu_torch.stages.base import fma_f32
 
 log = logging.getLogger(__name__)
 
@@ -74,10 +90,9 @@ HIST_CHUNK_ROWS = 65_536      # the CPU plain versions' row chunk
 UPLOAD_WORKERS = 2            # memmap read + cast threads
 UPLOAD_DEPTH = 4              # chunk copies and writes in flight
 
-CACHE_REFUSED = ("cache= is not ported (ROADMAP queue 1: the out-of-core "
-                 "path's rest — data/feature_cache.py)")
 SHARDING_REFUSED = ("sharding= is not ported (ROADMAP queue 1: multi-GPU — "
                     "sharded builders)")
+QUANT_BITS = (8, 4)
 
 
 def _pad_rows(n: int, chunk: int) -> int:
@@ -94,9 +109,7 @@ def _check_chunk(name: str, n: int, chunk: int) -> None:
             "builders do")
 
 
-def _refuse(cache, sharding, retry) -> None:
-    if cache is not None and cache != "off":
-        raise NotImplementedError(CACHE_REFUSED)
+def _refuse(sharding, retry) -> None:
     if sharding is not None:
         raise NotImplementedError(SHARDING_REFUSED)
     if retry is not None:
@@ -164,13 +177,15 @@ _DUAL_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 2 + (
     ctypes.c_int,) * 2 + (ctypes.c_void_p,)
 
 
-def _launch(fname, argtypes, *args, ref):
+def _launch(fname, argtypes, *args, ref, key="write_rows"):
+    """Launch `fname` of csrc/write_rows.cu on `ref`'s current stream and
+    count it under `key`."""
     lib = cuda_build.load("write_rows")
     fn = cuda_build.declare(lib, fname, argtypes)
     with torch.cuda.device(ref.device):
         err = fn(*args, _stream_ptr(ref))
     cuda_build.check(fname, err)
-    cuda_build.count("write_rows")
+    cuda_build.count(key)
 
 
 def write_cast_rows(buf: torch.Tensor, chunk: torch.Tensor, r0: int) -> None:
@@ -224,6 +239,183 @@ def dual_write_rows(buf16: torch.Tensor, bufb: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
+# K12-dequant: the quantized wire dequantized as it is written                #
+# --------------------------------------------------------------------------- #
+
+F32_TINY = 2.0 ** -126  # f32's least normal magnitude
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal f32 values to zero of the same sign. The JAX package's
+    jitted dequant writes run on XLA's CPU programs, which treat subnormal
+    inputs as zero and flush subnormal results to zero (measured on its
+    `_dequant_write_rows`: q·scale + lo landing at ±2^-128 comes out ±0,
+    and a subnormal scale, lo or edge acts as ±0)."""
+    return torch.where(x.abs() < F32_TINY, x * 0.0, x)
+
+
+def wire_cols(d: int, bits: int) -> int:
+    """Bytes per row of the quantized wire: d (int8) or ceil(d/2) (int4,
+    feature 2j in the low nibble of byte j, 2j + 1 in the high)."""
+    return (d + 1) // 2 if bits == 4 else d
+
+
+def unpack_dequant_plain(chunk_q: torch.Tensor, scale: torch.Tensor,
+                         lo: torch.Tensor, bits: int, d: int) -> torch.Tensor:
+    """(c, d) f32 features of a uint8 wire chunk: the int4 nibbles
+    unpacked (the JAX package's `_unpack_dequant`), then x = q·scale + lo
+    rounded once (the fused multiply-add XLA contracts it into, `fma_f32`),
+    with subnormal scale, lo and results flushed to signed zero as XLA's
+    CPU program does (`_flush`)."""
+    q = chunk_q
+    if bits == 4:
+        q = torch.stack([q & 0x0F, q >> 4], dim=-1).reshape(
+            q.shape[0], -1)[:, :d]
+    c = q.shape[0]
+    return _flush(fma_f32(q.to(torch.float32),
+                          _flush(scale.float())[None, :].expand(c, d),
+                          _flush(lo.float())[None, :].expand(c, d)))
+
+
+def dequant_write_rows_plain(buf: torch.Tensor, chunk_q: torch.Tensor,
+                             scale: torch.Tensor, lo: torch.Tensor, r0: int,
+                             bits: int) -> None:
+    """buf[r0:r0 + c] = the dequantized chunk in buf's dtype (bf16 to
+    nearest even)."""
+    x = unpack_dequant_plain(chunk_q, scale, lo, bits, buf.shape[1])
+    buf[r0:r0 + x.shape[0]] = x.to(buf.dtype)
+
+
+def _dequant_bins_plain(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    return bin_features_plain(x, _flush(edges.float())).to(torch.int8)
+
+
+def dequant_bin_write_rows_plain(bufb: torch.Tensor, chunk_q: torch.Tensor,
+                                 scale: torch.Tensor, lo: torch.Tensor,
+                                 edges: torch.Tensor, r0: int,
+                                 bits: int) -> None:
+    """bufb[r0:r0 + c] = the int8 bins of the dequantized f32 chunk: the
+    count of edges each value is >= (K4's rule; subnormal edges act as
+    zero, as on XLA's CPU)."""
+    x = unpack_dequant_plain(chunk_q, scale, lo, bits, bufb.shape[1])
+    bufb[r0:r0 + x.shape[0]] = _dequant_bins_plain(x, edges)
+
+
+def dequant_dual_write_rows_plain(buf16: torch.Tensor, bufb: torch.Tensor,
+                                  chunk_q: torch.Tensor, scale: torch.Tensor,
+                                  lo: torch.Tensor, edges: torch.Tensor,
+                                  r0: int, bits: int) -> None:
+    """Both writes from one dequantized f32 value per element."""
+    x = unpack_dequant_plain(chunk_q, scale, lo, bits, buf16.shape[1])
+    buf16[r0:r0 + x.shape[0]] = x.to(buf16.dtype)
+    bufb[r0:r0 + x.shape[0]] = _dequant_bins_plain(x, edges)
+
+
+def _dequant_shapes(name, chunk_q, scale, lo, edges, r0, bits, *bufs):
+    _require(bits in QUANT_BITS, f"{name}: bits must be 8 or 4, got {bits}")
+    d = bufs[0].shape[1] if bufs[0].dim() == 2 else -1
+    _require(chunk_q.dim() == 2 and chunk_q.dtype == torch.uint8
+             and chunk_q.shape[1] == wire_cols(d, bits),
+             f"{name}: the chunk must be ({wire_cols(d, bits)},)-wide uint8 "
+             f"for d = {d} at {bits} bits, got {tuple(chunk_q.shape)} "
+             f"{chunk_q.dtype}")
+    for v in (scale, lo):
+        _require(v.dim() == 1 and v.shape[0] == d
+                 and v.dtype == torch.float32,
+                 f"{name}: scale and lo must be ({d},) f32")
+    for b in bufs:
+        _require(b.dim() == 2 and b.shape[1] == d and 0 <= r0
+                 and r0 + chunk_q.shape[0] <= b.shape[0],
+                 f"{name}: rows {r0}..{r0 + chunk_q.shape[0]} do not fit a "
+                 f"buffer {tuple(b.shape)}")
+    if edges is not None:
+        _require(edges.dtype == torch.float32 and edges.dim() == 2
+                 and edges.shape[0] == d
+                 and bin_dtype(edges.shape[1]) == torch.int8,
+                 f"{name}: edges must be ({d}, n_edges <= 126) f32, got "
+                 f"{tuple(edges.shape)} {edges.dtype}")
+
+
+def _check_dequant_cuda(name, chunk_q, *operands):
+    for t in operands:
+        _require(t.device == chunk_q.device,
+                 f"{name}: chunk on {chunk_q.device}, an operand on "
+                 f"{t.device}")
+        _require(t.is_contiguous(), f"{name}: operands must be contiguous")
+    _require(chunk_q.is_contiguous(), f"{name}: the chunk must be "
+                                      "contiguous")
+
+
+_DQ_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 2 + (
+    ctypes.c_int,) * 2 + (ctypes.c_void_p,)
+_DQ_BIN_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int64,) * 2 + (
+    ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+_DQ_DUAL_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 2 + (
+    ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+
+
+def dequant_write_rows(buf: torch.Tensor, chunk_q: torch.Tensor,
+                       scale: torch.Tensor, lo: torch.Tensor, r0: int,
+                       bits: int) -> None:
+    """Rows r0 .. r0 + c of `buf` (bf16 or f32) from a uint8 wire chunk
+    (c, d) (int8) or (c, ceil(d/2)) (int4): x = fma(q, scale, lo) in f32,
+    subnormals flushed, then buf's dtype. A CUDA tensor launches
+    K12-dequant (or raises); a CPU tensor takes the plain version."""
+    name = "dequant_write_rows"
+    _dequant_shapes(name, chunk_q, scale, lo, None, r0, bits, buf)
+    if not chunk_q.is_cuda:
+        return dequant_write_rows_plain(buf, chunk_q, scale, lo, r0, bits)
+    _check_dequant_cuda(name, chunk_q, scale, lo, buf)
+    _require(buf.dtype in (torch.bfloat16, torch.float32),
+             f"{name}: the kernel writes bf16 or f32, got {buf.dtype}")
+    fname = name + ("_bf16" if buf.dtype == torch.bfloat16 else "_f32")
+    _launch(fname, _DQ_ARGS, chunk_q.data_ptr(), scale.data_ptr(),
+            lo.data_ptr(), buf.data_ptr(), r0, chunk_q.shape[0],
+            buf.shape[1], bits, ref=chunk_q, key=f"{name}_int{bits}")
+
+
+def dequant_bin_write_rows(bufb: torch.Tensor, chunk_q: torch.Tensor,
+                           scale: torch.Tensor, lo: torch.Tensor,
+                           edges: torch.Tensor, r0: int, bits: int) -> None:
+    """Rows r0 .. r0 + c of the int8 matrix `bufb`: the count of edges
+    (d, n_edges) each dequantized f32 value is >=. A CUDA tensor launches
+    K12-dequant (or raises); a CPU tensor takes the plain version."""
+    name = "dequant_bin_write_rows"
+    _dequant_shapes(name, chunk_q, scale, lo, edges, r0, bits, bufb)
+    if not chunk_q.is_cuda:
+        return dequant_bin_write_rows_plain(bufb, chunk_q, scale, lo, edges,
+                                            r0, bits)
+    _check_dequant_cuda(name, chunk_q, scale, lo, edges, bufb)
+    _require(bufb.dtype == torch.int8, f"{name}: bufb must be int8")
+    _launch(name, _DQ_BIN_ARGS, chunk_q.data_ptr(), scale.data_ptr(),
+            lo.data_ptr(), edges.data_ptr(), bufb.data_ptr(), r0,
+            chunk_q.shape[0], bufb.shape[1], edges.shape[1], bits,
+            ref=chunk_q, key=f"{name}_int{bits}")
+
+
+def dequant_dual_write_rows(buf16: torch.Tensor, bufb: torch.Tensor,
+                            chunk_q: torch.Tensor, scale: torch.Tensor,
+                            lo: torch.Tensor, edges: torch.Tensor, r0: int,
+                            bits: int) -> None:
+    """`dequant_write_rows` into the bf16 `buf16` and
+    `dequant_bin_write_rows` into `bufb` from one read of the chunk and
+    one f32 value per element. A CUDA tensor launches K12-dequant (or
+    raises); a CPU tensor takes the plain version."""
+    name = "dequant_dual_write_rows"
+    _dequant_shapes(name, chunk_q, scale, lo, edges, r0, bits, buf16, bufb)
+    if not chunk_q.is_cuda:
+        return dequant_dual_write_rows_plain(buf16, bufb, chunk_q, scale, lo,
+                                             edges, r0, bits)
+    _check_dequant_cuda(name, chunk_q, scale, lo, edges, buf16, bufb)
+    _require(buf16.dtype == torch.bfloat16 and bufb.dtype == torch.int8,
+             f"{name}: buffers must be bf16 and int8")
+    _launch(name, _DQ_DUAL_ARGS, chunk_q.data_ptr(), scale.data_ptr(),
+            lo.data_ptr(), edges.data_ptr(), buf16.data_ptr(),
+            bufb.data_ptr(), r0, chunk_q.shape[0], buf16.shape[1],
+            edges.shape[1], bits, ref=chunk_q, key=f"{name}_int{bits}")
+
+
+# --------------------------------------------------------------------------- #
 # builders                                                                    #
 # --------------------------------------------------------------------------- #
 
@@ -239,21 +431,318 @@ def _wire_of(store: ColumnarStore, target: torch.dtype) -> torch.dtype:
     return target if target.itemsize < sdt.itemsize else sdt
 
 
-def _upload(store: ColumnarStore, chunk_rows: int, wire: torch.dtype,
-            write, label: str, deadline_s, workers, depth, dev,
+def _np_view(host: torch.Tensor) -> np.ndarray:
+    """A numpy view of a host buffer's bytes in the wire's numpy storage
+    dtype (`feature_cache.WIRE_DTYPES`: raw uint16 bits for bf16)."""
+    if host.dtype == torch.bfloat16:
+        return host.view(torch.int16).numpy().view(np.uint16)
+    return host.numpy()
+
+
+def _chunk_prepare(store: ColumnarStore, chunk_rows: int,
+                   stats: IngestStats):
+    """prepare(r0, acquire) for a store sweep on the classic wire: the
+    memmap read (copied, so the page faults land on the worker), then the
+    cast into a ring buffer and the zero pad of the tail chunk."""
+    def prepare(r0: int, acquire):
+        t0 = time.perf_counter()
+        c = np.array(store.chunk(r0, r0 + chunk_rows), copy=True)
+        stats.note_read(time.perf_counter() - t0, c.nbytes)
+        host = acquire()  # its wait is no cast time
+        t0 = time.perf_counter()
+        host[:len(c)].copy_(torch.from_numpy(c))
+        if len(c) < chunk_rows:  # the tail chunk, padded to the chunk shape
+            host[len(c):].zero_()
+        stats.note_cast(time.perf_counter() - t0,
+                        host.numel() * host.element_size())
+        return host
+
+    return prepare
+
+
+def _quant_prepare(store: ColumnarStore, chunk_rows: int,
+                   plan: fc.QuantPlan, stats: IngestStats):
+    """prepare(r0, acquire) for the compressed wire: the memmap read, the
+    per-feature affine quantize (+ int4 nibble pack) on the worker, then
+    the copy into a ring buffer and the tail padded with the quantized
+    zero row (`plan.pad_row`), as the JAX package's does."""
+    def prepare(r0: int, acquire):
+        t0 = time.perf_counter()
+        c = np.array(store.chunk(r0, r0 + chunk_rows), copy=True)
+        stats.note_read(time.perf_counter() - t0, c.nbytes)
+        t0 = time.perf_counter()
+        q = plan.quantize(c)
+        quant_s = time.perf_counter() - t0
+        host = acquire()
+        t0 = time.perf_counter()
+        hn = host.numpy()
+        hn[:len(q)] = q
+        if len(q) < chunk_rows:
+            hn[len(q):] = plan.pad_row
+        stats.note_cast(quant_s + time.perf_counter() - t0, host.numel())
+        return host
+
+    return prepare
+
+
+def _artifact_prepare(art: fc.CacheArtifact, chunk_rows: int,
+                      stats: IngestStats):
+    """prepare(r0, acquire) for a cache HIT: the artifact's wire tape, already
+    cast or quantized and padded, copied from its memmap straight into a
+    ring buffer. No store read and no cast: the IO lands in
+    `stats.cache_read_s`, and `read_s`/`bytes_read` stay 0."""
+    mm = art.wire
+
+    def prepare(r0: int, acquire):
+        host = acquire()
+        t0 = time.perf_counter()
+        np.copyto(_np_view(host), mm[r0:r0 + chunk_rows], casting="no")
+        nbytes = host.numel() * host.element_size()
+        stats.note_cache_read(time.perf_counter() - t0, nbytes)
+        stats.note_cast(0.0, nbytes)  # wire-ready: nothing to cast
+        return host
+
+    return prepare
+
+
+class _CacheSession:
+    """Per-build feature-cache orchestration shared by the three builders
+    (the JAX package's `_CacheSession`): resolves the `cache=` policy,
+    computes the content address, consults the resident registry and the
+    on-disk cache, picks warm replay or cold sweep, tees the wire stream
+    into a staged artifact on a readwrite miss, and counts hits, misses
+    and rejects. Corrupt or torn artifacts are REJECTED (structured
+    `FeatureCacheError`, counted) and rebuilt cold — never a crash, never
+    stale data."""
+
+    def __init__(self, kind: str, store: ColumnarStore, chunk_rows: int, *,
+                 legacy_wire: torch.dtype, target_name: str, edges=None,
+                 cache=None):
+        self.kind = kind
+        self.store = store
+        self.chunk_rows = int(chunk_rows)
+        self.edges = edges
+        self.d = store.n_features
+        self.n_pad = _pad_rows(store.n_rows, chunk_rows)
+        self.params = fc.resolve_cache_params(cache)
+        self.legacy_wire = legacy_wire
+        mode = self.params.wire if self.params is not None else "auto"
+        if mode in ("int8", "int4"):
+            self.wire_mode = mode
+            self.bits: Optional[int] = 8 if mode == "int8" else 4
+        else:
+            if mode == "f16":
+                # explicit f16 wire: 2-byte chunks even when the
+                # narrowest-dtype rule would keep a wider store dtype
+                self.legacy_wire = torch.float16
+            self.wire_mode = fc.dtype_name(self.legacy_wire)
+            self.bits = None
+        self.quant: Optional[fc.QuantPlan] = None
+        self.cache_obj: Optional[fc.FeatureCache] = None
+        self.key = ""
+        if self.params is not None:
+            self.cache_obj = fc.FeatureCache(self.params)
+            self.key = fc.cache_key(
+                kind, store, target_dtype=target_name, wire=self.wire_mode,
+                chunk_rows=self.chunk_rows, edges=edges,
+                quant_sample=self.params.quant_sample,
+                quant_seed=self.params.quant_seed)
+        self.artifact: Optional[fc.CacheArtifact] = None
+        self.writer: Optional[fc.ArtifactWriter] = None
+        self._stats: Optional[IngestStats] = None
+
+    @property
+    def ring_dtype(self) -> torch.dtype:
+        return torch.uint8 if self.bits is not None else self.legacy_wire
+
+    @property
+    def wire_cols(self) -> int:
+        return wire_cols(self.d, self.bits) if self.bits else self.d
+
+    # -- resident layer -------------------------------------------------- #
+
+    def resident(self) -> Optional[Tuple[Tuple, IngestStats]]:
+        """The live device tensors of this exact key, when the policy opts
+        in: a rebuild in the same process gets them with zero IO."""
+        if self.params is None or not self.params.resident or not self.key:
+            return None
+        entry = fc.resident_get(self.key)
+        if entry is None:
+            return None
+        stats = IngestStats(label=f"{self.kind}_resident")
+        stats.cache = "resident"
+        stats.cache_key = self.key
+        stats.wire = self.wire_mode
+        fc.count_hit(self.store.nbytes(),
+                     float(entry["extra"].get("cold_wall_s", 0.0)))
+        return entry["arrays"], stats
+
+    # -- build-time hooks ------------------------------------------------ #
+
+    def _check_meta(self, art: fc.CacheArtifact) -> None:
+        meta = art.meta
+        expect = {"kind": self.kind, "n_pad": self.n_pad,
+                  "n_features": self.d, "wire": self.wire_mode,
+                  "wire_cols": self.wire_cols,
+                  "chunk_rows": self.chunk_rows}
+        for field_, want in expect.items():
+            if meta.get(field_) != want:
+                raise fc.FeatureCacheError(
+                    art.path, f"meta {field_}={meta.get(field_)!r} does "
+                              f"not match the requested build ({want!r})",
+                    self.key)
+        if art.wire.dtype != fc.WIRE_DTYPES[fc.dtype_name(
+                self.ring_dtype)][0]:
+            raise fc.FeatureCacheError(
+                art.path, f"wire dtype {meta.get('wire_dtype')!r} does not "
+                          f"match the requested build", self.key)
+        if self.bits is not None and art.quant is None:
+            raise fc.FeatureCacheError(
+                art.path, "quantized wire artifact lacks quant.npz",
+                self.key)
+
+    def _meta(self) -> dict:
+        return {
+            "kind": self.kind,
+            "store_fingerprint": fc.store_fingerprint(self.store),
+            "n_rows": int(self.store.n_rows),
+            "n_pad": int(self.n_pad),
+            "n_features": int(self.d),
+            "store_dtype": self.store.dtype.name,
+            "wire": self.wire_mode,
+            "wire_dtype": fc.dtype_name(self.ring_dtype),
+            "wire_cols": self.wire_cols,
+            "chunk_rows": self.chunk_rows,
+            "edges_sha": fc._edges_digest(self.edges),
+            "sharding": None,
+        }
+
+    def begin(self, stats: IngestStats):
+        """Resolve warm vs cold. Returns (prepare, items) for
+        `_upload`."""
+        self._stats = stats
+        stats.wire = self.wire_mode
+        stats.cache_key = self.key
+        if self.cache_obj is not None:
+            try:
+                art = self.cache_obj.load(self.key)
+                if art is not None:
+                    self._check_meta(art)
+                self.artifact = art
+            except fc.FeatureCacheError as e:
+                fc.count_corrupt()
+                log.warning("feature cache: %s — rebuilding", e)
+                self.artifact = None
+        if self.artifact is not None:
+            self.quant = self.artifact.quant
+            stats.cache = "hit"
+            return (_artifact_prepare(self.artifact, self.chunk_rows,
+                                      stats),
+                    range(0, self.n_pad, self.chunk_rows))
+        if self.bits is not None:
+            self.quant = fc.compute_quant_plan(
+                self.store, self.bits, sample=self.params.quant_sample,
+                seed=self.params.quant_seed)
+        if self.cache_obj is not None:
+            stats.cache = "miss"
+            if self.params.writable:
+                try:
+                    self.writer = self.cache_obj.writer(self.key,
+                                                        self._meta())
+                except OSError:
+                    log.warning("feature cache: cannot stage artifact "
+                                "under %s; building uncached",
+                                self.params.resolved_dir(), exc_info=True)
+                    self.writer = None
+        prepare = (
+            _quant_prepare(self.store, self.chunk_rows, self.quant, stats)
+            if self.quant is not None
+            else _chunk_prepare(self.store, self.chunk_rows, stats))
+        return prepare, range(0, self.store.n_rows, self.chunk_rows)
+
+    def quant_device(self, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(scale, lo) on `dev` for the dequant writes."""
+        return (torch.from_numpy(self.quant.scale).to(dev),
+                torch.from_numpy(self.quant.lo).to(dev))
+
+    def tee(self, host: torch.Tensor) -> None:
+        """Artifact append off the upload stream (main thread, item order,
+        before the chunk's ring buffer can be reused). A failing disk
+        degrades to an uncached build — it must not kill the upload."""
+        if self.writer is None:
+            return
+        t0 = time.perf_counter()
+        try:
+            self.writer.append(_np_view(host))
+        except OSError:
+            log.warning("feature cache: artifact append failed; "
+                        "continuing uncached", exc_info=True)
+            self.writer.abort()
+            self.writer = None
+            return
+        if self._stats is not None:
+            self._stats.cache_write_s += time.perf_counter() - t0
+
+    def finish(self, stats: IngestStats, arrays: Tuple) -> None:
+        """Post-pipeline bookkeeping: finalize the staged artifact
+        (integrity manifest LAST → crash-consistent rename), count the hit
+        or miss, stamp the wire savings, and publish the resident tensors
+        when the policy keeps them."""
+        if self.bits is not None:
+            f16_equiv = self.n_pad * self.d * 2
+            stats.bytes_saved_wire = max(0, f16_equiv - stats.bytes_wire)
+        if self.params is None:
+            return
+        if stats.cache == "hit":
+            saved = max(0.0, self.artifact.cold_wall_s - stats.wall_s)
+            fc.count_hit(self.store.nbytes(), saved)
+        else:
+            fc.count_miss()
+            if self.writer is not None:
+                t0 = time.perf_counter()
+                try:
+                    self.writer.finalize(
+                        quant=self.quant,
+                        cold={"wall_s": round(stats.wall_s, 6),
+                              "gbps": round(stats.gbps, 6),
+                              "bytes_wire": stats.bytes_wire})
+                except OSError:
+                    log.warning("feature cache: artifact finalize failed; "
+                                "next run rebuilds", exc_info=True)
+                finally:
+                    self.writer = None
+                    stats.cache_write_s += time.perf_counter() - t0
+        if self.params.resident and self.key:
+            cold_wall = (self.artifact.cold_wall_s
+                         if self.artifact is not None else stats.wall_s)
+            fc.resident_put(self.key, arrays,
+                            cold_wall_s=cold_wall or stats.wall_s)
+
+    def abort(self) -> None:
+        """The build died (deadline, worker error): remove the staged
+        artifact so a torn tape can never be mistaken for a cache entry."""
+        if self.writer is not None:
+            self.writer.abort()
+            self.writer = None
+
+
+def _upload(sess: _CacheSession, prepare_chunk, items, write, label: str,
+            deadline_s, workers, depth, dev,
             stats: IngestStats) -> IngestStats:
-    """Stream every chunk of the store through `write(chunk, r0)`: the
-    memmap read (copied, so the page faults land on the worker), the cast
-    to the wire dtype into a ring of `depth` host buffers and the zero pad
-    of the tail chunk on worker threads. On the card the buffers are
-    pinned and each chunk is copied to the device on a side stream, where
-    `write` launches K12 after the copy in stream order; on the CPU
-    `write` reads the host buffer itself."""
-    d = store.n_features
+    """Stream `items` (chunk start rows) through `write(chunk, r0)`: on
+    worker threads `prepare_chunk` reads, quantizes or replays each chunk
+    into a ring of `depth` host buffers (pinned on the card); on the main
+    thread, in item order, the session tees the chunk's host bytes into
+    its artifact, then on the card the chunk is copied to the device on a
+    side stream, where `write` launches the kernel after the copy in
+    stream order; on the CPU `write` reads the host buffer itself. A
+    buffer is refilled only after its chunk was issued and its copy's
+    event fired, so the tee always reads the chunk it was given."""
     stats.label = label
-    stats.wire = str(wire).replace("torch.", "")
     cuda = dev.type == "cuda"
-    ring = ChunkRing(depth, (chunk_rows, d), wire, pin=cuda)
+    chunk_rows = sess.chunk_rows
+    ring = ChunkRing(depth, (chunk_rows, sess.wire_cols), sess.ring_dtype,
+                     pin=cuda)
     stream = None
     if cuda:
         stream = torch.cuda.Stream(dev)
@@ -261,21 +750,12 @@ def _upload(store: ColumnarStore, chunk_rows: int, wire: torch.dtype,
         stream.wait_stream(torch.cuda.current_stream(dev))
 
     def prepare(r0: int):
-        t0 = time.perf_counter()
-        c = np.array(store.chunk(r0, r0 + chunk_rows), copy=True)
-        stats.note_read(time.perf_counter() - t0, c.nbytes)
         j = r0 // chunk_rows
-        host = ring.acquire(j)  # its wait is no cast time
-        t0 = time.perf_counter()
-        host[:len(c)].copy_(torch.from_numpy(c))
-        if len(c) < chunk_rows:  # the tail chunk, padded to the chunk shape
-            host[len(c):].zero_()
-        stats.note_cast(time.perf_counter() - t0,
-                        host.numel() * host.element_size())
-        return j, r0, host
+        return j, r0, prepare_chunk(r0, lambda: ring.acquire(j))
 
     def upload(prepared):
         j, r0, host = prepared
+        sess.tee(host)
         if not cuda:
             write(host, r0)
             ring.issued(j, None)
@@ -287,27 +767,55 @@ def _upload(store: ColumnarStore, chunk_rows: int, wire: torch.dtype,
             event.record(stream)
         ring.issued(j, event)
         if r0 and (r0 // chunk_rows) % 8 == 0:
-            log.info("%s: %d/%d rows", label, r0, store.n_rows)
+            log.info("%s: %d/%d rows", label, r0, sess.n_pad)
         return event
 
-    run_chunk_pipeline(range(0, store.n_rows, chunk_rows), prepare, upload,
-                       workers=workers, depth=depth, deadline_s=deadline_s,
-                       label=f"{label} upload", stats=stats,
-                       on_error=ring.abort)
-    if stream is not None:
-        torch.cuda.current_stream(dev).wait_stream(stream)
-    log.info("%s: %d rows in %.1fs (%.2f GB/s, overlap %.2f)", label,
-             store.n_rows, stats.wall_s, stats.gbps, stats.overlap_frac)
+    try:
+        run_chunk_pipeline(items, prepare, upload, workers=workers,
+                           depth=depth, deadline_s=deadline_s,
+                           label=f"{label} upload", stats=stats,
+                           on_error=ring.abort)
+    except BaseException:
+        sess.abort()
+        raise
+    finally:
+        if stream is not None:
+            torch.cuda.current_stream(dev).wait_stream(stream)
+    log.info("%s: %d rows in %.1fs (%.2f GB/s, overlap %.2f%s)", label,
+             sess.store.n_rows, stats.wall_s, stats.gbps, stats.overlap_frac,
+             f", cache {stats.cache}" if stats.cache else "")
     return stats
 
 
-def _plan(store, chunk_rows, workers, depth, cache, sharding, retry, device):
-    _refuse(cache, sharding, retry)
+def _plan(store, chunk_rows, workers, depth, sharding, retry, device):
+    _refuse(sharding, retry)
     if chunk_rows <= 0:
         raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
-    return (resolve_device(device), _pad_rows(store.n_rows, chunk_rows),
+    return (resolve_device(device),
             UPLOAD_WORKERS if workers is None else int(workers),
             UPLOAD_DEPTH if depth is None else int(depth))
+
+
+def _build(sess: _CacheSession, label: str, alloc, writes, deadline_s,
+           workers, depth, dev, return_stats: bool):
+    """A builder's body: the resident registry, else the buffers from
+    `alloc()` written by `writes(bufs, quant_dev)`'s per-chunk write (the
+    classic write when quant_dev is None, the dequant write with (scale,
+    lo) on the device otherwise) through the cache session's upload."""
+    res = sess.resident()
+    if res is not None:
+        bufs, stats = res
+    else:
+        stats = IngestStats(label=label)
+        prepare, items = sess.begin(stats)
+        bufs = alloc()
+        quant_dev = (sess.quant_device(dev) if sess.quant is not None
+                     else None)
+        _upload(sess, prepare, items, writes(bufs, quant_dev), label,
+                deadline_s, workers, depth, dev, stats)
+        sess.finish(stats, bufs)
+    return (*bufs, stats) if return_stats else (
+        bufs[0] if len(bufs) == 1 else tuple(bufs))
 
 
 def device_matrix(store: ColumnarStore, dtype=torch.bfloat16,
@@ -318,26 +826,45 @@ def device_matrix(store: ColumnarStore, dtype=torch.bfloat16,
                   return_stats: bool = False, retry=None, cache=None,
                   device="cuda"):
     """The store as one (n_pad, d) `dtype` buffer on `device`, rows padded
-    to a chunk multiple with zeros. The wire dtype is the narrower of the
-    store's and `dtype`; an f16 wire widens on the device (K12), a wire of
-    the buffer's own dtype is copied. `deadline_s` raises TimeoutError
-    mid-upload. With `return_stats`, returns (buffer, IngestStats)."""
-    dev, n_pad, workers, depth = _plan(store, chunk_rows, workers, depth,
-                                       cache, sharding, retry, device)
-    wire = _wire_of(store, dtype)
-    x = torch.empty((n_pad, store.n_features), dtype=dtype, device=dev)
-    if wire == torch.float16 and dtype != torch.float16:
-        def write(c, r0):
-            write_cast_rows(x, c, r0)
-    elif wire == dtype:
-        def write(c, r0):
-            x[r0:r0 + c.shape[0]].copy_(c)
-    else:
+    to a chunk multiple. The wire dtype is the narrower of the store's and
+    `dtype`; an f16 wire widens on the device (K12), a wire of the
+    buffer's own dtype is copied; a quantized wire dequantizes on the
+    device (K12-dequant). `deadline_s` raises TimeoutError mid-upload.
+
+    `cache`: feature-cache policy (None → process default/env;
+    "off"/"read"/"readwrite"; or a `FeatureCacheParams`). On a hit the
+    build replays the content-addressed wire artifact — zero store reads
+    — bit-equal to the cold build that wrote it; on a readwrite miss the
+    wire stream tees into a crash-consistent artifact.
+    `FeatureCacheParams(wire="int8"/"int4")` ships a quantized wire (max
+    abs error scale/2 per feature, see data/feature_cache.py). With
+    `return_stats`, returns (buffer, IngestStats)."""
+    dev, workers, depth = _plan(store, chunk_rows, workers, depth, sharding,
+                                retry, device)
+    sess = _CacheSession("matrix", store, chunk_rows,
+                         legacy_wire=_wire_of(store, dtype),
+                         target_name=fc.dtype_name(dtype), cache=cache)
+    wire = sess.legacy_wire
+    if sess.bits is None and not (wire == dtype or wire == torch.float16):
         raise ValueError(f"device_matrix: no write from a {wire} wire into "
                          f"a {dtype} buffer")
-    stats = _upload(store, chunk_rows, wire, write, "device_matrix",
-                    deadline_s, workers, depth, dev, IngestStats())
-    return (x, stats) if return_stats else x
+
+    def alloc():
+        return (torch.empty((sess.n_pad, store.n_features), dtype=dtype,
+                            device=dev),)
+
+    def writes(bufs, quant_dev):
+        (x,) = bufs
+        if quant_dev is not None:
+            scale, lo = quant_dev
+            bits = sess.quant.bits
+            return lambda c, r0: dequant_write_rows(x, c, scale, lo, r0, bits)
+        if wire == dtype:
+            return lambda c, r0: x[r0:r0 + c.shape[0]].copy_(c)
+        return lambda c, r0: write_cast_rows(x, c, r0)
+
+    return _build(sess, "device_matrix", alloc, writes, deadline_s, workers,
+                  depth, dev, return_stats)
 
 
 def device_binned(store: ColumnarStore, edges: np.ndarray,
@@ -349,19 +876,32 @@ def device_binned(store: ColumnarStore, edges: np.ndarray,
                   device="cuda"):
     """(n_pad, d) int8 quantile-binned buffer on `device`: chunks ship as
     f16 (an f32 store rounds through f16, as in the JAX package) and bin
-    on the device (K12). Pad rows are the bins of 0.0, as the JAX package
-    bins its zero-padded tail chunk."""
-    dev, n_pad, workers, depth = _plan(store, chunk_rows, workers, depth,
-                                       cache, sharding, retry, device)
+    on the device (K12), or ship quantized and bin the dequantized f32
+    values (K12-dequant). Pad rows are the bins of the pad row. `cache` as
+    in `device_matrix`: a hit replays the wire tape, so the binned matrix
+    is bit-equal to the build that wrote it."""
+    dev, workers, depth = _plan(store, chunk_rows, workers, depth, sharding,
+                                retry, device)
+    sess = _CacheSession("binned", store, chunk_rows,
+                         legacy_wire=torch.float16, target_name="int8",
+                         edges=edges, cache=cache)
     edges_dev = torch.as_tensor(np.asarray(edges, np.float32), device=dev)
-    b = torch.empty((n_pad, store.n_features), dtype=torch.int8, device=dev)
 
-    def write(c, r0):
-        bin_write_rows(b, c, edges_dev, r0)
+    def alloc():
+        return (torch.empty((sess.n_pad, store.n_features),
+                            dtype=torch.int8, device=dev),)
 
-    stats = _upload(store, chunk_rows, torch.float16, write, "device_binned",
-                    deadline_s, workers, depth, dev, IngestStats())
-    return (b, stats) if return_stats else b
+    def writes(bufs, quant_dev):
+        (b,) = bufs
+        if quant_dev is not None:
+            scale, lo = quant_dev
+            bits = sess.quant.bits
+            return lambda c, r0: dequant_bin_write_rows(
+                b, c, scale, lo, edges_dev, r0, bits)
+        return lambda c, r0: bin_write_rows(b, c, edges_dev, r0)
+
+    return _build(sess, "device_binned", alloc, writes, deadline_s, workers,
+                  depth, dev, return_stats)
 
 
 def dual_device_matrices(store: ColumnarStore, edges: np.ndarray,
@@ -373,26 +913,40 @@ def dual_device_matrices(store: ColumnarStore, edges: np.ndarray,
                          return_stats: bool = False, retry=None, cache=None,
                          device="cuda"):
     """One pass over the store → BOTH the (n_pad, d) bf16 matrix and the
-    (n_pad, d) int8 binned matrix: each f16 chunk crosses to the device
-    once and K12's dual entry reads it once for both. For an f16 store
-    both equal `device_matrix`'s and `device_binned`'s buffers. Returns
+    (n_pad, d) int8 binned matrix: each wire chunk crosses to the device
+    once and K12's dual entry (or K12-dequant's) reads it once for both.
+    For an f16 store both equal `device_matrix`'s and `device_binned`'s
+    buffers. `cache` as in `device_matrix`: the artifact is the single
+    wire tape, and a hit reproduces both matrices bit for bit. Returns
     (X16, Xb) or, with `return_stats`, (X16, Xb, IngestStats)."""
     if dtype != torch.bfloat16:
         raise ValueError(f"dual_device_matrices: the kernel writes bf16, "
                          f"got {dtype}")
-    dev, n_pad, workers, depth = _plan(store, chunk_rows, workers, depth,
-                                       cache, sharding, retry, device)
+    dev, workers, depth = _plan(store, chunk_rows, workers, depth, sharding,
+                                retry, device)
+    sess = _CacheSession("dual", store, chunk_rows,
+                         legacy_wire=torch.float16,
+                         target_name=fc.dtype_name(dtype), edges=edges,
+                         cache=cache)
     d = store.n_features
     edges_dev = torch.as_tensor(np.asarray(edges, np.float32), device=dev)
-    x = torch.empty((n_pad, d), dtype=torch.bfloat16, device=dev)
-    b = torch.empty((n_pad, d), dtype=torch.int8, device=dev)
 
-    def write(c, r0):
-        dual_write_rows(x, b, c, edges_dev, r0)
+    def alloc():
+        return (torch.empty((sess.n_pad, d), dtype=torch.bfloat16,
+                            device=dev),
+                torch.empty((sess.n_pad, d), dtype=torch.int8, device=dev))
 
-    stats = _upload(store, chunk_rows, torch.float16, write, "dual",
-                    deadline_s, workers, depth, dev, IngestStats())
-    return (x, b, stats) if return_stats else (x, b)
+    def writes(bufs, quant_dev):
+        x, b = bufs
+        if quant_dev is not None:
+            scale, lo = quant_dev
+            bits = sess.quant.bits
+            return lambda c, r0: dequant_dual_write_rows(
+                x, b, c, scale, lo, edges_dev, r0, bits)
+        return lambda c, r0: dual_write_rows(x, b, c, edges_dev, r0)
+
+    return _build(sess, "dual", alloc, writes, deadline_s, workers, depth,
+                  dev, return_stats)
 
 
 # --------------------------------------------------------------------------- #
