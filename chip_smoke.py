@@ -41,7 +41,15 @@ non-zero:
    bit-equal run to run; K2 split features and bins equal
    from the same histograms; K3 node ids equal, leaf values bit-equal to
    the CPU's row-order sums and within atol 1e-6 of the card's
-   `index_add_`; K8 binned AuPR equal at 512 and 4096 buckets;
+   `index_add_`; K8 binned AuPR equal at 512 and 4096 buckets. Then the
+   skewed cases (`skew_check`): K1 on one node of 2^20 + 12345 rows cut
+   into 32+ pieces of HIST_PIECE_ROWS and on 2048 mostly-empty nodes, rows
+   left out and bin ids dropped across the piece edges (equal to the plain
+   version on class counts, bit-equal run to run), and K3's leaf pass at
+   LEAF_SCAN_MAX_ROWS ± 1 rows in both designs and the wrapper's choice
+   (bit-equal to the CPU's row-order sums); and K3's leaf pass in both
+   designs across rows a pair (`leaf_regime_timing`), the timings the
+   wrapper's switch between them is chosen from;
 8. the training path: the README quickstart's XGBoost family trained by
    `Workflow.train(device="cuda")` at full width (891 rows, 1048 → 496
    columns, min_child_weight {1, 10} x 3 folds, 200 rounds at depth 10,
@@ -288,6 +296,36 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def leaf_designs_ms(pt, node, G, H, L, lam, iters: int, warmup: int = 3):
+    """K3's leaf pass in each of its two designs on the same inputs,
+    which must give the same bits: the scan design (no sort), the segment
+    design (its `node_segments` included) and `node_segments` alone."""
+    def run(regime):
+        return pt._leaf_values_cuda(node, G, H, L, lam, 0.0, regime)
+    if not torch.equal(run("scan"), run("segments")):
+        raise AssertionError(f"K3's leaf designs differ (P={node.shape[0]}, "
+                             f"n={node.shape[1]}, L={L})")
+    return {"design": pt.leaf_regime(node.shape[1]),
+            "scan_ms": cuda_ms(lambda: run("scan"), iters, warmup),
+            "segments_ms": cuda_ms(lambda: run("segments"), iters, warmup),
+            "node_segments_ms": cuda_ms(
+                lambda: pt.node_segments(node, L), iters, warmup)}
+
+
+def leaf_library_ms(node, G, H, L, iters: int, warmup: int = 3) -> float:
+    """One `index_add_` per channel (the m values and the weights): the
+    leaf sums by a library call."""
+    P = node.shape[0]
+    slot = (node.long() + torch.arange(P, device=node.device)[:, None]
+            * L).reshape(-1)
+    srcs = [G[:, j].reshape(-1) for j in range(G.shape[1])] + [H.reshape(-1)]
+
+    def library():
+        for src in srcs:
+            torch.zeros(P * L, device=src.device).index_add_(0, slot, src)
+    return cuda_ms(library, iters, warmup)
+
+
 def walk_bytes(Xb, feat, bins, leaf) -> int:
     """Bytes K5 must move for these rows: the table slots, leaves and Xb
     cells the walk actually reads (each once; level l of a tree reaches at
@@ -488,7 +526,8 @@ def time_training_kernels(pt, pdm, cases):
               "plain_ms": cuda_ms(lambda: pt.histograms_plain(
                   Xb, node, G, H, n_nodes, B), 3),
               "library_ms": cuda_ms(library, 5),
-              "bound_ms": k1_bound, "bound_by": k1_by, "bytes": k1_bytes}
+              "bound_ms": k1_bound, "bound_by": k1_by, "bytes": k1_bytes,
+              "scratch_bytes": pt.hist_scratch_bytes(P, n, n_nodes, 1, d, B)}
         del cell, srcg, srch
         k2_bytes = 2 * P * n_nodes * d * B * 4 + 2 * P * n_nodes * 4
         k2_bound, k2_by = bound(k2_bytes, 14 * P * n_nodes * d * B)
@@ -515,8 +554,10 @@ def time_training_kernels(pt, pdm, cases):
                                                     0.0), 50),
                "plain_ms": cuda_ms(lambda: pt.leaf_values_plain(
                    routed, G, H, L, 1.0, 0.0), 10),
-               "library_ms": None, "bound_ms": k3l_bound,
-               "bound_by": k3l_by, "bytes": k3l_bytes}
+               "library_ms": leaf_library_ms(routed, G, H, L, 50),
+               "bound_ms": k3l_bound, "bound_by": k3l_by,
+               "bytes": k3l_bytes,
+               **leaf_designs_ms(pt, routed, G, H, L, 1.0, 50)}
         out[f"n{n}_level{level}"] = {
             "histograms": k1, "split_search": k2, "route_level": k3r,
             "leaf_values": k3l}
@@ -545,6 +586,126 @@ def time_training_kernels(pt, pdm, cases):
         emit({"phase": "training_timing", "n": n, "buckets": nb,
               "binned_aupr": k8})
     return out
+
+
+# --------------------------------------------------------------------------- #
+# K1's pieces and few-row nodes, K3's two leaf designs: skewed cases          #
+# --------------------------------------------------------------------------- #
+
+SKEW_ROWS = (1 << 20) + 12345   # one node cut into 32+ pieces of R rows
+# K3's leaf pass in both designs across rows a pair, at the pairs and
+# leaves of the out-of-core, XGB and forest shapes; LEAF_SCAN_MAX_ROWS in
+# models/trees.py is chosen from these
+LEAF_SWEEP = ((16, 64), (6, 1024), (54, 4096))
+LEAF_SWEEP_ROWS = (802, 2048, 4096, 16384, 65536, 262144)
+
+
+def skew_inputs(rng, P, n, d, n_nodes, dev, skew, left_out, dropped):
+    """Binned rows with bin ids outside [0, 32) at rate `dropped`, node
+    ids with node 0 taking the share `skew` and rows left out (id n_nodes)
+    at rate `left_out`, and class-count values (integer sums)."""
+    Xb = rng.integers(0, 32, (n, d))
+    bad = rng.random((n, d)) < dropped
+    Xb[bad] = rng.choice(np.array([-2, -1, 32, 33, 100]), int(bad.sum()))
+    node = np.where(rng.random((P, n)) < skew, 0,
+                    rng.integers(0, n_nodes, (P, n)))
+    node = np.where(rng.random((P, n)) < left_out, n_nodes, node)
+    H = rng.poisson(1.0, (P, n)).astype(np.float32)
+    G = np.eye(2, dtype=np.float32)[rng.integers(0, 2, n)].T[None] \
+        * H[:, None, :]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        Xb.astype(np.int8), node.astype(np.int32), G, H)]
+
+
+def plain_dropping(pt, Xb, node, G, H, n_nodes, n_bins):
+    """`histograms_plain` with K1's rule for bin ids outside [0, n_bins):
+    dropped (they go to a spare bin that is cut off)."""
+    spare = torch.where((Xb.long() < 0) | (Xb.long() >= n_bins),
+                        torch.full_like(Xb.long(), n_bins), Xb.long())
+    hg, hh = pt.histograms_plain(spare, node, G, H, n_nodes, n_bins + 1)
+    return hg[..., :n_bins], hh[..., :n_bins]
+
+
+def skew_check(pt, rng, dev):
+    """K1 on one node of SKEW_ROWS rows (most rows in node 0 of 3, so cut
+    into 32+ pieces, rows left out and bin ids dropped across the piece
+    edges) and on 2048 mostly-empty nodes: equal to the plain version on
+    class counts and bit-equal run to run. K3's leaf pass at
+    LEAF_SCAN_MAX_ROWS ± 1 rows, both designs and the wrapper's choice,
+    for skewed leaves with every odd leaf empty and for one leaf holding
+    every row: bit-equal to the CPU's row-order sums."""
+    cases = {}
+    for name, (P, n, d, n_nodes, skew) in {
+            "pieces": (2, SKEW_ROWS, 500, 3, 0.9),
+            "empty_nodes": (16, 1500, 496, 2048, 0.0)}.items():
+        Xb, node, G, H = skew_inputs(rng, P, n, d, n_nodes, dev, skew, 0.1,
+                                     0.01)
+        hg, hh = pt.histograms(Xb, node, G, H, n_nodes, FIT_BINS)
+        hg2, hh2 = pt.histograms(Xb, node, G, H, n_nodes, FIT_BINS)
+        wg, wh = plain_dropping(pt, Xb, node, G, H, n_nodes, FIT_BINS)
+        torch.cuda.synchronize()
+        if not (torch.equal(hg, hg2) and torch.equal(hh, hh2)):
+            raise AssertionError(f"K1 differs run to run ({name})")
+        err = max(float((hg - wg).abs().max()), float((hh - wh).abs().max()))
+        if err != 0.0:
+            raise AssertionError(f"K1 disagrees with its plain version "
+                                 f"({name}): {err}")
+        counts = torch.bincount(node[0].long(), minlength=n_nodes + 1)
+        cases[name] = {"pairs": P, "rows": n, "d": d, "nodes": n_nodes,
+                       "largest_node_rows": int(counts[:n_nodes].max()),
+                       "empty_nodes": int((counts[:n_nodes] == 0).sum()),
+                       "pieces_bound": pt.hist_plan_bounds(n, n_nodes)[0],
+                       "max_abs_err": err}
+        del Xb, node, G, H, hg, hh, hg2, hh2, wg, wh
+    t = pt.LEAF_SCAN_MAX_ROWS
+    for n in (t - 1, t, t + 1):
+        for one_leaf in (False, True):
+            P, L = 3, 64
+            node = (np.full((P, n), L - 1) if one_leaf else np.minimum(
+                rng.geometric(0.05, (P, n)) - 1, L // 2 - 1) * 2)
+            node = torch.from_numpy(node.astype(np.int32))
+            G = torch.from_numpy(rng.normal(size=(P, 2, n)).astype(np.float32))
+            H = torch.from_numpy(rng.uniform(0.05, 1, (P, n))
+                                 .astype(np.float32))
+            want = pt.leaf_values_plain(node, G, H, L, [1.0, 0.5, 2.0], 0.1)
+            nc, Gc, Hc = node.to(dev), G.to(dev), H.to(dev)
+            for regime in ("scan", "segments", None):
+                got = pt._leaf_values_cuda(nc, Gc, Hc, L, [1.0, 0.5, 2.0],
+                                           0.1, regime)
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"K3 leaves ({regime}, n={n}, one "
+                                         f"leaf {one_leaf}) differ from "
+                                         f"row-order sums")
+    cases["leaf_threshold"] = {"rows": [t - 1, t, t + 1],
+                               "designs": ["scan", "segments", "wrapper"],
+                               "equal": True}
+    record = {"phase": "skew_kernel_check", "cases": cases,
+              "piece_rows": pt.HIST_PIECE_ROWS,
+              "few_rows": pt.HIST_FEW_ROWS,
+              "tolerance": "K1 equal (class counts) and bit-equal run to "
+                           "run; K3 leaves bit-equal to row-order sums"}
+    emit(record)
+    return record
+
+
+def leaf_regime_timings(pt, rng, dev):
+    """K3's leaf pass in both designs across LEAF_SWEEP_ROWS rows a pair
+    (`leaf_designs_ms`, which also holds them to the same bits)."""
+    rows = []
+    for P, L in LEAF_SWEEP:
+        for n in LEAF_SWEEP_ROWS:
+            node = torch.from_numpy(rng.integers(0, L, (P, n))
+                                    .astype(np.int32)).to(dev)
+            G = torch.from_numpy(rng.normal(size=(P, 2, n))
+                                 .astype(np.float32)).to(dev)
+            H = torch.from_numpy(rng.uniform(0.05, 1, (P, n))
+                                 .astype(np.float32)).to(dev)
+            rows.append({"pairs": P, "leaves": L, "rows": n,
+                         **leaf_designs_ms(pt, node, G, H, L, 1.0, 10)})
+    record = {"phase": "leaf_regime_timing",
+              "scan_max_rows": pt.LEAF_SCAN_MAX_ROWS, "cases": rows}
+    emit(record)
+    return record
 
 
 # --------------------------------------------------------------------------- #
@@ -709,7 +870,8 @@ def time_forest_kernels(pt, c):
         "plain_ms": cuda_ms(lambda: pt.leaf_values_plain(
             node12, G, H, 4096, 1e-6, 0.0), 10),
         "library_ms": cuda_ms(leaf_library, 10), "bound_ms": k3l_bound,
-        "bound_by": k3l_by, "bytes": k3l_bytes}
+        "bound_by": k3l_by, "bytes": k3l_bytes,
+        **leaf_designs_ms(pt, node12, G, H, 4096, 1e-6, 20)}
     del slot, leaf_srcs
     for k in ("cg", "ch", "f", "b"):
         del c[k]
@@ -750,7 +912,8 @@ def time_forest_kernels(pt, c):
         "plain_ms": cuda_ms(lambda: pt.histograms_plain(
             Xb, parent, G, H, 1024, B), 2, warmup=1),
         "library_ms": cuda_ms(library, 3, warmup=1), "bound_ms": k1_bound,
-        "bound_by": k1_by, "bytes": k1_bytes, "rows_right": n_right}
+        "bound_by": k1_by, "bytes": k1_bytes, "rows_right": n_right,
+        "scratch_bytes": pt.hist_scratch_bytes(Pc, n, 1024, m, d, B)}
     del cell, srcs
     emit({"phase": "forest_timing", "pairs": Pc, "level": 11, **out})
     return out
@@ -1220,7 +1383,8 @@ def three_class_level(pt, rng, dev):
                         "channels": 3, "parents_level10": 1024,
                         "nodes_level11": 2048, "leaves": 4096},
               "chunk": {"budget_bytes": budget, "bytes_per_tree": per_tree,
-                        "lanes_k1": pt._hist_lanes(B, 3)},
+                        "k1_features_lanes": pt._hist_layout(
+                            B, 3, d % 4 == 0, n / 1024)},
               "splits_level11": int((b < B).sum()), "equal": checks,
               "tolerance": "equal (class counts; leaves bit-equal to the "
                            "CPU's row-order sums)"}
@@ -2781,17 +2945,26 @@ def big_kernel_timings(pbd, pt, pdm, X16, Xb, chunk_f16, edges, y, Vf, rf,
     del hg, hh, pg, ph
     out["histograms"] = {
         "ms": cuda_ms(lambda: pt.histograms(Xb, node0, G, H, 1, BIG_BINS),
-                      2, warmup=1),
+                      3, warmup=1),
+        # level 0 reads the rows in row order; the sort it no longer runs:
         "segments_ms": cuda_ms(lambda: pt.node_segments(node0, 1), 3,
                                warmup=1),
         "plain_ms": plain_ms, "library_ms": library_k1(),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": kb, "level": 0,
-        "K": K, "max_abs_err": k1_err}
+        "K": K, "max_abs_err": k1_err,
+        "scratch_bytes": pt.hist_scratch_bytes(K, n, 1, m, d, BIG_BINS)}
     torch.cuda.empty_cache()
     L = rf["feat"].shape[1] - 1
     node = route_to_level(pt, Xb, rf, L)
     nodes = 2 ** L
     hg, hh = pt.histograms(Xb, node, G, H, nodes, BIG_BINS)
+    out["histograms"].update({
+        f"level{L}_ms": cuda_ms(lambda: pt.histograms(
+            Xb, node, G, H, nodes, BIG_BINS), 3, warmup=1),
+        f"level{L}_segments_ms": cuda_ms(
+            lambda: pt.node_segments(node, nodes), 3, warmup=1),
+        f"level{L}_scratch_bytes": pt.hist_scratch_bytes(
+            K, n, nodes, m, d, BIG_BINS)})
     kw = dict(reg_lambda=1e-6, min_child_weight=1.0, min_gain=0.0,
               min_gain_norm=0.0, feature_mask=fmask, level=L,
               active_depth=None)
@@ -2836,7 +3009,8 @@ def big_kernel_timings(pbd, pt, pdm, X16, Xb, chunk_f16, edges, y, Vf, rf,
         "bound_ms": b_ms, "bound_by": b_by, "bytes": kb, "leaves": leaves,
         "max_abs_err": max_err(
             pt.leaf_values(final, G, H, leaves, 1e-6, 0.0),
-            pt.leaf_values_plain(final, G, H, leaves, 1e-6, 0.0))}
+            pt.leaf_values_plain(final, G, H, leaves, 1e-6, 0.0)),
+        **leaf_designs_ms(pt, final, G, H, leaves, 1e-6, 2, warmup=1)}
     del slot, srcs, node, final
     torch.cuda.empty_cache()
     args = (Xb, rf["feat"], rf["bin"], rf["leaf"])
@@ -3303,7 +3477,11 @@ def big_path(rows: int = BIG_ROWS, fixture: bool = True,
             _, s12 = timed_s(dev, lambda: pbd.fit_forest_big(
                 Xb, Y1, W[0], rd["n_trees"], rd["max_depth"], BIG_BINS, 2,
                 seed=rd["seed"], chunk=hc))
-        rec["rf"] = {"tree_d6_s": s6 / r["n_trees"], "batch_d6_s": s6,
+        rec["rf"] = {"k1_levels_d6_ms": [v.get("histograms_ms") for v in lv6
+                                         if "level" in v],
+                     "k1_levels_d12_ms": [v.get("histograms_ms") for v in lv12
+                                          if "level" in v],
+                     "tree_d6_s": s6 / r["n_trees"], "batch_d6_s": s6,
                      "lockstep_k": r["n_trees"], "tree_d12_s": s12,
                      "levels_d6": lv6, "levels_d12": lv12,
                      "busy": profiled(lambda: pbd.fit_forest_big(
@@ -3498,6 +3676,9 @@ def main() -> int:
     import transmogrifai_tpu_torch as port
     check, fit_cases = check_training_kernels(pt, pdm, rng, dev)
     emit(check)
+    skew_check(pt, rng, dev)
+    leaf_regime_timings(pt, rng, dev)
+    torch.cuda.empty_cache()
 
     # 8. the training path ---------------------------------------------------- #
     trained, train_ds, train_rec = train_path(port, pt)

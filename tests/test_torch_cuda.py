@@ -1060,3 +1060,184 @@ def test_big_path_on_the_card_matches_the_cpu(cuda, tmp_path):
     torch.testing.assert_close(g[3], c[3], rtol=0, atol=2e-6)
     for a, b in zip(c[4:], g[4:]):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# K1 pieces and few-row nodes, K3's two leaf designs                          #
+# --------------------------------------------------------------------------- #
+
+def _plain_dropping(Xb, node, G, H, n_nodes, n_bins):
+    """`histograms_plain` with the kernel's rule for bin ids outside [0,
+    n_bins): they go to a spare bin that is cut off."""
+    spare = torch.where((Xb.long() < 0) | (Xb.long() >= n_bins),
+                        torch.full_like(Xb.long(), n_bins), Xb.long())
+    hg, hh = pt.histograms_plain(spare, node, G, H, n_nodes, n_bins + 1)
+    return hg[..., :n_bins].contiguous(), hh[..., :n_bins].contiguous()
+
+
+def _assert_within_sum_bound(got, want, mag, rows):
+    """Two f32 summation orders of `rows` values each stay within
+    2·(rows − 1)·2^-24·Σ|v| of each other."""
+    tol = 2 * max(rows - 1, 1) * 2.0 ** -24 * mag
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def _k1_case(rng, P, n, d, n_bins, n_nodes, m, bin_dtype, integer,
+             left_out=0.0, dropped=0.0, skew=None):
+    hi = n_bins + 3 if dropped else n_bins
+    Xb = rng.integers(-2 if dropped else 0, hi, (n, d))
+    if dropped:
+        keep = rng.random((n, d)) >= dropped
+        Xb = np.where(keep, np.clip(Xb, 0, n_bins - 1), Xb)
+    Xb = torch.from_numpy(Xb.astype(np.int8 if bin_dtype == torch.int8
+                                    else np.int32))
+    if skew is None:
+        node = rng.integers(0, n_nodes, (P, n))
+    else:  # node 0 takes the share `skew`, the rest spread over the others
+        node = np.where(rng.random((P, n)) < skew, 0,
+                        rng.integers(0, n_nodes, (P, n)))
+    if left_out:
+        node = np.where(rng.random((P, n)) < left_out, n_nodes, node)
+    node = torch.from_numpy(node.astype(np.int32))
+    if integer:
+        H = torch.from_numpy(rng.poisson(1.0, (P, n)).astype(np.float32))
+        G = torch.from_numpy(rng.integers(0, 3, (P, m, n))
+                             .astype(np.float32)) * H[:, None, :]
+    else:
+        G = torch.from_numpy(rng.normal(size=(P, m, n)).astype(np.float32))
+        H = torch.from_numpy(rng.uniform(0.05, 1, (P, n)).astype(np.float32))
+    return Xb, node, G.contiguous(), H
+
+
+def _check_k1(cuda, args, n_nodes, n_bins, integer):
+    dev_args = [t.to(cuda) for t in args]
+    before = pt.LAUNCHES["histograms"]
+    hg, hh = pt.histograms(*dev_args, n_nodes, n_bins)
+    hg2, hh2 = pt.histograms(*dev_args, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["histograms"] == before + 2
+    assert torch.equal(hg, hg2) and torch.equal(hh, hh2)  # run to run
+    Xb, node, G, H = dev_args
+    wg, wh = _plain_dropping(Xb, node, G, H, n_nodes, n_bins)
+    if integer:
+        assert torch.equal(hg, wg) and torch.equal(hh, wh)
+        return
+    rows = int(torch.bincount(node.reshape(-1).long()).max())
+    mg, mh = _plain_dropping(Xb, node, G.abs(), H.abs(), n_nodes, n_bins)
+    _assert_within_sum_bound(hg, wg, mg, rows)
+    _assert_within_sum_bound(hh, wh, mh, rows)
+
+
+@pytest.mark.parametrize("n_nodes,d,bin_dtype,integer", [
+    (1, 40, torch.int8, True), (1, 37, torch.int8, False),
+    (3, 40, torch.int32, True), (2, 41, torch.int32, False)])
+def test_histograms_of_a_node_cut_into_many_pieces(cuda, n_nodes, d,
+                                                   bin_dtype, integer):
+    """A node of more than 2^20 rows (dozens of pieces of
+    HIST_PIECE_ROWS): integer values equal to the plain version, float
+    values within the summation bound and equal run to run; rows left out
+    (node id n_nodes) and dropped bin ids across the piece edges."""
+    rng = np.random.default_rng(n_nodes * 100 + d)
+    n = (1 << 20) + 12345
+    args = _k1_case(rng, 2, n, d, 32, n_nodes, 2, bin_dtype, integer,
+                    left_out=0.1, dropped=0.01, skew=0.9)
+    assert n // pt.HIST_PIECE_ROWS >= 32
+    _check_k1(cuda, args, n_nodes, 32, integer)
+
+
+@pytest.mark.parametrize("n_nodes,n", [(1024, 802), (2048, 1500),
+                                       (2048, 3000)])
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("bin_dtype", [torch.int8, torch.int32])
+def test_histograms_of_mostly_empty_nodes(cuda, n_nodes, n, m, bin_dtype):
+    """1024 and 2048 nodes that are mostly empty or hold one row, a few
+    above HIST_FEW_ROWS (the piece path beside the few-rows path), rows
+    left out and dropped bins: class-count values equal the plain version,
+    float values within the summation bound."""
+    rng = np.random.default_rng(n_nodes + n + m)
+    for integer in (True, False):
+        args = _k1_case(rng, 3, n, 52, 32, n_nodes, m, bin_dtype, integer,
+                        left_out=0.3, dropped=0.02, skew=0.05)
+        _check_k1(cuda, args, n_nodes, 32, integer)
+
+
+@pytest.mark.parametrize("n_bins", [2, 7, 32, 255])
+def test_histograms_bins_that_are_not_a_multiple_of_4(cuda, n_bins):
+    """Scalar writes where n_bins % 4 != 0, one feature a thread where 4
+    features of every lane do not fit in shared memory (255 bins)."""
+    rng = np.random.default_rng(n_bins)
+    dtype = torch.int8 if n_bins < 127 else torch.int32
+    for n_nodes, n in ((1, 3000), (8, 20000), (64, 700)):
+        args = _k1_case(rng, 2, n, 23, n_bins, n_nodes, 2, dtype, True,
+                        left_out=0.2, dropped=0.05)
+        _check_k1(cuda, args, n_nodes, n_bins, True)
+
+
+def test_histogram_plan_kernel_writes_the_plain_plan(cuda):
+    """The plan K1 writes on the card (`first`, `slot`) equals
+    `hist_piece_plan` of the same segments, for nodes of few rows, nodes
+    of one piece and nodes of many, and for one node read in row order."""
+    rng = np.random.default_rng(4)
+    n = 3 * pt.HIST_PIECE_ROWS + 77
+    for n_nodes, skew in ((1, 0.0), (9, 0.8), (600, 0.3)):
+        args = [t.to(cuda) for t in _k1_case(rng, 3, n, 8, 32, n_nodes, 1,
+                                              torch.int8, True, skew=skew)]
+        plan = []
+        pt._histograms_cuda(*args, n_nodes, 32, plan_out=plan)
+        seg, first, slot, grid = plan
+        if seg is None:
+            seg = torch.tensor([[0, n]] * 3, dtype=torch.int32)
+        want_f, want_s = pt.hist_piece_plan(seg.cpu())
+        assert torch.equal(first.cpu(), want_f)
+        assert torch.equal(slot.cpu(), want_s)
+        assert int(want_f[:, -1].max()) <= grid
+
+
+def _leaf_case(rng, P, n, L, m, one_leaf=False):
+    if one_leaf:
+        node = np.full((P, n), L - 1)
+    else:  # a skewed spread, every odd leaf empty, a few large ones
+        node = np.minimum(rng.geometric(0.05, (P, n)) - 1, L // 2 - 1) * 2
+    G = rng.normal(size=(P, m, n)).astype(np.float32)
+    H = rng.uniform(0.05, 1.0, (P, n)).astype(np.float32)
+    return (torch.from_numpy(node.astype(np.int32)), torch.from_numpy(G),
+            torch.from_numpy(H))
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("one_leaf", [False, True])
+def test_leaf_designs_are_bit_equal_to_row_order_sums(cuda, m, one_leaf):
+    """Both leaf designs, and the wrapper's own choice, at the regime
+    threshold ± 1 rows: every leaf bit-equal to the CPU's row-order sums,
+    for one leaf holding every row and for empty leaves."""
+    rng = np.random.default_rng(m + 10 * one_leaf)
+    lam, alpha = [1.0, 0.5, 2.0], [0.0, 0.1, 0.0]
+    for n in (pt.LEAF_SCAN_MAX_ROWS - 1, pt.LEAF_SCAN_MAX_ROWS,
+              pt.LEAF_SCAN_MAX_ROWS + 1):
+        node, G, H = _leaf_case(rng, 3, n, 64, m, one_leaf)
+        want = pt.leaf_values_plain(node, G, H, 64, lam, alpha)
+        nc, Gc, Hc = node.to(cuda), G.to(cuda), H.to(cuda)
+        for regime in ("scan", "segments", None):
+            got = pt._leaf_values_cuda(nc, Gc, Hc, 64, lam, alpha, regime)
+            assert torch.equal(got.cpu(), want), (n, regime)
+        assert pt.leaf_regime(n) == (
+            "scan" if n <= pt.LEAF_SCAN_MAX_ROWS else "segments")
+
+
+@pytest.mark.parametrize("P,n,L", [(1, 1, 1), (53, 802, 4096),
+                                   (6, 802, 1024), (6, 65536, 1024),
+                                   (16, 200000, 64)])
+def test_leaf_designs_agree_at_the_main_path_shapes(cuda, P, n, L):
+    """The forest, XGB and out-of-core leaf shapes (rows cut to fit the
+    CPU's sums): both designs bit-equal to the CPU's row-order sums, scalar
+    and per-pair hyperparameters alike."""
+    rng = np.random.default_rng(P + n + L)
+    node = torch.from_numpy(rng.integers(0, L, (P, n)).astype(np.int32))
+    G = torch.from_numpy(rng.poisson(1.0, (P, 2, n)).astype(np.float32))
+    H = torch.from_numpy(rng.uniform(0.05, 1.0, (P, n)).astype(np.float32))
+    for lam, alpha in ((1e-6, 0.0), ([1.0 + p for p in range(P)], 0.2)):
+        want = pt.leaf_values_plain(node, G, H, L, lam, alpha)
+        for regime in ("scan", "segments"):
+            got = pt._leaf_values_cuda(node.to(cuda), G.to(cuda), H.to(cuda),
+                                       L, lam, alpha, regime)
+            assert torch.equal(got.cpu(), want), regime

@@ -6,136 +6,618 @@
 //   hist_H[p, k, f, b]    = the same sum of H[p, r]
 //
 // Replaces `_histograms` and `bins_onehot` in
-// transmogrifai_tpu/models/trees.py:93-167. On the TPU these are one-hot
-// matmuls, (nodes, n) @ (n, d * bins) per channel, so the MXU does the
-// reduction. On Hopper the one-hot operand is pure waste: every row adds
-// its values into exactly one bin per feature. Boosting has m = 1 (the
-// gradient); a forest has one channel per class (one-hot labels times the
-// bootstrap weight), so one pass over the rows fills every channel.
+// transmogrifai_tpu/models/trees.py:93-167 (and the chunked
+// `_chunked_histograms_multi`, transmogrifai_tpu/parallel/bigdata.py:1014).
+// On the TPU these are one-hot matmuls, (nodes, n) @ (n, d * bins) per
+// channel, so the MXU does the reduction. On Hopper the one-hot operand is
+// pure waste: every row adds its values into exactly one bin per feature.
+// Boosting has m = 1 (the gradient); a forest has one channel per class.
 //
-// Determinism: no float atomics in global memory. The caller passes the
-// rows grouped by node in stable row order (`order`, with node k's rows at
-// order[p, seg[p, k] .. seg[p, k + 1])); rows listed after the last
-// segment are left out, which is how the sibling-subtraction path builds
-// the histograms of the rows routed right only. A block owns one (pair,
-// node) and FT = 32 neighbouring features, one warp lane per feature; its
-// LANES row-lanes take every LANES-th row of the node's segment in order
-// and add into private shared-memory histograms, which are then summed
-// lane by lane in a fixed order. The result is the same bits on every run.
+// Bound on this card. Bytes at deep levels: the output, (m + 1) * P *
+// nodes * d * bins f32, most of it zeros for nodes that hold no rows (a
+// depth-12 forest's levels 10-11). Operations at shallow levels of many
+// rows: every (row, feature, channel) is one add into a histogram cell,
+// (m + 1) * P * n * d of them; in shared memory each is a load and a store,
+// so the shared-memory pipe (128 B a clock an SM) is the practical floor.
 //
-// Layout of the private histograms: [lane][channel 0..m-1, then H][bin]
-// [FT + 1] floats; the +1 pad spreads a feature's bins over banks for the
-// write-out, where neighbouring threads read neighbouring bins of one
-// feature, so the global writes of (.., f, b) coalesce. Every output cell
-// is written, so empty nodes come out as zeros with no memset. Above 48 KB
-// of shared memory (m = 2 at 32 bins with 4 lanes) the launch opts in to
-// the larger carve-out. The channel count m (1 to 4) is a template
-// parameter, so the channel loops unroll.
+// The caller passes the rows grouped by node in stable row order (`order`,
+// node k's rows at order[p, seg[p, k] .. seg[p, k + 1])), or no order at
+// all (`order` and `seg` null, one node): then the rows are read in row
+// order and a row whose node id is not 0 is left out, so level 0 needs no
+// sort. Rows listed after the last segment are left out, which is how the
+// sibling-subtraction path builds the histograms of the rows routed right
+// only. Bin ids outside [0, n_bins) are dropped. No float atomics in
+// global memory: every output cell is written by exactly one thread, so the
+// result is the same bits on every run. Every flat offset is 64-bit. Four
+// launches, all on `stream`:
 //
-// Bound on this card: bytes. The output is (m + 1) * P * nodes * d * bins
-// f32 and dominates at deep levels; each row's Xb slice and values are
-// read once per level. Offsets into the output pass 2^31 at deep levels
-// of many trees, so every flat index is 64-bit.
+// 0. the plan (`plan_kernel`, a block a pair): `first`, the exclusive
+//    cumulative count over the nodes of their pieces (⌈c / R⌉ for a node
+//    of c > few rows, else none), and `slot`, that of the pieces of nodes
+//    with more than one piece: their scratch slots. The wrapper's plain
+//    `hist_piece_plan` is the same arithmetic.
+// 1. few rows (`few_kernel`, a block per (cell chunk, node, pair), no shared
+//    histograms): a node holding at most `few` rows. Each thread owns four
+//    neighbouring cells of one feature and adds the node's rows into them
+//    in row order, in registers, then writes them with 16-byte stores; an
+//    empty node writes its zeros the same way. This is the deep levels of
+//    a forest, where the old design zeroed and reduced 50 KB of shared
+//    memory per (node, feature tile) for a node of 0-1 rows.
+// 2. pieces (`piece_kernel`, a block per (pair, piece, feature tile), the
+//    pair index fastest, so the P learners' blocks over one row piece run
+//    together and read Xb from L2 once at level 0): every node with more
+//    than `few` rows is cut into pieces of at most R rows at boundaries
+//    fixed by `seg` and R. The block's row-lanes take every lanes-th row of
+//    its piece in order and add into private shared-memory histograms,
+//    summed lane by lane in a fixed order (with the old kernel's 4 lanes,
+//    a node of one piece gets the old bits; with 1 lane, those of the
+//    CPU's row-order `index_add_`). A thread covers F = 4 neighbouring
+//    features through one 32-bit load of int8 bins (16 bytes for int32), so
+//    a row's values are loaded once per 4 features (F = 1 where d % 4 != 0
+//    or 4 features' histograms would not fit: many bins); the private
+//    layout [lane][channel][bin][feature of F][thread] puts a thread's
+//    cells in its own bank, so the adds never conflict, and a trash bin
+//    takes the adds of dropped bins and skipped rows, so every row is the
+//    same straight-line loads, adds and stores. A lane keeps the next 8
+//    rows' bins and values in flight while it adds 8. The kernel is bound
+//    by the latency of shared memory at the 4 warps a block's 200 KB of
+//    histograms leave an SM, and by the issue of the per-row loads, not by
+//    memory bandwidth (PERF.md).
+//    A node of one piece writes straight to the output, a node of several
+//    pieces writes each piece to the scratch buffer.
+// 3. (only when n > R) `reduce_kernel`: sums each node's pieces from the
+//    scratch buffer in piece order into the output (deterministic; within
+//    the f32 summation bound of any other order).
 //
-// C interface for ctypes: each entry point launches on `stream` and returns
-// cudaGetLastError().
+// C interface for ctypes: one entry point per bin type launches all four
+// kernels on `stream` and returns the first cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int FT = 32;
+constexpr int WARP = 32;
 constexpr int MAX_M = 4;
+constexpr int FEW_MAX = 64;       // largest `few` the few-rows kernel takes
+constexpr int FEW_THREADS = 256;
+constexpr int FEW_GROUPS = 4;     // 4-cell groups per thread in a few block
+constexpr int REDUCE_THREADS = 256;
 
-template <typename BinT, int M>
-__global__ void histograms_kernel(const BinT* __restrict__ Xb,
-                                  const float* __restrict__ G,
-                                  const float* __restrict__ H,
-                                  const int32_t* __restrict__ order,
-                                  const int32_t* __restrict__ seg,
-                                  float* __restrict__ hg,
-                                  float* __restrict__ hh, int n, int d,
-                                  int n_nodes, int n_bins, int lanes) {
-  extern __shared__ float sm[];
-  const int stride = FT + 1;
-  const int plane = n_bins * stride;
-  const int lane_size = (M + 1) * plane;
-  const int f0 = blockIdx.x * FT;
-  const int node = blockIdx.y;
+struct Planes {
+  float* hg;        // (P, m, n_nodes, d, n_bins)
+  float* hh;        // (P, n_nodes, d, n_bins)
+  float* scratch;   // (P, n_slots, m + 1, d, n_bins)
+  int64_t n_slots;
+};
+
+// the (d, n_bins) plane of channel c (c == M: the weights) of node k
+template <int M>
+__device__ __forceinline__ float* out_plane(const Planes& o, int p, int c,
+                                            int k, int n_nodes,
+                                            int64_t plane) {
+  return c < M ? o.hg + (((int64_t)p * M + c) * n_nodes + k) * plane
+               : o.hh + ((int64_t)p * n_nodes + k) * plane;
+}
+
+__device__ __forceinline__ float* slot_plane(const Planes& o, int p, int64_t s,
+                                             int c, int channels,
+                                             int64_t plane) {
+  return o.scratch + (((int64_t)p * o.n_slots + s) * channels + c) * plane;
+}
+
+// the node k that owns piece q of pair p: first[k] <= q < first[k + 1]
+__device__ __forceinline__ int piece_node(const int32_t* fp, int n_nodes,
+                                          int q) {
+  int lo = 0, hi = n_nodes;  // fp[lo] <= q < fp[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (fp[mid] <= q) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// --------------------------------------------------------------------------
+// 1. nodes of at most `few` rows
+// --------------------------------------------------------------------------
+template <typename BinT, int M, bool VEC4>
+__global__ void few_kernel(const BinT* __restrict__ Xb,
+                           const float* __restrict__ G,
+                           const float* __restrict__ H,
+                           const int32_t* __restrict__ order,
+                           const int32_t* __restrict__ node,
+                           const int32_t* __restrict__ seg, Planes o, int n,
+                           int d, int n_nodes, int n_bins, int few) {
+  __shared__ int rows[FEW_MAX];
+  __shared__ float vals[M + 1][FEW_MAX];
+  const int k = blockIdx.y;
   const int p = blockIdx.z;
-  const int tid = threadIdx.y * FT + threadIdx.x;
-  const int nthreads = FT * lanes;
-  for (int i = tid; i < lanes * lane_size; i += nthreads) sm[i] = 0.f;
-  __syncthreads();
-
-  const int64_t sbase = (int64_t)p * (n_nodes + 1);
-  const int s0 = seg[sbase + node];
-  const int s1 = seg[sbase + node + 1];
-  const int f = f0 + threadIdx.x;
-  if (f < d) {
-    float* mine = sm + threadIdx.y * lane_size + threadIdx.x;
-    const int32_t* ord = order + (int64_t)p * n;
-    const float* Gp = G + (int64_t)p * M * n;
-    const float* Hp = H + (int64_t)p * n;
-    for (int i = s0 + threadIdx.y; i < s1; i += lanes) {
-      const int r = ord[i];
-      const int b = (int)Xb[(int64_t)r * d + f];
-      if ((unsigned)b >= (unsigned)n_bins) continue;  // not a bin: dropped
-      float* cell = mine + b * stride;
+  const int64_t sb = (int64_t)p * (n_nodes + 1);
+  const int s0 = seg ? seg[sb + k] : 0;
+  const int cnt = (seg ? seg[sb + k + 1] : n) - s0;
+  if (cnt > few) return;  // the piece kernel's node
+  const int tid = threadIdx.x;
+  if (tid < cnt) {
+    const int i = s0 + tid;
+    int r = order ? order[(int64_t)p * n + i] : i;
+    if (!order && node[(int64_t)p * n + r] != 0) r = -1;  // left out
+    rows[tid] = r;
+    if (r >= 0) {
 #pragma unroll
-      for (int c = 0; c < M; ++c) cell[c * plane] += Gp[(int64_t)c * n + r];
-      cell[M * plane] += Hp[r];
+      for (int c = 0; c < M; ++c)
+        vals[c][tid] = G[((int64_t)p * M + c) * n + r];
+      vals[M][tid] = H[(int64_t)p * n + r];
     }
   }
   __syncthreads();
-
-  const int nf = min(FT, d - f0);
-  for (int c = tid; c < nf * n_bins; c += nthreads) {
-    const int fl = c / n_bins;
-    const int b = c - fl * n_bins;
-    const int off = b * stride + fl;
+  const int64_t plane = (int64_t)d * n_bins;
+  if (VEC4) {
+    // four cells (f, b0 .. b0 + 3) a group; n_bins % 4 == 0
+    const int64_t groups = plane >> 2;
+    const int64_t step = (int64_t)gridDim.x * FEW_THREADS;
+    for (int64_t g = (int64_t)blockIdx.x * FEW_THREADS + tid; g < groups;
+         g += step) {
+      const int64_t e = g << 2;
+      const int f = (int)(e / n_bins);
+      const int b0 = (int)(e - (int64_t)f * n_bins);
+      float acc[M + 1][4];
 #pragma unroll
-    for (int ch = 0; ch <= M; ++ch) {
-      float s = 0.f;
-      for (int l = 0; l < lanes; ++l)
-        s += sm[l * lane_size + ch * plane + off];
-      const int64_t row = ch < M ? ((int64_t)p * M + ch) * n_nodes + node
-                                 : (int64_t)p * n_nodes + node;
-      (ch < M ? hg : hh)[(row * d + f0 + fl) * n_bins + b] = s;
+      for (int c = 0; c <= M; ++c)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
+      for (int i = 0; i < cnt; ++i) {
+        const int r = rows[i];
+        if (r < 0) continue;
+        const unsigned off =
+            (unsigned)((int)Xb[(int64_t)r * d + f] - b0);  // drops b >= n_bins
+        if (off >= 4u) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (off == (unsigned)j) {
+#pragma unroll
+            for (int c = 0; c <= M; ++c) acc[c][j] += vals[c][i];
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c <= M; ++c) {
+        float4* dst = reinterpret_cast<float4*>(
+            out_plane<M>(o, p, c, k, n_nodes, plane) + e);
+        *dst = make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
+      }
+    }
+  } else {
+    const int64_t step = (int64_t)gridDim.x * FEW_THREADS;
+    for (int64_t e = (int64_t)blockIdx.x * FEW_THREADS + tid; e < plane;
+         e += step) {
+      const int f = (int)(e / n_bins);
+      const int b = (int)(e - (int64_t)f * n_bins);
+      float acc[M + 1];
+#pragma unroll
+      for (int c = 0; c <= M; ++c) acc[c] = 0.f;
+      for (int i = 0; i < cnt; ++i) {
+        const int r = rows[i];
+        if (r < 0 || (int)Xb[(int64_t)r * d + f] != b) continue;
+#pragma unroll
+        for (int c = 0; c <= M; ++c) acc[c] += vals[c][i];
+      }
+#pragma unroll
+      for (int c = 0; c <= M; ++c)
+        out_plane<M>(o, p, c, k, n_nodes, plane)[e] = acc[c];
     }
   }
+}
+
+// --------------------------------------------------------------------------
+// 0. the plan: first[p, k] and slot[p, k], exclusive cumulative counts over
+//    the nodes of the pieces (⌈c / R⌉ for a node of c > few rows, else 0)
+//    and of the pieces of nodes with more than one piece; a block a pair
+// --------------------------------------------------------------------------
+constexpr int PLAN_THREADS = 256;
+
+__global__ void plan_kernel(const int32_t* __restrict__ seg,
+                            int32_t* __restrict__ first,
+                            int32_t* __restrict__ slot, int n, int n_nodes,
+                            int piece_rows, int few) {
+  __shared__ int warp_sum[2][PLAN_THREADS / WARP];
+  const int p = blockIdx.x;
+  const int lane = threadIdx.x & (WARP - 1);
+  const int w = threadIdx.x / WARP;
+  const int64_t sb = (int64_t)p * (n_nodes + 1);
+  int carry_f = 0, carry_s = 0;
+  for (int base = 0; base < n_nodes; base += PLAN_THREADS) {
+    const int k = base + threadIdx.x;
+    int64_t cnt = 0;
+    if (k < n_nodes) cnt = seg ? seg[sb + k + 1] - seg[sb + k] : n;
+    const int pieces =
+        cnt > few ? (int)((cnt + piece_rows - 1) / piece_rows) : 0;
+    const int multi = pieces > 1 ? pieces : 0;
+    int inc_f = pieces, inc_s = multi;  // inclusive scans within the warp
+#pragma unroll
+    for (int o = 1; o < WARP; o <<= 1) {
+      const int tf = __shfl_up_sync(0xffffffffu, inc_f, o);
+      const int ts = __shfl_up_sync(0xffffffffu, inc_s, o);
+      if (lane >= o) { inc_f += tf; inc_s += ts; }
+    }
+    if (lane == WARP - 1) { warp_sum[0][w] = inc_f; warp_sum[1][w] = inc_s; }
+    __syncthreads();
+    int before_f = carry_f, before_s = carry_s;
+    int tot_f = 0, tot_s = 0;
+    for (int i = 0; i < PLAN_THREADS / WARP; ++i) {
+      if (i < w) { before_f += warp_sum[0][i]; before_s += warp_sum[1][i]; }
+      tot_f += warp_sum[0][i];
+      tot_s += warp_sum[1][i];
+    }
+    if (k < n_nodes) {
+      first[sb + k] = before_f + inc_f - pieces;
+      slot[sb + k] = before_s + inc_s - multi;
+    }
+    carry_f += tot_f;
+    carry_s += tot_s;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    first[sb + n_nodes] = carry_f;
+    slot[sb + n_nodes] = carry_s;
+  }
+}
+
+// --------------------------------------------------------------------------
+// 2. pieces of at most R rows of the other nodes
+// --------------------------------------------------------------------------
+constexpr int U = 8;  // rows a lane adds per batch; the next batch in flight
+
+// the bins of F neighbouring features of one row: F = 4 is one aligned
+// 32-bit load of int8 bins (16 bytes of int32), unpacked where used
+template <typename BinT, int F> struct Bins;
+template <> struct Bins<int8_t, 4> {
+  uint32_t w;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    w = *reinterpret_cast<const uint32_t*>(p);
+  }
+  __device__ __forceinline__ int get(int j) const {
+    return (int)(int8_t)(w >> (8 * j));
+  }
+};
+template <> struct Bins<int32_t, 4> {
+  int4 w;
+  __device__ __forceinline__ void load(const int32_t* p) {
+    w = *reinterpret_cast<const int4*>(p);
+  }
+  __device__ __forceinline__ int get(int j) const {
+    return j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
+  }
+};
+template <typename BinT> struct Bins<BinT, 1> {
+  int w;
+  __device__ __forceinline__ void load(const BinT* p) { w = (int)*p; }
+  __device__ __forceinline__ int get(int) const { return w; }
+};
+
+// a row's loads, kept raw until the row's turn, so that no instruction
+// waits for them while the batch before is added
+template <typename BinT, int M, int F>
+struct Row {
+  Bins<BinT, F> x;
+  float v[M + 1];
+  int node;  // DIRECT: the row's node id; 0 keeps the row
+};
+
+// DIRECT: one node read in row order (no `order`), rows whose node id is
+// not 0 skipped. NB: n_bins known at compile time (32), so the channel
+// planes' offsets are immediates; 0 reads n_bins.
+template <typename BinT, int M, int F, bool DIRECT, int NB>
+__global__ void piece_kernel(const BinT* __restrict__ Xb,
+                             const float* __restrict__ G,
+                             const float* __restrict__ H,
+                             const int32_t* __restrict__ order,
+                             const int32_t* __restrict__ node,
+                             const int32_t* __restrict__ seg,
+                             const int32_t* __restrict__ first,
+                             const int32_t* __restrict__ slot, Planes o,
+                             int n, int d, int n_nodes, int n_bins, int lanes,
+                             int piece_rows) {
+  extern __shared__ float sm[];
+  const int nb = NB ? NB : n_bins;
+  const int p = blockIdx.x;
+  const int64_t sb = (int64_t)p * (n_nodes + 1);
+  const int32_t* fp = first + sb;
+  const int total = fp[n_nodes];
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  // one channel of one lane: n_bins bins and a trash bin that takes the
+  // adds of dropped bin ids, of rows left out and of features past d, so
+  // that every row's update is the same straight-line code
+  const int plane_sm = (nb + 1) * F * WARP;
+  const int lane_size = (M + 1) * plane_sm;
+  const int tid = ty * WARP + tx;
+  const int nthreads = WARP * lanes;
+  const int f = blockIdx.z * WARP * F + tx * F;
+  const bool active = f < d;
+  const int my = ty * lane_size + tx;  // this thread's cells: my + k * WARP
+  const BinT* xf = Xb + f;
+  const int32_t* ord = DIRECT ? nullptr : order + (int64_t)p * n;
+  const int32_t* nd = node + (int64_t)p * n;
+  const float* Gp = G + (int64_t)p * M * n;
+  const float* Hp = H + (int64_t)p * n;
+  const int64_t plane = (int64_t)d * n_bins;
+
+  auto fetch = [&](Row<BinT, M, F>& w, int r) {
+    if (active) w.x.load(xf + (int64_t)r * d);
+#pragma unroll
+    for (int c = 0; c < M; ++c) w.v[c] = Gp[(int64_t)c * n + r];
+    w.v[M] = Hp[r];
+    if (DIRECT) w.node = nd[r];
+  };
+  // one row into this lane's histograms: the F cells are distinct, so
+  // every load goes out before any store
+  auto add = [&](const Row<BinT, M, F>& w) {
+    const bool use = (DIRECT ? w.node == 0 : true) && active;
+    int idx[F];
+    float old[F][M + 1];
+#pragma unroll
+    for (int jj = 0; jj < F; ++jj) {
+      const int b = w.x.get(jj);
+      const bool ok = use && (unsigned)b < (unsigned)nb;  // else the trash
+      idx[jj] = my + ((ok ? b : nb) * F + jj) * WARP;
+#pragma unroll
+      for (int c = 0; c <= M; ++c) old[jj][c] = sm[idx[jj] + c * plane_sm];
+    }
+#pragma unroll
+    for (int jj = 0; jj < F; ++jj)
+#pragma unroll
+      for (int c = 0; c <= M; ++c)
+        sm[idx[jj] + c * plane_sm] = old[jj][c] + w.v[c];
+  };
+
+  for (int q = blockIdx.y; q < total; q += gridDim.y) {
+    const int k = piece_node(fp, n_nodes, q);
+    const int j = q - fp[k];
+    const int pieces = fp[k + 1] - fp[k];
+    const int s0 = (seg ? seg[sb + k] : 0) + j * piece_rows;
+    const int s1 = min(s0 + piece_rows, seg ? seg[sb + k + 1] : n);
+    {
+      float4* s4 = reinterpret_cast<float4*>(sm);
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = tid; i < (lanes * lane_size) >> 2; i += nthreads)
+        s4[i] = z;
+    }
+    __syncthreads();
+
+    // lane ty adds rows i0, i0 + lanes, ... of the piece in order, U at a
+    // time, while the next U rows' bins and values (and, through `order`,
+    // the row ids of the U after them) are in flight; the loads are kept
+    // raw until the row's turn, so no instruction waits for them early
+    const int i0 = s0 + ty;
+    const int rows = s1 > i0 ? (s1 - i0 + lanes - 1) / lanes : 0;
+    const int full = rows - rows % U;
+    auto row_id = [&](int t) {
+      const int i = i0 + t * lanes;
+      return DIRECT ? i : ord[i];
+    };
+    Row<BinT, M, F> nxt[U];
+    int ahead[U];
+    if (full > 0) {
+      int rr[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) rr[u] = row_id(u);
+#pragma unroll
+      for (int u = 0; u < U; ++u) fetch(nxt[u], rr[u]);
+      if (!DIRECT && full > U) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) ahead[u] = row_id(U + u);
+      }
+    }
+    int t = 0;
+    for (; t < full; t += U) {
+      Row<BinT, M, F> cur[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) cur[u] = nxt[u];
+      if (t + U < full) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          fetch(nxt[u], DIRECT ? i0 + (t + U + u) * lanes : ahead[u]);
+        if (!DIRECT && t + 2 * U < full) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) ahead[u] = row_id(t + 2 * U + u);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) add(cur[u]);
+    }
+    for (; t < rows; ++t) {
+      Row<BinT, M, F> w;
+      fetch(w, row_id(t));
+      add(w);
+    }
+    __syncthreads();
+
+    // lanes summed in lane order; four bins a store where n_bins % 4 == 0
+    const bool multi = pieces > 1;
+    const int64_t sl = multi ? (int64_t)slot[sb + k] + j : 0;
+    const bool vec_out = (nb & 3) == 0;
+    const int per_f = vec_out ? nb >> 2 : nb;
+    const int per_c = F * per_f;
+    for (int it = ty; it < (M + 1) * per_c; it += lanes) {
+      const int c = it / per_c;
+      const int rem = it - c * per_c;
+      const int jj = rem / per_f;
+      const int bq = rem - jj * per_f;
+      const int fo = f + jj;
+      if (fo >= d) continue;
+      float* dst = (multi ? slot_plane(o, p, sl, c, M + 1, plane)
+                          : out_plane<M>(o, p, c, k, n_nodes, plane)) +
+                   (int64_t)fo * n_bins;
+      const float* src = sm + c * plane_sm + jj * WARP + tx;
+      if (vec_out) {
+        float acc[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int bb = bq * 4 + e;
+          float s = 0.f;
+          for (int l = 0; l < lanes; ++l)
+            s += src[l * lane_size + bb * F * WARP];
+          acc[e] = s;
+        }
+        *reinterpret_cast<float4*>(dst + bq * 4) =
+            make_float4(acc[0], acc[1], acc[2], acc[3]);
+      } else {
+        float s = 0.f;
+        for (int l = 0; l < lanes; ++l)
+          s += src[l * lane_size + bq * F * WARP];
+        dst[bq] = s;
+      }
+    }
+    __syncthreads();  // the next piece zeroes the histograms
+  }
+}
+
+// --------------------------------------------------------------------------
+// 3. the pieces of a node summed in piece order
+// --------------------------------------------------------------------------
+template <int M>
+__global__ void reduce_kernel(const int32_t* __restrict__ first,
+                              const int32_t* __restrict__ slot, Planes o,
+                              int d, int n_nodes, int n_bins) {
+  const int k = blockIdx.y;
+  const int p = blockIdx.z;
+  const int64_t sb = (int64_t)p * (n_nodes + 1);
+  const int pieces = first[sb + k + 1] - first[sb + k];
+  if (pieces <= 1) return;
+  const int64_t s0 = slot[sb + k];
+  const int64_t plane = (int64_t)d * n_bins;
+  const int64_t total = (M + 1) * plane;
+  const int64_t step = (int64_t)gridDim.x * REDUCE_THREADS;
+  for (int64_t e = (int64_t)blockIdx.x * REDUCE_THREADS + threadIdx.x;
+       e < total; e += step) {
+    const int c = (int)(e / plane);
+    const int64_t off = e - c * plane;
+    float t = 0.f;
+    for (int j = 0; j < pieces; ++j)
+      t += slot_plane(o, p, s0 + j, c, M + 1, plane)[off];
+    out_plane<M>(o, p, c, k, n_nodes, plane)[off] = t;
+  }
+}
+
+template <typename BinT, int M, int F, bool DIRECT, int NB>
+int launch_piece_kernel(const BinT* xb, const float* g, const float* h,
+                        const int32_t* ord, const int32_t* nd,
+                        const int32_t* sg, const int32_t* fi,
+                        const int32_t* sl, const Planes& o, int P, int n,
+                        int d, int n_nodes, int n_bins, int lanes,
+                        int piece_rows, int piece_grid, cudaStream_t st) {
+  const size_t smem =
+      (size_t)lanes * (M + 1) * (n_bins + 1) * F * WARP * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        piece_kernel<BinT, M, F, DIRECT, NB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid(P, piece_grid, (d + WARP * F - 1) / (WARP * F));
+  piece_kernel<BinT, M, F, DIRECT, NB>
+      <<<grid, dim3(WARP, lanes), smem, st>>>(
+      xb, g, h, ord, nd, sg, fi, sl, o, n, d, n_nodes, n_bins, lanes,
+      piece_rows);
+  return (int)cudaGetLastError();
+}
+
+// F = 4 needs d % 4 == 0 and aligned rows (the wrapper checks)
+template <typename BinT, int M>
+int launch_pieces(const BinT* xb, const float* g, const float* h,
+                  const int32_t* ord, const int32_t* nd, const int32_t* sg,
+                  const int32_t* fi, const int32_t* sl, const Planes& o,
+                  int P, int n, int d, int n_nodes, int n_bins, int lanes,
+                  int features, int piece_rows, int piece_grid,
+                  cudaStream_t st) {
+  const bool direct = ord == nullptr;
+  auto run = [&](auto kernel_launch) {
+    return kernel_launch(xb, g, h, ord, nd, sg, fi, sl, o, P, n, d, n_nodes,
+                         n_bins, lanes, piece_rows, piece_grid, st);
+  };
+  if (features == 4 && n_bins == 32)
+    return direct ? run(launch_piece_kernel<BinT, M, 4, true, 32>)
+                  : run(launch_piece_kernel<BinT, M, 4, false, 32>);
+  if (features == 4)
+    return direct ? run(launch_piece_kernel<BinT, M, 4, true, 0>)
+                  : run(launch_piece_kernel<BinT, M, 4, false, 0>);
+  return direct ? run(launch_piece_kernel<BinT, M, 1, true, 0>)
+                : run(launch_piece_kernel<BinT, M, 1, false, 0>);
 }
 
 template <typename BinT, int M>
 int launch(const void* Xb, const void* G, const void* H, const void* order,
-           const void* seg, void* hg, void* hh, int P, int n, int d,
-           int n_nodes, int n_bins, int lanes, void* stream) {
-  dim3 grid((d + FT - 1) / FT, n_nodes, P);
-  dim3 block(FT, lanes);
-  size_t smem = (size_t)lanes * (M + 1) * n_bins * (FT + 1) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        histograms_kernel<BinT, M>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+           const void* node, const void* seg, void* first, void* slot,
+           void* hg, void* hh, void* scratch,
+           int64_t n_slots, int P, int n, int d, int n_nodes, int n_bins,
+           int lanes, int features, int piece_rows, int few, int piece_grid,
+           void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  Planes o{static_cast<float*>(hg), static_cast<float*>(hh),
+           static_cast<float*>(scratch), n_slots};
+  const BinT* xb = static_cast<const BinT*>(Xb);
+  const float* g = static_cast<const float*>(G);
+  const float* h = static_cast<const float*>(H);
+  const int32_t* ord = static_cast<const int32_t*>(order);
+  const int32_t* nd = static_cast<const int32_t*>(node);
+  const int32_t* sg = static_cast<const int32_t*>(seg);
+  int32_t* fi = static_cast<int32_t*>(first);
+  int32_t* sl = static_cast<int32_t*>(slot);
+  const int64_t plane = (int64_t)d * n_bins;
+  if (few > FEW_MAX) return (int)cudaErrorInvalidValue;
+  if (piece_grid > 0) {
+    plan_kernel<<<P, PLAN_THREADS, 0, st>>>(sg, fi, sl, n, n_nodes,
+                                            piece_rows, few);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  histograms_kernel<BinT, M><<<grid, block, smem, (cudaStream_t)stream>>>(
-      static_cast<const BinT*>(Xb), static_cast<const float*>(G),
-      static_cast<const float*>(H), static_cast<const int32_t*>(order),
-      static_cast<const int32_t*>(seg), static_cast<float*>(hg),
-      static_cast<float*>(hh), n, d, n_nodes, n_bins, lanes);
-  return (int)cudaGetLastError();
+  {
+    const bool vec4 = (n_bins & 3) == 0;
+    const int64_t items = vec4 ? plane >> 2 : plane;
+    const int64_t per_block = (int64_t)FEW_THREADS * FEW_GROUPS;
+    const unsigned cx = (unsigned)((items + per_block - 1) / per_block);
+    dim3 grid(cx, n_nodes, P);
+    if (vec4)
+      few_kernel<BinT, M, true><<<grid, FEW_THREADS, 0, st>>>(
+          xb, g, h, ord, nd, sg, o, n, d, n_nodes, n_bins, few);
+    else
+      few_kernel<BinT, M, false><<<grid, FEW_THREADS, 0, st>>>(
+          xb, g, h, ord, nd, sg, o, n, d, n_nodes, n_bins, few);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (piece_grid > 0) {
+    const int err = launch_pieces<BinT, M>(
+        xb, g, h, ord, nd, sg, fi, sl, o, P, n, d, n_nodes, n_bins, lanes,
+        features, piece_rows, piece_grid, st);
+    if (err != (int)cudaSuccess) return err;
+  }
+  if (n_slots > 0) {
+    const int64_t total = (M + 1) * plane;
+    const int64_t blocks = (total + REDUCE_THREADS - 1) / REDUCE_THREADS;
+    const unsigned cx = (unsigned)(blocks < 64 ? blocks : 64);
+    dim3 grid(cx, n_nodes, P);
+    reduce_kernel<M><<<grid, REDUCE_THREADS, 0, st>>>(fi, sl, o, d, n_nodes,
+                                                      n_bins);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 template <typename BinT>
 int launch_m(const void* Xb, const void* G, const void* H, const void* order,
-             const void* seg, void* hg, void* hh, int P, int n, int d,
-             int n_nodes, int n_bins, int m, int lanes, void* stream) {
-#define HISTOGRAMS_CASE(M_)                                                 \
-  case M_:                                                                  \
-    return launch<BinT, M_>(Xb, G, H, order, seg, hg, hh, P, n, d, n_nodes, \
-                            n_bins, lanes, stream);
+             const void* node, const void* seg, void* first, void* slot,
+             void* hg, void* hh, void* scratch,
+             int64_t n_slots, int P, int n, int d, int n_nodes, int n_bins,
+             int m, int lanes, int features, int piece_rows, int few,
+             int piece_grid, void* stream) {
+#define HISTOGRAMS_CASE(M_)                                                  \
+  case M_:                                                                   \
+    return launch<BinT, M_>(Xb, G, H, order, node, seg, first, slot, hg, hh, \
+                            scratch, n_slots, P, n, d, n_nodes, n_bins,      \
+                            lanes, features, piece_rows, few, piece_grid,  \
+                            stream);
   switch (m) {
     HISTOGRAMS_CASE(1)
     HISTOGRAMS_CASE(2)
@@ -150,19 +632,32 @@ int launch_m(const void* Xb, const void* G, const void* H, const void* order,
 }  // namespace
 
 extern "C" int histograms_max_m() { return MAX_M; }
+extern "C" int histograms_max_few() { return FEW_MAX; }
 
 extern "C" int histograms_i8(const void* Xb, const void* G, const void* H,
-                             const void* order, const void* seg, void* hg,
-                             void* hh, int P, int n, int d, int n_nodes,
-                             int n_bins, int m, int lanes, void* stream) {
-  return launch_m<int8_t>(Xb, G, H, order, seg, hg, hh, P, n, d, n_nodes,
-                          n_bins, m, lanes, stream);
+                             const void* order, const void* node,
+                             const void* seg, void* first, void* slot,
+                             void* hg, void* hh,
+                             void* scratch, int64_t n_slots, int P, int n,
+                             int d, int n_nodes, int n_bins, int m, int lanes,
+                             int features, int piece_rows, int few,
+                             int piece_grid, void* stream) {
+  return launch_m<int8_t>(Xb, G, H, order, node, seg, first, slot, hg, hh,
+                          scratch, n_slots, P, n, d, n_nodes, n_bins, m,
+                          lanes, features, piece_rows, few, piece_grid,
+                          stream);
 }
 
 extern "C" int histograms_i32(const void* Xb, const void* G, const void* H,
-                              const void* order, const void* seg, void* hg,
-                              void* hh, int P, int n, int d, int n_nodes,
-                              int n_bins, int m, int lanes, void* stream) {
-  return launch_m<int32_t>(Xb, G, H, order, seg, hg, hh, P, n, d, n_nodes,
-                           n_bins, m, lanes, stream);
+                              const void* order, const void* node,
+                              const void* seg, void* first, void* slot,
+                              void* hg, void* hh,
+                              void* scratch, int64_t n_slots, int P, int n,
+                              int d, int n_nodes, int n_bins, int m,
+                              int lanes, int features, int piece_rows,
+                              int few, int piece_grid, void* stream) {
+  return launch_m<int32_t>(Xb, G, H, order, node, seg, first, slot, hg, hh,
+                           scratch, n_slots, P, n, d, n_nodes, n_bins, m,
+                           lanes, features, piece_rows, few, piece_grid,
+                           stream);
 }

@@ -362,17 +362,16 @@ def node_segments(node_idx: torch.Tensor, n_nodes: int
     """`(order, seg)` for (P, n) node ids in [0, n_nodes]: order[p] lists
     the rows grouped by node in stable row order, and node k's rows are
     order[p, seg[p, k]:seg[p, k + 1]]. Rows with id n_nodes come after the
-    last segment, where no kernel reads them. int32 both."""
-    P, n = node_idx.shape
-    order = torch.argsort(node_idx, dim=1, stable=True).to(torch.int32)
-    flat = (node_idx.long() + torch.arange(
-        P, device=node_idx.device)[:, None] * (n_nodes + 1)).reshape(-1)
-    counts = torch.bincount(flat, minlength=P * (n_nodes + 1)).reshape(
-        P, n_nodes + 1)[:, :n_nodes]
-    seg = torch.zeros((P, n_nodes + 1), dtype=torch.int64,
-                      device=node_idx.device)
-    seg[:, 1:] = torch.cumsum(counts, dim=1)
-    return order.contiguous(), seg.to(torch.int32).contiguous()
+    last segment, where no kernel reads them. int32 both. A stable sort of
+    each pair's ids and a search of them for every node's first row: no
+    count reaches the host, so the call does not wait for the card."""
+    P = node_idx.shape[0]
+    K = n_nodes + 1
+    ids, order = torch.sort(node_idx.to(torch.int32), dim=1, stable=True)
+    seg = torch.searchsorted(
+        ids, torch.arange(K, dtype=torch.int32, device=node_idx.device)
+        .expand(P, K).contiguous(), out_int32=True)
+    return order.to(torch.int32), seg
 
 
 def _fit_shapes(name, Xb, node_idx, G, H):
@@ -427,24 +426,127 @@ def histograms_plain(Xb: torch.Tensor, node_idx: torch.Tensor,
     return hg, hist(H).contiguous()
 
 
-_HIST_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
-# shared memory one K1 block may take (the kernel opts in above 48 KB)
-_SMEM_BYTES = 100 * 1024
+# K1's plan. A node of more than HIST_FEW_ROWS rows is cut into pieces of
+# at most HIST_PIECE_ROWS rows (R), each summed by its own blocks; a node of
+# several pieces sums them from a scratch buffer in piece order. R keeps the
+# out-of-core level 0 (4.46M rows a learner) at 136 pieces a learner, enough
+# blocks for the card, and its scratch within `lockstep_width`'s budget at
+# 16 learners; a node of at most R rows (every level of the in-memory
+# trainers) is one piece, summed as before. A node of at most
+# HIST_FEW_ROWS rows (a deep forest level: most nodes hold 0-3 rows) takes
+# the few-rows path, which writes its cells from registers with no shared
+# histograms to zero and reduce.
+HIST_PIECE_ROWS = 32768
+HIST_FEW_ROWS = 32
+# rows a node averages from which a piece block runs 4 row-lanes, not 1
+HIST_LANE_ROWS = 512
+
+
+def hist_plan_bounds(n: int, n_nodes: int, piece_rows: Optional[int] = None,
+                     few_rows: Optional[int] = None) -> Tuple[int, int]:
+    """(pieces, scratch slots) K1 may need a pair for n rows over n_nodes
+    nodes, whatever the rows' spread: the launch grid of the piece kernel
+    and the scratch buffer are sized by these, so no device count has to
+    reach the host. D nodes of c_k > few_rows rows have Σ ⌈c_k / R⌉ ≤ D +
+    ⌊(n − D) / R⌋ pieces, which grows with D, and D ≤ min(n_nodes, ⌊n /
+    (few_rows + 1)⌋); only nodes of more than R rows use scratch, at most
+    min(n_nodes, ⌊n / (R + 1)⌋) of them, with the same count of pieces."""
+    piece_rows = piece_rows or HIST_PIECE_ROWS
+    few_rows = HIST_FEW_ROWS if few_rows is None else few_rows
+    dense = min(n_nodes, n // (few_rows + 1))
+    multi = min(n_nodes, n // (piece_rows + 1))
+    return (dense + (n - dense) // piece_rows,
+            multi + (n - multi) // piece_rows if multi else 0)
+
+
+def hist_piece_plan(seg: torch.Tensor, piece_rows: Optional[int] = None,
+                    few_rows: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`(first, slot)`, each (P, n_nodes + 1) int32, from node segments seg
+    (P, n_nodes + 1): first[p, k] counts the pieces of nodes before k (a
+    node of c > few_rows rows has ⌈c / R⌉ pieces, a smaller node none: the
+    few-rows path takes it), slot[p, k] the pieces before k of nodes with
+    more than one piece (their scratch slots). The K1 kernel writes the
+    same plan on the card."""
+    piece_rows = piece_rows or HIST_PIECE_ROWS
+    few_rows = HIST_FEW_ROWS if few_rows is None else few_rows
+    cnt = (seg[:, 1:] - seg[:, :-1]).long()
+    pieces = torch.where(cnt > few_rows, (cnt + piece_rows - 1) // piece_rows,
+                         torch.zeros_like(cnt))
+    multi = torch.where(pieces > 1, pieces, torch.zeros_like(pieces))
+    first = torch.zeros(seg.shape, dtype=torch.int64, device=seg.device)
+    slot = torch.zeros_like(first)
+    first[:, 1:] = torch.cumsum(pieces, dim=1)
+    slot[:, 1:] = torch.cumsum(multi, dim=1)
+    return first.to(torch.int32), slot.to(torch.int32)
+
+
+def hist_pieces(seg: torch.Tensor, first: torch.Tensor, slot: torch.Tensor,
+                grid: int, piece_rows: Optional[int] = None
+                ) -> Dict[str, torch.Tensor]:
+    """The pieces the K1 piece kernel's blocks q = 0 .. grid − 1 of each
+    pair take, as (P, grid) int64 tensors: "node" (−1 past the pair's
+    pieces), the rows [start, end) of the node's segment, and the scratch
+    "slot" (−1: the node's only piece, written straight to the output).
+    The kernel's own arithmetic, in torch."""
+    piece_rows = piece_rows or HIST_PIECE_ROWS
+    P = seg.shape[0]
+    q = torch.arange(grid, device=seg.device).expand(P, grid)
+    f = first.long()
+    k = torch.searchsorted(f.contiguous(), q.contiguous(), right=True) - 1
+    k = torch.clamp(k, max=seg.shape[1] - 2)
+    valid = q < f[:, -1:]
+    kk = torch.where(valid, k, torch.zeros_like(k))
+    j = q - torch.gather(f, 1, kk)
+    npieces = torch.gather(f, 1, kk + 1) - torch.gather(f, 1, kk)
+    s = seg.long()
+    start = torch.gather(s, 1, kk) + j * piece_rows
+    end = torch.minimum(start + piece_rows, torch.gather(s, 1, kk + 1))
+    sl = torch.where(npieces > 1, torch.gather(slot.long(), 1, kk) + j,
+                     torch.full_like(j, -1))
+    neg = torch.full_like(j, -1)
+    return {"node": torch.where(valid, kk, neg),
+            "start": torch.where(valid, start, neg),
+            "end": torch.where(valid, end, neg),
+            "slot": torch.where(valid, sl, neg)}
+
+
+def hist_scratch_bytes(P: int, n: int, n_nodes: int, m: int, d: int,
+                       n_bins: int, piece_rows: Optional[int] = None) -> int:
+    """Bytes of K1's piece scratch for P pairs: (m + 1)·d·n_bins f32 per
+    slot (0 while n ≤ R)."""
+    _, slots = hist_plan_bounds(n, n_nodes, piece_rows)
+    return P * slots * (m + 1) * d * n_bins * 4
+
+
+_HIST_ARGS = (ctypes.c_void_p,) * 11 + (ctypes.c_int64,) + (
+    ctypes.c_int,) * 11 + (ctypes.c_void_p,)
+# shared memory one K1 piece block may take: the card's opt-in maximum
+_SMEM_BYTES = 232448
 # launch grids: pairs on blockIdx.z, nodes on blockIdx.y
 _MAX_GRID_YZ = 65535
 
 
-def _hist_lanes(n_bins: int, m: int) -> int:
-    """Row-lanes per K1 block: as many as fit their private histograms of
-    m + 1 channels in the shared-memory budget, at most 4."""
-    per_lane = (m + 1) * n_bins * 33 * 4
-    lanes = min(4, _SMEM_BYTES // per_lane)
-    _require(lanes >= 1, f"histograms: {m} channels of {n_bins} bins exceed "
-                         f"the kernel's shared memory ({_SMEM_BYTES} B)")
-    return lanes
+def _hist_layout(n_bins: int, m: int, four: bool,
+                 rows_per_node: float) -> Tuple[int, int]:
+    """(features a thread covers, row-lanes) of a K1 piece block: 4
+    features (one aligned load of 4 bins: `four`, d % 4 == 0) while a
+    lane's private histograms of m + 1 channels, (m + 1)·(n_bins + 1)·4·32
+    f32 (a trash bin included), fit the shared-memory budget, else 1. As
+    many lanes as fit, at most 4 (the old kernel's lanes and lane order),
+    where nodes average HIST_LANE_ROWS rows or more; else 1, since a
+    block's zeroing and lane reduction then cost more than its rows."""
+    for feats in ((4, 1) if four else (1,)):
+        per_lane = (m + 1) * (n_bins + 1) * feats * 32 * 4
+        lanes = min(4 if rows_per_node >= HIST_LANE_ROWS else 1,
+                    _SMEM_BYTES // per_lane)
+        if lanes >= 1:
+            return feats, lanes
+    raise ValueError(f"histograms: {m} channels of {n_bins} bins exceed the "
+                     f"kernel's shared memory ({_SMEM_BYTES} B)")
 
 
-def _histograms_cuda(Xb, node_idx, G, H, n_nodes, n_bins):
+def _histograms_cuda(Xb, node_idx, G, H, n_nodes, n_bins, plan_out=None):
     _fit_shapes("histograms", Xb, node_idx, G, H)
     _on_device("histograms", Xb, node_idx=node_idx, G=G, H=H)
     _require(Xb.dtype in (torch.int8, torch.int32),
@@ -456,27 +558,49 @@ def _histograms_cuda(Xb, node_idx, G, H, n_nodes, n_bins):
     _require(P <= _MAX_GRID_YZ and n_nodes <= _MAX_GRID_YZ,
              f"histograms: {P} pairs or {n_nodes} nodes exceed the launch "
              f"grid's {_MAX_GRID_YZ}")
-    lanes = _hist_lanes(n_bins, m)
     lib = cuda_build.load("histograms")
     max_m = cuda_build.declare(lib, "histograms_max_m", ())()
     _require(m <= max_m, f"histograms: {m} channels exceed the kernel's "
                          f"{max_m}")
+    grid, n_slots = hist_plan_bounds(n, n_nodes)
+    _require(grid <= _MAX_GRID_YZ,
+             f"histograms: {grid} pieces a pair exceed the launch grid's "
+             f"{_MAX_GRID_YZ}")
+    dev = Xb.device
     hg = torch.empty((P, m, n_nodes, d, n_bins), dtype=torch.float32,
-                     device=Xb.device)
+                     device=dev)
     hh = torch.empty((P, n_nodes, d, n_bins), dtype=torch.float32,
-                     device=Xb.device)
+                     device=dev)
     if hh.numel() == 0:
         return hg, hh
-    order, seg = node_segments(node_idx, n_nodes)
+    node_idx = node_idx.to(torch.int32).contiguous()
+    order = seg = None  # one node: rows in row order, ids other than 0 skipped
+    if n_nodes > 1:
+        order, seg = node_segments(node_idx, n_nodes)
+    # the plan (`hist_piece_plan`'s arithmetic) is written by the kernel
+    first = torch.empty((P, n_nodes + 1), dtype=torch.int32, device=dev)
+    slot = torch.empty_like(first)
+    scratch = (torch.empty((P, n_slots, m + 1, d, n_bins),
+                           dtype=torch.float32, device=dev)
+               if n_slots else None)
     Xb, G, H = Xb.contiguous(), G.contiguous(), H.contiguous()
+    feats, lanes = _hist_layout(n_bins, m, d % 4 == 0 and Xb.data_ptr() % (
+        4 * Xb.element_size()) == 0, n / n_nodes)
     fname = "histograms_i8" if Xb.dtype == torch.int8 else "histograms_i32"
     fn = cuda_build.declare(lib, fname, _HIST_ARGS)
-    with torch.cuda.device(Xb.device):
-        err = fn(Xb.data_ptr(), G.data_ptr(), H.data_ptr(), order.data_ptr(),
-                 seg.data_ptr(), hg.data_ptr(), hh.data_ptr(), P, n, d,
-                 n_nodes, n_bins, m, lanes, _stream_ptr(Xb))
+    with torch.cuda.device(dev):
+        err = fn(Xb.data_ptr(), G.data_ptr(), H.data_ptr(),
+                 None if order is None else order.data_ptr(),
+                 node_idx.data_ptr(), None if seg is None else seg.data_ptr(),
+                 first.data_ptr(), slot.data_ptr(), hg.data_ptr(),
+                 hh.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), n_slots, P,
+                 n, d, n_nodes, n_bins, m, lanes, feats, HIST_PIECE_ROWS,
+                 HIST_FEW_ROWS, grid, _stream_ptr(Xb))
     cuda_build.check(fname, err)
     _count("histograms")
+    if plan_out is not None:  # a test's view of the kernel's plan
+        plan_out.extend([seg, first, slot, grid])
     return hg, hh
 
 
@@ -828,11 +952,34 @@ def leaf_values_plain(node_idx: torch.Tensor, G: torch.Tensor,
     return _leaf_formula(g, sums(H), reg_lambda, alpha)
 
 
-_LEAF_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4 + (
-    ctypes.c_void_p,)
+# K3's leaf pass reads the node ids directly (the scan design: a warp per 32
+# leaves, no sort) while a pair has at most this many rows, and sorts the
+# rows by leaf first (`node_segments`, then a warp per leaf) above it.
+LEAF_SCAN_MAX_ROWS = 2048
 
 
-def _leaf_values_cuda(node_idx, G, H, n_leaves, reg_lambda, alpha):
+def leaf_regime(n: int) -> str:
+    """"scan" or "segments": the design K3's leaf pass takes for n rows a
+    pair. Both give the same bits (one row-order chain per leaf)."""
+    return "scan" if n <= LEAF_SCAN_MAX_ROWS else "segments"
+
+
+_LEAF_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_float, ctypes.c_void_p,
+                                       ctypes.c_float, ctypes.c_void_p) + (
+    ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+
+
+def _leaf_param(v: Param, P: int, dev) -> Tuple[Optional[torch.Tensor],
+                                                 float]:
+    """A per-pair hyperparameter as the kernel takes it: one Python value
+    (no tensor to build) or a (P,) f32 tensor on the device."""
+    if isinstance(v, (int, float)):
+        return None, float(v)
+    return per_pair(v, P, dev), 0.0
+
+
+def _leaf_values_cuda(node_idx, G, H, n_leaves, reg_lambda, alpha,
+                      regime=None):
     _on_device("leaf_values", node_idx, G=G, H=H)
     _require(G.dtype == torch.float32 and H.dtype == torch.float32,
              "leaf_values: G/H must be f32")
@@ -844,22 +991,37 @@ def _leaf_values_cuda(node_idx, G, H, n_leaves, reg_lambda, alpha):
              "n) and (P, n)")
     P, m, n = G.shape
     dev = G.device
-    lam = per_pair(reg_lambda, P, dev)
-    a = per_pair(alpha, P, dev)
+    lam, lam_v = _leaf_param(reg_lambda, P, dev)
+    a, a_v = _leaf_param(alpha, P, dev)
     leaf = torch.empty((P, n_leaves, m), dtype=torch.float32, device=dev)
     if leaf.numel() == 0:
         return leaf
-    order, seg = node_segments(node_idx, n_leaves)
+    regime = regime or leaf_regime(n)
+    node_idx = node_idx.to(torch.int32).contiguous()
+    order = seg = None
+    if regime == "segments":
+        order, seg = node_segments(node_idx, n_leaves)
     G, H = G.contiguous(), H.contiguous()
     lib = cuda_build.load("route_leaves")
+    max_m = cuda_build.declare(lib, "leaf_values_max_m", ())()
     fn = cuda_build.declare(lib, "leaf_values", _LEAF_ARGS)
+    parts = []
     with torch.cuda.device(dev):
-        err = fn(G.data_ptr(), H.data_ptr(), order.data_ptr(),
-                 seg.data_ptr(), lam.data_ptr(), a.data_ptr(),
-                 leaf.data_ptr(), P, n, n_leaves, m, _stream_ptr(G))
-    cuda_build.check("leaf_values", err)
-    _count("leaf_values")
-    return leaf
+        for c0 in range(0, m, max_m):  # channels in launches of at most max_m
+            Gc = G if m <= max_m else G[:, c0:c0 + max_m].contiguous()
+            out = leaf if m <= max_m else torch.empty(
+                (P, n_leaves, Gc.shape[1]), dtype=torch.float32, device=dev)
+            err = fn(Gc.data_ptr(), H.data_ptr(), node_idx.data_ptr(),
+                     None if order is None else order.data_ptr(),
+                     None if seg is None else seg.data_ptr(),
+                     None if lam is None else lam.data_ptr(), lam_v,
+                     None if a is None else a.data_ptr(), a_v,
+                     out.data_ptr(), P, n, n_leaves, Gc.shape[1],
+                     _stream_ptr(G))
+            cuda_build.check("leaf_values", err)
+            _count("leaf_values")
+            parts.append(out)
+    return leaf if m <= max_m else torch.cat(parts, dim=2)
 
 
 def leaf_values(node_idx: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
@@ -867,9 +1029,10 @@ def leaf_values(node_idx: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
                 ) -> torch.Tensor:
     """(P, n_leaves, m) f32 leaf values from final node ids (P, n), values
     G (P, m, n) and weights H (P, n): g_c = Σ G_c, h = Σ H per leaf, g_c ←
-    sign(g_c)·max(|g_c| − α, 0), leaf_c = g_c / (h + λ). A CUDA tensor
-    launches the K3 leaf kernel (or raises); a CPU tensor takes the plain
-    version."""
+    sign(g_c)·max(|g_c| − α, 0), leaf_c = g_c / (h + λ); each sum adds
+    the leaf's rows in row order. A CUDA tensor launches the K3 leaf kernel
+    in the design `leaf_regime` picks (or raises); a CPU tensor takes the
+    plain version."""
     _check_device(G, "leaf_values")
     if G.is_cuda:
         return _leaf_values_cuda(node_idx, G, H, n_leaves, reg_lambda, alpha)
@@ -992,10 +1155,14 @@ def forest_chunk(n_trees_total: int, max_depth: int, m: int, n_rows: int,
     """(trees per launch, the byte budget, bytes per tree): the histograms
     alive at a tree's deepest level are (m + 1)·d·n_bins f32 per node,
     2^depth nodes' worth with subtraction (children, parents and right
-    children together). The budget is a share of the card's free memory
-    (that of the caching allocator included), or a fixed one on the CPU."""
+    children together), plus K1's piece scratch at that level (none while
+    n_rows ≤ HIST_PIECE_ROWS). The budget is a share of the card's free
+    memory (that of the caching allocator included), or a fixed one on the
+    CPU."""
     dev = torch.device(device)
     per_tree = (m + 1) * d * n_bins * 4 * 2 ** max_depth
+    per_tree += hist_scratch_bytes(1, n_rows, 2 ** max(max_depth - 1, 0), m,
+                                   d, n_bins)
     if dev.type != "cuda":  # the plain K1's (P, n, d) cell ids and values
         per_tree += n_rows * d * 16
     if dev.type == "cuda":

@@ -79,7 +79,8 @@ from transmogrifai_tpu_torch.device import resolve_device
 from transmogrifai_tpu_torch.evaluators.device_metrics import sigmoid
 from transmogrifai_tpu_torch.models import lbfgs
 from transmogrifai_tpu_torch.models.trees import (
-    _f32, _require, _stream_ptr, bin_dtype, bin_features_plain, histograms,
+    _f32, _require, _stream_ptr, bin_dtype, bin_features_plain,
+    hist_scratch_bytes, histograms,
     leaf_values, predict_forest, route_level, split_search, tree_walk)
 from transmogrifai_tpu_torch.stages.base import fma_f32
 
@@ -1239,13 +1240,18 @@ def grow_tree_big(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
 
 
 def lockstep_width(max_depth: int, d: int, n_bins: int, m: int,
-                   requested: int) -> int:
+                   requested: int, n: Optional[int] = None) -> int:
     """Learners per lockstep batch: the deepest level's histograms
-    (K·(m + 1)·2^(depth − 1)·d·bins f32) held to ~800 MB, at most 16 and
-    at most `requested`. (The JAX package also bounds a modeled dispatch
-    time against a TPU's execution limit; the port has no such limit.)"""
+    (K·(m + 1)·2^(depth − 1)·d·bins f32), and with the row count n K1's
+    piece scratch at that level (`hist_scratch_bytes`), held to ~800 MB,
+    at most 16 and at most `requested`. (The JAX package's `n` also bounds
+    a modeled dispatch time against a TPU's execution limit; the port has
+    no such limit.)"""
     budget_elems = 2e8
     per_learner = (m + 1) * (2 ** (max_depth - 1)) * d * n_bins
+    if n is not None:
+        per_learner += hist_scratch_bytes(
+            1, n, 2 ** max(max_depth - 1, 0), m, d, n_bins) // 4
     k_mem = max(1, int(budget_elems // max(per_learner, 1)))
     return max(1, min(requested, k_mem, 16))
 
@@ -1314,7 +1320,7 @@ def fit_forest_big(Xb: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     n_sub = max(int(np.sqrt(d)), 1) if subsample_features else None
     m = int(Y.shape[1])
     K = min(lockstep_width(max_depth, d, n_bins, m,
-                           trees_per_dispatch or 16), n_trees)
+                           trees_per_dispatch or 16, n=n), n_trees)
     if draws is not None:
         boot_all, mask_all = (torch.as_tensor(np.array(a) if not isinstance(
             a, torch.Tensor) else a).to(Xb.device) for a in draws)
