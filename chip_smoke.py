@@ -2946,7 +2946,7 @@ def big_kernel_timings(pbd, pt, pdm, X16, Xb, chunk_f16, edges, y, Vf, rf,
     out["histograms"] = {
         "ms": cuda_ms(lambda: pt.histograms(Xb, node0, G, H, 1, BIG_BINS),
                       3, warmup=1),
-        # level 0 reads the rows in row order; the sort it no longer runs:
+        # the sort the time above includes:
         "segments_ms": cuda_ms(lambda: pt.node_segments(node0, 1), 3,
                                warmup=1),
         "plain_ms": plain_ms, "library_ms": library_k1(),
@@ -3477,6 +3477,28 @@ def big_path(rows: int = BIG_ROWS, fixture: bool = True,
             _, s12 = timed_s(dev, lambda: pbd.fit_forest_big(
                 Xb, Y1, W[0], rd["n_trees"], rd["max_depth"], BIG_BINS, 2,
                 seed=rd["seed"], chunk=hc))
+        # two depth-12 trees at the width `lockstep_width` gives (1: K1's
+        # scratch counted) and at 2 learners a batch, the same trees
+        width = pbd.lockstep_width(rd["max_depth"], BIG_D, BIG_BINS, 2, 16,
+                                   n=n_pad)
+        deep2 = {}
+        for k in sorted({width, 2}):
+            keep = pbd.lockstep_width
+            pbd.lockstep_width = lambda *a, k=k, **kw: k
+            try:
+                deep2[k] = timed_s(dev, lambda: pbd.fit_forest_big(
+                    Xb, Y1, W[0], 2, rd["max_depth"], BIG_BINS, 2,
+                    seed=rd["seed"], chunk=hc))
+            finally:
+                pbd.lockstep_width = keep
+        t1, t2 = deep2[width][0], deep2[2][0]
+        if not all(torch.equal(t1[key], t2[key]) for key in t1):
+            raise AssertionError("depth-12 trees depend on the lockstep "
+                                 "width")
+        rec["rf_d12_width"] = {"lockstep_width": width,
+                               "two_trees_s": {str(k): s for k, (_, s)
+                                               in deep2.items()}}
+        del deep2, t1, t2
         rec["rf"] = {"k1_levels_d6_ms": [v.get("histograms_ms") for v in lv6
                                          if "level" in v],
                      "k1_levels_d12_ms": [v.get("histograms_ms") for v in lv12
@@ -3487,7 +3509,7 @@ def big_path(rows: int = BIG_ROWS, fixture: bool = True,
                      "busy": profiled(lambda: pbd.fit_forest_big(
                          Xb, Y1, W[0], r["n_trees"], r["max_depth"],
                          BIG_BINS, 2, seed=r["seed"], chunk=hc))}
-        emit({"phase": "big_rf", **rec["rf"]})
+        emit({"phase": "big_rf", **rec["rf"], **rec["rf_d12_width"]})
         # 5. GBT: 6 pairs × 2 rounds at depth 6; one round at depth 10
         w6 = torch.cat([W, V])
         g, gd = BIG_GBT, BIG_GBT_DEEP

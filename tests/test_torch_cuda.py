@@ -1176,7 +1176,7 @@ def test_histograms_bins_that_are_not_a_multiple_of_4(cuda, n_bins):
 def test_histogram_plan_kernel_writes_the_plain_plan(cuda):
     """The plan K1 writes on the card (`first`, `slot`) equals
     `hist_piece_plan` of the same segments, for nodes of few rows, nodes
-    of one piece and nodes of many, and for one node read in row order."""
+    of one piece and nodes of many, and for one node of every row."""
     rng = np.random.default_rng(4)
     n = 3 * pt.HIST_PIECE_ROWS + 77
     for n_nodes, skew in ((1, 0.0), (9, 0.8), (600, 0.3)):
@@ -1185,8 +1185,6 @@ def test_histogram_plan_kernel_writes_the_plain_plan(cuda):
         plan = []
         pt._histograms_cuda(*args, n_nodes, 32, plan_out=plan)
         seg, first, slot, grid = plan
-        if seg is None:
-            seg = torch.tensor([[0, n]] * 3, dtype=torch.int32)
         want_f, want_s = pt.hist_piece_plan(seg.cpu())
         assert torch.equal(first.cpu(), want_f)
         assert torch.equal(slot.cpu(), want_s)

@@ -21,15 +21,12 @@
 // so the shared-memory pipe (128 B a clock an SM) is the practical floor.
 //
 // The caller passes the rows grouped by node in stable row order (`order`,
-// node k's rows at order[p, seg[p, k] .. seg[p, k + 1])), or no order at
-// all (`order` and `seg` null, one node): then the rows are read in row
-// order and a row whose node id is not 0 is left out, so level 0 needs no
-// sort. Rows listed after the last segment are left out, which is how the
-// sibling-subtraction path builds the histograms of the rows routed right
-// only. Bin ids outside [0, n_bins) are dropped. No float atomics in
-// global memory: every output cell is written by exactly one thread, so the
-// result is the same bits on every run. Every flat offset is 64-bit. Four
-// launches, all on `stream`:
+// node k's rows at order[p, seg[p, k] .. seg[p, k + 1])). Rows listed after
+// the last segment are left out, which is how the sibling-subtraction path
+// builds the histograms of the rows routed right only. Bin ids outside
+// [0, n_bins) are dropped. No float atomics in global memory: every output
+// cell is written by exactly one thread, so the result is the same bits on
+// every run. Every flat offset is 64-bit. Four launches, all on `stream`:
 //
 // 0. the plan (`plan_kernel`, a block a pair): `first`, the exclusive
 //    cumulative count over the nodes of their pieces (⌈c / R⌉ for a node
@@ -55,11 +52,15 @@
 //    features through one 32-bit load of int8 bins (16 bytes for int32), so
 //    a row's values are loaded once per 4 features (F = 1 where d % 4 != 0
 //    or 4 features' histograms would not fit: many bins); the private
-//    layout [lane][channel][bin][feature of F][thread] puts a thread's
-//    cells in its own bank, so the adds never conflict, and a trash bin
-//    takes the adds of dropped bins and skipped rows, so every row is the
-//    same straight-line loads, adds and stores. A lane keeps the next 8
-//    rows' bins and values in flight while it adds 8. The kernel is bound
+//    layout [lane][bin][channel][feature of F][thread] puts a thread's
+//    cells in its own bank, so the adds never conflict, and a channel's
+//    cells at a fixed offset from channel 0's, known at compile time; a
+//    trash bin takes the adds of dropped bins and of features past d, so
+//    every row is the same straight-line loads, adds and stores. A lane
+//    keeps the next 8 rows' bins and values in flight while it adds 8,
+//    and reads a row's cells of half its features while the row before
+//    writes the other half.
+//    The kernel is bound
 //    by the latency of shared memory at the 4 warps a block's 200 KB of
 //    histograms leave an SM, and by the issue of the per-row loads, not by
 //    memory bandwidth (PERF.md).
@@ -125,7 +126,6 @@ __global__ void few_kernel(const BinT* __restrict__ Xb,
                            const float* __restrict__ G,
                            const float* __restrict__ H,
                            const int32_t* __restrict__ order,
-                           const int32_t* __restrict__ node,
                            const int32_t* __restrict__ seg, Planes o, int n,
                            int d, int n_nodes, int n_bins, int few) {
   __shared__ int rows[FEW_MAX];
@@ -133,21 +133,17 @@ __global__ void few_kernel(const BinT* __restrict__ Xb,
   const int k = blockIdx.y;
   const int p = blockIdx.z;
   const int64_t sb = (int64_t)p * (n_nodes + 1);
-  const int s0 = seg ? seg[sb + k] : 0;
-  const int cnt = (seg ? seg[sb + k + 1] : n) - s0;
+  const int s0 = seg[sb + k];
+  const int cnt = seg[sb + k + 1] - s0;
   if (cnt > few) return;  // the piece kernel's node
   const int tid = threadIdx.x;
   if (tid < cnt) {
-    const int i = s0 + tid;
-    int r = order ? order[(int64_t)p * n + i] : i;
-    if (!order && node[(int64_t)p * n + r] != 0) r = -1;  // left out
+    const int r = order[(int64_t)p * n + s0 + tid];
     rows[tid] = r;
-    if (r >= 0) {
 #pragma unroll
-      for (int c = 0; c < M; ++c)
-        vals[c][tid] = G[((int64_t)p * M + c) * n + r];
-      vals[M][tid] = H[(int64_t)p * n + r];
-    }
+    for (int c = 0; c < M; ++c)
+      vals[c][tid] = G[((int64_t)p * M + c) * n + r];
+    vals[M][tid] = H[(int64_t)p * n + r];
   }
   __syncthreads();
   const int64_t plane = (int64_t)d * n_bins;
@@ -166,10 +162,8 @@ __global__ void few_kernel(const BinT* __restrict__ Xb,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
       for (int i = 0; i < cnt; ++i) {
-        const int r = rows[i];
-        if (r < 0) continue;
-        const unsigned off =
-            (unsigned)((int)Xb[(int64_t)r * d + f] - b0);  // drops b >= n_bins
+        const unsigned off = (unsigned)((int)Xb[(int64_t)rows[i] * d + f] -
+                                        b0);  // drops b >= n_bins
         if (off >= 4u) continue;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -196,8 +190,7 @@ __global__ void few_kernel(const BinT* __restrict__ Xb,
 #pragma unroll
       for (int c = 0; c <= M; ++c) acc[c] = 0.f;
       for (int i = 0; i < cnt; ++i) {
-        const int r = rows[i];
-        if (r < 0 || (int)Xb[(int64_t)r * d + f] != b) continue;
+        if ((int)Xb[(int64_t)rows[i] * d + f] != b) continue;
 #pragma unroll
         for (int c = 0; c <= M; ++c) acc[c] += vals[c][i];
       }
@@ -217,7 +210,7 @@ constexpr int PLAN_THREADS = 256;
 
 __global__ void plan_kernel(const int32_t* __restrict__ seg,
                             int32_t* __restrict__ first,
-                            int32_t* __restrict__ slot, int n, int n_nodes,
+                            int32_t* __restrict__ slot, int n_nodes,
                             int piece_rows, int few) {
   __shared__ int warp_sum[2][PLAN_THREADS / WARP];
   const int p = blockIdx.x;
@@ -228,7 +221,7 @@ __global__ void plan_kernel(const int32_t* __restrict__ seg,
   for (int base = 0; base < n_nodes; base += PLAN_THREADS) {
     const int k = base + threadIdx.x;
     int64_t cnt = 0;
-    if (k < n_nodes) cnt = seg ? seg[sb + k + 1] - seg[sb + k] : n;
+    if (k < n_nodes) cnt = seg[sb + k + 1] - seg[sb + k];
     const int pieces =
         cnt > few ? (int)((cnt + piece_rows - 1) / piece_rows) : 0;
     const int multi = pieces > 1 ? pieces : 0;
@@ -300,44 +293,39 @@ template <typename BinT, int M, int F>
 struct Row {
   Bins<BinT, F> x;
   float v[M + 1];
-  int node;  // DIRECT: the row's node id; 0 keeps the row
 };
 
-// DIRECT: one node read in row order (no `order`), rows whose node id is
-// not 0 skipped. NB: n_bins known at compile time (32), so the channel
-// planes' offsets are immediates; 0 reads n_bins.
-template <typename BinT, int M, int F, bool DIRECT, int NB>
+template <typename BinT, int M, int F>
 __global__ void piece_kernel(const BinT* __restrict__ Xb,
                              const float* __restrict__ G,
                              const float* __restrict__ H,
                              const int32_t* __restrict__ order,
-                             const int32_t* __restrict__ node,
                              const int32_t* __restrict__ seg,
                              const int32_t* __restrict__ first,
                              const int32_t* __restrict__ slot, Planes o,
                              int n, int d, int n_nodes, int n_bins, int lanes,
                              int piece_rows) {
   extern __shared__ float sm[];
-  const int nb = NB ? NB : n_bins;
   const int p = blockIdx.x;
   const int64_t sb = (int64_t)p * (n_nodes + 1);
   const int32_t* fp = first + sb;
   const int total = fp[n_nodes];
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
-  // one channel of one lane: n_bins bins and a trash bin that takes the
-  // adds of dropped bin ids, of rows left out and of features past d, so
-  // that every row's update is the same straight-line code
-  const int plane_sm = (nb + 1) * F * WARP;
-  const int lane_size = (M + 1) * plane_sm;
+  // one bin of one lane: its M + 1 channels' cells of the F features of
+  // every thread; n_bins bins and a trash bin that takes the adds of
+  // dropped bin ids and of features past d, so that every row's update is
+  // the same straight-line code
+  constexpr int CH = F * WARP;         // a channel's offset in a bin
+  constexpr int BIN = (M + 1) * CH;    // a bin's
+  const int lane_size = (n_bins + 1) * BIN;
   const int tid = ty * WARP + tx;
   const int nthreads = WARP * lanes;
   const int f = blockIdx.z * WARP * F + tx * F;
   const bool active = f < d;
   const int my = ty * lane_size + tx;  // this thread's cells: my + k * WARP
   const BinT* xf = Xb + f;
-  const int32_t* ord = DIRECT ? nullptr : order + (int64_t)p * n;
-  const int32_t* nd = node + (int64_t)p * n;
+  const int32_t* ord = order + (int64_t)p * n;
   const float* Gp = G + (int64_t)p * M * n;
   const float* Hp = H + (int64_t)p * n;
   const int64_t plane = (int64_t)d * n_bins;
@@ -347,35 +335,39 @@ __global__ void piece_kernel(const BinT* __restrict__ Xb,
 #pragma unroll
     for (int c = 0; c < M; ++c) w.v[c] = Gp[(int64_t)c * n + r];
     w.v[M] = Hp[r];
-    if (DIRECT) w.node = nd[r];
   };
-  // one row into this lane's histograms: the F cells are distinct, so
-  // every load goes out before any store
-  auto add = [&](const Row<BinT, M, F>& w) {
-    const bool use = (DIRECT ? w.node == 0 : true) && active;
-    int idx[F];
-    float old[F][M + 1];
+  // a row into this lane's histograms in two halves of its F features,
+  // read (`take`) and then written (`put`). The halves' cells are
+  // distinct, so a row's reads of one half may go out while the row
+  // before writes the other: the latency of shared memory overlaps, and
+  // every cell still sees its rows in order
+  constexpr int HALF = (F + 1) / 2;
+  int idx[F];
+  float old[F][M + 1];
+  auto take = [&](const Row<BinT, M, F>& w, int half) {
 #pragma unroll
-    for (int jj = 0; jj < F; ++jj) {
+    for (int jj = half * HALF; jj < min(F, (half + 1) * HALF); ++jj) {
       const int b = w.x.get(jj);
-      const bool ok = use && (unsigned)b < (unsigned)nb;  // else the trash
-      idx[jj] = my + ((ok ? b : nb) * F + jj) * WARP;
+      const bool ok = active && (unsigned)b < (unsigned)n_bins;  // else trash
+      idx[jj] = my + (ok ? b : n_bins) * BIN + jj * WARP;
 #pragma unroll
-      for (int c = 0; c <= M; ++c) old[jj][c] = sm[idx[jj] + c * plane_sm];
+      for (int c = 0; c <= M; ++c) old[jj][c] = sm[idx[jj] + c * CH];
     }
+  };
+  auto put = [&](const Row<BinT, M, F>& w, int half) {
 #pragma unroll
-    for (int jj = 0; jj < F; ++jj)
+    for (int jj = half * HALF; jj < min(F, (half + 1) * HALF); ++jj)
 #pragma unroll
       for (int c = 0; c <= M; ++c)
-        sm[idx[jj] + c * plane_sm] = old[jj][c] + w.v[c];
+        sm[idx[jj] + c * CH] = old[jj][c] + w.v[c];
   };
 
   for (int q = blockIdx.y; q < total; q += gridDim.y) {
     const int k = piece_node(fp, n_nodes, q);
     const int j = q - fp[k];
     const int pieces = fp[k + 1] - fp[k];
-    const int s0 = (seg ? seg[sb + k] : 0) + j * piece_rows;
-    const int s1 = min(s0 + piece_rows, seg ? seg[sb + k + 1] : n);
+    const int s0 = seg[sb + k] + j * piece_rows;
+    const int s1 = min(s0 + piece_rows, seg[sb + k + 1]);
     {
       float4* s4 = reinterpret_cast<float4*>(sm);
       const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -391,10 +383,7 @@ __global__ void piece_kernel(const BinT* __restrict__ Xb,
     const int i0 = s0 + ty;
     const int rows = s1 > i0 ? (s1 - i0 + lanes - 1) / lanes : 0;
     const int full = rows - rows % U;
-    auto row_id = [&](int t) {
-      const int i = i0 + t * lanes;
-      return DIRECT ? i : ord[i];
-    };
+    auto row_id = [&](int t) { return ord[i0 + t * lanes]; };
     Row<BinT, M, F> nxt[U];
     int ahead[U];
     if (full > 0) {
@@ -403,7 +392,7 @@ __global__ void piece_kernel(const BinT* __restrict__ Xb,
       for (int u = 0; u < U; ++u) rr[u] = row_id(u);
 #pragma unroll
       for (int u = 0; u < U; ++u) fetch(nxt[u], rr[u]);
-      if (!DIRECT && full > U) {
+      if (full > U) {
 #pragma unroll
         for (int u = 0; u < U; ++u) ahead[u] = row_id(U + u);
       }
@@ -415,28 +404,37 @@ __global__ void piece_kernel(const BinT* __restrict__ Xb,
       for (int u = 0; u < U; ++u) cur[u] = nxt[u];
       if (t + U < full) {
 #pragma unroll
-        for (int u = 0; u < U; ++u)
-          fetch(nxt[u], DIRECT ? i0 + (t + U + u) * lanes : ahead[u]);
-        if (!DIRECT && t + 2 * U < full) {
+        for (int u = 0; u < U; ++u) fetch(nxt[u], ahead[u]);
+        if (t + 2 * U < full) {
 #pragma unroll
           for (int u = 0; u < U; ++u) ahead[u] = row_id(t + 2 * U + u);
         }
       }
+      take(cur[0], 0);
+      take(cur[0], 1);
 #pragma unroll
-      for (int u = 0; u < U; ++u) add(cur[u]);
+      for (int u = 0; u < U; ++u) {
+        put(cur[u], 0);
+        if (u + 1 < U) take(cur[u + 1], 0);
+        put(cur[u], 1);
+        if (u + 1 < U) take(cur[u + 1], 1);
+      }
     }
     for (; t < rows; ++t) {
       Row<BinT, M, F> w;
       fetch(w, row_id(t));
-      add(w);
+      take(w, 0);
+      take(w, 1);
+      put(w, 0);
+      put(w, 1);
     }
     __syncthreads();
 
     // lanes summed in lane order; four bins a store where n_bins % 4 == 0
     const bool multi = pieces > 1;
     const int64_t sl = multi ? (int64_t)slot[sb + k] + j : 0;
-    const bool vec_out = (nb & 3) == 0;
-    const int per_f = vec_out ? nb >> 2 : nb;
+    const bool vec_out = (n_bins & 3) == 0;
+    const int per_f = vec_out ? n_bins >> 2 : n_bins;
     const int per_c = F * per_f;
     for (int it = ty; it < (M + 1) * per_c; it += lanes) {
       const int c = it / per_c;
@@ -448,7 +446,7 @@ __global__ void piece_kernel(const BinT* __restrict__ Xb,
       float* dst = (multi ? slot_plane(o, p, sl, c, M + 1, plane)
                           : out_plane<M>(o, p, c, k, n_nodes, plane)) +
                    (int64_t)fo * n_bins;
-      const float* src = sm + c * plane_sm + jj * WARP + tx;
+      const float* src = sm + c * CH + jj * WARP + tx;
       if (vec_out) {
         float acc[4];
 #pragma unroll
@@ -456,7 +454,7 @@ __global__ void piece_kernel(const BinT* __restrict__ Xb,
           const int bb = bq * 4 + e;
           float s = 0.f;
           for (int l = 0; l < lanes; ++l)
-            s += src[l * lane_size + bb * F * WARP];
+            s += src[l * lane_size + bb * BIN];
           acc[e] = s;
         }
         *reinterpret_cast<float4*>(dst + bq * 4) =
@@ -464,7 +462,7 @@ __global__ void piece_kernel(const BinT* __restrict__ Xb,
       } else {
         float s = 0.f;
         for (int l = 0; l < lanes; ++l)
-          s += src[l * lane_size + bq * F * WARP];
+          s += src[l * lane_size + bq * BIN];
         dst[bq] = s;
       }
     }
@@ -499,25 +497,24 @@ __global__ void reduce_kernel(const int32_t* __restrict__ first,
   }
 }
 
-template <typename BinT, int M, int F, bool DIRECT, int NB>
+template <typename BinT, int M, int F>
 int launch_piece_kernel(const BinT* xb, const float* g, const float* h,
-                        const int32_t* ord, const int32_t* nd,
-                        const int32_t* sg, const int32_t* fi,
-                        const int32_t* sl, const Planes& o, int P, int n,
+                        const int32_t* ord, const int32_t* sg,
+                        const int32_t* fi, const int32_t* sl,
+                        const Planes& o, int P, int n,
                         int d, int n_nodes, int n_bins, int lanes,
                         int piece_rows, int piece_grid, cudaStream_t st) {
   const size_t smem =
       (size_t)lanes * (M + 1) * (n_bins + 1) * F * WARP * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        piece_kernel<BinT, M, F, DIRECT, NB>,
+        piece_kernel<BinT, M, F>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid(P, piece_grid, (d + WARP * F - 1) / (WARP * F));
-  piece_kernel<BinT, M, F, DIRECT, NB>
-      <<<grid, dim3(WARP, lanes), smem, st>>>(
-      xb, g, h, ord, nd, sg, fi, sl, o, n, d, n_nodes, n_bins, lanes,
+  piece_kernel<BinT, M, F><<<grid, dim3(WARP, lanes), smem, st>>>(
+      xb, g, h, ord, sg, fi, sl, o, n, d, n_nodes, n_bins, lanes,
       piece_rows);
   return (int)cudaGetLastError();
 }
@@ -525,29 +522,19 @@ int launch_piece_kernel(const BinT* xb, const float* g, const float* h,
 // F = 4 needs d % 4 == 0 and aligned rows (the wrapper checks)
 template <typename BinT, int M>
 int launch_pieces(const BinT* xb, const float* g, const float* h,
-                  const int32_t* ord, const int32_t* nd, const int32_t* sg,
-                  const int32_t* fi, const int32_t* sl, const Planes& o,
-                  int P, int n, int d, int n_nodes, int n_bins, int lanes,
-                  int features, int piece_rows, int piece_grid,
-                  cudaStream_t st) {
-  const bool direct = ord == nullptr;
-  auto run = [&](auto kernel_launch) {
-    return kernel_launch(xb, g, h, ord, nd, sg, fi, sl, o, P, n, d, n_nodes,
-                         n_bins, lanes, piece_rows, piece_grid, st);
-  };
-  if (features == 4 && n_bins == 32)
-    return direct ? run(launch_piece_kernel<BinT, M, 4, true, 32>)
-                  : run(launch_piece_kernel<BinT, M, 4, false, 32>);
-  if (features == 4)
-    return direct ? run(launch_piece_kernel<BinT, M, 4, true, 0>)
-                  : run(launch_piece_kernel<BinT, M, 4, false, 0>);
-  return direct ? run(launch_piece_kernel<BinT, M, 1, true, 0>)
-                : run(launch_piece_kernel<BinT, M, 1, false, 0>);
+                  const int32_t* ord, const int32_t* sg, const int32_t* fi,
+                  const int32_t* sl, const Planes& o, int P, int n, int d,
+                  int n_nodes, int n_bins, int lanes, int features,
+                  int piece_rows, int piece_grid, cudaStream_t st) {
+  return (features == 4 ? launch_piece_kernel<BinT, M, 4>
+                        : launch_piece_kernel<BinT, M, 1>)(
+      xb, g, h, ord, sg, fi, sl, o, P, n, d, n_nodes, n_bins, lanes,
+      piece_rows, piece_grid, st);
 }
 
 template <typename BinT, int M>
 int launch(const void* Xb, const void* G, const void* H, const void* order,
-           const void* node, const void* seg, void* first, void* slot,
+           const void* seg, void* first, void* slot,
            void* hg, void* hh, void* scratch,
            int64_t n_slots, int P, int n, int d, int n_nodes, int n_bins,
            int lanes, int features, int piece_rows, int few, int piece_grid,
@@ -559,15 +546,14 @@ int launch(const void* Xb, const void* G, const void* H, const void* order,
   const float* g = static_cast<const float*>(G);
   const float* h = static_cast<const float*>(H);
   const int32_t* ord = static_cast<const int32_t*>(order);
-  const int32_t* nd = static_cast<const int32_t*>(node);
   const int32_t* sg = static_cast<const int32_t*>(seg);
   int32_t* fi = static_cast<int32_t*>(first);
   int32_t* sl = static_cast<int32_t*>(slot);
   const int64_t plane = (int64_t)d * n_bins;
   if (few > FEW_MAX) return (int)cudaErrorInvalidValue;
   if (piece_grid > 0) {
-    plan_kernel<<<P, PLAN_THREADS, 0, st>>>(sg, fi, sl, n, n_nodes,
-                                            piece_rows, few);
+    plan_kernel<<<P, PLAN_THREADS, 0, st>>>(sg, fi, sl, n_nodes, piece_rows,
+                                            few);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -579,16 +565,16 @@ int launch(const void* Xb, const void* G, const void* H, const void* order,
     dim3 grid(cx, n_nodes, P);
     if (vec4)
       few_kernel<BinT, M, true><<<grid, FEW_THREADS, 0, st>>>(
-          xb, g, h, ord, nd, sg, o, n, d, n_nodes, n_bins, few);
+          xb, g, h, ord, sg, o, n, d, n_nodes, n_bins, few);
     else
       few_kernel<BinT, M, false><<<grid, FEW_THREADS, 0, st>>>(
-          xb, g, h, ord, nd, sg, o, n, d, n_nodes, n_bins, few);
+          xb, g, h, ord, sg, o, n, d, n_nodes, n_bins, few);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (piece_grid > 0) {
     const int err = launch_pieces<BinT, M>(
-        xb, g, h, ord, nd, sg, fi, sl, o, P, n, d, n_nodes, n_bins, lanes,
+        xb, g, h, ord, sg, fi, sl, o, P, n, d, n_nodes, n_bins, lanes,
         features, piece_rows, piece_grid, st);
     if (err != (int)cudaSuccess) return err;
   }
@@ -607,14 +593,14 @@ int launch(const void* Xb, const void* G, const void* H, const void* order,
 
 template <typename BinT>
 int launch_m(const void* Xb, const void* G, const void* H, const void* order,
-             const void* node, const void* seg, void* first, void* slot,
+             const void* seg, void* first, void* slot,
              void* hg, void* hh, void* scratch,
              int64_t n_slots, int P, int n, int d, int n_nodes, int n_bins,
              int m, int lanes, int features, int piece_rows, int few,
              int piece_grid, void* stream) {
 #define HISTOGRAMS_CASE(M_)                                                  \
   case M_:                                                                   \
-    return launch<BinT, M_>(Xb, G, H, order, node, seg, first, slot, hg, hh, \
+    return launch<BinT, M_>(Xb, G, H, order, seg, first, slot, hg, hh,       \
                             scratch, n_slots, P, n, d, n_nodes, n_bins,      \
                             lanes, features, piece_rows, few, piece_grid,  \
                             stream);
@@ -635,28 +621,26 @@ extern "C" int histograms_max_m() { return MAX_M; }
 extern "C" int histograms_max_few() { return FEW_MAX; }
 
 extern "C" int histograms_i8(const void* Xb, const void* G, const void* H,
-                             const void* order, const void* node,
-                             const void* seg, void* first, void* slot,
-                             void* hg, void* hh,
+                             const void* order, const void* seg,
+                             void* first, void* slot, void* hg, void* hh,
                              void* scratch, int64_t n_slots, int P, int n,
                              int d, int n_nodes, int n_bins, int m, int lanes,
                              int features, int piece_rows, int few,
                              int piece_grid, void* stream) {
-  return launch_m<int8_t>(Xb, G, H, order, node, seg, first, slot, hg, hh,
+  return launch_m<int8_t>(Xb, G, H, order, seg, first, slot, hg, hh,
                           scratch, n_slots, P, n, d, n_nodes, n_bins, m,
                           lanes, features, piece_rows, few, piece_grid,
                           stream);
 }
 
 extern "C" int histograms_i32(const void* Xb, const void* G, const void* H,
-                              const void* order, const void* node,
-                              const void* seg, void* first, void* slot,
-                              void* hg, void* hh,
+                              const void* order, const void* seg,
+                              void* first, void* slot, void* hg, void* hh,
                               void* scratch, int64_t n_slots, int P, int n,
                               int d, int n_nodes, int n_bins, int m,
                               int lanes, int features, int piece_rows,
                               int few, int piece_grid, void* stream) {
-  return launch_m<int32_t>(Xb, G, H, order, node, seg, first, slot, hg, hh,
+  return launch_m<int32_t>(Xb, G, H, order, seg, first, slot, hg, hh,
                            scratch, n_slots, P, n, d, n_nodes, n_bins, m,
                            lanes, features, piece_rows, few, piece_grid,
                            stream);

@@ -519,7 +519,7 @@ def hist_scratch_bytes(P: int, n: int, n_nodes: int, m: int, d: int,
     return P * slots * (m + 1) * d * n_bins * 4
 
 
-_HIST_ARGS = (ctypes.c_void_p,) * 11 + (ctypes.c_int64,) + (
+_HIST_ARGS = (ctypes.c_void_p,) * 10 + (ctypes.c_int64,) + (
     ctypes.c_int,) * 11 + (ctypes.c_void_p,)
 # shared memory one K1 piece block may take: the card's opt-in maximum
 _SMEM_BYTES = 232448
@@ -573,10 +573,7 @@ def _histograms_cuda(Xb, node_idx, G, H, n_nodes, n_bins, plan_out=None):
                      device=dev)
     if hh.numel() == 0:
         return hg, hh
-    node_idx = node_idx.to(torch.int32).contiguous()
-    order = seg = None  # one node: rows in row order, ids other than 0 skipped
-    if n_nodes > 1:
-        order, seg = node_segments(node_idx, n_nodes)
+    order, seg = node_segments(node_idx, n_nodes)
     # the plan (`hist_piece_plan`'s arithmetic) is written by the kernel
     first = torch.empty((P, n_nodes + 1), dtype=torch.int32, device=dev)
     slot = torch.empty_like(first)
@@ -589,11 +586,9 @@ def _histograms_cuda(Xb, node_idx, G, H, n_nodes, n_bins, plan_out=None):
     fname = "histograms_i8" if Xb.dtype == torch.int8 else "histograms_i32"
     fn = cuda_build.declare(lib, fname, _HIST_ARGS)
     with torch.cuda.device(dev):
-        err = fn(Xb.data_ptr(), G.data_ptr(), H.data_ptr(),
-                 None if order is None else order.data_ptr(),
-                 node_idx.data_ptr(), None if seg is None else seg.data_ptr(),
-                 first.data_ptr(), slot.data_ptr(), hg.data_ptr(),
-                 hh.data_ptr(),
+        err = fn(Xb.data_ptr(), G.data_ptr(), H.data_ptr(), order.data_ptr(),
+                 seg.data_ptr(), first.data_ptr(), slot.data_ptr(),
+                 hg.data_ptr(), hh.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), n_slots, P,
                  n, d, n_nodes, n_bins, m, lanes, feats, HIST_PIECE_ROWS,
                  HIST_FEW_ROWS, grid, _stream_ptr(Xb))
