@@ -76,8 +76,9 @@ non-zero:
    11), K2 with m = 2 over 2048 nodes, K3 routing and K3 leaves with m = 2
    over 4096 leaves, each against its plain version on the chunk's first
    pairs: equal (integer sums); then each timed on the whole chunk beside
-   its bound, its plain version and `index_add_` (K1) / `torch.sub`
-   (K1-sub) as yardsticks;
+   its bound, its plain version and `index_add_` (K1) as a yardstick
+   (K1-sub has none: it writes both children, `torch.sub` the left ones
+   only);
 12. the README quickstart verbatim — `with_cross_validation()` with no
    `models=`, so LR (8 configs) + RF (18 configs of 50 trees, depth
    buckets 4, 6 and 12) + XGB (2 configs), 3 folds — trained by
@@ -296,6 +297,69 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k4_timing(pt, X, e, X1) -> dict:
+    """K4 (f32 or f16 edges) on X: eager CUDA-event ms a call (at small n
+    the wrapper's host work), `graph_ms` a CUDA-graph replay (the device
+    time, as a served batch runs it) and `floor_ms` the eager call on the
+    one row X1 (the ctypes floor), beside the bound, the plain version and
+    `torch.searchsorted` on the widened edges. The eager and floor times
+    are each the least of three runs of 50 calls, taken in turns: the
+    host's noise on a shared machine exceeds the gap between them."""
+    n, d = X.shape
+    n_edges = e.shape[1]
+    nbytes = X.numel() * 4 + e.numel() * e.element_size() \
+        + n * d * pt.bin_dtype(n_edges).itemsize
+    b_ms, b_by = bound(nbytes, n * d * n_edges)
+    ef, Xt = e.float().contiguous(), X.T.contiguous()
+    eager, floor = [], []
+    for _ in range(3):
+        floor.append(cuda_ms(lambda: pt.bin_features(X1, e), 50))
+        eager.append(cuda_ms(lambda: pt.bin_features(X, e), 50))
+    return {"ms": min(eager), "floor_ms": min(floor),
+            "graph_ms": graph_ms(lambda: pt.bin_features(X, e), 50),
+            "plain_ms": cuda_ms(lambda: pt.bin_features_plain(X, e), 10),
+            "library_ms": cuda_ms(
+                lambda: torch.searchsorted(ef, Xt, right=True), 50),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+
+
+def k8_timing(pdm, m, y, w, nb: int, from_margin: bool, iters: int,
+              warmup: int = 3) -> dict:
+    """K8 on P score rows m (P, n): CUDA-event ms, the bound, the plain
+    version and `bincount` x 2 (the two histograms alone, no curve) as the
+    yardstick; its blocks a pair (`aupr_row_blocks`), its error against
+    the plain version and whether two runs give the same bits."""
+    P, n = m.shape
+    nbytes = 2 * P * n * 4 + n * 4 + P * 4
+    b_ms, b_by = bound(nbytes, (10 if from_margin else 4) * P * n
+                       + 8 * P * nb)
+    cell = (pdm.score_bins(m, nb, from_margin).long()
+            + torch.arange(P, device=m.device)[:, None] * nb).reshape(-1)
+    wy, wf = (w * y).reshape(-1), w.reshape(-1)
+
+    def library():
+        torch.bincount(cell, weights=wy, minlength=P * nb)
+        torch.bincount(cell, weights=wf, minlength=P * nb)
+    got = pdm.binned_aupr(m, y, w, nb, from_margin)
+    again = pdm.binned_aupr(m, y, w, nb, from_margin)
+    want = pdm.binned_aupr_plain(m, y, w, nb, from_margin)
+    rec = {"ms": cuda_ms(lambda: pdm.binned_aupr(m, y, w, nb, from_margin),
+                         iters, warmup),
+           "plain_ms": cuda_ms(lambda: pdm.binned_aupr_plain(
+               m, y, w, nb, from_margin), max(iters // 5, 2), 1),
+           "library_ms": cuda_ms(library, max(iters // 5, 2), 1),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "pairs": P, "rows": n, "buckets": nb,
+           "blocks": pdm.aupr_row_blocks(P, n, nb)[0],
+           "max_abs_err": max_err(got, want),
+           "run_to_run_equal": torch.equal(got.view(torch.int32),
+                                           again.view(torch.int32))}
+    if rec["max_abs_err"] != 0.0 or not rec["run_to_run_equal"]:
+        raise AssertionError(f"K8 disagrees with its plain version or "
+                             f"between runs: {rec}")
+    return rec
+
+
 def leaf_designs_ms(pt, node, G, H, L, lam, iters: int, warmup: int = 3):
     """K3's leaf pass in each of its two designs on the same inputs,
     which must give the same bits: the scan design (no sort), the segment
@@ -362,6 +426,46 @@ def binning_input(rng, n: int, edges: np.ndarray) -> np.ndarray:
     X[r, f] = edges[f, rng.integers(0, n_edges, k)]
     X[rng.integers(0, n, max(1, k // 4)),
       rng.integers(0, d, max(1, k // 4))] = np.nan
+    return X
+
+
+def hostile_edges(rng, d: int, n_edges: int) -> np.ndarray:
+    """(d, n_edges) f32 edges of six kinds by feature (f % 6): sorted;
+    shuffled; sorted with one NaN; sorted with runs of duplicates; sorted
+    with -inf, +inf, -0.0 and +0.0 among them; one value repeated.
+    K4 must count each exactly as the broadcast compare does."""
+    e = np.sort(rng.normal(size=(d, n_edges)), axis=1).astype(np.float32)
+    for f in range(d):
+        kind = f % 6
+        if kind == 1:
+            e[f] = rng.permutation(e[f])
+        elif kind == 2:
+            e[f, rng.integers(0, n_edges)] = np.nan
+        elif kind == 3:
+            e[f] = np.sort(e[f, rng.integers(0, n_edges, n_edges)])
+        elif kind == 4:
+            k = min(4, n_edges)
+            e[f, rng.choice(n_edges, k, replace=False)] = np.array(
+                [-np.inf, np.inf, -0.0, 0.0], np.float32)[:k]
+            e[f] = np.sort(e[f])
+        elif kind == 5:
+            e[f] = e[f, 0]
+    return e
+
+
+def hostile_values(rng, n: int, edges: np.ndarray) -> np.ndarray:
+    """(n, d) f32 values for `edges`: normal, an eighth of the cells
+    exactly on one of the feature's edges, and a thirty-second NaN, +-inf
+    or +-0."""
+    d, n_edges = edges.shape
+    X = (rng.normal(size=(n, d)) * 1.5).astype(np.float32)
+    k = max(1, n * d // 8)
+    r, f = rng.integers(0, n, k), rng.integers(0, d, k)
+    X[r, f] = edges[f, rng.integers(0, n_edges, k)]
+    specials = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32)
+    k //= 4
+    X[rng.integers(0, n, k), rng.integers(0, d, k)] = \
+        specials[rng.integers(0, 5, k)]
     return X
 
 
@@ -566,22 +670,9 @@ def time_training_kernels(pt, pdm, cases):
     for n in (FIT_N, 65536):
         m, y, w = cases[("aupr", n)]
         nb = 512
-        k8_bytes = 2 * FIT_P * n * 4 + n * 4 + FIT_P * 4
-        k8_bound, k8_by = bound(k8_bytes, 10 * FIT_P * n + 8 * FIT_P * nb)
-        bucket = (pdm.score_bins(m, nb, True).long()
-                  + torch.arange(FIT_P, device=m.device)[:, None] * nb
-                  ).reshape(-1)
-        wy = (w * y).reshape(-1)
-        wf = w.reshape(-1)
-
-        def library():
-            torch.bincount(bucket, weights=wy, minlength=FIT_P * nb)
-            torch.bincount(bucket, weights=wf, minlength=FIT_P * nb)
-        k8 = {"ms": cuda_ms(lambda: pdm.binned_aupr(m, y, w, nb, True), 50),
-              "plain_ms": cuda_ms(lambda: pdm.binned_aupr_plain(
-                  m, y, w, nb, True), 10),
-              "library_ms": cuda_ms(library, 50), "bound_ms": k8_bound,
-              "bound_by": k8_by, "bytes": k8_bytes}
+        k8 = k8_timing(pdm, m, y, w, nb, True, 50)
+        k8["graph_ms"] = graph_ms(lambda: pdm.binned_aupr(m, y, w, nb, True),
+                                  50)
         out[f"n{n}_aupr512"] = {"binned_aupr": k8}
         emit({"phase": "training_timing", "n": n, "buckets": nb,
               "binned_aupr": k8})
@@ -885,8 +976,10 @@ def time_forest_kernels(pt, c):
                       10),
         "plain_ms": cuda_ms(lambda: pt.sibling_subtract_plain(
             hg10, hh10, hg_r, hh_r), 3, warmup=1),
-        "library_ms": cuda_ms(lambda: (torch.sub(hg10, hg_r),
-                                       torch.sub(hh10, hh_r)), 10),
+        # no one PyTorch call computes it: the kernel writes both children
+        # (left = parent - right, and right copied), `torch.sub` x 2 only
+        # the left ones
+        "library_ms": None,
         "bound_ms": sub_bound, "bound_by": sub_by, "bytes": sub_bytes}
     del hg10, hh10
     for k in ("hg10", "hh10"):
@@ -1783,9 +1876,10 @@ def time_quant_kernels(pt, pc, cases):
     plain version and one-call yardstick, at n = 64 (a served bucket), 891
     and 65536. K10 and its plain version are timed as replays of a CUDA
     graph, as a served batch runs them (the eager wrapper's host work,
-    `wrapper_ms`, dwarfs the launch)."""
+    `wrapper_ms`, dwarfs the launch); K4-f16 both ways (`k4_timing`)."""
     out = {}
     narrow = cases["narrow"]
+    X1 = cases[("bin_features_f16", 1)][0]
     for n in (64, 891, 65536):
         wire = cases[("wire_dequant", n, 8)]
         nb = wire_bytes(wire)
@@ -1797,15 +1891,7 @@ def time_quant_kernels(pt, pc, cases):
                "library_ms": None, "bound_ms": k10_bound,
                "bound_by": k10_by, "bytes": nb}
         X, e16, Xb = cases[("bin_features_f16", n)]
-        d, n_edges = e16.shape
-        k4_bytes = X.numel() * 4 + e16.numel() * 2 + Xb.numel()
-        k4_bound, k4_by = bound(k4_bytes, n * d * n_edges)
-        et, Xt = e16.float().contiguous(), X.T.contiguous()
-        k4 = {"ms": cuda_ms(lambda: pt.bin_features(X, e16), 50),
-              "plain_ms": cuda_ms(lambda: pt.bin_features_plain(X, e16), 10),
-              "library_ms": cuda_ms(
-                  lambda: torch.searchsorted(et, Xt, right=True), 50),
-              "bound_ms": k4_bound, "bound_by": k4_by, "bytes": k4_bytes}
+        k4 = k4_timing(pt, X, e16, X1)
         T_, depth, _ = narrow["feat"].shape
         args = (Xb, narrow["feat"], narrow["bin"], narrow["leaf"])
         k5_bytes = walk_bytes(*args)
@@ -3026,24 +3112,18 @@ def big_kernel_timings(pbd, pt, pdm, X16, Xb, chunk_f16, edges, y, Vf, rf,
     P = probs.shape[0]
     s = probs[:, :, 1].contiguous()
     Vb = Vf[None].expand(P, n).contiguous()
-    kb = s.numel() * 4 + y.numel() * 4 + Vb.numel() * 4 + P * 4
-    b_ms, b_by = bound(kb, 4 * s.numel())
-    bins_ = pdm.score_bins(s, 4096, False).long() + torch.arange(
-        P, device=dev)[:, None] * 4096
-    wy = (Vb * y).reshape(-1)
-    out["binned_aupr"] = {
-        "ms": cuda_ms(lambda: pdm.binned_aupr(s, y, Vb, 4096, False), 5),
-        "plain_ms": cuda_ms(lambda: pdm.binned_aupr_plain(
-            s, y, Vb, 4096, False), 3, warmup=1),
-        "library_ms": cuda_ms(lambda: (
-            torch.bincount(bins_.reshape(-1), weights=wy,
-                           minlength=P * 4096),
-            torch.bincount(bins_.reshape(-1), weights=Vb.reshape(-1),
-                           minlength=P * 4096)), 3, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by, "bytes": kb, "grids": P,
-        "max_abs_err": max_err(pdm.binned_aupr(s, y, Vb, 4096, False),
-                               pdm.binned_aupr_plain(s, y, Vb, 4096,
-                                                     False))}
+    out["binned_aupr"] = k8_timing(pdm, s, y, Vb, 4096, False, 20)
+    del Vb
+    # the same 8 grids' holdout scores at 10M rows (BASELINE target 4's
+    # shape): the scores drawn from this run's, the labels and mask tiled
+    n10 = 10_000_000
+    pick = torch.randint(0, n, (n10,), device=dev,
+                         generator=torch.Generator(dev).manual_seed(10))
+    s10 = s[:, pick].contiguous()
+    y10, v10 = y[pick].contiguous(), Vf[pick][None].expand(P, n10)
+    out["binned_aupr_10m"] = k8_timing(pdm, s10, y10, v10.contiguous(),
+                                       4096, False, 20)
+    del pick, s10, y10, v10
     bad = {k: v["max_abs_err"] for k, v in out.items()
            if v["max_abs_err"] != 0.0}
     if bad:
@@ -3748,19 +3828,9 @@ def main() -> int:
 
     # 6. timings ------------------------------------------------------------ #
     timing = {}
-    for n in (891, 65536):
+    for n in (64, 891, 65536):
         X, Xb = inputs[n], binned[n]
-        d, n_edges = edges.shape
-        k4_bytes = X.numel() * 4 + edges.numel() * 4 + Xb.numel()
-        k4_bound, k4_by = bound(k4_bytes, n * d * n_edges)
-        et = edges.contiguous()
-        Xt = X.T.contiguous()
-        k4 = {"ms": cuda_ms(lambda: pt.bin_features(X, edges), 50),
-              "plain_ms": cuda_ms(lambda: pt.bin_features_plain(X, edges),
-                                  10),
-              "library_ms": cuda_ms(
-                  lambda: torch.searchsorted(et, Xt, right=True), 50),
-              "bound_ms": k4_bound, "bound_by": k4_by, "bytes": k4_bytes}
+        k4 = k4_timing(pt, X, edges, inputs[1])
         T_, depth, _ = tables["feat"].shape
         m = tables["leaf"].shape[-1]
         k5_bytes = walk_bytes(Xb, tables["feat"], tables["bin"],

@@ -8,15 +8,18 @@ with the conftest switched off:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py -q
 
-Tolerances: bin ids equal; tree sums equal, because kernel and plain
+Tolerances: bin ids equal (K4 also on shuffled, NaN, duplicated, +-inf
+and +-0 edges, 1 to 1023 edges, f32 and f16, staged and read from global
+memory); tree sums equal, because kernel and plain
 version add the same f32 leaf values in the same tree order. Training
 kernels: K1 histograms within rtol 1e-5 / atol 1e-5 of the plain version
 (`index_add_` adds in another order on the card) and bit-equal from run
 to run; K2 split features and bins equal when fed the same histograms
 (the same f32 operations in the same order, no fused multiply-adds); K3
 node ids equal and leaf values within atol 1e-6 of the plain version and
-bit-equal to a row-order f32 sum; K8 binned AuPR equal at 512 and 4096
-buckets. Forest kernels (m = 2 class channels, integer values): K1 and
+bit-equal to a row-order f32 sum; K8 binned AuPR equal at 512, 4096 and
+16,384 buckets, one block a pair and rows split over blocks, on clustered
+scores, without positives, and the same bits on two runs. Forest kernels (m = 2 class channels, integer values): K1 and
 K1-sub equal (integer sums are exact in any order), K2 and K3 leaves as
 above; a depth-12 forest grown on the card equals the CPU's. The same at
 m = 3 class channels (a depth-12 three-class forest) and m = 1 with the
@@ -43,6 +46,7 @@ matrices and trees equal, GBT margins within 2e-6, the LR grid within
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -54,6 +58,8 @@ from transmogrifai_tpu_torch.models import trees as pt
 pytestmark = pytest.mark.cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+import chip_smoke as cs  # noqa: E402  (hostile edges and values for K4)
 FIXTURE = os.path.join(REPO, "transmogrifai_tpu_torch", "testdata",
                        "titanic_quickstart_gbt")
 
@@ -90,6 +96,67 @@ def test_bin_features_kernel_equals_plain(cuda, n, d, n_edges):
     want = pt.bin_features_plain(Xc, ec)
     assert got.dtype == want.dtype
     assert torch.equal(got, want)
+
+
+def _plain_bins(X, e, rows=2048):
+    """`bin_features_plain` over row chunks (its broadcast holds n·d·n_edges
+    booleans)."""
+    if X.shape[0] <= rows:
+        return pt.bin_features_plain(X, e)
+    return torch.cat([pt.bin_features_plain(X[i:i + rows], e)
+                      for i in range(0, X.shape[0], rows)])
+
+
+def _check_bins(X, e):
+    counter = "bin_features_f16" if e.dtype == torch.float16 else \
+        "bin_features"
+    before = pt.LAUNCHES[counter]
+    got = pt.bin_features(X, e)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES[counter] == before + 1
+    want = _plain_bins(X, e)
+    assert got.dtype == want.dtype == pt.bin_dtype(e.shape[1])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 64, 891, 65543])
+@pytest.mark.parametrize("d", [496, 497])
+def test_bin_features_kernel_on_hostile_edges(cuda, n, d):
+    """K4 at the path's 31 edges on every kind of edge (sorted, shuffled,
+    with NaN, duplicates, +-inf and +-0, constant) and of value (on edges,
+    NaN, +-inf, +-0): equal to the broadcast count. d = 496 takes the
+    16-byte path, d = 497 the scalar one."""
+    rng = np.random.default_rng(n + d)
+    e = cs.hostile_edges(rng, d, 31)
+    X = cs.hostile_values(rng, n, e)
+    _check_bins(torch.from_numpy(X).to(cuda), torch.from_numpy(e).to(cuda))
+
+
+@pytest.mark.parametrize("n_edges", [31, 32, 63, 200, 1023])
+@pytest.mark.parametrize("half", [False, True])
+@pytest.mark.parametrize("d", [61, 64])
+def test_bin_features_kernel_at_every_edge_count(cuda, n_edges, half, d):
+    """Edges staged in shared memory (up to 96) and read from global
+    memory (200, 1023; int32 bins above 126 edges), f32 and f16 edges,
+    hostile edges and values: equal to the broadcast count."""
+    rng = np.random.default_rng(n_edges + d)
+    e = cs.hostile_edges(rng, d, n_edges)
+    if half:
+        e = e.astype(np.float16)
+    X = cs.hostile_values(rng, 891, e.astype(np.float32))
+    _check_bins(torch.from_numpy(X).to(cuda), torch.from_numpy(e).to(cuda))
+
+
+def test_bin_features_kernel_on_rows_not_16_byte_aligned(cuda):
+    """A contiguous X whose storage starts 4 bytes past a 16-byte boundary
+    (d % 4 == 0) takes the scalar path: equal to the broadcast count."""
+    rng = np.random.default_rng(3)
+    e = torch.from_numpy(cs.hostile_edges(rng, 128, 31)).to(cuda)
+    flat = torch.from_numpy(cs.hostile_values(
+        rng, 301, cs.hostile_edges(rng, 128, 31))).reshape(-1).to(cuda)
+    X = flat[1:1 + 300 * 128].view(300, 128)
+    assert X.is_contiguous() and X.data_ptr() % 16 == 4
+    _check_bins(X, e)
 
 
 def _walk_inputs(rng, n, d, n_trees, depth, m, bin_dtype):
@@ -258,6 +325,76 @@ def test_binned_aupr_kernel_equals_plain(cuda, n_bins, from_margin):
     assert pt.LAUNCHES["binned_aupr"] == before + 1
     want = pdm.binned_aupr_plain(M, Y, W, n_bins, from_margin)
     assert torch.equal(got, want)
+
+
+def _aupr_case(rng, P, n, from_margin, clustered=False):
+    m = rng.normal(size=(P, n)).astype(np.float32) * 3
+    if clustered:  # 90 % of the rows in one bucket
+        m[:, rng.random(n) < 0.9] = 0.8125
+    if not from_margin:
+        m = 1 / (1 + np.exp(-m))
+    y = (rng.random(n) < 0.4).astype(np.float32)
+    w = (rng.random((P, n)) < 0.33).astype(np.float32)
+    return m.astype(np.float32), y, w
+
+
+def _check_aupr(cuda, m, y, w, n_bins, from_margin):
+    M, Y, W = (torch.from_numpy(a).to(cuda) for a in (m, y, w))
+    before = pt.LAUNCHES["binned_aupr"]
+    got = pdm.binned_aupr(M, Y, W, n_bins, from_margin)
+    again = pdm.binned_aupr(M, Y, W, n_bins, from_margin)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["binned_aupr"] == before + 2
+    want = pdm.binned_aupr_plain(M, Y, W, n_bins, from_margin)
+    assert torch.equal(got, want)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    G, _ = pdm.aupr_row_blocks(*m.shape, n_bins)
+    assert torch.equal(got, pdm.binned_aupr_blocks_plain(
+        M, Y, W, n_bins, from_margin, G))
+    return got
+
+
+@pytest.mark.parametrize("n_bins", [512, 4096, 16384])
+@pytest.mark.parametrize("from_margin", [True, False])
+@pytest.mark.parametrize("n", [802, 100_003])
+def test_binned_aupr_kernel_over_row_blocks(cuda, n_bins, from_margin, n):
+    """One block a pair (n = 802) and rows split over blocks (n = 100,003:
+    7 blocks a pair), histograms in shared memory (512, 4096 buckets) and
+    in global scratch (16,384): equal to the plain version and to its
+    block-order mirror, the same bits on two runs."""
+    rng = np.random.default_rng(n_bins + n)
+    _check_aupr(cuda, *_aupr_case(rng, 6, n, from_margin), n_bins,
+                from_margin)
+
+
+def test_binned_aupr_kernel_at_the_big_path_shape(cuda):
+    """The LR grid's 8 holdout score rows at 2^22 + 13 rows, 4096 buckets:
+    equal to the plain version, the same bits on two runs."""
+    rng = np.random.default_rng(22)
+    _check_aupr(cuda, *_aupr_case(rng, 8, 2 ** 22 + 13, False), 4096, False)
+
+
+@pytest.mark.parametrize("n_bins,from_margin", [(512, True), (4096, False),
+                                                (16384, False)])
+@pytest.mark.parametrize("n", [802, 2 ** 20 + 7])
+def test_binned_aupr_kernel_on_clustered_scores(cuda, n_bins, from_margin, n):
+    """90 % of the scores in one bucket (a warp's lanes mostly share it):
+    equal to the plain version."""
+    rng = np.random.default_rng(n_bins + n)
+    _check_aupr(cuda, *_aupr_case(rng, 3, n, from_margin, clustered=True),
+                n_bins, from_margin)
+
+
+@pytest.mark.parametrize("n", [802, 100_003])
+def test_binned_aupr_kernel_without_positives(cuda, n):
+    """No positive label, or no weight at all: 0 for every pair."""
+    rng = np.random.default_rng(n)
+    m, y, w = _aupr_case(rng, 4, n, True)
+    got = _check_aupr(cuda, m, np.zeros_like(y), w, 512, True)
+    assert not got.any()
+    w[1] = 0.0
+    got = _check_aupr(cuda, m, y, w, 4096, True)
+    assert got[1] == 0 and got[0] > 0
 
 
 def test_boosting_on_the_card_matches_the_cpu(cuda):

@@ -5,8 +5,8 @@
 // transmogrifai_tpu/models/trees.py:564-580 (margins in, 512 buckets, the
 // per-round early-stopping metric) and `aupr_binned_dev` in
 // transmogrifai_tpu/evaluators/device_metrics.py:72 (scores in, 4096
-// buckets). On the TPU the two weight histograms are one-hot matmuls; here
-// they are shared-memory adds.
+// buckets by default, any count). On the TPU the two weight histograms are
+// one-hot matmuls; here they are shared-memory adds.
 //
 //   s    = sigmoid(m) = 1 / (1 + exp(-m))   (from_margin; computed in f64
 //          and rounded to f32 once, as the plain version's
@@ -20,74 +20,298 @@
 //   recall = tp / n_pos, and the trapezoid area from (r = 0, p = 1);
 //   0 when n_pos == 0.
 //
-// The histograms are f32 shared-memory atomics: exact, and so the same on
-// every run, for integer-valued weights below 2^24 (the 0/1 fold and
-// holdout masks of the training path). The curve is summed by one thread
-// in f64 from the top bucket down and rounded to f32 once.
+// Bound on this card: bytes (each margin, label and weight read once).
 //
-// Design: one block per pair. Bound on this card: bytes (each margin,
-// label and weight read once).
+// Design: each pair's rows split into G ranges of `chunk` rows, one block
+// of THREADS a range (grid P x G; the wrapper picks G from n and P so that
+// P x G fills the card, and G = 1 for small inputs).
+// - A block keeps private f32 histograms of w and w * y in shared memory
+//   (in its own slice of the global scratch above SHARED_MAX_BINS
+//   buckets). Each thread has UNROLL rows' loads in flight. Where
+//   neighbouring lanes of a warp share a bucket, lanes of a bucket add once:
+//   `__match_any_sync` groups them and a shuffle tree sums each group in a
+//   fixed lane order, so clustered scores do not serialise on one address
+//   (spread scores skip the grouping, which costs more than it saves).
+// - G = 1: the block walks the curve itself. G > 1: each block writes its
+//   histogram to scratch; a second kernel sums each bucket's G partials in
+//   block order (the same bits on every run) and a third walks each pair's
+//   curve. The three launch from one C call.
+// - The curve: a block scan in f64 over chunks of THREADS buckets from the
+//   top bucket down, each thread's trapezoid terms summed by the block and
+//   rounded to f32 once.
+//
+// The histograms are f32 atomics inside a block (each bucket's adds in no
+// fixed order) and f32 sums of the partials in block order: exact, and so
+// the same on every run, for integer-valued weights whose bucket sums stay
+// below 2^24 (the 0/1 fold and holdout masks of the training path).
 //
 // C interface for ctypes: the entry point launches on `stream` and returns
-// cudaGetLastError().
+// cudaGetLastError() (cudaErrorInvalidValue when the global scratch the
+// launch needs is missing).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 512;
+constexpr int THREADS = 1024;
+constexpr int WARPS = THREADS / 32;
+constexpr int UNROLL = 4;
+constexpr int REDUCE_THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void binned_aupr_kernel(const float* __restrict__ m,
-                                   const float* __restrict__ y,
-                                   const float* __restrict__ w, int n,
-                                   int n_bins, int from_margin,
-                                   float* __restrict__ out) {
-  extern __shared__ float sm[];  // hp[n_bins], ha[n_bins]
-  float* hp = sm;
-  float* ha = sm + n_bins;
-  const int p = blockIdx.x;
-  for (int i = threadIdx.x; i < 2 * n_bins; i += THREADS) sm[i] = 0.f;
+struct CurveScratch {
+  double a[WARPS], b[WARPS];    // warp totals of a scan or a sum
+  double rec[WARPS], prec[WARPS];  // each warp's last recall, precision
+};
+
+// two f32 histograms and the curve's scratch within 48 KB of shared memory
+// (6016; the wrapper's _AUPR_SHARED_MAX_BINS)
+constexpr int SHARED_MAX_BINS =
+    (48 * 1024 - (int)sizeof(CurveScratch)) / (2 * (int)sizeof(float));
+
+__device__ __forceinline__ int bucket_of(float v, int from_margin,
+                                         int n_bins) {
+  float s = from_margin ? (float)(1.0 / (1.0 + exp(-(double)v))) : v;
+  s = fminf(fmaxf(s, 0.f), 1.f);  // also NaN -> 0
+  return min((int)(s * (float)n_bins), n_bins - 1);
+}
+
+// ha[b] += a, hp[b] += p: f32 atomic adds (compare-and-swap loops on this
+// card, spinning in hardware); adding 0 changes no sum
+__device__ __forceinline__ void add2(float* ha, float* hp, int b, float a,
+                                     float p) {
+  atomicAdd(ha + b, a);
+  if (p != 0.f) atomicAdd(hp + b, p);
+}
+
+// Adds (va, vp) of every lane with b >= 0 to (ha[b], hp[b]). Where lanes
+// share buckets (a lane and its neighbour do), the lanes of a bucket are
+// summed by a shuffle tree over their ranks (a fixed order for a fixed
+// layout of rows on lanes) and the lowest lane adds the sums.
+__device__ __forceinline__ void warp_add(float* ha, float* hp, int b,
+                                         float va, float vp) {
+  const int lane = threadIdx.x & 31;
+  const int nb = __shfl_xor_sync(FULL, b, 1);
+  // no lane shares its neighbour's bucket: spread scores, one add a lane
+  if (!__any_sync(FULL, b >= 0 && b == nb)) {
+    if (b >= 0) add2(ha, hp, b, va, vp);
+    return;
+  }
+  const unsigned peers = __match_any_sync(FULL, b);
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & (0xfffffffeu << lane);
+  while (__any_sync(FULL, above)) {
+    const int next = __ffs(above);  // 1 + the next peer above, 0 if none
+    const float ta = __shfl_sync(FULL, va, (next - 1) & 31);
+    const float tp = __shfl_sync(FULL, vp, (next - 1) & 31);
+    if (next) {
+      va += ta;
+      vp += tp;
+    }
+    above &= ~__ballot_sync(FULL, rank & 1u);  // odd ranks are summed in
+    rank >>= 1;
+  }
+  if (b >= 0 && lane == __ffs(peers) - 1) add2(ha, hp, b, va, vp);
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return __shfl_sync(FULL, v, 0);
+}
+
+// the sum of v over the block, the same value in every thread
+__device__ double block_sum(double v, CurveScratch& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
   __syncthreads();
+  if (lane == 0) s.a[warp] = v;
+  __syncthreads();
+  return warp_sum(s.a[lane]);
+}
+
+// inclusive scan of (x, y) over the block in thread order; (tx, ty): the
+// block's totals
+__device__ void block_scan2(double& x, double& y, double& tx, double& ty,
+                            CurveScratch& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 1; o < 32; o <<= 1) {
+    const double ux = __shfl_up_sync(FULL, x, o);
+    const double uy = __shfl_up_sync(FULL, y, o);
+    if (lane >= o) {
+      x += ux;
+      y += uy;
+    }
+  }
+  __syncthreads();
+  if (lane == 31) {
+    s.a[warp] = x;
+    s.b[warp] = y;
+  }
+  __syncthreads();
+  double px = 0.0, py = 0.0;
+  tx = 0.0;
+  ty = 0.0;
+  for (int k = 0; k < WARPS; ++k) {
+    if (k < warp) {
+      px += s.a[k];
+      py += s.b[k];
+    }
+    tx += s.a[k];
+    ty += s.b[k];
+  }
+  x += px;
+  y += py;
+}
+
+// The AuPR of one pair from its bucket sums ha (w) and hp (w * y), shared
+// or global; every thread of a THREADS block calls it, thread 0 writes
+// *out.
+__device__ void pr_curve(const float* ha, const float* hp, int n_bins,
+                         float* out, CurveScratch& s) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  double own = 0.0;
+  for (int b = t; b < n_bins; b += THREADS) own += (double)hp[b];
+  const double n_pos = block_sum(own, s);
+  double carry_tp = 0.0, carry_at = 0.0, r_prev = 0.0, p_prev = 1.0;
+  double area = 0.0;
+  for (int c0 = 0; c0 < n_bins; c0 += THREADS) {
+    const int i = c0 + t;  // i-th bucket from the top
+    const bool on = i < n_bins;
+    double tp = on ? (double)hp[n_bins - 1 - i] : 0.0;
+    double n_at = on ? (double)ha[n_bins - 1 - i] : 0.0;
+    double tot_tp, tot_at;
+    block_scan2(tp, n_at, tot_tp, tot_at, s);
+    tp += carry_tp;
+    n_at += carry_at;
+    const double prec = n_at > 0.0 ? tp / n_at : 1.0;
+    const double rec = n_pos > 0.0 ? tp / n_pos : 0.0;
+    double rp = __shfl_up_sync(FULL, rec, 1);
+    double pp = __shfl_up_sync(FULL, prec, 1);
+    if (lane == 31) {
+      s.rec[warp] = rec;
+      s.prec[warp] = prec;
+    }
+    __syncthreads();
+    if (lane == 0) {
+      rp = warp ? s.rec[warp - 1] : r_prev;
+      pp = warp ? s.prec[warp - 1] : p_prev;
+    }
+    if (on) area += (rec - rp) * (prec + pp) * 0.5;
+    r_prev = s.rec[WARPS - 1];
+    p_prev = s.prec[WARPS - 1];
+    carry_tp += tot_tp;
+    carry_at += tot_at;
+    __syncthreads();
+  }
+  const double total = block_sum(area, s);
+  if (t == 0) *out = n_pos > 0.0 ? (float)total : 0.f;
+}
+
+template <bool SHARED>
+__global__ void __launch_bounds__(THREADS)
+aupr_hist_kernel(const float* __restrict__ m, const float* __restrict__ y,
+                 const float* __restrict__ w, int n, int n_bins,
+                 int from_margin, int G, int chunk, float* __restrict__ part,
+                 float* __restrict__ out) {
+  extern __shared__ float s_hist[];  // SHARED: ha[n_bins], hp[n_bins]
+  __shared__ CurveScratch cs;
+  const int p = blockIdx.x, g = blockIdx.y;
+  float* slice = part + ((int64_t)p * G + g) * 2 * n_bins;
+  float* hist = SHARED ? s_hist : slice;
+  for (int i = threadIdx.x; i < 2 * n_bins; i += THREADS) hist[i] = 0.f;
+  __syncthreads();
+  const int64_t r0 = (int64_t)g * chunk;
+  const int64_t r1 = r0 + chunk < n ? r0 + chunk : (int64_t)n;
   const float* mp = m + (int64_t)p * n;
   const float* wp = w + (int64_t)p * n;
-  for (int r = threadIdx.x; r < n; r += THREADS) {
-    const float wr = wp[r];
-    if (wr == 0.f) continue;
-    float s = from_margin ? (float)(1.0 / (1.0 + exp(-(double)mp[r])))
-                          : mp[r];
-    s = fminf(fmaxf(s, 0.f), 1.f);  // also NaN -> 0
-    const int b = min((int)(s * (float)n_bins), n_bins - 1);
-    atomicAdd(&hp[b], wr * y[r]);
-    atomicAdd(&ha[b], wr);
+  for (int64_t base = r0; base < r1; base += (int64_t)THREADS * UNROLL) {
+    float wv[UNROLL], mv[UNROLL], yv[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t r = base + u * THREADS + threadIdx.x;
+      const bool in = r < r1;
+      wv[u] = in ? wp[r] : 0.f;
+      mv[u] = in ? mp[r] : 0.f;
+      yv[u] = in ? y[r] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      int b = -1;
+      float vp = 0.f, va = 0.f;
+      if (wv[u] != 0.f) {
+        b = bucket_of(mv[u], from_margin, n_bins);
+        vp = wv[u] * yv[u];
+        va = wv[u];
+      }
+      warp_add(hist, hist + n_bins, b, va, vp);
+    }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    double n_pos = 0.0;
-    for (int b = 0; b < n_bins; ++b) n_pos += (double)hp[b];
-    double tp = 0.0, n_at = 0.0, r_prev = 0.0, p_prev = 1.0, area = 0.0;
-    for (int b = n_bins - 1; b >= 0; --b) {
-      tp += (double)hp[b];
-      n_at += (double)ha[b];
-      const double prec = n_at > 0.0 ? tp / n_at : 1.0;
-      const double rec = n_pos > 0.0 ? tp / n_pos : 0.0;
-      area += (rec - r_prev) * (prec + p_prev) * 0.5;
-      r_prev = rec;
-      p_prev = prec;
+  if (G == 1) {
+    pr_curve(hist, hist + n_bins, n_bins, out + p, cs);
+  } else if (SHARED) {
+    for (int i = threadIdx.x; i < 2 * n_bins; i += THREADS) {
+      slice[i] = s_hist[i];
     }
-    out[p] = n_pos > 0.0 ? (float)area : 0.f;
   }
+}
+
+// each pair's G partial histograms summed per bucket in block order, into
+// the pair's first slice
+__global__ void __launch_bounds__(REDUCE_THREADS)
+aupr_reduce_kernel(float* __restrict__ part, int n_bins, int G) {
+  const int p = blockIdx.x;
+  const int64_t width = 2 * (int64_t)n_bins;
+  float* pp = part + (int64_t)p * G * width;
+  for (int64_t i = (int64_t)blockIdx.y * REDUCE_THREADS + threadIdx.x;
+       i < width; i += (int64_t)gridDim.y * REDUCE_THREADS) {
+    float acc = pp[i];
+    for (int g = 1; g < G; ++g) acc += pp[g * width + i];
+    pp[i] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+aupr_curve_kernel(const float* __restrict__ part, int n_bins, int G,
+                  float* __restrict__ out) {
+  __shared__ CurveScratch cs;
+  const int p = blockIdx.x;
+  const float* hist = part + (int64_t)p * G * 2 * n_bins;
+  pr_curve(hist, hist + n_bins, n_bins, out + p, cs);
 }
 
 }  // namespace
 
 extern "C" int binned_aupr(const void* m, const void* y, const void* w, int P,
-                           int n, int n_bins, int from_margin, void* out,
-                           void* stream) {
-  size_t smem = (size_t)2 * n_bins * sizeof(float);
-  binned_aupr_kernel<<<P, THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(m), static_cast<const float*>(y),
-      static_cast<const float*>(w), n, n_bins, from_margin,
-      static_cast<float*>(out));
+                           int n, int n_bins, int from_margin, int G,
+                           int chunk, void* part, void* out, void* stream) {
+  const bool shared = n_bins <= SHARED_MAX_BINS;
+  if ((G > 1 || !shared) && part == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(P, G);
+  const float* mf = static_cast<const float*>(m);
+  const float* yf = static_cast<const float*>(y);
+  const float* wf = static_cast<const float*>(w);
+  float* pf = static_cast<float*>(part);
+  float* of = static_cast<float*>(out);
+  if (shared) {
+    aupr_hist_kernel<true><<<grid, THREADS, 2 * n_bins * sizeof(float), s>>>(
+        mf, yf, wf, n, n_bins, from_margin, G, chunk, pf, of);
+  } else {
+    aupr_hist_kernel<false><<<grid, THREADS, 0, s>>>(
+        mf, yf, wf, n, n_bins, from_margin, G, chunk, pf, of);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || G == 1) return (int)err;
+  const int64_t blocks = (2 * (int64_t)n_bins + REDUCE_THREADS - 1) /
+                         REDUCE_THREADS;
+  aupr_reduce_kernel<<<dim3(P, (unsigned)(blocks < 65535 ? blocks : 65535)),
+                       REDUCE_THREADS, 0, s>>>(pf, n_bins, G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  aupr_curve_kernel<<<P, THREADS, 0, s>>>(pf, n_bins, G, of);
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -161,6 +163,34 @@ def declare(lib: ctypes.CDLL, fn: str, argtypes, restype=ctypes.c_int):
     f.argtypes = list(argtypes)
     f.restype = restype
     return f
+
+
+_entries: Dict[tuple, object] = {}
+
+
+def entry(name: str, fn: str, argtypes, restype=ctypes.c_int):
+    """The C entry point `fn` of `csrc/<name>.cu`, built, loaded and
+    declared at its first call; later calls are one dict lookup."""
+    f = _entries.get((name, fn))
+    if f is None:
+        f = declare(load(name), fn, argtypes, restype)
+        _entries[(name, fn)] = f
+    return f
+
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def launch(index: int, fn, *args) -> int:
+    """`fn(*args, stream)` on CUDA device `index` and its current stream,
+    entering the device's context only when it is not the current
+    device; returns the entry point's error code."""
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return launch(index, fn, *args)
+    stream = (_raw_stream(index) if _raw_stream is not None
+              else torch.cuda.current_stream(index).cuda_stream)
+    return fn(*args, stream)
 
 
 def check(fn_name: str, err: int) -> None:

@@ -146,19 +146,17 @@ def _shapes(m, y, w):
             f"{tuple(w.shape)} must be (P, n), labels {tuple(y.shape)} (n,)")
 
 
-def binned_aupr_plain(m: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-                      n_bins: int, from_margin: bool) -> torch.Tensor:
-    """(P,) f32 AuPR over n_bins score buckets: `bincount` histograms of
-    w·y and w, reversed running sums, the PR trapezoid from (r = 0,
-    p = 1) summed in f64 and rounded once; 0 without positives."""
-    _shapes(m, y, w)
-    P, n = m.shape
-    b = score_bins(m, n_bins, from_margin).long() + torch.arange(
+def _pair_bins(m, n_bins, from_margin):
+    P = m.shape[0]
+    return score_bins(m, n_bins, from_margin).long() + torch.arange(
         P, device=m.device)[:, None] * n_bins
-    hp = torch.bincount(b.reshape(-1), weights=(w * y).reshape(-1),
-                        minlength=P * n_bins).reshape(P, n_bins)
-    ha = torch.bincount(b.reshape(-1), weights=w.reshape(-1),
-                        minlength=P * n_bins).reshape(P, n_bins)
+
+
+def _pr_area(hp: torch.Tensor, ha: torch.Tensor) -> torch.Tensor:
+    """(P,) f32 AuPR from (P, n_bins) bucket sums: reversed running sums,
+    the PR trapezoid from (r = 0, p = 1) summed in f64 and rounded once;
+    0 without positives."""
+    P = hp.shape[0]
     tp = torch.cumsum(hp.double().flip(1), 1)
     n_at = torch.cumsum(ha.double().flip(1), 1)
     n_pos = tp[:, -1:]
@@ -166,7 +164,7 @@ def binned_aupr_plain(m: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                        torch.ones_like(tp))
     rec = torch.where(n_pos > 0, tp / torch.clamp(n_pos, min=1e-300),
                       torch.zeros_like(tp))
-    zeros = torch.zeros((P, 1), dtype=torch.float64, device=m.device)
+    zeros = torch.zeros((P, 1), dtype=torch.float64, device=hp.device)
     r = torch.cat([zeros, rec], 1)
     p = torch.cat([zeros + 1.0, prec], 1)
     area = ((r[:, 1:] - r[:, :-1]) * (p[:, 1:] + p[:, :-1]) * 0.5).sum(1)
@@ -174,9 +172,68 @@ def binned_aupr_plain(m: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return area.to(torch.float32)
 
 
-_AUPR_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (
+def binned_aupr_plain(m: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                      n_bins: int, from_margin: bool) -> torch.Tensor:
+    """(P,) f32 AuPR over n_bins score buckets: `bincount` histograms of
+    w·y and w, reversed running sums, the PR trapezoid from (r = 0,
+    p = 1) summed in f64 and rounded once; 0 without positives."""
+    _shapes(m, y, w)
+    P, n = m.shape
+    b = _pair_bins(m, n_bins, from_margin).reshape(-1)
+    hp = torch.bincount(b, weights=(w * y).reshape(-1),
+                        minlength=P * n_bins).reshape(P, n_bins)
+    ha = torch.bincount(b, weights=w.reshape(-1),
+                        minlength=P * n_bins).reshape(P, n_bins)
+    return _pr_area(hp, ha)
+
+
+# blocks of 1024 threads the H100's 132 SMs hold at once; rows a block at
+# least, so that zeroing and writing out its histogram stays small beside
+# its rows; the scratch of the blocks' partial histograms at most
+_AUPR_BLOCKS = 2 * 132
+_AUPR_MIN_ROWS = 16384
+_AUPR_SCRATCH_BYTES = 1 << 28
+
+
+def aupr_row_blocks(P: int, n: int, n_bins: int):
+    """(G, chunk): the K8 kernel splits each pair's rows into G ranges of
+    `chunk` rows, one block a range, fixed from the shapes alone (no
+    device count): P × G fills the card where the rows allow; G = 1 up to
+    `_AUPR_MIN_ROWS` rows a pair or from 133 pairs on."""
+    G = max(1, min(_AUPR_BLOCKS // max(P, 1), -(-n // _AUPR_MIN_ROWS),
+                   _AUPR_SCRATCH_BYTES // (8 * max(P, 1) * n_bins)))
+    return G, -(-n // G)
+
+
+def binned_aupr_blocks_plain(m: torch.Tensor, y: torch.Tensor,
+                             w: torch.Tensor, n_bins: int, from_margin: bool,
+                             blocks: int) -> torch.Tensor:
+    """The K8 kernel's partition in plain PyTorch: each pair's rows cut
+    into `blocks` ranges of ⌈n / blocks⌉ rows, each range's f32
+    histograms summed in range order, then `binned_aupr_plain`'s curve.
+    Bit-equal to `binned_aupr_plain` wherever the f32 bucket sums are
+    exact (integer-valued weights below 2^24)."""
+    _shapes(m, y, w)
+    P, n = m.shape
+    chunk = -(-n // blocks)
+    b = _pair_bins(m, n_bins, from_margin)
+    hp = torch.zeros(P * n_bins, dtype=torch.float32, device=m.device)
+    ha = torch.zeros_like(hp)
+    for g in range(blocks):
+        sl = slice(g * chunk, min(n, (g + 1) * chunk))
+        bg = b[:, sl].reshape(-1)
+        hp = hp + torch.bincount(bg, weights=(w[:, sl] * y[sl]).reshape(-1),
+                                 minlength=P * n_bins)
+        ha = ha + torch.bincount(bg, weights=w[:, sl].reshape(-1),
+                                 minlength=P * n_bins)
+    return _pr_area(hp.reshape(P, n_bins), ha.reshape(P, n_bins))
+
+
+_AUPR_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (
     ctypes.c_void_p,) * 2
-_AUPR_MAX_BINS = 6144  # two f32 histograms within 48 KB of shared memory
+# csrc/binned_aupr.cu's SHARED_MAX_BINS: above it a block's histogram
+# lives in the global scratch (the kernel refuses a launch without it)
+_AUPR_SHARED_MAX_BINS = 6016
 
 
 def _binned_aupr_cuda(m, y, w, n_bins, from_margin):
@@ -188,21 +245,22 @@ def _binned_aupr_cuda(m, y, w, n_bins, from_margin):
     if not all(t.dtype == torch.float32 for t in (m, y, w)):
         raise ValueError("binned_aupr: margins, labels and weights must be "
                          "f32")
-    if not 1 <= n_bins <= _AUPR_MAX_BINS:
-        raise ValueError(f"binned_aupr: n_bins {n_bins} outside [1, "
-                         f"{_AUPR_MAX_BINS}]")
+    if n_bins < 1:
+        raise ValueError(f"binned_aupr: n_bins {n_bins} < 1")
     P, n = m.shape
-    out = torch.zeros(P, dtype=torch.float32, device=m.device)
+    out = m.new_empty(P)
     if P == 0:
         return out
     m, y, w = m.contiguous(), y.contiguous(), w.contiguous()
-    lib = cuda_build.load("binned_aupr")
-    fn = cuda_build.declare(lib, "binned_aupr", _AUPR_ARGS)
-    with torch.cuda.device(m.device):
-        stream = ctypes.c_void_p(
-            torch.cuda.current_stream(m.device).cuda_stream)
-        err = fn(m.data_ptr(), y.data_ptr(), w.data_ptr(), P, n, n_bins,
-                 int(bool(from_margin)), out.data_ptr(), stream)
+    fn = cuda_build.entry("binned_aupr", "binned_aupr", _AUPR_ARGS)
+    G, chunk = aupr_row_blocks(P, n, n_bins)
+    part = None
+    if G > 1 or n_bins > _AUPR_SHARED_MAX_BINS:
+        part = m.new_empty(P * G * 2 * n_bins)
+    err = cuda_build.launch(
+        m.get_device(), fn, m.data_ptr(), y.data_ptr(), w.data_ptr(), P, n,
+        n_bins, int(bool(from_margin)), G, chunk,
+        None if part is None else part.data_ptr(), out.data_ptr())
     cuda_build.check("binned_aupr", err)
     cuda_build.count("binned_aupr")
     return out

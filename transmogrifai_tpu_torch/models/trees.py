@@ -96,41 +96,68 @@ def bin_features_plain(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     return b.to(bin_dtype(edges.shape[-1]))
 
 
+def monotone_edges(edges: torch.Tensor) -> torch.Tensor:
+    """(d,) bool: each feature's edges are non-decreasing (e[j] <= e[j+1]
+    for every j, false wherever an edge is NaN). The K4 kernel makes this
+    test as it stages a feature's edges and counts such a feature by
+    binary search (`search_bins_plain`), any other one linearly."""
+    e = edges.float()
+    return (e[:, :-1] <= e[:, 1:]).all(1)
+
+
+def search_bins_plain(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """(n, d) int32: the K4 kernel's binary search, the largest prefix
+    length c with X[r, f] >= edges[f, c - 1], by binary lifting from the
+    largest power of 2 <= n_edges (NaN stays at 0). It equals the
+    broadcast count of `bin_features_plain` wherever the feature's edges
+    are non-decreasing, and not in general elsewhere."""
+    e = edges.float().T.contiguous()  # (n_edges, d)
+    n_edges = e.shape[0]
+    c = torch.zeros(X.shape, dtype=torch.int64, device=X.device)
+    step = 1 << (n_edges.bit_length() - 1) if n_edges else 0
+    while step:
+        t = c + step
+        v = torch.gather(e, 0, torch.clamp(t, max=n_edges) - 1)
+        c = torch.where((t <= n_edges) & (X >= v), t, c)
+        step >>= 1
+    return c.to(torch.int32)
+
+
 _BIN_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-_BIN_MAX_EDGES = 384  # FEAT_TILE * n_edges * 4 B within 48 KB of shared memory
+_BIN_ENTRIES = {(half, dtype): "bin_features_" + ("f16_" if half else "")
+                + ("i8" if dtype == torch.int8 else "i32")
+                for half in (False, True)
+                for dtype in (torch.int8, torch.int32)}
 
 
 def _bin_features_cuda(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
-    _require(edges.device == X.device,
-             f"bin_features: X on {X.device}, edges on {edges.device}")
-    _require(X.dtype == torch.float32
-             and edges.dtype in (torch.float32, torch.float16),
-             f"bin_features: needs f32 values and f32 or f16 edges, got "
-             f"{X.dtype}/{edges.dtype}")
-    _require(X.dim() == 2 and edges.dim() == 2
-             and edges.shape[0] == X.shape[1],
-             f"bin_features: shapes {tuple(X.shape)} / {tuple(edges.shape)}")
+    # the checks that guard the launch, their messages built only on
+    # refusal (an eager call at serving sizes is host-bound)
+    if edges.device != X.device:
+        raise ValueError(f"bin_features: X on {X.device}, edges on "
+                         f"{edges.device}")
+    if X.dtype != torch.float32 or edges.dtype not in (torch.float32,
+                                                       torch.float16):
+        raise ValueError(f"bin_features: needs f32 values and f32 or f16 "
+                         f"edges, got {X.dtype}/{edges.dtype}")
+    if X.dim() != 2 or edges.dim() != 2 or edges.shape[0] != X.shape[1]:
+        raise ValueError(f"bin_features: shapes {tuple(X.shape)} / "
+                         f"{tuple(edges.shape)}")
+    half = edges.dtype == torch.float16
     n, d = X.shape
     n_edges = edges.shape[1]
-    _require(n_edges <= _BIN_MAX_EDGES,
-             f"bin_features: {n_edges} edges exceed the kernel's "
-             f"{_BIN_MAX_EDGES}")
-    X = X.contiguous()
-    edges = edges.contiguous()
     dtype = bin_dtype(n_edges)
-    out = torch.empty((n, d), dtype=dtype, device=X.device)
+    out = X.new_empty((n, d), dtype=dtype)
     if n == 0 or d == 0:
         return out
-    lib = cuda_build.load("bin_features")
-    half = edges.dtype == torch.float16
-    fname = "bin_features_" + ("f16_" if half else "") + (
-        "i8" if dtype == torch.int8 else "i32")
-    fn = cuda_build.declare(lib, fname, _BIN_ARGS)
-    with torch.cuda.device(X.device):
-        err = fn(X.data_ptr(), edges.data_ptr(), out.data_ptr(), n, d,
-                 n_edges, _stream_ptr(X))
-    cuda_build.check(fname, err)
+    X = X.contiguous()
+    edges = edges.contiguous()
+    name = _BIN_ENTRIES[half, dtype]
+    fn = cuda_build.entry("bin_features", name, _BIN_ARGS)
+    err = cuda_build.launch(X.get_device(), fn, X.data_ptr(),
+                            edges.data_ptr(), out.data_ptr(), n, d, n_edges)
+    cuda_build.check(name, err)
     _count("bin_features_f16" if half else "bin_features")
     return out
 
