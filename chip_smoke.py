@@ -303,8 +303,9 @@ def k4_timing(pt, X, e, X1) -> dict:
     time, as a served batch runs it) and `floor_ms` the eager call on the
     one row X1 (the ctypes floor), beside the bound, the plain version and
     `torch.searchsorted` on the widened edges. The eager and floor times
-    are each the least of three runs of 50 calls, taken in turns: the
-    host's noise on a shared machine exceeds the gap between them."""
+    are each the least of eight runs of 50 calls, taken in turns: on a
+    shared host the runs of one call differ by more than the gap between
+    them."""
     n, d = X.shape
     n_edges = e.shape[1]
     nbytes = X.numel() * 4 + e.numel() * e.element_size() \
@@ -312,7 +313,7 @@ def k4_timing(pt, X, e, X1) -> dict:
     b_ms, b_by = bound(nbytes, n * d * n_edges)
     ef, Xt = e.float().contiguous(), X.T.contiguous()
     eager, floor = [], []
-    for _ in range(3):
+    for _ in range(8):
         floor.append(cuda_ms(lambda: pt.bin_features(X1, e), 50))
         eager.append(cuda_ms(lambda: pt.bin_features(X, e), 50))
     return {"ms": min(eager), "floor_ms": min(floor),
