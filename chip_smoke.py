@@ -219,6 +219,7 @@ import hashlib
 import json
 import logging
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -297,39 +298,150 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def in_turns(calls: dict, rounds: int = 8) -> dict:
+    """{name: (median, least)} CUDA-event ms a call over `rounds` runs of
+    each (fn, iters) in `calls`, the runs taken in turns, so that a shared
+    host's noise falls on every name alike."""
+    runs = {k: [] for k in calls}
+    for _ in range(rounds):
+        for k, (fn, iters) in calls.items():
+            runs[k].append(cuda_ms(fn, iters))
+    return {k: (statistics.median(v), min(v)) for k, v in runs.items()}
+
+
 def k4_timing(pt, X, e, X1) -> dict:
-    """K4 (f32 or f16 edges) on X: eager CUDA-event ms a call (at small n
-    the wrapper's host work), `graph_ms` a CUDA-graph replay (the device
-    time, as a served batch runs it) and `floor_ms` the eager call on the
-    one row X1 (the ctypes floor), beside the bound, the plain version and
-    `torch.searchsorted` on the widened edges. The eager and floor times
-    are each the least of eight runs of 50 calls, taken in turns: on a
-    shared host the runs of one call differ by more than the gap between
-    them."""
+    """K4 (f32 or f16 edges) on X: eager ms a call (at small n the
+    wrapper's host work), `graph_ms` a CUDA-graph replay (the device time,
+    as a served batch runs it) and `floor_ms` the eager call on the one
+    row X1 (the ctypes floor), beside the bound, the plain version and
+    `torch.searchsorted` on the widened edges. The eager, floor, plain and
+    library times are each the median of eight runs taken in turns (50
+    calls a run, the plain version 10), the least of the eight beside it
+    as `*_least`."""
     n, d = X.shape
     n_edges = e.shape[1]
     nbytes = X.numel() * 4 + e.numel() * e.element_size() \
         + n * d * pt.bin_dtype(n_edges).itemsize
     b_ms, b_by = bound(nbytes, n * d * n_edges)
     ef, Xt = e.float().contiguous(), X.T.contiguous()
-    eager, floor = [], []
-    for _ in range(8):
-        floor.append(cuda_ms(lambda: pt.bin_features(X1, e), 50))
-        eager.append(cuda_ms(lambda: pt.bin_features(X, e), 50))
-    return {"ms": min(eager), "floor_ms": min(floor),
-            "graph_ms": graph_ms(lambda: pt.bin_features(X, e), 50),
-            "plain_ms": cuda_ms(lambda: pt.bin_features_plain(X, e), 10),
-            "library_ms": cuda_ms(
-                lambda: torch.searchsorted(ef, Xt, right=True), 50),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    t = in_turns({
+        "floor_ms": (lambda: pt.bin_features(X1, e), 50),
+        "ms": (lambda: pt.bin_features(X, e), 50),
+        "library_ms": (lambda: torch.searchsorted(ef, Xt, right=True), 50),
+        "plain_ms": (lambda: pt.bin_features_plain(X, e), 10)})
+    rec = {k: v[0] for k, v in t.items()}
+    rec.update({f"{k}_least": v[1] for k, v in t.items()})
+    rec.update({"graph_ms": graph_ms(lambda: pt.bin_features(X, e), 50),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes})
+    return rec
 
 
-def k8_timing(pdm, m, y, w, nb: int, from_margin: bool, iters: int,
-              warmup: int = 3) -> dict:
+def launch_idiom_floor(pt, X1, e) -> dict:
+    """K4's f32-edge entry point on the one row X1, launched straight
+    through ctypes in the two ways the port's wrappers use: `entry` +
+    `launch` (declared once, the raw current stream, no device context on
+    the current device) and `load` + `declare` + a `torch.cuda.device`
+    context + the current stream's handle (every call). Median and least
+    ms a call of eight runs of 50 in turns; the output is allocated once,
+    so the two differ only in the launch's host work. These launches
+    bypass the wrapper and count nothing."""
+    from transmogrifai_tpu_torch import cuda_build
+    d, n_edges = e.shape
+    out = X1.new_empty(X1.shape, dtype=pt.bin_dtype(n_edges))
+    name = pt._BIN_ENTRIES[False, out.dtype]
+    args = (X1.data_ptr(), e.data_ptr(), out.data_ptr(), 1, d, n_edges)
+    idx = X1.get_device()
+
+    def entry_launch():
+        cuda_build.check(name, cuda_build.launch(
+            idx, cuda_build.entry("bin_features", name, pt._BIN_ARGS),
+            *args))
+
+    def declare_device():
+        fn = cuda_build.declare(cuda_build.load("bin_features"), name,
+                                pt._BIN_ARGS)
+        with torch.cuda.device(X1.device):
+            cuda_build.check(name, fn(*args, pt._stream_ptr(X1)))
+    entry_launch()
+    if not torch.equal(out, pt.bin_features_plain(X1, e)):
+        raise AssertionError("K4 launched through `cuda_build.launch` "
+                             "disagrees with its plain version")
+    t = in_turns({"entry_launch": (entry_launch, 50),
+                  "declare_device": (declare_device, 50)})
+    return {f"{k}_ms": v[0] for k, v in t.items()} | {
+        f"{k}_ms_least": v[1] for k, v in t.items()}
+
+
+def grouped_warp_steps(pdm, m, w, nb: int, from_margin: bool):
+    """(grouped, steps): of the K8 kernel's warp steps (32 neighbouring
+    rows of a block's range, `aupr_row_blocks`) on these inputs, those
+    that take its grouping of lanes, where some lane with a weight shares
+    its bucket with its neighbour lane (lane ^ 1), as `warp_add` tests
+    it, and all of them."""
+    P, n = m.shape
+    G, chunk = pdm.aupr_row_blocks(P, n, nb)
+    b = torch.where(w != 0, pdm.score_bins(m, nb, from_margin).long(), -1)
+    r = torch.arange(n, device=m.device)
+    o = r % chunk
+    partner = r - o + (o ^ 1)
+    ok = ((o ^ 1) < chunk) & (partner < n)
+    shares = (b >= 0) & ok & (b == b[:, torch.where(ok, partner, r)])
+    warp = (r // chunk) * -(-chunk // 32) + o // 32
+    nw = G * -(-chunk // 32)
+    took = torch.zeros((P, nw), dtype=torch.int32, device=m.device)
+    took.scatter_reduce_(1, warp.expand(P, n), shares.int(), "amax")
+    held = torch.zeros(nw, dtype=torch.int32, device=m.device)
+    held[warp] = 1
+    return int(took.sum()), P * int(held.sum())
+
+
+def k8_sweep_inputs(pt, pdm, sweep) -> dict:
+    """K8 on the training path's own inputs: the early-stopping metric's
+    margins (512 buckets) at every call of one run of `sweep`, recorded
+    through `trees.binned_aupr`. Over all the calls: the share of warp
+    steps that take the kernel's grouping of lanes, and the calls' summed
+    ms with and without it, in turns (the same bits asserted)."""
+    calls = []
+    real = pt.binned_aupr
+
+    def record(m, y, w, n_bins, from_margin):
+        calls.append((m.clone(), y.clone(), w.clone(), n_bins, from_margin))
+        return real(m, y, w, n_bins, from_margin)
+    pt.binned_aupr = record
+    try:
+        sweep()
+    finally:
+        pt.binned_aupr = real
+    grouped = steps = 0
+    for m, y, w, nb, fm in calls:
+        g, k = grouped_warp_steps(pdm, m, w, nb, fm)
+        grouped, steps = grouped + g, steps + k
+        if not torch.equal(pdm.binned_aupr(m, y, w, nb, fm),
+                           pdm.binned_aupr_ungrouped(m, y, w, nb, fm)):
+            raise AssertionError("K8 without its grouping of lanes gives "
+                                 "other bits on the sweep's margins")
+
+    def run(f):
+        for m, y, w, nb, fm in calls:
+            f(m, y, w, nb, fm)
+    t = in_turns({"ms": (lambda: run(pdm.binned_aupr), 5),
+                  "ungrouped_ms": (lambda: run(pdm.binned_aupr_ungrouped),
+                                   5)}, rounds=4)
+    return {"calls": len(calls),
+            "shapes": sorted({tuple(c[0].shape) for c in calls}),
+            "grouped_warps": grouped / max(steps, 1),
+            "ms": t["ms"][0], "ungrouped_ms": t["ungrouped_ms"][0]}
+
+
+def k8_timing(pdm, m, y, w, nb: int, from_margin: bool,
+              iters: int) -> dict:
     """K8 on P score rows m (P, n): CUDA-event ms, the bound, the plain
     version and `bincount` x 2 (the two histograms alone, no curve) as the
     yardstick; its blocks a pair (`aupr_row_blocks`), its error against
-    the plain version and whether two runs give the same bits."""
+    the plain version and whether two runs give the same bits. To weigh
+    the kernel's grouping of lanes that share a bucket: the share of warp
+    steps that take it (`grouped_warps`) and the kernel without it
+    (`ungrouped_ms`, the same bits), the two timed in turns."""
     P, n = m.shape
     nbytes = 2 * P * n * 4 + n * 4 + P * 4
     b_ms, b_by = bound(nbytes, (10 if from_margin else 4) * P * n
@@ -344,20 +456,29 @@ def k8_timing(pdm, m, y, w, nb: int, from_margin: bool, iters: int,
     got = pdm.binned_aupr(m, y, w, nb, from_margin)
     again = pdm.binned_aupr(m, y, w, nb, from_margin)
     want = pdm.binned_aupr_plain(m, y, w, nb, from_margin)
-    rec = {"ms": cuda_ms(lambda: pdm.binned_aupr(m, y, w, nb, from_margin),
-                         iters, warmup),
+    plain_adds = pdm.binned_aupr_ungrouped(m, y, w, nb, from_margin)
+    grouped, steps = grouped_warp_steps(pdm, m, w, nb, from_margin)
+    t = in_turns({
+        "ms": (lambda: pdm.binned_aupr(m, y, w, nb, from_margin), iters),
+        "ungrouped_ms": (lambda: pdm.binned_aupr_ungrouped(
+            m, y, w, nb, from_margin), iters)}, rounds=4)
+    rec = {"ms": t["ms"][0], "ungrouped_ms": t["ungrouped_ms"][0],
            "plain_ms": cuda_ms(lambda: pdm.binned_aupr_plain(
                m, y, w, nb, from_margin), max(iters // 5, 2), 1),
            "library_ms": cuda_ms(library, max(iters // 5, 2), 1),
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
            "pairs": P, "rows": n, "buckets": nb,
            "blocks": pdm.aupr_row_blocks(P, n, nb)[0],
+           "grouped_warps": grouped / steps,
            "max_abs_err": max_err(got, want),
            "run_to_run_equal": torch.equal(got.view(torch.int32),
-                                           again.view(torch.int32))}
-    if rec["max_abs_err"] != 0.0 or not rec["run_to_run_equal"]:
-        raise AssertionError(f"K8 disagrees with its plain version or "
-                             f"between runs: {rec}")
+                                           again.view(torch.int32)),
+           "ungrouped_equal": torch.equal(got.view(torch.int32),
+                                          plain_adds.view(torch.int32))}
+    if rec["max_abs_err"] != 0.0 or not rec["run_to_run_equal"] \
+            or not rec["ungrouped_equal"]:
+        raise AssertionError(f"K8 disagrees with its plain version, "
+                             f"between runs or without its grouping: {rec}")
     return rec
 
 
@@ -1120,10 +1241,11 @@ def train_path(port, pt, device="cuda"):
 
 
 def sweep_busy_share(port, model, ds, models, label, device="cuda",
-                     draws=None):
+                     draws=None, k8_inputs=False):
     """The sweep of the trained selector over `models` ((estimator,
     grids) pairs) run again under torch.profiler: the device's busy and
-    idle share of its wall time."""
+    idle share of its wall time; with `k8_inputs`, K8 on the sweep's own
+    early-stopping margins (`k8_sweep_inputs`)."""
     from transmogrifai_tpu_torch.models import trees as pt
     from transmogrifai_tpu_torch.parallel.sweep import run_sweep
     from transmogrifai_tpu_torch.selector.splitters import DataBalancer
@@ -1177,6 +1299,9 @@ def sweep_busy_share(port, model, ds, models, label, device="cuda",
               "device_idle_share": 1 - busy / plain_wall if items
               else "not measured",
               "top_device_items_ms": items[:8]}
+    if k8_inputs:
+        from transmogrifai_tpu_torch.evaluators import device_metrics as pdm
+        record["binned_aupr"] = k8_sweep_inputs(pt, pdm, sweep)
     emit(record)
     return record
 
@@ -3114,7 +3239,13 @@ def big_kernel_timings(pbd, pt, pdm, X16, Xb, chunk_f16, edges, y, Vf, rf,
     s = probs[:, :, 1].contiguous()
     Vb = Vf[None].expand(P, n).contiguous()
     out["binned_aupr"] = k8_timing(pdm, s, y, Vb, 4096, False, 20)
-    del Vb
+    # the same scores clustered: 90 % of the rows moved into one bucket,
+    # where a warp's lanes mostly share it
+    gen = torch.Generator(dev).manual_seed(90)
+    sc = s.clone()
+    sc[:, torch.rand(n, device=dev, generator=gen) < 0.9] = 0.4
+    out["binned_aupr_clustered"] = k8_timing(pdm, sc, y, Vb, 4096, False, 20)
+    del Vb, sc
     # the same 8 grids' holdout scores at 10M rows (BASELINE target 4's
     # shape): the scores drawn from this run's, the labels and mask tiled
     n10 = 10_000_000
@@ -3845,6 +3976,8 @@ def main() -> int:
         timing[n] = {"bin_features": k4, "tree_walk": k5}
         emit({"phase": "timing", "n": n, "bin_features": k4,
               "tree_walk": k5})
+    emit({"phase": "timing", "launch_idiom_floor": launch_idiom_floor(
+        pt, inputs[1], edges)})
     # served batches: CUDA graphs against eager dispatch, f32 and int8, the
     # quickstart GBT and the script's models (the JAX package's, and the port's
     # own from phase 19)
@@ -3857,7 +3990,8 @@ def main() -> int:
     fit_timing = time_training_kernels(pt, pdm, fit_cases)
     del fit_cases
     sweep_busy_share(port, trained, train_ds,
-                     [(port.OpXGBoostClassifier(**XGB), GRID)], "xgboost")
+                     [(port.OpXGBoostClassifier(**XGB), GRID)], "xgboost",
+                     k8_inputs=True)
     from transmogrifai_tpu_torch.selector.model_selector import (
         _default_binary_models)
     sweep_busy_share(port, default_model, default_ds,

@@ -65,14 +65,16 @@ def test_plain_binned_aupr_without_positives_matches_jax():
 @pytest.mark.parametrize("P,n,n_bins", [
     (6, 802, 512), (6, 65536, 512), (8, 4_456_448, 4096), (1, 10_000_000,
                                                             4096),
-    (300, 100_000, 512), (8, 1_000_000, 1 << 20), (3, 0, 512)])
+    (300, 100_000, 512), (8, 1_000_000, 1 << 20), (3, 0, 512),
+    (6, 100_003, 512), (1, 32_767, 512), (1, 32_768, 512)])
 def test_row_blocks_cover_every_row_once_and_fill_the_card(P, n, n_bins):
     """G ranges of `chunk` rows cover n, none of them empty; one block a
-    pair up to 16,384 rows; at most 264 blocks of the card's 132 SMs when
-    a pair takes more than one; the partials' scratch within 256 MB."""
+    pair below 32,768 rows; at most 264 blocks of the card's 132 SMs when
+    a pair takes more than one, each range but the last at least 16,384
+    rows; the partials' scratch within 256 MB."""
     G, chunk = pdm.aupr_row_blocks(P, n, n_bins)
     assert G >= 1 and G * chunk >= n and (G - 1) * chunk < max(n, 1)
-    if n <= pdm._AUPR_MIN_ROWS:
+    if n < 2 * pdm._AUPR_MIN_ROWS:
         assert G == 1
     if G > 1:
         assert P * G <= pdm._AUPR_BLOCKS

@@ -19,7 +19,8 @@ to run; K2 split features and bins equal when fed the same histograms
 node ids equal and leaf values within atol 1e-6 of the plain version and
 bit-equal to a row-order f32 sum; K8 binned AuPR equal at 512, 4096 and
 16,384 buckets, one block a pair and rows split over blocks, on clustered
-scores, without positives, and the same bits on two runs. Forest kernels (m = 2 class channels, integer values): K1 and
+scores, without positives, and the same bits on two runs and without the
+grouping of lanes. Forest kernels (m = 2 class channels, integer values): K1 and
 K1-sub equal (integer sums are exact in any order), K2 and K3 leaves as
 above; a depth-12 forest grown on the card equals the CPU's. The same at
 m = 3 class channels (a depth-12 three-class forest) and m = 1 with the
@@ -132,13 +133,14 @@ def test_bin_features_kernel_on_hostile_edges(cuda, n, d):
     _check_bins(torch.from_numpy(X).to(cuda), torch.from_numpy(e).to(cuda))
 
 
-@pytest.mark.parametrize("n_edges", [31, 32, 63, 200, 1023])
+@pytest.mark.parametrize("n_edges", [31, 32, 63, 64, 65, 66, 200, 1023])
 @pytest.mark.parametrize("half", [False, True])
 @pytest.mark.parametrize("d", [61, 64])
 def test_bin_features_kernel_at_every_edge_count(cuda, n_edges, half, d):
-    """Edges staged in shared memory (up to 96) and read from global
-    memory (200, 1023; int32 bins above 126 edges), f32 and f16 edges,
-    hostile edges and values: equal to the broadcast count."""
+    """Edges staged in shared memory (up to 65 edges: 64 and 65 fill the
+    96 KB exactly) and read from global memory (66, 200, 1023; int32 bins
+    above 126 edges), f32 and f16 edges, hostile edges and values: equal
+    to the broadcast count."""
     rng = np.random.default_rng(n_edges + d)
     e = cs.hostile_edges(rng, d, n_edges)
     if half:
@@ -351,6 +353,10 @@ def _check_aupr(cuda, m, y, w, n_bins, from_margin):
     G, _ = pdm.aupr_row_blocks(*m.shape, n_bins)
     assert torch.equal(got, pdm.binned_aupr_blocks_plain(
         M, Y, W, n_bins, from_margin, G))
+    # the yardstick without the grouping of lanes: the same bits, no count
+    assert torch.equal(got, pdm.binned_aupr_ungrouped(M, Y, W, n_bins,
+                                                      from_margin))
+    assert pt.LAUNCHES["binned_aupr"] == before + 2
     return got
 
 
@@ -359,7 +365,7 @@ def _check_aupr(cuda, m, y, w, n_bins, from_margin):
 @pytest.mark.parametrize("n", [802, 100_003])
 def test_binned_aupr_kernel_over_row_blocks(cuda, n_bins, from_margin, n):
     """One block a pair (n = 802) and rows split over blocks (n = 100,003:
-    7 blocks a pair), histograms in shared memory (512, 4096 buckets) and
+    6 blocks a pair), histograms in shared memory (512, 4096 buckets) and
     in global scratch (16,384): equal to the plain version and to its
     block-order mirror, the same bits on two runs."""
     rng = np.random.default_rng(n_bins + n)

@@ -34,9 +34,9 @@
 //   which gives the same count and still sends NaN to 0; any other feature
 //   is counted linearly. No host check, no sync. The UNROLL x 4 searches
 //   of a thread step together: 16 independent shared loads a step.
-// - Above STAGE_MAX_BYTES of shared memory a block (63 edges) the kernel
-//   reads each feature's edges from global memory / L2 instead; the
-//   monotone test and the counts are the same.
+// - Above STAGE_MAX_BYTES of shared memory a block (past 65 edges; 64 and
+//   65 fill it exactly) the kernel reads each feature's edges from global
+//   memory / L2 instead; the monotone test and the counts are the same.
 //
 // The f16-edge variant serves the quantized scoring mode, whose narrowed
 // tables keep the edges in f16 (`narrow_device_constants`,

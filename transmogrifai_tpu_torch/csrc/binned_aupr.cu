@@ -32,6 +32,12 @@
 //   `__match_any_sync` groups them and a shuffle tree sums each group in a
 //   fixed lane order, so clustered scores do not serialise on one address
 //   (spread scores skip the grouping, which costs more than it saves).
+//   Every full-mask warp intrinsic runs in control flow that is the same
+//   for the 32 lanes: all of a block's threads step through its range
+//   together, and a lane past the range or on a zero weight still calls
+//   `warp_add`, with no bucket. `binned_aupr_ungrouped` launches the same
+//   kernels with plain per-lane adds instead, as a yardstick for the
+//   grouping.
 // - G = 1: the block walks the curve itself. G > 1: each block writes its
 //   histogram to scratch; a second kernel sums each bucket's G partials in
 //   block order (the same bits on every run) and a third walks each pair's
@@ -66,7 +72,7 @@ struct CurveScratch {
 };
 
 // two f32 histograms and the curve's scratch within 48 KB of shared memory
-// (6016; the wrapper's _AUPR_SHARED_MAX_BINS)
+// (6016; `binned_aupr_shared_max_bins` tells the wrapper)
 constexpr int SHARED_MAX_BINS =
     (48 * 1024 - (int)sizeof(CurveScratch)) / (2 * (int)sizeof(float));
 
@@ -89,12 +95,14 @@ __device__ __forceinline__ void add2(float* ha, float* hp, int b, float a,
 // share buckets (a lane and its neighbour do), the lanes of a bucket are
 // summed by a shuffle tree over their ranks (a fixed order for a fixed
 // layout of rows on lanes) and the lowest lane adds the sums.
+// GROUPS = false: one add a lane, always.
+template <bool GROUPS>
 __device__ __forceinline__ void warp_add(float* ha, float* hp, int b,
                                          float va, float vp) {
   const int lane = threadIdx.x & 31;
-  const int nb = __shfl_xor_sync(FULL, b, 1);
+  const int nb = GROUPS ? __shfl_xor_sync(FULL, b, 1) : -1;
   // no lane shares its neighbour's bucket: spread scores, one add a lane
-  if (!__any_sync(FULL, b >= 0 && b == nb)) {
+  if (!GROUPS || !__any_sync(FULL, b >= 0 && b == nb)) {
     if (b >= 0) add2(ha, hp, b, va, vp);
     return;
   }
@@ -208,7 +216,7 @@ __device__ void pr_curve(const float* ha, const float* hp, int n_bins,
   if (t == 0) *out = n_pos > 0.0 ? (float)total : 0.f;
 }
 
-template <bool SHARED>
+template <bool SHARED, bool GROUPS>
 __global__ void __launch_bounds__(THREADS)
 aupr_hist_kernel(const float* __restrict__ m, const float* __restrict__ y,
                  const float* __restrict__ w, int n, int n_bins,
@@ -244,7 +252,7 @@ aupr_hist_kernel(const float* __restrict__ m, const float* __restrict__ y,
         vp = wv[u] * yv[u];
         va = wv[u];
       }
-      warp_add(hist, hist + n_bins, b, va, vp);
+      warp_add<GROUPS>(hist, hist + n_bins, b, va, vp);
     }
   }
   __syncthreads();
@@ -281,11 +289,10 @@ aupr_curve_kernel(const float* __restrict__ part, int n_bins, int G,
   pr_curve(hist, hist + n_bins, n_bins, out + p, cs);
 }
 
-}  // namespace
-
-extern "C" int binned_aupr(const void* m, const void* y, const void* w, int P,
-                           int n, int n_bins, int from_margin, int G,
-                           int chunk, void* part, void* out, void* stream) {
+template <bool GROUPS>
+int launch(const void* m, const void* y, const void* w, int P, int n,
+           int n_bins, int from_margin, int G, int chunk, void* part,
+           void* out, void* stream) {
   const bool shared = n_bins <= SHARED_MAX_BINS;
   if ((G > 1 || !shared) && part == nullptr) {
     return (int)cudaErrorInvalidValue;
@@ -298,10 +305,11 @@ extern "C" int binned_aupr(const void* m, const void* y, const void* w, int P,
   float* pf = static_cast<float*>(part);
   float* of = static_cast<float*>(out);
   if (shared) {
-    aupr_hist_kernel<true><<<grid, THREADS, 2 * n_bins * sizeof(float), s>>>(
+    aupr_hist_kernel<true, GROUPS>
+        <<<grid, THREADS, 2 * n_bins * sizeof(float), s>>>(
         mf, yf, wf, n, n_bins, from_margin, G, chunk, pf, of);
   } else {
-    aupr_hist_kernel<false><<<grid, THREADS, 0, s>>>(
+    aupr_hist_kernel<false, GROUPS><<<grid, THREADS, 0, s>>>(
         mf, yf, wf, n, n_bins, from_margin, G, chunk, pf, of);
   }
   cudaError_t err = cudaGetLastError();
@@ -314,4 +322,25 @@ extern "C" int binned_aupr(const void* m, const void* y, const void* w, int P,
   if (err != cudaSuccess) return (int)err;
   aupr_curve_kernel<<<P, THREADS, 0, s>>>(pf, n_bins, G, of);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// buckets up to which a block's histograms live in shared memory; above
+// it the launch needs `part` whatever G is
+extern "C" int binned_aupr_shared_max_bins() { return SHARED_MAX_BINS; }
+
+extern "C" int binned_aupr(const void* m, const void* y, const void* w, int P,
+                           int n, int n_bins, int from_margin, int G,
+                           int chunk, void* part, void* out, void* stream) {
+  return launch<true>(m, y, w, P, n, n_bins, from_margin, G, chunk, part,
+                      out, stream);
+}
+
+extern "C" int binned_aupr_ungrouped(const void* m, const void* y,
+                                     const void* w, int P, int n, int n_bins,
+                                     int from_margin, int G, int chunk,
+                                     void* part, void* out, void* stream) {
+  return launch<false>(m, y, w, P, n, n_bins, from_margin, G, chunk, part,
+                       out, stream);
 }

@@ -198,9 +198,11 @@ _AUPR_SCRATCH_BYTES = 1 << 28
 def aupr_row_blocks(P: int, n: int, n_bins: int):
     """(G, chunk): the K8 kernel splits each pair's rows into G ranges of
     `chunk` rows, one block a range, fixed from the shapes alone (no
-    device count): P × G fills the card where the rows allow; G = 1 up to
-    `_AUPR_MIN_ROWS` rows a pair or from 133 pairs on."""
-    G = max(1, min(_AUPR_BLOCKS // max(P, 1), -(-n // _AUPR_MIN_ROWS),
+    device count): P × G fills the card where the rows allow. G is at
+    most n // `_AUPR_MIN_ROWS`, so with G > 1 every range but the last
+    holds chunk ≥ `_AUPR_MIN_ROWS` rows; G = 1 below 2 × `_AUPR_MIN_ROWS`
+    rows a pair or from 133 pairs on."""
+    G = max(1, min(_AUPR_BLOCKS // max(P, 1), n // _AUPR_MIN_ROWS,
                    _AUPR_SCRATCH_BYTES // (8 * max(P, 1) * n_bins)))
     return G, -(-n // G)
 
@@ -231,12 +233,9 @@ def binned_aupr_blocks_plain(m: torch.Tensor, y: torch.Tensor,
 
 _AUPR_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (
     ctypes.c_void_p,) * 2
-# csrc/binned_aupr.cu's SHARED_MAX_BINS: above it a block's histogram
-# lives in the global scratch (the kernel refuses a launch without it)
-_AUPR_SHARED_MAX_BINS = 6016
 
 
-def _binned_aupr_cuda(m, y, w, n_bins, from_margin):
+def _binned_aupr_launch(fn_name, m, y, w, n_bins, from_margin):
     _shapes(m, y, w)
     for name, t in (("labels", y), ("weights", w)):
         if t.device != m.device:
@@ -252,18 +251,37 @@ def _binned_aupr_cuda(m, y, w, n_bins, from_margin):
     if P == 0:
         return out
     m, y, w = m.contiguous(), y.contiguous(), w.contiguous()
-    fn = cuda_build.entry("binned_aupr", "binned_aupr", _AUPR_ARGS)
+    fn = cuda_build.entry("binned_aupr", fn_name, _AUPR_ARGS)
     G, chunk = aupr_row_blocks(P, n, n_bins)
     part = None
-    if G > 1 or n_bins > _AUPR_SHARED_MAX_BINS:
+    # above the kernel's shared-memory limit a block's histograms live in
+    # the scratch whatever G is (the kernel refuses a launch without it)
+    if G > 1 or n_bins > cuda_build.entry(
+            "binned_aupr", "binned_aupr_shared_max_bins", ())():
         part = m.new_empty(P * G * 2 * n_bins)
     err = cuda_build.launch(
         m.get_device(), fn, m.data_ptr(), y.data_ptr(), w.data_ptr(), P, n,
         n_bins, int(bool(from_margin)), G, chunk,
         None if part is None else part.data_ptr(), out.data_ptr())
-    cuda_build.check("binned_aupr", err)
-    cuda_build.count("binned_aupr")
+    cuda_build.check(fn_name, err)
     return out
+
+
+def _binned_aupr_cuda(m, y, w, n_bins, from_margin):
+    out = _binned_aupr_launch("binned_aupr", m, y, w, n_bins, from_margin)
+    if out.numel():
+        cuda_build.count("binned_aupr")
+    return out
+
+
+def binned_aupr_ungrouped(m: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                          n_bins: int, from_margin: bool) -> torch.Tensor:
+    """The K8 kernel on CUDA tensors with one shared add a lane, without
+    the grouping of lanes that share a bucket: the yardstick that
+    `chip_smoke.py` times beside K8 to weigh the grouping. No path of
+    the port calls it, so it counts no launch."""
+    return _binned_aupr_launch("binned_aupr_ungrouped", m, y, w, n_bins,
+                               from_margin)
 
 
 def binned_aupr(m: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
