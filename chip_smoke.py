@@ -416,21 +416,25 @@ def k8_sweep_inputs(pt, pdm, sweep) -> dict:
     for m, y, w, nb, fm in calls:
         g, k = grouped_warp_steps(pdm, m, w, nb, fm)
         grouped, steps = grouped + g, steps + k
-        if not torch.equal(pdm.binned_aupr(m, y, w, nb, fm),
-                           pdm.binned_aupr_ungrouped(m, y, w, nb, fm)):
+        got = pdm.binned_aupr(m, y, w, nb, fm)
+        if not all(torch.equal(got, pdm.binned_aupr_variant(m, y, w, nb, fm,
+                                                            a))
+                   for a in (1, 2)):
             raise AssertionError("K8 without its grouping of lanes gives "
                                  "other bits on the sweep's margins")
 
     def run(f):
         for m, y, w, nb, fm in calls:
             f(m, y, w, nb, fm)
+    def variant(adds):
+        return lambda *a: pdm.binned_aupr_variant(*a, adds)
     t = in_turns({"ms": (lambda: run(pdm.binned_aupr), 5),
-                  "ungrouped_ms": (lambda: run(pdm.binned_aupr_ungrouped),
-                                   5)}, rounds=4)
+                  "ungrouped_ms": (lambda: run(variant(1)), 5),
+                  "synced_ms": (lambda: run(variant(2)), 5)}, rounds=4)
     return {"calls": len(calls),
             "shapes": sorted({tuple(c[0].shape) for c in calls}),
             "grouped_warps": grouped / max(steps, 1),
-            "ms": t["ms"][0], "ungrouped_ms": t["ungrouped_ms"][0]}
+            **{k: v[0] for k, v in t.items()}}
 
 
 def k8_timing(pdm, m, y, w, nb: int, from_margin: bool,
@@ -441,7 +445,8 @@ def k8_timing(pdm, m, y, w, nb: int, from_margin: bool,
     the plain version and whether two runs give the same bits. To weigh
     the kernel's grouping of lanes that share a bucket: the share of warp
     steps that take it (`grouped_warps`) and the kernel without it
-    (`ungrouped_ms`, the same bits), the two timed in turns."""
+    (`ungrouped_ms`; `synced_ms` the same after a `__syncwarp`; the same
+    bits), all timed in turns."""
     P, n = m.shape
     nbytes = 2 * P * n * 4 + n * 4 + P * 4
     b_ms, b_by = bound(nbytes, (10 if from_margin else 4) * P * n
@@ -456,13 +461,17 @@ def k8_timing(pdm, m, y, w, nb: int, from_margin: bool,
     got = pdm.binned_aupr(m, y, w, nb, from_margin)
     again = pdm.binned_aupr(m, y, w, nb, from_margin)
     want = pdm.binned_aupr_plain(m, y, w, nb, from_margin)
-    plain_adds = pdm.binned_aupr_ungrouped(m, y, w, nb, from_margin)
+    variants = [pdm.binned_aupr_variant(m, y, w, nb, from_margin, a)
+                for a in (1, 2)]
     grouped, steps = grouped_warp_steps(pdm, m, w, nb, from_margin)
     t = in_turns({
         "ms": (lambda: pdm.binned_aupr(m, y, w, nb, from_margin), iters),
-        "ungrouped_ms": (lambda: pdm.binned_aupr_ungrouped(
-            m, y, w, nb, from_margin), iters)}, rounds=4)
+        "ungrouped_ms": (lambda: pdm.binned_aupr_variant(
+            m, y, w, nb, from_margin, 1), iters),
+        "synced_ms": (lambda: pdm.binned_aupr_variant(
+            m, y, w, nb, from_margin, 2), iters)}, rounds=4)
     rec = {"ms": t["ms"][0], "ungrouped_ms": t["ungrouped_ms"][0],
+           "synced_ms": t["synced_ms"][0],
            "plain_ms": cuda_ms(lambda: pdm.binned_aupr_plain(
                m, y, w, nb, from_margin), max(iters // 5, 2), 1),
            "library_ms": cuda_ms(library, max(iters // 5, 2), 1),
@@ -473,8 +482,9 @@ def k8_timing(pdm, m, y, w, nb: int, from_margin: bool,
            "max_abs_err": max_err(got, want),
            "run_to_run_equal": torch.equal(got.view(torch.int32),
                                            again.view(torch.int32)),
-           "ungrouped_equal": torch.equal(got.view(torch.int32),
-                                          plain_adds.view(torch.int32))}
+           "ungrouped_equal": all(torch.equal(got.view(torch.int32),
+                                              v.view(torch.int32))
+                                  for v in variants)}
     if rec["max_abs_err"] != 0.0 or not rec["run_to_run_equal"] \
             or not rec["ungrouped_equal"]:
         raise AssertionError(f"K8 disagrees with its plain version, "

@@ -354,8 +354,9 @@ def _check_aupr(cuda, m, y, w, n_bins, from_margin):
     assert torch.equal(got, pdm.binned_aupr_blocks_plain(
         M, Y, W, n_bins, from_margin, G))
     # the yardstick without the grouping of lanes: the same bits, no count
-    assert torch.equal(got, pdm.binned_aupr_ungrouped(M, Y, W, n_bins,
-                                                      from_margin))
+    for adds in (1, 2):
+        assert torch.equal(got, pdm.binned_aupr_variant(
+            M, Y, W, n_bins, from_margin, adds))
     assert pt.LAUNCHES["binned_aupr"] == before + 2
     return got
 

@@ -35,9 +35,9 @@
 //   Every full-mask warp intrinsic runs in control flow that is the same
 //   for the 32 lanes: all of a block's threads step through its range
 //   together, and a lane past the range or on a zero weight still calls
-//   `warp_add`, with no bucket. `binned_aupr_ungrouped` launches the same
-//   kernels with plain per-lane adds instead, as a yardstick for the
-//   grouping.
+//   `warp_add`, with no bucket. `binned_aupr_variant` launches the same
+//   kernels with one add a lane instead (after a `__syncwarp` or not), as
+//   yardsticks for the grouping.
 // - G = 1: the block walks the curve itself. G > 1: each block writes its
 //   histogram to scratch; a second kernel sums each bucket's G partials in
 //   block order (the same bits on every run) and a third walks each pair's
@@ -95,14 +95,20 @@ __device__ __forceinline__ void add2(float* ha, float* hp, int b, float a,
 // share buckets (a lane and its neighbour do), the lanes of a bucket are
 // summed by a shuffle tree over their ranks (a fixed order for a fixed
 // layout of rows on lanes) and the lowest lane adds the sums.
-// GROUPS = false: one add a lane, always.
-template <bool GROUPS>
+// ADDS = 1: one add a lane, always; ADDS = 2: the same after the warp's
+// lanes meet at a `__syncwarp`.
+template <int ADDS>
 __device__ __forceinline__ void warp_add(float* ha, float* hp, int b,
                                          float va, float vp) {
+  if (ADDS != 0) {
+    if (ADDS == 2) __syncwarp();
+    if (b >= 0) add2(ha, hp, b, va, vp);
+    return;
+  }
   const int lane = threadIdx.x & 31;
-  const int nb = GROUPS ? __shfl_xor_sync(FULL, b, 1) : -1;
+  const int nb = __shfl_xor_sync(FULL, b, 1);
   // no lane shares its neighbour's bucket: spread scores, one add a lane
-  if (!GROUPS || !__any_sync(FULL, b >= 0 && b == nb)) {
+  if (!__any_sync(FULL, b >= 0 && b == nb)) {
     if (b >= 0) add2(ha, hp, b, va, vp);
     return;
   }
@@ -216,7 +222,7 @@ __device__ void pr_curve(const float* ha, const float* hp, int n_bins,
   if (t == 0) *out = n_pos > 0.0 ? (float)total : 0.f;
 }
 
-template <bool SHARED, bool GROUPS>
+template <bool SHARED, int ADDS>
 __global__ void __launch_bounds__(THREADS)
 aupr_hist_kernel(const float* __restrict__ m, const float* __restrict__ y,
                  const float* __restrict__ w, int n, int n_bins,
@@ -252,7 +258,7 @@ aupr_hist_kernel(const float* __restrict__ m, const float* __restrict__ y,
         vp = wv[u] * yv[u];
         va = wv[u];
       }
-      warp_add<GROUPS>(hist, hist + n_bins, b, va, vp);
+      warp_add<ADDS>(hist, hist + n_bins, b, va, vp);
     }
   }
   __syncthreads();
@@ -289,7 +295,7 @@ aupr_curve_kernel(const float* __restrict__ part, int n_bins, int G,
   pr_curve(hist, hist + n_bins, n_bins, out + p, cs);
 }
 
-template <bool GROUPS>
+template <int ADDS>
 int launch(const void* m, const void* y, const void* w, int P, int n,
            int n_bins, int from_margin, int G, int chunk, void* part,
            void* out, void* stream) {
@@ -305,11 +311,11 @@ int launch(const void* m, const void* y, const void* w, int P, int n,
   float* pf = static_cast<float*>(part);
   float* of = static_cast<float*>(out);
   if (shared) {
-    aupr_hist_kernel<true, GROUPS>
+    aupr_hist_kernel<true, ADDS>
         <<<grid, THREADS, 2 * n_bins * sizeof(float), s>>>(
         mf, yf, wf, n, n_bins, from_margin, G, chunk, pf, of);
   } else {
-    aupr_hist_kernel<false, GROUPS><<<grid, THREADS, 0, s>>>(
+    aupr_hist_kernel<false, ADDS><<<grid, THREADS, 0, s>>>(
         mf, yf, wf, n, n_bins, from_margin, G, chunk, pf, of);
   }
   cudaError_t err = cudaGetLastError();
@@ -333,14 +339,19 @@ extern "C" int binned_aupr_shared_max_bins() { return SHARED_MAX_BINS; }
 extern "C" int binned_aupr(const void* m, const void* y, const void* w, int P,
                            int n, int n_bins, int from_margin, int G,
                            int chunk, void* part, void* out, void* stream) {
-  return launch<true>(m, y, w, P, n, n_bins, from_margin, G, chunk, part,
-                      out, stream);
+  return launch<0>(m, y, w, P, n, n_bins, from_margin, G, chunk, part, out,
+                   stream);
 }
 
-extern "C" int binned_aupr_ungrouped(const void* m, const void* y,
-                                     const void* w, int P, int n, int n_bins,
-                                     int from_margin, int G, int chunk,
-                                     void* part, void* out, void* stream) {
-  return launch<false>(m, y, w, P, n, n_bins, from_margin, G, chunk, part,
-                       out, stream);
+// the same with ADDS = adds (1 or 2; see warp_add)
+extern "C" int binned_aupr_variant(int adds, const void* m, const void* y,
+                                   const void* w, int P, int n, int n_bins,
+                                   int from_margin, int G, int chunk,
+                                   void* part, void* out, void* stream) {
+  if (adds == 1) {
+    return launch<1>(m, y, w, P, n, n_bins, from_margin, G, chunk, part,
+                     out, stream);
+  }
+  return launch<2>(m, y, w, P, n, n_bins, from_margin, G, chunk, part, out,
+                   stream);
 }
