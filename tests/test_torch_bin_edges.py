@@ -17,6 +17,7 @@ make the same f32 comparisons (f16 edges widened to f32 first).
 """
 
 import os
+import re
 import sys
 
 import jax.numpy as jnp
@@ -109,3 +110,15 @@ def test_search_alone_differs_from_broadcast_on_unsorted_edges():
     differ = (pt.search_bins_plain(Xt, et)
               != pt.bin_features_plain(Xt, et).to(torch.int32)).any(0)
     assert differ.any() and not (differ & pt.monotone_edges(et)).any()
+
+
+@pytest.mark.parametrize("fn", sorted(pt._BIN_ENTRIES.values()))
+def test_ctypes_argtypes_name_every_c_parameter(fn):
+    """The wrapper declares every parameter of K4's entry points, the
+    stream too (ctypes would pass an undeclared pointer as a 32-bit
+    int)."""
+    with open(os.path.join(os.path.dirname(pt.__file__), os.pardir, "csrc",
+                           "bin_features.cu")) as f:
+        params = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)",
+                           f.read())[1]
+    assert len(params.split(",")) == len(pt._BIN_ARGS)

@@ -21,6 +21,9 @@ bit-equal: f32 sums of integer-valued weights below 2^24 are exact in
 any order.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,3 +106,22 @@ def test_block_order_mirror_is_bit_equal_to_the_plain_version(
     got = pdm.binned_aupr_blocks_plain(M, Y, W, n_bins, from_margin, blocks)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert want[0] > 0 and want[1] > 0 and want[2] == 0 and want[3] == 0
+
+
+def _c_params(source: str, fn: str) -> int:
+    """The number of parameters of `extern "C" int fn(...)` in
+    transmogrifai_tpu_torch/csrc/<source>."""
+    text = (Path(pdm.__file__).resolve().parents[1] / "csrc"
+            / source).read_text()
+    params = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)[1]
+    return len([p for p in params.split(",") if p.strip()])
+
+
+@pytest.mark.parametrize("fn,lead", [("binned_aupr", 0),
+                                     ("binned_aupr_variant", 1)])
+def test_ctypes_argtypes_name_every_c_parameter(fn, lead):
+    """The wrapper declares every parameter of K8's entry points, the
+    stream too (ctypes would pass an undeclared pointer as a 32-bit
+    int)."""
+    assert _c_params("binned_aupr.cu", fn) == lead + len(pdm._AUPR_ARGS)
+    assert _c_params("binned_aupr.cu", "binned_aupr_shared_max_bins") == 0

@@ -184,13 +184,15 @@ _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 def launch(index: int, fn, *args) -> int:
     """`fn(*args, stream)` on CUDA device `index` and its current stream,
     entering the device's context only when it is not the current
-    device; returns the entry point's error code."""
+    device; returns the entry point's error code. The stream goes as a
+    `c_void_p`, whole even where `fn`'s declared argtypes leave it out
+    (ctypes passes an undeclared int as a 32-bit C int)."""
     if index != torch.cuda.current_device():
         with torch.cuda.device(index):
             return launch(index, fn, *args)
     stream = (_raw_stream(index) if _raw_stream is not None
               else torch.cuda.current_stream(index).cuda_stream)
-    return fn(*args, stream)
+    return fn(*args, ctypes.c_void_p(stream))
 
 
 def check(fn_name: str, err: int) -> None:

@@ -231,8 +231,9 @@ def binned_aupr_blocks_plain(m: torch.Tensor, y: torch.Tensor,
     return _pr_area(hp.reshape(P, n_bins), ha.reshape(P, n_bins))
 
 
+# m, y, w; P, n, n_bins, from_margin, G, chunk; part, out, stream
 _AUPR_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (
-    ctypes.c_void_p,) * 2
+    ctypes.c_void_p,) * 3
 
 
 def _binned_aupr_launch(fn_name, m, y, w, n_bins, from_margin, lead=()):
