@@ -372,81 +372,12 @@ def launch_idiom_floor(pt, X1, e) -> dict:
         f"{k}_ms_least": v[1] for k, v in t.items()}
 
 
-def grouped_warp_steps(pdm, m, w, nb: int, from_margin: bool):
-    """(grouped, steps): of the K8 kernel's warp steps (32 neighbouring
-    rows of a block's range, `aupr_row_blocks`) on these inputs, those
-    that take its grouping of lanes, where some lane with a weight shares
-    its bucket with its neighbour lane (lane ^ 1), as `warp_add` tests
-    it, and all of them."""
-    P, n = m.shape
-    G, chunk = pdm.aupr_row_blocks(P, n, nb)
-    b = torch.where(w != 0, pdm.score_bins(m, nb, from_margin).long(), -1)
-    r = torch.arange(n, device=m.device)
-    o = r % chunk
-    partner = r - o + (o ^ 1)
-    ok = ((o ^ 1) < chunk) & (partner < n)
-    shares = (b >= 0) & ok & (b == b[:, torch.where(ok, partner, r)])
-    warp = (r // chunk) * -(-chunk // 32) + o // 32
-    nw = G * -(-chunk // 32)
-    took = torch.zeros((P, nw), dtype=torch.int32, device=m.device)
-    took.scatter_reduce_(1, warp.expand(P, n), shares.int(), "amax")
-    held = torch.zeros(nw, dtype=torch.int32, device=m.device)
-    held[warp] = 1
-    return int(took.sum()), P * int(held.sum())
-
-
-def k8_sweep_inputs(pt, pdm, sweep) -> dict:
-    """K8 on the training path's own inputs: the early-stopping metric's
-    margins (512 buckets) at every call of one run of `sweep`, recorded
-    through `trees.binned_aupr`. Over all the calls: the share of warp
-    steps that take the kernel's grouping of lanes, and the calls' summed
-    ms with and without it, in turns (the same bits asserted)."""
-    calls = []
-    real = pt.binned_aupr
-
-    def record(m, y, w, n_bins, from_margin):
-        calls.append((m.clone(), y.clone(), w.clone(), n_bins, from_margin))
-        return real(m, y, w, n_bins, from_margin)
-    pt.binned_aupr = record
-    try:
-        sweep()
-    finally:
-        pt.binned_aupr = real
-    grouped = steps = 0
-    for m, y, w, nb, fm in calls:
-        g, k = grouped_warp_steps(pdm, m, w, nb, fm)
-        grouped, steps = grouped + g, steps + k
-        got = pdm.binned_aupr(m, y, w, nb, fm)
-        if not all(torch.equal(got, pdm.binned_aupr_variant(m, y, w, nb, fm,
-                                                            a))
-                   for a in (1, 2)):
-            raise AssertionError("K8 without its grouping of lanes gives "
-                                 "other bits on the sweep's margins")
-
-    def run(f):
-        for m, y, w, nb, fm in calls:
-            f(m, y, w, nb, fm)
-    def variant(adds):
-        return lambda *a: pdm.binned_aupr_variant(*a, adds)
-    t = in_turns({"ms": (lambda: run(pdm.binned_aupr), 5),
-                  "ungrouped_ms": (lambda: run(variant(1)), 5),
-                  "synced_ms": (lambda: run(variant(2)), 5)}, rounds=4)
-    return {"calls": len(calls),
-            "shapes": sorted({tuple(c[0].shape) for c in calls}),
-            "grouped_warps": grouped / max(steps, 1),
-            **{k: v[0] for k, v in t.items()}}
-
-
-def k8_timing(pdm, m, y, w, nb: int, from_margin: bool,
-              iters: int) -> dict:
+def k8_timing(pdm, m, y, w, nb: int, from_margin: bool, iters: int,
+              warmup: int = 3) -> dict:
     """K8 on P score rows m (P, n): CUDA-event ms, the bound, the plain
     version and `bincount` x 2 (the two histograms alone, no curve) as the
     yardstick; its blocks a pair (`aupr_row_blocks`), its error against
-    the plain version and whether two runs give the same bits. To weigh
-    the kernel's grouping of lanes that share a bucket: the share of warp
-    steps that take it (`grouped_warps`) and the kernel without it
-    (`ungrouped_ms`; `synced_ms` the same after a `__syncwarp`; the same
-    bits), all timed in turns."""
+    the plain version and whether two runs give the same bits."""
     P, n = m.shape
     nbytes = 2 * P * n * 4 + n * 4 + P * 4
     b_ms, b_by = bound(nbytes, (10 if from_margin else 4) * P * n
@@ -461,34 +392,20 @@ def k8_timing(pdm, m, y, w, nb: int, from_margin: bool,
     got = pdm.binned_aupr(m, y, w, nb, from_margin)
     again = pdm.binned_aupr(m, y, w, nb, from_margin)
     want = pdm.binned_aupr_plain(m, y, w, nb, from_margin)
-    variants = [pdm.binned_aupr_variant(m, y, w, nb, from_margin, a)
-                for a in (1, 2)]
-    grouped, steps = grouped_warp_steps(pdm, m, w, nb, from_margin)
-    t = in_turns({
-        "ms": (lambda: pdm.binned_aupr(m, y, w, nb, from_margin), iters),
-        "ungrouped_ms": (lambda: pdm.binned_aupr_variant(
-            m, y, w, nb, from_margin, 1), iters),
-        "synced_ms": (lambda: pdm.binned_aupr_variant(
-            m, y, w, nb, from_margin, 2), iters)}, rounds=4)
-    rec = {"ms": t["ms"][0], "ungrouped_ms": t["ungrouped_ms"][0],
-           "synced_ms": t["synced_ms"][0],
+    rec = {"ms": cuda_ms(lambda: pdm.binned_aupr(m, y, w, nb, from_margin),
+                         iters, warmup),
            "plain_ms": cuda_ms(lambda: pdm.binned_aupr_plain(
                m, y, w, nb, from_margin), max(iters // 5, 2), 1),
            "library_ms": cuda_ms(library, max(iters // 5, 2), 1),
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
            "pairs": P, "rows": n, "buckets": nb,
            "blocks": pdm.aupr_row_blocks(P, n, nb)[0],
-           "grouped_warps": grouped / steps,
            "max_abs_err": max_err(got, want),
            "run_to_run_equal": torch.equal(got.view(torch.int32),
-                                           again.view(torch.int32)),
-           "ungrouped_equal": all(torch.equal(got.view(torch.int32),
-                                              v.view(torch.int32))
-                                  for v in variants)}
-    if rec["max_abs_err"] != 0.0 or not rec["run_to_run_equal"] \
-            or not rec["ungrouped_equal"]:
-        raise AssertionError(f"K8 disagrees with its plain version, "
-                             f"between runs or without its grouping: {rec}")
+                                           again.view(torch.int32))}
+    if rec["max_abs_err"] != 0.0 or not rec["run_to_run_equal"]:
+        raise AssertionError(f"K8 disagrees with its plain version or "
+                             f"between runs: {rec}")
     return rec
 
 
@@ -1251,11 +1168,10 @@ def train_path(port, pt, device="cuda"):
 
 
 def sweep_busy_share(port, model, ds, models, label, device="cuda",
-                     draws=None, k8_inputs=False):
+                     draws=None):
     """The sweep of the trained selector over `models` ((estimator,
     grids) pairs) run again under torch.profiler: the device's busy and
-    idle share of its wall time; with `k8_inputs`, K8 on the sweep's own
-    early-stopping margins (`k8_sweep_inputs`)."""
+    idle share of its wall time."""
     from transmogrifai_tpu_torch.models import trees as pt
     from transmogrifai_tpu_torch.parallel.sweep import run_sweep
     from transmogrifai_tpu_torch.selector.splitters import DataBalancer
@@ -1309,9 +1225,6 @@ def sweep_busy_share(port, model, ds, models, label, device="cuda",
               "device_idle_share": 1 - busy / plain_wall if items
               else "not measured",
               "top_device_items_ms": items[:8]}
-    if k8_inputs:
-        from transmogrifai_tpu_torch.evaluators import device_metrics as pdm
-        record["binned_aupr"] = k8_sweep_inputs(pt, pdm, sweep)
     emit(record)
     return record
 
@@ -3250,7 +3163,7 @@ def big_kernel_timings(pbd, pt, pdm, X16, Xb, chunk_f16, edges, y, Vf, rf,
     Vb = Vf[None].expand(P, n).contiguous()
     out["binned_aupr"] = k8_timing(pdm, s, y, Vb, 4096, False, 20)
     # the same scores clustered: 90 % of the rows moved into one bucket,
-    # where a warp's lanes mostly share it
+    # whose shared-memory sums every block's adds contend for
     gen = torch.Generator(dev).manual_seed(90)
     sc = s.clone()
     sc[:, torch.rand(n, device=dev, generator=gen) < 0.9] = 0.4
@@ -4000,8 +3913,7 @@ def main() -> int:
     fit_timing = time_training_kernels(pt, pdm, fit_cases)
     del fit_cases
     sweep_busy_share(port, trained, train_ds,
-                     [(port.OpXGBoostClassifier(**XGB), GRID)], "xgboost",
-                     k8_inputs=True)
+                     [(port.OpXGBoostClassifier(**XGB), GRID)], "xgboost")
     from transmogrifai_tpu_torch.selector.model_selector import (
         _default_binary_models)
     sweep_busy_share(port, default_model, default_ds,

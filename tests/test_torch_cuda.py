@@ -19,8 +19,7 @@ to run; K2 split features and bins equal when fed the same histograms
 node ids equal and leaf values within atol 1e-6 of the plain version and
 bit-equal to a row-order f32 sum; K8 binned AuPR equal at 512, 4096 and
 16,384 buckets, one block a pair and rows split over blocks, on clustered
-scores, without positives, and the same bits on two runs and without the
-grouping of lanes. Forest kernels (m = 2 class channels, integer values): K1 and
+scores, without positives, and the same bits on two runs. Forest kernels (m = 2 class channels, integer values): K1 and
 K1-sub equal (integer sums are exact in any order), K2 and K3 leaves as
 above; a depth-12 forest grown on the card equals the CPU's. The same at
 m = 3 class channels (a depth-12 three-class forest) and m = 1 with the
@@ -353,11 +352,6 @@ def _check_aupr(cuda, m, y, w, n_bins, from_margin):
     G, _ = pdm.aupr_row_blocks(*m.shape, n_bins)
     assert torch.equal(got, pdm.binned_aupr_blocks_plain(
         M, Y, W, n_bins, from_margin, G))
-    # the yardstick without the grouping of lanes: the same bits, no count
-    for adds in (1, 2):
-        assert torch.equal(got, pdm.binned_aupr_variant(
-            M, Y, W, n_bins, from_margin, adds))
-    assert pt.LAUNCHES["binned_aupr"] == before + 2
     return got
 
 

@@ -27,24 +27,18 @@
 // P x G fills the card, and G = 1 for small inputs).
 // - A block keeps private f32 histograms of w and w * y in shared memory
 //   (in its own slice of the global scratch above SHARED_MAX_BINS
-//   buckets). Each thread has UNROLL rows' loads in flight. Where
-//   neighbouring lanes of a warp share a bucket, lanes of a bucket add once:
-//   `__match_any_sync` groups them and a shuffle tree sums each group in a
-//   fixed lane order, so clustered scores do not serialise on one address
-//   (spread scores skip the grouping, which costs more than it saves).
-//   Every full-mask warp intrinsic runs in control flow that is the same
-//   for the 32 lanes: all of a block's threads step through its range
-//   together, and a lane past the range or on a zero weight still calls
-//   `warp_add`, with no bucket. `binned_aupr_variant` launches the same
-//   kernels with one add a lane instead (after a `__syncwarp` or not), as
-//   yardsticks for the grouping.
+//   buckets). Each thread has UNROLL rows' loads in flight and adds each
+//   row with a weight once. (Grouping the lanes of a warp that share a
+//   bucket with `__match_any_sync` did not pay on the training path's
+//   margins; clustered scores still contend for one address.)
 // - G = 1: the block walks the curve itself. G > 1: each block writes its
 //   histogram to scratch; a second kernel sums each bucket's G partials in
 //   block order (the same bits on every run) and a third walks each pair's
 //   curve. The three launch from one C call.
 // - The curve: a block scan in f64 over chunks of THREADS buckets from the
 //   top bucket down, each thread's trapezoid terms summed by the block and
-//   rounded to f32 once.
+//   rounded to f32 once. Its full-mask warp shuffles run where every
+//   thread of the block does (no lane has left or branched off).
 //
 // The histograms are f32 atomics inside a block (each bucket's adds in no
 // fixed order) and f32 sums of the partials in block order: exact, and so
@@ -89,44 +83,6 @@ __device__ __forceinline__ void add2(float* ha, float* hp, int b, float a,
                                      float p) {
   atomicAdd(ha + b, a);
   if (p != 0.f) atomicAdd(hp + b, p);
-}
-
-// Adds (va, vp) of every lane with b >= 0 to (ha[b], hp[b]). Where lanes
-// share buckets (a lane and its neighbour do), the lanes of a bucket are
-// summed by a shuffle tree over their ranks (a fixed order for a fixed
-// layout of rows on lanes) and the lowest lane adds the sums.
-// ADDS = 1: one add a lane, always; ADDS = 2: the same after the warp's
-// lanes meet at a `__syncwarp`.
-template <int ADDS>
-__device__ __forceinline__ void warp_add(float* ha, float* hp, int b,
-                                         float va, float vp) {
-  if (ADDS != 0) {
-    if (ADDS == 2) __syncwarp();
-    if (b >= 0) add2(ha, hp, b, va, vp);
-    return;
-  }
-  const int lane = threadIdx.x & 31;
-  const int nb = __shfl_xor_sync(FULL, b, 1);
-  // no lane shares its neighbour's bucket: spread scores, one add a lane
-  if (!__any_sync(FULL, b >= 0 && b == nb)) {
-    if (b >= 0) add2(ha, hp, b, va, vp);
-    return;
-  }
-  const unsigned peers = __match_any_sync(FULL, b);
-  unsigned rank = __popc(peers & ((1u << lane) - 1u));
-  unsigned above = peers & (0xfffffffeu << lane);
-  while (__any_sync(FULL, above)) {
-    const int next = __ffs(above);  // 1 + the next peer above, 0 if none
-    const float ta = __shfl_sync(FULL, va, (next - 1) & 31);
-    const float tp = __shfl_sync(FULL, vp, (next - 1) & 31);
-    if (next) {
-      va += ta;
-      vp += tp;
-    }
-    above &= ~__ballot_sync(FULL, rank & 1u);  // odd ranks are summed in
-    rank >>= 1;
-  }
-  if (b >= 0 && lane == __ffs(peers) - 1) add2(ha, hp, b, va, vp);
 }
 
 __device__ __forceinline__ double warp_sum(double v) {
@@ -222,7 +178,7 @@ __device__ void pr_curve(const float* ha, const float* hp, int n_bins,
   if (t == 0) *out = n_pos > 0.0 ? (float)total : 0.f;
 }
 
-template <bool SHARED, int ADDS>
+template <bool SHARED>
 __global__ void __launch_bounds__(THREADS)
 aupr_hist_kernel(const float* __restrict__ m, const float* __restrict__ y,
                  const float* __restrict__ w, int n, int n_bins,
@@ -251,14 +207,10 @@ aupr_hist_kernel(const float* __restrict__ m, const float* __restrict__ y,
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      int b = -1;
-      float vp = 0.f, va = 0.f;
       if (wv[u] != 0.f) {
-        b = bucket_of(mv[u], from_margin, n_bins);
-        vp = wv[u] * yv[u];
-        va = wv[u];
+        add2(hist, hist + n_bins, bucket_of(mv[u], from_margin, n_bins),
+             wv[u], wv[u] * yv[u]);
       }
-      warp_add<ADDS>(hist, hist + n_bins, b, va, vp);
     }
   }
   __syncthreads();
@@ -295,10 +247,11 @@ aupr_curve_kernel(const float* __restrict__ part, int n_bins, int G,
   pr_curve(hist, hist + n_bins, n_bins, out + p, cs);
 }
 
-template <int ADDS>
-int launch(const void* m, const void* y, const void* w, int P, int n,
-           int n_bins, int from_margin, int G, int chunk, void* part,
-           void* out, void* stream) {
+}  // namespace
+
+extern "C" int binned_aupr(const void* m, const void* y, const void* w, int P,
+                           int n, int n_bins, int from_margin, int G,
+                           int chunk, void* part, void* out, void* stream) {
   const bool shared = n_bins <= SHARED_MAX_BINS;
   if ((G > 1 || !shared) && part == nullptr) {
     return (int)cudaErrorInvalidValue;
@@ -311,11 +264,10 @@ int launch(const void* m, const void* y, const void* w, int P, int n,
   float* pf = static_cast<float*>(part);
   float* of = static_cast<float*>(out);
   if (shared) {
-    aupr_hist_kernel<true, ADDS>
-        <<<grid, THREADS, 2 * n_bins * sizeof(float), s>>>(
+    aupr_hist_kernel<true><<<grid, THREADS, 2 * n_bins * sizeof(float), s>>>(
         mf, yf, wf, n, n_bins, from_margin, G, chunk, pf, of);
   } else {
-    aupr_hist_kernel<false, ADDS><<<grid, THREADS, 0, s>>>(
+    aupr_hist_kernel<false><<<grid, THREADS, 0, s>>>(
         mf, yf, wf, n, n_bins, from_margin, G, chunk, pf, of);
   }
   cudaError_t err = cudaGetLastError();
@@ -330,28 +282,6 @@ int launch(const void* m, const void* y, const void* w, int P, int n,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
 // buckets up to which a block's histograms live in shared memory; above
 // it the launch needs `part` whatever G is
 extern "C" int binned_aupr_shared_max_bins() { return SHARED_MAX_BINS; }
-
-extern "C" int binned_aupr(const void* m, const void* y, const void* w, int P,
-                           int n, int n_bins, int from_margin, int G,
-                           int chunk, void* part, void* out, void* stream) {
-  return launch<0>(m, y, w, P, n, n_bins, from_margin, G, chunk, part, out,
-                   stream);
-}
-
-// the same with ADDS = adds (1 or 2; see warp_add)
-extern "C" int binned_aupr_variant(int adds, const void* m, const void* y,
-                                   const void* w, int P, int n, int n_bins,
-                                   int from_margin, int G, int chunk,
-                                   void* part, void* out, void* stream) {
-  if (adds == 1) {
-    return launch<1>(m, y, w, P, n, n_bins, from_margin, G, chunk, part,
-                     out, stream);
-  }
-  return launch<2>(m, y, w, P, n, n_bins, from_margin, G, chunk, part, out,
-                   stream);
-}

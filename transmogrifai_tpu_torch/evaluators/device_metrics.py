@@ -236,7 +236,7 @@ _AUPR_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (
     ctypes.c_void_p,) * 3
 
 
-def _binned_aupr_launch(fn_name, m, y, w, n_bins, from_margin, lead=()):
+def _binned_aupr_cuda(m, y, w, n_bins, from_margin):
     _shapes(m, y, w)
     for name, t in (("labels", y), ("weights", w)):
         if t.device != m.device:
@@ -252,8 +252,7 @@ def _binned_aupr_launch(fn_name, m, y, w, n_bins, from_margin, lead=()):
     if P == 0:
         return out
     m, y, w = m.contiguous(), y.contiguous(), w.contiguous()
-    fn = cuda_build.entry("binned_aupr", fn_name,
-                          (ctypes.c_int,) * len(lead) + _AUPR_ARGS)
+    fn = cuda_build.entry("binned_aupr", "binned_aupr", _AUPR_ARGS)
     G, chunk = aupr_row_blocks(P, n, n_bins)
     part = None
     # above the kernel's shared-memory limit a block's histograms live in
@@ -262,30 +261,12 @@ def _binned_aupr_launch(fn_name, m, y, w, n_bins, from_margin, lead=()):
             "binned_aupr", "binned_aupr_shared_max_bins", ())():
         part = m.new_empty(P * G * 2 * n_bins)
     err = cuda_build.launch(
-        m.get_device(), fn, *lead, m.data_ptr(), y.data_ptr(), w.data_ptr(), P, n,
+        m.get_device(), fn, m.data_ptr(), y.data_ptr(), w.data_ptr(), P, n,
         n_bins, int(bool(from_margin)), G, chunk,
         None if part is None else part.data_ptr(), out.data_ptr())
-    cuda_build.check(fn_name, err)
+    cuda_build.check("binned_aupr", err)
+    cuda_build.count("binned_aupr")
     return out
-
-
-def _binned_aupr_cuda(m, y, w, n_bins, from_margin):
-    out = _binned_aupr_launch("binned_aupr", m, y, w, n_bins, from_margin)
-    if out.numel():
-        cuda_build.count("binned_aupr")
-    return out
-
-
-def binned_aupr_variant(m: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-                        n_bins: int, from_margin: bool,
-                        adds: int) -> torch.Tensor:
-    """The K8 kernel on CUDA tensors with one shared add a lane, without
-    the grouping of lanes that share a bucket (`adds` = 1), or the same
-    after a `__syncwarp` (2): the yardsticks that `chip_smoke.py` times
-    beside K8 to weigh the grouping. No path of the port calls them, so
-    they count no launch."""
-    return _binned_aupr_launch("binned_aupr_variant", m, y, w, n_bins,
-                               from_margin, (adds,))
 
 
 def binned_aupr(m: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
