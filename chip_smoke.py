@@ -3,8 +3,11 @@
     python3 chip_smoke.py
 
 Drives the port (`transmogrifai_tpu_torch`) only: it imports neither jax
-nor the JAX package. Phases, one JSON line each; any failure exits
-non-zero:
+nor the JAX package. Without a CUDA device, or as a copy alone in a
+directory without the port's package beside it, it prints one JSON line
+naming what is missing (`{"phase": "preflight", "ok": false, "missing":
+[...]}`) and exits 2, with no result line. Phases, one JSON line each;
+any failure exits non-zero:
 
 1. the card's name and power limit (from nvidia-smi), then the build of
    every CUDA kernel of the port (ten sources) from
@@ -39,7 +42,9 @@ non-zero:
    summation bound of the plain version (per cell 2·(m − 1)·2^-24·Σ|v|,
    m the node's rows: both sum the same values in different orders) and
    bit-equal run to run; K2 split features and bins equal
-   from the same histograms; K3 node ids equal, leaf values bit-equal to
+   from the same histograms, dense and over the live set (the nodes that
+   hold rows); K3 node ids and flags (routing out of place, the next
+   level's live set) equal, leaf values bit-equal to
    the CPU's row-order sums and within atol 1e-6 of the card's
    `index_add_`; K8 binned AuPR equal at 512 and 4096 buckets. Then the
    skewed cases (`skew_check`): K1 on one node of 2^20 + 12345 rows cut
@@ -58,11 +63,14 @@ non-zero:
    winner equal, fold and holdout AuPR within 1e-2), then
    saved, reloaded with `load_model(device="cuda")` and scored on all 891
    rows: equal to the in-memory model's scores. The launch counters are
-   set to 0 before the train and read after the reload's scores: K1, K2,
-   K3, K8 and K4 must all have launched;
+   set to 0 before the train and read after the reload's scores: K1, K2
+   (dense at the root, over the live set below), K3, K8 and K4 must all
+   have launched;
 9. training timings: each training kernel at the path's shapes and at
    n = 65536 beside its bound, its plain version and its one-call
-   yardstick (`index_add_` for K1, `bincount` for K8); the training wall
+   yardstick (`index_add_` for K1, `bincount` for K8); K2 over the live
+   set and dense, beside a bound of live-cell bytes and one of dense
+   bytes; K3's routing eager and as a CUDA-graph replay; the training wall
    split into feature fit, sanity checker, sweep and refit; the device's
    busy share of the XGBoost sweep and of the default sweep from
    `torch.profiler`;
@@ -75,10 +83,20 @@ non-zero:
    grouped by their 1024 parents, K1-sub (sibling subtraction, level 10 ->
    11), K2 with m = 2 over 2048 nodes, K3 routing and K3 leaves with m = 2
    over 4096 leaves, each against its plain version on the chunk's first
-   pairs: equal (integer sums); then each timed on the whole chunk beside
-   its bound, its plain version and `index_add_` (K1) as a yardstick
-   (K1-sub has none: it writes both children, `torch.sub` the left ones
-   only);
+   pairs: equal (integer sums). Then the chunk's depth-12 trees grown
+   level by level (`live_levels_check`), for both child-weight grids of
+   the bucket, and the same at P = 6 over float gradients (min_child_weight
+   1 / gamma 0, and 0 / -1, where an empty left child carries parent −
+   right's rounding residue): at every level K2 over the live set (K3's
+   flags and K2's marks of left children) equal to the dense kernel on
+   every pair and to the plain version on the checked pairs, every node
+   with a row or a non-zero cell in the live set, K3's node ids and flags
+   equal to the plain version, and the tables equal to `grow_trees`'; the
+   live nodes a level recorded. Then each kernel timed on the whole chunk
+   beside its bound, its plain version and `index_add_` (K1) as a
+   yardstick (K1-sub has none: it writes both children, `torch.sub` the
+   left ones only); K2 dense and over level 11's live set, K3 eager and
+   replayed;
 12. the README quickstart verbatim — `with_cross_validation()` with no
    `models=`, so LR (8 configs) + RF (18 configs of 50 trees, depth
    buckets 4, 6 and 12) + XGB (2 configs), 3 folds — trained by
@@ -215,6 +233,7 @@ non-zero:
 """
 
 import contextlib
+import ctypes
 import hashlib
 import json
 import logging
@@ -235,7 +254,8 @@ TRAIN_FIXTURE = os.path.join(HERE, "transmogrifai_tpu_torch", "testdata",
 TITANIC = os.path.join(HERE, "examples", "data", "titanic.csv")
 SIZES = (1, 64, 891, 65536)
 SERVING_KERNELS = ("bin_features", "tree_walk")
-TRAINING_KERNELS = ("histograms", "split_search", "route_level",
+TRAINING_KERNELS = ("histograms", "split_search", "split_search_live",
+                    "route_level",
                     "leaf_values", "binned_aupr", "bin_features")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; f32 outside the
 # tensor cores, the rate for the compares, index updates and adds here
@@ -354,14 +374,15 @@ def launch_idiom_floor(pt, X1, e) -> dict:
 
     def entry_launch():
         cuda_build.check(name, cuda_build.launch(
-            idx, cuda_build.entry("bin_features", name, pt._BIN_ARGS),
-            *args))
+            idx, cuda_build.entry("bin_features", name), *args))
 
-    def declare_device():
+    def declare_device():  # the wrappers' idiom before `entry` + `launch`
         fn = cuda_build.declare(cuda_build.load("bin_features"), name,
                                 pt._BIN_ARGS)
         with torch.cuda.device(X1.device):
-            cuda_build.check(name, fn(*args, pt._stream_ptr(X1)))
+            stream = ctypes.c_void_p(
+                torch.cuda.current_stream(X1.device).cuda_stream)
+            cuda_build.check(name, fn(*args, stream))
     entry_launch()
     if not torch.equal(out, pt.bin_features_plain(X1, e)):
         raise AssertionError("K4 launched through `cuda_build.launch` "
@@ -544,6 +565,110 @@ FIT_P, FIT_N, FIT_D, FIT_BINS = 6, 802, 496, 32
 FIT_LEVELS = (0, 5, 9)
 
 
+def occupancy(node, n_nodes: int):
+    """(P, n_nodes) uint8 flags of the nodes that hold a row: the live set
+    K3's routing writes for the next level's split search."""
+    occ = torch.zeros((node.shape[0], n_nodes), dtype=torch.uint8,
+                      device=node.device)
+    return occ.scatter_(1, node.long(), 1)
+
+
+def k2_cells(P, m, nodes, d, n_bins, live=None, fmask=None) -> int:
+    """The histogram cells K2 must read: of every node (dense) or of the
+    live ones, and of each pair's features in its mask (feature 0's
+    weights also when it is masked: they give the node's total)."""
+    per_pair = torch.full((P,), nodes, dtype=torch.float64) if live is None \
+        else live.sum(1).double().cpu()
+    if fmask is None:
+        feats = torch.full((P,), float(d * (m + 1)), dtype=torch.float64)
+    else:
+        fm = fmask.bool().cpu()
+        feats = fm.sum(1).double() * (m + 1) + (~fm[:, 0]).double()
+    return int((per_pair * feats).sum()) * n_bins
+
+
+def k2_bytes(P, m, nodes, d, n_bins, live=None, fmask=None) -> int:
+    """K2's least traffic: its cells (`k2_cells`) read once, the two
+    tables written once, the flags of a live set and a mask read once."""
+    return k2_cells(P, m, nodes, d, n_bins, live, fmask) * 4 \
+        + 2 * P * nodes * 4 + (0 if live is None else P * nodes) \
+        + (0 if fmask is None else P * d)
+
+
+def device_kw(kw, P, dev):
+    """Split-search keywords with each hyperparameter a (P,) tensor on the
+    card, as the learners pass them (a Python value becomes a tensor by a
+    host copy that waits for the card, once a tree in the learners)."""
+    from transmogrifai_tpu_torch.models.base import per_pair
+    out = dict(kw)
+    for k in ("reg_lambda", "min_child_weight", "min_gain", "min_gain_norm"):
+        out[k] = per_pair(kw[k], P, dev)
+    if kw.get("active_depth") is not None:
+        out["active_depth"] = per_pair(kw["active_depth"], P, dev,
+                                       torch.int32)
+    return out
+
+
+def k2_timing(pt, hg, hh, n_bins, kw, live, iters, plain_iters=3):
+    """K2 dense (every node) and over the live set, with the keywords as
+    the learners pass them (`device_kw`): CUDA-event ms, the plain
+    version, and each beside its bound (dense bytes, live-cell bytes)."""
+    P, m, nodes, d, _ = hg.shape
+    kw = device_kw(kw, P, hg.device)
+    live_nodes = int(live.sum())
+    fm = kw.get("feature_mask")
+    dense_b = k2_bytes(P, m, nodes, d, n_bins, None, fm)
+    live_b = k2_bytes(P, m, nodes, d, n_bins, live, fm)
+    # 12 operations a cell scanned (two running sums, the gain, the test)
+    d_ms, d_by = bound(dense_b, 12 * k2_cells(P, m, nodes, d, n_bins, None,
+                                              fm))
+    l_ms, l_by = bound(live_b, 12 * k2_cells(P, m, nodes, d, n_bins, live,
+                                             fm))
+    return {"dense_ms": cuda_ms(lambda: pt.split_search(hg, hh, n_bins, **kw),
+                                iters),
+            "ms": cuda_ms(lambda: pt.split_search(hg, hh, n_bins, live=live,
+                                                  **kw), iters),
+            "plain_ms": cuda_ms(lambda: pt.split_search_plain(
+                hg, hh, n_bins, **kw), plain_iters, warmup=1),
+            "library_ms": None, "bound_ms": l_ms, "bound_by": l_by,
+            "bytes": live_b, "dense_bound_ms": d_ms, "dense_bound_by": d_by,
+            "dense_bytes": dense_b, "live_nodes": live_nodes,
+            "nodes": P * nodes}
+
+
+def k3_route_timing(pt, Xb, node, f, b, iters, plain_iters=10):
+    """K3's routing as the learner calls it (out of place into a buffer it
+    keeps, flags written):
+    eager CUDA-event ms a call (at small shapes the wrapper's host work)
+    and `graph_ms` a CUDA-graph replay (the device time), beside the
+    bound (node ids read and written once, the rows' cells of Xb the
+    routing reads once, the tables read and the flags set once) and the
+    plain version. The eager time is the median of eight runs of `iters`
+    calls (`in_turns`), the least beside it."""
+    P, n = node.shape
+    nodes = f.shape[1]
+    occ = torch.zeros((P, 2 * nodes), dtype=torch.uint8, device=node.device)
+    d = Xb.shape[1]
+    cells = int(torch.unique(
+        torch.arange(n, device=Xb.device)[None] * d
+        + torch.gather(f.long(), 1, node.long())).numel())
+    children = int(occupancy(pt.route_level(Xb, node, f, b), 2 * nodes)
+                   .sum())
+    nbytes = 2 * P * n * 4 + cells * Xb.element_size() + 2 * P * nodes * 4 \
+        + children
+    b_ms, b_by = bound(nbytes, 3 * P * n)
+    out = torch.empty_like(node)
+    eager = in_turns({"ms": (lambda: pt.route_level(
+        Xb, node, f, b, occupied=occ, out=out), iters)})["ms"]
+    return {"ms": eager[0], "ms_least": eager[1],
+            "graph_ms": graph_ms(lambda: pt.route_level(
+                Xb, node, f, b, occupied=occ, out=out), iters),
+            "plain_ms": cuda_ms(lambda: pt.route_level_plain(
+                Xb, node, f, b, occupied=occ), plain_iters),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes}
+
+
 def fit_inputs(rng, n: int, level: int, dev):
     """Binned rows (n, 496) int8 with a duplicate column, node ids (6, n)
     over the level's 2^level nodes, G and H (6, n)."""
@@ -563,8 +688,8 @@ SPLIT_KW = dict(reg_lambda=1.0, min_child_weight=[1.0, 10.0] * 3,
 def check_training_kernels(pt, pdm, rng, dev):
     """Each training kernel against its plain version; returns the phase's
     record and the inputs for the timings."""
-    worst = {"histograms": 0.0, "split_search": 0, "route_level": 0,
-             "leaf_values": 0.0, "binned_aupr": 0.0}
+    worst = {"histograms": 0.0, "split_search": 0, "split_search_live": 0,
+             "route_level": 0, "leaf_values": 0.0, "binned_aupr": 0.0}
     cases = {}
     for n in (FIT_N, 65536):
         for level in FIT_LEVELS:
@@ -599,8 +724,23 @@ def check_training_kernels(pt, pdm, rng, dev):
             worst["split_search"] = max(worst["split_search"], diff)
             if diff:
                 raise AssertionError(f"K2 disagrees (n={n}, level {level})")
-            out = pt.route_level(Xb, node, f, b)
-            diff = int((out != pt.route_level_plain(Xb, node, f, b)).sum())
+            # the live set: the nodes that hold rows
+            live = occupancy(node, n_nodes)
+            lf, lb = pt.split_search(hg, hh, FIT_BINS, level=level,
+                                     live=live, **SPLIT_KW)
+            diff = int((lf != wf).sum() + (lb != wb).sum())
+            worst["split_search_live"] = max(worst["split_search_live"],
+                                             diff)
+            if diff:
+                raise AssertionError(f"K2 over the live set disagrees "
+                                     f"(n={n}, level {level})")
+            occ = torch.zeros((FIT_P, 2 * n_nodes), dtype=torch.uint8,
+                              device=dev)
+            wocc = torch.zeros_like(occ)
+            out = pt.route_level(Xb, node, f, b, occupied=occ)
+            diff = int((out != pt.route_level_plain(
+                Xb, node, f, b, occupied=wocc)).sum()
+                + (occ != wocc).sum())
             worst["route_level"] = max(worst["route_level"], diff)
             if diff:
                 raise AssertionError(f"K3 route disagrees (n={n}, level "
@@ -615,7 +755,7 @@ def check_training_kernels(pt, pdm, rng, dev):
             err = float((leaf - card).abs().max())
             worst["leaf_values"] = max(worst["leaf_values"], err)
             torch.testing.assert_close(leaf, card, rtol=0, atol=1e-6)
-            cases[(n, level)] = (Xb, node, G, H, hg, hh, f, b, out)
+            cases[(n, level)] = (Xb, node, G, H, hg, hh, f, b, out, live)
     for n in (FIT_N, 65536):
         m = torch.from_numpy((rng.normal(size=(FIT_P, n)) * 2)
                              .astype(np.float32)).to(dev)
@@ -639,7 +779,9 @@ def check_training_kernels(pt, pdm, rng, dev):
               "levels": list(FIT_LEVELS), "max_abs_err": worst,
               "tolerance": {"histograms": "per cell 2(m-1) 2^-24 sum|v| "
                             "(m: the node's rows); bit-equal run to run",
-                            "split_search": "equal", "route_level": "equal",
+                            "split_search": "equal",
+                            "split_search_live": "equal",
+                            "route_level": "equal (node ids and flags)",
                             "leaf_values": "bit-equal to row-order sums; "
                             "atol 1e-6 to index_add_",
                             "binned_aupr": "equal"}}
@@ -655,7 +797,7 @@ def time_training_kernels(pt, pdm, cases):
         if key[0] == "aupr":
             continue
         n, level = key
-        Xb, node, G, H, hg, hh, f, b, routed = val
+        Xb, node, G, H, hg, hh, f, b, routed, live = val
         P, d, B = FIT_P, FIT_D, FIT_BINS
         n_nodes = 2 ** level
         k1_bytes = n * d + 2 * P * n * 4 + P * n * 4 \
@@ -682,24 +824,9 @@ def time_training_kernels(pt, pdm, cases):
               "bound_ms": k1_bound, "bound_by": k1_by, "bytes": k1_bytes,
               "scratch_bytes": pt.hist_scratch_bytes(P, n, n_nodes, 1, d, B)}
         del cell, srcg, srch
-        k2_bytes = 2 * P * n_nodes * d * B * 4 + 2 * P * n_nodes * 4
-        k2_bound, k2_by = bound(k2_bytes, 14 * P * n_nodes * d * B)
-        k2 = {"ms": cuda_ms(lambda: pt.split_search(
-                  hg, hh, B, level=level, **SPLIT_KW), 20),
-              "plain_ms": cuda_ms(lambda: pt.split_search_plain(
-                  hg, hh, B, level=level, **SPLIT_KW), 3),
-              "library_ms": None, "bound_ms": k2_bound, "bound_by": k2_by,
-              "bytes": k2_bytes}
-        cells = int(torch.unique(
-            torch.arange(n, device=Xb.device)[None] * d
-            + torch.gather(f.long(), 1, node.long())).numel())
-        k3r_bytes = 2 * P * n * 4 + cells + 2 * P * n_nodes * 4
-        k3r_bound, k3r_by = bound(k3r_bytes, 3 * P * n)
-        k3r = {"ms": cuda_ms(lambda: pt.route_level(Xb, node, f, b), 50),
-               "plain_ms": cuda_ms(lambda: pt.route_level_plain(
-                   Xb, node, f, b), 10),
-               "library_ms": None, "bound_ms": k3r_bound,
-               "bound_by": k3r_by, "bytes": k3r_bytes}
+        k2 = k2_timing(pt, hg, hh, B, dict(level=level, **SPLIT_KW), live,
+                       20)
+        k3r = k3_route_timing(pt, Xb, node, f, b, 50)
         L = 2 * n_nodes
         k3l_bytes = 3 * P * n * 4 + P * (L + 1) * 4 + P * L * 4
         k3l_bound, k3l_by = bound(k3l_bytes, 2 * P * n + 5 * P * L)
@@ -974,25 +1101,16 @@ def time_forest_kernels(pt, c):
     histogram kernels are timed, so the plain versions' outputs fit."""
     Pc, n, d, B, m = c["Pc"], FIT_N, FIT_D, FIT_BINS, RF_M
     out = {}
-    cells11 = Pc * (m + 1) * 2048 * d * B
-    k2_bytes = cells11 * 4 + 2 * Pc * 2048 * 4 + Pc * d
-    k2_bound, k2_by = bound(k2_bytes, 12 * cells11)
+    k2 = k2_timing(pt, c["cg"], c["ch"], B, c["kw"], c["live11"], 10,
+                   plain_iters=2)
+    # the dense search: every node (the yardstick), its bound every cell's
     out["split_search"] = {
-        "ms": cuda_ms(lambda: pt.split_search(c["cg"], c["ch"], B,
-                                              **c["kw"]), 10),
-        "plain_ms": cuda_ms(lambda: pt.split_search_plain(
-            c["cg"], c["ch"], B, **c["kw"]), 2, warmup=1),
-        "library_ms": None, "bound_ms": k2_bound, "bound_by": k2_by,
-        "bytes": k2_bytes}
+        "ms": k2["dense_ms"], "plain_ms": k2["plain_ms"],
+        "library_ms": None, "bound_ms": k2["dense_bound_ms"],
+        "bound_by": k2["dense_bound_by"], "bytes": k2["dense_bytes"]}
+    out["split_search_live"] = k2
     Xb, node11, f, b = c["Xb"], c["node11"], c["f"], c["b"]
-    k3r_bytes = 2 * Pc * n * 4 + n * d + 2 * Pc * 2048 * 4
-    k3r_bound, k3r_by = bound(k3r_bytes, 3 * Pc * n)
-    out["route_level"] = {
-        "ms": cuda_ms(lambda: pt.route_level(Xb, node11, f, b), 50),
-        "plain_ms": cuda_ms(lambda: pt.route_level_plain(Xb, node11, f, b),
-                            10),
-        "library_ms": None, "bound_ms": k3r_bound, "bound_by": k3r_by,
-        "bytes": k3r_bytes}
+    out["route_level"] = k3_route_timing(pt, Xb, node11, f, b, 50)
     G, H, node12 = c["G"], c["H"], c["node12"]
     k3l_bytes = (m + 2) * Pc * n * 4 + Pc * 4097 * 4 + Pc * 4096 * m * 4
     k3l_bound, k3l_by = bound(k3l_bytes, (m + 1) * Pc * n + 5 * Pc * 4096 * m)
@@ -1013,7 +1131,7 @@ def time_forest_kernels(pt, c):
         "bound_by": k3l_by, "bytes": k3l_bytes,
         **leaf_designs_ms(pt, node12, G, H, 4096, 1e-6, 20)}
     del slot, leaf_srcs
-    for k in ("cg", "ch", "f", "b"):
+    for k in ("cg", "ch", "f", "b", "live11"):
         del c[k]
     torch.cuda.empty_cache()
     hg10, hh10, hg_r, hh_r = c["hg10"], c["hh10"], c["hg_r"], c["hh_r"]
@@ -1059,6 +1177,162 @@ def time_forest_kernels(pt, c):
     del cell, srcs
     emit({"phase": "forest_timing", "pairs": Pc, "level": 11, **out})
     return out
+
+
+def pair_kw(kw, sl, P):
+    """The split-search keywords of pairs `sl`: per-pair tensors sliced."""
+    return {k: (v[sl] if torch.is_tensor(v) and v.dim() and v.shape[0] == P
+                else v) for k, v in kw.items()}
+
+
+def nonzero_nodes(hg, hh, step: int = 4):
+    """(P, nodes) bool: the nodes with a non-zero cell, a few pairs at a
+    time (a whole level's bool temporaries would not fit beside it)."""
+    out = []
+    for p0 in range(0, hh.shape[0], step):
+        g, h = hg[p0:p0 + step], hh[p0:p0 + step]
+        out.append((h != 0).flatten(2).any(2)
+                   | (g != 0).transpose(1, 2).flatten(2).any(2))
+    return torch.cat(out)
+
+
+def grow_checked(pt, Xb, G, H, depth, kw, checked):
+    """`grow_trees`' levels one by one on the card (sibling subtraction
+    from depth 12), holding each level's K2 over the live set (the flags
+    K3 and K2's marks wrote) to the dense kernel on every pair and to the
+    plain version on the pairs `checked`, the live set to every node with
+    a non-zero cell or a row, and K3's node ids and flags to the plain
+    version; then the tables to `grow_trees`' (the main path). Returns
+    the record, the flags, the final node ids and the histograms of the
+    last level."""
+    P, n = H.shape
+    dev = Xb.device
+    max_nodes = 2 ** depth
+    flags = torch.zeros((P, depth, max_nodes), dtype=torch.uint8, device=dev)
+    feats = torch.zeros((P, depth, max_nodes), dtype=torch.int32, device=dev)
+    bins = torch.full((P, depth, max_nodes), FIT_BINS, dtype=torch.int32,
+                      device=dev)
+    node = torch.zeros((P, n), dtype=torch.int32, device=dev)
+    subtract = depth >= 12
+    rec = {"live_nodes_mean": [], "live_nodes_max": [],
+           "nodes_with_rows_mean": [], "residue_nodes": 0, "diff": 0,
+           "first_residue": None}
+    if subtract:
+        hg, hh = pt.histograms(Xb, node, G, H, 1, FIT_BINS)
+    for level in range(depth):
+        n_nodes = 2 ** level
+        if not subtract:
+            hg, hh = pt.histograms(Xb, node, G, H, n_nodes, FIT_BINS)
+        live = flags[:, level, :n_nodes] if level else None
+        nxt = flags[:, level + 1, :2 * n_nodes] if level + 1 < depth \
+            else None
+        here = (feats[:, level, :n_nodes], bins[:, level, :n_nodes])
+        pt.split_search(hg, hh, FIT_BINS, level=level, live=live, out=here,
+                        mark=nxt if subtract else None, **kw)
+        df, db = pt.split_search(hg, hh, FIT_BINS, level=level, **kw)
+        diff = int((here[0] != df).sum() + (here[1] != db).sum())
+        for p in checked:
+            sl = slice(p, p + 1)
+            wf, wb = pt.split_search_plain(hg[sl], hh[sl], FIT_BINS,
+                                           level=level,
+                                           **pair_kw(kw, sl, P))
+            diff += int((here[0][sl] != wf).sum() + (here[1][sl] != wb)
+                        .sum())
+        rows = occupancy(node, n_nodes).bool()
+        on = torch.ones_like(rows) if live is None else live.bool()
+        nz = nonzero_nodes(hg, hh)
+        if bool((nz & ~on).any()) or bool((rows & ~on).any()):
+            raise AssertionError(f"a node outside the live set holds rows "
+                                 f"or a non-zero cell (level {level})")
+        residue = (on & ~rows & nz).nonzero()
+        if residue.shape[0] and rec["first_residue"] is None:
+            p, k = residue[0].tolist()
+            rec["first_residue"] = {"level": level, "pair": p, "node": k,
+                                    "max_abs_cell": float(
+                                        hh[p, k].abs().max())}
+        rec["residue_nodes"] += int(residue.shape[0])
+        rec["live_nodes_mean"].append(float(on.sum(1).float().mean()))
+        rec["live_nodes_max"].append(int(on.sum(1).max()))
+        rec["nodes_with_rows_mean"].append(float(rows.sum(1).float().mean()))
+        del nz, df, db
+        prev = node
+        node = pt.route_level(Xb, node, *here, occupied=nxt)
+        if nxt is not None:
+            for p in checked:
+                sl = slice(p, p + 1)
+                wocc = torch.zeros((1, 2 * n_nodes), dtype=torch.uint8,
+                                   device=dev)
+                if subtract:  # K2's marks: the left child of a searched node
+                    wocc[:, 0::2] = on[sl].to(torch.uint8)
+                wn = pt.route_level_plain(Xb, prev[sl], here[0][sl],
+                                          here[1][sl], occupied=wocc)
+                diff += int((wn != node[sl]).sum() + (wocc != nxt[sl]).sum())
+        if subtract and level + 1 < depth:
+            parent = torch.where((node & 1).bool(), node >> 1,
+                                 torch.full_like(node, n_nodes))
+            hg_r, hh_r = pt.histograms(Xb, parent, G, H, n_nodes, FIT_BINS)
+            hg, hh = pt.sibling_subtract(hg, hh, hg_r, hh_r)
+            del hg_r, hh_r
+        rec["diff"] = max(rec["diff"], diff)
+        if diff:
+            raise AssertionError(f"K2 over the live set or K3's flags "
+                                 f"disagree (level {level})")
+    del hg, hh
+    torch.cuda.empty_cache()
+    tree, main_node = pt.grow_trees(Xb, G, H, depth, FIT_BINS, **kw)
+    if not (torch.equal(tree["feat"], feats) and torch.equal(tree["bin"], bins)
+            and torch.equal(main_node, node)):
+        raise AssertionError("grow_trees' tables differ from the checked "
+                             "levels'")
+    rec["splits"] = int((bins < FIT_BINS).sum())
+    return rec, flags, node
+
+
+def live_levels_check(pt, rng, c, dev):
+    """K2 over the live set against the dense kernel and the plain version
+    at levels 0-11 of the forest chunk's depth-12 trees, for the depth-12
+    bucket's two child-weight grids (10 / 100 with min_gain_norm 0.001,
+    and 1 with 0), recording the live nodes a level; then the same at P =
+    6 over float gradients (a GBT round's shape: normal G, uniform H), at
+    min_child_weight 1 / gamma 0 and at min_child_weight 0 / gamma -1,
+    where a split may leave its left side empty and the empty left child
+    carries parent − right's rounding residue. Returns the record and the
+    level-11 live set of the first grid (the node ids equal `node11`)."""
+    Xb, G, H, Pc = c["Xb"], c["G"], c["H"], c["Pc"]
+    kw = {k: v for k, v in c["kw"].items() if k != "level"}
+    checked = sorted(set(range(min(RF_PLAIN_PAIRS - 1, Pc))) | {Pc - 1})
+    out = {"pairs": Pc, "checked_pairs": checked}
+    live11 = None
+    for name, kwg in (("grid_10_100", kw),
+                      ("grid_1", dict(kw, min_child_weight=1.0,
+                                      min_gain_norm=0.0))):
+        rec, flags, node = grow_checked(pt, Xb, G, H, RF_DEPTH, kwg, checked)
+        if live11 is None:
+            if not torch.equal(node, pt.route_level(
+                    Xb, c["node11"], c["f"], c["b"])):
+                raise AssertionError("the checked levels' trees differ from "
+                                     "the forest chunk's")
+            live11 = flags[:, 11, :2048].clone()
+        out[name] = rec
+        del flags, node
+        torch.cuda.empty_cache()
+    n, P = FIT_N, FIT_P
+    Gf = torch.from_numpy(rng.normal(size=(P, 1, n)).astype(np.float32)) \
+        .to(dev)
+    Hf = torch.from_numpy(rng.uniform(0.05, 1.0, (P, n)).astype(np.float32)) \
+        .to(dev)
+    for name, (mcw, gamma) in (("float_mcw1", (1.0, 0.0)),
+                               ("float_mcw0_gamma_neg", (0.0, -1.0))):
+        fkw = dict(reg_lambda=1.0, min_child_weight=mcw, min_gain=gamma,
+                   min_gain_norm=0.0, feature_mask=None, active_depth=None)
+        rec, _, _ = grow_checked(pt, Xb, Gf, Hf, RF_DEPTH, fkw,
+                                 [0, P - 1])
+        out[name] = rec
+        torch.cuda.empty_cache()
+    emit({"phase": "live_levels_check", **out,
+          "tolerance": "equal (tables, node ids and flags); every node "
+                       "with a row or a non-zero cell live"})
+    return out, live11
 
 
 # --------------------------------------------------------------------------- #
@@ -1375,6 +1649,35 @@ def default_train_path(port, pt, device="cuda"):
     return model, ds, record, draws
 
 
+def default_train_walls(port, pt, ds, draws, first, runs: int = 2) -> dict:
+    """The README quickstart trained `runs` more times as phase 12 trained
+    it (the same draws, no checks): the train wall and the sweep's static
+    groups of each run beside phase 12's, so the run-to-run spread is on
+    record."""
+    walls = [first["wall_s"]]
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        pred, label = readme_quickstart(port, ds)
+        with pt.injected_forest_draws(draws):
+            model = port.Workflow().set_result_features(pred, label) \
+                .set_input_dataset(ds).train(device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        summ = next(s for s in model.fitted.values() if hasattr(
+            getattr(s, "summary", None), "validation_results")).summary
+        walls.append({"train": train_s, "sweep": summ.timings["sweep_s"],
+                      "sweep_by_group": summ.timings["groups"],
+                      "refit": summ.timings["refit_s"]})
+    rec = {"phase": "default_train_walls",
+           "train_s": [w["train"] for w in walls],
+           "sweep_s": [w["sweep"] for w in walls],
+           "refit_s": [w["refit"] for w in walls],
+           "sweep_by_group_s": {g: [w["sweep_by_group"][g] for w in walls]
+                                for g in walls[0]["sweep_by_group"]}}
+    emit(rec)
+    return rec
+
+
 # --------------------------------------------------------------------------- #
 # the Iris and Boston examples: evaluation kernels, m = 3, training           #
 # --------------------------------------------------------------------------- #
@@ -1386,11 +1689,11 @@ EXAMPLE_FIXTURE = {ex: os.path.join(HERE, "transmogrifai_tpu_torch",
 # the kernels each example's train must launch
 EXAMPLE_KERNELS = {
     "iris": ("bin_features", "histograms", "sibling_subtract",
-             "split_search", "route_level", "leaf_values", "tree_walk",
-             "confusion_counts"),
+             "split_search", "split_search_live", "route_level",
+             "leaf_values", "tree_walk", "confusion_counts"),
     "boston": ("bin_features", "histograms", "sibling_subtract",
-               "split_search", "route_level", "leaf_values", "tree_walk",
-               "regression_moments")}
+               "split_search", "split_search_live", "route_level",
+               "leaf_values", "tree_walk", "regression_moments")}
 # validation-metric tolerance per family: Iris's F1 comes from equal class
 # predictions (f32 rounding of the weighted average); Boston's linear fit
 # runs the same FISTA steps, its forests and GBT sum float labels in
@@ -2266,7 +2569,8 @@ FAMILY_BANDS = {"binary": (("AuPR", 0.70, True), ("AuROC", 0.75, True)),
                 "iris": (("F1", 0.80, True),),
                 "boston": (("RMSE", 6.0, False), ("R2", 0.6, True))}
 TREE_KERNELS = ("bin_features", "histograms", "sibling_subtract",
-                "split_search", "route_level", "leaf_values", "tree_walk")
+                "split_search", "split_search_live", "route_level",
+                "leaf_values", "tree_walk")
 FAMILY_KERNELS = {"binary": TREE_KERNELS,
                   "iris": TREE_KERNELS + ("confusion_counts",),
                   "boston": TREE_KERNELS + ("regression_moments",)}
@@ -3103,30 +3407,29 @@ def big_kernel_timings(pbd, pt, pdm, X16, Xb, chunk_f16, edges, y, Vf, rf,
     kw = dict(reg_lambda=1e-6, min_child_weight=1.0, min_gain=0.0,
               min_gain_norm=0.0, feature_mask=fmask, level=L,
               active_depth=None)
-    cells = K * (m + 1) * nodes * d * BIG_BINS
-    kb = cells * 4 + 2 * K * nodes * 4 + K * d
-    b_ms, b_by = bound(kb, 12 * cells)
+    live = occupancy(node, nodes)  # the lockstep learners' live set
     bf, bb = pt.split_search(hg, hh, BIG_BINS, **kw)
+    lf, lb = pt.split_search(hg, hh, BIG_BINS, live=live, **kw)
     pf, pb = pt.split_search_plain(hg, hh, BIG_BINS, **kw)
+    k2 = k2_timing(pt, hg, hh, BIG_BINS, kw, live, 10, plain_iters=2)
     out["split_search"] = {
-        "ms": cuda_ms(lambda: pt.split_search(hg, hh, BIG_BINS, **kw), 10),
-        "plain_ms": cuda_ms(lambda: pt.split_search_plain(
-            hg, hh, BIG_BINS, **kw), 2, warmup=1),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "bytes": kb, "level": L,
-        "max_abs_err": max(max_err(bf, pf), max_err(bb, pb))}
-    del hg, hh, pf, pb
-    kb = 2 * K * n * 4 + n * d + 2 * K * nodes * 4
-    b_ms, b_by = bound(kb, 3 * K * n)
-    final = pt.route_level(Xb, node, bf, bb)
+        "ms": k2["dense_ms"], "plain_ms": k2["plain_ms"],
+        "library_ms": None, "bound_ms": k2["dense_bound_ms"],
+        "bound_by": k2["dense_bound_by"], "bytes": k2["dense_bytes"],
+        "level": L, "max_abs_err": max(max_err(bf, pf), max_err(bb, pb))}
+    out["split_search_live"] = {**k2, "level": L, "max_abs_err": max(
+        max_err(lf, pf), max_err(lb, pb))}
+    del hg, hh, pf, pb, lf, lb
+    occ = torch.zeros((K, 2 * nodes), dtype=torch.uint8, device=dev)
+    wocc = torch.zeros_like(occ)
+    final = pt.route_level(Xb, node, bf, bb, occupied=occ)
     out["route_level"] = {
-        "ms": cuda_ms(lambda: pt.route_level(Xb, node, bf, bb), 5),
-        "plain_ms": cuda_ms(lambda: pt.route_level_plain(Xb, node, bf, bb),
-                            2, warmup=1),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "bytes": kb, "level": L,
-        "max_abs_err": max_err(final, pt.route_level_plain(Xb, node, bf,
-                                                           bb))}
+        **k3_route_timing(pt, Xb, node, bf, bb, 5, plain_iters=2),
+        "level": L, "max_abs_err": max(
+            max_err(final, pt.route_level_plain(Xb, node, bf, bb,
+                                                occupied=wocc)),
+            max_err(occ, wocc))}
+    del occ, wocc
     leaves = 2 * nodes
     kb = (m + 2) * K * n * 4 + K * (leaves + 1) * 4 + K * leaves * m * 4
     b_ms, b_by = bound(kb, (m + 1) * K * n)
@@ -3187,8 +3490,9 @@ def big_kernel_timings(pbd, pt, pdm, X16, Xb, chunk_f16, edges, y, Vf, rf,
     return out
 
 
-BIG_KERNELS = ("write_rows", "histograms", "split_search", "route_level",
-               "leaf_values", "tree_walk", "binned_aupr")
+BIG_KERNELS = ("write_rows", "histograms", "split_search",
+               "split_search_live", "route_level", "leaf_values",
+               "tree_walk", "binned_aupr")
 
 
 # --------------------------------------------------------------------------- #
@@ -3205,7 +3509,8 @@ DEQUANT_ENTRIES = (("dequant_write_rows", "transmogrifai_tpu/parallel/"
 DEQUANT_KERNELS = tuple(f"{e}_int{b}" for e, _ in DEQUANT_ENTRIES
                         for b in (8, 4))
 CACHE_KERNELS = DEQUANT_KERNELS + ("write_rows", "histograms",
-                                   "split_search", "route_level",
+                                   "split_search", "split_search_live",
+                                   "route_level",
                                    "leaf_values", "tree_walk", "binned_aupr")
 # disk the phase needs beside the store: the largest artifact (f16) twice
 # (a rebuild displaces the old artifact before deleting it) and a margin
@@ -3708,10 +4013,27 @@ def big_path(rows: int = BIG_ROWS, fixture: bool = True,
     return rec
 
 
-def main() -> int:
+def missing_parts() -> list:
+    """What this run lacks before it can start: a CUDA device, and the
+    port's package beside this script (a copy of `chip_smoke.py` alone in
+    a directory has none)."""
+    import importlib.util
+    missing = []
     if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this "
-              "script needs an NVIDIA GPU", file=sys.stderr)
+        missing.append("a CUDA device: torch.cuda.is_available() is false")
+    if importlib.util.find_spec("transmogrifai_tpu_torch") is None:
+        missing.append(f"the transmogrifai_tpu_torch package beside "
+                       f"chip_smoke.py (looked in {HERE} and sys.path)")
+    return missing
+
+
+def main() -> int:
+    missing = missing_parts()
+    if missing:
+        # one line naming what is missing; no result line follows
+        emit({"phase": "preflight", "ok": False, "missing": missing})
+        print("chip_smoke: cannot run: " + "; ".join(missing),
+              file=sys.stderr)
         return 2
     from transmogrifai_tpu_torch import Dataset, cuda_build, load_model
     from transmogrifai_tpu_torch.models import trees as pt
@@ -3843,6 +4165,8 @@ def main() -> int:
     # 11. forest kernels at level 11 of the depth-12 bucket ----------------- #
     forest_check, forest_cases = check_forest_kernels(pt, rng, dev)
     emit(forest_check)
+    live_rec, forest_cases["live11"] = live_levels_check(pt, rng,
+                                                         forest_cases, dev)
     forest_timing = time_forest_kernels(pt, forest_cases)
     del forest_cases
     torch.cuda.empty_cache()
@@ -3851,6 +4175,7 @@ def main() -> int:
     default_model, default_ds, default_rec, default_draws = \
         default_train_path(port, pt)
     train_launches = default_rec["launches_main_path"]
+    default_train_walls(port, pt, default_ds, default_draws, default_rec)
 
     # 13. the evaluation kernels, and K1/K1-sub/K2/K3 at m = 3 ------------ #
     eval_cases = eval_kernels(pdm, rng, dev)
@@ -3945,6 +4270,9 @@ def main() -> int:
                    forest_check["max_abs_err"].get(k, 0.0))
             for k in set(check["max_abs_err"])
             | set(forest_check["max_abs_err"])}
+    errs["split_search_live"] = max(
+        [errs["split_search_live"]]
+        + [v["diff"] for v in live_rec.values() if isinstance(v, dict)])
 
     def train_entry(name, source, replaces, t):
         return {"name": name, "route": "cuda",
@@ -3984,6 +4312,9 @@ def main() -> int:
         train_entry("split_search", "split_search.cu",
                     "transmogrifai_tpu/models/trees.py:170",
                     forest_timing["split_search"]),
+        train_entry("split_search_live", "split_search.cu",
+                    "transmogrifai_tpu/models/trees.py:170",
+                    forest_timing["split_search_live"]),
         train_entry("route_level", "route_leaves.cu",
                     "transmogrifai_tpu/models/trees.py:271",
                     forest_timing["route_level"]),
@@ -4023,6 +4354,8 @@ def main() -> int:
         big_entry("histograms", "histograms.cu",
                   "transmogrifai_tpu/parallel/bigdata.py:1014"),
         big_entry("split_search", "split_search.cu",
+                  "transmogrifai_tpu/parallel/bigdata.py:1131"),
+        big_entry("split_search_live", "split_search.cu",
                   "transmogrifai_tpu/parallel/bigdata.py:1131"),
         big_entry("route_level", "route_leaves.cu",
                   "transmogrifai_tpu/parallel/bigdata.py:1080"),

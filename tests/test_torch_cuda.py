@@ -15,9 +15,14 @@ version add the same f32 leaf values in the same tree order. Training
 kernels: K1 histograms within rtol 1e-5 / atol 1e-5 of the plain version
 (`index_add_` adds in another order on the card) and bit-equal from run
 to run; K2 split features and bins equal when fed the same histograms
-(the same f32 operations in the same order, no fused multiply-adds); K3
-node ids equal and leaf values within atol 1e-6 of the plain version and
-bit-equal to a row-order f32 sum; K8 binned AuPR equal at 512, 4096 and
+(the same f32 operations in the same order, no fused multiply-adds),
+dense and over a live set (the nodes that hold rows, nodes outside it
+taking the pair's zero search, also at lambda 0 and min_child_weight 0
+where that search's gains are NaN), written into strided table rows, its
+marks equal; K3 node ids and flags equal, out of place and through a row
+stride, and leaf values within atol 1e-6 of the plain version and
+bit-equal to a row-order f32 sum; `grow_trees` over the live set equal to
+the dense search and to the CPU's, at depth 12 with float gradients; K8 binned AuPR equal at 512, 4096 and
 16,384 buckets, one block a pair and rows split over blocks, on clustered
 scores, without positives, and the same bits on two runs. Forest kernels (m = 2 class channels, integer values): K1 and
 K1-sub equal (integer sums are exact in any order), K2 and K3 leaves as
@@ -283,6 +288,108 @@ def test_split_search_kernel_equals_plain(cuda, P, n, d, n_bins, n_nodes,
     assert pt.LAUNCHES["split_search"] == before + 1
     wf, wb = pt.split_search_plain(hg, hh, n_bins, **kw)
     assert torch.equal(f, wf) and torch.equal(b, wb)
+
+
+def _live(node, n_nodes, extra_rate, rng):
+    """Flags of the nodes that hold rows, and a share of the others (the
+    subtraction path's left children)."""
+    live = torch.zeros((node.shape[0], n_nodes), dtype=torch.uint8,
+                       device=node.device).scatter_(1, node.long(), 1)
+    more = torch.from_numpy(rng.random(tuple(live.shape)) < extra_rate)
+    return live | more.to(live.device, torch.uint8)
+
+
+@pytest.mark.parametrize("P,n,d,n_bins,n_nodes", FIT_SHAPES + [
+    (53, 802, 496, 32, 2048), (16, 20000, 500, 32, 32)])
+@pytest.mark.parametrize("lam,mcw", [(1.0, 1.0), (0.0, 0.0)])
+def test_split_search_kernel_over_the_live_set_equals_plain(
+        cuda, P, n, d, n_bins, n_nodes, lam, mcw):
+    rng = np.random.default_rng(n * 7 + n_nodes)
+    Xb, node, G, H = _fit_inputs(rng, P, n, d, n_bins, n_nodes)
+    # a deep level: the rows fill a few nodes only
+    node = node % max(1, n_nodes // 64) * 64 if n_nodes >= 512 else node
+    Xb, node, G, H = (t.to(cuda) for t in (Xb, node, G, H))
+    hg, hh = pt.histograms(Xb, node, G, H, n_nodes, n_bins)
+    live = _live(node, n_nodes, 0.05, rng)
+    kw = dict(reg_lambda=lam, min_child_weight=mcw, min_gain=0.0,
+              min_gain_norm=0.0, feature_mask=None, level=3,
+              active_depth=None)
+    feats = torch.zeros((P, 3, 2 * n_nodes), dtype=torch.int32,
+                        device=cuda)
+    bins = torch.zeros_like(feats)
+    mark = torch.zeros((P, 3, 2 * n_nodes), dtype=torch.uint8, device=cuda)
+    before = dict(pt.LAUNCHES)
+    f, b = pt.split_search(hg, hh, n_bins, live=live,
+                           out=(feats[:, 1, :n_nodes], bins[:, 1, :n_nodes]),
+                           mark=mark[:, 2], **kw)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["split_search_live"] == \
+        before["split_search_live"] + 1
+    assert pt.LAUNCHES["split_search"] == before["split_search"]
+    wmark = torch.zeros((P, 2 * n_nodes), dtype=torch.uint8, device=cuda)
+    wf, wb = pt.split_search_plain(hg, hh, n_bins, live=live, mark=wmark,
+                                   **kw)
+    df, db = pt.split_search(hg, hh, n_bins, **kw)
+    assert torch.equal(f, wf) and torch.equal(b, wb)
+    assert torch.equal(f, df) and torch.equal(b, db)
+    assert torch.equal(mark[:, 2], wmark)
+    assert not feats[:, (0, 2)].any() and not mark[:, (0, 1)].any()
+
+
+@pytest.mark.parametrize("P,n,d,n_bins,n_nodes", FIT_SHAPES + [
+    (53, 802, 496, 32, 2048), (16, 20000, 500, 32, 32),
+    (3, 257, 13001, 8, 4)])  # rows too wide for a shared tile
+def test_route_kernel_out_of_place_with_flags_equals_plain(
+        cuda, P, n, d, n_bins, n_nodes):
+    rng = np.random.default_rng(n * 9 + n_nodes)
+    Xb, node, G, H = (t.to(cuda) for t in
+                      _fit_inputs(rng, P, n, d, n_bins, n_nodes))
+    feat = torch.zeros((P, 4, 2 * n_nodes), dtype=torch.int32, device=cuda)
+    bins = torch.zeros_like(feat)
+    feat[:, 2, :n_nodes] = torch.from_numpy(
+        rng.integers(0, d, (P, n_nodes)).astype(np.int32)).to(cuda)
+    bins[:, 2, :n_nodes] = torch.from_numpy(
+        rng.integers(0, n_bins + 1, (P, n_nodes)).astype(np.int32)).to(cuda)
+    occ = torch.zeros((P, 4, 2 * n_nodes), dtype=torch.uint8, device=cuda)
+    kept = node.clone()
+    out = pt.route_level(Xb, node, feat[:, 2, :n_nodes],
+                         bins[:, 2, :n_nodes], occupied=occ[:, 3])
+    torch.cuda.synchronize()
+    assert torch.equal(node, kept)
+    wocc = torch.zeros((P, 2 * n_nodes), dtype=torch.uint8, device=cuda)
+    want = pt.route_level_plain(Xb, node, feat[:, 2, :n_nodes].contiguous(),
+                                bins[:, 2, :n_nodes].contiguous(),
+                                occupied=wocc)
+    assert torch.equal(out, want) and torch.equal(occ[:, 3], wocc)
+    assert not occ[:, :3].any()
+    if Xb.shape[1] > 1:  # int32 bins take the other entry
+        out32 = pt.route_level(Xb.to(torch.int32), node,
+                               feat[:, 2, :n_nodes], bins[:, 2, :n_nodes])
+        assert torch.equal(out32, want)
+
+
+@pytest.mark.parametrize("min_child_weight,min_gain", [(1.0, 0.0),
+                                                       (0.0, -1.0)])
+def test_depth12_trees_over_the_live_set_equal_the_dense_search(
+        cuda, min_child_weight, min_gain):
+    """Float gradients on the subtraction path: residues of parent −
+    right in left children without rows (min_child_weight 0, gamma -1)
+    are searched, as the dense search searches them. (The CPU's sums run
+    in another order, so its trees may part at near-ties.)"""
+    rng = np.random.default_rng(12)
+    Xb, G, H = (t.to(cuda) for t in (
+        _fit_inputs(rng, 4, 600, 24, 16, 1)[i] for i in (0, 2, 3)))
+    kw = dict(reg_lambda=1.0, min_child_weight=min_child_weight,
+              min_gain=min_gain)
+    before = dict(pt.LAUNCHES)
+    tree, node = pt.grow_trees(Xb, G, H, 12, 16, **kw)
+    assert pt.LAUNCHES["split_search_live"] == \
+        before["split_search_live"] + 11
+    dense, dnode = pt.grow_trees(Xb, G, H, 12, 16, live=False, **kw)
+    torch.cuda.synchronize()
+    for k in ("feat", "bin", "leaf"):
+        assert torch.equal(tree[k], dense[k])
+    assert torch.equal(node, dnode)
 
 
 @pytest.mark.parametrize("P,n,d,n_bins,n_nodes", FIT_SHAPES)

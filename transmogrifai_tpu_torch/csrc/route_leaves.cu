@@ -9,10 +9,30 @@
 // node table and over all d features, and the leaf sums are a scatter-add.
 // On Hopper they are direct gathers.
 //
-// route_level: one thread per (pair, row):
-//   node[p, r] <- 2 * node[p, r] + (Xb[r, feat[p, node]] > bin[p, node])
-// A bin of n_bins never fires, so a node that did not split sends every
-// row left.
+// route_level, out of place:
+//   node_out[p, r] = 2 * k + (Xb[r, feat[p, k]] > bin[p, k]),  k = node_in[p, r]
+// and, with `occupied`, occupied[p, node_out[p, r]] = 1: the next level's
+// live set for K2 (every writer stores the same byte, so the order of the
+// stores does not matter; the caller zeroes the flags). A bin of n_bins
+// never fires, so a node that did not split sends every row left. The
+// split tables are read in place through a row stride (a level's row of
+// the learner's (P, depth, 2^depth) tables). Row-major over pairs: a block
+// copies a tile of R consecutive rows of Xb (contiguous bytes) into shared
+// memory with 16-byte loads, then its threads route every (row, pair) of
+// the tile from there, rows fastest (the node ids' reads and writes
+// coalesce), ROUTE_UNROLL items a thread at once. So each row of Xb comes
+// from device memory once for all P learners: with 16 learners over
+// millions of rows the bound is Xb's bytes, which pair-major order read as
+// one 32-byte sector per (pair, row). The loads that need no tile (node
+// ids, splits) are issued before the tile's are waited for. A few flags
+// (P x 2 n_nodes <= 8 KB) are set in a shared copy of the card's, and a
+// block stores only those the copy lacked: millions of rows set the same
+// few bytes, which one store each would queue on a few L2 lines. R shrinks
+// at small n so that the card has enough blocks; rows too wide for the
+// tile (past 40 KB) take
+// route_level_kernel instead: a row's S lanes (S a power of two, side by
+// side in a warp) read their pairs' cells of the row straight from device
+// memory, ROUTE_UNROLL pairs at once.
 //
 // The leaf pass: per (pair, leaf) the sum of H and of each of the m value
 // channels G_c over the leaf's rows, then the XGBoost leaf formula per
@@ -24,8 +44,9 @@
 // f32 sequence as the row-order scatter-add (`index_add_` on the CPU), in
 // both of the two designs below. No atomics.
 //
-// Bound on this card: bytes (the leaf pass reads G, H and the node ids
-// once); the old design, one thread per (pair, leaf) walking its segment
+// Bound on this card: bytes (routing reads the node ids and the rows'
+// sectors of Xb once, and writes the node ids once; the leaf pass reads
+// G, H and the node ids once); the old design, one thread per (pair, leaf) walking its segment
 // m + 1 times through two dependent loads a row, ran at a few hundred
 // times that at 16 x 64 leaves over 4.46M rows, and most of its time at
 // 802 rows went to sorting the rows by leaf first.
@@ -63,22 +84,170 @@ constexpr int MAX_M = 4;
 constexpr int SCAN_AHEAD = 4;   // groups of 32 node ids a scan warp loads
 constexpr int SEG_STEP = 128;   // rows a segment warp stages at once
 
+constexpr int ROUTE_UNROLL = 8;  // (row, pair) items a thread routes at once
+
+constexpr int ROUTE_TILE_BYTES = 40 * 1024;  // a tile's rows of Xb
+constexpr int ROUTE_TILE_ROWS = 128;
+constexpr int STAGE_UNROLL = 12;  // 16-byte loads a thread has in flight
+// flag bytes (P x 2 n_nodes) up to which a block sets them in a shared copy
+constexpr int ROUTE_FLAG_SNAP = 8 * 1024;
+
+// a block per tile of R rows; rows staged in shared memory. The loads
+// that do not need the tile (each item's node id and split, the flags'
+// copy) are issued before the tile's loads are waited for.
+template <typename BinT>
+__global__ void __launch_bounds__(THREADS)
+    route_tile_kernel(const BinT* __restrict__ Xb,
+                      const int32_t* __restrict__ feat,
+                      const int32_t* __restrict__ bins, int64_t table_stride,
+                      const int32_t* __restrict__ node_in,
+                      int32_t* __restrict__ node_out,
+                      uint8_t* __restrict__ occupied, int64_t occ_stride,
+                      int P, int n, int d, int n_nodes, int R,
+                      int tile_bytes) {
+  extern __shared__ __align__(16) unsigned char tile[];
+  const int64_t r0 = (int64_t)blockIdx.x * R;
+  const int rows = n - r0 < R ? (int)(n - r0) : R;
+  const int items = rows * P;  // item i: pair i / rows, row r0 + i % rows
+  int k[ROUTE_UNROLL], f[ROUTE_UNROLL], b[ROUTE_UNROLL];
+  auto fetch_nodes = [&](int i0) {
+#pragma unroll
+    for (int u = 0; u < ROUTE_UNROLL; ++u) {
+      const int i = i0 + u * THREADS;
+      const int p = i / rows, r = i - p * rows;
+      k[u] = i < items ? __ldg(node_in + (int64_t)p * n + r0 + r) : 0;
+    }
+  };
+  auto fetch_splits = [&](int i0) {
+#pragma unroll
+    for (int u = 0; u < ROUTE_UNROLL; ++u) {
+      const int i = i0 + u * THREADS;
+      const int64_t t = (int64_t)(i / rows) * table_stride + k[u];
+      f[u] = i < items ? __ldg(feat + t) : 0;
+      b[u] = i < items ? __ldg(bins + t) : 0;
+    }
+  };
+  fetch_nodes(threadIdx.x);
+  // the tile's bytes of Xb go to tile + shift (shift: the global start's
+  // offset within 16 bytes), so global and shared 16-byte words align:
+  // 16-byte copies over the middle, single bytes at the ragged ends
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(Xb) +
+                             r0 * d * (int64_t)sizeof(BinT);
+  const int64_t bytes = (int64_t)rows * d * (int64_t)sizeof(BinT);
+  const int shift = (int)((uintptr_t)src & 15);
+  const int head = bytes < ((16 - shift) & 15) ? (int)bytes
+                                                : (16 - shift) & 15;
+  const int64_t n16 = (bytes - head) / 16;
+  unsigned char* dst = tile + shift;
+  const uint4* src16 = reinterpret_cast<const uint4*>(src + head);
+  uint4* dst16 = reinterpret_cast<uint4*>(dst + head);
+  uint4 v[STAGE_UNROLL];
+#pragma unroll
+  for (int u = 0; u < STAGE_UNROLL; ++u)
+    if (threadIdx.x + u * THREADS < n16)
+      v[u] = __ldg(src16 + threadIdx.x + u * THREADS);
+  fetch_splits(threadIdx.x);
+  // the flags: with few of them, a shared copy of the card's (read from L2)
+  // takes this block's sets, and only the flags the copy lacked are
+  // stored, once a block (millions of rows set the same few bytes)
+  const int W = 2 * n_nodes;
+  unsigned char* snap = (occupied != nullptr && P * W <= ROUTE_FLAG_SNAP)
+                            ? tile + tile_bytes
+                            : nullptr;
+  if (snap != nullptr)
+    for (int j = threadIdx.x; j < P * W; j += THREADS) {
+      const int p = j / W;
+      snap[j] = __ldcg(occupied + (int64_t)p * occ_stride + (j - p * W));
+    }
+#pragma unroll
+  for (int u = 0; u < STAGE_UNROLL; ++u)
+    if (threadIdx.x + u * THREADS < n16)
+      dst16[threadIdx.x + u * THREADS] = v[u];
+  for (int64_t i = threadIdx.x + STAGE_UNROLL * THREADS; i < n16;
+       i += THREADS)
+    dst16[i] = __ldg(src16 + i);
+  for (int i = threadIdx.x; i < head; i += THREADS) dst[i] = src[i];
+  for (int64_t i = head + 16 * n16 + threadIdx.x; i < bytes; i += THREADS)
+    dst[i] = src[i];
+  __syncthreads();
+  const BinT* xs = reinterpret_cast<const BinT*>(dst);
+  for (int i0 = threadIdx.x; i0 < items; i0 += THREADS * ROUTE_UNROLL) {
+    if (i0 != (int)threadIdx.x) {
+      fetch_nodes(i0);
+      fetch_splits(i0);
+    }
+#pragma unroll
+    for (int u = 0; u < ROUTE_UNROLL; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i < items) {
+        const int p = i / rows, r = i - p * rows;
+        const int x = (int)xs[(int64_t)r * d + f[u]];
+        const int child = 2 * k[u] + (x > b[u] ? 1 : 0);
+        node_out[(int64_t)p * n + r0 + r] = child;
+        if (snap != nullptr) {
+          if (snap[p * W + child] == 0) snap[p * W + child] = 2;  // new
+        } else if (occupied != nullptr) {
+          occupied[(int64_t)p * occ_stride + child] = 1;
+        }
+      }
+    }
+  }
+  if (snap != nullptr) {
+    __syncthreads();
+    for (int j = threadIdx.x; j < P * W; j += THREADS)
+      if (snap[j] == 2) {
+        const int p = j / W;
+        occupied[(int64_t)p * occ_stride + (j - p * W)] = 1;
+      }
+  }
+}
+
 template <typename BinT>
 __global__ void route_level_kernel(const BinT* __restrict__ Xb,
                                    const int32_t* __restrict__ feat,
                                    const int32_t* __restrict__ bins,
-                                   int32_t* __restrict__ node, int P, int n,
-                                   int d, int n_nodes) {
+                                   int64_t table_stride,
+                                   const int32_t* __restrict__ node_in,
+                                   int32_t* __restrict__ node_out,
+                                   uint8_t* __restrict__ occupied,
+                                   int64_t occ_stride, int P, int n, int d,
+                                   int log_s) {
   const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= (int64_t)P * n) return;
-  const int p = (int)(i / n);
-  const int r = (int)(i - (int64_t)p * n);
-  const int k = node[i];
-  const int64_t t = (int64_t)p * n_nodes + k;
-  const int f = __ldg(feat + t);
-  const int b = __ldg(bins + t);
-  const int x = (int)__ldg(Xb + (int64_t)r * d + f);
-  node[i] = 2 * k + (x > b ? 1 : 0);
+  const int64_t r = i >> log_s;
+  const int j = (int)(i & ((1 << log_s) - 1));
+  if (r >= n) return;
+  const int S = 1 << log_s;
+  const BinT* xr = Xb + r * d;
+  for (int p0 = j; p0 < P; p0 += S * ROUTE_UNROLL) {
+    int k[ROUTE_UNROLL], f[ROUTE_UNROLL], b[ROUTE_UNROLL], x[ROUTE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < ROUTE_UNROLL; ++u) {
+      const int p = p0 + u * S;
+      k[u] = p < P ? __ldg(node_in + (int64_t)p * n + r) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < ROUTE_UNROLL; ++u) {
+      const int p = p0 + u * S;
+      const int64_t t = (int64_t)p * table_stride + k[u];
+      f[u] = p < P ? __ldg(feat + t) : 0;
+      b[u] = p < P ? __ldg(bins + t) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < ROUTE_UNROLL; ++u) {
+      const int p = p0 + u * S;
+      x[u] = p < P ? (int)__ldg(xr + f[u]) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < ROUTE_UNROLL; ++u) {
+      const int p = p0 + u * S;
+      if (p < P) {
+        const int child = 2 * k[u] + (x[u] > b[u] ? 1 : 0);
+        node_out[(int64_t)p * n + r] = child;
+        if (occupied != nullptr)
+          occupied[(int64_t)p * occ_stride + child] = 1;
+      }
+    }
+  }
 }
 
 struct LeafParams {
@@ -223,15 +392,58 @@ __global__ void leaf_segments_kernel(const float* __restrict__ G,
     write_leaf<M>(sums, lp, p, leaf + ((int64_t)p * n_leaves + k) * M);
 }
 
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (count <= 0) count = 132;
+  }
+  return count;
+}
+
 template <typename BinT>
 int launch_route(const void* Xb, const void* feat, const void* bins,
-                 void* node, int P, int n, int d, int n_nodes, void* stream) {
-  const int64_t total = (int64_t)P * n;
+                 int64_t table_stride, const void* node_in, void* node_out,
+                 void* occupied, int64_t occ_stride, int P, int n, int d,
+                 int n_nodes, void* stream) {
+  if (P <= 0 || n <= 0) return 0;
+  const int64_t row_bytes = (int64_t)d * sizeof(BinT);
+  const int64_t fit = (ROUTE_TILE_BYTES - 16) / row_bytes;
+  const int max_rows = fit < ROUTE_TILE_ROWS ? (int)fit : ROUTE_TILE_ROWS;
+  if (max_rows >= 4) {
+    // tiles of R rows: two a SM at small n, else as many rows as fit
+    const int64_t two = 2 * (int64_t)sm_count();
+    int R = (int)((n + two - 1) / two);
+    R = (R + 3) / 4 * 4;
+    if (R > max_rows) R = max_rows;
+    if (R < 4) R = 4;
+    const unsigned blocks = (unsigned)((n + R - 1) / R);
+    const int tile_bytes = (int)((R * row_bytes + 16 + 15) / 16 * 16);
+    const int64_t flags = (int64_t)P * 2 * n_nodes;
+    const size_t smem =
+        tile_bytes + (occupied != nullptr && flags <= ROUTE_FLAG_SNAP
+                          ? (size_t)flags
+                          : 0);
+    route_tile_kernel<BinT><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+        static_cast<const BinT*>(Xb), static_cast<const int32_t*>(feat),
+        static_cast<const int32_t*>(bins), table_stride,
+        static_cast<const int32_t*>(node_in), static_cast<int32_t*>(node_out),
+        static_cast<uint8_t*>(occupied), occ_stride, P, n, d, n_nodes, R,
+        tile_bytes);
+    return (int)cudaGetLastError();
+  }
+  // lanes a row: the least power of two with S * ROUTE_UNROLL >= P
+  int log_s = 0;
+  while ((ROUTE_UNROLL << log_s) < P && log_s < 5) ++log_s;
+  const int64_t total = (int64_t)n << log_s;
   const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
   route_level_kernel<BinT><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       static_cast<const BinT*>(Xb), static_cast<const int32_t*>(feat),
-      static_cast<const int32_t*>(bins), static_cast<int32_t*>(node), P, n,
-      d, n_nodes);
+      static_cast<const int32_t*>(bins), table_stride,
+      static_cast<const int32_t*>(node_in), static_cast<int32_t*>(node_out),
+      static_cast<uint8_t*>(occupied), occ_stride, P, n, d, log_s);
   return (int)cudaGetLastError();
 }
 
@@ -257,17 +469,27 @@ int launch_leaves(const float* G, const float* H, const int32_t* node,
 
 }  // namespace
 
+// Xb (n, d); feat, bins (P, >= n_nodes) int32 with row stride
+// table_stride; node_in, node_out (P, n) int32; occupied (P, >= 2 n_nodes)
+// uint8 with row stride occ_stride, or null
 extern "C" int route_level_i8(const void* Xb, const void* feat,
-                              const void* bins, void* node, int P, int n,
-                              int d, int n_nodes, void* stream) {
-  return launch_route<int8_t>(Xb, feat, bins, node, P, n, d, n_nodes, stream);
+                              const void* bins, int64_t table_stride,
+                              const void* node_in, void* node_out,
+                              void* occupied, int64_t occ_stride, int P,
+                              int n, int d, int n_nodes, void* stream) {
+  return launch_route<int8_t>(Xb, feat, bins, table_stride, node_in,
+                              node_out, occupied, occ_stride, P, n, d,
+                              n_nodes, stream);
 }
 
 extern "C" int route_level_i32(const void* Xb, const void* feat,
-                               const void* bins, void* node, int P, int n,
-                               int d, int n_nodes, void* stream) {
-  return launch_route<int32_t>(Xb, feat, bins, node, P, n, d, n_nodes,
-                               stream);
+                               const void* bins, int64_t table_stride,
+                               const void* node_in, void* node_out,
+                               void* occupied, int64_t occ_stride, int P,
+                               int n, int d, int n_nodes, void* stream) {
+  return launch_route<int32_t>(Xb, feat, bins, table_stride, node_in,
+                               node_out, occupied, occ_stride, P, n, d,
+                               n_nodes, stream);
 }
 
 extern "C" int leaf_values_max_m() { return MAX_M; }

@@ -20,7 +20,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -44,7 +44,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 LAUNCHES: Dict[str, int] = {
     "bin_features": 0, "bin_features_f16": 0, "tree_walk": 0,
     "tree_walk_narrow": 0, "tree_walk_classes": 0,
-    "histograms": 0, "split_search": 0,
+    "histograms": 0, "split_search": 0, "split_search_live": 0,
     "route_level": 0, "leaf_values": 0, "binned_aupr": 0,
     "sibling_subtract": 0, "confusion_counts": 0, "regression_moments": 0,
     "wire_dequant": 0, "write_rows": 0,
@@ -165,34 +165,53 @@ def declare(lib: ctypes.CDLL, fn: str, argtypes, restype=ctypes.c_int):
     return f
 
 
+# the ctypes argument types of every C entry point, {(source, function):
+# argtypes}, registered where the wrapper is defined; each names every C
+# parameter, the stream included (ctypes passes an undeclared int as a
+# 32-bit C int), and a CPU test holds each to its C signature
+ARGTYPES: Dict[Tuple[str, str], tuple] = {}
+
+
+def register(name: str, fns, argtypes) -> tuple:
+    """Record `argtypes` as those of the entry point(s) `fns` (a name or
+    several) of `csrc/<name>.cu`; returns them."""
+    argtypes = tuple(argtypes)
+    for fn in ([fns] if isinstance(fns, str) else fns):
+        ARGTYPES[(name, fn)] = argtypes
+    return argtypes
+
+
 _entries: Dict[tuple, object] = {}
 
 
-def entry(name: str, fn: str, argtypes, restype=ctypes.c_int):
+def entry(name: str, fn: str, restype=ctypes.c_int):
     """The C entry point `fn` of `csrc/<name>.cu`, built, loaded and
-    declared at its first call; later calls are one dict lookup."""
+    declared with its registered argtypes at its first call; later calls
+    are one dict lookup."""
     f = _entries.get((name, fn))
     if f is None:
-        f = declare(load(name), fn, argtypes, restype)
+        f = declare(load(name), fn, ARGTYPES[(name, fn)], restype)
         _entries[(name, fn)] = f
     return f
 
 
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+# the current device without `torch.cuda.current_device()`'s lazy-init
+# check: a launch follows tensors already on the card
+_current_device = getattr(torch._C, "_cuda_getDevice",
+                          lambda: torch.cuda.current_device())
 
 
 def launch(index: int, fn, *args) -> int:
     """`fn(*args, stream)` on CUDA device `index` and its current stream,
     entering the device's context only when it is not the current
-    device; returns the entry point's error code. The stream goes as a
-    `c_void_p`, whole even where `fn`'s declared argtypes leave it out
-    (ctypes passes an undeclared int as a 32-bit C int)."""
-    if index != torch.cuda.current_device():
+    device; returns the entry point's error code."""
+    if index != _current_device():
         with torch.cuda.device(index):
             return launch(index, fn, *args)
     stream = (_raw_stream(index) if _raw_stream is not None
               else torch.cuda.current_stream(index).cuda_stream)
-    return fn(*args, ctypes.c_void_p(stream))
+    return fn(*args, stream)
 
 
 def check(fn_name: str, err: int) -> None:

@@ -232,8 +232,10 @@ def binned_aupr_blocks_plain(m: torch.Tensor, y: torch.Tensor,
 
 
 # m, y, w; P, n, n_bins, from_margin, G, chunk; part, out, stream
-_AUPR_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (
-    ctypes.c_void_p,) * 3
+_AUPR_ARGS = cuda_build.register(
+    "binned_aupr", "binned_aupr",
+    (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,) * 3)
+cuda_build.register("binned_aupr", "binned_aupr_shared_max_bins", ())
 
 
 def _binned_aupr_cuda(m, y, w, n_bins, from_margin):
@@ -252,13 +254,13 @@ def _binned_aupr_cuda(m, y, w, n_bins, from_margin):
     if P == 0:
         return out
     m, y, w = m.contiguous(), y.contiguous(), w.contiguous()
-    fn = cuda_build.entry("binned_aupr", "binned_aupr", _AUPR_ARGS)
+    fn = cuda_build.entry("binned_aupr", "binned_aupr")
     G, chunk = aupr_row_blocks(P, n, n_bins)
     part = None
     # above the kernel's shared-memory limit a block's histograms live in
     # the scratch whatever G is (the kernel refuses a launch without it)
     if G > 1 or n_bins > cuda_build.entry(
-            "binned_aupr", "binned_aupr_shared_max_bins", ())():
+            "binned_aupr", "binned_aupr_shared_max_bins")():
         part = m.new_empty(P * G * 2 * n_bins)
     err = cuda_build.launch(
         m.get_device(), fn, m.data_ptr(), y.data_ptr(), w.data_ptr(), P, n,
@@ -295,6 +297,13 @@ def aupr_binned_dev(y: torch.Tensor, scores: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 _EVAL_MAX_K = 32  # k·k counters of a pair within one block's threads
+cuda_build.register("eval_metrics", "confusion_counts",
+                    (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
+                    + (ctypes.c_void_p,) * 2)
+cuda_build.register("eval_metrics", "regression_moments",
+                    (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
+                    + (ctypes.c_void_p,) * 2)
+cuda_build.register("eval_metrics", "eval_metrics_max_k", ())
 
 
 def _eval_shapes(name, y, pred, mask):
@@ -341,15 +350,11 @@ def _confusion_counts_cuda(y, pred, mask, k):
     if P == 0:
         return out
     y, pred, mask = y.contiguous(), pred.contiguous(), mask.contiguous()
-    lib = cuda_build.load("eval_metrics")
-    fn = cuda_build.declare(lib, "confusion_counts",
-                            (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
-                            + (ctypes.c_void_p,) * 2)
-    with torch.cuda.device(pred.device):
-        stream = ctypes.c_void_p(
-            torch.cuda.current_stream(pred.device).cuda_stream)
-        err = fn(y.data_ptr(), pred.data_ptr(), mask.data_ptr(), P, n, k,
-                 out.data_ptr(), stream)
+    err = cuda_build.launch(
+        pred.get_device(), cuda_build.entry("eval_metrics",
+                                            "confusion_counts"),
+        y.data_ptr(), pred.data_ptr(), mask.data_ptr(), P, n, k,
+        out.data_ptr())
     cuda_build.check("confusion_counts", err)
     cuda_build.count("confusion_counts")
     return out
@@ -403,15 +408,10 @@ def _regression_moments_cuda(pred, y, mask):
     if P == 0:
         return out
     pred, y, mask = pred.contiguous(), y.contiguous(), mask.contiguous()
-    lib = cuda_build.load("eval_metrics")
-    fn = cuda_build.declare(lib, "regression_moments",
-                            (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
-                            + (ctypes.c_void_p,) * 2)
-    with torch.cuda.device(pred.device):
-        stream = ctypes.c_void_p(
-            torch.cuda.current_stream(pred.device).cuda_stream)
-        err = fn(pred.data_ptr(), y.data_ptr(), mask.data_ptr(), P, n,
-                 out.data_ptr(), stream)
+    err = cuda_build.launch(
+        pred.get_device(), cuda_build.entry("eval_metrics",
+                                            "regression_moments"),
+        pred.data_ptr(), y.data_ptr(), mask.data_ptr(), P, n, out.data_ptr())
     cuda_build.check("regression_moments", err)
     cuda_build.count("regression_moments")
     return out

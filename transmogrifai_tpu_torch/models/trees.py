@@ -62,10 +62,6 @@ reset_launches = cuda_build.reset_launches
 _count = cuda_build.count
 
 
-def _stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
@@ -123,12 +119,14 @@ def search_bins_plain(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     return c.to(torch.int32)
 
 
-_BIN_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 _BIN_ENTRIES = {(half, dtype): "bin_features_" + ("f16_" if half else "")
                 + ("i8" if dtype == torch.int8 else "i32")
                 for half in (False, True)
                 for dtype in (torch.int8, torch.int32)}
+_BIN_ARGS = cuda_build.register(
+    "bin_features", _BIN_ENTRIES.values(),
+    (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
 
 
 def _bin_features_cuda(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
@@ -154,7 +152,7 @@ def _bin_features_cuda(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     X = X.contiguous()
     edges = edges.contiguous()
     name = _BIN_ENTRIES[half, dtype]
-    fn = cuda_build.entry("bin_features", name, _BIN_ARGS)
+    fn = cuda_build.entry("bin_features", name)
     err = cuda_build.launch(X.get_device(), fn, X.data_ptr(),
                             edges.data_ptr(), out.data_ptr(), n, d, n_edges)
     cuda_build.check(name, err)
@@ -225,8 +223,11 @@ def tree_walk_plain(Xb: torch.Tensor, feat: torch.Tensor, bins: torch.Tensor,
     return acc
 
 
-_WALK_ARGS = (ctypes.c_void_p,) * 5 + (
-    ctypes.c_int64,) + (ctypes.c_int,) * 11 + (ctypes.c_void_p,)
+_WALK_ARGS = cuda_build.register(
+    "tree_walk", "tree_walk_typed",
+    (ctypes.c_void_p,) * 5 + (ctypes.c_int64,) + (ctypes.c_int,) * 11
+    + (ctypes.c_void_p,))
+cuda_build.register("tree_walk", "tree_walk_max_m", ())
 
 
 def _check_walk_inputs(fname, Xb, feat, bins, leaf) -> None:
@@ -263,19 +264,17 @@ def _tree_walk_cuda(Xb, feat, bins, leaf) -> torch.Tensor:
     if n == 0 or m == 0 or n_trees == 0:
         return torch.zeros((n, m), dtype=torch.float32, device=Xb.device)
     out = torch.empty((n, m), dtype=torch.float32, device=Xb.device)
-    lib = cuda_build.load("tree_walk")
-    max_m = cuda_build.declare(lib, "tree_walk_max_m", ())()
-    fn = cuda_build.declare(lib, "tree_walk_typed", _WALK_ARGS)
+    max_m = cuda_build.entry("tree_walk", "tree_walk_max_m")()
+    fn = cuda_build.entry("tree_walk", "tree_walk_typed")
     counter = "tree_walk_narrow" if _narrowed(feat, bins) else "tree_walk"
-    with torch.cuda.device(Xb.device):
-        stream = _stream_ptr(Xb)
-        for c0 in range(0, m, max_m):
-            err = fn(Xb.data_ptr(), feat.data_ptr(), bins.data_ptr(),
-                     leaf.data_ptr(), out.data_ptr(), n, d, n_trees, depth,
-                     width, n_leaves, m, c0, min(max_m, m - c0),
-                     *_type_bytes(Xb, feat, bins), stream)
-            cuda_build.check("tree_walk_typed", err)
-            _count(counter)
+    for c0 in range(0, m, max_m):
+        err = cuda_build.launch(
+            Xb.get_device(), fn, Xb.data_ptr(), feat.data_ptr(),
+            bins.data_ptr(), leaf.data_ptr(), out.data_ptr(), n, d, n_trees,
+            depth, width, n_leaves, m, c0, min(max_m, m - c0),
+            *_type_bytes(Xb, feat, bins))
+        cuda_build.check("tree_walk_typed", err)
+        _count(counter)
     return out
 
 
@@ -328,8 +327,10 @@ def tree_walk_classes_plain(Xb: torch.Tensor, feat: torch.Tensor,
     return acc.T.contiguous()
 
 
-_WALK_CLASSES_ARGS = (ctypes.c_void_p,) * 5 + (
-    ctypes.c_int64,) + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
+_WALK_CLASSES_ARGS = cuda_build.register(
+    "tree_walk", "tree_walk_classes_typed",
+    (ctypes.c_void_p,) * 5 + (ctypes.c_int64,) + (ctypes.c_int,) * 9
+    + (ctypes.c_void_p,))
 
 
 def _tree_walk_classes_cuda(Xb, feat, bins, leaf) -> torch.Tensor:
@@ -342,13 +343,11 @@ def _tree_walk_classes_cuda(Xb, feat, bins, leaf) -> torch.Tensor:
     if n == 0 or K == 0 or T == 0:
         return torch.zeros((n, K), dtype=torch.float32, device=Xb.device)
     out = torch.empty((n, K), dtype=torch.float32, device=Xb.device)
-    lib = cuda_build.load("tree_walk")
-    fn = cuda_build.declare(lib, "tree_walk_classes_typed",
-                            _WALK_CLASSES_ARGS)
-    with torch.cuda.device(Xb.device):
-        err = fn(Xb.data_ptr(), feat.data_ptr(), bins.data_ptr(),
-                 leaf.data_ptr(), out.data_ptr(), n, d, T, K, depth, width,
-                 leaf.shape[2], *_type_bytes(Xb, feat, bins), _stream_ptr(Xb))
+    fn = cuda_build.entry("tree_walk", "tree_walk_classes_typed")
+    err = cuda_build.launch(
+        Xb.get_device(), fn, Xb.data_ptr(), feat.data_ptr(), bins.data_ptr(),
+        leaf.data_ptr(), out.data_ptr(), n, d, T, K, depth, width,
+        leaf.shape[2], *_type_bytes(Xb, feat, bins))
     cuda_build.check("tree_walk_classes_typed", err)
     _count("tree_walk_classes")
     return out
@@ -546,8 +545,12 @@ def hist_scratch_bytes(P: int, n: int, n_nodes: int, m: int, d: int,
     return P * slots * (m + 1) * d * n_bins * 4
 
 
-_HIST_ARGS = (ctypes.c_void_p,) * 10 + (ctypes.c_int64,) + (
-    ctypes.c_int,) * 11 + (ctypes.c_void_p,)
+_HIST_ARGS = cuda_build.register(
+    "histograms", ("histograms_i8", "histograms_i32"),
+    (ctypes.c_void_p,) * 10 + (ctypes.c_int64,) + (ctypes.c_int,) * 11
+    + (ctypes.c_void_p,))
+cuda_build.register("histograms", ("histograms_max_m", "histograms_max_few"),
+                    ())
 # shared memory one K1 piece block may take: the card's opt-in maximum
 _SMEM_BYTES = 232448
 # launch grids: pairs on blockIdx.z, nodes on blockIdx.y
@@ -585,8 +588,7 @@ def _histograms_cuda(Xb, node_idx, G, H, n_nodes, n_bins, plan_out=None):
     _require(P <= _MAX_GRID_YZ and n_nodes <= _MAX_GRID_YZ,
              f"histograms: {P} pairs or {n_nodes} nodes exceed the launch "
              f"grid's {_MAX_GRID_YZ}")
-    lib = cuda_build.load("histograms")
-    max_m = cuda_build.declare(lib, "histograms_max_m", ())()
+    max_m = cuda_build.entry("histograms", "histograms_max_m")()
     _require(m <= max_m, f"histograms: {m} channels exceed the kernel's "
                          f"{max_m}")
     grid, n_slots = hist_plan_bounds(n, n_nodes)
@@ -611,14 +613,13 @@ def _histograms_cuda(Xb, node_idx, G, H, n_nodes, n_bins, plan_out=None):
     feats, lanes = _hist_layout(n_bins, m, d % 4 == 0 and Xb.data_ptr() % (
         4 * Xb.element_size()) == 0, n / n_nodes)
     fname = "histograms_i8" if Xb.dtype == torch.int8 else "histograms_i32"
-    fn = cuda_build.declare(lib, fname, _HIST_ARGS)
-    with torch.cuda.device(dev):
-        err = fn(Xb.data_ptr(), G.data_ptr(), H.data_ptr(), order.data_ptr(),
-                 seg.data_ptr(), first.data_ptr(), slot.data_ptr(),
-                 hg.data_ptr(), hh.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(), n_slots, P,
-                 n, d, n_nodes, n_bins, m, lanes, feats, HIST_PIECE_ROWS,
-                 HIST_FEW_ROWS, grid, _stream_ptr(Xb))
+    err = cuda_build.launch(
+        Xb.get_device(), cuda_build.entry("histograms", fname),
+        Xb.data_ptr(), G.data_ptr(), H.data_ptr(), order.data_ptr(),
+        seg.data_ptr(), first.data_ptr(), slot.data_ptr(), hg.data_ptr(),
+        hh.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        n_slots, P, n, d, n_nodes, n_bins, m, lanes, feats, HIST_PIECE_ROWS,
+        HIST_FEW_ROWS, grid)
     cuda_build.check(fname, err)
     _count("histograms")
     if plan_out is not None:  # a test's view of the kernel's plan
@@ -660,8 +661,10 @@ def sibling_subtract_plain(hg: torch.Tensor, hh: torch.Tensor,
     return interleave(hg, hg_r), interleave(hh, hh_r)
 
 
-_SUB_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int64,) + (
-    ctypes.c_void_p,) * 3 + (ctypes.c_int64,) * 3 + (ctypes.c_void_p,)
+_SUB_ARGS = cuda_build.register(
+    "sibling_subtract", "sibling_subtract",
+    (ctypes.c_void_p,) * 3 + (ctypes.c_int64,) + (ctypes.c_void_p,) * 3
+    + (ctypes.c_int64,) * 3 + (ctypes.c_void_p,))
 
 
 def _sibling_subtract_cuda(hg, hh, hg_r, hh_r):
@@ -681,12 +684,11 @@ def _sibling_subtract_cuda(hg, hh, hg_r, hh_r):
     if ch.numel() == 0:
         return cg, ch
     hg, hh, hg_r, hh_r = (t.contiguous() for t in (hg, hh, hg_r, hh_r))
-    lib = cuda_build.load("sibling_subtract")
-    fn = cuda_build.declare(lib, "sibling_subtract", _SUB_ARGS)
-    with torch.cuda.device(hg.device):
-        err = fn(hg.data_ptr(), hg_r.data_ptr(), cg.data_ptr(), P * m,
-                 hh.data_ptr(), hh_r.data_ptr(), ch.data_ptr(), P, K, d * B,
-                 _stream_ptr(hg))
+    err = cuda_build.launch(
+        hg.get_device(), cuda_build.entry("sibling_subtract",
+                                          "sibling_subtract"),
+        hg.data_ptr(), hg_r.data_ptr(), cg.data_ptr(), P * m, hh.data_ptr(),
+        hh_r.data_ptr(), ch.data_ptr(), P, K, d * B)
     cuda_build.check("sibling_subtract", err)
     _count("sibling_subtract")
     return cg, ch
@@ -755,26 +757,63 @@ def _search_nodes(hg, hh, n_bins, lam, mcw, fmask):
             (best % n_bins).to(torch.int32), best_gain, th[:, :, 0, 0])
 
 
+def _flags_view(name, t, P, width, kind):
+    """A flag table's (P, ≥ width) uint8 or bool view, unit inner stride."""
+    if (t.dtype not in (torch.uint8, torch.bool) or t.dim() != 2
+            or t.shape[0] != P or t.shape[1] < width
+            or (t.shape[1] > 1 and t.stride(1) != 1)):
+        raise ValueError(f"{name}: {kind} must be ({P}, >= {width}) uint8 "
+                         f"or bool with unit inner stride, got "
+                         f"{tuple(t.shape)} {t.dtype} {t.stride()}")
+
+
+def _split_out(name, out, P, n_nodes, dev):
+    """The (feature, bin) tables K2 writes: new ones, or the caller's two
+    (P, n_nodes) int32 views with one row stride and unit inner stride."""
+    if out is None:
+        feat = torch.empty((P, n_nodes), dtype=torch.int32, device=dev)
+        return feat, torch.empty_like(feat)
+    feat, bins = out
+    if not (feat.dtype == bins.dtype == torch.int32
+            and feat.shape == bins.shape == (P, n_nodes)
+            and feat.stride() == bins.stride()
+            and (n_nodes == 1 or feat.stride(1) == 1)
+            and feat.device == bins.device == dev):
+        raise ValueError(f"{name}: out must be two ({P}, {n_nodes}) int32 "
+                         f"tensors on {dev} with equal strides and unit "
+                         f"inner stride")
+    return feat, bins
+
+
 def split_search_plain(hg, hh, n_bins: int, reg_lambda: Param,
                        min_child_weight: Param, min_gain: Param,
                        min_gain_norm: Param,
                        feature_mask: Optional[torch.Tensor], level: int,
-                       active_depth: Optional[Param]
+                       active_depth: Optional[Param],
+                       live: Optional[torch.Tensor] = None,
+                       out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                       mark: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(P, n_nodes) int32 split feature and split bin per node (bin =
     n_bins where the node does not split) from (P, m, n_nodes, d, n_bins)
     value and (P, n_nodes, d, n_bins) weight histograms; the arithmetic of
-    the K2 kernel, step for step. Nodes whose histograms are all zero (no
-    rows) share one search of a zero histogram per pair, which is what the
-    full search of each of them computes."""
+    the K2 kernel, step for step. The nodes of `live` (flags (P, n_nodes);
+    without it, the nodes with a non-zero cell) are searched; every other
+    node gets one search of a zero histogram per pair, which is what the
+    full search of an empty node computes. `out` and `mark` as in
+    `split_search`."""
     P, n_nodes, d, _ = hh.shape
     dev = hh.device
     lam = per_pair(reg_lambda, P, dev)
     mcw = per_pair(min_child_weight, P, dev)
     fm = None if feature_mask is None else feature_mask.to(torch.bool)
-    live = (hh != 0).flatten(2).any(2) | (hg != 0).transpose(1, 2) \
-        .flatten(2).any(2)
-    if bool(live.all()):
+    if live is None:
+        searched = (hh != 0).flatten(2).any(2) | (hg != 0).transpose(1, 2) \
+            .flatten(2).any(2)
+    else:
+        _flags_view("split_search", live, P, n_nodes, "live")
+        searched = live[:, :n_nodes].to(torch.bool)
+    if bool(searched.all()):
         bf, bb, best_gain, th0 = _search_nodes(hg, hh, n_bins, lam, mcw, fm)
     else:
         zg = hg.new_zeros((P,) + hg.shape[1:2] + (1,) + hg.shape[3:])
@@ -783,7 +822,7 @@ def split_search_plain(hg, hh, n_bins: int, reg_lambda: Param,
         bf, bb = zf.expand(P, n_nodes).clone(), zb.expand(P, n_nodes).clone()
         best_gain = zgain.expand(P, n_nodes).clone()
         th0 = zth.expand(P, n_nodes).clone()
-        pi, ki = torch.nonzero(live, as_tuple=True)
+        pi, ki = torch.nonzero(searched, as_tuple=True)
         if pi.numel():
             lf, lb, lgain, lth = _search_nodes(
                 hg[pi, :, ki][:, :, None], hh[pi, ki][:, None], n_bins,
@@ -797,64 +836,94 @@ def split_search_plain(hg, hh, n_bins: int, reg_lambda: Param,
         splits = splits & (level < per_pair(active_depth, P, dev,
                                             torch.int32))[:, None]
     bb = torch.where(splits, bb, torch.full_like(bb, n_bins))
+    if mark is not None:  # the kernel marks the nodes it searches
+        _flags_view("split_search", mark, P, 2 * n_nodes, "mark")
+        left = mark[:, 0:2 * n_nodes:2]
+        on = (torch.ones_like(left, dtype=torch.bool) if live is None
+              else searched)
+        left[on] = 1
+    if out is not None:
+        feat, bins = _split_out("split_search", out, P, n_nodes, dev)
+        feat.copy_(bf)
+        bins.copy_(bb)
+        return feat, bins
     return bf, bb
 
 
-_SPLIT_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6 + (
-    ctypes.c_void_p,) * 3
+_SPLIT_ARGS = cuda_build.register(
+    "split_search", "split_search",
+    (ctypes.c_void_p,) * 9 + (ctypes.c_int64, ctypes.c_void_p,
+                              ctypes.c_int64) + (ctypes.c_int,) * 6
+    + (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p))
+cuda_build.register("split_search", "split_search_max_m", ())
 
 
 def _split_shapes(hg, hh, n_bins):
-    _require(hg.dim() == 5 and hh.dim() == 4
-             and hh.shape == hg.shape[:1] + hg.shape[2:]
-             and hg.shape[-1] == n_bins,
-             f"split_search: hist shapes {tuple(hg.shape)} / "
-             f"{tuple(hh.shape)} must be (P, m, nodes, d, {n_bins}) / (P, "
-             f"nodes, d, {n_bins})")
+    if not (hg.dim() == 5 and hh.dim() == 4
+            and hh.shape == hg.shape[:1] + hg.shape[2:]
+            and hg.shape[-1] == n_bins):
+        raise ValueError(
+            f"split_search: hist shapes {tuple(hg.shape)} / "
+            f"{tuple(hh.shape)} must be (P, m, nodes, d, {n_bins}) / (P, "
+            f"nodes, d, {n_bins})")
 
 
 def _split_search_cuda(hg, hh, n_bins, reg_lambda, min_child_weight,
                        min_gain, min_gain_norm, feature_mask, level,
-                       active_depth):
+                       active_depth, live=None, out=None, mark=None):
+    # the checks that guard the launch, their messages built only on
+    # refusal (a level's call is host-bound at small shapes)
     _split_shapes(hg, hh, n_bins)
-    _require(hg.dtype == torch.float32 and hh.dtype == torch.float32,
-             "split_search: histograms must be f32")
-    _on_device("split_search", hg, hh=hh, feature_mask=feature_mask)
+    if hg.dtype != torch.float32 or hh.dtype != torch.float32:
+        raise ValueError("split_search: histograms must be f32")
     P, m, n_nodes, d, _ = hg.shape
     dev = hh.device
+    for key, t in (("hh", hh), ("feature_mask", feature_mask),
+                   ("live", live), ("mark", mark)):
+        if t is not None and t.device != hg.device:
+            raise ValueError(f"split_search: {key} on {t.device}, expected "
+                             f"{hg.device}")
     lam = per_pair(reg_lambda, P, dev)
     mcw = per_pair(min_child_weight, P, dev)
     mg = per_pair(min_gain, P, dev)
     mgn = per_pair(min_gain_norm, P, dev)
     fm = None
     if feature_mask is not None:
-        _require(feature_mask.shape == (P, d),
-                 f"split_search: feature_mask {tuple(feature_mask.shape)} "
-                 f"must be ({P}, {d})")
-        fm = feature_mask.to(torch.uint8).contiguous()
+        if feature_mask.shape != (P, d):
+            raise ValueError(f"split_search: feature_mask "
+                             f"{tuple(feature_mask.shape)} must be ({P}, {d})")
+        fm = feature_mask  # a bool's bytes are the kernel's 0 / 1 flags
+        if fm.dtype not in _FLAG_TYPES or not fm.is_contiguous():
+            fm = fm.to(torch.uint8).contiguous()
     ad = (per_pair(active_depth, P, dev, torch.int32)
           if active_depth is not None else None)
-    feat = torch.empty((P, n_nodes), dtype=torch.int32, device=dev)
-    bins = torch.empty_like(feat)
-    if feat.numel() == 0:
+    feat, bins = _split_out("split_search", out, P, n_nodes, dev)
+    if feat.numel() == 0 or d == 0:
         return feat, bins
-    lib = cuda_build.load("split_search")
-    max_m = cuda_build.declare(lib, "split_search_max_m", ())()
-    _require(1 <= m <= max_m, f"split_search: {m} channels outside the "
-                              f"kernel's [1, {max_m}]")
-    _require(P <= _MAX_GRID_YZ, f"split_search: {P} pairs exceed the "
-                                f"launch grid's {_MAX_GRID_YZ}")
+    if live is not None:
+        _flags_view("split_search", live, P, n_nodes, "live")
+    if mark is not None:
+        _flags_view("split_search", mark, P, 2 * n_nodes, "mark")
+    max_m = cuda_build.entry("split_search", "split_search_max_m")()
+    if not 1 <= m <= max_m:
+        raise ValueError(f"split_search: {m} channels outside the kernel's "
+                         f"[1, {max_m}]")
+    if P > _MAX_GRID_YZ:
+        raise ValueError(f"split_search: {P} pairs exceed the launch grid's "
+                         f"{_MAX_GRID_YZ}")
     hg, hh = hg.contiguous(), hh.contiguous()
-    fn = cuda_build.declare(lib, "split_search", _SPLIT_ARGS)
-    with torch.cuda.device(dev):
-        err = fn(hg.data_ptr(), hh.data_ptr(), lam.data_ptr(),
-                 mcw.data_ptr(), mg.data_ptr(), mgn.data_ptr(),
-                 fm.data_ptr() if fm is not None else None,
-                 ad.data_ptr() if ad is not None else None,
-                 P, level, n_nodes, d, n_bins, m, feat.data_ptr(),
-                 bins.data_ptr(), _stream_ptr(hg))
+    err = cuda_build.launch(
+        hg.get_device(), cuda_build.entry("split_search", "split_search"),
+        hg.data_ptr(), hh.data_ptr(), lam.data_ptr(), mcw.data_ptr(),
+        mg.data_ptr(), mgn.data_ptr(), None if fm is None else fm.data_ptr(),
+        None if ad is None else ad.data_ptr(),
+        None if live is None else live.data_ptr(),
+        0 if live is None else live.stride(0),
+        None if mark is None else mark.data_ptr(),
+        0 if mark is None else mark.stride(0), P, level, n_nodes, d, n_bins,
+        m, feat.data_ptr(), bins.data_ptr(), feat.stride(0))
     cuda_build.check("split_search", err)
-    _count("split_search")
+    _count("split_search" if live is None else "split_search_live")
     return feat, bins
 
 
@@ -862,27 +931,40 @@ def split_search(hg: torch.Tensor, hh: torch.Tensor, n_bins: int,
                  reg_lambda: Param, min_child_weight: Param,
                  min_gain: Param, min_gain_norm: Param,
                  feature_mask: Optional[torch.Tensor], level: int,
-                 active_depth: Optional[Param]
+                 active_depth: Optional[Param],
+                 live: Optional[torch.Tensor] = None,
+                 out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 mark: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Best (feature, bin) per node of each pair from value histograms
     (P, m, nodes, d, bins) and weight histograms (P, nodes, d, bins): the
     gain Σ_c g_c² / (h + λ) over the left running sums (XGBoost's at m =
     1, Gini's for a forest's class channels), `min_child_weight` validity
     and the feature mask (P, d) as -inf, the first index winning ties over
-    the flat d·bins axis, and bin = n_bins where the best gain is not above
-    max(min_gain, min_gain_norm · the node's weight) or level >=
-    active_depth. Each hyperparameter is one value or one per pair. A CUDA
-    tensor launches the K2 kernel (or raises); a CPU tensor takes the
+    the flat d·bins axis (a NaN gain the largest), and bin = n_bins where
+    the best gain is not above max(min_gain, min_gain_norm · the node's
+    weight) or level >= active_depth. Each hyperparameter is one value or
+    one per pair.
+
+    `live` (P, nodes) uint8/bool flags: only these nodes are searched, and
+    every other one, whose histograms must be all zero, gets the pair's
+    search of a zero histogram (the live set; without it every node is
+    searched). `out`: two (P, nodes) int32 views written in place (a
+    level's row of the learner's tables), returned. `mark` (P, 2·nodes)
+    flags: each searched node j sets mark[:, 2j] (its left child, on the
+    subtraction path). A CUDA tensor launches the K2 kernel (or raises),
+    counted as `split_search_live` with `live`; a CPU tensor takes the
     plain version."""
     _check_device(hg, "split_search")
     if hg.is_cuda:
         return _split_search_cuda(hg, hh, n_bins, reg_lambda,
                                   min_child_weight, min_gain, min_gain_norm,
-                                  feature_mask, level, active_depth)
+                                  feature_mask, level, active_depth, live,
+                                  out, mark)
     _split_shapes(hg, hh, n_bins)
     return split_search_plain(hg, hh, n_bins, reg_lambda, min_child_weight,
                               min_gain, min_gain_norm, feature_mask, level,
-                              active_depth)
+                              active_depth, live, out, mark)
 
 
 # --------------------------------------------------------------------------- #
@@ -890,60 +972,112 @@ def split_search(hg: torch.Tensor, hh: torch.Tensor, n_bins: int,
 # --------------------------------------------------------------------------- #
 
 def route_level_plain(Xb: torch.Tensor, node_idx: torch.Tensor,
-                      feat: torch.Tensor, bins: torch.Tensor
+                      feat: torch.Tensor, bins: torch.Tensor,
+                      occupied: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """(P, n) int32 node ids one level down: 2·node + (Xb[r, feat[p,
-    node]] > bin[p, node])."""
+    node]] > bin[p, node]); with `occupied`, sets occupied[p, child] = 1
+    for every row's child."""
     node = node_idx.long()
     f = torch.gather(feat.long(), 1, node)
     b = torch.gather(bins.long(), 1, node)
     rows = torch.arange(Xb.shape[0], device=Xb.device)[None, :]
     x = Xb[rows, f].long()
-    return (node * 2 + (x > b).long()).to(torch.int32)
+    child = node * 2 + (x > b).long()
+    if occupied is not None:
+        _flags_view("route_level", occupied, node.shape[0],
+                    2 * feat.shape[1], "occupied")
+        occupied.scatter_(1, child, torch.ones_like(child,
+                                                    dtype=occupied.dtype))
+    return child.to(torch.int32)
 
 
-_ROUTE_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (
-    ctypes.c_void_p,)
+_ROUTE_ARGS = cuda_build.register(
+    "route_leaves", ("route_level_i8", "route_level_i32"),
+    (ctypes.c_void_p,) * 3 + (ctypes.c_int64,) + (ctypes.c_void_p,) * 3
+    + (ctypes.c_int64,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
 
 
-def _route_level_cuda(Xb, node_idx, feat, bins):
-    _on_device("route_level", Xb, node_idx=node_idx, feat=feat, bins=bins)
-    _require(Xb.dtype in (torch.int8, torch.int32),
-             f"route_level: Xb must be int8 or int32, got {Xb.dtype}")
-    _require(feat.dtype == torch.int32 and bins.dtype == torch.int32
-             and node_idx.dtype == torch.int32,
-             "route_level: node_idx, feat and bin must be int32")
-    _require(node_idx.dim() == 2 and node_idx.shape[1] == Xb.shape[0]
-             and feat.shape == bins.shape and feat.dim() == 2
-             and feat.shape[0] == node_idx.shape[0],
-             f"route_level: node_idx {tuple(node_idx.shape)}, feat "
-             f"{tuple(feat.shape)}, bin {tuple(bins.shape)}")
-    P, n = node_idx.shape
-    out = node_idx.clone().contiguous()
-    if out.numel() == 0:
+_ROUTE_ENTRIES = {torch.int8: "route_level_i8", torch.int32: "route_level_i32"}
+_I32 = torch.int32
+_FLAG_TYPES = (torch.uint8, torch.bool)
+
+
+def _route_level_cuda(Xb, node_idx, feat, bins, occupied=None, out=None):
+    # compound checks guard the launch, shapes read once and messages built
+    # only on refusal (a level's call is host-bound at small shapes)
+    index = Xb.get_device()
+    fname = _ROUTE_ENTRIES.get(Xb.dtype)
+    xs, ns, fs = Xb.shape, node_idx.shape, feat.shape
+    if not (fname is not None and len(xs) == 2 and len(ns) == 2
+            and len(fs) == 2 and ns[1] == xs[0] and fs[0] == ns[0]
+            and bins.shape == fs and feat.dtype is _I32
+            and bins.dtype is _I32 and node_idx.dtype is _I32
+            and node_idx.get_device() == index
+            and feat.get_device() == index and bins.get_device() == index):
+        raise ValueError(
+            f"route_level: Xb {Xb.dtype} {tuple(xs)} on {Xb.device}, "
+            f"node_idx {node_idx.dtype} {tuple(ns)} on {node_idx.device}, "
+            f"feat / bin {feat.dtype} {tuple(fs)} / {bins.dtype} "
+            f"{tuple(bins.shape)} on {feat.device} / {bins.device}: needs "
+            f"int8 or int32 Xb (n, d), int32 node ids (P, n) and int32 "
+            f"tables (P, n_nodes) on one device")
+    P, n = ns
+    nodes = fs[1]
+    if out is None:
+        out = torch.empty(ns, dtype=_I32, device=Xb.device)
+    elif not (out.dtype is _I32 and out.shape == ns
+              and out.get_device() == index and out.is_contiguous()
+              and out.data_ptr() != node_idx.data_ptr()):
+        raise ValueError(f"route_level: out must be a contiguous ({P}, {n}) "
+                         f"int32 tensor on {Xb.device} apart from node_idx")
+    if P == 0 or n == 0:
         return out
-    Xb, feat, bins = Xb.contiguous(), feat.contiguous(), bins.contiguous()
-    lib = cuda_build.load("route_leaves")
-    fname = "route_level_i8" if Xb.dtype == torch.int8 else "route_level_i32"
-    fn = cuda_build.declare(lib, fname, _ROUTE_ARGS)
-    with torch.cuda.device(Xb.device):
-        err = fn(Xb.data_ptr(), feat.data_ptr(), bins.data_ptr(),
-                 out.data_ptr(), P, n, Xb.shape[1], feat.shape[1],
-                 _stream_ptr(Xb))
+    occ_ptr, occ_stride = None, 0
+    if occupied is not None:
+        os_, ost = occupied.shape, occupied.stride()
+        if not (occupied.dtype in _FLAG_TYPES and len(os_) == 2
+                and os_[0] == P and os_[1] >= 2 * nodes
+                and (os_[1] == 1 or ost[1] == 1)
+                and occupied.get_device() == index):
+            raise ValueError(f"route_level: occupied must be ({P}, >= "
+                             f"{2 * nodes}) uint8 or bool with unit inner "
+                             f"stride on {Xb.device}, got {tuple(os_)} "
+                             f"{occupied.dtype} {ost} on {occupied.device}")
+        occ_ptr, occ_stride = occupied.data_ptr(), ost[0]
+    fst = feat.stride()
+    if bins.stride() != fst or (nodes > 1 and fst[1] != 1):
+        feat, bins = feat.contiguous(), bins.contiguous()
+        fst = feat.stride()
+    if not Xb.is_contiguous():
+        Xb = Xb.contiguous()
+    if not node_idx.is_contiguous():
+        node_idx = node_idx.contiguous()
+    err = cuda_build.launch(
+        index, cuda_build.entry("route_leaves", fname), Xb.data_ptr(),
+        feat.data_ptr(), bins.data_ptr(), fst[0], node_idx.data_ptr(),
+        out.data_ptr(), occ_ptr, occ_stride, P, n, xs[1], nodes)
     cuda_build.check(fname, err)
     _count("route_level")
     return out
 
 
 def route_level(Xb: torch.Tensor, node_idx: torch.Tensor, feat: torch.Tensor,
-                bins: torch.Tensor) -> torch.Tensor:
+                bins: torch.Tensor, occupied: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(P, n) int32 node ids after one level of routing with this level's
-    (P, n_nodes) split tables. A CUDA tensor launches the K3 routing
-    kernel (or raises); a CPU tensor takes the plain version."""
-    _check_device(Xb, "route_level")
+    (P, n_nodes) split tables (views with a row stride are read in place),
+    written out of place: into `out` (a (P, n) int32 buffer apart from
+    node_idx) or a new tensor. With `occupied` ((P, ≥ 2·n_nodes) uint8 or
+    bool, unit inner stride, zeroed by the caller), every row's child is
+    flagged: the next level's live set for `split_search`. A CUDA tensor
+    launches the K3 routing kernel (or raises); a CPU tensor takes the
+    plain version."""
     if Xb.is_cuda:
-        return _route_level_cuda(Xb, node_idx, feat, bins)
-    return route_level_plain(Xb, node_idx, feat, bins)
+        return _route_level_cuda(Xb, node_idx, feat, bins, occupied, out)
+    _check_device(Xb, "route_level")
+    got = route_level_plain(Xb, node_idx, feat, bins, occupied)
+    return got if out is None else out.copy_(got)
 
 
 def _leaf_formula(g, h, reg_lambda, alpha):
@@ -986,9 +1120,12 @@ def leaf_regime(n: int) -> str:
     return "scan" if n <= LEAF_SCAN_MAX_ROWS else "segments"
 
 
-_LEAF_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_float, ctypes.c_void_p,
-                                       ctypes.c_float, ctypes.c_void_p) + (
-    ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+_LEAF_ARGS = cuda_build.register(
+    "route_leaves", "leaf_values",
+    (ctypes.c_void_p,) * 6 + (ctypes.c_float, ctypes.c_void_p,
+                              ctypes.c_float, ctypes.c_void_p)
+    + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+cuda_build.register("route_leaves", "leaf_values_max_m", ())
 
 
 def _leaf_param(v: Param, P: int, dev) -> Tuple[Optional[torch.Tensor],
@@ -1024,25 +1161,23 @@ def _leaf_values_cuda(node_idx, G, H, n_leaves, reg_lambda, alpha,
     if regime == "segments":
         order, seg = node_segments(node_idx, n_leaves)
     G, H = G.contiguous(), H.contiguous()
-    lib = cuda_build.load("route_leaves")
-    max_m = cuda_build.declare(lib, "leaf_values_max_m", ())()
-    fn = cuda_build.declare(lib, "leaf_values", _LEAF_ARGS)
+    max_m = cuda_build.entry("route_leaves", "leaf_values_max_m")()
+    fn = cuda_build.entry("route_leaves", "leaf_values")
     parts = []
-    with torch.cuda.device(dev):
-        for c0 in range(0, m, max_m):  # channels in launches of at most max_m
-            Gc = G if m <= max_m else G[:, c0:c0 + max_m].contiguous()
-            out = leaf if m <= max_m else torch.empty(
-                (P, n_leaves, Gc.shape[1]), dtype=torch.float32, device=dev)
-            err = fn(Gc.data_ptr(), H.data_ptr(), node_idx.data_ptr(),
-                     None if order is None else order.data_ptr(),
-                     None if seg is None else seg.data_ptr(),
-                     None if lam is None else lam.data_ptr(), lam_v,
-                     None if a is None else a.data_ptr(), a_v,
-                     out.data_ptr(), P, n, n_leaves, Gc.shape[1],
-                     _stream_ptr(G))
-            cuda_build.check("leaf_values", err)
-            _count("leaf_values")
-            parts.append(out)
+    for c0 in range(0, m, max_m):  # channels in launches of at most max_m
+        Gc = G if m <= max_m else G[:, c0:c0 + max_m].contiguous()
+        out = leaf if m <= max_m else torch.empty(
+            (P, n_leaves, Gc.shape[1]), dtype=torch.float32, device=dev)
+        err = cuda_build.launch(
+            G.get_device(), fn, Gc.data_ptr(), H.data_ptr(),
+            node_idx.data_ptr(), None if order is None else order.data_ptr(),
+            None if seg is None else seg.data_ptr(),
+            None if lam is None else lam.data_ptr(), lam_v,
+            None if a is None else a.data_ptr(), a_v, out.data_ptr(), P, n,
+            n_leaves, Gc.shape[1])
+        cuda_build.check("leaf_values", err)
+        _count("leaf_values")
+        parts.append(out)
     return leaf if m <= max_m else torch.cat(parts, dim=2)
 
 
@@ -1075,7 +1210,7 @@ def grow_trees(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
                min_child_weight: Param = 1.0, min_gain: Param = 0.0,
                feature_mask: Optional[torch.Tensor] = None,
                active_depth: Optional[Param] = None, alpha: Param = 0.0,
-               min_gain_norm: Param = 0.0
+               min_gain_norm: Param = 0.0, live: bool = True
                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Grow one fixed-depth tree per pair from m value channels G (P, m, n)
     and weights H (P, n) (the JAX package's `grow_tree`, vmapped). Returns
@@ -1088,15 +1223,34 @@ def grow_trees(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
     are built once and each level below builds only those of the rows
     routed right, grouped by parent (K1 with the left rows left out), and
     derives the children by sibling subtraction (K1-sub): left = parent −
-    right."""
+    right.
+
+    Each level's split search (K2) writes straight into the tables and,
+    with `live`, searches only the level's live set: the nodes K3's
+    routing flagged as holding rows, and with subtraction also the left
+    child of every node searched a level up (parent − right can leave a
+    rounding residue without rows); every other node's histograms are
+    zero. The flags live on the device, so no level waits for the card.
+    `live=False` searches every node (the same tables)."""
     P, n = H.shape
     dev = Xb.device
     max_nodes = 2 ** max_depth
     node = torch.zeros((P, n), dtype=torch.int32, device=dev)
+    spare = torch.empty_like(node)  # routing writes one, reads the other
     feats = torch.zeros((P, max_depth, max_nodes), dtype=torch.int32,
                         device=dev)
     bins = torch.full((P, max_depth, max_nodes), n_bins, dtype=torch.int32,
                       device=dev)
+    # per-level flags of the live set, zeroed with the tables
+    flags = (torch.zeros((P, max_depth, max_nodes), dtype=torch.uint8,
+                         device=dev) if live and max_depth > 1 else None)
+    # the hyperparameters as (P,) tensors once, not once a level
+    lam = per_pair(reg_lambda, P, dev)
+    mcw = per_pair(min_child_weight, P, dev)
+    mg = per_pair(min_gain, P, dev)
+    mgn = per_pair(min_gain_norm, P, dev)
+    ad = (None if active_depth is None
+          else per_pair(active_depth, P, dev, torch.int32))
     subtract = max_depth >= _SUBTRACT_MIN_DEPTH
     if subtract:
         hg, hh = histograms(Xb, node, G, H, 1, n_bins)
@@ -1104,12 +1258,16 @@ def grow_trees(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
         n_nodes = 2 ** level
         if not subtract:
             hg, hh = histograms(Xb, node, G, H, n_nodes, n_bins)
-        bf, bb = split_search(hg, hh, n_bins, reg_lambda, min_child_weight,
-                              min_gain, min_gain_norm, feature_mask, level,
-                              active_depth)
-        feats[:, level, :n_nodes] = bf
-        bins[:, level, :n_nodes] = bb
-        node = route_level(Xb, node, bf, bb)
+        here = (feats[:, level, :n_nodes], bins[:, level, :n_nodes])
+        nxt = (flags[:, level + 1, :2 * n_nodes]
+               if flags is not None and level + 1 < max_depth else None)
+        searched = (flags[:, level, :n_nodes]
+                    if level and flags is not None else None)
+        split_search(hg, hh, n_bins, lam, mcw, mg, mgn, feature_mask, level,
+                     ad, live=searched, out=here,
+                     mark=nxt if subtract else None)
+        node, spare = route_level(Xb, node, *here, occupied=nxt,
+                                  out=spare), node
         if subtract and level + 1 < max_depth:
             # the rows routed right, by parent; the left rows are left out
             parent = torch.where((node & 1).bool(), node >> 1,

@@ -78,8 +78,9 @@ from transmogrifai_tpu_torch.data.pipeline import (
 from transmogrifai_tpu_torch.device import resolve_device
 from transmogrifai_tpu_torch.evaluators.device_metrics import sigmoid
 from transmogrifai_tpu_torch.models import lbfgs
+from transmogrifai_tpu_torch.models.base import per_pair
 from transmogrifai_tpu_torch.models.trees import (
-    _f32, _require, _stream_ptr, bin_dtype, bin_features_plain,
+    _f32, _require, bin_dtype, bin_features_plain,
     hist_scratch_bytes, histograms,
     leaf_values, predict_forest, route_level, split_search, tree_walk)
 from transmogrifai_tpu_torch.stages.base import fma_f32
@@ -170,21 +171,23 @@ def _check_write_cuda(name, chunk, edges, *bufs):
                  f"f32, got {tuple(edges.shape)} {edges.dtype}")
 
 
-_CAST_ARGS = (ctypes.c_void_p,) * 2 + (ctypes.c_int64,) * 2 + (
-    ctypes.c_int, ctypes.c_void_p)
-_BIN_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int64,) * 2 + (
-    ctypes.c_int,) * 2 + (ctypes.c_void_p,)
-_DUAL_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 2 + (
-    ctypes.c_int,) * 2 + (ctypes.c_void_p,)
+cuda_build.register("write_rows",
+                    ("write_cast_rows_bf16", "write_cast_rows_f32"),
+                    (ctypes.c_void_p,) * 2 + (ctypes.c_int64,) * 2
+                    + (ctypes.c_int, ctypes.c_void_p))
+cuda_build.register("write_rows", "bin_write_rows",
+                    (ctypes.c_void_p,) * 3 + (ctypes.c_int64,) * 2
+                    + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+cuda_build.register("write_rows", "dual_write_rows",
+                    (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 2
+                    + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
 
 
-def _launch(fname, argtypes, *args, ref, key="write_rows"):
+def _launch(fname, *args, ref, key="write_rows"):
     """Launch `fname` of csrc/write_rows.cu on `ref`'s current stream and
     count it under `key`."""
-    lib = cuda_build.load("write_rows")
-    fn = cuda_build.declare(lib, fname, argtypes)
-    with torch.cuda.device(ref.device):
-        err = fn(*args, _stream_ptr(ref))
+    err = cuda_build.launch(ref.get_device(),
+                            cuda_build.entry("write_rows", fname), *args)
     cuda_build.check(fname, err)
     cuda_build.count(key)
 
@@ -202,7 +205,7 @@ def write_cast_rows(buf: torch.Tensor, chunk: torch.Tensor, r0: int) -> None:
              f"{buf.dtype}")
     fname = ("write_cast_rows_bf16" if buf.dtype == torch.bfloat16
              else "write_cast_rows_f32")
-    _launch(fname, _CAST_ARGS, chunk.data_ptr(), buf.data_ptr(), r0,
+    _launch(fname, chunk.data_ptr(), buf.data_ptr(), r0,
             chunk.shape[0], chunk.shape[1], ref=chunk)
 
 
@@ -217,7 +220,7 @@ def bin_write_rows(bufb: torch.Tensor, chunk: torch.Tensor,
         return bin_write_rows_plain(bufb, chunk, edges, r0)
     _check_write_cuda("bin_write_rows", chunk, edges, bufb)
     _require(bufb.dtype == torch.int8, "bin_write_rows: bufb must be int8")
-    _launch("bin_write_rows", _BIN_ARGS, chunk.data_ptr(), edges.data_ptr(),
+    _launch("bin_write_rows", chunk.data_ptr(), edges.data_ptr(),
             bufb.data_ptr(), r0, chunk.shape[0], chunk.shape[1],
             edges.shape[1], ref=chunk)
 
@@ -234,7 +237,7 @@ def dual_write_rows(buf16: torch.Tensor, bufb: torch.Tensor,
     _check_write_cuda("dual_write_rows", chunk, edges, buf16, bufb)
     _require(buf16.dtype == torch.bfloat16 and bufb.dtype == torch.int8,
              "dual_write_rows: buffers must be bf16 and int8")
-    _launch("dual_write_rows", _DUAL_ARGS, chunk.data_ptr(),
+    _launch("dual_write_rows", chunk.data_ptr(),
             edges.data_ptr(), buf16.data_ptr(), bufb.data_ptr(), r0,
             chunk.shape[0], chunk.shape[1], edges.shape[1], ref=chunk)
 
@@ -347,12 +350,16 @@ def _check_dequant_cuda(name, chunk_q, *operands):
                                       "contiguous")
 
 
-_DQ_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 2 + (
-    ctypes.c_int,) * 2 + (ctypes.c_void_p,)
-_DQ_BIN_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int64,) * 2 + (
-    ctypes.c_int,) * 3 + (ctypes.c_void_p,)
-_DQ_DUAL_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 2 + (
-    ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+cuda_build.register("write_rows",
+                    ("dequant_write_rows_bf16", "dequant_write_rows_f32"),
+                    (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 2
+                    + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+cuda_build.register("write_rows", "dequant_bin_write_rows",
+                    (ctypes.c_void_p,) * 5 + (ctypes.c_int64,) * 2
+                    + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+cuda_build.register("write_rows", "dequant_dual_write_rows",
+                    (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 2
+                    + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
 
 
 def dequant_write_rows(buf: torch.Tensor, chunk_q: torch.Tensor,
@@ -370,7 +377,7 @@ def dequant_write_rows(buf: torch.Tensor, chunk_q: torch.Tensor,
     _require(buf.dtype in (torch.bfloat16, torch.float32),
              f"{name}: the kernel writes bf16 or f32, got {buf.dtype}")
     fname = name + ("_bf16" if buf.dtype == torch.bfloat16 else "_f32")
-    _launch(fname, _DQ_ARGS, chunk_q.data_ptr(), scale.data_ptr(),
+    _launch(fname, chunk_q.data_ptr(), scale.data_ptr(),
             lo.data_ptr(), buf.data_ptr(), r0, chunk_q.shape[0],
             buf.shape[1], bits, ref=chunk_q, key=f"{name}_int{bits}")
 
@@ -388,7 +395,7 @@ def dequant_bin_write_rows(bufb: torch.Tensor, chunk_q: torch.Tensor,
                                             r0, bits)
     _check_dequant_cuda(name, chunk_q, scale, lo, edges, bufb)
     _require(bufb.dtype == torch.int8, f"{name}: bufb must be int8")
-    _launch(name, _DQ_BIN_ARGS, chunk_q.data_ptr(), scale.data_ptr(),
+    _launch(name, chunk_q.data_ptr(), scale.data_ptr(),
             lo.data_ptr(), edges.data_ptr(), bufb.data_ptr(), r0,
             chunk_q.shape[0], bufb.shape[1], edges.shape[1], bits,
             ref=chunk_q, key=f"{name}_int{bits}")
@@ -410,7 +417,7 @@ def dequant_dual_write_rows(buf16: torch.Tensor, bufb: torch.Tensor,
     _check_dequant_cuda(name, chunk_q, scale, lo, edges, buf16, bufb)
     _require(buf16.dtype == torch.bfloat16 and bufb.dtype == torch.int8,
              f"{name}: buffers must be bf16 and int8")
-    _launch(name, _DQ_DUAL_ARGS, chunk_q.data_ptr(), scale.data_ptr(),
+    _launch(name, chunk_q.data_ptr(), scale.data_ptr(),
             lo.data_ptr(), edges.data_ptr(), buf16.data_ptr(),
             bufb.data_ptr(), r0, chunk_q.shape[0], buf16.shape[1],
             edges.shape[1], bits, ref=chunk_q, key=f"{name}_int{bits}")
@@ -1177,6 +1184,13 @@ def _grow_lockstep(Xb, G, H, max_depth, n_bins, reg_lambda, min_child_weight,
                         device=dev)
     bins = torch.full((K, max_depth, max_nodes), n_bins, dtype=torch.int32,
                       device=dev)
+    spare = torch.empty_like(node)  # routing writes one, reads the other
+    # the live set of each level (K2 searches the nodes K3 flagged)
+    flags = torch.zeros((K, max_depth, max_nodes), dtype=torch.uint8,
+                        device=dev)
+    # K2's hyperparameters as (K,) tensors once, not once a level
+    lam, mcw, mg, mgn = (per_pair(v, K, dev) for v in (
+        reg_lambda, min_child_weight, min_gain, min_gain_norm))
     timers = _TIMERS[-1] if (_TIMERS and Xb.is_cuda) else None
     for level in range(max_depth):
         n_nodes = 2 ** level
@@ -1186,14 +1200,15 @@ def _grow_lockstep(Xb, G, H, max_depth, n_bins, reg_lambda, min_child_weight,
             timers.append(rec)
         hg, hh = _timed(rec, "histograms", lambda: _histograms_chunked(
             Xb, node, G, H, n_nodes, n_bins, chunk))
-        bf, bb = _timed(rec, "split_search", lambda: split_search(
-            hg, hh, n_bins, reg_lambda, min_child_weight, min_gain,
-            min_gain_norm, feature_mask_K, level, None))
+        here = (feats[:, level, :n_nodes], bins[:, level, :n_nodes])
+        _timed(rec, "split_search", lambda: split_search(
+            hg, hh, n_bins, lam, mcw, mg, mgn, feature_mask_K, level, None,
+            live=flags[:, level, :n_nodes] if level else None, out=here))
         del hg, hh
-        feats[:, level, :n_nodes] = bf
-        bins[:, level, :n_nodes] = bb
-        node = _timed(rec, "route_level",
-                      lambda: route_level(Xb, node, bf, bb))
+        nxt = flags[:, level + 1, :2 * n_nodes] if level + 1 < max_depth \
+            else None
+        node, spare = _timed(rec, "route_level", lambda: route_level(
+            Xb, node, *here, occupied=nxt, out=spare)), node
     rec = None
     if timers is not None:
         rec = {"K": K, "leaves": max_nodes}

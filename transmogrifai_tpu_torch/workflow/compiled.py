@@ -212,17 +212,19 @@ def dequantize_leaf_plain(wire: Dict[str, torch.Tensor], bits: int
     return x[:, 0] if one_d else x
 
 
-_DEQUANT_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_void_p,) * 3 + (
-    ctypes.c_int, ctypes.c_void_p)
+_DEQUANT_ARGS = cuda_build.register(
+    "wire_dequant", "wire_dequant",
+    (ctypes.c_void_p,) * 4 + (ctypes.c_void_p,) * 3
+    + (ctypes.c_int, ctypes.c_void_p))
+cuda_build.register("wire_dequant", "wire_dequant_max_leaves", ())
 
 
 def _dequantize_cuda(jobs: List[Tuple[str, Any]], bits: int
                      ) -> List[torch.Tensor]:
     """K10: every job (("wire", dict) or ("mask", uint8 tensor)) of one
     batch dequantized by one launch (one per MAX_LEAVES jobs)."""
-    lib = cuda_build.load("wire_dequant")
-    max_leaves = cuda_build.declare(lib, "wire_dequant_max_leaves", ())()
-    fn = cuda_build.declare(lib, "wire_dequant", _DEQUANT_ARGS)
+    max_leaves = cuda_build.entry("wire_dequant", "wire_dequant_max_leaves")()
+    fn = cuda_build.entry("wire_dequant", "wire_dequant")
     outs, rows = [], []
     for kind, x in jobs:
         if kind == "wire":
@@ -238,25 +240,23 @@ def _dequantize_cuda(jobs: List[Tuple[str, Any]], bits: int
             rows.append(([q, None, None], out, n,
                          int(q.numel() // max(n, 1)), 8))
         outs.append(out)
-    device = outs[0].device
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device)
-                                 .cuda_stream)
-        for s in range(0, len(rows), max_leaves):
-            chunk = [r for r in rows[s:s + max_leaves] if r[2] * r[3] > 0]
-            if not chunk:
-                continue
-            k = len(chunk)
-            ptrs = [(ctypes.c_void_p * k)(*[
-                None if r[0][i] is None else r[0][i].data_ptr()
-                for r in chunk]) for i in range(3)]
-            err = fn(*ptrs, (ctypes.c_void_p * k)(*[
-                r[1].data_ptr() for r in chunk]),
-                (ctypes.c_int64 * k)(*[r[2] for r in chunk]),
-                (ctypes.c_int * k)(*[r[3] for r in chunk]),
-                (ctypes.c_int * k)(*[r[4] for r in chunk]), k, stream)
-            cuda_build.check("wire_dequant", err)
-            cuda_build.count("wire_dequant")
+    index = outs[0].get_device()
+    for s in range(0, len(rows), max_leaves):
+        chunk = [r for r in rows[s:s + max_leaves] if r[2] * r[3] > 0]
+        if not chunk:
+            continue
+        k = len(chunk)
+        ptrs = [(ctypes.c_void_p * k)(*[
+            None if r[0][i] is None else r[0][i].data_ptr()
+            for r in chunk]) for i in range(3)]
+        err = cuda_build.launch(
+            index, fn, *ptrs,
+            (ctypes.c_void_p * k)(*[r[1].data_ptr() for r in chunk]),
+            (ctypes.c_int64 * k)(*[r[2] for r in chunk]),
+            (ctypes.c_int * k)(*[r[3] for r in chunk]),
+            (ctypes.c_int * k)(*[r[4] for r in chunk]), k)
+        cuda_build.check("wire_dequant", err)
+        cuda_build.count("wire_dequant")
     return outs
 
 
