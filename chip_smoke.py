@@ -17,7 +17,12 @@ any failure exits non-zero:
    per feature, with NaN cells and values exactly on edges: bin ids equal;
 3. K5 `tree_walk` against its plain version at the same n, on the Titanic
    model's tables (m = 1) and on a seeded synthetic 50-tree depth-12 forest
-   (m = 2): sums equal (the same f32 leaf values added in tree order);
+   (m = 2), then at its tile and chunk boundaries (`walk_boundary_cases`:
+   R rows a block forced to 1, 8 and 64 and the plan's own, n around R,
+   tree counts around a chunk's K5_CHUNK_PAIRS / R, m = 1 to 11 channels,
+   int8 and int32 Xb, split bins that never fire): sums equal (the same f32
+   leaf values added in tree order), and the kernel's plan gives R at
+   n = 1, 64, 891, 65,536 and the out-of-core shape;
 4. the main path: `load_model(fixture, device="cuda")` and
    `score_compiled` on all 891 rows of examples/data/titanic.csv, against
    the JAX package's scores committed beside the fixture
@@ -29,7 +34,10 @@ any failure exits non-zero:
    after phase 5: both kernels must have launched;
 6. timings with CUDA events after warmup (kernels, plain versions, the
    bound from bytes and operations, `torch.searchsorted` as K4's one-call
-   yardstick) at n = 891 and 65536; then served batches (phase
+   yardstick) at n = 64, 891 and 65536, K5 also at n = 1 and on phase 3's
+   depth-12 forest at 891 (`k5_timing`: at n <= 891 the eager call and
+   the plain version as medians of eight runs in turns, and a CUDA-graph
+   replay); then served batches (phase
    `serving_timing`, after phase 20): `score_padded` at buckets 1, 8 and
    64 with one CUDA graph per bucket and, as a measurement only, eagerly,
    in f32 and int8, for the quickstart GBT and the script's models (the JAX
@@ -132,9 +140,10 @@ any failure exits non-zero:
    counters cover exactly its run; its kernels must all have launched;
 16. K5-mc (`tree_walk_classes`, the class-tree walk of softmax boosting)
    against its plain version on the JAX package's Iris model (200 rounds x
-   3 classes at depth 10) at n = 150 and 65536 with int8 and int32 bins
-   and on a 12-class ensemble (equal), and its margins against the JAX
-   package's on the fixture's rows (2e-5); then timed beside its bound
+   3 classes at depth 10) at n = 150 and 65536 with int8 and int32 bins,
+   on a 12-class ensemble and at K = 3 and 12 across its tile and chunk
+   boundaries (`k5mc_boundary_check`) (equal), and its margins against the
+   JAX package's on the fixture's rows (2e-5); then timed beside its bound
    and its plain version;
 17. the three selector runs over the other families (L-BFGS logistic
    regression, linear SVC, naive Bayes, decision trees, MLP, multiclass
@@ -169,7 +178,8 @@ any failure exits non-zero:
    sanity checker, sweep and refit; its kernels must all have launched;
 20. quantized serving: K10 `wire_dequant` (csrc/wire_dequant.cu), K4's
    f16-edge variant and K5 over narrowed tables (int16 features, uint8
-   bins) against their plain versions at n in {1, 64, 891, 65536} (equal);
+   bins) against their plain versions at n in {1, 64, 891, 65536}, K5's
+   narrowed tables also at phase 3's boundary cases (equal);
    then the script's JAX-trained model and the quickstart GBT, each loaded
    on the card and served in int8, int4 and int8-calibrated modes through
    `score_padded` with CUDA graphs, the 891 rows in batches of 64: each
@@ -200,9 +210,12 @@ any failure exits non-zero:
    fold (`torch.profiler`). The launch counters are set to 0 before the
    upload and read after the prediction: K12, K1, K2, K3, K5 and K8 must
    have launched. Then each kernel at these shapes beside its bound, its
-   plain version and a library call; the `kernels` line adds them
-   (`write_rows`, `*_big`). `big_path(rows=10_000_000)` is the same phase
-   at BASELINE target 4's shape (39 chunks);
+   plain version and a library call (K5 as `predict_forest_big` runs it,
+   beside the bound of the cells it reads and that of all of Xb), and
+   K12's four entries on hostile edges and values at odd, narrow and
+   misaligned shapes (`k12_hostile_check`, bit-equal); the `kernels` line
+   adds them (`write_rows`, `*_big`). `big_path(rows=10_000_000)` is the
+   same phase at BASELINE target 4's shape (39 chunks);
 22. the feature cache and the quantized wire (`big_cache`), on phase 21's
    store in the same temporary root, each build `dual_device_matrices`
    with `cache=FeatureCacheParams(dir=<root>/cache, policy="readwrite",
@@ -228,8 +241,10 @@ any failure exits non-zero:
    widths, K12 and the downstream kernels must have launched. Each build's
    wall, wire GB/s, overlap and stage seconds are printed; then each
    K12-dequant entry at 8 and 4 bits on a 262,144-row chunk beside its
-   bound, its plain version and the library composition; the `kernels`
-   line adds them (`dequant_*_int8`, `dequant_*_int4`).
+   bound, its plain version and the library composition, and every entry
+   on hostile edges at odd, narrow and misaligned shapes
+   (`k12_dequant_hostile_check`, bit-equal); the `kernels` line adds them
+   (`dequant_*_int8`, `dequant_*_int4`).
 """
 
 import contextlib
@@ -318,6 +333,19 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def count_ops(edges, rows: int) -> int:
+    """The compares that counting `rows` values of every feature against
+    its row of `edges` (d, n_edges) needs by K4's rule
+    (csrc/edge_count.cuh), on these edges: ceil(log2(n_edges + 1)) a value
+    of a non-decreasing feature (the binary search), n_edges a value of
+    any other (the linear count)."""
+    e = edges.float()
+    n_edges = e.shape[1]
+    mono = (e[:, :-1] <= e[:, 1:]).all(1)
+    per = torch.where(mono, n_edges.bit_length(), n_edges)
+    return rows * int(per.sum())
+
+
 def in_turns(calls: dict, rounds: int = 8) -> dict:
     """{name: (median, least)} CUDA-event ms a call over `rounds` runs of
     each (fn, iters) in `calls`, the runs taken in turns, so that a shared
@@ -342,7 +370,7 @@ def k4_timing(pt, X, e, X1) -> dict:
     n_edges = e.shape[1]
     nbytes = X.numel() * 4 + e.numel() * e.element_size() \
         + n * d * pt.bin_dtype(n_edges).itemsize
-    b_ms, b_by = bound(nbytes, n * d * n_edges)
+    b_ms, b_by = bound(nbytes, count_ops(e, n))
     ef, Xt = e.float().contiguous(), X.T.contiguous()
     t = in_turns({
         "floor_ms": (lambda: pt.bin_features(X1, e), 50),
@@ -537,6 +565,248 @@ def hostile_values(rng, n: int, edges: np.ndarray) -> np.ndarray:
     X[rng.integers(0, n, k), rng.integers(0, d, k)] = \
         specials[rng.integers(0, 5, k)]
     return X
+
+
+def walk_inputs(rng, n, d, n_trees, depth, m, bin_dtype):
+    """(Xb, feat, bins, leaf) on the CPU: random tables of `depth` levels
+    (width 2^depth), bins over 32 (int8 Xb) or 201 (int32 Xb) values and
+    split bins up to n_bins (which never fire)."""
+    width = 2 ** depth
+    n_bins = 32 if bin_dtype == torch.int8 else 201
+    Xb = torch.from_numpy(rng.integers(0, n_bins, (n, d))).to(bin_dtype)
+    feat = torch.from_numpy(
+        rng.integers(0, d, (n_trees, depth, width)).astype(np.int32))
+    bins = torch.from_numpy(
+        rng.integers(0, n_bins + 1, (n_trees, depth, width)).astype(np.int32))
+    leaf = torch.from_numpy(
+        rng.normal(size=(n_trees, width, m)).astype(np.float32))
+    return Xb, feat, bins, leaf
+
+
+# the (row, tree) pairs a K5 chunk walks (csrc/tree_walk.cu: 256 threads,
+# 4 trees each): a tile of R rows walks K5_CHUNK_PAIRS / R trees at once
+K5_CHUNK_PAIRS = 1024
+
+
+def walk_boundary_cases():
+    """K5's boundaries as (R, n, T, m, bin dtype): for R rows a block
+    (forced; the plan's own R where None), a chunk holds TC =
+    K5_CHUNK_PAIRS / R trees; n around R and tree counts around TC, channel
+    counts around a pass's 4 and two passes' 8, int8 and int32 Xb."""
+    cases = []
+    for R in (1, 8, 64):
+        TC = K5_CHUNK_PAIRS // R
+        for n in sorted({max(R - 1, 1), R, R + 1, 891}):
+            for T in sorted({1, max(TC - 1, 1), TC, TC + 1, 200}):
+                cases.append((R, n, T, 1, torch.int8))
+        for m in (2, 4, 5, 8, 9, 11):
+            cases.append((R, R + 1, TC + 1, m, torch.int8))
+        cases.append((R, 891, 200, 2, torch.int32))
+    return cases + [(None, n, 200, 1, torch.int8)
+                    for n in (1, 64, 891, 65536)]
+
+
+# K5's plan at the main path's shapes: (n, trees, d, Xb bytes, columns, m)
+K5_PLAN_SHAPES = {"titanic_n1": (1, 200, 496, 1, 1, 1),
+                  "titanic_n64": (64, 200, 496, 1, 1, 1),
+                  "titanic_n891": (891, 200, 496, 1, 1, 1),
+                  "titanic_n65536": (65536, 200, 496, 1, 1, 1),
+                  "out_of_core": (4_456_448, 16, 500, 1, 2, 2)}
+
+
+def walk_boundary_check(pt, rng, dev, narrow: bool) -> dict:
+    """K5 (int32 tables, or K5-narrow's int16 / uint8) at every case of
+    `walk_boundary_cases`, a level of split bins of n_bins (never fire)
+    in each: equal to the plain version. Also the kernel's plan: a forced
+    R walks K5_CHUNK_PAIRS / R trees a chunk, and (R, staged) at
+    `K5_PLAN_SHAPES`."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for R in (1, 2, 4, 8, 16, 32, 64):
+        plan = pt.walk_plan(1, 1, 37, 1, 1, 1, sms, rows=R)
+        if plan[0] != R or plan[2] * R != K5_CHUNK_PAIRS:
+            raise AssertionError(f"K5's plan at rows={R}: {plan}")
+    plans = {k: list(pt.walk_plan(*v, sms)[:2])
+             for k, v in K5_PLAN_SHAPES.items()}
+    for R, n, T, m, dt in walk_boundary_cases():
+        Xb, feat, bins, leaf = (t.to(dev) for t in walk_inputs(
+            rng, n, 37, T, 5, m, dt))
+        bins[:, 2] = 32 if dt == torch.int8 else 201
+        if narrow:
+            feat, bins = feat.to(torch.int16), bins.to(torch.uint8)
+        got = pt._tree_walk_cuda(Xb, feat, bins, leaf, rows=R)
+        if not torch.equal(got, pt.tree_walk_plain(Xb, feat, bins, leaf)):
+            raise AssertionError(f"K5{'-narrow' if narrow else ''} "
+                                 f"disagrees at R={R} n={n} T={T} m={m} "
+                                 f"{dt}")
+    return {"cases": len(walk_boundary_cases()), "equal": True,
+            "plans": plans}
+
+
+def k5mc_boundary_check(pt, rng, dev) -> dict:
+    """K5-mc at K = 3 and 12 classes, R in {plan, 1, 4, 64} rows a block,
+    n in {1, 63, 64, 65, 891}: rounds that a chunk of 1024 flat trees cuts
+    apart; equal to the plain version."""
+    count = 0
+    for K, T in ((3, 171), (12, 45)):
+        width = 2 ** 6
+        tables = [torch.from_numpy(a).to(dev) for a in (
+            rng.integers(0, 9, (T, K, 6, width)).astype(np.int32),
+            rng.integers(0, 34, (T, K, 6, width)).astype(np.int32),
+            rng.normal(size=(T, K, width, 1)).astype(np.float32))]
+        for R in (None, 1, 4, 64):
+            for n in (1, 63, 64, 65, 891):
+                Xb = torch.from_numpy(rng.integers(0, 33, (n, 9)).astype(
+                    np.int8)).to(dev)
+                got = pt._tree_walk_classes_cuda(Xb, *tables, rows=R)
+                if not torch.equal(got, pt.tree_walk_classes_plain(
+                        Xb, *tables)):
+                    raise AssertionError(f"K5-mc disagrees at K={K} R={R} "
+                                         f"n={n}")
+                count += 1
+    return {"cases": count, "equal": True}
+
+
+# K12's hostile cases, (d, r0, n_edges, misaligned chunk): d odd, d % 8 !=
+# 0, d < 8 (a group spans several rows), r0 with r0 * d not a multiple of 8
+# (the scalar path), 126 edges at d = 500 (127 staged rows), a chunk one
+# element past an aligned address (scalar path); 1100 and 2100 features
+# span many of K12's 256-feature windows
+K12_HOSTILE_CASES = ((500, 8, 31, False), (500, 41, 31, False),
+                     (501, 16, 31, False), (7, 8, 31, False),
+                     (12, 2, 15, False), (500, 8, 126, False),
+                     (12, 8, 126, False), (500, 8, 31, True),
+                     (1, 3, 31, False), (1100, 8, 31, False),
+                     (2100, 8, 31, False))
+# (d, r0, misaligned view) at 8 and 4 bits; 1100 to 2101 features span
+# many windows, 2101 is odd (4 bits: the scalar path)
+K12_DEQUANT_CASES = ((500, 8, False), (501, 16, False), (12, 2, False),
+                     (7, 41, False), (500, 8, True), (1100, 8, False),
+                     (2100, 8, False), (2101, 8, False))
+
+
+def misaligned(t):
+    """A contiguous copy of `t` that starts one element past an aligned
+    address."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+def writes_equal(n, d, dev, entries) -> None:
+    """Each (name, buffer dtypes, kernel call, plain call) on buffers of n
+    rows prefilled with a sentinel: bit-equal buffers, or raise."""
+    for name, dtypes, kernel, plain in entries:
+        got = [torch.full((n, d), 3, dtype=dt, device=dev) for dt in dtypes]
+        want = [b.clone() for b in got]
+        kernel(*got)
+        plain(*want)
+        if not all(bits_equal(a, w) for a, w in zip(got, want)):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"(n={n}, d={d})")
+
+
+def k12_hostile_check(pbd, dev) -> dict:
+    """K12's four entries on `hostile_edges` (f16-exact, so values fall on
+    them) and `hostile_values` at every `K12_HOSTILE_CASES` case: bit-equal
+    to their plain versions, rows outside the chunk untouched."""
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    for d, r0, n_edges, view in K12_HOSTILE_CASES:
+        rng = np.random.default_rng(d * 1000 + r0 + n_edges)
+        e = hostile_edges(rng, d, n_edges).astype(np.float16).astype(
+            np.float32)
+        chunk = torch.from_numpy(hostile_values(rng, 3000, e).astype(
+            np.float16)).to(dev)
+        if view:
+            chunk = misaligned(chunk)
+        edges = torch.from_numpy(e).to(dev)
+        writes_equal(3100, d, dev, [
+            ("write_cast_rows bf16", (bf,),
+             lambda b: pbd.write_cast_rows(b, chunk, r0),
+             lambda b: pbd.write_cast_rows_plain(b, chunk, r0)),
+            ("write_cast_rows f32", (f32,),
+             lambda b: pbd.write_cast_rows(b, chunk, r0),
+             lambda b: pbd.write_cast_rows_plain(b, chunk, r0)),
+            ("bin_write_rows", (i8,),
+             lambda b: pbd.bin_write_rows(b, chunk, edges, r0),
+             lambda b: pbd.bin_write_rows_plain(b, chunk, edges, r0)),
+            ("dual_write_rows", (bf, i8),
+             lambda a, b: pbd.dual_write_rows(a, b, chunk, edges, r0),
+             lambda a, b: pbd.dual_write_rows_plain(a, b, chunk, edges,
+                                                    r0))])
+    return {"cases": len(K12_HOSTILE_CASES), "tolerance": "bit-equal"}
+
+
+def k12_dequant_hostile_check(pbd, dev) -> dict:
+    """Every K12-dequant entry at 8 and 4 bits at every
+    `K12_DEQUANT_CASES` case: hostile edges (a sorted feature in six with
+    a dequantized value on one of its edges), codes over the whole range;
+    bit-equal to the plain versions."""
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    for bits in (8, 4):
+        for d, r0, view in K12_DEQUANT_CASES:
+            rng = np.random.default_rng(bits * 7 + d + r0)
+            c = 3000
+            q = rng.integers(0, 1 << bits, (c, d)).astype(np.uint8)
+            scale = rng.uniform(0.01, 2.0, d).astype(np.float32)
+            lo = (rng.normal(size=d) * 4.0).astype(np.float32)
+            x = (q * scale.astype(np.float64) + lo).astype(np.float32)
+            e = hostile_edges(rng, d, 31)
+            e[0::6, 5] = x[3, 0::6]
+            e[0::6] = np.sort(e[0::6], axis=1)
+            if bits == 4:
+                p = np.concatenate([q, np.zeros((c, d % 2), np.uint8)], 1)
+                q = (p[:, 0::2] | (p[:, 1::2] << 4)).astype(np.uint8)
+            q, scale, lo, edges = (torch.from_numpy(a).to(dev)
+                                   for a in (q, scale, lo, e))
+            if view:
+                q = misaligned(q)
+            writes_equal(c + 100, d, dev, [
+                ("dequant_write_rows bf16", (bf,),
+                 lambda b: pbd.dequant_write_rows(b, q, scale, lo, r0, bits),
+                 lambda b: pbd.dequant_write_rows_plain(b, q, scale, lo, r0,
+                                                        bits)),
+                ("dequant_write_rows f32", (f32,),
+                 lambda b: pbd.dequant_write_rows(b, q, scale, lo, r0, bits),
+                 lambda b: pbd.dequant_write_rows_plain(b, q, scale, lo, r0,
+                                                        bits)),
+                ("dequant_bin_write_rows", (i8,),
+                 lambda b: pbd.dequant_bin_write_rows(b, q, scale, lo, edges,
+                                                      r0, bits),
+                 lambda b: pbd.dequant_bin_write_rows_plain(
+                     b, q, scale, lo, edges, r0, bits)),
+                ("dequant_dual_write_rows", (bf, i8),
+                 lambda a, b: pbd.dequant_dual_write_rows(
+                     a, b, q, scale, lo, edges, r0, bits),
+                 lambda a, b: pbd.dequant_dual_write_rows_plain(
+                     a, b, q, scale, lo, edges, r0, bits))])
+    return {"cases": 2 * len(K12_DEQUANT_CASES), "tolerance": "bit-equal"}
+
+
+def k5_timing(pt, Xb, feat, bins, leaf, m_ops=None) -> dict:
+    """K5 (or K5-narrow) on Xb: at n <= 891 the eager call and the plain
+    version as medians of eight runs in turns (`in_turns`, 50 and 5 calls
+    a run; `*_least` the least) and `graph_ms`, a CUDA-graph replay (as a
+    served batch runs it); above, CUDA-event means. Beside the bound of
+    the bytes the walk reads (`walk_bytes`) and its compares."""
+    args = (Xb, feat, bins, leaf)
+    n = Xb.shape[0]
+    T_, depth, _ = feat.shape
+    m = leaf.shape[-1]
+    nbytes = walk_bytes(*args)
+    b_ms, b_by = bound(nbytes, n * T_ * (2 * depth + (m_ops or m)))
+    rec = {"library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": nbytes}
+    if n <= 891:
+        t = in_turns({"ms": (lambda: pt.tree_walk(*args), 50),
+                      "plain_ms": (lambda: pt.tree_walk_plain(*args), 5)})
+        rec.update({k: v[0] for k, v in t.items()})
+        rec.update({f"{k}_least": v[1] for k, v in t.items()})
+        rec["graph_ms"] = graph_ms(lambda: pt.tree_walk(*args), 50)
+    else:
+        rec.update({"ms": cuda_ms(lambda: pt.tree_walk(*args), 20),
+                    "plain_ms": cuda_ms(lambda: pt.tree_walk_plain(*args),
+                                        3)})
+    return rec
 
 
 def synthetic_forest(rng, d: int, n_trees=50, depth=12, m=2, n_bins=32):
@@ -2216,7 +2486,9 @@ def quant_kernel_check(port, pt, pc, rng, dev):
     record = {"phase": "quant_kernels_check", "sizes": list(SIZES),
               "leaves": len(pc._flatten(cases[("wire_dequant", 1, 8)])),
               "tolerance": "equal", "failed": bad, "ok": not bad,
-              "max_abs_err": 0.0 if not bad else None}
+              "max_abs_err": 0.0 if not bad else None,
+              "narrow_boundaries": walk_boundary_check(
+                  pt, np.random.default_rng(20), dev, narrow=True)}
     emit(record)
     if bad:
         raise AssertionError(f"quantized-path kernels disagree: {bad}")
@@ -2244,14 +2516,8 @@ def time_quant_kernels(pt, pc, cases):
                "bound_by": k10_by, "bytes": nb}
         X, e16, Xb = cases[("bin_features_f16", n)]
         k4 = k4_timing(pt, X, e16, X1)
-        T_, depth, _ = narrow["feat"].shape
-        args = (Xb, narrow["feat"], narrow["bin"], narrow["leaf"])
-        k5_bytes = walk_bytes(*args)
-        k5_bound, k5_by = bound(k5_bytes, n * T_ * (2 * depth + 1))
-        k5 = {"ms": cuda_ms(lambda: pt.tree_walk(*args), 20),
-              "plain_ms": cuda_ms(lambda: pt.tree_walk_plain(*args), 3),
-              "library_ms": None, "bound_ms": k5_bound, "bound_by": k5_by,
-              "bytes": k5_bytes}
+        k5 = k5_timing(pt, Xb, narrow["feat"], narrow["bin"],
+                       narrow["leaf"])
         out[n] = {"wire_dequant": k10, "bin_features_f16": k4,
                   "tree_walk_narrow": k5}
         emit({"phase": "quant_timing", "n": n, **out[n]})
@@ -2801,6 +3067,8 @@ def k5mc_check(pt, rng, dev):
         raise AssertionError("K5-mc disagrees at K = 12 classes")
     cases["k12_n4096"] = {"max_abs_err": float((got - want).abs().max()),
                           "equal": True}
+    cases["boundaries"] = k5mc_boundary_check(pt, np.random.default_rng(16),
+                                              dev)
     margin = pt.predict_gbt_multiclass_margin(trees, Xb150, lr)
     jax_err = float(np.abs(margin.cpu().numpy() - arr["xgb_margin"]).max())
     ok = jax_err <= 2e-5
@@ -3317,10 +3585,9 @@ def big_kernel_timings(pbd, pt, pdm, X16, Xb, chunk_f16, edges, y, Vf, rf,
     dev = Xb.device
     out = {}
     c = chunk_f16.shape[0]
-    n_edges = edges.shape[1]
     e = edges.contiguous()
     k12_bytes = c * d * (2 + 2 + 1) + edges.numel() * 4
-    b_ms, b_by = bound(k12_bytes, c * d * n_edges)
+    b_ms, b_by = bound(k12_bytes, count_ops(e, c))
     pinned = chunk_f16.cpu().pin_memory()
     cols = chunk_f16.T.float().contiguous()  # searchsorted's (d, c) rows
     w16 = torch.empty((c, d), dtype=torch.bfloat16, device=dev)
@@ -3451,16 +3718,23 @@ def big_kernel_timings(pbd, pt, pdm, X16, Xb, chunk_f16, edges, y, Vf, rf,
         **leaf_designs_ms(pt, final, G, H, leaves, 1e-6, 2, warmup=1)}
     del slot, srcs, node, final
     torch.cuda.empty_cache()
+    # K5 alone as `predict_forest_big` runs it: the RF batch's trees over
+    # all rows; bound by the cells the walk reads, and (all_xb) by reading
+    # every byte of Xb, which whole 32-byte sectors make the real floor
     args = (Xb, rf["feat"], rf["bin"], rf["leaf"])
     T_, depth, _ = rf["feat"].shape
     kb = walk_bytes(*args)
     b_ms, b_by = bound(kb, n * T_ * (2 * depth + m))
+    all_xb = Xb.numel() * Xb.element_size() + n * rf["leaf"].shape[-1] * 4
     out["tree_walk"] = {
-        "ms": cuda_ms(lambda: pt.tree_walk(*args), 3, warmup=1),
+        "ms": cuda_ms(lambda: pt.tree_walk(*args), 5, warmup=1),
         "plain_ms": cuda_ms(lambda: pt.tree_walk_plain(*args), 2, warmup=1),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "bytes": kb, "max_abs_err": max_err(pt.tree_walk(*args),
-                                            pt.tree_walk_plain(*args))}
+        "bytes": kb, "bound_all_xb_ms": bound(all_xb, 0)[0],
+        "trees": T_, "depth": depth, "rows": n,
+        "max_abs_err": max_err(pt.tree_walk(*args),
+                               pt.tree_walk_plain(*args))}
+    out["write_rows"]["hostile"] = k12_hostile_check(pbd, dev)
     P = probs.shape[0]
     s = probs[:, :, 1].contiguous()
     Vb = Vf[None].expand(P, n).contiguous()
@@ -3546,8 +3820,10 @@ def padded_quantized_chunk(store, plan, r0: int, c: int) -> np.ndarray:
 
 
 def bits_equal(a, b) -> bool:
-    if a.dtype == torch.bfloat16:
-        a, b = a.view(torch.int16), b.view(torch.int16)
+    """Equal bit patterns (NaN included) of bf16, f32 or integer tensors."""
+    if a.dtype in (torch.bfloat16, torch.float32):
+        view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        a, b = a.view(view), b.view(view)
     return bool(torch.equal(a, b))
 
 
@@ -3559,12 +3835,15 @@ def dequant_timings(pbd, chunks, edges, dev) -> dict:
     a time only, `.to(bfloat16)`, `torch.searchsorted`)."""
     out = {}
     e = edges.contiguous()
-    n_edges = e.shape[1]
     for wire, (q, scale, lo) in chunks.items():
         bits = 8 if wire == "int8" else 4
         c = q.shape[0]
         d = scale.shape[0]
         qb = q.numel()
+        # an FMA a value, then its count; at 4 bits a feature has 16 codes,
+        # so 16 FMAs and counts a feature and one lookup a value
+        bin_ops = (c * d * 2 + count_ops(e, c) if bits == 8
+                   else 16 * d * 2 + count_ops(e, 16) + c * d)
 
         def lib_x():
             u = q if bits == 8 else torch.stack(
@@ -3594,14 +3873,14 @@ def dequant_timings(pbd, chunks, edges, dev) -> dict:
                 lambda: torch.searchsorted(e, lib_x().T.contiguous(),
                                            right=True),
                 qb + c * d + e.numel() * 4 + 2 * d * 4,
-                c * d * (2 + n_edges), (1,)),
+                bin_ops, (1,)),
             "dequant_dual_write_rows": (
                 lambda b: pbd.dequant_dual_write_rows(b[0], b[1], q, scale,
                                                       lo, e, 0, bits),
                 lambda b: pbd.dequant_dual_write_rows_plain(
                     b[0], b[1], q, scale, lo, e, 0, bits),
                 lib_dual, qb + c * d * 3 + e.numel() * 4 + 2 * d * 4,
-                c * d * (2 + n_edges), (0, 1))}
+                bin_ops, (0, 1))}
         for name, (kern, plain, lib, nbytes, ops, outs) in cases.items():
             kern(bufs["kernel"])
             plain(bufs["plain"])
@@ -3627,6 +3906,8 @@ def dequant_timings(pbd, chunks, edges, dev) -> dict:
     if bad:
         raise AssertionError(f"K12-dequant disagrees with its plain "
                              f"version: {bad}")
+    out["dequant_dual_write_rows_int8"]["hostile"] = \
+        k12_dequant_hostile_check(pbd, dev)
     return out
 
 
@@ -4092,10 +4373,13 @@ def main() -> int:
             if not torch.equal(got, want):
                 raise AssertionError(
                     f"K5 disagrees on {label} at n={n}: max err {err}")
+    boundaries = walk_boundary_check(pt, np.random.default_rng(3), dev,
+                                     narrow=False)
     emit({"phase": "k5_check", "sizes": list(SIZES),
           "tables": {"gbt_m1": list(tables["feat"].shape),
                      "forest_m2_depth12": list(forest["feat"].shape)},
-          "max_abs_err": k5_err, "tolerance": "equal"})
+          "max_abs_err": k5_err, "tolerance": "equal",
+          "boundaries": boundaries})
 
     # 4. the main path: load + score_compiled on all 891 rows --------------- #
     ds = Dataset.from_csv(TITANIC)
@@ -4208,22 +4492,16 @@ def main() -> int:
 
     # 6. timings ------------------------------------------------------------ #
     timing = {}
-    for n in (64, 891, 65536):
+    for n in SIZES:
         X, Xb = inputs[n], binned[n]
-        k4 = k4_timing(pt, X, edges, inputs[1])
-        T_, depth, _ = tables["feat"].shape
-        m = tables["leaf"].shape[-1]
-        k5_bytes = walk_bytes(Xb, tables["feat"], tables["bin"],
-                              tables["leaf"])
-        k5_bound, k5_by = bound(k5_bytes, n * T_ * (2 * depth + m))
-        args = (Xb, tables["feat"], tables["bin"], tables["leaf"])
-        k5 = {"ms": cuda_ms(lambda: pt.tree_walk(*args), 20),
-              "plain_ms": cuda_ms(lambda: pt.tree_walk_plain(*args), 3),
-              "library_ms": None, "bound_ms": k5_bound, "bound_by": k5_by,
-              "bytes": k5_bytes}
-        timing[n] = {"bin_features": k4, "tree_walk": k5}
-        emit({"phase": "timing", "n": n, "bin_features": k4,
-              "tree_walk": k5})
+        k5 = k5_timing(pt, Xb, tables["feat"], tables["bin"], tables["leaf"])
+        timing[n] = {"tree_walk": k5}
+        if n > 1:
+            timing[n]["bin_features"] = k4_timing(pt, X, edges, inputs[1])
+        if n == 891:  # phase 3's depth-12 forest (m = 2)
+            timing[n]["tree_walk_forest_m2_depth12"] = k5_timing(
+                pt, Xb, forest["feat"], forest["bin"], forest["leaf"])
+        emit({"phase": "timing", "n": n, **timing[n]})
     emit({"phase": "timing", "launch_idiom_floor": launch_idiom_floor(
         pt, inputs[1], edges)})
     # served batches: CUDA graphs against eager dispatch, f32 and int8, the

@@ -11,7 +11,9 @@ with the conftest switched off:
 Tolerances: bin ids equal (K4 also on shuffled, NaN, duplicated, +-inf
 and +-0 edges, 1 to 1023 edges, f32 and f16, staged and read from global
 memory); tree sums equal, because kernel and plain
-version add the same f32 leaf values in the same tree order. Training
+version add the same f32 leaf values in the same tree order (K5, K5-narrow
+and K5-mc also at their tile and chunk boundaries, rows too wide to stage,
+misaligned and odd-width rows, one launch for any class count). Training
 kernels: K1 histograms within rtol 1e-5 / atol 1e-5 of the plain version
 (`index_add_` adds in another order on the card) and bit-equal from run
 to run; K2 split features and bins equal when fed the same histograms
@@ -39,9 +41,11 @@ equal to their plain versions (and to the f32 / int32 versions); a
 `score_padded` graph replay equal to eager scoring, its launches counted
 per replay; a device stage that cannot be captured raises and names
 itself. The out-of-core path: K12 equal to its plain version bit for bit
-(rows past 2^31 elements); K12-dequant's entries equal to their plain
+(rows past 2^31 elements, hostile edges and values, odd and narrow d,
+unaligned offsets and views); K12-dequant's entries equal to their plain
 versions bit for bit at 8 and 4 bits (odd d, subnormals, values on and
-beside edges, rows past 2^31 elements), and a warm feature-cache replay on
+beside edges, hostile edges, unaligned views, rows past 2^31 elements),
+and a warm feature-cache replay on
 the card equal to its cold build and to the CPU's; K1 over 16 lockstep
 learners equal to `histograms_plain` (integer sums); `mm_f32` within
 2·K·2^-24·Σ|a||b| of the widened f32 product (the same exact products
@@ -190,8 +194,151 @@ def test_tree_walk_kernel_equals_plain(cuda, n, d, n_trees, depth, m,
     before = pt.LAUNCHES["tree_walk"]
     got = pt.tree_walk(*args)
     torch.cuda.synchronize()
-    assert pt.LAUNCHES["tree_walk"] == before + -(-m // 8)
+    assert pt.LAUNCHES["tree_walk"] == before + 1  # every class at once
     assert torch.equal(got, pt.tree_walk_plain(*args))
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("R,n,T,m,bin_dtype", cs.walk_boundary_cases())
+def test_tree_walk_kernel_at_tile_and_chunk_boundaries(cuda, R, n, T, m,
+                                                        bin_dtype, narrow):
+    """K5 and K5-narrow at `chip_smoke.walk_boundary_cases`: for R rows a
+    block (forced; the plan's own R where None) a chunk holds TC =
+    K5_CHUNK_PAIRS / R trees; n around R and tree counts around TC, channel
+    counts around a pass's 4 and two passes' 8, int8 and int32 Xb, split
+    bins of n_bins (never fire); one launch, equal to the plain version."""
+    rng = np.random.default_rng((R or 0) + 7 * n + 11 * T + m)
+    Xb, feat, bins, leaf = (t.to(cuda) for t in _walk_inputs(
+        rng, n, 37, T, 5, m, bin_dtype))
+    n_bins = 32 if bin_dtype == torch.int8 else 201
+    bins[:, 2] = n_bins  # level 2 never splits: every row goes left
+    if narrow:
+        feat, bins = feat.to(torch.int16), bins.to(torch.uint8)
+    key = "tree_walk_narrow" if narrow else "tree_walk"
+    before = pt.LAUNCHES[key]
+    got = pt._tree_walk_cuda(Xb, feat, bins, leaf, rows=R)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES[key] == before + 1
+    assert torch.equal(got, pt.tree_walk_plain(Xb, feat, bins, leaf))
+
+
+@pytest.mark.parametrize("case", ["wide_rows", "misaligned", "odd_row"])
+def test_tree_walk_kernel_where_rows_are_not_staged_by_words(cuda, case):
+    """Rows too wide for the tile (read from device memory), a view whose
+    rows start off a 4-byte boundary and rows of an odd byte count (both
+    copied byte by byte): equal to the plain version."""
+    rng = np.random.default_rng(len(case))
+    d, dt = {"wide_rows": (13000, torch.int32), "misaligned": (64, torch.int8),
+             "odd_row": (37, torch.int8)}[case]
+    n, T = 300, 40
+    Xb, feat, bins, leaf = (t.to(cuda) for t in _walk_inputs(
+        rng, n, d, T, 6, 2, dt))
+    if case == "misaligned":
+        flat = torch.empty(n * d + 1, dtype=torch.int8, device=cuda)
+        flat[1:] = Xb.reshape(-1)
+        Xb = flat[1:].view(n, d)
+        assert Xb.is_contiguous() and Xb.data_ptr() % 4 != 0
+    _, staged, _ = pt.walk_plan(n, T, d, Xb.element_size(), 2, 2,
+                                _sms(cuda))
+    assert staged == (case != "wide_rows")
+    got = pt.tree_walk(Xb, feat, bins, leaf)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pt.tree_walk_plain(Xb, feat, bins, leaf))
+
+
+def _sms(cuda):
+    return torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
+# (n_flat, d, xb_bytes, n_cols, m): the Titanic GBT, its int32 bins, the
+# out-of-core forest, the Iris softmax model, an 11-class forest, a row too
+# wide to stage
+PLAN_CASES = [(200, 496, 1, 1, 1), (200, 496, 4, 1, 1), (16, 500, 1, 2, 2),
+              (600, 3, 1, 3, 1), (50, 37, 1, 11, 11), (40, 13000, 4, 2, 2)]
+PLAN_SMS = 132
+PLAN_FILL = 2  # csrc/tree_walk.cu FILL: blocks an SM the tiles give
+
+
+def _plan_ns():
+    """Every n up to 4096, then steps of 97 to 2^20, and each switch of the
+    plan (where ceil(n / 2R) reaches PLAN_FILL * SMs, and n = 2R) +- 2."""
+    ns = set(range(1, 4097)) | set(range(4097, 2 ** 20 + 1, 97))
+    ns.add(2 ** 20)
+    for r in (1, 2, 4, 8, 16, 32, 64):
+        for at in (2 * r * (PLAN_FILL * PLAN_SMS - 1), 2 * r):
+            ns.update(at + k for k in range(-2, 3) if at + k >= 1)
+    return sorted(ns)
+
+
+@pytest.mark.parametrize("n_flat,d,xb_bytes,n_cols,m", PLAN_CASES)
+def test_walk_plan_for_every_n_up_to_2_20(cuda, n_flat, d, xb_bytes, n_cols,
+                                          m):
+    """K5's plan (csrc/tree_walk.cu): R a power of two up to 64 that never
+    shrinks as n grows, TC = K5_CHUNK_PAIRS / R; R grew while the tiles
+    still gave PLAN_FILL blocks an SM or one chunk held every tree, and
+    stopped where both fail, at 64, or where 2R rows do not fit (a forced
+    2R is refused, or not staged where R is)."""
+    def rule(r, n):
+        return -(-n // r) >= PLAN_FILL * PLAN_SMS or (
+            r <= n and cs.K5_CHUNK_PAIRS // r >= n_flat)
+
+    args = (n_flat, d, xb_bytes, n_cols, m, PLAN_SMS)
+    grown = {}
+    for r in (2, 4, 8, 16, 32, 64):  # whether 2R fits as R is staged
+        try:
+            grown[r] = pt.walk_plan(1, *args, rows=r)[1]
+        except RuntimeError:
+            grown[r] = None
+    prev = 0
+    for n in _plan_ns():
+        rows, staged, tc = pt.walk_plan(n, *args)
+        assert rows in (1, 2, 4, 8, 16, 32, 64) and tc * rows == \
+            cs.K5_CHUNK_PAIRS
+        assert rows >= prev, (n, rows, prev)
+        prev = rows
+        if rows > 1:
+            assert rule(rows, n), n
+        grow = 2 * rows
+        if grow <= 64 and grown[grow] is not None and (
+                grown[grow] or not staged):
+            assert not rule(grow, n), n
+
+
+def test_walk_plan_at_the_main_path_shapes(cuda):
+    """The served Titanic GBT: one row a block at n = 1, small tiles whose
+    chunk holds all 200 trees at 64 and 891 rows, 64-row tiles at 65,536;
+    the out-of-core forest (16 trees, 500 features): 64-row tiles of
+    staged rows; a forced R is kept; no plan past the shared memory."""
+    plan = pt.walk_plan
+    assert plan(1, 200, 496, 1, 1, 1, 132) == (1, True, 1024)
+    assert plan(64, 200, 496, 1, 1, 1, 132) == (4, True, 256)
+    assert plan(891, 200, 496, 1, 1, 1, 132) == (4, True, 256)
+    assert plan(65536, 200, 496, 1, 1, 1, 132) == (64, True, 16)
+    assert plan(4_456_448, 16, 500, 1, 2, 2, 132) == (64, True, 16)
+    assert plan(300, 40, 13000, 4, 2, 2, 132)[1] is False
+    assert plan(1, 200, 496, 1, 1, 1, 132, rows=32) == (32, True, 32)
+    for bad in ((1, 200, 496, 1, 1, 1, 132, 3),
+                (1, 1, 4, 1, 20000, 1, 132, 0)):
+        with pytest.raises(RuntimeError, match="tree_walk_plan"):
+            plan(*bad)
+
+
+@pytest.mark.parametrize("R", [None, 1, 4, 64])
+@pytest.mark.parametrize("K", [3, 12])
+def test_class_tree_walk_kernel_at_tile_and_chunk_boundaries(cuda, K, R):
+    """K5-mc over (row, class, round): rounds added in index order per
+    (row, class), chunks of flat trees that cut a round's classes apart."""
+    rng = np.random.default_rng(K * 100 + (R or 0))
+    T = 171 if K == 3 else 45
+    tables = [t.to(cuda) for t in _class_tables(rng, T, K, 6, 9)]
+    for n in (1, 63, 64, 65, 891):
+        Xb = torch.from_numpy(rng.integers(0, 33, (n, 9)).astype(
+            np.int8)).to(cuda)
+        before = pt.LAUNCHES["tree_walk_classes"]
+        got = pt._tree_walk_classes_cuda(Xb, *tables, rows=R)
+        torch.cuda.synchronize()
+        assert pt.LAUNCHES["tree_walk_classes"] == before + 1
+        assert torch.equal(got, pt.tree_walk_classes_plain(Xb, *tables))
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):
@@ -1186,6 +1333,115 @@ def test_dequant_write_rows_kernel_past_2_31_elements(cuda):
         assert torch.equal(X16[r0:].view(torch.int16), w16.view(torch.int16))
         assert torch.equal(Xb[r0:], wb)
         assert not X16[:r0].view(torch.int16).any() and not Xb[:r0].any()
+
+
+def _bits_view(t):
+    return {torch.bfloat16: lambda: t.view(torch.int16),
+            torch.float32: lambda: t.view(torch.int32)}.get(
+                t.dtype, lambda: t)()
+
+
+def _misaligned(t, cuda):
+    """`chip_smoke.misaligned`: a contiguous copy of `t` one element past
+    an aligned address (the kernels' scalar path)."""
+    out = cs.misaligned(t.to(cuda))
+    assert out.is_contiguous() and out.data_ptr() % 8 != 0
+    return out
+
+
+def _check_writes(cuda, n, d, entries):
+    """Each (name, counter, buffer dtypes, kernel call, plain call) on
+    buffers of n rows prefilled with a sentinel: the kernel's buffers equal
+    the plain version's bit for bit (rows outside the chunk untouched), and
+    the entry counts one launch."""
+    for name, counter, dtypes, kernel, plain in entries:
+        got = [torch.full((n, d), 3, dtype=dt, device=cuda) for dt in dtypes]
+        want = [b.clone() for b in got]
+        before = pt.LAUNCHES[counter]
+        kernel(*got)
+        torch.cuda.synchronize()
+        assert pt.LAUNCHES[counter] == before + 1, name
+        plain(*want)
+        for a, w in zip(got, want):
+            assert torch.equal(_bits_view(a), _bits_view(w)), name
+
+
+@pytest.mark.parametrize("d,r0,n_edges,view", cs.K12_HOSTILE_CASES)
+def test_write_rows_kernels_on_hostile_edges(cuda, d, r0, n_edges, view):
+    """K12's four entries against their plain versions on
+    `chip_smoke.hostile_edges` (unsorted, duplicate, NaN, +-inf and +-0
+    edges, f16-exact so values fall on them) and `hostile_values` (values
+    on edges, NaN, +-inf, +-0), at `chip_smoke.K12_HOSTILE_CASES`: d odd,
+    d % 8 != 0, d < 8, r0 * d not a multiple of 8 (the scalar path), 126
+    edges at d = 500, 1100 and 2100 features (many 256-feature windows), a
+    misaligned chunk."""
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
+    rng = np.random.default_rng(d * 1000 + r0 + n_edges)
+    c, n = 3000, 3100
+    e = cs.hostile_edges(rng, d, n_edges).astype(np.float16).astype(
+        np.float32)
+    chunk = torch.from_numpy(cs.hostile_values(rng, c, e).astype(
+        np.float16)).to(cuda)
+    if view:
+        chunk = _misaligned(chunk, cuda)
+    edges = torch.from_numpy(e).to(cuda)
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    _check_writes(cuda, n, d, [
+        ("write_cast_rows bf16", "write_rows", (bf,),
+         lambda b: pbd.write_cast_rows(b, chunk, r0),
+         lambda b: pbd.write_cast_rows_plain(b, chunk, r0)),
+        ("write_cast_rows f32", "write_rows", (f32,),
+         lambda b: pbd.write_cast_rows(b, chunk, r0),
+         lambda b: pbd.write_cast_rows_plain(b, chunk, r0)),
+        ("bin_write_rows", "write_rows", (i8,),
+         lambda b: pbd.bin_write_rows(b, chunk, edges, r0),
+         lambda b: pbd.bin_write_rows_plain(b, chunk, edges, r0)),
+        ("dual_write_rows", "write_rows", (bf, i8),
+         lambda a, b: pbd.dual_write_rows(a, b, chunk, edges, r0),
+         lambda a, b: pbd.dual_write_rows_plain(a, b, chunk, edges, r0))])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("d,r0,view", cs.K12_DEQUANT_CASES)
+def test_dequant_write_rows_kernels_on_hostile_edges(cuda, bits, d, r0, view):
+    """Every K12-dequant entry against its plain version on hostile edges,
+    a sorted feature in six with a dequantized value on one of its
+    edges; 4 bits with an odd d and a misaligned chunk take the scalar
+    path; 1100 to 2101 features span many 256-feature windows, 2101 at 4
+    bits on the scalar path."""
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
+    rng = np.random.default_rng(bits * 7 + d + r0)
+    c, n = 3000, 3100
+    q, scale, lo, _ = _dequant_inputs(rng, c, d, bits)
+    e = cs.hostile_edges(rng, d, 31)
+    x = pbd.unpack_dequant_plain(torch.from_numpy(q), torch.from_numpy(scale),
+                                 torch.from_numpy(lo), bits, d).numpy()
+    e[0::6, 5] = x[3, 0::6]
+    e[0::6] = np.sort(e[0::6], axis=1)
+    q, scale, lo, edges = (torch.from_numpy(a).to(cuda)
+                           for a in (q, scale, lo, e))
+    if view:
+        q = _misaligned(q, cuda)
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    key = f"_int{bits}"
+    _check_writes(cuda, n, d, [
+        ("dequant_write_rows bf16", "dequant_write_rows" + key, (bf,),
+         lambda b: pbd.dequant_write_rows(b, q, scale, lo, r0, bits),
+         lambda b: pbd.dequant_write_rows_plain(b, q, scale, lo, r0, bits)),
+        ("dequant_write_rows f32", "dequant_write_rows" + key, (f32,),
+         lambda b: pbd.dequant_write_rows(b, q, scale, lo, r0, bits),
+         lambda b: pbd.dequant_write_rows_plain(b, q, scale, lo, r0, bits)),
+        ("dequant_bin_write_rows", "dequant_bin_write_rows" + key, (i8,),
+         lambda b: pbd.dequant_bin_write_rows(b, q, scale, lo, edges, r0,
+                                              bits),
+         lambda b: pbd.dequant_bin_write_rows_plain(b, q, scale, lo, edges,
+                                                    r0, bits)),
+        ("dequant_dual_write_rows", "dequant_dual_write_rows" + key,
+         (bf, i8),
+         lambda a, b: pbd.dequant_dual_write_rows(a, b, q, scale, lo, edges,
+                                                  r0, bits),
+         lambda a, b: pbd.dequant_dual_write_rows_plain(
+             a, b, q, scale, lo, edges, r0, bits))])
 
 
 @pytest.mark.parametrize("wire", ["auto", "int8", "int4"])

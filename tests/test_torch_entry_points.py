@@ -63,3 +63,20 @@ def test_ctypes_argtypes_name_every_c_parameter(name, fn, types):
 def test_every_registered_entry_point_exists():
     found = {(name, fn) for name, fn, _ in C_ENTRIES}
     assert set(cuda_build.ARGTYPES) <= found
+
+
+def test_library_name_follows_the_headers_a_source_includes(tmp_path,
+                                                            monkeypatch):
+    """K4 and K12 share csrc/edge_count.cuh: an edit of the header gives
+    both libraries a new name (so each builds anew), and none of the
+    sources that do not include it."""
+    for f in cuda_build.SRC_DIR.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(cuda_build, "SRC_DIR", tmp_path)
+    before = {n: cuda_build.library_path(n) for n in cuda_build.SOURCES}
+    header = tmp_path / "edge_count.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    moved = {n for n in cuda_build.SOURCES
+             if cuda_build.library_path(n) != before[n]}
+    assert moved == {"bin_features", "write_rows"}

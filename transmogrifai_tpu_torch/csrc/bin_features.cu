@@ -32,8 +32,9 @@
 //   e[j+1] for every j (false wherever an edge is NaN). A non-decreasing
 //   feature takes a branch-free binary search with the same `>=` compare,
 //   which gives the same count and still sends NaN to 0; any other feature
-//   is counted linearly. No host check, no sync. The UNROLL x 4 searches
-//   of a thread step together: 16 independent shared loads a step.
+//   is counted linearly (the rule and its steps live in edge_count.cuh,
+//   shared with K12). No host check, no sync. The UNROLL x 4 searches of a
+//   thread step together: 16 independent shared loads a step.
 // - Above STAGE_MAX_BYTES of shared memory a block (past 65 edges; 64 and
 //   65 fill it exactly) the kernel reads each feature's edges from global
 //   memory / L2 instead; the monotone test and the counts are the same.
@@ -53,6 +54,8 @@
 
 #include <atomic>
 #include <type_traits>
+
+#include "edge_count.cuh"
 
 // the staged edges, [E][TILE] f32, then the feature-major scratch they are
 // transposed from, [TILE][S] (dynamic shared memory)
@@ -89,13 +92,6 @@ struct GlobalEdges {
   }
 };
 
-template <typename E>
-__device__ __forceinline__ int count_linear(E e, float x, int n_edges) {
-  int c = 0;
-  for (int j = 0; j < n_edges; ++j) c += (x >= e(j)) ? 1 : 0;
-  return c;
-}
-
 // rows r0, r0 + step, ... (UNROLL of them) of this thread's 4 features
 template <bool VEC>
 __device__ __forceinline__ void load_rows(const float* __restrict__ X,
@@ -125,9 +121,7 @@ struct Stage {
 };
 
 __host__ __device__ inline Stage stage_of(int n_edges) {
-  int E = 1;
-  while (E < n_edges) E = 2 * E + 1;
-  return {E, n_edges | 1};
+  return {edge_rows(n_edges), n_edges | 1};
 }
 
 template <typename EdgeT, typename OutT, bool STAGED, bool VEC>
@@ -165,7 +159,8 @@ bin_features_kernel(const float* __restrict__ X,
       const bool real = j < n_edges && fl < nf;
       const float e = real ? scratch[fl * st.S + j]
                            : __int_as_float(0x7fc00000);  // NaN
-      if (real && j + 1 < n_edges && !(e <= scratch[fl * st.S + j + 1])) {
+      if (real && j + 1 < n_edges &&
+          !in_order(e, scratch[fl * st.S + j + 1])) {
         s_mono[col] = 0;
       }
       k4_stage[i] = e;
@@ -177,7 +172,7 @@ bin_features_kernel(const float* __restrict__ X,
       const int fl = (col % LANES) * FEATS + col / LANES;
       if (fl >= nf || j + 1 >= n_edges) continue;
       const int64_t g = (int64_t)(f0 + fl) * n_edges + j;
-      if (!(widen(edges[g]) <= widen(edges[g + 1]))) s_mono[col] = 0;
+      if (!in_order(widen(edges[g]), widen(edges[g + 1]))) s_mono[col] = 0;
     }
   }
   __syncthreads();
@@ -207,12 +202,13 @@ bin_features_kernel(const float* __restrict__ X,
       for (int u = 0; u < UNROLL; ++u) {
 #pragma unroll
         for (int k = 0; k < FEATS; ++k) {
-          const int t = c[u][k] + h;
           if constexpr (STAGED) {
+            // `lift_padded`'s step written out: through the helper this
+            // loop ran 6 % slower on the card (the same results)
+            const int t = c[u][k] + h;
             c[u][k] = x[u][k] >= edge[k](t - 1) ? t : c[u][k];
           } else {
-            const float v = edge[k](min(t, n_edges) - 1);
-            c[u][k] = (t <= n_edges && x[u][k] >= v) ? t : c[u][k];
+            c[u][k] = lift_clamped(edge[k], x[u][k], c[u][k], h, n_edges);
           }
         }
       }
@@ -282,15 +278,7 @@ int launch(const void* X, const void* edges, void* out, int64_t n, int d,
   const Stage st = stage_of(n_edges);
   const size_t smem = (size_t)(st.E + st.S) * TILE * sizeof(float);
   const bool staged = smem <= (size_t)STAGE_MAX_BYTES;
-  // staged: the search starts at (E + 1) / 2 over E rows; from global
-  // memory at the largest power of 2 <= n_edges
-  int top = 0;
-  if (staged) {
-    top = (st.E + 1) / 2;
-  } else if (n_edges > 0) {
-    top = 1;
-    while (top <= n_edges / 2) top *= 2;
-  }
+  const int top = search_top(n_edges, staged);
   const bool vec = d % FEATS == 0 && (uintptr_t)X % 16 == 0 &&
                    (uintptr_t)out % (FEATS * sizeof(OutT)) == 0;
   cudaStream_t s = (cudaStream_t)stream;

@@ -2,8 +2,9 @@
 
 Each source `csrc/<name>.cu` has a plain C interface. It is compiled with
 `nvcc` for Hopper (`sm_90a`) into `_build/lib<name>-<hash>.so` beside this
-file at first use, and loaded with ctypes. The hash covers the source and
-the flags, so an edited source builds anew. `build()` compiles several
+file at first use, and loaded with ctypes. The hash covers the source, the
+headers of `csrc/` it includes and the flags, so an edited source or
+header builds anew. `build()` compiles several
 sources in parallel, one `nvcc` process each.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -106,8 +108,10 @@ def flags(name: str) -> tuple:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src)
+    for header in sorted(set(re.findall(rb'#include "([\w.]+)"', src))):
+        h.update((SRC_DIR / header.decode()).read_bytes())
     h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -176,19 +176,26 @@ def bin_features(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 def _walk_shapes(Xb, feat, bins, leaf):
-    _require(Xb.dim() == 2, f"tree_walk: Xb must be (n, d), got "
-                            f"{tuple(Xb.shape)}")
-    _require(feat.dim() == 3 and feat.shape == bins.shape,
-             f"tree_walk: feat {tuple(feat.shape)} / bin "
-             f"{tuple(bins.shape)} must be equal (n_trees, depth, width)")
-    _require(leaf.dim() == 3 and leaf.shape[0] == feat.shape[0],
-             f"tree_walk: leaf {tuple(leaf.shape)} must be (n_trees, "
-             f"n_leaves, m)")
+    """(n_trees, depth, width) of matching walk inputs; the checks format
+    their messages only when one fails (the served path calls this every
+    batch)."""
+    if Xb.dim() != 2:
+        raise ValueError(f"tree_walk: Xb must be (n, d), got "
+                         f"{tuple(Xb.shape)}")
+    if feat.dim() != 3 or feat.shape != bins.shape:
+        raise ValueError(f"tree_walk: feat {tuple(feat.shape)} / bin "
+                         f"{tuple(bins.shape)} must be equal (n_trees, "
+                         f"depth, width)")
+    if leaf.dim() != 3 or leaf.shape[0] != feat.shape[0]:
+        raise ValueError(f"tree_walk: leaf {tuple(leaf.shape)} must be "
+                         f"(n_trees, n_leaves, m)")
     n_trees, depth, width = feat.shape
-    _require(depth == 0 or 2 ** (depth - 1) <= width,
-             f"tree_walk: width {width} < 2^(depth-1) at depth {depth}")
-    _require(2 ** depth <= leaf.shape[1],
-             f"tree_walk: {leaf.shape[1]} leaves < 2^depth at depth {depth}")
+    if depth > 0 and 2 ** (depth - 1) > width:
+        raise ValueError(f"tree_walk: width {width} < 2^(depth-1) at depth "
+                         f"{depth}")
+    if 2 ** depth > leaf.shape[1]:
+        raise ValueError(f"tree_walk: {leaf.shape[1]} leaves < 2^depth at "
+                         f"depth {depth}")
     return n_trees, depth, width
 
 
@@ -225,26 +232,56 @@ def tree_walk_plain(Xb: torch.Tensor, feat: torch.Tensor, bins: torch.Tensor,
 
 _WALK_ARGS = cuda_build.register(
     "tree_walk", "tree_walk_typed",
-    (ctypes.c_void_p,) * 5 + (ctypes.c_int64,) + (ctypes.c_int,) * 11
+    (ctypes.c_void_p,) * 5 + (ctypes.c_int64,) + (ctypes.c_int,) * 10
     + (ctypes.c_void_p,))
-cuda_build.register("tree_walk", "tree_walk_max_m", ())
+cuda_build.register("tree_walk", "tree_walk_plan",
+                    (ctypes.c_int64,) + (ctypes.c_int,) * 7
+                    + (ctypes.c_void_p,))
+
+
+def walk_plan(n: int, n_flat: int, d: int, xb_bytes: int, n_cols: int,
+              m: int, sms: int, rows: int = 0) -> Tuple[int, bool, int]:
+    """(R, staged, TC): the rows a block, whether their Xb is staged and
+    the trees a chunk that K5's kernel plans (csrc/tree_walk.cu `plan`)
+    for n rows, n_flat trees, d features of xb_bytes each, n_cols output
+    columns and m leaf channels a tree on a card of `sms` SMs; `rows`
+    forces R. Builds the kernel's library (a card's machine only)."""
+    out = (ctypes.c_int * 3)()
+    cuda_build.check("tree_walk_plan", cuda_build.entry(
+        "tree_walk", "tree_walk_plan")(n, n_flat, d, xb_bytes, n_cols, m,
+                                       sms, rows, out))
+    return out[0], bool(out[1]), out[2]
+
+
+def _walk_launch(fname, Xb, feat, bins, leaf, out, *shape_args,
+                 rows=None) -> None:
+    """Launch K5's entry `fname` over contiguous inputs, with the kernel's
+    own plan or `rows` a block."""
+    n, d = Xb.shape
+    err = cuda_build.launch(
+        Xb.get_device(), cuda_build.entry("tree_walk", fname),
+        Xb.data_ptr(), feat.data_ptr(), bins.data_ptr(), leaf.data_ptr(),
+        out.data_ptr(), n, d, *shape_args, rows or 0,
+        *_type_bytes(Xb, feat, bins))
+    cuda_build.check(fname, err)
 
 
 def _check_walk_inputs(fname, Xb, feat, bins, leaf) -> None:
     """The devices and dtypes the walk kernels take: int8/int32 bins, and
     int32 tables or the quantized mode's narrowed ones (int16 features,
-    uint8 split bins)."""
+    uint8 split bins). Messages are formatted only on a failure."""
     for name, t in (("feat", feat), ("bin", bins), ("leaf", leaf)):
-        _require(t.device == Xb.device,
-                 f"{fname}: Xb on {Xb.device}, {name} on {t.device}")
-    _require(Xb.dtype in (torch.int8, torch.int32),
-             f"{fname}: Xb must be int8 or int32, got {Xb.dtype}")
-    _require(feat.dtype in (torch.int32, torch.int16)
-             and bins.dtype in (torch.int32, torch.uint8),
-             f"{fname}: feat must be int32 or int16 and bin int32 or "
-             f"uint8, got {feat.dtype}/{bins.dtype}")
-    _require(leaf.dtype == torch.float32,
-             f"{fname}: leaf must be f32, got {leaf.dtype}")
+        if t.device != Xb.device:
+            raise ValueError(f"{fname}: Xb on {Xb.device}, {name} on "
+                             f"{t.device}")
+    if Xb.dtype not in (torch.int8, torch.int32):
+        raise ValueError(f"{fname}: Xb must be int8 or int32, got {Xb.dtype}")
+    if feat.dtype not in (torch.int32, torch.int16) \
+            or bins.dtype not in (torch.int32, torch.uint8):
+        raise ValueError(f"{fname}: feat must be int32 or int16 and bin "
+                         f"int32 or uint8, got {feat.dtype}/{bins.dtype}")
+    if leaf.dtype != torch.float32:
+        raise ValueError(f"{fname}: leaf must be f32, got {leaf.dtype}")
 
 
 def _narrowed(feat: torch.Tensor, bins: torch.Tensor) -> bool:
@@ -255,26 +292,18 @@ def _type_bytes(Xb, feat, bins) -> Tuple[int, int, int]:
     return Xb.element_size(), feat.element_size(), bins.element_size()
 
 
-def _tree_walk_cuda(Xb, feat, bins, leaf) -> torch.Tensor:
+def _tree_walk_cuda(Xb, feat, bins, leaf, rows=None) -> torch.Tensor:
     _check_walk_inputs("tree_walk", Xb, feat, bins, leaf)
     n_trees, depth, width = _walk_shapes(Xb, feat, bins, leaf)
-    n, d = Xb.shape
+    n = Xb.shape[0]
     n_leaves, m = leaf.shape[1], leaf.shape[2]
     Xb, feat, bins, leaf = (t.contiguous() for t in (Xb, feat, bins, leaf))
     if n == 0 or m == 0 or n_trees == 0:
         return torch.zeros((n, m), dtype=torch.float32, device=Xb.device)
     out = torch.empty((n, m), dtype=torch.float32, device=Xb.device)
-    max_m = cuda_build.entry("tree_walk", "tree_walk_max_m")()
-    fn = cuda_build.entry("tree_walk", "tree_walk_typed")
-    counter = "tree_walk_narrow" if _narrowed(feat, bins) else "tree_walk"
-    for c0 in range(0, m, max_m):
-        err = cuda_build.launch(
-            Xb.get_device(), fn, Xb.data_ptr(), feat.data_ptr(),
-            bins.data_ptr(), leaf.data_ptr(), out.data_ptr(), n, d, n_trees,
-            depth, width, n_leaves, m, c0, min(max_m, m - c0),
-            *_type_bytes(Xb, feat, bins))
-        cuda_build.check("tree_walk_typed", err)
-        _count(counter)
+    _walk_launch("tree_walk_typed", Xb, feat, bins, leaf, out, n_trees,
+                 depth, width, n_leaves, m, rows=rows)
+    _count("tree_walk_narrow" if _narrowed(feat, bins) else "tree_walk")
     return out
 
 
@@ -329,26 +358,21 @@ def tree_walk_classes_plain(Xb: torch.Tensor, feat: torch.Tensor,
 
 _WALK_CLASSES_ARGS = cuda_build.register(
     "tree_walk", "tree_walk_classes_typed",
-    (ctypes.c_void_p,) * 5 + (ctypes.c_int64,) + (ctypes.c_int,) * 9
+    (ctypes.c_void_p,) * 5 + (ctypes.c_int64,) + (ctypes.c_int,) * 10
     + (ctypes.c_void_p,))
 
 
-def _tree_walk_classes_cuda(Xb, feat, bins, leaf) -> torch.Tensor:
+def _tree_walk_classes_cuda(Xb, feat, bins, leaf,
+                            rows=None) -> torch.Tensor:
     _check_walk_inputs("tree_walk_classes", Xb, feat, bins, leaf)
     T, K, depth, width = _walk_classes_shapes(Xb, feat, bins, leaf)
-    _require(K <= _MAX_GRID_YZ,
-             f"tree_walk_classes: {K} classes exceed {_MAX_GRID_YZ}")
-    n, d = Xb.shape
+    n = Xb.shape[0]
     Xb, feat, bins, leaf = (t.contiguous() for t in (Xb, feat, bins, leaf))
     if n == 0 or K == 0 or T == 0:
         return torch.zeros((n, K), dtype=torch.float32, device=Xb.device)
     out = torch.empty((n, K), dtype=torch.float32, device=Xb.device)
-    fn = cuda_build.entry("tree_walk", "tree_walk_classes_typed")
-    err = cuda_build.launch(
-        Xb.get_device(), fn, Xb.data_ptr(), feat.data_ptr(), bins.data_ptr(),
-        leaf.data_ptr(), out.data_ptr(), n, d, T, K, depth, width,
-        leaf.shape[2], *_type_bytes(Xb, feat, bins))
-    cuda_build.check("tree_walk_classes_typed", err)
+    _walk_launch("tree_walk_classes_typed", Xb, feat, bins, leaf, out,
+                 T, K, depth, width, leaf.shape[2], rows=rows)
     _count("tree_walk_classes")
     return out
 
