@@ -244,7 +244,28 @@ any failure exits non-zero:
    bound, its plain version and the library composition, and every entry
    on hostile edges at odd, narrow and misaligned shapes
    (`k12_dequant_hostile_check`, bit-equal); the `kernels` line adds them
-   (`dequant_*_int8`, `dequant_*_int4`).
+   (`dequant_*_int8`, `dequant_*_int4`);
+23. any class count (`many_class_phase`): the default
+   `MultiClassificationModelSelector` (LR 8 + RF 18 configs) trained by
+   `Workflow.train(device="cuda")` over a seeded 7-class synthetic of
+   4,000 rows x 20 features with numpy forest draws injected: K1 and K2
+   reach m = 7 class channels and K8-mc k = 7 (`ChannelLog`), every
+   kernel of the Iris path launched (counters set to 0 before the train,
+   read after the reload), every `fit_forest` call's tables equal to the
+   port's CPU refit of the same call, scores equal after save and
+   reload; a 7-class `OpDecisionTreeClassifier` fitted on the card and on
+   the CPU (tables equal); the multinomial LR family alone over a 40-class
+   synthetic of 20,000 x 48 (K8-mc at k = 40, its call held to the plain
+   version, validation F1 finite). Beside phases 13 and 20: K8-mc and
+   K8-reg on their hostile cases (`K8MC_HOSTILE_CASES`,
+   `K8REG_HOSTILE_CASES`: k = 1 to 300, n = 0 and 1, rows the plan's
+   ranges do not divide), K1 and K2 at m = 5, 7 and 12
+   (`MANY_CHANNEL_CASES`), K10 at 1, 48, 49 and 97 leaves
+   (`K10_HOSTILE_CASES`: width 1, masks, odd widths at 4 bits, empty
+   leaves, unaligned views), each against its plain version with its
+   launches counted and the same bits twice; K8-mc (k = 3 to 300) and
+   K8-reg timed eagerly and as CUDA-graph replays, K10 at int8 and int4
+   with its eager wrapper's host time split by function (`wrapper_host`).
 """
 
 import contextlib
@@ -1976,7 +1997,9 @@ BOSTON_HOLDOUT_RTOL = 1e-2
 # LR / linear group: 8 configs x 1 fold, on the validation split of the
 # training rows) and a synthetic one
 EVAL_SHAPES = {"iris": (8, 135, 3), "boston": (8, 300, None),
-               "synthetic": (18, 65536, 3)}
+               "synthetic": (18, 65536, 3), "synthetic_k32": (18, 65536, 32),
+               "synthetic_k100": (18, 65536, 100),
+               "synthetic_k300": (18, 65536, 300)}
 
 
 def eval_inputs(rng, P, n, k, dev):
@@ -1994,10 +2017,16 @@ def eval_inputs(rng, P, n, k, dev):
 
 def eval_kernels(pdm, rng, dev):
     """K8-mc and K8-reg against their plain versions at each example's
-    shape and at n = 65536, P = 18 (0/1 masks: counts equal; regression
-    sums within 1e-6 relative), then timed beside the byte bound and, for
-    the confusion counts, the one `torch.bincount` call that computes
-    them (index precomputed)."""
+    shape and at n = 65536, P = 18 (K8-mc also at k = 32, 100 and 300; 0/1
+    masks: counts equal; regression sums within 1e-6 relative), then
+    timed eagerly (`ms`) and as a CUDA-graph replay (`graph_ms`, as a
+    captured sweep would run it) beside the bound of the bytes the
+    function must move (each input read once, each output written once),
+    `design_bytes` (what this design moves: K8-mc's f64 partials written
+    and read where G > 1 or the cells live in global scratch, K8-reg's
+    second read of the labels and weights where G > 1) and, for the
+    confusion counts, the one `torch.bincount` call that computes them
+    (index precomputed)."""
     out = {}
     for label, (P, n, k) in EVAL_SHAPES.items():
         for kind in (("confusion_counts", "regression_moments")
@@ -2018,8 +2047,16 @@ def eval_kernels(pdm, rng, dev):
                 flat = mask.reshape(-1)
                 nbytes = n * 4 + 2 * P * n * 4 + P * kk * kk * 4
                 b, by = bound(nbytes, 2 * P * n)
+                G, _, warps, shared = pdm.confusion_plan(P, n, kk)
+                part = (2 * 8 * P * G * kk * kk
+                        if G > 1 or not shared else 0)
                 rec = {"ms": cuda_ms(lambda: pdm.confusion_counts(
                            y, pred, mask, kk), 50),
+                       "graph_ms": graph_ms(lambda: pdm.confusion_counts(
+                           y, pred, mask, kk), 50),
+                       "plan": {"G": G, "warps": warps, "shared": shared},
+                       "design_bytes": nbytes + part,
+                       "design_bound_ms": bound(nbytes + part, 0)[0],
                        "plain_ms": cuda_ms(lambda: pdm.confusion_counts_plain(
                            y, pred, mask, kk), 20),
                        "library_ms": cuda_ms(lambda: torch.bincount(
@@ -2038,8 +2075,15 @@ def eval_kernels(pdm, rng, dev):
                                          f"{err}")
                 nbytes = n * 4 + 2 * P * n * 4 + P * 5 * 4
                 b, by = bound(nbytes, 14 * P * n)
+                G, _ = pdm.moments_row_blocks(P, n)
+                again = (n * 4 + P * n * 4 if G > 1 else 0)
                 rec = {"ms": cuda_ms(lambda: pdm.regression_moments(
                            pred, y, mask), 50),
+                       "graph_ms": graph_ms(lambda: pdm.regression_moments(
+                           pred, y, mask), 50),
+                       "plan": {"G": G},
+                       "design_bytes": nbytes + again,
+                       "design_bound_ms": bound(nbytes + again, 0)[0],
                        "plain_ms": cuda_ms(
                            lambda: pdm.regression_moments_plain(
                                pred, y, mask), 20),
@@ -2048,6 +2092,473 @@ def eval_kernels(pdm, rng, dev):
                        "tolerance": "1e-6 relative"}
             out[f"{label}:{kind}"] = dict(rec, pairs=P, rows=n)
     return out
+
+
+# --------------------------------------------------------------------------- #
+# any class count (F15, F16); K8-mc, K8-reg and K10's hostile cases          #
+# --------------------------------------------------------------------------- #
+
+# K8-mc's hostile cases (P, n, k): class counts on both sides of a warp's
+# histogram (k = 32, 33) and of shared memory (k = 100 shared, 300 in
+# global scratch), no row, one row, and rows that the plan's G ranges do not
+# divide (100,003 a pair)
+K8MC_HOSTILE_CASES = tuple((P, n, k) for k in (1, 2, 32, 33, 100, 300)
+                           for P, n in ((3, 0), (2, 1), (3, 100_003)))
+# K8-reg's (P, n): no row, one row, one block's rows and one more, and rows
+# the plan's G ranges do not divide
+K8REG_HOSTILE_CASES = ((3, 0), (2, 1), (1, 4096), (18, 8193), (3, 100_003),
+                       (18, 65_537))
+# K1 and K2 at more channels than one K1 launch takes, (P, n, d, n_bins,
+# n_nodes, m): few-row nodes, one-piece nodes, and nodes cut into pieces
+# (40,000 rows over 2 nodes: the scratch and its reduce)
+MANY_CHANNEL_CASES = tuple((P, n, d, b, nodes, m) for m in (5, 7, 12)
+                           for P, n, d, b, nodes in (
+                               (3, 257, 7, 8, 4), (4, 802, 496, 32, 64),
+                               (2, 40_000, 40, 32, 2)))
+# K10's hostile wires (leaves, rows): one leaf, one launch's 48, one past,
+# two launches and one past; at 8 and 4 bits
+K10_HOSTILE_CASES = tuple((L, n) for L in (1, 48, 49, 97) for n in (1, 37))
+
+
+def eval_hostile_inputs(rng, P, n, k, weights):
+    """CPU tensors: labels (n,) and predictions (P, n) int32 in [-1, k]
+    (the kernels clip them), and 0/1 or fractional weights (P, n)."""
+    y = rng.integers(-1, k + 1, n).astype(np.int32)
+    pred = np.where(rng.random((P, n)) < 0.5, y,
+                    rng.integers(-1, k + 1, (P, n))).astype(np.int32)
+    mask = ((rng.random((P, n)) < 0.4).astype(np.float32) if weights == "01"
+            else rng.uniform(0, 2, (P, n)).astype(np.float32))
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in (y, pred, mask)]
+
+
+def regression_hostile_inputs(rng, P, n, weights):
+    y = (rng.normal(size=n) * 9 + 22).astype(np.float32)
+    pred = (y + rng.normal(size=(P, n)) * 3).astype(np.float32)
+    mask = ((rng.random((P, n)) < 0.3).astype(np.float32) if weights == "01"
+            else rng.uniform(0, 2, (P, n)).astype(np.float32))
+    return [torch.from_numpy(a) for a in (pred, y, mask)]
+
+
+def launched(pt, name, fn):
+    """(fn()'s result, the launches of `name` it made), synchronized."""
+    before = pt.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, pt.LAUNCHES[name] - before
+
+
+def k8_hostile_check(pdm, pt, dev) -> dict:
+    """K8-mc at every `K8MC_HOSTILE_CASES` case and K8-reg at every
+    `K8REG_HOSTILE_CASES` case, 0/1 and fractional weights, against their
+    plain versions on the CPU: confusion counts equal (0/1) or within 1e-6
+    relative (fractional; both sum in f64 and round once, in other
+    orders), regression sums within 1e-6 relative; one launch a call and
+    the same bits on a second call."""
+    worst = {"confusion_counts": 0.0, "regression_moments": 0.0}
+    for P, n, k in K8MC_HOSTILE_CASES:
+        for weights in ("01", "frac"):
+            cpu = eval_hostile_inputs(np.random.default_rng(P + n + k), P, n,
+                                      k, weights)
+            args = [t.to(dev) for t in cpu]
+            got, nl = launched(pt, "confusion_counts",
+                               lambda: pdm.confusion_counts(*args, k))
+            want = pdm.confusion_counts_plain(*cpu, k)
+            err = float(((got.cpu() - want).abs()
+                         / want.abs().clamp(min=1e-30)).max()) if n else 0.0
+            ok = (nl == 1 and got.shape == (P, k, k)
+                  and (torch.equal(got.cpu(), want) if weights == "01"
+                       else err <= 1e-6)
+                  and torch.equal(got, pdm.confusion_counts(*args, k)))
+            if not ok:
+                raise AssertionError(f"K8-mc disagrees at P={P} n={n} k={k} "
+                                     f"({weights}): launches {nl}, err {err}")
+            worst["confusion_counts"] = max(worst["confusion_counts"], err)
+    for P, n in K8REG_HOSTILE_CASES:
+        for weights in ("01", "frac"):
+            cpu = regression_hostile_inputs(np.random.default_rng(P * 7 + n),
+                                            P, n, weights)
+            args = [t.to(dev) for t in cpu]
+            got, nl = launched(pt, "regression_moments",
+                               lambda: pdm.regression_moments(*args))
+            want = pdm.regression_moments_plain(*cpu)
+            err = float(((got.cpu() - want).abs()
+                         / want.abs().clamp(min=1e-30)).max())
+            if not (nl == 1 and err <= 1e-6 and torch.equal(
+                    got, pdm.regression_moments(*args))):
+                raise AssertionError(f"K8-reg disagrees at P={P} n={n} "
+                                     f"({weights}): launches {nl}, err {err}")
+            worst["regression_moments"] = max(worst["regression_moments"],
+                                              err)
+    return {"confusion_counts_cases": 2 * len(K8MC_HOSTILE_CASES),
+            "regression_moments_cases": 2 * len(K8REG_HOSTILE_CASES),
+            "max_rel_err": worst,
+            "plans": {f"{P}x{n}:k{k}": pdm.confusion_plan(P, n, k)
+                      for P, n, k in K8MC_HOSTILE_CASES},
+            "tolerance": "counts equal at 0/1 weights, else 1e-6 relative; "
+                         "one launch; the same bits twice"}
+
+
+def many_channel_inputs(rng, P, n, d, n_bins, n_nodes, m):
+    """CPU tensors of a forest level at m class channels: bins, node ids
+    (n_nodes: left out), one-hot classes times Poisson bootstrap counts
+    (integer sums, exact in any order)."""
+    Xb = torch.from_numpy(rng.integers(0, n_bins, (n, d)).astype(np.int8))
+    node = torch.from_numpy(
+        rng.integers(0, n_nodes + 1, (P, n)).astype(np.int32))
+    y = torch.from_numpy(rng.integers(0, m, n))
+    H = torch.from_numpy(rng.poisson(1.0, (P, n)).astype(np.float32))
+    G = (torch.nn.functional.one_hot(y, m).float().T[None]
+         * H[:, None, :]).contiguous()
+    return Xb, node, G, H
+
+
+def many_channel_check(pt, dev) -> dict:
+    """K1 and K2 at every `MANY_CHANNEL_CASES` case against their plain
+    versions: histograms equal (integer sums) in one launch a channel
+    group (`hist_channel_groups`), K2's split tables equal from the same
+    histograms, dense and over the live set, with and without a feature
+    mask, in one launch; each the same bits on a second call."""
+    for P, n, d, b, nodes, m in MANY_CHANNEL_CASES:
+        rng = np.random.default_rng(P * n + m)
+        cpu = many_channel_inputs(rng, P, n, d, b, nodes, m)
+        args = [t.to(dev) for t in cpu]
+        groups = len(pt.hist_channel_groups(m, 4))
+        (hg, hh), nl = launched(pt, "histograms",
+                                lambda: pt.histograms(*args, nodes, b))
+        want = pt.histograms_plain(*cpu, nodes, b)
+        again = pt.histograms(*args, nodes, b)
+        if not (nl == groups and hg.shape == (P, m, nodes, d, b)
+                and torch.equal(hg.cpu(), want[0])
+                and torch.equal(hh.cpu(), want[1])
+                and torch.equal(hg, again[0]) and torch.equal(hh, again[1])):
+            raise AssertionError(f"K1 disagrees at m={m} P={P} n={n} "
+                                 f"nodes={nodes} (launches {nl}/{groups})")
+        live = torch.zeros((P, nodes), dtype=torch.uint8, device=dev)
+        live.scatter_(1, args[1].long().clamp(max=nodes - 1), 1)
+        for masked in (False, True):
+            fm = (torch.from_numpy(rng.random((P, d)) < 0.5).to(dev)
+                  if masked else None)
+            kw = dict(reg_lambda=1e-6, min_child_weight=2.0, min_gain=0.0,
+                      min_gain_norm=0.001, feature_mask=fm, level=3,
+                      active_depth=[12] * P)
+            for lv, name in ((None, "split_search"),
+                             (live, "split_search_live")):
+                (f, bb), nl = launched(pt, name, lambda: pt.split_search(
+                    hg, hh, b, live=lv, **kw))
+                wf, wb = pt.split_search_plain(hg, hh, b, live=lv, **kw)
+                f2, b2 = pt.split_search(hg, hh, b, live=lv, **kw)
+                if not (nl == 1 and torch.equal(f, wf) and torch.equal(bb, wb)
+                        and torch.equal(f, f2) and torch.equal(bb, b2)):
+                    raise AssertionError(f"K2 disagrees at m={m} P={P} n={n} "
+                                         f"masked={masked} live={lv is not None}")
+    return {"cases": len(MANY_CHANNEL_CASES), "channels": [5, 7, 12],
+            "tolerance": "equal"}
+
+
+def k10_hostile_wire(rng, leaves, n, bits, dev):
+    """A wire tree of `leaves` jobs on the card, cycling through: a 1-D
+    leaf (d = 1), a mask, widths 2, 5 and 33 (odd: the 4-bit scalar
+    path), an empty leaf (d = 0), and unaligned views (q one byte past an
+    aligned address, scale and lo one float past)."""
+    def wire(d, one_d=False, unaligned=False):
+        width = (d + 1) // 2 if bits == 4 else d
+        q = torch.from_numpy(rng.integers(0, 256, (n, width)).astype(
+            np.uint8)).to(dev)
+        if bits == 4 and d % 2:  # the padding nibble of an odd row is 0
+            q[:, -1] &= 0x0F
+        scale = torch.from_numpy(rng.uniform(0.01, 3, d).astype(
+            np.float32)).to(dev)
+        lo = torch.from_numpy((rng.normal(size=d) * 40).astype(
+            np.float32)).to(dev)
+        if unaligned:
+            q, scale, lo = misaligned(q), misaligned(scale), misaligned(lo)
+        return {("q1" if one_d else "q"): q, "scale": scale, "lo": lo}
+
+    kinds = [lambda: wire(1, one_d=True),
+             lambda: torch.from_numpy((rng.random(n) < 0.5).astype(
+                 np.uint8)).to(dev),
+             lambda: wire(2), lambda: wire(5), lambda: wire(33),
+             lambda: wire(0), lambda: wire(7, unaligned=True),
+             lambda: wire(1, one_d=True, unaligned=True)]
+    return {f"L{i:03d}": kinds[i % len(kinds)]() for i in range(leaves)}
+
+
+def k10_hostile_check(pc, pt, dev) -> dict:
+    """K10 on every `K10_HOSTILE_CASES` wire at 8 and 4 bits: equal to its
+    plain version, one launch a 48 leaves with work, the same bits on a
+    second call."""
+    max_leaves = 48
+    for L, n in K10_HOSTILE_CASES:
+        for bits in (8, 4):
+            wire = k10_hostile_wire(np.random.default_rng(L * 10 + n + bits),
+                                    L, n, bits, dev)
+            work = sum(1 for v in wire.values()
+                       if (v.numel() if isinstance(v, torch.Tensor)
+                           else v["scale"].numel()) * n > 0)
+            got, nl = launched(pt, "wire_dequant",
+                               lambda: pc.dequantize_wire(wire, bits))
+            want = pc.dequantize_wire_plain(wire, bits)
+            if not (nl == -(-work // max_leaves) and tree_equal(got, want)
+                    and tree_equal(got, pc.dequantize_wire(wire, bits))):
+                raise AssertionError(f"K10 disagrees at {L} leaves, n={n}, "
+                                     f"{bits} bits (launches {nl})")
+    return {"cases": 2 * len(K10_HOSTILE_CASES), "tolerance": "equal"}
+
+
+class ChannelLog:
+    """Within a `with` block, the channel counts that reach K1 and K2 (m)
+    and the class counts that reach K8-mc (k), and K8-mc's inputs, by
+    wrapping the port's public entry points (the wrappers count the
+    launches as before)."""
+
+    def __init__(self, keep_confusion: int = 0):
+        self.m_hist, self.m_split, self.k_conf = set(), set(), set()
+        self.confusion = []
+        self._keep = keep_confusion
+
+    def __enter__(self):
+        from transmogrifai_tpu_torch.evaluators import device_metrics as pdm
+        from transmogrifai_tpu_torch.models import trees as ptr
+        self._saved = [(ptr, "histograms", ptr.histograms),
+                       (ptr, "split_search", ptr.split_search),
+                       (pdm, "confusion_counts", pdm.confusion_counts)]
+
+        def hist(Xb, node, G, H, *a, **k):
+            self.m_hist.add(int(G.shape[1]))
+            return self._saved[0][2](Xb, node, G, H, *a, **k)
+
+        def split(hg, *a, **k):
+            self.m_split.add(int(hg.shape[1]))
+            return self._saved[1][2](hg, *a, **k)
+
+        def conf(y, pred, mask, k):
+            self.k_conf.add(int(k))
+            if len(self.confusion) < self._keep:
+                self.confusion.append((y, pred, mask, k))
+            return self._saved[2][2](y, pred, mask, k)
+        ptr.histograms, ptr.split_search, pdm.confusion_counts = \
+            hist, split, conf
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+class ForestCalls:
+    """Within a `with` block, every `fit_forest` call of the sweep and of
+    the estimators, its arguments and its tables, kept on the host."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from transmogrifai_tpu_torch.models import trees as ptr
+        from transmogrifai_tpu_torch.parallel import sweep as psw
+        self._orig = ptr.fit_forest
+
+        def record(*args, **kw):
+            out = self._orig(*args, **kw)
+            self.calls.append((
+                [a.cpu() if isinstance(a, torch.Tensor) else a
+                 for a in args],
+                {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                 for k, v in kw.items()},
+                {k: v.cpu() for k, v in out.items()}))
+            return out
+        self._mods = (ptr, psw)
+        for mod in self._mods:
+            mod.fit_forest = record
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self._mods:
+            mod.fit_forest = self._orig
+
+
+def numpy_forest_draws(seed: int, n_trees: int, n: int, d: int):
+    """Forest draws from numpy alone, a function of (seed, n_trees, n, d):
+    Poisson(1) bootstrap counts and ⌊√d⌋ features a tree, the same on the
+    card and on the CPU."""
+    rng = np.random.default_rng([seed, n_trees, n, d])
+    boot = rng.poisson(1.0, (n_trees, n)).astype(np.uint8)
+    scores = rng.random((n_trees, d))
+    k = max(int(np.sqrt(d)), 1)
+    mask = scores <= np.sort(scores, axis=1)[:, k - 1:k]
+    return boot, mask
+
+
+def class_synthetic(port, seed: int, rows: int, d: int, k: int):
+    """A seeded k-class table: d real features, the class the argmax of
+    a random linear score plus noise, as text labels "c0".."c{k-1}" (the
+    examples' `.indexed()` label); (dataset, label, predictors)."""
+    import transmogrifai_tpu_torch.types as t
+    X, y = class_arrays(seed, rows, d, k)
+    cols = {f"x{j:02d}": X[:, j].astype(np.float64) for j in range(d)}
+    cols["label"] = np.array([f"c{int(v)}" for v in y], dtype=object)
+    schema = {c: t.Real for c in cols}
+    schema["label"] = t.Text
+    ds = port.Dataset.from_columns(cols, schema=schema)
+    FB = port.FeatureBuilder
+    preds = [FB.Real(c).from_column(c).as_predictor() for c in cols
+             if c != "label"]
+    label = FB.Text("label").from_column("label").as_response().indexed()
+    return ds, label, preds
+
+
+def class_selector_train(port, ds, label, preds, models, device):
+    """The multiclass selector (train/validation split) over `models`
+    (its default with None), trained with `Workflow.train`."""
+    checked = label.sanity_check(port.transmogrify(preds),
+                                 remove_bad_features=True)
+    pred = port.MultiClassificationModelSelector.with_train_validation_split(
+        models=models).set_input(label, checked).get_output()
+    return port.Workflow().set_result_features(pred, label) \
+        .set_input_dataset(ds).train(device=device)
+
+
+# the many-class phases' sizes: the default selector at 7 classes (every
+# forest table replayed on the host CPU, which bounds the rows), the
+# multinomial LR alone at 40 classes
+SEVEN_CLASS = {"rows": 4000, "d": 20, "k": 7}
+FORTY_CLASS = {"rows": 20000, "d": 48, "k": 40}
+
+
+def forest_tables_equal(calls):
+    """Each recorded `fit_forest` call refitted on the host CPU with the
+    same (numpy) draws: {"calls", "trees", "equal"}."""
+    from transmogrifai_tpu_torch.models import trees as ptr
+    equal, trees = True, 0
+    with ptr.injected_forest_draws(numpy_forest_draws):
+        for args, kw, out in calls:
+            again = ptr.fit_forest(*args, **kw)
+            trees += int(out["feat"].shape[0] * out["feat"].shape[1])
+            equal = equal and all(torch.equal(out[k], again[k])
+                                  for k in ("feat", "bin", "leaf"))
+    return {"calls": len(calls), "trees": trees, "equal": bool(equal)}
+
+
+def many_class_phase(port, pt, device="cuda", seven=None,
+                     forty=None) -> dict:
+    """F15 and F16 on the main path. (1) The default
+    `MultiClassificationModelSelector` (LR 8 + RF 18 configs) trained over
+    a seeded 7-class synthetic with numpy forest draws injected: K1 and K2
+    reach m = 7 and K8-mc k = 7, every kernel of the path launched, and
+    every forest table of the sweep and the refit equal to the port's own
+    CPU refit of the same call; scored, saved, reloaded (equal). (2) A
+    7-class `OpDecisionTreeClassifier` fitted on the card and on the CPU:
+    trees equal. (3) The multinomial LR family alone over a 40-class
+    synthetic: K8-mc reaches k = 40, its first calls held to the plain
+    version (equal, 0/1 masks), validation F1 finite, holdout F1 printed.
+    The launch counters are set to 0 before (1) and read after its
+    reload."""
+    import tempfile
+    from transmogrifai_tpu_torch.evaluators import device_metrics as pdm
+    from transmogrifai_tpu_torch.stages.base import FitContext
+    seven = seven or SEVEN_CLASS
+    forty = forty or FORTY_CLASS
+    ds, label, preds = class_synthetic(port, 70, seven["rows"], seven["d"],
+                                       seven["k"])
+    pt.reset_launches()
+    t0 = time.perf_counter()
+    with ChannelLog() as log7, ForestCalls() as fc, \
+            pt.injected_forest_draws(numpy_forest_draws):
+        model = class_selector_train(port, ds, label, preds, None, device)
+    sync(device)
+    train_s = time.perf_counter() - t0
+    scores = prediction_of(model.score_compiled(ds))
+    path = tempfile.mkdtemp(prefix="port_seven_class_")
+    model.save(path)
+    again = prediction_of(port.load_model(path, device=device)
+                          .score_compiled(ds))
+    sync(device)
+    launches = {k: pt.LAUNCHES[k] for k in pt.LAUNCHES}
+    summ = next(s for s in model.fitted.values() if hasattr(
+        getattr(s, "summary", None), "validation_results")).summary
+    t1 = time.perf_counter()
+    tables = forest_tables_equal(fc.calls)
+    replay_s = time.perf_counter() - t1
+    needed = EXAMPLE_KERNELS["iris"]
+    missing = [k for k in needed if launches.get(k, 0) < 1] \
+        if device == "cuda" else []
+    reload_equal = all(np.array_equal(scores[k], again[k])
+                       for k in ("prediction", "rawPrediction",
+                                 "probability"))
+    # (2) a 7-class decision tree, card against CPU
+    X, y = class_arrays(70, seven["rows"], seven["d"], seven["k"])
+    dt = dict(max_depth=10, min_info_gain=0.001, min_instances_per_node=5.0)
+    fits = {}
+    for dev_ in dict.fromkeys((device, "cpu")):
+        with ChannelLog() as log_dt:
+            fits[dev_] = port.OpDecisionTreeClassifier(**dt).fit_arrays(
+                torch.from_numpy(X).to(dev_), torch.from_numpy(y).to(dev_),
+                torch.ones(len(y), device=dev_),
+                FitContext(n_rows=len(y), seed=3, device=dev_))
+    tree_equal_ = all(np.array_equal(fits[device].trees[k],
+                                     fits["cpu"].trees[k])
+                      for k in ("feat", "bin", "leaf"))
+    rec7 = {"rows": seven["rows"], "d": seven["d"], "classes": seven["k"],
+            "configs": len(summ.validation_results),
+            "best_model": summ.best_model, "best_grid": summ.best_grid,
+            "validation_f1": [r.fold_metrics[0]
+                              for r in summ.validation_results],
+            "holdout_metrics": summ.holdout_metrics,
+            "channels_k1": sorted(log7.m_hist),
+            "channels_k2": sorted(log7.m_split),
+            "classes_k8mc": sorted(log7.k_conf),
+            "forest_tables": tables, "replay_s": replay_s,
+            "reload_scores_equal": reload_equal,
+            "decision_tree": {"params": dt, "tables_equal_cpu": tree_equal_,
+                              "channels": sorted(log_dt.m_hist)},
+            "launches_main_path": launches, "missing_kernels": missing,
+            "wall_s": {"train": train_s, "sweep": summ.timings["sweep_s"],
+                       "sweep_by_family": summ.timings["families"],
+                       "refit": summ.timings["refit_s"]}}
+    ok7 = (7 in log7.m_hist and 7 in log7.m_split and 7 in log7.k_conf
+           and tables["equal"] and tables["calls"] >= 1
+           and reload_equal and tree_equal_ and not missing
+           and all(np.isfinite(scores[k]).all() for k in scores))
+    # (3) the multinomial LR alone at 40 classes
+    from transmogrifai_tpu_torch.selector.model_selector import _lr_grid
+    ds40, label40, preds40 = class_synthetic(port, 40, forty["rows"],
+                                             forty["d"], forty["k"])
+    t0 = time.perf_counter()
+    with ChannelLog(keep_confusion=2) as log40:
+        m40 = class_selector_train(
+            port, ds40, label40, preds40,
+            [(port.OpLogisticRegression(max_iter=50), _lr_grid())], device)
+    sync(device)
+    s40 = next(s for s in m40.fitted.values() if hasattr(
+        getattr(s, "summary", None), "validation_results")).summary
+    conf_equal = all(torch.equal(pdm.confusion_counts(*c),
+                                 pdm.confusion_counts_plain(*c))
+                     for c in log40.confusion)
+    f1 = [r.fold_metrics[0] for r in s40.validation_results]
+    rec40 = {"rows": forty["rows"], "d": forty["d"], "classes": forty["k"],
+             "classes_k8mc": sorted(log40.k_conf),
+             "confusion_calls_checked": len(log40.confusion),
+             "confusion_equal_plain": conf_equal, "validation_f1": f1,
+             "holdout_metrics": s40.holdout_metrics,
+             "train_s": time.perf_counter() - t0}
+    ok40 = (log40.k_conf == {forty["k"]} and conf_equal
+            and len(log40.confusion) >= 1
+            and all(np.isfinite(v) and 0 <= v <= 1 for v in f1))
+    record = {"phase": "many_classes", "seven_classes": rec7,
+              "forty_classes_lr": rec40, "ok": bool(ok7 and ok40)}
+    emit(record)
+    if not record["ok"]:
+        raise AssertionError("the many-class phase failed")
+    return record
+
+
+def class_arrays(seed: int, rows: int, d: int, k: int):
+    """`class_synthetic`'s features and classes as arrays (f32 X, f32 y
+    in 0..k-1, as the estimators take them)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(rows, d)).astype(np.float32)
+    W = rng.normal(size=(d, k)).astype(np.float32)
+    score = X @ W + rng.gumbel(size=(rows, k)).astype(np.float32) * 0.5
+    return X, np.argmax(score, axis=1).astype(np.float32)
 
 
 def three_class_level(pt, rng, dev):
@@ -2495,6 +3006,33 @@ def quant_kernel_check(port, pt, pc, rng, dev):
     return record, cases
 
 
+def wrapper_host(fn, calls: int = 200) -> dict:
+    """Where an eager wrapper's time goes: host ms a call (`calls` calls
+    back to back, then one synchronize), and the functions that take most
+    of it (cProfile, own time, ms a call)."""
+    import cProfile
+    import pstats
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    st = pstats.Stats(prof).stats
+    top = sorted(st.items(), key=lambda kv: -kv[1][2])[:8]
+    return {"host_ms": host, "top_own_ms": {
+        f"{os.path.basename(k[0])}:{k[1]}:{k[2]}": v[2] / calls * 1e3
+        for k, v in top}}
+
+
 def time_quant_kernels(pt, pc, cases):
     """CUDA-event times of K10, K4-f16 and K5-narrow beside their bound,
     plain version and one-call yardstick, at n = 64 (a served bucket), 891
@@ -2505,21 +3043,27 @@ def time_quant_kernels(pt, pc, cases):
     narrow = cases["narrow"]
     X1 = cases[("bin_features_f16", 1)][0]
     for n in (64, 891, 65536):
-        wire = cases[("wire_dequant", n, 8)]
-        nb = wire_bytes(wire)
-        k10_bound, k10_by = bound(nb, 2 * wire_elements(wire))
-        k10 = {"ms": graph_ms(lambda: pc.dequantize_wire(wire, 8), 50),
-               "plain_ms": graph_ms(
-                   lambda: pc.dequantize_wire_plain(wire, 8), 20),
-               "wrapper_ms": cuda_ms(lambda: pc.dequantize_wire(wire, 8), 50),
-               "library_ms": None, "bound_ms": k10_bound,
-               "bound_by": k10_by, "bytes": nb}
+        k10 = {}
+        for bits in (8, 4):
+            wire = cases[("wire_dequant", n, bits)]
+            nb = wire_bytes(wire)
+            k10_bound, k10_by = bound(nb, 2 * wire_elements(wire))
+            k10[bits] = {
+                "ms": graph_ms(lambda: pc.dequantize_wire(wire, bits), 50),
+                "plain_ms": graph_ms(
+                    lambda: pc.dequantize_wire_plain(wire, bits), 20),
+                "wrapper_ms": cuda_ms(
+                    lambda: pc.dequantize_wire(wire, bits), 50),
+                "wrapper_host": wrapper_host(
+                    lambda: pc.dequantize_wire(wire, bits)),
+                "library_ms": None, "bound_ms": k10_bound,
+                "bound_by": k10_by, "bytes": nb}
         X, e16, Xb = cases[("bin_features_f16", n)]
         k4 = k4_timing(pt, X, e16, X1)
         k5 = k5_timing(pt, Xb, narrow["feat"], narrow["bin"],
                        narrow["leaf"])
-        out[n] = {"wire_dequant": k10, "bin_features_f16": k4,
-                  "tree_walk_narrow": k5}
+        out[n] = {"wire_dequant": k10[8], "wire_dequant_int4": k10[4],
+                  "bin_features_f16": k4, "tree_walk_narrow": k5}
         emit({"phase": "quant_timing", "n": n, **out[n]})
     return out
 
@@ -4465,7 +5009,9 @@ def main() -> int:
     eval_cases = eval_kernels(pdm, rng, dev)
     m3 = three_class_level(pt, rng, dev)
     emit({"phase": "eval_kernels", "cases": eval_cases,
-          "three_class_level11": m3})
+          "three_class_level11": m3,
+          "hostile": k8_hostile_check(pdm, pt, dev),
+          "many_channels": many_channel_check(pt, dev)})
     torch.cuda.empty_cache()
 
     # 14, 15. the Iris and Boston examples, verbatim ----------------------- #
@@ -4480,12 +5026,17 @@ def main() -> int:
     k5mc_timing = time_k5mc(pt, k5mc_trees, k5mc_rows)
     del k5mc_trees, k5mc_rows
 
+    # 23. any class count: the default multiclass selector at 7 classes,
+    # a 7-class decision tree, the multinomial LR at 40 classes -------- #
+    many_class_phase(port, pt)
+
     # 19. examples/op_titanic_simple.py, verbatim ------------------------- #
     from transmogrifai_tpu_torch.workflow import compiled as pc
     simple_model, simple_ds, simple_rec = titanic_simple_train(port, pt)
 
     # 20. quantized serving and CUDA graphs ------------------------------ #
     _, quant_cases = quant_kernel_check(port, pt, pc, rng, dev)
+    emit({"phase": "k10_hostile", **k10_hostile_check(pc, pt, dev)})
     quant_launches, quant_loaded = quant_serving(port, pt, pc)
     quant_timing = time_quant_kernels(pt, pc, quant_cases)
     del quant_cases

@@ -31,12 +31,17 @@ K1-sub equal (integer sums are exact in any order), K2 and K3 leaves as
 above; a depth-12 forest grown on the card equals the CPU's. The same at
 m = 3 class channels (a depth-12 three-class forest) and m = 1 with the
 regression label as the channel (labels on a 1/4 grid, exact sums: equal
-forests). Evaluation kernels: K8-mc
-confusion counts equal for 0/1 masks and within 1e-6 relative for
+forests); at m = 5, 7 and 12 class channels (K1 in one launch a channel
+group, K2's any-m search) equal to the plain versions, and 7- and
+12-class depth-12 forests equal to the CPU's. Evaluation kernels: K8-mc
+confusion counts at any class count (k = 1 to 300, no row, one row, rows
+over several blocks) equal for 0/1 masks and within 1e-6 relative for
 fractional weights (both sum in f64, in another order, and round once);
-K8-reg sums within 1e-6 relative. Quantized serving: K10's dequantized
+K8-reg sums within 1e-6 relative; both the same bits on a second call
+and under CUDA-graph replay. Quantized serving: K10's dequantized
 wire equal to its plain version (both round q·scale + lo once), on the
-card and on the CPU; K4's f16-edge variant and K5 over narrowed tables
+card and on the CPU, also at 1 to 97 leaves, odd widths at 4 bits, empty
+leaves, unaligned views and past 2^31 elements; K4's f16-edge variant and K5 over narrowed tables
 equal to their plain versions (and to the f32 / int32 versions); a
 `score_padded` graph replay equal to eager scoring, its launches counted
 per replay; a device stage that cannot be captured raises and names
@@ -884,12 +889,134 @@ def test_evaluation_kernels_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError, match="int32"):
         pdm.confusion_counts(y, torch.zeros((1, 4), device=cuda),
                              torch.ones((1, 4), device=cuda), 3)
-    with pytest.raises(ValueError, match="outside"):
-        pdm.confusion_counts(y, y[None], torch.ones((1, 4), device=cuda), 33)
+    with pytest.raises(ValueError, match="fewer than 1"):
+        pdm.confusion_counts(y, y[None], torch.ones((1, 4), device=cuda), 0)
     with pytest.raises(ValueError, match=r"\(P, n\)"):
         pdm.regression_moments(torch.zeros(4, device=cuda),
                                torch.zeros(4, device=cuda),
                                torch.ones(4, device=cuda))
+
+
+@pytest.mark.parametrize("weights", ["01", "frac"])
+@pytest.mark.parametrize("P,n,k", cs.K8MC_HOSTILE_CASES)
+def test_confusion_counts_kernel_on_hostile_cases(cuda, P, n, k, weights):
+    """K8-mc at any class count (shared and global histograms), no row,
+    one row and rows the plan's ranges do not divide: equal to the plain
+    version at 0/1 weights, within 1e-6 relative at fractional ones, one
+    launch, the same bits twice."""
+    cpu = cs.eval_hostile_inputs(np.random.default_rng(P + n + k), P, n, k,
+                                 weights)
+    args = [t.to(cuda) for t in cpu]
+    got, launches = cs.launched(pt, "confusion_counts",
+                                lambda: pdm.confusion_counts(*args, k))
+    assert launches == 1 and got.shape == (P, k, k)
+    want = pdm.confusion_counts_plain(*cpu, k)
+    if weights == "01":
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+    assert torch.equal(got, pdm.confusion_counts(*args, k))
+
+
+@pytest.mark.parametrize("weights", ["01", "frac"])
+@pytest.mark.parametrize("P,n", cs.K8REG_HOSTILE_CASES)
+def test_regression_moments_kernel_on_hostile_cases(cuda, P, n, weights):
+    cpu = cs.regression_hostile_inputs(np.random.default_rng(P * 7 + n), P,
+                                       n, weights)
+    args = [t.to(cuda) for t in cpu]
+    got, launches = cs.launched(pt, "regression_moments",
+                                lambda: pdm.regression_moments(*args))
+    assert launches == 1
+    torch.testing.assert_close(got.cpu(), pdm.regression_moments_plain(*cpu),
+                               rtol=1e-6, atol=0)
+    assert torch.equal(got, pdm.regression_moments(*args))
+
+
+@pytest.mark.parametrize("P,n,k", [(18, 65536, 3), (3, 100_003, 300)])
+def test_evaluation_kernels_replay_in_a_cuda_graph(cuda, P, n, k):
+    """K8-mc and K8-reg with rows over several blocks (K8-reg: two
+    launches and its arrival counters) captured in a CUDA graph: every
+    replay equals the eager call."""
+    rng = np.random.default_rng(n + k)
+    y, pred, mask = (t.to(cuda) for t in cs.eval_hostile_inputs(
+        rng, P, n, k, "frac"))
+    rp, ry, rm = (t.to(cuda) for t in cs.regression_hostile_inputs(
+        rng, P, n, "frac"))
+    want = (pdm.confusion_counts(y, pred, mask, k),
+            pdm.regression_moments(rp, ry, rm))
+    assert pdm.confusion_plan(P, n, k)[0] > 1
+    assert pdm.moments_row_blocks(P, n)[0] > 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pdm.confusion_counts(y, pred, mask, k)
+        pdm.regression_moments(rp, ry, rm)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = (pdm.confusion_counts(y, pred, mask, k),
+               pdm.regression_moments(rp, ry, rm))
+    for _ in range(3):
+        for t in out:
+            t.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+@pytest.mark.parametrize("P,n,d,n_bins,n_nodes,m", cs.MANY_CHANNEL_CASES)
+def test_histograms_and_split_search_at_many_channels(cuda, P, n, d, n_bins,
+                                                      n_nodes, m):
+    """K1 at m = 5, 7 and 12 class channels, one launch a channel group:
+    equal to the plain version (integer sums); K2 from the same
+    histograms, dense and over the live set, masked and not, one launch:
+    tables equal to the plain version's; each the same bits twice."""
+    rng = np.random.default_rng(P * n + m)
+    cpu = cs.many_channel_inputs(rng, P, n, d, n_bins, n_nodes, m)
+    args = [t.to(cuda) for t in cpu]
+    (hg, hh), launches = cs.launched(
+        pt, "histograms", lambda: pt.histograms(*args, n_nodes, n_bins))
+    assert launches == len(pt.hist_channel_groups(m, 4))
+    wg, wh = pt.histograms_plain(*cpu, n_nodes, n_bins)
+    assert torch.equal(hg.cpu(), wg) and torch.equal(hh.cpu(), wh)
+    hg2, hh2 = pt.histograms(*args, n_nodes, n_bins)
+    assert torch.equal(hg, hg2) and torch.equal(hh, hh2)
+    live = torch.zeros((P, n_nodes), dtype=torch.uint8, device=cuda)
+    live.scatter_(1, args[1].long().clamp(max=n_nodes - 1), 1)
+    for fm in (None, torch.from_numpy(rng.random((P, d)) < 0.5).to(cuda)):
+        kw = dict(reg_lambda=1e-6, min_child_weight=2.0, min_gain=0.0,
+                  min_gain_norm=0.001, feature_mask=fm, level=3,
+                  active_depth=[12] * P)
+        for lv, name in ((None, "split_search"), (live, "split_search_live")):
+            (f, b), launches = cs.launched(pt, name, lambda: pt.split_search(
+                hg, hh, n_bins, live=lv, **kw))
+            assert launches == 1
+            wf, wb = pt.split_search_plain(hg, hh, n_bins, live=lv, **kw)
+            assert torch.equal(f, wf) and torch.equal(b, wb)
+            f2, b2 = pt.split_search(hg, hh, n_bins, live=lv, **kw)
+            assert torch.equal(f, f2) and torch.equal(b, b2)
+
+
+@pytest.mark.parametrize("m", [7, 12])
+def test_many_class_forest_on_the_card_matches_the_cpu(cuda, m):
+    """A depth-12 forest at m class channels (numpy draws on both
+    devices): the card's tables equal the CPU's."""
+    rng = np.random.default_rng(m)
+    n, d = 3000, 16
+    Xb = torch.from_numpy(rng.integers(0, 32, (n, d)).astype(np.int8))
+    y = torch.from_numpy(np.clip((Xb[:, 0].numpy().astype(int)
+                                  + rng.integers(0, 32, n)) * m // 64, 0,
+                                 m - 1))
+    Y = torch.nn.functional.one_hot(y, m).float()
+    out = {}
+    with pt.injected_forest_draws(cs.numpy_forest_draws):
+        for dev in ("cpu", "cuda"):
+            t = pt.fit_forest(Xb.to(dev), Y.to(dev), torch.ones(n, device=dev),
+                              6, 12, 32, seed=4, min_child_weight=2.0,
+                              min_gain=0.001)
+            out[dev] = {k: v.cpu() for k, v in t.items()}
+    for k in ("feat", "bin", "leaf"):
+        assert torch.equal(out["cpu"][k], out["cuda"][k]), k
 
 
 # --------------------------------------------------------------------------- #
@@ -1102,6 +1229,51 @@ def test_wire_dequant_kernel_equals_plain(cuda, n, n_cols, d_vec, bits):
             assert t.dtype == torch.float32
             assert torch.equal(t, want), (key, sub)
             assert torch.equal(t.cpu(), host), (key, sub)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("leaves,n", cs.K10_HOSTILE_CASES)
+def test_wire_dequant_kernel_on_hostile_wires(cuda, leaves, n, bits):
+    """K10 at 1, 48, 49 and 97 leaves (one launch a 48 with work): width
+    1, masks, even and odd widths (4 bits: the scalar path), empty leaves,
+    unaligned views; equal to the plain version, the same bits twice."""
+    from transmogrifai_tpu_torch.workflow import compiled as pc
+    wire = cs.k10_hostile_wire(np.random.default_rng(leaves * 10 + n + bits),
+                               leaves, n, bits, cuda)
+    work = sum(1 for v in wire.values()
+               if (v.numel() if isinstance(v, torch.Tensor)
+                   else v["scale"].numel()) * n > 0)
+    got, launches = cs.launched(pt, "wire_dequant",
+                                lambda: pc.dequantize_wire(wire, bits))
+    assert launches == -(-work // 48)
+    assert cs.tree_equal(got, pc.dequantize_wire_plain(wire, bits))
+    assert cs.tree_equal(got, pc.dequantize_wire(wire, bits))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_wire_dequant_kernel_past_2_31_elements(cuda, bits):
+    """A leaf of more than 2^31 elements (odd width 7) takes K10's 64-bit
+    index path: its first, middle and last rows equal the plain version
+    on those rows."""
+    from transmogrifai_tpu_torch.workflow import compiled as pc
+    d = 7
+    n = (1 << 31) // d + 1001
+    width = (d + 1) // 2 if bits == 4 else d
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    q = torch.randint(0, 256, (n, width), dtype=torch.uint8, device=cuda,
+                      generator=gen)
+    if bits == 4:
+        q[:, -1] &= 0x0F
+    scale = torch.linspace(0.01, 2.0, d, device=cuda)
+    lo = torch.linspace(-30.0, 30.0, d, device=cuda)
+    got = pc.dequantize_wire({"q": q, "scale": scale, "lo": lo}, bits)
+    torch.cuda.synchronize()
+    assert got.shape == (n, d) and n * d > 1 << 31
+    for r0 in (0, n // 2, n - 1000):
+        want = pc.dequantize_leaf_plain(
+            {"q": q[r0:r0 + 1000], "scale": scale, "lo": lo}, bits)
+        assert torch.equal(got[r0:r0 + 1000], want), r0
+    del got, q
 
 
 @pytest.mark.parametrize("n", [1, 64, 891, 5000])

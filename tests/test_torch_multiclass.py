@@ -399,7 +399,8 @@ def quick_models(ns_models, example: str):
 # --------------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("k,weights", [(3, "01"), (5, "01"), (3, "frac"),
-                                       (32, "01")])
+                                       (32, "01"), (33, "01"), (100, "01"),
+                                       (40, "frac")])
 def test_confusion_counts_match_multiclass_dev(k, weights):
     import jax.numpy as jnp
     from transmogrifai_tpu.evaluators import device_metrics as jdm
@@ -568,6 +569,205 @@ def test_multiclass_forest_estimator_matches_jax_with_its_draws():
                                atol=1e-6)
     np.testing.assert_array_equal(got["prediction"].numpy(),
                                   np.asarray(want["prediction"]))
+
+
+# --------------------------------------------------------------------------- #
+# more class channels than one K1 / K2 launch takes (m > 4)                   #
+# --------------------------------------------------------------------------- #
+
+def _class_values(k, seed, n=N3, d=D3, n_bins=B3, pairs=P3):
+    """Binned rows, labels of k classes, and the one-hot value channels G
+    (pairs, k, n) times Poisson bootstrap weights H (pairs, n): integer
+    sums, exact in any order."""
+    rng = np.random.default_rng(seed)
+    Xb = rng.integers(0, n_bins, (n, d)).astype(np.int8)
+    y = np.clip((Xb[:, 0].astype(int) + rng.integers(0, n_bins, n)) * k
+                // (2 * n_bins), 0, k - 1)
+    Y = np.eye(k, dtype=np.float32)[y]
+    boot = rng.poisson(1.0, (pairs, n)).astype(np.float32)
+    G = (Y.T[None] * boot[:, None, :]).astype(np.float32)
+    return Xb, y, G, boot
+
+
+@pytest.mark.parametrize("m", [5, 7])
+@pytest.mark.parametrize("n_nodes", [1, 8])
+def test_histograms_with_many_channels_match_jax(exact_histograms, m,
+                                                 n_nodes):
+    """`histograms_plain` at m = 5 and 7 value channels against the JAX
+    package's `_histograms` (f32 mode): equal (integer sums)."""
+    import jax.numpy as jnp
+    from transmogrifai_tpu_torch.models import trees as pt
+    jt = exact_histograms
+    Xb, _, G, H = _class_values(m, 40 + m + n_nodes)
+    node = np.random.default_rng(m).integers(0, n_nodes, (P3, N3)) \
+        .astype(np.int32)
+    hg, hh = pt.histograms(torch.from_numpy(Xb), torch.from_numpy(node),
+                           torch.from_numpy(G), torch.from_numpy(H),
+                           n_nodes, B3)
+    assert hg.shape == (P3, m, n_nodes, D3, B3)
+    Bj = jt.bins_onehot(jnp.asarray(Xb), B3)
+    for p in range(P3):
+        wg, wh = jt._histograms(Bj, jnp.asarray(node[p]),
+                                jnp.asarray(G[p].T), jnp.asarray(H[p]),
+                                n_nodes)
+        np.testing.assert_array_equal(hg[p].numpy(), np.asarray(wg))
+        np.testing.assert_array_equal(hh[p].numpy(), np.asarray(wh))
+
+
+@pytest.mark.parametrize("m", [5, 7])
+@pytest.mark.parametrize("masked", [False, True])
+def test_split_search_with_many_channels_matches_jax(exact_histograms, m,
+                                                     masked):
+    """`split_search_plain` at m = 5 and 7 channels against the JAX
+    package's `split_from_histograms` on the same histograms: split bins
+    equal, and split features equal wherever a node splits."""
+    import jax.numpy as jnp
+    from transmogrifai_tpu_torch.models import trees as pt
+    jt = exact_histograms
+    n_nodes = 8
+    Xb, _, G, H = _class_values(m, 60 + m)
+    node = np.random.default_rng(m + 1).integers(0, n_nodes, (P3, N3)) \
+        .astype(np.int32)
+    hg, hh = pt.histograms_plain(torch.from_numpy(Xb),
+                                 torch.from_numpy(node), torch.from_numpy(G),
+                                 torch.from_numpy(H), n_nodes, B3)
+    rng = np.random.default_rng(m + 2)
+    fmask = rng.random((P3, D3)) < 0.6 if masked else None
+    mcw, mgn = [1.0, 3.0, 2.0], [0.0, 0.01, 0.001]
+    feat, bins = pt.split_search_plain(
+        hg, hh, B3, 1e-6, mcw, 0.0, mgn,
+        None if fmask is None else torch.from_numpy(fmask), 1, None)
+    for p in range(P3):
+        wf, wb = jt.split_from_histograms(
+            jnp.asarray(hg[p].numpy()), jnp.asarray(hh[p].numpy()), B3,
+            1e-6, mcw[p], 0.0, mgn[p],
+            None if fmask is None else jnp.asarray(fmask[p]), 1, None)
+        wb = np.asarray(wb)
+        np.testing.assert_array_equal(bins[p].numpy(), wb)
+        split = wb < B3
+        assert split.any()
+        np.testing.assert_array_equal(feat[p].numpy()[split],
+                                      np.asarray(wf)[split])
+
+
+@pytest.mark.parametrize("depth", [5, 12])
+def test_grow_trees_with_seven_channels_match_jax(exact_histograms, depth):
+    """K1, K2 and K3 through `grow_trees` at m = 7 class channels; depth 12
+    takes the sibling-subtraction branch."""
+    import jax
+    import jax.numpy as jnp
+    from transmogrifai_tpu_torch.models import trees as pt
+    jt = exact_histograms
+    Xb, _, G, H = _class_values(7, 80 + depth)
+    mcw, mgn = [1.0, 4.0, 2.0], [0.0, 0.01, 0.001]
+    tree, node = pt.grow_trees(
+        torch.from_numpy(Xb), torch.from_numpy(G), torch.from_numpy(H),
+        depth, B3, reg_lambda=1e-6, min_child_weight=mcw,
+        min_gain_norm=mgn)
+    assert tree["leaf"].shape == (P3, 2 ** depth, 7)
+    grow = jax.jit(jax.vmap(lambda g, h, c, t: jt.grow_tree(
+        jnp.asarray(Xb), g, h, depth, B3, reg_lambda=1e-6,
+        min_child_weight=c, min_gain_norm=t)))
+    want = grow(jnp.asarray(np.swapaxes(G, 1, 2)), jnp.asarray(H),
+                jnp.asarray(mcw, jnp.float32), jnp.asarray(mgn, jnp.float32))
+    _assert_trees_equal(tree, want, B3)
+
+
+def _seven_class_rows(seed, n=N3, d=D3):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = np.digitize(X[:, 0] + X[:, 3] + rng.normal(size=n) * 0.5,
+                    [-1.5, -0.9, -0.3, 0.3, 0.9, 1.5]).astype(np.float32)
+    assert len(np.unique(y)) == 7
+    return X, y
+
+
+@pytest.mark.parametrize("estimator", ["forest", "tree"])
+def test_seven_class_forest_and_tree_match_jax_with_its_draws(estimator):
+    """`OpRandomForestClassifier` (its draws injected) and
+    `OpDecisionTreeClassifier` at k = 7 (7 class channels: two K1 launches
+    and K2's any-m search on the card) against the JAX package's: trees
+    equal, probabilities within 1e-6, predictions equal."""
+    import jax.numpy as jnp
+    from test_torch_train import jax_forest_draws
+    from transmogrifai_tpu.models import trees as jtrees
+    from transmogrifai_tpu.stages.base import FitContext as JaxCtx
+    from transmogrifai_tpu_torch.models import trees as pt
+    from transmogrifai_tpu_torch.stages.base import FitContext
+
+    X, y = _seven_class_rows(71)
+    n = X.shape[0]
+    if estimator == "forest":
+        kw = dict(n_trees=4, max_depth=12, min_info_gain=0.001,
+                  min_instances_per_node=5.0)
+        jcls, pcls = jtrees.OpRandomForestClassifier, \
+            pt.OpRandomForestClassifier
+    else:
+        kw = dict(max_depth=6, min_info_gain=0.001,
+                  min_instances_per_node=3.0)
+        jcls, pcls = jtrees.OpDecisionTreeClassifier, \
+            pt.OpDecisionTreeClassifier
+    jm = jcls(**kw).fit_arrays(jnp.asarray(X), jnp.asarray(y),
+                               jnp.ones(n, jnp.float32),
+                               JaxCtx(n_rows=n, seed=5))
+    with pt.injected_forest_draws(jax_forest_draws):
+        pm = pcls(**kw).fit_arrays(
+            torch.from_numpy(X), torch.from_numpy(y), torch.ones(n),
+            FitContext(n_rows=n, seed=5, device="cpu"))
+    assert pm.trees["leaf"].shape[-1] == 7
+    _assert_trees_equal(pm.trees, jm.trees, 32)
+    got = pm.predict_arrays(torch.from_numpy(X))
+    want = jm.predict_arrays(jnp.asarray(X))
+    np.testing.assert_allclose(got["probability"].numpy(),
+                               np.asarray(want["probability"]), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_array_equal(got["prediction"].numpy(),
+                                  np.asarray(want["prediction"]))
+
+
+@pytest.mark.parametrize("m", list(range(1, 14)))
+def test_histogram_launches_take_every_channel_once(m):
+    """K1's channel groups on the card: the weights once, every value
+    channel once, at most 4 value channels and one slot a launch, no
+    launch without a value channel."""
+    from transmogrifai_tpu_torch.models import trees as pt
+    groups = pt.hist_channel_groups(m, 4)
+    assert groups[0][0] == 0 and groups[0][2] is None
+    seen = []
+    for c0, v, slot in groups:
+        assert 1 <= v <= 4
+        seen.extend(range(c0, c0 + v))
+        if slot is not None:
+            assert slot == c0 + v
+            seen.append(slot)
+    assert seen == list(range(m))
+    if m <= 4:
+        assert groups == [(0, m, None)]
+
+
+@pytest.mark.parametrize("P,n,k", [(8, 135, 3), (18, 65536, 3),
+                                   (18, 65536, 32), (18, 65536, 100),
+                                   (18, 65536, 300), (1, 0, 1), (3, 1, 2),
+                                   (200, 5000, 7)])
+def test_confusion_plan_covers_the_rows(P, n, k):
+    """K8-mc's launch plan: G ranges of `chunk` rows cover each pair's n
+    rows with no empty range; a block's warps' f64 histograms fit its
+    shared memory, else one warp a block over global scratch (k > 170);
+    the scratch stays within its budget."""
+    from transmogrifai_tpu_torch.evaluators import device_metrics as pdm
+    G, chunk, warps, shared = pdm.confusion_plan(P, n, k)
+    assert G >= 1 and G * chunk >= n and (G - 1) * chunk < max(n, 1)
+    assert 1 <= warps <= 8
+    assert shared == (k <= 170)
+    if shared:
+        assert warps * k * k * 8 <= 227 * 1024
+    else:
+        assert warps == 1
+    if G > 1:
+        assert P * G * k * k * 8 <= 1 << 28 and chunk >= 4096
+        assert P * G <= 132 * 32  # no more blocks than the SMs hold
+    Gr, chunk_r = pdm.moments_row_blocks(P, n)
+    assert Gr >= 1 and Gr * chunk_r >= n and (Gr - 1) * chunk_r < max(n, 1)
 
 
 def test_multinomial_fista_matches_jax():

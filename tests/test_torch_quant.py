@@ -184,6 +184,102 @@ def test_dequantize_wire_matches_jax(bits):
         assert np.all((b == two) | (b == once)), p
 
 
+def _emulate_wire_dequant(plan, tensors, views):
+    """K10's flat index space in numpy, as csrc/wire_dequant.cu walks it:
+    each leaf's first warp from the warps of the leaves before it (a chunk
+    of 512 elements a warp), a warp's leaf by the last start at or below
+    it, lane l of step s taking elements 128 s + 4 l .. + 3 of the chunk,
+    its column from one division a chunk, then advanced (by 128 mod d a
+    step, by 1 an element). Returns the batch's output buffer; every
+    element written exactly once."""
+    chunk, steps, step = 512, 4, 128
+    starts, warps = [], 0
+    for total, _, _ in plan.table[:, 4:]:
+        starts.append(warps)
+        warps += -(-int(total) // chunk)
+    buf = np.full(plan.size, np.nan, np.float32)
+    seen = np.zeros(plan.size, np.int64)
+    for wp in range(warps):
+        a = int(np.searchsorted(starts, wp, side="right")) - 1
+        total, d, bits = (int(v) for v in plan.table[a, 4:])
+        q, scale, lo = (None if t is None else t.numpy()
+                        for t in tensors[plan.jobs[a]])
+        qf = q.reshape(-1)
+        base = plan.offsets[a] // 4
+        c0 = (wp - starts[a]) * chunk
+        for lane in range(32):
+            j = (c0 + 4 * lane) % d
+            for s in range(steps):
+                i0 = c0 + s * step + 4 * lane
+                jj = j
+                for i in range(i0, min(i0 + 4, total)):
+                    if bits == 8:
+                        code = int(qf[i])
+                    elif d == 1:
+                        code = int(qf[i]) & 15
+                    else:
+                        r, col = divmod(i, d)
+                        byte = int(qf[r * ((d + 1) // 2) + col // 2])
+                        code = byte >> 4 if col & 1 else byte & 15
+                    buf[base + i] = code if scale is None else np.float32(
+                        np.float64(code) * scale[jj] + lo[jj])
+                    seen[base + i] += 1
+                    jj = 0 if jj + 1 == d else jj + 1
+                j = (j + step % d) % d
+    for a, b, _ in views:
+        assert (seen[a:b] == 1).all()
+    return buf
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_wire_dequant_plan_and_index_space_match_plain(bits):
+    """The K10 wrapper's plan (one output buffer, each leaf's view at a
+    multiple of 16 bytes, the table's sizes) and the kernel's flat index
+    space, emulated, over scalar, mask, even- and odd-width and empty
+    leaves: every element written once, equal to the plain version."""
+    rng = np.random.default_rng(bits)
+    tree = {"a": {"value": rng.normal(size=37).astype(np.float32),
+                  "mask": (rng.random(37) > 0.3).astype(np.float32)},
+            "v6": (rng.normal(size=(37, 6)) * 9).astype(np.float32),
+            "v7": (rng.normal(size=(37, 7)) * 9).astype(np.float32),
+            "e": np.zeros((0, 5), np.float32)}
+    wire = pc.to_device(pc.quantize_wire(tree, bits), "cpu")
+    jobs = []
+
+    def collect(node):
+        if isinstance(node, dict):
+            if set(node) in pc._WIRE_KEYS:
+                jobs.append(("wire", node))
+            else:
+                for v in node.values():
+                    collect(v)
+        elif isinstance(node, torch.Tensor) and node.dtype == torch.uint8:
+            jobs.append(("mask", node))
+    collect(wire)
+    tensors = [((x["q1"] if "q1" in x else x["q"]), x["scale"], x["lo"])
+               if kind == "wire" else (x, None, None) for kind, x in jobs]
+    plan = pc._DequantPlan(jobs, bits, 48)
+    starts = np.cumsum([0] + plan.sizes)
+    views = [(starts[i], starts[i + 1], shape)
+             for i, shape in zip(plan.pieces, plan.shapes)]
+    assert all(a % 4 == 0 for a, _, _ in views)
+    assert len(plan.jobs) == len(jobs) - 1  # the empty leaf has no work
+    buf = _emulate_wire_dequant(plan, tensors, views)
+    want = pc.dequantize_wire_plain(wire, bits)
+    flat = []
+
+    def walk(node):
+        if isinstance(node, dict) and set(node) not in pc._WIRE_KEYS:
+            for v in node.values():
+                walk(v)
+        else:
+            flat.append(node)
+    walk(want)
+    for (a, b, shape), w in zip(views, flat):
+        got = buf[a:b].reshape(shape or (b - a,))
+        assert got.tobytes() == w.numpy().tobytes()
+
+
 def test_fma_f32_rounds_once():
     from fractions import Fraction
     rng = np.random.default_rng(1)

@@ -70,6 +70,14 @@
 //    scratch buffer in piece order into the output (deterministic; within
 //    the f32 summation bound of any other order).
 //
+// Any m: a launch takes M <= MAX_M value channels and the weight slot.
+// The wrapper cuts m > MAX_M channels into launches over the same tensors
+// through their strides (`g_ch` channels a pair in G and hg, `h_ch` in H
+// and hh): the first takes channels 0..M-1 and the weights, each later one
+// up to MAX_M channels and one more channel in the weight slot (h_ch =
+// g_ch). So every channel's histograms are built once, each by the same
+// arithmetic as in a launch of its own, and the weights once.
+//
 // C interface for ctypes: one entry point per bin type launches all four
 // kernels on `stream` and returns the first cudaGetLastError().
 
@@ -86,10 +94,13 @@ constexpr int FEW_GROUPS = 4;     // 4-cell groups per thread in a few block
 constexpr int REDUCE_THREADS = 256;
 
 struct Planes {
-  float* hg;        // (P, m, n_nodes, d, n_bins)
-  float* hh;        // (P, n_nodes, d, n_bins)
-  float* scratch;   // (P, n_slots, m + 1, d, n_bins)
+  float* hg;        // (P, g_ch, n_nodes, d, n_bins): channel c < M at c
+  float* hh;        // (P, h_ch, n_nodes, d, n_bins): the weight slot at 0
+  float* scratch;   // (P, n_slots, M + 1, d, n_bins)
   int64_t n_slots;
+  int g_ch;         // channels a pair in G and hg
+  int h_ch;         // in H and hh: 1, or g_ch when the weight slot carries
+                    // a value channel of the same tensors
 };
 
 // the (d, n_bins) plane of channel c (c == M: the weights) of node k
@@ -97,8 +108,8 @@ template <int M>
 __device__ __forceinline__ float* out_plane(const Planes& o, int p, int c,
                                             int k, int n_nodes,
                                             int64_t plane) {
-  return c < M ? o.hg + (((int64_t)p * M + c) * n_nodes + k) * plane
-               : o.hh + ((int64_t)p * n_nodes + k) * plane;
+  return c < M ? o.hg + (((int64_t)p * o.g_ch + c) * n_nodes + k) * plane
+               : o.hh + ((int64_t)p * o.h_ch * n_nodes + k) * plane;
 }
 
 __device__ __forceinline__ float* slot_plane(const Planes& o, int p, int64_t s,
@@ -142,8 +153,8 @@ __global__ void few_kernel(const BinT* __restrict__ Xb,
     rows[tid] = r;
 #pragma unroll
     for (int c = 0; c < M; ++c)
-      vals[c][tid] = G[((int64_t)p * M + c) * n + r];
-    vals[M][tid] = H[(int64_t)p * n + r];
+      vals[c][tid] = G[((int64_t)p * o.g_ch + c) * n + r];
+    vals[M][tid] = H[(int64_t)p * o.h_ch * n + r];
   }
   __syncthreads();
   const int64_t plane = (int64_t)d * n_bins;
@@ -326,8 +337,8 @@ __global__ void piece_kernel(const BinT* __restrict__ Xb,
   const int my = ty * lane_size + tx;  // this thread's cells: my + k * WARP
   const BinT* xf = Xb + f;
   const int32_t* ord = order + (int64_t)p * n;
-  const float* Gp = G + (int64_t)p * M * n;
-  const float* Hp = H + (int64_t)p * n;
+  const float* Gp = G + (int64_t)p * o.g_ch * n;
+  const float* Hp = H + (int64_t)p * o.h_ch * n;
   const int64_t plane = (int64_t)d * n_bins;
 
   auto fetch = [&](Row<BinT, M, F>& w, int r) {
@@ -538,10 +549,11 @@ int launch(const void* Xb, const void* G, const void* H, const void* order,
            void* hg, void* hh, void* scratch,
            int64_t n_slots, int P, int n, int d, int n_nodes, int n_bins,
            int lanes, int features, int piece_rows, int few, int piece_grid,
-           void* stream) {
+           int g_ch, int h_ch, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (g_ch < M || h_ch < 1) return (int)cudaErrorInvalidValue;
   Planes o{static_cast<float*>(hg), static_cast<float*>(hh),
-           static_cast<float*>(scratch), n_slots};
+           static_cast<float*>(scratch), n_slots, g_ch, h_ch};
   const BinT* xb = static_cast<const BinT*>(Xb);
   const float* g = static_cast<const float*>(G);
   const float* h = static_cast<const float*>(H);
@@ -597,13 +609,13 @@ int launch_m(const void* Xb, const void* G, const void* H, const void* order,
              void* hg, void* hh, void* scratch,
              int64_t n_slots, int P, int n, int d, int n_nodes, int n_bins,
              int m, int lanes, int features, int piece_rows, int few,
-             int piece_grid, void* stream) {
+             int piece_grid, int g_ch, int h_ch, void* stream) {
 #define HISTOGRAMS_CASE(M_)                                                  \
   case M_:                                                                   \
     return launch<BinT, M_>(Xb, G, H, order, seg, first, slot, hg, hh,       \
                             scratch, n_slots, P, n, d, n_nodes, n_bins,      \
                             lanes, features, piece_rows, few, piece_grid,  \
-                            stream);
+                            g_ch, h_ch, stream);
   switch (m) {
     HISTOGRAMS_CASE(1)
     HISTOGRAMS_CASE(2)
@@ -626,11 +638,12 @@ extern "C" int histograms_i8(const void* Xb, const void* G, const void* H,
                              void* scratch, int64_t n_slots, int P, int n,
                              int d, int n_nodes, int n_bins, int m, int lanes,
                              int features, int piece_rows, int few,
-                             int piece_grid, void* stream) {
+                             int piece_grid, int g_ch, int h_ch,
+                             void* stream) {
   return launch_m<int8_t>(Xb, G, H, order, seg, first, slot, hg, hh,
                           scratch, n_slots, P, n, d, n_nodes, n_bins, m,
-                          lanes, features, piece_rows, few, piece_grid,
-                          stream);
+                          lanes, features, piece_rows, few, piece_grid, g_ch,
+                          h_ch, stream);
 }
 
 extern "C" int histograms_i32(const void* Xb, const void* G, const void* H,
@@ -639,9 +652,10 @@ extern "C" int histograms_i32(const void* Xb, const void* G, const void* H,
                               void* scratch, int64_t n_slots, int P, int n,
                               int d, int n_nodes, int n_bins, int m,
                               int lanes, int features, int piece_rows,
-                              int few, int piece_grid, void* stream) {
+                              int few, int piece_grid, int g_ch, int h_ch,
+                              void* stream) {
   return launch_m<int32_t>(Xb, G, H, order, seg, first, slot, hg, hh,
                            scratch, n_slots, P, n, d, n_nodes, n_bins, m,
-                           lanes, features, piece_rows, few, piece_grid,
-                           stream);
+                           lanes, features, piece_rows, few, piece_grid, g_ch,
+                           h_ch, stream);
 }

@@ -63,6 +63,13 @@
 // scanned: a block lists the pair's unmasked features once, and its tiles
 // take 128 features of that list.
 //
+// Any m: m <= 4 channels take fixed instances (tg[M], cg[M] in registers);
+// more take the any-m instance, which stages the channels four at a time
+// and keeps every bin's running left and right sums of squares in shared
+// memory, one row each a feature, so a tile holds the same 7 rows a
+// feature whatever m is. The sums run over the channels in the same order,
+// so the tables stay bit-equal to the plain version's.
+//
 // C interface for ctypes: the entry point launches on `stream` and returns
 // cudaGetLastError().
 
@@ -74,7 +81,8 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_M = 4;
+constexpr int MAX_M = 4;   // channels of the fixed instances
+constexpr int GROUP = 4;   // channels a staging round of the any-m search
 constexpr unsigned FULL = 0xffffffffu;
 // shared memory a block's tile may take; its features shrink for wide bins
 constexpr int TILE_BYTES = 96 * 1024;
@@ -93,8 +101,16 @@ struct Params {
   int32_t* out_feat;     // (P, n_nodes), row stride out_stride
   int32_t* out_bin;
   int64_t live_stride, mark_stride, out_stride;
-  int level, n_nodes, d, n_bins, G, tile_f, row;
+  int level, n_nodes, d, n_bins, m, G, tile_f, row;
 };
+
+// rows of a feature in a tile: the M + 1 channels, or (any m, M = 0) the
+// GROUP channels of a round, the weights and the left and right class
+// terms of every bin
+template <int M>
+__host__ __device__ constexpr int tile_rows() {
+  return M > 0 ? M + 1 : GROUP + 3;
+}
 
 // (g, i) before (bg, bi): NaN first, then the larger gain, then the
 // smaller index
@@ -182,6 +198,46 @@ __device__ __forceinline__ void scan_feature(const float* S, int chan,
   }
 }
 
+// the block's best candidate (thread 0 returns it): warp shuffles and one
+// shared step by (gain, -index), a total order; then the threshold
+__device__ __forceinline__ void pick_split(const Params& q, int p, float best,
+                                           int best_i, float th0, int& out_f,
+                                           int& out_b) {
+  __shared__ float s_gain[WARPS];
+  __shared__ int s_idx[WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nb = q.n_bins;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float og = __shfl_down_sync(FULL, best, o);
+    const int oi = __shfl_down_sync(FULL, best_i, o);
+    if (better(og, oi, best, best_i)) {
+      best = og;
+      best_i = oi;
+    }
+  }
+  if (lane == 0) {
+    s_gain[warp] = best;
+    s_idx[warp] = best_i;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < WARPS; ++w)
+      if (better(s_gain[w], s_idx[w], best, best_i)) {
+        best = s_gain[w];
+        best_i = s_idx[w];
+      }
+    const float a = q.min_gain[p];
+    const float b = q.min_gain_norm[p] * th0;
+    const float thr = (isnan(a) || isnan(b)) ? CUDART_NAN_F : fmaxf(a, b);
+    bool split = best > thr;
+    if (q.active_depth != nullptr) split = split && q.level < q.active_depth[p];
+    const int bi = best_i == 0x7fffffff ? 0 : best_i;
+    out_f = bi / nb;
+    out_b = split ? bi % nb : nb;
+  }
+}
+
 // one node's search by the whole block; `zero`: of an all-zero histogram.
 // The features searched are flist[0 .. n_feat) (every feature when flist
 // is null): the pair's unmasked features and feature 0, whose weights give
@@ -194,8 +250,6 @@ __device__ void search_node(const Params& q, float* smem,
                             const uint16_t* flist, int n_feat, bool fok0,
                             int p, int k, bool zero, int& out_f,
                             int& out_b) {
-  __shared__ float s_gain[WARPS];
-  __shared__ int s_idx[WARPS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nb = q.n_bins, row = q.row;
   const int chan = q.tile_f * row;  // floats a channel's tile takes
@@ -234,35 +288,155 @@ __device__ void search_node(const Params& q, float* smem,
       if (f == 0) th0 = th;  // thread 0: the node's weight by feature 0
     }
   }
+  pick_split(q, p, best, best_i, th0, out_f, out_b);
+}
+
+// the same search for any m (M = 0): the channels are staged GROUP at a
+// time into rows 0 .. GROUP - 1 of each feature, the weights once into
+// row GROUP. Each round adds its channels' terms to every bin's left and
+// right sums of squares (rows GROUP + 1 and GROUP + 2, the lane's own) and
+// to the total's, in channel order; a last pass over the weights forms
+// the gains. Every operation is the fixed instances' (and the plain
+// version's), in the same order: the same bits.
+__device__ void search_node_any(const Params& q, float* smem,
+                                const uint16_t* flist, int n_feat, bool fok0,
+                                int p, int k, bool zero, int& out_f,
+                                int& out_b) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nb = q.n_bins, row = q.row, m = q.m;
+  const int chan = q.tile_f * row;
+  const int64_t cells = (int64_t)q.d * nb;
+  const float L = q.lam[p];
+  const float Wmin = q.mcw[p];
+  float* const Wt = smem + GROUP * chan;
+  float* const NL = smem + (GROUP + 1) * chan + tid * row;
+  float* const NR = smem + (GROUP + 2) * chan + tid * row;
+  const float* hg = q.hg + (int64_t)p * m * q.n_nodes * cells;
+  const float* hh = q.hh + ((int64_t)p * q.n_nodes + k) * cells;
+  float best = -CUDART_INF_F;
+  int best_i = 0x7fffffff;
+  float th0 = 0.f;
+  for (int t0 = 0; t0 < n_feat; t0 += q.tile_f) {
+    const int nf = min(q.tile_f, n_feat - t0);
+    const int f_me =
+        tid < nf ? (flist != nullptr ? flist[t0 + tid] : t0 + tid) : 0;
+    const bool fok = f_me != 0 || fok0;
+    __syncthreads();  // the previous tile's readers are done
+    for (int j = warp; j < nf; j += WARPS) {
+      const int f = flist != nullptr ? flist[t0 + j] : t0 + j;
+      const float* src = hh + (int64_t)f * nb;
+      float* dst = Wt + j * row;
+      for (int b = lane; b < nb; b += 32) {
+        if (zero)
+          dst[b] = 0.f;
+        else
+          cp_async4(dst + b, src + b);
+      }
+    }
+    float np_ = 0.f;  // the total's class terms, in channel order
+    for (int c0 = 0; c0 < m; c0 += GROUP) {
+      const int gc = min(GROUP, m - c0);
+      if (c0 > 0) __syncthreads();  // the last round's readers are done
+      for (int j = warp; j < nf; j += WARPS) {
+        const int f = flist != nullptr ? flist[t0 + j] : t0 + j;
+        if (f == 0 && !fok0) continue;
+        for (int c = 0; c < gc; ++c) {
+          const float* src =
+              hg + ((int64_t)(c0 + c) * q.n_nodes + k) * cells +
+              (int64_t)f * nb;
+          float* dst = smem + c * chan + j * row;
+          for (int b = lane; b < nb; b += 32) {
+            if (zero)
+              dst[b] = 0.f;
+            else
+              cp_async4(dst + b, src + b);
+          }
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      if (tid < nf && fok) {
+        const float* S = smem + tid * row;
+        float tg[GROUP];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float og = __shfl_down_sync(FULL, best, o);
-    const int oi = __shfl_down_sync(FULL, best_i, o);
-    if (better(og, oi, best, best_i)) {
-      best = og;
-      best_i = oi;
+        for (int c = 0; c < GROUP; ++c) tg[c] = 0.f;
+        for (int b = 0; b < nb; ++b) {
+#pragma unroll
+          for (int c = 0; c < GROUP; ++c)
+            if (c < gc) tg[c] = tg[c] + S[c * chan + b];
+        }
+#pragma unroll
+        for (int c = 0; c < GROUP; ++c)
+          if (c < gc) np_ = c0 + c == 0 ? tg[0] * tg[0] : np_ + tg[c] * tg[c];
+        float cg[GROUP];
+#pragma unroll
+        for (int c = 0; c < GROUP; ++c) cg[c] = 0.f;
+        for (int b = 0; b < nb; ++b) {
+          float l = c0 == 0 ? 0.f : NL[b];
+          float r = c0 == 0 ? 0.f : NR[b];
+#pragma unroll
+          for (int c = 0; c < GROUP; ++c) {
+            if (c < gc) {
+              cg[c] = cg[c] + S[c * chan + b];
+              const float rc = tg[c] - cg[c];
+              if (c0 + c == 0) {
+                l = cg[0] * cg[0];
+                r = rc * rc;
+              } else {
+                l = l + cg[c] * cg[c];
+                r = r + rc * rc;
+              }
+            }
+          }
+          NL[b] = l;
+          NR[b] = r;
+        }
+      }
+    }
+    if (tid < nf) {
+      const float* Wr = Wt + tid * row;
+      const int idx0 = f_me * nb;
+      float th = 0.f;
+      for (int b = 0; b < nb; ++b) th = th + Wr[b];
+      if (f_me == 0) th0 = th;  // thread 0: the node's weight by feature 0
+      if (!fok) {
+        if (better(-CUDART_INF_F, idx0, best, best_i)) {
+          best = -CUDART_INF_F;
+          best_i = idx0;
+        }
+      } else {
+        const float sp = np_ / (th + L);
+        float ch = 0.f;
+        for (int b = 0; b < nb; ++b) {
+          ch = ch + Wr[b];
+          const float rh = th - ch;
+          float gain = -CUDART_INF_F;
+          if (ch >= Wmin && rh >= Wmin) {
+            const float sl = NL[b] / (ch + L);
+            const float sr = NR[b] / (rh + L);
+            gain = (sl + sr) - sp;
+          }
+          if (better(gain, idx0 + b, best, best_i)) {
+            best = gain;
+            best_i = idx0 + b;
+          }
+        }
+      }
     }
   }
-  if (lane == 0) {
-    s_gain[warp] = best;
-    s_idx[warp] = best_i;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int w = 1; w < WARPS; ++w)
-      if (better(s_gain[w], s_idx[w], best, best_i)) {
-        best = s_gain[w];
-        best_i = s_idx[w];
-      }
-    const float a = q.min_gain[p];
-    const float b = q.min_gain_norm[p] * th0;
-    const float thr = (isnan(a) || isnan(b)) ? CUDART_NAN_F : fmaxf(a, b);
-    bool split = best > thr;
-    if (q.active_depth != nullptr) split = split && q.level < q.active_depth[p];
-    const int bi = best_i == 0x7fffffff ? 0 : best_i;
-    out_f = bi / nb;
-    out_b = split ? bi % nb : nb;
-  }
+  pick_split(q, p, best, best_i, th0, out_f, out_b);
+}
+
+// the node's search by the fixed instance or, for M = 0, by the any-m one
+template <int M>
+__device__ __forceinline__ void search(const Params& q, float* smem,
+                                       const uint16_t* flist, int n_feat,
+                                       bool fok0, int p, int k, bool zero,
+                                       int& out_f, int& out_b) {
+  if constexpr (M > 0)
+    search_node<M>(q, smem, flist, n_feat, fok0, p, k, zero, out_f, out_b);
+  else
+    search_node_any(q, smem, flist, n_feat, fok0, p, k, zero, out_f, out_b);
 }
 
 template <int M>
@@ -281,7 +455,8 @@ __global__ void __launch_bounds__(THREADS)
   bool fok0 = true;
   if (q.fmask != nullptr) {
     const uint8_t* fm = q.fmask + (int64_t)p * q.d;
-    flist = reinterpret_cast<uint16_t*>(smem + (M + 1) * q.tile_f * q.row);
+    flist = reinterpret_cast<uint16_t*>(smem + tile_rows<M>() * q.tile_f *
+                                                   q.row);
     fok0 = fm[0] != 0;
     n_feat = 0;
     for (int c = 0; c < q.d; c += THREADS) {
@@ -301,7 +476,7 @@ __global__ void __launch_bounds__(THREADS)
   }
   int fo = 0, bo = 0;
   if (x == q.G) {  // the pair's zero search, into every node not live
-    search_node<M>(q, smem, flist, n_feat, fok0, p, 0, true, fo, bo);
+    search<M>(q, smem, flist, n_feat, fok0, p, 0, true, fo, bo);
     __shared__ int s_zero[2];
     if (tid == 0) {
       s_zero[0] = fo;
@@ -337,7 +512,7 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
     for (int i = 0; i < total; ++i) {
       const int node = s_list[i];
-      search_node<M>(q, smem, flist, n_feat, fok0, p, node, false, fo, bo);
+      search<M>(q, smem, flist, n_feat, fok0, p, node, false, fo, bo);
       if (tid == 0) {
         q.out_feat[(int64_t)p * q.out_stride + node] = fo;
         q.out_bin[(int64_t)p * q.out_stride + node] = bo;
@@ -362,7 +537,7 @@ int sm_count() {
 template <int M>
 int launch(Params q, int P, void* stream) {
   const int row = q.n_bins | 1;  // odd: lanes' rows fall in distinct banks
-  const int per_feature = (M + 1) * row * (int)sizeof(float);
+  const int per_feature = tile_rows<M>() * row * (int)sizeof(float);
   int tile_f = TILE_BYTES / per_feature;
   if (tile_f > THREADS) tile_f = THREADS;
   if (tile_f > q.d) tile_f = q.d;
@@ -402,8 +577,6 @@ int launch(Params q, int P, void* stream) {
 
 }  // namespace
 
-extern "C" int split_search_max_m() { return MAX_M; }
-
 // hg (P, m, n_nodes, d, n_bins), hh (P, n_nodes, d, n_bins) f32 contiguous;
 // per-pair lam, mcw, min_gain, min_gain_norm f32 (P,); fmask (P, d) uint8
 // or null; active_depth (P,) int32 or null. live: (P, n_nodes) flags (row
@@ -434,12 +607,14 @@ extern "C" int split_search(const void* hg, const void* hh, const void* lam,
            static_cast<int32_t*>(out_feat),
            static_cast<int32_t*>(out_bin),
            live_stride, mark_stride, out_stride,
-           level, n_nodes, d, n_bins, 0, 0, 0};
+           level, n_nodes, d, n_bins, m, 0, 0, 0};
   switch (m) {
     case 1: return launch<1>(q, P, stream);
     case 2: return launch<2>(q, P, stream);
     case 3: return launch<3>(q, P, stream);
     case 4: return launch<4>(q, P, stream);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      return m > MAX_M ? launch<0>(q, P, stream)
+                       : (int)cudaErrorInvalidValue;
   }
 }

@@ -29,6 +29,7 @@ for all P pairs of a multiclass or regression group.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict
 
 import torch
@@ -296,14 +297,68 @@ def aupr_binned_dev(y: torch.Tensor, scores: torch.Tensor,
 # K8-mc: masked confusion counts, K8-reg: masked regression sums             #
 # --------------------------------------------------------------------------- #
 
-_EVAL_MAX_K = 32  # k·k counters of a pair within one block's threads
+# the H100's SMs, and what one holds: warps, blocks, shared memory (a block
+# may take 227 KB of it); a K8-mc block's warps; rows a block at least, 16
+# a thread of K8-reg's 256 (fewer lost on the card: a block's fixed cost,
+# its reductions and its cross-block sums, outweighed its rows; in
+# global-scratch mode at least an eighth of a block's cells, so that
+# zeroing and summing them stays small beside its rows); the scratch of the
+# blocks' partials at most. Within those, the plans give every SM as many
+# blocks as it holds, in one wave.
+_SMS = 132
+_SM_WARPS = 64
+_SM_BLOCKS = 32
+_SM_SMEM_BYTES = 228 * 1024
+_CONF_WARPS = 8
+_CONF_SMEM_BYTES = 227 * 1024
+_EVAL_MIN_ROWS = 4096
+_EVAL_SCRATCH_BYTES = 1 << 28
+_REG_WARPS = 8  # K8-reg's 256 threads a block
+_MAX_GRID_Y = 65535  # pairs on blockIdx.y
+
+
+@functools.lru_cache(maxsize=4096)
+def confusion_plan(P: int, n: int, k: int):
+    """(G, chunk, warps, shared) of the K8-mc launch: each pair's rows in
+    G ranges of `chunk` rows, one block of `warps` warps a range; each
+    warp's f64 histogram of k·k cells in shared memory (`shared`, while a
+    block holds `warps` of them: k ≤ 170) or, one warp a block, in its
+    slice of the scratch. Fixed from the shapes alone: P × G blocks fill
+    the SMs (as many as an SM holds, in one wave) where the rows allow,
+    G = 1 for small inputs."""
+    cells = k * k
+    warps = min(_CONF_WARPS, _CONF_SMEM_BYTES // (8 * cells))
+    shared = warps >= 1
+    warps = max(warps, 1)
+    if shared:  # an SM's blocks by warps and by shared memory (+1 KB each)
+        per_sm = min(_SM_WARPS // warps, _SM_BLOCKS,
+                     _SM_SMEM_BYTES // (warps * 8 * cells + 1024))
+        min_rows = _EVAL_MIN_ROWS
+    else:
+        per_sm, min_rows = _SM_BLOCKS, max(_EVAL_MIN_ROWS, cells // 8)
+    G = max(1, min(_SMS * per_sm // max(P, 1), n // min_rows,
+                   _EVAL_SCRATCH_BYTES // (8 * max(P, 1) * cells)))
+    return G, -(-n // G), warps, shared
+
+
+@functools.lru_cache(maxsize=4096)
+def moments_row_blocks(P: int, n: int):
+    """(G, chunk) of the K8-reg launch: each pair's rows in G ranges of
+    `chunk` rows, one block a range, P × G blocks filling the SMs where the
+    rows allow (G = 1: one launch, both passes in the pair's block)."""
+    G = max(1, min(_SMS * (_SM_WARPS // _REG_WARPS) // max(P, 1),
+                   n // _EVAL_MIN_ROWS))
+    return G, -(-n // G)
+
+
+# y, pred, mask; P, n, k, G, chunk, warps, shared; part, out, stream
 cuda_build.register("eval_metrics", "confusion_counts",
-                    (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
-                    + (ctypes.c_void_p,) * 2)
+                    (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7
+                    + (ctypes.c_void_p,) * 3)
+# pred, y, mask; P, n, G, chunk; part, out, stream
 cuda_build.register("eval_metrics", "regression_moments",
-                    (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
-                    + (ctypes.c_void_p,) * 2)
-cuda_build.register("eval_metrics", "eval_metrics_max_k", ())
+                    (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4
+                    + (ctypes.c_void_p,) * 3)
 
 
 def _eval_shapes(name, y, pred, mask):
@@ -342,18 +397,25 @@ def _confusion_counts_cuda(y, pred, mask, k):
             or mask.dtype != torch.float32:
         raise ValueError("confusion_counts: labels and predictions must be "
                          "int32, masks f32")
-    if not 1 <= k <= _EVAL_MAX_K:
-        raise ValueError(f"confusion_counts: {k} classes outside [1, "
-                         f"{_EVAL_MAX_K}]")
+    if k < 1:
+        raise ValueError(f"confusion_counts: {k} classes, fewer than 1")
     P, n = pred.shape
-    out = torch.zeros((P, k, k), dtype=torch.float32, device=pred.device)
+    if P > _MAX_GRID_Y:
+        raise ValueError(f"confusion_counts: {P} pairs exceed the launch "
+                         f"grid's {_MAX_GRID_Y}")
+    out = torch.empty((P, k, k), dtype=torch.float32, device=pred.device)
     if P == 0:
         return out
     y, pred, mask = y.contiguous(), pred.contiguous(), mask.contiguous()
+    G, chunk, warps, shared = confusion_plan(P, n, k)
+    part = (torch.empty(P * G * k * k, dtype=torch.float64,
+                        device=pred.device)
+            if G > 1 or not shared else None)
     err = cuda_build.launch(
         pred.get_device(), cuda_build.entry("eval_metrics",
                                             "confusion_counts"),
-        y.data_ptr(), pred.data_ptr(), mask.data_ptr(), P, n, k,
+        y.data_ptr(), pred.data_ptr(), mask.data_ptr(), P, n, k, G, chunk,
+        warps, int(shared), None if part is None else part.data_ptr(),
         out.data_ptr())
     cuda_build.check("confusion_counts", err)
     cuda_build.count("confusion_counts")
@@ -364,7 +426,7 @@ def confusion_counts(y: torch.Tensor, pred: torch.Tensor,
                      mask: torch.Tensor, k: int) -> torch.Tensor:
     """(P, k, k) f32 masked confusion counts of P prediction rows pred
     (P, n) int32 against labels y (n,) int32, with row weights mask (P, n)
-    f32, labels and predictions clipped to [0, k − 1] (k ≤ 32). A CUDA
+    f32, labels and predictions clipped to [0, k − 1], any k ≥ 1. A CUDA
     tensor launches the K8-mc kernel (or raises); a CPU tensor takes the
     plain version."""
     if pred.device.type not in ("cpu", "cuda"):
@@ -404,14 +466,23 @@ def _regression_moments_cuda(pred, y, mask):
         raise ValueError("regression_moments: predictions, labels and "
                          "masks must be f32")
     P, n = pred.shape
-    out = torch.zeros((P, 5), dtype=torch.float32, device=pred.device)
+    if P > _MAX_GRID_Y:
+        raise ValueError(f"regression_moments: {P} pairs exceed the launch "
+                         f"grid's {_MAX_GRID_Y}")
+    out = torch.empty((P, 5), dtype=torch.float32, device=pred.device)
     if P == 0:
         return out
     pred, y, mask = pred.contiguous(), y.contiguous(), mask.contiguous()
+    G, chunk = moments_row_blocks(P, n)
+    # the blocks' f64 sums (4 of pass 1, 1 of pass 2), then P uint32
+    # arrival counters
+    part = (torch.empty(5 * P * G + -(-P // 2), dtype=torch.float64,
+                        device=pred.device) if G > 1 else None)
     err = cuda_build.launch(
         pred.get_device(), cuda_build.entry("eval_metrics",
                                             "regression_moments"),
-        pred.data_ptr(), y.data_ptr(), mask.data_ptr(), P, n, out.data_ptr())
+        pred.data_ptr(), y.data_ptr(), mask.data_ptr(), P, n, G, chunk,
+        None if part is None else part.data_ptr(), out.data_ptr())
     cuda_build.check("regression_moments", err)
     cuda_build.count("regression_moments")
     return out

@@ -571,7 +571,7 @@ def hist_scratch_bytes(P: int, n: int, n_nodes: int, m: int, d: int,
 
 _HIST_ARGS = cuda_build.register(
     "histograms", ("histograms_i8", "histograms_i32"),
-    (ctypes.c_void_p,) * 10 + (ctypes.c_int64,) + (ctypes.c_int,) * 11
+    (ctypes.c_void_p,) * 10 + (ctypes.c_int64,) + (ctypes.c_int,) * 13
     + (ctypes.c_void_p,))
 cuda_build.register("histograms", ("histograms_max_m", "histograms_max_few"),
                     ())
@@ -579,6 +579,28 @@ cuda_build.register("histograms", ("histograms_max_m", "histograms_max_few"),
 _SMEM_BYTES = 232448
 # launch grids: pairs on blockIdx.z, nodes on blockIdx.y
 _MAX_GRID_YZ = 65535
+
+
+def hist_channel_groups(m: int, max_m: int
+                        ) -> List[Tuple[int, int, Optional[int]]]:
+    """K1's launches for m value channels, at most max_m in a launch:
+    (first channel, value channels v, the channel in the weight slot or
+    None for the weights) each. The first takes channels 0 .. v − 1 and
+    the weights; each later one v ≤ max_m channels and the next in the
+    weight slot, so every channel and the weights are summed once; no
+    later launch is left with a single channel (it would have no value
+    channel)."""
+    first = min(m, max_m)
+    rest = m - first
+    if rest % (max_m + 1) == 1:
+        first, rest = first - 1, rest + 1
+    groups = [(0, first, None)]
+    c = first
+    while c < m:
+        take = min(max_m + 1, m - c)
+        groups.append((c, take - 1, c + take - 1))
+        c += take
+    return groups
 
 
 def _hist_layout(n_bins: int, m: int, four: bool,
@@ -612,9 +634,8 @@ def _histograms_cuda(Xb, node_idx, G, H, n_nodes, n_bins, plan_out=None):
     _require(P <= _MAX_GRID_YZ and n_nodes <= _MAX_GRID_YZ,
              f"histograms: {P} pairs or {n_nodes} nodes exceed the launch "
              f"grid's {_MAX_GRID_YZ}")
-    max_m = cuda_build.entry("histograms", "histograms_max_m")()
-    _require(m <= max_m, f"histograms: {m} channels exceed the kernel's "
-                         f"{max_m}")
+    groups = hist_channel_groups(
+        m, cuda_build.entry("histograms", "histograms_max_m")())
     grid, n_slots = hist_plan_bounds(n, n_nodes)
     _require(grid <= _MAX_GRID_YZ,
              f"histograms: {grid} pieces a pair exceed the launch grid's "
@@ -630,22 +651,34 @@ def _histograms_cuda(Xb, node_idx, G, H, n_nodes, n_bins, plan_out=None):
     # the plan (`hist_piece_plan`'s arithmetic) is written by the kernel
     first = torch.empty((P, n_nodes + 1), dtype=torch.int32, device=dev)
     slot = torch.empty_like(first)
-    scratch = (torch.empty((P, n_slots, m + 1, d, n_bins),
+    widest = max(v + 1 for _, v, _ in groups)
+    scratch = (torch.empty((P, n_slots, widest, d, n_bins),
                            dtype=torch.float32, device=dev)
                if n_slots else None)
     Xb, G, H = Xb.contiguous(), G.contiguous(), H.contiguous()
-    feats, lanes = _hist_layout(n_bins, m, d % 4 == 0 and Xb.data_ptr() % (
-        4 * Xb.element_size()) == 0, n / n_nodes)
     fname = "histograms_i8" if Xb.dtype == torch.int8 else "histograms_i32"
-    err = cuda_build.launch(
-        Xb.get_device(), cuda_build.entry("histograms", fname),
-        Xb.data_ptr(), G.data_ptr(), H.data_ptr(), order.data_ptr(),
-        seg.data_ptr(), first.data_ptr(), slot.data_ptr(), hg.data_ptr(),
-        hh.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        n_slots, P, n, d, n_nodes, n_bins, m, lanes, feats, HIST_PIECE_ROWS,
-        HIST_FEW_ROWS, grid)
-    cuda_build.check(fname, err)
-    _count("histograms")
+    fn = cuda_build.entry("histograms", fname)
+    four = d % 4 == 0 and Xb.data_ptr() % (4 * Xb.element_size()) == 0
+    plane = n_nodes * d * n_bins  # a channel's floats a pair in hg
+    for c0, v, slot_c in groups:
+        # values c0 .. c0 + v - 1, and in the weight slot the weights
+        # (slot_c None) or value channel slot_c
+        if slot_c is None:
+            h_src, h_out, h_ch = H.data_ptr(), hh.data_ptr(), 1
+        else:
+            h_src = G.data_ptr() + 4 * slot_c * n
+            h_out = hg.data_ptr() + 4 * slot_c * plane
+            h_ch = m
+        feats, lanes = _hist_layout(n_bins, v, four, n / n_nodes)
+        err = cuda_build.launch(
+            Xb.get_device(), fn, Xb.data_ptr(), G.data_ptr() + 4 * c0 * n,
+            h_src, order.data_ptr(), seg.data_ptr(), first.data_ptr(),
+            slot.data_ptr(), hg.data_ptr() + 4 * c0 * plane, h_out,
+            None if scratch is None else scratch.data_ptr(), n_slots, P, n,
+            d, n_nodes, n_bins, v, lanes, feats, HIST_PIECE_ROWS,
+            HIST_FEW_ROWS, grid, m, h_ch)
+        cuda_build.check(fname, err)
+        _count("histograms")
     if plan_out is not None:  # a test's view of the kernel's plan
         plan_out.extend([seg, first, slot, grid])
     return hg, hh
@@ -879,7 +912,6 @@ _SPLIT_ARGS = cuda_build.register(
     (ctypes.c_void_p,) * 9 + (ctypes.c_int64, ctypes.c_void_p,
                               ctypes.c_int64) + (ctypes.c_int,) * 6
     + (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p))
-cuda_build.register("split_search", "split_search_max_m", ())
 
 
 def _split_shapes(hg, hh, n_bins):
@@ -928,10 +960,8 @@ def _split_search_cuda(hg, hh, n_bins, reg_lambda, min_child_weight,
         _flags_view("split_search", live, P, n_nodes, "live")
     if mark is not None:
         _flags_view("split_search", mark, P, 2 * n_nodes, "mark")
-    max_m = cuda_build.entry("split_search", "split_search_max_m")()
-    if not 1 <= m <= max_m:
-        raise ValueError(f"split_search: {m} channels outside the kernel's "
-                         f"[1, {max_m}]")
+    if m < 1:
+        raise ValueError("split_search: no value channel")
     if P > _MAX_GRID_YZ:
         raise ValueError(f"split_search: {P} pairs exceed the launch grid's "
                          f"{_MAX_GRID_YZ}")

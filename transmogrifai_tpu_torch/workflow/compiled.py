@@ -207,56 +207,116 @@ def dequantize_leaf_plain(wire: Dict[str, torch.Tensor], bits: int
     `dequantize_leaf` into one), unpacking int4 nibbles first."""
     q, scale, lo, n, d, one_d = _wire_parts(wire, bits)
     if bits == 4:
-        q = torch.stack([q & 0x0F, q >> 4], dim=-1).reshape(n, -1)[:, :d]
+        q = torch.stack([q & 0x0F, q >> 4], dim=-1).reshape(
+            n, 2 * q.shape[1])[:, :d]
     x = fma_f32(q.to(torch.float32), scale.expand(n, d), lo.expand(n, d))
     return x[:, 0] if one_d else x
 
 
+# the host table: 7 int64 a leaf (q, scale, lo, out, n·d, d, bits); its
+# address, the leaf count, the stream
 _DEQUANT_ARGS = cuda_build.register(
     "wire_dequant", "wire_dequant",
-    (ctypes.c_void_p,) * 4 + (ctypes.c_void_p,) * 3
-    + (ctypes.c_int, ctypes.c_void_p))
+    (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p))
 cuda_build.register("wire_dequant", "wire_dequant_max_leaves", ())
+_DEQUANT_FIELDS = 7
+
+
+class _DequantPlan:
+    """What one wire signature (the jobs' kinds, shapes, dtypes and bits)
+    fixes for K10, checked once: each job's output shape in the batch's one
+    output buffer (every leaf's view at a multiple of 16 bytes, cut by one
+    `split_with_sizes`), and the host table of the launches with its sizes
+    filled in, whose address columns each call refills."""
+
+    def __init__(self, jobs, bits: int, max_leaves: int):
+        sizes, rows, self.shapes, self.pieces = [], [], [], []
+        for j, (kind, x) in enumerate(jobs):
+            if kind == "wire":
+                q, scale, lo, n, d, one_d = _wire_parts(x, bits)
+                shape, b = (n,) if one_d else (n, d), bits
+            else:
+                if x.dtype != torch.uint8:
+                    raise ValueError(f"wire mask: {x.dtype}, expected uint8")
+                shape, n, d, b = tuple(x.shape), int(x.numel()), 1, 8
+            total = n * d
+            if total > 0:
+                rows.append((j, total, d, b, sum(sizes)))
+            # the job's piece, then the padding to a multiple of 4 floats
+            self.pieces.append(len(sizes))
+            sizes += [total] + ([-total % 4] if total % 4 else [])
+            # a view of a 1-D piece only where the shape is not (total,)
+            self.shapes.append(None if shape == (total,) else shape)
+        self.sizes = sizes
+        self.size = sum(sizes)
+        self.jobs = [r[0] for r in rows]  # the jobs with work, in order
+        self.table = np.zeros((len(rows), _DEQUANT_FIELDS), np.int64)
+        for i, (_, total, d, b, _) in enumerate(rows):
+            self.table[i, 4:] = (total, d, b)
+        self.offsets = np.array([r[4] for r in rows], np.int64) * 4
+        self.chunks = [(s, min(len(rows), s + max_leaves))
+                       for s in range(0, len(rows), max_leaves)]
+
+
+_DEQUANT_PLANS: Dict[tuple, _DequantPlan] = {}
 
 
 def _dequantize_cuda(jobs: List[Tuple[str, Any]], bits: int
                      ) -> List[torch.Tensor]:
     """K10: every job (("wire", dict) or ("mask", uint8 tensor)) of one
-    batch dequantized by one launch (one per MAX_LEAVES jobs)."""
-    max_leaves = cuda_build.entry("wire_dequant", "wire_dequant_max_leaves")()
-    fn = cuda_build.entry("wire_dequant", "wire_dequant")
-    outs, rows = [], []
+    batch dequantized by one launch (one per MAX_LEAVES jobs with work)
+    into views of one output buffer. The jobs' signature picks a plan,
+    checked when it was made; a call reads each leaf's shape, dtype,
+    device, layout and address, and nothing else."""
+    sig, ptrs = [], []
+    keep = []  # contiguous copies, alive until the launch
     for kind, x in jobs:
         if kind == "wire":
-            q, scale, lo, n, d, one_d = _wire_parts(x, bits)
-            parts = [t.contiguous() for t in (q, scale, lo)]
-            out = torch.empty((n,) if one_d else (n, d), dtype=torch.float32,
-                              device=q.device)
-            rows.append((parts, out, n, d, bits))
+            one_d = "q1" in x
+            q = x["q1"] if one_d else x["q"]
+            scale, lo = x["scale"], x["lo"]
+            sig.append((q.shape, q.dtype, q.get_device(), scale.shape,
+                        scale.dtype, scale.get_device(), lo.shape, lo.dtype,
+                        lo.get_device(), one_d))
+            if not (q.is_contiguous() and scale.is_contiguous()
+                    and lo.is_contiguous()):
+                q, scale, lo = q.contiguous(), scale.contiguous(), \
+                    lo.contiguous()
+                keep.append((q, scale, lo))
+            ptrs += (q.data_ptr(), scale.data_ptr(), lo.data_ptr())
         else:
-            q = x.contiguous()
-            out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-            n = int(q.shape[0]) if q.dim() else 1
-            rows.append(([q, None, None], out, n,
-                         int(q.numel() // max(n, 1)), 8))
-        outs.append(out)
-    index = outs[0].get_device()
-    for s in range(0, len(rows), max_leaves):
-        chunk = [r for r in rows[s:s + max_leaves] if r[2] * r[3] > 0]
-        if not chunk:
-            continue
-        k = len(chunk)
-        ptrs = [(ctypes.c_void_p * k)(*[
-            None if r[0][i] is None else r[0][i].data_ptr()
-            for r in chunk]) for i in range(3)]
-        err = cuda_build.launch(
-            index, fn, *ptrs,
-            (ctypes.c_void_p * k)(*[r[1].data_ptr() for r in chunk]),
-            (ctypes.c_int64 * k)(*[r[2] for r in chunk]),
-            (ctypes.c_int * k)(*[r[3] for r in chunk]),
-            (ctypes.c_int * k)(*[r[4] for r in chunk]), k)
-        cuda_build.check("wire_dequant", err)
-        cuda_build.count("wire_dequant")
+            sig.append((x.shape, x.dtype, x.get_device()))
+            if not x.is_contiguous():
+                x = x.contiguous()
+                keep.append(x)
+            ptrs += (x.data_ptr(), 0, 0)
+    key = (bits, tuple(sig))
+    plan = _DEQUANT_PLANS.get(key)
+    if plan is None:
+        devs = {s[2] for s in sig} | {s[5] for s in sig if len(s) > 3} \
+            | {s[8] for s in sig if len(s) > 3}
+        if len(devs) != 1:
+            raise ValueError(f"wire leaves on several devices: {devs}")
+        plan = _DequantPlan(jobs, bits, cuda_build.entry(
+            "wire_dequant", "wire_dequant_max_leaves")())
+        _DEQUANT_PLANS[key] = plan
+    first = jobs[0][1]
+    dev = (first["scale"] if jobs[0][0] == "wire" else first).device
+    buf = torch.empty(plan.size, dtype=torch.float32, device=dev)
+    parts = buf.split_with_sizes(plan.sizes)
+    outs = [parts[i] if shape is None else parts[i].view(shape)
+            for i, shape in zip(plan.pieces, plan.shapes)]
+    if plan.jobs:
+        table = plan.table.copy()
+        table[:, :3] = np.array(ptrs, np.int64).reshape(-1, 3)[plan.jobs]
+        table[:, 3] = buf.data_ptr() + plan.offsets
+        fn = cuda_build.entry("wire_dequant", "wire_dequant")
+        base = table.ctypes.data
+        for s, e in plan.chunks:
+            err = cuda_build.launch(
+                dev.index, fn, base + s * _DEQUANT_FIELDS * 8, e - s)
+            cuda_build.check("wire_dequant", err)
+            cuda_build.count("wire_dequant")
     return outs
 
 
@@ -273,25 +333,36 @@ def dequantize_wire_plain(tree: Any, bits: int) -> Any:
     return tree
 
 
+def _is_wire(node) -> bool:
+    return len(node) == 3 and "scale" in node and "lo" in node \
+        and ("q" in node or "q1" in node)
+
+
 def dequantize_wire(tree: Any, bits: int) -> Any:
     """The inverse walk, on the device: wire dicts dequantize, uint8
     leaves (the masks) become the f32 0/1 contract, other tensors pass
     through. On CUDA every leaf of the tree goes through one K10 launch
     (or raises); on the CPU the tree takes the plain version."""
     jobs: List[Tuple[str, Any]] = []
+    slots: List[Tuple[dict, Any]] = []  # where each job's output goes
 
-    def collect(node):
-        if isinstance(node, dict):
-            if set(node) in _WIRE_KEYS:
-                jobs.append(("wire", node))
-                return ("job", len(jobs) - 1)
-            return {k: collect(v) for k, v in node.items()}
-        if isinstance(node, torch.Tensor) and node.dtype == torch.uint8:
-            jobs.append(("mask", node))
-            return ("job", len(jobs) - 1)
-        return node
+    def walk(node: dict) -> dict:
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                if _is_wire(v):
+                    jobs.append(("wire", v))
+                    slots.append((out, k))
+                else:
+                    v = walk(v)
+            elif isinstance(v, torch.Tensor) and v.dtype == torch.uint8:
+                jobs.append(("mask", v))
+                slots.append((out, k))
+            out[k] = v
+        return out
 
-    shape = collect(tree)
+    root = {"": tree}
+    shape = walk(root)
     if not jobs:
         return tree
     first = jobs[0][1]["scale"] if jobs[0][0] == "wire" else jobs[0][1]
@@ -300,15 +371,9 @@ def dequantize_wire(tree: Any, bits: int) -> Any:
     if first.device.type != "cuda":
         raise ValueError(f"dequantize_wire: unsupported device "
                          f"{first.device}")
-    outs = _dequantize_cuda(jobs, bits)
-
-    def fill(node):
-        if isinstance(node, dict):
-            return {k: fill(v) for k, v in node.items()}
-        if isinstance(node, tuple) and len(node) == 2 and node[0] == "job":
-            return outs[node[1]]
-        return node
-    return fill(shape)
+    for (node, k), out in zip(slots, _dequantize_cuda(jobs, bits)):
+        node[k] = out
+    return shape[""]
 
 
 # -- batch helpers ---------------------------------------------------------- #
