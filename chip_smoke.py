@@ -10,7 +10,7 @@ naming what is missing (`{"phase": "preflight", "ok": false, "missing":
 any failure exits non-zero:
 
 1. the card's name and power limit (from nvidia-smi), then the build of
-   every CUDA kernel of the port (ten sources) from
+   every CUDA kernel of the port (eleven sources) from
    `transmogrifai_tpu_torch/csrc` with nvcc, all sources in parallel;
 2. K4 `bin_features` against its plain PyTorch version at n in
    {1, 64, 891, 65536} x 496 features with the Titanic model's 31 edges
@@ -265,7 +265,43 @@ any failure exits non-zero:
    leaves, unaligned views), each against its plain version with its
    launches counted and the same bits twice; K8-mc (k = 3 to 300) and
    K8-reg timed eagerly and as CUDA-graph replays, K10 at int8 and int4
-   with its eager wrapper's host time split by function (`wrapper_host`).
+   with its eager wrapper's host time split by function (`wrapper_host`);
+24. feature validation at full scope (`feature_validation_phase`): the
+   repo's Titanic rows split by a seeded permutation into 600 training
+   and 291 score rows; `Workflow.train` with `with_raw_feature_filter(
+   score_dataset=...)` (min scoring rows 100, min fill 0.25: cabin drops),
+   `with_workflow_cv()`, `auto_bucketize` on age, transmogrify,
+   `label.sanity_check(..., correlation_type="spearman")` and the default
+   LR family alone, on the card and on the CPU: the filter's drops, map
+   keys and metrics, the checker's kept columns and drop reasons, the
+   bucketizer's thresholds, the configs and the winner equal, the fold
+   AuPRs within 1e-4 relative (the L-BFGS card-to-CPU tolerance of
+   tests/test_torch_cuda.py); then the default selector (LR + RF + XGB)
+   under workflow CV on the card (its forests held at the metric level,
+   F3: holdout AuPR >= 0.70, AuROC >= 0.75), K1-K5 and K8 launched in its
+   train (counters set to 0 before the train, read just after it), then
+   saved, reloaded and served through `score_compiled` (the bucketizer and
+   the Spearman-checked vector; equal to the in-memory model), the
+   serving launches counted apart;
+25. the wide sanity check (`wide_sanity_phase`): K9-hits
+   (csrc/corr_hits.cu) against `corr_hits_plain` on the hostile blocks of
+   `K9_HITS_CASES` (none, all, truncated, first and ragged last blocks,
+   rows past d, cells exactly at the threshold, 40 identical columns past a
+   cap of 512: bit-equal, twice); then a seeded synthetic of 50,000 rows
+   x 16,384 columns (`wide_synthetic`: the width of 32 text columns at 512
+   hash buckets; 3.3 GB on the card) with planted duplicates and
+   anti-duplicates, a leak column, constant columns, 40 identical columns
+   and a group of 513 identical columns that passes the first block's cap
+   of 131,072 hits; `SanityChecker()` and `correlation_type="spearman"`
+   trained through `Workflow.train` on the card: every planted column
+   dropped for its reason, the truncation logged, K9-hits launched, the
+   kept indices equal to a fit that extracts with `corr_hits_plain` while
+   K9-hits' outputs are held to it bit for bit on every block; one Gram
+   block, K9-hits (beside its bound, its plain version and
+   `torch.nonzero` + gather), the rank transform, each fit's wall and
+   `torch.cuda.max_memory_allocated` over the train and over the fit
+   alone recorded. The `kernels` line adds
+   `corr_hits`.
 """
 
 import contextlib
@@ -4838,6 +4874,557 @@ def big_path(rows: int = BIG_ROWS, fixture: bool = True,
     return rec
 
 
+# --------------------------------------------------------------------------- #
+# K9-hits: hostile block products                                             #
+# --------------------------------------------------------------------------- #
+
+# 0.3 + 2^-54: an f64 split f32 cannot hold (nor 0.1)
+BUCKET_F64_SPLIT = 0.30000000000000004
+
+
+def bucket_hostile_values() -> list:
+    """Values for the numeric bucketizers: on and just beside f32(0.1) and
+    f32(BUCKET_F64_SPLIT), the f64 values themselves, ±0, ±inf, values
+    near the f32 extremes, subnormals and nulls (None)."""
+    f = np.float32
+    near = [np.nextafter(f(BUCKET_F64_SPLIT), f(-1)), f(BUCKET_F64_SPLIT),
+            np.nextafter(f(BUCKET_F64_SPLIT), f(1)),
+            np.nextafter(f(0.1), f(-1)), f(0.1), np.nextafter(f(0.1), f(1))]
+    vals = [float(v) for v in near] + [
+        BUCKET_F64_SPLIT, 0.3, 0.1, -1.0, -2.0, 2.5, 5.0, 0.0, 1.0, -0.0,
+        7.0, -7.0, 3.4e38, -3.4e38, np.inf, -np.inf, 1e-45, -1e-45]
+    return vals + [None, None]
+
+
+# (name, b, d, a, thr, cap, planted): one block product C (b, d) of the wide
+# sanity check, rows the columns a.. of the checker
+K9_HITS_CASES = (
+    ("none", 64, 300, 100, 0.99, 1024, "none"),
+    ("all", 64, 300, 100, -1.0, 1 << 15, "all"),
+    ("all_truncated", 64, 300, 100, -1.0, 1000, "all"),
+    ("first_block", 128, 1000, 0, 0.95, 2048, "sparse"),
+    ("ragged_last_block", 104, 1000, 896, 0.95, 2048, "sparse"),
+    ("rows_past_d", 16, 1000, 992, 0.95, 256, "sparse"),
+    ("at_threshold", 64, 300, 40, 0.95, 1024, "edge"),
+    ("dup40_truncated", 64, 200, 0, 0.99, 512, "dup40"),
+    ("one_row", 1, 33, 32, 0.5, 16, "sparse"),
+)
+
+
+def k9_hits_input(rng, b: int, d: int, a: int, thr: float,
+                  planted: str) -> np.ndarray:
+    """A hostile block product C (b, d) f32: values in (-0.9, 0.9) and
+    `planted` hits: "none"; "all" (thr < 0); "sparse" (a quarter of the
+    rows hold hits of either sign below the diagonal j < a + r, the
+    upper part too, which must not count, and NaN cells, which never
+    hit); "edge" (cells exactly ±thr in f32, which do not hit, and the
+    next f32 above, which do); "dup40" (rows and columns 10..49 one group
+    of 40 identical columns: 780 hits)."""
+    C = rng.uniform(-0.9, 0.9, size=(b, d)).astype(np.float32)
+    if planted in ("sparse", "edge"):
+        for r in rng.choice(b, size=max(1, b // 4), replace=False):
+            lim = min(d, a + int(r))
+            if lim > 0:
+                js = rng.choice(lim, size=min(lim, 3), replace=False)
+                sign = rng.choice([-1.0, 1.0], size=len(js))
+                if planted == "sparse":
+                    C[r, js] = sign * rng.uniform(0.96, 1.0, size=len(js))
+                else:
+                    t32 = np.float32(thr)
+                    C[r, js[:1]] = sign[:1] * t32
+                    C[r, js[1:]] = sign[1:] * np.nextafter(t32, np.float32(2))
+            if lim < d:
+                C[r, lim:] = np.float32(0.999)
+        if planted == "sparse":
+            C[rng.integers(0, b, 3), rng.integers(0, d, 3)] = np.nan
+    elif planted == "dup40":
+        g = np.arange(10, 50)
+        C[np.ix_(g - a, g)] = 1.0
+    return C
+
+
+def hits_oracle(C: np.ndarray, a: int, thr: float, cap: int):
+    """numpy's reading of K9-hits: (ri, ci, vals, total) as
+    `corr_hits_plain` defines them."""
+    b, d = C.shape
+    rows = a + np.arange(b)[:, None]
+    cols = np.arange(d)[None, :]
+    with np.errstate(invalid="ignore"):
+        mask = (np.abs(C) > np.float32(thr)) & (cols < rows) & (rows < d)
+    r, c = np.nonzero(mask)
+    k = min(cap, r.size)
+    ri = np.full(cap, -1, dtype=np.int64)
+    ci = np.full(cap, -1, dtype=np.int64)
+    ri[:k], ci[:k] = r[:k], c[:k]
+    return ri, ci, C[ri, ci], int(mask.sum())
+
+
+def k9_hits_hostile_check(sc, dev) -> dict:
+    """K9-hits on every `K9_HITS_CASES` block against `corr_hits_plain`
+    on the same C: ri, ci, vals and total bit-equal, and a second launch
+    bit-equal to the first; the kernel's launches counted."""
+    from transmogrifai_tpu_torch import cuda_build
+    rng = np.random.default_rng(9)
+    out = {}
+    for name, b, d, a, thr, cap, planted in K9_HITS_CASES:
+        C = torch.from_numpy(k9_hits_input(rng, b, d, a, thr, planted)).to(dev)
+        before = cuda_build.LAUNCHES["corr_hits"]
+        got = sc.corr_hits(C, a, thr, cap)
+        again = sc.corr_hits(C, a, thr, cap)
+        want = sc.corr_hits_plain(C, a, thr, cap)
+        torch.cuda.synchronize()
+        launched = cuda_build.LAUNCHES["corr_hits"] - before
+        for g, h, w, part in zip(got, again, want,
+                                 ("ri", "ci", "vals", "total")):
+            if not (bits_equal(g, w) and bits_equal(h, w)):
+                raise AssertionError(
+                    f"K9-hits disagrees with its plain version on {name} "
+                    f"in {part}")
+        if launched != 2:
+            raise AssertionError(f"K9-hits launched {launched} times on "
+                                 f"{name}, not 2")
+        out[name] = {"b": b, "d": d, "a": a, "cap": cap,
+                     "total": int(want[3]), "equal": True}
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# 24. feature validation at full scope                                        #
+# --------------------------------------------------------------------------- #
+
+FV_SEED = 24
+FV_TRAIN_ROWS = 600          # the rest of the 891 rows are the score set
+# the filter: a score set of 291 rows (default minimum 500), and a fill
+# floor that cabin (≈ 23 % filled) misses
+FV_FILTER = {"min_scoring_rows": 100, "min_fill": 0.25}
+FV_FOLD_RTOL = 1e-4          # test_lbfgs_fits_on_the_card_match_the_cpu
+FV_BANDS = (("AuPR", 0.70), ("AuROC", 0.75))
+
+
+def fv_datasets(port):
+    """The repo's Titanic rows split by a seeded permutation: (train,
+    score)."""
+    ds = port.Dataset.from_csv(TITANIC)
+    perm = np.random.default_rng(FV_SEED).permutation(len(ds))
+    return ds.take(perm[:FV_TRAIN_ROWS]), ds.take(perm[FV_TRAIN_ROWS:])
+
+
+def fv_train(port, train, score, models, device):
+    """The feature-validation pipeline trained by `Workflow.train`: the
+    raw features through the RawFeatureFilter (`FV_FILTER`, `score` as
+    the score set), `auto_bucketize` on age against the label, transmogrify,
+    the Spearman sanity check and a binary selector (`models`; None: the
+    default LR + RF + XGB), under workflow-level CV. Returns (model,
+    workflow, prediction feature, seconds)."""
+    preds, label = port.FeatureBuilder.from_dataset(train,
+                                                    response="survived")
+    age = next(f for f in preds if f.name == "age")
+    vec = port.transmogrify(preds + [age.auto_bucketize(label)])
+    checked = label.sanity_check(vec, correlation_type="spearman",
+                                 remove_bad_features=True)
+    pred = port.BinaryClassificationModelSelector.with_cross_validation(
+        models=models).set_input(label, checked).get_output()
+    wf = port.Workflow().set_result_features(pred, label) \
+        .set_input_dataset(train).with_raw_feature_filter(
+            score_dataset=score, **FV_FILTER).with_workflow_cv()
+    t0 = time.perf_counter()
+    model = wf.train(device=device)
+    sync(device)
+    return model, wf, pred, time.perf_counter() - t0
+
+
+def fv_outcome(model, wf, pred) -> dict:
+    """What the card's run is held to against the CPU's."""
+    from transmogrifai_tpu_torch.automl.sanity_checker import (
+        SanityCheckerModel)
+    res = model.rff_results
+    checker = next(m for m in model.fitted.values()
+                   if isinstance(m, SanityCheckerModel))
+    bucket = fitted_of(model, "DecisionTreeBucketizerModel")
+    summ = model.fitted[pred.origin_stage.uid].summary
+    return {
+        "blocklist": list(wf.blocklist),
+        "dropped_features": res.dropped_features,
+        "dropped_map_keys": res.dropped_map_keys,
+        "rff_metrics": [vars(m) for m in res.metrics],
+        "kept": checker.indices,
+        "drop_reasons": [s["dropped"] for s in checker.summary["stats"]],
+        "thresholds": bucket.thresholds,
+        "results": [{"model": r.model, "grid": r.grid}
+                    for r in summ.validation_results],
+        "fold_metrics": [r.fold_metrics for r in summ.validation_results],
+        "best_model": summ.best_model, "best_grid": summ.best_grid,
+        "holdout_metrics": summ.holdout_metrics}
+
+
+def fv_compare(card: dict, cpu: dict) -> dict:
+    """The card's outcome against the CPU's: everything equal but the
+    fold metrics (within FV_FOLD_RTOL relative) and the float metrics of
+    the filter (equal: host numpy)."""
+    diff = {k: card[k] == cpu[k] for k in (
+        "blocklist", "dropped_features", "dropped_map_keys", "rff_metrics",
+        "kept", "drop_reasons", "thresholds", "results", "best_model",
+        "best_grid")}
+    a, b = np.array(card["fold_metrics"]), np.array(cpu["fold_metrics"])
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+    diff["fold_metrics"] = rel <= FV_FOLD_RTOL
+    return {"equal": diff, "fold_max_rel_err": rel}
+
+
+def feature_validation_phase(port, pt) -> dict:
+    """Phase 24 (module docstring): the LR-only pipeline on the card and
+    on the CPU, compared; then the default selector under workflow CV on
+    the card, its kernels' launches counted around the train alone, then
+    saved, reloaded and scored through `score_compiled`, the serving
+    launches counted apart."""
+    import tempfile
+
+    from transmogrifai_tpu_torch.selector.model_selector import _lr_grid
+    train, score = fv_datasets(port)
+    lr = [(port.OpLogisticRegression(max_iter=50), _lr_grid())]
+    model, wf, pred, lr_s = fv_train(port, train, score, lr, "cuda")
+    got = fv_outcome(model, wf, pred)
+    rec = {"phase": "feature_validation", "train_rows": len(train),
+           "score_rows": len(score), "filter": FV_FILTER,
+           "blocklist": got["blocklist"],
+           "map_keys_dropped": got["dropped_map_keys"],
+           "kept_columns": len(got["kept"]),
+           "thresholds": got["thresholds"],
+           "lr_best_grid": got["best_grid"], "lr_train_s": lr_s}
+    if not got["dropped_features"]:
+        raise AssertionError("the filter dropped nothing (cabin expected)")
+    cpu_model, cpu_wf, cpu_pred, cpu_s = fv_train(
+        port, train, score, lr, "cpu")
+    cmp = fv_compare(got, fv_outcome(cpu_model, cpu_wf, cpu_pred))
+    rec.update({"cpu_train_s": cpu_s, "vs_cpu": cmp})
+    if not all(cmp["equal"].values()):
+        emit(rec)
+        raise AssertionError(f"phase 24 differs from the CPU run: "
+                             f"{cmp['equal']}")
+    pt.reset_launches()
+    model, wf, pred, default_s = fv_train(port, train, score, None, "cuda")
+    launches = {k: pt.LAUNCHES[k] for k in DEFAULT_KERNELS}
+    pt.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="port_fv_model_") as path:
+        model.save(path)
+        loaded = port.load_model(path, device="cuda")
+        scored = prediction_of(loaded.score_compiled(train))
+    sync("cuda")
+    serve_launches = {k: pt.LAUNCHES[k] for k in DEFAULT_KERNELS}
+    in_memory = prediction_of(model.score_compiled(train))
+    out = fv_outcome(model, wf, pred)
+    bands = {m: out["holdout_metrics"][m] >= lo for m, lo in FV_BANDS}
+    reload_equal = all(np.array_equal(scored[k], in_memory[k]) for k in (
+        "prediction", "rawPrediction", "probability"))
+    served = {type(s).__name__ for s in loaded.fitted.values()}
+    rec["default"] = {
+        "train_s": default_s, "best_model": out["best_model"],
+        "best_grid": out["best_grid"], "configs": len(out["results"]),
+        "holdout_metrics": out["holdout_metrics"], "bands": bands,
+        "fold_metrics_finite": bool(np.isfinite(out["fold_metrics"]).all()),
+        "launches_main_path": launches,
+        "launches_reload_and_serve": serve_launches,
+        "reload_scores_equal": reload_equal,
+        "serves": sorted(served & {"DecisionTreeBucketizerModel",
+                                   "SanityCheckerModel"})}
+    emit(rec)
+    if not (all(bands.values()) and reload_equal
+            and rec["default"]["fold_metrics_finite"]
+            and len(rec["default"]["serves"]) == 2
+            and all(v >= 1 for v in launches.values())):
+        raise AssertionError("phase 24: the default selector under workflow "
+                             "CV failed a check")
+    return rec
+
+
+# --------------------------------------------------------------------------- #
+# 25. the wide sanity check                                                   #
+# --------------------------------------------------------------------------- #
+
+# 32 text columns at transmogrify's default 512 hash buckets each
+WIDE_ROWS, WIDE_D, WIDE_SEED = 50_000, 16_384, 25
+WIDE_KERNELS = ("corr_hits",)
+
+
+def truncating_group(cap: int) -> int:
+    """The fewest identical columns whose pairs, G·(G − 1)/2, exceed a
+    block's cap: the block truncates within the group's last row, which
+    keeps its first hits, so every copy is still found."""
+    g = 2
+    while g * (g - 1) // 2 <= cap:
+        g += 1
+    return g
+
+
+def wide_synthetic(rows: int, d: int, block: int, seed: int, device):
+    """A seeded wide table (rows, d) f32 made on `device` and returned on
+    the host, its label and the planted columns. Half the columns are
+    indicators of rare hashed levels (rate 0.005 to 0.2), half standard
+    normals; the label is (x[d−2] + x[d−1] + noise > 0). Planted: in the
+    first block of the wide path (columns < block) one group of
+    `truncating_group(16·block)` identical columns at its end, so the
+    block's hits pass cap; after it one group of 40 identical columns,
+    twelve duplicates j = α·i + β (α < 0: anti-duplicates), one leak
+    column 3·y + 0.5, and four constant columns. Returns (X, y, planted:
+    {column: reason}), reasons "corr", "label corr" and "variance"."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    X = torch.empty((rows, d), dtype=torch.float32, device=device)
+    half = d // 2
+    rate = torch.rand(half, generator=g, device=device) * 0.195 + 0.005
+    for c0 in range(0, half, 1024):
+        c1 = min(half, c0 + 1024)
+        X[:, c0:c1] = (torch.rand((rows, c1 - c0), generator=g,
+                                  device=device) < rate[c0:c1]).float()
+    X[:, half:] = torch.randn((rows, d - half), generator=g, device=device)
+    noise = torch.randn(rows, generator=g, device=device)
+    y = ((X[:, d - 2] + X[:, d - 1] + noise) > 0).float()
+    planted = {}
+    G = truncating_group(16 * block)
+    if G >= block or block + 214 >= d - 2:
+        raise ValueError(f"wide_synthetic: d = {d} and block = {block} "
+                         "leave no room for the planted columns")
+    big = range(block - G, block)
+    X[:, big[1]:block] = X[:, big[0]:big[0] + 1]
+    planted.update({j: "corr" for j in big[1:]})
+    g40 = range(block + 10, block + 50)
+    X[:, g40[1]:g40[-1] + 1] = X[:, g40[0]:g40[0] + 1]
+    planted.update({j: "corr" for j in g40[1:]})
+    for k, (alpha, beta) in enumerate(((2.0, 1.0), (-3.0, 0.5), (0.5, -2.0),
+                                       (-1.0, 0.0)) * 3):
+        i = block + 100 + 7 * k
+        X[:, i + 3] = alpha * X[:, i] + beta
+        planted[i + 3] = "corr"
+    X[:, block + 200] = 3.0 * y + 0.5
+    planted[block + 200] = "label corr"
+    for t in range(4):
+        X[:, block + 210 + t] = 2.0 * (t % 2)
+        planted[block + 210 + t] = "variance"
+    return X.cpu().numpy(), y.double().cpu().numpy(), planted
+
+
+class WarningLog(logging.Handler):
+    """The warning records of a logger while installed."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.WARNING)
+        self.logger = logging.getLogger(name)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def planted_drops(summary: dict, planted: dict) -> dict:
+    """Each planted column's drop reasons, and the columns dropped that
+    were not planted; raises unless every planted column is dropped for
+    its reason."""
+    stats = summary["stats"]
+    wrong = {}
+    for j, reason in planted.items():
+        rs = stats[j]["dropped"]
+        if not any(r.startswith(reason) for r in rs):
+            wrong[j] = rs
+    dropped = set(summary["dropped"])
+    extra = sorted(dropped - set(planted))
+    if wrong or set(planted) - dropped:
+        raise AssertionError(
+            f"planted columns not dropped for their reason: "
+            f"{dict(list(wrong.items())[:5])} (of {len(wrong)})")
+    return {"planted": len(planted), "dropped": len(dropped),
+            "dropped_not_planted": extra[:20]}
+
+
+def wide_sanity_phase(port, device="cuda", rows: int = WIDE_ROWS,
+                      d: int = WIDE_D, seed: int = WIDE_SEED) -> dict:
+    """Phase 25: `SanityChecker()` (Pearson) and
+    `SanityChecker(correlation_type="spearman")` fitted through
+    `Workflow.train` on a seeded wide table (`wide_synthetic`), the
+    duplicate check past `_WIDE_D` columns on the blocked Gram with
+    K9-hits. Each type: every planted column dropped for its reason, the
+    first block's truncation logged, K9-hits launched on the main path
+    (counts read around the train alone); then the same fit again with
+    the plain extraction, K9-hits run beside it on every block's product
+    and held to it bit for bit: kept indices equal to the train's. Then,
+    on the card, CUDA-event timings of one Gram block, K9-hits on a real
+    block product (beside its bound, its plain version and
+    `torch.nonzero` + gather), the rank transform; the fit's wall and
+    `torch.cuda.max_memory_allocated` over the train and over the
+    checker's fit alone."""
+    from transmogrifai_tpu_torch import cuda_build
+    from transmogrifai_tpu_torch.automl import sanity_checker as sc
+    from transmogrifai_tpu_torch.stages.base import FitContext
+    import transmogrifai_tpu_torch.types as T
+    dev = torch.device(device)
+    block = sc.wide_block(d)
+    cap = 16 * block
+    t0 = time.perf_counter()
+    X, y, planted = wide_synthetic(rows, d, block, seed, dev)
+    xs = np.empty(rows, dtype=object)
+    for i in range(rows):
+        xs[i] = X[i]
+    ds = port.Dataset({"x": xs, "y": y}, {"x": T.OPVector, "y": T.RealNN})
+    made_s = time.perf_counter() - t0
+    rec = {"phase": "wide_sanity", "rows": rows, "d": d, "block": block,
+           "cap": cap, "truncating_group": truncating_group(cap),
+           "synthetic_s": made_s, "types": {}}
+    real_hits = sc.corr_hits
+    real_fit = sc.SanityChecker.fit_model
+    fit_peak = {}
+
+    def fit_measured(self, cols, ctx):
+        """The checker's fit, its own device peak recorded above what is
+        allocated when it starts (`fit_peak`), the train's peak before
+        it kept (`train_before`)."""
+        if dev.type != "cuda":
+            return real_fit(self, cols, ctx)
+        torch.cuda.synchronize(dev)
+        fit_peak["train_before"] = torch.cuda.max_memory_allocated(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = real_fit(self, cols, ctx)
+        torch.cuda.synchronize(dev)
+        fit_peak["fit"] = torch.cuda.max_memory_allocated(dev) - base
+        return out
+
+    for ctype in ("pearson", "spearman"):
+        label = port.FeatureBuilder.RealNN("y").from_column("y") \
+            .as_response()
+        x = port.FeatureBuilder.OPVector("x").from_column("x").as_predictor()
+        checked = label.sanity_check(x, correlation_type=ctype)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        fit_peak.clear()
+        with WarningLog(sc.__name__) as warned, swapped(
+                sc.SanityChecker, "fit_model", fit_measured):
+            model = port.Workflow().set_result_features(checked, label) \
+                .set_input_dataset(ds).train(device=device)
+        wall = time.perf_counter() - t0
+        launches = {k: cuda_build.LAUNCHES[k] for k in WIDE_KERNELS}
+        peak = (max(fit_peak["train_before"],
+                    torch.cuda.max_memory_allocated(dev))
+                if dev.type == "cuda" else None)
+        fit_s = next(s for name, s in model.stage_seconds
+                     if name == "SanityChecker")
+        fitted = next(m for m in model.fitted.values()
+                      if isinstance(m, sc.SanityCheckerModel))
+        summary = fitted.summary
+        drops = planted_drops(summary, planted)
+        truncated = [m for m in warned.messages if "truncated" in m]
+        if not truncated:
+            raise AssertionError(f"{ctype}: no block truncated at cap {cap}")
+        if dev.type == "cuda" and not all(v >= 1 for v in launches.values()):
+            raise AssertionError(f"{ctype}: a kernel never launched: "
+                                 f"{launches}")
+        cols = [model.train_columns[f.uid] for f in (label, x)]
+        ctx = FitContext(n_rows=rows, seed=0, device=dev)
+        blocks = []
+
+        def plain_held(C, a, thr, c):
+            """The plain extraction, K9-hits held to it on the same C."""
+            got = real_hits(C, a, thr, c)
+            want = sc.corr_hits_plain(C, a, thr, c)
+            if not all(bits_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(
+                    f"{ctype}: K9-hits differs from corr_hits_plain on the "
+                    f"block at column {a}")
+            blocks.append({"a": a, "total": int(want[3]), "equal": True})
+            return want
+
+        with swapped(sc, "corr_hits", plain_held):
+            plain_kept = sc.SanityChecker(correlation_type=ctype).fit_model(
+                cols, ctx).indices
+        if plain_kept != fitted.indices:
+            raise AssertionError(f"{ctype}: kept indices differ between the "
+                                 "kernel's and the plain extraction")
+        rec["types"][ctype] = {
+            "train_wall_s": wall, "fit_s": fit_s, "peak_bytes": peak,
+            "fit_peak_bytes": fit_peak.get("fit"), "x_bytes": X.nbytes,
+            "launches_main_path": launches, "kept": len(fitted.indices),
+            **drops, "truncation_warnings": truncated,
+            "blocks_held_to_plain": blocks, "kept_equal_to_plain": True}
+        del model, fitted, cols
+    if dev.type == "cuda":
+        rec["timing"] = wide_timings(sc, X, dev, block, cap)
+    emit(rec)
+    return rec
+
+
+def wide_timings(sc, X_np, dev, block, cap) -> dict:
+    """CUDA-event ms after warmup at the wide fit's shapes: one Gram block
+    U_bᵀ·U beside its operation bound 2·n·b·d at 67 TFLOP/s f32; K9-hits
+    on the first block's product beside its bytes bound (the lower
+    triangle read once, the outputs written once), its plain version and
+    `torch.nonzero` of the mask plus the gather; the rank transform of
+    the whole table."""
+    n, d = X_np.shape
+    X = torch.from_numpy(X_np).to(dev)
+    U = X - X.mean(0)
+    sd = torch.linalg.vector_norm(U, dim=0)
+    U.div_(torch.where(sd > 0, sd, 1.0)).masked_fill_(~(sd > 0), 0.0)
+    out = {}
+    gram_ms = cuda_ms(lambda: U[:, :block].T @ U, iters=3, warmup=1)
+    b_ms, b_by = bound(0.0, 2.0 * n * block * d)
+    out["gram_block"] = {"ms": gram_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "shape": [n, block, d]}
+    C = U[:, :block].T @ U
+    thr = sc.MAX_FEATURE_CORR
+    lower = sum(min(d, r) for r in range(block))  # cells j < a + r, a = 0
+    got = sc.corr_hits(C, 0, thr, cap)
+    want = sc.corr_hits_plain(C, 0, thr, cap)
+    total = int(want[3])
+    if not all(bits_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("K9-hits differs from corr_hits_plain on the "
+                             "timed block")
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    hit_ms = cuda_ms(lambda: sc.corr_hits(C, 0, thr, cap), iters=20)
+    plain_ms = cuda_ms(lambda: sc.corr_hits_plain(C, 0, thr, cap), iters=3,
+                       warmup=1)
+    rows = torch.arange(block, device=dev)[:, None]
+    cols = torch.arange(d, device=dev)[None, :]
+    mask = (C.abs() > thr) & (cols < rows)
+
+    def library():
+        nz = torch.nonzero(mask)
+        return C[nz[:, 0], nz[:, 1]]
+
+    lib_ms = cuda_ms(library, iters=10)
+    h_ms, h_by = bound(4.0 * lower + 20.0 * cap + 8, 0.0)
+    out["corr_hits"] = {"ms": hit_ms, "bound_ms": h_ms, "bound_by": h_by,
+                        "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "shape": [block, d], "hits": total,
+                        "max_abs_err": err}
+    del C, mask, U
+    torch.cuda.empty_cache()
+    out["rank_transform"] = {"ms": cuda_ms(lambda: sc._rank_transform(X),
+                                           iters=1, warmup=1),
+                             "shape": [n, d]}
+    del X
+    torch.cuda.empty_cache()
+    return out
+
+
 def missing_parts() -> list:
     """What this run lacks before it can start: a CUDA device, and the
     port's package beside this script (a copy of `chip_smoke.py` alone in
@@ -5092,6 +5679,18 @@ def main() -> int:
                                      "bound_ms", "bound_by",
                                      "library_ms")}}
 
+    # 24, 25. feature validation at full scope; the wide sanity check ---- #
+    t0 = time.perf_counter()
+    feature_validation_phase(port, pt)
+    fv_s = time.perf_counter() - t0
+    from transmogrifai_tpu_torch.automl import sanity_checker as sc
+    hostile = k9_hits_hostile_check(sc, dev)
+    wide = wide_sanity_phase(port)
+    emit({"phase": "k9_hits_hostile", "cases": hostile,
+          "walls_s": {"feature_validation": fv_s,
+                      "wide_sanity": time.perf_counter() - t0 - fv_s}})
+    wk = wide["timing"]["corr_hits"]
+
     # 10. the kernels line, the card, the result --------------------------- #
     main_n = timing[891]
     aupr = fit_timing[f"n{FIT_N}_aupr512"]["binned_aupr"]
@@ -5202,6 +5801,13 @@ def main() -> int:
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")}}
           for entry, replaces in DEQUANT_ENTRIES for bits in (8, 4)],
+        {"name": "corr_hits", "route": "cuda",
+         "source": "transmogrifai_tpu_torch/csrc/corr_hits.cu",
+         "replaces": "transmogrifai_tpu/automl/sanity_checker.py:173",
+         "launches": sum(t["launches_main_path"]["corr_hits"]
+                         for t in wide["types"].values()),
+         **{k: wk[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1912,3 +1912,174 @@ def test_leaf_designs_agree_at_the_main_path_shapes(cuda, P, n, L):
             got = pt._leaf_values_cuda(node.to(cuda), G.to(cuda), H.to(cuda),
                                        L, lam, alpha, regime)
             assert torch.equal(got.cpu(), want), regime
+
+
+# --------------------------------------------------------------------------- #
+# K9-hits, the rank transform and the bucketizers                            #
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("index", range(len(cs.K9_HITS_CASES)),
+                         ids=[c[0] for c in cs.K9_HITS_CASES])
+def test_corr_hits_kernel_on_hostile_blocks(cuda, index):
+    """K9-hits against `corr_hits_plain` on the same block product: ri,
+    ci, vals and total bit-equal (the 40 identical columns past a cap of
+    512 among them), the same bits twice, one launch a call. Each case's
+    block is drawn from a seed of its own, its index."""
+    from transmogrifai_tpu_torch import cuda_build
+    from transmogrifai_tpu_torch.automl import sanity_checker as sc
+    name, b, d, a, thr, cap, planted = cs.K9_HITS_CASES[index]
+    rng = np.random.default_rng(index)
+    C = torch.from_numpy(cs.k9_hits_input(rng, b, d, a, thr, planted))
+    want = sc.corr_hits_plain(C, a, thr, cap)
+    before = cuda_build.LAUNCHES["corr_hits"]
+    got = sc.corr_hits(C.to(cuda), a, thr, cap)
+    again = sc.corr_hits(C.to(cuda), a, thr, cap)
+    assert cuda_build.LAUNCHES["corr_hits"] - before == 2
+    for g, h, w in zip(got, again, want):
+        assert cs.bits_equal(g.cpu(), w) and cs.bits_equal(h.cpu(), w)
+
+
+def test_corr_hits_kernel_on_gram_blocks(cuda):
+    """Every block of a real wide-path Gram (2,000 × 3,000 in blocks of
+    1,024, planted duplicates and a group past the cap): bit-equal to the
+    plain version on the same product, and the fit's pairs equal."""
+    from transmogrifai_tpu_torch.automl import sanity_checker as sc
+    rng = np.random.default_rng(12)
+    X = rng.normal(size=(2000, 3000)).astype(np.float32)
+    X[:, 900:1000] = X[:, 899:900]  # 101 copies: 5050 pairs, cap 4096
+    X[:, 2500] = -2.0 * X[:, 17] + 1.0
+    y = (X[:, 0] > 0).astype(np.float32)
+    Xc = torch.from_numpy(X).to(cuda)
+    blocks = []
+    real = sc.corr_hits
+
+    def held(C, a, thr, cap):
+        got = real(C, a, thr, cap)
+        want = sc.corr_hits_plain(C, a, thr, cap)
+        assert all(cs.bits_equal(g, w) for g, w in zip(got, want)), a
+        blocks.append(int(want[3]))
+        return got
+
+    sc.corr_hits = held
+    try:
+        corr, pairs = sc._corr_label_and_hits_blocked(
+            Xc, torch.from_numpy(y).to(cuda), 0.99, block=256)
+    finally:
+        sc.corr_hits = real
+    assert len(blocks) == 12 and max(blocks) > 16 * 256
+    want_corr, want_pairs = sc._corr_label_and_hits_blocked(
+        torch.from_numpy(X), torch.from_numpy(y), 0.99, block=256)
+    assert {i: [j for j, _ in p] for i, p in pairs.items()} == \
+        {i: [j for j, _ in p] for i, p in want_pairs.items()}
+    np.testing.assert_allclose(corr, want_corr, atol=1e-5)
+
+
+@pytest.mark.parametrize("ctype", ["pearson", "spearman"])
+def test_wide_fit_on_the_card_matches_the_cpu(cuda, ctype, monkeypatch):
+    """The checker's wide path (`_WIDE_D` 16) and its dense path on the
+    card: kept indices and drop reasons equal to the CPU's, label
+    correlations within 1e-5."""
+    import transmogrifai_tpu_torch.types as T
+    from transmogrifai_tpu_torch.automl import sanity_checker as sc
+    from transmogrifai_tpu_torch.data.columns import Column
+    from transmogrifai_tpu_torch.stages.base import FitContext
+    rng = np.random.default_rng(6)
+    n, d = 400, 24
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X[:, 13] = X[:, 4]
+    X[:, 5] = np.round(X[:, 5])
+    X[:, 19] = 1.5
+    y = (X[:, 0] + rng.normal(0, 0.5, n) > 0).astype(np.float64)
+    cols = [Column(T.RealNN, {"value": y, "mask": np.ones(n, bool)}),
+            Column(T.OPVector, X)]
+    for wide in (False, True):
+        if wide:
+            monkeypatch.setattr(sc, "_WIDE_D", 16)
+        fits = [sc.SanityChecker(correlation_type=ctype).fit_model(
+            cols, FitContext(n_rows=n, seed=0, device=dev))
+            for dev in ("cpu", cuda)]
+        assert fits[0].indices == fits[1].indices and 13 not in fits[1].indices
+        s0, s1 = (f.summary["stats"] for f in fits)
+        assert [s["dropped"] for s in s0] == [s["dropped"] for s in s1]
+        np.testing.assert_allclose([s["corrLabel"] for s in s1],
+                                   [s["corrLabel"] for s in s0], atol=1e-5)
+
+
+@pytest.mark.parametrize("ctype", ["pearson", "spearman"])
+def test_wide_fit_peak_memory_on_the_card(cuda, ctype, monkeypatch):
+    """The wide fit's device memory at 50,000 × 4,096 (`_WIDE_D` 1,024,
+    blocks of 1,024 columns): Pearson builds U in X's storage, so its
+    peak stays near X plus one block product; Spearman holds the ranks
+    beside X and no third (n, d) tensor. The allowance covers a column
+    chunk's temporaries (2 MB chunks here) and cuBLAS's workspace."""
+    import transmogrifai_tpu_torch.types as T
+    from transmogrifai_tpu_torch.automl import sanity_checker as sc
+    from transmogrifai_tpu_torch.data.columns import Column
+    from transmogrifai_tpu_torch.stages.base import FitContext
+    monkeypatch.setattr(sc, "_WIDE_D", 1024)
+    monkeypatch.setattr(sc, "_BLOCK_ENTRIES", 1 << 22)
+    monkeypatch.setattr(sc, "_CHUNK_ENTRIES", 1 << 19)
+    rng = np.random.default_rng(4)
+    n, d = 50_000, 4096
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X[:, 3000] = X[:, 7]
+    y = (X[:, 0] > 0).astype(np.float64)
+    cols = [Column(T.RealNN, {"value": y, "mask": np.ones(n, bool)}),
+            Column(T.OPVector, X)]
+    x_bytes, c_bytes = X.nbytes, 4 * sc.wide_block(d) * d
+    torch.cuda.synchronize(cuda)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    fit = sc.SanityChecker(correlation_type=ctype).fit_model(
+        cols, FitContext(n_rows=n, seed=0, device=cuda))
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    assert 3000 not in fit.indices
+    copies = 1 if ctype == "pearson" else 2
+    assert peak <= copies * x_bytes + c_bytes + (128 << 20), (peak, x_bytes)
+
+
+def test_rank_transform_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """Average-tie ranks of ties, one-hot columns, NaN and ±0, whole and
+    in column chunks: the card's bits equal the CPU's."""
+    from transmogrifai_tpu_torch.automl import sanity_checker as sc
+    rng = np.random.default_rng(1)
+    A = rng.integers(0, 5, size=(3000, 40)).astype(np.float32)
+    A[rng.integers(0, 3000, 50), rng.integers(0, 40, 50)] = np.nan
+    A[:, 10] = 0.0
+    A[::2, 11] = -0.0
+    A[:, 12:30] = rng.normal(size=(3000, 18)).astype(np.float32)
+    want = sc._rank_transform(torch.from_numpy(A))
+    assert cs.bits_equal(sc._rank_transform(torch.from_numpy(A).to(cuda))
+                         .cpu(), want)
+    monkeypatch.setattr(sc, "_CHUNK_ENTRIES", 3 * 3000)
+    assert cs.bits_equal(sc._rank_transform(torch.from_numpy(A).to(cuda))
+                         .cpu(), want)
+    y = rng.integers(0, 3, size=(3000, 1)).astype(np.float64)
+    assert cs.bits_equal(sc._rank_transform(torch.from_numpy(y).to(cuda))
+                         .cpu(), sc._rank_transform(torch.from_numpy(y)))
+
+
+@pytest.mark.parametrize("splits", [
+    [-np.inf, -1.0, 0.1, cs.BUCKET_F64_SPLIT, 5.0, np.inf],
+    [-2.0, 0.1, cs.BUCKET_F64_SPLIT, 2.5], [-3.4e38, 0.0, 3.4e38]])
+def test_bucketizer_device_apply_on_the_card_equals_the_cpu(cuda, splits):
+    """`NumericBucketizerModel` (with the out-of-bounds and null columns)
+    and `DecisionTreeBucketizerModel` on the hostile values: equal."""
+    import transmogrifai_tpu_torch.types as T
+    from transmogrifai_tpu_torch.data.columns import Column
+    from transmogrifai_tpu_torch.ops.bucketizers import (
+        DecisionTreeBucketizerModel, NumericBucketizerModel)
+    vals = cs.bucket_hostile_values()
+    x = Column.from_values(T.Real, vals)
+    lab = Column.from_values(T.RealNN, [0.0] * len(vals))
+    for stage, cols in ((NumericBucketizerModel(splits, track_invalid=True),
+                         [x]),
+                        (DecisionTreeBucketizerModel(
+                            [s for s in splits[1:-1]]), [lab, x])):
+        dev = [c.device_value(cuda) for c in cols]
+        host = [c.device_value("cpu") for c in cols]
+        got = stage.device_apply_with(stage.device_constants(cuda), None, dev)
+        want = stage.device_apply_with(stage.device_constants("cpu"), None,
+                                       host)
+        assert torch.equal(got.cpu(), want)

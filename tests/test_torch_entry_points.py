@@ -17,6 +17,7 @@ import pytest
 
 from transmogrifai_tpu_torch import cuda_build
 # the modules that register the wrappers' entry points
+from transmogrifai_tpu_torch.automl import sanity_checker  # noqa: F401
 from transmogrifai_tpu_torch.evaluators import device_metrics  # noqa: F401
 from transmogrifai_tpu_torch.models import trees  # noqa: F401
 from transmogrifai_tpu_torch.parallel import bigdata  # noqa: F401

@@ -7,15 +7,19 @@ checker and the default LR + RF + XGB binary sweep — and the Iris
 with their default selectors, and the selectors' other families (L-BFGS
 logistic regression, linear SVC, GLM, naive Bayes, MLP, decision trees,
 multiclass XGBoost), and serves the models that it or the JAX package
-(`transmogrifai_tpu`) trained, on an NVIDIA GPU (Hopper). Out of core
+(`transmogrifai_tpu`) trained, on an NVIDIA GPU (Hopper). Feature
+validation runs at the reference's full scope: the RawFeatureFilter,
+workflow-level CV, Pearson or Spearman sanity checks at any width, and
+the numeric bucketizers. Out of core
 (`parallel/bigdata.py`) it streams a memmapped columnar store into
 resident bf16 and int8 matrices and fits the elastic-net grid, lockstep
 forests and boosting at millions of rows. The tree learner's histograms,
 sibling subtraction, split search, routing and leaf sums, the binned
 AuPR, the sweep's confusion counts and regression sums, the binning, the
 ensemble walk, the class-tree walk of softmax boosting, the quantized
-wire's dequantization and the out-of-core row writes are kernels written
-by hand in CUDA C++ (`csrc/`). It imports torch and numpy and nothing of
+wire's dequantization, the out-of-core row writes and the wide sanity
+check's extraction of correlated pairs are kernels written by hand in
+CUDA C++ (`csrc/`). It imports torch and numpy and nothing of
 the JAX package.
 
     from transmogrifai_tpu_torch import (

@@ -1,29 +1,33 @@
 """SanityChecker: automated feature validation before model selection.
 
 The port's counterpart of the JAX package's `automl/sanity_checker.py`.
-The fit computes column moments and the full correlation matrix of
-[X | y] on the fit's device (K9: column reductions and one Gram matmul,
-plain torch), the categorical contingency statistics on the host, and
-drops columns by the reference's rules: variance below `min_variance`;
-|corr(feature, label)| above `max_correlation` or below
+The fit computes column moments and the correlations of [X | y] on the
+fit's device (K9: column reductions and Gram matmuls, plain torch; past
+`_WIDE_D` columns the Gram runs block by block and the pairs above
+`max_feature_corr` come out of each block through the hand kernel
+K9-hits, `csrc/corr_hits.cu`), the categorical contingency statistics on
+the host, and drops columns by the reference's rules: variance below
+`min_variance`; |corr(feature, label)| above `max_correlation` or below
 `min_correlation`; |corr| with an earlier kept column above
 `max_feature_corr` (the later column drops); a categorical group's
 Cramér's V above `max_cramers_v`; rule confidence above
-`max_rule_confidence` at support above `min_required_rule_support`. The
-fitted model is a static column gather of the kept indices.
-
-Not ported yet (ROADMAP.md): Spearman correlation and the blocked Gram
-pass for more than 8192 columns.
+`max_rule_confidence` at support above `min_required_rule_support`.
+Spearman correlation is Pearson's over average-tie ranks, computed on
+the fit's device (`_rank_transform`). The fitted model is a static column
+gather of the kept indices.
 """
 
 from __future__ import annotations
 
+import ctypes
+import logging
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from transmogrifai_tpu_torch import cuda_build
 from transmogrifai_tpu_torch import types as T
 from transmogrifai_tpu_torch.data.columns import Column
 from transmogrifai_tpu_torch.data.metadata import VectorMetadata
@@ -41,7 +45,15 @@ MIN_VARIANCE = 1e-5
 MAX_CRAMERS_V = 0.95
 MAX_RULE_CONFIDENCE = 1.0
 MIN_REQUIRED_RULE_SUPPORT = 1.0
+# feature count beyond which the (d, d) correlation matrix never exists
 _WIDE_D = 8192
+# entries of one block product of the wide path (512 MB in f32)
+_BLOCK_ENTRIES = 1 << 27
+# elements of one column chunk of X (the rank transform's sort, the
+# sums of squares), so no second (n, d) temporary exists beside X
+_CHUNK_ENTRIES = 1 << 25
+
+log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -113,14 +125,32 @@ class SanityCheckerSummary:
 # K9: column reductions and the Gram correlation (plain torch)                #
 # --------------------------------------------------------------------------- #
 
-def _column_reductions(X: torch.Tensor) -> Dict[str, np.ndarray]:
-    """Per-column f32 sums, sums of squares, min and max."""
-    n = X.shape[0]
-    out = {"sx": X.sum(0), "sxx": (X * X).sum(0)}
-    if n:
-        out["min"], out["max"] = X.min(0).values, X.max(0).values
-    else:
-        out["min"] = out["max"] = torch.zeros(X.shape[1], device=X.device)
+def _column_chunks(X: torch.Tensor):
+    """(first column, view) of X (n, d) in column chunks of about
+    `_CHUNK_ENTRIES` elements: a chunk's temporaries, and the staging
+    buffers of the card's reductions over rows, stay a fraction of X."""
+    n, d = X.shape
+    width = max(1, _CHUNK_ENTRIES // max(n, 1))
+    for c0 in range(0, d, width):
+        yield c0, X[:, c0:c0 + width]
+
+
+def _column_reductions(X: torch.Tensor, y: Optional[torch.Tensor] = None
+                       ) -> Dict[str, np.ndarray]:
+    """Per-column f32 sums, sums of squares, min and max, in column
+    chunks; with the label y also its sum, sum of squares and X^T y."""
+    n, d = X.shape
+    out = {k: torch.zeros(d, dtype=X.dtype, device=X.device)
+           for k in ("sx", "sxx", "min", "max")}
+    for c0, Xc in _column_chunks(X):
+        c1 = c0 + Xc.shape[1]
+        out["sx"][c0:c1] = Xc.sum(0)
+        out["sxx"][c0:c1] = (Xc * Xc).sum(0)
+        if n:
+            out["min"][c0:c1] = Xc.amin(0)
+            out["max"][c0:c1] = Xc.amax(0)
+    if y is not None:
+        out.update({"sy": y.sum(), "syy": (y * y).sum(), "sxy": X.T @ y})
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
@@ -135,6 +165,161 @@ def _corr_matrix(Z: torch.Tensor) -> np.ndarray:
     with np.errstate(divide="ignore", invalid="ignore"):
         corr = np.where(denom > 0, cov / denom, 0.0)
     return corr
+
+
+def _rank_transform(A: torch.Tensor) -> torch.Tensor:
+    """Average-tie ranks per column of A (n, k), f32 on A's device, as
+    pandas' `rank(method="average")` gives them (the JAX package's
+    `_rank_transform`): a tie group at sorted positions i..j takes
+    (i + j)/2 + 1; NaN stays NaN and is left out of the ranking. Exact in
+    f32 up to 2^23 rows. Columns go in chunks of about `_CHUNK_ENTRIES`
+    elements, so the sort's int64 indices stay a fraction of A."""
+    n, k = A.shape
+    out = torch.empty((n, k), dtype=torch.float32, device=A.device)
+    if n == 0 or k == 0:
+        return out
+    pos = torch.arange(n, device=A.device)[:, None]
+    for c0, Ac in _column_chunks(A):
+        vals, order = torch.sort(Ac, dim=0, stable=True)
+        starts = torch.ones(vals.shape, dtype=torch.bool, device=A.device)
+        starts[1:] = vals[1:] != vals[:-1]
+        ends = torch.ones_like(starts)
+        ends[:-1] = starts[1:]
+        first = torch.where(starts, pos, 0).cummax(0).values
+        last = torch.where(ends, pos, n).flip(0).cummin(0).values.flip(0)
+        ranks = (first + last + 2).to(torch.float32) * 0.5
+        ranks.masked_fill_(torch.isnan(vals), float("nan"))
+        out[:, c0:c0 + Ac.shape[1]].scatter_(0, order, ranks)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# K9-hits: a block's feature pairs above the threshold (hand CUDA kernel)     #
+# --------------------------------------------------------------------------- #
+
+def corr_hits_plain(C: torch.Tensor, a: int, thr: float, cap: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """The hits |C[r, j]| > thr with j < a + r and a + r < d of one block
+    product C (b, d) f32, rows the columns a.. of the checker: the first
+    `cap` of them in row-major order as (ri, ci) int64 (-1 past the last
+    hit) and vals = C[ri, ci] (index -1 reading C[b - 1, d - 1], as in
+    the JAX package), and the count of every hit (int64, 0-dim)."""
+    b, d = C.shape
+    rows = a + torch.arange(b, device=C.device)[:, None]
+    cols = torch.arange(d, device=C.device)[None, :]
+    mask = (C.abs() > thr) & (cols < rows) & (rows < d)
+    total = mask.sum()
+    nz = mask.nonzero()
+    k = min(cap, nz.shape[0])
+    ri = torch.full((cap,), -1, dtype=torch.int64, device=C.device)
+    ci = torch.full((cap,), -1, dtype=torch.int64, device=C.device)
+    ri[:k] = nz[:k, 0]
+    ci[:k] = nz[:k, 1]
+    return ri, ci, C[ri, ci], total
+
+
+cuda_build.register(
+    "corr_hits", "corr_hits",
+    (ctypes.c_void_p,) + (ctypes.c_int64,) * 3
+    + (ctypes.c_float, ctypes.c_int64) + (ctypes.c_void_p,) * 6)
+
+
+def _corr_hits_cuda(C, a, thr, cap):
+    if C.dtype != torch.float32 or C.dim() != 2:
+        raise ValueError(
+            f"corr_hits: C must be a 2-d f32 tensor, got {C.dtype} "
+            f"{tuple(C.shape)}")
+    b, d = C.shape
+    if cap < 0 or a < 0 or b == 0 or d == 0:
+        raise ValueError(f"corr_hits: a = {a}, cap = {cap} must be >= 0 "
+                         f"and C {tuple(C.shape)} non-empty")
+    dev = C.device
+    ri = torch.empty(cap, dtype=torch.int64, device=dev)
+    ci = torch.empty(cap, dtype=torch.int64, device=dev)
+    vals = torch.empty(cap, dtype=torch.float32, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    C = C.contiguous()
+    scratch = torch.empty(b, dtype=torch.int64, device=dev)
+    err = cuda_build.launch(
+        C.get_device(), cuda_build.entry("corr_hits", "corr_hits"),
+        C.data_ptr(), b, d, a, thr, cap, scratch.data_ptr(), ri.data_ptr(),
+        ci.data_ptr(), vals.data_ptr(), total.data_ptr())
+    cuda_build.check("corr_hits", err)
+    cuda_build.count("corr_hits")
+    return ri, ci, vals, total
+
+
+def corr_hits(C: torch.Tensor, a: int, thr: float, cap: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+    """`corr_hits_plain`'s outputs for one block product C (b, d): a CUDA
+    tensor launches the K9-hits kernel (or raises), bit-equal to the plain
+    version; a CPU tensor takes the plain version."""
+    if C.is_cuda:
+        return _corr_hits_cuda(C, a, thr, cap)
+    if C.device.type != "cpu":
+        raise ValueError(f"corr_hits: unsupported device {C.device}")
+    return corr_hits_plain(C, a, thr, cap)
+
+
+def wide_block(d: int) -> int:
+    """Columns a block of the wide path: max(128, min(d, 2^27 // d)), so
+    a block product holds at most `_BLOCK_ENTRIES` entries."""
+    return max(128, min(d, _BLOCK_ENTRIES // max(d, 1)))
+
+
+def _corr_label_and_hits_blocked(
+        Cx: torch.Tensor, cy: torch.Tensor, thr: float,
+        block: Optional[int] = None, inplace: bool = False
+        ) -> Tuple[np.ndarray, Dict[int, List[Tuple[int, float]]]]:
+    """The wide path (d > `_WIDE_D`): the label correlations and the
+    sparse set of feature pairs with |corr| > thr, from the Gram product
+    block by block, so the (d, d) matrix never exists. U = (Cx − mean) /
+    ‖Cx − mean‖ per column (the sum-of-squares norm; 0 where it is 0),
+    corr_y = Uᵀ·uy; per block of columns a..a + b, C = U_bᵀ·U (f32
+    `torch.matmul`, TF32 off) and `corr_hits` takes the first
+    cap = 16·block hits of j < i in row-major order, as the JAX package's
+    `jnp.nonzero(size=cap)` does; a block with more logs the JAX
+    package's truncation warning. `block` defaults to `wide_block(d)`.
+    With `inplace` U is built in Cx's storage (the caller's working
+    copy), else in one new (n, d) tensor.
+
+    Returns (corr_y (d,) f64, {i: [(j, corr_ij), ...] sorted, j < i})."""
+    n, d = Cx.shape
+    U = Cx if inplace else Cx.clone()
+    for _, Uc in _column_chunks(U):
+        Uc.sub_(Uc.mean(0))
+        sd = torch.linalg.vector_norm(Uc, dim=0)
+        live = sd > 0
+        Uc.div_(torch.where(live, sd, 1.0)).masked_fill_(~live, 0.0)
+    yc = cy - cy.mean()
+    ysd = torch.sqrt(torch.clamp_min((yc * yc).sum(), 0.0))
+    uy = torch.where(ysd > 0, yc / torch.where(ysd > 0, ysd, 1.0), 0.0)
+    corr_y = (U.T @ uy).double().cpu().numpy()
+
+    if block is None:
+        block = wide_block(d)
+    cap = 16 * block  # duplicates are sparse; truncation is logged
+    pairs: Dict[int, List[Tuple[int, float]]] = {}
+    for a in range(0, d, block):
+        C = U[:, a:a + block].T @ U
+        ri, ci, vals, total = (t.cpu().numpy()
+                               for t in corr_hits(C, a, thr, cap))
+        del C
+        k = int((ri >= 0).sum())
+        if int(total) > cap:
+            log.warning(
+                "feature-feature corr: %d hits in block %d..%d truncated "
+                "to %d — raise max_feature_corr or lower the hash width",
+                int(total), a, min(a + block, d), cap)
+        for t in range(k):
+            i, j = int(ri[t]) + a, int(ci[t])
+            if i < d:
+                pairs.setdefault(i, []).append((j, float(vals[t])))
+    for i in pairs:
+        pairs[i].sort()
+    return corr_y, pairs
 
 
 # --------------------------------------------------------------------------- #
@@ -310,10 +495,6 @@ class SanityChecker(Estimator):
 
     def fit_model(self, cols: Sequence[Column],
                   ctx: FitContext) -> Transformer:
-        if self.correlation_type == "spearman":
-            raise NotImplementedError(
-                "SanityChecker: Spearman correlation is not ported yet "
-                "(ROADMAP.md, queue 1: feature validation at full scope)")
         label_col, vec_col = cols
         y_np = np.asarray(label_col.data["value"], dtype=np.float64)
         X_np = np.array(vec_col.data, dtype=np.float32)
@@ -323,34 +504,55 @@ class SanityChecker(Estimator):
             X_np = X_np[sample_idx]
             y_np = y_np[sample_idx]
         n, d = X_np.shape
-        need_ff = self.max_feature_corr < 1.0
-        if need_ff and d > _WIDE_D:
-            raise NotImplementedError(
-                f"SanityChecker: {d} columns need the blocked Gram pass "
-                f"(> {_WIDE_D}), which is not ported yet (ROADMAP.md, "
-                "queue 2: K9)")
         X = torch.as_tensor(X_np, device=ctx.device)
-        cy = torch.as_tensor(y_np.astype(np.float32), device=ctx.device)
-        red = _column_reductions(X)
+        # Spearman = Pearson over average-tie ranks: `Cx`/`cy` are the
+        # correlation inputs; the stats report the raw-X moments either way
+        spearman = self.correlation_type == "spearman"
+        if spearman:
+            Cx = _rank_transform(X)
+            cy = _rank_transform(torch.as_tensor(
+                y_np[:, None], device=ctx.device))[:, 0]
+        else:
+            Cx = X
+            cy = torch.as_tensor(y_np.astype(np.float32), device=ctx.device)
+        need_ff = self.max_feature_corr < 1.0
+        if need_ff:  # corr comes from the Gram pass; only raw moments here
+            red = _column_reductions(X)
+        else:        # the label terms ride the same reduction pass
+            redc = _column_reductions(Cx, cy)
+            red = _column_reductions(X) if spearman else redc
         mean = red["sx"] / max(n, 1)
         var = (red["sxx"] - n * mean ** 2) / max(n - 1, 1)
         var = np.maximum(var, 0.0)
-        if need_ff:
-            corr_all = _corr_matrix(torch.cat([X, cy[:, None]], 1))
+        hit_pairs: Dict[int, List[Tuple[int, float]]] = {}
+        if need_ff and d > _WIDE_D:
+            # wide X: the blocked Gram, label corr + sparse duplicate
+            # pairs, no (d, d) matrix. The raw moments are taken, so U
+            # takes Cx's storage: the ranks', or X's on the card (on the
+            # CPU X shares X_np, which the contingency statistics read)
+            del X
+            corr, hit_pairs = _corr_label_and_hits_blocked(
+                Cx, cy, self.max_feature_corr,
+                inplace=spearman or Cx.is_cuda)
+            feat_corr = None
+        elif need_ff:
+            corr_all = _corr_matrix(torch.cat([Cx, cy[:, None]], 1))
             corr = corr_all[:d, d]
             feat_corr = corr_all[:d, :d]
         else:
             # duplicates check off: the label terms of one reduction pass
-            sxy = (X.T @ cy).cpu().numpy()
-            sy = float(cy.sum())
-            syy = float((cy * cy).sum())
-            y_mean = sy / max(n, 1)
-            y_var = max((syy - n * y_mean ** 2) / max(n - 1, 1), 0.0)
-            cov = (sxy - n * mean * y_mean) / max(n - 1, 1)
-            denom = np.sqrt(var * y_var)
+            cmean = redc["sx"] / max(n, 1)
+            cvar = np.maximum(
+                (redc["sxx"] - n * cmean ** 2) / max(n - 1, 1), 0.0)
+            y_mean = redc["sy"] / max(n, 1)
+            y_var = max(
+                (redc["syy"] - n * y_mean ** 2) / max(n - 1, 1), 0.0)
+            cov = (redc["sxy"] - n * cmean * y_mean) / max(n - 1, 1)
+            denom = np.sqrt(cvar * y_var)
             with np.errstate(divide="ignore", invalid="ignore"):
                 corr = np.where(denom > 0, cov / denom, 0.0)
             feat_corr = None
+        X = Cx = None
 
         meta = vec_col.meta
         names = (meta.column_names() if meta is not None
@@ -382,7 +584,6 @@ class SanityChecker(Estimator):
                             "conf": cs["max_confidences"][li],
                             "support": cs["supports"][li]})
 
-        hit_pairs: Dict[int, List[Tuple[int, float]]] = {}
         if feat_corr is not None and d > 1:
             hit = np.abs(np.tril(feat_corr, k=-1)) > self.max_feature_corr
             for i in np.flatnonzero(hit.any(axis=1)):

@@ -37,7 +37,7 @@ EXTRA_FLAGS: Dict[str, tuple] = {"split_search": ("--fmad=false",)}
 # every kernel the port builds, in the order `chip_smoke.py` lists them
 SOURCES = ("bin_features", "tree_walk", "histograms", "split_search",
            "route_leaves", "binned_aupr", "sibling_subtract", "eval_metrics",
-           "wire_dequant", "write_rows")
+           "wire_dequant", "write_rows", "corr_hits")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -49,7 +49,7 @@ LAUNCHES: Dict[str, int] = {
     "histograms": 0, "split_search": 0, "split_search_live": 0,
     "route_level": 0, "leaf_values": 0, "binned_aupr": 0,
     "sibling_subtract": 0, "confusion_counts": 0, "regression_moments": 0,
-    "wire_dequant": 0, "write_rows": 0,
+    "wire_dequant": 0, "write_rows": 0, "corr_hits": 0,
     **{f"dequant_{entry}write_rows_int{bits}": 0
        for entry in ("", "bin_", "dual_") for bits in (8, 4)}}
 _launch_lock = threading.Lock()

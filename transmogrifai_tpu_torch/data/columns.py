@@ -159,6 +159,21 @@ class Column:
     # access                                                             #
     # ------------------------------------------------------------------ #
 
+    def take(self, idx) -> "Column":
+        """Row subset (numpy fancy index or bool mask)."""
+        k = self.kind
+        if k == SCALAR:
+            return Column(self.ftype, {
+                "value": np.asarray(self.data["value"])[idx],
+                "mask": np.asarray(self.data["mask"])[idx]})
+        if k == PREDICTION:
+            return Column(self.ftype, {key: np.asarray(a)[idx]
+                                       for key, a in self.data.items()})
+        if k == VECTOR:
+            return Column(self.ftype, to_host(self.data)[idx],
+                          meta=self.meta)
+        return Column(self.ftype, self.data[idx])
+
     def host_value(self):
         """The numpy pytree a device stage consumes, before it moves to the
         device (the JAX package's `device_value`); None for host-only

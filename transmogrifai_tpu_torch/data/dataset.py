@@ -112,6 +112,14 @@ class Dataset:
     def take(self, idx) -> "Dataset":
         return Dataset({k: v[idx] for k, v in self.columns.items()}, dict(self.schema))
 
+    def with_column(self, name: str, values: np.ndarray,
+                    ftype: type) -> "Dataset":
+        cols = dict(self.columns)
+        cols[name] = values
+        schema = dict(self.schema)
+        schema[name] = ftype
+        return Dataset(cols, schema)
+
     @staticmethod
     def concat(parts: Sequence["Dataset"]) -> "Dataset":
         """Row-wise concatenation of same-schema datasets (streaming

@@ -2,9 +2,10 @@
 
 The port's counterpart of the JAX package's `dsl.py` (which imports the
 JAX ops lazily, so the port keeps its own): the arithmetic operators and
-unary math, the scalers, the generic row ops, `pivot`, `sanity_check` and
-`indexed`. Importing the package attaches the methods; each wires a stage
-and returns its output feature, nothing runs.
+unary math, the scalers, the numeric bucketizers, the generic row ops,
+`pivot`, `sanity_check` and `indexed`. Importing the package attaches
+the methods; each wires a stage and returns its output feature, nothing
+runs.
 """
 
 from __future__ import annotations
@@ -67,6 +68,23 @@ def z_normalize(self: Feature, with_mean: bool = True,
 def fill_missing_with_mean(self: Feature, default: float = 0.0) -> Feature:
     from transmogrifai_tpu_torch.ops.scalers import FillMissingWithMean
     return _stage(FillMissingWithMean, self, default=default)
+
+
+def bucketize(self: Feature, splits, track_nulls: bool = True,
+              track_invalid: bool = False) -> Feature:
+    from transmogrifai_tpu_torch.ops.bucketizers import NumericBucketizer
+    return _stage(NumericBucketizer, self, splits=splits,
+                  track_nulls=track_nulls, track_invalid=track_invalid)
+
+
+def auto_bucketize(self: Feature, label: Feature, max_depth: int = 2,
+                   track_nulls: bool = True) -> Feature:
+    """Label-aware buckets of a numeric feature (a single-feature decision
+    tree's thresholds, fitted against `label`)."""
+    from transmogrifai_tpu_torch.ops.bucketizers import (
+        DecisionTreeNumericBucketizer)
+    return _stage(DecisionTreeNumericBucketizer, label, self,
+                  max_depth=max_depth, track_nulls=track_nulls)
 
 
 def to_percentile(self: Feature, buckets: int = 100) -> Feature:
@@ -175,6 +193,7 @@ _METHODS = {
     "log": log,
     "z_normalize": z_normalize,
     "fill_missing_with_mean": fill_missing_with_mean,
+    "bucketize": bucketize, "auto_bucketize": auto_bucketize,
     "to_percentile": to_percentile, "scale": scale, "descale": descale,
     "sanity_check": sanity_check, "indexed": indexed, "pivot": pivot,
     "alias": alias, "map_values": map_values, "filter_values": filter_values,

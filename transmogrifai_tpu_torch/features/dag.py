@@ -1,10 +1,11 @@
-"""DAG scheduling: topological layering with cycle detection, and the
-private copy of a DAG that a workflow fits.
+"""DAG scheduling: topological layering with cycle detection, the
+private copy of a DAG that a workflow fits, and the DAG without blocked
+raw features.
 
-The port's copy of `topological_layers` and `clone_graph` from the JAX
-package's `features/dag.py`: `layer(stage) = 1 + max(layer(parent
-stages))`, raw FeatureGeneratorStages at layer 0, stages sorted by uid
-within a layer.
+The port's copy of `topological_layers`, `clone_graph` and
+`rewire_without` from the JAX package's `features/dag.py`: `layer(stage)
+= 1 + max(layer(parent stages))`, raw FeatureGeneratorStages at layer 0,
+stages sorted by uid within a layer.
 """
 
 from __future__ import annotations
@@ -116,3 +117,53 @@ def clone_graph(result_features: Sequence) -> List:
         return nf
 
     return [clone_feature(f) for f in result_features]
+
+
+def rewire_without(result_features: Sequence, blocked_raw: Sequence[str]):
+    """The DAG rebuilt without the named raw features (the JAX package's
+    blocklist rewiring): a variadic stage keeps the inputs that survive;
+    a fixed-arity stage that loses an input is dropped, and the drop
+    cascades to what depends on it. Returns (surviving result features,
+    names of the dropped ones)."""
+    from transmogrifai_tpu_torch.features.feature import Feature
+
+    blocked = set(blocked_raw)
+    fmap: Dict[str, object] = {}
+    smap: Dict[str, Stage] = {}
+
+    def rebuild(f):
+        """A copy of `f` without blocked ancestors, or None."""
+        if f.uid in fmap:
+            return fmap[f.uid]
+        stage = getattr(f.origin_stage, "_estimator", None) or f.origin_stage
+        if isinstance(stage, FeatureGeneratorStage) or not f.parents:
+            nf = None if f.name in blocked else f
+            fmap[f.uid] = nf
+            return nf
+        kept = tuple(p for p in (rebuild(p) for p in f.parents)
+                     if p is not None)
+        spec = stage.in_types
+        variadic = spec is not None and len(spec) == 2 and spec[1] is Ellipsis
+        if not kept or (not variadic and len(kept) != len(f.parents)):
+            fmap[f.uid] = None  # a required input was blocked
+            return None
+        cs = smap.get(stage.uid)
+        if cs is None:
+            cs = _clone_stage(stage)
+            cs._output = None
+            cs.input_features = kept
+            smap[stage.uid] = cs
+        nf = Feature(name=f.name, ftype=f.ftype, origin_stage=cs,
+                     parents=kept, is_response=f.is_response, uid=f.uid)
+        cs._output = nf
+        fmap[f.uid] = nf
+        return nf
+
+    survived, dropped = [], []
+    for f in result_features:
+        nf = rebuild(f)
+        if nf is None:
+            dropped.append(f.name)
+        else:
+            survived.append(nf)
+    return survived, dropped

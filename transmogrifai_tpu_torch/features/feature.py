@@ -21,7 +21,7 @@ class Feature:
     """A typed node in the lazy feature DAG (FeatureLike/Feature)."""
 
     __slots__ = ("name", "ftype", "is_response", "origin_stage", "parents",
-                 "uid")
+                 "uid", "distributions")
 
     def __init__(self, name: str, ftype: type, origin_stage,
                  parents: Tuple["Feature", ...] = (), is_response: bool = False,
@@ -34,6 +34,7 @@ class Feature:
         self.origin_stage = origin_stage
         self.parents = tuple(parents)
         self.uid = uid or UID("Feature")
+        self.distributions: List[Any] = []  # set by RawFeatureFilter
 
     @property
     def is_raw(self) -> bool:

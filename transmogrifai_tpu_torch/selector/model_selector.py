@@ -9,8 +9,12 @@ and holdout rows, and return the fitted model with a
 `ModelSelectorSummary`. Families run one after another; a family that
 fails is dropped, as in the reference.
 
+Under workflow-level CV (`ctx.cv_refit`, set by `Workflow.train`) the
+feature DAG before the selector is refit inside each fold and each
+family sweeps fold by fold on that fold's matrix.
+
 Not ported yet (ROADMAP.md): a device mesh, sweep checkpoints and
-journals, the distributed scheduler and workflow-level CV.
+journals, and the distributed scheduler.
 """
 
 from __future__ import annotations
@@ -144,10 +148,29 @@ class ModelSelector(Estimator):
         folds = self.validator.splits(y_train)
 
         t0 = time.perf_counter()
-        results: List[ValidationResult] = []
-        failures = 0
         ctx._sweep_seconds = {}
         family_s: Dict[str, float] = {}
+        if ctx.cv_refit is None:
+            results, failures = self._sweep(ctx, X, y_dev, folds, family_s)
+        else:
+            results, failures = self._sweep_with_workflow_cv(
+                ctx, folds, train_idx, y_dev, X.device, family_s)
+        timings = {"sweep_s": time.perf_counter() - t0,
+                   "families": family_s, "groups": ctx._sweep_seconds}
+        if not results:
+            raise RuntimeError(
+                f"All {failures} model families failed during validation")
+        sign = 1.0 if self.evaluator.is_larger_better else -1.0
+        finite = [r for r in results if np.isfinite(r.mean_metric)]
+        return self._finish(ctx, results, finite, sign, X, X_full, y_np,
+                            y_dev, train_idx, test_idx, split_summary,
+                            timings)
+
+    def _sweep(self, ctx, X, y_dev, folds, family_s):
+        """Each family's sweep over every fold on X; a family that fails
+        is dropped. Returns (results, families dropped)."""
+        results: List[ValidationResult] = []
+        failures = 0
         for mi, (est, grids) in enumerate(self.models):
             tf = time.perf_counter()
             try:
@@ -167,16 +190,56 @@ class ModelSelector(Estimator):
             if X.is_cuda:
                 torch.cuda.synchronize(X.device)
             family_s[type(est).__name__] = time.perf_counter() - tf
-        timings = {"sweep_s": time.perf_counter() - t0,
-                   "families": family_s, "groups": ctx._sweep_seconds}
-        if not results:
-            raise RuntimeError(
-                f"All {failures} model families failed during validation")
-        sign = 1.0 if self.evaluator.is_larger_better else -1.0
-        finite = [r for r in results if np.isfinite(r.mean_metric)]
-        return self._finish(ctx, results, finite, sign, X, X_full, y_np,
-                            y_dev, train_idx, test_idx, split_summary,
-                            timings)
+        return results, failures
+
+    def _sweep_with_workflow_cv(self, ctx, folds, train_idx, y_dev, device,
+                                family_s):
+        """Workflow-level CV: refit the pre-selector feature DAG on each
+        fold's training rows (`ctx.cv_refit`), then sweep each family on
+        that fold's matrix, one fold at a time with the families inside,
+        so only one fold's refit matrix lives on the device. A family
+        that fails in any fold is dropped. Returns (results, families
+        dropped)."""
+        per_family: Dict[int, List[List[float]]] = {}
+        dead: set = set()
+        for fi, (tr, va) in enumerate(folds):
+            fold_rows = train_idx[np.asarray(tr) > 0.5]
+            X_fold = torch.as_tensor(
+                np.asarray(ctx.cv_refit(fold_rows))[train_idx],
+                device=device)
+            for mi, (est, grids) in enumerate(self.models):
+                if mi in dead:
+                    continue
+                tf = time.perf_counter()
+                try:
+                    gm = run_sweep(est, grids, X_fold, y_dev, [(tr, va)],
+                                   self.evaluator, ctx)
+                except NotImplementedError:
+                    raise
+                except Exception:
+                    dead.add(mi)
+                    per_family.pop(mi, None)
+                    log.exception("Model family %s failed in fold %d; "
+                                  "dropping", type(est).__name__, fi)
+                    continue
+                rows = per_family.setdefault(
+                    mi, [[] for _ in range(len(grids))])
+                for gi, row in enumerate(gm):
+                    rows[gi].append(float(row[0]))
+                if X_fold.is_cuda:
+                    torch.cuda.synchronize(X_fold.device)
+                name = type(est).__name__
+                family_s[name] = (family_s.get(name, 0.0)
+                                  + time.perf_counter() - tf)
+            del X_fold
+        results: List[ValidationResult] = []
+        for mi, (est, grids) in enumerate(self.models):
+            if mi in per_family:
+                for grid, fm in zip(grids, per_family[mi]):
+                    results.append(ValidationResult(
+                        model=type(est).__name__, grid=grid,
+                        fold_metrics=fm, model_index=mi))
+        return results, len(dead)
 
     def _finish(self, ctx, results, finite, sign, X, X_full, y_np, y_dev,
                 train_idx, test_idx, split_summary, timings):

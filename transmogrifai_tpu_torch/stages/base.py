@@ -41,11 +41,18 @@ class FitContext:
     """Per-fit environment: row count, rng seed and the device the fit's
     tensors live on. `child(salt)` derives a stage's context with the JAX
     package's seed rule, so seeded host draws (the GBT refit's holdout)
-    are the same rows in both packages."""
+    are the same rows in both packages.
+
+    `cv_refit` is set by the workflow only on the ModelSelector's context
+    under workflow-level CV (`Workflow.with_workflow_cv()`): a callable
+    `fold_rows -> (n_total, d) feature matrix` that refits the
+    pre-selector feature DAG on the given rows. `child` does not carry
+    it."""
 
     n_rows: int
     seed: int = 42
     device: Any = "cpu"
+    cv_refit: Any = None
 
     def child(self, salt: int) -> "FitContext":
         return FitContext(self.n_rows, self.seed * 1000003 + salt,

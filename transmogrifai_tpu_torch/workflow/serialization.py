@@ -236,6 +236,7 @@ def _ensure_stage_library() -> None:
     import transmogrifai_tpu_torch.models.mlp  # noqa: F401
     import transmogrifai_tpu_torch.models.naive_bayes  # noqa: F401
     import transmogrifai_tpu_torch.models.trees  # noqa: F401
+    import transmogrifai_tpu_torch.ops.bucketizers  # noqa: F401
     import transmogrifai_tpu_torch.ops.categorical  # noqa: F401
     import transmogrifai_tpu_torch.ops.combiner  # noqa: F401
     import transmogrifai_tpu_torch.ops.indexers  # noqa: F401

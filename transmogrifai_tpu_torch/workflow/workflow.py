@@ -3,8 +3,11 @@
 The port's counterpart of the JAX package's `workflow/workflow.py`.
 `Workflow.train` materializes the raw features, then fits the feature DAG
 layer by layer on a private copy: each estimator fits on its inputs'
-columns and its fitted model transforms them for the next layer. It
-returns a `WorkflowModel`, whose `score` walks the fitted DAG eagerly and
+columns and its fitted model transforms them for the next layer. A
+RawFeatureFilter (`with_raw_feature_filter`) first drops unhealthy raw
+features and rewires the DAG around them; workflow-level CV
+(`with_workflow_cv`) refits the estimators that feed a ModelSelector
+inside each of its folds. `train` returns a `WorkflowModel`, whose `score` walks the fitted DAG eagerly and
 whose `score_compiled` runs the planned scorer (`workflow/compiled.py`),
 and whose `save` writes the JAX package's on-disk format.
 """
@@ -23,7 +26,7 @@ from transmogrifai_tpu_torch.data.columns import SCALAR, VECTOR, Column
 from transmogrifai_tpu_torch.data.dataset import Dataset
 from transmogrifai_tpu_torch.device import DeviceLike, resolve_device
 from transmogrifai_tpu_torch.features.dag import (
-    clone_graph, topological_layers)
+    clone_graph, rewire_without, topological_layers)
 from transmogrifai_tpu_torch.models.base import WARM_STARTS
 from transmogrifai_tpu_torch.stages.base import (
     Estimator, FeatureGeneratorStage, FitContext, Transformer,
@@ -39,6 +42,10 @@ class Workflow:
         self.result_features: Tuple = ()
         self._dataset: Optional[Dataset] = None
         self.parameters: Dict[str, Any] = {}
+        self._rff = None
+        self._rff_score_dataset: Optional[Dataset] = None
+        self.blocklist: List[str] = []
+        self._workflow_cv = False
 
     def set_result_features(self, *features) -> "Workflow":
         self.result_features = tuple(features)
@@ -55,14 +62,31 @@ class Workflow:
         return self
 
     def with_workflow_cv(self) -> "Workflow":
-        raise NotImplementedError(
-            "workflow-level CV is not ported yet (ROADMAP.md, queue 1: "
-            "feature validation at full scope)")
+        """Move the feature DAG before each ModelSelector inside its CV
+        folds: the estimators feeding the selector's vector refit on each
+        fold's training rows, so fold-global statistics (supervised
+        buckets, sanity-check selections) cannot leak into validation
+        metrics."""
+        self._workflow_cv = True
+        return self
 
-    def with_raw_feature_filter(self, *args, **kwargs) -> "Workflow":
-        raise NotImplementedError(
-            "RawFeatureFilter is not ported yet (ROADMAP.md, queue 1: "
-            "feature validation at full scope)")
+    def with_raw_feature_filter(self, score_dataset: Optional[Dataset] = None,
+                                score_reader=None,
+                                **rff_params) -> "Workflow":
+        """Run a RawFeatureFilter (`rff_params` are its arguments) before
+        training: raw features whose train (and, given `score_dataset`,
+        score) distributions fail its rules are dropped, and the DAG is
+        rewired around them."""
+        from transmogrifai_tpu_torch.automl.raw_feature_filter import (
+            RawFeatureFilter)
+        if score_reader is not None:
+            raise NotImplementedError(
+                "with_raw_feature_filter(score_reader=...): readers are not "
+                "ported yet (ROADMAP.md, queue 1, item 2); pass "
+                "score_dataset")
+        self._rff = RawFeatureFilter(**rff_params)
+        self._rff_score_dataset = score_dataset
+        return self
 
     def with_model_stages(self, *args, **kwargs) -> "Workflow":
         raise NotImplementedError(
@@ -90,7 +114,11 @@ class Workflow:
             raise RuntimeError(
                 "No input data: call set_input_dataset or pass a dataset "
                 "to train()")
-        result_features = clone_graph(self.result_features)
+        rff_results = None
+        source_features = self.result_features
+        if self._rff is not None:
+            ds, source_features, rff_results = self._apply_rff(ds)
+        result_features = clone_graph(source_features)
         layers = topological_layers(result_features)
         ctx = FitContext(n_rows=len(ds), seed=seed, device=dev)
         columns: Dict[str, Column] = {}
@@ -109,7 +137,11 @@ class Workflow:
                 inputs = [columns[f.uid] for f in stage.input_features]
                 est = getattr(stage, "_estimator", None) or stage
                 if isinstance(est, Estimator):
-                    model = est.fit(inputs, ctx.child(li))
+                    stage_ctx = ctx.child(li)
+                    if self._workflow_cv and _is_selector(est):
+                        stage_ctx.cv_refit = _make_cv_refit(
+                            stage, layers, columns, ctx)
+                    model = est.fit(inputs, stage_ctx)
                     fitted[est.uid] = model
                     out = model.transform(inputs, dev)
                 elif isinstance(stage, Transformer):
@@ -126,9 +158,90 @@ class Workflow:
                               device=dev)
         model.stage_seconds = stage_seconds
         model.train_columns = columns
+        model.rff_results = rff_results
+        model.blocklist = list(self.blocklist)
         model.quant_calibration = capture_quant_calibration(
             result_features, fitted, columns)
         return model
+
+    def _raw_features(self) -> List:
+        seen: Dict[str, Any] = {}
+        for f in self.result_features:
+            for r in f.raw_features():
+                seen.setdefault(r.uid, r)
+        return list(seen.values())
+
+    def _apply_rff(self, ds: Dataset):
+        """Run the RawFeatureFilter and rewire the DAG around the raw
+        features it drops (they become `blocklist`). A result feature
+        that can no longer be produced raises, as in the JAX package."""
+        raws = self._raw_features()
+        label = next((f for f in raws if f.is_response), None)
+        filtered = self._rff.generate_filtered_raw(
+            ds, raws, score_dataset=self._rff_score_dataset,
+            label_feature=label)
+        self.blocklist = list(filtered.features_to_drop)
+        if not filtered.features_to_drop:
+            return (filtered.clean_dataset, self.result_features,
+                    filtered.results)
+        survived, dropped = rewire_without(
+            self.result_features, filtered.features_to_drop)
+        if dropped:
+            raise RuntimeError(
+                f"RawFeatureFilter removed raw features "
+                f"{filtered.features_to_drop} making result features "
+                f"{dropped} unproducible; protect them via "
+                f"protected_features or relax thresholds")
+        return filtered.clean_dataset, tuple(survived), filtered.results
+
+
+def _is_selector(est) -> bool:
+    from transmogrifai_tpu_torch.selector.model_selector import ModelSelector
+    return isinstance(est, ModelSelector)
+
+
+def _make_cv_refit(selector_stage, layers, columns, ctx: FitContext):
+    """Workflow-level CV's refit as a closure: `refit(fold_rows)` refits
+    every estimator feeding the selector's feature vector on `fold_rows`
+    only, reruns the transformers, and returns the fold's feature matrix
+    for all rows (host numpy). The label's subtree is not refit (the
+    global pass's columns are reused), so the folds' rows stay aligned.
+    A fold model fits with seed `ctx.seed * 1000003 + salt` (salt counting
+    the refit stages in layer order) through `fit_model`, so the globally
+    fitted model stays in the graph."""
+    label_f, vec_f = selector_stage.input_features
+    label_uids = {f.uid for f in label_f.traverse()}
+    during_stage_uids = {
+        f.origin_stage.uid for f in vec_f.traverse()
+        if not f.is_raw and f.uid not in label_uids}
+    base = dict(columns)  # the global columns materialized so far
+
+    def refit(fold_rows: np.ndarray) -> np.ndarray:
+        cols = dict(base)
+        salt = 0
+        for layer in layers[1:]:
+            for stage in layer:
+                if (stage is selector_stage
+                        or stage.uid not in during_stage_uids):
+                    continue
+                salt += 1
+                ins_full = [cols[f.uid] for f in stage.input_features]
+                est = getattr(stage, "_estimator", None) or stage
+                if isinstance(est, Estimator):
+                    fold_ctx = FitContext(
+                        n_rows=len(fold_rows),
+                        seed=ctx.seed * 1000003 + salt, device=ctx.device)
+                    m = est.fit_model(
+                        [c.take(fold_rows) for c in ins_full], fold_ctx)
+                    m.uid = est.uid
+                    m.input_features = est.input_features
+                    out = m.transform(ins_full, ctx.device)
+                else:
+                    out = stage.transform(ins_full, ctx.device)
+                cols[stage.get_output().uid] = out
+        return np.asarray(cols[vec_f.uid].data)
+
+    return refit
 
 
 def capture_quant_calibration(result_features, fitted, columns
@@ -208,6 +321,10 @@ class WorkflowModel:
         self.train_columns: Dict[str, Column] = {}
         # fit-time quantization ranges, uid -> {"lo": [...], "hi": [...]}
         self.quant_calibration: Optional[Dict[str, Any]] = None
+        # the RawFeatureFilterResults when the filter ran, and the raw
+        # features it dropped
+        self.rff_results = None
+        self.blocklist: List[str] = []
         self._compiled = None
 
     def save(self, path: str, overwrite: bool = True) -> None:
