@@ -301,7 +301,36 @@ any failure exits non-zero:
    `torch.nonzero` + gather), the rank transform, each fit's wall and
    `torch.cuda.max_memory_allocated` over the train and over the fit
    alone recorded. The `kernels` line adds
-   `corr_hits`.
+   `corr_hits`;
+26. the runnable application and the selector's other controls
+   (`app_phase`): (a) examples/op_titanic_app.py's `WorkflowRunner` over
+   the port (`titanic_app_runner`: the script's pipeline and the default
+   LR + RF + XGB selector, numpy forest draws) through `train` (to a model
+   location in a temporary directory), `score` (with a write location),
+   `evaluate` and `features`, each with an `OpParams` read back from its
+   own JSON and one `stage_params` override: the launch counters, set to
+   0 before `train` and read after it, show K1, K1-sub, K2 (dense and
+   live), K3, K4, K5 and K8, and set to 0 before `score`, K4 and K5; the
+   evaluate run's AuPR, AuROC and Error in tests/test_examples.py's bands
+   and equal to the evaluator over `score_compiled`'s scores (and
+   `WorkflowModel.evaluate`'s eager figures printed beside them); the
+   written scores equal to `score_compiled`'s; every run's profile
+   phases, goodput report and a valid Chrome trace with the run's spans;
+   each run's wall and phase seconds printed. (b) On the card and on the
+   CPU over a seeded 1,000 x 8 problem: a `RandomParamBuilder` grid, a
+   `LambdaEvaluator` and a `BinScoreEvaluator` driving selectors through
+   the host-metric fallback, a user-defined estimator class through
+   `_sweep_generic`, a warm-started second train (`with_model_stages`)
+   and `init_params` for LR (FISTA and L-BFGS), GLM, linear, forest and
+   GBT, a `SelectedModelCombiner` over an LR and a tree selector under
+   best, weighted and equal, and an `IsotonicRegressionCalibrator` on
+   (a)'s winner's scores; the combiner and the calibrator served through
+   `score_padded` with CUDA graphs against eager scores. Configs, winners
+   and PAV knots equal card against CPU, metrics within the families'
+   tolerances (`SC_TOL`). (c) examples/op_joins_aggregates.py and
+   op_conditional_aggregation.py through the port's readers on the card:
+   their rows equal `AGGREGATION_ROWS` (tests/test_dataprep_examples.py's
+   assertions).
 """
 
 import contextlib
@@ -2779,6 +2808,126 @@ SIMPLE_INSIGHTS = ("sex", "estimatedCostOfTickets", "familySize")
 SIMPLE_BANDS = (("AuPR", 0.78, True), ("AuROC", 0.80, True),
                 ("Error", 0.25, False))
 SIMPLE_KERNELS = DEFAULT_KERNELS
+
+
+# the rows tests/test_dataprep_examples.py asserts of the two aggregation
+# examples, by key (user 789's ctr, which that test leaves out, is missing
+# with its numClicksYday: a divide needs both sides)
+AGGREGATION_ROWS = {
+    "op_joins_aggregates": {
+        "123": {"key": "123", "numClicksYday": 2.0, "numClicksTomorrow": 1.0,
+                "numSendsLastWeek": 1.0, "ctr": 1.0},
+        "456": {"key": "456", "numClicksYday": None,
+                "numClicksTomorrow": 1.0, "numSendsLastWeek": None,
+                "ctr": None},
+        "789": {"key": "789", "numClicksYday": None,
+                "numClicksTomorrow": None, "numSendsLastWeek": 1.0,
+                "ctr": None}},
+    "op_conditional_aggregation": {
+        "xyz@example.com": {"key": "xyz@example.com",
+                            "numVisitsWeekPrior": 3.0,
+                            "numPurchasesNextDay": 1.0},
+        "lmn@example.com": {"key": "lmn@example.com",
+                            "numVisitsWeekPrior": 0.0,
+                            "numPurchasesNextDay": 1.0},
+        "abc@example.com": {"key": "abc@example.com",
+                            "numVisitsWeekPrior": 1.0,
+                            "numPurchasesNextDay": 0.0}}}
+
+
+def port_example(name: str, device: str = "cuda"):
+    """examples/<name>.py as a module over the port: its own source, with
+    its `transmogrifai_tpu.` imports pointed at `transmogrifai_tpu_torch.`
+    and its `Workflow` training on `device`."""
+    import types as _types
+
+    import transmogrifai_tpu_torch as port
+    path = os.path.join(HERE, "examples", f"{name}.py")
+    with open(path) as fh:
+        src = fh.read().replace("transmogrifai_tpu.",
+                                "transmogrifai_tpu_torch.")
+    mod = _types.ModuleType(f"{name}_on_the_port")
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+
+    class Workflow(port.Workflow):
+        def train(self, dataset=None, seed=42, device=device):
+            return super().train(dataset, seed=seed, device=device)
+    mod.Workflow = Workflow
+    return mod
+
+
+# examples/op_titanic_app.py through the runner: the stage override each
+# run's OpParams carries, and the run types in the order they run
+APP_STAGE_PARAMS = {"SanityChecker": {"max_correlation": 0.9}}
+APP_RUN_TYPES = ("train", "score", "evaluate", "features")
+
+
+def app_namespace(port):
+    """`port_namespace` plus the runner's modules (readers, evaluators,
+    params, runner), the Workflow and the model classes (`models`)."""
+    from transmogrifai_tpu_torch import evaluators, readers
+    from transmogrifai_tpu_torch.workflow import params, runner
+    ns = port_namespace(port)
+    ns.readers, ns.evaluators, ns.params, ns.runner = (
+        readers, evaluators, params, runner)
+    ns.Workflow, ns.models = port.Workflow, port
+    return ns
+
+
+def titanic_app_runner(ns, models=None, age_group=None, **runner_kw):
+    """examples/op_titanic_app.py's `runner()` over the namespace `ns`
+    (`app_namespace`): the script's pipeline (`titanic_simple_pipeline`)
+    in a Workflow, a CSVReader over examples/data/titanic.csv with the
+    script's schema as the train and score readers, the binary evaluator.
+    Returns (runner, survived, prediction)."""
+    _, survived, prediction = titanic_simple_pipeline(ns, models, age_group)
+    workflow = ns.Workflow().set_result_features(prediction, survived)
+    reader = ns.readers.CSVReader(TITANIC, schema=titanic_simple_schema(ns.t))
+    runner = ns.runner.WorkflowRunner(
+        workflow, train_reader=reader, score_reader=reader,
+        evaluator=ns.evaluators.BinaryClassificationEvaluator(),
+        label_feature=survived, prediction_feature=prediction, **runner_kw)
+    return runner, survived, prediction
+
+
+def app_runs(ns, runner, root: str, run_types=APP_RUN_TYPES) -> dict:
+    """Each run type in turn, with an OpParams written to its own JSON file
+    and read back (model, write, metrics and trace locations under `root`,
+    `APP_STAGE_PARAMS`): {run type: (RunResult, wall seconds, params)}."""
+    import json as _json
+    out = {}
+    for rt in run_types:
+        params = ns.params.OpParams(
+            model_location=os.path.join(root, "model"),
+            write_location=os.path.join(root, rt),
+            metrics_location=os.path.join(root, "metrics"),
+            trace_location=os.path.join(root, f"{rt}-trace.json"),
+            stage_params=APP_STAGE_PARAMS)
+        path = os.path.join(root, f"{rt}-params.json")
+        with open(path, "w") as fh:
+            _json.dump(params.to_json(), fh)
+        params = ns.params.OpParams.load(path)
+        t0 = time.perf_counter()
+        result = runner.run(rt, params)
+        out[rt] = (result, time.perf_counter() - t0, params)
+    return out
+
+
+def span_names(trace: dict) -> list:
+    """The sorted distinct span names of a Chrome trace payload."""
+    return sorted({e["name"] for e in trace["traceEvents"]
+                   if e.get("ph") == "X"})
+
+
+def aggregation_example_rows(name: str, device: str = "cuda") -> dict:
+    """The aggregation example `name`'s `run()` through the port's readers
+    on `device`: its rows by key, NaN as None."""
+    def plain(v):
+        return None if v is None or (isinstance(v, float) and np.isnan(v)) \
+            else v
+    return {r["key"]: {k: plain(v) for k, v in r.items()}
+            for r in port_example(name, device).run()}
 
 
 def port_namespace(port):
@@ -5425,6 +5574,528 @@ def wide_timings(sc, X_np, dev, block, cap) -> dict:
     return out
 
 
+
+# --------------------------------------------------------------------------- #
+# phase 26: the runnable application and the selector's other controls       #
+# --------------------------------------------------------------------------- #
+
+# tests/test_examples.py's bands for the app's evaluate run
+APP_BANDS = (("AuPR", 0.70, True), ("AuROC", 0.75, True),
+             ("Error", 0.30, False))
+APP_TRAIN_KERNELS = DEFAULT_KERNELS
+APP_SCORE_KERNELS = ("bin_features", "tree_walk")
+# the spans a train run's trace must hold (beside one stage:fit / stage:
+# transform pair a stage)
+APP_SPANS = ("run:train", "phase:DataReadingAndFiltering", "phase:Training",
+             "stage:fit:ModelSelector", "stage:transform:ModelSelector",
+             "sweep:family:OpLogisticRegression", "sweep:block")
+# card against CPU: the families' tolerances (PERF.md §2): LR 1e-4 (the
+# card's L-BFGS fits within 1e-4 relative of the CPU's), trees and XGB
+# 1e-2, the host-only centroid classifier and the combiner's blend 1e-6
+SC_TOL = {"OpLogisticRegression": 1e-4, "OpRandomForestClassifier": 1e-2,
+          "OpXGBoostClassifier": 1e-2, "OpCentroidClassifier": 1e-6}
+SC_ROWS, SC_D = 1000, 8
+
+
+def app_port_scores(model, ds) -> dict:
+    """`score_compiled`'s scores of `ds` as the runner writes them."""
+    from transmogrifai_tpu_torch.workflow.runner import (
+        host_scores, score_columns)
+    return score_columns(host_scores(model.score_compiled(ds)))
+
+
+def read_scores_csv(path: str) -> dict:
+    import csv
+    with open(path) as fh:
+        rows = list(csv.reader(fh))
+    return {name: np.array([float(r[j]) if r[j] else np.nan
+                            for r in rows[1:]])
+            for j, name in enumerate(rows[0])}
+
+
+def app_runner_phase(port, pt):
+    """Phase 26 (a): examples/op_titanic_app.py's runner over the port
+    (`titanic_app_runner`: the script's pipeline, the default LR + RF +
+    XGB selector, forest draws from `numpy_forest_draws`) through train,
+    score, evaluate and features, each with an OpParams read back from its
+    own JSON and `APP_STAGE_PARAMS`. Checks: the launch counters, set to 0
+    before `train` and read after it, show every training kernel, and set
+    to 0 before `score`, K4 and K5; the evaluate run's metrics in
+    APP_BANDS and equal to `WorkflowModel.evaluate` on the same rows; the
+    written scores equal to `score_compiled`'s; every run's profile
+    phases, goodput report and a valid Chrome trace. Returns (record, the
+    loaded model, the dataset, the label feature)."""
+    import tempfile
+
+    from transmogrifai_tpu_torch import types as T
+    from transmogrifai_tpu_torch.data.columns import Column
+    from transmogrifai_tpu_torch.obs.export import validate_chrome_trace
+    register_age_group()
+    ns = app_namespace(port)
+    runner, survived, pred = titanic_app_runner(
+        ns, age_group=titanic_age_group, device="cuda")
+    with tempfile.TemporaryDirectory(prefix="port_app_") as root:
+        runs, launches = {}, {}
+        with pt.injected_forest_draws(numpy_forest_draws):
+            for rt in APP_RUN_TYPES:
+                pt.reset_launches()
+                runs.update(app_runs(ns, runner, root, run_types=(rt,)))
+                sync("cuda")
+                launches[rt] = {k: v for k, v in pt.LAUNCHES.items() if v}
+        problems = []
+        missing = {"train": [k for k in APP_TRAIN_KERNELS
+                             if launches["train"].get(k, 0) < 1],
+                   "score": [k for k in APP_SCORE_KERNELS
+                             if launches["score"].get(k, 0) < 1]}
+        if missing["train"] or missing["score"]:
+            problems.append(f"kernels not launched: {missing}")
+        walls, traces = {}, {}
+        for rt, (res, wall, params) in runs.items():
+            prof = res.profile
+            walls[rt] = {"wall_s": wall,
+                         "phases_s": {p["name"]: p["duration_s"]
+                                      for p in prof["phases"]}}
+            with open(params.trace_location) as fh:
+                trace = json.load(fh)
+            bad = validate_chrome_trace(trace)
+            traces[rt] = span_names(trace)
+            if bad or not prof["phases"] or "buckets" not in prof["goodput"]:
+                problems.append(f"{rt}: trace {bad[:3]}, phases "
+                                f"{len(prof['phases'])}, goodput "
+                                f"{sorted(prof['goodput'])}")
+        absent = [s for s in APP_SPANS if s not in traces["train"]]
+        if absent:
+            problems.append(f"train trace lacks {absent}")
+        ev = runs["evaluate"][0].metrics
+        bands = {k: bool(ev[k] >= b if hi else ev[k] <= b)
+                 for k, b, hi in APP_BANDS}
+        if not all(bands.values()):
+            problems.append(f"evaluate metrics out of band: {ev}")
+        model = port.load_model(runs["train"][2].model_location,
+                                device="cuda")
+        ds = ns.Dataset.from_csv(TITANIC, schema=titanic_simple_schema(ns.t))
+        label = next(f for f in model.result_features if f.is_response)
+        winner = next(f for f in model.result_features if not f.is_response)
+        evaluator = ns.evaluators.BinaryClassificationEvaluator()
+        # WorkflowModel.evaluate scores eagerly, the evaluate run through
+        # score_compiled; the two round apart as in the JAX package (F11),
+        # so the run is held to the evaluator over score_compiled's scores
+        # and to WorkflowModel.evaluate over the same eager scores
+        eager = model.evaluate(ds, evaluator, label, winner).to_json()
+        label_col = label.origin_stage.materialize(ds)
+        compiled = evaluator.evaluate(label_col, Column(
+            T.Prediction, prediction_of(model.score_compiled(ds)))).to_json()
+        eager_direct = evaluator.evaluate(
+            label_col, model.score(ds)[winner.name]).to_json()
+        eval_gap = max(abs(compiled[k] - ev[k]) for k, _, _ in APP_BANDS)
+        eager_gap = max(abs(eager[k] - eager_direct[k])
+                        for k, _, _ in APP_BANDS)
+        if eval_gap > 0.0 or eager_gap > 0.0:
+            problems.append(f"evaluate run {ev} against the evaluator on "
+                            f"score_compiled {compiled}; "
+                            f"WorkflowModel.evaluate {eager} against "
+                            f"{eager_direct}")
+        want = app_port_scores(model, ds)
+        scores_equal = {}
+        for rt in ("score", "evaluate"):
+            got = read_scores_csv(os.path.join(root, rt, "scores.csv"))
+            scores_equal[rt] = (list(got) == list(want) and all(
+                np.array_equal(got[k], want[k], equal_nan=True)
+                for k in want))
+        if not all(scores_equal.values()):
+            problems.append(f"written scores differ: {scores_equal}")
+    summ = runs["train"][0].metrics
+    record = {"phase": "app_runner", "rows": len(ds),
+              "stage_params": APP_STAGE_PARAMS,
+              "best_model": summ.get("best_model"),
+              "best_grid": summ.get("best_grid"),
+              "holdout": summ.get("holdout"), "evaluate": ev,
+              "bands": bands, "evaluate_vs_compiled_scores": eval_gap,
+              "model_evaluate": eager,
+              "eager_vs_compiled": {k: eager[k] - ev[k]
+                                    for k, _, _ in APP_BANDS},
+              "scores_equal_score_compiled": scores_equal,
+              "launches_main_path": launches, "missing_kernels": missing,
+              "train_spans": traces["train"], "runs": walls,
+              "goodput": {rt: runs[rt][0].profile["goodput"]["buckets"]
+                          for rt in runs},
+              "problems": problems, "ok": not problems}
+    emit(record)
+    if problems:
+        raise AssertionError(f"the runner phase failed: {problems}")
+    return record, model, ds, label
+
+
+_CENTROID = {}
+
+
+def centroid_classifier(port):
+    """A user-defined estimator class the sweep's dispatch does not know:
+    a weighted nearest-centroid classifier (`_sweep_generic` sweeps it)."""
+    if "cls" in _CENTROID:
+        return _CENTROID["cls"]
+    from transmogrifai_tpu_torch.models.base import (
+        PredictionModel, PredictorEstimator, binary_margin_pred)
+
+    class Centroids(torch.nn.Module):
+        def __init__(self, c0, c1):
+            super().__init__()
+            self.register_buffer("c0", torch.as_tensor(c0))
+            self.register_buffer("c1", torch.as_tensor(c1))
+
+    class CentroidModel(PredictionModel):
+        def __init__(self, c0=None, c1=None, temp=1.0, uid=None):
+            super().__init__(uid=uid)
+            self.c0, self.c1, self.temp = c0, c1, float(temp)
+
+        def device_constants(self, device):
+            return Centroids(self.c0, self.c1).to(device)
+
+        def predict(self, consts, X):
+            m = (((X - consts.c0) ** 2).sum(1)
+                 - ((X - consts.c1) ** 2).sum(1)) / self.temp
+            return binary_margin_pred(m)
+
+    class OpCentroidClassifier(PredictorEstimator):
+        def __init__(self, temp=1.0, uid=None):
+            super().__init__(uid=uid, temp=temp)
+            self.temp = temp
+
+        def fit_arrays(self, X, y, w, ctx):
+            w1, w0 = w * y, w * (1 - y)
+            return CentroidModel(
+                ((X * w0[:, None]).sum(0) / w0.sum()).cpu().numpy(),
+                ((X * w1[:, None]).sum(0) / w1.sum()).cpu().numpy(),
+                self.temp)
+
+    _CENTROID["cls"] = OpCentroidClassifier
+    return OpCentroidClassifier
+
+
+def sc_aupr(label, prediction):
+    """A custom metric (LambdaEvaluator): AuPR of the class-1 probability,
+    on the host."""
+    from transmogrifai_tpu_torch.evaluators.metrics import aupr_score
+    return aupr_score(np.asarray(label.data["value"], np.float64),
+                      np.asarray(prediction.data["probability"],
+                                 np.float64)[:, 1])
+
+
+def sc_dataset(port, rows: int = SC_ROWS):
+    """A seeded binary problem: SC_D real columns x0.., the label y."""
+    import transmogrifai_tpu_torch.types as t
+    d = SC_D
+    rng = np.random.default_rng(26)
+    X = rng.normal(size=(rows, d))
+    y = (X[:, 0] + 0.8 * X[:, 1] - 0.5 * X[:, 2]
+         + rng.normal(0, 0.8, rows) > 0).astype(np.float64)
+    cols = {f"x{j}": X[:, j] for j in range(d)}
+    cols["y"] = y
+    return port.Dataset(cols, {**{f"x{j}": t.Real for j in range(d)},
+                               "y": t.RealNN})
+
+
+def sc_selector(port, models, evaluator=None, seed=42):
+    from transmogrifai_tpu_torch.selector import DataSplitter
+    sel = port.BinaryClassificationModelSelector.with_cross_validation(
+        models=models, n_folds=3, seed=seed,
+        splitter=DataSplitter(reserve_test_fraction=0.2, seed=seed))
+    if evaluator is not None:
+        sel.evaluator = evaluator
+    return sel
+
+
+def sc_summary(model, feature) -> dict:
+    s = model.fitted[feature.origin_stage.uid].summary
+    return {"configs": [[r.model, r.grid] for r in s.validation_results],
+            "fold_metrics": [[r.model, r.fold_metrics]
+                             for r in s.validation_results],
+            "winner": [s.best_model, s.best_grid],
+            "holdout": {k: v for k, v in s.holdout_metrics.items()
+                        if isinstance(v, float)}}
+
+
+def warm_fits(port, X, y, device) -> dict:
+    """Every family's warm start on (X, y) with 100 rows appended: a cold
+    fit on the first rows, then `init_params` from it (LR by FISTA and by
+    L-BFGS, GLM, linear by FISTA, forest with numpy draws, GBT)."""
+    from transmogrifai_tpu_torch.models import trees as pt
+    n0 = X.shape[0] - 100
+    out = {}
+    ones = torch.ones_like(y)
+    cases = {
+        "lr_fista": (port.OpLogisticRegression, dict(
+            reg_param=0.01, elastic_net_param=0.5, max_iter=10), ("W", "b")),
+        "lr_lbfgs": (port.OpLogisticRegression, dict(
+            reg_param=0.05, max_iter=40), ("W", "b")),
+        "glm": (port.OpGeneralizedLinearRegression, dict(
+            family="binomial", reg_param=0.01, max_iter=40), ("beta", "b")),
+        "linear": (port.OpLinearRegression, dict(
+            reg_param=0.01, elastic_net_param=0.5), ("beta",)),
+        "forest": (port.OpRandomForestClassifier, dict(
+            n_trees=8, max_depth=4, max_bins=16), ("edges", "trees")),
+        "gbt": (port.OpXGBoostClassifier, dict(
+            n_estimators=8, max_depth=3, eta=0.3, max_bins=16),
+            ("edges", "trees", "learning_rate"))}
+    from transmogrifai_tpu_torch.stages.base import FitContext
+    ctx = FitContext(n_rows=int(X.shape[0]), seed=7, device=device)
+    with pt.injected_forest_draws(numpy_forest_draws):
+        for name, (cls, kw, keys) in cases.items():
+            cold = cls(**kw).fit_arrays(X[:n0], y[:n0], ones[:n0], ctx)
+            params = cold.get_params()
+            warm = {k: params[k] for k in keys}
+            if name in ("forest", "gbt"):
+                warm["delta_rows"] = 100
+            est = cls(**kw)
+            est.init_params = warm
+            model = est.fit_arrays(X, y, ones, ctx)
+            out[name] = {"params": {k: np.asarray(v) for k, v in
+                                    (model.trees.items() if hasattr(
+                                        model, "trees") else
+                                     model.get_params().items())
+                                    if isinstance(v, (list, np.ndarray))},
+                         "probability": model.predict_arrays(X)[
+                             "probability"].cpu().numpy()}
+    return out
+
+
+def graph_scores(pc, model, ds, device) -> dict:
+    """`score_padded` over `ds` in batches of 64 rows: each device segment
+    as a CUDA graph on the card, eagerly on the CPU; the result features'
+    leaves as host arrays."""
+    batch = 64
+    scorer = pc.CompiledScorer(model, graphs=torch.device(device).type
+                               == "cuda")
+    parts = []
+    for s in range(0, len(ds), batch):
+        part = ds.take(np.arange(s, min(s + batch, len(ds))))
+        parts.append(scorer.score_padded(part, batch))
+    out = {}
+    for name in parts[0]:
+        v = parts[0][name]
+        if isinstance(v, dict):
+            out[name] = {k: np.concatenate([
+                np.asarray(p[name][k].cpu() if isinstance(
+                    p[name][k], torch.Tensor) else p[name][k])
+                for p in parts]) for k in v}
+    return out
+
+
+def selector_completeness(port, cal_scores, cal_label, device="cuda"):
+    """Phase 26 (b) on `device`: the selector's other controls over the
+    seeded `sc_dataset`. A RandomParamBuilder grid (LR); a LambdaEvaluator
+    (custom AuPR) over LR, XGB and a user-defined class (`_sweep_generic`);
+    a BinScoreEvaluator over LR and RF (numpy draws); a warm-started
+    second train (`with_model_stages`) and every family's `init_params`;
+    a SelectedModelCombiner over an LR selector and a tree selector under
+    best, weighted and equal, served through `score_padded` (CUDA graphs
+    on the card) against eager scores; an IsotonicRegressionCalibrator on
+    `cal_scores` (the app's winner's probabilities), served likewise.
+    Returns a record of comparable results."""
+    from transmogrifai_tpu_torch.evaluators.evaluators import (
+        BinScoreEvaluator, LambdaEvaluator)
+    from transmogrifai_tpu_torch.models import trees as pt
+    from transmogrifai_tpu_torch.selector import SelectedModelCombiner
+    from transmogrifai_tpu_torch.workflow import compiled as pc
+    t0 = time.perf_counter()
+    ds = sc_dataset(port)
+    preds, label = port.FeatureBuilder.from_dataset(ds, response="y")
+    vec = port.transmogrify(preds)
+    Cent = centroid_classifier(port)
+    grid = port.RandomParamBuilder(seed=26).exponential(
+        "reg_param", 1e-3, 1e-1).uniform("elastic_net_param", 0.1, 0.9) \
+        .build(4)
+    lr = port.OpLogisticRegression(max_iter=20)
+    xgb = port.OpXGBoostClassifier(n_estimators=10, max_depth=3, eta=0.3,
+                                   max_bins=16)
+    rf = port.OpRandomForestClassifier(n_trees=8, max_bins=16)
+    sels = {
+        "random_grid": sc_selector(port, [(lr, grid)]),
+        "lambda": sc_selector(port, [
+            (lr, grid[:2]), (xgb, [{"min_child_weight": 1.0},
+                                   {"min_child_weight": 5.0}]),
+            (Cent(), [{"temp": 1.0}, {"temp": 3.0}])],
+            LambdaEvaluator("customAuPR", sc_aupr)),
+        "bin_score": sc_selector(port, [
+            (lr, grid[2:]), (rf, [{"max_depth": 3}, {"max_depth": 5}])],
+            BinScoreEvaluator())}
+    feats = {k: s.set_input(label, vec).get_output() for k, s in sels.items()}
+    out = {"walls_s": {}}
+    with pt.injected_forest_draws(numpy_forest_draws):
+        tt = time.perf_counter()
+        m1 = port.Workflow().set_result_features(*feats.values(), label) \
+            .set_input_dataset(ds).train(device=device)
+        out["walls_s"]["selectors"] = time.perf_counter() - tt
+        for k, f in feats.items():
+            out[k] = sc_summary(m1, f)
+        m2 = port.Workflow().set_result_features(*feats.values(), label) \
+            .set_input_dataset(ds).with_model_stages(m1).train(device=device)
+        out["with_model_stages"] = {
+            "reused_equal": all(np.array_equal(
+                m1.score(ds)[f.name].data["probability"],
+                m2.score(ds)[f.name].data["probability"])
+                for f in feats.values()),
+            "same_fitted": all(m2.fitted[uid] is m
+                               for uid, m in m1.fitted.items()
+                               if hasattr(m, "_estimator"))}
+        X = m1.train_columns[vec.uid].device_value(device)
+        yt = torch.as_tensor(ds.column("y").astype(np.float32),
+                             device=X.device)
+        tt = time.perf_counter()
+        out["warm"] = warm_fits(port, X, yt, device)
+        out["walls_s"]["warm_fits"] = time.perf_counter() - tt
+        # the combiner: an LR selector and a tree selector
+        p_lr = sc_selector(port, [(lr, grid[:2])]).set_input(
+            label, vec).get_output()
+        p_tree = sc_selector(port, [(xgb, [{"min_child_weight": 1.0}])],
+                             seed=7).set_input(label, vec).get_output()
+        out["combiner"] = {}
+        for strategy in ("best", "weighted", "equal"):
+            comb = SelectedModelCombiner(strategy=strategy).set_input(
+                label, p_lr, p_tree).get_output()
+            tt = time.perf_counter()
+            cm = port.Workflow().set_result_features(comb, label) \
+                .set_input_dataset(ds).train(device=device)
+            fitted = cm.fitted[comb.origin_stage.uid]
+            eager = cm.score(ds)[comb.name].data
+            served = graph_scores(pc, cm, ds, device)[comb.name]
+            out["combiner"][strategy] = {
+                "weights": [fitted.weight1, fitted.weight2],
+                "served_vs_eager": float(np.abs(
+                    served["probability"] - eager["probability"]).max()),
+                "predictions_equal": bool(np.array_equal(
+                    served["prediction"], eager["prediction"])),
+                "probability": eager["probability"],
+                "wall_s": time.perf_counter() - tt}
+    # the calibrator on the app winner's scores
+    import transmogrifai_tpu_torch.types as t
+    cds = port.Dataset({"score": np.asarray(cal_scores, np.float64),
+                        "y": np.asarray(cal_label, np.float64)},
+                       {"score": t.RealNN, "y": t.RealNN})
+    s = port.FeatureBuilder.RealNN("score").from_column("score") \
+        .as_predictor()
+    y = port.FeatureBuilder.RealNN("y").from_column("y").as_response()
+    cal = port.IsotonicRegressionCalibrator().set_input(y, s).get_output()
+    calm = port.Workflow().set_result_features(cal, y) \
+        .set_input_dataset(cds).train(device=device)
+    fitted = calm.fitted[cal.origin_stage.uid]
+    eager = calm.score(cds)[cal.name].data["value"]
+    served = graph_scores(pc, calm, cds, device)[cal.name]["value"]
+    out["calibrator"] = {"knots": [fitted.boundaries, fitted.values],
+                         "served_equal_eager": bool(np.array_equal(
+                             served.astype(np.float32),
+                             eager.astype(np.float32))),
+                         "values": eager}
+    out["walls_s"]["total"] = time.perf_counter() - t0
+    return out
+
+
+def sc_compare(card: dict, cpu: dict) -> dict:
+    """Card against CPU: configs and winners equal, fold and holdout
+    metrics within SC_TOL, warm fits within the families' tolerances,
+    combiner weights within 1e-4 and probabilities within SC_TOL of their
+    family, PAV knots and calibrated values equal; served = eager on each
+    device. Returns {check: (ok, detail)}."""
+    out = {}
+    for run in ("random_grid", "lambda", "bin_score"):
+        a, b = card[run], cpu[run]
+        gaps = []
+        for (ma, fa), (_, fb) in zip(a["fold_metrics"], b["fold_metrics"]):
+            gaps.append((ma, float(np.max(np.abs(np.subtract(fa, fb))))))
+        worst = {m: max(g for mm, g in gaps if mm == m)
+                 for m in {m for m, _ in gaps}}
+        hold = max([abs(a["holdout"][k] - b["holdout"][k])
+                    for k in a["holdout"]] or [0.0])
+        ok = (a["configs"] == b["configs"] and a["winner"] == b["winner"]
+              and all(g <= SC_TOL[m] for m, g in worst.items())
+              and hold <= SC_TOL[a["winner"][0]])
+        out[run] = (ok, {"fold_gap": worst, "holdout_gap": hold,
+                         "winner": a["winner"]})
+    w = card["with_model_stages"]
+    out["with_model_stages"] = (w["reused_equal"] and w["same_fitted"], w)
+    for name, tol in (("lr_fista", 1e-4), ("lr_lbfgs", 1e-4),
+                      ("glm", 1e-4), ("linear", 1e-4), ("forest", 0.0),
+                      ("gbt", 1e-2)):
+        a, b = card["warm"][name], cpu["warm"][name]
+        if name == "gbt":  # near-tie splits: at the metric level
+            gap = float(np.abs(a["probability"] - b["probability"]).max())
+            ok = gap <= tol
+        elif name == "forest":  # integer class sums: equal tables
+            gap = max(float(np.abs(a["params"][k] - b["params"][k]).max())
+                      for k in a["params"])
+            ok = gap == 0.0
+        else:
+            gap = max(float(np.abs(a["params"][k] - b["params"][k]).max()
+                            / max(np.abs(b["params"][k]).max(), 1e-12))
+                      for k in a["params"])
+            ok = gap <= tol
+        out[f"warm:{name}"] = (ok, gap)
+    for strategy, a in card["combiner"].items():
+        b = cpu["combiner"][strategy]
+        wgap = max(abs(x - y) for x, y in zip(a["weights"], b["weights"]))
+        pgap = float(np.abs(a["probability"] - b["probability"]).max())
+        ok = (wgap <= 1e-4 and pgap <= 1e-2 and a["served_vs_eager"] <= 1e-6
+              and a["predictions_equal"] and b["served_vs_eager"] <= 1e-6)
+        out[f"combiner:{strategy}"] = (ok, {
+            "weights": a["weights"], "weight_gap": wgap,
+            "probability_gap": pgap,
+            "served_vs_eager": a["served_vs_eager"]})
+    a, b = card["calibrator"], cpu["calibrator"]
+    knots = all(np.array_equal(x, y) for x, y in zip(a["knots"], b["knots"]))
+    values = bool(np.array_equal(a["values"], b["values"]))
+    out["calibrator"] = (knots and values and a["served_equal_eager"],
+                         {"knots": int(len(a["knots"][0])),
+                          "knots_equal": knots, "values_equal": values,
+                          "served_equal_eager": a["served_equal_eager"]})
+    return out
+
+
+def aggregation_phase() -> dict:
+    """Phase 26 (c): the two aggregation examples through the port's
+    readers on the card: their rows equal `AGGREGATION_ROWS`."""
+    rows = {}
+    for name in AGGREGATION_ROWS:
+        got = aggregation_example_rows(name, device="cuda")
+        rows[name] = got == AGGREGATION_ROWS[name]
+        if not rows[name]:
+            raise AssertionError(f"{name}: rows {got} differ from "
+                                 f"{AGGREGATION_ROWS[name]}")
+    return rows
+
+
+def app_phase(port, pt) -> dict:
+    """Phase 26: the runner (a), the selector's other controls on the card
+    and on the CPU (b), the aggregation examples (c). One JSON line each;
+    a failed check raises."""
+    t0 = time.perf_counter()
+    record, model, ds, label = app_runner_phase(port, pt)
+    winner = prediction_of(model.score_compiled(ds))["probability"][:, 1]
+    y = np.asarray(ds.column("survived"), np.float64)
+    a_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    card = selector_completeness(port, winner, y, device="cuda")
+    cpu = selector_completeness(port, winner, y, device="cpu")
+    checks = sc_compare(card, cpu)
+    b_s = time.perf_counter() - t1
+    bad = [k for k, (ok, _) in checks.items() if not ok]
+    emit({"phase": "selector_completeness",
+          "checks": {k: {"ok": bool(ok), "detail": d}
+                     for k, (ok, d) in checks.items()},
+          "walls_s": {"card": card["walls_s"], "cpu": cpu["walls_s"]},
+          "ok": not bad})
+    if bad:
+        raise AssertionError(f"selector completeness: card and CPU differ "
+                             f"in {bad}")
+    t2 = time.perf_counter()
+    rows = aggregation_phase()
+    walls = {"runner": a_s, "selector_completeness": b_s,
+             "aggregation": time.perf_counter() - t2,
+             "phase": time.perf_counter() - t0}
+    emit({"phase": "aggregation_examples", "rows_equal": rows,
+          "walls_s": walls, "ok": True})
+    return walls
+
+
 def missing_parts() -> list:
     """What this run lacks before it can start: a CUDA device, and the
     port's package beside this script (a copy of `chip_smoke.py` alone in
@@ -5690,6 +6361,10 @@ def main() -> int:
           "walls_s": {"feature_validation": fv_s,
                       "wide_sanity": time.perf_counter() - t0 - fv_s}})
     wk = wide["timing"]["corr_hits"]
+
+    # 26. the runnable application, the selector's other controls and the
+    # aggregation examples ---------------------------------------------- #
+    app_phase(port, pt)
 
     # 10. the kernels line, the card, the result --------------------------- #
     main_n = timing[891]

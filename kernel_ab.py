@@ -6,6 +6,7 @@ this one's.
 
     python3 kernel_ab.py PARENT_CSRC_DIR [--cases SUBSTR ...] [--out FILE]
     python3 kernel_ab.py --wrappers PARENT_ROOT [--out FILE]
+    python3 kernel_ab.py --phases PARENT_ROOT [--profile-dir DIR] [--out FILE]
 
 Both builds take the same `nvcc` flags (`cuda_build.flags`). Each case
 runs both builds on the same inputs, checks their outputs equal bit for
@@ -28,8 +29,19 @@ the cases whose label holds one of the substrings.
 turns, parent, change, change, parent, twice; each child times the
 public calls (`confusion_counts`, `regression_moments`,
 `dequantize_wire`) eagerly and as CUDA-graph replays, medians of five
-runs of 50 calls. Prints the card's name and power limit, then one JSON
-object a case; exits 1 if any case differs.
+runs of 50 calls.
+
+--phases runs a child process a tree in the same turns, once: each child
+builds the tree's kernels and runs the tree's own `chip_smoke.py` phase
+12 (the checked default train and two more) and phase 25 (K9-hits'
+hostile cases and the wide sanity check at 50,000 x 16,384), and reports
+their walls: the trains, phase 25's, and its synthetic table's and each
+correlation type's train and checker fit. --profile-dir then runs one
+more child a tree with phase 25 under cProfile and writes its top
+functions by own time there.
+
+Prints the card's name and power limit, then one JSON object a case;
+exits 1 if any case differs.
 """
 
 import argparse
@@ -414,26 +426,36 @@ def wrapper_child() -> None:
     print(json.dumps(out), flush=True)
 
 
-def wrappers(parent_root: str) -> list:
-    """Child processes over the parent's tree and this one in turns
-    (parent, change, change, parent, twice): per call, the median of each
-    tree's runs and the least."""
+def children_in_turns(parent_root: str, child_args: list,
+                      rounds: int) -> dict:
+    """Child processes (this script with `child_args`) over the parent's
+    tree and this one in turns, parent, change, change, parent, `rounds`
+    times: {tree: [each child's last stdout line as JSON]}."""
     roots = {"parent": os.path.abspath(parent_root),
              "change": os.path.dirname(os.path.abspath(__file__))}
     runs = {"parent": [], "change": []}
-    for _ in range(2):
+    for _ in range(rounds):
         for tag in ("parent", "change", "change", "parent"):
-            env = dict(os.environ, PYTHONPATH=roots[tag])
-            res = subprocess.run(
-                # -P: the tree's package from PYTHONPATH, not this
-                # script's directory
-                [sys.executable, "-P", os.path.abspath(__file__), "--child"],
-                cwd=roots[tag], env=env, capture_output=True, text=True,
-                timeout=900)
-            if res.returncode != 0:
-                raise RuntimeError(f"the {tag} child failed:\n"
-                                   f"{res.stderr[-4000:]}")
-            runs[tag].append(json.loads(res.stdout.strip().splitlines()[-1]))
+            runs[tag].append(run_child(roots[tag], tag, child_args))
+    return runs
+
+
+def run_child(root: str, tag: str, child_args: list) -> dict:
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run(
+        # -P: the tree's package from PYTHONPATH, not this script's
+        # directory
+        [sys.executable, "-P", os.path.abspath(__file__), *child_args],
+        cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"the {tag} child failed:\n{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def wrappers(parent_root: str) -> list:
+    """The wrapper children over both trees in turns, twice: per call, the
+    median of each tree's runs and the least."""
+    runs = children_in_turns(parent_root, ["--child"], rounds=2)
     rows = []
     for label in runs["change"][0]:
         row = {"case": label, "equal": True}
@@ -446,13 +468,89 @@ def wrappers(parent_root: str) -> list:
     return rows
 
 
+def phase_child(profile_out=None) -> None:
+    """In a child process with one tree's package and `chip_smoke.py` on
+    PYTHONPATH: the script's phase 12 (the checked default train, then two
+    more) and phase 25 (K9-hits' hostile cases and the wide sanity check),
+    each as the script runs it, their checks included; the walls as one
+    JSON line. With `profile_out`, phase 25 runs under cProfile and its
+    40 functions of most own time are written there."""
+    import contextlib
+    import cProfile
+    import pstats
+    import time
+
+    import chip_smoke as cs
+    import transmogrifai_tpu_torch as port
+    from transmogrifai_tpu_torch.automl import sanity_checker as sc
+    cuda_build.build(cuda_build.SOURCES)
+    prof = cProfile.Profile() if profile_out else None
+    with contextlib.redirect_stdout(sys.stderr):  # the phases' own lines
+        _, ds, first, draws = cs.default_train_path(port, trees)
+        walls = cs.default_train_walls(port, trees, ds, draws, first)
+        t0 = time.perf_counter()
+        if prof:
+            prof.enable()
+        cs.k9_hits_hostile_check(sc, torch.device("cuda"))
+        wide = cs.wide_sanity_phase(port)
+        if prof:
+            prof.disable()
+        wide_s = time.perf_counter() - t0
+    if prof:
+        with open(profile_out, "w") as fh:
+            pstats.Stats(prof, stream=fh).sort_stats("tottime") \
+                .print_stats(40)
+    print(json.dumps({
+        "default_train_s": walls["train_s"], "wide_sanity_s": wide_s,
+        "synthetic_s": wide["synthetic_s"],
+        "types": {t: {k: v[k] for k in ("train_wall_s", "fit_s")}
+                  for t, v in wide["types"].items()}}), flush=True)
+
+
+def phases(parent_root: str, profile_dir=None) -> list:
+    """The phase children over both trees in turns, once; then, with
+    `profile_dir`, one profiled child a tree. One row a wall: each tree's
+    runs, their median and the least."""
+    runs = children_in_turns(parent_root, ["--phase-child"], rounds=1)
+    walls = {tag: [{"default_train_first_s": r["default_train_s"][0],
+                    "default_train_again_s": min(r["default_train_s"][1:]),
+                    "wide_sanity_s": r["wide_sanity_s"],
+                    "wide_synthetic_s": r["synthetic_s"],
+                    **{f"wide_{t}_{k}": v[k] for t, v in r["types"].items()
+                       for k in ("train_wall_s", "fit_s")}}
+                   for r in rs] for tag, rs in runs.items()}
+    rows = []
+    for key in walls["change"][0]:
+        row = {"case": key, "equal": True}
+        for tag in ("parent", "change"):
+            v = [w[key] for w in walls[tag]]
+            row[f"{tag}_runs"] = v
+            row[f"{tag}_median"] = statistics.median(v)
+            row[f"{tag}_least"] = min(v)
+        rows.append(row)
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        roots = {"parent": os.path.abspath(parent_root),
+                 "change": os.path.dirname(os.path.abspath(__file__))}
+        for tag, root in roots.items():
+            out = os.path.join(os.path.abspath(profile_dir),
+                               f"phase25_{tag}.prof.txt")
+            run_child(root, tag, ["--phase-child", "--profile-out", out])
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", nargs="?",
                     help="the parent's csrc/ directory (or, with "
-                         "--wrappers, its checkout's root)")
+                         "--wrappers or --phases, its checkout's root)")
     ap.add_argument("--wrappers", action="store_true")
+    ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--profile-dir", default=None)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--phase-child", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--profile-out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--cases", nargs="*", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -462,13 +560,17 @@ def main() -> int:
     if args.child:
         wrapper_child()
         return 0
+    if args.phase_child:
+        phase_child(args.profile_out)
+        return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()
-    if args.wrappers:
+    if args.wrappers or args.phases:
         print(card)
-        rows = wrappers(args.parent)
+        rows = (wrappers(args.parent) if args.wrappers
+                else phases(args.parent, args.profile_dir))
     else:
         with tempfile.TemporaryDirectory() as tmp:
             libs = {"parent": build_parent(args.parent, tmp)}

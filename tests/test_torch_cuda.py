@@ -2083,3 +2083,113 @@ def test_bucketizer_device_apply_on_the_card_equals_the_cpu(cuda, splits):
         want = stage.device_apply_with(stage.device_constants("cpu"), None,
                                        host)
         assert torch.equal(got.cpu(), want)
+
+
+def test_isotonic_calibrator_on_the_card_equals_the_cpu(cuda):
+    """The calibrator's interpolation (searchsorted and the fused
+    multiply-add of `fma_f32`) on PAV knots with repeats, scores outside
+    the range and subnormal scores: the card's bits equal the CPU's,
+    eagerly and through a CUDA-graph replay of the compiled scorer."""
+    import transmogrifai_tpu_torch as port
+    import transmogrifai_tpu_torch.types as T
+    from transmogrifai_tpu_torch.models import isotonic as pi
+    from transmogrifai_tpu_torch.workflow import compiled as pc
+    rng = np.random.default_rng(8)
+    x = np.round(rng.uniform(size=3000), 2)
+    y = (rng.uniform(size=3000) < x).astype(np.float64)
+    b, v = pi.pav_fit(x, y)
+    m = pi.IsotonicCalibratorModel(b, v)
+    xs = np.concatenate([rng.uniform(-0.2, 1.2, 20000), x,
+                         [0.0, 1e-40, -1e-45, -3.0, 3.0]]).astype(np.float32)
+    mask = np.ones(len(xs), bool)
+    got = m.device_apply_with(m.device_constants(cuda), None, [{
+        "value": torch.from_numpy(xs).to(cuda),
+        "mask": torch.from_numpy(mask).to(cuda)}])["value"].cpu()
+    want = m.device_apply_with(m.device_constants("cpu"), None, [{
+        "value": torch.from_numpy(xs), "mask": torch.from_numpy(mask)}])[
+        "value"]
+    assert cs.bits_equal(got, want)
+    ds = port.Dataset({"s": x, "y": y}, {"s": T.RealNN, "y": T.RealNN})
+    s = port.FeatureBuilder.RealNN("s").from_column("s").as_predictor()
+    lab = port.FeatureBuilder.RealNN("y").from_column("y").as_response()
+    cal = port.IsotonicRegressionCalibrator().set_input(lab, s).get_output()
+    served = {}
+    for dev in ("cuda", "cpu"):
+        model = port.Workflow().set_result_features(cal, lab) \
+            .set_input_dataset(ds).train(device=dev)
+        served[dev] = cs.graph_scores(pc, model, ds, dev)[cal.name]["value"]
+        eager = model.score(ds)[cal.name].data["value"].astype(np.float32)
+        assert np.array_equal(served[dev].astype(np.float32), eager)
+    assert np.array_equal(served["cuda"], served["cpu"])
+
+
+@pytest.mark.parametrize("strategy", ["best", "weighted", "equal"])
+def test_combiner_on_the_card_equals_the_cpu(cuda, strategy):
+    """A SelectedModelCombiner over an LR selector and a tree selector,
+    trained on the card and on the CPU: the weights within 1e-4, the
+    probabilities within 1e-2 (the tree family's tolerance), the predictions
+    served through CUDA graphs equal the eager ones and the probabilities
+    within 1e-6 of them (one rounding apart, F11)."""
+    import transmogrifai_tpu_torch as port
+    from transmogrifai_tpu_torch.selector import SelectedModelCombiner
+    from transmogrifai_tpu_torch.workflow import compiled as pc
+    ds = cs.sc_dataset(port, rows=600)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        preds, label = port.FeatureBuilder.from_dataset(ds, response="y")
+        vec = port.transmogrify(preds)
+        p1 = cs.sc_selector(port, [(port.OpLogisticRegression(max_iter=20), [
+            {"reg_param": 0.01, "elastic_net_param": 0.1}])]).set_input(
+            label, vec).get_output()
+        p2 = cs.sc_selector(port, [(port.OpXGBoostClassifier(
+            n_estimators=6, max_depth=3, eta=0.3, max_bins=16),
+            [{"min_child_weight": 1.0}])], seed=7).set_input(
+            label, vec).get_output()
+        comb = SelectedModelCombiner(strategy=strategy).set_input(
+            label, p1, p2).get_output()
+        model = port.Workflow().set_result_features(comb, label) \
+            .set_input_dataset(ds).train(device=dev)
+        fitted = model.fitted[comb.origin_stage.uid]
+        eager = model.score(ds)[comb.name].data
+        served = cs.graph_scores(pc, model, ds, dev)[comb.name]
+        assert np.array_equal(served["prediction"], eager["prediction"])
+        assert np.abs(served["probability"]
+                      - eager["probability"]).max() <= 1e-6
+        out[dev] = (fitted.weight1, fitted.weight2, eager["probability"])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-4
+    assert np.abs(out["cuda"][2] - out["cpu"][2]).max() <= 1e-2
+
+
+def test_warm_gbt_tables_on_the_card_equal_the_cpu(cuda):
+    """A GBT warm refit (the resident ensemble's margin continued by K5,
+    new rounds grown by K1-K3) on the card and on the CPU from the same
+    resident tables: splits equal, leaves within 1e-5 (f32 sums in
+    another order)."""
+    import transmogrifai_tpu_torch as port
+    from transmogrifai_tpu_torch.stages.base import FitContext
+    rng = np.random.default_rng(12)
+    X = rng.normal(size=(700, 6)).astype(np.float32)
+    y = (X[:, 0] - 0.6 * X[:, 1] + rng.normal(0, 0.5, 700) > 0) \
+        .astype(np.float32)
+    kw = dict(n_estimators=8, max_depth=3, eta=0.3, max_bins=16)
+    cold = port.OpXGBoostClassifier(**kw).fit_arrays(
+        torch.from_numpy(X[:600]), torch.from_numpy(y[:600]),
+        torch.ones(600), FitContext(n_rows=600, seed=3))
+    warm = {"edges": cold.edges, "trees": cold.trees, "learning_rate": 0.3}
+    got = {}
+    for dev in ("cuda", "cpu"):
+        est = port.OpXGBoostClassifier(**kw)
+        est.init_params = warm
+        before = pt.LAUNCHES["tree_walk"]
+        got[dev] = est.fit_arrays(
+            torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev),
+            torch.ones(700, device=dev), FitContext(n_rows=700, seed=3,
+                                                    device=dev))
+        if dev == "cuda":
+            assert pt.LAUNCHES["tree_walk"] > before
+    for k in ("feat", "bin"):
+        assert np.array_equal(got["cuda"].trees[k], got["cpu"].trees[k])
+    assert np.abs(got["cuda"].trees["leaf"]
+                  - got["cpu"].trees["leaf"]).max() <= 1e-5
+    assert got["cuda"].trees["feat"].shape[0] == 10

@@ -288,10 +288,38 @@ def test_apply_rff_raises_on_unproducible_result_features():
     assert msg.split(" making")[0] == j_msg.split(" making")[0]
 
 
+def score_reader_train(name, via_reader):
+    """The distribution-shift case through a workflow, its score rows
+    given as a dataset or read through a reader."""
+    ns = api(name)
+    if name == "jax":
+        from transmogrifai_tpu.readers import SimpleReader
+    else:
+        from transmogrifai_tpu_torch.readers import SimpleReader
+    train, score = case_datasets(ns, "distribution_shift")
+    preds, label = ns.FeatureBuilder.from_dataset(train, response="y")
+    pred = ns.models.OpLogisticRegression(max_iter=15).set_input(
+        label, ns.transmogrify(preds)).get_output()
+    source = ({"score_reader": SimpleReader(dataset=score)} if via_reader
+              else {"score_dataset": score})
+    wf = ns.Workflow().set_result_features(pred, label) \
+        .set_input_dataset(train).with_raw_feature_filter(
+            **source, **FILTER_CASES["distribution_shift"][2])
+    model = wf.train(**ns.train_kw)
+    return wf.blocklist, model.rff_results
+
+
 def test_score_reader_is_refused_until_readers_are_ported():
-    ns = api("port")
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        ns.Workflow().with_raw_feature_filter(score_reader=object())
+    """Readers are ported: `score_reader=` reads the score rows through
+    the reader, with the same outcome as `score_dataset=` and as the JAX
+    package's `score_reader=`."""
+    blocklist, res = score_reader_train("port", via_reader=True)
+    d_blocklist, d_res = score_reader_train("port", via_reader=False)
+    j_blocklist, j_res = score_reader_train("jax", via_reader=True)
+    assert blocklist == d_blocklist == j_blocklist == ["x"]
+    assert res.dropped_features == j_res.dropped_features
+    assert_same_metrics(res.metrics, d_res.metrics)
+    assert_same_metrics(res.metrics, j_res.metrics)
 
 
 # --------------------------------------------------------------------------- #

@@ -355,13 +355,26 @@ def test_random_forest_estimator_matches_jax_with_its_draws():
 
 
 def test_random_forest_refuses_what_is_not_ported():
-    X = torch.zeros((6, 2))
-    for est in (pt.OpRandomForestClassifier(n_trees=2),
-                pt.OpRandomForestRegressor(n_trees=2)):
+    """Warm starts are ported: a resident forest whose feature width no
+    longer matches the data is refused as a warm start and the fit runs
+    cold, equal to a cold fit (the JAX package's `warm_tree_compatible`
+    rule); a payload without tables raises as it does there."""
+    rng = np.random.default_rng(5)
+    X = torch.as_tensor(rng.normal(size=(40, 3)).astype(np.float32))
+    y = torch.as_tensor((rng.uniform(size=40) < 0.5).astype(np.float32))
+    stale = {"edges": np.zeros((2, 3), np.float32),
+             "trees": {"leaf": np.zeros((2, 4, 2), np.float32)}}
+    for cls in (pt.OpRandomForestClassifier, pt.OpRandomForestRegressor):
+        cold = cls(n_trees=2, max_depth=2).fit_arrays(X, y, torch.ones(40),
+                                                      None)
+        est = cls(n_trees=2, max_depth=2)
+        est.init_params = stale
+        warm = est.fit_arrays(X, y, torch.ones(40), None)
+        for k in ("feat", "bin", "leaf"):
+            np.testing.assert_array_equal(warm.trees[k], cold.trees[k])
         est.init_params = {"trees": {}}
-        with pytest.raises(NotImplementedError, match="warm starts"):
-            est.fit_arrays(X, torch.tensor([0., 1., 2., 0., 1., 2.]),
-                           torch.ones(6), None)
+        with pytest.raises(KeyError, match="edges"):
+            est.fit_arrays(X, y, torch.ones(40), None)
 
 
 @pytest.mark.parametrize("n_values", [2, 4, 11])

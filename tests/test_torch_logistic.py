@@ -101,12 +101,20 @@ def test_estimator_matches_jax_and_serializes_alike():
 
 
 def test_l2_only_logistic_raises_and_names_the_roadmap():
-    """The L-BFGS fit of α = 0 is ported; its warm start is not."""
+    """The L-BFGS fit of α = 0 and its warm start are ported: warm
+    weights of the wrong shape raise before the fit with the JAX
+    package's message (`resolve_init_params`)."""
+    X, y = torch.zeros((4, 2)), torch.tensor([0., 1., 0., 1.])
     est = pl.OpLogisticRegression(reg_param=0.1)
-    est.init_params = {"W": [[0.0, 0.0]] * 2, "b": [0.0, 0.0]}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        est.fit_arrays(torch.zeros((4, 2)), torch.tensor([0., 1., 0., 1.]),
-                       torch.ones(4), None)
+    est.init_params = {"W": [[0.0, 0.0]] * 3, "b": [0.0, 0.0]}
+    with pytest.raises(ValueError, match="does not match the data") as got:
+        est.fit_arrays(X, y, torch.ones(4), None)
+    jest = jl.OpLogisticRegression(reg_param=0.1)
+    jest.init_params = est.init_params
+    with pytest.raises(ValueError) as want:
+        jest.fit_arrays(jnp.zeros((4, 2)), jnp.asarray(y.numpy()),
+                        jnp.ones(4), None)
+    assert str(got.value) == str(want.value)
 
 
 def test_logistic_sweep_matches_jax():

@@ -934,40 +934,35 @@ def _unported_case(case):
     import torch
     from transmogrifai_tpu_torch import transmogrify
     from transmogrifai_tpu_torch import types as PT
-    from transmogrifai_tpu_torch.models import linear as pl
-    from transmogrifai_tpu_torch.models import logistic as plog
     from transmogrifai_tpu_torch.models import trees as pt
-    from transmogrifai_tpu_torch.parallel.sweep import run_sweep
+    from transmogrifai_tpu_torch.readers import DataReaders
     from transmogrifai_tpu_torch.selector import (
         BinaryClassificationModelSelector, MultiClassificationModelSelector)
     from transmogrifai_tpu_torch.stages.base import FeatureGeneratorStage
+    from transmogrifai_tpu_torch.workflow import Workflow
+    from transmogrifai_tpu_torch.workflow.params import OpParams
+    from transmogrifai_tpu_torch.workflow.runner import WorkflowRunner
 
-    X, y3 = torch.zeros((3, 2)), torch.tensor([0., 1., 2.])
     if case == "date_group":
         transmogrify([FeatureGeneratorStage(name="when",
                                             ftype=PT.Date).get_output()])
     elif case == "checkpoint":
         BinaryClassificationModelSelector.with_cross_validation(
             models=[(pt.OpXGBoostClassifier(), GRID)], checkpoint_dir="x")
-    elif case == "sweep_family":
-        run_sweep(object(), [{}], torch.zeros((4, 2)), torch.zeros(4), [],
-                  None, None)
-    elif case == "gbt_warm_start":
-        est = pt.OpGBTClassifier()
-        est.init_params = {"trees": {}}
-        est.fit_arrays(X, y3, torch.ones(3), None)
-    elif case == "forest_warm_start":
-        est = pt.OpRandomForestClassifier()
-        est.init_params = {"trees": {}}
-        est.fit_arrays(X, y3, torch.ones(3), None)
-    elif case == "logistic_warm_start":
-        est = plog.OpLogisticRegression(reg_param=0.1)
-        est.init_params = {"W": [[0.0] * 3] * 2, "b": [0.0] * 3}
-        est.fit_arrays(X, y3, torch.ones(3), None)
-    elif case == "warm_start":
-        est = pl.OpLinearRegression(reg_param=0.1)
-        est.init_params = {"beta": [0.0, 0.0]}
-        est.fit_arrays(X, y3, torch.ones(3), None)
+    elif case == "avro_reader":
+        DataReaders.avro("x.avro").read()
+    elif case == "parquet_reader":
+        DataReaders.stream(parquet_path="x.parquet").read()
+    elif case in ("streaming_score", "serve"):
+        WorkflowRunner(Workflow(), device="cpu").run(
+            case.replace("_", "-"), OpParams())
+    elif case in ("sweep_checkpoint", "perf_model"):
+        label = FeatureGeneratorStage(name="y", ftype=PT.RealNN,
+                                      is_response=True).get_output()
+        block = ({"checkpoint_dir": "x"} if case == "sweep_checkpoint"
+                 else {"min_rows": 4})
+        (Workflow().set_result_features(label)
+         .set_parameters({case: block}).train(device="cpu"))
     elif case == "multiclass_checkpoint":
         MultiClassificationModelSelector.with_train_validation_split(
             checkpoint_dir="x")
@@ -975,10 +970,11 @@ def _unported_case(case):
 
 @pytest.mark.parametrize("case,match", [
     ("date_group", "'date' group"), ("checkpoint", "checkpoint"),
-    ("sweep_family", "object"), ("gbt_warm_start", "warm starts"),
-    ("forest_warm_start", "warm starts"),
-    ("logistic_warm_start", "warm starts"),
-    ("warm_start", "warm starts"), ("multiclass_checkpoint", "checkpoint")])
+    ("avro_reader", "queue 1, item 2"), ("parquet_reader", "pyarrow"),
+    ("streaming_score", "queue 1, item 10"), ("serve", "queue 1, item 10"),
+    ("sweep_checkpoint", "queue 1, item 7"),
+    ("perf_model", "queue 1, item 10"),
+    ("multiclass_checkpoint", "checkpoint")])
 def test_unported_paths_raise_and_name_themselves(case, match):
     with pytest.raises(NotImplementedError, match=match):
         _unported_case(case)

@@ -10,7 +10,14 @@ multiclass XGBoost), and serves the models that it or the JAX package
 (`transmogrifai_tpu`) trained, on an NVIDIA GPU (Hopper). Feature
 validation runs at the reference's full scope: the RawFeatureFilter,
 workflow-level CV, Pearson or Spearman sanity checks at any width, and
-the numeric bucketizers. Out of core
+the numeric bucketizers. It runs as an application (`workflow/runner.py`:
+`WorkflowRunner` over an `OpParams` JSON, with a trace, an event log, a
+run profile and a goodput report), reads through readers with
+event-time aggregation (`readers/`, `aggregators.py`), warm-starts every
+family, sweeps random grids, custom evaluators and unknown estimator
+classes (the host-metric fallbacks), blends selectors
+(`SelectedModelCombiner`) and calibrates scores
+(`IsotonicRegressionCalibrator`). Out of core
 (`parallel/bigdata.py`) it streams a memmapped columnar store into
 resident bf16 and int8 matrices and fits the elastic-net grid, lockstep
 forests and boosting at millions of rows. The tree learner's histograms,
@@ -41,15 +48,20 @@ the caller passes ``device="cpu"``.
 """
 
 from transmogrifai_tpu_torch import dsl  # noqa: F401  (attaches the DSL)
+from transmogrifai_tpu_torch.aggregators import CutOffTime, Event
 from transmogrifai_tpu_torch.automl.transmogrify import transmogrify
 from transmogrifai_tpu_torch.data.dataset import Dataset
 from transmogrifai_tpu_torch.features.feature import FeatureBuilder
 from transmogrifai_tpu_torch.models import (
-    OpDecisionTreeClassifier, OpDecisionTreeRegressor, OpGBTClassifier,
+    IsotonicRegressionCalibrator, OpDecisionTreeClassifier, OpDecisionTreeRegressor, OpGBTClassifier,
     OpGBTRegressor, OpGeneralizedLinearRegression, OpLinearRegression,
     OpLinearSVC, OpLogisticRegression, OpMultilayerPerceptronClassifier,
     OpNaiveBayes, OpRandomForestClassifier, OpRandomForestRegressor,
     OpXGBoostClassifier, OpXGBoostRegressor)
+from transmogrifai_tpu_torch.readers import DataReaders
+from transmogrifai_tpu_torch.selector.combiner import SelectedModelCombiner
+from transmogrifai_tpu_torch.selector.grids import (
+    ParamGridBuilder, RandomParamBuilder)
 from transmogrifai_tpu_torch.selector.model_selector import (
     BinaryClassificationModelSelector, MultiClassificationModelSelector,
     RegressionModelSelector)
@@ -57,7 +69,9 @@ from transmogrifai_tpu_torch.workflow.serialization import (
     from_jax_params, load_model)
 from transmogrifai_tpu_torch.workflow.workflow import Workflow, WorkflowModel
 
-__all__ = ["BinaryClassificationModelSelector", "Dataset", "FeatureBuilder",
+__all__ = ["BinaryClassificationModelSelector", "CutOffTime", "DataReaders",
+           "Dataset", "Event", "FeatureBuilder",
+           "IsotonicRegressionCalibrator",
            "MultiClassificationModelSelector", "OpDecisionTreeClassifier",
            "OpDecisionTreeRegressor", "OpGBTClassifier", "OpGBTRegressor",
            "OpGeneralizedLinearRegression", "OpLinearRegression",
@@ -65,5 +79,7 @@ __all__ = ["BinaryClassificationModelSelector", "Dataset", "FeatureBuilder",
            "OpMultilayerPerceptronClassifier", "OpNaiveBayes",
            "OpRandomForestClassifier", "OpRandomForestRegressor",
            "OpXGBoostClassifier", "OpXGBoostRegressor",
-           "RegressionModelSelector", "Workflow", "WorkflowModel",
+           "ParamGridBuilder", "RandomParamBuilder",
+           "RegressionModelSelector", "SelectedModelCombiner", "Workflow",
+           "WorkflowModel",
            "from_jax_params", "load_model", "transmogrify"]

@@ -425,6 +425,7 @@ class RawFeatureFilter:
         if not drop_keys:
             return dataset
         ds = dataset
+        pre = getattr(dataset, "pre_extracted", None)
         for name, keys in drop_keys.items():
             if name not in ds.columns:
                 continue
@@ -435,4 +436,6 @@ class RawFeatureFilter:
                 new[i] = ({k: x for k, x in v.items() if k not in kset}
                           if isinstance(v, dict) else v)
             ds = ds.with_column(name, new, ds.schema[name])
+        if pre is not None:
+            ds.pre_extracted = set(pre)  # with_column keeps no marking
         return ds

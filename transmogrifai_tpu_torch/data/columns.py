@@ -21,7 +21,7 @@ stage's `host_prepare` (see stages.base). Host data stays numpy.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -158,6 +158,28 @@ class Column:
     # ------------------------------------------------------------------ #
     # access                                                             #
     # ------------------------------------------------------------------ #
+
+    def to_values(self) -> List[T.FeatureType]:
+        """Row-level typed values (tests and local scoring), as the JAX
+        package's `Column.to_values` gives them."""
+        k = self.kind
+        n = len(self)
+        if k == SCALAR:
+            val = to_host(self.data["value"])
+            mask = to_host(self.data["mask"])
+            return [self.ftype(val[i].item() if mask[i] else None)
+                    for i in range(n)]
+        if k == VECTOR:
+            arr = to_host(self.data)
+            return [T.OPVector(arr[i]) for i in range(n)]
+        if k == PREDICTION:
+            d = {key: to_host(a) for key, a in self.data.items()}
+            return [T.Prediction.build(
+                float(d["prediction"][i]),
+                raw_prediction=np.asarray(d["rawPrediction"][i]).tolist(),
+                probability=np.asarray(d["probability"][i]).tolist())
+                for i in range(n)]
+        return [self.ftype(self.data[i]) for i in range(n)]
 
     def take(self, idx) -> "Column":
         """Row subset (numpy fancy index or bool mask)."""

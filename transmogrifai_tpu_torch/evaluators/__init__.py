@@ -1,5 +1,6 @@
 from transmogrifai_tpu_torch.evaluators.evaluators import (
-    BinaryClassificationEvaluator, Evaluator, MultiClassificationEvaluator,
+    BinaryClassificationEvaluator, BinScoreEvaluator, Evaluator, Evaluators,
+    ForecastEvaluator, LambdaEvaluator, MultiClassificationEvaluator,
     RegressionEvaluator)
 from transmogrifai_tpu_torch.evaluators.metrics import (
     BinaryClassificationMetrics, MultiClassificationMetrics,
@@ -7,7 +8,8 @@ from transmogrifai_tpu_torch.evaluators.metrics import (
     multiclass_metrics, regression_metrics)
 
 __all__ = ["BinaryClassificationEvaluator", "BinaryClassificationMetrics",
-           "Evaluator", "MultiClassificationEvaluator",
+           "BinScoreEvaluator", "Evaluator", "Evaluators",
+           "ForecastEvaluator", "LambdaEvaluator", "MultiClassificationEvaluator",
            "MultiClassificationMetrics", "RegressionEvaluator",
            "RegressionMetrics", "aupr_score", "auroc_score",
            "binary_metrics", "multiclass_metrics", "regression_metrics"]

@@ -565,7 +565,9 @@ def make_device_metric(evaluator, n_classes=None):
     """metric_fn(y, preds, masks) -> (P,) values for the sweep: `preds` is
     one prediction dict per pair and `masks` (P, n) the pairs' validation
     rows. A multiclass or regression group takes one launch of K8-mc or
-    K8-reg for all its pairs; the binary metrics sort per pair."""
+    K8-reg for all its pairs; the binary metrics sort per pair. None for
+    an evaluator with no device metric (the sweep then scores on the
+    host, as the JAX package does)."""
     from transmogrifai_tpu_torch.evaluators.evaluators import (
         BinaryClassificationEvaluator, MultiClassificationEvaluator,
         RegressionEvaluator)
@@ -599,6 +601,6 @@ def make_device_metric(evaluator, n_classes=None):
             pred = torch.stack([p["prediction"] for p in preds])
             return regression_dev(y, pred, masks)[metric]
         return fn
-    raise NotImplementedError(
-        f"{type(evaluator).__name__}: only the binary, multiclass and "
-        "regression evaluators are ported")
+    # no device metric for this evaluator (bin score, forecast, custom
+    # lambdas): the sweep scores on the host (`HostMetricFallback`)
+    return None

@@ -82,13 +82,16 @@ class Feature:
 class _TypedBuilder:
     """`FeatureBuilder.Real("age")`-style factory (FeatureBuilder.scala):
     a named dataset column or a per-record extract function, as a
-    predictor or the response."""
+    predictor or the response, with the monoid an aggregating reader
+    folds its events by (`aggregate`)."""
 
     def __init__(self, name: str, ftype: type):
         self.name = name
         self.ftype = ftype
         self._extract: Optional[Callable[[Dict[str, Any]], Any]] = None
         self._column: Optional[str] = None
+        self._aggregator = None
+        self._aggregate_window = None
 
     def extract(self, fn: Callable[[Dict[str, Any]], Any]
                 ) -> "_TypedBuilder":
@@ -99,11 +102,23 @@ class _TypedBuilder:
         self._column = column
         return self
 
+    def aggregate(self, aggregator, window: Optional[int] = None
+                  ) -> "_TypedBuilder":
+        """The monoid (`aggregators.py`) an aggregating reader folds this
+        feature's events with, and its own time window in ms."""
+        self._aggregator = aggregator
+        self._aggregate_window = window
+        return self
+
     def _build(self, is_response: bool) -> Feature:
         from transmogrifai_tpu_torch.stages.base import FeatureGeneratorStage
-        return FeatureGeneratorStage(
+        stage = FeatureGeneratorStage(
             name=self.name, ftype=self.ftype, extract=self._extract,
-            column=self._column, is_response=is_response).get_output()
+            column=self._column, is_response=is_response)
+        if self._aggregator is not None:
+            stage.params["aggregator"] = self._aggregator
+            stage.params["aggregate_window"] = self._aggregate_window
+        return stage.get_output()
 
     def as_predictor(self) -> Feature:
         return self._build(is_response=False)

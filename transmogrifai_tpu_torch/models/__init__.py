@@ -1,9 +1,10 @@
-"""The port's model families, under the JAX package's names
-(`transmogrifai_tpu/models/__init__.py`; `IsotonicRegressionCalibrator`
-is not ported yet)."""
+"""The port's model families and the isotonic calibrator, under the JAX
+package's names (`transmogrifai_tpu/models/__init__.py`)."""
 
 from transmogrifai_tpu_torch.models.base import (
     PredictionModel, PredictorEstimator)
+from transmogrifai_tpu_torch.models.isotonic import (
+    IsotonicCalibratorModel, IsotonicRegressionCalibrator)
 from transmogrifai_tpu_torch.models.glm import (
     GLMModel, OpGeneralizedLinearRegression)
 from transmogrifai_tpu_torch.models.linear import (
@@ -33,4 +34,5 @@ __all__ = [
     "OpRandomForestClassifier", "OpRandomForestRegressor",
     "OpGBTClassifier", "OpGBTRegressor",
     "OpXGBoostClassifier", "OpXGBoostRegressor",
+    "IsotonicRegressionCalibrator", "IsotonicCalibratorModel",
 ]

@@ -39,7 +39,8 @@ class PredictionModel(Transformer):
 class PredictorEstimator(Estimator):
     """Base for model estimators. Subclasses implement `fit_arrays(X, y,
     w, ctx)` over tensors on the fit's device; `w` is a per-row weight
-    vector. Warm starts (`init_params`) are not ported yet."""
+    vector. `init_params` warm-starts a fit from earlier fitted weights
+    (the linear families) or tree tables (forests and boosting)."""
 
     in_types = (T.RealNN, T.OPVector)
     out_type = T.Prediction
@@ -82,8 +83,35 @@ def infer_n_classes(y: np.ndarray) -> int:
 
 Param = Union[float, int, Sequence[float], torch.Tensor]
 
-# where ROADMAP.md queues the warm starts the estimators raise on
-WARM_STARTS = "queue 1: selector and workflow completeness"
+
+def resolve_init_params(est: PredictorEstimator,
+                        explicit: Optional[Dict[str, Any]],
+                        expect_shapes: Dict[str, tuple], device
+                        ) -> Optional[Dict[str, torch.Tensor]]:
+    """Warm-start weights for a fit, as f32 tensors on `device`: the
+    explicit `init_params=` argument wins over the estimator's
+    `init_params` attribute. Shapes are checked against the incoming
+    data first, so a refit whose feature width changed fails with the
+    JAX package's message, not inside the fit."""
+    warm = explicit if explicit is not None else est.init_params
+    if warm is None:
+        return None
+    out: Dict[str, torch.Tensor] = {}
+    for name, shape in expect_shapes.items():
+        if name not in warm:
+            raise ValueError(
+                f"{type(est).__name__}: init_params missing {name!r} "
+                f"(have {sorted(warm)})")
+        arr = torch.as_tensor(np.asarray(warm[name], np.float32),
+                              device=device)
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(
+                f"{type(est).__name__}: init_params[{name!r}] shape "
+                f"{tuple(arr.shape)} does not match the data "
+                f"({tuple(shape)}) — warm start requires an unchanged "
+                f"feature/class layout; refit cold instead")
+        out[name] = arr
+    return out
 
 
 def per_pair(v: Param, P: int, device, dtype=torch.float32) -> torch.Tensor:

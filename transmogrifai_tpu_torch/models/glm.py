@@ -18,7 +18,8 @@ import torch
 
 from transmogrifai_tpu_torch.models import lbfgs
 from transmogrifai_tpu_torch.models.base import (
-    WARM_STARTS, Param, PredictionModel, PredictorEstimator, per_pair,
+    Param, PredictionModel, PredictorEstimator, per_pair,
+    resolve_init_params,
     regression_pred)
 from transmogrifai_tpu_torch.models.linear import (
     RegressionHead, narrow_head)
@@ -124,7 +125,8 @@ def _link_fwd(family: str, mu, link: Optional[str] = None,
 
 def fit_glm(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: Param,
             family: str = "gaussian", max_iter: int = 100,
-            var_power: float = 1.5, link: Optional[str] = None
+            var_power: float = 1.5, link: Optional[str] = None,
+            init_params: Optional[Dict[str, torch.Tensor]] = None
             ) -> Dict[str, torch.Tensor]:
     """P fits at once over one matrix X (n, d): labels y (n,), row weights
     w (P, n) (or (n,)), l2 one value or one per pair. Returns {"beta": (P,
@@ -132,7 +134,9 @@ def fit_glm(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: Param,
 
     The JAX package's `fit_glm`: β starts at zero and b at g(Σw·y /
     max(Σw, 1)); `max_iter` L-BFGS steps minimize Σ w·nll(g⁻¹(Xβ + b), y) /
-    max(Σw, 1) + l2/2·‖β‖²."""
+    max(Σw, 1) + l2/2·‖β‖². `init_params` {"beta": (d,), "b": ()} starts
+    every pair there instead (a warm start: the weights already sit in
+    the link's domain)."""
     w = w[None, :] if w.dim() == 1 else w
     P, d = w.shape[0], X.shape[1]
     l2 = per_pair(l2, P, X.device)
@@ -152,7 +156,11 @@ def fit_glm(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: Param,
         return value.detach(), grad
 
     x0 = torch.zeros((P, d + 1), dtype=torch.float32, device=X.device)
-    x0[:, d] = b0
+    if init_params is None:
+        x0[:, d] = b0
+    else:
+        x0[:, :d] = init_params["beta"]
+        x0[:, d] = init_params["b"].reshape(())
     x = lbfgs.minimize(value_and_grad, x0, max_iter)
     return {"beta": x[:, :d], "b": x[:, d]}
 
@@ -222,13 +230,13 @@ class OpGeneralizedLinearRegression(PredictorEstimator):
         self.var_power = var_power
         self.link = link
 
-    def fit_arrays(self, X, y, w, ctx) -> GLMModel:
-        if self.init_params is not None:
-            raise NotImplementedError(
-                "GLM warm starts are not ported yet (ROADMAP.md, "
-                f"{WARM_STARTS})")
+    def fit_arrays(self, X, y, w, ctx,
+                   init_params: Optional[Dict] = None) -> GLMModel:
         link = self.link or canonical_link(self.family)
+        warm = resolve_init_params(self, init_params,
+                                   {"beta": (X.shape[1],), "b": ()},
+                                   X.device)
         p = fit_glm(X, y, w, float(self.reg_param), self.family,
-                    self.max_iter, self.var_power, link)
+                    self.max_iter, self.var_power, link, init_params=warm)
         return GLMModel(p["beta"][0].cpu().numpy(), float(p["b"][0]),
                         self.family, link, self.var_power)

@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from transmogrifai_tpu_torch.models.base import (
-    WARM_STARTS, Param, PredictionModel, PredictorEstimator, per_pair,
-    regression_pred)
+    Param, PredictionModel, PredictorEstimator, per_pair, regression_pred,
+    resolve_init_params)
 from transmogrifai_tpu_torch.models.logistic import _fista_momenta
 
 
@@ -52,7 +52,8 @@ def _power_lipschitz_pairs(Xs: torch.Tensor, wsum: torch.Tensor,
 
 
 def fit_linreg_enet(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-                    l1: Param, l2: Param, max_iter: int = 300
+                    l1: Param, l2: Param, max_iter: int = 300,
+                    init_params: Optional[Dict[str, torch.Tensor]] = None
                     ) -> Dict[str, torch.Tensor]:
     """Elastic-net weighted least squares by FISTA for P fits at once over
     one matrix X (n, d): labels y (n,), row weights w (P, n) (or (n,)),
@@ -62,8 +63,9 @@ def fit_linreg_enet(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     The JAX package's `fit_linreg_enet`: on data centered by the weighted
     means, the smooth part 0.5/Σw·Σ w(Xc β − yc)² + 0.5·l2·‖β‖² steps by
     1/L with L = 1.05·λmax(Xcᵀ W Xc)/Σw + l2 + 1e-8, the L1 prox
-    soft-thresholds β by step·l1, `max_iter` momentum steps run from zero,
-    and the intercept is ȳ − x̄·β."""
+    soft-thresholds β by step·l1, `max_iter` momentum steps run from zero
+    (or from `init_params` {"beta": (d,)}, a warm start), and the
+    intercept is ȳ − x̄·β."""
     w = w[None, :] if w.dim() == 1 else w
     P = w.shape[0]
     dev = X.device
@@ -75,7 +77,10 @@ def fit_linreg_enet(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     step = (1.0 / L)[:, None]
     wsum = wsum[:, None]
     Xt = Xc.transpose(1, 2)
-    b = torch.zeros((P, X.shape[1]), dtype=torch.float32, device=dev)
+    if init_params is None:
+        b = torch.zeros((P, X.shape[1]), dtype=torch.float32, device=dev)
+    else:
+        b = init_params["beta"].expand(P, X.shape[1]).clone()
     bm = b
     for beta in _fista_momenta(max_iter).tolist():
         r = (torch.bmm(Xc, bm[:, :, None])[:, :, 0] - yc) * w
@@ -166,16 +171,20 @@ class OpLinearRegression(PredictorEstimator):
         self.reg_param = reg_param
         self.elastic_net_param = elastic_net_param
 
-    def fit_arrays(self, X, y, w, ctx) -> LinearRegressionModel:
-        if self.init_params is not None:
-            raise NotImplementedError(
-                "linear regression warm starts are not ported yet "
-                f"(ROADMAP.md, {WARM_STARTS})")
+    def fit_arrays(self, X, y, w, ctx,
+                   init_params: Optional[Dict] = None
+                   ) -> LinearRegressionModel:
         alpha = float(self.elastic_net_param)
         reg = float(self.reg_param)
         if alpha > 0.0:
-            p = fit_linreg_enet(X, y, w, reg * alpha, reg * (1.0 - alpha))
+            warm = resolve_init_params(self, init_params,
+                                       {"beta": (X.shape[1],)}, X.device)
+            p = fit_linreg_enet(X, y, w, reg * alpha, reg * (1.0 - alpha),
+                                init_params=warm)
         else:
+            # the closed-form ridge solve is exact: a warm start has
+            # nothing to continue from, so init_params is accepted and
+            # ignored, as in the JAX package
             p = fit_linreg(X, y, w, reg)
         return LinearRegressionModel(p["beta"][0].cpu().numpy(),
                                      float(p["intercept"][0]))

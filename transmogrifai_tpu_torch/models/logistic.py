@@ -7,9 +7,9 @@ Plain torch: the fits' cost is two dense products per step or line-search
 trial (`X @ W` and `Xᵀ @ R`, batched over a leading pair axis P of
 (config, fold) pairs), which the JAX package also computes as plain dots,
 and an elementwise tail over (n, k) and (d, k) values per pair. The
-products run in exact f32: the port never enables TF32.
-
-Not ported yet: warm starts.
+products run in exact f32: the port never enables TF32. A warm start
+(`init_params` {"W", "b"}) starts either fit from earlier weights instead
+of zero, as the JAX package's continual refit does.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ import torch
 
 from transmogrifai_tpu_torch.models import lbfgs
 from transmogrifai_tpu_torch.models.base import (
-    WARM_STARTS, Param, PredictionModel, PredictorEstimator,
-    infer_n_classes, per_pair)
+    Param, PredictionModel, PredictorEstimator, infer_n_classes, per_pair,
+    resolve_init_params)
 
 
 def logreg_loss(params: Dict[str, torch.Tensor], X: torch.Tensor,
@@ -39,7 +39,8 @@ def logreg_loss(params: Dict[str, torch.Tensor], X: torch.Tensor,
 
 
 def fit_logreg(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: Param,
-               n_classes: int, max_iter: int = 100
+               n_classes: int, max_iter: int = 100,
+               init_params: Optional[Dict[str, torch.Tensor]] = None
                ) -> Dict[str, torch.Tensor]:
     """Pure-L2 multinomial logistic regression by L-BFGS for P fits at once
     over one matrix X (n, d): labels y (n,), row weights w (P, n) (or
@@ -49,7 +50,8 @@ def fit_logreg(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: Param,
     The JAX package's `fit_logreg`: `logreg_loss` minimized from zero by
     `max_iter` steps of optax's L-BFGS (`models/lbfgs.py`), with the
     gradient written out: (softmax − Y)·w/Σw gives Xᵀ(·) + l2·W and the
-    column sums for b."""
+    column sums for b. `init_params` {"W": (d, k), "b": (k,)} starts every
+    pair there instead of at zero (a warm start)."""
     w = w[None, :] if w.dim() == 1 else w
     P, (n, d) = w.shape[0], X.shape
     k = n_classes
@@ -68,8 +70,13 @@ def fit_logreg(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: Param,
         gW = torch.matmul(Xt, R) + l2[:, None, None] * W
         return value, torch.cat([gW.reshape(P, d * k), R.sum(1)], 1)
 
-    x = lbfgs.minimize(value_and_grad, torch.zeros(
-        (P, d * k + k), dtype=torch.float32, device=X.device), max_iter)
+    if init_params is None:
+        x0 = torch.zeros((P, d * k + k), dtype=torch.float32,
+                         device=X.device)
+    else:
+        x0 = torch.cat([init_params["W"].reshape(d * k),
+                        init_params["b"]]).expand(P, d * k + k).clone()
+    x = lbfgs.minimize(value_and_grad, x0, max_iter)
     return {"W": x[:, :d * k].reshape(P, d, k), "b": x[:, d * k:]}
 
 
@@ -106,7 +113,9 @@ def _fista_momenta(max_iter: int) -> np.ndarray:
 
 def fit_logreg_enet(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                     l1: Param, l2: Param, n_classes: int,
-                    max_iter: int = 200) -> Dict[str, torch.Tensor]:
+                    max_iter: int = 200,
+                    init_params: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Elastic-net multinomial logistic regression by FISTA for P fits at
     once over one matrix X (n, d): labels y (n,), row weights w (P, n) (or
     (n,)), penalties l1 = reg·α and l2 = reg·(1 − α) one value or one per
@@ -116,7 +125,8 @@ def fit_logreg_enet(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     softmax cross-entropy + l2/2·‖W‖²) steps by 1/L with L = 0.525 ·
     λmax(Xᵀ W X)/Σw + l2 + 1e-8 (`_power_lipschitz`), the L1 prox
     soft-thresholds W by step·l1, the bias is unpenalized, and `max_iter`
-    momentum steps run from zero."""
+    momentum steps run from zero, or from `init_params` {"W": (d, k), "b":
+    (k,)} (a warm start: the momentum restarts there)."""
     w = w[None, :] if w.dim() == 1 else w
     P, (n, d) = w.shape[0], X.shape
     dev = X.device
@@ -129,8 +139,12 @@ def fit_logreg_enet(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     wsum = wsum[:, None, None]
     wr = w[:, :, None]
     Xt = X.T
-    W = torch.zeros((P, d, n_classes), dtype=torch.float32, device=dev)
-    b = torch.zeros((P, 1, n_classes), dtype=torch.float32, device=dev)
+    if init_params is None:
+        W = torch.zeros((P, d, n_classes), dtype=torch.float32, device=dev)
+        b = torch.zeros((P, 1, n_classes), dtype=torch.float32, device=dev)
+    else:
+        W = init_params["W"].expand(P, d, n_classes).clone()
+        b = init_params["b"].expand(P, 1, n_classes).clone()
     Wm, bm = W, b
     for beta in _fista_momenta(max_iter).tolist():
         p = torch.softmax(torch.matmul(X, Wm) + bm, dim=-1)
@@ -217,19 +231,22 @@ class OpLogisticRegression(PredictorEstimator):
         self.elastic_net_param = elastic_net_param
         self.n_classes = n_classes
 
-    def fit_arrays(self, X, y, w, ctx) -> LogisticRegressionModel:
+    def fit_arrays(self, X, y, w, ctx,
+                   init_params: Optional[Dict] = None
+                   ) -> LogisticRegressionModel:
         k = self.n_classes or infer_n_classes(y.cpu().numpy())
+        warm = resolve_init_params(self, init_params,
+                                   {"W": (X.shape[1], k), "b": (k,)},
+                                   X.device)
         alpha = float(self.elastic_net_param)
-        if self.init_params is not None:
-            raise NotImplementedError(
-                "logistic warm starts are not ported yet (ROADMAP.md, "
-                f"{WARM_STARTS})")
         reg = float(self.reg_param)
         if alpha > 0.0:
             params = fit_logreg_enet(X, y, w, reg * alpha,
                                      reg * (1.0 - alpha), k,
-                                     enet_iters(self.max_iter))
+                                     enet_iters(self.max_iter),
+                                     init_params=warm)
         else:
-            params = fit_logreg(X, y, w, reg, k, self.max_iter)
+            params = fit_logreg(X, y, w, reg, k, self.max_iter,
+                                init_params=warm)
         return LogisticRegressionModel(params["W"][0].cpu().numpy(),
                                        params["b"][0].cpu().numpy())

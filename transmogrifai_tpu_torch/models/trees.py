@@ -45,8 +45,7 @@ from transmogrifai_tpu_torch import cuda_build
 from transmogrifai_tpu_torch.evaluators.device_metrics import (
     binned_aupr, sigmoid)
 from transmogrifai_tpu_torch.models.base import (
-    WARM_STARTS, Param, PredictionModel, PredictorEstimator,
-    binary_margin_pred, infer_n_classes, per_pair, regression_pred)
+    Param, PredictionModel, PredictorEstimator, binary_margin_pred, infer_n_classes, per_pair, regression_pred)
 from transmogrifai_tpu_torch.stages.base import div_const
 
 log = logging.getLogger(__name__)
@@ -1510,7 +1509,8 @@ def fit_gbt_pairs(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                   val_w: Optional[torch.Tensor] = None,
                   early_stopping_rounds: int = 0, min_gain_norm: Param = 0.0,
                   eval_metric: str = "logloss", keep_trees: bool = False,
-                  objective: str = "logistic"):
+                  objective: str = "logistic",
+                  margin0: Optional[torch.Tensor] = None):
     """Boost P binary or regression GBT fits at once over one binned
     matrix Xb (n, d): labels y (n,), row weights w (P, n) and, for early
     stopping, held-out weights val_w (P, n). Every hyperparameter is one
@@ -1518,7 +1518,8 @@ def fit_gbt_pairs(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     `trees` is {"feat", "bin": (P, rounds, depth, 2^depth) int32, "leaf":
     (P, rounds, 2^depth, 1) f32} with `keep_trees`, else None.
 
-    The JAX package's `_gbt_scan` from a zero margin: per round, for the
+    The JAX package's `_gbt_scan` from a zero margin (or from `margin0`
+    (P, n), a warm start's resident margin): per round, for the
     "logistic" objective gradients g = (p − y)·w and hessians
     max(p(1 − p), 1e-6)·w of the sigmoid margin, for "squared" g =
     (margin − y)·w and h = w; one tree per pair on (−g, h), margin += lr ·
@@ -1547,7 +1548,8 @@ def fit_gbt_pairs(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     if bool((sub < 1.0).any()) or bool((col < 1.0).any()):
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
-    margin = torch.zeros((P, n), dtype=torch.float32, device=dev)
+    margin = (torch.zeros((P, n), dtype=torch.float32, device=dev)
+              if margin0 is None else margin0.to(torch.float32).clone())
     best = torch.full((P,), float("inf"), dtype=torch.float32, device=dev)
     since = torch.zeros((P,), dtype=torch.int32, device=dev)
     kept: List[Dict[str, torch.Tensor]] = []
@@ -1755,6 +1757,110 @@ def forest_regression_pred(trees: Dict[str, torch.Tensor],
 
 
 # --------------------------------------------------------------------------- #
+# warm-start refits                                                           #
+# --------------------------------------------------------------------------- #
+
+def warm_tree_compatible(warm: Dict, X, n_classes: Optional[int] = None,
+                         max_bins: Optional[int] = None) -> bool:
+    """Whether a tree warm-start payload fits the incoming data (the JAX
+    package's rule): the resident bin edges match the feature width, the
+    estimator's `max_bins` covers every resident bin id, and for
+    classification the resident leaves cover every observed class.
+    False: the caller fits cold."""
+    edges = np.asarray(warm["edges"])
+    d = int(X.shape[1])
+    if int(edges.shape[0]) != d:
+        log.info("tree warm refit: feature width changed (%d -> %d); "
+                 "fitting cold", int(edges.shape[0]), d)
+        return False
+    if max_bins is not None and int(edges.shape[1]) + 1 > int(max_bins):
+        log.info("tree warm refit: resident edges bin to %d buckets but "
+                 "the estimator's max_bins is %d; fitting cold",
+                 int(edges.shape[1]) + 1, int(max_bins))
+        return False
+    if n_classes is not None:
+        leaf = np.asarray(warm["trees"]["leaf"])
+        if int(leaf.shape[-1]) < int(n_classes):
+            log.info("tree warm refit: resident leaves are %d-class but "
+                     "the data has %d classes; fitting cold",
+                     int(leaf.shape[-1]), int(n_classes))
+            return False
+    return True
+
+
+def warm_refit_forest(est, warm: Dict, X: torch.Tensor, y: torch.Tensor,
+                      w: torch.Tensor, ctx, classification: bool
+                      ) -> Dict[str, np.ndarray]:
+    """Forest warm refit (the JAX package's `warm_refit_forest`): grow
+    replacement trees on the delta rows (the last `warm["delta_rows"]`
+    rows, all rows without it) under the resident bin edges, and swap
+    them in for the oldest trees, so the ensemble keeps its size.
+    `warm["n_new"]` trees, else round(n_trees · delta / n), at least one.
+    The replacements draw with seed + n_trees (fresh draws)."""
+    dev = X.device
+    edges = torch.as_tensor(np.asarray(warm["edges"], np.float32),
+                            device=dev)
+    old = {k: np.asarray(v) for k, v in warm["trees"].items()}
+    n_trees = int(old["feat"].shape[0])
+    n = int(X.shape[0])
+    delta = int(warm.get("delta_rows") or 0)
+    if not (0 < delta <= n):
+        delta = n
+    n_new = int(warm.get("n_new") or 0)
+    if n_new <= 0:
+        n_new = max(1, round(n_trees * delta / max(n, 1)))
+    n_new = min(n_new, n_trees)
+    Xb = bin_features(X[-delta:], edges)
+    yd, wd = y[-delta:], w[-delta:]
+    if classification:
+        Y = torch.nn.functional.one_hot(
+            yd.long(), int(old["leaf"].shape[-1])).to(torch.float32)
+    else:
+        Y = yd[:, None]
+    seed = (ctx.seed if ctx is not None else 0) + n_trees
+    new = fit_forest(Xb, Y, wd, n_new, est.max_depth, est.max_bins, seed,
+                     est.subsample_features, est._effective_mcw(),
+                     min_gain=est.min_info_gain)
+    return {k: np.concatenate([old[k][n_new:], new[k][0].cpu().numpy()])
+            for k in ("feat", "bin", "leaf")}
+
+
+def warm_refit_gbt(est, warm: Dict, X: torch.Tensor, y: torch.Tensor,
+                   w: torch.Tensor, ctx, objective: str
+                   ) -> Dict[str, np.ndarray]:
+    """GBT warm refit (the JAX package's `warm_refit_gbt`): continue
+    boosting from the resident ensemble's margin under its bin edges and
+    learning rate, and append the new rounds' trees: `warm["n_new"]`
+    rounds, else n_estimators // 4, at least one, at most up to twice
+    n_estimators in all; no early stopping. Row and feature sampling draw
+    with seed + the resident round count."""
+    dev = X.device
+    edges = torch.as_tensor(np.asarray(warm["edges"], np.float32),
+                            device=dev)
+    old = {k: np.asarray(v) for k, v in warm["trees"].items()}
+    n_old = int(old["feat"].shape[0])
+    lr = float(warm.get("learning_rate", est.learning_rate))
+    Xb = bin_features(X, edges)
+    margin0 = predict_gbt_margin(
+        {k: torch.from_numpy(np.array(v)).to(dev) for k, v in old.items()},
+        Xb, lr)
+    n_extra = int(warm.get("n_new") or 0)
+    if n_extra <= 0:
+        n_extra = max(1, est.n_estimators // 4)
+    n_extra = min(n_extra, max(1, 2 * int(est.n_estimators) - n_old))
+    seed = (ctx.seed if ctx is not None else 0) + n_old
+    new, _, _ = fit_gbt_pairs(
+        Xb, y, w[None, :], n_extra, est.max_depth, est.max_bins, lr,
+        est.reg_lambda, est._effective_mcw(), gamma=est.gamma,
+        alpha=est.alpha, subsample=est.subsample,
+        colsample=est.colsample_bytree, seed=seed,
+        min_gain_norm=est.min_info_gain, eval_metric=est.eval_metric,
+        keep_trees=True, objective=objective, margin0=margin0[None, :])
+    return {k: np.concatenate([old[k], new[k][0].cpu().numpy()])
+            for k in ("feat", "bin", "leaf")}
+
+
+# --------------------------------------------------------------------------- #
 # stage classes                                                               #
 # --------------------------------------------------------------------------- #
 
@@ -1879,10 +1985,13 @@ class OpRandomForestClassifier(_TreeEstimatorBase):
     """Spark RandomForestClassifier parameter surface (the JAX package's
     `OpRandomForestClassifier`): `min_info_gain` is the normalized gain
     threshold and `min_instances_per_node` the child-weight bound, grid
-    axes of the default sweep. k classes grow trees on k class channels;
-    warm starts are not ported yet."""
+    axes of the default sweep. k classes grow trees on k class channels.
+    A warm start (`init_params` {"edges", "trees"} of a fitted forest)
+    replaces the oldest trees with trees grown on the delta rows
+    (`warm_refit_forest`)."""
 
     _bootstrap = True  # Poisson(1) row counts per tree; decision trees: no
+    _warm_refit = True  # decision trees fit cold, as in the JAX package
 
     def __init__(self, n_trees: int = 20, max_depth: int = 5,
                  max_bins: int = DEFAULT_MAX_BINS,
@@ -1911,14 +2020,25 @@ class OpRandomForestClassifier(_TreeEstimatorBase):
 
     def fit_arrays(self, X, y, w, ctx):
         k = self.n_classes or infer_n_classes(y.cpu().numpy())
+        warm = self._warm_forest(X, y, w, ctx, k)
+        if warm is not None:
+            return ForestClassificationModel(*warm)
         Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
         return ForestClassificationModel(*self._fit_forest(X, Y, w, ctx))
 
+    def _warm_forest(self, X, y, w, ctx, n_classes=None):
+        """(edges, trees) of the warm refit when `init_params` holds a
+        compatible resident forest, else None (a cold fit)."""
+        warm = self.init_params
+        if (not self._warm_refit or warm is None or "trees" not in warm
+                or not warm_tree_compatible(warm, X, n_classes=n_classes,
+                                            max_bins=self.max_bins)):
+            return None
+        return (np.asarray(warm["edges"], np.float32),
+                warm_refit_forest(self, warm, X, y, w, ctx,
+                                  classification=n_classes is not None))
+
     def _fit_forest(self, X, Y, w, ctx):
-        if self.init_params is not None:
-            raise NotImplementedError(
-                "forest warm starts are not ported yet (ROADMAP.md, "
-                f"{WARM_STARTS})")
         edges, Xb = self._edges_binned(X, ctx)
         trees = fit_forest(Xb, Y, w, self.n_trees, self.max_depth,
                            self.max_bins, ctx.seed if ctx is not None else 0,
@@ -1934,6 +2054,9 @@ class OpRandomForestRegressor(OpRandomForestClassifier):
     leaf is the bootstrap-weighted mean label of its rows."""
 
     def fit_arrays(self, X, y, w, ctx):
+        warm = self._warm_forest(X, y, w, ctx)
+        if warm is not None:
+            return ForestRegressionModel(*warm)
         return ForestRegressionModel(*self._fit_forest(X, y[:, None], w,
                                                        ctx))
 
@@ -1943,6 +2066,7 @@ class OpDecisionTreeClassifier(OpRandomForestClassifier):
     JAX package's `OpDecisionTreeClassifier`)."""
 
     _bootstrap = False
+    _warm_refit = False
 
     def __init__(self, max_depth: int = 5, max_bins: int = DEFAULT_MAX_BINS,
                  min_child_weight: float = 1.0, min_info_gain: float = 0.0,
@@ -1966,6 +2090,7 @@ class OpDecisionTreeRegressor(OpRandomForestRegressor):
     `OpDecisionTreeRegressor`)."""
 
     _bootstrap = False
+    _warm_refit = False
 
     def __init__(self, max_depth: int = 5, max_bins: int = DEFAULT_MAX_BINS,
                  min_child_weight: float = 1.0, min_info_gain: float = 0.0,
@@ -1986,7 +2111,11 @@ class OpGBTClassifier(_TreeEstimatorBase):
     """Gradient-boosted classifier, XGBoost-style second order (the JAX
     package's `OpGBTClassifier`): binary by the sigmoid margin, k > 2
     classes by softmax boosting (K trees per round, every round, no early
-    stopping). Warm starts are not ported yet."""
+    stopping). A binary or regression warm start (`init_params` {"edges",
+    "trees", "learning_rate"} of a fitted GBT) continues boosting from the
+    resident margin (`warm_refit_gbt`); a multiclass one, one at twice
+    n_estimators rounds or an incompatible one fits cold, as in the JAX
+    package."""
 
     # the refit's early-stopping holdout: a seeded 20% of the rows
     _ES_EVAL_FRACTION = 0.2
@@ -2049,10 +2178,22 @@ class OpGBTClassifier(_TreeEstimatorBase):
     def fit_arrays(self, X, y, w, ctx):
         k = (self.n_classes or infer_n_classes(y.cpu().numpy())
              if self._objective == "logistic" else 2)
-        if self.init_params is not None:
-            raise NotImplementedError(
-                "GBT warm starts are not ported yet (ROADMAP.md, "
-                f"{WARM_STARTS})")
+        warm = self.init_params
+        if warm is not None and "trees" in warm:
+            n_resident = int(np.asarray(warm["trees"]["feat"]).shape[0])
+            if k > 2:
+                log.info("GBT warm refit: the multiclass stacked-round "
+                         "layout has no margin continuation; fitting cold")
+            elif n_resident >= 2 * self.n_estimators:
+                log.info("GBT warm refit: resident ensemble at the 2x "
+                         "growth cap (%d rounds, n_estimators=%d); fitting "
+                         "cold", n_resident, self.n_estimators)
+            elif warm_tree_compatible(warm, X, max_bins=self.max_bins):
+                trees = warm_refit_gbt(self, warm, X, y, w, ctx,
+                                       self._objective)
+                return self._model_cls(
+                    np.asarray(warm["edges"], np.float32), trees,
+                    float(warm.get("learning_rate", self.learning_rate)))
         edges, Xb = self._edges_binned(X, ctx)
         seed = ctx.seed if ctx is not None else 0
         if k > 2:  # softmax boosting: every round, no early stopping

@@ -11,7 +11,9 @@ Metric names and labels are the JAX package's.
 
 Not ported yet (ROADMAP queue 1, item 10): gauges, histograms with
 exemplars, the JSON and Prometheus exports, snapshots and cross-replica
-merges, and the rest of `obs/` (traces, goodput, SLOs).
+merges, and the rest of `obs/` (request traces, flight recorder, SLOs;
+the run timeline, its exports and goodput are `trace.py`, `export.py`
+and `goodput.py`).
 
 All mutation is lock-protected: builders on several threads count into
 the same registry.

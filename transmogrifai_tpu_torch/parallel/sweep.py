@@ -16,20 +16,28 @@ serves every pair. Tree families bin the training matrix once per
 each config's depth to its bucket (`_depth_bucket`), stopping its own
 trees at its own depth. Each run of pairs is scored by one call of the
 device metric over all its pairs (one launch of K8-mc or K8-reg for a
-multiclass or regression group).
+multiclass or regression group). An evaluator with no device metric
+(bin score, forecast, custom lambdas) keeps the batched fits on the
+device and scores on the host (`HostMetricFallback`: each block's
+predictions move to the host in one copy); an estimator class the
+dispatch does not know runs the generic per-config loop
+(`_sweep_generic`) over its own `fit_arrays` and `predict_arrays`. Every
+static group runs in a ``sweep:block`` span (`obs/trace.py`).
 
-Not ported (ROADMAP.md): the journal and checkpoints, the calibration of
-dispatch widths, the mesh and the generic host-metric fallback.
+Not ported (ROADMAP.md): the journal and checkpoints (queue 1, item 7),
+the calibration of dispatch widths and the mesh (item 9).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from transmogrifai_tpu_torch import types as T
+from transmogrifai_tpu_torch.data.columns import Column
 from transmogrifai_tpu_torch.evaluators.device_metrics import (
     make_device_metric)
 from transmogrifai_tpu_torch.models.base import (
@@ -53,6 +61,7 @@ from transmogrifai_tpu_torch.models.trees import (
     forest_classification_pred, forest_regression_pred,
     gbt_multiclass_pred_from_margin, gbt_pred_from_margin,
     quantile_bin_edges)
+from transmogrifai_tpu_torch.obs.trace import TRACER
 
 Pred = Dict[str, torch.Tensor]
 
@@ -80,6 +89,39 @@ def _pad_depth_of(est, grids, idxs) -> int:
         max(int(_grid_param(est, grids[i], "max_depth")) for i in idxs))
 
 
+class HostMetricFallback:
+    """The metric_fn marker of an evaluator with no device metric: the
+    batched fit and predict run on the device as for any evaluator, and
+    each pair's metric is the host evaluator's (the JAX package's
+    `HostMetricFallback`)."""
+
+    def __init__(self, evaluator):
+        self.evaluator = evaluator
+
+
+def _metric(evaluator, y: np.ndarray, pred: Dict[str, np.ndarray],
+            val_mask: np.ndarray) -> float:
+    """The host evaluator's metric of one pair's predictions on its
+    fold's validation rows."""
+    idx = np.asarray(val_mask) > 0.5
+    label = Column(T.RealNN, {
+        "value": y[idx], "mask": np.ones(int(idx.sum()), dtype=bool)})
+    pcol = Column(T.Prediction, {k: np.asarray(v)[idx]
+                                 for k, v in pred.items()})
+    return evaluator.metric_value(label, pcol)
+
+
+def _host_metrics(metric_fn: HostMetricFallback, y_np: np.ndarray,
+                  preds: Sequence[Pred], masks: np.ndarray) -> List[float]:
+    """The host metric of each pair of a block: the block's predictions
+    move to the host once, stacked along the pair axis."""
+    stacked = {k: torch.stack([p[k] for p in preds]).cpu().numpy()
+               for k in preds[0]}
+    return [_metric(metric_fn.evaluator, y_np,
+                    {k: v[t] for k, v in stacked.items()}, masks[t])
+            for t in range(len(preds))]
+
+
 def _sweep_blocks(grids: List[Dict], y: torch.Tensor, W: torch.Tensor,
                   V: torch.Tensor, metric_fn, ctx, family: str,
                   static_of: Callable[[Dict], Tuple],
@@ -93,9 +135,14 @@ def _sweep_blocks(grids: List[Dict], y: torch.Tensor, W: torch.Tensor,
     one list per dynamic parameter (one entry per pair) and the result is
     one prediction dict per pair, and score each pair's prediction on its
     fold's validation rows, all pairs of the run in one `metric_fn(y,
-    preds, masks)` call. Groups run in the order their first config
-    appears; each group's seconds land in `ctx._sweep_seconds`."""
+    preds, masks)` call (or on the host, pair by pair, for a
+    `HostMetricFallback`). Groups run in the order their first config
+    appears, each in a ``sweep:block`` span; each group's seconds land in
+    `ctx._sweep_seconds`."""
     n_folds = W.shape[0]
+    host = isinstance(metric_fn, HostMetricFallback)
+    y_np = y.cpu().numpy() if host else None
+    V_np = V.cpu().numpy() if host else None
     groups: Dict[Tuple, List[int]] = {}
     for i, g in enumerate(grids):
         groups.setdefault(static_of(g), []).append(i)
@@ -106,18 +153,25 @@ def _sweep_blocks(grids: List[Dict], y: torch.Tensor, W: torch.Tensor,
         t0 = time.perf_counter()
         pairs = [(i, f) for i in idxs for f in range(n_folds)]
         width = pair_width(static, idxs) if pair_width else len(pairs)
-        for s in range(0, len(pairs), max(1, width)):
-            chunk = pairs[s:s + width]
-            dyn = [dyn_of(grids[i]) for i, _ in chunk]
-            cols = {k: [dd[k] for dd in dyn] for k in dyn[0]}
-            fs = torch.as_tensor([f for _, f in chunk], device=W.device)
-            Vsel = V[fs]
-            preds = fit_predict(static, idxs, cols, W[fs], Vsel)
-            vals = metric_fn(y, preds, Vsel).tolist()
-            for t, (i, f) in enumerate(chunk):
-                metrics[i][f] = float(vals[t])
-        if y.is_cuda:
-            torch.cuda.synchronize(y.device)
+        with TRACER.span("sweep:block", category="sweep", family=family,
+                         static=repr(static), configs=len(idxs)):
+            for s in range(0, len(pairs), max(1, width)):
+                chunk = pairs[s:s + width]
+                dyn = [dyn_of(grids[i]) for i, _ in chunk]
+                cols = {k: [dd[k] for dd in dyn] for k in dyn[0]}
+                fsel = [f for _, f in chunk]
+                fs = torch.as_tensor(fsel, device=W.device)
+                Vsel = V[fs]
+                preds = fit_predict(static, idxs, cols, W[fs], Vsel)
+                if host:
+                    vals = _host_metrics(metric_fn, y_np, preds,
+                                         V_np[fsel])
+                else:
+                    vals = metric_fn(y, preds, Vsel).tolist()
+                for t, (i, f) in enumerate(chunk):
+                    metrics[i][f] = float(vals[t])
+            if y.is_cuda:
+                torch.cuda.synchronize(y.device)
         if seconds is not None:
             seconds[f"{family}:{static}"] = time.perf_counter() - t0
     return metrics
@@ -407,7 +461,38 @@ def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
                          pair_width=pair_width)
 
 
-def _dispatch(est) -> Callable:
+def _sweep_generic(est, grids: List[Dict], X: torch.Tensor,
+                   y: torch.Tensor,
+                   folds: Sequence[Tuple[np.ndarray, np.ndarray]],
+                   evaluator, ctx) -> List[List[float]]:
+    """The fallback for an estimator class `_dispatch` does not know: a
+    loop over configs and folds, each config's clone fitted by its own
+    `fit_arrays(X, y, w, ctx)` with the fold's training rows as the 0/1
+    weights w (the JAX package passes them as its fit's row weights too),
+    predicted by `predict_arrays(X)` and scored by the host evaluator on
+    the fold's validation rows. Each config runs in a ``sweep:block``
+    span."""
+    y_np = y.cpu().numpy()
+    out: List[List[float]] = []
+    for grid in grids:
+        with TRACER.span("sweep:block", category="sweep",
+                         family=type(est).__name__, configs=1):
+            clone = type(est)(**{**{k: v for k, v in est.params.items()
+                                    if k != "uid"}, **grid})
+            row = []
+            for tr, va in folds:
+                w = torch.as_tensor(np.asarray(tr, np.float32),
+                                    device=X.device)
+                model = clone.fit_arrays(X, y, w, ctx)
+                pred = model.predict_arrays(X)
+                row.append(_metric(evaluator, y_np,
+                                   {k: v.cpu().numpy()
+                                    for k, v in pred.items()}, va))
+        out.append(row)
+    return out
+
+
+def _dispatch(est) -> Optional[Callable]:
     # order matters: subclasses before parents
     if isinstance(est, OpGBTClassifier):  # and the GBT/XGB regressors
         return _sweep_gbt
@@ -427,20 +512,23 @@ def _dispatch(est) -> Callable:
         return _sweep_nb
     if isinstance(est, OpMultilayerPerceptronClassifier):
         return _sweep_mlp
-    raise NotImplementedError(
-        f"{type(est).__name__}: the sweep knows no handler for this class, "
-        "and the generic host-metric fallback is not ported yet "
-        "(ROADMAP.md, queue 1)")
+    return None
 
 
 def run_sweep(est, grids: List[Dict], X: torch.Tensor, y: torch.Tensor,
               folds: Sequence[Tuple[np.ndarray, np.ndarray]], evaluator,
               ctx) -> List[List[float]]:
-    """Metric matrix [grid][fold] for one model family, on X's device."""
+    """Metric matrix [grid][fold] for one model family, on X's device: the
+    family's batched handler, or `_sweep_generic` for a class it does not
+    know; the device metric, or the host evaluator's
+    (`HostMetricFallback`) for an evaluator without one."""
     handler = _dispatch(est)
+    if handler is None:
+        return _sweep_generic(est, grids, X, y, folds, evaluator, ctx)
     n_classes = getattr(est, "n_classes", None) or infer_n_classes(
         y.cpu().numpy())
-    metric_fn = make_device_metric(evaluator, n_classes=n_classes)
+    metric_fn = (make_device_metric(evaluator, n_classes=n_classes)
+                 or HostMetricFallback(evaluator))
     W = torch.as_tensor(np.stack([tr for tr, _ in folds]), device=X.device)
     V = torch.as_tensor(np.stack([va for _, va in folds]), device=X.device)
     return handler(est, grids, X, y, W, V, metric_fn, ctx, n_classes)

@@ -1,3 +1,7 @@
+from transmogrifai_tpu_torch.selector.combiner import (
+    SelectedCombinerModel, SelectedModelCombiner)
+from transmogrifai_tpu_torch.selector.grids import (
+    ParamGridBuilder, RandomParamBuilder)
 from transmogrifai_tpu_torch.selector.model_selector import (
     BinaryClassificationModelSelector, ModelSelector, ModelSelectorSummary,
     MultiClassificationModelSelector, RegressionModelSelector,
@@ -11,4 +15,6 @@ __all__ = ["BinaryClassificationModelSelector", "DataBalancer",
            "DataCutter", "DataSplitter", "ModelSelector",
            "ModelSelectorSummary", "MultiClassificationModelSelector",
            "OpCrossValidation", "OpTrainValidationSplit",
-           "RegressionModelSelector", "ValidationResult"]
+           "ParamGridBuilder", "RandomParamBuilder",
+           "RegressionModelSelector", "SelectedCombinerModel",
+           "SelectedModelCombiner", "ValidationResult"]

@@ -6,8 +6,9 @@ data (holdout reserve, then label balancing or label pruning), run
 each family's sweep (`parallel/sweep.py`) over the folds, refit the
 winner on the whole prepared training set, evaluate it on the training
 and holdout rows, and return the fitted model with a
-`ModelSelectorSummary`. Families run one after another; a family that
-fails is dropped, as in the reference.
+`ModelSelectorSummary`. Families run one after another, each in a
+``sweep:family:<class>`` span; a family that fails is dropped, as in the
+reference.
 
 Under workflow-level CV (`ctx.cv_refit`, set by `Workflow.train`) the
 feature DAG before the selector is refit inside each fold and each
@@ -37,6 +38,7 @@ from transmogrifai_tpu_torch.models.logistic import OpLogisticRegression
 from transmogrifai_tpu_torch.models.trees import (
     OpGBTRegressor, OpRandomForestClassifier, OpRandomForestRegressor,
     OpXGBoostClassifier)
+from transmogrifai_tpu_torch.obs.trace import TRACER
 from transmogrifai_tpu_torch.parallel.sweep import run_sweep
 from transmogrifai_tpu_torch.selector.splitters import (
     DataBalancer, DataCutter, DataSplitter)
@@ -118,7 +120,7 @@ class ModelSelector(Estimator):
         if checkpoint_dir is not None:
             raise NotImplementedError(
                 "ModelSelector: sweep checkpoints and journals are not "
-                "ported yet (ROADMAP.md, training slice, queued)")
+                "ported yet (ROADMAP.md queue 1, item 7)")
         self.models = list(models)
         self.validator = validator or OpCrossValidation()
         self.splitter = splitter
@@ -174,8 +176,10 @@ class ModelSelector(Estimator):
         for mi, (est, grids) in enumerate(self.models):
             tf = time.perf_counter()
             try:
-                grid_fold = run_sweep(est, grids, X, y_dev, folds,
-                                      self.evaluator, ctx)
+                with TRACER.span(f"sweep:family:{type(est).__name__}",
+                                 category="sweep_family", grids=len(grids)):
+                    grid_fold = run_sweep(est, grids, X, y_dev, folds,
+                                          self.evaluator, ctx)
             except NotImplementedError:
                 raise
             except Exception:
@@ -212,8 +216,12 @@ class ModelSelector(Estimator):
                     continue
                 tf = time.perf_counter()
                 try:
-                    gm = run_sweep(est, grids, X_fold, y_dev, [(tr, va)],
-                                   self.evaluator, ctx)
+                    with TRACER.span(
+                            f"sweep:family:{type(est).__name__}",
+                            category="sweep_family", grids=len(grids),
+                            fold=fi):
+                        gm = run_sweep(est, grids, X_fold, y_dev,
+                                       [(tr, va)], self.evaluator, ctx)
                 except NotImplementedError:
                     raise
                 except Exception:

@@ -215,6 +215,18 @@ def mul_add_const(x: torch.Tensor, a: float, b: float) -> torch.Tensor:
     return a32 * x + b32
 
 
+def add_scaled_const(a: torch.Tensor, w1: float, b: torch.Tensor,
+                     w2: float) -> torch.Tensor:
+    """w1·a + w2·b for fitted constants w1 and w2, rounded as the JAX
+    package rounds it: inside the compiled scorer as one fused
+    multiply-add of w1·a onto the rounded product w2·b (XLA's CPU program
+    contracts it so), elsewhere product by product."""
+    w1, w2 = float(np.float32(w1)), float(np.float32(w2))
+    if getattr(_scoring, "on", False):
+        return fma_f32(torch.full_like(a, w1), a, w2 * b)
+    return w1 * a + w2 * b
+
+
 def to_device(enc: Any, device) -> Any:
     """Move a host pytree (numpy arrays in dicts/lists) onto `device` as
     tensors; non-array leaves pass through."""
@@ -366,6 +378,12 @@ class FeatureGeneratorStage(Stage):
 
     def materialize(self, dataset, allow_missing_response: bool = False
                     ) -> Column:
+        if self.feature_name in getattr(dataset, "pre_extracted", ()) and \
+                self.feature_name in dataset.columns:
+            # an aggregating reader already folded the events to final
+            # typed values keyed by feature name (readers/readers.py)
+            return Column.from_values(
+                self.ftype, dataset.column(self.feature_name))
         if self.extract is not None:
             values = [self.extract(row) for row in dataset.to_rows()]
             return Column.from_values(self.ftype, values)

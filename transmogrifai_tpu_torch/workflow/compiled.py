@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import logging
+import time
 import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -56,6 +57,7 @@ from transmogrifai_tpu_torch import types as T
 from transmogrifai_tpu_torch.data.columns import Column, to_host
 from transmogrifai_tpu_torch.data.dataset import Dataset
 from transmogrifai_tpu_torch.features.dag import topological_layers
+from transmogrifai_tpu_torch.obs.trace import TRACER, add_event
 from transmogrifai_tpu_torch.stages.base import (
     HOST_KINDS, FeatureGeneratorStage, Transformer, compiled_scoring,
     fma_f32, is_host_stage, to_device)
@@ -425,6 +427,17 @@ def _flatten(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
     return [(path, tree)]
 
 
+def _tree_nbytes(tree: Any) -> int:
+    """Bytes of the array leaves of a pytree (numpy arrays and tensors)."""
+    total = 0
+    for _, x in _flatten(tree):
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, np.ndarray):
+            total += x.nbytes
+    return total
+
+
 def _unflatten(tree: Any, leaves: Dict[str, Any], path: str = "") -> Any:
     if isinstance(tree, dict):
         return {k: _unflatten(v, leaves, f"{path}/{k}")
@@ -643,18 +656,30 @@ class CompiledScorer:
                   vals: Dict[str, Any], graphs: bool) -> Dict[str, Any]:
         """Run device segment `seg_idx` on its inputs (host numpy leaves
         and device tensors): as the CUDA graph of these inputs' signature
-        when `graphs` (captured at the first call), else eagerly."""
+        when `graphs` (captured at the first call), else eagerly. Inside a
+        trace span each dispatch adds a ``device_dispatch`` event with the
+        bytes in and out and the host seconds to enqueue it, as the JAX
+        package's scorer does (goodput's `scoring` section)."""
+        t0 = time.perf_counter()
         if not graphs:
-            return self._run_segment(seg_idx, to_device(encs, self.device),
-                                     to_device(vals, self.device))
-        leaves = _flatten((encs, vals))
-        key = (seg_idx, tuple((p, _leaf_key(x)) for p, x in leaves))
-        with torch.cuda.device(self.device):
-            g = self._graph_cache.get(key)
-            if g is None:
-                g = _SegmentGraph(self, seg_idx, (encs, vals))
-                self._graph_cache[key] = g
-            return g.run(leaves)
+            out = self._run_segment(seg_idx, to_device(encs, self.device),
+                                    to_device(vals, self.device))
+        else:
+            leaves = _flatten((encs, vals))
+            key = (seg_idx, tuple((p, _leaf_key(x)) for p, x in leaves))
+            with torch.cuda.device(self.device):
+                g = self._graph_cache.get(key)
+                if g is None:
+                    g = _SegmentGraph(self, seg_idx, (encs, vals))
+                    self._graph_cache[key] = g
+                out = g.run(leaves)
+        if TRACER.current() is not None:
+            add_event("device_dispatch", segment=self.segment_ops(seg_idx),
+                      bytes_in=_tree_nbytes((encs, vals)),
+                      bytes_out=_tree_nbytes(out),
+                      dispatch_s=round(time.perf_counter() - t0, 6),
+                      quant=self.quant.mode if self.quant else None)
+        return out
 
     def _fused_index(self) -> int:
         """Index of the single trailing device segment, or raise."""

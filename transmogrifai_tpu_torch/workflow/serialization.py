@@ -230,6 +230,7 @@ def _ensure_stage_library() -> None:
     """Import every ported stage module so the registry knows them."""
     import transmogrifai_tpu_torch.automl.sanity_checker  # noqa: F401
     import transmogrifai_tpu_torch.models.glm  # noqa: F401
+    import transmogrifai_tpu_torch.models.isotonic  # noqa: F401
     import transmogrifai_tpu_torch.models.linear  # noqa: F401
     import transmogrifai_tpu_torch.models.linear_svc  # noqa: F401
     import transmogrifai_tpu_torch.models.logistic  # noqa: F401
@@ -245,6 +246,7 @@ def _ensure_stage_library() -> None:
     import transmogrifai_tpu_torch.ops.rowops  # noqa: F401
     import transmogrifai_tpu_torch.ops.scalers  # noqa: F401
     import transmogrifai_tpu_torch.ops.text  # noqa: F401
+    import transmogrifai_tpu_torch.selector.combiner  # noqa: F401
     import transmogrifai_tpu_torch.selector.model_selector  # noqa: F401
 
 

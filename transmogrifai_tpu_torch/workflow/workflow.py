@@ -1,15 +1,22 @@
 """Workflow (train) and WorkflowModel (score, save).
 
 The port's counterpart of the JAX package's `workflow/workflow.py`.
-`Workflow.train` materializes the raw features, then fits the feature DAG
-layer by layer on a private copy: each estimator fits on its inputs'
-columns and its fitted model transforms them for the next layer. A
+`Workflow.train` materializes the raw features (from a dataset, or
+through a reader: `set_reader`), then fits the feature DAG layer by layer
+on a private copy: each estimator fits on its inputs' columns and its
+fitted model transforms them for the next layer, each fit and transform
+in a ``stage:fit:<op>`` / ``stage:transform:<op>`` span. A
 RawFeatureFilter (`with_raw_feature_filter`) first drops unhealthy raw
 features and rewires the DAG around them; workflow-level CV
 (`with_workflow_cv`) refits the estimators that feed a ModelSelector
-inside each of its folds. `train` returns a `WorkflowModel`, whose `score` walks the fitted DAG eagerly and
-whose `score_compiled` runs the planned scorer (`workflow/compiled.py`),
-and whose `save` writes the JAX package's on-disk format.
+inside each of its folds; warm starts (`with_model_stages`) reuse an
+earlier model's fitted stages. Workflow parameters (`set_parameters`,
+`workflow/params.py`) override stage params and install the run's
+feature-cache policy. `train` returns a `WorkflowModel`, whose `score`
+walks the fitted DAG eagerly, whose `score_compiled` runs the planned
+scorer (`workflow/compiled.py`), whose `evaluate` scores a dataset
+against an evaluator, and whose `save` writes the JAX package's on-disk
+format.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from transmogrifai_tpu_torch.data.dataset import Dataset
 from transmogrifai_tpu_torch.device import DeviceLike, resolve_device
 from transmogrifai_tpu_torch.features.dag import (
     clone_graph, rewire_without, topological_layers)
-from transmogrifai_tpu_torch.models.base import WARM_STARTS
+from transmogrifai_tpu_torch.obs.trace import TRACER
 from transmogrifai_tpu_torch.stages.base import (
     Estimator, FeatureGeneratorStage, FitContext, Transformer,
     is_host_stage)
@@ -41,11 +48,13 @@ class Workflow:
     def __init__(self):
         self.result_features: Tuple = ()
         self._dataset: Optional[Dataset] = None
+        self._reader = None
         self.parameters: Dict[str, Any] = {}
         self._rff = None
-        self._rff_score_dataset: Optional[Dataset] = None
+        self._rff_score_source = None
         self.blocklist: List[str] = []
         self._workflow_cv = False
+        self._warm_models: Dict[str, Transformer] = {}
 
     def set_result_features(self, *features) -> "Workflow":
         self.result_features = tuple(features)
@@ -55,10 +64,35 @@ class Workflow:
         self._dataset = dataset
         return self
 
+    def set_reader(self, reader) -> "Workflow":
+        """Read the training data through `reader` (`readers/`) when no
+        dataset is given: aggregating readers fold each key's events
+        through the raw features' monoids."""
+        self._reader = reader
+        return self
+
     def set_parameters(self, params) -> "Workflow":
-        """Workflow parameters; none is ported yet, so any parameter
-        raises at train time."""
-        self.parameters = dict(params)
+        """An OpParams or a plain dict (`workflow/params.py`):
+        `stage_params` overrides apply to the DAG's stages at train time,
+        `feature_cache` installs the run's cache policy for the train's
+        extent; `sweep_checkpoint`, `continual` and `perf_model` blocks
+        raise at train time, naming their ROADMAP items."""
+        from transmogrifai_tpu_torch.workflow.params import OpParams
+        if isinstance(params, OpParams):
+            self.parameters = params.to_json()
+        else:
+            self.parameters = dict(params)
+        return self
+
+    def with_model_stages(self, model: "WorkflowModel",
+                          exclude: Sequence[str] = ()) -> "Workflow":
+        """Warm start (OpWorkflow.withModelStages): estimators whose uid
+        matches a fitted stage of `model` reuse that fitted transformer
+        instead of refitting, so only new estimators train. Uids in
+        `exclude` refit even when a fitted stage exists."""
+        skip = set(exclude)
+        self._warm_models.update({uid: m for uid, m in model.fitted.items()
+                                  if uid not in skip})
         return self
 
     def with_workflow_cv(self) -> "Workflow":
@@ -74,24 +108,35 @@ class Workflow:
                                 score_reader=None,
                                 **rff_params) -> "Workflow":
         """Run a RawFeatureFilter (`rff_params` are its arguments) before
-        training: raw features whose train (and, given `score_dataset`,
-        score) distributions fail its rules are dropped, and the DAG is
-        rewired around them."""
+        training: raw features whose train (and, given `score_dataset` or
+        `score_reader`, score) distributions fail its rules are dropped,
+        and the DAG is rewired around them."""
         from transmogrifai_tpu_torch.automl.raw_feature_filter import (
             RawFeatureFilter)
-        if score_reader is not None:
-            raise NotImplementedError(
-                "with_raw_feature_filter(score_reader=...): readers are not "
-                "ported yet (ROADMAP.md, queue 1, item 2); pass "
-                "score_dataset")
         self._rff = RawFeatureFilter(**rff_params)
-        self._rff_score_dataset = score_dataset
+        self._rff_score_source = (score_dataset, score_reader)
         return self
 
-    def with_model_stages(self, *args, **kwargs) -> "Workflow":
-        raise NotImplementedError(
-            "warm starts (with_model_stages) are not ported yet "
-            f"(ROADMAP.md, {WARM_STARTS})")
+    def _resolve_dataset(self, dataset: Optional[Dataset]) -> Dataset:
+        ds = dataset if dataset is not None else self._dataset
+        if ds is None and self._reader is not None:
+            ds = self._reader.read(self._raw_features())
+        if ds is None:
+            raise RuntimeError(
+                "No input data: call set_input_dataset / set_reader or pass "
+                "a dataset to train()")
+        return ds
+
+    def _refuse_unported_parameters(self) -> None:
+        from transmogrifai_tpu_torch.workflow.params import (
+            CONTINUAL_REFUSAL, PERF_MODEL_REFUSAL, SWEEP_CHECKPOINT_REFUSAL)
+        p = self.parameters
+        if (p.get("sweep_checkpoint") or {}).get("checkpoint_dir"):
+            raise NotImplementedError(SWEEP_CHECKPOINT_REFUSAL)
+        if p.get("continual") is not None:
+            raise NotImplementedError(CONTINUAL_REFUSAL)
+        if p.get("perf_model") is not None:
+            raise NotImplementedError(PERF_MODEL_REFUSAL)
 
     def train(self, dataset: Optional[Dataset] = None, seed: int = 42,
               device: DeviceLike = "cuda") -> "WorkflowModel":
@@ -99,27 +144,31 @@ class Workflow:
         `device` (default CUDA; raises without it unless
         ``device="cpu"``). The returned model scores on the same device
         and carries `stage_seconds`: (stage, seconds) per fitted stage,
-        fit and transform together."""
+        fit and transform together. A `feature_cache` parameter is the
+        process-default cache policy for the train's extent."""
+        from transmogrifai_tpu_torch.data.feature_cache import cache_scope
         dev = resolve_device(device)
         if not self.result_features:
             raise RuntimeError("set_result_features before train()")
-        if self.parameters:
-            raise NotImplementedError(
-                f"workflow parameters {sorted(self.parameters)} are not "
-                "ported yet (stage_params, sweep checkpoints and the rest: "
-                "ROADMAP.md, queue 1: selector and workflow completeness "
-                "and the sweep journal)")
-        ds = dataset if dataset is not None else self._dataset
-        if ds is None:
-            raise RuntimeError(
-                "No input data: call set_input_dataset or pass a dataset "
-                "to train()")
+        self._refuse_unported_parameters()
+        with cache_scope(self.parameters.get("feature_cache")):
+            return self._train_impl(dataset, seed, dev)
+
+    def _train_impl(self, dataset: Optional[Dataset], seed: int,
+                    dev: torch.device) -> "WorkflowModel":
+        ds = self._resolve_dataset(dataset)
         rff_results = None
         source_features = self.result_features
         if self._rff is not None:
             ds, source_features, rff_results = self._apply_rff(ds)
         result_features = clone_graph(source_features)
         layers = topological_layers(result_features)
+        stage_params = self.parameters.get("stage_params") or {}
+        if stage_params:
+            from transmogrifai_tpu_torch.workflow.params import (
+                apply_stage_params)
+            apply_stage_params([s for layer in layers[1:] for s in layer],
+                               stage_params, log=log)
         ctx = FitContext(n_rows=len(ds), seed=seed, device=dev)
         columns: Dict[str, Column] = {}
         fitted: Dict[str, Transformer] = {}
@@ -136,17 +185,35 @@ class Workflow:
                 t0 = time.perf_counter()
                 inputs = [columns[f.uid] for f in stage.input_features]
                 est = getattr(stage, "_estimator", None) or stage
-                if isinstance(est, Estimator):
+                warm = (self._warm_models.get(est.uid)
+                        if isinstance(est, Estimator) else None)
+                if warm is not None and not isinstance(warm, Estimator):
+                    # warm start: the earlier model's fitted stage
+                    fitted[est.uid] = warm
+                    with TRACER.span(
+                            f"stage:transform:{stage.operation_name}",
+                            category="stage", uid=est.uid, layer=li):
+                        out = warm.transform(inputs, dev)
+                elif isinstance(est, Estimator):
                     stage_ctx = ctx.child(li)
                     if self._workflow_cv and _is_selector(est):
                         stage_ctx.cv_refit = _make_cv_refit(
                             stage, layers, columns, ctx)
-                    model = est.fit(inputs, stage_ctx)
+                    with TRACER.span(
+                            f"stage:fit:{stage.operation_name}",
+                            category="stage", uid=est.uid, layer=li):
+                        model = est.fit(inputs, stage_ctx)
                     fitted[est.uid] = model
-                    out = model.transform(inputs, dev)
+                    with TRACER.span(
+                            f"stage:transform:{stage.operation_name}",
+                            category="stage", uid=est.uid, layer=li):
+                        out = model.transform(inputs, dev)
                 elif isinstance(stage, Transformer):
                     fitted[stage.uid] = stage
-                    out = stage.transform(inputs, dev)
+                    with TRACER.span(
+                            f"stage:transform:{stage.operation_name}",
+                            category="stage", uid=stage.uid, layer=li):
+                        out = stage.transform(inputs, dev)
                 else:
                     raise TypeError(f"Cannot execute stage {stage!r}")
                 columns[stage.get_output().uid] = out
@@ -177,9 +244,11 @@ class Workflow:
         that can no longer be produced raises, as in the JAX package."""
         raws = self._raw_features()
         label = next((f for f in raws if f.is_response), None)
+        score_ds, score_reader = self._rff_score_source
+        if score_ds is None and score_reader is not None:
+            score_ds = score_reader.read(raws)
         filtered = self._rff.generate_filtered_raw(
-            ds, raws, score_dataset=self._rff_score_dataset,
-            label_feature=label)
+            ds, raws, score_dataset=score_ds, label_feature=label)
         self.blocklist = list(filtered.features_to_drop)
         if not filtered.features_to_drop:
             return (filtered.clean_dataset, self.result_features,
@@ -381,6 +450,15 @@ class WorkflowModel:
         """Planned scoring: {feature_name: tensor pytree on the model's
         device} for the result features."""
         return self.compiled()(dataset)
+
+    def evaluate(self, dataset: Dataset, evaluator, label_feature,
+                 prediction_feature):
+        """`evaluator`'s metrics of the eager scores of `dataset`: the
+        label and prediction columns by their features
+        (OpWorkflowModel.evaluate)."""
+        cols = self._execute(dataset)
+        return evaluator.evaluate(
+            cols[label_feature.uid], cols[prediction_feature.uid])
 
     def model_insights(self):
         """The merged explanation artifact (ModelInsights.scala:74)."""
