@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on an NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py structural    # the build and phase 27 alone
 
 Drives the port (`transmogrifai_tpu_torch`) only: it imports neither jax
 nor the JAX package. Without a CUDA device, or as a copy alone in a
@@ -330,7 +331,43 @@ any failure exits non-zero:
    tolerances (`SC_TOL`). (c) examples/op_joins_aggregates.py and
    op_conditional_aggregation.py through the port's readers on the card:
    their rows equal `AGGREGATION_ROWS` (tests/test_dataprep_examples.py's
-   assertions).
+   assertions);
+27. Avro ingestion and the structural encoders (`structural_phase`): a
+   seeded CRM-style table (`structural_rows`: 20,000 training and 2,000
+   score rows of a PickList label, a Date and a DateTime, a DateList, a
+   Geolocation, a MultiPickList, a TextList, a Text description, Real,
+   Integral and Binary maps, a PickListMap, a TextAreaMap, a
+   MultiPickListMap, a GeolocationMap and a DateMap) written by the port's
+   `dataset_to_avro` (deflate) and read back through
+   `DataReaders.Simple.avro` (rows equal the generator's), and the JAX
+   package's committed container (`testdata/structural_jax_512.avro`)
+   read (rows equal); encode and decode rows/s. (b) The first 2,000
+   training rows, fed by the Avro reader, through transmogrify over every
+   group, the map bucketizer on the RealMap, `DateListVectorizer` with
+   `reference_ms`, `DropIndicesByTransformer` with the registered
+   `structural_drop`, the SanityChecker, LR + XGB (`_default_binary_models`'
+   entries) over 3 folds and `PredictionDeIndexer`, trained by
+   `Workflow.train(device="cuda")` and held to the JAX package's f32
+   fixture (`testdata/structural_train_f32`): the vector's metadata equal
+   (process-local uids aside), its column sums within rows x 1e-6 and
+   first 64 rows within 1e-6 (sin / cos), kept columns and configs
+   equal, fold AuPR within 1e-4 (LR) and 1e-2 (XGB) or, for a config
+   whose fold AuPR the JAX package itself moves further under one ulp of
+   input noise (the fixture's four noise runs of the XGB family), twice
+   that move, and the winner by phase 17's rule (`judge_structural_sweep`,
+   ROADMAP F23); K1, K2 (dense and live), K3, K4 and K8 launched in the
+   train (counters set to 0 before it). The witness of the card's train:
+   the same train again with every launch of K4, K1, K2, K3 and K8 held
+   against its plain version on the same inputs on the card
+   (`shadow_kernels`; K1 within the f32 summation bound, the rest
+   equal), and its configs, fold AuPR, winner and
+   kept columns the same bits as the first train's. Then the feature transform of all 22,000 rows split into
+   host prepare and device apply seconds. (c) Saved, reloaded with
+   `load_model(device="cuda")`, the 2,000 score rows scored by
+   `score_compiled` eagerly and with CUDA graphs (equal), and
+   `ScoringService` requests of 1, 3, 17 and 64 rows, each answer equal
+   to the batch's rows, the token lists and the de-indexed label
+   included (F10); K4 and K5 launched.
 """
 
 import contextlib
@@ -2005,7 +2042,7 @@ def default_train_path(port, pt, device="cuda"):
     return model, ds, record, draws
 
 
-def default_train_walls(port, pt, ds, draws, first, runs: int = 2) -> dict:
+def default_train_walls(port, pt, ds, draws, first, runs: int = 1) -> dict:
     """The README quickstart trained `runs` more times as phase 12 trained
     it (the same draws, no checks): the train wall and the sweep's static
     groups of each run beside phase 12's, so the run-to-run spread is on
@@ -3108,9 +3145,18 @@ def raw_host_tree(model, ds, n):
 
 
 def tree_equal(a, b) -> bool:
+    """Scoring results equal leaf for leaf: tensors, numeric arrays, and
+    object arrays or lists of text and token lists."""
     if isinstance(a, dict):
-        return set(a) == set(b) and all(tree_equal(a[k], b[k]) for k in a)
-    return torch.equal(a, b)
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(tree_equal(a[k], b[k]) for k in a))
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return torch.equal(a, b)
+    a, b = (x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+            for x in (a, b))
+    if isinstance(a, np.ndarray) and a.dtype != object:
+        return bool(np.array_equal(a, np.asarray(b)))
+    return list(a) == list(b)
 
 
 def wire_bytes(tree) -> int:
@@ -6096,6 +6142,769 @@ def app_phase(port, pt) -> dict:
     return walls
 
 
+# -- phase 27: Avro ingestion and the structural encoders ---------------- #
+
+STRUCT_SEED = 27
+STRUCT_TRAIN_ROWS = 20_000
+STRUCT_SCORE_ROWS = 2_000
+# the pipeline trains on the first 2,000 training rows: the JAX package's
+# fixture run on the CPU (LR 8 + XGB 2 configs over 3 folds, XGB at depth
+# 10 over 1,458 kept columns) took 1,377 s at 2,000 rows on an 8-core
+# Intel Xeon (`python tests/test_torch_structural.py fixture DIR`), and
+# grows with them
+STRUCT_FIT_ROWS = 2_000
+STRUCT_VOCAB = 5_000
+STRUCT_PRODUCTS = 40
+STRUCT_REFERENCE_MS = 1_767_225_600_000    # 2026-01-01T00:00:00Z
+STRUCT_FIXTURE = os.path.join(HERE, "transmogrifai_tpu_torch", "testdata",
+                              "structural_train_f32")
+STRUCT_AVRO = os.path.join(HERE, "transmogrifai_tpu_torch", "testdata",
+                           "structural_jax_512.avro")
+STRUCT_AVRO_ROWS = 512
+# the columns the JAX package's Avro writer takes: it finds no union
+# branch for GeolocationMap and MultiPickListMap values
+STRUCT_AVRO_COLUMNS = ("outcome", "created", "closed_at", "visits",
+                       "location", "products", "notes", "description",
+                       "metrics", "counts", "flags", "picks", "fields",
+                       "dates")
+STRUCT_FOLD_ATOL = {"OpLogisticRegression": 1e-4,
+                    "OpXGBoostClassifier": 1e-2}
+# the unit-circle columns compute sin/cos of 2π·phase, which XLA, torch on
+# the CPU and CUDA round apart by an ulp or so; every other column is
+# bit-equal
+STRUCT_VECTOR_ATOL = 1e-6
+STRUCT_TRAIN_KERNELS = ("bin_features", "histograms", "split_search",
+                        "split_search_live", "route_level", "leaf_values",
+                        "binned_aupr")
+STRUCT_SCORE_KERNELS = ("bin_features", "tree_walk")
+# the witness of the card's train: the train run again with every launch of
+# these wrappers followed by its plain version on the same inputs
+# (`shadow_kernels`)
+STRUCT_SHADOWED = ("bin_features", "histograms", "split_search",
+                   "route_level", "leaf_values", "binned_aupr")
+STRUCT_MAP_KEYS = {"metrics": 12, "counts": 6, "flags": 8, "picks": 6,
+                   "interests": 3, "geos": 2, "dates": 3}
+
+
+def structural_schema(t) -> dict:
+    """The CRM-style records' columns and their FeatureTypes (`t` a
+    package's types module)."""
+    return {"outcome": t.PickList, "created": t.Date,
+            "closed_at": t.DateTime, "visits": t.DateList,
+            "location": t.Geolocation, "products": t.MultiPickList,
+            "notes": t.TextList, "description": t.Text,
+            "metrics": t.RealMap, "counts": t.IntegralMap,
+            "flags": t.BinaryMap, "picks": t.PickListMap,
+            "fields": t.TextAreaMap, "interests": t.MultiPickListMap,
+            "geos": t.GeolocationMap, "dates": t.DateMap}
+
+
+def structural_vocab(n: int = STRUCT_VOCAB) -> list:
+    """`n` distinct lowercase words of three syllables."""
+    syl = ["ka", "lo", "mi", "ren", "tas", "vu", "zor", "pel", "qui", "sha",
+           "dor", "fen", "gil", "hup", "jab", "nex", "orm", "bri", "cal",
+           "wyn"]
+    words = [a + b + c for a in syl for b in syl for c in syl]
+    rng = np.random.default_rng(5)
+    return [words[i] for i in rng.permutation(len(words))[:n]]
+
+
+_MS_DAY = 86_400_000
+
+
+def _struct_dates(rng, n: int, null_share: float) -> list:
+    """Epoch ms from 1950 to 2025 (a fifth before 1970), 2 % on Feb 29 of
+    a leap year; `null_share` None."""
+    lo = int(np.datetime64("1950-01-01", "ms").astype(np.int64))
+    hi = int(np.datetime64("2025-12-31", "ms").astype(np.int64))
+    ms = rng.integers(lo, hi, n)
+    feb29 = np.array([np.datetime64(f"{y}-02-29", "ms").astype(np.int64)
+                      for y in range(1952, 2025, 4)])
+    leap = rng.random(n) < 0.02
+    days = feb29[rng.integers(0, len(feb29), n)]
+    ms = np.where(leap, days + rng.integers(0, _MS_DAY, n), ms)
+    null = rng.random(n) < null_share
+    return [None if z else int(v) for v, z in zip(ms, null)]
+
+
+def _split(flat: list, counts) -> list:
+    """`flat` cut into consecutive runs of `counts` items."""
+    out, at = [], 0
+    for k in counts:
+        out.append(flat[at:at + k])
+        at += k
+    return out
+
+
+def structural_rows(n: int, seed: int = STRUCT_SEED) -> list:
+    """`n` seeded CRM-style records (row dicts of python values) whose
+    "outcome" ("won" / "lost") carries planted signal in the maps, the
+    multi-picklist, the notes, the location and the flags. Drawn a column
+    at a time."""
+    rng = np.random.default_rng(seed)
+    vocab = structural_vocab()
+    present = lambda k: (rng.random((n, k)) < 0.7).tolist()  # noqa: E731
+    z = np.full(n, -1.6)
+    created = _struct_dates(rng, n, 0.10)
+    closed = _struct_dates(rng, n, 0.10)
+    date_keys = [_struct_dates(rng, n, 0.30) for _ in range(3)]
+    # visits: 0-8 past events each
+    nv = rng.integers(0, 9, n)
+    visits = [sorted(run) for run in _split(
+        (STRUCT_REFERENCE_MS
+         - rng.integers(0, 900 * _MS_DAY, nv.sum())).tolist(), nv.tolist())]
+    # location: 15 % null
+    loc_null = rng.random(n) < 0.15
+    lat = np.round(rng.uniform(-60, 70, n), 4)
+    lon = np.round(rng.uniform(-180, 180, n), 4)
+    acc = rng.integers(1, 10, n).astype(float)
+    z += 0.6 * (~loc_null & (lat > 30))
+    location = [None if u else [a, b, c] for u, a, b, c in zip(
+        loc_null.tolist(), lat.tolist(), lon.tolist(), acc.tolist())]
+    # products: 0-5 of 40
+    npr = rng.integers(0, 6, n)
+    pick = np.argsort(rng.random((n, STRUCT_PRODUCTS)), axis=1)
+    z += 0.9 * ((pick == 7) & (np.arange(STRUCT_PRODUCTS)[None, :]
+                               < npr[:, None])).any(axis=1)
+    products = [set(f"prod{j:02d}" for j in row[:k]) if k else None
+                for row, k in zip(pick.tolist(), npr.tolist())]
+    # notes: 0-12 tokens of the vocabulary
+    nn = rng.integers(0, 13, n)
+    ids = rng.integers(0, STRUCT_VOCAB, nn.sum())
+    notes = [[vocab[j] for j in run] if run else None
+             for run in _split(ids.tolist(), nn.tolist())]
+    z += 0.8 * np.array([bool(r) and vocab[17] in r for r in notes])
+    # description: 0-15 words, a fifth capitalized, commas and a "!"
+    nd = rng.integers(0, 16, n)
+    ids = rng.integers(0, STRUCT_VOCAB, nd.sum()).tolist()
+    cap = (rng.random(nd.sum()) < 0.2).tolist()
+    words = [vocab[j].capitalize() if c else vocab[j]
+             for j, c in zip(ids, cap)]
+    description = [(", ".join(w[:3]) + (" " if len(w) > 3 else "")
+                    + " ".join(w[3:]) + "!") if w else None
+                   for w in _split(words, nd.tolist())]
+    # the numeric maps: each key in 70 % of rows
+    mv = np.round(rng.normal(0, 1, (n, 12))
+                  * 10.0 ** (np.arange(12) % 4)[None, :], 3).tolist()
+    mp = present(12)
+    metrics = [{f"m{j:02d}": v[j] for j in range(12) if p[j]}
+               for v, p in zip(mv, mp)]
+    z += 1.2 * np.array([m.get("m03", -1.0) > 0.5 for m in metrics])
+    cv = rng.poisson(3 + 7 * np.arange(6), (n, 6)).tolist()
+    cp = present(6)
+    counts = [{f"c{j}": v[j] for j in range(6) if p[j]}
+              for v, p in zip(cv, cp)]
+    fv = (rng.random((n, 8)) < 0.3 + 0.05 * np.arange(8)).tolist()
+    fp = present(8)
+    flags = [{f"f{j}": v[j] for j in range(8) if p[j]}
+             for v, p in zip(fv, fp)]
+    z += 0.6 * np.array([bool(f.get("f1")) for f in flags])
+    # picks: 6 keys of 30 levels, a Zipf-like draw
+    level_p = 1.0 / np.arange(1, 31) ** 1.1
+    pv = rng.choice(30, (n, 6), p=level_p / level_p.sum()).tolist()
+    pp = present(6)
+    picks = [{f"k{j}": f"L{v[j]:02d}" for j in range(6) if p[j]}
+             for v, p in zip(pv, pp)]
+    z += 0.7 * np.array([p.get("k2") == "L04" for p in picks])
+    # fields: two keys of few levels, two of free text
+    stages = ["prospect", "qualify", "demo", "proposal", "negotiate",
+              "closing", "hold", "lost_contact"]
+    channels = ["web", "email", "phone", "partner", "event"]
+    st = rng.integers(0, len(stages), n).tolist()
+    ch = rng.integers(0, len(channels), n).tolist()
+    sm = rng.integers(0, 60, (n, 3)).tolist()
+    ns_ = rng.integers(2, 5, n)
+    sx = _split(rng.integers(60, 140, ns_.sum()).tolist(), ns_.tolist())
+    fpres = present(4)
+    fields = []
+    for i in range(n):
+        fd, p = {}, fpres[i]
+        if p[0]:
+            fd["stage"] = stages[st[i]]
+        if p[1]:
+            fd["channel"] = channels[ch[i]]
+        if p[2]:
+            fd["summary"] = " ".join(vocab[j] for j in sm[i])
+        if p[3]:
+            fd["next_step"] = " ".join(vocab[j] for j in sx[i])
+        fields.append(fd)
+    z += 0.5 * np.array([f.get("stage") == "closing" for f in fields])
+    # interests: 3 keys, 1-3 of 12 options each
+    ik = rng.integers(1, 4, (n, 3)).tolist()
+    io = np.argsort(rng.random((n, 3, 12)), axis=2).tolist()
+    ip = present(3)
+    interests = [{f"i{j}": set(f"opt{o:02d}" for o in io[i][j][:ik[i][j]])
+                  for j in range(3) if ip[i][j]} for i in range(n)]
+    # geos: 2 keys of (lat, lon, accuracy)
+    gl = np.round(rng.uniform(-60, 70, (n, 2)), 4).tolist()
+    gn = np.round(rng.uniform(-180, 180, (n, 2)), 4).tolist()
+    ga = rng.integers(1, 50, (n, 2)).astype(float).tolist()
+    gp = present(2)
+    geos = [{f"g{j}": [gl[i][j], gn[i][j], ga[i][j]] for j in range(2)
+             if gp[i][j]} for i in range(n)]
+    won = (rng.random(n) < 1.0 / (1.0 + np.exp(-1.5 * z))).tolist()
+    return [{"outcome": "won" if won[i] else "lost",
+             "created": created[i], "closed_at": closed[i],
+             "visits": visits[i], "location": location[i],
+             "products": products[i], "notes": notes[i],
+             "description": description[i], "metrics": metrics[i],
+             "counts": counts[i], "flags": flags[i], "picks": picks[i],
+             "fields": fields[i], "interests": interests[i],
+             "geos": geos[i],
+             "dates": {f"d{j}": date_keys[j][i] for j in range(3)
+                       if date_keys[j][i] is not None}}
+            for i in range(n)]
+
+
+def structural_tables(n_fit: int = STRUCT_FIT_ROWS):
+    """(every row, the rows the pipeline trains on, the rows it scores):
+    the 22,000 generated rows, their first `n_fit`, their last 2,000."""
+    rows = structural_rows(STRUCT_TRAIN_ROWS + STRUCT_SCORE_ROWS)
+    return rows, rows[:n_fit], rows[STRUCT_TRAIN_ROWS:]
+
+
+def plain_rows(ds) -> list:
+    """A Dataset's rows as python values (numeric NaN as None)."""
+    return [{k: (None if isinstance(v, float) and v != v else v)
+             for k, v in r.items()} for r in ds.to_rows()]
+
+
+def committed_avro_rows(ns):
+    """(the rows of the committed container the JAX package wrote, read
+    through `ns`'s `DataReaders.avro`; the generator's rows it holds)."""
+    sch = structural_schema(ns.t)
+    ds = ns.DataReaders.avro(STRUCT_AVRO, schema={
+        c: sch[c] for c in STRUCT_AVRO_COLUMNS}).read()
+    want = [{c: r[c] for c in STRUCT_AVRO_COLUMNS}
+            for r in structural_rows(STRUCT_AVRO_ROWS, seed=STRUCT_SEED + 1)]
+    return plain_rows(ds), want
+
+
+def meta_entries(entries) -> list:
+    """Vector column metadata (`to_json` dicts or columns) with the
+    process-local uid in a derived feature's name ("_000000000181")
+    written as "_<uid>", so that two runs compare entry for entry."""
+    import re
+    out = []
+    for e in entries:
+        d = dict(e if isinstance(e, dict) else e.to_json())
+        for k in ("parent_name", "grouping"):
+            if isinstance(d.get(k), str):
+                d[k] = re.sub(r"_\d{12}(?=$|[-_])", "_<uid>", d[k])
+        out.append(d)
+    return out
+
+
+def structural_vector_check(model, feats, ds, want, sums, head) -> dict:
+    """The trained vector (the SanityChecker's input) on the training rows
+    against the JAX fixture: metadata equal, per-column f64 sums within
+    rows × STRUCT_VECTOR_ATOL, the first 64 rows within STRUCT_VECTOR_ATOL,
+    and the checker's kept columns equal."""
+    vec = model.score(ds, keep_intermediate=True)[feats["vector"].uid]
+    X = np.asarray(vec.data.cpu() if hasattr(vec.data, "cpu")
+                   else vec.data, dtype=np.float32)
+    meta_equal = meta_entries(vec.meta.columns) == \
+        meta_entries(want["vector_meta"])
+    sums_err = head_err = float("inf")
+    if meta_equal and X.shape == (want["rows"], len(sums)):
+        sums_err = float(np.abs(X.astype(np.float64).sum(axis=0)
+                                - sums).max())
+        head_err = float(np.abs(X[:64].astype(np.float64)
+                                - head.astype(np.float64)).max())
+    kept = list(fitted_of(model, "SanityCheckerModel").indices)
+    ok = (meta_equal and head_err <= STRUCT_VECTOR_ATOL
+          and sums_err <= X.shape[0] * STRUCT_VECTOR_ATOL
+          and kept == want["kept_indices"])
+    return {"columns": int(X.shape[1]), "kept": len(kept),
+            "meta_equal": meta_equal, "kept_equal": kept ==
+            want["kept_indices"], "sums_max_abs_err": sums_err,
+            "head_max_abs_err": head_err, "ok": bool(ok)}
+
+
+def judge_structural_sweep(want, folds, winner) -> dict:
+    """Phase 27's sweep against its fixture, by the rules of phase 17
+    (`family_tolerances`, `winner_check`), config by config: each
+    config's fold AuPR within STRUCT_FOLD_ATOL of the fixture's (LR 1e-4,
+    XGB 1e-2) or, where the JAX package's own fold AuPR of that config
+    moves further under one ulp of input noise (the fixture's noise runs
+    of the XGB family), within twice that move; the winner the fixture's,
+    or its second where the top two lie within tolerance, enforced where
+    the JAX package meets that rule in every noise run."""
+    res = {"metric": "AuPR", "results": want["results"],
+           "fold_metrics": want["fold_metrics"],
+           "noise": want.get("noise", {})}
+    noise = [0.0] * len(res["results"])
+    for fam, rec in res["noise"].items():
+        at = [i for i, r in enumerate(res["results"]) if r["model"] == fam]
+        for run in rec["fold_metrics"]:
+            for i, fm in zip(at, run):
+                noise[i] = max(noise[i], float(metric_move(
+                    fm, res["fold_metrics"][i], False).max()))
+    tol = [max(STRUCT_FOLD_ATOL[r["model"]], 2.0 * n)
+           for r, n in zip(res["results"], noise)]
+    moves = [float(metric_move(f, g, False).max())
+             for f, g in zip(folds, res["fold_metrics"])]
+    configs = [{"config": r, "move": m, "tolerance": t, "jax_noise_move": n}
+               for r, m, t, n in zip(res["results"], moves, tol, noise)]
+    win = winner_check(res, tol, winner)
+    ok = all(m <= t for m, t in zip(moves, tol)) and win["ok"]
+    return {"configs": configs, "winner": win,
+            "noise_runs": {f: len(r["fold_metrics"])
+                           for f, r in res["noise"].items()},
+            "ok": bool(ok)}
+
+
+@contextlib.contextmanager
+def shadow_kernels():
+    """While open, every call of a STRUCT_SHADOWED wrapper on card tensors
+    is followed by its plain version on the same inputs (buffers written
+    in place are given to the plain version as copies taken before the
+    call), and the two compared: K1 within the f32 summation bound of
+    `check_training_kernels`, K3's leaves equal to the plain version's on
+    the CPU (row-order sums), the rest equal. The caller goes on with the
+    kernel's result. The comparisons add up on the card and are read once,
+    on exit. Yields {wrapper: {"calls", "bad", "max_abs_err"}}."""
+    import sys as _sys
+
+    from transmogrifai_tpu_torch.evaluators import device_metrics as pdm
+    from transmogrifai_tpu_torch.models import trees as pt
+    rec = {k: {"calls": 0, "bad": 0, "max_abs_err": 0.0}
+           for k in STRUCT_SHADOWED}
+    acc = {}  # wrapper -> [calls that disagreed, largest gap], as tensors
+
+    def note(name, err, bad):
+        rec[name]["calls"] += 1
+        if name in acc:
+            acc[name][0] += bad
+            acc[name][1] = torch.maximum(acc[name][1], err)
+        else:
+            acc[name] = [bad.long(), err]
+
+    def gap(a, b):
+        return (a.float() - b.float()).abs().max() if a.numel() \
+            else a.new_zeros((), dtype=torch.float32)
+
+    def differ(pairs):
+        return torch.stack([(a != b).any() for a, b in pairs]).any()
+
+    def clone(x):
+        if x is None:
+            return None
+        return tuple(t.clone() for t in x) if isinstance(x, tuple) \
+            else x.clone()
+
+    def bin_features(X, edges):
+        got = orig["bin_features"](X, edges)
+        if X.is_cuda:
+            want = pt.bin_features_plain(X, edges)
+            note("bin_features", gap(got, want), differ([(got, want)]))
+        return got
+
+    def histograms(Xb, node_idx, G, H, n_nodes, n_bins):
+        hg, hh = orig["histograms"](Xb, node_idx, G, H, n_nodes, n_bins)
+        if Xb.is_cuda:
+            # one plain pass over the value channels, their magnitudes
+            # and the weights' magnitudes
+            c = G.shape[1]
+            w_all, wh = pt.histograms_plain(
+                Xb, node_idx, torch.cat([G, G.abs(), H.abs()[:, None]], 1),
+                H, n_nodes, n_bins)
+            wg, mags = w_all[:, :c], (w_all[:, c:2 * c], w_all[:, 2 * c])
+            m = torch.bincount(node_idx.reshape(-1).long()).max()
+            bad = torch.stack([
+                ((a - b).abs() > 2 * (m.clamp(min=2) - 1) * 2.0 ** -24
+                 * mag).any()
+                for a, b, mag in zip((hg, hh), (wg, wh), mags)]).any()
+            note("histograms", torch.maximum(gap(hg, wg), gap(hh, wh)), bad)
+        return hg, hh
+
+    def split_search(hg, hh, n_bins, *args, out=None, mark=None, **kw):
+        out0, mark0 = clone(out), clone(mark)
+        got = orig["split_search"](hg, hh, n_bins, *args, out=out,
+                                   mark=mark, **kw)
+        if hg.is_cuda:
+            want = pt.split_search_plain(hg, hh, n_bins, *args, out=out0,
+                                         mark=mark0, **kw)
+            pairs = list(zip(got, want)) + (
+                [] if mark is None else [(mark, mark0)])
+            note("split_search", torch.maximum(*(gap(a, b) for a, b in
+                                                 zip(got, want))),
+                 differ(pairs))
+        return got
+
+    def route_level(Xb, node_idx, feat, bins, occupied=None, out=None):
+        occ0 = clone(occupied)
+        got = orig["route_level"](Xb, node_idx, feat, bins,
+                                  occupied=occupied, out=out)
+        if Xb.is_cuda:
+            want = pt.route_level_plain(Xb, node_idx, feat, bins,
+                                        occupied=occ0)
+            pairs = [(got, want)] + (
+                [] if occupied is None else [(occupied, occ0)])
+            note("route_level", gap(got, want), differ(pairs))
+        return got
+
+    def leaf_values(node_idx, G, H, n_leaves, reg_lambda, alpha):
+        got = orig["leaf_values"](node_idx, G, H, n_leaves, reg_lambda,
+                                  alpha)
+        if G.is_cuda:
+            # the kernel adds a leaf's rows in row order, as the CPU's
+            # `index_add_` does (the card's adds in any order)
+            want = pt.leaf_values_plain(node_idx.cpu(), G.cpu(), H.cpu(),
+                                        n_leaves, reg_lambda, alpha)
+            host = got.cpu()
+            note("leaf_values", gap(host, want), differ([(host, want)]))
+        return got
+
+    def binned_aupr(m, y, w, n_bins, from_margin):
+        got = orig["binned_aupr"](m, y, w, n_bins, from_margin)
+        if m.is_cuda:
+            want = pdm.binned_aupr_plain(m, y, w, n_bins, from_margin)
+            note("binned_aupr", gap(got, want), differ([(got, want)]))
+        return got
+
+    shadows = {"bin_features": bin_features, "histograms": histograms,
+               "split_search": split_search, "route_level": route_level,
+               "leaf_values": leaf_values, "binned_aupr": binned_aupr}
+    orig = {"binned_aupr": pdm.binned_aupr,
+            **{k: getattr(pt, k) for k in STRUCT_SHADOWED
+               if k != "binned_aupr"}}
+    bound = [(mod, k) for mod in list(_sys.modules.values())
+             if getattr(mod, "__name__", "").startswith(
+                 "transmogrifai_tpu_torch")
+             for k in STRUCT_SHADOWED if getattr(mod, k, None) is orig[k]]
+    for mod, k in bound:
+        setattr(mod, k, shadows[k])
+    try:
+        yield rec
+    finally:
+        for mod, k in bound:
+            setattr(mod, k, orig[k])
+        for k, (bad, err) in acc.items():
+            rec[k]["bad"], rec[k]["max_abs_err"] = int(bad), float(err)
+
+
+def train_outcome(model) -> dict:
+    """A trained structural model's configs, fold AuPR, winner and kept
+    columns."""
+    summ = next(s for s in model.fitted.values() if hasattr(
+        getattr(s, "summary", None), "validation_results")).summary
+    return {"configs": [(r.model, r.grid) for r in summ.validation_results],
+            "fold_metrics": [list(r.fold_metrics)
+                             for r in summ.validation_results],
+            "winner": (summ.best_model, summ.best_grid),
+            "kept": list(fitted_of(model, "SanityCheckerModel").indices)}
+
+
+def judge_structural_witness(rec, launches, main, again) -> dict:
+    """The shadowed train against the main one: every wrapper of the path
+    called as often as it launched, no call apart from its plain version,
+    and the configs, fold AuPR, winner and kept columns the same bits as
+    the main train's (the card's train is deterministic)."""
+    calls = {k: rec[k]["calls"] for k in rec}
+    launched = {"split_search": launches["split_search"]
+                + launches["split_search_live"],
+                **{k: launches[k] for k in rec if k != "split_search"}}
+    checks = {"every_launch_shadowed": all(
+                  calls[k] == launched[k] >= 1 for k in rec),
+              "kernels_equal_plain": all(r["bad"] == 0 for r in rec.values()),
+              "same_train": main == again}
+    return {"shadow": rec, "launches": launched, **checks,
+            "ok": all(checks.values())}
+
+
+def structural_drop(col) -> bool:
+    """DropIndicesByTransformer's predicate in phase 27: the accuracy
+    column of every geolocation (registered as "structural_drop" with
+    each package's `extract_fn`)."""
+    return col.descriptor_value == "accuracy"
+
+
+def register_structural_drop():
+    """`structural_drop` in the port's `extract_fn` registry, so the
+    phase's saved model loads."""
+    from transmogrifai_tpu_torch.utils import fnser
+    if "structural_drop" not in fnser._EXTRACT_REGISTRY:
+        fnser.extract_fn("structural_drop")(structural_drop)
+
+
+def structural_namespace():
+    """Phase 27's entry points from the port."""
+    from types import SimpleNamespace
+
+    import transmogrifai_tpu_torch as port
+    import transmogrifai_tpu_torch.types as t
+    from transmogrifai_tpu_torch.ops.bucketizers import (
+        DecisionTreeNumericMapBucketizer)
+    from transmogrifai_tpu_torch.ops.dates import DateListVectorizer
+    from transmogrifai_tpu_torch.ops.drop_indices import (
+        DropIndicesByTransformer)
+    from transmogrifai_tpu_torch.ops.indexers import (
+        OpStringIndexerNoFilter, PredictionDeIndexer)
+    from transmogrifai_tpu_torch.selector.model_selector import (
+        _default_binary_models)
+    register_structural_drop()
+    return SimpleNamespace(
+        t=t, FeatureBuilder=port.FeatureBuilder,
+        transmogrify=port.transmogrify, Dataset=port.Dataset,
+        Workflow=port.Workflow, load_model=port.load_model,
+        DataReaders=port.DataReaders,
+        OpStringIndexerNoFilter=OpStringIndexerNoFilter,
+        PredictionDeIndexer=PredictionDeIndexer,
+        DecisionTreeNumericMapBucketizer=DecisionTreeNumericMapBucketizer,
+        DateListVectorizer=DateListVectorizer,
+        DropIndicesByTransformer=DropIndicesByTransformer,
+        BinaryClassificationModelSelector=(
+            port.BinaryClassificationModelSelector),
+        default_binary_models=_default_binary_models)
+
+
+def structural_models(ns) -> list:
+    """`_default_binary_models`' LR and XGB entries (its RF entry left
+    out)."""
+    return [(est, grid) for est, grid in ns.default_binary_models()
+            if type(est).__name__ in ("OpLogisticRegression",
+                                      "OpXGBoostClassifier")]
+
+
+def structural_pipeline(ns, models=None, reference_ms=STRUCT_REFERENCE_MS):
+    """Phase 27's pipeline over a package namespace `ns`: transmogrify
+    over every group, the map bucketizer on the RealMap, the date-list
+    vector, the registered drop predicate, the SanityChecker, LR + XGB
+    over 3 folds, and the de-indexed prediction. Returns its features by
+    name."""
+    FB = ns.FeatureBuilder
+    sch = structural_schema(ns.t)
+    f = {c: getattr(FB, ft.__name__)(c).from_column(c).as_predictor()
+         for c, ft in sch.items() if c != "outcome"}
+    outcome = FB.PickList("outcome").from_column("outcome").as_response()
+    label = ns.OpStringIndexerNoFilter().set_input(outcome).get_output()
+    tokens = f["description"].tokenize()
+    vec = ns.transmogrify([f[c] for c in (
+        "created", "closed_at", "location", "products", "notes", "metrics",
+        "counts", "flags", "picks", "fields", "interests", "geos", "dates")]
+        + [tokens])
+    buckets = ns.DecisionTreeNumericMapBucketizer().set_input(
+        label, f["metrics"]).get_output()
+    visits = ns.DateListVectorizer(reference_ms=reference_ms).set_input(
+        f["visits"]).get_output()
+    combined = vec.combine(buckets, visits)
+    dropped = ns.DropIndicesByTransformer(structural_drop).set_input(
+        combined).get_output()
+    checked = label.sanity_check(dropped, remove_bad_features=True)
+    pred = ns.BinaryClassificationModelSelector.with_cross_validation(
+        models=models if models is not None else structural_models(ns)
+    ).set_input(label, checked).get_output()
+    named = ns.PredictionDeIndexer().set_input(label, pred).get_output()
+    return {"label": label, "outcome": outcome, "tokens": tokens,
+            "vector": dropped, "checked": checked, "prediction": pred,
+            "named": named}
+
+
+def transform_walls(model, feats, ds, device) -> dict:
+    """The fitted feature stages that make the vector, run over `ds` stage
+    by stage: seconds of host work (`host_prepare`, and the host stages'
+    transforms) and of device work (`device_apply`, the device
+    synchronized after each)."""
+    from transmogrifai_tpu_torch.features.dag import topological_layers
+    from transmogrifai_tpu_torch.stages.base import is_host_stage, to_device
+    layers = topological_layers([feats["vector"]])
+    cols = {g.get_output().uid: g.materialize(ds, allow_missing_response=True)
+            for g in layers[0]}
+    host_s = dev_s = 0.0
+    for layer in layers[1:]:
+        for stage in layer:
+            fitted = model.fitted[stage.uid]
+            inputs = [cols[f.uid] for f in stage.input_features]
+            t0 = time.perf_counter()
+            if is_host_stage(fitted):
+                out = fitted.transform(inputs, device)
+                sync(device)
+                host_s += time.perf_counter() - t0
+            else:
+                enc = fitted.host_prepare(inputs)
+                t1 = time.perf_counter()
+                host_s += t1 - t0
+                dev = [c.device_value(device) for c in inputs]
+                consts = fitted.device_constants(device)
+                enc = to_device(enc, device)
+                out = fitted._wrap(
+                    fitted.device_apply_with(consts, enc, dev)
+                    if consts is not None else fitted.device_apply(enc, dev))
+                sync(device)
+                dev_s += time.perf_counter() - t1
+            cols[stage.get_output().uid] = out
+    return {"rows": len(ds), "host_prepare_s": host_s,
+            "device_apply_s": dev_s}
+
+
+def structural_phase(device="cuda") -> dict:
+    """Phase 27: Avro ingestion (a), the structural slice's train held to
+    the JAX fixture (b), and its model served (c). One JSON line each; a
+    failed check raises."""
+    import tempfile
+
+    from transmogrifai_tpu_torch.models import trees as pt
+    from transmogrifai_tpu_torch.serving import ScoringService, ServingConfig
+
+    ns = structural_namespace()
+    sch = structural_schema(ns.t)
+    walls = {}
+    t0 = time.perf_counter()
+    rows, fit_rows, score_rows = structural_tables()
+    walls["generate"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="structural_")
+    try:
+        # (a) ingestion ------------------------------------------------- #
+        table = ns.Dataset.from_rows(rows, schema=sch)
+        path = os.path.join(tmp, "records.avro")
+        t0 = time.perf_counter()
+        table.to_avro(path)
+        walls["encode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ns.DataReaders.avro(path, schema=sch).read()
+        walls["decode"] = time.perf_counter() - t0
+        rows_equal = plain_rows(back) == rows
+        got, want = committed_avro_rows(ns)
+        committed_equal = got == want
+        rec_a = {"phase": "structural_ingest", "rows": len(rows),
+                 "columns": len(sch), "bytes": os.path.getsize(path),
+                 "rows_equal": rows_equal,
+                 "jax_container_rows": len(got),
+                 "jax_container_rows_equal": committed_equal,
+                 "encode_rows_per_s": len(rows) / walls["encode"],
+                 "decode_rows_per_s": len(rows) / walls["decode"],
+                 "walls_s": dict(walls),
+                 "ok": bool(rows_equal and committed_equal)}
+        emit(rec_a)
+        if not rec_a["ok"]:
+            raise AssertionError("Avro rows differ from the generator's")
+
+        # (b) training, fed by the Avro reader -------------------------- #
+        fit_path = os.path.join(tmp, "fit.avro")
+        back.take(np.arange(STRUCT_FIT_ROWS)).to_avro(fit_path)
+        fit_ds = ns.DataReaders.avro(fit_path, schema=sch).read()
+        score_ds = back.take(np.arange(
+            STRUCT_TRAIN_ROWS, STRUCT_TRAIN_ROWS + STRUCT_SCORE_ROWS))
+        with open(os.path.join(STRUCT_FIXTURE, "results.json")) as fh:
+            want = json.load(fh)
+        with np.load(os.path.join(STRUCT_FIXTURE, "vector.npz")) as z:
+            sums, head = z["sums"], z["head"]
+        feats = structural_pipeline(ns)
+        pt.reset_launches()
+        t0 = time.perf_counter()
+        model = ns.Workflow().set_result_features(
+            feats["prediction"], feats["named"], feats["tokens"]) \
+            .set_reader(ns.DataReaders.avro(fit_path, schema=sch)) \
+            .train(device=device)
+        sync(device)
+        walls["train"] = time.perf_counter() - t0
+        train_launches = {k: pt.LAUNCHES[k] for k in STRUCT_TRAIN_KERNELS}
+        vector = structural_vector_check(model, feats, fit_ds, want, sums,
+                                         head)
+        sel = next(s for s in model.fitted.values() if hasattr(
+            getattr(s, "summary", None), "validation_results"))
+        summ = sel.summary
+        results = [{"model": r.model, "grid": r.grid}
+                   for r in summ.validation_results]
+        if results != want["results"]:
+            raise AssertionError("the structural sweep ran other configs "
+                                 "than the fixture's")
+        folds = [list(r.fold_metrics) for r in summ.validation_results]
+        judged = judge_structural_sweep(want, folds, {
+            "model": summ.best_model, "grid": summ.best_grid})
+        walls["sweep"] = summ.timings["sweep_s"]
+        walls["refit"] = summ.timings["refit_s"]
+        walls["stages"] = dict(model.stage_seconds)
+        # the witness: the same train again, every kernel launch held
+        # against its plain version on the same inputs
+        pt.reset_launches()
+        t0 = time.perf_counter()
+        with shadow_kernels() as shadow:
+            again = ns.Workflow().set_result_features(
+                feats["prediction"], feats["named"], feats["tokens"]) \
+                .set_reader(ns.DataReaders.avro(fit_path, schema=sch)) \
+                .train(device=device)
+            sync(device)
+        walls["witness"] = time.perf_counter() - t0
+        witness = judge_structural_witness(
+            shadow, dict(pt.LAUNCHES), train_outcome(model),
+            train_outcome(again))
+        ok_b = (vector["ok"] and judged["ok"] and witness["ok"]
+                and all(train_launches[k] >= 1 for k in train_launches))
+        rec_b = {"phase": "structural_train", "rows": len(fit_ds),
+                 "vector": vector, "configs": len(results),
+                 "best_model": summ.best_model, "best_grid": summ.best_grid,
+                 "sweep": judged, "fold_aupr": folds,
+                 "fold_aupr_jax": want["fold_metrics"],
+                 "witness": witness,
+                 "tolerance": {"vector": STRUCT_VECTOR_ATOL},
+                 "holdout_aupr": summ.holdout_metrics["AuPR"],
+                 "holdout_aupr_jax": want["holdout_metrics"]["AuPR"],
+                 "launches_main_path": train_launches,
+                 "walls_s": {k: walls[k] for k in (
+                     "train", "sweep", "refit", "stages", "witness")},
+                 "ok": bool(ok_b)}
+        emit(rec_b)
+        if not ok_b:
+            raise AssertionError("the structural train disagrees with the "
+                                 "JAX package's f32 fixture or its kernels "
+                                 "with their plain versions")
+        transform = transform_walls(model, feats, back, device)
+
+        # (c) serving ---------------------------------------------------- #
+        mpath = os.path.join(tmp, "model")
+        model.save(mpath)
+        loaded = ns.load_model(mpath, device=device)
+        pt.reset_launches()
+        t0 = time.perf_counter()
+        eager = loaded.score_compiled(score_ds)
+        sync(device)
+        walls["score"] = time.perf_counter() - t0
+        graphs = (loaded.compiled()(score_ds, graphs=True)
+                  if device == "cuda" else eager)
+        score_launches = {k: pt.LAUNCHES[k] for k in STRUCT_SCORE_KERNELS}
+        graph_equal = tree_equal(eager, graphs)
+        svc = ScoringService(loaded, ServingConfig(max_batch=64)).start()
+        srows = score_ds.to_rows()
+        off, served = 0, True
+        try:
+            for size in (1, 3, 17, 64):
+                res = svc.score([dict(r) for r in srows[off:off + size]])
+                want_rows = {k: (v[off:off + size] if not isinstance(v, dict)
+                                 else {q: w[off:off + size]
+                                       for q, w in v.items()})
+                             for k, v in eager.items()}
+                served = served and tree_equal(res.outputs, want_rows)
+                off += size
+        finally:
+            svc.stop()
+        named = list(eager[feats["named"].name])
+        ok_c = (graph_equal and served
+                and set(named) <= {"won", "lost"}
+                and len(named) == STRUCT_SCORE_ROWS
+                and all(score_launches[k] >= 1 for k in score_launches))
+        prob = eager[feats["prediction"].name]["probability"]
+        rec_c = {"phase": "structural_serve", "rows": len(score_ds),
+                 "graph_equal_eager": graph_equal,
+                 "service_equal": served, "requests": [1, 3, 17, 64],
+                 "probability_finite": bool(torch.isfinite(
+                     torch.as_tensor(prob)).all()),
+                 "won_share": named.count("won") / len(named),
+                 "launches_main_path": score_launches,
+                 "transform": transform,
+                 "walls_s": {"score": walls["score"]},
+                 "ok": bool(ok_c)}
+        emit(rec_c)
+        if not ok_c:
+            raise AssertionError("the structural model's served answers "
+                                 "differ")
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return walls
+
+
 def missing_parts() -> list:
     """What this run lacks before it can start: a CUDA device, and the
     port's package beside this script (a copy of `chip_smoke.py` alone in
@@ -6365,6 +7174,12 @@ def main() -> int:
     # 26. the runnable application, the selector's other controls and the
     # aggregation examples ---------------------------------------------- #
     app_phase(port, pt)
+
+    # 27. Avro ingestion and the structural encoders -------------------- #
+    t0 = time.perf_counter()
+    struct_walls = structural_phase()
+    emit({"phase": "structural", "walls_s": struct_walls,
+          "wall_s": time.perf_counter() - t0, "ok": True})
 
     # 10. the kernels line, the card, the result --------------------------- #
     main_n = timing[891]

@@ -189,8 +189,23 @@ def test_from_jax_params_round_trips(cls, params):
 
 
 def test_map_bucketizer_is_refused_until_maps_are_ported():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pb.DecisionTreeNumericMapBucketizer()
+    """Refused until item 6a ported the maps; now it fits, as the JAX
+    package's does (parity in tests/test_torch_structural.py)."""
+    y = [0.0, 1.0] * 20
+    rows = [{"k": float(i) + (5.0 if y[i] else 0.0)} for i in range(40)]
+    cols = [PColumn.from_values(pt.RealNN, y),
+            PColumn.from_values(pt.RealMap, rows)]
+    jcols = [JColumn.from_values(jt.RealNN, y),
+             JColumn.from_values(jt.RealMap, rows)]
+    got = pb.DecisionTreeNumericMapBucketizer().set_input(
+        raw(PGen, "y", pt.RealNN), raw(PGen, "m", pt.RealMap)).fit(
+        cols, PFitContext(n_rows=40))
+    want = jb.DecisionTreeNumericMapBucketizer().set_input(
+        raw(JGen, "y", jt.RealNN), raw(JGen, "m", jt.RealMap)).fit(
+        jcols, JFitContext(n_rows=40))
+    assert got.splits_by_key == want.splits_by_key
+    np.testing.assert_array_equal(np.asarray(got.transform(cols, "cpu").data),
+                                  np.asarray(want.transform(jcols).data))
 
 
 def bucket_workflow(ns):

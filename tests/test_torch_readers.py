@@ -320,16 +320,21 @@ def test_streaming_reader_matches_jax(source, tmp_path):
     assert got[0] == got[1]
 
 
-def test_avro_and_parquet_are_refused_by_name():
+def test_avro_and_parquet_are_refused_by_name(tmp_path):
+    """Parquet is refused by name (no pyarrow on the GPU machine); Avro,
+    refused until the port had its container codec, now reads (its
+    parity is tests/test_torch_avro.py's)."""
     DR = pkg("port").readers.DataReaders
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        DR.avro("x.avro").read()
     with pytest.raises(NotImplementedError, match="pyarrow"):
         DR.parquet("x.parquet").read()
     with pytest.raises(NotImplementedError, match="pyarrow"):
         list(DR.stream(parquet_path="x.parquet").stream())
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        list(DR.stream(avro_path="x.avro").stream())
+    from transmogrifai_tpu_torch.data.avro import write_container
+    path = str(tmp_path / "x.avro")
+    write_container(path, {"type": "record", "name": "R", "fields": [
+        {"name": "s", "type": ["null", "string"]}]}, [{"s": "a"}, {"s": None}])
+    assert list(DR.avro(path).read().column("s")) == ["a", None]
+    assert [len(b) for b in DR.stream(avro_path=path).stream()] == [2]
 
 
 # --------------------------------------------------------------------------- #

@@ -943,14 +943,15 @@ def _unported_case(case):
     from transmogrifai_tpu_torch.workflow.params import OpParams
     from transmogrifai_tpu_torch.workflow.runner import WorkflowRunner
 
-    if case == "date_group":
-        transmogrify([FeatureGeneratorStage(name="when",
-                                            ftype=PT.Date).get_output()])
+    if case == "email_group":
+        transmogrify([FeatureGeneratorStage(name="who",
+                                            ftype=PT.Email).get_output()])
     elif case == "checkpoint":
         BinaryClassificationModelSelector.with_cross_validation(
             models=[(pt.OpXGBoostClassifier(), GRID)], checkpoint_dir="x")
-    elif case == "avro_reader":
-        DataReaders.avro("x.avro").read()
+    elif case == "phone_map":
+        transmogrify([FeatureGeneratorStage(
+            name="phones", ftype=PT.PhoneMap).get_output()])
     elif case == "parquet_reader":
         DataReaders.stream(parquet_path="x.parquet").read()
     elif case in ("streaming_score", "serve"):
@@ -969,8 +970,8 @@ def _unported_case(case):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("date_group", "'date' group"), ("checkpoint", "checkpoint"),
-    ("avro_reader", "queue 1, item 2"), ("parquet_reader", "pyarrow"),
+    ("email_group", "'email' group"), ("checkpoint", "checkpoint"),
+    ("phone_map", "queue 1, item 6b"), ("parquet_reader", "pyarrow"),
     ("streaming_score", "queue 1, item 10"), ("serve", "queue 1, item 10"),
     ("sweep_checkpoint", "queue 1, item 7"),
     ("perf_model", "queue 1, item 10"),
@@ -978,7 +979,7 @@ def _unported_case(case):
 def test_unported_paths_raise_and_name_themselves(case, match):
     with pytest.raises(NotImplementedError, match=match):
         _unported_case(case)
-    if case == "date_group":
+    if case == "email_group":
         from transmogrifai_tpu_torch import Dataset, FeatureBuilder
         _, label = FeatureBuilder.from_dataset(Dataset.from_csv(TITANIC),
                                                response="survived")

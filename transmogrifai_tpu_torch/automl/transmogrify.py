@@ -2,10 +2,11 @@
 
 The port's counterpart of the JAX package's `automl/transmogrify.py`:
 group the input features by type, apply each type's default encoder, and
-combine the results into one OPVector with `VectorsCombiner`. The
-encoders of the Real, RealNN, Integral, Binary, pivot (PickList and its
-kin) and Text groups are ported, and OPVector features join the combiner
-as they are; a feature of any other group raises and names the group.
+combine the results into one OPVector with `VectorsCombiner`, in the JAX
+package's group order. Every group is ported but the email, url, phone
+and base64 groups (and phone maps in the map group), which need the text
+enrichment of ROADMAP queue 1, item 6b and raise naming it; OPVector
+features join the combiner as they are.
 """
 
 from __future__ import annotations
@@ -14,11 +15,16 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from transmogrifai_tpu_torch import types as T
-from transmogrifai_tpu_torch.ops.categorical import OneHotVectorizer
+from transmogrifai_tpu_torch.ops.categorical import (
+    MultiPickListVectorizer, OneHotVectorizer)
 from transmogrifai_tpu_torch.ops.combiner import VectorsCombiner
+from transmogrifai_tpu_torch.ops.dates import DateToUnitCircleVectorizer
+from transmogrifai_tpu_torch.ops.geo import GeolocationVectorizer
+from transmogrifai_tpu_torch.ops.maps import map_vectorizers
 from transmogrifai_tpu_torch.ops.numeric import (
     BinaryVectorizer, IntegralVectorizer, RealNNVectorizer, RealVectorizer)
-from transmogrifai_tpu_torch.ops.text import SmartTextVectorizer
+from transmogrifai_tpu_torch.ops.text import (
+    HashingVectorizer, SmartTextVectorizer)
 
 
 @dataclass(frozen=True)
@@ -38,8 +44,8 @@ class TransmogrifierDefaults:
 _PIVOT_TYPES = (T.PickList, T.ComboBox, T.Country, T.State, T.City,
                 T.PostalCode, T.Street, T.ID)
 _SMART_TEXT_TYPES = (T.TextArea, T.Text)
-_PORTED_GROUPS = ("realnn", "real", "integral", "binary", "pivot",
-                  "smart_text", "vector")
+# the groups that need the text enrichment (ops/enrich.py)
+_ENRICH_GROUPS = ("email", "url", "phone", "base64")
 
 
 def _group_features(features: Sequence) -> Dict[str, List]:
@@ -93,12 +99,12 @@ def transmogrify(features: Sequence,
     d = defaults or TransmogrifierDefaults()
     groups = _group_features(features)
     for key, members in groups.items():
-        if key not in _PORTED_GROUPS:
+        if key in _ENRICH_GROUPS:
             raise NotImplementedError(
                 f"transmogrify: the {key!r} group "
-                f"({', '.join(f.name for f in members)}) has no ported "
-                "encoder yet (ROADMAP.md, queue 1: the rest of the op "
-                "library and transmogrify's other groups)")
+                f"({', '.join(f.name for f in members)}) needs the text "
+                "enrichment (ops/enrich.py), which is not ported yet: "
+                "ROADMAP.md queue 1, item 6b")
     vectors = []
     if "realnn" in groups:
         vectors.append(RealNNVectorizer().set_input(
@@ -115,6 +121,10 @@ def transmogrify(features: Sequence,
         vectors.append(BinaryVectorizer(
             track_nulls=d.track_nulls).set_input(
                 *groups["binary"]).get_output())
+    if "date" in groups:
+        vectors.append(DateToUnitCircleVectorizer(
+            periods=d.circular_date_periods).set_input(
+                *groups["date"]).get_output())
     if "pivot" in groups:
         vectors.append(OneHotVectorizer(
             top_k=d.top_k, min_support=d.min_support,
@@ -126,6 +136,22 @@ def transmogrify(features: Sequence,
             min_support=d.min_support, num_features=d.num_hash_features,
             track_nulls=d.track_nulls).set_input(
                 *groups["smart_text"]).get_output())
+    if "multipicklist" in groups:
+        vectors.append(MultiPickListVectorizer(
+            top_k=d.top_k, min_support=d.min_support,
+            track_nulls=d.track_nulls).set_input(
+                *groups["multipicklist"]).get_output())
+    if "textlist" in groups:
+        vectors.append(HashingVectorizer(
+            num_features=d.num_hash_features,
+            track_nulls=d.track_nulls).set_input(
+                *groups["textlist"]).get_output())
+    if "geo" in groups:
+        vectors.append(GeolocationVectorizer(
+            track_nulls=d.track_nulls).set_input(
+                *groups["geo"]).get_output())
+    if "map" in groups:
+        vectors.extend(map_vectorizers(groups["map"], d))
     if "vector" in groups:  # already vectors: combined as they are
         vectors.extend(groups["vector"])
     if not vectors:

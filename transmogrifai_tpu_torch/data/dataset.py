@@ -4,8 +4,9 @@ The workflow's input currency: an in-memory dict of named columns, each a
 numpy array (object arrays for text/collections, float64 with NaN for
 missing numerics). The port's copy of the JAX package's `data/dataset.py`
 keeps its pure-python CSV path (the same type inference, cell parsing and
-numeric storage) and a rows/columns builder for the serving wire; it has
-no pyarrow and no native CSV parser.
+numeric storage), a rows/columns builder for the serving wire, and Avro
+container reads and writes (`data/avro.py`); it has no pyarrow and no
+native CSV parser.
 """
 
 from __future__ import annotations
@@ -244,6 +245,20 @@ class Dataset:
                 arr = _to_numeric_storage(arr)
             cols[name] = arr
         return Dataset(cols, sch)
+
+    @staticmethod
+    def from_avro(path: str,
+                  schema: Optional[Mapping[str, type]] = None) -> "Dataset":
+        """Read an Avro Object Container File (AvroReaders.scala
+        analogue); FeatureTypes from the writer schema unless `schema`
+        names them."""
+        from transmogrifai_tpu_torch.data.avro import dataset_from_avro
+        return dataset_from_avro(path, schema=schema)
+
+    def to_avro(self, path: str, codec: str = "deflate") -> None:
+        from transmogrifai_tpu_torch.data.avro import dataset_to_avro
+        dataset_to_avro(self, path, codec=codec)
+
 
 def _to_numeric_storage(arr: np.ndarray) -> np.ndarray:
     """Object array of numbers/None → float64 with NaN for missing.

@@ -2,15 +2,17 @@
 
 The port's counterpart of the JAX package's `dsl.py` (which imports the
 JAX ops lazily, so the port keeps its own): the arithmetic operators and
-unary math, the scalers, the numeric bucketizers, the generic row ops,
-`pivot`, `sanity_check` and `indexed`. Importing the package attaches
-the methods; each wires a stage and returns its output feature, nothing
-runs.
+unary math, `vectorize`, the scalers, the numeric bucketizers, the
+generic row ops, `pivot`, `sanity_check`, `indexed` and `deindexed`,
+`tokenize` and `smart_vectorize`, the date methods `to_unit_circle` and
+`to_time_period`, and `combine`. The text enrichment methods wait for
+ROADMAP queue 1, item 6b. Importing the package attaches the methods;
+each wires a stage and returns its output feature, nothing runs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 from transmogrifai_tpu_torch.features.feature import Feature
 
@@ -54,6 +56,24 @@ def _unary(op: str, needs_arg: bool = False):
 def log(self: Feature, base: float = 0.0) -> Feature:
     from transmogrifai_tpu_torch.ops.mathops import UnaryMathTransformer
     return _stage(UnaryMathTransformer, self, op="log", arg=base)
+
+
+# -- per-type default encoding ------------------------------------------- #
+
+def vectorize(self: Feature, track_nulls: bool = True,
+              fill_value="mean") -> Feature:
+    """The feature's default encoding: transmogrify of the one feature."""
+    from transmogrifai_tpu_torch.automl.transmogrify import (
+        TransmogrifierDefaults, transmogrify)
+    d = TransmogrifierDefaults(track_nulls=track_nulls,
+                               fill_numeric=fill_value)
+    return transmogrify([self], defaults=d)
+
+
+def combine(self: Feature, *others: Feature) -> Feature:
+    """vector.combine(*vectors): one OPVector of them all."""
+    from transmogrifai_tpu_torch.ops.combiner import VectorsCombiner
+    return _stage(VectorsCombiner, self, *others)
 
 
 # -- scalers ------------------------------------------------------------- #
@@ -120,11 +140,43 @@ def indexed(self: Feature, handle_invalid: str = "error") -> Feature:
     return _stage(OpStringIndexer, self, handle_invalid=handle_invalid)
 
 
+def deindexed(self: Feature,
+              labels: Optional[Sequence[str]] = None) -> Feature:
+    """index.deindexed(): the label of each index (OpIndexToString)."""
+    from transmogrifai_tpu_torch.ops.indexers import OpIndexToString
+    return _stage(OpIndexToString, self, labels=labels)
+
+
+def tokenize(self: Feature, **kw) -> Feature:
+    from transmogrifai_tpu_torch.ops.text import TextTokenizer
+    return _stage(TextTokenizer, self, **kw)
+
+
+def smart_vectorize(self: Feature, **kw) -> Feature:
+    from transmogrifai_tpu_torch.ops.text import SmartTextVectorizer
+    return _stage(SmartTextVectorizer, self, **kw)
+
+
 def pivot(self: Feature, top_k: int = 20, min_support: int = 10,
           track_nulls: bool = True) -> Feature:
     from transmogrifai_tpu_torch.ops.categorical import OneHotVectorizer
     return _stage(OneHotVectorizer, self, top_k=top_k,
                   min_support=min_support, track_nulls=track_nulls)
+
+
+# -- dates (RichDateFeature) --------------------------------------------- #
+
+def to_unit_circle(self: Feature,
+                   periods: Optional[Sequence[str]] = None) -> Feature:
+    from transmogrifai_tpu_torch.ops.dates import (
+        DEFAULT_PERIODS, DateToUnitCircleVectorizer)
+    return _stage(DateToUnitCircleVectorizer, self,
+                  periods=list(periods or DEFAULT_PERIODS))
+
+
+def to_time_period(self: Feature, period: str = "DayOfWeek") -> Feature:
+    from transmogrifai_tpu_torch.ops.dates import TimePeriodTransformer
+    return _stage(TimePeriodTransformer, self, period=period)
 
 
 # -- generic row ops (RichFeature) -------------------------------------- #
@@ -191,11 +243,15 @@ _METHODS = {
     "round": _unary("round"), "exp": _unary("exp"), "sqrt": _unary("sqrt"),
     "negate": _unary("negate"), "power": _unary("power", needs_arg=True),
     "log": log,
+    "vectorize": vectorize, "combine": combine,
     "z_normalize": z_normalize,
     "fill_missing_with_mean": fill_missing_with_mean,
     "bucketize": bucketize, "auto_bucketize": auto_bucketize,
     "to_percentile": to_percentile, "scale": scale, "descale": descale,
-    "sanity_check": sanity_check, "indexed": indexed, "pivot": pivot,
+    "sanity_check": sanity_check, "indexed": indexed,
+    "deindexed": deindexed, "tokenize": tokenize,
+    "smart_vectorize": smart_vectorize, "pivot": pivot,
+    "to_unit_circle": to_unit_circle, "to_time_period": to_time_period,
     "alias": alias, "map_values": map_values, "filter_values": filter_values,
     "exists": exists, "replace_with": replace_with, "occurs": occurs,
     "jaccard_similarity": jaccard_similarity,

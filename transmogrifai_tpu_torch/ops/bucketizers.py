@@ -18,7 +18,9 @@ subnormal value compares as zero, as in XLA's CPU programs (F11). The
 JAX package's eager transform differs in one place: there the bound
 compares see host numpy arrays and run in f64.
 
-`DecisionTreeNumericMapBucketizer` (per map key) is not ported yet.
+`DecisionTreeNumericMapBucketizer` fits the same splits per key of a
+numeric map; its model runs on the host segments of the scorer (its
+values come from a map) and compares in f32 like the others.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from transmogrifai_tpu_torch.data.columns import Column
 from transmogrifai_tpu_torch.data.metadata import (
     NULL_INDICATOR, VectorColumnMetadata, VectorMetadata)
 from transmogrifai_tpu_torch.stages.base import (
-    Estimator, FitContext, Transformer)
+    Estimator, FitContext, Transformer, flush_subnormals)
 
 
 def _bucket_labels(splits: Sequence[float]) -> List[str]:
@@ -51,21 +53,25 @@ class _InnerSplits(torch.nn.Module):
             np.asarray(splits[1:-1], dtype=np.float32)))
 
 
-_F32_TINY = float(np.finfo(np.float32).tiny)  # the least normal f32
-
-
 def _onehot_buckets(inner: torch.Tensor, lo: float, hi: float,
                     n_buckets: int, x: torch.Tensor, m: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(one-hot (n, n_buckets) f32, valid (n,) bool) of f32 values x with
     presence m: bucket = searchsorted(inner, x, side="right"), valid =
     present and lo <= x < hi (lo and hi f32-narrowed); subnormal x as 0."""
-    x = torch.where(x.abs() < _F32_TINY, torch.zeros_like(x), x)
-    idx = torch.searchsorted(inner, x, right=True)
+    x = flush_subnormals(x)
     valid = m & (x >= lo) & (x < hi)
+    return _onehot(inner, n_buckets, x, valid), valid
+
+
+def _onehot(inner: torch.Tensor, n_buckets: int, x: torch.Tensor,
+            keep: torch.Tensor) -> torch.Tensor:
+    """One-hot (n, n_buckets) f32 of searchsorted(inner, x, side="right"),
+    zero in the rows that `keep` leaves out."""
+    idx = torch.searchsorted(inner, x, right=True)
     buckets = torch.arange(n_buckets, device=x.device)
-    onehot = (buckets[None, :] == idx[:, None]) & valid[:, None]
-    return onehot.to(torch.float32), valid
+    return ((buckets[None, :] == idx[:, None])
+            & keep[:, None]).to(torch.float32)
 
 
 class NumericBucketizerModel(Transformer):
@@ -310,14 +316,109 @@ class DecisionTreeBucketizerModel(Transformer):
         return {"thresholds": self.thresholds, "track_nulls": self.track_nulls}
 
 
+def _map_key_values(rows, key: str) -> np.ndarray:
+    """One key of a numeric map column as f64, NaN where absent."""
+    return np.array([float(row[key]) if row and key in row
+                     and row[key] is not None else np.nan for row in rows],
+                    dtype=np.float64)
+
+
 class DecisionTreeNumericMapBucketizer(Estimator):
-    """Per-map-key label-aware buckets: not ported yet."""
+    """(label, numeric map) → label-aware buckets per map key, then a null
+    indicator per key (DecisionTreeNumericMapBucketizer.scala)."""
 
     in_types = (T.OPNumeric, T.OPMap)
     out_type = T.OPVector
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DecisionTreeNumericMapBucketizer is not ported yet "
-            "(ROADMAP.md, queue 1, item 6: the rest of the op library, "
-            "with ops/maps.py)")
+    def __init__(self, max_depth: int = 2, min_info_gain: float = 1e-6,
+                 track_nulls: bool = True, uid: Optional[str] = None):
+        super().__init__(uid=uid, max_depth=max_depth,
+                         min_info_gain=min_info_gain,
+                         track_nulls=track_nulls)
+        self.max_depth = max_depth
+        self.min_info_gain = min_info_gain
+        self.track_nulls = track_nulls
+
+    def fit_model(self, cols: Sequence[Column],
+                  ctx: FitContext) -> Transformer:
+        label, mapped = cols
+        y_all = np.asarray(label.data["value"], dtype=np.float64)
+        ym = np.asarray(label.data["mask"]).astype(bool)
+        keys = sorted({k for row in mapped.data for k in (row or {})})
+        per_key = {}
+        for k in keys:
+            x = _map_key_values(mapped.data, k)
+            m = ~np.isnan(x) & ym
+            thr: List[float] = []
+            if m.any():
+                thr = decision_tree_splits(
+                    x[m], y_all[m], _is_classification(y_all[ym]),
+                    self.max_depth, 1, self.min_info_gain)
+            per_key[k] = thr
+        return DecisionTreeMapBucketizerModel(per_key, self.track_nulls)
+
+
+class DecisionTreeMapBucketizerModel(Transformer):
+    """The fitted map bucketizer: per key (in the fit's key order) the
+    one-hot of its buckets, where it split, and a null indicator. Its
+    values come from the host as f64 (absent keys 0, NaN as 0, ±inf as
+    ±max f64) and are compared in f32 with the f32-narrowed splits, as the
+    JAX package's eager `searchsorted` does (F18); every present value is
+    in bounds."""
+
+    in_types = (T.OPNumeric, T.OPMap)
+    out_type = T.OPVector
+    jittable = False  # the map input needs host-side key extraction
+
+    def __init__(self, splits_by_key, track_nulls: bool = True,
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.splits_by_key = {k: [float(t) for t in v]
+                              for k, v in dict(splits_by_key).items()}
+        self.track_nulls = track_nulls
+
+    def host_prepare(self, cols):
+        out = {}
+        for k in self.splits_by_key:
+            x = _map_key_values(cols[1].data, k)
+            out[k] = {"value": np.nan_to_num(x), "mask": ~np.isnan(x)}
+        return out
+
+    def device_apply(self, enc, dev):
+        groups = []
+        for k, thr in self.splits_by_key.items():
+            x, m = enc[k]["value"], enc[k]["mask"]
+            if thr:
+                inner = torch.as_tensor(np.asarray(thr, dtype=np.float32),
+                                        device=x.device)
+                # the outer splits are ±inf, so every present value is
+                # in bounds, f32 ±inf (an f64 beyond f32's range) too
+                groups.append(_onehot(
+                    inner, len(thr) + 1,
+                    flush_subnormals(x.to(torch.float32)), m))
+            if self.track_nulls:
+                groups.append((~m)[:, None].to(torch.float32))
+        if not groups:
+            n = len(next(iter(enc.values()))["value"]) if enc else 0
+            return torch.zeros((n, 0), dtype=torch.float32)
+        return torch.cat(groups, dim=1)
+
+    def output_meta(self) -> VectorMetadata:
+        f = self.input_features[1]
+        cols: List[VectorColumnMetadata] = []
+        for k, thr in self.splits_by_key.items():
+            if thr:
+                for lbl in _bucket_labels([-np.inf] + list(thr) + [np.inf]):
+                    cols.append(VectorColumnMetadata(
+                        parent_name=f.name, parent_type=f.ftype.__name__,
+                        grouping=k, indicator_value=lbl))
+            if self.track_nulls:
+                cols.append(VectorColumnMetadata(
+                    parent_name=f.name, parent_type=f.ftype.__name__,
+                    grouping=k, indicator_value=NULL_INDICATOR))
+        return VectorMetadata(self.output_name(), tuple(cols)).with_indices()
+
+    def get_params(self):
+        return {"splits_by_key": {k: list(v)
+                                  for k, v in self.splits_by_key.items()},
+                "track_nulls": self.track_nulls}

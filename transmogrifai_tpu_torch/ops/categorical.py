@@ -1,8 +1,9 @@
 """Categorical pivots: the host-side helpers of the JAX package's
 `ops/categorical.py` (which `SmartTextModel` and `SmartTextVectorizer`
-use too) and its `OneHotVectorizer` / `OneHotModel`, the transmogrifier's
+use too), its `OneHotVectorizer` / `OneHotModel`, the transmogrifier's
 encoder of the PickList-like (pivot) group: per feature the top-K levels,
-an OTHER column and a null indicator."""
+an OTHER column and a null indicator, and `MultiPickListVectorizer` /
+`MultiPickListModel`, the same pivot multi-hot over set values."""
 
 from __future__ import annotations
 
@@ -111,3 +112,71 @@ class OneHotVectorizer(Estimator):
             vocabs.append(top_k_levels(counter, self.top_k,
                                        self.min_support))
         return OneHotModel(vocabs, self.track_nulls)
+
+
+class MultiPickListModel(Transformer):
+    """Fitted multi-hot pivot of set-valued categoricals: per feature K
+    level columns, OTHER (any value outside them) and a null indicator.
+    The multi-hot block is host work; the device concatenates."""
+
+    out_type = T.OPVector
+
+    def __init__(self, vocabs: Sequence[Sequence[str]],
+                 track_nulls: bool = True, uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.vocabs = [list(v) for v in vocabs]
+        self.track_nulls = track_nulls
+        self._lookups = [
+            {lvl: i for i, lvl in enumerate(v)} for v in self.vocabs]
+
+    def host_prepare(self, cols: Sequence[Optional[Column]]):
+        outs = []
+        for i, c in enumerate(cols):
+            lut, k = self._lookups[i], len(self.vocabs[i])
+            arr = np.zeros((len(c.data), k + 1 + int(self.track_nulls)),
+                           dtype=np.float32)
+            for r, val in enumerate(c.data):
+                if val is None:
+                    if self.track_nulls:
+                        arr[r, k + 1] = 1.0
+                    continue
+                for s in val:
+                    arr[r, lut.get(s, k)] = 1.0
+            outs.append(arr)
+        return outs
+
+    def device_apply(self, enc, dev):
+        return torch.cat(list(enc), dim=1)
+
+    def output_meta(self) -> VectorMetadata:
+        return OneHotModel.output_meta(self)
+
+    def get_params(self):
+        return {"vocabs": self.vocabs, "track_nulls": self.track_nulls}
+
+
+class MultiPickListVectorizer(Estimator):
+    """N MultiPickList features → a top-K multi-hot each."""
+
+    in_types = (T.MultiPickList, Ellipsis)
+    out_type = T.OPVector
+
+    def __init__(self, top_k: int = 20, min_support: int = 10,
+                 track_nulls: bool = True, uid: Optional[str] = None):
+        super().__init__(uid=uid, top_k=top_k, min_support=min_support,
+                         track_nulls=track_nulls)
+        self.top_k = top_k
+        self.min_support = min_support
+        self.track_nulls = track_nulls
+
+    def fit_model(self, cols: Sequence[Column],
+                  ctx: FitContext) -> Transformer:
+        vocabs = []
+        for c in cols:
+            counter: Counter = Counter()
+            for val in c.data:
+                if val is not None:
+                    counter.update(val)
+            vocabs.append(top_k_levels(counter, self.top_k,
+                                       self.min_support))
+        return MultiPickListModel(vocabs, self.track_nulls)

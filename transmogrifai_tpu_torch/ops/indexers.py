@@ -1,21 +1,24 @@
-"""String label indexing (the port's counterpart of the JAX package's
-`ops/indexers.py`, `StringIndexerModel` and `OpStringIndexer`): a Text
-column → RealNN indices, labels ordered by descending count with ties
-broken by the label. Building and applying the vocabulary is host work;
-the index column then moves to the device as a value/mask pair.
+"""String label indexing and its inverse (the port's counterpart of the
+JAX package's `ops/indexers.py`): `OpStringIndexer` and
+`OpStringIndexerNoFilter` map a Text column to RealNN indices, labels
+ordered by descending count with ties broken by the label; building and
+applying the vocabulary is host work, and the index column then moves to
+the device as a value/mask pair. `OpIndexToString` and
+`PredictionDeIndexer` map indices and predicted classes back to labels
+(host text results).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from transmogrifai_tpu_torch import types as T
-from transmogrifai_tpu_torch.data.columns import Column
+from transmogrifai_tpu_torch.data.columns import Column, to_host
 from transmogrifai_tpu_torch.stages.base import (
-    Estimator, FitContext, Transformer)
+    Estimator, FitContext, HostTransformer, Transformer)
 
 ERROR, SKIP, KEEP = "error", "skip", "keep"
 
@@ -89,3 +92,76 @@ class OpStringIndexer(Estimator):
                 counts[v] = counts.get(v, 0) + 1
         labels = sorted(counts, key=lambda lbl: (-counts[lbl], lbl))
         return StringIndexerModel(labels, self.handle_invalid)
+
+
+class OpStringIndexerNoFilter(OpStringIndexer):
+    """Unseen labels take the extra index len(labels)
+    (OpStringIndexerNoFilter.scala)."""
+
+    def __init__(self, uid: Optional[str] = None):
+        super().__init__(handle_invalid=KEEP, uid=uid)
+
+
+def _indexer_labels(stage, labels: Optional[List[str]]) -> List[str]:
+    """Explicit labels, else those of the StringIndexerModel that made the
+    stage's first input."""
+    if labels is not None:
+        return labels
+    origin = stage.input_features[0].origin_stage
+    if isinstance(origin, StringIndexerModel):
+        return origin.labels
+    raise ValueError(f"{stage.operation_name} needs labels= or a "
+                     "StringIndexerModel parent")
+
+
+class OpIndexToString(HostTransformer):
+    """RealNN index → Text, through explicit labels or those of the
+    StringIndexerModel that produced the index; an index outside them
+    gives `unseen_name`."""
+
+    in_types = (T.OPNumeric,)
+    out_type = T.Text
+
+    def __init__(self, labels: Optional[Sequence[str]] = None,
+                 unseen_name: str = "UnseenLabel", uid: Optional[str] = None):
+        super().__init__(uid=uid, labels=list(labels) if labels else None,
+                         unseen_name=unseen_name)
+        self.labels = list(labels) if labels else None
+        self.unseen_name = unseen_name
+
+    def transform(self, cols: Sequence[Column], device=None) -> Column:
+        labels = _indexer_labels(self, self.labels)
+        v = np.asarray(to_host(cols[0].data["value"]), dtype=np.float64)
+        m = np.asarray(to_host(cols[0].data["mask"])).astype(bool)
+        out = np.empty(len(v), dtype=object)
+        for i in range(len(v)):
+            if m[i]:
+                j = int(v[i])
+                out[i] = (labels[j] if 0 <= j < len(labels)
+                          else self.unseen_name)
+            else:
+                out[i] = None
+        return Column(T.Text, out)
+
+
+class PredictionDeIndexer(HostTransformer):
+    """(indexed response, Prediction) → Text: the predicted class as its
+    original label (PredictionDeIndexer.scala); None outside the labels."""
+
+    in_types = (T.OPNumeric, T.Prediction)
+    out_type = T.Text
+
+    def __init__(self, labels: Optional[Sequence[str]] = None,
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid, labels=list(labels) if labels else None)
+        self.labels = list(labels) if labels else None
+
+    def transform(self, cols: Sequence[Column], device=None) -> Column:
+        labels = _indexer_labels(self, self.labels)
+        pred = np.asarray(to_host(cols[1].data["prediction"]),
+                          dtype=np.float64)
+        out = np.empty(len(pred), dtype=object)
+        for i, p in enumerate(pred):
+            j = int(p)
+            out[i] = labels[j] if 0 <= j < len(labels) else None
+        return Column(T.Text, out)

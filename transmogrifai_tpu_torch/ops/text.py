@@ -1,10 +1,12 @@
-"""Text ops: tokenizer, murmur3 hashing, SmartTextVectorizer and its model.
+"""Text ops: the tokenizer and `TextTokenizer`, murmur3 hashing and
+`HashingVectorizer`, `SmartTextVectorizer` and its model.
 
 The port's counterpart of the JAX package's `ops/text.py`. All string work
 is host-side numpy prep producing dense (n, d) count arrays; the device
 side is a concat. Hashing is pure-python murmur3-32 over the row-wise
-tokenizer — the JAX package's `_hash_counts` row-loop branch — so bucket
-ids and counts are bit-identical to the JAX package's.
+tokenizer, once per distinct token, so bucket ids and counts are
+bit-identical to the JAX package's (whose columns go through pyarrow and
+a native murmur3 where it has them).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from transmogrifai_tpu_torch.data.metadata import (
 from transmogrifai_tpu_torch.ops.categorical import (
     one_hot_np, pivot_encode_ids, top_k_levels)
 from transmogrifai_tpu_torch.stages.base import (
-    Estimator, FitContext, Transformer)
+    Estimator, FitContext, HostTransformer, Transformer)
 
 # ---------------------------------------------------------------------------
 # murmur3-32 (pure python, memoized) — HashAlgorithm.MurMur3 parity
@@ -152,10 +154,47 @@ def tokenize(text: Optional[str], min_token_length: int = 1,
     return _analyze(text, min_token_length)
 
 
-def _hash_counts(values, hasher: TokenHasher,
-                 pre_tokenized: bool) -> np.ndarray:
-    """(n, num_features) f32 hashed token counts, one row per value:
-    tokens are hashed one by one and scatter-added with `np.add.at`."""
+# pyarrow's utf8_lower maps each code point to one (Unicode's simple
+# lowercase); str.lower applies the full mapping, which differs in two
+# places: U+0130 (İ → i + U+0307) and a word-final Σ (→ ς)
+_SIMPLE_LOWER = str.maketrans({"\u0130": "i", "\u03a3": "\u03c3"})
+
+
+def column_tokens(text: Optional[str], min_token_length: int = 1,
+                  to_lowercase: bool = True) -> List[str]:
+    """One row's tokens as the JAX package's whole-column path gives them
+    (`tokenize_batch`, and `_hash_counts` of text), which runs pyarrow's
+    kernels: rows with CJK, Southeast Asian or Arabic code points go
+    through `tokenize`; the others are lowercased code point by code point
+    and split into runs of letters and numbers."""
+    if not text:
+        return []
+    if _NONSIMPLE_RE.search(text) is not None:
+        return tokenize(text, min_token_length, to_lowercase)
+    if to_lowercase:
+        text = text.translate(_SIMPLE_LOWER).lower()
+    return [t for t in _TOKEN_RE.findall(text)
+            if len(t) >= max(1, min_token_length)]
+
+
+def tokenize_batch(values, min_token_length: int = 1,
+                   to_lowercase: bool = True) -> np.ndarray:
+    """Whole-column tokenization: an object array of per-row token lists
+    (None where a row has no tokens), the JAX package's tokens from its
+    pyarrow path (`column_tokens`); the port has no pyarrow."""
+    out = np.empty(len(values), dtype=object)
+    for i, v in enumerate(values):
+        out[i] = column_tokens(v, min_token_length, to_lowercase) or None
+    return out
+
+
+def _hash_counts(values, hasher: TokenHasher, binary: bool = False,
+                 pre_tokenized: bool = False) -> np.ndarray:
+    """(n, num_features) f32 hashed token counts, one row per value (the
+    JAX package's `_hash_counts`, text tokenized as its pyarrow path
+    does): murmur3 runs once per distinct token,
+    the counts are scatter-added with `np.add.at`, and `binary` clips
+    them to 1."""
     n = len(values)
     out = np.zeros((n, hasher.num_features), dtype=np.float32)
     rows: List[int] = []
@@ -163,14 +202,136 @@ def _hash_counts(values, hasher: TokenHasher,
     for i, v in enumerate(values):
         if v is None:
             continue
-        t = v if pre_tokenized else tokenize(v)
+        t = v if pre_tokenized else column_tokens(v)
         toks.extend(t)
         rows.extend([i] * len(t))
     if not toks:
         return out
-    buckets = np.fromiter((hasher(t) for t in toks), np.int64, len(toks))
-    np.add.at(out, (np.asarray(rows, dtype=np.int64), buckets), 1.0)
+    uniq, inverse = np.unique(np.asarray(toks, dtype=object),
+                              return_inverse=True)
+    buckets = np.fromiter((hasher(t) for t in uniq), np.int64, len(uniq))
+    np.add.at(out, (np.asarray(rows, dtype=np.int64),
+                    buckets[inverse.reshape(-1)]), 1.0)
+    if binary:
+        np.minimum(out, 1.0, out=out)
     return out
+
+
+_LANGUAGE_REFUSAL = (
+    "TextTokenizer's language= and auto_detect_language= need the "
+    "language detector, stopwords and stemmers (utils/language.py, "
+    "utils/stemmers.py), which are not ported yet: ROADMAP.md queue 1, "
+    "item 6b")
+
+
+class TextTokenizer(HostTransformer):
+    """Text → TextList of analyzer tokens (a host stage,
+    TextTokenizer.scala).
+
+    Its parameters are the JAX package's. With neither `language` nor
+    `auto_detect_language` set (the default) tokens pass through
+    unfiltered and unstemmed, as there; the language modes raise (ROADMAP
+    queue 1, item 6b)."""
+
+    in_types = (T.Text,)
+    out_type = T.TextList
+
+    def __init__(self, min_token_length: int = 1, to_lowercase: bool = True,
+                 language: Optional[str] = None,
+                 auto_detect_language: bool = False,
+                 auto_detect_threshold: float = 0.99,
+                 default_language: str = "en", stem: bool = True,
+                 uid: Optional[str] = None):
+        if language or auto_detect_language:
+            raise NotImplementedError(_LANGUAGE_REFUSAL)
+        super().__init__(uid=uid, min_token_length=min_token_length,
+                         to_lowercase=to_lowercase, language=language,
+                         auto_detect_language=auto_detect_language,
+                         auto_detect_threshold=auto_detect_threshold,
+                         default_language=default_language, stem=stem)
+        self.min_token_length = min_token_length
+        self.to_lowercase = to_lowercase
+
+    def transform(self, cols: Sequence[Column], device=None) -> Column:
+        return Column(self.output_ftype(), tokenize_batch(
+            cols[0].data, self.min_token_length, self.to_lowercase))
+
+
+class HashingVectorizer(Transformer):
+    """N Text / TextList features → murmur3 hashed token counts
+    (OPCollectionHashingVectorizer), then a null indicator each.
+
+    Each input hashes with seed `seed + i` into a block of its own;
+    `shared_hash_space=True` hashes every input with `seed` into one
+    `num_features` block (HashSpaceStrategy.Shared). `binary` clips counts
+    to 1."""
+
+    in_types = None  # Text or TextList, checked below
+    out_type = T.OPVector
+
+    def __init__(self, num_features: int = 512, binary: bool = False,
+                 shared_hash_space: bool = False, track_nulls: bool = True,
+                 seed: int = 42, uid: Optional[str] = None):
+        super().__init__(uid=uid, num_features=num_features, binary=binary,
+                         shared_hash_space=shared_hash_space,
+                         track_nulls=track_nulls, seed=seed)
+        self.num_features = num_features
+        self.binary = binary
+        self.shared_hash_space = shared_hash_space
+        self.track_nulls = track_nulls
+        self.seed = seed
+
+    def _check_inputs(self, features):
+        for f in features:
+            if not issubclass(f.ftype, (T.Text, T.TextList)):
+                raise TypeError(
+                    f"HashingVectorizer input {f.name!r} must be Text or "
+                    f"TextList, got {f.ftype.__name__}")
+
+    def host_prepare(self, cols: Sequence[Optional[Column]]):
+        blocks, nulls = [], []
+        shared = (TokenHasher(self.num_features, self.seed)
+                  if self.shared_hash_space else None)
+        for i, c in enumerate(cols):
+            hasher = shared or TokenHasher(self.num_features, self.seed + i)
+            blocks.append(_hash_counts(c.data, hasher, self.binary,
+                                       c.kind == "list"))
+            nulls.append(np.fromiter(
+                (1.0 if v is None else 0.0 for v in c.data),
+                dtype=np.float32, count=len(c.data)))
+        if self.shared_hash_space:
+            merged = np.sum(blocks, axis=0)
+            if self.binary:
+                merged = np.minimum(merged, 1.0)
+            blocks = [merged]
+        return {"blocks": blocks, "nulls": nulls}
+
+    def device_apply(self, enc, dev):
+        parts = list(enc["blocks"])
+        if self.track_nulls:
+            parts.extend(z[:, None] for z in enc["nulls"])
+        return torch.cat(parts, dim=1)
+
+    def output_meta(self) -> VectorMetadata:
+        cols: List[VectorColumnMetadata] = []
+        if self.shared_hash_space:
+            group = ",".join(f.name for f in self.input_features)
+            for j in range(self.num_features):
+                cols.append(VectorColumnMetadata(
+                    parent_name=group, parent_type="Text",
+                    descriptor_value=f"hash_{j}"))
+        else:
+            for f in self.input_features:
+                for j in range(self.num_features):
+                    cols.append(VectorColumnMetadata(
+                        parent_name=f.name, parent_type=f.ftype.__name__,
+                        descriptor_value=f"hash_{j}"))
+        if self.track_nulls:
+            for f in self.input_features:
+                cols.append(VectorColumnMetadata(
+                    parent_name=f.name, parent_type=f.ftype.__name__,
+                    indicator_value=NULL_INDICATOR))
+        return VectorMetadata(self.output_name(), tuple(cols)).with_indices()
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +369,7 @@ class SmartTextModel(Transformer):
                                    self.track_nulls)
             elif strat == HASH:
                 hasher = TokenHasher(self.num_features, self.seed + i)
-                block = _hash_counts(c.data, hasher, False)
+                block = _hash_counts(c.data, hasher, False, False)
                 if self.track_nulls:
                     nulls = np.fromiter(
                         (1.0 if v is None else 0.0 for v in c.data),

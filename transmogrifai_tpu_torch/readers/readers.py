@@ -8,11 +8,10 @@ the row width stays constant whatever the history length, and emit
 *pre-extracted* datasets: columns are final typed feature values keyed by
 feature name, which `FeatureGeneratorStage.materialize` reads as they are.
 
-`CSVReader` reads through the port's python CSV path. Two readers of the
-JAX package are refused by name: `ParquetReader` (and the parquet branch
-of `StreamingReader`) needs pyarrow, which the GPU machine does not have,
-and `AvroReader` needs the Avro container codec (`data/avro.py`, ROADMAP
-queue 1, item 2).
+`CSVReader` reads through the port's python CSV path and `AvroReader`
+through its Avro container codec (`data/avro.py`). `ParquetReader` (and
+the parquet branch of `StreamingReader`) is refused by name: it needs
+pyarrow, which the GPU machine does not have.
 """
 
 from __future__ import annotations
@@ -194,16 +193,14 @@ class CSVReader(SimpleReader):
         return _with_key_column(ds, self.key_column)
 
 
-AVRO_REFUSAL = ("the Avro reader is not ported yet: it needs the Avro "
-                "container codec (data/avro.py), ROADMAP.md queue 1, item 2")
 PARQUET_REFUSAL = ("Parquet is not read by the port: it needs pyarrow, "
                    "which the GPU machine does not have; read CSV "
-                   "(CSVReader) or records instead")
+                   "(CSVReader), Avro (AvroReader) or records instead")
 
 
 class AvroReader(Reader):
-    """Avro container-file reader (AvroReaders.scala analogue). Not
-    ported yet: `read` raises, naming its ROADMAP item."""
+    """Avro container-file reader (AvroReaders.scala analogue), decoded by
+    the port's container codec (`data/avro.py`)."""
 
     def __init__(self, path: str, schema: Optional[Mapping[str, type]] = None,
                  key_column: Optional[str] = None):
@@ -213,7 +210,8 @@ class AvroReader(Reader):
         self.features = None
 
     def read(self, raw_features: Optional[Sequence] = None) -> Dataset:
-        raise NotImplementedError(AVRO_REFUSAL)
+        ds = Dataset.from_avro(self.path, schema=self._schema)
+        return _with_key_column(ds, self.key_column)
 
 
 class ParquetReader(Reader):
@@ -653,7 +651,14 @@ class StreamingReader(Reader):
             yield from self.records
             return
         if self.avro_path is not None:
-            raise NotImplementedError(AVRO_REFUSAL)
+            from transmogrifai_tpu_torch.data.avro import (
+                container_ftypes, read_container)
+            avsc, recs = read_container(self.avro_path)
+            if self.schema is None and isinstance(avsc, dict) \
+                    and avsc.get("type") == "record":
+                self.schema = container_ftypes(avsc)
+            yield from recs
+            return
         # parse CSV cells with the same typed inference as Dataset.from_csv
         # so the streaming path matches DataReaders.csv on the same file
         from transmogrifai_tpu_torch.data.dataset import (

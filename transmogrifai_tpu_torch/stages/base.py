@@ -227,6 +227,39 @@ def add_scaled_const(a: torch.Tensor, w1: float, b: torch.Tensor,
     return w1 * a + w2 * b
 
 
+_F32_TINY = float(np.finfo(np.float32).tiny)  # the least normal f32
+
+
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """x with its subnormal f32 values as zeros of the same sign: the JAX
+    package's XLA CPU programs, eager and jitted alike, read subnormal
+    operands as zero (F11)."""
+    return torch.where(x.abs() < _F32_TINY, x * 0.0, x)
+
+
+def fill_missing(v: torch.Tensor, m: torch.Tensor,
+                 fill: torch.Tensor) -> torch.Tensor:
+    """v·m + fill·(1 − m) for a 0/1 presence mask m, rounded as the JAX
+    package's programs round it: subnormal values and fills read as zero;
+    both products are exact, so XLA's contraction into an FMA changes
+    nothing."""
+    return flush_subnormals(v) * m + flush_subnormals(fill) * (1.0 - m)
+
+
+class ConstantArrays(torch.nn.Module):
+    """A stage's fitted arrays as the buffers of one module, for its
+    `device_constants` (so that the scorer moves them to the device once,
+    outside any CUDA graph capture): `consts[i]` is the i-th array."""
+
+    def __init__(self, arrays: Sequence[Any]):
+        super().__init__()
+        for i, a in enumerate(arrays):
+            self.register_buffer(f"a{i}", torch.as_tensor(np.asarray(a)))
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return getattr(self, f"a{i}")
+
+
 def to_device(enc: Any, device) -> Any:
     """Move a host pytree (numpy arrays in dicts/lists) onto `device` as
     tensors; non-array leaves pass through."""

@@ -396,14 +396,21 @@ def pad_dataset(dataset: Dataset, target_rows: int) -> Dataset:
 
 
 def slice_result_tree(value: Any, start: int, stop: int) -> Any:
-    """Slice every batch-leading array leaf of a scoring result pytree to
-    rows [start, stop)."""
+    """Slice every leaf of a scoring result pytree to rows [start, stop).
+    A leaf is batch-leading: an array or tensor (object arrays of text,
+    token lists or maps too) or a python list or tuple of per-row values.
+    Any other leaf cannot be cut per request and raises, where the JAX
+    package's rule passes it through whole, so that each request of a
+    coalesced batch would receive every row's (F10 in ROADMAP.md)."""
     if isinstance(value, dict):
         return {k: slice_result_tree(v, start, stop)
                 for k, v in value.items()}
-    if getattr(value, "ndim", 0) >= 1:
+    if isinstance(value, (np.ndarray, torch.Tensor)) and value.ndim >= 1:
         return value[start:stop]
-    return value
+    if isinstance(value, (list, tuple)):
+        return value[start:stop]
+    raise TypeError(f"cannot slice a {type(value).__name__} result leaf "
+                    "to the rows of one request")
 
 
 def _column_from_device(ftype: type, dev) -> Column:

@@ -240,7 +240,11 @@ def _ensure_stage_library() -> None:
     import transmogrifai_tpu_torch.ops.bucketizers  # noqa: F401
     import transmogrifai_tpu_torch.ops.categorical  # noqa: F401
     import transmogrifai_tpu_torch.ops.combiner  # noqa: F401
+    import transmogrifai_tpu_torch.ops.dates  # noqa: F401
+    import transmogrifai_tpu_torch.ops.drop_indices  # noqa: F401
+    import transmogrifai_tpu_torch.ops.geo  # noqa: F401
     import transmogrifai_tpu_torch.ops.indexers  # noqa: F401
+    import transmogrifai_tpu_torch.ops.maps  # noqa: F401
     import transmogrifai_tpu_torch.ops.mathops  # noqa: F401
     import transmogrifai_tpu_torch.ops.numeric  # noqa: F401
     import transmogrifai_tpu_torch.ops.rowops  # noqa: F401
