@@ -1,7 +1,6 @@
 """Smoke run of the PyTorch port on an NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py structural    # the build and phase 27 alone
 
 Drives the port (`transmogrifai_tpu_torch`) only: it imports neither jax
 nor the JAX package. Without a CUDA device, or as a copy alone in a
@@ -367,7 +366,32 @@ any failure exits non-zero:
    `score_compiled` eagerly and with CUDA graphs (equal), and
    `ScoringService` requests of 1, 3, 17 and 64 rows, each answer equal
    to the batch's rows, the token lists and the de-indexed label
-   included (F10); K4 and K5 launched.
+   included (F10); K4 and K5 launched;
+28. text enrichment and record insights (`enrichment_phase`): a seeded
+   contact table (`enrichment_rows`: 10,000 training and 2,000 score rows
+   of a PickList label, an Email, a URL, a Phone with a Text region, a
+   PhoneMap of 3 keys, a Base64 attachment, a Text note in five languages,
+   a Text contact name and two Reals). (a) The first ENRICH_FIT_ROWS
+   training rows through the language-aware tokenizer, stop words, counts,
+   LDA and Word2Vec, the language, name and entity detectors, phone
+   validity by region, transmogrify over every group, the SanityChecker
+   and LR + XGB over 3 folds, and `RecordInsightsCorr`, trained by
+   `Workflow.train(device="cuda")` and held to the JAX package's f32
+   fixture (`testdata/enrichment_train_f32`) by phase 27's rules, with the
+   `shadow_kernels` witness; K1, K2, K3, K4 and K8 launched. (b) LOCO
+   (top 20) over the fixture's XGB and its winner on the 2,000 score rows,
+   the correlation model's fit and transform, all against the fixture's
+   JAX outputs (diffs within 1e-5, top-K names equal but for swaps within
+   it, correlations within 1e-6); LOCO of an LR on the card against the
+   CPU; LOCO of the Titanic quickstart GBT with metadata and without
+   (G = 496) against the committed JAX diffs; K5-loco (`tree_walk_loco`)
+   launched, equal to its plain version on the main path's inputs and at
+   its group, tile and chunk boundaries (`k5_loco_check`), and timed
+   against its bound, its plain version and the materialized path (K4
+   over the ablated copies, then K5). (c) Saved, reloaded with
+   `load_model(device="cuda")`, scored by `score_compiled` eagerly and
+   with CUDA graphs (equal), and `ScoringService` requests of 1, 3, 17 and
+   64 rows, each answer equal to the batch's rows; K4 and K5 launched.
 """
 
 import contextlib
@@ -3393,6 +3417,13 @@ def quant_serving(port, pt, pc, device="cuda"):
     return launches, loaded
 
 
+# batches timed a (model, wire, dispatch, bucket) in `serving_timing`, and
+# batches split into host and device-segment time: 36 such cells share
+# the script's 600 s target with every other phase
+SERVE_TIMED_BATCHES = 20
+SERVE_SPLIT_BATCHES = 10
+
+
 def serving_timing(port, pc, served):
     """`score_padded` at buckets 1, 8 and 64, with CUDA graphs and eagerly
     (a measurement only), f32 and int8, for each served model: wall ms per
@@ -3419,7 +3450,7 @@ def serving_timing(port, pc, served):
                         scorer.score_padded(sample, bucket)
                     torch.cuda.synchronize()
                     walls = []
-                    for _ in range(50):
+                    for _ in range(SERVE_TIMED_BATCHES):
                         t = time.perf_counter()
                         scorer.score_padded(sample, bucket)
                         torch.cuda.synchronize()
@@ -3427,7 +3458,7 @@ def serving_timing(port, pc, served):
                     scorer._dispatch = timed
                     spent.clear()
                     split = []
-                    for _ in range(20):
+                    for _ in range(SERVE_SPLIT_BATCHES):
                         t = time.perf_counter()
                         scorer.score_padded(sample, bucket)
                         torch.cuda.synchronize()
@@ -6380,17 +6411,23 @@ def committed_avro_rows(ns):
     return plain_rows(ds), want
 
 
+def uid_free(name: str) -> str:
+    """`name` with the process-local uid of a derived feature
+    ("_000000000181") written as "_<uid>"."""
+    import re
+    return re.sub(r"_\d{12}(?=$|[-_])", "_<uid>", name)
+
+
 def meta_entries(entries) -> list:
     """Vector column metadata (`to_json` dicts or columns) with the
-    process-local uid in a derived feature's name ("_000000000181")
-    written as "_<uid>", so that two runs compare entry for entry."""
-    import re
+    process-local uids written as "_<uid>" (`uid_free`), so that two runs
+    compare entry for entry."""
     out = []
     for e in entries:
         d = dict(e if isinstance(e, dict) else e.to_json())
         for k in ("parent_name", "grouping"):
             if isinstance(d.get(k), str):
-                d[k] = re.sub(r"_\d{12}(?=$|[-_])", "_<uid>", d[k])
+                d[k] = uid_free(d[k])
         out.append(d)
     return out
 
@@ -6701,14 +6738,14 @@ def structural_pipeline(ns, models=None, reference_ms=STRUCT_REFERENCE_MS):
             "named": named}
 
 
-def transform_walls(model, feats, ds, device) -> dict:
-    """The fitted feature stages that make the vector, run over `ds` stage
-    by stage: seconds of host work (`host_prepare`, and the host stages'
-    transforms) and of device work (`device_apply`, the device
-    synchronized after each)."""
+def transform_walls(model, feats, ds, device, result="vector") -> dict:
+    """The fitted feature stages that make `feats[result]` (the vector),
+    run over `ds` stage by stage: seconds of host work (`host_prepare`,
+    and the host stages' transforms) and of device work (`device_apply`,
+    the device synchronized after each), and the result's column."""
     from transmogrifai_tpu_torch.features.dag import topological_layers
     from transmogrifai_tpu_torch.stages.base import is_host_stage, to_device
-    layers = topological_layers([feats["vector"]])
+    layers = topological_layers([feats[result]])
     cols = {g.get_output().uid: g.materialize(ds, allow_missing_response=True)
             for g in layers[0]}
     host_s = dev_s = 0.0
@@ -6735,7 +6772,7 @@ def transform_walls(model, feats, ds, device) -> dict:
                 dev_s += time.perf_counter() - t1
             cols[stage.get_output().uid] = out
     return {"rows": len(ds), "host_prepare_s": host_s,
-            "device_apply_s": dev_s}
+            "device_apply_s": dev_s, "column": cols[feats[result].uid]}
 
 
 def structural_phase(device="cuda") -> dict:
@@ -6851,6 +6888,7 @@ def structural_phase(device="cuda") -> dict:
                                  "JAX package's f32 fixture or its kernels "
                                  "with their plain versions")
         transform = transform_walls(model, feats, back, device)
+        transform.pop("column")
 
         # (c) serving ---------------------------------------------------- #
         mpath = os.path.join(tmp, "model")
@@ -6866,17 +6904,8 @@ def structural_phase(device="cuda") -> dict:
         score_launches = {k: pt.LAUNCHES[k] for k in STRUCT_SCORE_KERNELS}
         graph_equal = tree_equal(eager, graphs)
         svc = ScoringService(loaded, ServingConfig(max_batch=64)).start()
-        srows = score_ds.to_rows()
-        off, served = 0, True
         try:
-            for size in (1, 3, 17, 64):
-                res = svc.score([dict(r) for r in srows[off:off + size]])
-                want_rows = {k: (v[off:off + size] if not isinstance(v, dict)
-                                 else {q: w[off:off + size]
-                                       for q, w in v.items()})
-                             for k, v in eager.items()}
-                served = served and tree_equal(res.outputs, want_rows)
-                off += size
+            served = served_equal(svc, score_ds.to_rows(), eager)
         finally:
             svc.stop()
         named = list(eager[feats["named"].name])
@@ -6903,6 +6932,949 @@ def structural_phase(device="cuda") -> dict:
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
     return walls
+
+
+# -- K5-loco: LOCO's walk of feature-group ablations ---------------------- #
+
+def loco_masks(d: int, groups) -> np.ndarray:
+    """(G, d) 0/1 f32 masks of `groups` (lists of columns)."""
+    masks = np.zeros((len(groups), d), dtype=np.float32)
+    for g, cols in enumerate(groups):
+        masks[g, list(cols)] = 1.0
+    return masks
+
+
+def loco_hostile_input(rng, n: int, d: int, edges: np.ndarray):
+    """(n, d) f32 around the edges with NaN, +inf and -inf cells (a few
+    each) and one column all NaN."""
+    X = binning_input(rng, n, edges)
+    cells = rng.random((n, d))
+    X[cells < 0.02] = np.nan
+    X[(cells >= 0.02) & (cells < 0.03)] = np.inf
+    X[(cells >= 0.03) & (cells < 0.04)] = -np.inf
+    X[:, d // 2] = np.nan
+    return X
+
+
+def loco_cases(d: int):
+    """K5-loco's group lists at width d: one group, every column its own
+    group (G = d, past one launch's 32-group chunk), a group of every
+    column, empty groups among small ones, and contiguous groups of 1 to
+    8 columns (a vector's one-hot and hashed slots)."""
+    blocks, at, k = [], 0, 1
+    while at < d:
+        blocks.append(list(range(at, min(d, at + k))))
+        at += k
+        k = k % 8 + 1
+    return {"one": [[3, 7, d - 1]], "every_column_own": [[j] for j in
+                                                        range(d)],
+            "all_columns": [list(range(d))],
+            "empty": [[], [1], [], [2, 5], []],
+            "blocks": blocks}
+
+
+# (n, d, trees, depth, m, classes K, Xb dtype, R forced): the main path's
+# shapes (Titanic's 891 x 496 at 200 trees of depth 10), tiles around R,
+# m = 1-3 channels, K = 3 class trees, int32 Xb and rows past the shared
+# memory (d = 50,000 int8 cells: read from device memory)
+K5_LOCO_CASES = ((891, 496, 200, 10, 1, 0, torch.int8, None),
+                 (65, 64, 40, 6, 2, 0, torch.int8, 64),
+                 (63, 64, 300, 6, 3, 0, torch.int8, 8),
+                 (1, 64, 50, 6, 1, 0, torch.int8, 1),
+                 (200, 80, 30, 5, 1, 3, torch.int8, None),
+                 (130, 80, 30, 5, 1, 3, torch.int32, 4),
+                 (300, 120, 60, 7, 2, 0, torch.int32, None),
+                 (64, 50_000, 20, 6, 1, 0, torch.int8, None))
+
+
+def k5_loco_check(pt, rng, dev) -> dict:
+    """K5-loco (`tree_walk_loco`) against its plain version (the ablation
+    materialized a group at a time, `tree_walk_loco_plain`) at every case
+    of K5_LOCO_CASES times every group list of `loco_cases` (past the
+    shared memory: one group, empty groups, 64 blocks and a group of 2,000
+    columns), the plain version on the same card tensors: equal. Xb and
+    Xz come from K4
+    over hostile values (NaN, ±inf, a column all NaN). Also equal to K5
+    (or K5-mc) on the materialized ablation on the card."""
+    count = 0
+    for n, d, T_, depth, m, K, dt, R in K5_LOCO_CASES:
+        n_edges = 31 if dt == torch.int8 else 200
+        edges = np.sort(rng.normal(size=(d, n_edges)).astype(np.float32), 1)
+        X = torch.from_numpy(loco_hostile_input(rng, n, d, edges)).to(dev)
+        e = torch.from_numpy(edges).to(dev)
+        Xb, Xz = pt.bin_features(X, e), pt.bin_features(X * 0.0, e)
+        width = 2 ** depth
+        shape = (T_, K, depth, width) if K else (T_, depth, width)
+        feat = torch.from_numpy(rng.integers(0, d, shape).astype(
+            np.int32)).to(dev)
+        bins = torch.from_numpy(rng.integers(0, n_edges + 2, shape).astype(
+            np.int32)).to(dev)
+        lshape = (T_, K, width, 1) if K else (T_, width, m)
+        leaf = torch.from_numpy(rng.normal(size=lshape).astype(
+            np.float32)).to(dev)
+        cases = loco_cases(d)
+        if d > 4096:  # rows past the shared memory: a wide group too
+            cases = {"one": cases["one"], "empty": cases["empty"],
+                     "blocks": cases["blocks"][:64]
+                     + [list(range(1000, 3000))]}
+        for name, groups in cases.items():
+            off, cols = pt.loco_groups(loco_masks(d, groups))
+            off_t = torch.from_numpy(off).to(dev)
+            cols_t = torch.from_numpy(cols).to(dev)
+            got = pt._tree_walk_loco_cuda(Xb, Xz, feat, bins, leaf, off_t,
+                                          cols_t, classes=bool(K), rows=R)
+            want = pt.tree_walk_loco_plain(Xb, Xz, feat, bins, leaf, off_t,
+                                           cols_t, classes=bool(K))
+            if not torch.equal(got, want):
+                raise AssertionError(f"K5-loco disagrees with its plain "
+                                     f"version at n={n} d={d} T={T_} m={m} "
+                                     f"K={K} {dt} R={R} groups={name}")
+            walk = pt.tree_walk_classes if K else pt.tree_walk
+            for g in (0, len(groups) - 1):
+                mask = torch.zeros(d, dtype=torch.bool, device=dev)
+                mask[cols_t[off[g]:off[g + 1]].long()] = True
+                mat = walk(torch.where(mask[None, :], Xz, Xb), feat, bins,
+                           leaf)
+                if not torch.equal(got[g], mat):
+                    raise AssertionError(f"K5-loco disagrees with K5 on the "
+                                         f"materialized ablation at n={n} "
+                                         f"d={d} groups={name} g={g}")
+            count += 1
+    return {"cases": count, "equal": True}
+
+
+def loco_bound(pt, Xb, feat, bins, leaf, cols, n_groups: int):
+    """(ms, by) K5-loco's bound for `n_groups` groups: the bytes of K5's
+    walk of the rows (`walk_bytes`: the slots, leaves and Xb cells it
+    reads, and one group's output), every other group's output and the
+    Xz cells of the groups' columns; the compares and adds of K5's
+    convention (n · T · (2 · depth + m) a group)."""
+    n = Xb.shape[0]
+    T_, depth, _ = feat.shape
+    m = leaf.shape[-1]
+    nbytes = walk_bytes(Xb, feat, bins, leaf) \
+        + (n_groups - 1) * n * m * 4 + n * len(cols) * Xb.element_size()
+    return bound(nbytes, n_groups * n * T_ * (2 * depth + m))
+
+
+def k5_loco_timing(pt, X, edges, trees, masks) -> dict:
+    """K5-loco at LOCO's shape (X (n, d) on the card, `masks` (G, d), one
+    launch of every group) beside its bound, its plain version (on the
+    card: the ablation materialized a group at a time and walked by the
+    plain walk) and the materialized path the JAX package's formulation
+    runs (K4 over the G ablated copies, then K5), each the median of
+    eight runs taken in turns."""
+    dev = X.device
+    Xb, Xz = pt.bin_features(X, edges), pt.bin_features(X * 0.0, edges)
+    off, cols = pt.loco_groups(masks)
+    off_t = torch.from_numpy(off).to(dev)
+    cols_t = torch.from_numpy(cols).to(dev)
+    m_t = torch.from_numpy(masks).to(dev)
+    G, (n, d) = masks.shape[0], X.shape
+    args = (Xb, Xz, trees["feat"], trees["bin"], trees["leaf"], off_t, cols_t)
+
+    def materialized():
+        Xa = (X[None, :, :] * (1.0 - m_t[:, None, :])).reshape(G * n, d)
+        return pt.tree_walk(pt.bin_features(Xa, edges), trees["feat"],
+                            trees["bin"], trees["leaf"])
+
+    def plain():
+        return pt.tree_walk_loco_plain(*args)
+
+    before = pt.cuda_build.launches_snapshot()
+    t = in_turns({"ms": (lambda: pt.tree_walk_loco(*args), 20),
+                  "materialized_ms": (materialized, 5),
+                  "plain_ms": (plain, 1)})
+    pt.cuda_build.set_launches(before)
+    b_ms, b_by = loco_bound(pt, Xb, trees["feat"], trees["bin"],
+                            trees["leaf"], cols, G)
+    return {"groups": G, "rows": n, "columns": d,
+            "trees": int(trees["feat"].shape[0]),
+            **{k: v[0] for k, v in t.items()},
+            **{f"{k}_least": v[1] for k, v in t.items()},
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+# -- phase 28: text enrichment and record insights ------------------------ #
+
+ENRICH_SEED = 28
+ENRICH_TRAIN_ROWS = 10_000
+ENRICH_SCORE_ROWS = 2_000
+# the pipeline trains on the first 3,000 training rows: its host text
+# stages (language detection twice a note, the entity finders, the
+# tokenizer's stemming, LDA's E-steps) are pure Python or numpy at about
+# 10 ms a row in both packages, and the JAX package's fixture run (LR 8 +
+# XGB 1 config over 3 folds at depth 10) grows with the rows too
+ENRICH_FIT_ROWS = 3_000
+ENRICH_VOCAB = 3_000
+ENRICH_LOCO_TOP_K = 20
+# the note's languages and their shares: four that utils/stemmers.py stems
+# and Polish, which it does not
+ENRICH_LANGS = (("en", 0.4), ("es", 0.2), ("de", 0.15), ("fr", 0.15),
+                ("pl", 0.1))
+ENRICH_EMAIL_DOMAINS = 30
+ENRICH_URL_DOMAINS = 40
+ENRICH_FIXTURE = os.path.join(HERE, "transmogrifai_tpu_torch", "testdata",
+                              "enrichment_train_f32")
+TITANIC_LOCO = os.path.join(FIXTURE, "loco_diffs.npz")
+ENRICH_FEMALE = ("mary", "patricia", "jennifer", "linda", "maria", "sophia",
+                 "emma", "olivia", "isabella", "charlotte", "laura", "ana")
+ENRICH_MALE = ("james", "robert", "john", "michael", "david", "jose",
+               "juan", "carlos", "peter", "thomas", "daniel", "george")
+ENRICH_SURNAMES = ("smith", "garcia", "lopez", "muller", "martin", "kowalski",
+                   "johnson", "perez", "schmidt", "dubois", "nowak", "brown",
+                   "fernandez", "weber", "moreau", "wilson")
+ENRICH_NOT_NAMES = ("Acme Corp", "info desk", "sales team", "the warehouse",
+                    "Dr Maria Lopez", "accounts payable office",
+                    "Nordwind Handel GmbH")
+# region text beside each phone: a code, a country name (matched by
+# bigram similarity) or nothing (the default region, US)
+ENRICH_REGIONS = (("US", "US"), ("GB", "United Kingdom"), ("DE", "Germany"),
+                  ("FR", "France"), ("IN", "India"), ("BR", "Brasil"),
+                  ("JP", "JP"), ("ES", "Spain"))
+# (magic, MIME type) of the base64 payloads; b"" is random bytes
+ENRICH_MAGIC = ((b"%PDF-1.4\n", "pdf"), (b"\x89PNG\r\n\x1a\n", "png"),
+                (b"\xff\xd8\xff\xe0", "jpeg"), (b"GIF89a", "gif"),
+                (b"PK\x03\x04", "zip"), (b"\x1f\x8b\x08", "gzip"),
+                (b"", "random"), (b"<html><body>", "html"))
+
+
+def enrichment_schema(t) -> dict:
+    """The contact table's columns and their FeatureTypes (`t` a
+    package's types module)."""
+    return {"outcome": t.PickList, "email": t.Email, "website": t.URL,
+            "phone": t.Phone, "phone_region": t.Text, "phones": t.PhoneMap,
+            "attachment": t.Base64, "note": t.Text, "contact": t.Text,
+            "revenue": t.Real, "tenure": t.Real}
+
+
+def enrichment_vocab(lang: str, n: int = ENRICH_VOCAB) -> list:
+    """`n` distinct words of language `lang`: its stopwords, the words of
+    its seed text (`utils/language.py`), then words made of two or three
+    pieces of those words (seeded), so that their character trigrams are
+    the language's."""
+    from transmogrifai_tpu_torch.utils import language
+    seed_words = language._word_re.findall(language._SEED[lang].lower())
+    words = sorted(language.stopwords_for(lang))
+    seen = set(words)
+    for w in seed_words:
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    pieces = sorted({w[i:i + 3] for w in seed_words
+                     for i in range(0, max(len(w) - 1, 1), 2)})
+    rng = np.random.default_rng(sum(map(ord, lang)))
+    while len(words) < n:
+        k = int(rng.integers(2, 4))
+        w = "".join(pieces[j] for j in rng.integers(0, len(pieces), k))
+        if w not in seen and len(w) >= 3:
+            seen.add(w)
+            words.append(w)
+    return words[:n]
+
+
+def _enrich_phone(rng, region: str) -> str:
+    """One written phone number of `region` (valid by the package's
+    rules), in a national or an international form."""
+    d = lambda k: "".join(str(x) for x in rng.integers(0, 10, k))  # noqa
+    if region == "US":
+        area = str(rng.integers(2, 10)) + d(2)
+        exch = str(rng.integers(2, 10)) + d(2)
+        return (f"({area}) {exch}-{d(4)}" if rng.random() < 0.6
+                else f"+1 {area} {exch} {d(4)}")
+    if region == "GB":
+        return (f"+44 20 {d(4)} {d(4)}" if rng.random() < 0.5
+                else f"020 {d(4)} {d(4)}")
+    if region == "DE":
+        return (f"030 {d(7)}" if rng.random() < 0.5 else f"+49 30 {d(7)}")
+    if region == "FR":
+        return f"+33 1 {d(2)} {d(2)} {d(2)} {d(2)}"
+    if region == "IN":
+        return f"+91 9{d(4)} {d(5)}"
+    if region == "BR":
+        return f"+55 11 9{d(4)}-{d(4)}"
+    if region == "JP":
+        return f"03-{d(4)}-{d(4)}"
+    return f"+34 91 {d(3)} {d(2)} {d(2)}"   # ES
+
+
+_ENRICH_BAD_PHONES = ("call me", "12", "+", "ext. 55", "555-CALL-NOW",
+                      "４１５５５５２６"
+                      "７１", "(012) 345-6789", "+999 123",
+                      "0", "", "++44 20 1234 5678", "415.555.2671 x12")
+
+
+def _enrich_phones(rng, n: int):
+    """(phone strings or None, region texts or None, valid flags): 10 %
+    null, 5 % garbage, the rest numbers of the regions above, a tenth of
+    them cut short by two digits."""
+    regions = rng.integers(0, len(ENRICH_REGIONS), n)
+    kind = rng.random(n)
+    phones, texts, good = [], [], []
+    for i in range(n):
+        code, text = ENRICH_REGIONS[regions[i]]
+        if kind[i] < 0.10:
+            phones.append(None)
+            good.append(False)
+        elif kind[i] < 0.15:
+            phones.append(_ENRICH_BAD_PHONES[
+                rng.integers(0, len(_ENRICH_BAD_PHONES))])
+            good.append(False)
+        else:
+            p = _enrich_phone(rng, code)
+            if kind[i] > 0.91:
+                p = p[:-2]
+            phones.append(p)
+            good.append(kind[i] <= 0.91)
+        texts.append(None if rng.random() < 0.2 else text)
+    return phones, texts, good
+
+
+def enrichment_rows(n: int, seed: int = ENRICH_SEED) -> list:
+    """`n` seeded contact records (row dicts of python values) whose
+    "outcome" ("converted" / "lost") carries planted signal in the email
+    domain, the website's protocol, the phone's validity, the attachment's
+    type, the note's words, the contact's first name and the revenue.
+    Drawn a column at a time."""
+    import base64
+    rng = np.random.default_rng(seed)
+    z = np.full(n, -1.0)
+    # email: 10 % null, 5 % invalid, 30 domains of skewed frequency
+    dom_p = 1.0 / np.arange(1, ENRICH_EMAIL_DOMAINS + 1) ** 1.2
+    dom = rng.choice(ENRICH_EMAIL_DOMAINS, n, p=dom_p / dom_p.sum())
+    tld = ("com", "org", "net", "io", "de", "es")
+    kind = rng.random(n)
+    user = rng.integers(0, 5000, n)
+    bad_emails = ("no-at-sign.com", "a@b", "x@y.c", "@corp1.com",
+                  "two@@corp2.com", "sp ace@corp3.com")
+    email = [None if k < 0.10 else
+             bad_emails[u % len(bad_emails)] if k < 0.15 else
+             f"user.{u}@mail{d}.{tld[d % len(tld)]}"
+             for k, u, d in zip(kind.tolist(), user.tolist(), dom.tolist())]
+    z += 0.9 * ((dom == 2) | (dom == 5)) * (kind >= 0.15)
+    # website: 10 % null, 5 % invalid; http / https / ftp over 40 domains
+    web = rng.integers(0, ENRICH_URL_DOMAINS, n)
+    proto = rng.choice(["http", "https", "ftp"], n, p=[0.55, 0.35, 0.10])
+    kind = rng.random(n)
+    bad_urls = ("htp://site1.com", "www.nohttp.com", "http://localhost",
+                "http://bad domain.com", "https://", "ftp//site2.net")
+    website = [None if k < 0.10 else
+               bad_urls[w % len(bad_urls)] if k < 0.15 else
+               f"{p}://www.site{w}.{tld[w % len(tld)]}/page{w % 7}"
+               for k, w, p in zip(kind.tolist(), web.tolist(),
+                                  proto.tolist())]
+    z += 0.5 * (proto == "https") * (kind >= 0.15)
+    phone, region, valid = _enrich_phones(rng, n)
+    z += 0.6 * np.asarray(valid)
+    keys = ("home", "work", "mobile")
+    parts = [_enrich_phones(rng, n)[0] for _ in keys]
+    present = rng.random((n, 3)) < 0.6
+    phones = [{k: parts[j][i] for j, k in enumerate(keys)
+               if present[i, j] and parts[j][i] is not None}
+              for i in range(n)]
+    # attachment: 20 % null, a few undecodable; magic bytes + random tail
+    kinds = rng.integers(0, len(ENRICH_MAGIC), n)
+    tail = rng.integers(16, 48, n)
+    kind = rng.random(n)
+    attachment = []
+    for i in range(n):
+        if kind[i] < 0.20:
+            attachment.append(None)
+        elif kind[i] < 0.22:
+            attachment.append("not base64!!")
+        else:
+            magic = ENRICH_MAGIC[kinds[i]][0]
+            body = rng.integers(0, 256, tail[i], dtype=np.uint8).tobytes()
+            attachment.append(base64.b64encode(magic + body).decode())
+    z += 0.7 * (kinds == 0) * (kind >= 0.22)
+    # note: 0-40 words of one language, Zipf-like over its vocabulary
+    langs = [lang for lang, _ in ENRICH_LANGS]
+    lang = rng.choice(len(langs), n, p=[p for _, p in ENRICH_LANGS])
+    vocab = {lg: enrichment_vocab(lg) for lg in langs}
+    word_p = 1.0 / np.arange(1, ENRICH_VOCAB + 1) ** 1.05
+    word_p /= word_p.sum()
+    nw = rng.integers(0, 41, n)
+    ids = rng.choice(ENRICH_VOCAB, int(nw.sum()), p=word_p)
+    note, at = [], 0
+    for i in range(n):
+        words = [vocab[langs[lang[i]]][j] for j in ids[at:at + nw[i]]]
+        at += nw[i]
+        note.append(" ".join(words) if words else None)
+    # the signal word: the 400th of each vocabulary (a content word)
+    z += 0.8 * np.array([bool(t) and vocab[langs[g]][400] in t.split()
+                         for t, g in zip(note, lang.tolist())])
+    # contact: first name + surname, capitalized; some not names; 8 % null
+    first = rng.integers(0, len(ENRICH_FEMALE) + len(ENRICH_MALE), n)
+    sur = rng.integers(0, len(ENRICH_SURNAMES), n)
+    kind = rng.random(n)
+    names = ENRICH_FEMALE + ENRICH_MALE
+    contact = [None if k < 0.08 else
+               ENRICH_NOT_NAMES[s % len(ENRICH_NOT_NAMES)] if k < 0.18 else
+               f"{names[f].capitalize()} {ENRICH_SURNAMES[s].capitalize()}"
+               for k, f, s in zip(kind.tolist(), first.tolist(),
+                                  sur.tolist())]
+    z += 0.3 * (first < len(ENRICH_FEMALE)) * (kind >= 0.18)
+    # the two reals
+    revenue = np.round(rng.lognormal(8.0, 1.2, n), 2)
+    z += 0.5 * (revenue > 6000.0)
+    revenue = [None if m else float(v) for v, m in
+               zip(revenue.tolist(), (rng.random(n) < 0.05).tolist())]
+    tenure = np.round(rng.normal(5.0, 3.0, n), 1)
+    tenure = [None if m else float(v) for v, m in
+              zip(tenure.tolist(), (rng.random(n) < 0.10).tolist())]
+    won = (rng.random(n) < 1.0 / (1.0 + np.exp(-1.5 * z))).tolist()
+    return [{"outcome": "converted" if won[i] else "lost",
+             "email": email[i], "website": website[i], "phone": phone[i],
+             "phone_region": region[i], "phones": phones[i],
+             "attachment": attachment[i], "note": note[i],
+             "contact": contact[i], "revenue": revenue[i],
+             "tenure": tenure[i]} for i in range(n)]
+
+
+def enrichment_tables(n_fit: int):
+    """(the rows the pipeline trains on, the rows it scores): the first
+    `n_fit` of the 10,000 training rows and the 2,000 rows after them."""
+    rows = enrichment_rows(ENRICH_TRAIN_ROWS + ENRICH_SCORE_ROWS)
+    return rows[:n_fit], rows[ENRICH_TRAIN_ROWS:]
+
+
+def enrichment_namespace():
+    """Phase 28's entry points from the port."""
+    from types import SimpleNamespace
+
+    import transmogrifai_tpu_torch as port
+    import transmogrifai_tpu_torch.types as t
+    from transmogrifai_tpu_torch.insights import (
+        RecordInsightsCorr, RecordInsightsLOCO, RecordInsightsParser)
+    from transmogrifai_tpu_torch.selector.model_selector import (
+        _default_binary_models)
+    return SimpleNamespace(
+        t=t, FeatureBuilder=port.FeatureBuilder,
+        transmogrify=port.transmogrify, Dataset=port.Dataset,
+        Workflow=port.Workflow, load_model=port.load_model,
+        BinaryClassificationModelSelector=(
+            port.BinaryClassificationModelSelector),
+        RecordInsightsCorr=RecordInsightsCorr,
+        RecordInsightsLOCO=RecordInsightsLOCO,
+        RecordInsightsParser=RecordInsightsParser,
+        default_binary_models=_default_binary_models)
+
+
+def selector_summary(model):
+    """The ModelSelector's summary of a trained workflow model."""
+    return next(s for s in model.fitted.values() if hasattr(
+        getattr(s, "summary", None), "validation_results")).summary
+
+
+def enrichment_models(ns) -> list:
+    """`_default_binary_models`' LR entry (its 8 configs) and its XGB entry
+    at min_child_weight 10 alone (the stable config of F23)."""
+    out = []
+    for est, grid in ns.default_binary_models():
+        name = type(est).__name__
+        if name == "OpLogisticRegression":
+            out.append((est, grid))
+        elif name == "OpXGBoostClassifier":
+            out.append((est, [g for g in grid
+                              if g["min_child_weight"] == 10.0]))
+    return out
+
+
+def enrichment_pipeline(ns, models=None, lda_k: int = 10):
+    """Phase 28's pipeline over a package namespace `ns`: the note through
+    `tokenize(auto_detect_language=True)`, `remove_stop_words`,
+    `count_vectorize(min_df=5)` and `lda`, `word2vec` on the same tokens,
+    `detect_languages` of the note, `detect_name` and `recognize_entities`
+    of the contact, `is_valid_phone(region=)`; transmogrify over every raw
+    and derived feature; the SanityChecker; LR + XGB over 3 folds; and
+    `RecordInsightsCorr` on the prediction and the checked vector. Returns
+    its features by name."""
+    FB = ns.FeatureBuilder
+    sch = enrichment_schema(ns.t)
+    f = {c: getattr(FB, ft.__name__)(c).from_column(c).as_predictor()
+         for c, ft in sch.items() if c != "outcome"}
+    outcome = FB.PickList("outcome").from_column("outcome").as_response()
+    label = outcome.indexed()
+    tokens = f["note"].tokenize(auto_detect_language=True)
+    kept = tokens.remove_stop_words()
+    counts = kept.count_vectorize(min_df=5)
+    topics = counts.lda(k=lda_k)
+    w2v = kept.word2vec()
+    languages = f["note"].detect_languages()
+    name = f["contact"].detect_name()
+    entities = f["contact"].recognize_entities()
+    valid = f["phone"].is_valid_phone(region=f["phone_region"])
+    vec = ns.transmogrify(
+        [f[c] for c in ("email", "website", "phone", "phone_region",
+                        "phones", "attachment", "note", "contact",
+                        "revenue", "tenure")]
+        + [valid, languages, name, entities, topics, w2v])
+    checked = label.sanity_check(vec, remove_bad_features=True)
+    pred = ns.BinaryClassificationModelSelector.with_cross_validation(
+        models=models if models is not None else enrichment_models(ns)
+    ).set_input(label, checked).get_output()
+    corr = ns.RecordInsightsCorr().set_input(pred, checked).get_output()
+    return {"label": label, "outcome": outcome, "tokens": tokens,
+            "kept": kept, "counts": counts, "topics": topics, "w2v": w2v,
+            "languages": languages, "name": name, "entities": entities,
+            "valid": valid, "vector": vec, "checked": checked,
+            "prediction": pred, "corr": corr}
+
+
+# the columns of the enrichment vector are bit-equal to the JAX package's
+# but for the Real group's mean fill, an f32 sum whose order XLA and
+# torch take apart (one ulp): cells within ENRICH_VECTOR_RTOL relative
+ENRICH_VECTOR_RTOL = 2.0 ** -22
+ENRICH_LOCO_ATOL = 1e-5
+ENRICH_CORR_ATOL = 1e-6
+ENRICH_TRAIN_KERNELS = ("bin_features", "histograms", "split_search",
+                        "split_search_live", "route_level", "leaf_values",
+                        "binned_aupr")
+ENRICH_SCORE_KERNELS = ("bin_features", "tree_walk")
+
+
+@contextlib.contextmanager
+def fit_calls(cls):
+    """While open, each fit of an estimator of class `cls` records
+    (estimator, columns, context) in the yielded list: the witness refits
+    the selector alone on the same columns, and the vector check reads
+    the SanityChecker's input without scoring the rows again."""
+    seen, orig = [], cls.fit_model
+
+    def fit_model(self, cols, ctx):
+        seen.append((self, list(cols), ctx))
+        return orig(self, cols, ctx)
+
+    cls.fit_model = fit_model
+    try:
+        yield seen
+    finally:
+        cls.fit_model = orig
+
+
+def summary_outcome(summ) -> dict:
+    return {"configs": [(r.model, r.grid) for r in summ.validation_results],
+            "fold_metrics": [list(r.fold_metrics)
+                             for r in summ.validation_results],
+            "winner": (summ.best_model, summ.best_grid)}
+
+
+def load_fixture_stage(path: str):
+    """A fitted stage the fixture saved (`<path>.json` and `.npz`), as the
+    port's class."""
+    from transmogrifai_tpu_torch import from_jax_params
+    from transmogrifai_tpu_torch.workflow.serialization import (
+        _restore_arrays)
+    with open(path + ".json") as fh:
+        rec = json.load(fh)
+    with np.load(path + ".npz") as z:
+        params = _restore_arrays(rec["params"], {k: z[k] for k in z.files})
+    return from_jax_params(rec["class"], params)
+
+
+def vector_gap(X, sums, head) -> dict:
+    """The vector's column sums and first rows against the fixture's: the
+    largest gap of each beside its bound (ENRICH_VECTOR_RTOL of the
+    magnitudes, at least 1e-6 a row)."""
+    X64 = X.astype(np.float64)
+    s_gap = np.abs(X64.sum(0) - sums)
+    s_tol = np.maximum(np.abs(X64).sum(0) * ENRICH_VECTOR_RTOL,
+                       X.shape[0] * 1e-6)
+    h = X64[:head.shape[0]]
+    h_gap = np.abs(h - head.astype(np.float64))
+    h_tol = np.maximum(np.abs(h) * ENRICH_VECTOR_RTOL, 1e-6)
+    return {"sums_max_abs_err": float(s_gap.max(initial=0.0)),
+            "head_max_abs_err": float(h_gap.max(initial=0.0)),
+            "ok": bool((s_gap <= s_tol).all() and (h_gap <= h_tol).all())}
+
+
+def matrix_gap(X, want) -> dict:
+    """A checked vector against the fixture's, cell by cell: within
+    ENRICH_VECTOR_RTOL relative (1e-6 absolute near zero); the cells that
+    are not bit-equal counted."""
+    if X.shape != want.shape:
+        return {"shape": list(X.shape), "want": list(want.shape),
+                "ok": False}
+    gap = np.abs(X.astype(np.float64) - want.astype(np.float64))
+    tol = np.maximum(np.abs(want.astype(np.float64)) * ENRICH_VECTOR_RTOL,
+                     1e-6)
+    return {"max_abs_err": float(gap.max(initial=0.0)),
+            "cells_not_bit_equal": int((X != want).sum()),
+            "ok": bool((gap <= tol).all())}
+
+
+def loco_against(got, want, top, names, rows) -> dict:
+    """LOCO diffs (G, n, C) against the JAX package's: every diff within
+    ENRICH_LOCO_ATOL, and each row's top-K groups (from `rows`, the
+    port's TextMap) the JAX package's `top` but where swapped groups'
+    strengths lie within ENRICH_LOCO_ATOL (counted)."""
+    err = float(np.abs(got - want).max(initial=0.0)) \
+        if got.shape == want.shape else float("inf")
+    strength = np.max(np.abs(want), axis=2)
+    idx = {n: g for g, n in enumerate(names)}
+    swapped, bad = 0, 0
+    for i, row in enumerate(rows):
+        mine = [idx[k] for k in row]
+        theirs = list(top[:, i])
+        if mine != theirs:
+            swapped += 1
+            if len(mine) != len(theirs) or any(
+                    abs(strength[a, i] - strength[b, i]) > ENRICH_LOCO_ATOL
+                    for a, b in zip(mine, theirs)):
+                bad += 1
+    return {"groups": int(want.shape[0]), "max_abs_err": err,
+            "rows_swapped_within_tolerance": swapped - bad,
+            "rows_top_k_differ": bad,
+            "ok": bool(err <= ENRICH_LOCO_ATOL and bad == 0)}
+
+
+def corr_against(pm, want_path, rows_want, got_rows) -> dict:
+    """The port's correlation model against the fixture's: correlations
+    within ENRICH_CORR_ATOL (NaN where the JAX package's are), the
+    normalizer within ENRICH_VECTOR_RTOL, and the first rows' top-K
+    values within ENRICH_CORR_ATOL of |z| (names equal but near-ties)."""
+    jm = load_fixture_stage(want_path)
+    nan_equal = bool(np.array_equal(np.isnan(pm.corr), np.isnan(jm.corr)))
+    gap = float(np.nanmax(np.abs(pm.corr - jm.corr))) \
+        if pm.corr.shape == jm.corr.shape else float("inf")
+    norm_gap = float(max(
+        np.max(np.abs(pm.shift - jm.shift) / np.maximum(
+            np.abs(jm.shift), 1e-30), initial=0.0),
+        np.max(np.abs(pm.scale - jm.scale) / np.maximum(
+            np.abs(jm.scale), 1e-30), initial=0.0)))
+    names_differ, val_err = 0, 0.0
+    for p, j in zip(got_rows, rows_want):
+        p = {uid_free(k): v for k, v in p.items()}
+        j = {uid_free(k): v for k, v in j.items()}
+        if list(p) != list(j):
+            names_differ += 1
+        for k in set(p) & set(j):
+            a = [v for _, v in json.loads(p[k])]
+            b = [v for _, v in j[k]]
+            val_err = max(val_err, float(np.abs(np.subtract(a, b)).max(
+                initial=0.0)))
+    ok = (nan_equal and gap <= ENRICH_CORR_ATOL
+          and norm_gap <= 4 * ENRICH_VECTOR_RTOL
+          and val_err <= ENRICH_LOCO_ATOL)
+    return {"max_abs_err": gap, "nan_equal": nan_equal,
+            "normalizer_max_rel_err": norm_gap,
+            "rows_compared": len(rows_want),
+            "rows_names_differ": names_differ,
+            "value_max_abs_err": val_err, "ok": bool(ok)}
+
+
+def served_equal(svc, srows, eager) -> bool:
+    """`ScoringService` requests of 1, 3, 17 and 64 rows: each answer
+    equal to the batch's rows (text, list and map results included,
+    F10)."""
+    off, ok = 0, True
+    for size in (1, 3, 17, 64):
+        res = svc.score([dict(r) for r in srows[off:off + size]])
+        want = {k: (v[off:off + size] if not isinstance(v, dict)
+                    else {q: w[off:off + size] for q, w in v.items()})
+                for k, v in eager.items()}
+        ok = ok and tree_equal(res.outputs, want)
+        off += size
+    return ok
+
+
+def enrichment_phase(device="cuda") -> dict:
+    """Phase 28: the contact table's train through the enrichment stages
+    held to the JAX fixture (a), LOCO and the correlation insights (b),
+    and the model served (c). One JSON line each; a failed check raises."""
+    import tempfile
+
+    from transmogrifai_tpu_torch import cuda_build
+    from transmogrifai_tpu_torch.automl.sanity_checker import SanityChecker
+    from transmogrifai_tpu_torch.data.columns import Column
+    from transmogrifai_tpu_torch.models import trees as pt
+    from transmogrifai_tpu_torch.models.logistic import OpLogisticRegression
+    from transmogrifai_tpu_torch.selector.model_selector import ModelSelector
+    from transmogrifai_tpu_torch.serving import ScoringService, ServingConfig
+
+    dev = torch.device(device)
+    ns = enrichment_namespace()
+    sch = enrichment_schema(ns.t)
+    walls = {}
+    t0 = time.perf_counter()
+    fit_rows, score_rows = enrichment_tables(ENRICH_FIT_ROWS)
+    walls["generate"] = time.perf_counter() - t0
+    fit_ds = ns.Dataset.from_rows(fit_rows, schema=sch)
+    score_ds = ns.Dataset.from_rows(score_rows, schema=sch)
+    with open(os.path.join(ENRICH_FIXTURE, "results.json")) as fh:
+        want = json.load(fh)
+    with np.load(os.path.join(ENRICH_FIXTURE, "arrays.npz")) as z:
+        fx = {k: z[k] for k in z.files}
+
+    # (a) training ---------------------------------------------------------- #
+    feats = enrichment_pipeline(ns)
+    results = [feats["prediction"], feats["corr"], feats["tokens"],
+               feats["languages"], feats["entities"], feats["name"]]
+    pt.reset_launches()
+    t0 = time.perf_counter()
+    with fit_calls(ModelSelector) as seen, \
+            fit_calls(SanityChecker) as checker_in:
+        model = ns.Workflow().set_result_features(*results) \
+            .set_input_dataset(fit_ds).train(device=device)
+    sync(device)
+    walls["train"] = time.perf_counter() - t0
+    train_launches = {k: pt.LAUNCHES[k] for k in ENRICH_TRAIN_KERNELS}
+    vec = checker_in[-1][1][1]
+    X = np.asarray(vec.data.cpu() if hasattr(vec.data, "cpu")
+                   else vec.data, dtype=np.float32)
+    meta_equal = meta_entries(vec.meta.columns) == \
+        meta_entries(want["vector_meta"])
+    vector = (vector_gap(X, fx["sums"], fx["head"]) if meta_equal
+              and X.shape[1] == fx["sums"].shape[0] else {"ok": False})
+    kept = list(fitted_of(model, "SanityCheckerModel").indices)
+    summ = selector_summary(model)
+    outcome = summary_outcome(summ)
+    if [{"model": m, "grid": g} for m, g in outcome["configs"]] \
+            != want["results"]:
+        raise AssertionError("the enrichment sweep ran other configs than "
+                             "the fixture's")
+    judged = judge_structural_sweep(
+        want, outcome["fold_metrics"],
+        {"model": summ.best_model, "grid": summ.best_grid})
+    # the witness: the selector refitted on the same columns with every
+    # kernel launch held against its plain version
+    sel, sel_cols, sel_ctx = seen[-1]
+    before = cuda_build.launches_snapshot()
+    t0 = time.perf_counter()
+    with shadow_kernels() as shadow:
+        again = sel.fit_model(sel_cols, sel_ctx)
+        sync(device)
+    walls["witness"] = time.perf_counter() - t0
+    launched = {k: cuda_build.LAUNCHES[k] - before[k] for k in before}
+    witness = judge_structural_witness(shadow, launched, outcome,
+                                       summary_outcome(again.summary))
+    ok_a = (meta_equal and vector["ok"] and kept == want["kept_indices"]
+            and judged["ok"] and witness["ok"]
+            and all(v >= 1 for v in train_launches.values()))
+    emit({"phase": "enrichment_train", "rows": len(fit_ds),
+          "columns": int(X.shape[1]), "kept": len(kept),
+          "meta_equal": meta_equal, "vector": vector,
+          "kept_equal": kept == want["kept_indices"],
+          "best_model": summ.best_model, "best_grid": summ.best_grid,
+          "sweep": judged, "fold_aupr": outcome["fold_metrics"],
+          "fold_aupr_jax": want["fold_metrics"], "witness": witness,
+          "holdout_aupr": summ.holdout_metrics.get("AuPR"),
+          "holdout_aupr_jax": want["holdout_metrics"].get("AuPR"),
+          "launches_main_path": train_launches,
+          "stage_seconds": dict(model.stage_seconds),
+          "walls_s": {k: walls[k] for k in ("train", "witness")},
+          "ok": bool(ok_a)})
+    if not ok_a:
+        raise AssertionError("the enrichment train disagrees with the JAX "
+                             "package's f32 fixture or its kernels with "
+                             "their plain versions")
+
+    # (b) insights ------------------------------------------------------- #
+    # the score rows' transform, stage by stage, up to the checked vector
+    transform = transform_walls(model, feats, score_ds, device,
+                                result="checked")
+    walls["transform_host_prepare"] = transform["host_prepare_s"]
+    walls["transform_device_apply"] = transform["device_apply_s"]
+    checked = transform["column"]
+    xs = np.asarray(checked.data.cpu() if hasattr(checked.data, "cpu")
+                    else checked.data, dtype=np.float32)
+    label_col, train_vec = sel_cols
+    xt = np.asarray(train_vec.data.cpu() if hasattr(train_vec.data, "cpu")
+                    else train_vec.data, dtype=np.float32)
+    score_vector = {"score": matrix_gap(xs, fx["checked_score"]),
+                    "train": matrix_gap(xt, fx["checked_train"])}
+    score_vector["ok"] = all(v["ok"] for v in score_vector.values())
+    # LOCO and the correlations run on the JAX package's checked vectors
+    # (one ulp of the Real group's fill can move a tree's bin)
+    vec_col = Column.vector(torch.from_numpy(fx["checked_score"]).to(dev),
+                            checked.meta)
+    train_fx = Column.vector(torch.from_numpy(fx["checked_train"]).to(dev),
+                             train_vec.meta)
+    pt.reset_launches()
+    held = fixture_insights(ns, vec_col, train_fx, want, fx, device)
+    loco_rec, corr = held["loco"], held["corr"]
+    walls.update(held["walls_s"])
+    loco_launches = {"tree_walk_loco": pt.LAUNCHES["tree_walk_loco"]}
+    # K5-loco against its plain version on the main path's inputs, and
+    # timed there
+    k5 = {}
+    xgb = load_fixture_stage(os.path.join(ENRICH_FIXTURE, "xgb"))
+    Xd = vec_col.device_value(dev)
+    _, masks = ns.RecordInsightsLOCO._groups(checked.meta, Xd.shape[1])
+    consts = xgb.device_constants(dev)
+    off, cols = pt.loco_groups(masks)
+    args = (consts(Xd), consts(Xd * 0.0), consts.feat, consts.bin,
+            consts.leaf, torch.from_numpy(off).to(dev),
+            torch.from_numpy(cols).to(dev))
+    snap = cuda_build.launches_snapshot()
+    got, want_k5 = pt.tree_walk_loco(*args), pt.tree_walk_loco_plain(*args)
+    k5["main_path_equal_plain"] = bool(torch.equal(got, want_k5))
+    k5["max_abs_err"] = float((got - want_k5).abs().max()) \
+        if got.numel() else 0.0
+    k5["timing"] = k5_loco_timing(pt, Xd, consts.edges, {
+        "feat": consts.feat, "bin": consts.bin, "leaf": consts.leaf}, masks)
+    cuda_build.set_launches(snap)
+    # the generic path: an LR fitted on the card's training columns, its
+    # LOCO on the card against the same on the CPU
+    lr = OpLogisticRegression(max_iter=50).fit_model([label_col, train_fx],
+                                                     sel_ctx)
+    t0 = time.perf_counter()
+    lr_loco = ns.RecordInsightsLOCO(lr, top_k=ENRICH_LOCO_TOP_K)
+    names, masks = lr_loco._groups(checked.meta, Xd.shape[1])
+    card = lr_loco.diffs(Xd, masks)
+    sync(device)
+    walls["loco_generic"] = time.perf_counter() - t0
+    cpu = lr_loco.diffs(Xd.cpu(), masks)
+    generic = {"groups": len(names), "max_abs_err_card_cpu": float(
+        np.abs(card - cpu).max(initial=0.0)), "wall_s":
+        walls["loco_generic"]}
+    generic["ok"] = generic["max_abs_err_card_cpu"] <= ENRICH_LOCO_ATOL
+    # Titanic's GBT, with metadata and without (G = d)
+    titanic = titanic_loco_check(ns, dev)
+    k5["boundaries"] = k5_loco_check(pt, np.random.default_rng(28), dev)
+    ok_b = (score_vector["ok"] and all(r["ok"] and r["names_equal"]
+                                       for r in loco_rec.values())
+            and generic["ok"] and titanic["ok"] and corr["ok"]
+            and k5["main_path_equal_plain"] and k5["boundaries"]["equal"]
+            and loco_launches["tree_walk_loco"] >= 1)
+    emit({"phase": "enrichment_insights", "rows": len(score_ds),
+          "score_vector": score_vector, "loco": loco_rec,
+          "loco_generic": generic, "titanic_loco": titanic,
+          "corr": corr, "k5_loco": k5,
+          "tolerance": {"loco": ENRICH_LOCO_ATOL, "corr": ENRICH_CORR_ATOL,
+                        "vector_rtol": ENRICH_VECTOR_RTOL},
+          "launches_main_path": loco_launches,
+          "walls_s": {k: walls[k] for k in (
+              "loco_xgb", "loco_winner", "loco_generic", "corr_fit",
+              "corr_transform", "transform_host_prepare",
+              "transform_device_apply")},
+          "ok": bool(ok_b)})
+    if not ok_b:
+        raise AssertionError("the enrichment insights disagree with the "
+                             "JAX package's, or K5-loco with its plain "
+                             "version")
+
+    # (c) serving ---------------------------------------------------------- #
+    tmp = tempfile.mkdtemp(prefix="enrichment_")
+    try:
+        mpath = os.path.join(tmp, "model")
+        model.save(mpath)
+        loaded = ns.load_model(mpath, device=device)
+        pt.reset_launches()
+        t0 = time.perf_counter()
+        eager = loaded.score_compiled(score_ds)
+        sync(device)
+        walls["score"] = time.perf_counter() - t0
+        graphs = (loaded.compiled()(score_ds, graphs=True)
+                  if dev.type == "cuda" else eager)
+        score_launches = {k: pt.LAUNCHES[k] for k in ENRICH_SCORE_KERNELS}
+        graph_equal = tree_equal(eager, graphs)
+        svc = ScoringService(loaded, ServingConfig(max_batch=64)).start()
+        try:
+            served = served_equal(svc, score_ds.to_rows(), eager)
+        finally:
+            svc.stop()
+        prob = torch.as_tensor(eager[feats["prediction"].name][
+            "probability"])
+        ok_c = (graph_equal and served
+                and bool(torch.isfinite(prob).all())
+                and prob.shape == (ENRICH_SCORE_ROWS, 2)
+                and len(eager[feats["corr"].name]) == ENRICH_SCORE_ROWS
+                and all(v >= 1 for v in score_launches.values()))
+        emit({"phase": "enrichment_serve", "rows": len(score_ds),
+              "graph_equal_eager": graph_equal, "service_equal": served,
+              "requests": [1, 3, 17, 64],
+              "launches_main_path": score_launches,
+              "walls_s": {"score": walls["score"]}, "ok": bool(ok_c)})
+        if not ok_c:
+            raise AssertionError("the enrichment model's served answers "
+                                 "differ")
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    walls["k5_loco"] = {**k5["timing"],
+                        "launches": loco_launches["tree_walk_loco"],
+                        "max_abs_err": k5["max_abs_err"]}
+    return walls
+
+
+def fixture_insights(ns, vec_col, train_col, want, fx, device) -> dict:
+    """Phase 28's insights on the fixture's checked vectors (`vec_col`, the
+    2,000 score rows, and `train_col`, the training rows, each with the
+    port's metadata): LOCO (top 20) over the fixture's XGB and winner
+    against the JAX package's diffs and top groups, and the correlation
+    insights fitted on the winner's scores of the training rows against
+    the fixture's fitted model and its first rows. Returns the records
+    and their walls."""
+    from transmogrifai_tpu_torch import cuda_build
+    from transmogrifai_tpu_torch.data.columns import Column
+    from transmogrifai_tpu_torch.stages.base import FitContext
+    dev = torch.device(device)
+    loco, walls = {}, {}
+    Xd = vec_col.device_value(dev)
+    for name in ("xgb", "winner"):
+        m = load_fixture_stage(os.path.join(ENRICH_FIXTURE, name))
+        stage = ns.RecordInsightsLOCO(m, top_k=ENRICH_LOCO_TOP_K)
+        t0 = time.perf_counter()
+        out = stage.transform([vec_col], device)
+        sync(device)
+        walls[f"loco_{name}"] = time.perf_counter() - t0
+        names, masks = stage._groups(vec_col.meta, Xd.shape[1])
+        # the diffs again for the comparison: not the main path's launches
+        snap = cuda_build.launches_snapshot()
+        diffs = stage.diffs(Xd, masks)
+        cuda_build.set_launches(snap)
+        loco[name] = {**loco_against(
+            diffs, fx[f"loco_{name}_diffs"], fx[f"loco_{name}_top"], names,
+            out.data),
+            "names_equal": list(map(uid_free, names)) == list(map(
+                uid_free, want[f"loco_{name}_groups"])),
+            "wall_s": walls[f"loco_{name}"]}
+        loco[name]["ok"] = loco[name]["ok"] and loco[name]["names_equal"]
+    winner = load_fixture_stage(os.path.join(ENRICH_FIXTURE, "winner"))
+    pred_col = Column(ns.t.Prediction, winner.predict_arrays(
+        train_col.device_value(dev)))
+    t0 = time.perf_counter()
+    cm = ns.RecordInsightsCorr().fit_model(
+        [pred_col, train_col], FitContext(n_rows=len(train_col.data),
+                                          device=dev))
+    sync(device)
+    walls["corr_fit"] = time.perf_counter() - t0
+    pred_score = Column(ns.t.Prediction, winner.predict_arrays(Xd))
+    t0 = time.perf_counter()
+    rows = cm.transform([pred_score, vec_col], device).data
+    walls["corr_transform"] = time.perf_counter() - t0
+    corr = corr_against(cm, os.path.join(ENRICH_FIXTURE, "corr"),
+                        want["corr_rows"], rows[:len(want["corr_rows"])])
+    return {"loco": loco, "corr": corr, "walls_s": walls,
+            "ok": bool(corr["ok"] and all(r["ok"] for r in loco.values()))}
+
+
+def titanic_loco_check(ns, dev) -> dict:
+    """LOCO over the Titanic quickstart GBT on its 891 rows, with its
+    vector's metadata and without (G = 496), against the JAX package's
+    diffs committed beside the fixture."""
+    from transmogrifai_tpu_torch.data.columns import Column
+    model = ns.load_model(FIXTURE, device=dev.type)
+    gbt = fitted_of(model, "GBTClassificationModel")
+    vec = model.score(ns.Dataset.from_csv(TITANIC), keep_intermediate=True)[
+        gbt.input_features[-1].uid]
+    out = {}
+    with np.load(TITANIC_LOCO) as z:
+        for name, meta in (("meta", vec.meta), ("bare", None)):
+            col = Column.vector(vec.data, meta)
+            stage = ns.RecordInsightsLOCO(gbt, top_k=ENRICH_LOCO_TOP_K)
+            t0 = time.perf_counter()
+            rows = stage.transform([col], dev.type).data
+            sync(dev)
+            wall = time.perf_counter() - t0
+            X = col.device_value(dev)
+            names, masks = stage._groups(meta, X.shape[1])
+            out[name] = {**loco_against(stage.diffs(X, masks),
+                                        z[f"{name}_diffs"], z[f"{name}_top"],
+                                        names, rows), "wall_s": wall}
+    out["ok"] = all(r["ok"] for r in out.values())
+    return out
 
 
 def missing_parts() -> list:
@@ -7181,6 +8153,14 @@ def main() -> int:
     emit({"phase": "structural", "walls_s": struct_walls,
           "wall_s": time.perf_counter() - t0, "ok": True})
 
+    # 28. text enrichment and record insights ----------------------------- #
+    t0 = time.perf_counter()
+    enrich_walls = enrichment_phase()
+    k5l = enrich_walls.pop("k5_loco")
+    emit({"phase": "enrichment", "walls_s": enrich_walls,
+          "k5_loco_timing": k5l, "wall_s": time.perf_counter() - t0,
+          "ok": True})
+
     # 10. the kernels line, the card, the result --------------------------- #
     main_n = timing[891]
     aupr = fit_timing[f"n{FIT_N}_aupr512"]["binned_aupr"]
@@ -7298,6 +8278,11 @@ def main() -> int:
                          for t in wide["types"].values()),
          **{k: wk[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms")}},
+        {"name": "tree_walk_loco", "route": "cuda",
+         "source": "transmogrifai_tpu_torch/csrc/tree_walk.cu",
+         "replaces": "transmogrifai_tpu/insights/loco.py:98",
+         **{k: k5l[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")}},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -346,6 +346,34 @@ def test_class_tree_walk_kernel_at_tile_and_chunk_boundaries(cuda, K, R):
         assert torch.equal(got, pt.tree_walk_classes_plain(Xb, *tables))
 
 
+def test_tree_walk_loco_kernel_at_its_boundaries(cuda):
+    """K5-loco against its plain version and against K5 on the
+    materialized ablation at `chip_smoke.K5_LOCO_CASES` (tiles around R,
+    m = 1-3, K = 3, int8 and int32 Xb, rows past the shared memory) times
+    `loco_cases` (one group, G = d, every column, empty groups, blocks),
+    on hostile values: equal."""
+    rec = cs.k5_loco_check(pt, np.random.default_rng(28), cuda)
+    assert rec["equal"] and rec["cases"] > 0
+
+
+def test_tree_walk_loco_counts_one_launch_a_chunk_and_raises(cuda):
+    rng = np.random.default_rng(5)
+    Xb, feat, bins, leaf = (t.to(cuda) for t in _walk_inputs(
+        rng, 70, 12, 9, 4, 2, torch.int8))
+    off, cols = (torch.from_numpy(a).to(cuda) for a in pt.loco_groups(
+        np.eye(12, dtype=np.float32)))
+    before = pt.LAUNCHES["tree_walk_loco"]
+    got = pt.tree_walk_loco(Xb, Xb, feat, bins, leaf, off, cols)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["tree_walk_loco"] == before + 1
+    assert torch.equal(got, pt.tree_walk_loco_plain(Xb, Xb, feat, bins,
+                                                    leaf, off, cols))
+    with pytest.raises(ValueError, match="int32"):
+        pt.tree_walk_loco(Xb, Xb, feat, bins, leaf, off.long(), cols)
+    with pytest.raises(ValueError, match="Xz"):
+        pt.tree_walk_loco(Xb, Xb.int(), feat, bins, leaf, off, cols)
+
+
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     X = torch.zeros((4, 3), device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="f32"):

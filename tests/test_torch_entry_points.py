@@ -81,3 +81,15 @@ def test_library_name_follows_the_headers_a_source_includes(tmp_path,
     moved = {n for n in cuda_build.SOURCES
              if cuda_build.library_path(n) != before[n]}
     assert moved == {"bin_features", "write_rows"}
+
+
+def test_k5_loco_entry_point_is_held_to_its_c_signature():
+    """K5-loco's entry (`tree_walk_loco_typed`, csrc/tree_walk.cu): eight
+    pointers, n as int64_t, thirteen ints and the stream."""
+    want = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] + [ctypes.c_int] * 13
+            + [ctypes.c_void_p])
+    got = {(n, f): t for n, f, t in C_ENTRIES}[("tree_walk",
+                                                 "tree_walk_loco_typed")]
+    assert got == want
+    assert list(cuda_build.ARGTYPES[("tree_walk",
+                                     "tree_walk_loco_typed")]) == want

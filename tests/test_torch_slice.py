@@ -286,8 +286,8 @@ def test_from_jax_params_carries_fitted_models_across():
 
 def test_unported_stage_class_raises_and_names_itself():
     from transmogrifai_tpu_torch import from_jax_params
-    with pytest.raises(KeyError, match="RecordInsightsLOCO"):
-        from_jax_params("RecordInsightsLOCO", {"top_k": 20})
+    with pytest.raises(KeyError, match="MinVarianceFilter"):
+        from_jax_params("MinVarianceFilter", {"min_variance": 1e-5})
 
 
 # --------------------------------------------------------------------------- #

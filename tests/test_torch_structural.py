@@ -843,8 +843,13 @@ def test_from_jax_params_round_trips(case):
 
 @pytest.mark.parametrize("name", ["PhoneMapVectorizer", "PhoneMapModel"])
 def test_phone_maps_raise_naming_item_6b(name):
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        stage_class("port", "maps", name)()
+    """Item 6b is ported: the phone-map classes build and name no
+    refusal (their parity is held in tests/test_torch_enrich.py)."""
+    args = {"PhoneMapModel": {"keys_per_feature": [["home"]]}}.get(name, {})
+    stage = stage_class("port", "maps", name)(**args)
+    assert type(stage).__name__ == name
+    import transmogrifai_tpu_torch.ops.maps as pmaps
+    assert "item 6b" not in open(pmaps.__file__).read()
 
 
 NOISE_SEEDS = (1, 2, 3, 4)

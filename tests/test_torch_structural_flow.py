@@ -131,13 +131,28 @@ def test_saved_models_load_in_the_other_package(fitted, namespaces,
 @pytest.mark.parametrize("ftype", ["Email", "URL", "Phone", "Base64",
                                    "PhoneMap"])
 def test_enrichment_groups_raise_naming_item_6b(ftype):
+    """Item 6b is ported: transmogrify takes the email, url, phone and
+    base64 groups and phone maps, wiring the JAX package's stages
+    (their values are held in tests/test_torch_enrich.py)."""
+    import transmogrifai_tpu.types as jt
     import transmogrifai_tpu_torch.types as pt
+    from transmogrifai_tpu.automl.transmogrify import transmogrify as jtr
+    from transmogrifai_tpu.stages.base import FeatureGeneratorStage as JGen
     from transmogrifai_tpu_torch import transmogrify
     from transmogrifai_tpu_torch.stages.base import FeatureGeneratorStage
+
+    def chain(vec):
+        out, stack = [], [vec]
+        while stack:
+            f = stack.pop()
+            stage = f.origin_stage
+            out.append(type(stage).__name__)
+            stack.extend(f.parents)
+        return out
     f = FeatureGeneratorStage(name="x", ftype=getattr(pt, ftype)) \
         .get_output()
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        transmogrify([f])
+    g = JGen(name="x", ftype=getattr(jt, ftype)).get_output()
+    assert chain(transmogrify([f])) == chain(jtr([g]))
 
 
 def test_prediction_maps_are_refused_as_in_jax():

@@ -98,8 +98,16 @@ def test_text_tokenizer_equals_jax():
 @pytest.mark.parametrize("kw", [{"language": "en"},
                                 {"auto_detect_language": True}])
 def test_tokenizer_language_modes_raise_naming_item_6b(kw):
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        ptext.TextTokenizer(**kw)
+    """Item 6b is ported: the language modes build and tokenize as the
+    JAX package does (held in full by tests/test_torch_language.py)."""
+    values = HOSTILE * 2
+    pst = ptext.TextTokenizer(**kw).set_input(
+        PGen(name="d", ftype=pt.Text).get_output())
+    jst = jtext.TextTokenizer(**kw).set_input(
+        JGen(name="d", ftype=jt.Text).get_output())
+    got = pst.transform([text_col(PColumn, pt, values)], "cpu")
+    want = jst.transform([text_col(JColumn, jt, values)])
+    assert list(got.data) == list(want.data)
 
 
 def hash_inputs(rng, n=200):

@@ -944,13 +944,13 @@ def _unported_case(case):
     from transmogrifai_tpu_torch.workflow.runner import WorkflowRunner
 
     if case == "email_group":
-        transmogrify([FeatureGeneratorStage(name="who",
-                                            ftype=PT.Email).get_output()])
+        return transmogrify([FeatureGeneratorStage(
+            name="who", ftype=PT.Email).get_output()])
     elif case == "checkpoint":
         BinaryClassificationModelSelector.with_cross_validation(
             models=[(pt.OpXGBoostClassifier(), GRID)], checkpoint_dir="x")
     elif case == "phone_map":
-        transmogrify([FeatureGeneratorStage(
+        return transmogrify([FeatureGeneratorStage(
             name="phones", ftype=PT.PhoneMap).get_output()])
     elif case == "parquet_reader":
         DataReaders.stream(parquet_path="x.parquet").read()
@@ -977,8 +977,13 @@ def _unported_case(case):
     ("perf_model", "queue 1, item 10"),
     ("multiclass_checkpoint", "checkpoint")])
 def test_unported_paths_raise_and_name_themselves(case, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _unported_case(case)
+    if case in ("email_group", "phone_map"):
+        # ported since ROADMAP queue 1, item 6b: the groups now build
+        from transmogrifai_tpu_torch import types as PT
+        assert _unported_case(case).ftype is PT.OPVector
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            _unported_case(case)
     if case == "email_group":
         from transmogrifai_tpu_torch import Dataset, FeatureBuilder
         _, label = FeatureBuilder.from_dataset(Dataset.from_csv(TITANIC),

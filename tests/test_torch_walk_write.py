@@ -243,3 +243,29 @@ def test_count_ops_searches_sorted_features_and_counts_the_rest(n_edges):
     want = 7 * ((6 - unsorted) * search + unsorted * n_edges)
     assert cs.count_ops(torch.from_numpy(e), 7) == want
     assert cs.count_ops(torch.from_numpy(e).half(), 7) == want
+
+
+@pytest.mark.parametrize("depth,m", [(1, 1), (3, 2), (6, 1), (10, 3)])
+def test_predict_tree_dense_equals_jax_and_the_walk(depth, m):
+    """K15 (`predict_tree_dense`, one tree's predict as one-hot products)
+    in the port's f32 against the JAX package's bf16 operands with f32
+    accumulation, and against `tree_walk_plain` on the same tree: bit for
+    bit (bin ids up to N_BINS and 0/1 path products are exact in both,
+    and one weight of 1 selects each row's leaf). Split bins of N_BINS
+    (never fire) are among the tables."""
+    rng = np.random.default_rng(15 + depth)
+    n, width = 300, 2 ** depth
+    feat = rng.integers(0, D, (depth, width)).astype(np.int32)
+    bins = rng.integers(0, N_BINS + 1, (depth, width)).astype(np.int32)
+    leaf = rng.normal(size=(width, m)).astype(np.float32)
+    Xb = rng.integers(0, N_BINS + 1, (n, D)).astype(np.int32)
+    want = np.asarray(jt.predict_tree_dense(
+        {"feat": jnp.asarray(feat), "bin": jnp.asarray(bins),
+         "leaf": jnp.asarray(leaf)}, jnp.asarray(Xb)))
+    tree = {"feat": torch.from_numpy(feat), "bin": torch.from_numpy(bins),
+            "leaf": torch.from_numpy(leaf)}
+    got = pt.predict_tree_dense(tree, torch.from_numpy(Xb)).numpy()
+    walk = pt.tree_walk_plain(torch.from_numpy(Xb), tree["feat"][None],
+                              tree["bin"][None], tree["leaf"][None]).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, walk)

@@ -3,10 +3,10 @@
 The port's counterpart of the JAX package's `automl/transmogrify.py`:
 group the input features by type, apply each type's default encoder, and
 combine the results into one OPVector with `VectorsCombiner`, in the JAX
-package's group order. Every group is ported but the email, url, phone
-and base64 groups (and phone maps in the map group), which need the text
-enrichment of ROADMAP queue 1, item 6b and raise naming it; OPVector
-features join the combiner as they are.
+package's group order. Emails and urls are pivoted on their domains,
+phones encoded as [isValid, isNull] and base64 payloads pivoted on their
+MIME type (`ops/enrich.py`); OPVector features join the combiner as they
+are.
 """
 
 from __future__ import annotations
@@ -19,6 +19,9 @@ from transmogrifai_tpu_torch.ops.categorical import (
     MultiPickListVectorizer, OneHotVectorizer)
 from transmogrifai_tpu_torch.ops.combiner import VectorsCombiner
 from transmogrifai_tpu_torch.ops.dates import DateToUnitCircleVectorizer
+from transmogrifai_tpu_torch.ops.enrich import (
+    EmailDomainTransformer, MimeTypeDetector, PhoneVectorizer,
+    UrlDomainTransformer)
 from transmogrifai_tpu_torch.ops.geo import GeolocationVectorizer
 from transmogrifai_tpu_torch.ops.maps import map_vectorizers
 from transmogrifai_tpu_torch.ops.numeric import (
@@ -44,8 +47,6 @@ class TransmogrifierDefaults:
 _PIVOT_TYPES = (T.PickList, T.ComboBox, T.Country, T.State, T.City,
                 T.PostalCode, T.Street, T.ID)
 _SMART_TEXT_TYPES = (T.TextArea, T.Text)
-# the groups that need the text enrichment (ops/enrich.py)
-_ENRICH_GROUPS = ("email", "url", "phone", "base64")
 
 
 def _group_features(features: Sequence) -> Dict[str, List]:
@@ -98,13 +99,6 @@ def transmogrify(features: Sequence,
     feature (lazily: nothing executes until a workflow trains)."""
     d = defaults or TransmogrifierDefaults()
     groups = _group_features(features)
-    for key, members in groups.items():
-        if key in _ENRICH_GROUPS:
-            raise NotImplementedError(
-                f"transmogrify: the {key!r} group "
-                f"({', '.join(f.name for f in members)}) needs the text "
-                "enrichment (ops/enrich.py), which is not ported yet: "
-                "ROADMAP.md queue 1, item 6b")
     vectors = []
     if "realnn" in groups:
         vectors.append(RealNNVectorizer().set_input(
@@ -130,6 +124,29 @@ def transmogrify(features: Sequence,
             top_k=d.top_k, min_support=d.min_support,
             track_nulls=d.track_nulls).set_input(
                 *groups["pivot"]).get_output())
+    if "email" in groups:
+        domains = [EmailDomainTransformer().set_input(f).get_output()
+                   for f in groups["email"]]
+        vectors.append(OneHotVectorizer(
+            top_k=d.top_k, min_support=d.min_support,
+            track_nulls=d.track_nulls).set_input(*domains).get_output())
+    if "url" in groups:
+        domains = [UrlDomainTransformer().set_input(f).get_output()
+                   for f in groups["url"]]
+        vectors.append(OneHotVectorizer(
+            top_k=d.top_k, min_support=d.min_support,
+            track_nulls=d.track_nulls).set_input(*domains).get_output())
+    if "phone" in groups:
+        vectors.append(PhoneVectorizer(
+            track_nulls=d.track_nulls).set_input(
+                *groups["phone"]).get_output())
+    if "base64" in groups:
+        mimes = [MimeTypeDetector().set_input(f).get_output()
+                 for f in groups["base64"]]
+        # MIME cardinality is tiny: pivot every observed type
+        vectors.append(OneHotVectorizer(
+            top_k=d.top_k, min_support=1,
+            track_nulls=d.track_nulls).set_input(*mimes).get_output())
     if "smart_text" in groups:
         vectors.append(SmartTextVectorizer(
             max_cardinality=d.max_cardinality, top_k=d.top_k,

@@ -64,6 +64,24 @@
 // - The tables are read in place through L1 (int32, or the quantized
 //   mode's int16 features and uint8 bins: 3 bytes a slot).
 
+// K5-loco, the walk of LOCO's ablations: with Xb = bin(X) and Xz =
+// bin(X * 0) (both from K4) and a group list in CSR form (offsets, cols),
+// out[g, r, c] = sum_t leaf[t, walk_t(row r with the columns of group g
+// read from Xz), c]. It replaces the materialized ablation of
+// transmogrifai_tpu/insights/loco.py:98-101, which builds (32, n, d) f32
+// copies X * (1 - m) and runs the model's whole predict (K4 and K5) over
+// each. X * 1 = X, and X * 0 is +-0 for finite x and NaN otherwise; K4
+// gives -0 and +0 one bin, so the walk over Xb with group g's columns taken
+// from Xz is the walk over bin(X * (1 - m_g)), bit for bit. The grid adds a
+// group axis (blockIdx.y, a group of the launch's chunk) to K5's row tiles;
+// each block stages its rows of Xb as K5 does, then (after a barrier)
+// overwrites the staged cells of its group's columns from Xz, a few cells a
+// row, and runs K5's walk and tree-order sums unchanged. Rows too wide to
+// stage are read from device memory, and each step looks its feature up in
+// the group's sorted columns by binary search: no (G, d) mask is built, a
+// group of c columns costs log2(c) compares a step, and the usual groups
+// (a feature's few one-hot or hashed slots) cost one or two.
+
 // Narrowed tables (the quantized scoring mode, `narrow_device_constants`
 // in models/trees.py:999): split features as int16 when d < 2^15 and split
 // bins as uint8 when there are at most 255 edges, both lossless. The walk
@@ -101,9 +119,30 @@ struct Walk {
   int R, log_r;  // rows a block, log2 R
   int stride;    // staged row stride in Xb elements (0: not staged)
   int copy;      // staging copies: 16 or 4 bytes (rows padded), 1 (not)
+  // K5-loco only: bin(X * 0), the groups' CSR columns, the launch's first
+  // group and the output's stride a group
+  const void* Xz;
+  const int* offsets;
+  const int* cols;
+  int g0;
+  int64_t group_stride;
 };
 
-template <typename BinT, typename FeatT, typename SplitT, bool STAGED>
+// whether f is among the n sorted ints at c
+__device__ __forceinline__ bool in_sorted(const int* c, int n, int f) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(c + mid) < f)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo < n && __ldg(c + lo) == f;
+}
+
+template <typename BinT, typename FeatT, typename SplitT, bool STAGED,
+          bool LOCO>
 __global__ void __launch_bounds__(THREADS) walk_kernel(Walk q) {
   constexpr int U = WALK_U;
   extern __shared__ __align__(16) float smem[];
@@ -171,6 +210,26 @@ __global__ void __launch_bounds__(THREADS) walk_kernel(Walk q) {
   } else {
     x = Xb + (r0 + (i < rows ? i : 0)) * q.d;
   }
+  // K5-loco: the group's columns read from bin(X * 0)
+  const BinT* Z = static_cast<const BinT*>(q.Xz);
+  const BinT* xz = nullptr;
+  const int* gcols = nullptr;
+  int gn = 0;
+  if constexpr (LOCO) {
+    const int g = q.g0 + (int)blockIdx.y;
+    const int c0 = __ldg(q.offsets + g);
+    gcols = q.cols + c0;
+    gn = __ldg(q.offsets + g + 1) - c0;
+    if constexpr (STAGED) {
+      __syncthreads();  // the staged row tile is whole
+      for (int j = tid; j < rows * gn; j += THREADS) {
+        const int r = j / gn, c = __ldg(gcols + (j - r * gn));
+        tile[r * q.stride + c] = __ldg(Z + (r0 + r) * q.d + c);
+      }
+    } else {
+      xz = Z + (r0 + (i < rows ? i : 0)) * q.d;
+    }
+  }
   __syncthreads();
   const FeatT* feat = static_cast<const FeatT*>(q.feat);
   const SplitT* bins = static_cast<const SplitT*>(q.bins);
@@ -198,6 +257,10 @@ __global__ void __launch_bounds__(THREADS) walk_kernel(Walk q) {
         int xb;
         if constexpr (STAGED) {
           xb = static_cast<int>(x[f[w]]);
+        } else if constexpr (LOCO) {
+          xb = static_cast<int>(in_sorted(gcols, gn, f[w])
+                                    ? __ldg(xz + f[w])
+                                    : __ldg(x + f[w]));
         } else {
           xb = static_cast<int>(__ldg(x + f[w]));
         }
@@ -236,6 +299,7 @@ __global__ void __launch_bounds__(THREADS) walk_kernel(Walk q) {
     }
   }
   float* out = q.out + r0 * ncols;
+  if constexpr (LOCO) out += (int64_t)blockIdx.y * q.group_stride;
   for (int o = tid; o < rows * ncols; o += THREADS) out[o] = acc[o];
 }
 
@@ -260,14 +324,14 @@ struct Plan {
 };
 
 // R and whether the rows of Xb are staged, for n rows and n_flat trees on
-// a card of `sms` SMs. R doubles from 1 while the shared memory allows it
+// a card of `sms` SMs (K5-loco: each tile once a group of the launch). R doubles from 1 while the shared memory allows it
 // and either the tiles still give FILL blocks an SM or every tree still
 // fits one chunk (PAIRS / R trees) of a tile that n fills; so small
 // batches get many blocks of short chains and large n gets 64-row tiles
 // whose warps walk one tree for 32 rows. A given `rows` (tests) is kept,
 // staged where it fits.
 Plan plan(int64_t n, int n_flat, int d, int es, int n_cols, int m, int sms,
-          int rows) {
+          int rows, int groups = 1) {
   const auto fits = [&](int r, bool st) {
     return block_smem(r, d, es, n_cols, m, st) <= SMEM_MAX;
   };
@@ -281,7 +345,7 @@ Plan plan(int64_t n, int n_flat, int d, int es, int n_cols, int m, int sms,
   if (!fits(1, false)) return {0, 0};
   int r = 1;
   while (2 * r <= MAX_ROWS && fits(2 * r, staged) &&
-         ((n + 2 * r - 1) / (2 * r) >= (int64_t)FILL * sms ||
+         ((n + 2 * r - 1) / (2 * r) * groups >= (int64_t)FILL * sms ||
           (2 * r <= n && PAIRS / (2 * r) >= n_flat)))
     r *= 2;
   return {r, staged};
@@ -302,10 +366,10 @@ int sm_count() {
 }
 
 template <typename BinT, typename FeatT, typename SplitT>
-int launch(Walk q, void* stream) {
+int launch(Walk q, void* stream, int groups = 0) {
   const int es = (int)sizeof(BinT);
   const Plan p = plan(q.n, q.n_flat, q.d, es, q.K * q.m, q.m, sm_count(),
-                      q.R);
+                      q.R, groups > 0 ? groups : 1);
   if (p.rows == 0) return (int)cudaErrorInvalidValue;
   q.R = p.rows;
   q.log_r = 0;
@@ -320,20 +384,27 @@ int launch(Walk q, void* stream) {
   const size_t smem = (size_t)PAIRS * mce * sizeof(float) +
                       (size_t)q.R * q.K * q.m * sizeof(float) +
                       (size_t)q.R * q.stride * es;
-  const unsigned blocks = (unsigned)((q.n + q.R - 1) / q.R);
-  auto kernel = p.staged ? walk_kernel<BinT, FeatT, SplitT, true>
-                         : walk_kernel<BinT, FeatT, SplitT, false>;
-  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(q);
+  const dim3 grid((unsigned)((q.n + q.R - 1) / q.R),
+                  groups > 0 ? (unsigned)groups : 1u);
+  if (groups > 0) {
+    auto kernel = p.staged ? walk_kernel<BinT, FeatT, SplitT, true, true>
+                           : walk_kernel<BinT, FeatT, SplitT, false, true>;
+    kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(q);
+  } else {
+    auto kernel = p.staged ? walk_kernel<BinT, FeatT, SplitT, true, false>
+                           : walk_kernel<BinT, FeatT, SplitT, false, false>;
+    kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(q);
+  }
   return (int)cudaGetLastError();
 }
 
 // the instance for element sizes (Xb 1 or 4 bytes, feat 2 or 4, bins 1 or 4)
 int dispatch(int xb_bytes, int feat_bytes, int bin_bytes, Walk q,
-             void* stream) {
+             void* stream, int groups = 0) {
 #define TW_CASE(XB, FT, ST)                                                \
   if (xb_bytes == sizeof(XB) && feat_bytes == sizeof(FT) &&              \
       bin_bytes == sizeof(ST))                                             \
-    return launch<XB, FT, ST>(q, stream);
+    return launch<XB, FT, ST>(q, stream, groups);
   TW_CASE(int8_t, int32_t, int32_t)
   TW_CASE(int8_t, int16_t, int32_t)
   TW_CASE(int8_t, int32_t, uint8_t)
@@ -359,7 +430,7 @@ extern "C" int tree_walk_typed(const void* Xb, const void* feat,
   if (n <= 0) return (int)cudaSuccess;
   Walk q{Xb, feat, bins, static_cast<const float*>(leaf),
          static_cast<float*>(out), n, d, n_trees, 1, depth, width, n_leaves,
-         m, rows, 0, 0, 0};
+         m, rows, 0, 0, 0, nullptr, nullptr, nullptr, 0, 0};
   return dispatch(xb_bytes, feat_bytes, bin_bytes, q, stream);
 }
 
@@ -375,8 +446,29 @@ extern "C" int tree_walk_classes_typed(const void* Xb, const void* feat,
   if (n <= 0) return (int)cudaSuccess;
   Walk q{Xb, feat, bins, static_cast<const float*>(leaf),
          static_cast<float*>(out), n, d, n_rounds * n_classes, n_classes,
-         depth, width, n_leaves, 1, rows, 0, 0, 0};
+         depth, width, n_leaves, 1, rows, 0, 0, 0, nullptr, nullptr, nullptr,
+         0, 0};
   return dispatch(xb_bytes, feat_bytes, bin_bytes, q, stream);
+}
+
+// K5-loco: Xb and Xz (n, d), tables of n_flat = rounds * K flat trees
+// (depth, width), leaf (n_flat, n_leaves, m), group columns cols[offsets[g]
+// .. offsets[g + 1]] sorted ascending -> out (n_groups, n, K * m) for the
+// groups g0 .. g0 + n_groups - 1 (K = 1 for K5's ensembles, m = 1 for
+// K5-mc's class trees); `rows` rows a block (0: planned)
+extern "C" int tree_walk_loco_typed(
+    const void* Xb, const void* Xz, const void* feat, const void* bins,
+    const void* leaf, const int* offsets, const int* cols, void* out,
+    int64_t n, int d, int n_flat, int K, int depth, int width, int n_leaves,
+    int m, int g0, int n_groups, int rows, int xb_bytes, int feat_bytes,
+    int bin_bytes, void* stream) {
+  if (n <= 0 || n_groups <= 0) return (int)cudaSuccess;
+  if (n_groups > 65535 || K <= 0 || n_flat % K != 0)
+    return (int)cudaErrorInvalidValue;
+  Walk q{Xb, feat, bins, static_cast<const float*>(leaf),
+         static_cast<float*>(out), n, d, n_flat, K, depth, width, n_leaves,
+         m, rows, 0, 0, 0, Xz, offsets, cols, g0, n * (int64_t)K * m};
+  return dispatch(xb_bytes, feat_bytes, bin_bytes, q, stream, n_groups);
 }
 
 // the plan a walk of n rows and n_flat trees (n_cols output columns, m

@@ -4,9 +4,10 @@ The port's counterpart of the JAX package's `dsl.py` (which imports the
 JAX ops lazily, so the port keeps its own): the arithmetic operators and
 unary math, `vectorize`, the scalers, the numeric bucketizers, the
 generic row ops, `pivot`, `sanity_check`, `indexed` and `deindexed`,
-`tokenize` and `smart_vectorize`, the date methods `to_unit_circle` and
-`to_time_period`, and `combine`. The text enrichment methods wait for
-ROADMAP queue 1, item 6b. Importing the package attaches the methods;
+`tokenize` and `smart_vectorize`, `text_len`, the text enrichment
+methods (email, url, phone, MIME, language, name and entity detection,
+and the advanced text stages), the date methods `to_unit_circle` and
+`to_time_period`, and `combine`. Importing the package attaches the methods;
 each wires a stage and returns its output feature, nothing runs.
 """
 
@@ -164,6 +165,128 @@ def pivot(self: Feature, top_k: int = 20, min_support: int = 10,
                   min_support=min_support, track_nulls=track_nulls)
 
 
+def text_len(self: Feature) -> Feature:
+    from transmogrifai_tpu_torch.ops.rowops import TextLenTransformer
+    return _stage(TextLenTransformer, self)
+
+
+# -- enrichment (RichTextFeature's email / url / phone / base64) --------- #
+
+def is_valid_email(self: Feature) -> Feature:
+    from transmogrifai_tpu_torch.ops.enrich import ValidEmailTransformer
+    return _stage(ValidEmailTransformer, self)
+
+
+def to_email_domain(self: Feature) -> Feature:
+    from transmogrifai_tpu_torch.ops.enrich import EmailDomainTransformer
+    return _stage(EmailDomainTransformer, self)
+
+
+def to_email_parts(self: Feature) -> Feature:
+    from transmogrifai_tpu_torch.ops.enrich import (
+        EmailToPickListMapTransformer)
+    return _stage(EmailToPickListMapTransformer, self)
+
+
+def is_valid_url(self: Feature) -> Feature:
+    from transmogrifai_tpu_torch.ops.enrich import UrlIsValidTransformer
+    return _stage(UrlIsValidTransformer, self)
+
+
+def to_domain(self: Feature) -> Feature:
+    from transmogrifai_tpu_torch.ops.enrich import UrlDomainTransformer
+    return _stage(UrlDomainTransformer, self)
+
+
+def to_protocol(self: Feature) -> Feature:
+    from transmogrifai_tpu_torch.ops.enrich import UrlProtocolTransformer
+    return _stage(UrlProtocolTransformer, self)
+
+
+def is_valid_phone(self: Feature, *, region: Optional[Feature] = None,
+                   default_region: str = "US") -> Feature:
+    """Phone validity against `default_region`, or against each row's
+    region resolved from a region-code / country-name Text feature."""
+    from transmogrifai_tpu_torch.ops.enrich import (
+        PhoneIsValidTransformer, PhoneIsValidWithRegionTransformer)
+    if region is not None:
+        return _stage(PhoneIsValidWithRegionTransformer, self, region,
+                      default_region=default_region)
+    return _stage(PhoneIsValidTransformer, self,
+                  default_region=default_region)
+
+
+def parse_phone(self: Feature, *, region: Optional[Feature] = None,
+                default_region: str = "US") -> Feature:
+    """The normalized "+cc…" Phone, None when invalid."""
+    from transmogrifai_tpu_torch.ops.enrich import (
+        PhoneParseTransformer, PhoneParseWithRegionTransformer)
+    if region is not None:
+        return _stage(PhoneParseWithRegionTransformer, self, region,
+                      default_region=default_region)
+    return _stage(PhoneParseTransformer, self, default_region=default_region)
+
+
+def is_valid_phone_map(self: Feature, default_region: str = "US"
+                       ) -> Feature:
+    from transmogrifai_tpu_torch.ops.enrich import PhoneMapIsValidTransformer
+    return _stage(PhoneMapIsValidTransformer, self,
+                  default_region=default_region)
+
+
+def detect_mime_types(self: Feature, type_hint=None) -> Feature:
+    from transmogrifai_tpu_torch.ops.enrich import MimeTypeDetector
+    return _stage(MimeTypeDetector, self, type_hint=type_hint)
+
+
+def detect_languages(self: Feature) -> Feature:
+    from transmogrifai_tpu_torch.ops.enrich import LangDetector
+    return _stage(LangDetector, self)
+
+
+def detect_name(self: Feature) -> Feature:
+    from transmogrifai_tpu_torch.ops.enrich import HumanNameDetector
+    return _stage(HumanNameDetector, self)
+
+
+def recognize_entities(self: Feature) -> Feature:
+    from transmogrifai_tpu_torch.ops.enrich import NameEntityRecognizer
+    return _stage(NameEntityRecognizer, self)
+
+
+# -- advanced text ------------------------------------------------------- #
+
+def remove_stop_words(self: Feature, stop_words=None,
+                      case_sensitive: bool = False) -> Feature:
+    from transmogrifai_tpu_torch.ops.text_advanced import OpStopWordsRemover
+    return _stage(OpStopWordsRemover, self, stop_words=stop_words,
+                  case_sensitive=case_sensitive)
+
+
+def ngram(self: Feature, n: int = 2) -> Feature:
+    from transmogrifai_tpu_torch.ops.text_advanced import OpNGram
+    return _stage(OpNGram, self, n=n)
+
+
+def count_vectorize(self: Feature, vocab_size: int = 1 << 18,
+                    min_df: float = 1.0, binary: bool = False) -> Feature:
+    from transmogrifai_tpu_torch.ops.text_advanced import OpCountVectorizer
+    return _stage(OpCountVectorizer, self, vocab_size=vocab_size,
+                  min_df=min_df, binary=binary)
+
+
+def word2vec(self: Feature, vector_size: int = 100, window: int = 5,
+             min_count: int = 5, num_iter: int = 1) -> Feature:
+    from transmogrifai_tpu_torch.ops.text_advanced import OpWord2Vec
+    return _stage(OpWord2Vec, self, vector_size=vector_size, window=window,
+                  min_count=min_count, num_iter=num_iter)
+
+
+def lda(self: Feature, k: int = 10, max_iter: int = 20) -> Feature:
+    from transmogrifai_tpu_torch.ops.text_advanced import OpLDA
+    return _stage(OpLDA, self, k=k, max_iter=max_iter)
+
+
 # -- dates (RichDateFeature) --------------------------------------------- #
 
 def to_unit_circle(self: Feature,
@@ -252,6 +375,16 @@ _METHODS = {
     "deindexed": deindexed, "tokenize": tokenize,
     "smart_vectorize": smart_vectorize, "pivot": pivot,
     "to_unit_circle": to_unit_circle, "to_time_period": to_time_period,
+    "text_len": text_len, "is_valid_email": is_valid_email,
+    "to_email_domain": to_email_domain, "to_email_parts": to_email_parts,
+    "is_valid_url": is_valid_url, "to_domain": to_domain,
+    "to_protocol": to_protocol, "is_valid_phone": is_valid_phone,
+    "parse_phone": parse_phone, "is_valid_phone_map": is_valid_phone_map,
+    "detect_mime_types": detect_mime_types,
+    "detect_languages": detect_languages, "detect_name": detect_name,
+    "recognize_entities": recognize_entities,
+    "remove_stop_words": remove_stop_words, "ngram": ngram,
+    "count_vectorize": count_vectorize, "word2vec": word2vec, "lda": lda,
     "alias": alias, "map_values": map_values, "filter_values": filter_values,
     "exists": exists, "replace_with": replace_with, "occurs": occurs,
     "jaccard_similarity": jaccard_similarity,

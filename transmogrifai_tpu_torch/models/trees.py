@@ -1,5 +1,6 @@
-"""Tree ensembles: binning (K4), the ensemble walk (K5) and the class-tree
-walk of softmax boosting (K5-mc), and the fit side of gradient boosting,
+"""Tree ensembles: binning (K4), the ensemble walk (K5), the class-tree
+walk of softmax boosting (K5-mc) and LOCO's walk of feature-group
+ablations (K5-loco), and the fit side of gradient boosting,
 random forests and decision trees: histograms (K1), sibling subtraction
 (K1-sub), split search (K2), routing and leaf values (K3), the boosting
 rounds (binary, regression and softmax), the forest fit and the
@@ -387,6 +388,155 @@ def tree_walk_classes(Xb: torch.Tensor, feat: torch.Tensor,
     if Xb.is_cuda:
         return _tree_walk_classes_cuda(Xb, feat, bins, leaf)
     return tree_walk_classes_plain(Xb, feat, bins, leaf)
+
+
+# --------------------------------------------------------------------------- #
+# K5-loco: the walk of LOCO's feature-group ablations                         #
+# --------------------------------------------------------------------------- #
+
+def loco_groups(masks) -> Tuple[np.ndarray, np.ndarray]:
+    """A (G, d) 0/1 group mask as CSR: (offsets (G + 1,), cols) int32,
+    each group's columns ascending."""
+    m = np.asarray(masks.cpu() if isinstance(masks, torch.Tensor) else masks)
+    g_idx, cols = np.nonzero(m != 0)
+    offsets = np.zeros(m.shape[0] + 1, dtype=np.int64)
+    np.cumsum(np.bincount(g_idx, minlength=m.shape[0]), out=offsets[1:])
+    return offsets.astype(np.int32), cols.astype(np.int32)
+
+
+def _loco_shapes(Xb, Xz, feat, bins, leaf, offsets, cols, classes):
+    """(n_flat, K, depth, width, n_leaves, m, G) of K5-loco's inputs."""
+    _require(Xz.shape == Xb.shape and Xz.dtype == Xb.dtype,
+             f"tree_walk_loco: Xz {tuple(Xz.shape)} {Xz.dtype} must match "
+             f"Xb {tuple(Xb.shape)} {Xb.dtype}")
+    _require(offsets.dim() == 1 and offsets.shape[0] >= 1
+             and cols.dim() == 1,
+             "tree_walk_loco: offsets (G + 1,) and cols must be 1-d")
+    if classes:
+        T_, K, depth, width = _walk_classes_shapes(Xb, feat, bins, leaf)
+        return T_ * K, K, depth, width, leaf.shape[2], 1, \
+            offsets.shape[0] - 1
+    n_trees, depth, width = _walk_shapes(Xb, feat, bins, leaf)
+    return n_trees, 1, depth, width, leaf.shape[1], leaf.shape[2], \
+        offsets.shape[0] - 1
+
+
+def tree_walk_loco_plain(Xb: torch.Tensor, Xz: torch.Tensor,
+                         feat: torch.Tensor, bins: torch.Tensor,
+                         leaf: torch.Tensor, offsets: torch.Tensor,
+                         cols: torch.Tensor,
+                         classes: bool = False) -> torch.Tensor:
+    """(G, n, m) — (G, n, K) with `classes` — f32: for each group g, the
+    walk (`tree_walk_plain`, or `tree_walk_classes_plain`) of
+    `torch.where(mask_g, Xz, Xb)`, the ablation materialized a group at a
+    time."""
+    _loco_shapes(Xb, Xz, feat, bins, leaf, offsets, cols, classes)
+    walk = tree_walk_classes_plain if classes else tree_walk_plain
+    d = Xb.shape[1]
+    off = offsets.tolist()
+    outs = []
+    for g in range(len(off) - 1):
+        mask = torch.zeros(d, dtype=torch.bool, device=Xb.device)
+        mask[cols[off[g]:off[g + 1]].long().to(Xb.device)] = True
+        outs.append(walk(torch.where(mask[None, :], Xz, Xb), feat, bins,
+                         leaf))
+    if not outs:
+        width = leaf.shape[1] if classes else leaf.shape[-1]
+        return torch.zeros((0, Xb.shape[0], width), dtype=torch.float32,
+                           device=Xb.device)
+    return torch.stack(outs)
+
+
+_WALK_LOCO_ARGS = cuda_build.register(
+    "tree_walk", "tree_walk_loco_typed",
+    (ctypes.c_void_p,) * 8 + (ctypes.c_int64,) + (ctypes.c_int,) * 13
+    + (ctypes.c_void_p,))
+
+
+def _tree_walk_loco_cuda(Xb, Xz, feat, bins, leaf, offsets, cols,
+                         classes=False, rows=None) -> torch.Tensor:
+    _check_walk_inputs("tree_walk_loco", Xb, feat, bins, leaf)
+    n_flat, K, depth, width, n_leaves, m, G = _loco_shapes(
+        Xb, Xz, feat, bins, leaf, offsets, cols, classes)
+    for name, t in (("Xz", Xz), ("offsets", offsets), ("cols", cols)):
+        if t.device != Xb.device:
+            raise ValueError(f"tree_walk_loco: Xb on {Xb.device}, {name} "
+                             f"on {t.device}")
+    if offsets.dtype != torch.int32 or cols.dtype != torch.int32:
+        raise ValueError("tree_walk_loco: offsets and cols must be int32")
+    n, d = Xb.shape
+    Xb, Xz, feat, bins, leaf, offsets, cols = (
+        t.contiguous() for t in (Xb, Xz, feat, bins, leaf, offsets, cols))
+    out = torch.zeros((G, n, K * m), dtype=torch.float32, device=Xb.device)
+    if n == 0 or G == 0 or n_flat == 0 or K * m == 0:
+        return out
+    for g0 in range(0, G, _MAX_GRID_YZ):
+        ng = min(_MAX_GRID_YZ, G - g0)
+        err = cuda_build.launch(
+            Xb.get_device(), cuda_build.entry("tree_walk",
+                                              "tree_walk_loco_typed"),
+            Xb.data_ptr(), Xz.data_ptr(), feat.data_ptr(), bins.data_ptr(),
+            leaf.data_ptr(), offsets.data_ptr(), cols.data_ptr(),
+            out[g0].data_ptr(), n, d, n_flat, K, depth, width, n_leaves, m,
+            g0, ng, rows or 0, *_type_bytes(Xb, feat, bins))
+        cuda_build.check("tree_walk_loco_typed", err)
+        _count("tree_walk_loco")
+    return out
+
+
+def tree_walk_loco(Xb: torch.Tensor, Xz: torch.Tensor, feat: torch.Tensor,
+                   bins: torch.Tensor, leaf: torch.Tensor,
+                   offsets: torch.Tensor, cols: torch.Tensor,
+                   classes: bool = False) -> torch.Tensor:
+    """(G, n, m) f32 — (G, n, K) for a softmax ensemble's class tables
+    with `classes` — the walk of every group's ablation: out[g] is
+    `tree_walk` (`tree_walk_classes`) of Xb with the columns
+    cols[offsets[g]:offsets[g + 1]] (ascending) read from Xz, bit for bit.
+    With Xb = bin(X) and Xz = bin(X · 0) that is the walk of bin(X · (1 −
+    m_g)), LOCO's ablation of group g. A CUDA tensor launches the K5-loco
+    kernel (or raises); a CPU tensor takes the plain version."""
+    _check_device(Xb, "tree_walk_loco")
+    if Xb.is_cuda:
+        return _tree_walk_loco_cuda(Xb, Xz, feat, bins, leaf, offsets, cols,
+                                    classes)
+    return tree_walk_loco_plain(Xb, Xz, feat, bins, leaf, offsets, cols,
+                                classes)
+
+
+# --------------------------------------------------------------------------- #
+# K15: one tree as one-hot products                                           #
+# --------------------------------------------------------------------------- #
+
+def predict_tree_dense(tree: Dict[str, torch.Tensor],
+                       Xb: torch.Tensor) -> torch.Tensor:
+    """(n, m) leaf values of one tree (tables `feat` / `bin` (depth,
+    width), `leaf` (2^depth, m)) as one-hot products, the JAX package's
+    `predict_tree_dense` (models/trees.py:367-410) in plain torch: every
+    internal node's selected bin at once, S = Xb · onehot(feat)ᵀ, the
+    decisions D = S > bin, a level-by-level 0/1 path product P routing
+    each row to its leaf, and P · leaf. It computes in f32 where the JAX
+    package multiplies bf16 operands into f32; bin ids and 0/1 products
+    are exact in both, and one weight of 1 selects each row's leaf, so the
+    result is the same bits (and `tree_walk`'s). K5 (`tree_walk`) serves
+    the scoring path; this form is kept for parity."""
+    n, d = Xb.shape
+    depth = tree["feat"].shape[0]
+    feats = torch.cat([tree["feat"][lv][:2 ** lv] for lv in range(depth)]
+                      ) if depth else tree["feat"].new_zeros(0)
+    bins = torch.cat([tree["bin"][lv][:2 ** lv] for lv in range(depth)]
+                     ) if depth else tree["bin"].new_zeros(0)
+    F = torch.nn.functional.one_hot(feats.long(), d).to(torch.float32)
+    S = Xb.to(torch.float32) @ F.T                           # (n, nodes)
+    D = (S > bins[None, :].to(torch.float32)).to(torch.float32)
+    P = torch.ones((n, 1), dtype=torch.float32, device=Xb.device)
+    off = 0
+    for lv in range(depth):
+        w = 2 ** lv
+        Dlv = D[:, off:off + w]
+        # children interleave: node k -> (left 2k, right 2k + 1)
+        P = torch.stack([P * (1 - Dlv), P * Dlv], dim=-1).reshape(n, 2 * w)
+        off += w
+    return P @ tree["leaf"].to(torch.float32)
 
 
 # --------------------------------------------------------------------------- #
@@ -1743,12 +1893,20 @@ def gbt_pred_from_margin(margin: torch.Tensor,
     return regression_pred(margin)
 
 
-def forest_classification_pred(trees: Dict[str, torch.Tensor],
-                               Xb: torch.Tensor) -> Dict[str, torch.Tensor]:
-    probs = predict_forest(trees, Xb)
+def forest_classification_sums(s: torch.Tensor,
+                               n_trees: int) -> Dict[str, torch.Tensor]:
+    """The Prediction dict of a forest's summed class leaves (n, m)."""
+    probs = div_const(s, n_trees)
     probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
     return {"prediction": torch.argmax(probs, -1).to(torch.float32),
             "rawPrediction": probs, "probability": probs}
+
+
+def forest_classification_pred(trees: Dict[str, torch.Tensor],
+                               Xb: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return forest_classification_sums(
+        tree_walk(Xb, trees["feat"], trees["bin"], trees["leaf"]),
+        trees["feat"].shape[0])
 
 
 def forest_regression_pred(trees: Dict[str, torch.Tensor],
@@ -1924,18 +2082,44 @@ class _TreeModelBase(PredictionModel):
     def predict(self, consts: TreeEnsemble, X):
         return self._apply_tables(consts.tables, consts(X))
 
-    def _apply_tables(self, trees, Xb):
+    # the family's walk (K5) and its reduction of the sums to predictions
+    _classes = False
+
+    def _walk(self, trees, Xb):
+        return tree_walk(Xb, trees["feat"], trees["bin"], trees["leaf"])
+
+    def _from_sums(self, trees, s):
         raise NotImplementedError(type(self).__name__)
+
+    def _apply_tables(self, trees, Xb):
+        return self._from_sums(trees, self._walk(trees, Xb))
+
+    def loco_scores(self, X: torch.Tensor, masks) -> Dict[str, torch.Tensor]:
+        """The Prediction dict of every group's ablation X · (1 − m_g),
+        over G·n rows (group-major), for (G, d) 0/1 group masks `masks`:
+        K4 bins X and X · 0 once, K5-loco walks every group's ablation
+        from them (no ablated copy of X is made), and the family's own
+        reduction turns the sums into predictions — the bits of
+        `predict_arrays` on the materialized ablations."""
+        consts = self.device_constants(X.device)
+        trees = consts.tables
+        Xb, Xz = consts(X), consts(X * 0.0)
+        offsets, cols = loco_groups(masks)
+        s = tree_walk_loco(
+            Xb, Xz, trees["feat"], trees["bin"], trees["leaf"],
+            torch.as_tensor(offsets, device=X.device),
+            torch.as_tensor(cols, device=X.device), classes=self._classes)
+        return self._from_sums(trees, s.reshape(-1, s.shape[-1]))
 
 
 class ForestClassificationModel(_TreeModelBase):
-    def _apply_tables(self, trees, Xb):
-        return forest_classification_pred(trees, Xb)
+    def _from_sums(self, trees, s):
+        return forest_classification_sums(s, trees["feat"].shape[0])
 
 
 class ForestRegressionModel(_TreeModelBase):
-    def _apply_tables(self, trees, Xb):
-        return forest_regression_pred(trees, Xb)
+    def _from_sums(self, trees, s):
+        return regression_pred(div_const(s, trees["feat"].shape[0])[:, 0])
 
 
 class GBTClassificationModel(_TreeModelBase):
@@ -1951,9 +2135,9 @@ class GBTClassificationModel(_TreeModelBase):
 
     _objective = "logistic"
 
-    def _apply_tables(self, trees, Xb):
-        margin = predict_gbt_margin(trees, Xb, self.learning_rate)
-        return gbt_pred_from_margin(margin, self._objective)
+    def _from_sums(self, trees, s):
+        return gbt_pred_from_margin(_f32(self.learning_rate) * s[:, 0],
+                                    self._objective)
 
 
 class GBTRegressionModel(GBTClassificationModel):
@@ -1964,9 +2148,15 @@ class GBTMulticlassModel(GBTClassificationModel):
     """Softmax boosting: trees stacked (rounds, classes, ...), scored by
     K5-mc."""
 
-    def _apply_tables(self, trees, Xb):
+    _classes = True
+
+    def _walk(self, trees, Xb):
+        return tree_walk_classes(Xb, trees["feat"], trees["bin"],
+                                 trees["leaf"])
+
+    def _from_sums(self, trees, s):
         return gbt_multiclass_pred_from_margin(
-            predict_gbt_multiclass_margin(trees, Xb, self.learning_rate))
+            _f32(self.learning_rate) * s)
 
 
 # --------------------------------------------------------------------------- #

@@ -11,8 +11,8 @@ each key as its scalar counterpart would, so a map column becomes
 The per-key extraction, pivots and hashing are host work; the device
 fills, takes sin and cos, and concatenates. The fills go through
 `fill_missing` (stages/base.py), which rounds as the JAX package's XLA
-programs do (F11). `PhoneMapVectorizer` needs the phone parser
-(`ops/enrich.py`) and raises (ROADMAP queue 1, item 6b).
+programs do (F11). `PhoneMapVectorizer` validates each key's phones
+with `ops/enrich.py`'s parser, as `PhoneVectorizer` does.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from transmogrifai_tpu_torch.ops.categorical import (
     one_hot_np, pivot_encode_ids, top_k_levels)
 from transmogrifai_tpu_torch.ops.dates import (
     DEFAULT_PERIODS, date_phases, unit_circle)
+from transmogrifai_tpu_torch.ops.enrich import phone_valid_block
 from transmogrifai_tpu_torch.ops.text import TokenHasher, _hash_counts
 from transmogrifai_tpu_torch.stages.base import (
     ConstantArrays, Estimator, FitContext, Transformer, fill_missing)
@@ -587,39 +588,81 @@ class MultiPickListMapVectorizer(TextMapPivotVectorizer):
     in_types = (T.MultiPickListMap, Ellipsis)
 
 
-_PHONE_REFUSAL = (
-    "PhoneMapVectorizer needs the phone parser and validator "
-    "(ops/enrich.py's phone_valid_block), which is not ported yet: "
-    "ROADMAP.md queue 1, item 6b")
-
-
 class PhoneMapModel(Transformer):
-    """PhoneMap → per-key validity vector: raises until ops/enrich.py is
-    ported (ROADMAP queue 1, item 6b)."""
+    """PhoneMap → per key [isValid(, isNull)], the blocks of
+    `PhoneVectorizer` (`ops/enrich.py`'s `phone_valid_block`), so scalar
+    and map phone encodings cannot drift; the device concatenates."""
 
     out_type = T.OPVector
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_PHONE_REFUSAL)
+    def __init__(self, keys_per_feature: Sequence[Sequence[str]],
+                 default_region: str = "US", track_nulls: bool = True,
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.keys_per_feature = [list(k) for k in keys_per_feature]
+        self.default_region = default_region
+        self.track_nulls = track_nulls
+
+    def host_prepare(self, cols):
+        blocks = []
+        for i, c in enumerate(cols):
+            n = len(c.data)
+            key_blocks = []
+            for key in self.keys_per_feature[i]:
+                values = [None if m is None else m.get(key) for m in c.data]
+                key_blocks.append(phone_valid_block(
+                    values, self.default_region, self.track_nulls))
+            blocks.append(np.concatenate(key_blocks, 1) if key_blocks
+                          else np.zeros((n, 0), np.float32))
+        return blocks
+
+    def device_apply(self, enc, dev):
+        return torch.cat(list(enc), dim=1)
+
+    def output_meta(self) -> VectorMetadata:
+        cols: List[VectorColumnMetadata] = []
+        for i, f in enumerate(self.input_features):
+            for key in self.keys_per_feature[i]:
+                cols.append(VectorColumnMetadata(
+                    parent_name=f.name, parent_type=f.ftype.__name__,
+                    grouping=key, indicator_value="IsValid"))
+                if self.track_nulls:
+                    cols.append(VectorColumnMetadata(
+                        parent_name=f.name, parent_type=f.ftype.__name__,
+                        grouping=key, indicator_value=NULL_INDICATOR))
+        return VectorMetadata(self.output_name(), tuple(cols)).with_indices()
+
+    def get_params(self):
+        return {"keys_per_feature": self.keys_per_feature,
+                "default_region": self.default_region,
+                "track_nulls": self.track_nulls}
 
 
 class PhoneMapVectorizer(Estimator):
     """PhoneMap → per-key validity vector (the transmogrify default for
-    PhoneMap): raises until ops/enrich.py is ported (ROADMAP queue 1,
-    item 6b)."""
+    PhoneMap, Transmogrifier.scala:185-187)."""
 
     in_types = (T.PhoneMap, Ellipsis)
     out_type = T.OPVector
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_PHONE_REFUSAL)
+    def __init__(self, default_region: str = "US", track_nulls: bool = True,
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid, default_region=default_region,
+                         track_nulls=track_nulls)
+        self.default_region = default_region
+        self.track_nulls = track_nulls
+
+    def fit_model(self, cols: Sequence[Column],
+                  ctx: FitContext) -> Transformer:
+        return PhoneMapModel([_discover_keys(c) for c in cols],
+                             self.default_region, self.track_nulls)
 
 
 def map_vectorizers(features: Sequence, defaults) -> List:
     """Dispatch map-typed features to their vectorizers (transmogrify's
-    map group, the JAX package's order; Transmogrifier.scala:140-273).
-    PhoneMap features raise (ROADMAP queue 1, item 6b)."""
-    numeric, pivot, smart, multi, geo, date = [], [], [], [], [], []
+    map group, the JAX package's order; Transmogrifier.scala:140-273)."""
+    numeric, pivot, smart, multi, phone, geo, date = ([], [], [], [], [],
+                                                      [], [])
     for f in features:
         ft = f.ftype
         if issubclass(ft, T.Prediction):
@@ -634,7 +677,7 @@ def map_vectorizers(features: Sequence, defaults) -> List:
         elif issubclass(ft, (T.RealMap, T.IntegralMap, T.BinaryMap)):
             numeric.append(f)
         elif issubclass(ft, T.PhoneMap):
-            raise NotImplementedError(f"{f.name}: {_PHONE_REFUSAL}")
+            phone.append(f)
         elif issubclass(ft, T.MultiPickListMap):
             multi.append(f)
         elif issubclass(ft, (T.TextAreaMap,)) or ft in (T.TextMap,):
@@ -663,6 +706,9 @@ def map_vectorizers(features: Sequence, defaults) -> List:
         out.append(MultiPickListMapVectorizer(
             top_k=defaults.top_k, min_support=defaults.min_support,
             track_nulls=defaults.track_nulls).set_input(*multi).get_output())
+    if phone:
+        out.append(PhoneMapVectorizer(
+            track_nulls=defaults.track_nulls).set_input(*phone).get_output())
     if geo:
         out.append(GeolocationMapVectorizer(
             track_nulls=defaults.track_nulls).set_input(*geo).get_output())

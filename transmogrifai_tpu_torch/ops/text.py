@@ -26,6 +26,9 @@ from transmogrifai_tpu_torch.ops.categorical import (
     one_hot_np, pivot_encode_ids, top_k_levels)
 from transmogrifai_tpu_torch.stages.base import (
     Estimator, FitContext, HostTransformer, Transformer)
+from transmogrifai_tpu_torch.utils.language import (
+    detect_language, stopwords_for)
+from transmogrifai_tpu_torch.utils.stemmers import stem_tokens
 
 # ---------------------------------------------------------------------------
 # murmur3-32 (pure python, memoized) — HashAlgorithm.MurMur3 parity
@@ -217,21 +220,17 @@ def _hash_counts(values, hasher: TokenHasher, binary: bool = False,
     return out
 
 
-_LANGUAGE_REFUSAL = (
-    "TextTokenizer's language= and auto_detect_language= need the "
-    "language detector, stopwords and stemmers (utils/language.py, "
-    "utils/stemmers.py), which are not ported yet: ROADMAP.md queue 1, "
-    "item 6b")
-
-
 class TextTokenizer(HostTransformer):
     """Text → TextList of analyzer tokens (a host stage,
     TextTokenizer.scala).
 
     Its parameters are the JAX package's. With neither `language` nor
     `auto_detect_language` set (the default) tokens pass through
-    unfiltered and unstemmed, as there; the language modes raise (ROADMAP
-    queue 1, item 6b)."""
+    unfiltered and unstemmed. A resolved language (explicit `language=`,
+    or the detector's verdict (`utils/language.py`) at or above
+    `auto_detect_threshold`, else `default_language`) drops that
+    language's stopwords and, with `stem` and `to_lowercase`, stems the
+    rest (`utils/stemmers.py`), row by row as the JAX package does."""
 
     in_types = (T.Text,)
     out_type = T.TextList
@@ -242,8 +241,6 @@ class TextTokenizer(HostTransformer):
                  auto_detect_threshold: float = 0.99,
                  default_language: str = "en", stem: bool = True,
                  uid: Optional[str] = None):
-        if language or auto_detect_language:
-            raise NotImplementedError(_LANGUAGE_REFUSAL)
         super().__init__(uid=uid, min_token_length=min_token_length,
                          to_lowercase=to_lowercase, language=language,
                          auto_detect_language=auto_detect_language,
@@ -251,10 +248,42 @@ class TextTokenizer(HostTransformer):
                          default_language=default_language, stem=stem)
         self.min_token_length = min_token_length
         self.to_lowercase = to_lowercase
+        self.language = language
+        self.auto_detect_language = auto_detect_language
+        self.auto_detect_threshold = auto_detect_threshold
+        self.default_language = default_language
+        self.stem = stem
+
+    def language_of(self, text: Optional[str]) -> str:
+        """A row's language: explicit, else detected, else the default."""
+        if self.language:
+            return self.language
+        if self.auto_detect_language and text:
+            d = detect_language(text)
+            if d:
+                lang, conf = next(iter(d.items()))
+                if conf >= self.auto_detect_threshold:
+                    return lang
+        return self.default_language
 
     def transform(self, cols: Sequence[Column], device=None) -> Column:
-        return Column(self.output_ftype(), tokenize_batch(
-            cols[0].data, self.min_token_length, self.to_lowercase))
+        data = cols[0].data
+        out = tokenize_batch(data, self.min_token_length, self.to_lowercase)
+        if self.language or self.auto_detect_language:
+            for i in range(len(out)):
+                if out[i] is None:
+                    continue
+                lang = self.language or self.language_of(data[i])
+                stops = stopwords_for(lang)
+                kept = out[i]
+                if stops:
+                    kept = [t for t in kept if t.lower() not in stops]
+                # the stemmers take lowercase tokens: without
+                # to_lowercase the JAX package skips stemming
+                if self.stem and self.to_lowercase and kept:
+                    kept = stem_tokens(kept, lang)
+                out[i] = kept or None
+        return Column(self.output_ftype(), out)
 
 
 class HashingVectorizer(Transformer):

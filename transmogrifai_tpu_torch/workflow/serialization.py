@@ -229,6 +229,8 @@ def _restore_arrays(value: Any, npz) -> Any:
 def _ensure_stage_library() -> None:
     """Import every ported stage module so the registry knows them."""
     import transmogrifai_tpu_torch.automl.sanity_checker  # noqa: F401
+    import transmogrifai_tpu_torch.insights.corr  # noqa: F401
+    import transmogrifai_tpu_torch.insights.loco  # noqa: F401
     import transmogrifai_tpu_torch.models.glm  # noqa: F401
     import transmogrifai_tpu_torch.models.isotonic  # noqa: F401
     import transmogrifai_tpu_torch.models.linear  # noqa: F401
@@ -242,6 +244,7 @@ def _ensure_stage_library() -> None:
     import transmogrifai_tpu_torch.ops.combiner  # noqa: F401
     import transmogrifai_tpu_torch.ops.dates  # noqa: F401
     import transmogrifai_tpu_torch.ops.drop_indices  # noqa: F401
+    import transmogrifai_tpu_torch.ops.enrich  # noqa: F401
     import transmogrifai_tpu_torch.ops.geo  # noqa: F401
     import transmogrifai_tpu_torch.ops.indexers  # noqa: F401
     import transmogrifai_tpu_torch.ops.maps  # noqa: F401
@@ -250,6 +253,7 @@ def _ensure_stage_library() -> None:
     import transmogrifai_tpu_torch.ops.rowops  # noqa: F401
     import transmogrifai_tpu_torch.ops.scalers  # noqa: F401
     import transmogrifai_tpu_torch.ops.text  # noqa: F401
+    import transmogrifai_tpu_torch.ops.text_advanced  # noqa: F401
     import transmogrifai_tpu_torch.selector.combiner  # noqa: F401
     import transmogrifai_tpu_torch.selector.model_selector  # noqa: F401
 
