@@ -116,7 +116,8 @@ any failure exits non-zero:
    must be off. The launch counters are set to 0 before the train and read
    after the reload's scores: every kernel must have launched. The sweep
    is timed per family and per static group (the RF depth buckets), the
-   refit apart;
+   refit apart (phase 29 (a) trains it again with its wall, so
+   `default_train_walls` is left to `kernel_ab.py`);
 13. the evaluation kernels (csrc/eval_metrics.cu): K8-mc
    `confusion_counts` and K8-reg `regression_moments` against their plain
    versions at the Iris and Boston sweeps' shapes (8 pairs of 135 / 300
@@ -392,6 +393,26 @@ any failure exits non-zero:
    `load_model(device="cuda")`, scored by `score_compiled` eagerly and
    with CUDA graphs (equal), and `ScoringService` requests of 1, 3, 17 and
    64 rows, each answer equal to the batch's rows; K4 and K5 launched.
+29. resumable and distributed sweeps (`resumable_sweep_phase`), each part
+   with the phase 12 train's injected forest draws: (a) phase 12's train
+   again with a `sweep_checkpoint` dir, its configs, fold-metric matrix
+   and winner the same bits as phase 12's; (b) the same train killed by a
+   `FaultPlan` at block 2 (``sweep.run_block``), then resumed from the
+   journal: the same bits as (a), the journal holding block 1's 8 LR
+   configs after the kill and the resume running only the blocks not
+   journaled (4 of 5); (c) the selector's sweep inputs through
+   `GridScheduler` with one lane on cuda:0, one `SweepJob` a family: the
+   same matrix as (a); (d) a workflow-CV train of LR + XGB on a one-card
+   mesh (K11's `_run_block`, one lane) against the same train without a
+   mesh: the same bits; (e) two pod host processes (`pod_host`) on the
+   card with one temp store and checkpoint dir: each
+   reports (a)'s matrix and their block counts sum to the plan; (f) the
+   XGB block through the scheduler again with every launch of K4, K1, K2,
+   K3 and K8 held against its plain version (`shadow_kernels`), the same
+   bits as (a)'s XGB rows. The launch counters are set to 0 before (a)
+   and read after (e): K1, K2, K3, K4, K5 and K8 launched. Each part's
+   wall beside the card's name and power limit, and the scheduler's
+   per-lane report.
 """
 
 import contextlib
@@ -3420,8 +3441,8 @@ def quant_serving(port, pt, pc, device="cuda"):
 # batches timed a (model, wire, dispatch, bucket) in `serving_timing`, and
 # batches split into host and device-segment time: 36 such cells share
 # the script's 600 s target with every other phase
-SERVE_TIMED_BATCHES = 20
-SERVE_SPLIT_BATCHES = 10
+SERVE_TIMED_BATCHES = 10
+SERVE_SPLIT_BATCHES = 5
 
 
 def serving_timing(port, pc, served):
@@ -7877,6 +7898,278 @@ def titanic_loco_check(ns, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# 29. resumable and distributed sweeps                                        #
+# --------------------------------------------------------------------------- #
+
+# the kernels phase 29's trains must launch (K1, K2, K3, K4, K5, K8)
+SWEEP_KERNELS = ("histograms", "split_search", "split_search_live",
+                 "route_level", "leaf_values", "bin_features", "tree_walk",
+                 "binned_aupr")
+# the selector's layer in the README quickstart (its FitContext seed salt)
+QUICKSTART_SELECTOR_LAYER = 4
+POD_TTL_S = 5.0
+# a pod host's process: python -c POD_HOST_MAIN <this dir> DIR HOST DEVICE
+POD_HOST_MAIN = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                 "import chip_smoke; "
+                 "sys.exit(chip_smoke.pod_host(sys.argv[2:5]))")
+
+
+def summary_of(model):
+    return next(s for s in model.fitted.values() if hasattr(
+        getattr(s, "summary", None), "validation_results")).summary
+
+
+def sweep_outcome(summ) -> dict:
+    """A selector summary's configs, fold-metric matrix and winner."""
+    return {"configs": [(r.model, r.grid) for r in summ.validation_results],
+            "matrix": [list(r.fold_metrics)
+                       for r in summ.validation_results],
+            "winner": (summ.best_model, summ.best_grid)}
+
+
+def quickstart_train(port, pt, ds, draws, device="cuda", params=None,
+                     models=None, mesh=None, workflow_cv=False):
+    """The README quickstart trained as phase 12 trains it (the JAX
+    package's forest draws injected), with optional workflow parameters,
+    models, mesh and workflow CV: (model, selector feature, label)."""
+    pred, label = readme_quickstart(port, ds, models=models)
+    wf = port.Workflow().set_result_features(pred, label)
+    if params is not None:
+        wf.set_parameters(params)
+    if workflow_cv:
+        wf.with_workflow_cv()
+    with pt.injected_forest_draws(draws):
+        model = wf.set_input_dataset(ds).train(device=device, mesh=mesh)
+    sync(device)
+    return model, pred, label
+
+
+def selector_inputs(model, pred, device="cuda"):
+    """The quickstart selector's sweep inputs (X, y, folds, evaluator,
+    context) as its fit prepared them, from the trained model's columns."""
+    from transmogrifai_tpu_torch.stages.base import FitContext
+    sel = pred.origin_stage
+    cols = [model.train_columns[f.uid] for f in sel.input_features]
+    ctx = FitContext(n_rows=len(cols[0].data["value"]),
+                     seed=42 * 1000003 + QUICKSTART_SELECTOR_LAYER,
+                     device=device)
+    X, _, _, y, _, _, _, folds = sel.sweep_inputs(cols, ctx)
+    return sel, X, y, folds, ctx
+
+
+def scheduled_matrix(got) -> list:
+    """The scheduler's per-family matrices in the summary's order."""
+    rows = []
+    for out in got:
+        if isinstance(out, BaseException):
+            raise AssertionError(f"a scheduled family failed: {out!r}")
+        rows += [list(r) for r in out]
+    return rows
+
+
+def pod_host(args) -> int:
+    """One pod host of phase 29 (e), a child process (`POD_HOST_MAIN`
+    with DIR HOST DEVICE): the quickstart's families over DIR's saved
+    sweep inputs through a `HostScheduler` on the card, sharing DIR's
+    store and journals with the other host; prints its matrix and the
+    blocks it ran as one JSON line."""
+    from transmogrifai_tpu_torch.evaluators.evaluators import (
+        BinaryClassificationEvaluator)
+    from transmogrifai_tpu_torch.models import trees as pt
+    from transmogrifai_tpu_torch.parallel.scheduler import (
+        HostScheduler, SweepJob)
+    from transmogrifai_tpu_torch.runtime.journal import ShardedSweepJournal
+    from transmogrifai_tpu_torch.selector.model_selector import (
+        _default_binary_models)
+    from transmogrifai_tpu_torch.stages.base import FitContext
+    root, host, device = args
+    with np.load(os.path.join(root, "inputs.npz")) as z:
+        X = torch.from_numpy(z["X"]).to(device)
+        y = torch.from_numpy(z["y"]).to(device)
+        folds = [(z["train"][i], z["val"][i])
+                 for i in range(z["train"].shape[0])]
+        draws = (z["boot"], z["mask"]) if "boot" in z.files else None
+        seed = int(z["seed"])
+    jobs = [SweepJob(index=i, est=est, grids=grids, name=type(est).__name__,
+                     journal=ShardedSweepJournal(
+                         os.path.join(root, "ckpt", f"f{i}.journal"),
+                         meta={"sig": str(i)}, fsync=False))
+            for i, (est, grids) in enumerate(_default_binary_models())]
+    sched = HostScheduler(os.path.join(root, "store"), host,
+                          sweep_id="quickstart", device=device,
+                          lease_ttl_s=POD_TTL_S)
+    t0 = time.perf_counter()
+    with pt.injected_forest_draws(draws):
+        got = sched.run(jobs, X, y, folds,
+                        BinaryClassificationEvaluator(metric="AuPR"),
+                        FitContext(n_rows=len(y), seed=seed, device=device))
+    print(json.dumps({"host": host, "matrix": scheduled_matrix(got),
+                      "blocks": sum(w.blocks for w in sched.report.workers),
+                      "wall_s": time.perf_counter() - t0,
+                      "pod": sched.report.pod}))
+    return 0
+
+
+def resumable_sweep_phase(port, pt, ds, draws, phase12_model,
+                          card: str, device="cuda") -> dict:
+    """Phase 29: (a) phase 12's train with a sweep checkpoint dir, (b) the
+    same killed at block 2 and resumed, (c) the sweep through
+    `GridScheduler` on one lane, (d) a workflow-CV train (LR + XGB) on a
+    one-card mesh against the same without a mesh, (e) a pod of two host
+    processes on the card, (f) one scheduled block with every launch held
+    against its plain version. Every part's matrix and winner equal (a)'s
+    (or, for (d), its own unsharded train's) bit for bit."""
+    import tempfile
+
+    from transmogrifai_tpu_torch.parallel.mesh import make_mesh
+    from transmogrifai_tpu_torch.parallel.scheduler import (
+        GridScheduler, SweepJob)
+    from transmogrifai_tpu_torch.parallel.sweep import static_signature
+    from transmogrifai_tpu_torch.runtime.faults import (
+        SITE_RUN_BLOCK, FaultPlan, FaultSpec, InjectedKill)
+    from transmogrifai_tpu_torch.selector.model_selector import (
+        _default_binary_models)
+    root = tempfile.mkdtemp(prefix="port_sweeps_")
+    walls, checks = {}, {}
+    want = sweep_outcome(summary_of(phase12_model))
+    pt.reset_launches()
+
+    def ckpt_params(name):
+        return {"sweep_checkpoint": {
+            "checkpoint_dir": os.path.join(root, name), "fsync": False}}
+
+    # (a) checkpointed train, held to phase 12's
+    t0 = time.perf_counter()
+    model_a, pred, _ = quickstart_train(port, pt, ds, draws, device,
+                                        params=ckpt_params("a"))
+    walls["a_checkpointed_train"] = time.perf_counter() - t0
+    got_a = sweep_outcome(summary_of(model_a))
+    checks["a_equals_phase12"] = got_a == want
+
+    # (b) killed at block 2, then resumed from the journal
+    t0 = time.perf_counter()
+    killed = False
+    with FaultPlan([FaultSpec(SITE_RUN_BLOCK, at=2, kind="kill")]).active():
+        try:
+            quickstart_train(port, pt, ds, draws, device,
+                             params=ckpt_params("b"))
+        except InjectedKill:
+            killed = True
+    journaled = 0
+    for name in os.listdir(os.path.join(root, "b")):
+        if name.endswith(".journal"):
+            with open(os.path.join(root, "b", name)) as fh:
+                journaled += len(fh.readlines()) - 1
+    counter = FaultPlan([])
+    with counter.active():
+        model_b, _, _ = quickstart_train(port, pt, ds, draws, device,
+                                         params=ckpt_params("b"))
+    walls["b_kill_and_resume"] = time.perf_counter() - t0
+    n_blocks = sum(len({static_signature(e, g) for g in grids})
+                   for e, grids in _default_binary_models())
+    checks["b_killed"] = killed
+    checks["b_journal_holds_block_1"] = journaled == 8  # LR's one block
+    checks["b_resume_reran_only_lost_blocks"] = \
+        counter.count(SITE_RUN_BLOCK) == n_blocks - 1
+    checks["b_equals_a"] = sweep_outcome(summary_of(model_b)) == got_a
+
+    # (c) the same sweep through the scheduler, one lane on cuda:0
+    sel, X, y, folds, ctx = selector_inputs(model_a, pred, device)
+    jobs = [SweepJob(index=i, est=est, grids=grids, name=type(est).__name__)
+            for i, (est, grids) in enumerate(sel.models)]
+    t0 = time.perf_counter()
+    sched = GridScheduler(device=device)
+    with pt.injected_forest_draws(draws):
+        got_c = sched.run(jobs, X, y, folds, sel.evaluator, ctx)
+    sync(device)
+    walls["c_scheduled_sweep"] = time.perf_counter() - t0
+    checks["c_equals_a"] = scheduled_matrix(got_c) == got_a["matrix"]
+    lanes = sched.report.to_json()
+
+    # (d) workflow CV on a one-card mesh (K11's _run_block) vs no mesh
+    lr_xgb = [m for m in _default_binary_models()
+              if type(m[0]).__name__ != "OpRandomForestClassifier"]
+    t0 = time.perf_counter()
+    plain_d, _, _ = quickstart_train(port, pt, ds, draws, device,
+                                     models=lr_xgb, workflow_cv=True)
+    walls["d_workflow_cv_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_d, _, _ = quickstart_train(port, pt, ds, draws, device,
+                                    models=lr_xgb, workflow_cv=True,
+                                    mesh=make_mesh(1, device=device))
+    walls["d_workflow_cv_train_on_mesh"] = time.perf_counter() - t0
+    checks["d_mesh_equals_plain"] = (sweep_outcome(summary_of(mesh_d))
+                                     == sweep_outcome(summary_of(plain_d)))
+    checks["d_took_run_block"] = any(
+        k.endswith("@lane0") for k in summary_of(mesh_d).timings["groups"])
+
+    # (e) a pod of two host processes on the card, one shared store
+    np.savez(os.path.join(root, "inputs.npz"), X=X.cpu().numpy(),
+             y=y.cpu().numpy(), train=np.stack([t for t, _ in folds]),
+             val=np.stack([v for _, v in folds]), seed=ctx.seed,
+             **({} if draws is None else {"boot": draws[0],
+                                          "mask": draws[1]}))
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()  # the hosts share the card with us
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", POD_HOST_MAIN, HERE, root, h, str(device)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for h in ("h0", "h1")]
+    hosts = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"pod host failed: {err.decode()[-2000:]}")
+            hosts.append(json.loads(out.decode().strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    walls["e_pod_of_two_hosts"] = time.perf_counter() - t0
+    checks["e_hosts_equal_a"] = all(h["matrix"] == got_a["matrix"]
+                                    for h in hosts)
+    checks["e_blocks_sum_to_plan"] = sum(h["blocks"] for h in hosts) == \
+        n_blocks
+
+    launches = {k: pt.LAUNCHES[k] for k in SWEEP_KERNELS}
+    checks["kernels_launched"] = all(v >= 1 for v in launches.values())
+
+    # (f) one scheduled block (XGB's) with every launch shadowed
+    xgb = [j for j in jobs if j.name == "OpXGBoostClassifier"]
+    for j in xgb:
+        j.index = 0
+    pt.reset_launches()
+    t0 = time.perf_counter()
+    with shadow_kernels() as rec:
+        got_f = GridScheduler(device=device).run(xgb, X, y, folds,
+                                                 sel.evaluator, ctx)
+    sync(device)
+    walls["f_shadowed_block"] = time.perf_counter() - t0
+    xgb_rows = [row for (m, _), row in zip(got_a["configs"],
+                                           got_a["matrix"])
+                if m == "OpXGBoostClassifier"]
+    witness = judge_structural_witness(
+        rec, dict(pt.LAUNCHES), xgb_rows, scheduled_matrix(got_f))
+    checks["f_witness"] = witness["ok"]
+    record = {"phase": "resumable_sweeps", "card": card,
+              "walls_s": walls, "wall_s": sum(walls.values()),
+              "checks": checks, "launches_main_path": launches,
+              "lanes": lanes, "pod_hosts": [
+                  {k: h[k] for k in ("host", "blocks", "wall_s", "pod")}
+                  for h in hosts],
+              "resume": {"journaled_configs_before": journaled,
+                         "blocks_rerun": counter.count(SITE_RUN_BLOCK),
+                         "blocks": n_blocks},
+              "witness": witness, "ok": all(checks.values())}
+    emit(record)
+    if not record["ok"]:
+        raise AssertionError(f"phase 29 failed: {checks}")
+    return record
+
+
 def missing_parts() -> list:
     """What this run lacks before it can start: a CUDA device, and the
     port's package beside this script (a copy of `chip_smoke.py` alone in
@@ -8042,7 +8335,6 @@ def main() -> int:
     default_model, default_ds, default_rec, default_draws = \
         default_train_path(port, pt)
     train_launches = default_rec["launches_main_path"]
-    default_train_walls(port, pt, default_ds, default_draws, default_rec)
 
     # 13. the evaluation kernels, and K1/K1-sub/K2/K3 at m = 3 ------------ #
     eval_cases = eval_kernels(pdm, rng, dev)
@@ -8160,6 +8452,10 @@ def main() -> int:
     emit({"phase": "enrichment", "walls_s": enrich_walls,
           "k5_loco_timing": k5l, "wall_s": time.perf_counter() - t0,
           "ok": True})
+
+    # 29. resumable and distributed sweeps ---------------------------- #
+    resumable_sweep_phase(port, pt, default_ds, default_draws,
+                          default_model, card)
 
     # 10. the kernels line, the card, the result --------------------------- #
     main_n = timing[891]

@@ -303,13 +303,16 @@ def test_a_failed_upload_wakes_the_workers_waiting_on_the_ring():
 
 
 @pytest.mark.parametrize("arg", [dict(cache="readwrite"), dict(sharding=1),
-                                 dict(retry=object())])
+                                 dict(retry="transient")])
 @pytest.mark.parametrize("builder", ["matrix", "binned", "dual"])
 def test_builders_refuse_what_is_not_ported(stores, built, arg, builder,
                                             tmp_path, monkeypatch):
-    """`sharding=` and `retry=` raise naming their ROADMAP items; `cache=`
-    is ported (tests/test_torch_feature_cache.py): a readwrite build
-    misses, writes its artifact and the next build hits it."""
+    """`sharding=` raises naming its ROADMAP item (queue 1, item 9b);
+    `cache=` is ported (tests/test_torch_feature_cache.py): a readwrite
+    build misses, writes its artifact and the next build hits it; and
+    `retry=` is ported: chunk reads failing transiently at the
+    ``ingest.read_chunk`` fault point retry to the fault-free build's
+    bits, the retries counted in the stats."""
     _, ps = stores
     fn = {"matrix": lambda **kw: pbd.device_matrix(ps, **kw),
           "binned": lambda **kw: pbd.device_binned(ps, built["edges"], **kw),
@@ -323,8 +326,24 @@ def test_builders_refuse_what_is_not_ported(stores, built, arg, builder,
         assert [g[-1].cache for g in got] == ["miss", "hit"]
         for a, b in zip(got[0][:-1], got[1][:-1]):
             assert torch.equal(a, b)
+    elif "retry" in arg:
+        from transmogrifai_tpu_torch.runtime.faults import (
+            SITE_READ_CHUNK, FaultPlan, FaultSpec)
+        from transmogrifai_tpu_torch.runtime.retry import RetryPolicy
+        want = fn(device="cpu", chunk_rows=CHUNK, return_stats=True,
+                  cache="off")
+        plan = FaultPlan([FaultSpec(SITE_READ_CHUNK, at=2, times=2,
+                                    transient=True)])
+        with plan.active():
+            got = fn(device="cpu", chunk_rows=CHUNK, return_stats=True,
+                     cache="off", retry=RetryPolicy(max_attempts=3,
+                                                    base_delay_s=0.0))
+        assert got[-1].retries == 2 and want[-1].retries == 0
+        for a, b in zip(want[:-1], got[:-1]):
+            assert torch.equal(a, b)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1, item 9b"):
             fn(device="cpu", **arg)
     fn(device="cpu", chunk_rows=CHUNK, cache="off")  # "off" is no cache
 

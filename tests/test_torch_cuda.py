@@ -2221,3 +2221,65 @@ def test_warm_gbt_tables_on_the_card_equal_the_cpu(cuda):
     assert np.abs(got["cuda"].trees["leaf"]
                   - got["cpu"].trees["leaf"]).max() <= 1e-5
     assert got["cuda"].trees["feat"].shape[0] == 10
+
+
+def _sweep_case(cuda, seed=9, n=802, d=64):
+    from transmogrifai_tpu_torch.evaluators.evaluators import (
+        BinaryClassificationEvaluator)
+    from transmogrifai_tpu_torch.selector.validators import OpCrossValidation
+    from transmogrifai_tpu_torch.stages.base import FitContext
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-X[:, 0] + X[:, 1]))
+         ).astype(np.float32)
+    folds = OpCrossValidation(3, seed=42).splits(y)
+    return (torch.from_numpy(X).to(cuda), torch.from_numpy(y).to(cuda),
+            folds, BinaryClassificationEvaluator(metric="AuPR"),
+            FitContext(n_rows=n, seed=42, device=cuda))
+
+
+@pytest.mark.parametrize("family", [0, 1, 2])
+def test_default_families_are_batching_invariant_on_the_card(cuda, family):
+    """The quickstart's LR, RF and XGB families on the card: the whole
+    grid, its halves and its single configs give every (config, fold)
+    pair the same bits (cuBLAS, K1–K5 and K8 at every batch count), the
+    property resume, steals, pod claims and OOM halving lean on."""
+    from transmogrifai_tpu_torch.parallel.sweep import run_sweep
+    from transmogrifai_tpu_torch.selector.model_selector import (
+        _default_binary_models)
+    est, grids = _default_binary_models()[family]
+    if family == 1:  # the forest: one config of each depth bucket and two
+        grids = [grids[0], grids[1], grids[8], grids[17]]
+    X, y, folds, ev, _ = _sweep_case(cuda)
+
+    def run(gs):
+        from transmogrifai_tpu_torch.stages.base import FitContext
+        return run_sweep(est, gs, X, y, folds, ev,
+                         FitContext(n_rows=len(y), seed=42, device=cuda))
+
+    full = run(grids)
+    half = len(grids) // 2
+    assert run(grids[:half]) + run(grids[half:]) == full
+    assert [run([g])[0] for g in grids] == full
+
+
+def test_scheduler_and_run_block_lanes_on_the_card(cuda):
+    """One lane on the card: the scheduler (its lane's own stream) and
+    K11's `_run_block` give the unscheduled sweep's bits."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_journal import small_models
+    from transmogrifai_tpu_torch.parallel.mesh import (
+        make_mesh, sweep_sharding)
+    from transmogrifai_tpu_torch.parallel.scheduler import (
+        GridScheduler, SweepJob)
+    from transmogrifai_tpu_torch.parallel.sweep import run_sweep
+    X, y, folds, ev, ctx = _sweep_case(cuda)
+    models = small_models()
+    want = [run_sweep(e, g, X, y, folds, ev, ctx) for e, g in models]
+    jobs = [SweepJob(index=i, est=e, grids=g, name=type(e).__name__)
+            for i, (e, g) in enumerate(models)]
+    assert GridScheduler(mesh=make_mesh()).run(
+        jobs, X, y, folds, ev, ctx) == want
+    sharding = sweep_sharding(make_mesh(1))
+    assert [run_sweep(e, g, X, y, folds, ev, ctx, sharding=sharding)
+            for e, g in models] == want

@@ -93,3 +93,36 @@ def test_k5_loco_entry_point_is_held_to_its_c_signature():
     assert got == want
     assert list(cuda_build.ARGTYPES[("tree_walk",
                                      "tree_walk_loco_typed")]) == want
+
+
+_DEVICE_ENTRIES = {
+    "make_mesh": lambda m, tmp, **kw: m.make_mesh(**kw),
+    "make_multislice_mesh": lambda m, tmp, **kw: m.make_multislice_mesh(
+        1, **kw),
+    "MeshParams.build": lambda m, tmp, **kw: __import__(
+        "transmogrifai_tpu_torch.workflow.params",
+        fromlist=["MeshParams"]).MeshParams().build(**kw),
+    "GridScheduler": lambda m, tmp, **kw: __import__(
+        "transmogrifai_tpu_torch.parallel.scheduler",
+        fromlist=["GridScheduler"]).GridScheduler(**kw),
+    "HostScheduler": lambda m, tmp, **kw: __import__(
+        "transmogrifai_tpu_torch.parallel.scheduler",
+        fromlist=["HostScheduler"]).HostScheduler(str(tmp), "h0", **kw),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_DEVICE_ENTRIES))
+def test_mesh_and_scheduler_entry_points_default_to_the_card(entry,
+                                                             tmp_path):
+    """The mesh and scheduler entry points run on the card unless the
+    caller passes device="cpu": the default raises without CUDA, and the
+    CPU form builds one lane on the CPU."""
+    import torch
+    from transmogrifai_tpu_torch.parallel import mesh
+    fn = _DEVICE_ENTRIES[entry]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(mesh, tmp_path)
+    got = fn(mesh, tmp_path, device="cpu")
+    lanes = got.lanes() if hasattr(got, "lanes") else got._lanes
+    assert [str(d) for d in lanes] == ["cpu"]

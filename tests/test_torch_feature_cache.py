@@ -32,7 +32,7 @@ quantized wire, resident reuse and policy threading. Left out:
 `test_opparams_roundtrip` and `test_serving_config_installs_default` (the
 policy is not threaded through `OpParams` and `ServingConfig` yet,
 ROADMAP queue 1 items 4 and 10), `test_sharding_change_misses`
-(`sharding=` is refused, item 9) and the goodput report (`obs/`, item
+(`sharding=` is refused, item 9b) and the goodput report (`obs/`, item
 10).
 
 Regenerate the fixture digests (CPU, a few seconds) with:

@@ -264,9 +264,14 @@ def test_model_evaluate_equals_the_runs_metrics(both_runs):
 
 @pytest.mark.parametrize("case,item", [
     ("streaming-score", "item 10"), ("serve", "item 10"),
-    ("mesh", "item 9"), ("sweep_checkpoint", "item 7"),
+    ("mesh", "item 9b"), ("sweep_checkpoint", "item 7"),
     ("continual", "item 10"), ("perf_model", "item 10")])
-def test_refused_runs_and_parameters_name_their_items(case, item):
+def test_refused_runs_and_parameters_name_their_items(case, item,
+                                                      tmp_path):
+    """Run types and parameter blocks the port has not ported raise,
+    naming their ROADMAP items; a mesh is refused only for a data axis
+    wider than 1 (item 9b), and `sweep_checkpoint` (item 7) is ported:
+    the train runs and journals its sweep."""
     ns = app_ns("port")
     runner, survived, pred = chip_smoke.titanic_app_runner(
         ns, lr_models(ns), age_group=registered_age_group(ns),
@@ -275,11 +280,16 @@ def test_refused_runs_and_parameters_name_their_items(case, item):
     if case in ("streaming-score", "serve"):
         run_type, params = case, P()
     else:
-        block = {"mesh": {"sweep": 2},
-                 "sweep_checkpoint": {"checkpoint_dir": "x"},
+        block = {"mesh": {"n_devices": 2, "sweep": 1},
+                 "sweep_checkpoint": {"checkpoint_dir": str(tmp_path),
+                                      "fsync": False},
                  "continual": {"window_rows": 512},
                  "perf_model": {"min_rows": 4}}[case]
         run_type, params = "train", P.from_json({case: block})
+    if case == "sweep_checkpoint":
+        runner.run(run_type, params)
+        assert any(n.endswith(".journal") for n in os.listdir(tmp_path))
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1, {item}"):
         runner.run(run_type, params)

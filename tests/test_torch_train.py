@@ -947,7 +947,7 @@ def _unported_case(case):
         return transmogrify([FeatureGeneratorStage(
             name="who", ftype=PT.Email).get_output()])
     elif case == "checkpoint":
-        BinaryClassificationModelSelector.with_cross_validation(
+        return BinaryClassificationModelSelector.with_cross_validation(
             models=[(pt.OpXGBoostClassifier(), GRID)], checkpoint_dir="x")
     elif case == "phone_map":
         return transmogrify([FeatureGeneratorStage(
@@ -958,14 +958,17 @@ def _unported_case(case):
         WorkflowRunner(Workflow(), device="cpu").run(
             case.replace("_", "-"), OpParams())
     elif case in ("sweep_checkpoint", "perf_model"):
+        from transmogrifai_tpu_torch import Dataset
         label = FeatureGeneratorStage(name="y", ftype=PT.RealNN,
                                       is_response=True).get_output()
         block = ({"checkpoint_dir": "x"} if case == "sweep_checkpoint"
                  else {"min_rows": 4})
-        (Workflow().set_result_features(label)
-         .set_parameters({case: block}).train(device="cpu"))
+        ds = Dataset.from_rows([{"y": 1.0}, {"y": 0.0}], {"y": PT.RealNN})
+        return (Workflow().set_result_features(label)
+                .set_parameters({case: block}).set_input_dataset(ds)
+                .train(device="cpu"))
     elif case == "multiclass_checkpoint":
-        MultiClassificationModelSelector.with_train_validation_split(
+        return MultiClassificationModelSelector.with_train_validation_split(
             checkpoint_dir="x")
 
 
@@ -981,6 +984,12 @@ def test_unported_paths_raise_and_name_themselves(case, match):
         # ported since ROADMAP queue 1, item 6b: the groups now build
         from transmogrifai_tpu_torch import types as PT
         assert _unported_case(case).ftype is PT.OPVector
+    elif case in ("checkpoint", "multiclass_checkpoint"):
+        # ported since ROADMAP queue 1, item 7: the selector keeps its dir
+        assert _unported_case(case).checkpoint_dir == "x"
+    elif case == "sweep_checkpoint":
+        # ported since ROADMAP queue 1, item 7: the parameter trains
+        assert _unported_case(case).fitted == {}
     else:
         with pytest.raises(NotImplementedError, match=match):
             _unported_case(case)

@@ -30,10 +30,13 @@ prep hidden behind transfers) and `gbps` (wire bytes / wall); a build
 under the feature cache adds its outcome and key, the artifact's read
 seconds and bytes on a hit and its tee seconds on a miss.
 
+Each chunk's prepare passes the ``ingest.read_chunk`` fault point
+(`runtime/faults.py`) and, given `retry=` (a `runtime.retry.RetryPolicy`),
+retries transient failures with its attempts and backoff in
+`IngestStats.retries` / `retry_wait_s`, as in the JAX package.
+
 Absent here, and listed in ROADMAP.md: the JAX package's trace span and
-metrics counters (`obs/`), its fault points and retry policy
-(`runtime/faults.py`, `runtime/retry.py`) and its learned cost-model row
-(`perf/`). `retry=` is refused.
+metrics counters (`obs/`) and its learned cost-model row (`perf/`).
 """
 
 from __future__ import annotations
@@ -47,10 +50,10 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
 
-__all__ = ["IngestStats", "ChunkRing", "run_chunk_pipeline"]
+from transmogrifai_tpu_torch.runtime.faults import (
+    SITE_READ_CHUNK, fault_point)
 
-RETRY_REFUSED = ("retry= is not ported (ROADMAP queue 1: the sweep journal, "
-                 "checkpoints and resume — runtime/retry.py)")
+__all__ = ["IngestStats", "ChunkRing", "run_chunk_pipeline"]
 
 
 @dataclass
@@ -75,6 +78,8 @@ class IngestStats:
     upload_wait_s: float = 0.0
     wall_s: float = 0.0
     max_in_flight: int = 0
+    retries: int = 0          # transient prepare failures retried
+    retry_wait_s: float = 0.0  # backoff slept across all retries
     # feature-cache accounting (data/feature_cache.py): `read_s` /
     # `bytes_read` always mean STORE memmap reads, so a warm cache hit
     # shows 0 there and its artifact IO lands in `cache_read_s` /
@@ -99,6 +104,11 @@ class IngestStats:
             self.cast_s += seconds
             self.bytes_wire += wire_nbytes
             self.chunks += 1
+
+    def note_retry(self, delay_s: float) -> None:
+        with self._lock:
+            self.retries += 1
+            self.retry_wait_s += delay_s
 
     def note_cache_read(self, seconds: float, nbytes: int) -> None:
         with self._lock:
@@ -144,6 +154,7 @@ class IngestStats:
             "overlap_frac": self.overlap_frac, "gbps": self.gbps,
             "workers": self.workers, "depth": self.depth,
             "max_in_flight": self.max_in_flight, "wire": self.wire,
+            "retries": self.retries, "retry_wait_s": self.retry_wait_s,
             **({"cache": self.cache, "cache_key": self.cache_key,
                 "cache_read_s": self.cache_read_s,
                 "cache_bytes": self.cache_bytes,
@@ -221,12 +232,28 @@ def run_chunk_pipeline(items: Iterable[Any],
     elapsed time before each upload; the depth bound makes elapsed time
     track transfer progress to within `depth` chunks. The deadline is not
     re-checked after the final drain: a finished buffer is returned.
-    `retry` is refused (not ported)."""
-    if retry is not None:
-        raise NotImplementedError(RETRY_REFUSED)
+
+    `retry`: optional `runtime.retry.RetryPolicy` — each chunk's prepare
+    (after the ``ingest.read_chunk`` fault point) is retried under it on
+    transient failures, with attempts and backoff recorded in
+    `IngestStats.retries` / `retry_wait_s`. prepare is a pure read and
+    cast, so a retried chunk produces the same bytes and the pipeline's
+    result is bit-equal to a fault-free run. Fatal errors, and transient
+    ones past the budget, propagate on the failing item's turn."""
     st = stats if stats is not None else IngestStats(label=label)
     st.workers = workers
     st.depth = depth
+
+    def prepare_once(item):
+        fault_point(SITE_READ_CHUNK)
+        return prepare(item)
+
+    if retry is None:
+        prepare_task = prepare_once
+    else:
+        prepare_task = retry.wrap(
+            prepare_once, label=f"{label}.read_chunk",
+            on_attempt=lambda ev: st.note_retry(ev.delay_s))
     t_start = time.perf_counter()
     it = iter(items)
     pending: deque = deque()      # prepare futures, submission order
@@ -244,7 +271,7 @@ def run_chunk_pipeline(items: Iterable[Any],
                     item = next(it)
                 except StopIteration:
                     return
-                pending.append(pool.submit(prepare, item))
+                pending.append(pool.submit(prepare_task, item))
 
         fill()
         i = 0

@@ -5,13 +5,17 @@ The port's own copy of the JAX package's `obs/export.py`:
 - `chrome_trace(spans)` renders a span tree in the Chrome Trace Event
   format that Perfetto and chrome://tracing load: one ``"X"`` event per
   span (ts/dur in microseconds, args with span/parent/trace ids and
-  attributes), one ``"i"`` instant event per span event, and thread-name
-  metadata. `write_chrome_trace` writes it where the runner's
-  `trace_location` names.
+  attributes), one ``"i"`` instant event per span event (injected
+  faults, retries, OOM and fault redos, journal resumes, steals, the
+  scheduler's ``mesh_utilization``), and thread-name metadata, so the
+  scheduler's ``sweep:worker:<k>`` lanes and K11's ``sweep:lane:<k>``
+  threads label their own rows. `write_chrome_trace` writes it where the
+  runner's `trace_location` names.
 - `EventLog` appends one JSON object per line, stamped with the run's
-  correlation id and flushed per record. `emit_event` writes to the
-  installed log and is a no-op without one; `record_event` writes the
-  same event to the current span and the log.
+  correlation id and flushed per record, so a killed run's log still
+  ends at the kill. `emit_event` writes to the installed log and is a
+  no-op without one; `record_event` writes the same event to the current
+  span and the log.
 
 `validate_chrome_trace` checks a payload: well-formed events,
 non-negative timestamps, every parent present and every child starting

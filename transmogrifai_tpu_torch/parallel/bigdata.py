@@ -50,9 +50,14 @@ package), and every function here that takes `chunk` raises when n % chunk
 != 0. K1 and K3 take all rows in one launch, so `chunk` only bounds the
 plain versions' working set on the CPU.
 
+Chunk reads retry transient IO under `retry=` (a `runtime.retry.
+RetryPolicy`; by default `_default_ingest_retry`, whose attempts
+``TRANSMOGRIFAI_INGEST_RETRIES`` sets), with attempts and backoff in the
+returned `IngestStats`, as in the JAX package.
+
 Not ported, and refused by name (ROADMAP.md, queue 1): sharded buffers
-(`sharding=`), the retry policy (`retry=`), and the learned upload plan
-(`workers`/`depth` default to `UPLOAD_WORKERS`/`UPLOAD_DEPTH`). The JAX
+(`sharding=`, item 9b), and the learned upload plan (`workers`/`depth`
+default to `UPLOAD_WORKERS`/`UPLOAD_DEPTH`). The JAX
 package's cache events for its trace (`record_event`) are absent with its
 trace (queue 1, item 10). The JAX package's dispatch-time bound in
 `lockstep_width` guards a TPU's execution limit and is left out
@@ -64,6 +69,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import logging
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -74,7 +80,7 @@ from transmogrifai_tpu_torch import cuda_build
 from transmogrifai_tpu_torch.data import feature_cache as fc
 from transmogrifai_tpu_torch.data.columnar_store import ColumnarStore
 from transmogrifai_tpu_torch.data.pipeline import (
-    RETRY_REFUSED, IngestStats, ChunkRing, run_chunk_pipeline)
+    IngestStats, ChunkRing, run_chunk_pipeline)
 from transmogrifai_tpu_torch.device import resolve_device
 from transmogrifai_tpu_torch.evaluators.device_metrics import sigmoid
 from transmogrifai_tpu_torch.models import lbfgs
@@ -92,8 +98,8 @@ HIST_CHUNK_ROWS = 65_536      # the CPU plain versions' row chunk
 UPLOAD_WORKERS = 2            # memmap read + cast threads
 UPLOAD_DEPTH = 4              # chunk copies and writes in flight
 
-SHARDING_REFUSED = ("sharding= is not ported (ROADMAP queue 1: multi-GPU — "
-                    "sharded builders)")
+SHARDING_REFUSED = ("sharding= is not ported (ROADMAP queue 1, item 9b: "
+                    "the data axis — sharded builders)")
 QUANT_BITS = (8, 4)
 
 
@@ -111,11 +117,15 @@ def _check_chunk(name: str, n: int, chunk: int) -> None:
             "builders do")
 
 
-def _refuse(sharding, retry) -> None:
-    if sharding is not None:
-        raise NotImplementedError(SHARDING_REFUSED)
-    if retry is not None:
-        raise NotImplementedError(RETRY_REFUSED)
+def _default_ingest_retry():
+    """Bounded-retry policy for transient IO during bulk ingest (a single
+    flaky read must not burn a long upload): the JAX package's, with
+    ``TRANSMOGRIFAI_INGEST_RETRIES`` total attempts (1 disables
+    retrying)."""
+    from transmogrifai_tpu_torch.runtime.retry import RetryPolicy
+    attempts = int(os.environ.get("TRANSMOGRIFAI_INGEST_RETRIES", "3"))
+    return RetryPolicy(max_attempts=max(1, attempts),
+                       base_delay_s=0.1, max_delay_s=5.0)
 
 
 # --------------------------------------------------------------------------- #
@@ -736,7 +746,7 @@ class _CacheSession:
 
 def _upload(sess: _CacheSession, prepare_chunk, items, write, label: str,
             deadline_s, workers, depth, dev,
-            stats: IngestStats) -> IngestStats:
+            stats: IngestStats, retry=None) -> IngestStats:
     """Stream `items` (chunk start rows) through `write(chunk, r0)`: on
     worker threads `prepare_chunk` reads, quantizes or replays each chunk
     into a ring of `depth` host buffers (pinned on the card); on the main
@@ -782,30 +792,34 @@ def _upload(sess: _CacheSession, prepare_chunk, items, write, label: str,
         run_chunk_pipeline(items, prepare, upload, workers=workers,
                            depth=depth, deadline_s=deadline_s,
                            label=f"{label} upload", stats=stats,
-                           on_error=ring.abort)
+                           retry=retry, on_error=ring.abort)
     except BaseException:
         sess.abort()
         raise
     finally:
         if stream is not None:
             torch.cuda.current_stream(dev).wait_stream(stream)
-    log.info("%s: %d rows in %.1fs (%.2f GB/s, overlap %.2f%s)", label,
-             sess.store.n_rows, stats.wall_s, stats.gbps, stats.overlap_frac,
+    log.info("%s: %d rows in %.1fs (%.2f GB/s, overlap %.2f, retries %d%s)",
+             label, sess.store.n_rows, stats.wall_s, stats.gbps,
+             stats.overlap_frac, stats.retries,
              f", cache {stats.cache}" if stats.cache else "")
     return stats
 
 
 def _plan(store, chunk_rows, workers, depth, sharding, retry, device):
-    _refuse(sharding, retry)
+    """(device, workers, depth, retry policy) of one build."""
+    if sharding is not None:
+        raise NotImplementedError(SHARDING_REFUSED)
     if chunk_rows <= 0:
         raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
     return (resolve_device(device),
             UPLOAD_WORKERS if workers is None else int(workers),
-            UPLOAD_DEPTH if depth is None else int(depth))
+            UPLOAD_DEPTH if depth is None else int(depth),
+            retry if retry is not None else _default_ingest_retry())
 
 
 def _build(sess: _CacheSession, label: str, alloc, writes, deadline_s,
-           workers, depth, dev, return_stats: bool):
+           workers, depth, dev, return_stats: bool, retry=None):
     """A builder's body: the resident registry, else the buffers from
     `alloc()` written by `writes(bufs, quant_dev)`'s per-chunk write (the
     classic write when quant_dev is None, the dequant write with (scale,
@@ -820,7 +834,7 @@ def _build(sess: _CacheSession, label: str, alloc, writes, deadline_s,
         quant_dev = (sess.quant_device(dev) if sess.quant is not None
                      else None)
         _upload(sess, prepare, items, writes(bufs, quant_dev), label,
-                deadline_s, workers, depth, dev, stats)
+                deadline_s, workers, depth, dev, stats, retry)
         sess.finish(stats, bufs)
     return (*bufs, stats) if return_stats else (
         bufs[0] if len(bufs) == 1 else tuple(bufs))
@@ -847,8 +861,8 @@ def device_matrix(store: ColumnarStore, dtype=torch.bfloat16,
     `FeatureCacheParams(wire="int8"/"int4")` ships a quantized wire (max
     abs error scale/2 per feature, see data/feature_cache.py). With
     `return_stats`, returns (buffer, IngestStats)."""
-    dev, workers, depth = _plan(store, chunk_rows, workers, depth, sharding,
-                                retry, device)
+    dev, workers, depth, retry = _plan(store, chunk_rows, workers, depth,
+                                       sharding, retry, device)
     sess = _CacheSession("matrix", store, chunk_rows,
                          legacy_wire=_wire_of(store, dtype),
                          target_name=fc.dtype_name(dtype), cache=cache)
@@ -872,7 +886,7 @@ def device_matrix(store: ColumnarStore, dtype=torch.bfloat16,
         return lambda c, r0: write_cast_rows(x, c, r0)
 
     return _build(sess, "device_matrix", alloc, writes, deadline_s, workers,
-                  depth, dev, return_stats)
+                  depth, dev, return_stats, retry)
 
 
 def device_binned(store: ColumnarStore, edges: np.ndarray,
@@ -888,8 +902,8 @@ def device_binned(store: ColumnarStore, edges: np.ndarray,
     values (K12-dequant). Pad rows are the bins of the pad row. `cache` as
     in `device_matrix`: a hit replays the wire tape, so the binned matrix
     is bit-equal to the build that wrote it."""
-    dev, workers, depth = _plan(store, chunk_rows, workers, depth, sharding,
-                                retry, device)
+    dev, workers, depth, retry = _plan(store, chunk_rows, workers, depth,
+                                       sharding, retry, device)
     sess = _CacheSession("binned", store, chunk_rows,
                          legacy_wire=torch.float16, target_name="int8",
                          edges=edges, cache=cache)
@@ -909,7 +923,7 @@ def device_binned(store: ColumnarStore, edges: np.ndarray,
         return lambda c, r0: bin_write_rows(b, c, edges_dev, r0)
 
     return _build(sess, "device_binned", alloc, writes, deadline_s, workers,
-                  depth, dev, return_stats)
+                  depth, dev, return_stats, retry)
 
 
 def dual_device_matrices(store: ColumnarStore, edges: np.ndarray,
@@ -930,8 +944,8 @@ def dual_device_matrices(store: ColumnarStore, edges: np.ndarray,
     if dtype != torch.bfloat16:
         raise ValueError(f"dual_device_matrices: the kernel writes bf16, "
                          f"got {dtype}")
-    dev, workers, depth = _plan(store, chunk_rows, workers, depth, sharding,
-                                retry, device)
+    dev, workers, depth, retry = _plan(store, chunk_rows, workers, depth,
+                                       sharding, retry, device)
     sess = _CacheSession("dual", store, chunk_rows,
                          legacy_wire=torch.float16,
                          target_name=fc.dtype_name(dtype), edges=edges,
@@ -954,7 +968,7 @@ def dual_device_matrices(store: ColumnarStore, edges: np.ndarray,
         return lambda c, r0: dual_write_rows(x, b, c, edges_dev, r0)
 
     return _build(sess, "dual", alloc, writes, deadline_s, workers, depth,
-                  dev, return_stats)
+                  dev, return_stats, retry)
 
 
 # --------------------------------------------------------------------------- #

@@ -24,12 +24,34 @@ dispatch does not know runs the generic per-config loop
 (`_sweep_generic`) over its own `fit_arrays` and `predict_arrays`. Every
 static group runs in a ``sweep:block`` span (`obs/trace.py`).
 
-Not ported (ROADMAP.md): the journal and checkpoints (queue 1, item 7),
-the calibration of dispatch widths and the mesh (item 9).
+Fault tolerance and resume, as in the JAX package: `run_sweep(...,
+journal=)` skips the configs a `runtime.journal.SweepJournal` already
+holds (`journal_prefill`, bit-identical: journal floats round-trip
+exactly) and appends each block's fold metrics as soon as the block
+completes (`_journal_commit`); `_run_groups_resilient` fires the
+``sweep.run_block`` fault point before every block and, on a device OOM,
+halves the block and retries each half (an ``oom_redo`` event records the
+wasted attempt). Resume, OOM halving, the scheduler's blocks and a mesh's
+lanes all change which configs share one batched fit, so every family's
+batched fit gives each (config, fold) pair the same bits whatever pairs
+share its launch (held by `tests/test_torch_scheduler.py`).
+
+K11, `_run_block`: with `sharding=` (`parallel/mesh.sweep_sharding`) each
+static group pads to a multiple of the mesh's sweep width by repeating
+its last config (`_shard_dyn`) and runs one contiguous slice per lane, as
+the same batched program on the lane's device, on a worker thread with a
+stream of its own; the rows come back in lane order without the pad.
+
+Not ported: the learned cost model's hooks (the block features behind
+`facts`, the HBM pre-shrink and the dispatch-width calibration) come with
+`perf/` (ROADMAP.md queue 1, item 10); a data axis wider than 1
+(row-sharded fits) is item 9b.
 """
 
 from __future__ import annotations
 
+import logging
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -61,7 +83,13 @@ from transmogrifai_tpu_torch.models.trees import (
     forest_classification_pred, forest_regression_pred,
     gbt_multiclass_pred_from_margin, gbt_pred_from_margin,
     quantile_bin_edges)
+from transmogrifai_tpu_torch.obs import export as obs_export
 from transmogrifai_tpu_torch.obs.trace import TRACER
+from transmogrifai_tpu_torch.runtime.faults import (
+    SITE_RUN_BLOCK, fault_point, is_oom_error)
+from transmogrifai_tpu_torch.runtime.journal import SweepJournal
+
+log = logging.getLogger(__name__)
 
 Pred = Dict[str, torch.Tensor]
 
@@ -73,6 +101,158 @@ _PAIR_HIST_BYTES = 2 << 30
 
 def _grid_param(est, grid: Dict, name: str) -> Any:
     return grid.get(name, getattr(est, name, est.params.get(name)))
+
+
+# --------------------------------------------------------------------------- #
+# block journaling + fault-resilient group execution                          #
+# --------------------------------------------------------------------------- #
+
+# Per-family sweep state set by run_sweep for the duration of one family's
+# handler call. Thread-local on purpose: the scheduler's lanes sweep
+# concurrently, each with its own journal shard.
+_SWEEP_TL = threading.local()
+
+
+def _active_journal():
+    return getattr(_SWEEP_TL, "journal", None)
+
+
+def _block_fault_point() -> None:
+    """The ``sweep.run_block`` site, once per block: a mesh lane's share
+    of a block (`_run_block`) is not a block of its own, so it passes
+    without counting, as the JAX package's one sharded program does."""
+    if not getattr(_SWEEP_TL, "lane", False):
+        fault_point(SITE_RUN_BLOCK)
+
+
+class _BestTracker:
+    """Running best-so-far (mean metric + grid) recorded into each journal
+    entry, so a resumed operator can see where an interrupted sweep stood."""
+
+    def __init__(self, larger_is_better: bool):
+        self.sign = 1.0 if larger_is_better else -1.0
+        self.best: Optional[Dict[str, Any]] = None
+
+    def note(self, grid: Dict, row: List[float]) -> Optional[Dict[str, Any]]:
+        mean = float(np.mean(row)) if row else float("nan")
+        if np.isfinite(mean) and (
+                self.best is None
+                or self.sign * mean > self.sign * self.best["mean"]):
+            self.best = {"mean": mean, "grid": grid}
+        return self.best
+
+
+def journal_prefill(journal, grids: List[Dict],
+                    metrics: List[Optional[List[float]]],
+                    event: str = "journal_resume") -> int:
+    """Fill journaled rows into `metrics`; returns how many were skipped.
+    Journal floats round-trip JSON exactly, so a resumed sweep's metric
+    matrix is bit-identical to an uninterrupted run's. The one resume-
+    skip implementation: the in-family path, the scheduler's per-job
+    resume and the pod's cross-host merge all route through it. `event`
+    names the timeline event: a resume credits the journal with blocks it
+    avoided re-running ("journal_resume", the goodput report's savings),
+    while a pod host merging blocks other hosts ran in this run records
+    "pod_merge" (fleet work, not savings)."""
+    if journal is None:
+        return 0
+    hits = 0
+    saved_s = 0.0
+    for i, g in enumerate(grids):
+        if metrics[i] is not None:
+            continue
+        row = journal.lookup(g)
+        if row is not None:
+            metrics[i] = row
+            saved_s += journal.duration_of(g)
+            hits += 1
+    if hits:
+        if event == "journal_resume":
+            log.info("sweep journal: resuming past %d/%d completed blocks",
+                     hits, len(grids))
+            obs_export.record_event("journal_resume", blocks=hits,
+                                    total=len(grids),
+                                    saved_s=round(saved_s, 6))
+        else:
+            log.info("sweep journal: merged %d/%d foreign blocks (%s)",
+                     hits, len(grids), event)
+            obs_export.record_event(event, blocks=hits,
+                                    total=len(grids),
+                                    foreign_s=round(saved_s, 6))
+    return hits
+
+
+def _journal_commit(grids: List[Dict],
+                    metrics: List[Optional[List[float]]],
+                    idxs: List[int],
+                    block_s: Optional[float] = None) -> None:
+    journal = _active_journal()
+    if journal is None:
+        return
+    best = getattr(_SWEEP_TL, "best", None)
+    # the block ran its configs as one program: attribute wall time evenly
+    per_cfg = (block_s / len(idxs)) if (block_s and idxs) else None
+    for i in idxs:
+        row = metrics[i]
+        if row is None or any(m is None for m in row):
+            continue
+        journal.append(grids[i], row,
+                       best=best.note(grids[i], row) if best else None,
+                       duration_s=per_cfg)
+
+
+def _block_key_fn(grids: List[Dict]):
+    """Content key of a block (the grids it ran), the JAX package's
+    `block_key` formula: each ``sweep:block`` span carries it, so a span
+    names the journal records its block wrote."""
+
+    def key(idxs: List[int]) -> str:
+        return SweepJournal.key_of({"block": [grids[i] for i in idxs]})
+    return key
+
+
+def _run_groups_resilient(groups: Dict[Tuple, List[int]], run_one,
+                          commit, family: str, block_key=None) -> None:
+    """Execute grid-block groups with the fault-tolerance contract:
+
+    - `fault_point(SITE_RUN_BLOCK)` fires before every block, so a chaos
+      plan can kill or fail the sweep at any block boundary;
+    - a device-OOM failure HALVES the block and retries each half before
+      surfacing (narrower blocks fit where wide ones did not); the failed
+      wide attempt's wall time is recorded as an ``oom_redo`` badput
+      event on the enclosing span;
+    - `commit(idxs, block_s)` journals a block only after it fully
+      completes, stamped with its wall cost (resume-skip accounting).
+    """
+
+    def run(static, idxs):
+        t0 = time.perf_counter()
+        attrs = {"block": block_key(idxs)} if block_key is not None else {}
+        try:
+            with TRACER.span("sweep:block", category="sweep",
+                             family=family, static=repr(static),
+                             configs=len(idxs), **attrs):
+                _block_fault_point()
+                run_one(static, idxs)
+        except Exception as e:
+            if len(idxs) <= 1 or not is_oom_error(e):
+                raise
+            wasted = time.perf_counter() - t0
+            obs_export.record_event("oom_redo", family=family,
+                                    configs=len(idxs),
+                                    wasted_s=round(wasted, 6))
+            mid = (len(idxs) + 1) // 2
+            log.warning(
+                "sweep %s block %r: device OOM with %d configs (%s) — "
+                "halving block width and retrying", family, static,
+                len(idxs), e)
+            run(static, idxs[:mid])
+            run(static, idxs[mid:])
+            return
+        commit(idxs, time.perf_counter() - t0)
+
+    for static, idxs in groups.items():
+        run(static, idxs)
 
 
 def _depth_bucket(depth: int) -> int:
@@ -129,62 +309,85 @@ def _sweep_blocks(grids: List[Dict], y: torch.Tensor, W: torch.Tensor,
                   fit_predict: Callable[..., Sequence[Pred]],
                   pair_width: Callable[[Tuple, List[int]], int] = None
                   ) -> List[List[float]]:
-    """Group the configs by `static_of`; per group, run its (config,
-    fold) pairs `pair_width` at a time (all at once by default) through
-    `fit_predict(static, idxs, dyn, W_pairs, V_pairs)`, where `dyn` holds
-    one list per dynamic parameter (one entry per pair) and the result is
-    one prediction dict per pair, and score each pair's prediction on its
-    fold's validation rows, all pairs of the run in one `metric_fn(y,
-    preds, masks)` call (or on the host, pair by pair, for a
-    `HostMetricFallback`). Groups run in the order their first config
-    appears, each in a ``sweep:block`` span; each group's seconds land in
-    `ctx._sweep_seconds`."""
+    """Group the configs the active journal does not hold by `static_of`;
+    per group, run its (config, fold) pairs `pair_width` at a time (all at
+    once by default) through `fit_predict(static, idxs, dyn, W_pairs,
+    V_pairs)`, where `dyn` holds one list per dynamic parameter (one entry
+    per pair) and the result is one prediction dict per pair, and score
+    each pair's prediction on its fold's validation rows, all pairs of the
+    run in one `metric_fn(y, preds, masks)` call (or on the host, pair by
+    pair, for a `HostMetricFallback`). Groups run in the order their
+    first config appears, through `_run_groups_resilient` (a
+    ``sweep:block`` span, the fault point, OOM halving, a journal commit
+    after each block); each group's seconds land in `ctx._sweep_seconds`
+    (keyed by lane on a mesh lane)."""
     n_folds = W.shape[0]
     host = isinstance(metric_fn, HostMetricFallback)
     y_np = y.cpu().numpy() if host else None
     V_np = V.cpu().numpy() if host else None
+    metrics: List[Optional[List[float]]] = [None] * len(grids)
+    journal_prefill(_active_journal(), grids, metrics)
     groups: Dict[Tuple, List[int]] = {}
     for i, g in enumerate(grids):
-        groups.setdefault(static_of(g), []).append(i)
-    metrics: List[List[float]] = [[0.0] * n_folds for _ in grids]
+        if metrics[i] is None:
+            groups.setdefault(static_of(g), []).append(i)
     seconds = getattr(ctx, "_sweep_seconds", None) if ctx is not None \
         else None
-    for static, idxs in groups.items():
+    lane = getattr(ctx, "_sweep_lane", None) if ctx is not None else None
+
+    def run_group(static, idxs):
         t0 = time.perf_counter()
+        rows = {i: [0.0] * n_folds for i in idxs}
         pairs = [(i, f) for i in idxs for f in range(n_folds)]
         width = pair_width(static, idxs) if pair_width else len(pairs)
-        with TRACER.span("sweep:block", category="sweep", family=family,
-                         static=repr(static), configs=len(idxs)):
-            for s in range(0, len(pairs), max(1, width)):
-                chunk = pairs[s:s + width]
-                dyn = [dyn_of(grids[i]) for i, _ in chunk]
-                cols = {k: [dd[k] for dd in dyn] for k in dyn[0]}
-                fsel = [f for _, f in chunk]
-                fs = torch.as_tensor(fsel, device=W.device)
-                Vsel = V[fs]
-                preds = fit_predict(static, idxs, cols, W[fs], Vsel)
-                if host:
-                    vals = _host_metrics(metric_fn, y_np, preds,
-                                         V_np[fsel])
-                else:
-                    vals = metric_fn(y, preds, Vsel).tolist()
-                for t, (i, f) in enumerate(chunk):
-                    metrics[i][f] = float(vals[t])
-            if y.is_cuda:
-                torch.cuda.synchronize(y.device)
+        for s in range(0, len(pairs), max(1, width)):
+            chunk = pairs[s:s + width]
+            dyn = [dyn_of(grids[i]) for i, _ in chunk]
+            cols = {k: [dd[k] for dd in dyn] for k in dyn[0]}
+            fsel = [f for _, f in chunk]
+            fs = torch.as_tensor(fsel, device=W.device)
+            Vsel = V[fs]
+            preds = fit_predict(static, idxs, cols, W[fs], Vsel)
+            if host:
+                vals = _host_metrics(metric_fn, y_np, preds, V_np[fsel])
+            else:
+                vals = metric_fn(y, preds, Vsel).tolist()
+            for t, (i, f) in enumerate(chunk):
+                rows[i][f] = float(vals[t])
+        if y.is_cuda:  # this thread's stream only: lanes on one card overlap
+            torch.cuda.current_stream(y.device).synchronize()
+        for i in idxs:
+            metrics[i] = rows[i]
         if seconds is not None:
-            seconds[f"{family}:{static}"] = time.perf_counter() - t0
-    return metrics
+            key = f"{family}:{static}" + ("" if lane is None
+                                          else f"@lane{lane}")
+            with _SECONDS_LOCK:
+                seconds[key] = time.perf_counter() - t0
+
+    _run_groups_resilient(
+        groups, run_group,
+        commit=lambda idxs, block_s=None: _journal_commit(
+            grids, metrics, idxs, block_s),
+        family=family, block_key=_block_key_fn(grids))
+    return metrics  # type: ignore[return-value]
+
+
+_SECONDS_LOCK = threading.Lock()
 
 
 def _binned_cache(est, grids, X: torch.Tensor, ctx) -> Dict[int, torch.Tensor]:
     """X binned once per distinct max_bins (edges from X's rows), cached on
-    the fit context so every family of one selector fit shares it."""
-    out = getattr(ctx, "_sweep_bin_cache", None) if ctx is not None else None
-    if out is None:
+    the fit context so every family of one selector fit shares it. The
+    entry keeps X itself and is dropped when another matrix arrives
+    (workflow CV sweeps each fold's matrix under one context)."""
+    cached = getattr(ctx, "_sweep_bin_cache", None) if ctx is not None \
+        else None
+    if cached is not None and cached[0] is X:
+        out = cached[1]
+    else:
         out = {}
         if ctx is not None:
-            ctx._sweep_bin_cache = out
+            ctx._sweep_bin_cache = (X, out)
     X_host = None
     for g in grids:
         mb = int(_grid_param(est, g, "max_bins"))
@@ -252,6 +455,31 @@ def _static_gbt(est, g) -> Tuple:
             int(_grid_param(est, g, "max_bins")),
             int(_grid_param(est, g, "early_stopping_rounds") or 0),
             _depth_bucket(int(_grid_param(est, g, "max_depth"))))
+
+
+def static_signature(est, grid: Dict) -> Tuple:
+    """The (family, static-group) key a grid config runs under: two
+    configs with equal signatures share one batched fit in the family
+    handlers, and the scheduler cuts a family's grids into blocks along
+    these boundaries. An estimator class the dispatch does not know gets
+    a key per config (`_sweep_generic` runs a config as its unit)."""
+    if isinstance(est, OpGBTClassifier):  # and the GBT/XGB regressors
+        return ("gbt", _static_gbt(est, grid))
+    if isinstance(est, OpRandomForestClassifier):  # forests and trees
+        return ("forest", _static_forest(est, grid))
+    if isinstance(est, OpLogisticRegression):
+        return ("logistic", _static_logistic(est, grid))
+    if isinstance(est, OpLinearRegression):
+        return ("linreg", _static_linreg(est, grid))
+    if isinstance(est, OpLinearSVC):
+        return ("svc", _static_svc(est, grid))
+    if isinstance(est, OpGeneralizedLinearRegression):
+        return ("glm", _static_glm(est, grid))
+    if isinstance(est, OpNaiveBayes):
+        return ("naive_bayes", _static_nb(est, grid))
+    if isinstance(est, OpMultilayerPerceptronClassifier):
+        return ("mlp", _static_mlp(est, grid))
+    return ("generic", SweepJournal.key_of(grid))
 
 
 def _sweep_logistic(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
@@ -470,13 +698,20 @@ def _sweep_generic(est, grids: List[Dict], X: torch.Tensor,
     `fit_arrays(X, y, w, ctx)` with the fold's training rows as the 0/1
     weights w (the JAX package passes them as its fit's row weights too),
     predicted by `predict_arrays(X)` and scored by the host evaluator on
-    the fold's validation rows. Each config runs in a ``sweep:block``
-    span."""
+    the fold's validation rows. A config is the journaling block here:
+    journaled configs are skipped, and each completed config appends as
+    soon as its folds finish. Each config runs in a ``sweep:block``
+    span, after the ``sweep.run_block`` fault point."""
     y_np = y.cpu().numpy()
-    out: List[List[float]] = []
-    for grid in grids:
+    out: List[Optional[List[float]]] = [None] * len(grids)
+    journal_prefill(_active_journal(), grids, out)
+    for i, grid in enumerate(grids):
+        if out[i] is not None:
+            continue
+        t0 = time.perf_counter()
         with TRACER.span("sweep:block", category="sweep",
                          family=type(est).__name__, configs=1):
+            _block_fault_point()
             clone = type(est)(**{**{k: v for k, v in est.params.items()
                                     if k != "uid"}, **grid})
             row = []
@@ -488,8 +723,159 @@ def _sweep_generic(est, grids: List[Dict], X: torch.Tensor,
                 row.append(_metric(evaluator, y_np,
                                    {k: v.cpu().numpy()
                                     for k, v in pred.items()}, va))
-        out.append(row)
-    return out
+        out[i] = row
+        _journal_commit(grids, out, [i], time.perf_counter() - t0)
+    return out  # type: ignore[return-value]
+
+
+# --------------------------------------------------------------------------- #
+# K11: one block over the lanes of a mesh's sweep axis                        #
+# --------------------------------------------------------------------------- #
+
+def _shard_dyn(grids: List[Dict], sharding) -> Tuple[List[List[Dict]], int]:
+    """Cut a block's configs into one contiguous slice per lane of the
+    sweep axis, PADDING a non-divisible block to the next multiple by
+    repeating the last config (the pad rows compute real but discarded
+    fits, as in the JAX package). Returns (slices, original count)."""
+    g = len(grids)
+    n = sharding.n_shards
+    padded = list(grids) + [grids[-1]] * ((-g) % n)
+    per = len(padded) // n
+    return [padded[k * per:(k + 1) * per] for k in range(n)], g
+
+
+class Lanes:
+    """Run work on the lanes of a mesh's sweep axis: shared by K11's
+    `_run_block` and the scheduler's workers (`parallel/scheduler.py`).
+
+    Lane k has its own `FitContext`, with the caller's row count and seed
+    (bootstrap and fold streams match the single-device sweep bit for
+    bit), its own device, binned-matrix cache and lane tag; the caller's
+    `_sweep_seconds` is shared, keyed by lane. `run(k, fn, X, y)` calls
+    `fn(lane_ctx, X_lane, y_lane)` with X and y placed on the lane's
+    device once per training matrix (identity-keyed on both, holding the
+    keys, so a reused address cannot false-hit). On CUDA it runs inside
+    the device's context and on the lane's own stream (so
+    `cuda_build.launch` launches there and lanes on one card overlap),
+    after the stream current on the constructing thread, and synchronizes
+    that stream before it returns. Construct on the caller's thread;
+    `run` may be called from the lane threads."""
+
+    def __init__(self, ctx, devices: Sequence[torch.device]):
+        from transmogrifai_tpu_torch.stages.base import FitContext
+        self.devices = list(devices)
+        self._ctxs = []
+        for k, dev in enumerate(self.devices):
+            lctx = FitContext(n_rows=getattr(ctx, "n_rows", 0),
+                              seed=getattr(ctx, "seed", 42), device=dev)
+            lctx._sweep_lane = k
+            lctx._sweep_seconds = getattr(ctx, "_sweep_seconds", None)
+            self._ctxs.append(lctx)
+        self._caller = {d: torch.cuda.current_stream(d)
+                        for d in set(self.devices) if d.type == "cuda"}
+        self._streams: Dict[int, Any] = {}
+        self._placed: Dict[int, Tuple] = {}
+        self._lock = threading.Lock()
+
+    def _place(self, k: int, X: torch.Tensor, y: torch.Tensor):
+        with self._lock:
+            hit = self._placed.get(k)
+            if hit is not None and hit[0] is X and hit[1] is y:
+                return hit[2:]
+        placed = (X.to(self.devices[k]), y.to(self.devices[k]))
+        with self._lock:
+            self._placed[k] = (X, y) + placed
+        return placed
+
+    def run(self, k: int, fn, X: torch.Tensor, y: torch.Tensor):
+        dev = self.devices[k]
+        if dev.type != "cuda":
+            return fn(self._ctxs[k], *self._place(k, X, y))
+        with self._lock:
+            stream = self._streams.get(k)
+            if stream is None:
+                stream = self._streams[k] = torch.cuda.Stream(dev)
+        stream.wait_stream(self._caller[dev])
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            out = fn(self._ctxs[k], *self._place(k, X, y))
+            stream.synchronize()
+        return out
+
+
+def _run_block(run_lane: Callable[..., List[List[float]]],
+               grids: List[Dict], sharding, ctx, X: torch.Tensor,
+               y: torch.Tensor) -> List[List[float]]:
+    """K11: one block over the mesh's sweep axis. `_shard_dyn` cuts the
+    block's configs into one slice per lane; each lane runs its slice as
+    `run_lane(slice, lane_ctx, X_lane, y_lane)` — the unsharded batched
+    program — on a worker thread through `Lanes.run`, and the metric rows
+    come back to the host in lane order, pad rows dropped. The lanes
+    persist on `ctx` across blocks and families (one placement and binned
+    cache per lane). A lane's exception (or a kill) re-raises here after
+    every lane ended."""
+    slices, g = _shard_dyn(grids, sharding)
+    devices = sharding.lanes[:len(slices)]
+    lanes = getattr(ctx, "_sweep_lanes", None)
+    if lanes is None or lanes.devices != devices:
+        lanes = ctx._sweep_lanes = Lanes(ctx, devices)
+    out: List[Optional[List[List[float]]]] = [None] * len(slices)
+    errors: List[BaseException] = []
+    parent = TRACER.current()
+
+    def lane_main(k: int) -> None:
+        _SWEEP_TL.lane = True
+        try:
+            with TRACER.span(f"sweep:lane:{k}", category="sweep_lane",
+                             parent=parent, lane=k,
+                             device=str(devices[k]),
+                             configs=len(slices[k])):
+                out[k] = lanes.run(
+                    k, lambda *placed: run_lane(slices[k], *placed), X, y)
+        except BaseException as e:  # re-raised on the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=lane_main, args=(k,),
+                                name=f"sweep-lane-{k}", daemon=True)
+               for k in range(len(slices))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    rows = [row for lane_rows in out for row in lane_rows]
+    return rows[:g]  # drop the pad rows
+
+
+def _sweep_sharded(est, grids: List[Dict], X: torch.Tensor,
+                   y: torch.Tensor, folds, evaluator, ctx,
+                   sharding) -> List[List[float]]:
+    """The sweep with its grid axis over the mesh's sweep lanes: journaled
+    configs skip, the rest group by `static_signature`, and each group is
+    one `_run_block` through `_run_groups_resilient` (fault point, OOM
+    halving, journal commit), its lanes running the unsharded sweep."""
+    metrics: List[Optional[List[float]]] = [None] * len(grids)
+    journal_prefill(_active_journal(), grids, metrics)
+    groups: Dict[Tuple, List[int]] = {}
+    for i, g in enumerate(grids):
+        if metrics[i] is None:
+            groups.setdefault(static_signature(est, g), []).append(i)
+
+    def run_lane(lane_grids, lctx, Xl, yl):
+        return _run_sweep(est, lane_grids, Xl, yl, folds, evaluator, lctx)
+
+    def run_group(static, idxs):
+        rows = _run_block(run_lane, [grids[i] for i in idxs], sharding,
+                          ctx, X, y)
+        for i, row in zip(idxs, rows):
+            metrics[i] = row
+
+    _run_groups_resilient(
+        groups, run_group,
+        commit=lambda idxs, block_s=None: _journal_commit(
+            grids, metrics, idxs, block_s),
+        family=type(est).__name__, block_key=_block_key_fn(grids))
+    return metrics  # type: ignore[return-value]
 
 
 def _dispatch(est) -> Optional[Callable]:
@@ -517,11 +903,42 @@ def _dispatch(est) -> Optional[Callable]:
 
 def run_sweep(est, grids: List[Dict], X: torch.Tensor, y: torch.Tensor,
               folds: Sequence[Tuple[np.ndarray, np.ndarray]], evaluator,
-              ctx) -> List[List[float]]:
+              ctx, sharding=None, journal=None) -> List[List[float]]:
     """Metric matrix [grid][fold] for one model family, on X's device: the
     family's batched handler, or `_sweep_generic` for a class it does not
     know; the device metric, or the host evaluator's
-    (`HostMetricFallback`) for an evaluator without one."""
+    (`HostMetricFallback`) for an evaluator without one.
+
+    `sharding` (`parallel/mesh.sweep_sharding(mesh)`): each static group
+    runs through K11's `_run_block` over the mesh's sweep lanes.
+    `journal`: a `runtime.journal.SweepJournal` (or a sharded writer) —
+    completed blocks append as soon as their fold metrics are final and
+    journaled configs are skipped, so a killed sweep resumed with the same
+    journal re-runs only un-journaled blocks and reproduces the
+    bit-identical metric matrix."""
+    _SWEEP_TL.journal = journal
+    best = None
+    if journal is not None:
+        best = _BestTracker(getattr(evaluator, "is_larger_better", True))
+        # seed from every journaled row (not just this call's grids): a
+        # record's `best` accounts for blocks other lanes or an earlier,
+        # killed run completed
+        for g, row in journal.rows():
+            best.note(g, row)
+    _SWEEP_TL.best = best
+    try:
+        if sharding is not None:
+            return _sweep_sharded(est, grids, X, y, folds, evaluator, ctx,
+                                  sharding)
+        return _run_sweep(est, grids, X, y, folds, evaluator, ctx)
+    finally:
+        _SWEEP_TL.journal = None
+        _SWEEP_TL.best = None
+
+
+def _run_sweep(est, grids: List[Dict], X: torch.Tensor, y: torch.Tensor,
+               folds: Sequence[Tuple[np.ndarray, np.ndarray]], evaluator,
+               ctx) -> List[List[float]]:
     handler = _dispatch(est)
     if handler is None:
         return _sweep_generic(est, grids, X, y, folds, evaluator, ctx)

@@ -38,10 +38,12 @@ from transmogrifai_tpu_torch.utils.uid import UID
 
 @dataclass
 class FitContext:
-    """Per-fit environment: row count, rng seed and the device the fit's
-    tensors live on. `child(salt)` derives a stage's context with the JAX
-    package's seed rule, so seeded host draws (the GBT refit's holdout)
-    are the same rows in both packages.
+    """Per-fit environment: row count, rng seed, the device the fit's
+    tensors live on and an optional device mesh (`parallel/mesh.py`;
+    `data_axis` names its row axis, as in the JAX package). `child(salt)`
+    derives a stage's context with the JAX package's seed rule, so seeded
+    host draws (the GBT refit's holdout) are the same rows in both
+    packages.
 
     `cv_refit` is set by the workflow only on the ModelSelector's context
     under workflow-level CV (`Workflow.with_workflow_cv()`): a callable
@@ -53,10 +55,13 @@ class FitContext:
     seed: int = 42
     device: Any = "cpu"
     cv_refit: Any = None
+    mesh: Any = None
+    data_axis: str = "data"
 
     def child(self, salt: int) -> "FitContext":
         return FitContext(self.n_rows, self.seed * 1000003 + salt,
-                          self.device)
+                          self.device, mesh=self.mesh,
+                          data_axis=self.data_axis)
 
 
 class StageRegistry:

@@ -1,10 +1,8 @@
 """The port's shared on-disk plane: the content-addressed artifact store
-(`artifact.py`) and the resolution point for shared directories
-(`config.py`), each the port's own copy of the JAX package's module.
-
-The JAX package's `store/state.py` (`StateCell`, `SharedQuota`,
-`LeaseTable`) is not ported: it waits for the multi-GPU work (ROADMAP
-queue 1, item 9), which must not copy its stale-claim fault (ROADMAP F7).
+(`artifact.py`), the resolution point for shared directories
+(`config.py`) and CAS-guarded mutable state (`state.py`: `StateCell`,
+`LeaseTable`, `SharedQuota`), each the port's own copy of the JAX
+package's module (`state.py` without its stale-claim fault, ROADMAP F7).
 """
 
 from transmogrifai_tpu_torch.store.artifact import (
@@ -12,6 +10,8 @@ from transmogrifai_tpu_torch.store.artifact import (
     LocalDirBackend, StoreCorruptError)
 from transmogrifai_tpu_torch.store.config import (
     ENV_STORE, cache_root, resolve_dir, store_configured)
+from transmogrifai_tpu_torch.store.state import (
+    LeaseTable, SharedQuota, StateCell)
 
 __all__ = [
     "MANIFEST",
@@ -25,4 +25,7 @@ __all__ = [
     "cache_root",
     "resolve_dir",
     "store_configured",
+    "LeaseTable",
+    "SharedQuota",
+    "StateCell",
 ]

@@ -10,10 +10,12 @@ JAX package. `Workflow.set_parameters` takes an OpParams or a dict;
 (`apply_stage_params`, matched by class name, operation name or uid) and
 `feature_cache` installs the run's cache policy (`cache_scope`).
 
-Parsed but not run by the port yet, each refused where it would act:
-`serving` and its `fleet` block (the `serve` run type, ROADMAP.md queue
-1, item 10), `mesh` (item 9), `sweep_checkpoint` (item 7), `continual`
-and `perf_model` (item 10).
+`mesh` builds the run's device mesh (`MeshParams.build`, the runner
+passes it to `Workflow.train(mesh=)`; a data axis wider than 1 raises,
+ROADMAP.md queue 1, item 9b) and `sweep_checkpoint` makes every
+selector's sweep resumable. Parsed but not run by the port yet, each
+refused where it would act: `serving` and its `fleet` block (the `serve`
+run type, item 10), `continual` and `perf_model` (item 10).
 """
 
 from __future__ import annotations
@@ -24,10 +26,6 @@ from typing import Any, Dict, Optional
 
 # the parameters the port parses but refuses at run time, and where
 # ROADMAP.md queues them
-MESH_REFUSAL = ("device meshes are not ported yet (ROADMAP.md queue 1, "
-                "item 9: multi-GPU)")
-SWEEP_CHECKPOINT_REFUSAL = ("sweep checkpoints and journals are not ported "
-                            "yet (ROADMAP.md queue 1, item 7)")
 CONTINUAL_REFUSAL = ("the continuous-training loop is not ported yet "
                      "(ROADMAP.md queue 1, item 10)")
 PERF_MODEL_REFUSAL = ("the learned cost model is not ported yet "
@@ -156,15 +154,14 @@ class ServingParams:
 
 @dataclass
 class MeshParams:
-    """Device-mesh configuration for distributed runs (parsed as in the
-    JAX package; the port's multi-GPU sweep is ROADMAP.md queue 1, item
-    9, so `build` raises). A >1-wide
-    sweep axis makes every `ModelSelector` in the run schedule its grid
-    blocks across the mesh through the work-stealing scheduler
-    (`parallel/scheduler.py`); devices left on the data axis shard each
-    worker's row data (`parallel/mesh.py`). `n_slices` lays the mesh
-    out for a multi-slice pod via `make_multislice_mesh` (slice
-    boundaries on the sweep axis, DCN-friendly)."""
+    """Device-mesh configuration for distributed runs: the JSON-loadable
+    form the runner builds a `parallel.mesh.Mesh` from. A >1-wide sweep
+    axis makes every `ModelSelector` in the run schedule its grid blocks
+    across the mesh through the work-stealing scheduler
+    (`parallel/scheduler.py`). `n_slices` lays the mesh out in
+    contiguous slices (`make_multislice_mesh`, slice boundaries on the
+    sweep axis). Devices left on the data axis would shard each worker's
+    rows: ROADMAP.md queue 1, item 9b, so the data axis must be 1."""
 
     n_devices: Optional[int] = None   # default: every visible device
     sweep: Optional[int] = None       # sweep-axis width (default: all)
@@ -180,8 +177,34 @@ class MeshParams:
     def to_json(self) -> Dict[str, Any]:
         return {k: getattr(self, k) for k in self._FIELDS}
 
-    def build(self):
-        raise NotImplementedError(MESH_REFUSAL)
+    def build(self, device="cuda"):
+        """The configured mesh over `device`'s kind (validates
+        divisibility — a config asking for devices it cannot use must
+        fail loudly, not silently train on a subset)."""
+        from transmogrifai_tpu_torch.parallel.mesh import (
+            make_mesh, make_multislice_mesh)
+        if self.n_slices:
+            if self.sweep is not None:
+                raise ValueError(
+                    "mesh params: `sweep` cannot be combined with "
+                    "`n_slices`; control the lane count via "
+                    "`data_per_slice` (sweep = n_slices × "
+                    "devices_per_slice / data_per_slice)")
+            per = None
+            if self.n_devices is not None:
+                if self.n_devices % self.n_slices != 0:
+                    raise ValueError(
+                        f"mesh params: n_devices={self.n_devices} does "
+                        f"not divide into n_slices={self.n_slices}")
+                per = self.n_devices // self.n_slices
+            return make_multislice_mesh(
+                self.n_slices, devices_per_slice=per,
+                data_per_slice=self.data_per_slice, device=device)
+        if self.data_per_slice is not None:
+            raise ValueError(
+                "mesh params: `data_per_slice` requires `n_slices`; on a "
+                "flat mesh set `sweep` (data width = n_devices / sweep)")
+        return make_mesh(self.n_devices, sweep=self.sweep, device=device)
 
 
 @dataclass

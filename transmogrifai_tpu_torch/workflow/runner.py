@@ -37,7 +37,7 @@ from transmogrifai_tpu_torch.obs.trace import TRACER, new_run_id
 from transmogrifai_tpu_torch.utils import profiling
 from transmogrifai_tpu_torch.utils.profiling import RunProfile
 from transmogrifai_tpu_torch.workflow.params import (
-    MESH_REFUSAL, OpParams, ReaderParams)
+    OpParams, ReaderParams)
 from transmogrifai_tpu_torch.workflow.workflow import Workflow, WorkflowModel
 
 log = logging.getLogger(__name__)
@@ -174,14 +174,16 @@ class WorkflowRunner:
         return reader
 
     def _train(self, params: OpParams, profile: RunProfile) -> RunResult:
-        if params.mesh is not None:
-            raise NotImplementedError(MESH_REFUSAL)
         reader = self._resolve_reader(self.train_reader, params, "train")
         with profile.phase(profiling.DATA_READING):
             ds = reader.read(self.workflow._raw_features())
+        # mesh params: build the (sweep, data) device mesh so selector
+        # sweeps run the distributed work-stealing scheduler
+        mesh = (params.mesh.build(self.device) if params.mesh is not None
+                else None)
         with profile.phase(profiling.TRAINING, n_rows=len(ds)):
             model = self.workflow.set_input_dataset(ds).train(
-                device=self.device)
+                device=self.device, mesh=mesh)
         metrics: Dict[str, Any] = {}
         if self.prediction_feature is not None:
             fitted = model.fitted.get(self.prediction_feature.origin_stage.uid)

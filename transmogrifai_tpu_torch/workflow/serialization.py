@@ -9,7 +9,10 @@ through `from_jax_params`, which maps a JAX package class name and its
 params onto the port's class. A class the port has not ported raises and
 names itself. `save_model` writes the same three files from the port's
 fitted stages (each stage's `get_params()`), so the JAX package's
-`load_model` reads what the port trained.
+`load_model` reads what the port trained. Every file write passes the
+``serialize.write_file`` fault point first (`runtime/faults.py`), as in
+the JAX package: a save killed there leaves the previous model at `path`
+whole.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 from transmogrifai_tpu_torch import types as T
 from transmogrifai_tpu_torch.device import DeviceLike, resolve_device
 from transmogrifai_tpu_torch.features.feature import Feature
+from transmogrifai_tpu_torch.runtime.faults import SITE_WRITE_FILE, fault_point
 from transmogrifai_tpu_torch.stages.base import (
     FeatureGeneratorStage, Stage, StageRegistry, Transformer)
 
@@ -183,14 +187,19 @@ def save_model(model, path: str, overwrite: bool = True) -> None:
     try:
         names = []
         if arrays:
+            fault_point(SITE_WRITE_FILE)
             np.savez_compressed(os.path.join(tmp, ARRAYS), **arrays)
             _fsync_file(os.path.join(tmp, ARRAYS))
             names.append(ARRAYS)
+        fault_point(SITE_WRITE_FILE)
         with open(os.path.join(tmp, MANIFEST), "w") as fh:
             json.dump(manifest, fh)
             fh.flush()
             os.fsync(fh.fileno())
         names.append(MANIFEST)
+        # integrity manifest LAST: its presence asserts every other file
+        # is complete
+        fault_point(SITE_WRITE_FILE)
         integrity = {
             "integrity_version": INTEGRITY_VERSION,
             "files": {name: {

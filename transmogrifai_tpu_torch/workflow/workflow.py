@@ -11,8 +11,10 @@ features and rewires the DAG around them; workflow-level CV
 (`with_workflow_cv`) refits the estimators that feed a ModelSelector
 inside each of its folds; warm starts (`with_model_stages`) reuse an
 earlier model's fitted stages. Workflow parameters (`set_parameters`,
-`workflow/params.py`) override stage params and install the run's
-feature-cache policy. `train` returns a `WorkflowModel`, whose `score`
+`workflow/params.py`) override stage params, install the run's
+feature-cache policy and make the selectors' sweeps resumable
+(`sweep_checkpoint`); a device mesh (`train(mesh=)`) spreads them over
+the mesh's sweep lanes. `train` returns a `WorkflowModel`, whose `score`
 walks the fitted DAG eagerly, whose `score_compiled` runs the planned
 scorer (`workflow/compiled.py`), whose `evaluate` scores a dataset
 against an evaluator, and whose `save` writes the JAX package's on-disk
@@ -75,8 +77,9 @@ class Workflow:
         """An OpParams or a plain dict (`workflow/params.py`):
         `stage_params` overrides apply to the DAG's stages at train time,
         `feature_cache` installs the run's cache policy for the train's
-        extent; `sweep_checkpoint`, `continual` and `perf_model` blocks
-        raise at train time, naming their ROADMAP items."""
+        extent, `sweep_checkpoint` makes the selectors' sweeps resumable;
+        `continual` and `perf_model` blocks raise at train time, naming
+        their ROADMAP items."""
         from transmogrifai_tpu_torch.workflow.params import OpParams
         if isinstance(params, OpParams):
             self.parameters = params.to_json()
@@ -129,33 +132,44 @@ class Workflow:
 
     def _refuse_unported_parameters(self) -> None:
         from transmogrifai_tpu_torch.workflow.params import (
-            CONTINUAL_REFUSAL, PERF_MODEL_REFUSAL, SWEEP_CHECKPOINT_REFUSAL)
+            CONTINUAL_REFUSAL, PERF_MODEL_REFUSAL)
         p = self.parameters
-        if (p.get("sweep_checkpoint") or {}).get("checkpoint_dir"):
-            raise NotImplementedError(SWEEP_CHECKPOINT_REFUSAL)
         if p.get("continual") is not None:
             raise NotImplementedError(CONTINUAL_REFUSAL)
         if p.get("perf_model") is not None:
             raise NotImplementedError(PERF_MODEL_REFUSAL)
 
     def train(self, dataset: Optional[Dataset] = None, seed: int = 42,
-              device: DeviceLike = "cuda") -> "WorkflowModel":
+              device: DeviceLike = "cuda", mesh=None) -> "WorkflowModel":
         """Materialize raw features, then fit the DAG layer by layer on
         `device` (default CUDA; raises without it unless
         ``device="cpu"``). The returned model scores on the same device
         and carries `stage_seconds`: (stage, seconds) per fitted stage,
         fit and transform together. A `feature_cache` parameter is the
-        process-default cache policy for the train's extent."""
+        process-default cache policy for the train's extent.
+
+        `mesh` (`parallel.mesh.make_mesh(..., device=device)`): a sweep
+        axis wider than 1 runs every ModelSelector's sweep through the
+        work-stealing scheduler (`parallel/scheduler.py`), or through
+        K11's `_run_block` under workflow CV or with
+        ``TRANSMOGRIFAI_DISTRIBUTED_SWEEP=0``. A `sweep_checkpoint`
+        parameter's `checkpoint_dir` goes to every ModelSelector of the
+        DAG that has none of its own, so a train re-run with the same
+        parameters resumes its sweeps at the first un-journaled block."""
         from transmogrifai_tpu_torch.data.feature_cache import cache_scope
         dev = resolve_device(device)
         if not self.result_features:
             raise RuntimeError("set_result_features before train()")
+        if mesh is not None and any(torch.device(d).type != dev.type
+                                    for d in mesh.devices.flat):
+            raise ValueError(f"train(device={dev}) with a mesh over "
+                             f"other devices: {mesh}")
         self._refuse_unported_parameters()
         with cache_scope(self.parameters.get("feature_cache")):
-            return self._train_impl(dataset, seed, dev)
+            return self._train_impl(dataset, seed, dev, mesh)
 
     def _train_impl(self, dataset: Optional[Dataset], seed: int,
-                    dev: torch.device) -> "WorkflowModel":
+                    dev: torch.device, mesh=None) -> "WorkflowModel":
         ds = self._resolve_dataset(dataset)
         rff_results = None
         source_features = self.result_features
@@ -169,7 +183,16 @@ class Workflow:
                 apply_stage_params)
             apply_stage_params([s for layer in layers[1:] for s in layer],
                                stage_params, log=log)
-        ctx = FitContext(n_rows=len(ds), seed=seed, device=dev)
+        sweep_ckpt = self.parameters.get("sweep_checkpoint") or {}
+        if sweep_ckpt.get("checkpoint_dir"):
+            for layer in layers[1:]:
+                for stage in layer:
+                    est = getattr(stage, "_estimator", None) or stage
+                    if _is_selector(est) and est.checkpoint_dir is None:
+                        est.checkpoint_dir = sweep_ckpt["checkpoint_dir"]
+                        est.checkpoint_fsync = bool(
+                            sweep_ckpt.get("fsync", True))
+        ctx = FitContext(n_rows=len(ds), seed=seed, device=dev, mesh=mesh)
         columns: Dict[str, Column] = {}
         fitted: Dict[str, Transformer] = {}
         stage_seconds: List[Tuple[str, float]] = []
@@ -299,7 +322,8 @@ def _make_cv_refit(selector_stage, layers, columns, ctx: FitContext):
                 if isinstance(est, Estimator):
                     fold_ctx = FitContext(
                         n_rows=len(fold_rows),
-                        seed=ctx.seed * 1000003 + salt, device=ctx.device)
+                        seed=ctx.seed * 1000003 + salt, device=ctx.device,
+                        mesh=ctx.mesh)
                     m = est.fit_model(
                         [c.take(fold_rows) for c in ins_full], fold_ctx)
                     m.uid = est.uid
