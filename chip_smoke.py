@@ -3438,11 +3438,13 @@ def quant_serving(port, pt, pc, device="cuda"):
     return launches, loaded
 
 
-# batches timed a (model, wire, dispatch, bucket) in `serving_timing`, and
-# batches split into host and device-segment time: 36 such cells share
-# the script's 600 s target with every other phase
-SERVE_TIMED_BATCHES = 10
-SERVE_SPLIT_BATCHES = 5
+# batches timed a (model, wire, dispatch, bucket) in `serving_timing`,
+# batches split into host and device-segment time, and batches under the
+# profiler: 36 such cells share the script's 600 s target with every
+# other phase (cut from 10, 5 and 10 when phase 30 was added)
+SERVE_TIMED_BATCHES = 6
+SERVE_SPLIT_BATCHES = 3
+SERVE_PROFILED_BATCHES = 5
 
 
 def serving_timing(port, pc, served):
@@ -3450,7 +3452,8 @@ def serving_timing(port, pc, served):
     (a measurement only), f32 and int8, for each served model: wall ms per
     batch, the share of it inside device segments (`_dispatch`: the
     host→device copy, the replay or the eager launches, the output copies)
-    and the device's busy share from `torch.profiler` over 10 batches."""
+    and the device's busy share from `torch.profiler` over
+    SERVE_PROFILED_BATCHES batches."""
     out = {}
     for name, (model, ds) in served.items():
         for quant in (None, "int8"):
@@ -3490,11 +3493,12 @@ def serving_timing(port, pc, served):
                     acts = [torch.profiler.ProfilerActivity.CPU,
                             torch.profiler.ProfilerActivity.CUDA]
                     with torch.profiler.profile(activities=acts) as prof:
-                        for _ in range(10):
+                        for _ in range(SERVE_PROFILED_BATCHES):
                             scorer.score_padded(sample, bucket)
                         torch.cuda.synchronize()
                     dev_items = sorted(
-                        ((e.key, e.self_device_time_total / 1e3 / 10)
+                        ((e.key, e.self_device_time_total / 1e3
+                          / SERVE_PROFILED_BATCHES)
                          for e in prof.key_averages()
                          if e.device_type == torch.autograd.DeviceType.CUDA
                          and e.self_device_time_total > 0),
@@ -6513,21 +6517,21 @@ def judge_structural_sweep(want, folds, winner) -> dict:
 
 
 @contextlib.contextmanager
-def shadow_kernels():
-    """While open, every call of a STRUCT_SHADOWED wrapper on card tensors
-    is followed by its plain version on the same inputs (buffers written
-    in place are given to the plain version as copies taken before the
-    call), and the two compared: K1 within the f32 summation bound of
-    `check_training_kernels`, K3's leaves equal to the plain version's on
-    the CPU (row-order sums), the rest equal. The caller goes on with the
-    kernel's result. The comparisons add up on the card and are read once,
-    on exit. Yields {wrapper: {"calls", "bad", "max_abs_err"}}."""
+def shadow_kernels(names=STRUCT_SHADOWED):
+    """While open, every call of a wrapper in `names` (STRUCT_SHADOWED, and
+    "leaf_sums") on card tensors is followed by its plain version on the
+    same inputs (buffers written in place are given to the plain version
+    as copies taken before the call), and the two compared: K1 within the
+    f32 summation bound of `check_training_kernels`, K3's leaves and leaf
+    sums equal to the plain version's on the CPU (row-order sums), the
+    rest equal. The caller goes on with the kernel's result. The
+    comparisons add up on the card and are read once, on exit. Yields
+    {wrapper: {"calls", "bad", "max_abs_err"}}."""
     import sys as _sys
 
     from transmogrifai_tpu_torch.evaluators import device_metrics as pdm
     from transmogrifai_tpu_torch.models import trees as pt
-    rec = {k: {"calls": 0, "bad": 0, "max_abs_err": 0.0}
-           for k in STRUCT_SHADOWED}
+    rec = {k: {"calls": 0, "bad": 0, "max_abs_err": 0.0} for k in names}
     acc = {}  # wrapper -> [calls that disagreed, largest gap], as tensors
 
     def note(name, err, bad):
@@ -6614,6 +6618,15 @@ def shadow_kernels():
             note("leaf_values", gap(host, want), differ([(host, want)]))
         return got
 
+    def leaf_sums(node_idx, G, H, n_leaves):
+        got = orig["leaf_sums"](node_idx, G, H, n_leaves)
+        if G.is_cuda:
+            want = pt.leaf_sums_plain(node_idx.cpu(), G.cpu(), H.cpu(),
+                                      n_leaves)
+            host = got.cpu()
+            note("leaf_sums", gap(host, want), differ([(host, want)]))
+        return got
+
     def binned_aupr(m, y, w, n_bins, from_margin):
         got = orig["binned_aupr"](m, y, w, n_bins, from_margin)
         if m.is_cuda:
@@ -6623,14 +6636,14 @@ def shadow_kernels():
 
     shadows = {"bin_features": bin_features, "histograms": histograms,
                "split_search": split_search, "route_level": route_level,
-               "leaf_values": leaf_values, "binned_aupr": binned_aupr}
-    orig = {"binned_aupr": pdm.binned_aupr,
-            **{k: getattr(pt, k) for k in STRUCT_SHADOWED
-               if k != "binned_aupr"}}
+               "leaf_values": leaf_values, "leaf_sums": leaf_sums,
+               "binned_aupr": binned_aupr}
+    orig = {k: pdm.binned_aupr if k == "binned_aupr" else getattr(pt, k)
+            for k in names}
     bound = [(mod, k) for mod in list(_sys.modules.values())
              if getattr(mod, "__name__", "").startswith(
                  "transmogrifai_tpu_torch")
-             for k in STRUCT_SHADOWED if getattr(mod, k, None) is orig[k]]
+             for k in names if getattr(mod, k, None) is orig[k]]
     for mod, k in bound:
         setattr(mod, k, shadows[k])
     try:
@@ -8170,6 +8183,301 @@ def resumable_sweep_phase(port, pt, ds, draws, phase12_model,
     return record
 
 
+# --------------------------------------------------------------------------- #
+# 30. the data axis                                                           #
+# --------------------------------------------------------------------------- #
+
+# the witness of the sharded sweep: every launch of these wrappers followed
+# by its plain version on the same inputs (`shadow_kernels`)
+DATA_AXIS_SHADOWED = STRUCT_SHADOWED + ("leaf_sums",)
+# the kernels the sharded sweep launches on each shard (K1, K3's routing,
+# the leaf-sums entry, K4) and on the lead (K2, K8)
+DATA_AXIS_KERNELS = ("histograms", "split_search", "split_search_live",
+                     "route_level", "leaf_sums", "bin_features",
+                     "tree_walk", "binned_aupr")
+# K3's leaf-sums entry is timed at the depth-12 forest chunk's leaf pass:
+# (pairs, rows, leaves, class channels), the leaf_values row's shape
+LEAF_SUMS_CASE = (900, 802, 4096, 2)
+# the JAX package's sharded-vs-unsharded bounds (tests/test_multichip.py:52,
+# :272-275): linear families rtol 2e-4; trees atol 2e-3, 90 % within 2e-4
+SHARDED_RTOL, SHARDED_TREE_ATOL, SHARDED_TREE_CLOSE = 2e-4, 2e-3, 2e-4
+
+
+@contextlib.contextmanager
+def launch_deltas(module, name, kernels, shards_of):
+    """While open, each call of `module.name` records (row shards of the
+    call, or 1, and {kernel: launches during the call})."""
+    from transmogrifai_tpu_torch import cuda_build
+    orig = getattr(module, name)
+    calls = []
+
+    def spy(*a, **kw):
+        before = cuda_build.launches_snapshot()
+        out = orig(*a, **kw)
+        after = cuda_build.launches_snapshot()
+        rs = shards_of(a, kw)
+        calls.append((1 if rs is None else rs.n_shards, a, kw,
+                      {k: after[k] - before[k] for k in kernels}))
+        return out
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def per_shard_launches(pt, trees, bins) -> dict:
+    """The sharded sweep's launches a shard, and whether every sharded
+    `grow_trees` call launched K1 (depth·groups), K3's routing (depth) and
+    the leaf-sums entry (groups) once a shard and no leaf_values, and every
+    sharded binning launched K4 once a shard and feature block."""
+    from transmogrifai_tpu_torch import cuda_build
+    max_m = cuda_build.entry("histograms", "histograms_max_m")()
+    leaf_m = cuda_build.entry("route_leaves", "leaf_values_max_m")()
+    per, ok, calls = {}, True, 0
+    for S, a, kw, delta in trees:
+        if S == 1:
+            continue
+        calls += 1
+        depth, m = a[3], a[1][0].shape[1]
+        want = {"histograms": depth * len(pt.hist_channel_groups(m, max_m)),
+                "route_level": depth, "leaf_sums": -(-m // leaf_m),
+                "leaf_values": 0}
+        for k, v in want.items():
+            ok &= delta[k] == S * v
+        for k in ("histograms", "route_level", "leaf_sums"):
+            per[k] = per.get(k, 0) + delta[k] // S
+    binned = [(S, d["bin_features"]) for S, _, _, d in bins if S > 1]
+    ok &= bool(binned) and all(v % S == 0 for S, v in binned)
+    per["bin_features"] = sum(v // S for S, v in binned)
+    return {"sharded_grow_trees_calls": calls, "per_shard": per,
+            "sharded_binnings": len(binned), "once_a_shard": bool(ok)}
+
+
+def sharded_fold_check(got: dict, want: dict) -> dict:
+    """Fold metrics of a sharded sweep against the unsharded one, per
+    family, at the JAX package's sharded-vs-unsharded bounds."""
+    fams = {}
+    for (fam, _), a, b in zip(want["configs"], got["matrix"],
+                              want["matrix"]):
+        fams.setdefault(fam, ([], []))
+        fams[fam][0].extend(a)
+        fams[fam][1].extend(b)
+    out = {}
+    for fam, (a, b) in fams.items():
+        a, b = np.array(a), np.array(b)
+        gap = np.abs(a - b)
+        if fam == "OpLogisticRegression":
+            ok = bool((gap <= SHARDED_RTOL * np.abs(b)).all())
+        else:
+            ok = bool(gap.max() <= SHARDED_TREE_ATOL
+                      and (gap <= SHARDED_TREE_CLOSE).mean() >= 0.9)
+        out[fam] = {"max_abs_err": float(gap.max()),
+                    "share_within_2e-4": float((gap <= 2e-4).mean()),
+                    "ok": ok}
+    return {"families": out, "ok": all(v["ok"] for v in out.values())}
+
+
+def scores_gap(a: dict, b: dict) -> dict:
+    return {k: float(np.abs(a[k] - b[k]).max())
+            for k in ("rawPrediction", "probability")}
+
+
+def leaf_sums_timing(pt, dev) -> dict:
+    """K3's leaf-sums entry at LEAF_SUMS_CASE on random leaves: CUDA-event
+    ms beside its plain version's, `index_add_` once a channel (the
+    library yardstick) and the bound by bytes (G, H and the node ids read
+    once, the sums written once); its result against the CPU's row-order
+    sums."""
+    P, n, L, m = LEAF_SUMS_CASE
+    rng = np.random.default_rng(30)
+    node = torch.from_numpy(rng.integers(0, L, (P, n)).astype(np.int32))
+    G = torch.from_numpy(rng.poisson(1.0, (P, m, n)).astype(np.float32)
+                         * rng.uniform(0.5, 1, (P, 1, n)).astype(np.float32))
+    H = torch.from_numpy(rng.uniform(0.05, 1.0, (P, n)).astype(np.float32))
+    want = pt.leaf_sums_plain(node, G, H, L)
+    nc, Gc, Hc = node.to(dev), G.to(dev), H.to(dev)
+    got = pt.leaf_sums(nc, Gc, Hc, L).cpu()
+    err = float((got - want).abs().max())
+    slot = (nc.long() + torch.arange(P, device=dev)[:, None] * L).reshape(-1)
+    srcs = [Gc[:, c].reshape(-1) for c in range(m)] + [Hc.reshape(-1)]
+
+    def library():  # index_add_ per channel: the leaves' sums
+        for src in srcs:
+            torch.zeros(P * L, device=dev).index_add_(0, slot, src)
+    nbytes = (m + 2) * P * n * 4 + P * L * (m + 1) * 4
+    bound_ms, bound_by = bound(nbytes, (m + 1) * P * n)
+    out = {"pairs": P, "rows": n, "leaves": L, "channels": m,
+           "ms": cuda_ms(lambda: pt.leaf_sums(nc, Gc, Hc, L), 20),
+           "leaf_values_ms": cuda_ms(lambda: pt.leaf_values(
+               nc, Gc, Hc, L, 1e-6, 0.0), 20),
+           "plain_ms": cuda_ms(lambda: pt.leaf_sums_plain(nc, Gc, Hc, L),
+                               10),
+           "library_ms": cuda_ms(library, 10), "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "max_abs_err": err,
+           "equal_to_row_order_sums": err == 0.0}
+    return out
+
+
+def data_axis_phase(port, pt, ds, draws, phase12_model, phase12_rec,
+                    card: str, device="cuda") -> dict:
+    """Phase 30: (a) phase 12's train on a (1, 2) mesh whose two data
+    shards are both the card, held to phase 12 (winner equal, fold metrics
+    within the JAX package's sharded-vs-unsharded bounds), with the
+    launches a shard; (b) the same through the scheduler on a (2, 2) mesh
+    of the card, equal to (a) bit for bit; (c) sharded scoring of 890
+    rows (2 divides them) and of 891 (replicated) against the unsharded
+    scorer at the serving tolerances; (d) one sharded XGB block and one
+    depth-12 RF block with every launch held against its plain version;
+    (e) (a) over distinct cards when the machine has two; and K3's
+    leaf-sums entry timed."""
+    from transmogrifai_tpu_torch.models import trees as trees_mod
+    from transmogrifai_tpu_torch.parallel import sweep as sweep_mod
+    from transmogrifai_tpu_torch.parallel.mesh import Mesh, data_sharding
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    walls, checks = {}, {}
+    want = sweep_outcome(summary_of(phase12_model))
+    mesh = Mesh(np.array([[dev, dev]], dtype=object))
+    mesh22 = Mesh(np.array([[dev, dev], [dev, dev]], dtype=object))
+
+    # (a) phase 12's train on two data shards of the card
+    pt.reset_launches()
+    t0 = time.perf_counter()
+    with launch_deltas(trees_mod, "grow_trees",
+                       ("histograms", "route_level", "leaf_sums",
+                        "leaf_values"),
+                       lambda a, kw: kw.get("shards")) as trees, \
+            launch_deltas(sweep_mod, "_binned_cache", ("bin_features",),
+                          lambda a, kw: getattr(
+                              kw.get("rows", a[4] if len(a) > 4 else None),
+                              "shards", None)) as bins:
+        model_a, pred, _ = quickstart_train(port, pt, ds, draws, device,
+                                            mesh=mesh)
+    walls["a_train_on_two_shards"] = time.perf_counter() - t0
+    launches = {k: pt.LAUNCHES[k]
+                for k in DATA_AXIS_KERNELS + ("leaf_values",)}
+    got_a = sweep_outcome(summary_of(model_a))
+    folds_a = sharded_fold_check(got_a, want)
+    shards_a = (per_shard_launches(pt, trees, bins) if dev.type == "cuda"
+                else {})
+    checks["a_configs_equal"] = got_a["configs"] == want["configs"]
+    checks["a_winner_equal"] = got_a["winner"] == want["winner"]
+    checks["a_folds_within_bounds"] = folds_a["ok"]
+    checks["a_launches_once_a_shard"] = shards_a["once_a_shard"] \
+        if dev.type == "cuda" else True
+    checks["a_kernels_launched"] = dev.type != "cuda" or all(
+        launches[k] >= 1 for k in DATA_AXIS_KERNELS)
+
+    # (b) the scheduler on a (2, 2) mesh: two lanes, each a (1, 2) row
+    t0 = time.perf_counter()
+    model_b, _, _ = quickstart_train(port, pt, ds, draws, device,
+                                     mesh=mesh22)
+    walls["b_scheduler_on_2x2"] = time.perf_counter() - t0
+    checks["b_equals_a"] = sweep_outcome(summary_of(model_b)) == got_a
+    sched = summary_of(model_b).timings["families"].get("scheduler", {})
+
+    # (c) sharded scoring: 890 rows on two shards, 891 replicated
+    scoring = {}
+    t0 = time.perf_counter()
+    for rows in (890, 891):
+        batch = ds.take(np.arange(rows))
+        plain = prediction_of(model_a.score_compiled(batch))
+        got = prediction_of(model_a.score_compiled(
+            batch, sharding=data_sharding(mesh)))
+        sc = model_a._compiled
+        gap = scores_gap(got, plain)
+        scoring[rows] = {"max_abs_err": gap,
+                         "sharded_batches": sc.sharded_batches,
+                         "replicated_batches": sc.replicated_batches}
+        checks[f"c_{rows}_rows"] = (
+            gap["rawPrediction"] <= 2e-5 and gap["probability"] <= 1e-5
+            and got["probability"].shape == (rows, 2)
+            and np.isfinite(got["probability"]).all()
+            and (sc.sharded_batches, sc.replicated_batches)
+            == ((1, 0) if rows % 2 == 0 else (0, 1)))
+    sync(device)
+    walls["c_sharded_scoring"] = time.perf_counter() - t0
+
+    # (d) the witness: one sharded XGB block, one depth-12 RF block
+    sel, X, y, folds, ctx = selector_inputs(model_a, pred, device)
+    ctx.mesh = mesh
+    xgb = next((e, g) for e, g in sel.models
+               if type(e).__name__ == "OpXGBoostClassifier")
+    rf_est, rf_grids = next((e, g) for e, g in sel.models
+                            if type(e).__name__ == "OpRandomForestClassifier")
+    rf12 = [next(g for g in rf_grids if g.get("max_depth") == 12)]
+    witness = {}
+    if dev.type == "cuda":
+        pt.reset_launches()
+        t0 = time.perf_counter()
+        with shadow_kernels(DATA_AXIS_SHADOWED) as rec, \
+                pt.injected_forest_draws(draws):
+            got_d = [sweep_mod.run_sweep(e, g, X, y, folds, sel.evaluator,
+                                         ctx)
+                     for e, g in (xgb, (rf_est, rf12))]
+        sync(device)
+        walls["d_shadowed_blocks"] = time.perf_counter() - t0
+        rows_a = dict(zip([repr(c) for c in got_a["configs"]],
+                          got_a["matrix"]))
+        main = [[rows_a[repr(("OpXGBoostClassifier", g))] for g in xgb[1]],
+                [rows_a[repr(("OpRandomForestClassifier", g))]
+                 for g in rf12]]
+        launched = dict(pt.LAUNCHES)
+        calls = {k: rec[k]["calls"] for k in rec}
+        counted = {"split_search": launched["split_search"]
+                   + launched["split_search_live"],
+                   **{k: launched[k] for k in rec if k != "split_search"}}
+        witness = {"shadow": rec, "launches": counted,
+                   "every_launch_shadowed": all(
+                       calls[k] == counted[k] for k in rec) and all(
+                       calls[k] >= 1 for k in rec if k != "leaf_values"),
+                   "kernels_equal_plain": all(r["bad"] == 0
+                                              for r in rec.values()),
+                   "same_as_a": [[list(r) for r in m] for m in got_d]
+                   == main}
+        checks["d_witness"] = (witness["every_launch_shadowed"]
+                               and witness["kernels_equal_plain"]
+                               and witness["same_as_a"])
+
+    # (e) distinct cards
+    count = torch.cuda.device_count() if dev.type == "cuda" else 0
+    distinct = None
+    if count >= 2:
+        t0 = time.perf_counter()
+        model_e, _, _ = quickstart_train(
+            port, pt, ds, draws, device,
+            mesh=Mesh(np.array([[torch.device("cuda", 0),
+                                 torch.device("cuda", 1)]], dtype=object)))
+        walls["e_two_cards"] = time.perf_counter() - t0
+        distinct = {"ran": True, "equals_a": sweep_outcome(
+            summary_of(model_e)) == got_a}
+        checks["e_two_cards_equal_a"] = distinct["equals_a"]
+    else:
+        distinct = {"ran": False, "device_count": count}
+        emit({"phase": "data_axis", "part": "e", "distinct_cards": False,
+              "note": f"not run: torch.cuda.device_count() is {count}, "
+                      "distinct cards need two"})
+
+    timing = leaf_sums_timing(pt, dev) if dev.type == "cuda" else {}
+    if timing:
+        checks["leaf_sums_equal_row_order"] = timing[
+            "equal_to_row_order_sums"]
+    record = {"phase": "data_axis", "card": card, "shards": 2,
+              "walls_s": walls, "wall_s": sum(walls.values()),
+              "phase12_train_s": phase12_rec["wall_s"]["train"],
+              "checks": checks, "fold_metrics": folds_a,
+              "launches_main_path": launches, "launches_a_shard": shards_a,
+              "scheduler": sched, "scoring": scoring, "witness": witness,
+              "distinct_cards": distinct, "leaf_sums_timing": timing,
+              "ok": all(checks.values())}
+    emit(record)
+    if not record["ok"]:
+        raise AssertionError(f"phase 30 failed: {checks}")
+    return record
+
+
 def missing_parts() -> list:
     """What this run lacks before it can start: a CUDA device, and the
     port's package beside this script (a copy of `chip_smoke.py` alone in
@@ -8457,6 +8765,11 @@ def main() -> int:
     resumable_sweep_phase(port, pt, default_ds, default_draws,
                           default_model, card)
 
+    # 30. the data axis: row shards ------------------------------------ #
+    data_axis = data_axis_phase(port, pt, default_ds, default_draws,
+                                default_model, default_rec, card)
+    lsum = data_axis["leaf_sums_timing"]
+
     # 10. the kernels line, the card, the result --------------------------- #
     main_n = timing[891]
     aupr = fit_timing[f"n{FIT_N}_aupr512"]["binned_aupr"]
@@ -8579,6 +8892,12 @@ def main() -> int:
          "replaces": "transmogrifai_tpu/insights/loco.py:98",
          **{k: k5l[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                 "bound_ms", "bound_by", "library_ms")}},
+        {"name": "leaf_sums", "route": "cuda",
+         "source": "transmogrifai_tpu_torch/csrc/route_leaves.cu",
+         "replaces": "transmogrifai_tpu/models/trees.py:289",
+         "launches": data_axis["launches_main_path"]["leaf_sums"],
+         **{k: lsum[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -307,7 +307,7 @@ def test_a_failed_upload_wakes_the_workers_waiting_on_the_ring():
 @pytest.mark.parametrize("builder", ["matrix", "binned", "dual"])
 def test_builders_refuse_what_is_not_ported(stores, built, arg, builder,
                                             tmp_path, monkeypatch):
-    """`sharding=` raises naming its ROADMAP item (queue 1, item 9b);
+    """`sharding=` raises naming its ROADMAP item (queue 1, item 9c);
     `cache=` is ported (tests/test_torch_feature_cache.py): a readwrite
     build misses, writes its artifact and the next build hits it; and
     `retry=` is ported: chunk reads failing transiently at the
@@ -343,7 +343,7 @@ def test_builders_refuse_what_is_not_ported(stores, built, arg, builder,
             assert torch.equal(a, b)
     else:
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, item 9b"):
+                           match="ROADMAP queue 1, item 9c"):
             fn(device="cpu", **arg)
     fn(device="cpu", chunk_rows=CHUNK, cache="off")  # "off" is no cache
 

@@ -23,7 +23,10 @@ taking the pair's zero search, also at lambda 0 and min_child_weight 0
 where that search's gains are NaN), written into strided table rows, its
 marks equal; K3 node ids and flags equal, out of place and through a row
 stride, and leaf values within atol 1e-6 of the plain version and
-bit-equal to a row-order f32 sum; `grow_trees` over the live set equal to
+bit-equal to a row-order f32 sum, and K3's leaf-sums entry bit-equal to
+the row-order sums in both designs; a tree grown over two row shards of
+one card equal to the same shards' on the CPU (integer counts);
+`grow_trees` over the live set equal to
 the dense search and to the CPU's, at depth 12 with float gradients; K8 binned AuPR equal at 512, 4096 and
 16,384 buckets, one block a pair and rows split over blocks, on clustered
 scores, without positives, and the same bits on two runs. Forest kernels (m = 2 class channels, integer values): K1 and
@@ -1940,6 +1943,70 @@ def test_leaf_designs_agree_at_the_main_path_shapes(cuda, P, n, L):
             got = pt._leaf_values_cuda(node.to(cuda), G.to(cuda), H.to(cuda),
                                        L, lam, alpha, regime)
             assert torch.equal(got.cpu(), want), regime
+
+
+@pytest.mark.parametrize("m", [1, 2, 5])
+def test_leaf_sums_are_bit_equal_to_row_order_sums(cuda, m):
+    """K3's leaf-sums entry in both designs (at most LEAF_SCAN_MAX_ROWS
+    rows a pair and above) and in the wrapper's own choice: the (P, L,
+    m + 1) sums bit-equal to the CPU's row-order `index_add_` (m = 5 in
+    two channel groups), and the leaf formula of them leaf_values' bits."""
+    rng = np.random.default_rng(40 + m)
+    lam, alpha = [1.0, 0.5, 2.0], [0.0, 0.1, 0.0]
+    before = pt.LAUNCHES["leaf_sums"]
+    for n in (pt.LEAF_SCAN_MAX_ROWS - 1, pt.LEAF_SCAN_MAX_ROWS + 1, 65536):
+        node, G, H = _leaf_case(rng, 3, n, 64, m)
+        want = pt.leaf_sums_plain(node, G, H, 64)
+        nc, Gc, Hc = node.to(cuda), G.to(cuda), H.to(cuda)
+        for regime in ("scan", "segments", None):
+            got = (pt._leaf_sums_cuda(nc, Gc, Hc, 64, regime) if regime
+                   else pt.leaf_sums(nc, Gc, Hc, 64))
+            assert torch.equal(got.cpu(), want), (n, regime)
+        vals = pt.leaf_values(nc, Gc, Hc, 64, lam, alpha)
+        assert torch.equal(pt._leaf_formula(got[..., :-1], got[..., -1], lam,
+                                            alpha), vals), n
+    assert pt.LAUNCHES["leaf_sums"] - before == 9 * (1 + (m > 4))
+
+
+@pytest.mark.parametrize("depth", [4, 12])
+def test_grow_trees_on_two_shards_of_one_card_match_the_cpu(cuda, depth):
+    """A tree grown over two row shards of one card (a data axis that
+    repeats the card) against the same shards on the CPU and against one
+    shard on the card: integer counts, so every sum is exact and the
+    tables, node ids and leaves are equal; K1, K3's routing and the
+    leaf-sums entry launch once a shard."""
+    from transmogrifai_tpu_torch.parallel.rowshards import RowShards
+    rng = np.random.default_rng(depth)
+    P, n, d, B = 6, 3001, 8, 16
+    Xb = torch.from_numpy(rng.integers(0, B, (n, d)).astype(np.int8))
+    H = torch.from_numpy(rng.integers(0, 4, (P, n)).astype(np.float32))
+    G = (torch.from_numpy(rng.integers(0, 2, (2, n)).astype(np.float32))
+         [None] * H[:, None]).contiguous()
+    kw = dict(reg_lambda=1e-6, min_child_weight=2.0, min_gain_norm=0.001)
+
+    def grow(dev, S):
+        rs = RowShards(n, [dev] * S)
+        tree, node = pt.grow_trees(
+            rs.split(Xb.to(dev)), rs.split(G.to(dev), 2),
+            rs.split(H.to(dev), 1), depth, B, shards=rs, **kw)
+        return {k: v.cpu() for k, v in tree.items()}, rs.gather(node, 1).cpu()
+
+    pt.reset_launches()
+    card, card_node = grow(cuda, 2)
+    torch.cuda.synchronize()
+    launched = dict(pt.LAUNCHES)
+    cpu, cpu_node = grow(torch.device("cpu"), 2)
+    one, one_node = pt.grow_trees(Xb.to(cuda), G.to(cuda), H.to(cuda), depth,
+                                  B, **kw)
+    for k in ("feat", "bin", "leaf"):
+        assert torch.equal(card[k], cpu[k]), k
+        assert torch.equal(card[k], one[k].cpu()), k
+    assert torch.equal(card_node, cpu_node)
+    assert torch.equal(card_node, one_node.cpu())
+    assert launched["leaf_sums"] == 2 and launched["leaf_values"] == 0
+    assert launched["route_level"] == 2 * depth
+    assert launched["histograms"] == 2 * (depth if depth < 12
+                                          else 1 + (depth - 1))
 
 
 # --------------------------------------------------------------------------- #

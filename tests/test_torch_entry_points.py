@@ -95,6 +95,17 @@ def test_k5_loco_entry_point_is_held_to_its_c_signature():
                                      "tree_walk_loco_typed")]) == want
 
 
+def test_leaf_sums_entry_point_is_held_to_its_c_signature():
+    """K3's leaf-sums entry (`leaf_sums`, csrc/route_leaves.cu): six
+    pointers (G, H, node ids, order, segments, sums), four ints (P, n,
+    n_leaves, m) and the stream."""
+    want = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    got = {(n, f): t for n, f, t in C_ENTRIES}[("route_leaves",
+                                                 "leaf_sums")]
+    assert got == want
+    assert list(cuda_build.ARGTYPES[("route_leaves", "leaf_sums")]) == want
+
+
 _DEVICE_ENTRIES = {
     "make_mesh": lambda m, tmp, **kw: m.make_mesh(**kw),
     "make_multislice_mesh": lambda m, tmp, **kw: m.make_multislice_mesh(

@@ -269,9 +269,10 @@ def test_model_evaluate_equals_the_runs_metrics(both_runs):
 def test_refused_runs_and_parameters_name_their_items(case, item,
                                                       tmp_path):
     """Run types and parameter blocks the port has not ported raise,
-    naming their ROADMAP items; a mesh is refused only for a data axis
-    wider than 1 (item 9b), and `sweep_checkpoint` (item 7) is ported:
-    the train runs and journals its sweep."""
+    naming their ROADMAP items. Two blocks are ported and run: a mesh with
+    a data axis (item 9b: the train sweeps on row shards of a (1, 2) mesh
+    and selects the winner of the train without a mesh), and
+    `sweep_checkpoint` (item 7: the train runs and journals its sweep)."""
     ns = app_ns("port")
     runner, survived, pred = chip_smoke.titanic_app_runner(
         ns, lr_models(ns), age_group=registered_age_group(ns),
@@ -289,6 +290,15 @@ def test_refused_runs_and_parameters_name_their_items(case, item,
     if case == "sweep_checkpoint":
         runner.run(run_type, params)
         assert any(n.endswith(".journal") for n in os.listdir(tmp_path))
+        return
+    if case == "mesh":
+        assert params.mesh.build("cpu").shape == {"sweep": 1, "data": 2}
+        sharded = runner.run(run_type, params).metrics
+        plain = runner.run(run_type, P()).metrics
+        assert (sharded["best_model"], sharded["best_grid"]) == (
+            plain["best_model"], plain["best_grid"])
+        assert sharded["holdout"]["AuPR"] == pytest.approx(
+            plain["holdout"]["AuPR"], rel=2e-4)
         return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1, {item}"):

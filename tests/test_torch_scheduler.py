@@ -307,16 +307,22 @@ def test_run_sweep_shardings_equal_the_unsharded_sweep():
         assert got == want
 
 
-def test_a_data_axis_wider_than_one_raises_naming_item_9b():
+def test_a_data_axis_wider_than_one_builds_and_trains():
+    """A data axis wider than 1 builds (make_mesh, the multislice layout,
+    MeshParams) and trains: the scheduler on a (2, 2) mesh gives each
+    worker its (1, 2) row and equals K11 on a (1, 2) mesh bit for bit,
+    and both select the unsharded sweep's winner."""
     from transmogrifai_tpu_torch.parallel.mesh import (
         make_mesh, make_multislice_mesh)
     from transmogrifai_tpu_torch.workflow.params import MeshParams
-    with pytest.raises(NotImplementedError, match="queue 1, item 9b"):
-        make_mesh(4, sweep=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9b"):
-        make_multislice_mesh(2, devices_per_slice=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9b"):
-        MeshParams(n_devices=4, sweep=1).build("cpu")
+    grid = make_mesh(4, sweep=2, device="cpu")
+    assert grid.shape == {"sweep": 2, "data": 2}
+    assert [len(r) for r in grid.rows()] == [2, 2]
+    assert make_multislice_mesh(2, devices_per_slice=2,
+                                device="cpu").shape == {"sweep": 2,
+                                                        "data": 2}
+    assert MeshParams(n_devices=4, sweep=1).build("cpu").shape == {
+        "sweep": 1, "data": 4}
     mesh = make_multislice_mesh(2, devices_per_slice=2, data_per_slice=1,
                                 device="cpu")
     assert mesh.shape == {"sweep": 4, "data": 1}
@@ -324,6 +330,31 @@ def test_a_data_axis_wider_than_one_raises_naming_item_9b():
                                                            "data": 1}
     with pytest.raises(ValueError):
         make_mesh(4, sweep=3, device="cpu")
+    from test_torch_journal import binary_problem
+    X, y = binary_problem(0)
+    plain = outcome(selector_fit(X, y)[1])
+    row = outcome(selector_fit(X, y, mesh=make_mesh(2, sweep=1,
+                                                    device="cpu"))[1])
+    scheduled = outcome(selector_fit(X, y, mesh=grid)[1])
+    assert scheduled == row
+    assert row[2] == plain[2] and row[0] == plain[0]
+
+
+@pytest.mark.parametrize("family", ["OpLinearSVC",
+                                    "OpGeneralizedLinearRegression",
+                                    "OpNaiveBayes",
+                                    "OpMultilayerPerceptronClassifier"])
+def test_families_off_the_data_axis_raise_naming_item_9c(family):
+    """The families the data axis does not reach yet raise on a (1, 2)
+    mesh, naming ROADMAP queue 1, item 9c, rather than fit unsharded."""
+    import transmogrifai_tpu_torch as port
+    from transmogrifai_tpu_torch.parallel.mesh import make_mesh
+    from transmogrifai_tpu_torch.parallel.sweep import run_sweep
+    X, y, folds, ev, ctx = _port_inputs()
+    ctx.mesh = make_mesh(2, sweep=1, device="cpu")
+    est = getattr(port, family)()
+    with pytest.raises(NotImplementedError, match="queue 1, item 9c"):
+        run_sweep(est, [{}], X.abs(), y, folds, ev, ctx)
 
 
 def test_workflow_cv_bins_each_fold_matrix_f26():

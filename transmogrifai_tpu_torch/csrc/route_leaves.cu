@@ -68,6 +68,13 @@
 // lambda and alpha come per pair (pointers) or as one value each (a null
 // pointer and the value), so a scalar hyperparameter needs no tensor.
 //
+// leaf_sums is the same pass with the formula left out (the kernels'
+// SUMS instance): it writes each leaf's m channel sums and its weight sum,
+// (P, n_leaves, m + 1) f32, in the same designs and row order. A tree
+// grown over row shards (a mesh's data axis) adds the shards' sums on
+// one card and applies the formula there: the formula of a partial sum
+// would be a wrong leaf.
+//
 // C interface for ctypes: each entry point launches on `stream` and returns
 // cudaGetLastError().
 
@@ -274,8 +281,25 @@ __device__ __forceinline__ void write_leaf(const float (&acc)[M + 1],
   }
 }
 
+// a leaf's output: the leaf formula (leaf_values, M floats a leaf) or,
+// with SUMS, the sums themselves (leaf_sums, M + 1 floats a leaf: the
+// channels, then the weights), for a caller that adds several row shards'
+// sums before it applies the formula
+template <int M, bool SUMS>
+__device__ __forceinline__ void write_out(const float (&acc)[M + 1],
+                                          const LeafParams& lp, int p,
+                                          float* __restrict__ leaf,
+                                          int64_t at) {
+  if (SUMS) {
+#pragma unroll
+    for (int c = 0; c <= M; ++c) leaf[at * (M + 1) + c] = acc[c];
+  } else {
+    write_leaf<M>(acc, lp, p, leaf + at * M);
+  }
+}
+
 // a warp per (pair, 32 leaves), no sort
-template <int M>
+template <int M, bool SUMS>
 __global__ void leaf_scan_kernel(const float* __restrict__ G,
                                  const float* __restrict__ H,
                                  const int32_t* __restrict__ node,
@@ -324,11 +348,11 @@ __global__ void leaf_scan_kernel(const float* __restrict__ G,
     }
   }
   if (mine < n_leaves)
-    write_leaf<M>(acc, lp, p, leaf + ((int64_t)p * n_leaves + mine) * M);
+    write_out<M, SUMS>(acc, lp, p, leaf, (int64_t)p * n_leaves + mine);
 }
 
 // a warp per (pair, leaf) over the leaf's segment of `order`
-template <int M>
+template <int M, bool SUMS>
 __global__ void leaf_segments_kernel(const float* __restrict__ G,
                                      const float* __restrict__ H,
                                      const int32_t* __restrict__ order,
@@ -389,7 +413,7 @@ __global__ void leaf_segments_kernel(const float* __restrict__ G,
 #pragma unroll
   for (int c = 0; c <= M; ++c) sums[c] = __shfl_sync(FULL, acc, c);
   if (lane == 0)
-    write_leaf<M>(sums, lp, p, leaf + ((int64_t)p * n_leaves + k) * M);
+    write_out<M, SUMS>(sums, lp, p, leaf, (int64_t)p * n_leaves + k);
 }
 
 int sm_count() {
@@ -447,7 +471,7 @@ int launch_route(const void* Xb, const void* feat, const void* bins,
   return (int)cudaGetLastError();
 }
 
-template <int M>
+template <int M, bool SUMS>
 int launch_leaves(const float* G, const float* H, const int32_t* node,
                   const int32_t* order, const int32_t* seg, LeafParams lp,
                   float* leaf, int P, int n, int n_leaves,
@@ -456,15 +480,42 @@ int launch_leaves(const float* G, const float* H, const int32_t* node,
     const int64_t warps =
         (int64_t)P * ((n_leaves + WARP - 1) / WARP);
     const unsigned blocks = (unsigned)((warps + WARPS - 1) / WARPS);
-    leaf_scan_kernel<M><<<blocks, THREADS, 0, stream>>>(G, H, node, lp, leaf,
-                                                        P, n, n_leaves);
+    leaf_scan_kernel<M, SUMS><<<blocks, THREADS, 0, stream>>>(
+        G, H, node, lp, leaf, P, n, n_leaves);
   } else {
     const int64_t warps = (int64_t)P * n_leaves;
     const unsigned blocks = (unsigned)((warps + WARPS - 1) / WARPS);
-    leaf_segments_kernel<M><<<blocks, THREADS, 0, stream>>>(
+    leaf_segments_kernel<M, SUMS><<<blocks, THREADS, 0, stream>>>(
         G, H, order, seg, lp, leaf, P, n, n_leaves);
   }
   return (int)cudaGetLastError();
+}
+
+template <bool SUMS>
+int dispatch_leaves(const void* G, const void* H, const void* node,
+                    const void* order, const void* seg, LeafParams lp,
+                    void* leaf, int P, int n, int n_leaves, int m,
+                    void* stream) {
+  const float* g = static_cast<const float*>(G);
+  const float* h = static_cast<const float*>(H);
+  const int32_t* nd = static_cast<const int32_t*>(node);
+  const int32_t* ord = static_cast<const int32_t*>(order);
+  const int32_t* sg = static_cast<const int32_t*>(seg);
+  float* out = static_cast<float*>(leaf);
+  cudaStream_t st = (cudaStream_t)stream;
+#define LEAF_CASE(M_)                                                  \
+  case M_:                                                             \
+    return launch_leaves<M_, SUMS>(g, h, nd, ord, sg, lp, out, P, n,   \
+                                   n_leaves, st);
+  switch (m) {
+    LEAF_CASE(1)
+    LEAF_CASE(2)
+    LEAF_CASE(3)
+    LEAF_CASE(4)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LEAF_CASE
 }
 
 }  // namespace
@@ -503,24 +554,17 @@ extern "C" int leaf_values(const void* G, const void* H, const void* node,
                            int n_leaves, int m, void* stream) {
   const LeafParams lp{static_cast<const float*>(lam), lam_v,
                       static_cast<const float*>(alpha), alpha_v};
-  const float* g = static_cast<const float*>(G);
-  const float* h = static_cast<const float*>(H);
-  const int32_t* nd = static_cast<const int32_t*>(node);
-  const int32_t* ord = static_cast<const int32_t*>(order);
-  const int32_t* sg = static_cast<const int32_t*>(seg);
-  float* out = static_cast<float*>(leaf);
-  cudaStream_t st = (cudaStream_t)stream;
-#define LEAF_CASE(M_)                                                    \
-  case M_:                                                               \
-    return launch_leaves<M_>(g, h, nd, ord, sg, lp, out, P, n, n_leaves, \
-                             st);
-  switch (m) {
-    LEAF_CASE(1)
-    LEAF_CASE(2)
-    LEAF_CASE(3)
-    LEAF_CASE(4)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LEAF_CASE
+  return dispatch_leaves<false>(G, H, node, order, seg, lp, leaf, P, n,
+                                n_leaves, m, stream);
+}
+
+// the leaf pass without the formula: sums (P, n_leaves, m + 1) f32, each
+// leaf's m channel sums then its weight sum, in the same designs and the
+// same row order as leaf_values
+extern "C" int leaf_sums(const void* G, const void* H, const void* node,
+                         const void* order, const void* seg, void* sums,
+                         int P, int n, int n_leaves, int m, void* stream) {
+  const LeafParams lp{nullptr, 0.f, nullptr, 0.f};
+  return dispatch_leaves<true>(G, H, node, order, seg, lp, sums, P, n,
+                               n_leaves, m, stream);
 }

@@ -47,7 +47,7 @@ LAUNCHES: Dict[str, int] = {
     "bin_features": 0, "bin_features_f16": 0, "tree_walk": 0,
     "tree_walk_narrow": 0, "tree_walk_classes": 0, "tree_walk_loco": 0,
     "histograms": 0, "split_search": 0, "split_search_live": 0,
-    "route_level": 0, "leaf_values": 0, "binned_aupr": 0,
+    "route_level": 0, "leaf_values": 0, "leaf_sums": 0, "binned_aupr": 0,
     "sibling_subtract": 0, "confusion_counts": 0, "regression_moments": 0,
     "wire_dequant": 0, "write_rows": 0, "corr_hits": 0,
     **{f"dequant_{entry}write_rows_int{bits}": 0

@@ -8,6 +8,14 @@ one Gram matrix and a Cholesky solve), which the JAX package computes as
 plain dots and a solve too. The products run in exact f32: the port never
 enables TF32.
 
+Both fits take `shards` (`parallel.rowshards.RowShards`, a mesh's data
+axis): X is then the list of the row shards' parts, y and w stay whole
+on the lead, and every sum over rows (the weighted means, the power
+iteration's and the step's products, the Gram matrix and the moment
+vector) is a sum of the shards' partials on the lead, where the step,
+the prox and the Cholesky solve run. Without shards the fits are the
+one-shard case of the same code, with the same bits as before.
+
 Not ported yet: warm starts (`init_params`).
 """
 
@@ -21,40 +29,53 @@ import torch
 from transmogrifai_tpu_torch.models.base import (
     Param, PredictionModel, PredictorEstimator, per_pair, regression_pred,
     resolve_init_params)
-from transmogrifai_tpu_torch.models.logistic import _fista_momenta
+from transmogrifai_tpu_torch.models.logistic import (
+    _fista_momenta, _rows_of, _weight_sums)
 
 
-def _centered(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
-    """Per pair: Σw (P,), the weighted means of X (P, d) and y (P,), and the
-    centered X (P, n, d) and y (P, n)."""
-    wsum = torch.clamp(w.sum(1), min=1.0)
-    x_mean = (X[None, :, :] * w[:, :, None]).sum(1) / wsum[:, None]
-    y_mean = (y[None, :] * w).sum(1) / wsum
-    return (wsum, x_mean, y_mean, X[None, :, :] - x_mean[:, None, :],
-            y[None, :] - y_mean[:, None])
+def _centered(shards, X, y_s, w_s):
+    """Per pair: Σw (P,), the weighted means of X (P, d) and y (P,), and
+    each shard's centered X (P, n_k, d) and y (P, n_k); the sums over rows
+    are sums of the shards' partials."""
+    wsum = torch.clamp(_weight_sums(shards, w_s), min=1.0)
+    x_mean = shards.sum(shards.map(
+        lambda Xk, wk: (Xk[None, :, :] * wk[:, :, None]).sum(1), X, w_s)) \
+        / wsum[:, None]
+    y_mean = shards.sum(shards.map(lambda yk, wk: (yk[None, :] * wk).sum(1),
+                                   y_s, w_s)) / wsum
+    centered = shards.map(
+        lambda Xk, yk, xm, ym: (Xk[None, :, :] - xm[:, None, :],
+                                yk[None, :] - ym[:, None]),
+        X, y_s, shards.broadcast(x_mean), shards.broadcast(y_mean))
+    return (wsum, x_mean, y_mean, [c[0] for c in centered],
+            [c[1] for c in centered])
 
 
-def _power_lipschitz_pairs(Xs: torch.Tensor, wsum: torch.Tensor,
+def _power_lipschitz_pairs(shards, Xs, wsum: torch.Tensor,
                            iters: int = 16) -> torch.Tensor:
     """(P,) λmax(Xsᵀ Xs) / wsum per pair of Xs (P, n, d), by power
     iteration from the uniform unit vector (the JAX package's
-    `_power_lipschitz` with unit weights)."""
-    P, _, d = Xs.shape
-    v = torch.full((P, d, 1), 1.0, dtype=torch.float32, device=Xs.device) \
+    `_power_lipschitz` with unit weights); Xs is the shards' parts and
+    each step's product a sum of the shards' partials."""
+    P, _, d = Xs[0].shape
+    dev = shards.lead
+    v = torch.full((P, d, 1), 1.0, dtype=torch.float32, device=dev) \
         / torch.sqrt(torch.tensor(float(d), dtype=torch.float32,
-                                  device=Xs.device))
-    nrm = torch.zeros(P, dtype=torch.float32, device=Xs.device)
+                                  device=dev))
+    nrm = torch.zeros(P, dtype=torch.float32, device=dev)
     for _ in range(iters):
-        u = torch.bmm(Xs.transpose(1, 2), torch.bmm(Xs, v))
+        u = shards.sum(shards.map(
+            lambda Xk, vk: torch.bmm(Xk.transpose(1, 2), torch.bmm(Xk, vk)),
+            Xs, shards.broadcast(v)))
         nrm = torch.linalg.vector_norm(u[:, :, 0], dim=1)
         v = u / torch.clamp(nrm, min=1e-12)[:, None, None]
     return nrm / wsum
 
 
-def fit_linreg_enet(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+def fit_linreg_enet(X, y: torch.Tensor, w: torch.Tensor,
                     l1: Param, l2: Param, max_iter: int = 300,
-                    init_params: Optional[Dict[str, torch.Tensor]] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    init_params: Optional[Dict[str, torch.Tensor]] = None,
+                    shards=None) -> Dict[str, torch.Tensor]:
     """Elastic-net weighted least squares by FISTA for P fits at once over
     one matrix X (n, d): labels y (n,), row weights w (P, n) (or (n,)),
     penalties l1 = reg·α and l2 = reg·(1 − α), one value or one per pair.
@@ -67,24 +88,32 @@ def fit_linreg_enet(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     (or from `init_params` {"beta": (d,)}, a warm start), and the
     intercept is ȳ − x̄·β."""
     w = w[None, :] if w.dim() == 1 else w
-    P = w.shape[0]
-    dev = X.device
+    shards, X, y_s, w_s = _rows_of(X, y, w, shards)
+    P, d = w.shape[0], X[0].shape[1]
+    dev = shards.lead
     l1 = per_pair(l1, P, dev)[:, None]
     l2 = per_pair(l2, P, dev)[:, None]
-    wsum, x_mean, y_mean, Xc, yc = _centered(X, y, w)
-    L = 1.05 * _power_lipschitz_pairs(Xc * torch.sqrt(w)[:, :, None], wsum) \
-        + l2[:, 0] + 1e-8
+    wsum, x_mean, y_mean, Xc, yc = _centered(shards, X, y_s, w_s)
+    L = 1.05 * _power_lipschitz_pairs(
+        shards, shards.map(lambda c, wk: c * torch.sqrt(wk)[:, :, None],
+                           Xc, w_s), wsum) + l2[:, 0] + 1e-8
     step = (1.0 / L)[:, None]
     wsum = wsum[:, None]
-    Xt = Xc.transpose(1, 2)
+    parts = list(zip(Xc, [c.transpose(1, 2) for c in Xc], yc, w_s))
     if init_params is None:
-        b = torch.zeros((P, X.shape[1]), dtype=torch.float32, device=dev)
+        b = torch.zeros((P, d), dtype=torch.float32, device=dev)
     else:
-        b = init_params["beta"].expand(P, X.shape[1]).clone()
+        b = init_params["beta"].expand(P, d).clone()
     bm = b
+
+    def partial(bk, Xk, Xt, yk, wk):
+        r = (torch.bmm(Xk, bk[:, :, None])[:, :, 0] - yk) * wk
+        return torch.bmm(Xt, r[:, :, None])[:, :, 0]
+
     for beta in _fista_momenta(max_iter).tolist():
-        r = (torch.bmm(Xc, bm[:, :, None])[:, :, 0] - yc) * w
-        g = torch.bmm(Xt, r[:, :, None])[:, :, 0] / wsum + l2 * bm
+        g = shards.sum(shards.map(lambda bk, p: partial(bk, *p),
+                                  shards.broadcast(bm), parts)) / wsum \
+            + l2 * bm
         b1 = bm - step * g
         b1 = torch.sign(b1) * torch.clamp(torch.abs(b1) - step * l1, min=0.0)
         bm = b1 + beta * (b1 - b)
@@ -92,25 +121,33 @@ def fit_linreg_enet(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return {"beta": b, "intercept": y_mean - (x_mean * b).sum(1)}
 
 
-def fit_linreg(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-               l2: Param) -> Dict[str, torch.Tensor]:
+def fit_linreg(X, y: torch.Tensor, w: torch.Tensor, l2: Param,
+               shards=None) -> Dict[str, torch.Tensor]:
     """Weighted ridge regression for P fits at once (the JAX package's
     `fit_linreg`): (Xcᵀ W Xc / Σw + (l2 + ε) I) β = Xcᵀ W yc / Σw by a
     Cholesky solve, with the jitter ε = 1e-6·(tr/d + 1) that keeps a
     constant column solvable, and the intercept ȳ − x̄·β. Returns
-    {"beta": (P, d), "intercept": (P,)}."""
+    {"beta": (P, d), "intercept": (P,)}. Over `shards` the Gram matrix and
+    the moment vector are sums of the shards' partials; the solve runs on
+    the lead."""
     w = w[None, :] if w.dim() == 1 else w
-    P, d = w.shape[0], X.shape[1]
-    l2 = per_pair(l2, P, X.device)
-    wsum, x_mean, y_mean, Xc, yc = _centered(X, y, w)
-    sw = torch.sqrt(w)
-    Xs = Xc * sw[:, :, None]
-    ys = yc * sw
-    gram = torch.bmm(Xs.transpose(1, 2), Xs) / wsum[:, None, None]
+    shards, X, y_s, w_s = _rows_of(X, y, w, shards)
+    P, d = w.shape[0], X[0].shape[1]
+    dev = shards.lead
+    l2 = per_pair(l2, P, dev)
+    wsum, x_mean, y_mean, Xc, yc = _centered(shards, X, y_s, w_s)
+
+    def moments(Xk, yk, wk):
+        sw = torch.sqrt(wk)
+        Xs = Xk * sw[:, :, None]
+        return (torch.bmm(Xs.transpose(1, 2), Xs),
+                torch.bmm(Xs.transpose(1, 2), (yk * sw)[:, :, None]))
+    got = shards.map(moments, Xc, yc, w_s)
+    gram = shards.sum([g[0] for g in got]) / wsum[:, None, None]
     eps = 1e-6 * (torch.diagonal(gram, dim1=1, dim2=2).sum(1) / d + 1.0)
-    eye = torch.eye(d, dtype=torch.float32, device=X.device)
+    eye = torch.eye(d, dtype=torch.float32, device=dev)
     gram = gram + (l2 + eps)[:, None, None] * eye
-    rhs = torch.bmm(Xs.transpose(1, 2), ys[:, :, None]) / wsum[:, None, None]
+    rhs = shards.sum([g[1] for g in got]) / wsum[:, None, None]
     beta = torch.cholesky_solve(rhs, torch.linalg.cholesky(gram))[:, :, 0]
     return {"beta": beta, "intercept": y_mean - (x_mean * beta).sum(1)}
 

@@ -10,6 +10,14 @@ and an elementwise tail over (n, k) and (d, k) values per pair. The
 products run in exact f32: the port never enables TF32. A warm start
 (`init_params` {"W", "b"}) starts either fit from earlier weights instead
 of zero, as the JAX package's continual refit does.
+
+Both fits take `shards` (`parallel.rowshards.RowShards`, a mesh's data
+axis): X is then the list of the row shards' parts, y and w stay whole
+on the lead, and every reduction over rows (the weight sums, `Xᵀ·R`, the
+bias gradient, the loss, the power iteration's products) is a sum of
+the shards' partials on the lead; the step runs there and the weights go
+out to the shards once a step. Without shards the fits are the one-shard
+case of the same code, with the same bits as before.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from transmogrifai_tpu_torch.models import lbfgs
 from transmogrifai_tpu_torch.models.base import (
     Param, PredictionModel, PredictorEstimator, infer_n_classes, per_pair,
     resolve_init_params)
+from transmogrifai_tpu_torch.parallel.rowshards import RowShards
 
 
 def logreg_loss(params: Dict[str, torch.Tensor], X: torch.Tensor,
@@ -38,10 +47,23 @@ def logreg_loss(params: Dict[str, torch.Tensor], X: torch.Tensor,
         + 0.5 * l2 * (params["W"] ** 2).sum((1, 2))
 
 
-def fit_logreg(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: Param,
+def _rows_of(X, y, w, shards):
+    """(shards, X parts, y parts, w parts) of a fit: a single shard for a
+    whole X."""
+    if shards is None:
+        shards, X = RowShards.single(X), [X]
+    return shards, X, shards.split(y), shards.split(w, 1)
+
+
+def _weight_sums(shards, w_s) -> torch.Tensor:
+    """(P,) Σ_r w over the shards' rows, added on the lead."""
+    return shards.sum(shards.map(lambda wk: wk.sum(1), w_s))
+
+
+def fit_logreg(X, y: torch.Tensor, w: torch.Tensor, l2: Param,
                n_classes: int, max_iter: int = 100,
-               init_params: Optional[Dict[str, torch.Tensor]] = None
-               ) -> Dict[str, torch.Tensor]:
+               init_params: Optional[Dict[str, torch.Tensor]] = None,
+               shards=None) -> Dict[str, torch.Tensor]:
     """Pure-L2 multinomial logistic regression by L-BFGS for P fits at once
     over one matrix X (n, d): labels y (n,), row weights w (P, n) (or
     (n,)), l2 one value or one per pair. Returns {"W": (P, d, k), "b": (P,
@@ -51,28 +73,42 @@ def fit_logreg(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: Param,
     `max_iter` steps of optax's L-BFGS (`models/lbfgs.py`), with the
     gradient written out: (softmax − Y)·w/Σw gives Xᵀ(·) + l2·W and the
     column sums for b. `init_params` {"W": (d, k), "b": (k,)} starts every
-    pair there instead of at zero (a warm start)."""
+    pair there instead of at zero (a warm start). Over `shards` the loss
+    and gradient are sums of the shards' partials; L-BFGS runs on the
+    lead."""
     w = w[None, :] if w.dim() == 1 else w
-    P, (n, d) = w.shape[0], X.shape
+    shards, X, y_s, w_s = _rows_of(X, y, w, shards)
+    dev = shards.lead
+    P, d = w.shape[0], X[0].shape[1]
     k = n_classes
-    Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
-    l2 = per_pair(l2, P, X.device)
-    wn = (w / torch.clamp(w.sum(1), min=1.0)[:, None])[:, :, None]
-    Xt = X.T
+    l2 = per_pair(l2, P, dev)
+    wsum = torch.clamp(_weight_sums(shards, w_s), min=1.0)
+    parts = shards.map(
+        lambda Xk, yk, wk, ws: (
+            Xk, Xk.T,
+            torch.nn.functional.one_hot(yk.long(), k).to(torch.float32),
+            (wk / ws[:, None])[:, :, None]),
+        X, y_s, w_s, shards.broadcast(wsum))
 
-    def value_and_grad(x):
+    def partial(x, Xk, Xt, Y, wn):
         W = x[:, :d * k].reshape(P, d, k)
         b = x[:, d * k:]
-        logits = torch.matmul(X, W) + b[:, None, :]
+        logits = torch.matmul(Xk, W) + b[:, None, :]
         ll = -(Y * torch.log_softmax(logits, dim=-1)).sum(-1)
-        value = (ll * wn[:, :, 0]).sum(1) + 0.5 * l2 * (W ** 2).sum((1, 2))
         R = (torch.softmax(logits, dim=-1) - Y) * wn
-        gW = torch.matmul(Xt, R) + l2[:, None, None] * W
-        return value, torch.cat([gW.reshape(P, d * k), R.sum(1)], 1)
+        return ((ll * wn[:, :, 0]).sum(1), torch.matmul(Xt, R), R.sum(1))
+
+    def value_and_grad(x):
+        got = shards.map(lambda xk, p: partial(xk, *p), shards.broadcast(x),
+                         parts)
+        value, gW, gb = (shards.sum([g[i] for g in got]) for i in range(3))
+        W = x[:, :d * k].reshape(P, d, k)
+        value = value + 0.5 * l2 * (W ** 2).sum((1, 2))
+        gW = gW + l2[:, None, None] * W
+        return value, torch.cat([gW.reshape(P, d * k), gb], 1)
 
     if init_params is None:
-        x0 = torch.zeros((P, d * k + k), dtype=torch.float32,
-                         device=X.device)
+        x0 = torch.zeros((P, d * k + k), dtype=torch.float32, device=dev)
     else:
         x0 = torch.cat([init_params["W"].reshape(d * k),
                         init_params["b"]]).expand(P, d * k + k).clone()
@@ -80,18 +116,23 @@ def fit_logreg(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: Param,
     return {"W": x[:, :d * k].reshape(P, d, k), "b": x[:, d * k:]}
 
 
-def _power_lipschitz(X: torch.Tensor, w: torch.Tensor, wsum: torch.Tensor,
-                     iters: int = 16) -> torch.Tensor:
+def _power_lipschitz(X, w, wsum: torch.Tensor, iters: int = 16,
+                     shards=None) -> torch.Tensor:
     """(P,) λmax(Xᵀ diag(w_p) X) / wsum_p by power iteration from the
     uniform unit vector, for row weights w (P, n) — two products per
-    step."""
-    P, d = w.shape[0], X.shape[1]
-    v = torch.full((P, d), 1.0, dtype=torch.float32, device=X.device) \
+    step; over `shards`, X and w are the shards' parts and each step's
+    product is a sum of the shards' partials."""
+    if shards is None:
+        shards, X, w = RowShards.single(X), [X], [w]
+    dev = shards.lead
+    P, d = w[0].shape[0], X[0].shape[1]
+    v = torch.full((P, d), 1.0, dtype=torch.float32, device=dev) \
         / torch.sqrt(torch.tensor(float(d), dtype=torch.float32,
-                                  device=X.device))
-    nrm = torch.zeros(P, dtype=torch.float32, device=X.device)
+                                  device=dev))
+    nrm = torch.zeros(P, dtype=torch.float32, device=dev)
     for _ in range(iters):
-        u = (w * (v @ X.T)) @ X
+        u = shards.sum(shards.map(lambda vk, Xk, wk: (wk * (vk @ Xk.T)) @ Xk,
+                                  shards.broadcast(v), X, w))
         nrm = torch.linalg.vector_norm(u, dim=1)
         v = u / torch.clamp(nrm, min=1e-12)[:, None]
     return nrm / wsum
@@ -111,11 +152,11 @@ def _fista_momenta(max_iter: int) -> np.ndarray:
     return out
 
 
-def fit_logreg_enet(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+def fit_logreg_enet(X, y: torch.Tensor, w: torch.Tensor,
                     l1: Param, l2: Param, n_classes: int,
                     max_iter: int = 200,
-                    init_params: Optional[Dict[str, torch.Tensor]] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    init_params: Optional[Dict[str, torch.Tensor]] = None,
+                    shards=None) -> Dict[str, torch.Tensor]:
     """Elastic-net multinomial logistic regression by FISTA for P fits at
     once over one matrix X (n, d): labels y (n,), row weights w (P, n) (or
     (n,)), penalties l1 = reg·α and l2 = reg·(1 − α) one value or one per
@@ -126,19 +167,29 @@ def fit_logreg_enet(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     λmax(Xᵀ W X)/Σw + l2 + 1e-8 (`_power_lipschitz`), the L1 prox
     soft-thresholds W by step·l1, the bias is unpenalized, and `max_iter`
     momentum steps run from zero, or from `init_params` {"W": (d, k), "b":
-    (k,)} (a warm start: the momentum restarts there)."""
+    (k,)} (a warm start: the momentum restarts there). Over `shards` each
+    step's `Xᵀ·R` and bias gradient are sums of the shards' partials; the
+    step and the prox run on the lead."""
     w = w[None, :] if w.dim() == 1 else w
-    P, (n, d) = w.shape[0], X.shape
-    dev = X.device
-    Y = torch.nn.functional.one_hot(y.long(), n_classes).to(torch.float32)
+    shards, X, y_s, w_s = _rows_of(X, y, w, shards)
+    dev = shards.lead
+    P, d = w.shape[0], X[0].shape[1]
     l1 = per_pair(l1, P, dev)[:, None, None]
     l2 = per_pair(l2, P, dev)[:, None, None]
-    wsum = torch.clamp(w.sum(1), min=1.0)
-    L = 0.5 * 1.05 * _power_lipschitz(X, w, wsum) + l2[:, 0, 0] + 1e-8
+    wsum = torch.clamp(_weight_sums(shards, w_s), min=1.0)
+    L = 0.5 * 1.05 * _power_lipschitz(X, w_s, wsum, shards=shards) \
+        + l2[:, 0, 0] + 1e-8
     step = (1.0 / L)[:, None, None]
     wsum = wsum[:, None, None]
-    wr = w[:, :, None]
-    Xt = X.T
+    parts = shards.map(
+        lambda Xk, yk, wk: (Xk, Xk.T, torch.nn.functional.one_hot(
+            yk.long(), n_classes).to(torch.float32), wk[:, :, None]),
+        X, y_s, w_s)
+
+    def partial(Wm, bm, Xk, Xt, Y, wr):
+        R = (torch.softmax(torch.matmul(Xk, Wm) + bm, dim=-1) - Y) * wr
+        return torch.matmul(Xt, R), R.sum(1, keepdim=True)
+
     if init_params is None:
         W = torch.zeros((P, d, n_classes), dtype=torch.float32, device=dev)
         b = torch.zeros((P, 1, n_classes), dtype=torch.float32, device=dev)
@@ -147,10 +198,10 @@ def fit_logreg_enet(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         b = init_params["b"].expand(P, 1, n_classes).clone()
     Wm, bm = W, b
     for beta in _fista_momenta(max_iter).tolist():
-        p = torch.softmax(torch.matmul(X, Wm) + bm, dim=-1)
-        R = (p - Y) * wr
-        gW = torch.matmul(Xt, R) / wsum + l2 * Wm
-        gb = R.sum(1, keepdim=True) / wsum
+        got = shards.map(lambda Wk, bk, p: partial(Wk, bk, *p),
+                         shards.broadcast(Wm), shards.broadcast(bm), parts)
+        gW = shards.sum([g[0] for g in got]) / wsum + l2 * Wm
+        gb = shards.sum([g[1] for g in got]) / wsum
         W1 = Wm - step * gW
         W1 = torch.sign(W1) * torch.clamp(torch.abs(W1) - step * l1, min=0.0)
         b1 = bm - step * gb

@@ -47,6 +47,7 @@ from transmogrifai_tpu_torch.evaluators.device_metrics import (
     binned_aupr, sigmoid)
 from transmogrifai_tpu_torch.models.base import (
     Param, PredictionModel, PredictorEstimator, binary_margin_pred, infer_n_classes, per_pair, regression_pred)
+from transmogrifai_tpu_torch.parallel.rowshards import RowShards
 from transmogrifai_tpu_torch.stages.base import div_const
 
 log = logging.getLogger(__name__)
@@ -1292,11 +1293,10 @@ def _leaf_formula(g, h, reg_lambda, alpha):
     return g / (h + lam)[:, :, None]
 
 
-def leaf_values_plain(node_idx: torch.Tensor, G: torch.Tensor,
-                      H: torch.Tensor, n_leaves: int, reg_lambda: Param,
-                      alpha: Param) -> torch.Tensor:
-    """(P, n_leaves, m) f32 leaf values: per-leaf Σ G_c and Σ H
-    (`index_add_`), the L1 soft threshold and G_c / (H + λ)."""
+def leaf_sums_plain(node_idx: torch.Tensor, G: torch.Tensor,
+                    H: torch.Tensor, n_leaves: int) -> torch.Tensor:
+    """(P, n_leaves, m + 1) f32 per-leaf sums: Σ G_c for each channel c,
+    then Σ H (`index_add_`)."""
     P, m, n = G.shape
     flat = (node_idx.long() + torch.arange(
         P, device=G.device)[:, None] * n_leaves).reshape(-1)
@@ -1307,8 +1307,17 @@ def leaf_values_plain(node_idx: torch.Tensor, G: torch.Tensor,
                 .index_add_(0, flat, v.to(torch.float32).reshape(-1))
                 .reshape(P, n_leaves))
 
-    g = torch.stack([sums(G[:, c]) for c in range(m)], dim=-1)
-    return _leaf_formula(g, sums(H), reg_lambda, alpha)
+    return torch.stack([sums(G[:, c]) for c in range(m)] + [sums(H)],
+                       dim=-1)
+
+
+def leaf_values_plain(node_idx: torch.Tensor, G: torch.Tensor,
+                      H: torch.Tensor, n_leaves: int, reg_lambda: Param,
+                      alpha: Param) -> torch.Tensor:
+    """(P, n_leaves, m) f32 leaf values: per-leaf Σ G_c and Σ H
+    (`leaf_sums_plain`), the L1 soft threshold and G_c / (H + λ)."""
+    s = leaf_sums_plain(node_idx, G, H, n_leaves)
+    return _leaf_formula(s[..., :-1], s[..., -1], reg_lambda, alpha)
 
 
 # K3's leaf pass reads the node ids directly (the scan design: a warp per 32
@@ -1384,6 +1393,67 @@ def _leaf_values_cuda(node_idx, G, H, n_leaves, reg_lambda, alpha,
     return leaf if m <= max_m else torch.cat(parts, dim=2)
 
 
+_LEAF_SUMS_ARGS = cuda_build.register(
+    "route_leaves", "leaf_sums",
+    (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+
+
+def _leaf_sums_cuda(node_idx, G, H, n_leaves, regime=None):
+    _on_device("leaf_sums", node_idx, G=G, H=H)
+    _require(G.dtype == torch.float32 and H.dtype == torch.float32,
+             "leaf_sums: G/H must be f32")
+    _require(H.shape == node_idx.shape and G.dim() == 3
+             and G.shape[0] == node_idx.shape[0]
+             and G.shape[2] == node_idx.shape[1],
+             f"leaf_sums: node_idx {tuple(node_idx.shape)}, G "
+             f"{tuple(G.shape)}, H {tuple(H.shape)} must be (P, n), (P, m, "
+             "n) and (P, n)")
+    P, m, n = G.shape
+    dev = G.device
+    out = torch.empty((P, n_leaves, m + 1), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    regime = regime or leaf_regime(n)
+    node_idx = node_idx.to(torch.int32).contiguous()
+    order = seg = None
+    if regime == "segments":
+        order, seg = node_segments(node_idx, n_leaves)
+    G, H = G.contiguous(), H.contiguous()
+    max_m = cuda_build.entry("route_leaves", "leaf_values_max_m")()
+    fn = cuda_build.entry("route_leaves", "leaf_sums")
+    for c0 in range(0, m, max_m):  # channels in launches of at most max_m
+        c = min(max_m, m - c0)
+        Gc = G if m <= max_m else G[:, c0:c0 + c].contiguous()
+        part = out if m <= max_m else torch.empty(
+            (P, n_leaves, c + 1), dtype=torch.float32, device=dev)
+        err = cuda_build.launch(
+            G.get_device(), fn, Gc.data_ptr(), H.data_ptr(),
+            node_idx.data_ptr(), None if order is None else order.data_ptr(),
+            None if seg is None else seg.data_ptr(), part.data_ptr(), P, n,
+            n_leaves, c)
+        cuda_build.check("leaf_sums", err)
+        _count("leaf_sums")
+        if part is not out:  # the weights' sums come with every launch
+            out[:, :, c0:c0 + c] = part[:, :, :c]
+            out[:, :, m] = part[:, :, c]
+    return out
+
+
+def leaf_sums(node_idx: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
+              n_leaves: int) -> torch.Tensor:
+    """(P, n_leaves, m + 1) f32 per-leaf sums from final node ids (P, n),
+    values G (P, m, n) and weights H (P, n): Σ G_c per channel, then Σ H,
+    each adding the leaf's rows in row order. K3's leaf pass without the
+    formula: a tree grown over row shards adds the shards' sums and
+    applies `_leaf_formula` to the total. A CUDA tensor launches K3's
+    leaf-sums entry in the design `leaf_regime` picks (or raises); a CPU
+    tensor takes the plain version."""
+    _check_device(G, "leaf_sums")
+    if G.is_cuda:
+        return _leaf_sums_cuda(node_idx, G, H, n_leaves)
+    return leaf_sums_plain(node_idx, G, H, n_leaves)
+
+
 def leaf_values(node_idx: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
                 n_leaves: int, reg_lambda: Param, alpha: Param
                 ) -> torch.Tensor:
@@ -1408,13 +1478,13 @@ def leaf_values(node_idx: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
 _SUBTRACT_MIN_DEPTH = 12
 
 
-def grow_trees(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
-               max_depth: int, n_bins: int, reg_lambda: Param = 1.0,
-               min_child_weight: Param = 1.0, min_gain: Param = 0.0,
+def grow_trees(Xb, G, H, max_depth: int, n_bins: int,
+               reg_lambda: Param = 1.0, min_child_weight: Param = 1.0,
+               min_gain: Param = 0.0,
                feature_mask: Optional[torch.Tensor] = None,
                active_depth: Optional[Param] = None, alpha: Param = 0.0,
-               min_gain_norm: Param = 0.0, live: bool = True
-               ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+               min_gain_norm: Param = 0.0, live: bool = True,
+               shards=None) -> Tuple[Dict[str, torch.Tensor], Any]:
     """Grow one fixed-depth tree per pair from m value channels G (P, m, n)
     and weights H (P, n) (the JAX package's `grow_tree`, vmapped). Returns
     ({"feat": (P, depth, 2^depth) int32, "bin": (P, depth, 2^depth) int32
@@ -1434,19 +1504,39 @@ def grow_trees(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
     child of every node searched a level up (parent − right can leave a
     rounding residue without rows); every other node's histograms are
     zero. The flags live on the device, so no level waits for the card.
-    `live=False` searches every node (the same tables)."""
-    P, n = H.shape
-    dev = Xb.device
+    `live=False` searches every node (the same tables).
+
+    With `shards` (a `parallel.rowshards.RowShards`), Xb, G and H are
+    lists of each row shard's part, on its device, and the node ids come
+    back as such a list. Per level K1 runs on each shard and the partial
+    histograms are added on the lead in shard order; K2 (and K1-sub) run
+    on the lead over the live set OR-ed from the shards' flags; the
+    level's tables go out to the shards once and K3 routes each shard's
+    rows into that shard's own flags. The leaves are K3's leaf sums of
+    each shard, added on the lead, with the formula applied to the total.
+    Without shards every launch is as it was."""
+    sharded = shards is not None
+    if not sharded:
+        shards = RowShards.single(Xb)
+        Xb, G, H = [Xb], [G], [H]
+    P = H[0].shape[0]
+    dev = shards.lead
     max_nodes = 2 ** max_depth
-    node = torch.zeros((P, n), dtype=torch.int32, device=dev)
-    spare = torch.empty_like(node)  # routing writes one, reads the other
+    node = shards.map(lambda h: torch.zeros(h.shape, dtype=torch.int32,
+                                            device=h.device), H)
+    spare = shards.map(torch.empty_like, node)  # routing writes, reads node
     feats = torch.zeros((P, max_depth, max_nodes), dtype=torch.int32,
                         device=dev)
     bins = torch.full((P, max_depth, max_nodes), n_bins, dtype=torch.int32,
                       device=dev)
-    # per-level flags of the live set, zeroed with the tables
+    # per-level flags of the live set, zeroed with the tables; a shard of
+    # several routes into its own level buffer, OR-ed into these
     flags = (torch.zeros((P, max_depth, max_nodes), dtype=torch.uint8,
                          device=dev) if live and max_depth > 1 else None)
+    occ = (shards.map(lambda h: torch.empty((P, max_nodes),
+                                            dtype=torch.uint8,
+                                            device=h.device), H)
+           if sharded and flags is not None else None)
     # the hyperparameters as (P,) tensors once, not once a level
     lam = per_pair(reg_lambda, P, dev)
     mcw = per_pair(min_child_weight, P, dev)
@@ -1454,13 +1544,22 @@ def grow_trees(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
     mgn = per_pair(min_gain_norm, P, dev)
     ad = (None if active_depth is None
           else per_pair(active_depth, P, dev, torch.int32))
+
+    def hist(ids, n_nodes):
+        parts = shards.map(lambda xb, nd, g, h: histograms(
+            xb, nd, g, h, n_nodes, n_bins), Xb, ids, G, H)
+        if not sharded:
+            return parts[0]
+        return (shards.sum([p[0] for p in parts]),
+                shards.sum([p[1] for p in parts]))
+
     subtract = max_depth >= _SUBTRACT_MIN_DEPTH
     if subtract:
-        hg, hh = histograms(Xb, node, G, H, 1, n_bins)
+        hg, hh = hist(node, 1)
     for level in range(max_depth):
         n_nodes = 2 ** level
         if not subtract:
-            hg, hh = histograms(Xb, node, G, H, n_nodes, n_bins)
+            hg, hh = hist(node, n_nodes)
         here = (feats[:, level, :n_nodes], bins[:, level, :n_nodes])
         nxt = (flags[:, level + 1, :2 * n_nodes]
                if flags is not None and level + 1 < max_depth else None)
@@ -1469,19 +1568,40 @@ def grow_trees(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
         split_search(hg, hh, n_bins, lam, mcw, mg, mgn, feature_mask, level,
                      ad, live=searched, out=here,
                      mark=nxt if subtract else None)
-        node, spare = route_level(Xb, node, *here, occupied=nxt,
-                                  out=spare), node
+        if nxt is None:
+            into = [None] * shards.n_shards
+        elif sharded:
+            into = shards.map(lambda o: o[:, :2 * n_nodes].zero_(), occ)
+        else:
+            into = [nxt]
+        routed = shards.map(
+            lambda xb, nd, f, b, o, out: route_level(xb, nd, f, b,
+                                                     occupied=o, out=out),
+            Xb, node, shards.broadcast(here[0]), shards.broadcast(here[1]),
+            into, spare)
+        node, spare = routed, node
+        if sharded and nxt is not None:
+            shards.any(into, out=nxt)
         if subtract and level + 1 < max_depth:
             # the rows routed right, by parent; the left rows are left out
-            parent = torch.where((node & 1).bool(), node >> 1,
-                                 torch.full_like(node, n_nodes))
-            hg_r, hh_r = histograms(Xb, parent, G, H, n_nodes, n_bins)
+            parent = shards.map(lambda nd: torch.where(
+                (nd & 1).bool(), nd >> 1, torch.full_like(nd, n_nodes)),
+                node)
+            hg_r, hh_r = hist(parent, n_nodes)
             hg, hh = sibling_subtract(hg, hh, hg_r, hh_r)
             del hg_r, hh_r
         else:
             del hg, hh
-    leaf = leaf_values(node, G, H, max_nodes, reg_lambda, alpha)
-    return {"feat": feats, "bin": bins, "leaf": leaf}, node
+    tables = {"feat": feats, "bin": bins}
+    if not sharded:
+        tables["leaf"] = leaf_values(node[0], G[0], H[0], max_nodes,
+                                     reg_lambda, alpha)
+        return tables, node[0]
+    sums = shards.sum(shards.map(
+        lambda nd, g, h: leaf_sums(nd, g, h, max_nodes), node, G, H))
+    tables["leaf"] = _leaf_formula(sums[..., :-1], sums[..., -1], reg_lambda,
+                                   alpha)
+    return tables, node
 
 
 # --------------------------------------------------------------------------- #
@@ -1534,18 +1654,24 @@ def forest_draws(n_trees: int, n: int, d: int, seed: int,
 
 
 def forest_chunk(n_trees_total: int, max_depth: int, m: int, n_rows: int,
-                 d: int, n_bins: int, device) -> Tuple[int, int, int]:
+                 d: int, n_bins: int, device,
+                 n_shards: int = 1) -> Tuple[int, int, int]:
     """(trees per launch, the byte budget, bytes per tree): the histograms
     alive at a tree's deepest level are (m + 1)·d·n_bins f32 per node,
     2^depth nodes' worth with subtraction (children, parents and right
     children together), plus K1's piece scratch at that level (none while
-    n_rows ≤ HIST_PIECE_ROWS). The budget is a share of the card's free
-    memory (that of the caching allocator included), or a fixed one on the
-    CPU."""
+    n_rows ≤ HIST_PIECE_ROWS). Grown over `n_shards` row shards (n_rows
+    the largest shard's), the lead also holds every shard's partial
+    histograms of a level before they are added: 2^(depth − 1) nodes'
+    worth each. The budget is a share of the card's free memory (that of
+    the caching allocator included), or a fixed one on the CPU."""
     dev = torch.device(device)
     per_tree = (m + 1) * d * n_bins * 4 * 2 ** max_depth
-    per_tree += hist_scratch_bytes(1, n_rows, 2 ** max(max_depth - 1, 0), m,
-                                   d, n_bins)
+    if n_shards > 1:
+        per_tree += n_shards * (m + 1) * d * n_bins * 4 \
+            * 2 ** max(max_depth - 1, 0)
+    per_tree += n_shards * hist_scratch_bytes(
+        1, n_rows, 2 ** max(max_depth - 1, 0), m, d, n_bins)
     if dev.type != "cuda":  # the plain K1's (P, n, d) cell ids and values
         per_tree += n_rows * d * 16
     if dev.type == "cuda":
@@ -1559,12 +1685,12 @@ def forest_chunk(n_trees_total: int, max_depth: int, m: int, n_rows: int,
     return chunk, budget, per_tree
 
 
-def fit_forest(Xb: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
+def fit_forest(Xb, Y: torch.Tensor, w: torch.Tensor,
                n_trees: int, max_depth: int, n_bins: int, seed: int,
                subsample_features: bool = True,
                min_child_weight: Param = 1.0,
                active_depth: Optional[Param] = None, bootstrap: bool = True,
-               min_gain: Param = 0.0, draws=None
+               min_gain: Param = 0.0, draws=None, shards=None
                ) -> Dict[str, torch.Tensor]:
     """Random forests of Q (config, fold) pairs over one binned matrix Xb
     (n, d): labels as Y (n, m) (one-hot classes), row weights w (Q, n)
@@ -1579,9 +1705,19 @@ def fit_forest(Xb: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     seed alone); `draws=(boot (n_trees, n), mask (n_trees, d))` replaces
     them — a test hook that feeds in the JAX package's draws. The trees of
     all pairs lie along the kernels' pair axis, in chunks that fit
-    `forest_chunk`'s byte budget, which the call logs."""
-    dev = Xb.device
-    n, d = Xb.shape
+    `forest_chunk`'s byte budget, which the call logs.
+
+    With `shards` (`parallel.rowshards.RowShards`), Xb is the list of the
+    row shards' binned parts and Y and w stay whole on the lead: the
+    draws are made there at the real n (a draw at any other n would move
+    every tree's stream), and the bootstrap columns, w and Y go to the
+    shards once; each chunk's trees grow over the shards (`grow_trees`)."""
+    sharded = shards is not None
+    if not sharded:
+        shards = RowShards.single(Xb)
+        Xb = [Xb]
+    dev = shards.lead
+    n, d = shards.n, Xb[0].shape[1]
     m = Y.shape[1]
     w = w[None, :] if w.dim() == 1 else w
     Q = w.shape[0]
@@ -1607,9 +1743,11 @@ def fit_forest(Xb: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     ad = (per_pair(active_depth, Q, dev, torch.int32)
           if active_depth is not None else None)
     Yt = Y.to(torch.float32).T.contiguous()  # (m, n)
+    boot_s, w_s, Yt_s = (shards.split(t, 1) for t in (boot, w, Yt))
     total = Q * n_trees
-    chunk, budget, per_tree = forest_chunk(total, max_depth, m, n, d,
-                                           n_bins, dev)
+    chunk, budget, per_tree = forest_chunk(
+        total, max_depth, m, max(shards.sizes), d, n_bins, dev,
+        shards.n_shards)
     log.info("fit_forest: %d trees at depth %d in %d chunks of %d (budget "
              "%d bytes, %d per tree)", total, max_depth, -(-total // chunk),
              chunk, budget, per_tree)
@@ -1617,13 +1755,16 @@ def fit_forest(Xb: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     for s in range(0, total, chunk):
         idx = torch.arange(s, min(s + chunk, total), device=dev)
         q, t = idx // n_trees, idx % n_trees
-        H = (boot[t] * w[q]).contiguous()
-        G = (Yt[None, :, :] * H[:, None, :]).contiguous()
+        H = shards.map(lambda b, wk, qk, tk: (b[tk] * wk[qk]).contiguous(),
+                       boot_s, w_s, shards.broadcast(q), shards.broadcast(t))
+        G = shards.map(lambda y, h: (y[None, :, :] * h[:, None, :])
+                       .contiguous(), Yt_s, H)
         tree, _ = grow_trees(
-            Xb, G, H, max_depth, n_bins, reg_lambda=1e-6,
+            Xb if sharded else Xb[0], G if sharded else G[0],
+            H if sharded else H[0], max_depth, n_bins, reg_lambda=1e-6,
             min_child_weight=mcw[q], min_gain=0.0, feature_mask=mask[t],
             active_depth=None if ad is None else ad[q],
-            min_gain_norm=mgn[q])
+            min_gain_norm=mgn[q], shards=shards if sharded else None)
         parts.append(tree)
     return {k: torch.cat([p[k] for p in parts]).reshape(
         (Q, n_trees) + parts[0][k].shape[1:]) for k in ("feat", "bin", "leaf")}
@@ -1649,7 +1790,7 @@ def gbt_val_loss(margin: torch.Tensor, y: torch.Tensor, val_w: torch.Tensor,
     return (ll * val_w).sum(1) / vs
 
 
-def fit_gbt_pairs(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+def fit_gbt_pairs(Xb, y: torch.Tensor, w: torch.Tensor,
                   n_rounds: int, max_depth: int, n_bins: int,
                   learning_rate: Param, reg_lambda: Param,
                   min_child_weight: Param = 1.0,
@@ -1660,7 +1801,7 @@ def fit_gbt_pairs(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                   early_stopping_rounds: int = 0, min_gain_norm: Param = 0.0,
                   eval_metric: str = "logloss", keep_trees: bool = False,
                   objective: str = "logistic",
-                  margin0: Optional[torch.Tensor] = None):
+                  margin0: Optional[torch.Tensor] = None, shards=None):
     """Boost P binary or regression GBT fits at once over one binned
     matrix Xb (n, d): labels y (n,), row weights w (P, n) and, for early
     stopping, held-out weights val_w (P, n). Every hyperparameter is one
@@ -1680,10 +1821,21 @@ def fit_gbt_pairs(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
 
     Row and feature sampling (rates below 1) draw from a `torch.Generator`
     seeded with `seed`, not from the JAX package's threefry stream, so such
-    fits match the JAX package at the metric level only."""
+    fits match the JAX package at the metric level only.
+
+    With `shards` (`parallel.rowshards.RowShards`), Xb is the list of the
+    row shards' binned parts and y, w and val_w stay whole on the lead:
+    margins, gradients and hessians live on each shard (the row draws are
+    made at the real n on the lead and split), the trees grow over the
+    shards (`grow_trees`), and the early-stopping loss runs on the
+    margins gathered to the lead. The returned margin is gathered."""
+    sharded = shards is not None
+    if not sharded:
+        shards = RowShards.single(Xb)
+        Xb = [Xb]
     P, n = w.shape
-    dev = Xb.device
-    d = Xb.shape[1]
+    dev = shards.lead
+    d = Xb[0].shape[1]
     esr = int(early_stopping_rounds) if val_w is not None else 0
     # every hyperparameter on the device once, not at every level
     lr = per_pair(learning_rate, P, dev)[:, None]
@@ -1700,40 +1852,52 @@ def fit_gbt_pairs(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         gen.manual_seed(int(seed))
     margin = (torch.zeros((P, n), dtype=torch.float32, device=dev)
               if margin0 is None else margin0.to(torch.float32).clone())
+    margin, y_s, w_s = shards.split(margin, 1), shards.split(y), \
+        shards.split(w, 1)
+    lr_s = shards.broadcast(lr)
     best = torch.full((P,), float("inf"), dtype=torch.float32, device=dev)
     since = torch.zeros((P,), dtype=torch.int32, device=dev)
     kept: List[Dict[str, torch.Tensor]] = []
     if objective not in ("logistic", "squared"):
         raise ValueError(f"fit_gbt_pairs: unknown objective {objective!r}")
-    for _ in range(n_rounds):
+
+    def grads(mg, yk, wk):
         if objective == "logistic":
-            p = sigmoid(margin)
-            G = -((p - y) * w)
-            H = torch.clamp(p * (1 - p), min=1e-6) * w
-        else:
-            G = -((margin - y) * w)
-            H = w
+            p = sigmoid(mg)
+            return -((p - yk) * wk), torch.clamp(p * (1 - p), min=1e-6) * wk
+        return -((mg - yk) * wk), wk
+
+    one = (lambda parts: parts) if sharded else (lambda parts: parts[0])
+    for _ in range(n_rounds):
+        G, H = zip(*shards.map(grads, margin, y_s, w_s))
         fmask = None
         if gen is not None:
-            rows = (torch.rand((P, n), generator=gen, device=dev)
-                    < sub[:, None]).to(torch.float32)
-            G, H = G * rows, H * rows
+            rows = shards.split((torch.rand((P, n), generator=gen,
+                                            device=dev)
+                                 < sub[:, None]).to(torch.float32), 1)
+            G = shards.map(torch.mul, G, rows)
+            H = shards.map(torch.mul, H, rows)
             fmask = torch.rand((P, d), generator=gen, device=dev) \
                 < col[:, None]
         tree, node = grow_trees(
-            Xb, G[:, None, :], H, max_depth, n_bins, reg_lambda=reg_lambda,
+            one(Xb), one([g[:, None, :] for g in G]), one(list(H)),
+            max_depth, n_bins, reg_lambda=reg_lambda,
             min_child_weight=min_child_weight, min_gain=gamma,
             feature_mask=fmask, active_depth=active_depth, alpha=alpha,
-            min_gain_norm=min_gain_norm)
+            min_gain_norm=min_gain_norm, shards=shards if sharded else None)
         if esr > 0:
             live = (since < esr).to(torch.float32)
             tree["leaf"] = tree["leaf"] * live[:, None, None]
-        margin = margin + lr * torch.gather(tree["leaf"][:, :, 0], 1,
-                                            node.long())
+        node = node if sharded else [node]
+        margin = shards.map(
+            lambda mg, l, leaf, nd: mg + l * torch.gather(
+                leaf[:, :, 0], 1, nd.long()),
+            margin, lr_s, shards.broadcast(tree["leaf"]), node)
         if keep_trees:
             kept.append(tree)
         if esr > 0:
-            m = gbt_val_loss(margin, y, val_w, eval_metric, objective)
+            m = gbt_val_loss(shards.gather(margin, 1), y, val_w, eval_metric,
+                             objective)
             improved = m < best - 1e-7
             since = torch.where(since >= esr, since,
                                 torch.where(improved,
@@ -1746,10 +1910,10 @@ def fit_gbt_pairs(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     if keep_trees:
         trees = {k: torch.stack([t[k] for t in kept], 1)
                  for k in ("feat", "bin", "leaf")}
-    return trees, margin, since
+    return trees, shards.gather(margin, 1), since
 
 
-def fit_gbt_multiclass_pairs(Xb: torch.Tensor, y: torch.Tensor,
+def fit_gbt_multiclass_pairs(Xb, y: torch.Tensor,
                              w: torch.Tensor, n_rounds: int, max_depth: int,
                              n_bins: int, n_classes: int,
                              learning_rate: Param, reg_lambda: Param,
@@ -1758,7 +1922,7 @@ def fit_gbt_multiclass_pairs(Xb: torch.Tensor, y: torch.Tensor,
                              gamma: Param = 0.0, alpha: Param = 0.0,
                              subsample: Param = 1.0, colsample: Param = 1.0,
                              seed: int = 0, min_gain_norm: Param = 0.0,
-                             keep_trees: bool = False):
+                             keep_trees: bool = False, shards=None):
     """Softmax boosting of P fits at once over one binned matrix Xb (n, d):
     labels y (n,) in 0..K-1, row weights w (P, n), every hyperparameter one
     value or one per pair. Returns (trees, margin (P, n, K)); `trees` is
@@ -1772,11 +1936,19 @@ def fit_gbt_multiclass_pairs(Xb: torch.Tensor, y: torch.Tensor,
     += lr · leaf at each row's final node. Every round runs: no early
     stopping. A round's row and feature draws (rates below 1, from a
     `torch.Generator` seeded with `seed`, so such fits match the JAX
-    package at the metric level only) are shared by its K classes."""
+    package at the metric level only) are shared by its K classes.
+
+    With `shards`, as `fit_gbt_pairs`: Xb is the shards' binned parts, y
+    and w stay whole on the lead, and the margins live on the shards; the
+    returned margin is gathered."""
+    sharded = shards is not None
+    if not sharded:
+        shards = RowShards.single(Xb)
+        Xb = [Xb]
     P, n = w.shape
     K = int(n_classes)
-    dev = Xb.device
-    d = Xb.shape[1]
+    dev = shards.lead
+    d = Xb[0].shape[1]
 
     def classes(v, dtype=torch.float32):
         return per_pair(v, P, dev, dtype).repeat_interleave(K)
@@ -1793,29 +1965,47 @@ def fit_gbt_multiclass_pairs(Xb: torch.Tensor, y: torch.Tensor,
     if bool((sub < 1.0).any()) or bool((col < 1.0).any()):
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
-    Y = torch.nn.functional.one_hot(y.long(), K).to(torch.float32)
-    margin = torch.zeros((P, n, K), dtype=torch.float32, device=dev)
+    Y_s = shards.split(torch.nn.functional.one_hot(y.long(), K)
+                       .to(torch.float32))
+    w_s = shards.split(w, 1)
+    lr_s = shards.broadcast(lr)
+    margin = shards.map(lambda wk: torch.zeros(
+        (P, wk.shape[1], K), dtype=torch.float32, device=wk.device), w_s)
     kept: List[Dict[str, torch.Tensor]] = []
+
+    def grads(mg, Yk, wk):
+        p = torch.softmax(mg, dim=2)
+        return (-((p - Yk) * wk[:, :, None]),
+                torch.clamp(p * (1.0 - p), min=1e-6) * wk[:, :, None])
+
+    one = (lambda parts: parts) if sharded else (lambda parts: parts[0])
     for _ in range(n_rounds):
-        p = torch.softmax(margin, dim=2)
-        G = -((p - Y) * w[:, :, None])
-        H = torch.clamp(p * (1.0 - p), min=1e-6) * w[:, :, None]
+        G, H = zip(*shards.map(grads, margin, Y_s, w_s))
         fmask = None
         if gen is not None:
-            rows = (torch.rand((P, n), generator=gen, device=dev)
-                    < sub[:, None]).to(torch.float32)
-            G, H = G * rows[:, :, None], H * rows[:, :, None]
+            rows = shards.split((torch.rand((P, n), generator=gen,
+                                            device=dev)
+                                 < sub[:, None]).to(torch.float32), 1)
+            G = shards.map(lambda g, r: g * r[:, :, None], G, rows)
+            H = shards.map(lambda h, r: h * r[:, :, None], H, rows)
             fmask = (torch.rand((P, d), generator=gen, device=dev)
                      < col[:, None]).repeat_interleave(K, 0)
+        Gk = shards.map(lambda g: g.permute(0, 2, 1).reshape(
+            P * K, 1, g.shape[1]), G)
+        Hk = shards.map(lambda h: h.permute(0, 2, 1).reshape(
+            P * K, h.shape[1]).contiguous(), H)
         tree, node = grow_trees(
-            Xb, G.permute(0, 2, 1).reshape(P * K, 1, n),
-            H.permute(0, 2, 1).reshape(P * K, n).contiguous(), max_depth,
-            n_bins, reg_lambda=reg_lambda,
-            min_child_weight=min_child_weight, min_gain=gamma,
-            feature_mask=fmask, active_depth=active_depth, alpha=alpha,
-            min_gain_norm=min_gain_norm)
-        upd = torch.gather(tree["leaf"][:, :, 0], 1, node.long())
-        margin = margin + lr * upd.reshape(P, K, n).permute(0, 2, 1)
+            one(Xb), one(Gk), one(Hk), max_depth, n_bins,
+            reg_lambda=reg_lambda, min_child_weight=min_child_weight,
+            min_gain=gamma, feature_mask=fmask, active_depth=active_depth,
+            alpha=alpha, min_gain_norm=min_gain_norm,
+            shards=shards if sharded else None)
+        node = node if sharded else [node]
+        margin = shards.map(
+            lambda mg, l, leaf, nd: mg + l * torch.gather(
+                leaf[:, :, 0], 1, nd.long()).reshape(
+                    P, K, nd.shape[1]).permute(0, 2, 1),
+            margin, lr_s, shards.broadcast(tree["leaf"]), node)
         if keep_trees:
             kept.append({k: v.reshape((P, K) + v.shape[1:])
                          for k, v in tree.items()})
@@ -1823,7 +2013,7 @@ def fit_gbt_multiclass_pairs(Xb: torch.Tensor, y: torch.Tensor,
     if keep_trees:
         trees = {k: torch.stack([t[k] for t in kept], 1)
                  for k in ("feat", "bin", "leaf")}
-    return trees, margin
+    return trees, shards.gather(margin, 1)
 
 
 def _pick_rounds_per_dispatch(n_estimators: int, ideal: int) -> int:

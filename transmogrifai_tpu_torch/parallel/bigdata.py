@@ -56,7 +56,7 @@ RetryPolicy`; by default `_default_ingest_retry`, whose attempts
 returned `IngestStats`, as in the JAX package.
 
 Not ported, and refused by name (ROADMAP.md, queue 1): sharded buffers
-(`sharding=`, item 9b), and the learned upload plan (`workers`/`depth`
+(`sharding=`, item 9c), and the learned upload plan (`workers`/`depth`
 default to `UPLOAD_WORKERS`/`UPLOAD_DEPTH`). The JAX
 package's cache events for its trace (`record_event`) are absent with its
 trace (queue 1, item 10). The JAX package's dispatch-time bound in
@@ -98,8 +98,8 @@ HIST_CHUNK_ROWS = 65_536      # the CPU plain versions' row chunk
 UPLOAD_WORKERS = 2            # memmap read + cast threads
 UPLOAD_DEPTH = 4              # chunk copies and writes in flight
 
-SHARDING_REFUSED = ("sharding= is not ported (ROADMAP queue 1, item 9b: "
-                    "the data axis — sharded builders)")
+SHARDING_REFUSED = ("sharding= is not ported (ROADMAP queue 1, item 9c: "
+                    "the big path on the data axis — sharded builders)")
 QUANT_BITS = (8, 4)
 
 

@@ -9,14 +9,18 @@ itself:
   devices — K11's `_run_block` (`parallel/sweep.py`) runs one slice of a
   block per lane, and the scheduler (`parallel/scheduler.py`) one worker
   per lane;
-- the ``"data"`` axis: rows of the training matrix sharded across
-  devices, with explicit reductions in every family's fit. Not ported:
-  a data axis wider than 1 raises, naming ROADMAP.md queue 1, item 9b.
+- the ``"data"`` axis: rows of the training matrix split across the
+  devices of a sweep row (`parallel/rowshards.py`), every reduction over
+  rows an explicit sum of per-shard partials on the row's first device;
+  `data_sharding(mesh)` places a scored batch's rows the same way.
 
-On CUDA the devices are distinct (``cuda:0 … cuda:n-1``) and asking for
-more than `torch.cuda.device_count()` raises. On the CPU a mesh may
-repeat the one ``cpu`` device: the counterpart of the JAX tests' virtual
-CPU devices, so the scheduler's lanes (threads) run and are tested here.
+`make_mesh` on CUDA takes distinct cards (``cuda:0 … cuda:n-1``) and
+refuses more than `torch.cuda.device_count()`. On the CPU a mesh repeats
+the one ``cpu`` device: the counterpart of the JAX tests' virtual CPU
+devices, so lanes (threads) and data shards run and are tested here. A
+test or the card script that wants data shards on one card builds the
+mesh itself, repeating the card: ``Mesh(np.array([[cuda0, cuda0]],
+dtype=object))``.
 """
 
 from __future__ import annotations
@@ -29,16 +33,12 @@ import torch
 
 from transmogrifai_tpu_torch.device import DeviceLike, resolve_device
 
-__all__ = ["SWEEP_AXIS", "DATA_AXIS", "DATA_AXIS_REFUSAL", "Mesh",
-           "NamedSharding", "make_mesh", "make_multislice_mesh",
-           "sweep_sharding", "replicated"]
+__all__ = ["SWEEP_AXIS", "DATA_AXIS", "Mesh", "NamedSharding",
+           "make_mesh", "make_multislice_mesh", "sweep_sharding",
+           "data_sharding", "replicated"]
 
 SWEEP_AXIS = "sweep"
 DATA_AXIS = "data"
-DATA_AXIS_REFUSAL = (
-    "a data axis wider than 1 (row-sharded fits, the big path's "
-    "sharding= builders, sharded scoring) is not ported yet (ROADMAP.md "
-    "queue 1, item 9b)")
 
 
 class Mesh:
@@ -55,15 +55,25 @@ class Mesh:
         self.devices = grid
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, grid.shape))
-        if self.shape.get(DATA_AXIS, 1) > 1:
-            raise NotImplementedError(DATA_AXIS_REFUSAL)
 
-    def lanes(self) -> List[torch.device]:
-        """One device per row of the sweep axis (the data axis is 1)."""
+    def rows(self) -> List[List[torch.device]]:
+        """The devices of each row of the sweep axis (a row's data axis)."""
         rows = self.devices
         if SWEEP_AXIS in self.axis_names:
             rows = np.moveaxis(rows, self.axis_names.index(SWEEP_AXIS), 0)
-        return list(rows.reshape(rows.shape[0], -1)[:, 0])
+        return [list(r) for r in rows.reshape(rows.shape[0], -1)]
+
+    def lane_devices(self, k: int) -> List[torch.device]:
+        """Sweep row k's devices: lane k's data shards, its lead first."""
+        return self.rows()[k]
+
+    def lanes(self) -> List[torch.device]:
+        """Each sweep row's lead device (its first data shard)."""
+        return [r[0] for r in self.rows()]
+
+    @property
+    def data_width(self) -> int:
+        return self.shape.get(DATA_AXIS, 1)
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
@@ -71,8 +81,10 @@ class Mesh:
 
 @dataclass(frozen=True)
 class NamedSharding:
-    """The leading (config) axis of a block placed over `spec`'s mesh
-    axis (empty `spec`: replicated)."""
+    """A leading axis placed over `spec`'s mesh axis (empty `spec`:
+    replicated): a block's config axis over the sweep axis
+    (`sweep_sharding`), or a scored batch's rows over the data axis
+    (`data_sharding`)."""
 
     mesh: Mesh
     spec: Tuple[str, ...] = ()
@@ -82,8 +94,21 @@ class NamedSharding:
         return self.mesh.shape[self.spec[0]] if self.spec else 1
 
     @property
+    def rows(self) -> List[List[torch.device]]:
+        """The sweep rows a block's lanes run on (one when replicated)."""
+        rows = self.mesh.rows()
+        return rows if self.spec == (SWEEP_AXIS,) else rows[:1]
+
+    @property
     def lanes(self) -> List[torch.device]:
-        return self.mesh.lanes() if self.spec else self.mesh.lanes()[:1]
+        return [r[0] for r in self.rows]
+
+    @property
+    def data_devices(self) -> List[torch.device]:
+        """The devices a row-sharded batch is split over: the first sweep
+        row's data axis (the rows are replicated over the sweep axis)."""
+        row = self.mesh.lane_devices(0)
+        return row if self.spec == (DATA_AXIS,) else row[:1]
 
 
 def _devices(n: Optional[int], device: DeviceLike) -> List[torch.device]:
@@ -122,7 +147,7 @@ def make_multislice_mesh(n_slices: int,
     devices, slice-major on the sweep axis (the JAX package's fallback
     layout; torch exposes no slice topology). `data_per_slice` splits a
     slice's devices into a data axis (default: all of a slice's devices
-    on data, which is item 9b unless a slice has one device)."""
+    on data)."""
     if n_slices < 1:
         raise ValueError(f"n_slices={n_slices} must be >= 1")
     devices = _devices(None if devices_per_slice is None
@@ -158,5 +183,13 @@ def sweep_sharding(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, (SWEEP_AXIS,))
 
 
+def data_sharding(mesh: Mesh) -> NamedSharding:
+    """Shard the leading (row) axis of a scored batch over the data axis
+    (`WorkflowModel.score_compiled(dataset, sharding=)`)."""
+    return NamedSharding(mesh, (DATA_AXIS,))
+
+
 def replicated(mesh: Mesh) -> NamedSharding:
+    """The leading axis whole on the mesh's first device: one lane for a
+    block, one shard for a scored batch."""
     return NamedSharding(mesh, ())

@@ -40,14 +40,17 @@ Design:
   `GoodputReport` mesh rollup (obs/goodput.py).
 
 Device placement: worker k owns sweep-row k of the (sweep, data) mesh.
-Its thread pins X and y to the lane's device once and runs each block as
-the single-device sweep inside the device's context, on a stream of its
-own (bit-identical metrics: every family's batched fit gives a config the
-same bits whatever configs share its launch). A data axis wider than 1
-(a (1, data) sub-mesh per worker, row-sharded fits) is ROADMAP.md queue
-1, item 9b: `parallel.mesh.Mesh` refuses it. The learned cost model's
-plan (predicted block seconds, block splitting, true LPT) comes with
-`perf/` (item 10); the plan is the count heuristic.
+Its thread pins X and y to the row's first device once and runs each
+block as the single-device sweep inside the device's context, on a stream
+of its own (bit-identical metrics: every family's batched fit gives a
+config the same bits whatever configs share its launch). A row of more
+than one device is the worker's (1, data) sub-mesh, its fit context's
+mesh (`sweep.Lanes`, as the JAX package's `_build_submesh`): the worker
+leaves the placement to the sweep, which splits X over the row's devices
+once and runs every block's fits on those row shards. The learned cost
+model's plan (predicted block seconds, block splitting, true LPT) comes
+with `perf/` (ROADMAP.md queue 1, item 10); the plan is the count
+heuristic.
 """
 
 from __future__ import annotations
@@ -163,16 +166,18 @@ class GridScheduler:
         # scheduler in a multi-host sweep — workers CAS-acquire each
         # block fleet-wide before running it (see HostScheduler)
         self.pod = pod
-        # one lane per sweep row; without a mesh, one lane on `device`
-        self._lanes: List[torch.device] = (
-            mesh.lanes() if mesh is not None
-            else [resolve_device(device)])
+        # one lane per sweep row (its devices: a (1, data) sub-mesh when
+        # there are several); without a mesh, one lane on `device`
+        self._rows: List[List[torch.device]] = (
+            mesh.rows() if mesh is not None
+            else [[resolve_device(device)]])
         if n_workers is not None:
             if n_workers < 1:
                 raise ValueError("n_workers must be >= 1")
             # fewer lanes than sweep rows: use the first n rows
-            self._lanes = self._lanes[:n_workers]
-        self.n_workers = len(self._lanes)
+            self._rows = self._rows[:n_workers]
+        self._lanes: List[torch.device] = [r[0] for r in self._rows]
+        self.n_workers = len(self._rows)
         self.report = SchedulerReport(n_workers=self.n_workers)
         # shared queue state
         self._cond = threading.Condition()
@@ -251,7 +256,7 @@ class GridScheduler:
                              jobs=len(jobs)) as root:
                 # one lane context, placement and stream per worker: X
                 # and y are pinned to a lane's device once per run
-                lanes = Lanes(ctx, self._lanes)
+                lanes = Lanes(ctx, self._rows)
                 threads = [
                     threading.Thread(
                         target=self._worker_loop,

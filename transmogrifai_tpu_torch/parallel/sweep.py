@@ -42,10 +42,20 @@ its last config (`_shard_dyn`) and runs one contiguous slice per lane, as
 the same batched program on the lane's device, on a worker thread with a
 stream of its own; the rows come back in lane order without the pad.
 
+The data axis: a fit context whose mesh has a data axis wider than 1 (a
+lane's (1, data) sub-mesh) sweeps with its rows split over the row's
+devices (`_row_split`, a `parallel.rowshards.RowShards`; X is split once
+per training matrix). K4 bins each shard on its device; the linear,
+logistic and tree fits reduce over the shards explicitly; each handler's
+predictions come back gathered to the lead in row order, so the metric
+(K8, K8-mc, K8-reg) runs once on the whole (P, n) there, with W and V
+whole on the lead. The families the data axis does not reach yet (linear
+SVC, GLM, naive Bayes, MLP) raise naming ROADMAP.md queue 1, item 9c,
+and `_sweep_generic` takes X whole, as in the JAX package.
+
 Not ported: the learned cost model's hooks (the block features behind
 `facts`, the HBM pre-shrink and the dispatch-width calibration) come with
-`perf/` (ROADMAP.md queue 1, item 10); a data axis wider than 1
-(row-sharded fits) is item 9b.
+`perf/` (ROADMAP.md queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -85,6 +95,7 @@ from transmogrifai_tpu_torch.models.trees import (
     quantile_bin_edges)
 from transmogrifai_tpu_torch.obs import export as obs_export
 from transmogrifai_tpu_torch.obs.trace import TRACER
+from transmogrifai_tpu_torch.parallel.rowshards import RowShards
 from transmogrifai_tpu_torch.runtime.faults import (
     SITE_RUN_BLOCK, fault_point, is_oom_error)
 from transmogrifai_tpu_torch.runtime.journal import SweepJournal
@@ -375,27 +386,78 @@ def _sweep_blocks(grids: List[Dict], y: torch.Tensor, W: torch.Tensor,
 _SECONDS_LOCK = threading.Lock()
 
 
-def _binned_cache(est, grids, X: torch.Tensor, ctx) -> Dict[int, torch.Tensor]:
+DATA_AXIS_REFUSAL = ("{family} on a mesh's data axis (row-sharded fits) is "
+                     "not ported yet (ROADMAP.md queue 1, item 9c)")
+
+
+class RowSplit:
+    """A training matrix split over a data axis: the `RowShards` and X's
+    parts, one per shard on its device."""
+
+    def __init__(self, shards, X_parts: List[torch.Tensor]):
+        self.shards = shards
+        self.X = X_parts
+
+    def preds(self, fn: Callable[..., Sequence[Pred]],
+              *per_shard) -> List[Pred]:
+        """`fn(*args_k)` (one prediction dict per pair) on every shard k,
+        each key's values gathered to the lead in row order."""
+        parts = self.shards.map(fn, *per_shard)
+        return [{k: self.shards.gather([p[q][k] for p in parts])
+                 for k in parts[0][q]} for q in range(len(parts[0]))]
+
+
+def _row_split(ctx, X: torch.Tensor) -> Optional[RowSplit]:
+    """X split over the data axis of the context's mesh (its first sweep
+    row's devices), or None when the axis is 1 wide. Cached on the context
+    per training matrix (identity-keyed, holding X)."""
+    mesh = getattr(ctx, "mesh", None) if ctx is not None else None
+    if mesh is None or mesh.data_width <= 1:
+        return None
+    cached = getattr(ctx, "_sweep_rows", None)
+    if cached is not None and cached[0] is X:
+        return cached[1]
+    shards = RowShards(X.shape[0], mesh.lane_devices(0))
+    rows = RowSplit(shards, shards.split(X))
+    ctx._sweep_rows = (X, rows)
+    return rows
+
+
+def _refuse_rows(rows: Optional[RowSplit], family: str) -> None:
+    if rows is not None:
+        raise NotImplementedError(DATA_AXIS_REFUSAL.format(family=family))
+
+
+def _binned_cache(est, grids, X: torch.Tensor, ctx,
+                  rows: Optional[RowSplit] = None) -> Dict[int, Any]:
     """X binned once per distinct max_bins (edges from X's rows), cached on
     the fit context so every family of one selector fit shares it. The
     entry keeps X itself and is dropped when another matrix arrives
-    (workflow CV sweeps each fold's matrix under one context)."""
+    (workflow CV sweeps each fold's matrix under one context). Over row
+    shards (`rows`) the edges still come from the whole X on the host, and
+    K4 bins each shard's part on its device: an entry is then the list of
+    the shards' binned parts."""
     cached = getattr(ctx, "_sweep_bin_cache", None) if ctx is not None \
         else None
-    if cached is not None and cached[0] is X:
-        out = cached[1]
+    if cached is not None and cached[0] is X and cached[1] is rows:
+        out = cached[2]
     else:
         out = {}
         if ctx is not None:
-            ctx._sweep_bin_cache = (X, out)
+            ctx._sweep_bin_cache = (X, rows, out)
     X_host = None
     for g in grids:
         mb = int(_grid_param(est, g, "max_bins"))
         if mb not in out:
             if X_host is None:
                 X_host = X.cpu().numpy()
-            edges = quantile_bin_edges(X_host, mb)
-            out[mb] = bin_features(X, torch.as_tensor(edges, device=X.device))
+            edges = torch.as_tensor(quantile_bin_edges(X_host, mb))
+            if rows is None:
+                out[mb] = bin_features(X, edges.to(X.device))
+            else:
+                out[mb] = rows.shards.map(bin_features, rows.X,
+                                          rows.shards.broadcast(
+                                              edges.to(rows.shards.lead)))
     return out
 
 
@@ -482,16 +544,28 @@ def static_signature(est, grid: Dict) -> Tuple:
     return ("generic", SweepJournal.key_of(grid))
 
 
-def _sweep_logistic(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+def _sweep_logistic(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
+                    rows=None):
+    shards = rows.shards if rows is not None else None
+    Xf = rows.X if rows is not None else X
+
     def fit_predict(static, idxs, dyn, Wp, Vp):
         max_iter, enet = static
         if enet:  # FISTA: one fit covers the group's (l1, l2) pairs
-            params = fit_logreg_enet(X, y, Wp, dyn["l1"], dyn["l2"],
-                                     n_classes, enet_iters(max_iter))
+            params = fit_logreg_enet(Xf, y, Wp, dyn["l1"], dyn["l2"],
+                                     n_classes, enet_iters(max_iter),
+                                     shards=shards)
         else:  # pure L2: L-BFGS
-            params = fit_logreg(X, y, Wp, dyn["l2"], n_classes, max_iter)
-        logits = torch.matmul(X, params["W"]) + params["b"][:, None, :]
-        return [logreg_pred_from_logits(lg) for lg in logits]
+            params = fit_logreg(Xf, y, Wp, dyn["l2"], n_classes, max_iter,
+                                shards=shards)
+
+        def predict(Xk, Wk, bk):
+            logits = torch.matmul(Xk, Wk) + bk[:, None, :]
+            return [logreg_pred_from_logits(lg) for lg in logits]
+        if rows is None:
+            return predict(X, params["W"], params["b"])
+        return rows.preds(predict, rows.X, shards.broadcast(params["W"]),
+                          shards.broadcast(params["b"]))
 
     return _sweep_blocks(grids, y, W, V, metric_fn, ctx, "logistic",
                          static_of=lambda g: _static_logistic(est, g),
@@ -499,15 +573,25 @@ def _sweep_logistic(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
                          fit_predict=fit_predict)
 
 
-def _sweep_linreg(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+def _sweep_linreg(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
+                  rows=None):
+    shards = rows.shards if rows is not None else None
+    Xf = rows.X if rows is not None else X
+
     def fit_predict(static, idxs, dyn, Wp, Vp):
         if static[0]:  # any L1 in the group: the FISTA elastic net
-            params = fit_linreg_enet(X, y, Wp, dyn["l1"], dyn["l2"])
+            params = fit_linreg_enet(Xf, y, Wp, dyn["l1"], dyn["l2"],
+                                     shards=shards)
         else:
-            params = fit_linreg(X, y, Wp, dyn["l2"])
-        pred = torch.matmul(params["beta"], X.T) \
-            + params["intercept"][:, None]
-        return [regression_pred(p) for p in pred]
+            params = fit_linreg(Xf, y, Wp, dyn["l2"], shards=shards)
+
+        def predict(Xk, beta, icpt):
+            pred = torch.matmul(beta, Xk.T) + icpt[:, None]
+            return [regression_pred(p) for p in pred]
+        if rows is None:
+            return predict(X, params["beta"], params["intercept"])
+        return rows.preds(predict, rows.X, shards.broadcast(params["beta"]),
+                          shards.broadcast(params["intercept"]))
 
     return _sweep_blocks(grids, y, W, V, metric_fn, ctx, "linreg",
                          static_of=lambda g: _static_linreg(est, g),
@@ -515,7 +599,10 @@ def _sweep_linreg(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
                          fit_predict=fit_predict)
 
 
-def _sweep_svc(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+def _sweep_svc(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
+               rows=None):
+    _refuse_rows(rows, "linear SVC")
+
     def fit_predict(static, idxs, dyn, Wp, Vp):
         params = fit_linear_svc(X, y, Wp, dyn["reg"], static[0])
         margin = torch.matmul(params["beta"], X.T) + params["b"][:, None]
@@ -528,7 +615,10 @@ def _sweep_svc(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
         fit_predict=fit_predict)
 
 
-def _sweep_glm(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+def _sweep_glm(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
+               rows=None):
+    _refuse_rows(rows, "GLM")
+
     def fit_predict(static, idxs, dyn, Wp, Vp):
         family, max_iter, var_power, link = static
         params = fit_glm(X, y, Wp, dyn["reg"], family, max_iter, var_power,
@@ -543,7 +633,9 @@ def _sweep_glm(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
         fit_predict=fit_predict)
 
 
-def _sweep_nb(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+def _sweep_nb(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
+              rows=None):
+    _refuse_rows(rows, "naive Bayes")
     # Spark parity: negative features fail the family (the selector drops
     # it); the verdict is read once per training matrix
     cache = getattr(ctx, "_nb_nonneg_cache", None) if ctx is not None \
@@ -569,7 +661,9 @@ def _sweep_nb(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
         fit_predict=fit_predict)
 
 
-def _sweep_mlp(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+def _sweep_mlp(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
+               rows=None):
+    _refuse_rows(rows, "MLP")
     seed = ctx.seed if ctx is not None else 0
 
     def fit_predict(static, idxs, dyn, Wp, Vp):
@@ -587,8 +681,9 @@ def _sweep_mlp(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
 
 
 def _sweep_forest(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
-                  regression: bool = False):
-    xb_by_bins = _binned_cache(est, grids, X, ctx)
+                  rows=None, regression: bool = False):
+    xb_by_bins = _binned_cache(est, grids, X, ctx, rows)
+    shards = rows.shards if rows is not None else None
     if regression:
         Y = y[:, None]
         pred_fn = forest_regression_pred
@@ -612,19 +707,28 @@ def _sweep_forest(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
                            max_bins, seed, subsample, dyn["mcw"],
                            active_depth=dyn["depth"],
                            bootstrap=est._bootstrap,
-                           min_gain=dyn["min_gain"])
-        return [pred_fn({k: v[q] for k, v in trees.items()}, Xb)
-                for q in range(Wp.shape[0])]
+                           min_gain=dyn["min_gain"], shards=shards)
+
+        def predict(Xbk, tk):  # K5 (K5-mc) over one shard's rows
+            return [pred_fn({k: v[q] for k, v in tk.items()}, Xbk)
+                    for q in range(Wp.shape[0])]
+        if rows is None:
+            return predict(Xb, trees)
+        return rows.preds(predict, Xb, shards.map(
+            lambda *tables: dict(zip(trees, tables)),
+            *(shards.broadcast(t) for t in trees.values())))
 
     return _sweep_blocks(grids, y, W, V, metric_fn, ctx, "forest",
                          static_of=lambda g: _static_forest(est, g),
                          dyn_of=dyn_of, fit_predict=fit_predict)
 
 
-def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
+def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
+               rows=None):
     objective = est._objective
     multiclass = objective == "logistic" and n_classes > 2
-    xb_by_bins = _binned_cache(est, grids, X, ctx)
+    xb_by_bins = _binned_cache(est, grids, X, ctx, rows)
+    shards = rows.shards if rows is not None else None
     seed = ctx.seed if ctx is not None else 0
     eval_metric = str(getattr(est, "eval_metric", "logloss") or "logloss")
     d = X.shape[1]
@@ -669,7 +773,8 @@ def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
                                              dtype=torch.int32),
                 gamma=dyn["gamma"], alpha=dyn["alpha"],
                 subsample=dyn["subsample"], colsample=dyn["colsample"],
-                seed=seed, min_gain_norm=dyn["min_gain_norm"])
+                seed=seed, min_gain_norm=dyn["min_gain_norm"],
+                shards=shards)
             return [gbt_multiclass_pred_from_margin(mg) for mg in margin]
         _, margin, _ = fit_gbt_pairs(
             xb_by_bins[max_bins], y, Wp, n_est,
@@ -680,7 +785,7 @@ def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes):
             subsample=dyn["subsample"], colsample=dyn["colsample"],
             seed=seed, val_w=Vp, early_stopping_rounds=esr,
             min_gain_norm=dyn["min_gain_norm"], eval_metric=eval_metric,
-            objective=objective)
+            objective=objective, shards=shards)
         return [gbt_pred_from_margin(mg, objective) for mg in margin]
 
     return _sweep_blocks(grids, y, W, V, metric_fn, ctx, "gbt",
@@ -748,26 +853,35 @@ class Lanes:
     """Run work on the lanes of a mesh's sweep axis: shared by K11's
     `_run_block` and the scheduler's workers (`parallel/scheduler.py`).
 
-    Lane k has its own `FitContext`, with the caller's row count and seed
-    (bootstrap and fold streams match the single-device sweep bit for
-    bit), its own device, binned-matrix cache and lane tag; the caller's
-    `_sweep_seconds` is shared, keyed by lane. `run(k, fn, X, y)` calls
-    `fn(lane_ctx, X_lane, y_lane)` with X and y placed on the lane's
-    device once per training matrix (identity-keyed on both, holding the
-    keys, so a reused address cannot false-hit). On CUDA it runs inside
-    the device's context and on the lane's own stream (so
-    `cuda_build.launch` launches there and lanes on one card overlap),
-    after the stream current on the constructing thread, and synchronizes
-    that stream before it returns. Construct on the caller's thread;
-    `run` may be called from the lane threads."""
+    `rows` holds each lane's sweep row of devices (`Mesh.rows()`; a bare
+    device is a row of one). Lane k has its own `FitContext`, with the
+    caller's row count and seed (bootstrap and fold streams match the
+    single-device sweep bit for bit), its row's first device, binned-matrix
+    cache and lane tag, and, for a row of several devices, the row as its
+    (1, data) sub-mesh; the caller's `_sweep_seconds` is shared, keyed by
+    lane. `run(k, fn, X, y)` calls `fn(lane_ctx, X_lane, y_lane)` with X
+    and y placed on the lane's device once per training matrix
+    (identity-keyed on both, holding the keys, so a reused address cannot
+    false-hit); a lane with a data row also gets X split over its row's
+    devices then (`_row_split` on the lane's context), so its sweeps run
+    on the shards. On CUDA it runs inside the device's context and on the
+    lane's own stream (so `cuda_build.launch` launches there and lanes on
+    one card overlap), after the stream current on the constructing
+    thread, and synchronizes that stream before it returns. Construct on
+    the caller's thread; `run` may be called from the lane threads."""
 
-    def __init__(self, ctx, devices: Sequence[torch.device]):
+    def __init__(self, ctx, rows: Sequence):
+        from transmogrifai_tpu_torch.parallel.mesh import Mesh
         from transmogrifai_tpu_torch.stages.base import FitContext
-        self.devices = list(devices)
+        self.rows = [list(r) if isinstance(r, (list, tuple)) else [r]
+                     for r in rows]
+        self.devices = [r[0] for r in self.rows]
         self._ctxs = []
-        for k, dev in enumerate(self.devices):
+        for k, row in enumerate(self.rows):
             lctx = FitContext(n_rows=getattr(ctx, "n_rows", 0),
-                              seed=getattr(ctx, "seed", 42), device=dev)
+                              seed=getattr(ctx, "seed", 42), device=row[0],
+                              mesh=(Mesh(np.array([row], dtype=object))
+                                    if len(row) > 1 else None))
             lctx._sweep_lane = k
             lctx._sweep_seconds = getattr(ctx, "_sweep_seconds", None)
             self._ctxs.append(lctx)
@@ -783,6 +897,7 @@ class Lanes:
             if hit is not None and hit[0] is X and hit[1] is y:
                 return hit[2:]
         placed = (X.to(self.devices[k]), y.to(self.devices[k]))
+        _row_split(self._ctxs[k], placed[0])  # a data row's shards, once
         with self._lock:
             self._placed[k] = (X, y) + placed
         return placed
@@ -814,10 +929,11 @@ def _run_block(run_lane: Callable[..., List[List[float]]],
     cache per lane). A lane's exception (or a kill) re-raises here after
     every lane ended."""
     slices, g = _shard_dyn(grids, sharding)
-    devices = sharding.lanes[:len(slices)]
+    rows = sharding.rows[:len(slices)]
+    devices = [r[0] for r in rows]
     lanes = getattr(ctx, "_sweep_lanes", None)
-    if lanes is None or lanes.devices != devices:
-        lanes = ctx._sweep_lanes = Lanes(ctx, devices)
+    if lanes is None or lanes.rows != rows:
+        lanes = ctx._sweep_lanes = Lanes(ctx, rows)
     out: List[Optional[List[List[float]]]] = [None] * len(slices)
     errors: List[BaseException] = []
     parent = TRACER.current()
@@ -883,7 +999,7 @@ def _dispatch(est) -> Optional[Callable]:
     if isinstance(est, OpGBTClassifier):  # and the GBT/XGB regressors
         return _sweep_gbt
     if isinstance(est, OpRandomForestRegressor):  # and the DT regressor
-        return lambda *a: _sweep_forest(*a, regression=True)
+        return lambda *a, **kw: _sweep_forest(*a, regression=True, **kw)
     if isinstance(est, OpRandomForestClassifier):  # and the DT classifier
         return _sweep_forest
     if isinstance(est, OpLogisticRegression):
@@ -941,6 +1057,11 @@ def _run_sweep(est, grids: List[Dict], X: torch.Tensor, y: torch.Tensor,
                ctx) -> List[List[float]]:
     handler = _dispatch(est)
     if handler is None:
+        mesh = getattr(ctx, "mesh", None) if ctx is not None else None
+        if mesh is not None and mesh.data_width > 1:
+            log.info("%s: the generic per-config loop takes X whole on "
+                     "%s, not the data axis's row shards",
+                     type(est).__name__, X.device)
         return _sweep_generic(est, grids, X, y, folds, evaluator, ctx)
     n_classes = getattr(est, "n_classes", None) or infer_n_classes(
         y.cpu().numpy())
@@ -948,4 +1069,5 @@ def _run_sweep(est, grids: List[Dict], X: torch.Tensor, y: torch.Tensor,
                  or HostMetricFallback(evaluator))
     W = torch.as_tensor(np.stack([tr for tr, _ in folds]), device=X.device)
     V = torch.as_tensor(np.stack([va for _, va in folds]), device=X.device)
-    return handler(est, grids, X, y, W, V, metric_fn, ctx, n_classes)
+    return handler(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
+                   rows=_row_split(ctx, X))

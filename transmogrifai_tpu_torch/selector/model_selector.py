@@ -28,7 +28,10 @@ wider than 1 runs every family's blocks through one work-stealing
 schedule (`parallel/scheduler.py`), unless workflow CV is on or
 ``TRANSMOGRIFAI_DISTRIBUTED_SWEEP=0``; then (and on a one-lane mesh)
 each family's groups run through K11's `_run_block` over the mesh's
-lanes. ``TRANSMOGRIFAI_POD_STORE`` (with ``TRANSMOGRIFAI_POD_HOST``,
+lanes. A data axis wider than 1 runs inside each lane, the worker's or
+block lane's fits on its row's shards (`parallel/rowshards.py`); the
+winner's refit stays unsharded, on the context's device, as in the JAX
+package. ``TRANSMOGRIFAI_POD_STORE`` (with ``TRANSMOGRIFAI_POD_HOST``,
 ``_SWEEP``, ``_WORKERS``, ``_TTL_S``) makes the schedule one host of a
 pod claiming blocks from a shared lease table (`parallel/pod.py`).
 """
@@ -203,7 +206,8 @@ class ModelSelector(Estimator):
         blocks run the single-device sweep (bit-identical winner) — unless
         workflow CV is on or ``TRANSMOGRIFAI_DISTRIBUTED_SWEEP=0``; then,
         and on a one-lane mesh, the grid axis spreads over the lanes
-        (K11's `_run_block`)."""
+        (K11's `_run_block`). Either way a data axis wider than 1 stays
+        inside each lane: the lane's (1, data) row splits its rows."""
         if ctx.mesh is None:
             return None, False
         from transmogrifai_tpu_torch.parallel.mesh import (

@@ -1,7 +1,7 @@
 """CompiledScorer: the fitted DAG planned as host and device segments.
 
-The port's counterpart of the JAX package's `workflow/compiled.py`,
-without sharding. Per batch:
+The port's counterpart of the JAX package's `workflow/compiled.py`. Per
+batch:
 
 - host phase: materialize the raw columns, run host stages, and call each
   device stage's `host_prepare` (strings → ids, hash counts); the device
@@ -38,6 +38,19 @@ range (batch-relative) or the fit-time range (calibrated).
 
 The fitted tables of each device stage (`device_constants(device)`) are
 built on the device once, when the scorer is built.
+
+Sharded scoring (`sharding=parallel.mesh.data_sharding(mesh)`, the JAX
+package's row sharding): the host phase runs once per batch; each device
+segment then runs once per row shard of the mesh's data axis
+(`parallel/rowshards.py`, contiguous row ranges), on the shard's device,
+with the stage constants built once per distinct device; a leaf whose
+leading axis is the batch's rows is cut to the shard's rows and any other
+leaf goes whole (the JAX rule, which matches on the row count). The
+outputs are gathered in row order on the model's device. A batch whose
+row count the shard count does not divide runs replicated on the
+model's device, as the JAX package's placement leaves such a batch
+replicated; `replicated_batches` counts those, `sharded_batches` the
+rest. `score_padded` and the CUDA graphs stay unsharded.
 """
 
 from __future__ import annotations
@@ -58,6 +71,8 @@ from transmogrifai_tpu_torch.data.columns import Column, to_host
 from transmogrifai_tpu_torch.data.dataset import Dataset
 from transmogrifai_tpu_torch.features.dag import topological_layers
 from transmogrifai_tpu_torch.obs.trace import TRACER, add_event
+from transmogrifai_tpu_torch.parallel.mesh import replicated
+from transmogrifai_tpu_torch.parallel.rowshards import RowShards
 from transmogrifai_tpu_torch.stages.base import (
     HOST_KINDS, FeatureGeneratorStage, Transformer, compiled_scoring,
     fma_f32, is_host_stage, to_device)
@@ -413,6 +428,30 @@ def slice_result_tree(value: Any, start: int, stop: int) -> Any:
                     "to the rows of one request")
 
 
+def _map_leaves(fn, tree: Any) -> Any:
+    """`fn` of every leaf of a dict / list / tuple pytree."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _concat_trees(parts: List[Any], device) -> Any:
+    """Row shards' output pytrees joined in row order on `device`: each
+    leaf a batch-leading tensor (or a list of per-row values)."""
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _concat_trees([p[k] for p in parts], device)
+                for k in first}
+    if isinstance(first, torch.Tensor) and first.ndim >= 1:
+        return torch.cat([p.to(device) for p in parts])
+    if isinstance(first, list):
+        return [v for p in parts for v in p]
+    raise TypeError(f"cannot gather a {type(first).__name__} output leaf "
+                    "over row shards")
+
+
 def _column_from_device(ftype: type, dev) -> Column:
     """Wrap a device pytree back into a host Column (segment boundary)."""
     if isinstance(dev, dict) and "prediction" in dev:
@@ -571,16 +610,24 @@ class CompiledScorer:
     segments as CUDA graphs (default: on a CUDA device)."""
 
     def __init__(self, model, quant: Any = None,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, sharding=None):
         self.model = model
         self.device = model.device
         self.quant = ScoringQuant.resolve(quant)
+        self.sharding = sharding
+        self._shard_devices = (sharding.data_devices
+                               if sharding is not None else [self.device])
         if graphs is None:
-            graphs = self.device.type == "cuda"
+            graphs = self.device.type == "cuda" and sharding is None
         if graphs and self.device.type != "cuda":
             raise ValueError("CUDA graphs need a CUDA device, the model "
                              f"scores on {self.device}")
+        if graphs and sharding is not None:
+            raise ValueError("sharded scoring runs its segments eagerly; "
+                             "the CUDA graphs serve unsharded batches")
         self.graphs = graphs
+        self.sharded_batches = 0
+        self.replicated_batches = 0
         self._graph_cache: Dict[Tuple, _SegmentGraph] = {}
         self._current_stage: Optional[Transformer] = None
         self._cal_ranges: Optional[Dict[str, Any]] = None
@@ -624,23 +671,77 @@ class CompiledScorer:
         self.device_stages: List[Transformer] = [
             s for kind, stages in self.segments if kind == "device"
             for s in stages]
-        self._consts: Dict[str, Any] = {}
+        self._consts: Dict[str, Any] = self._build_consts(self.device)
+        self._consts_by_device = {self.device: self._consts}
+
+    def _build_consts(self, device) -> Dict[str, Any]:
+        """Every device stage's fitted tables on `device` (narrowed in
+        quantized mode)."""
+        out: Dict[str, Any] = {}
         for s in self.device_stages:
-            c = s.device_constants(self.device)
+            c = s.device_constants(device)
             if c is not None:
-                self._consts[s.uid] = (s.narrow_device_constants(c)
-                                       if self.quant else c)
+                out[s.uid] = (s.narrow_device_constants(c)
+                              if self.quant else c)
+        return out
+
+    def _consts_on(self, device) -> Dict[str, Any]:
+        """The stage constants on `device`, built once per device."""
+        got = self._consts_by_device.get(device)
+        if got is None:
+            got = self._consts_by_device[device] = self._build_consts(device)
+        return got
 
     def segment_ops(self, seg_idx: int) -> str:
         return ",".join(s.operation_name for s in self.segments[seg_idx][1])
 
     # ------------------------------------------------------------------ #
 
+    def _row_shards(self, n_rows: int):
+        """The batch's row shards over the sharding's data axis, or None
+        (no sharding, one shard, or a row count the shard count does not
+        divide: then the batch runs replicated, and is counted)."""
+        S = len(self._shard_devices)
+        if self.sharding is None or S <= 1:
+            return None
+        placement = (self.sharding if n_rows % S == 0
+                     else replicated(self.sharding.mesh))
+        if not placement.spec:  # whole, on the model's device
+            self.replicated_batches += 1
+            return None
+        self.sharded_batches += 1
+        return RowShards(n_rows, placement.data_devices)
+
+    def _run_sharded(self, seg_idx: int, encs: Dict[str, Any],
+                     vals: Dict[str, Any], shards) -> Dict[str, Any]:
+        """Device segment `seg_idx` once per row shard (batch-leading
+        leaves cut to the shard's rows, the rest whole), each on its
+        device with that device's constants; the outputs gathered in row
+        order on the model's device."""
+        outs = []
+        for k, dev in enumerate(shards.devices):
+            lo, hi = shards.bounds[k], shards.bounds[k + 1]
+
+            def cut(leaf):
+                if (isinstance(leaf, (np.ndarray, torch.Tensor))
+                        and leaf.ndim >= 1 and leaf.shape[0] == shards.n):
+                    leaf = leaf[lo:hi]
+                return to_device(leaf, dev)
+            with shards.on(k):
+                outs.append(self._run_segment(
+                    seg_idx, _map_leaves(cut, encs), _map_leaves(cut, vals),
+                    self._consts_on(dev)))
+        return _concat_trees(outs, self.device)
+
     def _run_segment(self, seg_idx: int, encs: Dict[str, Any],
-                     dev_vals: Dict[str, Any]) -> Dict[str, Any]:
+                     dev_vals: Dict[str, Any],
+                     consts_by_stage: Optional[Dict[str, Any]] = None
+                     ) -> Dict[str, Any]:
         """Run one device segment's stages on device tensors (the wire form
         in quantized mode, dequantized first by K10); returns the
         segment's needed outputs by feature uid."""
+        if consts_by_stage is None:
+            consts_by_stage = self._consts
         if self.quant is not None:
             dev_vals = dequantize_wire(dev_vals, self.quant.bits)
         vals = dict(dev_vals)
@@ -648,7 +749,7 @@ class CompiledScorer:
             for stage in self.segments[seg_idx][1]:
                 self._current_stage = stage
                 dev_inputs = [vals.get(f.uid) for f in stage.input_features]
-                consts = self._consts.get(stage.uid)
+                consts = consts_by_stage.get(stage.uid)
                 if consts is not None:
                     out = stage.device_apply_with(
                         consts, encs.get(stage.uid), dev_inputs)
@@ -660,15 +761,19 @@ class CompiledScorer:
         return {u: vals[u] for u in self._seg_out_uids[seg_idx]}
 
     def _dispatch(self, seg_idx: int, encs: Dict[str, Any],
-                  vals: Dict[str, Any], graphs: bool) -> Dict[str, Any]:
+                  vals: Dict[str, Any], graphs: bool,
+                  shards=None) -> Dict[str, Any]:
         """Run device segment `seg_idx` on its inputs (host numpy leaves
         and device tensors): as the CUDA graph of these inputs' signature
-        when `graphs` (captured at the first call), else eagerly. Inside a
-        trace span each dispatch adds a ``device_dispatch`` event with the
-        bytes in and out and the host seconds to enqueue it, as the JAX
-        package's scorer does (goodput's `scoring` section)."""
+        when `graphs` (captured at the first call), else eagerly, over the
+        batch's row shards when it has them. Inside a trace span each
+        dispatch adds a ``device_dispatch`` event with the bytes in and
+        out and the host seconds to enqueue it, as the JAX package's
+        scorer does (goodput's `scoring` section)."""
         t0 = time.perf_counter()
-        if not graphs:
+        if shards is not None:
+            out = self._run_sharded(seg_idx, encs, vals, shards)
+        elif not graphs:
             out = self._run_segment(seg_idx, to_device(encs, self.device),
                                     to_device(vals, self.device))
         else:
@@ -747,6 +852,7 @@ class CompiledScorer:
         and the host columns."""
         columns: Dict[str, Column] = {}
         vals: Dict[str, Any] = {}
+        shards = self._row_shards(len(dataset))
         for gen in self.generators:
             f = gen.get_output()
             c = gen.materialize(dataset, allow_missing_response=True)
@@ -782,7 +888,8 @@ class CompiledScorer:
                     # of earlier segments pass through
                     args = quantize_wire(vals, self.quant.bits,
                                          ranges=self._cal_ranges)
-                vals.update(self._dispatch(seg_idx, encs, args, graphs))
+                vals.update(self._dispatch(seg_idx, encs, args, graphs,
+                                           shards))
         return vals, columns
 
     def __call__(self, dataset: Dataset, graphs: bool = False
@@ -802,8 +909,9 @@ class CompiledScorer:
         the result features. Raises RuntimeError on plans with more than
         one device segment (`__call__` is the general path)."""
         fi = self._fused_index()
+        shards = self._row_shards(len(dataset))
         encs, raw, columns = self.host_phase(dataset)
-        out = self._dispatch(fi, encs, raw, graphs)
+        out = self._dispatch(fi, encs, raw, graphs, shards)
         result: Dict[str, Any] = {}
         for f in self.model.result_features:
             if f.uid in out:
@@ -822,6 +930,9 @@ class CompiledScorer:
         serving ladder) and return the valid rows only. On a CUDA device
         each device segment runs as the CUDA graph of its bucket
         (`graphs`)."""
+        if self.sharding is not None:
+            raise ValueError("score_padded serves unsharded batches; build "
+                             "the service's scorer without a sharding")
         n_valid = len(dataset)
         padded = pad_dataset(dataset, pad_to)
         out = (self.score_fused(padded, self.graphs) if self.fusable

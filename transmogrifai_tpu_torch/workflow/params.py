@@ -11,11 +11,11 @@ JAX package. `Workflow.set_parameters` takes an OpParams or a dict;
 `feature_cache` installs the run's cache policy (`cache_scope`).
 
 `mesh` builds the run's device mesh (`MeshParams.build`, the runner
-passes it to `Workflow.train(mesh=)`; a data axis wider than 1 raises,
-ROADMAP.md queue 1, item 9b) and `sweep_checkpoint` makes every
-selector's sweep resumable. Parsed but not run by the port yet, each
-refused where it would act: `serving` and its `fleet` block (the `serve`
-run type, item 10), `continual` and `perf_model` (item 10).
+passes it to `Workflow.train(mesh=)`, a data axis included) and
+`sweep_checkpoint` makes every selector's sweep resumable. Parsed but
+not run by the port yet, each refused where it would act: `serving` and
+its `fleet` block (the `serve` run type, item 10), `continual` and
+`perf_model` (item 10).
 """
 
 from __future__ import annotations
@@ -160,8 +160,9 @@ class MeshParams:
     across the mesh through the work-stealing scheduler
     (`parallel/scheduler.py`). `n_slices` lays the mesh out in
     contiguous slices (`make_multislice_mesh`, slice boundaries on the
-    sweep axis). Devices left on the data axis would shard each worker's
-    rows: ROADMAP.md queue 1, item 9b, so the data axis must be 1."""
+    sweep axis). Devices left on the data axis (n_devices / sweep, or
+    `data_per_slice`) split each worker's rows: its fits run on row
+    shards (`parallel/rowshards.py`)."""
 
     n_devices: Optional[int] = None   # default: every visible device
     sweep: Optional[int] = None       # sweep-axis width (default: all)

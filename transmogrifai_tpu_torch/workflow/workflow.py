@@ -455,25 +455,32 @@ class WorkflowModel:
             return columns
         return {f.name: columns[f.uid] for f in self.result_features}
 
-    def _ensure_compiled(self, quant: Any = None):
+    def _ensure_compiled(self, quant: Any = None, sharding=None):
         """The model's `CompiledScorer` for quantized mode `quant` (None,
-        "int8", "int4", their "-calibrated" variants or a ScoringQuant),
-        rebuilt when the mode changes."""
+        "int8", "int4", their "-calibrated" variants or a ScoringQuant)
+        and row `sharding`, rebuilt when either changes (the JAX package
+        keys its cached scorer on both)."""
         from transmogrifai_tpu_torch.workflow.compiled import (
             CompiledScorer, ScoringQuant)
         q = ScoringQuant.resolve(quant)
-        if self._compiled is None or self._compiled.quant != q:
-            self._compiled = CompiledScorer(self, quant=q)
+        if (self._compiled is None or self._compiled.quant != q
+                or self._compiled.sharding != sharding):
+            self._compiled = CompiledScorer(self, quant=q, sharding=sharding)
         return self._compiled
 
     def compiled(self):
         """The model's exact-f32 `CompiledScorer` (built once)."""
         return self._ensure_compiled()
 
-    def score_compiled(self, dataset: Dataset) -> Dict[str, Any]:
+    def score_compiled(self, dataset: Dataset,
+                       sharding=None) -> Dict[str, Any]:
         """Planned scoring: {feature_name: tensor pytree on the model's
-        device} for the result features."""
-        return self.compiled()(dataset)
+        device} for the result features. `sharding`
+        (`parallel.mesh.data_sharding(mesh)`) runs each device segment
+        over the row shards of the mesh's data axis and gathers the rows
+        back in order; a batch whose row count the shard count does not
+        divide runs replicated (`workflow/compiled.py`)."""
+        return self._ensure_compiled(sharding=sharding)(dataset)
 
     def evaluate(self, dataset: Dataset, evaluator, label_feature,
                  prediction_feature):
