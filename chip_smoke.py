@@ -413,6 +413,44 @@ any failure exits non-zero:
    and read after (e): K1, K2, K3, K4, K5 and K8 launched. Each part's
    wall beside the card's name and power limit, and the scheduler's
    per-lane report.
+30. the data axis (`data_axis_phase`): (a) phase 12's train on a (1, 2)
+   mesh whose two data shards are both the card, held to phase 12, with
+   the launches a shard; (b) the same through the scheduler on (2, 2);
+   (c) sharded scoring; (d) a sharded XGB and depth-12 RF block with every
+   launch held against its plain version; (e) distinct cards where the
+   machine has two; (g) the linear SVC, GLM, naive Bayes and MLP sweeps
+   on the (1, 2) mesh, each held to its unsharded sweep in the same call
+   on the well-conditioned fixtures of 256 and 301 rows
+   (`DATA_AXIS_FIXTURES`, those of tests/test_torch_data_axis_families.py):
+   fold metrics within rtol 2e-4 and the winner equal; and, as readings
+   only, the three families runs' sweeps of those families on the mesh
+   against one card (their unconverged f32 optimizer paths carry a
+   regrouped sum's ulp far, F28);
+31. the big path on the data axis (`big_data_axis`, inside `big_path` on
+   phase 21's store), a (1, 2) mesh of the card: (a) the sharded dual
+   build (9 + 8 upload chunks), each shard's bf16 and int8 rows equal to
+   phase 21's, K12 once a chunk; then an int8 build through the cache
+   under the sharded key: a miss, then a hit, the parts equal and the key
+   unlike the unsharded one; (b) phase 21's LR grid (fold 0) on the
+   shards: W and b within `big_lr_tolerance`, the fold AuPR (K8 on the
+   lead) within rtol 2e-4; (c) phase 21's lockstep forest batch on the
+   shards: feat, bin and leaf equal to phase 21's (phase 21's draws made
+   on the lead at the whole n), and its K5 predictions equal; (d) phase
+   21's GBT rounds: split features and bins equal; the first round's
+   leaves equal (its sums are of multiples of 1/4, exact in any order),
+   the last round's leaves and the margins within the f32 regrouping
+   bound of each leaf's sums (`gbt_round_bound`; a leaf of tens of
+   thousands of rows summed in f32 is exact only to it, in any order,
+   far past BIG_GBT_LEAF_ATOL), and the last round's leaves within
+   GBT_F64_MULTIPLE times phase 21's own gap to the same leaves summed
+   in f64; (e) the 16,384
+   × 500 fixture store sharded, every launch of K12, K1, K2 and K3 held
+   against its plain version (`shadow_kernels`) and the results
+   against the JAX package's fixture at `judge_big_fixture`'s tolerances;
+   (f) (a)–(c) over distinct cards where the machine has two, else a line
+   saying so. The launch counters are set to 0 before (a) and read after
+   (d), with each shard's launches; the walls, the peak device memory and
+   the card's name and power limit beside them.
 """
 
 import contextlib
@@ -2494,7 +2532,8 @@ class ChannelLog:
 
 class ForestCalls:
     """Within a `with` block, every `fit_forest` call of the sweep and of
-    the estimators, its arguments and its tables, kept on the host."""
+    the estimators, its arguments and its tables, kept on the host (a
+    `RowSplit` argument as its whole matrix)."""
 
     def __init__(self):
         self.calls = []
@@ -2502,13 +2541,18 @@ class ForestCalls:
     def __enter__(self):
         from transmogrifai_tpu_torch.models import trees as ptr
         from transmogrifai_tpu_torch.parallel import sweep as psw
+        from transmogrifai_tpu_torch.parallel.rowshards import RowSplit
         self._orig = ptr.fit_forest
+
+        def host(a):
+            if isinstance(a, RowSplit):
+                a = a.gather()
+            return a.cpu() if isinstance(a, torch.Tensor) else a
 
         def record(*args, **kw):
             out = self._orig(*args, **kw)
             self.calls.append((
-                [a.cpu() if isinstance(a, torch.Tensor) else a
-                 for a in args],
+                [host(a) for a in args],
                 {k: v.cpu() if isinstance(v, torch.Tensor) else v
                  for k, v in kw.items()},
                 {k: v.cpu() for k, v in out.items()}))
@@ -3944,7 +3988,8 @@ def time_k5mc(pt, trees, Xbs):
 def families_train(port, pt, run, device="cuda"):
     """The run on the card (every family, every config, the JAX package's
     MLP initial weights injected), held to its fixture; saved, reloaded
-    and scored. The launch counters cover exactly this run."""
+    and scored. The launch counters cover exactly this run. Returns
+    (record, trained model, the selector's prediction feature)."""
     import tempfile
     from transmogrifai_tpu_torch.models import mlp as pm
     from transmogrifai_tpu_torch.selector import model_selector as ms
@@ -4023,7 +4068,7 @@ def families_train(port, pt, run, device="cuda"):
     if not ok:
         raise AssertionError(f"the families_{run} run disagrees with the JAX "
                              "package's f32 fixture")
-    return record
+    return record, model, pred
 
 
 def families_serve(port, pt, device="cuda"):
@@ -4130,6 +4175,9 @@ BIG_GBT_DEEP = dict(n_estimators=1, max_depth=10, learning_rate=0.1,
 # order (K1/K3 against the JAX package's matmuls); margins add lr · leaf
 BIG_GBT_LEAF_ATOL = 1e-5
 BIG_GBT_MARGIN_ATOL = 2e-6
+# phase 31 (d): the sharded run's last-round leaves are held within this
+# multiple of the unsharded run's own gap to the same leaves in f64
+GBT_F64_MULTIPLE = 4.0
 # the LR grid: FISTA re-rounds W and the residuals to bf16 before every
 # product, so a sum-order difference that moves an f32 value across a bf16
 # rounding boundary moves that operand by 2^-8 relative and the path by
@@ -4226,17 +4274,21 @@ def load_big_fixture() -> dict:
         return {k: z[k] for k in z.files}
 
 
-def big_fixture_run(pbd, pcs, root, device="cuda"):
+def big_fixture_run(pbd, pcs, root, device="cuda", sharding=None):
     """The port's results at the fixture's shape (16384 × 500, chunk
-    4096) on `device`, with the fixture's forest draws injected: numpy
-    arrays under the fixture's names."""
+    4096) on `device` (or over `sharding`'s row shards: the matrices are
+    then `RowSplit`s), with the fixture's forest draws injected: numpy
+    arrays under the fixture's names. The store is made under `root`
+    once."""
     want = load_big_fixture()
     chunk = BIG_FIXTURE_CHUNK
-    st = pcs.synth_binary_store(os.path.join(root, "fixture_store"),
-                                BIG_FIXTURE_ROWS, BIG_D, seed=BIG_SEED)
+    path = os.path.join(root, "fixture_store")
+    st = (pcs.ColumnarStore(path) if os.path.isdir(path) else
+          pcs.synth_binary_store(path, BIG_FIXTURE_ROWS, BIG_D,
+                                 seed=BIG_SEED))
     edges = st.quantile_edges(BIG_BINS)
     X16, Xb = pbd.dual_device_matrices(st, edges, chunk_rows=chunk,
-                                       device=device)
+                                       device=device, sharding=sharding)
     n_pad = X16.shape[0]
     W, V = big_folds(st.n_rows, n_pad)
     y = big_labels(st, n_pad)
@@ -4258,7 +4310,8 @@ def big_fixture_run(pbd, pcs, root, device="cuda"):
                             draws=(want["rf_boot"].astype(np.float32),
                                    want["rf_mask"]))
     got = {"store_sha256": store_digest(st), "binned_sha256":
-           tensor_digest(Xb), "lr_W": lr["W"], "lr_b": lr["b"],
+           tensor_digest(Xb if sharding is None else Xb.gather()),
+           "lr_W": lr["W"], "lr_b": lr["b"],
            "gbt_margin": margin,
            **{f"gbt_{k}": v for k, v in gbt.items()},
            **{f"rf_{k}": v for k, v in rf.items()}}
@@ -4918,15 +4971,317 @@ def big_cache(pbd, pfc, pcs, pdm, store, edges_np, root, ref, dev, c, hc,
     return rec
 
 
+# --------------------------------------------------------------------------- #
+# 31. the big path on the data axis                                           #
+# --------------------------------------------------------------------------- #
+
+# the kernels of phase 31's main path ((a)–(d)): K12 (the dual write and,
+# through the cache, its int8 dequant bins), K1, K2, K3's routing and leaf
+# sums a shard, K5 a shard, K8 on the lead
+BIG_AXIS_KERNELS = ("write_rows", "dequant_bin_write_rows_int8",
+                    "histograms", "split_search", "split_search_live",
+                    "route_level", "leaf_sums", "tree_walk", "binned_aupr")
+# the ones launched inside a shard's device context (`RowShards.on`)
+BIG_AXIS_SHARD_KERNELS = ("write_rows", "dequant_bin_write_rows_int8",
+                          "histograms", "route_level", "leaf_sums",
+                          "tree_walk")
+BIG_AXIS_SHADOWED = ("dual_write_rows", "histograms", "split_search",
+                     "route_level", "leaf_sums")
+
+
+@contextlib.contextmanager
+def launches_a_shard(kernels):
+    """While open, the launches of `kernels` counted inside a shard's
+    device context (`RowShards.on(k)`, the one way the port touches a
+    shard's device) are added to shard k's: yields {k: {kernel: n}}."""
+    from transmogrifai_tpu_torch import cuda_build
+    from transmogrifai_tpu_torch.parallel.rowshards import RowShards
+    per = {}
+    orig_on = RowShards.on
+
+    @contextlib.contextmanager
+    def on(self, k):
+        before = cuda_build.launches_snapshot()
+        with orig_on(self, k):
+            yield
+        after = cuda_build.launches_snapshot()
+        mine = per.setdefault(k, dict.fromkeys(kernels, 0))
+        for name in kernels:
+            mine[name] += after.get(name, 0) - before.get(name, 0)
+
+    RowShards.on = on
+    try:
+        yield per
+    finally:
+        RowShards.on = orig_on
+
+
+def shard_rows_equal(split, whole) -> bool:
+    """Each shard's part bit-equal to the same rows of `whole`."""
+    return all(bits_equal(part, whole[a:b]) for part, a, b in zip(
+        split.parts, split.shards.bounds, split.shards.bounds[1:]))
+
+
+def big_axis_learners(pbd, pdm, Xs, Bs, ref, hc) -> dict:
+    """Phase 21's LR fold 0, forest batch and GBT rounds on the row shards
+    Xs / Bs, each held to phase 21's (`ref`): (b), (c), (d) of phase 31."""
+    y, W, V = ref["y"], ref["W"], ref["V"]
+    n_pad = y.shape[0]
+    dev = Xs.device
+    walls, checks, out = {}, {}, {}
+    l1v, l2v = big_grid()
+    p, walls["b_lr_fold0"] = timed_s(dev, lambda: pbd.fit_logreg_enet_grids_big(
+        Xs, y, W[0], l1v, l2v, 2, BIG_LR_STEPS))
+    probs = pbd.predict_logreg_grids_big(p["W"], p["b"], Xs)
+    aupr = np.array(pdm.binned_aupr(
+        probs[:, :, 1].contiguous(), y, V[0][None].expand(8, n_pad)
+        .contiguous(), 4096, False).tolist())
+    del probs
+    tol = big_lr_tolerance(load_big_fixture())
+    lr = {"W_err": max_err(p["W"], ref["lr"]["W"]),
+          "b_err": max_err(p["b"], ref["lr"]["b"]), "tolerance": tol,
+          "aupr": aupr.tolist(), "aupr_phase21": ref["lr_aupr"].tolist(),
+          "aupr_max_rel_err": float(np.max(np.abs(aupr - ref["lr_aupr"])
+                                           / np.abs(ref["lr_aupr"])))}
+    checks["b_lr_within_tolerance"] = (lr["W_err"] <= tol["W"]
+                                       and lr["b_err"] <= tol["b"])
+    checks["b_aupr_within_rtol_2e-4"] = lr["aupr_max_rel_err"] <= 2e-4
+    out["lr"] = lr
+    r = BIG_RF
+    Y1 = torch.nn.functional.one_hot(y.long(), 2).float()
+    rf, walls["c_rf_batch"] = timed_s(dev, lambda: pbd.fit_forest_big(
+        Bs, Y1, W[0], r["n_trees"], r["max_depth"], BIG_BINS, 2,
+        seed=r["seed"], trees_per_dispatch=16, chunk=hc))
+    pred, walls["c_predict"] = timed_s(
+        dev, lambda: pbd.predict_forest_big(rf, Bs))
+    checks["c_forest_equal"] = all(torch.equal(rf[k], ref["rf"][k])
+                                   for k in ("feat", "bin", "leaf"))
+    checks["c_predictions_equal"] = torch.equal(pred, ref["pred"])
+    del rf, pred, Y1
+    # phase 21's GBT rounds: the first round's sums are of multiples of
+    # 1/4 (a zero margin, 0/1 weights), exact in any order, so its leaves
+    # and the second round's inputs are the same bits; the second round's
+    # leaves then differ only by their sums' order
+    g = BIG_GBT
+    w6 = torch.cat([W, V])
+    lr_gbt, rounds = g["learning_rate"], g["n_estimators"]
+    (gbt, margin), walls["d_gbt"] = timed_s(
+        dev, lambda: pbd.fit_gbt_big_lockstep(
+            Bs, y, w6, rounds, g["max_depth"], BIG_BINS, lr_gbt,
+            g["reg_lambda"], chunk=hc))
+    want = ref["gbt"]
+    margin_in = torch.zeros_like(margin)
+    for r in range(rounds):
+        tree = {k: v[r] for k, v in want.items()}
+        bound, margin_out, margin_bound, leaf64 = gbt_round_bound(
+            ref["Xb"], y, w6, tree, lr_gbt, g["reg_lambda"], margin_in)
+        leaf_gap = (gbt["leaf"][r] - tree["leaf"]).abs()
+        if r < rounds - 1:
+            checks[f"d_gbt_round{r}_leaves_equal"] = bool(
+                (leaf_gap == 0).all())
+        margin_in = margin_out
+    margin_gap = (margin - margin_out).abs()
+    # the last round against its f64 leaves: the sharded run's two chains
+    # of half the rows each, added, against the unsharded run's one chain
+    # (K3's row-order leaf pass); a chain's rounding grows with its
+    # length, so the sharded gap should not pass the unsharded one, and
+    # GBT_F64_MULTIPLE leaves room for the max over the leaves
+    f64_gap = float((gbt["leaf"][-1].double() - leaf64).abs().max())
+    f64_gap_one = float((want["leaf"][-1].double() - leaf64).abs().max())
+    out["gbt"] = {
+        "rounds": rounds,
+        "leaf_err": max_err(gbt["leaf"], want["leaf"]),
+        "margin_err": float(margin_gap.max()),
+        "last_round_leaf_bound_max": float(bound.max()),
+        "margin_bound_max": float(margin_bound.max()),
+        "largest_share_of_bound": float(torch.where(
+            bound > 0, leaf_gap / bound, torch.zeros_like(bound)).max()),
+        "last_round_gap_to_f64": f64_gap,
+        "last_round_gap_to_f64_unsharded": f64_gap_one,
+        "within_BIG_GBT_atol": bool(
+            max_err(gbt["leaf"], want["leaf"]) <= BIG_GBT_LEAF_ATOL
+            and margin_gap.max() <= BIG_GBT_MARGIN_ATOL)}
+    checks["d_gbt_trees_equal"] = all(torch.equal(gbt[k], want[k])
+                                      for k in ("feat", "bin"))
+    checks["d_gbt_within_regroup_bound"] = bool(
+        (leaf_gap <= bound).all() and (margin_gap <= margin_bound).all())
+    checks["d_gbt_last_round_near_f64"] = \
+        f64_gap <= GBT_F64_MULTIPLE * f64_gap_one
+    return {"walls_s": walls, "checks": checks, **out}
+
+
+def gbt_round_bound(Xb, y, wK, tree, lr, lam, margin):
+    """The most that regrouping one GBT round's f32 sums can move its
+    leaves and margins, for the round's trees `tree` ({"feat", "bin",
+    "leaf"}: (K, depth, 2^depth), (K, 2^depth, 1)) grown from `margin`
+    (K, n): per pair and leaf of c rows, 2(c − 1)·2^-24·(Σ|G| + |leaf|·
+    ΣH)/(ΣH + λ) (the f32 summation bound of the leaf's Σ G and Σ H in
+    any two orders: K1's pieces or K3's row-order chain over one matrix,
+    each shard's and their sum), plus 2^-22·|leaf| for the division; G
+    and H the round's bf16-rounded gradients, summed by `index_add_`.
+    Returns (leaf bound (K, 2^depth, 1), the margins after the round as
+    the tree routes `Xb`, their bound: lr times the leaf's bound plus
+    2^-22 of the margin, and the leaves with those sums and the formula
+    in f64 (K, 2^depth, 1): the reference a run's f32 leaves are held
+    to)."""
+    from transmogrifai_tpu_torch.models import trees as pt
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
+    depth, width = tree["feat"].shape[1:]
+    g, h = pbd._gradients(margin, y[None], wK, "logistic")
+    G = (-g).to(torch.bfloat16).float()[:, None]
+    H = h.to(torch.bfloat16).float()
+    node = route_to_level(pt, Xb, tree, depth)
+    mag = pt.leaf_sums_plain(node, G.abs(), H, width)
+    cnt = pt.leaf_sums_plain(node, torch.ones_like(G), torch.ones_like(H),
+                             width)[..., 0]
+    leaf = tree["leaf"][..., 0]
+    bound = (2 * (cnt - 1).clamp(min=0) * 2.0 ** -24
+             * (mag[..., 0] + leaf.abs() * mag[..., 1])
+             / (mag[..., 1] + lam) + 2.0 ** -22 * leaf.abs())
+    rows = node.long()
+    flat = (rows + torch.arange(rows.shape[0], device=rows.device)[:, None]
+            * width).reshape(-1)
+    g64, h64 = (torch.zeros(rows.shape[0] * width, dtype=torch.float64,
+                            device=rows.device)
+                .index_add_(0, flat, v.reshape(-1).double())
+                .reshape(-1, width) for v in (G[:, 0], H))
+    leaf64 = (g64 / (h64 + lam))[..., None]
+    out = margin + pbd._f32(lr) * torch.gather(leaf, 1, rows)
+    return (bound[..., None], out,
+            lr * torch.gather(bound, 1, rows) + 2.0 ** -22 * out.abs(),
+            leaf64)
+
+
+def big_data_axis(pbd, pfc, pcs, pdm, store, edges_np, root, ref, dev, c,
+                  hc) -> dict:
+    """Phase 31 (module docstring): phase 21's store and results (`ref`)
+    on a (1, 2) mesh whose two data shards are both the card."""
+    import shutil
+
+    from transmogrifai_tpu_torch import cuda_build
+    from transmogrifai_tpu_torch.parallel.mesh import Mesh, data_sharding
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    sharding = data_sharding(Mesh(np.array([[dev, dev]], dtype=object)))
+    n_pad = ref["X16"].shape[0]
+    walls, checks = {}, {}
+    rec = {"phase": "big_data_axis", "rows": store.n_rows, "n_pad": n_pad,
+           "card": card_line() if dev.type == "cuda" else None}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    with launches_a_shard(BIG_AXIS_SHARD_KERNELS) as per_shard:
+        # (a) the sharded dual build, then an int8 build through the cache
+        (Xs, Bs, st), walls["a_dual_build"] = timed_s(
+            dev, lambda: pbd.dual_device_matrices(
+                store, edges_np, chunk_rows=c, sharding=sharding,
+                return_stats=True))
+        chunks = [size // c for size in Xs.shards.sizes]
+        rec["shard_chunks"] = chunks
+        checks["a_whole_chunks"] = (sum(chunks) * c == n_pad
+                                    and max(chunks) - min(chunks) <= 1)
+        checks["a_rows_equal_phase21"] = (shard_rows_equal(Xs, ref["X16"])
+                                          and shard_rows_equal(Bs, ref["Xb"]))
+        rec["upload"] = st.to_extra()
+        cache_dir = os.path.join(root, "cache31")
+        params = pfc.FeatureCacheParams(dir=cache_dir, policy="readwrite",
+                                        wire="int8", verify="size")
+        built = []
+        for _ in range(2):
+            out, w = timed_s(dev, lambda: pbd.device_binned(
+                store, edges_np, chunk_rows=c, sharding=sharding,
+                cache=params, return_stats=True))
+            built.append(out)
+            walls[f"a_int8_{out[1].cache}"] = w
+        (q1, s1), (q2, s2) = built
+        plain_key = pfc.cache_key(
+            "binned", store, target_dtype="int8", wire="int8", chunk_rows=c,
+            edges=edges_np, quant_sample=params.quant_sample,
+            quant_seed=params.quant_seed)
+        checks["a_int8_miss_then_hit"] = (s1.cache, s2.cache) == ("miss",
+                                                                  "hit")
+        checks["a_int8_parts_equal"] = all(
+            bits_equal(a, b) for a, b in zip(q1.parts, q2.parts))
+        checks["a_int8_key_unlike_unsharded"] = (
+            s1.cache_key == s2.cache_key != plain_key)
+        del built, q1, q2
+        shutil.rmtree(cache_dir)
+        learned = big_axis_learners(pbd, pdm, Xs, Bs, ref, hc)
+    sync(dev)
+    walls["a_to_d"] = time.perf_counter() - t0
+    walls.update(learned.pop("walls_s"))
+    checks.update(learned.pop("checks"))
+    launches = cuda_build.launches_snapshot()
+    rec["launches_main_path"] = {k: launches.get(k, 0)
+                                 for k in BIG_AXIS_KERNELS}
+    rec["launches_a_shard"] = per_shard
+    if dev.type == "cuda":
+        checks["kernels_launched"] = all(
+            v >= 1 for v in rec["launches_main_path"].values())
+        checks["a_k12_once_a_chunk"] = [
+            per_shard[k]["write_rows"] for k in range(2)] == chunks
+        rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del Xs, Bs
+    torch.cuda.empty_cache()
+    rec.update(learned)
+
+    # (e) the fixture store sharded, every launch shadowed
+    t0 = time.perf_counter()
+    with shadow_kernels(BIG_AXIS_SHADOWED) as shadow:
+        got, want = big_fixture_run(pbd, pcs, root, dev, sharding=sharding)
+    walls["e_fixture_shadowed"] = time.perf_counter() - t0
+    judged = judge_big_fixture(got, want)
+    rec["fixture"] = {**judged, "shadow": shadow}
+    checks["e_fixture_within_tolerance"] = judged["ok"]
+    if dev.type == "cuda":
+        checks["e_kernels_equal_plain"] = all(
+            r["bad"] == 0 and r["calls"] >= 1 for r in shadow.values())
+
+    # (f) distinct cards
+    count = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if count >= 2:
+        two = data_sharding(Mesh(np.array(
+            [[torch.device("cuda", 0), torch.device("cuda", 1)]],
+            dtype=object)))
+        t0 = time.perf_counter()
+        Xs, Bs = pbd.dual_device_matrices(store, edges_np, chunk_rows=c,
+                                          sharding=two)
+        checks["f_rows_equal_phase21"] = (shard_rows_equal(Xs, ref["X16"])
+                                          and shard_rows_equal(Bs,
+                                                               ref["Xb"]))
+        f = big_axis_learners(pbd, pdm, Xs, Bs, ref, hc)
+        walls["f_two_cards"] = time.perf_counter() - t0
+        checks.update({f"f_{k[2:]}": v for k, v in f["checks"].items()
+                       if k[0] in "bc"})
+        rec["distinct_cards"] = {"ran": True, "walls_s": f["walls_s"]}
+        del Xs, Bs
+        torch.cuda.empty_cache()
+    else:
+        rec["distinct_cards"] = {"ran": False, "device_count": count}
+        emit({"phase": "big_data_axis", "part": "f",
+              "distinct_cards": False,
+              "note": f"not run: torch.cuda.device_count() is {count}, "
+                      "distinct cards need two"})
+    rec.update({"walls_s": walls, "checks": checks,
+                "ok": all(checks.values())})
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 31 failed: {checks}")
+    return rec
+
+
 def big_path(rows: int = BIG_ROWS, fixture: bool = True,
              kernel_timings: bool = True, device="cuda",
-             chunk_rows: int = None, cache_phase: bool = True) -> dict:
-    """Phases 21 and 22: the out-of-core path at `rows` × 500 through the
-    port's entry points on the card, then the same store through the
-    feature cache (`big_cache`; module docstring, phases 21 and 22). The
-    store is generated once for both. `chunk_rows` (default
+             chunk_rows: int = None, cache_phase: bool = True,
+             data_axis: bool = True) -> dict:
+    """Phases 21, 22 and 31: the out-of-core path at `rows` × 500 through
+    the port's entry points on the card, then the same store through the
+    feature cache (`big_cache`) and on a data axis of the card
+    (`big_data_axis`; module docstring, phases 21, 22 and 31). The store
+    is generated once for all three. `chunk_rows` (default
     `UPLOAD_CHUNK_ROWS`) and a CPU `device` serve a rehearsal at a small
-    size; phase 22 needs the fixture run of phase 21."""
+    size; phases 22 and 31 need the fixture run of phase 21."""
     import tempfile
 
     from transmogrifai_tpu_torch import cuda_build
@@ -4998,6 +5353,8 @@ def big_path(rows: int = BIG_ROWS, fixture: bool = True,
         for f in range(3):
             p, s = timed_s(dev, lambda: pbd.fit_logreg_enet_grids_big(
                 X16, y, W[f], l1v, l2v, 2, BIG_LR_STEPS))
+            if f == 0:
+                lr0 = p  # phase 31 (b) holds its sharded fold 0 to this
             fold_s.append(s)
             probs = pbd.predict_logreg_grids_big(p["W"], p["b"], X16)
             aupr.append(pdm.binned_aupr(
@@ -5066,7 +5423,7 @@ def big_path(rows: int = BIG_ROWS, fixture: bool = True,
         w6 = torch.cat([W, V])
         g, gd = BIG_GBT, BIG_GBT_DEEP
         with pbd.level_times() as lg6:
-            (_, m6), s6 = timed_s(dev, lambda: pbd.fit_gbt_big_lockstep(
+            (gbt6, m6), s6 = timed_s(dev, lambda: pbd.fit_gbt_big_lockstep(
                 Xb, y, w6, g["n_estimators"], g["max_depth"], BIG_BINS,
                 g["learning_rate"], g["reg_lambda"], chunk=hc))
         with pbd.level_times() as lg10:
@@ -5079,7 +5436,7 @@ def big_path(rows: int = BIG_ROWS, fixture: bool = True,
                       "round6p_d10_s": s10, "levels_d6": lg6,
                       "levels_d10": lg10}
         emit({"phase": "big_gbt", **rec["gbt"]})
-        del m6, m10
+        del m10
         # 6. predict the forest over all rows
         pred, sp = timed_s(dev, lambda: pbd.predict_forest_big(rf, Xb))
         if pred.shape != (n_pad, 2) or not torch.isfinite(pred).all():
@@ -5110,7 +5467,7 @@ def big_path(rows: int = BIG_ROWS, fixture: bool = True,
                 (G.contiguous(), H.contiguous(), mask), probs)
             emit({"phase": "big_kernel_timing", **rec["kernels"]})
             del G, H
-        del rf, pred, probs, first_chunk
+        del probs, first_chunk
         torch.cuda.empty_cache()
         if cache_phase:
             # 22. the same store through the feature cache
@@ -5120,7 +5477,14 @@ def big_path(rows: int = BIG_ROWS, fixture: bool = True,
                  "lr_aupr_fold0": aupr[0],
                  "rf_aupr_fold0": rec["predict"]["holdout_aupr_fold0"]},
                 dev, c, hc, kernel_timings=kernel_timings)
-        del X16, Xb
+        if data_axis:
+            # 31. the same store and learners on a data axis of the card
+            rec["data_axis"] = big_data_axis(
+                pbd, pfc, pcs, pdm, store, edges_np, root,
+                {"X16": X16, "Xb": Xb, "y": y, "W": W, "V": V, "lr": lr0,
+                 "lr_aupr": np.array(aupr[0]), "rf": rf, "pred": pred,
+                 "gbt": gbt6, "gbt_margin": m6}, dev, c, hc)
+        del X16, Xb, rf, pred, gbt6, m6, lr0
         torch.cuda.empty_cache()
     return rec
 
@@ -6524,13 +6888,15 @@ def shadow_kernels(names=STRUCT_SHADOWED):
     as copies taken before the call), and the two compared: K1 within the
     f32 summation bound of `check_training_kernels`, K3's leaves and leaf
     sums equal to the plain version's on the CPU (row-order sums), the
-    rest equal. The caller goes on with the kernel's result. The
-    comparisons add up on the card and are read once, on exit. Yields
-    {wrapper: {"calls", "bad", "max_abs_err"}}."""
+    rest equal ("dual_write_rows", K12, against its plain write into
+    fresh rows). The caller goes on with the kernel's
+    result. The comparisons add up on the card and are read once, on exit.
+    Yields {wrapper: {"calls", "bad", "max_abs_err"}}."""
     import sys as _sys
 
     from transmogrifai_tpu_torch.evaluators import device_metrics as pdm
     from transmogrifai_tpu_torch.models import trees as pt
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
     rec = {k: {"calls": 0, "bad": 0, "max_abs_err": 0.0} for k in names}
     acc = {}  # wrapper -> [calls that disagreed, largest gap], as tensors
 
@@ -6634,12 +7000,24 @@ def shadow_kernels(names=STRUCT_SHADOWED):
             note("binned_aupr", gap(got, want), differ([(got, want)]))
         return got
 
+    def dual_write_rows(buf16, bufb, chunk, edges, r0):
+        orig["dual_write_rows"](buf16, bufb, chunk, edges, r0)
+        if chunk.is_cuda:
+            c = chunk.shape[0]
+            w16, wb = torch.empty_like(buf16[:c]), torch.empty_like(bufb[:c])
+            pbd.dual_write_rows_plain(w16, wb, chunk, edges, 0)
+            got16, gotb = buf16[r0:r0 + c], bufb[r0:r0 + c]
+            note("dual_write_rows", gap(gotb, wb), differ(
+                [(got16.view(torch.int16), w16.view(torch.int16)),
+                 (gotb, wb)]))
+
     shadows = {"bin_features": bin_features, "histograms": histograms,
                "split_search": split_search, "route_level": route_level,
                "leaf_values": leaf_values, "leaf_sums": leaf_sums,
-               "binned_aupr": binned_aupr}
-    orig = {k: pdm.binned_aupr if k == "binned_aupr" else getattr(pt, k)
-            for k in names}
+               "binned_aupr": binned_aupr,
+               "dual_write_rows": dual_write_rows}
+    home = {"binned_aupr": pdm, "dual_write_rows": pbd}
+    orig = {k: getattr(home.get(k, pt), k) for k in names}
     bound = [(mod, k) for mod in list(_sys.modules.values())
              if getattr(mod, "__name__", "").startswith(
                  "transmogrifai_tpu_torch")
@@ -8319,8 +8697,153 @@ def leaf_sums_timing(pt, dev) -> dict:
     return out
 
 
+# phase 30 (g): the families the data axis reaches since the big path's
+# slice: each family's grid on a small well-conditioned fixture (kind,
+# estimator params, grid), at 256 and 301 rows (301 leaves the two shards
+# uneven); the fixtures of tests/test_torch_data_axis_families.py
+DATA_AXIS_FAMILIES = {
+    "OpLinearSVC": ("binary", dict(max_iter=30),
+                    [{"reg_param": r} for r in (0.01, 0.1)]),
+    "OpGeneralizedLinearRegression": (
+        "regression", dict(max_iter=30),
+        [{"reg_param": 0.01},
+         {"family": "poisson", "link": "log", "reg_param": 0.1}]),
+    "OpNaiveBayes": ("counts", {}, [{"smoothing": s} for s in (1.0, 0.5)]),
+    "OpMultilayerPerceptronClassifier": (
+        "binary", dict(hidden_layers=(5,), max_iter=40),
+        [{"learning_rate": lr} for lr in (0.05, 0.01)]),
+}
+DATA_AXIS_ROWS = (256, 301)
+DATA_AXIS_RTOL = 2e-4  # the JAX package's tests/test_multichip.py:52
+
+
+def data_axis_problem(kind, n, seed=7):
+    """(X, y, folds, evaluator name) of a (g) fixture: binary labels, a
+    positive regression target (Poisson's domain), or non-negative count
+    features (naive Bayes); 3 folds."""
+    from transmogrifai_tpu_torch.selector.validators import OpCrossValidation
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 6)).astype(np.float32)
+    logit = 1.2 * X[:, 0] - X[:, 1] + 0.5 * X[:, 2] * X[:, 3]
+    if kind == "regression":
+        y = np.exp(0.4 * X[:, 0] - 0.3 * X[:, 1]).astype(np.float32)
+    else:
+        y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logit))).astype(
+            np.float32)
+    if kind == "counts":
+        X = rng.poisson(np.exp(0.3 * X)).astype(np.float32)
+    folds = OpCrossValidation(3, seed=42).splits(y)
+    ev = ("RegressionEvaluator" if kind == "regression"
+          else "BinaryClassificationEvaluator")
+    return X, y, folds, ev
+
+
+def data_axis_fixtures(port, mesh, device) -> dict:
+    """Each `DATA_AXIS_FAMILIES` grid swept on one card and on `mesh`'s
+    data axis at each of `DATA_AXIS_ROWS`: fold metrics within rtol 2e-4
+    and the winner equal (the pass gate of (g))."""
+    from transmogrifai_tpu_torch import evaluators as pev
+    from transmogrifai_tpu_torch.parallel.sweep import run_sweep
+    from transmogrifai_tpu_torch.stages.base import FitContext
+    out, ok = {}, True
+    for fam, (kind, params, grids) in DATA_AXIS_FAMILIES.items():
+        for n in DATA_AXIS_ROWS:
+            X, y, folds, ev = data_axis_problem(kind, n)
+            X, y = (torch.from_numpy(a).to(device) for a in (X, y))
+            got = {}
+            for where in (None, mesh):
+                ctx = FitContext(n_rows=n, seed=42, device=device,
+                                 mesh=where)
+                got[where is None] = np.array(run_sweep(
+                    getattr(port, fam)(**params), grids, X, y, folds,
+                    getattr(pev, ev)(), ctx))
+            a, b = got[False], got[True]
+            gap = np.abs(a - b)
+            pick = np.argmin if kind == "regression" else np.argmax
+            rec = {"max_abs_err": float(gap.max()),
+                   "max_rel_err": float((gap / np.abs(b)).max()),
+                   "finite": bool(np.isfinite(a).all()),
+                   "winner_equal": int(pick(a.mean(1)))
+                   == int(pick(b.mean(1)))}
+            rec["ok"] = bool(rec["finite"] and rec["winner_equal"] and (
+                gap <= DATA_AXIS_RTOL * np.abs(b)).all())
+            out[f"{fam}:{n}"] = rec
+            ok &= rec["ok"]
+    return {"cases": out, "ok": bool(ok)}
+
+
+def families_on_the_data_axis(port, families, mesh, device) -> dict:
+    """Phase 30 (g): the pass gate is `data_axis_fixtures`. Readings,
+    not checked: each families run's linear SVC, GLM, naive Bayes and MLP
+    sweeps (`run_sweep` over the selector's own sweep inputs) on one card
+    and on `mesh`'s data axis, with each family's largest fold-metric
+    move (relative for RMSE), whether it stays within rtol 2e-4, the
+    tolerance the run is held to against the JAX package
+    (`family_tolerances`), the winners and whether `winner_check` would
+    enforce them (F28: those runs' unconverged f32 optimizer paths carry
+    a regrouped sum's ulp as far as one ulp of input noise carries the
+    JAX package's). A family that refuses the matrix (naive Bayes on
+    negative features) is read as refused on both or not."""
+    from transmogrifai_tpu_torch.parallel import sweep as sweep_mod
+    fixtures = data_axis_fixtures(port, mesh, device)
+    out = {}
+    for run, (model, pred) in (families or {}).items():
+        sel, X, y, folds, ctx = selector_inputs(model, pred, device)
+        larger = sel.evaluator.is_larger_better
+        res, _ = load_fixture(run)
+        tol, relative, _ = family_tolerances(res)
+        one_ulp = {r["model"]: t for r, t in zip(res["results"], tol)}
+        rows = {None: [], "mesh": []}
+        for est, grids in sel.models:
+            fam = type(est).__name__
+            if fam not in DATA_AXIS_FAMILIES:
+                continue
+            got = {}
+            for where in rows:
+                c = type(ctx)(n_rows=ctx.n_rows, seed=ctx.seed,
+                              device=ctx.device,
+                              mesh=mesh if where else None)
+                t0 = time.perf_counter()
+                try:
+                    got[where] = np.array(sweep_mod.run_sweep(
+                        est, grids, X, y, folds, sel.evaluator, c))
+                except ValueError as e:
+                    got[where] = str(e)
+                sync(device)
+                got[f"{where}_s"] = time.perf_counter() - t0
+            a, b = got["mesh"], got[None]
+            if isinstance(a, str) or isinstance(b, str):
+                rec = {"refused_on_both": a == b, "reason": a}
+            else:
+                gap = np.abs(a - b)
+                move = float(metric_move(a, b, relative).max())
+                rec = {"configs": len(grids), "max_abs_err": float(gap.max()),
+                       "max_rel_err": float((gap / np.abs(b)).max()),
+                       "move": move,
+                       "within_rtol_2e-4": bool(
+                           (gap <= 2e-4 * np.abs(b)).all()),
+                       "one_ulp_tolerance": one_ulp.get(fam),
+                       "within_one_ulp_tolerance": (
+                           fam in one_ulp and move <= one_ulp[fam])}
+                for where in rows:
+                    rows[where] += [(float(m.mean()), fam, i)
+                                    for i, m in enumerate(got[where])]
+            rec.update({"one_card_s": got["None_s"],
+                        "two_shards_s": got["mesh_s"]})
+            out[f"{run}:{fam}"] = rec
+        pick = max if larger else min
+        winners = {w: pick(r)[1:] if r else None for w, r in rows.items()}
+        out[f"{run}:winner"] = {
+            "equal": winners[None] == winners["mesh"],
+            "one_card": winners[None], "two_shards": winners["mesh"],
+            "enforced_by_winner_check": winner_check(
+                res, tol, res["results"][0])["enforced"]}
+    return {"fixtures": fixtures, "runs_readings": out,
+            "ok": fixtures["ok"]}
+
+
 def data_axis_phase(port, pt, ds, draws, phase12_model, phase12_rec,
-                    card: str, device="cuda") -> dict:
+                    card: str, families=None, device="cuda") -> dict:
     """Phase 30: (a) phase 12's train on a (1, 2) mesh whose two data
     shards are both the card, held to phase 12 (winner equal, fold metrics
     within the JAX package's sharded-vs-unsharded bounds), with the
@@ -8329,8 +8852,10 @@ def data_axis_phase(port, pt, ds, draws, phase12_model, phase12_rec,
     rows (2 divides them) and of 891 (replicated) against the unsharded
     scorer at the serving tolerances; (d) one sharded XGB block and one
     depth-12 RF block with every launch held against its plain version;
-    (e) (a) over distinct cards when the machine has two; and K3's
-    leaf-sums entry timed."""
+    (e) (a) over distinct cards when the machine has two; (g) the
+    families runs' SVC, GLM, naive Bayes and MLP sweeps on the (1, 2)
+    mesh (`families_on_the_data_axis`, given `families` {run: (model,
+    prediction feature)}); and K3's leaf-sums entry timed."""
     from transmogrifai_tpu_torch.models import trees as trees_mod
     from transmogrifai_tpu_torch.parallel import sweep as sweep_mod
     from transmogrifai_tpu_torch.parallel.mesh import Mesh, data_sharding
@@ -8348,11 +8873,10 @@ def data_axis_phase(port, pt, ds, draws, phase12_model, phase12_rec,
     with launch_deltas(trees_mod, "grow_trees",
                        ("histograms", "route_level", "leaf_sums",
                         "leaf_values"),
-                       lambda a, kw: kw.get("shards")) as trees, \
+                       lambda a, kw: getattr(a[0], "shards", None)) \
+            as trees, \
             launch_deltas(sweep_mod, "_binned_cache", ("bin_features",),
-                          lambda a, kw: getattr(
-                              kw.get("rows", a[4] if len(a) > 4 else None),
-                              "shards", None)) as bins:
+                          lambda a, kw: a[4].shards) as bins:
         model_a, pred, _ = quickstart_train(port, pt, ds, draws, device,
                                             mesh=mesh)
     walls["a_train_on_two_shards"] = time.perf_counter() - t0
@@ -8460,6 +8984,12 @@ def data_axis_phase(port, pt, ds, draws, phase12_model, phase12_rec,
               "note": f"not run: torch.cuda.device_count() is {count}, "
                       "distinct cards need two"})
 
+    # (g) the families runs' SVC, GLM, NB and MLP sweeps on (1, 2)
+    t0 = time.perf_counter()
+    fam_axis = families_on_the_data_axis(port, families, mesh, device)
+    walls["g_families_on_two_shards"] = time.perf_counter() - t0
+    checks["g_fixtures_within_rtol_2e-4_winner_equal"] = fam_axis["ok"]
+
     timing = leaf_sums_timing(pt, dev) if dev.type == "cuda" else {}
     if timing:
         checks["leaf_sums_equal_row_order"] = timing[
@@ -8471,7 +9001,7 @@ def data_axis_phase(port, pt, ds, draws, phase12_model, phase12_rec,
               "launches_main_path": launches, "launches_a_shard": shards_a,
               "scheduler": sched, "scoring": scoring, "witness": witness,
               "distinct_cards": distinct, "leaf_sums_timing": timing,
-              "ok": all(checks.values())}
+              "families": fam_axis, "ok": all(checks.values())}
     emit(record)
     if not record["ok"]:
         raise AssertionError(f"phase 30 failed: {checks}")
@@ -8659,8 +9189,7 @@ def main() -> int:
 
     # 16-18. K5-mc; the selectors' other families; each new class served -- #
     k5mc_rec, k5mc_trees, k5mc_rows = k5mc_check(pt, rng, dev)
-    for run in RUNS:
-        families_train(port, pt, run)
+    families = {run: families_train(port, pt, run)[1:] for run in RUNS}
     serve_rec = families_serve(port, pt)
     k5mc_timing = time_k5mc(pt, k5mc_trees, k5mc_rows)
     del k5mc_trees, k5mc_rows
@@ -8767,7 +9296,7 @@ def main() -> int:
 
     # 30. the data axis: row shards ------------------------------------ #
     data_axis = data_axis_phase(port, pt, default_ds, default_draws,
-                                default_model, default_rec, card)
+                                default_model, default_rec, card, families)
     lsum = data_axis["leaf_sums_timing"]
 
     # 10. the kernels line, the card, the result --------------------------- #

@@ -302,17 +302,20 @@ def test_a_failed_upload_wakes_the_workers_waiting_on_the_ring():
         ring.acquire(5)
 
 
-@pytest.mark.parametrize("arg", [dict(cache="readwrite"), dict(sharding=1),
+@pytest.mark.parametrize("arg", [dict(cache="readwrite"), dict(sharding=2),
                                  dict(retry="transient")])
 @pytest.mark.parametrize("builder", ["matrix", "binned", "dual"])
-def test_builders_refuse_what_is_not_ported(stores, built, arg, builder,
-                                            tmp_path, monkeypatch):
-    """`sharding=` raises naming its ROADMAP item (queue 1, item 9c);
-    `cache=` is ported (tests/test_torch_feature_cache.py): a readwrite
+def test_builders_take_cache_sharding_and_retry(stores, built, arg,
+                                                builder, tmp_path,
+                                                monkeypatch):
+    """Every option of the builders works: `sharding=` over a
+    data mesh of 2 shards builds each matrix as a `RowSplit` equal, row for
+    row, to the unsharded build (tests/test_torch_bigdata_sharded.py has
+    the rest); `cache=` (tests/test_torch_feature_cache.py): a readwrite
     build misses, writes its artifact and the next build hits it; and
-    `retry=` is ported: chunk reads failing transiently at the
-    ``ingest.read_chunk`` fault point retry to the fault-free build's
-    bits, the retries counted in the stats."""
+    `retry=`: chunk reads failing transiently at the ``ingest.read_chunk``
+    fault point retry to the fault-free build's bits, the retries counted
+    in the stats."""
     _, ps = stores
     fn = {"matrix": lambda **kw: pbd.device_matrix(ps, **kw),
           "binned": lambda **kw: pbd.device_binned(ps, built["edges"], **kw),
@@ -342,9 +345,17 @@ def test_builders_refuse_what_is_not_ported(stores, built, arg, builder,
         for a, b in zip(want[:-1], got[:-1]):
             assert torch.equal(a, b)
     else:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, item 9c"):
-            fn(device="cpu", **arg)
+        from transmogrifai_tpu_torch.parallel.mesh import (
+            data_sharding, make_mesh)
+        mesh = make_mesh(arg["sharding"], sweep=1, device="cpu")
+        want = fn(device="cpu", chunk_rows=CHUNK, return_stats=True,
+                  cache="off")
+        got = fn(chunk_rows=CHUNK, return_stats=True, cache="off",
+                 sharding=data_sharding(mesh))
+        for a, b in zip(want[:-1], got[:-1]):
+            assert b.shards.sizes == [3 * CHUNK, 2 * CHUNK]
+            assert torch.equal(b.gather().view(torch.uint8),
+                               a.view(torch.uint8))
     fn(device="cpu", chunk_rows=CHUNK, cache="off")  # "off" is no cache
 
 

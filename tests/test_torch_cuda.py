@@ -1723,6 +1723,74 @@ def test_bf16_products_with_f32_output_match_the_widened_product(cuda):
                 <= 2 * a.shape[1] * 2.0 ** -24 * scale).all()
 
 
+def _card_mesh(cuda):
+    """A (1, 2) mesh whose two data shards are both the card."""
+    from transmogrifai_tpu_torch.parallel.mesh import Mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return Mesh(np.array([[dev, dev]], dtype=object))
+
+
+def test_sharded_dual_build_on_two_shards_of_the_card(cuda, tmp_path):
+    """The dual build on a data sharding of two shards of the card (5
+    chunks: 3 + 2): each shard's bf16 and int8 rows bit-equal to the
+    unsharded build's, both parts on the card, K12 launched once a chunk."""
+    from transmogrifai_tpu_torch import cuda_build
+    from transmogrifai_tpu_torch.data import columnar_store as pcs
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
+    from transmogrifai_tpu_torch.parallel.mesh import data_sharding
+    st = pcs.synth_binary_store(str(tmp_path / "s"), 20000, 40, seed=2,
+                                chunk_rows=4096)
+    edges = st.quantile_edges(32)
+    X16, Xb = pbd.dual_device_matrices(st, edges, chunk_rows=4096,
+                                       device=cuda)
+    cuda_build.reset_launches()
+    Xs, Bs = pbd.dual_device_matrices(st, edges, chunk_rows=4096,
+                                      sharding=data_sharding(
+                                          _card_mesh(cuda)))
+    torch.cuda.synchronize()
+    assert cuda_build.launches_snapshot()["write_rows"] == 5
+    assert Xs.shards.sizes == [3 * 4096, 2 * 4096]
+    for part in Xs.parts + Bs.parts:
+        assert part.is_cuda
+    for k, (a, b) in enumerate(zip(Xs.shards.bounds, Xs.shards.bounds[1:])):
+        assert torch.equal(Xs.parts[k].view(torch.int16),
+                           X16[a:b].view(torch.int16))
+        assert torch.equal(Bs.parts[k], Xb[a:b])
+
+
+def test_sharded_lockstep_levels_launch_by_launch(cuda, tmp_path):
+    """Two lockstep levels of 6 learners over two shards of the card with
+    every launch of K1, K2, K3's routing and the leaf-sums entry held
+    against its plain version (`chip_smoke.shadow_kernels`), K1 and K3
+    once a shard; the trees equal the unsharded growth's (integer
+    values)."""
+    from transmogrifai_tpu_torch.data import columnar_store as pcs
+    from transmogrifai_tpu_torch.parallel import bigdata as pbd
+    from transmogrifai_tpu_torch.parallel.mesh import data_sharding
+    st = pcs.synth_binary_store(str(tmp_path / "s"), 20000, 40, seed=2,
+                                chunk_rows=4096)
+    edges = st.quantile_edges(32)
+    Xb = pbd.device_binned(st, edges, chunk_rows=4096, device=cuda)
+    Bs = pbd.device_binned(st, edges, chunk_rows=4096,
+                           sharding=data_sharding(_card_mesh(cuda)))
+    rng = np.random.default_rng(31)
+    V = torch.from_numpy(rng.integers(0, 3, (6, Xb.shape[0], 3)).astype(
+        np.float32)).to(cuda)
+    names = ("histograms", "split_search", "route_level", "leaf_sums")
+    pt.reset_launches()
+    with cs.shadow_kernels(names) as rec:
+        got = pbd.grow_trees_big_lockstep(Bs, V, 2, 33, chunk=4096)
+    launched = dict(pt.LAUNCHES)
+    want = pbd.grow_trees_big_lockstep(Xb, V, 2, 33, chunk=4096)
+    assert all(rec[k]["bad"] == 0 for k in names), rec
+    assert rec["histograms"]["calls"] == launched["histograms"] == 4
+    assert rec["route_level"]["calls"] == launched["route_level"] == 4
+    assert rec["leaf_sums"]["calls"] == launched["leaf_sums"] == 2
+    assert launched.get("leaf_values", 0) == 0
+    for k in ("feat", "bin", "leaf"):
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_big_path_on_the_card_matches_the_cpu(cuda, tmp_path):
     """A small store through the builders, the LR grid, the lockstep GBT
     and an 8-tree forest (the same draws injected) on the card and on the
@@ -1975,7 +2043,7 @@ def test_grow_trees_on_two_shards_of_one_card_match_the_cpu(cuda, depth):
     shard on the card: integer counts, so every sum is exact and the
     tables, node ids and leaves are equal; K1, K3's routing and the
     leaf-sums entry launch once a shard."""
-    from transmogrifai_tpu_torch.parallel.rowshards import RowShards
+    from transmogrifai_tpu_torch.parallel.rowshards import RowShards, RowSplit
     rng = np.random.default_rng(depth)
     P, n, d, B = 6, 3001, 8, 16
     Xb = torch.from_numpy(rng.integers(0, B, (n, d)).astype(np.int8))
@@ -1987,8 +2055,8 @@ def test_grow_trees_on_two_shards_of_one_card_match_the_cpu(cuda, depth):
     def grow(dev, S):
         rs = RowShards(n, [dev] * S)
         tree, node = pt.grow_trees(
-            rs.split(Xb.to(dev)), rs.split(G.to(dev), 2),
-            rs.split(H.to(dev), 1), depth, B, shards=rs, **kw)
+            RowSplit(rs, rs.split(Xb.to(dev))), rs.split(G.to(dev), 2),
+            rs.split(H.to(dev), 1), depth, B, **kw)
         return {k: v.cpu() for k, v in tree.items()}, rs.gather(node, 1).cpu()
 
     pt.reset_launches()

@@ -132,6 +132,7 @@ def _grow(Xb, G, H, depth, n_bins, S, monkeypatch, **kw):
     """grow_trees on S row shards (None: unsharded), recording the live
     set K2 is given at every level."""
     from transmogrifai_tpu_torch.models import trees as pt
+    from transmogrifai_tpu_torch.parallel.rowshards import RowSplit
     seen = []
     real = pt.split_search
 
@@ -143,9 +144,9 @@ def _grow(Xb, G, H, depth, n_bins, S, monkeypatch, **kw):
         tree, node = pt.grow_trees(Xb, G, H, depth, n_bins, **kw)
     else:
         rs = cpu_rows(S)(Xb.shape[0])
-        tree, node = pt.grow_trees(rs.split(Xb), rs.split(G, 2),
-                                   rs.split(H, 1), depth, n_bins,
-                                   shards=rs, **kw)
+        tree, node = pt.grow_trees(RowSplit(rs, rs.split(Xb)),
+                                   rs.split(G, 2), rs.split(H, 1), depth,
+                                   n_bins, **kw)
         node = rs.gather(node, 1)
     monkeypatch.setattr(pt, "split_search", real)
     return tree, node, seen
@@ -242,33 +243,33 @@ FITS = ["forest", "gbt", "gbt_multiclass", "logreg_enet", "logreg",
 
 def _fit(name, X, y, w, shards):
     from transmogrifai_tpu_torch.models import linear, logistic, trees
-    Xs = X if shards is None else shards.split(X)
+    from transmogrifai_tpu_torch.parallel.rowshards import RowSplit
+    Xs = X if shards is None else RowSplit(shards, shards.split(X))
     if name in ("forest", "gbt", "gbt_multiclass"):
         Xb = _binned(X)
-        Xs = Xb if shards is None else shards.split(Xb)
+        Xs = Xb if shards is None else RowSplit(shards, shards.split(Xb))
     if name == "forest":
         Y = torch.nn.functional.one_hot(y.long(), 2).float()
         return trees.fit_forest(Xs, Y, w, 4, 6, 16, seed=7,
-                                min_child_weight=2.0, shards=shards)
+                                min_child_weight=2.0)
     if name == "gbt":
         _, margin, since = trees.fit_gbt_pairs(
             Xs, y, w, 6, 3, 16, 0.3, 1.0, val_w=1 - w,
-            early_stopping_rounds=3, subsample=0.8, seed=4, shards=shards)
+            early_stopping_rounds=3, subsample=0.8, seed=4)
         return {"margin": margin, "since": since}
     if name == "gbt_multiclass":
         _, margin = trees.fit_gbt_multiclass_pairs(
-            Xs, y, w, 4, 3, 16, 3, 0.3, 1.0, colsample=0.8, seed=4,
-            shards=shards)
+            Xs, y, w, 4, 3, 16, 3, 0.3, 1.0, colsample=0.8, seed=4)
         return {"margin": margin}
     k = 3 if name.startswith("logreg") else None
     if name == "logreg_enet":
         return logistic.fit_logreg_enet(Xs, y, w, [0.01, 0.02, 0.0, 0.05],
-                                        0.01, k, 200, shards=shards)
+                                        0.01, k, 200)
     if name == "logreg":
-        return logistic.fit_logreg(Xs, y, w, 0.05, k, 30, shards=shards)
+        return logistic.fit_logreg(Xs, y, w, 0.05, k, 30)
     if name == "linreg_enet":
-        return linear.fit_linreg_enet(Xs, y, w, 0.01, 0.1, shards=shards)
-    return linear.fit_linreg(Xs, y, w, [0.1, 0.0, 1.0, 0.01], shards=shards)
+        return linear.fit_linreg_enet(Xs, y, w, 0.01, 0.1)
+    return linear.fit_linreg(Xs, y, w, [0.1, 0.0, 1.0, 0.01])
 
 
 @pytest.mark.parametrize("name", FITS)

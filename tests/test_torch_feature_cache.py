@@ -31,9 +31,10 @@ port: the warm path, key invalidation, corrupt and torn artifacts, the
 quantized wire, resident reuse and policy threading. Left out:
 `test_opparams_roundtrip` and `test_serving_config_installs_default` (the
 policy is not threaded through `OpParams` and `ServingConfig` yet,
-ROADMAP queue 1 items 4 and 10), `test_sharding_change_misses`
-(`sharding=` is refused, item 9b) and the goodput report (`obs/`, item
-10).
+ROADMAP queue 1 items 4 and 10) and the goodput report (`obs/`, item
+10). `test_sharding_change_misses` runs against the port in
+tests/test_torch_bigdata_sharded.py (a change of data sharding misses,
+the same one hits).
 
 Regenerate the fixture digests (CPU, a few seconds) with:
 

@@ -495,15 +495,18 @@ def port_variant(kind):
     so their sums run in the JAX package's order."""
     from transmogrifai_tpu_torch.models import lbfgs
     from transmogrifai_tpu_torch.parallel import sweep
+
+    def whole(fn):  # the sweep passes X as a one-shard `RowSplit`
+        return lambda X, *a, **kw: fn(X.gather(), *a, **kw)
     zoom, fit = lbfgs._zoom_middle, sweep.fit_logreg
     if kind == "port_one_ulp_zoom_f32":
         lbfgs._zoom_middle = lambda *a: zoom(*(t.float() for t in a))
     elif kind == "port_one_ulp_loss_sum_then_divide":
-        sweep.fit_logreg = _fit_logreg_sum_then_divide
+        sweep.fit_logreg = whole(_fit_logreg_sum_then_divide)
     elif kind == "port_one_ulp_grad_vjp":
-        sweep.fit_logreg = _fit_logreg_vjp_grad
+        sweep.fit_logreg = whole(_fit_logreg_vjp_grad)
     elif kind == "port_one_ulp_products_xla":
-        sweep.fit_logreg = _fit_logreg_xla_products
+        sweep.fit_logreg = whole(_fit_logreg_xla_products)
     try:
         yield
     finally:

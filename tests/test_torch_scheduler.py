@@ -344,17 +344,39 @@ def test_a_data_axis_wider_than_one_builds_and_trains():
                                     "OpGeneralizedLinearRegression",
                                     "OpNaiveBayes",
                                     "OpMultilayerPerceptronClassifier"])
-def test_families_off_the_data_axis_raise_naming_item_9c(family):
-    """The families the data axis does not reach yet raise on a (1, 2)
-    mesh, naming ROADMAP queue 1, item 9c, rather than fit unsharded."""
+def test_families_fit_on_the_data_axis(family):
+    """SVC, GLM, naive Bayes and the MLP fit on a (1, 2) mesh: each fit
+    receives X split over the two row shards, and
+    the sweep's fold metrics equal the unsharded sweep's within the JAX
+    package's sharded-vs-unsharded rtol 2e-4 (tests/test_multichip.py:52;
+    tests/test_torch_data_axis_families.py holds them to the JAX
+    package)."""
     import transmogrifai_tpu_torch as port
+    from transmogrifai_tpu_torch.parallel import sweep as sweep_mod
     from transmogrifai_tpu_torch.parallel.mesh import make_mesh
     from transmogrifai_tpu_torch.parallel.sweep import run_sweep
     X, y, folds, ev, ctx = _port_inputs()
+    want = np.array(run_sweep(getattr(port, family)(), [{}], X.abs(), y,
+                              folds, ev, ctx))
+    X, y, folds, ev, ctx = _port_inputs()
     ctx.mesh = make_mesh(2, sweep=1, device="cpu")
-    est = getattr(port, family)()
-    with pytest.raises(NotImplementedError, match="queue 1, item 9c"):
-        run_sweep(est, [{}], X.abs(), y, folds, ev, ctx)
+    fit = {"OpLinearSVC": "fit_linear_svc",
+           "OpGeneralizedLinearRegression": "fit_glm",
+           "OpNaiveBayes": "fit_naive_bayes",
+           "OpMultilayerPerceptronClassifier": "fit_mlp"}[family]
+    real, seen = getattr(sweep_mod, fit), []
+
+    def spy(*a, **kw):
+        seen.append(getattr(a[0], "shards", None))
+        return real(*a, **kw)
+    setattr(sweep_mod, fit, spy)
+    try:
+        got = np.array(run_sweep(getattr(port, family)(), [{}], X.abs(), y,
+                                 folds, ev, ctx))
+    finally:
+        setattr(sweep_mod, fit, real)
+    assert seen and all(s is not None and s.n_shards == 2 for s in seen)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=0)
 
 
 def test_workflow_cv_bins_each_fold_matrix_f26():

@@ -23,6 +23,8 @@ from transmogrifai_tpu_torch.models.base import (
     regression_pred)
 from transmogrifai_tpu_torch.models.linear import (
     RegressionHead, narrow_head)
+from transmogrifai_tpu_torch.models.logistic import _weight_sums
+from transmogrifai_tpu_torch.parallel.rowshards import rows_of
 
 FAMILIES = ("gaussian", "binomial", "poisson", "gamma", "tweedie")
 # Spark GLR's family → valid links (the first is the canonical default);
@@ -123,7 +125,7 @@ def _link_fwd(family: str, mu, link: Optional[str] = None,
     raise ValueError(f"Unknown link {link!r}")
 
 
-def fit_glm(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: Param,
+def fit_glm(X, y: torch.Tensor, w: torch.Tensor, l2: Param,
             family: str = "gaussian", max_iter: int = 100,
             var_power: float = 1.5, link: Optional[str] = None,
             init_params: Optional[Dict[str, torch.Tensor]] = None
@@ -136,26 +138,46 @@ def fit_glm(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: Param,
     max(Σw, 1)); `max_iter` L-BFGS steps minimize Σ w·nll(g⁻¹(Xβ + b), y) /
     max(Σw, 1) + l2/2·‖β‖². `init_params` {"beta": (d,), "b": ()} starts
     every pair there instead (a warm start: the weights already sit in
-    the link's domain)."""
-    w = w[None, :] if w.dim() == 1 else w
-    P, d = w.shape[0], X.shape[1]
-    l2 = per_pair(l2, P, X.device)
-    wsum = torch.clamp(w.sum(1), min=1.0)
-    b0 = _link_fwd(family, (y[None, :] * w).sum(1) / wsum, link,
-                   var_power).to(torch.float32)
+    the link's domain).
 
-    def value_and_grad(x):
+    Over a `parallel.rowshards.RowSplit` X, y and w stay whole on the
+    lead: Σw and Σw·y are
+    sums of the shards' partials, taken before the first step; each
+    shard's partial loss is differentiated on its own device with the
+    parameters sent there, the lead's shard carrying the penalty, and the
+    values and gradients are added on the lead in shard order, where
+    L-BFGS steps."""
+    w = w[None, :] if w.dim() == 1 else w
+    shards, X, y_s, w_s = rows_of(X, y, w)
+    dev = shards.lead
+    P, d = w.shape[0], X[0].shape[1]
+    l2 = per_pair(l2, P, dev)
+    wsum = torch.clamp(_weight_sums(shards, w_s), min=1.0)
+    wy = shards.sum(shards.map(lambda yk, wk: (yk[None, :] * wk).sum(1),
+                               y_s, w_s))
+    b0 = _link_fwd(family, wy / wsum, link, var_power).to(torch.float32)
+
+    def partial(x, Xk, yk, wk, ws, l2k, lead):
         with torch.enable_grad():
             x = x.detach().requires_grad_(True)
-            eta = torch.matmul(x[:, :d], X.T) + x[:, d:]
+            eta = torch.matmul(x[:, :d], Xk.T) + x[:, d:]
             mu = _inverse_link(family, eta, link, var_power)
-            nll = _neg_log_likelihood(family, mu, y, var_power)
-            value = (nll * w).sum(1) / wsum \
-                + 0.5 * l2 * (x[:, :d] ** 2).sum(1)
+            nll = _neg_log_likelihood(family, mu, yk, var_power)
+            value = (nll * wk).sum(1) / ws
+            if lead:  # the penalty once, on the lead's shard
+                value = value + 0.5 * l2k * (x[:, :d] ** 2).sum(1)
             grad, = torch.autograd.grad(value.sum(), x)
         return value.detach(), grad
 
-    x0 = torch.zeros((P, d + 1), dtype=torch.float32, device=X.device)
+    leads = [k == 0 for k in range(shards.n_shards)]
+
+    def value_and_grad(x):
+        got = shards.map(partial, shards.broadcast(x), X, y_s, w_s,
+                         shards.broadcast(wsum), shards.broadcast(l2), leads)
+        return (shards.sum([g[0] for g in got]),
+                shards.sum([g[1] for g in got]))
+
+    x0 = torch.zeros((P, d + 1), dtype=torch.float32, device=dev)
     if init_params is None:
         x0[:, d] = b0
     else:

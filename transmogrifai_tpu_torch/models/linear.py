@@ -8,13 +8,12 @@ one Gram matrix and a Cholesky solve), which the JAX package computes as
 plain dots and a solve too. The products run in exact f32: the port never
 enables TF32.
 
-Both fits take `shards` (`parallel.rowshards.RowShards`, a mesh's data
-axis): X is then the list of the row shards' parts, y and w stay whole
-on the lead, and every sum over rows (the weighted means, the power
-iteration's and the step's products, the Gram matrix and the moment
-vector) is a sum of the shards' partials on the lead, where the step,
-the prox and the Cholesky solve run. Without shards the fits are the
-one-shard case of the same code, with the same bits as before.
+Both fits take X as a tensor or as a `parallel.rowshards.RowSplit` (a
+mesh's data axis): over a split, y and w stay whole on the lead, and
+every sum over rows (the weighted means, the power iteration's and the
+step's products, the Gram matrix and the moment vector) is a sum of the
+shards' partials on the lead, where the step, the prox and the Cholesky
+solve run. A tensor is the one-shard case of the same code.
 
 Not ported yet: warm starts (`init_params`).
 """
@@ -30,7 +29,8 @@ from transmogrifai_tpu_torch.models.base import (
     Param, PredictionModel, PredictorEstimator, per_pair, regression_pred,
     resolve_init_params)
 from transmogrifai_tpu_torch.models.logistic import (
-    _fista_momenta, _rows_of, _weight_sums)
+    _fista_momenta, _weight_sums)
+from transmogrifai_tpu_torch.parallel.rowshards import rows_of
 
 
 def _centered(shards, X, y_s, w_s):
@@ -74,8 +74,8 @@ def _power_lipschitz_pairs(shards, Xs, wsum: torch.Tensor,
 
 def fit_linreg_enet(X, y: torch.Tensor, w: torch.Tensor,
                     l1: Param, l2: Param, max_iter: int = 300,
-                    init_params: Optional[Dict[str, torch.Tensor]] = None,
-                    shards=None) -> Dict[str, torch.Tensor]:
+                    init_params: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Elastic-net weighted least squares by FISTA for P fits at once over
     one matrix X (n, d): labels y (n,), row weights w (P, n) (or (n,)),
     penalties l1 = reg·α and l2 = reg·(1 − α), one value or one per pair.
@@ -88,7 +88,7 @@ def fit_linreg_enet(X, y: torch.Tensor, w: torch.Tensor,
     (or from `init_params` {"beta": (d,)}, a warm start), and the
     intercept is ȳ − x̄·β."""
     w = w[None, :] if w.dim() == 1 else w
-    shards, X, y_s, w_s = _rows_of(X, y, w, shards)
+    shards, X, y_s, w_s = rows_of(X, y, w)
     P, d = w.shape[0], X[0].shape[1]
     dev = shards.lead
     l1 = per_pair(l1, P, dev)[:, None]
@@ -121,17 +121,17 @@ def fit_linreg_enet(X, y: torch.Tensor, w: torch.Tensor,
     return {"beta": b, "intercept": y_mean - (x_mean * b).sum(1)}
 
 
-def fit_linreg(X, y: torch.Tensor, w: torch.Tensor, l2: Param,
-               shards=None) -> Dict[str, torch.Tensor]:
+def fit_linreg(X, y: torch.Tensor, w: torch.Tensor,
+               l2: Param) -> Dict[str, torch.Tensor]:
     """Weighted ridge regression for P fits at once (the JAX package's
     `fit_linreg`): (Xcᵀ W Xc / Σw + (l2 + ε) I) β = Xcᵀ W yc / Σw by a
     Cholesky solve, with the jitter ε = 1e-6·(tr/d + 1) that keeps a
     constant column solvable, and the intercept ȳ − x̄·β. Returns
-    {"beta": (P, d), "intercept": (P,)}. Over `shards` the Gram matrix and
-    the moment vector are sums of the shards' partials; the solve runs on
-    the lead."""
+    {"beta": (P, d), "intercept": (P,)}. Over a `RowSplit` X the Gram
+    matrix and the moment vector are sums of the shards' partials; the
+    solve runs on the lead."""
     w = w[None, :] if w.dim() == 1 else w
-    shards, X, y_s, w_s = _rows_of(X, y, w, shards)
+    shards, X, y_s, w_s = rows_of(X, y, w)
     P, d = w.shape[0], X[0].shape[1]
     dev = shards.lead
     l2 = per_pair(l2, P, dev)

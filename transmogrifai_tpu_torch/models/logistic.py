@@ -11,13 +11,12 @@ products run in exact f32: the port never enables TF32. A warm start
 (`init_params` {"W", "b"}) starts either fit from earlier weights instead
 of zero, as the JAX package's continual refit does.
 
-Both fits take `shards` (`parallel.rowshards.RowShards`, a mesh's data
-axis): X is then the list of the row shards' parts, y and w stay whole
-on the lead, and every reduction over rows (the weight sums, `Xᵀ·R`, the
-bias gradient, the loss, the power iteration's products) is a sum of
-the shards' partials on the lead; the step runs there and the weights go
-out to the shards once a step. Without shards the fits are the one-shard
-case of the same code, with the same bits as before.
+Both fits take X as a tensor or as a `parallel.rowshards.RowSplit` (a
+mesh's data axis): over a split, y and w stay whole on the lead, and
+every reduction over rows (the weight sums, `Xᵀ·R`, the bias gradient,
+the loss, the power iteration's products) is a sum of the shards'
+partials on the lead; the step runs there and the weights go out to the
+shards once a step. A tensor is the one-shard case of the same code.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ from transmogrifai_tpu_torch.models import lbfgs
 from transmogrifai_tpu_torch.models.base import (
     Param, PredictionModel, PredictorEstimator, infer_n_classes, per_pair,
     resolve_init_params)
-from transmogrifai_tpu_torch.parallel.rowshards import RowShards
+from transmogrifai_tpu_torch.parallel.rowshards import rows_of
 
 
 def logreg_loss(params: Dict[str, torch.Tensor], X: torch.Tensor,
@@ -47,14 +46,6 @@ def logreg_loss(params: Dict[str, torch.Tensor], X: torch.Tensor,
         + 0.5 * l2 * (params["W"] ** 2).sum((1, 2))
 
 
-def _rows_of(X, y, w, shards):
-    """(shards, X parts, y parts, w parts) of a fit: a single shard for a
-    whole X."""
-    if shards is None:
-        shards, X = RowShards.single(X), [X]
-    return shards, X, shards.split(y), shards.split(w, 1)
-
-
 def _weight_sums(shards, w_s) -> torch.Tensor:
     """(P,) Σ_r w over the shards' rows, added on the lead."""
     return shards.sum(shards.map(lambda wk: wk.sum(1), w_s))
@@ -62,8 +53,8 @@ def _weight_sums(shards, w_s) -> torch.Tensor:
 
 def fit_logreg(X, y: torch.Tensor, w: torch.Tensor, l2: Param,
                n_classes: int, max_iter: int = 100,
-               init_params: Optional[Dict[str, torch.Tensor]] = None,
-               shards=None) -> Dict[str, torch.Tensor]:
+               init_params: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
     """Pure-L2 multinomial logistic regression by L-BFGS for P fits at once
     over one matrix X (n, d): labels y (n,), row weights w (P, n) (or
     (n,)), l2 one value or one per pair. Returns {"W": (P, d, k), "b": (P,
@@ -73,11 +64,11 @@ def fit_logreg(X, y: torch.Tensor, w: torch.Tensor, l2: Param,
     `max_iter` steps of optax's L-BFGS (`models/lbfgs.py`), with the
     gradient written out: (softmax − Y)·w/Σw gives Xᵀ(·) + l2·W and the
     column sums for b. `init_params` {"W": (d, k), "b": (k,)} starts every
-    pair there instead of at zero (a warm start). Over `shards` the loss
-    and gradient are sums of the shards' partials; L-BFGS runs on the
-    lead."""
+    pair there instead of at zero (a warm start). Over a `RowSplit` X the
+    loss and gradient are sums of the shards' partials; L-BFGS runs on
+    the lead."""
     w = w[None, :] if w.dim() == 1 else w
-    shards, X, y_s, w_s = _rows_of(X, y, w, shards)
+    shards, X, y_s, w_s = rows_of(X, y, w)
     dev = shards.lead
     P, d = w.shape[0], X[0].shape[1]
     k = n_classes
@@ -116,14 +107,13 @@ def fit_logreg(X, y: torch.Tensor, w: torch.Tensor, l2: Param,
     return {"W": x[:, :d * k].reshape(P, d, k), "b": x[:, d * k:]}
 
 
-def _power_lipschitz(X, w, wsum: torch.Tensor, iters: int = 16,
-                     shards=None) -> torch.Tensor:
+def _power_lipschitz(X, w, wsum: torch.Tensor,
+                     iters: int = 16) -> torch.Tensor:
     """(P,) λmax(Xᵀ diag(w_p) X) / wsum_p by power iteration from the
     uniform unit vector, for row weights w (P, n) — two products per
-    step; over `shards`, X and w are the shards' parts and each step's
-    product is a sum of the shards' partials."""
-    if shards is None:
-        shards, X, w = RowShards.single(X), [X], [w]
+    step; over a `RowSplit` X each step's product is a sum of the
+    shards' partials."""
+    shards, X, w = rows_of(X, w)
     dev = shards.lead
     P, d = w[0].shape[0], X[0].shape[1]
     v = torch.full((P, d), 1.0, dtype=torch.float32, device=dev) \
@@ -155,8 +145,8 @@ def _fista_momenta(max_iter: int) -> np.ndarray:
 def fit_logreg_enet(X, y: torch.Tensor, w: torch.Tensor,
                     l1: Param, l2: Param, n_classes: int,
                     max_iter: int = 200,
-                    init_params: Optional[Dict[str, torch.Tensor]] = None,
-                    shards=None) -> Dict[str, torch.Tensor]:
+                    init_params: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Elastic-net multinomial logistic regression by FISTA for P fits at
     once over one matrix X (n, d): labels y (n,), row weights w (P, n) (or
     (n,)), penalties l1 = reg·α and l2 = reg·(1 − α) one value or one per
@@ -167,17 +157,18 @@ def fit_logreg_enet(X, y: torch.Tensor, w: torch.Tensor,
     λmax(Xᵀ W X)/Σw + l2 + 1e-8 (`_power_lipschitz`), the L1 prox
     soft-thresholds W by step·l1, the bias is unpenalized, and `max_iter`
     momentum steps run from zero, or from `init_params` {"W": (d, k), "b":
-    (k,)} (a warm start: the momentum restarts there). Over `shards` each
-    step's `Xᵀ·R` and bias gradient are sums of the shards' partials; the
-    step and the prox run on the lead."""
+    (k,)} (a warm start: the momentum restarts there). Over a `RowSplit`
+    X each step's `Xᵀ·R` and bias gradient are sums of the shards'
+    partials; the step and the prox run on the lead."""
     w = w[None, :] if w.dim() == 1 else w
-    shards, X, y_s, w_s = _rows_of(X, y, w, shards)
+    Xs = X
+    shards, X, y_s, w_s = rows_of(X, y, w)
     dev = shards.lead
     P, d = w.shape[0], X[0].shape[1]
     l1 = per_pair(l1, P, dev)[:, None, None]
     l2 = per_pair(l2, P, dev)[:, None, None]
     wsum = torch.clamp(_weight_sums(shards, w_s), min=1.0)
-    L = 0.5 * 1.05 * _power_lipschitz(X, w_s, wsum, shards=shards) \
+    L = 0.5 * 1.05 * _power_lipschitz(Xs, w, wsum) \
         + l2[:, 0, 0] + 1e-8
     step = (1.0 / L)[:, None, None]
     wsum = wsum[:, None, None]

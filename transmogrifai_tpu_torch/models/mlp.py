@@ -25,7 +25,9 @@ import torch
 
 from transmogrifai_tpu_torch.models.base import (
     Param, PredictionModel, PredictorEstimator, infer_n_classes, per_pair)
-from transmogrifai_tpu_torch.models.logistic import logreg_pred_from_logits
+from transmogrifai_tpu_torch.models.logistic import (
+    _weight_sums, logreg_pred_from_logits)
+from transmogrifai_tpu_torch.parallel.rowshards import rows_of
 
 _INJECTED_INIT: List[Any] = []
 
@@ -67,7 +69,7 @@ def _forward(params: List[Dict[str, torch.Tensor]],
     return torch.matmul(h, last["W"].float()) + last["b"].unsqueeze(-2)
 
 
-def fit_mlp(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+def fit_mlp(X, y: torch.Tensor, w: torch.Tensor,
             layers: Tuple[int, ...], max_iter: int = 200,
             learning_rate: Param = 0.05, seed: int = 0, init=None
             ) -> List[Dict[str, torch.Tensor]]:
@@ -78,9 +80,17 @@ def fit_mlp(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     The JAX package's `fit_mlp`: the weighted softmax cross-entropy /
     max(Σw, 1) minimized by `max_iter` full-batch Adam steps from the
     initial weights (`init`, injected ones, or `init_weights(layers,
-    seed)`), the same for every pair."""
+    seed)`), the same for every pair.
+
+    Over a `parallel.rowshards.RowSplit` X, y and w stay whole on the
+    lead: Σw is a sum of
+    the shards' partials; each step, the parameters go out to the shards
+    once, each shard's partial loss is differentiated on its own device,
+    and the gradients are added on the lead in shard order, where Adam
+    steps."""
     w = w[None, :] if w.dim() == 1 else w
-    P, dev = w.shape[0], X.device
+    shards, X, y_s, w_s = rows_of(X, y, w)
+    P, dev = w.shape[0], shards.lead
     if init is None and _INJECTED_INIT:
         init = _INJECTED_INIT[-1]
         if callable(init):
@@ -101,20 +111,29 @@ def fit_mlp(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         params.append(torch.zeros((P, W.shape[1]), dtype=torch.float32,
                                   device=dev))
     lr = per_pair(learning_rate, P, dev)
-    Y = torch.nn.functional.one_hot(y.long(), layers[-1]).to(torch.float32)
-    wn = w / torch.clamp(w.sum(1), min=1.0)[:, None]
+    wsum = torch.clamp(_weight_sums(shards, w_s), min=1.0)
+    parts = shards.map(lambda Xk, yk, wk, ws: (
+        Xk, torch.nn.functional.one_hot(yk.long(), layers[-1]).to(
+            torch.float32), wk / ws[:, None]),
+        X, y_s, w_s, shards.broadcast(wsum))
+
+    def partial(ps, Xk, Y, wn):
+        with torch.enable_grad():
+            leaves = [p.detach().requires_grad_(True) for p in ps]
+            logits = _forward([{"W": leaves[i], "b": leaves[i + 1]}
+                               for i in range(0, len(leaves), 2)], Xk)
+            ll = -(Y * torch.log_softmax(logits, dim=-1)).sum(-1)
+            return torch.autograd.grad((ll * wn).sum(), leaves)
+
     mu = [torch.zeros_like(p) for p in params]
     nu = [torch.zeros_like(p) for p in params]
     b1, b2, eps = 0.9, 0.999, 1e-8
     one = torch.ones((), dtype=torch.float32, device=dev)
     for t in range(1, max_iter + 1):
-        with torch.enable_grad():
-            leaves = [p.detach().requires_grad_(True) for p in params]
-            logits = _forward([{"W": leaves[i], "b": leaves[i + 1]}
-                               for i in range(0, len(leaves), 2)], X)
-            ll = -(Y * torch.log_softmax(logits, dim=-1)).sum(-1)
-            loss = (ll * wn).sum()
-            grads = torch.autograd.grad(loss, leaves)
+        sent = zip(*(shards.broadcast(p) for p in params))
+        got = shards.map(lambda ps, part: partial(ps, *part), list(sent),
+                         parts)
+        grads = [shards.sum([g[i] for g in got]) for i in range(len(params))]
         bc1 = one - (b1 * one) ** t
         bc2 = one - (b2 * one) ** t
         for i, g in enumerate(grads):

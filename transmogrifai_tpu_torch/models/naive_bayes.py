@@ -17,22 +17,31 @@ import torch
 from transmogrifai_tpu_torch.models.base import (
     Param, PredictionModel, PredictorEstimator, infer_n_classes, per_pair)
 from transmogrifai_tpu_torch.models.logistic import logreg_pred_from_logits
+from transmogrifai_tpu_torch.parallel.rowshards import rows_of
 
 
-def fit_naive_bayes(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+def fit_naive_bayes(X, y: torch.Tensor, w: torch.Tensor,
                     smoothing: Param, n_classes: int
                     ) -> Dict[str, torch.Tensor]:
     """P fits at once over one matrix X (n, d): labels y (n,), row weights
     w (P, n) (or (n,)), smoothing one value or one per pair. Returns
     {"log_prior": (P, k), "log_theta": (P, k, d)} (the JAX package's
-    `fit_naive_bayes`)."""
+    `fit_naive_bayes`). Over a `parallel.rowshards.RowSplit` X, y and w
+    stay whole on the lead: the class counts and feature sums are sums of
+    the shards' partials there, and the logs are taken there."""
     w = w[None, :] if w.dim() == 1 else w
+    shards, X, y_s, w_s = rows_of(X, y, w)
     P = w.shape[0]
-    smoothing = per_pair(smoothing, P, X.device)[:, None, None]
-    oh = torch.nn.functional.one_hot(y.long(), n_classes).to(
-        torch.float32)[None, :, :] * w[:, :, None]          # (P, n, k)
-    class_counts = oh.sum(1)                                # (P, k)
-    feat_sums = torch.matmul(oh.transpose(1, 2), X)         # (P, k, d)
+    smoothing = per_pair(smoothing, P, shards.lead)[:, None, None]
+
+    def partial(Xk, yk, wk):
+        oh = torch.nn.functional.one_hot(yk.long(), n_classes).to(
+            torch.float32)[None, :, :] * wk[:, :, None]      # (P, n, k)
+        return oh.sum(1), torch.matmul(oh.transpose(1, 2), Xk)
+
+    got = shards.map(partial, X, y_s, w_s)
+    class_counts = shards.sum([g[0] for g in got])          # (P, k)
+    feat_sums = shards.sum([g[1] for g in got])             # (P, k, d)
     log_prior = torch.log(class_counts + 1e-12) - torch.log(
         torch.clamp(class_counts.sum(1, keepdim=True), min=1e-12))
     num = feat_sums + smoothing

@@ -47,7 +47,7 @@ from transmogrifai_tpu_torch.evaluators.device_metrics import (
     binned_aupr, sigmoid)
 from transmogrifai_tpu_torch.models.base import (
     Param, PredictionModel, PredictorEstimator, binary_margin_pred, infer_n_classes, per_pair, regression_pred)
-from transmogrifai_tpu_torch.parallel.rowshards import RowShards
+from transmogrifai_tpu_torch.parallel.rowshards import RowSplit, rows_of
 from transmogrifai_tpu_torch.stages.base import div_const
 
 log = logging.getLogger(__name__)
@@ -1477,6 +1477,59 @@ def leaf_values(node_idx: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
 # package's gate in its exact-f32 mode, the only mode the port has)
 _SUBTRACT_MIN_DEPTH = 12
 
+_TIMERS: List[List[Dict]] = []
+
+
+@contextlib.contextmanager
+def level_times():
+    """Inside the block, every growth on the card (`grow_trees`, and the
+    big path's lockstep learners through it) records CUDA events around
+    each level's K1, K2 and K3 launches and around its leaf pass (over
+    shards: every shard's launches and the sums on the lead). Yields a
+    list that holds, once the block exits (it synchronizes), one dict per
+    level: {"K", "level", "nodes", "histograms_ms", "split_search_ms",
+    "route_level_ms"}, and one per growth with "leaf_values_ms"."""
+    rec: List[Dict] = []
+    _TIMERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _TIMERS.pop()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        for r in rec:
+            for name, (a, b) in r.pop("_events", {}).items():
+                r[f"{name}_ms"] = a.elapsed_time(b)
+
+
+def _timed(rec: Optional[Dict], name: str, fn):
+    if rec is None:
+        return fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    rec.setdefault("_events", {})[name] = (a, b)
+    return out
+
+
+def _histograms_chunked(Xb, node_K, G, H, n_nodes, n_bins, chunk=None):
+    """K1 over all rows on the card; on the CPU with a `chunk`, the plain
+    version summed over row chunks of `chunk` (it builds (P, chunk, d)
+    cell ids; the big path bounds its working set so)."""
+    if Xb.is_cuda or chunk is None:
+        return histograms(Xb, node_K, G, H, n_nodes, n_bins)
+    n = Xb.shape[0]
+    hg = hh = None
+    for r0 in range(0, n, chunk):
+        sl = slice(r0, r0 + chunk)
+        cg, ch = histograms(Xb[sl], node_K[:, sl].contiguous(),
+                            G[:, :, sl].contiguous(), H[:, sl].contiguous(),
+                            n_nodes, n_bins)
+        hg, hh = (cg, ch) if hg is None else (hg + cg, hh + ch)
+    return hg, hh
+
 
 def grow_trees(Xb, G, H, max_depth: int, n_bins: int,
                reg_lambda: Param = 1.0, min_child_weight: Param = 1.0,
@@ -1484,7 +1537,9 @@ def grow_trees(Xb, G, H, max_depth: int, n_bins: int,
                feature_mask: Optional[torch.Tensor] = None,
                active_depth: Optional[Param] = None, alpha: Param = 0.0,
                min_gain_norm: Param = 0.0, live: bool = True,
-               shards=None) -> Tuple[Dict[str, torch.Tensor], Any]:
+               chunk: Optional[int] = None,
+               subtract: Optional[bool] = None
+               ) -> Tuple[Dict[str, torch.Tensor], Any]:
     """Grow one fixed-depth tree per pair from m value channels G (P, m, n)
     and weights H (P, n) (the JAX package's `grow_tree`, vmapped). Returns
     ({"feat": (P, depth, 2^depth) int32, "bin": (P, depth, 2^depth) int32
@@ -1506,19 +1561,27 @@ def grow_trees(Xb, G, H, max_depth: int, n_bins: int,
     zero. The flags live on the device, so no level waits for the card.
     `live=False` searches every node (the same tables).
 
-    With `shards` (a `parallel.rowshards.RowShards`), Xb, G and H are
-    lists of each row shard's part, on its device, and the node ids come
-    back as such a list. Per level K1 runs on each shard and the partial
+    Xb may be a `parallel.rowshards.RowSplit`: G and H are then lists of
+    each row shard's part (rows last), on its device, and the node ids
+    come back as such a list. Per level K1 runs on each shard and the partial
     histograms are added on the lead in shard order; K2 (and K1-sub) run
     on the lead over the live set OR-ed from the shards' flags; the
     level's tables go out to the shards once and K3 routes each shard's
     rows into that shard's own flags. The leaves are K3's leaf sums of
     each shard, added on the lead, with the formula applied to the total.
-    Without shards every launch is as it was."""
-    sharded = shards is not None
-    if not sharded:
-        shards = RowShards.single(Xb)
-        Xb, G, H = [Xb], [G], [H]
+    Of one shard (a tensor, or a split of one), every launch is as it
+    was, K3's fused leaf pass included.
+
+    The big path's lockstep learners (`parallel/bigdata.py`) grow through
+    here with `subtract=False` (every level's histograms built directly,
+    as the JAX package's big path does) and `chunk` (on the CPU the plain
+    K1 runs by row chunks); `level_times` records each level's launches on
+    the card."""
+    split = isinstance(Xb, RowSplit)
+    shards, Xb = rows_of(Xb)
+    if not split:
+        G, H = [G], [H]
+    sharded = shards.n_shards > 1
     P = H[0].shape[0]
     dev = shards.lead
     max_nodes = 2 ** max_depth
@@ -1546,42 +1609,49 @@ def grow_trees(Xb, G, H, max_depth: int, n_bins: int,
           else per_pair(active_depth, P, dev, torch.int32))
 
     def hist(ids, n_nodes):
-        parts = shards.map(lambda xb, nd, g, h: histograms(
-            xb, nd, g, h, n_nodes, n_bins), Xb, ids, G, H)
-        if not sharded:
-            return parts[0]
+        parts = shards.map(lambda xb, nd, g, h: _histograms_chunked(
+            xb, nd, g, h, n_nodes, n_bins, chunk), Xb, ids, G, H)
         return (shards.sum([p[0] for p in parts]),
                 shards.sum([p[1] for p in parts]))
 
-    subtract = max_depth >= _SUBTRACT_MIN_DEPTH
+    timers = _TIMERS[-1] if (_TIMERS and dev.type == "cuda") else None
+    if subtract is None:
+        subtract = max_depth >= _SUBTRACT_MIN_DEPTH
     if subtract:
         hg, hh = hist(node, 1)
     for level in range(max_depth):
         n_nodes = 2 ** level
+        rec = None
+        if timers is not None:
+            rec = {"K": P, "level": level, "nodes": n_nodes}
+            timers.append(rec)
         if not subtract:
-            hg, hh = hist(node, n_nodes)
+            hg, hh = _timed(rec, "histograms", lambda: hist(node, n_nodes))
         here = (feats[:, level, :n_nodes], bins[:, level, :n_nodes])
         nxt = (flags[:, level + 1, :2 * n_nodes]
                if flags is not None and level + 1 < max_depth else None)
         searched = (flags[:, level, :n_nodes]
                     if level and flags is not None else None)
-        split_search(hg, hh, n_bins, lam, mcw, mg, mgn, feature_mask, level,
-                     ad, live=searched, out=here,
-                     mark=nxt if subtract else None)
+        _timed(rec, "split_search", lambda: split_search(
+            hg, hh, n_bins, lam, mcw, mg, mgn, feature_mask, level, ad,
+            live=searched, out=here, mark=nxt if subtract else None))
         if nxt is None:
             into = [None] * shards.n_shards
         elif sharded:
             into = shards.map(lambda o: o[:, :2 * n_nodes].zero_(), occ)
         else:
             into = [nxt]
-        routed = shards.map(
-            lambda xb, nd, f, b, o, out: route_level(xb, nd, f, b,
-                                                     occupied=o, out=out),
-            Xb, node, shards.broadcast(here[0]), shards.broadcast(here[1]),
-            into, spare)
-        node, spare = routed, node
-        if sharded and nxt is not None:
-            shards.any(into, out=nxt)
+
+        def route():
+            routed = shards.map(
+                lambda xb, nd, f, b, o, out: route_level(
+                    xb, nd, f, b, occupied=o, out=out),
+                Xb, node, shards.broadcast(here[0]),
+                shards.broadcast(here[1]), into, spare)
+            if sharded and nxt is not None:
+                shards.any(into, out=nxt)
+            return routed
+        node, spare = _timed(rec, "route_level", route), node
         if subtract and level + 1 < max_depth:
             # the rows routed right, by parent; the left rows are left out
             parent = shards.map(lambda nd: torch.where(
@@ -1593,14 +1663,21 @@ def grow_trees(Xb, G, H, max_depth: int, n_bins: int,
         else:
             del hg, hh
     tables = {"feat": feats, "bin": bins}
+    rec = None
+    if timers is not None:
+        rec = {"K": P, "leaves": max_nodes}
+        timers.append(rec)
     if not sharded:
-        tables["leaf"] = leaf_values(node[0], G[0], H[0], max_nodes,
-                                     reg_lambda, alpha)
-        return tables, node[0]
-    sums = shards.sum(shards.map(
-        lambda nd, g, h: leaf_sums(nd, g, h, max_nodes), node, G, H))
-    tables["leaf"] = _leaf_formula(sums[..., :-1], sums[..., -1], reg_lambda,
-                                   alpha)
+        tables["leaf"] = _timed(rec, "leaf_values", lambda: leaf_values(
+            node[0], G[0], H[0], max_nodes, reg_lambda, alpha))
+        return tables, node if split else node[0]
+
+    def leaves():
+        sums = shards.sum(shards.map(
+            lambda nd, g, h: leaf_sums(nd, g, h, max_nodes), node, G, H))
+        return _leaf_formula(sums[..., :-1], sums[..., -1], reg_lambda,
+                             alpha)
+    tables["leaf"] = _timed(rec, "leaf_values", leaves)
     return tables, node
 
 
@@ -1690,7 +1767,7 @@ def fit_forest(Xb, Y: torch.Tensor, w: torch.Tensor,
                subsample_features: bool = True,
                min_child_weight: Param = 1.0,
                active_depth: Optional[Param] = None, bootstrap: bool = True,
-               min_gain: Param = 0.0, draws=None, shards=None
+               min_gain: Param = 0.0, draws=None
                ) -> Dict[str, torch.Tensor]:
     """Random forests of Q (config, fold) pairs over one binned matrix Xb
     (n, d): labels as Y (n, m) (one-hot classes), row weights w (Q, n)
@@ -1707,17 +1784,15 @@ def fit_forest(Xb, Y: torch.Tensor, w: torch.Tensor,
     all pairs lie along the kernels' pair axis, in chunks that fit
     `forest_chunk`'s byte budget, which the call logs.
 
-    With `shards` (`parallel.rowshards.RowShards`), Xb is the list of the
-    row shards' binned parts and Y and w stay whole on the lead: the
-    draws are made there at the real n (a draw at any other n would move
-    every tree's stream), and the bootstrap columns, w and Y go to the
-    shards once; each chunk's trees grow over the shards (`grow_trees`)."""
-    sharded = shards is not None
-    if not sharded:
-        shards = RowShards.single(Xb)
-        Xb = [Xb]
+    Over a `parallel.rowshards.RowSplit` Xb (the row shards' binned
+    parts), Y and w stay whole on the lead: the draws are made there at
+    the real n (a draw at any other n would move every tree's stream),
+    and the bootstrap columns, w and Y go to the shards once; each
+    chunk's trees grow over the shards (`grow_trees`)."""
+    shards, parts = rows_of(Xb)
+    Xb = RowSplit(shards, parts)
     dev = shards.lead
-    n, d = shards.n, Xb[0].shape[1]
+    n, d = shards.n, parts[0].shape[1]
     m = Y.shape[1]
     w = w[None, :] if w.dim() == 1 else w
     Q = w.shape[0]
@@ -1760,11 +1835,10 @@ def fit_forest(Xb, Y: torch.Tensor, w: torch.Tensor,
         G = shards.map(lambda y, h: (y[None, :, :] * h[:, None, :])
                        .contiguous(), Yt_s, H)
         tree, _ = grow_trees(
-            Xb if sharded else Xb[0], G if sharded else G[0],
-            H if sharded else H[0], max_depth, n_bins, reg_lambda=1e-6,
+            Xb, G, H, max_depth, n_bins, reg_lambda=1e-6,
             min_child_weight=mcw[q], min_gain=0.0, feature_mask=mask[t],
             active_depth=None if ad is None else ad[q],
-            min_gain_norm=mgn[q], shards=shards if sharded else None)
+            min_gain_norm=mgn[q])
         parts.append(tree)
     return {k: torch.cat([p[k] for p in parts]).reshape(
         (Q, n_trees) + parts[0][k].shape[1:]) for k in ("feat", "bin", "leaf")}
@@ -1801,7 +1875,7 @@ def fit_gbt_pairs(Xb, y: torch.Tensor, w: torch.Tensor,
                   early_stopping_rounds: int = 0, min_gain_norm: Param = 0.0,
                   eval_metric: str = "logloss", keep_trees: bool = False,
                   objective: str = "logistic",
-                  margin0: Optional[torch.Tensor] = None, shards=None):
+                  margin0: Optional[torch.Tensor] = None):
     """Boost P binary or regression GBT fits at once over one binned
     matrix Xb (n, d): labels y (n,), row weights w (P, n) and, for early
     stopping, held-out weights val_w (P, n). Every hyperparameter is one
@@ -1823,19 +1897,17 @@ def fit_gbt_pairs(Xb, y: torch.Tensor, w: torch.Tensor,
     seeded with `seed`, not from the JAX package's threefry stream, so such
     fits match the JAX package at the metric level only.
 
-    With `shards` (`parallel.rowshards.RowShards`), Xb is the list of the
-    row shards' binned parts and y, w and val_w stay whole on the lead:
+    Over a `parallel.rowshards.RowSplit` Xb (the row shards' binned
+    parts), y, w and val_w stay whole on the lead:
     margins, gradients and hessians live on each shard (the row draws are
     made at the real n on the lead and split), the trees grow over the
     shards (`grow_trees`), and the early-stopping loss runs on the
     margins gathered to the lead. The returned margin is gathered."""
-    sharded = shards is not None
-    if not sharded:
-        shards = RowShards.single(Xb)
-        Xb = [Xb]
+    shards, parts = rows_of(Xb)
+    Xb = RowSplit(shards, parts)
     P, n = w.shape
     dev = shards.lead
-    d = Xb[0].shape[1]
+    d = parts[0].shape[1]
     esr = int(early_stopping_rounds) if val_w is not None else 0
     # every hyperparameter on the device once, not at every level
     lr = per_pair(learning_rate, P, dev)[:, None]
@@ -1867,7 +1939,6 @@ def fit_gbt_pairs(Xb, y: torch.Tensor, w: torch.Tensor,
             return -((p - yk) * wk), torch.clamp(p * (1 - p), min=1e-6) * wk
         return -((mg - yk) * wk), wk
 
-    one = (lambda parts: parts) if sharded else (lambda parts: parts[0])
     for _ in range(n_rounds):
         G, H = zip(*shards.map(grads, margin, y_s, w_s))
         fmask = None
@@ -1880,15 +1951,14 @@ def fit_gbt_pairs(Xb, y: torch.Tensor, w: torch.Tensor,
             fmask = torch.rand((P, d), generator=gen, device=dev) \
                 < col[:, None]
         tree, node = grow_trees(
-            one(Xb), one([g[:, None, :] for g in G]), one(list(H)),
+            Xb, [g[:, None, :] for g in G], list(H),
             max_depth, n_bins, reg_lambda=reg_lambda,
             min_child_weight=min_child_weight, min_gain=gamma,
             feature_mask=fmask, active_depth=active_depth, alpha=alpha,
-            min_gain_norm=min_gain_norm, shards=shards if sharded else None)
+            min_gain_norm=min_gain_norm)
         if esr > 0:
             live = (since < esr).to(torch.float32)
             tree["leaf"] = tree["leaf"] * live[:, None, None]
-        node = node if sharded else [node]
         margin = shards.map(
             lambda mg, l, leaf, nd: mg + l * torch.gather(
                 leaf[:, :, 0], 1, nd.long()),
@@ -1922,7 +1992,7 @@ def fit_gbt_multiclass_pairs(Xb, y: torch.Tensor,
                              gamma: Param = 0.0, alpha: Param = 0.0,
                              subsample: Param = 1.0, colsample: Param = 1.0,
                              seed: int = 0, min_gain_norm: Param = 0.0,
-                             keep_trees: bool = False, shards=None):
+                             keep_trees: bool = False):
     """Softmax boosting of P fits at once over one binned matrix Xb (n, d):
     labels y (n,) in 0..K-1, row weights w (P, n), every hyperparameter one
     value or one per pair. Returns (trees, margin (P, n, K)); `trees` is
@@ -1938,17 +2008,15 @@ def fit_gbt_multiclass_pairs(Xb, y: torch.Tensor,
     `torch.Generator` seeded with `seed`, so such fits match the JAX
     package at the metric level only) are shared by its K classes.
 
-    With `shards`, as `fit_gbt_pairs`: Xb is the shards' binned parts, y
-    and w stay whole on the lead, and the margins live on the shards; the
-    returned margin is gathered."""
-    sharded = shards is not None
-    if not sharded:
-        shards = RowShards.single(Xb)
-        Xb = [Xb]
+    Over a `RowSplit` Xb, as `fit_gbt_pairs`: y and w stay whole on the
+    lead, and the margins live on the shards; the returned margin is
+    gathered."""
+    shards, parts = rows_of(Xb)
+    Xb = RowSplit(shards, parts)
     P, n = w.shape
     K = int(n_classes)
     dev = shards.lead
-    d = Xb[0].shape[1]
+    d = parts[0].shape[1]
 
     def classes(v, dtype=torch.float32):
         return per_pair(v, P, dev, dtype).repeat_interleave(K)
@@ -1978,7 +2046,6 @@ def fit_gbt_multiclass_pairs(Xb, y: torch.Tensor,
         return (-((p - Yk) * wk[:, :, None]),
                 torch.clamp(p * (1.0 - p), min=1e-6) * wk[:, :, None])
 
-    one = (lambda parts: parts) if sharded else (lambda parts: parts[0])
     for _ in range(n_rounds):
         G, H = zip(*shards.map(grads, margin, Y_s, w_s))
         fmask = None
@@ -1995,12 +2062,10 @@ def fit_gbt_multiclass_pairs(Xb, y: torch.Tensor,
         Hk = shards.map(lambda h: h.permute(0, 2, 1).reshape(
             P * K, h.shape[1]).contiguous(), H)
         tree, node = grow_trees(
-            one(Xb), one(Gk), one(Hk), max_depth, n_bins,
+            Xb, Gk, Hk, max_depth, n_bins,
             reg_lambda=reg_lambda, min_child_weight=min_child_weight,
             min_gain=gamma, feature_mask=fmask, active_depth=active_depth,
-            alpha=alpha, min_gain_norm=min_gain_norm,
-            shards=shards if sharded else None)
-        node = node if sharded else [node]
+            alpha=alpha, min_gain_norm=min_gain_norm)
         margin = shards.map(
             lambda mg, l, leaf, nd: mg + l * torch.gather(
                 leaf[:, :, 0], 1, nd.long()).reshape(

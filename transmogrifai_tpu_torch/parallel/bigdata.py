@@ -40,7 +40,18 @@ The port's counterpart of the JAX package's `parallel/bigdata.py`
   directly. Value columns are rounded to bf16 and widened to f32 before
   K1 and K3, as the JAX package's matmuls quantize them;
 - **prediction** (`predict_tree_big`, `predict_forest_big`) through K5 on
-  the int8 matrix.
+  the int8 matrix;
+- **the data axis** (``sharding=data_sharding(mesh)`` on the builders):
+  the rows split over the mesh's data axis in whole upload chunks, each
+  chunk written into the shard that owns it on one side stream per card
+  (`parallel/rowshards.py` has the design); the builders return
+  `RowSplit`s and every learner and predictor here takes one in place of
+  a tensor. Each reduction over rows is a sum of the shards' partials on
+  the lead in shard order: the LR products (Σw and the penalty once), K1
+  (K2 on the lead), K3's leaf sums with the formula on the lead; K3's
+  routing and K5 run a shard at a time. The JAX package's builders take
+  any `NamedSharding` and GSPMD does the rest; the port takes the data
+  axis's and refuses any other, and a split inside a chunk, by name.
 
 F2: the JAX package's chunked helpers drop tail rows when the row count is
 not a multiple of `chunk` (`n // chunk` chunks). The builders pad to a
@@ -55,9 +66,8 @@ RetryPolicy`; by default `_default_ingest_retry`, whose attempts
 ``TRANSMOGRIFAI_INGEST_RETRIES`` sets), with attempts and backoff in the
 returned `IngestStats`, as in the JAX package.
 
-Not ported, and refused by name (ROADMAP.md, queue 1): sharded buffers
-(`sharding=`, item 9c), and the learned upload plan (`workers`/`depth`
-default to `UPLOAD_WORKERS`/`UPLOAD_DEPTH`). The JAX
+Not ported (ROADMAP.md, queue 1, item 10): the learned upload plan
+(`workers`/`depth` default to `UPLOAD_WORKERS`/`UPLOAD_DEPTH`). The JAX
 package's cache events for its trace (`record_event`) are absent with its
 trace (queue 1, item 10). The JAX package's dispatch-time bound in
 `lockstep_width` guards a TPU's execution limit and is left out
@@ -66,12 +76,12 @@ trace (queue 1, item 10). The JAX package's dispatch-time bound in
 
 from __future__ import annotations
 
-import contextlib
+import bisect
 import ctypes
 import logging
 import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,11 +94,14 @@ from transmogrifai_tpu_torch.data.pipeline import (
 from transmogrifai_tpu_torch.device import resolve_device
 from transmogrifai_tpu_torch.evaluators.device_metrics import sigmoid
 from transmogrifai_tpu_torch.models import lbfgs
-from transmogrifai_tpu_torch.models.base import per_pair
-from transmogrifai_tpu_torch.models.trees import (
-    _f32, _require, bin_dtype, bin_features_plain,
-    hist_scratch_bytes, histograms,
-    leaf_values, predict_forest, route_level, split_search, tree_walk)
+from transmogrifai_tpu_torch.models.trees import (  # noqa: F401
+    _f32, _histograms_chunked, _require, bin_dtype, bin_features_plain,
+    grow_trees, hist_scratch_bytes, level_times, predict_forest, tree_walk)
+# (`level_times` and `_histograms_chunked` live with `grow_trees`; the big
+# path's callers reach them here)
+from transmogrifai_tpu_torch.parallel.mesh import DATA_AXIS, NamedSharding
+from transmogrifai_tpu_torch.parallel.rowshards import (
+    RowShards, RowSplit, chunk_shards, rows_of)
 from transmogrifai_tpu_torch.stages.base import fma_f32
 
 log = logging.getLogger(__name__)
@@ -98,8 +111,6 @@ HIST_CHUNK_ROWS = 65_536      # the CPU plain versions' row chunk
 UPLOAD_WORKERS = 2            # memmap read + cast threads
 UPLOAD_DEPTH = 4              # chunk copies and writes in flight
 
-SHARDING_REFUSED = ("sharding= is not ported (ROADMAP queue 1, item 9c: "
-                    "the big path on the data axis — sharded builders)")
 QUANT_BITS = (8, 4)
 
 
@@ -535,11 +546,12 @@ class _CacheSession:
 
     def __init__(self, kind: str, store: ColumnarStore, chunk_rows: int, *,
                  legacy_wire: torch.dtype, target_name: str, edges=None,
-                 cache=None):
+                 sharding: Optional[str] = None, cache=None):
         self.kind = kind
         self.store = store
         self.chunk_rows = int(chunk_rows)
         self.edges = edges
+        self.sharding = sharding
         self.d = store.n_features
         self.n_pad = _pad_rows(store.n_rows, chunk_rows)
         self.params = fc.resolve_cache_params(cache)
@@ -562,7 +574,7 @@ class _CacheSession:
             self.cache_obj = fc.FeatureCache(self.params)
             self.key = fc.cache_key(
                 kind, store, target_dtype=target_name, wire=self.wire_mode,
-                chunk_rows=self.chunk_rows, edges=edges,
+                chunk_rows=self.chunk_rows, edges=edges, sharding=sharding,
                 quant_sample=self.params.quant_sample,
                 quant_seed=self.params.quant_seed)
         self.artifact: Optional[fc.CacheArtifact] = None
@@ -632,7 +644,7 @@ class _CacheSession:
             "wire_cols": self.wire_cols,
             "chunk_rows": self.chunk_rows,
             "edges_sha": fc._edges_digest(self.edges),
-            "sharding": None,
+            "sharding": self.sharding,
         }
 
     def begin(self, stats: IngestStats):
@@ -677,11 +689,6 @@ class _CacheSession:
             if self.quant is not None
             else _chunk_prepare(self.store, self.chunk_rows, stats))
         return prepare, range(0, self.store.n_rows, self.chunk_rows)
-
-    def quant_device(self, dev) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(scale, lo) on `dev` for the dequant writes."""
-        return (torch.from_numpy(self.quant.scale).to(dev),
-                torch.from_numpy(self.quant.lo).to(dev))
 
     def tee(self, host: torch.Tensor) -> None:
         """Artifact append off the upload stream (main thread, item order,
@@ -744,28 +751,35 @@ class _CacheSession:
             self.writer = None
 
 
-def _upload(sess: _CacheSession, prepare_chunk, items, write, label: str,
-            deadline_s, workers, depth, dev,
+def _upload(sess: _CacheSession, prepare_chunk, items, writes, label: str,
+            deadline_s, workers, depth, shards: RowShards,
             stats: IngestStats, retry=None) -> IngestStats:
-    """Stream `items` (chunk start rows) through `write(chunk, r0)`: on
-    worker threads `prepare_chunk` reads, quantizes or replays each chunk
-    into a ring of `depth` host buffers (pinned on the card); on the main
-    thread, in item order, the session tees the chunk's host bytes into
-    its artifact, then on the card the chunk is copied to the device on a
-    side stream, where `write` launches the kernel after the copy in
-    stream order; on the CPU `write` reads the host buffer itself. A
-    buffer is refilled only after its chunk was issued and its copy's
-    event fired, so the tee always reads the chunk it was given."""
+    """Stream `items` (chunk start rows) through the shards' writes
+    (`writes[k](chunk, local r0)` for the shard k that owns the chunk's
+    rows): on worker threads `prepare_chunk` reads, quantizes or replays
+    each chunk into a ring of `depth` host buffers (pinned on the card);
+    on the main thread, in item order, the session tees the chunk's host
+    bytes into its artifact, then on the card the chunk is copied to its
+    shard's device on that device's side stream, where the write launches
+    the kernel, in that device's context, after the copy in stream order;
+    on the CPU the write reads the host buffer itself. One side stream per
+    distinct device, each joined to that device's current stream at the
+    end. A buffer is refilled only after its chunk was issued and its
+    copy's event fired, so the tee always reads the chunk it was given."""
     stats.label = label
-    cuda = dev.type == "cuda"
+    cuda = shards.lead.type == "cuda"
     chunk_rows = sess.chunk_rows
     ring = ChunkRing(depth, (chunk_rows, sess.wire_cols), sess.ring_dtype,
                      pin=cuda)
-    stream = None
+    streams: Dict[torch.device, torch.cuda.Stream] = {}
     if cuda:
-        stream = torch.cuda.Stream(dev)
-        # the resident buffers were allocated on the current stream
-        stream.wait_stream(torch.cuda.current_stream(dev))
+        for k, dev in enumerate(shards.devices):
+            if dev not in streams:
+                with shards.on(k):
+                    streams[dev] = torch.cuda.Stream(dev)
+                    # the resident buffers were allocated on the current
+                    # stream
+                    streams[dev].wait_stream(torch.cuda.current_stream(dev))
 
     def prepare(r0: int):
         j = r0 // chunk_rows
@@ -773,16 +787,19 @@ def _upload(sess: _CacheSession, prepare_chunk, items, write, label: str,
 
     def upload(prepared):
         j, r0, host = prepared
+        k = bisect.bisect_right(shards.bounds, r0) - 1
+        local = r0 - shards.bounds[k]
         sess.tee(host)
         if not cuda:
-            write(host, r0)
+            writes[k](host, local)
             ring.issued(j, None)
             return None
-        with torch.cuda.stream(stream):
+        dev = shards.devices[k]
+        with shards.on(k), torch.cuda.stream(streams[dev]):
             cdev = host.to(dev, non_blocking=True)
-            write(cdev, r0)
+            writes[k](cdev, local)
             event = torch.cuda.Event()
-            event.record(stream)
+            event.record(streams[dev])
         ring.issued(j, event)
         if r0 and (r0 // chunk_rows) % 8 == 0:
             log.info("%s: %d/%d rows", label, r0, sess.n_pad)
@@ -797,8 +814,11 @@ def _upload(sess: _CacheSession, prepare_chunk, items, write, label: str,
         sess.abort()
         raise
     finally:
-        if stream is not None:
-            torch.cuda.current_stream(dev).wait_stream(stream)
+        for k, dev in enumerate(shards.devices):
+            stream = streams.pop(dev, None)
+            if stream is not None:
+                with shards.on(k):
+                    torch.cuda.current_stream(dev).wait_stream(stream)
     log.info("%s: %d rows in %.1fs (%.2f GB/s, overlap %.2f, retries %d%s)",
              label, sess.store.n_rows, stats.wall_s, stats.gbps,
              stats.overlap_frac, stats.retries,
@@ -806,38 +826,76 @@ def _upload(sess: _CacheSession, prepare_chunk, items, write, label: str,
     return stats
 
 
+def sharding_key(shards: RowShards) -> str:
+    """The cache key's and the artifact meta's name of a data sharding:
+    the axis, and each shard's device and rows (no object address), so
+    the same layout hits and any other misses."""
+    return (f"NamedSharding(spec=('{DATA_AXIS}',), devices="
+            f"{[str(d) for d in shards.devices]}, rows={shards.sizes})")
+
+
 def _plan(store, chunk_rows, workers, depth, sharding, retry, device):
-    """(device, workers, depth, retry policy) of one build."""
-    if sharding is not None:
-        raise NotImplementedError(SHARDING_REFUSED)
+    """(row shards, workers, depth, retry policy) of one build: one shard
+    on `device` without a sharding; with a data sharding
+    (`parallel.mesh.data_sharding(mesh)`), the rows of the mesh's data
+    axis in whole upload chunks (`chunk_shards`)."""
     if chunk_rows <= 0:
         raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
-    return (resolve_device(device),
+    n_pad = _pad_rows(store.n_rows, chunk_rows)
+    if sharding is None:
+        shards = RowShards(n_pad, [resolve_device(device)])
+    else:
+        if not (isinstance(sharding, NamedSharding)
+                and sharding.spec == (DATA_AXIS,)):
+            raise ValueError(
+                f"sharding= takes a row sharding over a mesh's data axis, "
+                f"data_sharding(mesh) (spec ('{DATA_AXIS}',)); got "
+                f"{sharding!r}")
+        shards = chunk_shards(n_pad, chunk_rows, sharding.data_devices)
+    return (shards,
             UPLOAD_WORKERS if workers is None else int(workers),
             UPLOAD_DEPTH if depth is None else int(depth),
             retry if retry is not None else _default_ingest_retry())
 
 
 def _build(sess: _CacheSession, label: str, alloc, writes, deadline_s,
-           workers, depth, dev, return_stats: bool, retry=None):
-    """A builder's body: the resident registry, else the buffers from
-    `alloc()` written by `writes(bufs, quant_dev)`'s per-chunk write (the
-    classic write when quant_dev is None, the dequant write with (scale,
-    lo) on the device otherwise) through the cache session's upload."""
+           workers, depth, shards: RowShards, sharded: bool,
+           return_stats: bool, retry=None, edges=None):
+    """A builder's body: the resident registry, else each shard's buffers
+    from `alloc(device, rows)` written by `writes(bufs, quant, edges)`'s
+    per-chunk write (the classic write when quant is None, the dequant
+    write with (scale, lo) on the shard's device otherwise; `edges` on
+    that device) through the cache session's upload. Sharded, each result
+    is a `RowSplit` of the shards' buffers."""
     res = sess.resident()
     if res is not None:
-        bufs, stats = res
+        out, stats = res
     else:
         stats = IngestStats(label=label)
         prepare, items = sess.begin(stats)
-        bufs = alloc()
-        quant_dev = (sess.quant_device(dev) if sess.quant is not None
-                     else None)
-        _upload(sess, prepare, items, writes(bufs, quant_dev), label,
-                deadline_s, workers, depth, dev, stats, retry)
-        sess.finish(stats, bufs)
-    return (*bufs, stats) if return_stats else (
-        bufs[0] if len(bufs) == 1 else tuple(bufs))
+        bufs = shards.map(alloc, shards.devices, shards.sizes)
+        none = [None] * shards.n_shards
+        quant = none if sess.quant is None else list(zip(*(
+            shards.broadcast(torch.from_numpy(a))
+            for a in (sess.quant.scale, sess.quant.lo))))
+        edges_k = none if edges is None else shards.broadcast(
+            torch.from_numpy(np.asarray(edges, np.float32)))
+        per_shard = shards.map(writes, bufs, quant, edges_k)
+        _upload(sess, prepare, items, per_shard, label, deadline_s, workers,
+                depth, shards, stats, retry)
+        out = (tuple(RowSplit(shards, [b[i] for b in bufs])
+                     for i in range(len(bufs[0])))
+               if sharded else bufs[0])
+        sess.finish(stats, out)
+    return (*out, stats) if return_stats else (
+        out[0] if len(out) == 1 else tuple(out))
+
+
+def _session(kind: str, store: ColumnarStore, chunk_rows: int, shards,
+             sharding, **kw) -> _CacheSession:
+    return _CacheSession(kind, store, chunk_rows, cache=kw.pop("cache"),
+                         sharding=(None if sharding is None
+                                   else sharding_key(shards)), **kw)
 
 
 def device_matrix(store: ColumnarStore, dtype=torch.bfloat16,
@@ -853,32 +911,40 @@ def device_matrix(store: ColumnarStore, dtype=torch.bfloat16,
     buffer's own dtype is copied; a quantized wire dequantizes on the
     device (K12-dequant). `deadline_s` raises TimeoutError mid-upload.
 
+    `sharding` (`parallel.mesh.data_sharding(mesh)`): the rows over the
+    mesh's data axis in whole upload chunks, each chunk written into the
+    shard that owns it on that shard's device (the mesh names the
+    devices; `device` is not read); the buffer comes back as a
+    `parallel.rowshards.RowSplit`, bit-equal row for row to the unsharded
+    build. Any other sharding raises ValueError.
+
     `cache`: feature-cache policy (None → process default/env;
     "off"/"read"/"readwrite"; or a `FeatureCacheParams`). On a hit the
     build replays the content-addressed wire artifact — zero store reads
     — bit-equal to the cold build that wrote it; on a readwrite miss the
-    wire stream tees into a crash-consistent artifact.
+    wire stream tees into a crash-consistent artifact. The sharding is
+    part of the key; the artifact's bytes are the same whatever it is.
     `FeatureCacheParams(wire="int8"/"int4")` ships a quantized wire (max
     abs error scale/2 per feature, see data/feature_cache.py). With
     `return_stats`, returns (buffer, IngestStats)."""
-    dev, workers, depth, retry = _plan(store, chunk_rows, workers, depth,
-                                       sharding, retry, device)
-    sess = _CacheSession("matrix", store, chunk_rows,
-                         legacy_wire=_wire_of(store, dtype),
-                         target_name=fc.dtype_name(dtype), cache=cache)
+    shards, workers, depth, retry = _plan(store, chunk_rows, workers, depth,
+                                          sharding, retry, device)
+    sess = _session("matrix", store, chunk_rows, shards, sharding,
+                    legacy_wire=_wire_of(store, dtype),
+                    target_name=fc.dtype_name(dtype), cache=cache)
     wire = sess.legacy_wire
     if sess.bits is None and not (wire == dtype or wire == torch.float16):
         raise ValueError(f"device_matrix: no write from a {wire} wire into "
                          f"a {dtype} buffer")
 
-    def alloc():
-        return (torch.empty((sess.n_pad, store.n_features), dtype=dtype,
+    def alloc(dev, rows):
+        return (torch.empty((rows, store.n_features), dtype=dtype,
                             device=dev),)
 
-    def writes(bufs, quant_dev):
+    def writes(bufs, quant, edges):
         (x,) = bufs
-        if quant_dev is not None:
-            scale, lo = quant_dev
+        if quant is not None:
+            scale, lo = quant
             bits = sess.quant.bits
             return lambda c, r0: dequant_write_rows(x, c, scale, lo, r0, bits)
         if wire == dtype:
@@ -886,7 +952,7 @@ def device_matrix(store: ColumnarStore, dtype=torch.bfloat16,
         return lambda c, r0: write_cast_rows(x, c, r0)
 
     return _build(sess, "device_matrix", alloc, writes, deadline_s, workers,
-                  depth, dev, return_stats, retry)
+                  depth, shards, sharding is not None, return_stats, retry)
 
 
 def device_binned(store: ColumnarStore, edges: np.ndarray,
@@ -899,31 +965,31 @@ def device_binned(store: ColumnarStore, edges: np.ndarray,
     """(n_pad, d) int8 quantile-binned buffer on `device`: chunks ship as
     f16 (an f32 store rounds through f16, as in the JAX package) and bin
     on the device (K12), or ship quantized and bin the dequantized f32
-    values (K12-dequant). Pad rows are the bins of the pad row. `cache` as
-    in `device_matrix`: a hit replays the wire tape, so the binned matrix
-    is bit-equal to the build that wrote it."""
-    dev, workers, depth, retry = _plan(store, chunk_rows, workers, depth,
-                                       sharding, retry, device)
-    sess = _CacheSession("binned", store, chunk_rows,
-                         legacy_wire=torch.float16, target_name="int8",
-                         edges=edges, cache=cache)
-    edges_dev = torch.as_tensor(np.asarray(edges, np.float32), device=dev)
+    values (K12-dequant). Pad rows are the bins of the pad row. `sharding`
+    and `cache` as in `device_matrix`: a hit replays the wire tape, so the
+    binned matrix is bit-equal to the build that wrote it."""
+    shards, workers, depth, retry = _plan(store, chunk_rows, workers, depth,
+                                          sharding, retry, device)
+    sess = _session("binned", store, chunk_rows, shards, sharding,
+                    legacy_wire=torch.float16, target_name="int8",
+                    edges=edges, cache=cache)
 
-    def alloc():
-        return (torch.empty((sess.n_pad, store.n_features),
-                            dtype=torch.int8, device=dev),)
+    def alloc(dev, rows):
+        return (torch.empty((rows, store.n_features), dtype=torch.int8,
+                            device=dev),)
 
-    def writes(bufs, quant_dev):
+    def writes(bufs, quant, edges_dev):
         (b,) = bufs
-        if quant_dev is not None:
-            scale, lo = quant_dev
+        if quant is not None:
+            scale, lo = quant
             bits = sess.quant.bits
             return lambda c, r0: dequant_bin_write_rows(
                 b, c, scale, lo, edges_dev, r0, bits)
         return lambda c, r0: bin_write_rows(b, c, edges_dev, r0)
 
     return _build(sess, "device_binned", alloc, writes, deadline_s, workers,
-                  depth, dev, return_stats, retry)
+                  depth, shards, sharding is not None, return_stats, retry,
+                  edges)
 
 
 def dual_device_matrices(store: ColumnarStore, edges: np.ndarray,
@@ -938,37 +1004,35 @@ def dual_device_matrices(store: ColumnarStore, edges: np.ndarray,
     (n_pad, d) int8 binned matrix: each wire chunk crosses to the device
     once and K12's dual entry (or K12-dequant's) reads it once for both.
     For an f16 store both equal `device_matrix`'s and `device_binned`'s
-    buffers. `cache` as in `device_matrix`: the artifact is the single
-    wire tape, and a hit reproduces both matrices bit for bit. Returns
-    (X16, Xb) or, with `return_stats`, (X16, Xb, IngestStats)."""
+    buffers. `sharding` and `cache` as in `device_matrix`: the artifact is
+    the single wire tape, and a hit reproduces both matrices bit for bit.
+    Returns (X16, Xb) or, with `return_stats`, (X16, Xb, IngestStats)."""
     if dtype != torch.bfloat16:
         raise ValueError(f"dual_device_matrices: the kernel writes bf16, "
                          f"got {dtype}")
-    dev, workers, depth, retry = _plan(store, chunk_rows, workers, depth,
-                                       sharding, retry, device)
-    sess = _CacheSession("dual", store, chunk_rows,
-                         legacy_wire=torch.float16,
-                         target_name=fc.dtype_name(dtype), edges=edges,
-                         cache=cache)
+    shards, workers, depth, retry = _plan(store, chunk_rows, workers, depth,
+                                          sharding, retry, device)
+    sess = _session("dual", store, chunk_rows, shards, sharding,
+                    legacy_wire=torch.float16,
+                    target_name=fc.dtype_name(dtype), edges=edges,
+                    cache=cache)
     d = store.n_features
-    edges_dev = torch.as_tensor(np.asarray(edges, np.float32), device=dev)
 
-    def alloc():
-        return (torch.empty((sess.n_pad, d), dtype=torch.bfloat16,
-                            device=dev),
-                torch.empty((sess.n_pad, d), dtype=torch.int8, device=dev))
+    def alloc(dev, rows):
+        return (torch.empty((rows, d), dtype=torch.bfloat16, device=dev),
+                torch.empty((rows, d), dtype=torch.int8, device=dev))
 
-    def writes(bufs, quant_dev):
+    def writes(bufs, quant, edges_dev):
         x, b = bufs
-        if quant_dev is not None:
-            scale, lo = quant_dev
+        if quant is not None:
+            scale, lo = quant
             bits = sess.quant.bits
             return lambda c, r0: dequant_dual_write_rows(
                 x, b, c, scale, lo, edges_dev, r0, bits)
         return lambda c, r0: dual_write_rows(x, b, c, edges_dev, r0)
 
     return _build(sess, "dual", alloc, writes, deadline_s, workers, depth,
-                  dev, return_stats, retry)
+                  shards, sharding is not None, return_stats, retry, edges)
 
 
 # --------------------------------------------------------------------------- #
@@ -994,7 +1058,7 @@ def _one_hot(y: torch.Tensor, k: int) -> torch.Tensor:
     return torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
 
 
-def fit_logreg_big(X16: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+def fit_logreg_big(X16, y: torch.Tensor, w: torch.Tensor,
                    l2: float, n_classes: int, max_iter: int = 50
                    ) -> Dict[str, torch.Tensor]:
     """Pure-L2 multinomial logistic regression against the bf16 matrix by
@@ -1002,45 +1066,58 @@ def fit_logreg_big(X16: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     Σ(ll·w)/max(Σw, 1) + l2/2·‖W‖², logits X16 @ bf16(W) with an f32
     result, the gradient written out ((softmax − Y)·w/Σw, its X product
     bf16 × bf16 → f32; the JAX package's autodiff rounds that product to
-    bf16, the dtype of its bf16 W). Held at the metric level (F5).
+    bf16, the dtype of its bf16 W). Held at the metric level (F5). X16 may
+    be a `RowSplit`: each shard's loss and products are partials added on
+    the lead, W goes out once a step, Σw and the penalty are taken once.
     Returns {"W": (d, k), "b": (k,)}."""
-    d = X16.shape[1]
+    shards, X, y_s, w_s = rows_of(X16, y, w)
+    d = X[0].shape[1]
     k = n_classes
-    Y = _one_hot(y, k)
-    wsum = torch.clamp(w.sum(), min=1.0)
-    wn = (w / wsum)[:, None]
+    wsum = torch.clamp(shards.sum(shards.map(torch.sum, w_s)), min=1.0)
+    parts = shards.map(lambda yk, wk, ws: (_one_hot(yk, k), wk,
+                                           (wk / ws)[:, None]),
+                       y_s, w_s, shards.broadcast(wsum))
+
+    def partial(Xk, Wk, b, Y, wk, wn):
+        logits = mm_f32(Xk, Wk) + b
+        ll = -(Y * torch.log_softmax(logits, dim=-1)).sum(-1)
+        R = (torch.softmax(logits, dim=-1) - Y) * wn
+        return (ll * wk).sum(), mm_f32(Xk.T, _bf16(R)), R.sum(0)
 
     def value_and_grad(x):
         W, b = x[0, :d * k].reshape(d, k), x[0, d * k:]
-        logits = mm_f32(X16, _bf16(W)) + b
-        ll = -(Y * torch.log_softmax(logits, dim=-1)).sum(-1)
-        value = (ll * w).sum() / wsum + 0.5 * l2 * (W ** 2).sum()
-        R = (torch.softmax(logits, dim=-1) - Y) * wn
-        gW = mm_f32(X16.T, _bf16(R)) + l2 * W
-        return value[None], torch.cat([gW.reshape(-1), R.sum(0)])[None]
+        got = shards.map(lambda Xk, Wk, bk, p: partial(Xk, Wk, bk, *p), X,
+                         shards.broadcast(_bf16(W)), shards.broadcast(b),
+                         parts)
+        ll, gW, gb = (shards.sum([g[i] for g in got]) for i in range(3))
+        value = ll / wsum + 0.5 * l2 * (W ** 2).sum()
+        return value[None], torch.cat([(gW + l2 * W).reshape(-1), gb])[None]
 
     x = lbfgs.minimize(value_and_grad, torch.zeros(
-        (1, d * k + k), dtype=torch.float32, device=X16.device), max_iter)
+        (1, d * k + k), dtype=torch.float32, device=shards.lead), max_iter)
     return {"W": x[0, :d * k].reshape(d, k), "b": x[0, d * k:]}
 
 
-def _lipschitz_big(X16: torch.Tensor, w: torch.Tensor,
-                   wsum: torch.Tensor) -> torch.Tensor:
+def _lipschitz_big(shards, X, w_s, wsum: torch.Tensor) -> torch.Tensor:
     """λmax(Xᵀ diag(w) X)/Σw by 16 power iterations from 1/√d, every X
-    product bf16 × bf16 → f32 (the JAX package's `pw` scan)."""
-    d = X16.shape[1]
-    v = (1.0 / torch.sqrt(torch.tensor(float(d), device=X16.device))
+    product bf16 × bf16 → f32 (the JAX package's `pw` scan); over shards,
+    v goes out once a step and each step's Xᵀ product is a sum of the
+    shards' partials on the lead."""
+    d = X[0].shape[1]
+    v = (1.0 / torch.sqrt(torch.tensor(float(d), device=shards.lead))
          ).expand(d, 1).contiguous()
     nrm = None
     for _ in range(16):
-        xv = mm_f32(X16, _bf16(v))
-        u = mm_f32(X16.T, _bf16(w[:, None] * xv))
+        u = shards.sum(shards.map(
+            lambda Xk, wk, vk: mm_f32(Xk.T, _bf16(wk[:, None]
+                                                  * mm_f32(Xk, vk))),
+            X, w_s, shards.broadcast(_bf16(v))))
         nrm = torch.linalg.vector_norm(u)
         v = u / torch.clamp(nrm, min=1e-12)
     return nrm / wsum
 
 
-def fit_logreg_enet_grids_big(X16: torch.Tensor, y: torch.Tensor,
+def fit_logreg_enet_grids_big(X16, y: torch.Tensor,
                               w: torch.Tensor, l1v, l2v, n_classes: int,
                               max_iter: int = 200
                               ) -> Dict[str, torch.Tensor]:
@@ -1048,30 +1125,38 @@ def fit_logreg_enet_grids_big(X16: torch.Tensor, y: torch.Tensor,
     bf16 matrix with X read twice per step for all grids at once: weights
     live as (d, g·k), so the forward and adjoint products are single wide
     products (bf16 × bf16 → f32). Step 1/L with L = 0.525·λmax/Σw + l2 +
-    1e-8, λmax by 16 power iterations. Returns {"W": (g, d, k), "b": (g,
-    k)}."""
-    d = X16.shape[1]
-    dev = X16.device
+    1e-8, λmax by 16 power iterations. X16 may be a `RowSplit` (y and w
+    whole on the lead): W goes out once a step, each shard's Xᵀ·R and
+    bias sums are partials added on the lead in shard order, where the
+    step and the prox run; Σw and the penalty are taken once. Returns
+    {"W": (g, d, k), "b": (g, k)}."""
+    shards, X, y_s, w_s = rows_of(X16, y, w)
+    d = X[0].shape[1]
+    dev = shards.lead
     l1v = torch.as_tensor(l1v, dtype=torch.float32, device=dev)
     l2v = torch.as_tensor(l2v, dtype=torch.float32, device=dev)
     g, k = l1v.shape[0], n_classes
-    Y1 = _one_hot(y, k)[:, None, :]
-    wsum = torch.clamp(w.sum(), min=1.0)
-    lam = _lipschitz_big(X16, w, wsum)
+    Y1 = shards.map(lambda yk: _one_hot(yk, k)[:, None, :], y_s)
+    w3 = shards.map(lambda wk: wk[:, None, None], w_s)
+    wsum = torch.clamp(shards.sum(shards.map(torch.sum, w_s)), min=1.0)
+    lam = _lipschitz_big(shards, X, w_s, wsum)
     L = 0.5 * 1.05 * lam + l2v + 1e-8
     step = (1.0 / L)[None, :, None]
     step_b = (1.0 / L)[:, None]
     l1 = l1v[None, :, None]
     l2 = l2v[None, :, None]
-    w3 = w[:, None, None]
+
+    def partial(Xk, Wk, b, Yk, wk):
+        logits = mm_f32(Xk, Wk).reshape(-1, g, k) + b
+        R = (torch.softmax(logits, dim=-1) - Yk) * wk
+        return mm_f32(Xk.T, _bf16(R.reshape(-1, g * k))), R.sum(0)
 
     def smooth_grads(W, b):                      # W (d, g, k), b (g, k)
-        logits = mm_f32(X16, _bf16(W.reshape(d, g * k))).reshape(-1, g, k) \
-            + b
-        R = (torch.softmax(logits, dim=-1) - Y1) * w3
-        gW = mm_f32(X16.T, _bf16(R.reshape(-1, g * k))).reshape(d, g, k) \
-            / wsum + l2 * W
-        return gW, R.sum(0) / wsum
+        got = shards.map(partial, X,
+                         shards.broadcast(_bf16(W.reshape(d, g * k))),
+                         shards.broadcast(b), Y1, w3)
+        gW, gb = (shards.sum([p[i] for p in got]) for i in range(2))
+        return gW.reshape(d, g, k) / wsum + l2 * W, gb / wsum
 
     W = torch.zeros((d, g, k), dtype=torch.float32, device=dev)
     b = torch.zeros((g, k), dtype=torch.float32, device=dev)
@@ -1089,7 +1174,7 @@ def fit_logreg_enet_grids_big(X16: torch.Tensor, y: torch.Tensor,
     return {"W": W.permute(1, 0, 2).contiguous(), "b": b}
 
 
-def fit_logreg_enet_big(X16: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+def fit_logreg_enet_big(X16, y: torch.Tensor, w: torch.Tensor,
                         l1: float, l2: float, n_classes: int,
                         max_iter: int = 200) -> Dict[str, torch.Tensor]:
     """One elastic-net fit by FISTA against the bf16 matrix: the grid fit
@@ -1100,78 +1185,36 @@ def fit_logreg_enet_big(X16: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
 
 
 def predict_logreg_grids_big(W: torch.Tensor, b: torch.Tensor,
-                             X16: torch.Tensor) -> torch.Tensor:
+                             X16) -> torch.Tensor:
     """(g, n, k) probabilities for stacked grid weights W (g, d, k), b (g,
-    k): one X pass."""
+    k): one X pass (a shard at a time for a `RowSplit`, gathered on the
+    lead in row order)."""
     (g, d, k) = W.shape
-    logits = mm_f32(X16, _bf16(W.permute(1, 0, 2).reshape(d, g * k))) \
-        .reshape(-1, g, k) + b
-    return torch.softmax(logits, dim=-1).permute(1, 0, 2)
+    shards, X = rows_of(X16)
+    Wf = _bf16(W.permute(1, 0, 2).reshape(d, g * k))
+    probs = shards.map(
+        lambda Xk, Wk, bk: torch.softmax(
+            mm_f32(Xk, Wk).reshape(-1, g, k) + bk, dim=-1).permute(1, 0, 2),
+        X, shards.broadcast(Wf), shards.broadcast(b))
+    return shards.gather(probs, 1)
 
 
 def predict_logreg_big(W: torch.Tensor, b: torch.Tensor,
-                       X16: torch.Tensor) -> Dict[str, torch.Tensor]:
-    logits = mm_f32(X16, _bf16(W)) + b
-    return {"prediction": torch.argmax(logits, -1).to(torch.float32),
-            "rawPrediction": logits,
-            "probability": torch.softmax(logits, dim=-1)}
+                       X16) -> Dict[str, torch.Tensor]:
+    shards, X = rows_of(X16)
+
+    def predict(Xk, Wk, bk):
+        logits = mm_f32(Xk, Wk) + bk
+        return [{"prediction": torch.argmax(logits, -1).to(torch.float32),
+                 "rawPrediction": logits,
+                 "probability": torch.softmax(logits, dim=-1)}]
+    return RowSplit(shards, X).preds(predict, X, shards.broadcast(_bf16(W)),
+                                     shards.broadcast(b))[0]
 
 
 # --------------------------------------------------------------------------- #
 # tree families (K13): K learners level by level over K1/K2/K3                #
 # --------------------------------------------------------------------------- #
-
-_TIMERS: List[List[Dict]] = []
-
-
-@contextlib.contextmanager
-def level_times():
-    """Inside the block, every lockstep growth on the card records CUDA
-    events around each level's K1, K2 and K3 launches and around its leaf
-    pass. Yields a list that holds, once the block exits (it synchronizes),
-    one dict per level: {"K", "level", "nodes", "histograms_ms",
-    "split_search_ms", "route_level_ms"}, and one per growth with
-    "leaf_values_ms"."""
-    rec: List[Dict] = []
-    _TIMERS.append(rec)
-    try:
-        yield rec
-    finally:
-        _TIMERS.pop()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        for r in rec:
-            for name, (a, b) in r.pop("_events", {}).items():
-                r[f"{name}_ms"] = a.elapsed_time(b)
-
-
-def _timed(rec: Optional[Dict], name: str, fn):
-    if rec is None:
-        return fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    out = fn()
-    b.record()
-    rec.setdefault("_events", {})[name] = (a, b)
-    return out
-
-
-def _histograms_chunked(Xb, node_K, G, H, n_nodes, n_bins, chunk):
-    """K1 over all rows on the card; on the CPU the plain version summed
-    over row chunks of `chunk` (it builds (K, chunk, d) cell ids)."""
-    if Xb.is_cuda:
-        return histograms(Xb, node_K, G, H, n_nodes, n_bins)
-    n = Xb.shape[0]
-    hg = hh = None
-    for r0 in range(0, n, chunk):
-        sl = slice(r0, r0 + chunk)
-        cg, ch = histograms(Xb[sl], node_K[:, sl].contiguous(),
-                            G[:, :, sl].contiguous(), H[:, sl].contiguous(),
-                            n_nodes, n_bins)
-        hg, hh = (cg, ch) if hg is None else (hg + cg, hh + ch)
-    return hg, hh
-
 
 def _value_channels(V_K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Value columns (K, n, p) → G (K, p − 1, n) and H (K, n) f32, each
@@ -1182,57 +1225,25 @@ def _value_channels(V_K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         V[:, :, -1].contiguous()
 
 
-def _grow_lockstep(Xb, G, H, max_depth, n_bins, reg_lambda, min_child_weight,
-                   min_gain, min_gain_norm, feature_mask_K, chunk):
-    """K trees from bf16-rounded value channels G (K, m, n), weights H (K,
-    n): per level K1 → K2 → K3 routing, all K learners in one launch of
-    each; then K3's leaf pass (Σ G / (Σ H + λ)). Returns (tree arrays,
-    final node ids (K, n))."""
-    n = Xb.shape[0]
-    _check_chunk("grow_trees_big_lockstep", n, chunk)
-    K = H.shape[0]
-    dev = Xb.device
-    max_nodes = 2 ** max_depth
-    node = torch.zeros((K, n), dtype=torch.int32, device=dev)
-    feats = torch.zeros((K, max_depth, max_nodes), dtype=torch.int32,
-                        device=dev)
-    bins = torch.full((K, max_depth, max_nodes), n_bins, dtype=torch.int32,
-                      device=dev)
-    spare = torch.empty_like(node)  # routing writes one, reads the other
-    # the live set of each level (K2 searches the nodes K3 flagged)
-    flags = torch.zeros((K, max_depth, max_nodes), dtype=torch.uint8,
-                        device=dev)
-    # K2's hyperparameters as (K,) tensors once, not once a level
-    lam, mcw, mg, mgn = (per_pair(v, K, dev) for v in (
-        reg_lambda, min_child_weight, min_gain, min_gain_norm))
-    timers = _TIMERS[-1] if (_TIMERS and Xb.is_cuda) else None
-    for level in range(max_depth):
-        n_nodes = 2 ** level
-        rec = None
-        if timers is not None:
-            rec = {"K": K, "level": level, "nodes": n_nodes}
-            timers.append(rec)
-        hg, hh = _timed(rec, "histograms", lambda: _histograms_chunked(
-            Xb, node, G, H, n_nodes, n_bins, chunk))
-        here = (feats[:, level, :n_nodes], bins[:, level, :n_nodes])
-        _timed(rec, "split_search", lambda: split_search(
-            hg, hh, n_bins, lam, mcw, mg, mgn, feature_mask_K, level, None,
-            live=flags[:, level, :n_nodes] if level else None, out=here))
-        del hg, hh
-        nxt = flags[:, level + 1, :2 * n_nodes] if level + 1 < max_depth \
-            else None
-        node, spare = _timed(rec, "route_level", lambda: route_level(
-            Xb, node, *here, occupied=nxt, out=spare)), node
-    rec = None
-    if timers is not None:
-        rec = {"K": K, "leaves": max_nodes}
-        timers.append(rec)
-    leaf = _timed(rec, "leaf_values", lambda: leaf_values(
-        node, G, H, max_nodes, reg_lambda, 0.0))
-    return {"feat": feats, "bin": bins, "leaf": leaf}, node
+def _grow_lockstep(shards, Xb, G, H, max_depth, n_bins, reg_lambda,
+                   min_child_weight, min_gain, min_gain_norm, feature_mask_K,
+                   chunk):
+    """K trees from the shards' parts of Xb, of the bf16-rounded value
+    channels G (K, m, n_k) and of the weights H (K, n_k) (lists, one
+    entry a shard): `grow_trees` with every level's histograms built
+    directly — per level K1 → K2 → K3 routing, all K learners in one
+    launch of each on each shard, the partial histograms added on the
+    lead — then the leaves (K3's leaf pass, Σ G / (Σ H + λ); over several
+    shards each shard's sums added on the lead, the formula there).
+    Returns (tree arrays, each shard's final node ids (K, n_k))."""
+    _check_chunk("grow_trees_big_lockstep", shards.n, chunk)
+    return grow_trees(RowSplit(shards, Xb), G, H, max_depth, n_bins,
+                      reg_lambda, min_child_weight, min_gain, feature_mask_K,
+                      min_gain_norm=min_gain_norm, chunk=chunk,
+                      subtract=False)
 
 
-def grow_trees_big_lockstep(Xb: torch.Tensor, V_K: torch.Tensor,
+def grow_trees_big_lockstep(Xb, V_K: torch.Tensor,
                             max_depth: int, n_bins: int, reg_lambda=1.0,
                             min_child_weight=1.0, min_gain=0.0,
                             min_gain_norm=0.0,
@@ -1240,18 +1251,21 @@ def grow_trees_big_lockstep(Xb: torch.Tensor, V_K: torch.Tensor,
                             chunk: int = HIST_CHUNK_ROWS
                             ) -> Dict[str, torch.Tensor]:
     """Grow K trees level-synchronized against the resident int8 matrix Xb
-    (n, d) from value columns V_K (K, n, m + 1) ([G·, H]: gradients or
-    labels × bootstrap weights, then the weight column), each learner with
-    its own feature mask (K, d) if given. Returns {"feat", "bin": (K,
-    depth, 2^depth) int32, "leaf": (K, 2^depth, m) f32}."""
+    (n, d) (a tensor, or a `RowSplit` over row shards) from value columns
+    V_K (K, n, m + 1) ([G·, H]: gradients or labels × bootstrap weights,
+    then the weight column) whole on the lead, each learner with its own
+    feature mask (K, d) if given. Returns {"feat", "bin": (K, depth,
+    2^depth) int32, "leaf": (K, 2^depth, m) f32}."""
+    shards, X = rows_of(Xb)
     G, H = _value_channels(V_K)
-    trees, _ = _grow_lockstep(Xb, G, H, max_depth, n_bins, reg_lambda,
-                              min_child_weight, min_gain, min_gain_norm,
-                              feature_mask_K, chunk)
+    trees, _ = _grow_lockstep(shards, X, shards.split(G, 2),
+                              shards.split(H, 1), max_depth, n_bins,
+                              reg_lambda, min_child_weight, min_gain,
+                              min_gain_norm, feature_mask_K, chunk)
     return trees
 
 
-def grow_tree_big(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
+def grow_tree_big(Xb, G: torch.Tensor, H: torch.Tensor,
                   max_depth: int, n_bins: int, reg_lambda=1.0,
                   min_child_weight=1.0, min_gain=0.0, min_gain_norm=0.0,
                   feature_mask: Optional[torch.Tensor] = None,
@@ -1269,17 +1283,22 @@ def grow_tree_big(Xb: torch.Tensor, G: torch.Tensor, H: torch.Tensor,
 
 
 def lockstep_width(max_depth: int, d: int, n_bins: int, m: int,
-                   requested: int, n: Optional[int] = None) -> int:
+                   requested: int, n: Optional[int] = None,
+                   n_shards: int = 1) -> int:
     """Learners per lockstep batch: the deepest level's histograms
-    (K·(m + 1)·2^(depth − 1)·d·bins f32), and with the row count n K1's
-    piece scratch at that level (`hist_scratch_bytes`), held to ~800 MB,
-    at most 16 and at most `requested`. (The JAX package's `n` also bounds
+    (K·(m + 1)·2^(depth − 1)·d·bins f32), and with the row count n (the
+    largest shard's) K1's piece scratch at that level
+    (`hist_scratch_bytes`), held to ~800 MB, at most 16 and at most
+    `requested`. Grown over `n_shards` row shards, the lead also holds
+    every shard's partial histograms of that level before they are added,
+    and each shard its own K1 scratch. (The JAX package's `n` also bounds
     a modeled dispatch time against a TPU's execution limit; the port has
     no such limit.)"""
     budget_elems = 2e8
-    per_learner = (m + 1) * (2 ** (max_depth - 1)) * d * n_bins
+    level = (m + 1) * (2 ** (max_depth - 1)) * d * n_bins
+    per_learner = level + (n_shards * level if n_shards > 1 else 0)
     if n is not None:
-        per_learner += hist_scratch_bytes(
+        per_learner += n_shards * hist_scratch_bytes(
             1, n, 2 ** max(max_depth - 1, 0), m, d, n_bins) // 4
     k_mem = max(1, int(budget_elems // max(per_learner, 1)))
     return max(1, min(requested, k_mem, 16))
@@ -1313,22 +1332,26 @@ def forest_big_draws(seed: int, trees: range, n: int, d: int,
     return torch.stack(boots), torch.stack(masks)
 
 
-def _forest_lockstep_batch(Xb, Y, w, boot, fmask, max_depth: int,
-                           n_bins: int, min_child_weight, min_gain,
-                           chunk: int):
+def _forest_lockstep_batch(shards, Xb, Y_s, w_s, boot, fmask,
+                           max_depth: int, n_bins: int, min_child_weight,
+                           min_gain, chunk: int):
     """One lockstep batch of bootstrap trees from their draws (counts (K,
-    n), masks (K, d)): value columns [Y·boot·w, boot·w] rounded to bf16,
-    λ = 1e-6."""
-    bw = boot * w[None, :]
-    V = torch.cat([Y.to(torch.float32)[None] * bw[:, :, None],
-                   bw[:, :, None]], dim=2)
-    return grow_trees_big_lockstep(
-        Xb, V, max_depth, n_bins, reg_lambda=1e-6,
-        min_child_weight=min_child_weight, min_gain_norm=min_gain,
-        feature_mask_K=fmask, chunk=chunk)
+    n) on the lead, split here; masks (K, d)): on each shard the value
+    columns [Y·boot·w, boot·w] rounded to bf16, λ = 1e-6."""
+    def channels(Yk, wk, bk):
+        bw = bk * wk[None, :]
+        return _value_channels(torch.cat(
+            [Yk.to(torch.float32)[None] * bw[:, :, None], bw[:, :, None]],
+            dim=2))
+    GH = shards.map(channels, Y_s, w_s, shards.split(boot, 1))
+    trees, _ = _grow_lockstep(
+        shards, Xb, [g for g, _ in GH], [h for _, h in GH], max_depth,
+        n_bins, 1e-6, min_child_weight, 0.0, min_gain,
+        fmask, chunk)
+    return trees
 
 
-def fit_forest_big(Xb: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
+def fit_forest_big(Xb, Y: torch.Tensor, w: torch.Tensor,
                    n_trees: int, max_depth: int, n_bins: int,
                    n_outputs: int, seed: int = 0,
                    subsample_features: bool = True,
@@ -1336,34 +1359,41 @@ def fit_forest_big(Xb: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
                    bootstrap: bool = True, chunk: int = HIST_CHUNK_ROWS,
                    trees_per_dispatch: Optional[int] = None,
                    draws=None) -> Dict[str, torch.Tensor]:
-    """A random forest of `n_trees` on the resident int8 matrix, grown in
-    lockstep batches of `lockstep_width` trees: labels Y (n, m) (one-hot
-    classes), row weights w (n,). Tree t's bootstrap counts and feature
-    mask (⌊√d⌋ features) come from `forest_big_draws`, or from `draws` =
-    (counts (n_trees, n), masks (n_trees, d)) — e.g. the JAX package's
-    threefry draws. Returns {"feat", "bin": (n_trees, depth, 2^depth),
-    "leaf": (n_trees, 2^depth, m)}. (`n_outputs` is accepted for
-    signature parity; the width comes from Y.)"""
-    n, d = Xb.shape
+    """A random forest of `n_trees` on the resident int8 matrix (a tensor,
+    or a `RowSplit` over row shards), grown in lockstep batches of
+    `lockstep_width` trees: labels Y (n, m) (one-hot classes), row weights
+    w (n,), both whole on the lead. Tree t's bootstrap counts and feature
+    mask (⌊√d⌋ features) come from `forest_big_draws` at the whole n on
+    the lead (a draw at a shard's n would move every tree), or from
+    `draws` = (counts (n_trees, n), masks (n_trees, d)) — e.g. the JAX
+    package's threefry draws; each batch's counts are then split over the
+    shards. Returns {"feat", "bin": (n_trees, depth, 2^depth), "leaf":
+    (n_trees, 2^depth, m)}. (`n_outputs` is accepted for signature
+    parity; the width comes from Y.)"""
+    shards, X = rows_of(Xb)
+    n, d = shards.n, X[0].shape[1]
+    dev = shards.lead
     _check_chunk("fit_forest_big", n, chunk)
     n_sub = max(int(np.sqrt(d)), 1) if subsample_features else None
     m = int(Y.shape[1])
     K = min(lockstep_width(max_depth, d, n_bins, m,
-                           trees_per_dispatch or 16, n=n), n_trees)
+                           trees_per_dispatch or 16, n=max(shards.sizes),
+                           n_shards=shards.n_shards), n_trees)
     if draws is not None:
         boot_all, mask_all = (torch.as_tensor(np.array(a) if not isinstance(
-            a, torch.Tensor) else a).to(Xb.device) for a in draws)
+            a, torch.Tensor) else a).to(dev) for a in draws)
         _require(boot_all.shape == (n_trees, n)
                  and mask_all.shape == (n_trees, d),
                  f"fit_forest_big: draws {tuple(boot_all.shape)} / "
                  f"{tuple(mask_all.shape)} must be ({n_trees}, {n}) / "
                  f"({n_trees}, {d})")
+    Y_s, w_s = shards.split(Y), shards.split(w)
     parts = []
     for s in range(0, n_trees, K):
         idx = range(s, min(s + K, n_trees))
         if draws is None:
             boot, mask = forest_big_draws(seed, idx, n, d, n_sub, bootstrap,
-                                          Xb.device)
+                                          dev)
         else:
             boot = boot_all[s:idx.stop].to(torch.float32)
             mask = mask_all[s:idx.stop].to(torch.bool)
@@ -1372,8 +1402,8 @@ def fit_forest_big(Xb: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
         if n_sub is None:
             mask = torch.ones_like(mask)
         parts.append(_forest_lockstep_batch(
-            Xb, Y, w, boot, mask, max_depth, n_bins, min_child_weight,
-            min_gain, chunk))
+            shards, X, Y_s, w_s, boot, mask, max_depth, n_bins,
+            min_child_weight, min_gain, chunk))
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
@@ -1386,46 +1416,64 @@ def _gradients(margin, y, w, objective):
     raise ValueError(f"unknown objective {objective!r}")
 
 
-def _gbt_round_big_lockstep(Xb, y, w_K, margin_K, max_depth: int,
+def _gbt_round_big_lockstep(shards, Xb, y_s, w_s, margin_s, max_depth: int,
                             n_bins: int, learning_rate, reg_lambda,
                             objective: str, min_child_weight=1.0,
                             gamma=0.0, chunk: int = HIST_CHUNK_ROWS):
     """One boosting round for K lockstep (grid, fold) pairs, each with its
-    own margin (K, n) and row weights w_K (K, n): value columns [−g, h]
-    rounded to bf16, one tree per pair; margin += lr · the leaf each row
+    own margin (K, n) and row weights w_K (K, n), both kept on the shards
+    (lists of (K, n_k), as y): value columns [−g, h] rounded to bf16 on
+    each shard, one tree per pair; margin += lr · the leaf each row
     reaches (its final node from the growth, where `predict_tree_big`'s
-    walk lands it)."""
-    g, h = _gradients(margin_K, y[None, :], w_K, objective)
-    G = (-g).to(torch.bfloat16).to(torch.float32)[:, None, :].contiguous()
-    H = h.to(torch.bfloat16).to(torch.float32).contiguous()
-    trees, node = _grow_lockstep(Xb, G, H, max_depth, n_bins, reg_lambda,
-                                 min_child_weight, gamma, 0.0, None, chunk)
-    upd = torch.gather(trees["leaf"][:, :, 0], 1, node.long())
-    return margin_K + _f32(learning_rate) * upd, trees
+    walk lands it), the leaves sent to each shard once."""
+    def channels(margin, yk, wk):
+        g, h = _gradients(margin, yk[None, :], wk, objective)
+        return ((-g).to(torch.bfloat16).to(torch.float32)[:, None, :]
+                .contiguous(),
+                h.to(torch.bfloat16).to(torch.float32).contiguous())
+    GH = shards.map(channels, margin_s, y_s, w_s)
+    trees, node = _grow_lockstep(shards, Xb, [g for g, _ in GH],
+                                 [h for _, h in GH], max_depth, n_bins,
+                                 reg_lambda, min_child_weight, gamma, 0.0,
+                                 None, chunk)
+    lr = _f32(learning_rate)
+    margin_s = shards.map(
+        lambda margin, leaf, nd: margin + lr * torch.gather(
+            leaf[:, :, 0], 1, nd.long()),
+        margin_s, shards.broadcast(trees["leaf"]), node)
+    return margin_s, trees
 
 
-def fit_gbt_big_lockstep(Xb: torch.Tensor, y: torch.Tensor,
+def fit_gbt_big_lockstep(Xb, y: torch.Tensor,
                          w_K: torch.Tensor, n_estimators: int,
                          max_depth: int, n_bins: int, learning_rate,
                          reg_lambda, objective: str = "logistic",
                          min_child_weight: float = 1.0, gamma: float = 0.0,
                          chunk: int = HIST_CHUNK_ROWS
                          ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """Boost K lockstep pairs from a zero margin: returns ({"feat", "bin":
-    (rounds, K, depth, 2^depth), "leaf": (rounds, K, 2^depth, 1)},
-    margins (K, n)). No row or column sampling: deterministic rounds."""
-    K, n = w_K.shape
-    margin = torch.zeros((K, n), dtype=torch.float32, device=Xb.device)
+    """Boost K lockstep pairs from a zero margin on the resident int8
+    matrix (a tensor, or a `RowSplit` over row shards; y and w_K whole on
+    the lead, split once): returns ({"feat", "bin": (rounds, K, depth,
+    2^depth), "leaf": (rounds, K, 2^depth, 1)}, margins (K, n) on the
+    lead). Over shards each shard keeps its margins and gradients; the
+    margins are gathered once, at the end. No row or column sampling:
+    deterministic rounds."""
+    shards, X = rows_of(Xb)
+    K = w_K.shape[0]
+    y_s, w_s = shards.split(y), shards.split(w_K, 1)
+    margin = shards.map(lambda wk: torch.zeros(
+        (K, wk.shape[1]), dtype=torch.float32, device=wk.device), w_s)
     kept = []
     for _ in range(n_estimators):
         margin, tree = _gbt_round_big_lockstep(
-            Xb, y, w_K, margin, max_depth, n_bins, learning_rate,
+            shards, X, y_s, w_s, margin, max_depth, n_bins, learning_rate,
             reg_lambda, objective, min_child_weight, gamma, chunk)
         kept.append(tree)
-    return {k: torch.stack([t[k] for t in kept]) for k in kept[0]}, margin
+    return ({k: torch.stack([t[k] for t in kept]) for k in kept[0]},
+            shards.gather(margin, 1))
 
 
-def fit_gbt_big(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+def fit_gbt_big(Xb, y: torch.Tensor, w: torch.Tensor,
                 n_estimators: int, max_depth: int, n_bins: int,
                 learning_rate, reg_lambda, objective: str = "logistic",
                 min_child_weight: float = 1.0, gamma: float = 0.0,
@@ -1441,16 +1489,27 @@ def fit_gbt_big(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return {k: v[:, 0] for k, v in trees.items()}, margin[0]
 
 
+def _walk_shards(trees: Dict[str, torch.Tensor], Xb, walk):
+    """`walk(trees, Xb_k)` (K5) on each row shard's part, the tables sent
+    to each shard's device once, gathered on the lead in row order (on a
+    tensor, `walk(trees, Xb)`)."""
+    shards, X = rows_of(Xb)
+    sent = shards.map(lambda *tables: dict(zip(trees, tables)),
+                      *(shards.broadcast(t) for t in trees.values()))
+    return shards.gather(shards.map(walk, sent, X))
+
+
 def predict_tree_big(tree: Dict[str, torch.Tensor],
-                     Xb: torch.Tensor) -> torch.Tensor:
+                     Xb) -> torch.Tensor:
     """(n, m) leaf values of one tree ({"feat", "bin": (depth, width),
-    "leaf": (width, m)}) on the int8 matrix, through K5."""
-    return tree_walk(Xb, tree["feat"][None], tree["bin"][None],
-                     tree["leaf"][None])
+    "leaf": (width, m)}) on the int8 matrix (a tensor or a `RowSplit`),
+    through K5 (a launch a shard)."""
+    return _walk_shards(tree, Xb, lambda t, Xk: tree_walk(
+        Xk, t["feat"][None], t["bin"][None], t["leaf"][None]))
 
 
 def predict_forest_big(trees: Dict[str, torch.Tensor],
-                       Xb: torch.Tensor) -> torch.Tensor:
+                       Xb) -> torch.Tensor:
     """(n, m) mean of stacked trees' leaf values (K5: the sum in tree
-    order, then / T)."""
-    return predict_forest(trees, Xb)
+    order, then / T), a launch a shard of a `RowSplit`."""
+    return _walk_shards(trees, Xb, predict_forest)

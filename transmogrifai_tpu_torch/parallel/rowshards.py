@@ -31,6 +31,33 @@ Every operation on a shard runs inside its device's context
 `cuda:0` is current would run on the wrong card's stream. One card, even
 with a mesh that repeats it, cannot show that fault, so `on` is the only
 way this module touches a shard's device.
+
+The big path (`parallel/bigdata.py`, a builder given
+``sharding=data_sharding(mesh)``) shards its resident matrices the same
+way, with three rules of its own:
+
+- **Shards are whole upload chunks** (`chunk_shards`): the builders pad
+  the rows to a multiple of the upload chunk and every chunked function
+  raises on a partial chunk (F2), so a shard boundary never falls inside
+  a chunk. The chunks are spread as evenly as they go, the first shards
+  one chunk more (4,456,448 rows in 17 chunks of 262,144 over two shards:
+  9 + 8). Each chunk is written by K12 into the one shard that owns it,
+  at its local row.
+- **One copy stream per card.** The upload copies a chunk on a side
+  stream of its shard's device, launches K12 in that device's context on
+  that stream, and joins each distinct device's stream to that device's
+  current stream once at the end; shards on a repeated card share its
+  stream.
+- **The leaf formula runs once, on the lead.** A tree grown over shards
+  takes K3's leaf sums on each shard, adds them on the lead and applies
+  the formula to the total (`models/trees.py`, `grow_trees`); the LR
+  grid adds each product over rows on the lead and takes Σw and the
+  penalty there once.
+
+A matrix split so is a `RowSplit`: the shards and the parts. The
+builders and the sweep return it, and every fit and predictor that takes
+a matrix takes a tensor or a `RowSplit` in its place (`rows_of` unpacks
+either; a tensor is the one-shard case, with the same bits as before).
 """
 
 from __future__ import annotations
@@ -40,7 +67,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-__all__ = ["RowShards"]
+__all__ = ["RowShards", "RowSplit", "chunk_shards", "rows_of"]
 
 
 def _indexed(d) -> torch.device:
@@ -69,6 +96,20 @@ class RowShards:
             self.bounds.append(self.bounds[-1] + size)
         self.n = int(n)
         self.lead = self.devices[0]
+
+    @classmethod
+    def of_sizes(cls, sizes: Sequence[int],
+                 devices: Sequence[torch.device]) -> "RowShards":
+        """Shards of the given row counts (in order) on `devices`."""
+        if len(sizes) != len(devices) or min(sizes, default=0) < 0:
+            raise ValueError(f"RowShards.of_sizes: sizes {list(sizes)} for "
+                             f"{len(devices)} devices")
+        out = cls(sum(sizes), devices)
+        out.sizes = [int(s) for s in sizes]
+        out.bounds = [0]
+        for size in out.sizes:
+            out.bounds.append(out.bounds[-1] + size)
+        return out
 
     @classmethod
     def single(cls, t: torch.Tensor) -> "RowShards":
@@ -116,7 +157,11 @@ class RowShards:
 
     def gather(self, parts: Sequence[torch.Tensor],
                dim: int = 0) -> torch.Tensor:
-        """The shards' parts concatenated in row order on the lead."""
+        """The shards' parts concatenated in row order on the lead; of one
+        shard, its part itself (no copy), so the one-shard case of a path
+        written over shards has the bits of the unsharded one."""
+        if len(parts) == 1:
+            return parts[0].to(self.lead)
         with self.on(0):
             return torch.cat([p.to(self.lead) for p in parts], dim)
 
@@ -150,3 +195,80 @@ class RowShards:
                     copies[dev] = t.to(dev)
             out.append(copies[dev])
         return out
+
+
+def chunk_shards(n_pad: int, chunk: int,
+                 devices: Sequence[torch.device]) -> RowShards:
+    """`n_pad` rows (a multiple of `chunk`) over `devices` in whole chunks,
+    as even as the chunks allow, the first shards one chunk more. Raises
+    when a shard would get no chunk: a split inside a chunk is refused."""
+    S = len(devices)
+    if chunk <= 0 or n_pad % chunk != 0:
+        raise ValueError(f"chunk_shards: {n_pad} rows are not a multiple of "
+                         f"the chunk {chunk}")
+    n_chunks = n_pad // chunk
+    if S > 1 and n_chunks < S:
+        raise ValueError(
+            f"chunk_shards: {n_chunks} chunks of {chunk} rows cannot give "
+            f"{S} shards a whole chunk each; a shard boundary inside a "
+            "chunk is refused (use fewer shards or a smaller chunk_rows)")
+    base, extra = divmod(n_chunks, S)
+    return RowShards.of_sizes([(base + (k < extra)) * chunk
+                               for k in range(S)], devices)
+
+
+class RowSplit:
+    """A matrix split over row shards: the `RowShards` and its parts, one
+    per shard on that shard's device. The sweep's split of its training
+    matrix, and what a builder given a data sharding returns; the learners
+    of either take it in place of a tensor."""
+
+    def __init__(self, shards: RowShards, parts: List[torch.Tensor]):
+        if [p.shape[0] for p in parts] != shards.sizes:
+            raise ValueError(f"RowSplit: parts of {[p.shape[0] for p in parts]}"
+                             f" rows for {shards!r}")
+        self.shards = shards
+        self.parts = list(parts)
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((self.shards.n,) + tuple(self.parts[0].shape[1:]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        """The lead's device, where reductions and gathers land."""
+        return self.shards.lead
+
+    def __repr__(self) -> str:
+        return (f"RowSplit({tuple(self.shape)}, {self.dtype}, "
+                f"{self.shards!r})")
+
+    def gather(self) -> torch.Tensor:
+        """The whole matrix on the lead, in row order (tests and checks;
+        the learners never gather it)."""
+        return self.shards.gather(self.parts)
+
+    def preds(self, fn: Callable[..., Sequence[Dict]],
+              *per_shard) -> List[Dict]:
+        """`fn(*args_k)` (one prediction dict per pair) on every shard k,
+        each key's values gathered to the lead in row order."""
+        parts = self.shards.map(fn, *per_shard)
+        return [{k: self.shards.gather([p[q][k] for p in parts])
+                 for k in parts[0][q]} for q in range(len(parts[0]))]
+
+
+def rows_of(X, *whole: torch.Tensor, dim: int = -1) -> tuple:
+    """(shards, X's parts, then each tensor of `whole` split with X's
+    bounds along `dim`) of a `RowSplit` X, or of a tensor X as one shard.
+    `whole` holds the tensors a fit takes whole on the lead: labels (n,)
+    and row weights (n,) or (P, n) have their rows along the last dim."""
+    if isinstance(X, RowSplit):
+        shards, parts = X.shards, X.parts
+    else:
+        shards, parts = RowShards.single(X), [X]
+    return (shards, parts) + tuple(shards.split(t, dim % t.dim())
+                                   for t in whole)

@@ -42,16 +42,17 @@ its last config (`_shard_dyn`) and runs one contiguous slice per lane, as
 the same batched program on the lane's device, on a worker thread with a
 stream of its own; the rows come back in lane order without the pad.
 
-The data axis: a fit context whose mesh has a data axis wider than 1 (a
-lane's (1, data) sub-mesh) sweeps with its rows split over the row's
-devices (`_row_split`, a `parallel.rowshards.RowShards`; X is split once
-per training matrix). K4 bins each shard on its device; the linear,
-logistic and tree fits reduce over the shards explicitly; each handler's
-predictions come back gathered to the lead in row order, so the metric
-(K8, K8-mc, K8-reg) runs once on the whole (P, n) there, with W and V
-whole on the lead. The families the data axis does not reach yet (linear
-SVC, GLM, naive Bayes, MLP) raise naming ROADMAP.md queue 1, item 9c,
-and `_sweep_generic` takes X whole, as in the JAX package.
+The data axis: every handler fits and predicts over a
+`parallel.rowshards.RowSplit` of X (`_row_split`, once per training
+matrix): a fit context whose mesh has a data axis wider than 1 (a lane's
+(1, data) sub-mesh) splits the rows over the row's devices, any other
+gives X as one shard, the same code with the unsharded bits. K4 bins
+each shard on its device; every family's fit (logistic, linear, linear
+SVC, GLM, naive Bayes, MLP, the trees) reduces over the shards
+explicitly; each handler's predictions come back gathered to the lead in
+row order (`RowSplit.preds`), so the metric (K8, K8-mc, K8-reg) runs once
+on the whole (P, n) there, with W and V whole on the lead.
+`_sweep_generic` takes X whole, as in the JAX package.
 
 Not ported: the learned cost model's hooks (the block features behind
 `facts`, the HBM pre-shrink and the dispatch-width calibration) come with
@@ -95,7 +96,7 @@ from transmogrifai_tpu_torch.models.trees import (
     quantile_bin_edges)
 from transmogrifai_tpu_torch.obs import export as obs_export
 from transmogrifai_tpu_torch.obs.trace import TRACER
-from transmogrifai_tpu_torch.parallel.rowshards import RowShards
+from transmogrifai_tpu_torch.parallel.rowshards import RowShards, RowSplit
 from transmogrifai_tpu_torch.runtime.faults import (
     SITE_RUN_BLOCK, fault_point, is_oom_error)
 from transmogrifai_tpu_torch.runtime.journal import SweepJournal
@@ -386,57 +387,34 @@ def _sweep_blocks(grids: List[Dict], y: torch.Tensor, W: torch.Tensor,
 _SECONDS_LOCK = threading.Lock()
 
 
-DATA_AXIS_REFUSAL = ("{family} on a mesh's data axis (row-sharded fits) is "
-                     "not ported yet (ROADMAP.md queue 1, item 9c)")
-
-
-class RowSplit:
-    """A training matrix split over a data axis: the `RowShards` and X's
-    parts, one per shard on its device."""
-
-    def __init__(self, shards, X_parts: List[torch.Tensor]):
-        self.shards = shards
-        self.X = X_parts
-
-    def preds(self, fn: Callable[..., Sequence[Pred]],
-              *per_shard) -> List[Pred]:
-        """`fn(*args_k)` (one prediction dict per pair) on every shard k,
-        each key's values gathered to the lead in row order."""
-        parts = self.shards.map(fn, *per_shard)
-        return [{k: self.shards.gather([p[q][k] for p in parts])
-                 for k in parts[0][q]} for q in range(len(parts[0]))]
-
-
-def _row_split(ctx, X: torch.Tensor) -> Optional[RowSplit]:
+def _row_split(ctx, X: torch.Tensor) -> RowSplit:
     """X split over the data axis of the context's mesh (its first sweep
-    row's devices), or None when the axis is 1 wide. Cached on the context
-    per training matrix (identity-keyed, holding X)."""
-    mesh = getattr(ctx, "mesh", None) if ctx is not None else None
-    if mesh is None or mesh.data_width <= 1:
-        return None
-    cached = getattr(ctx, "_sweep_rows", None)
+    row's devices), or X as one shard when there is no axis wider than 1.
+    Cached on the context per training matrix (identity-keyed, holding
+    X)."""
+    cached = getattr(ctx, "_sweep_rows", None) if ctx is not None else None
     if cached is not None and cached[0] is X:
         return cached[1]
-    shards = RowShards(X.shape[0], mesh.lane_devices(0))
-    rows = RowSplit(shards, shards.split(X))
-    ctx._sweep_rows = (X, rows)
+    mesh = getattr(ctx, "mesh", None) if ctx is not None else None
+    if mesh is None or mesh.data_width <= 1:
+        rows = RowSplit(RowShards.single(X), [X])
+    else:
+        shards = RowShards(X.shape[0], mesh.lane_devices(0))
+        rows = RowSplit(shards, shards.split(X))
+    if ctx is not None:
+        ctx._sweep_rows = (X, rows)
     return rows
 
 
-def _refuse_rows(rows: Optional[RowSplit], family: str) -> None:
-    if rows is not None:
-        raise NotImplementedError(DATA_AXIS_REFUSAL.format(family=family))
-
-
 def _binned_cache(est, grids, X: torch.Tensor, ctx,
-                  rows: Optional[RowSplit] = None) -> Dict[int, Any]:
+                  rows: RowSplit) -> Dict[int, RowSplit]:
     """X binned once per distinct max_bins (edges from X's rows), cached on
     the fit context so every family of one selector fit shares it. The
     entry keeps X itself and is dropped when another matrix arrives
-    (workflow CV sweeps each fold's matrix under one context). Over row
-    shards (`rows`) the edges still come from the whole X on the host, and
-    K4 bins each shard's part on its device: an entry is then the list of
-    the shards' binned parts."""
+    (workflow CV sweeps each fold's matrix under one context). The edges
+    come from the whole X on the host, and K4 bins each shard of X's
+    split (`rows`) on its device: an entry is the split of the shards'
+    binned parts."""
     cached = getattr(ctx, "_sweep_bin_cache", None) if ctx is not None \
         else None
     if cached is not None and cached[0] is X and cached[1] is rows:
@@ -452,12 +430,10 @@ def _binned_cache(est, grids, X: torch.Tensor, ctx,
             if X_host is None:
                 X_host = X.cpu().numpy()
             edges = torch.as_tensor(quantile_bin_edges(X_host, mb))
-            if rows is None:
-                out[mb] = bin_features(X, edges.to(X.device))
-            else:
-                out[mb] = rows.shards.map(bin_features, rows.X,
-                                          rows.shards.broadcast(
-                                              edges.to(rows.shards.lead)))
+            shards = rows.shards
+            out[mb] = RowSplit(shards, shards.map(
+                bin_features, rows.parts,
+                shards.broadcast(edges.to(shards.lead))))
     return out
 
 
@@ -545,26 +521,21 @@ def static_signature(est, grid: Dict) -> Tuple:
 
 
 def _sweep_logistic(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
-                    rows=None):
-    shards = rows.shards if rows is not None else None
-    Xf = rows.X if rows is not None else X
+                    rows):
+    shards = rows.shards
 
     def fit_predict(static, idxs, dyn, Wp, Vp):
         max_iter, enet = static
         if enet:  # FISTA: one fit covers the group's (l1, l2) pairs
-            params = fit_logreg_enet(Xf, y, Wp, dyn["l1"], dyn["l2"],
-                                     n_classes, enet_iters(max_iter),
-                                     shards=shards)
+            params = fit_logreg_enet(rows, y, Wp, dyn["l1"], dyn["l2"],
+                                     n_classes, enet_iters(max_iter))
         else:  # pure L2: L-BFGS
-            params = fit_logreg(Xf, y, Wp, dyn["l2"], n_classes, max_iter,
-                                shards=shards)
+            params = fit_logreg(rows, y, Wp, dyn["l2"], n_classes, max_iter)
 
         def predict(Xk, Wk, bk):
             logits = torch.matmul(Xk, Wk) + bk[:, None, :]
             return [logreg_pred_from_logits(lg) for lg in logits]
-        if rows is None:
-            return predict(X, params["W"], params["b"])
-        return rows.preds(predict, rows.X, shards.broadcast(params["W"]),
+        return rows.preds(predict, rows.parts, shards.broadcast(params["W"]),
                           shards.broadcast(params["b"]))
 
     return _sweep_blocks(grids, y, W, V, metric_fn, ctx, "logistic",
@@ -574,23 +545,20 @@ def _sweep_logistic(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
 
 
 def _sweep_linreg(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
-                  rows=None):
-    shards = rows.shards if rows is not None else None
-    Xf = rows.X if rows is not None else X
+                  rows):
+    shards = rows.shards
 
     def fit_predict(static, idxs, dyn, Wp, Vp):
         if static[0]:  # any L1 in the group: the FISTA elastic net
-            params = fit_linreg_enet(Xf, y, Wp, dyn["l1"], dyn["l2"],
-                                     shards=shards)
+            params = fit_linreg_enet(rows, y, Wp, dyn["l1"], dyn["l2"])
         else:
-            params = fit_linreg(Xf, y, Wp, dyn["l2"], shards=shards)
+            params = fit_linreg(rows, y, Wp, dyn["l2"])
 
         def predict(Xk, beta, icpt):
             pred = torch.matmul(beta, Xk.T) + icpt[:, None]
             return [regression_pred(p) for p in pred]
-        if rows is None:
-            return predict(X, params["beta"], params["intercept"])
-        return rows.preds(predict, rows.X, shards.broadcast(params["beta"]),
+        return rows.preds(predict, rows.parts,
+                          shards.broadcast(params["beta"]),
                           shards.broadcast(params["intercept"]))
 
     return _sweep_blocks(grids, y, W, V, metric_fn, ctx, "linreg",
@@ -600,13 +568,18 @@ def _sweep_linreg(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
 
 
 def _sweep_svc(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
-               rows=None):
-    _refuse_rows(rows, "linear SVC")
+               rows):
+    shards = rows.shards
 
     def fit_predict(static, idxs, dyn, Wp, Vp):
-        params = fit_linear_svc(X, y, Wp, dyn["reg"], static[0])
-        margin = torch.matmul(params["beta"], X.T) + params["b"][:, None]
-        return [binary_margin_pred(m) for m in margin]
+        params = fit_linear_svc(rows, y, Wp, dyn["reg"], static[0])
+
+        def predict(Xk, beta, b):
+            margin = torch.matmul(beta, Xk.T) + b[:, None]
+            return [binary_margin_pred(m) for m in margin]
+        return rows.preds(predict, rows.parts,
+                          shards.broadcast(params["beta"]),
+                          shards.broadcast(params["b"]))
 
     return _sweep_blocks(
         grids, y, W, V, metric_fn, ctx, "svc",
@@ -616,15 +589,21 @@ def _sweep_svc(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
 
 
 def _sweep_glm(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
-               rows=None):
-    _refuse_rows(rows, "GLM")
+               rows):
+    shards = rows.shards
 
     def fit_predict(static, idxs, dyn, Wp, Vp):
         family, max_iter, var_power, link = static
-        params = fit_glm(X, y, Wp, dyn["reg"], family, max_iter, var_power,
-                         link)
-        eta = torch.matmul(params["beta"], X.T) + params["b"][:, None]
-        return [glm_pred_from_eta(e, family, link, var_power) for e in eta]
+        params = fit_glm(rows, y, Wp, dyn["reg"], family, max_iter,
+                         var_power, link)
+
+        def predict(Xk, beta, b):
+            eta = torch.matmul(beta, Xk.T) + b[:, None]
+            return [glm_pred_from_eta(e, family, link, var_power)
+                    for e in eta]
+        return rows.preds(predict, rows.parts,
+                          shards.broadcast(params["beta"]),
+                          shards.broadcast(params["b"]))
 
     return _sweep_blocks(
         grids, y, W, V, metric_fn, ctx, "glm",
@@ -634,24 +613,31 @@ def _sweep_glm(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
 
 
 def _sweep_nb(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
-              rows=None):
-    _refuse_rows(rows, "naive Bayes")
+              rows):
+    shards = rows.shards
     # Spark parity: negative features fail the family (the selector drops
-    # it); the verdict is read once per training matrix
+    # it); the verdict (over shards, the OR of each shard's) is read once
+    # per training matrix
     cache = getattr(ctx, "_nb_nonneg_cache", None) if ctx is not None \
         else None
     if cache is None or cache[0] is not X:
-        cache = (X, has_negative(X))
+        negative = any(shards.map(has_negative, rows.parts))
+        cache = (X, negative)
         if ctx is not None:
             ctx._nb_nonneg_cache = cache
     if cache[1]:
         raise ValueError(NEGATIVE_FEATURES)
 
     def fit_predict(static, idxs, dyn, Wp, Vp):
-        params = fit_naive_bayes(X, y, Wp, dyn["smoothing"], n_classes)
-        logits = torch.matmul(X, params["log_theta"].transpose(1, 2)) \
-            + params["log_prior"][:, None, :]
-        return [logreg_pred_from_logits(lg) for lg in logits]
+        params = fit_naive_bayes(rows, y, Wp, dyn["smoothing"], n_classes)
+
+        def predict(Xk, log_theta, log_prior):
+            logits = torch.matmul(Xk, log_theta.transpose(1, 2)) \
+                + log_prior[:, None, :]
+            return [logreg_pred_from_logits(lg) for lg in logits]
+        return rows.preds(predict, rows.parts,
+                          shards.broadcast(params["log_theta"]),
+                          shards.broadcast(params["log_prior"]))
 
     return _sweep_blocks(
         grids, y, W, V, metric_fn, ctx, "naive_bayes",
@@ -662,15 +648,23 @@ def _sweep_nb(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
 
 
 def _sweep_mlp(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
-               rows=None):
-    _refuse_rows(rows, "MLP")
+               rows):
+    shards = rows.shards
     seed = ctx.seed if ctx is not None else 0
 
     def fit_predict(static, idxs, dyn, Wp, Vp):
         hidden, max_iter = static
         layers = (int(X.shape[1]),) + tuple(hidden) + (n_classes,)
-        params = fit_mlp(X, y, Wp, layers, max_iter, dyn["lr"], seed)
-        return [logreg_pred_from_logits(lg) for lg in _forward(params, X)]
+        params = fit_mlp(rows, y, Wp, layers, max_iter, dyn["lr"], seed)
+
+        def predict(Xk, *tensors):
+            layer = [{"W": tensors[i], "b": tensors[i + 1]}
+                     for i in range(0, len(tensors), 2)]
+            return [logreg_pred_from_logits(lg)
+                    for lg in _forward(layer, Xk)]
+        flat = [t for layer in params for t in (layer["W"], layer["b"])]
+        return rows.preds(predict, rows.parts,
+                          *(shards.broadcast(t) for t in flat))
 
     return _sweep_blocks(
         grids, y, W, V, metric_fn, ctx, "mlp",
@@ -681,9 +675,9 @@ def _sweep_mlp(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
 
 
 def _sweep_forest(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
-                  rows=None, regression: bool = False):
+                  rows, regression: bool = False):
     xb_by_bins = _binned_cache(est, grids, X, ctx, rows)
-    shards = rows.shards if rows is not None else None
+    shards = rows.shards
     if regression:
         Y = y[:, None]
         pred_fn = forest_regression_pred
@@ -707,14 +701,12 @@ def _sweep_forest(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
                            max_bins, seed, subsample, dyn["mcw"],
                            active_depth=dyn["depth"],
                            bootstrap=est._bootstrap,
-                           min_gain=dyn["min_gain"], shards=shards)
+                           min_gain=dyn["min_gain"])
 
         def predict(Xbk, tk):  # K5 (K5-mc) over one shard's rows
             return [pred_fn({k: v[q] for k, v in tk.items()}, Xbk)
                     for q in range(Wp.shape[0])]
-        if rows is None:
-            return predict(Xb, trees)
-        return rows.preds(predict, Xb, shards.map(
+        return Xb.preds(predict, Xb.parts, shards.map(
             lambda *tables: dict(zip(trees, tables)),
             *(shards.broadcast(t) for t in trees.values())))
 
@@ -724,11 +716,10 @@ def _sweep_forest(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
 
 
 def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
-               rows=None):
+               rows):
     objective = est._objective
     multiclass = objective == "logistic" and n_classes > 2
     xb_by_bins = _binned_cache(est, grids, X, ctx, rows)
-    shards = rows.shards if rows is not None else None
     seed = ctx.seed if ctx is not None else 0
     eval_metric = str(getattr(est, "eval_metric", "logloss") or "logloss")
     d = X.shape[1]
@@ -773,8 +764,7 @@ def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
                                              dtype=torch.int32),
                 gamma=dyn["gamma"], alpha=dyn["alpha"],
                 subsample=dyn["subsample"], colsample=dyn["colsample"],
-                seed=seed, min_gain_norm=dyn["min_gain_norm"],
-                shards=shards)
+                seed=seed, min_gain_norm=dyn["min_gain_norm"])
             return [gbt_multiclass_pred_from_margin(mg) for mg in margin]
         _, margin, _ = fit_gbt_pairs(
             xb_by_bins[max_bins], y, Wp, n_est,
@@ -785,7 +775,7 @@ def _sweep_gbt(est, grids, X, y, W, V, metric_fn, ctx, n_classes,
             subsample=dyn["subsample"], colsample=dyn["colsample"],
             seed=seed, val_w=Vp, early_stopping_rounds=esr,
             min_gain_norm=dyn["min_gain_norm"], eval_metric=eval_metric,
-            objective=objective, shards=shards)
+            objective=objective)
         return [gbt_pred_from_margin(mg, objective) for mg in margin]
 
     return _sweep_blocks(grids, y, W, V, metric_fn, ctx, "gbt",
